@@ -1,0 +1,229 @@
+"""Vita-CLIP vision tower (port of gava_clip_tpu/models/vision.py, the plain /
+bf16 serving path).
+
+Per-frame ViT with summary, local and global prompt tokens; the prompt
+tokens are attention KEYS only (queries are [cls, patches]), as in the JAX
+tower. Parameters are a nested dict (or `ParamTree`) in the JAX layout,
+except that `blocks` is a list with one dict per layer where the JAX tree
+stacks the layers on a leading axis. The JAX `lax.scan` over the blocks is
+a Python loop here.
+"""
+
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.activations import quick_gelu
+from ..ops.attention import multi_head_attention
+from ..ops.linear import linear, mlp_block
+from ..ops.norm import layer_norm
+from .common import (init_attention, init_layer_norm, init_linear, normal,
+                     prompt_init_limit, uniform)
+
+
+@dataclass(frozen=True)
+class VisionConfig:
+    input_size: Tuple[int, int] = (224, 224)
+    num_frames: int = 8
+    feature_dim: int = 768
+    patch_size: Tuple[int, int] = (16, 16)
+    heads: int = 12
+    layers: int = 12
+    mlp_factor: float = 4.0
+    embed_dim: int = 512
+    use_summary_token: bool = False
+    use_local_prompts: bool = False
+    use_global_prompts: bool = False
+    num_global_prompts: int = 8
+
+    @property
+    def num_patches(self) -> int:
+        return (self.input_size[0] // self.patch_size[0]) * \
+               (self.input_size[1] // self.patch_size[1])
+
+
+def init_vision_params(gen: Optional[torch.Generator], cfg: VisionConfig,
+                       device=None):
+    """Random vision-tower params (the JAX init's distributions). With
+    device='meta' only the shapes are made (gen may be None)."""
+    D = cfg.feature_dim
+    hidden = round(cfg.mlp_factor * D)
+    lim = prompt_init_limit(cfg.patch_size, D)
+
+    def one_block():
+        blk = {
+            "attn": init_attention(gen, D, device=device),
+            "norm1": init_layer_norm(D, device),
+            "mlp": {"fc1": init_linear(gen, D, hidden, bias_std=1e-6,
+                                       device=device),
+                    "fc2": init_linear(gen, hidden, D, bias_std=1e-6,
+                                       device=device)},
+            "norm2": init_layer_norm(D, device),
+        }
+        if cfg.use_summary_token or cfg.use_local_prompts:
+            blk["cls_proj"] = init_linear(gen, D, D, xavier=False,
+                                          device=device)
+        if cfg.use_summary_token:
+            blk["summary_ln"] = init_layer_norm(D, device)
+            blk["summary_attn"] = init_attention(gen, D, device=device)
+        if cfg.use_local_prompts:
+            blk["local_prompts"] = uniform(gen, (1, cfg.num_frames, D),
+                                           -lim, lim, device)
+        return blk
+
+    params = {
+        "patch_embed": init_linear(gen, cfg.patch_size[0]
+                                   * cfg.patch_size[1] * 3, D, xavier=False,
+                                   device=device),
+        "cls_token": normal(gen, (D,), 0.02, device),
+        "pos_embed": normal(gen, (cfg.num_patches + 1, D), 0.02, device),
+        "time_embed": normal(gen, (cfg.num_frames, D), 0.02, device),
+        "blocks": [one_block() for _ in range(cfg.layers)],
+        "ln_pre": init_layer_norm(D, device),
+        "ln_post": init_layer_norm(D, device),
+        "proj": normal(gen, (D, cfg.embed_dim), D ** -0.5, device),
+    }
+    if cfg.use_global_prompts:
+        params["global_prompts"] = uniform(
+            gen, (cfg.layers, cfg.num_global_prompts, D), -lim, lim, device)
+    return params
+
+
+def patchify(x, patch_size: Tuple[int, int]):
+    """(B, T, H, W, C) -> (B, T, N, ph*pw*C) patch-major rows, for a numpy
+    array (host side) or a tensor."""
+    B, T, H, W, C = x.shape
+    ph, pw = patch_size
+    x = x.reshape(B, T, H // ph, ph, W // pw, pw, C)
+    order = (0, 1, 2, 4, 3, 5, 6)
+    x = x.permute(order) if isinstance(x, torch.Tensor) else \
+        x.transpose(order)
+    return x.reshape(B, T, (H // ph) * (W // pw), ph * pw * C)
+
+
+def patch_embed(params, x: torch.Tensor, cfg: VisionConfig) -> torch.Tensor:
+    """(BT, H, W, 3) -> (BT, N, D): the stride == kernel patch conv as a
+    patch relayout and one matmul against the (ph*pw*3, D) kernel (the same
+    math as the JAX NHWC/HWIO conv, without cuDNN)."""
+    BT = x.shape[0]
+    rows = patchify(x.reshape(1, BT, *x.shape[1:]), cfg.patch_size)[0]
+    return linear({"kernel": params["kernel"], "bias": params.get("bias")},
+                  rows)
+
+
+def fold_normalize_into_patch_embed(pe_params, mean: Sequence[float],
+                                    std: Sequence[float],
+                                    patch_size=(16, 16)):
+    """Fold the uint8 -> normalized-float preprocessing into the patch-embed
+    weights, so the device consumes raw uint8 patch rows:
+        W'[i, :] = W[i, :] / (255 * std[c(i)])
+        b'       = b - sum_i (mean[c(i)] / std[c(i)]) * W[i, :]
+    with c(i) = i % 3 (patchify keeps (ph, pw, C) order). Float32."""
+    kernel = pe_params["kernel"].float()
+    P = kernel.shape[0]
+    mean = torch.tensor(np.tile(np.asarray(mean, np.float32), P // 3),
+                        device=kernel.device)
+    std = torch.tensor(np.tile(np.asarray(std, np.float32), P // 3),
+                       device=kernel.device)
+    b = pe_params.get("bias")
+    b = torch.zeros(kernel.shape[1], device=kernel.device) if b is None \
+        else b.float()
+    out = dict(pe_params)
+    out["kernel"] = kernel / (255.0 * std)[:, None]
+    out["bias"] = b - ((mean / std)[:, None] * kernel).sum(dim=0)
+    return out
+
+
+def patch_embed_patches(params, x: torch.Tensor,
+                        compute_dtype) -> torch.Tensor:
+    """Patch-major embed: (BT, N, ph*pw*C) -> (BT, N, D), one matmul."""
+    return linear({"kernel": params["kernel"], "bias": params.get("bias")},
+                  x.to(compute_dtype))
+
+
+def resize_time_embed(time_embed: torch.Tensor, T: int) -> torch.Tensor:
+    """Nearest-neighbour resize of (T_train, D) to (T, D)
+    (F.interpolate(mode='nearest'))."""
+    T_train = time_embed.shape[0]
+    if T == T_train:
+        return time_embed
+    idx = (torch.arange(T, device=time_embed.device) * T_train) // T
+    return time_embed[idx]
+
+
+def _block(p, g_prompt: Optional[torch.Tensor], x: torch.Tensor,
+           cfg: VisionConfig, attn_impl: str):
+    """One prompt-aware transformer block over per-frame token rows.
+
+    x: (B*T, 1+N, D) = [cls, patches]. Returns (x, summary | None). The
+    global prompts, the summary token and the local prompts are appended
+    as attention keys only. Like the reference, the summary/local grouping
+    uses the TRAIN-time frame count cfg.num_frames."""
+    BT, Lx, D = x.shape
+    G = cfg.num_global_prompts
+    Tb = cfg.num_frames
+    Bb = BT // Tb
+
+    summary = None
+    extras = []
+    if cfg.use_summary_token or cfg.use_local_prompts:
+        cls_proj = linear(p["cls_proj"], x[:, 0].reshape(Bb, Tb, D))
+    if cfg.use_global_prompts:
+        extras.append(g_prompt[None].to(x.dtype).expand(BT, G, D))
+    if cfg.use_summary_token:
+        s_norm = layer_norm(cls_proj, p["summary_ln"]["scale"],
+                            p["summary_ln"]["bias"])
+        summary = cls_proj + multi_head_attention(
+            p["summary_attn"], s_norm, s_norm, s_norm, cfg.heads, impl="xla")
+        extras.append(summary.reshape(BT, 1, D))
+    if cfg.use_local_prompts:
+        lp = p["local_prompts"].to(x.dtype) + cls_proj          # (Bb, Tb, D)
+        # every frame row of a pseudo-video attends over the same Tb prompts
+        extras.append(lp[:, None].expand(Bb, Tb, Tb, D).reshape(BT, Tb, D))
+    kv = torch.cat([x] + extras, dim=1) if extras else x
+    kv_n = layer_norm(kv, p["norm1"]["scale"], p["norm1"]["bias"])
+    x = x + multi_head_attention(p["attn"], kv_n[:, :Lx], kv_n, kv_n,
+                                 cfg.heads, impl=attn_impl)
+    x = mlp_block(p["mlp"], p["norm2"], x, quick_gelu, residual=x)
+    return x, summary
+
+
+def vision_encoder(params, x: torch.Tensor, cfg: VisionConfig,
+                   compute_dtype=torch.float32, attn_impl: str = "xla",
+                   input_format: str = "frames"):
+    """Encode video -> (video_features (B, embed_dim), summary (B, D) | None).
+
+    input_format: 'frames' = (B, T, H, W, 3) pixels; 'patches' =
+    (B, T, N, ph*pw*3) patch-major rows (see patchify)."""
+    D = cfg.feature_dim
+    if input_format == "patches":
+        B, T, N, P = x.shape
+        x = patch_embed_patches(params["patch_embed"],
+                                x.reshape(B * T, N, P), compute_dtype)
+    else:
+        B, T, H, W, C = x.shape
+        x = x.reshape(B * T, H, W, C).to(compute_dtype)
+        x = patch_embed(params["patch_embed"], x, cfg)
+    cls = params["cls_token"].to(x.dtype).expand(B * T, 1, D)
+    x = torch.cat([cls, x], dim=1)
+    x = x + params["pos_embed"].to(x.dtype)
+    # row b*T + t gets the embedding of frame t
+    te = resize_time_embed(params["time_embed"], T).to(x.dtype)
+    x = x + te.repeat(B, 1)[:, None, :]
+    x = layer_norm(x, params["ln_pre"]["scale"], params["ln_pre"]["bias"])
+
+    g_prompts = params.get("global_prompts")
+    summary = None
+    for i, p in enumerate(params["blocks"]):
+        g = None if g_prompts is None else g_prompts[i]
+        x, summary = _block(p, g, x, cfg, attn_impl)
+
+    cls_x = layer_norm(x[:, 0], params["ln_post"]["scale"],
+                       params["ln_post"]["bias"])
+    cls_x = cls_x @ params["proj"].to(cls_x.dtype)
+    video_features = cls_x.reshape(B, T, cfg.embed_dim).mean(dim=1)
+    if cfg.use_summary_token:
+        return video_features, summary.mean(dim=1)
+    return video_features, None

@@ -1,0 +1,91 @@
+"""Build and bind the hand-written CUDA kernels in `gava_clip_tpu_torch/csrc/`.
+
+Each `csrc/<name>.cu` exports plain C entry points. At first use it is
+compiled with nvcc for sm_90a into `gava_clip_tpu_torch/_build/`, under a
+file name that carries a hash of the source and the flags (a stale build is
+never loaded), and bound with ctypes. Pointers and the stream go over as
+c_void_p, sizes as c_int. A missing nvcc or a failed build raises.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+# ctypes signature of every exported function, by source name
+_SIGNATURES = {
+    "packed_attention": {
+        # q, k, v, o; B, Lq, Lk, H, Dh; q/k/v/o batch and row strides;
+        # exp2 constant; stream
+        "packed_attention_bf16": (
+            [_VP] * 4 + [_I] * 5 + [_I] * 8 + [ctypes.c_float, _VP], _I),
+        "cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+# per kernel source: seconds the build took (0.0 when a cached .so was
+# loaded) and the compiler's output (ptxas register / spill report)
+build_info: Dict[str, Dict] = {}
+
+
+def find_nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "csrc/ at first use and need the CUDA toolkit")
+
+
+def _build(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = BUILD_DIR / f"lib{name}_{digest}.so"
+    if so.is_file():
+        build_info[name] = {"seconds": 0.0, "log": "", "so": str(so)}
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {src} ({res.returncode}):\n"
+                           f"{res.stdout}\n{res.stderr}")
+    os.replace(tmp, so)
+    build_info[name] = {"seconds": secs, "log": res.stdout + res.stderr,
+                        "so": str(so)}
+    return so
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The bound library built from csrc/<name>.cu (built at first use)."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(str(_build(name)))
+            for fn, (argtypes, restype) in _SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            _libs[name] = lib
+        return _libs[name]
