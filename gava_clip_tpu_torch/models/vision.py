@@ -1,5 +1,5 @@
-"""Vita-CLIP vision tower (port of gava_clip_tpu/models/vision.py, the plain /
-bf16 serving path).
+"""Vita-CLIP vision tower (port of gava_clip_tpu/models/vision.py, the bf16
+and the w8a8 serving paths).
 
 Per-frame ViT with summary, local and global prompt tokens; the prompt
 tokens are attention KEYS only (queries are [cls, patches]), as in the JAX
@@ -7,6 +7,15 @@ tower. Parameters are a nested dict (or `ParamTree`) in the JAX layout,
 except that `blocks` is a list with one dict per layer where the JAX tree
 stacks the layers on a leading axis. The JAX `lax.scan` over the blocks is
 a Python loop here.
+
+w8a8 serving (kernels quantized by ops/quant.quantize_tower_params) runs
+each block through three fused int8 ops: LN1 + q/k/v
+(`w8a8_matmul3_cat`), attention + out-projection + residual
+(`flash_attention_out_int8`) and LN2 + MLP + residual (`w8a8_mlp_res`);
+the patch-major embed runs its int8 sidecar through `w8a8_matmul`. The
+TPU's 8-row padded layout is not ported, only its semantics: the queries
+are the first Lx rows, the keys all Lx + Le rows with the extras in the
+order [global, summary, local], and LN1 and the quant act on every kv row.
 """
 
 from dataclasses import dataclass
@@ -16,8 +25,10 @@ import numpy as np
 import torch
 
 from ..ops.activations import quick_gelu
-from ..ops.attention import multi_head_attention
-from ..ops.linear import linear, mlp_block
+from ..ops.attention import attention_core, multi_head_attention
+from ..ops.flash_attention import flash_attention_out_int8
+from ..ops.int8_matmul import w8a8_matmul, w8a8_matmul3_cat
+from ..ops.linear import linear, mlp_block, quant_kind
 from ..ops.norm import layer_norm
 from .common import (init_attention, init_layer_norm, init_linear, normal,
                      prompt_init_limit, uniform)
@@ -136,9 +147,16 @@ def fold_normalize_into_patch_embed(pe_params, mean: Sequence[float],
     return out
 
 
-def patch_embed_patches(params, x: torch.Tensor,
-                        compute_dtype) -> torch.Tensor:
-    """Patch-major embed: (BT, N, ph*pw*C) -> (BT, N, D), one matmul."""
+def patch_embed_patches(params, x: torch.Tensor, compute_dtype,
+                        int8_impl: str = "kernel") -> torch.Tensor:
+    """Patch-major embed: (BT, N, ph*pw*C) -> (BT, N, D), one matmul; with
+    the int8 sidecar `kernel_q8` (w8a8 serving) the fused w8a8 GEMM."""
+    q8 = params.get("kernel_q8")
+    if q8 is not None:
+        BT, N, P = x.shape
+        y = w8a8_matmul(x.reshape(BT * N, P).to(compute_dtype), q8,
+                        params.get("bias"), impl=int8_impl)
+        return y.reshape(BT, N, y.shape[-1])
     return linear({"kernel": params["kernel"], "bias": params.get("bias")},
                   x.to(compute_dtype))
 
@@ -154,7 +172,7 @@ def resize_time_embed(time_embed: torch.Tensor, T: int) -> torch.Tensor:
 
 
 def _block(p, g_prompt: Optional[torch.Tensor], x: torch.Tensor,
-           cfg: VisionConfig, attn_impl: str):
+           cfg: VisionConfig, attn_impl: str, int8_impl: str = "kernel"):
     """One prompt-aware transformer block over per-frame token rows.
 
     x: (B*T, 1+N, D) = [cls, patches]. Returns (x, summary | None). The
@@ -182,26 +200,52 @@ def _block(p, g_prompt: Optional[torch.Tensor], x: torch.Tensor,
         lp = p["local_prompts"].to(x.dtype) + cls_proj          # (Bb, Tb, D)
         # every frame row of a pseudo-video attends over the same Tb prompts
         extras.append(lp[:, None].expand(Bb, Tb, Tb, D).reshape(BT, Tb, D))
-    kv = torch.cat([x] + extras, dim=1) if extras else x
-    kv_n = layer_norm(kv, p["norm1"]["scale"], p["norm1"]["bias"])
-    x = x + multi_head_attention(p["attn"], kv_n[:, :Lx], kv_n, kv_n,
-                                 cfg.heads, impl=attn_impl)
-    x = mlp_block(p["mlp"], p["norm2"], x, quick_gelu, residual=x)
+    if quant_kind(p["attn"]["q"]["kernel"]) == "qa":
+        # LN1 + one shared quant + the three int8 projections over the
+        # per-clip rows [x; extras], the concatenation never materialised
+        names = ("q", "k", "v")
+        e = None if not extras else (extras[0] if len(extras) == 1
+                                     else torch.cat(extras, dim=1))
+        qp, kp, vp = w8a8_matmul3_cat(
+            x, e, [p["attn"][n]["kernel"] for n in names],
+            [p["attn"][n]["bias"] for n in names],
+            (p["norm1"]["scale"], p["norm1"]["bias"]), impl=int8_impl)
+        if attn_impl == "flash" and \
+                quant_kind(p["attn"]["out"]["kernel"]) == "qa":
+            # the first Lx kv rows are the queries; the fp32 attention
+            # output never leaves the kernel
+            x = flash_attention_out_int8(qp, kp, vp, cfg.heads,
+                                         p["attn"]["out"], x, lq=Lx,
+                                         impl=int8_impl)
+        else:
+            attn = attention_core(qp[:, :Lx], kp, vp, cfg.heads,
+                                  impl=attn_impl)
+            x = x + linear(p["attn"]["out"], attn, int8_impl)
+    else:
+        kv = torch.cat([x] + extras, dim=1) if extras else x
+        kv_n = layer_norm(kv, p["norm1"]["scale"], p["norm1"]["bias"])
+        x = x + multi_head_attention(p["attn"], kv_n[:, :Lx], kv_n, kv_n,
+                                     cfg.heads, impl=attn_impl)
+    x = mlp_block(p["mlp"], p["norm2"], x, quick_gelu, residual=x,
+                  int8_impl=int8_impl)
     return x, summary
 
 
 def vision_encoder(params, x: torch.Tensor, cfg: VisionConfig,
                    compute_dtype=torch.float32, attn_impl: str = "xla",
-                   input_format: str = "frames"):
+                   input_format: str = "frames", int8_impl: str = "kernel"):
     """Encode video -> (video_features (B, embed_dim), summary (B, D) | None).
 
     input_format: 'frames' = (B, T, H, W, 3) pixels; 'patches' =
-    (B, T, N, ph*pw*3) patch-major rows (see patchify)."""
+    (B, T, N, ph*pw*3) patch-major rows (see patchify). int8_impl: the w8a8
+    ops' kernels ('kernel') or their plain versions on any device
+    ('plain')."""
     D = cfg.feature_dim
     if input_format == "patches":
         B, T, N, P = x.shape
         x = patch_embed_patches(params["patch_embed"],
-                                x.reshape(B * T, N, P), compute_dtype)
+                                x.reshape(B * T, N, P), compute_dtype,
+                                int8_impl)
     else:
         B, T, H, W, C = x.shape
         x = x.reshape(B * T, H, W, C).to(compute_dtype)
@@ -218,7 +262,7 @@ def vision_encoder(params, x: torch.Tensor, cfg: VisionConfig,
     summary = None
     for i, p in enumerate(params["blocks"]):
         g = None if g_prompts is None else g_prompts[i]
-        x, summary = _block(p, g, x, cfg, attn_impl)
+        x, summary = _block(p, g, x, cfg, attn_impl, int8_impl)
 
     cls_x = layer_norm(x[:, 0], params["ln_post"]["scale"],
                        params["ln_post"]["bias"])

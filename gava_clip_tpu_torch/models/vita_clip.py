@@ -64,14 +64,17 @@ class VitaClip(nn.Module):
                 "logit_scale": self.logit_scale.data}
 
     def forward(self, x: torch.Tensor, compute_dtype=torch.float32,
-                attn_impl: str = "xla",
-                input_format: str = "frames") -> Dict[str, torch.Tensor]:
+                attn_impl: str = "xla", input_format: str = "frames",
+                int8_impl: str = "kernel") -> Dict[str, torch.Tensor]:
         """x: (B, T, H, W, 3), or (B, T, N, ph*pw*3) with
         input_format='patches'. Returns logits (B, n_cls), text_features
-        (n_cls, E) and, with the summary token, summary (B, D)."""
+        (n_cls, E) and, with the summary token, summary (B, D).
+        int8_impl='plain' runs the w8a8 ops' plain versions on any device
+        (held against the kernels on a card)."""
         video_features, summary = vision_encoder(
             self.visual, x, self.cfg.vision, compute_dtype=compute_dtype,
-            attn_impl=attn_impl, input_format=input_format)
+            attn_impl=attn_impl, input_format=input_format,
+            int8_impl=int8_impl)
         video_features = _l2norm(video_features.float())
         text_features = _l2norm(self.text_features.float())
         logit_scale = torch.exp(self.logit_scale).float()

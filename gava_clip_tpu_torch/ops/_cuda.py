@@ -2,9 +2,12 @@
 
 Each `csrc/<name>.cu` exports plain C entry points. At first use it is
 compiled with nvcc for sm_90a into `gava_clip_tpu_torch/_build/`, under a
-file name that carries a hash of the source and the flags (a stale build is
-never loaded), and bound with ctypes. Pointers and the stream go over as
-c_void_p, sizes as c_int. A missing nvcc or a failed build raises.
+file name that carries a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags (a stale build is never loaded), and bound
+with ctypes. Pointers and the stream go over as c_void_p, sizes as c_int.
+A missing nvcc or a failed build raises. `load_libraries` builds several
+sources at once, one nvcc process each. No --use_fast_math: the w8a8
+kernels rely on IEEE division and unfused fp32 roundings.
 """
 
 import ctypes
@@ -15,7 +18,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -31,6 +35,29 @@ _SIGNATURES = {
         # exp2 constant; stream
         "packed_attention_bf16": (
             [_VP] * 4 + [_I] * 5 + [_I] * 8 + [ctypes.c_float, _VP], _I),
+        "cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "w8a8_matmul": {
+        # x, W, s, b, y; M, K, N; stream
+        "w8a8_matmul_bf16": ([_VP] * 5 + [_I] * 3 + [_VP], _I),
+        "cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "w8a8_qkv": {
+        # x, e, Wq, Wk, Wv, sq, sk, sv, bq, bk, bv, gamma, beta, oq, ok, ov;
+        # B, Lx, Le, K, N; stream
+        "w8a8_qkv_cat_bf16": ([_VP] * 16 + [_I] * 5 + [_VP], _I),
+        "cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "attention_out_int8": {
+        # q, k, v, W, s, bias, r, o; B, lq, Lk, H; q/k/v batch and row
+        # strides; exp2 constant; stream
+        "attention_out_int8_bf16": (
+            [_VP] * 8 + [_I] * 4 + [_I] * 6 + [ctypes.c_float, _VP], _I),
+        "cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "w8a8_mlp": {
+        # x, W1, s1, b1, W2, s2, b2, gamma, beta, r, y; M, K, H, N; stream
+        "w8a8_mlp_res_bf16": ([_VP] * 11 + [_I] * 4 + [_VP], _I),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
 }
@@ -54,15 +81,19 @@ def find_nvcc() -> str:
 
 def _build(name: str) -> Path:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     so = BUILD_DIR / f"lib{name}_{digest}.so"
     if so.is_file():
-        build_info[name] = {"seconds": 0.0, "log": "", "so": str(so)}
+        build_info.setdefault(name, {"seconds": 0.0, "log": "",
+                                     "so": str(so)})
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           str(src)]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, capture_output=True, text=True)
     secs = time.perf_counter() - t0
@@ -74,6 +105,15 @@ def _build(name: str) -> Path:
     build_info[name] = {"seconds": secs, "log": res.stdout + res.stderr,
                         "so": str(so)}
     return so
+
+
+def load_libraries(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """Build every source not built yet in parallel (one nvcc each), then
+    load them all."""
+    todo = [n for n in names if n not in _libs]
+    with ThreadPoolExecutor(max(1, len(todo))) as ex:
+        list(ex.map(_build, todo))
+    return {n: load_library(n) for n in names}
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -17,7 +17,16 @@ standard softmax once scores pass the clamp:
 `flash_attention` dispatches on the tensor's device: a CPU tensor runs
 `packed_attention_plain`; a CUDA tensor runs the hand-written kernel in
 csrc/packed_attention.cu or raises. There is no fallback between the two.
+
+`flash_attention_out_int8` is the w8a8 serving fusion (TPU
+`_attention_out_kernel` + `_int8_outproj_epilogue`): the same attention
+over the first `lq` query rows and all keys, kept in fp32, then a per-row
+int8 quant over the whole H*Dh-wide row, the int8 out-projection, bias and
+the residual add (csrc/attention_out_int8.cu; plain version
+`attention_out_int8_plain`).
 """
+
+from typing import Dict, Optional
 
 import torch
 
@@ -30,7 +39,7 @@ _KERNEL_HEAD_DIM = 64     # the only head width the kernel is built for
 
 # launches of each hand-written kernel since the last reset; a run reads
 # these to show that its main path went through the kernels
-launch_counts = {"packed_attention": 0}
+launch_counts = {"packed_attention": 0, "attention_out_int8": 0}
 
 
 def reset_launch_counts() -> None:
@@ -43,10 +52,8 @@ def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     return x.reshape(B, L, num_heads, D // num_heads).transpose(1, 2)
 
 
-def packed_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           num_heads: int) -> torch.Tensor:
-    """Plain PyTorch version of the packed attention kernel (same math as
-    `_onepass_softmax_av_masked` in the JAX package)."""
+def _onepass_attention_f32(q, k, v, num_heads: int) -> torch.Tensor:
+    """The one-pass clamp softmax attention, (B, Lq, H*Dh) fp32 output."""
     B, Lq, D = q.shape
     Dh = D // num_heads
     c = Dh ** -0.5 * _LOG2E
@@ -58,7 +65,14 @@ def packed_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     num = e @ vh.float()
     den = e.sum(dim=-1, keepdim=True)
     out = num / torch.clamp(den, min=1e-30)
-    return out.transpose(1, 2).reshape(B, Lq, D).to(q.dtype)
+    return out.transpose(1, 2).reshape(B, Lq, D)
+
+
+def packed_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           num_heads: int) -> torch.Tensor:
+    """Plain PyTorch version of the packed attention kernel (same math as
+    `_onepass_softmax_av_masked` in the JAX package)."""
+    return _onepass_attention_f32(q, k, v, num_heads).to(q.dtype)
 
 
 def _reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -151,3 +165,91 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cuda":
         return packed_attention_cuda(q, k, v, num_heads)
     raise ValueError(f"no packed attention for device {q.device}")
+
+
+# ---------------------------------------------------------------------------
+# w8a8 serving fusion: attention + int8 out-projection + residual
+# ---------------------------------------------------------------------------
+
+def attention_out_int8_plain(q, k, v, num_heads: int, out_params: Dict,
+                             residual: torch.Tensor,
+                             lq: Optional[int] = None) -> torch.Tensor:
+    """Plain version of csrc/attention_out_int8.cu: residual +
+    w8a8_linear(attention(q[:, :lq], k, v)) with the attention output kept
+    in fp32 up to its per-row quant."""
+    from .int8_matmul import int_matmul, quant_rows, rescale
+    lq = q.shape[1] if lq is None else lq
+    a = _onepass_attention_f32(q[:, :lq], k, v, num_heads)
+    codes, xs = quant_rows(a)
+    kernel = out_params["kernel"]
+    y = rescale(int_matmul(codes, kernel["qa"]), xs, kernel["scale"],
+                out_params["bias"])
+    return (y + residual.float()).to(residual.dtype)
+
+
+def attention_out_int8_cuda(q, k, v, num_heads: int, out_params: Dict,
+                            residual: torch.Tensor,
+                            lq: Optional[int] = None) -> torch.Tensor:
+    """Launch csrc/attention_out_int8.cu on the current stream (no sync)."""
+    from ._cuda import load_library
+    _check_kernel_args(q, k, v, num_heads)
+    B, Lq_arr, D = q.shape
+    lq = Lq_arr if lq is None else lq
+    if not 0 <= lq <= Lq_arr:
+        raise ValueError(f"lq {lq} outside 0..{Lq_arr}")
+    from .int8_matmul import _kernel_weight
+    kernel = out_params["kernel"]
+    wt = _kernel_weight("attention_out_int8", kernel, D, D)
+    scale, bias = kernel["scale"], out_params["bias"]
+    for name, t in (("out kernel", wt), ("scale", scale), ("bias", bias),
+                    ("residual", residual)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    if tuple(residual.shape) != (B, lq, D) or residual.dtype != q.dtype:
+        raise ValueError(f"residual {residual.dtype} "
+                         f"{tuple(residual.shape)}, expected ({B}, {lq}, "
+                         f"{D}) {q.dtype}")
+    scale = scale.reshape(-1).float().contiguous()
+    bias = bias.reshape(-1).float().contiguous()
+    r = residual.contiguous()
+    out = torch.empty((B, lq, D), dtype=q.dtype, device=q.device)
+    if B == 0 or lq == 0:
+        return out
+    lib = load_library("attention_out_int8")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.attention_out_int8_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), wt.data_ptr(),
+            scale.data_ptr(), bias.data_ptr(), r.data_ptr(), out.data_ptr(),
+            B, lq, k.shape[1], num_heads, q.stride(0), q.stride(1),
+            k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+            (D // num_heads) ** -0.5 * _LOG2E, stream)
+    if err != 0:
+        raise RuntimeError(f"attention_out_int8 kernel launch failed: "
+                           f"{lib.cuda_error_string(err).decode()} ({err})")
+    launch_counts["attention_out_int8"] += 1
+    return out
+
+
+def flash_attention_out_int8(q, k, v, num_heads: int, out_params: Dict,
+                             residual: torch.Tensor,
+                             lq: Optional[int] = None,
+                             impl: str = "kernel") -> torch.Tensor:
+    """residual + Linear_w8a8(attention(q[:, :lq], k, v)) (JAX
+    `flash_attention_out_int8`). q may be longer than lq (the full kv-row
+    projection); the output has lq rows. impl='plain' runs the plain
+    version on any device; 'kernel' the plain version on the CPU and the
+    CUDA kernel on a card."""
+    if k.shape[1] > _PACKED_MAX_LK:
+        raise NotImplementedError(
+            "Lk > 640 attention needs the streaming kernel, not ported yet "
+            "(ROADMAP B7)")
+    if impl == "plain" or q.device.type == "cpu":
+        return attention_out_int8_plain(q, k, v, num_heads, out_params,
+                                        residual, lq)
+    if impl != "kernel":
+        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+    if q.device.type == "cuda":
+        return attention_out_int8_cuda(q, k, v, num_heads, out_params,
+                                       residual, lq)
+    raise ValueError(f"no attention kernel for device {q.device}")

@@ -1,0 +1,308 @@
+"""Fused w8a8 int8 GEMMs (port of the serving kernels in
+gava_clip_tpu/ops/int8_matmul.py).
+
+Three ops, each a hand-written CUDA kernel for sm_90a beside a plain PyTorch
+version of the same math:
+
+  * `w8a8_matmul` (csrc/w8a8_matmul.cu, TPU `_w8a8_kernel`): per-row int8
+    quant of x, int8 GEMM, `acc * xs * s + b`;
+  * `w8a8_matmul3_cat` (csrc/w8a8_qkv.cu, TPU `_w8a8_kernel3_cat` and, with
+    no extras rows, `_w8a8_kernel3`): per clip the rows [x rows; extras
+    rows], LayerNorm, ONE shared quant, three int8 GEMMs + bias (q/k/v);
+  * `w8a8_mlp_res` (csrc/w8a8_mlp.cu, TPU `kernel` in `w8a8_mlp_res`):
+    LayerNorm, quant, int8 fc1 + bias, QuickGELU on the fp32 hidden,
+    requant over the whole hidden row, int8 fc2 + bias + residual.
+
+The plain versions follow the KERNEL semantics, not the JAX XLA fallback
+`quantize_act` (which divides by xs and clips): the row scale is
+xs = max(absmax, 1e-6) * fp32(1/127), the codes are rint(x * (1/xs)) with
+no clip; LayerNorm is fp32 with two-pass biased variance, eps 1e-5; bias
+and residual are added in fp32 and only the final store is cast. The
+integer products are exact: int8 x int8 sums reach 127^2 * 3072 > 2^24, so
+they run in float64 (exact below 2^53) on either device.
+
+Each op takes its weights as kernel leaves {'qa': int8 (K, N), 'scale':
+fp32 (1, N)}. The CUDA kernels read the weight as W^T (N, K), k contiguous,
+from the leaf's 'qa_t', which `with_kernel_layout` adds once where the
+weights are placed on the card; a CUDA call on a leaf without it raises.
+
+Dispatch: `impl="kernel"` (the default) runs the plain version for a CPU
+tensor and the CUDA kernel for a CUDA tensor (or raises: there is no
+fallback); `impl="plain"` runs the plain version on any device, which is
+how a run holds the kernels against it on the card.
+"""
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+_INV127 = 1.0 / 127.0     # applied as fp32(1/127), as the kernels do
+_LN_EPS = 1e-5
+_KERNEL_MAX_K = 1024      # the kernels keep one row of K values in registers
+
+# launches of each hand-written kernel since the last reset
+launch_counts = {"w8a8_matmul": 0, "w8a8_matmul3_cat": 0, "w8a8_mlp_res": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def ln_f32(x32: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+           eps: float = _LN_EPS) -> torch.Tensor:
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    return (x32 - mean) * torch.rsqrt(var + eps) * scale.float() + \
+        bias.float()
+
+
+def quant_rows(x32: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 codes (kept as float, exact integers) and the
+    fp32 row scale xs (..., 1)."""
+    xs = torch.clamp(x32.abs().amax(dim=-1, keepdim=True), min=1e-6) * \
+        _INV127
+    return torch.round(x32 * torch.reciprocal(xs)), xs
+
+
+def quick_gelu_f32(h: torch.Tensor) -> torch.Tensor:
+    return h * torch.sigmoid(1.702 * h)
+
+
+def int_matmul(codes: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """Exact int8 x int8 -> integer products (float64), rounded once to
+    fp32 as the kernels convert their int32 accumulators."""
+    return (codes.double() @ w_q.double()).float()
+
+
+def rescale(acc: torch.Tensor, xs: torch.Tensor, scale: torch.Tensor,
+            bias: Optional[torch.Tensor]) -> torch.Tensor:
+    y = acc * xs * scale.float().reshape(-1)
+    return y if bias is None else y + bias.float()
+
+
+def w8a8_matmul_plain(x, kernel, bias=None):
+    codes, xs = quant_rows(x.float())
+    return rescale(int_matmul(codes, kernel["qa"]), xs, kernel["scale"],
+                   bias).to(x.dtype)
+
+
+def _kv_rows(x, e):
+    return x if e is None or e.shape[1] == 0 else torch.cat([x, e], dim=1)
+
+
+def w8a8_matmul3_cat_plain(x, e, kernels3, bias3, ln):
+    kv = _kv_rows(x, e)
+    codes, xs = quant_rows(ln_f32(kv.float(), *ln))
+    return tuple(rescale(int_matmul(codes, k["qa"]), xs, k["scale"],
+                         b).to(x.dtype) for k, b in zip(kernels3, bias3))
+
+
+def w8a8_mlp_res_plain(x, fc1, fc2, ln, residual):
+    codes, xs = quant_rows(ln_f32(x.float(), *ln))
+    k1, k2 = fc1["kernel"], fc2["kernel"]
+    h = quick_gelu_f32(rescale(int_matmul(codes, k1["qa"]), xs,
+                               k1["scale"], fc1["bias"]))
+    hq, hs = quant_rows(h)
+    y = rescale(int_matmul(hq, k2["qa"]), hs, k2["scale"], fc2["bias"])
+    return (y + residual.float()).to(residual.dtype)
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+def _check_cuda(name: str, device, tensors) -> None:
+    for t in tensors:
+        if t is None:
+            continue
+        if not t.is_cuda or t.device != device:
+            raise ValueError(f"{name} kernel needs every tensor on one "
+                             f"CUDA device, got {device} and {t.device}")
+
+
+def _f32_vec(t, n: int, what: str):
+    t = t.reshape(-1)
+    if t.numel() != n:
+        raise ValueError(f"{what}: {n} values expected, got {t.numel()}")
+    return t.float().contiguous()
+
+
+def _bf16_rows(name, x):
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name} kernel takes bfloat16 activations, got "
+                        f"{x.dtype}")
+    if x.shape[-1] > _KERNEL_MAX_K:
+        raise ValueError(f"{name} kernel: row width {x.shape[-1]} > "
+                         f"{_KERNEL_MAX_K}")
+    return x.contiguous()
+
+
+def _launch(lib_name: str, fn: str, device, *args) -> None:
+    from ._cuda import load_library
+    lib = load_library(lib_name)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = getattr(lib, fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} kernel launch failed: "
+                           f"{lib.cuda_error_string(err).decode()} ({err})")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def kernel_layout(w: torch.Tensor) -> torch.Tensor:
+    """The int8 weight (K, N) as W^T (N, K) with k contiguous, the layout
+    in which a kernel loads its mma B fragments straight from device memory
+    (csrc/w8a8_common.cuh gemm_direct)."""
+    return w.t().contiguous()
+
+
+def with_kernel_layout(tree):
+    """A copy of a param tree in which every w8a8 kernel leaf {'qa',
+    'scale'} also carries 'qa_t' = kernel_layout(qa). Made once, where the
+    weights are placed on the device (the CUDA wrappers read only 'qa_t';
+    the plain versions only 'qa')."""
+    if isinstance(tree, list):
+        return [with_kernel_layout(v) for v in tree]
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: with_kernel_layout(v) for k, v in tree.items()}
+    if isinstance(tree.get("qa"), torch.Tensor):
+        out["qa_t"] = kernel_layout(tree["qa"])
+    return out
+
+
+def _kernel_weight(name, kernel, K, N=None):
+    """The W^T (N, K) int8 weight of a kernel leaf, checked."""
+    if "qa_t" not in kernel:
+        raise ValueError(f"{name}: the kernel reads the weight as W^T from "
+                         f"the leaf's 'qa_t'; add it where the weights are "
+                         f"placed (ops.int8_matmul.with_kernel_layout)")
+    w = kernel["qa_t"]
+    if w.dtype != torch.int8 or w.dim() != 2 or w.shape[1] != K or \
+            (N is not None and w.shape[0] != N) or not w.is_contiguous():
+        raise ValueError(f"{name}: contiguous int8 W^T ({N or 'N'}, {K}) "
+                         f"expected, got {w.dtype} {tuple(w.shape)}")
+    return w
+
+
+def w8a8_matmul_cuda(x, kernel, bias=None):
+    """Launch csrc/w8a8_matmul.cu: x (M, K) bf16 -> (M, N) bf16."""
+    _check_cuda("w8a8_matmul", x.device,
+                (x, kernel.get("qa_t"), kernel["scale"], bias))
+    x = _bf16_rows("w8a8_matmul", x)
+    M, K = x.shape
+    wt = _kernel_weight("w8a8_matmul", kernel, K)
+    N = wt.shape[0]
+    s = _f32_vec(kernel["scale"], N, "scale")
+    b = None if bias is None else _f32_vec(bias, N, "bias")
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M:
+        _launch("w8a8_matmul", "w8a8_matmul_bf16", x.device, x.data_ptr(),
+                wt.data_ptr(), s.data_ptr(), _ptr(b), out.data_ptr(), M, K, N)
+        launch_counts["w8a8_matmul"] += 1
+    return out
+
+
+def w8a8_matmul3_cat_cuda(x, e, kernels3, bias3, ln):
+    """Launch csrc/w8a8_qkv.cu: x (B, Lx, K), e (B, Le, K) or None, bf16 ->
+    three (B, Lx + Le, N) bf16."""
+    _check_cuda("w8a8_matmul3_cat", x.device,
+                (x, e, *(k.get("qa_t") for k in kernels3),
+                 *(k["scale"] for k in kernels3), *bias3, *ln))
+    x = _bf16_rows("w8a8_matmul3_cat", x)
+    B, Lx, K = x.shape
+    Le = 0 if e is None else e.shape[1]
+    if Le:
+        e = _bf16_rows("w8a8_matmul3_cat", e)
+        if e.shape[0] != B or e.shape[2] != K:
+            raise ValueError(f"extras {tuple(e.shape)} vs x {tuple(x.shape)}")
+    N = _kernel_weight("w8a8_matmul3_cat", kernels3[0], K).shape[0]
+    ws = [_kernel_weight("w8a8_matmul3_cat", k, K, N) for k in kernels3]
+    ss = [_f32_vec(k["scale"], N, "scale") for k in kernels3]
+    bs = [_f32_vec(b, N, "bias") for b in bias3]
+    g, beta = (_f32_vec(p, K, "LayerNorm") for p in ln)
+    outs = [torch.empty((B, Lx + Le, N), dtype=x.dtype, device=x.device)
+            for _ in range(3)]
+    if B and Lx + Le:
+        _launch("w8a8_qkv", "w8a8_qkv_cat_bf16", x.device, x.data_ptr(),
+                _ptr(e) if Le else None, *(w.data_ptr() for w in ws),
+                *(s.data_ptr() for s in ss), *(b.data_ptr() for b in bs),
+                g.data_ptr(), beta.data_ptr(), *(o.data_ptr() for o in outs),
+                B, Lx, Le, K, N)
+        launch_counts["w8a8_matmul3_cat"] += 1
+    return tuple(outs)
+
+
+def w8a8_mlp_res_cuda(x, fc1, fc2, ln, residual):
+    """Launch csrc/w8a8_mlp.cu: x, residual (M, K) bf16 -> (M, N) bf16."""
+    k1, k2 = fc1["kernel"], fc2["kernel"]
+    _check_cuda("w8a8_mlp_res", x.device,
+                (x, residual, k1.get("qa_t"), k1["scale"], fc1["bias"],
+                 k2.get("qa_t"), k2["scale"], fc2["bias"], *ln))
+    x = _bf16_rows("w8a8_mlp_res", x)
+    M, K = x.shape
+    w1 = _kernel_weight("w8a8_mlp_res fc1", k1, K)
+    H = w1.shape[0]
+    w2 = _kernel_weight("w8a8_mlp_res fc2", k2, H)
+    N = w2.shape[0]
+    if residual.shape != (M, N) or residual.dtype != x.dtype:
+        raise ValueError(f"residual {residual.dtype} {tuple(residual.shape)}"
+                         f", expected ({M}, {N}) {x.dtype}")
+    r = residual.contiguous()
+    s1, b1 = _f32_vec(k1["scale"], H, "scale"), _f32_vec(fc1["bias"], H,
+                                                         "bias")
+    s2, b2 = _f32_vec(k2["scale"], N, "scale"), _f32_vec(fc2["bias"], N,
+                                                         "bias")
+    g, beta = (_f32_vec(p, K, "LayerNorm") for p in ln)
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M:
+        _launch("w8a8_mlp", "w8a8_mlp_res_bf16", x.device, x.data_ptr(),
+                w1.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+                s2.data_ptr(), b2.data_ptr(), g.data_ptr(), beta.data_ptr(),
+                r.data_ptr(), out.data_ptr(), M, K, H, N)
+        launch_counts["w8a8_mlp_res"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# dispatch
+# ---------------------------------------------------------------------------
+
+def _use_kernel(x: torch.Tensor, impl: str) -> bool:
+    if impl == "plain" or x.device.type == "cpu":
+        return False
+    if impl != "kernel":
+        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+    if x.device.type != "cuda":
+        raise ValueError(f"no w8a8 kernel for device {x.device}")
+    return True
+
+
+def w8a8_matmul(x, kernel, bias=None, impl: str = "kernel"):
+    """(M, K) x kernel leaf {'qa': int8 (K, N), 'scale': (1, N)}, bias (N,)
+    -> (M, N) in x.dtype."""
+    fn = w8a8_matmul_cuda if _use_kernel(x, impl) else w8a8_matmul_plain
+    return fn(x, kernel, bias)
+
+
+def w8a8_matmul3_cat(x, e, kernels3: Sequence, bias3: Sequence,
+                     ln: Sequence, impl: str = "kernel"):
+    """LN + shared quant + q/k/v int8 GEMMs (three kernel leaves) over the
+    per-clip rows [x (B, Lx, K); e (B, Le, K)] (e may be None: Le = 0)."""
+    fn = w8a8_matmul3_cat_cuda if _use_kernel(x, impl) \
+        else w8a8_matmul3_cat_plain
+    return fn(x, e, tuple(kernels3), tuple(bias3), tuple(ln))
+
+
+def w8a8_mlp_res(x, fc1, fc2, ln, residual, impl: str = "kernel"):
+    """residual + fc2(QuickGELU(fc1(LN(x)))), all w8a8, over (M, K) rows."""
+    fn = w8a8_mlp_res_cuda if _use_kernel(x, impl) else w8a8_mlp_res_plain
+    return fn(x, fc1, fc2, tuple(ln), residual)

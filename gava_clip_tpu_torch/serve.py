@@ -1,10 +1,13 @@
-"""Inference serving (port of gava_clip_tpu/serve.py, bf16 weights).
+"""Inference serving (port of gava_clip_tpu/serve.py: bf16 and w8a8).
 
 A classifier around the zero-shot path: uint8 clips in, class probabilities
-out. Weights are cast to bf16 and moved to the device once; requests are
-padded (repeating the last clip) to the next power-of-two bucket up to the
-serving batch. On a CUDA device attention runs the hand-written packed
-attention kernel; on the CPU the plain attention.
+out. Weights are moved to the device once: cast to bf16, or with
+quantize="w8a8" int8-quantized (ops/quant.py) with every other leaf kept
+fp32, as the JAX classifier keeps them (a bf16-rounded LayerNorm gain
+would move int8 codes). Requests are padded (repeating the last clip) to
+the next power-of-two bucket up to the serving batch. On a CUDA device
+attention (bf16) or the four w8a8 ops run the hand-written kernels; on the
+CPU their plain versions.
 
     clf = VideoClassifier.from_model(model, classnames, device="cuda")
     probs = clf.classify_clips(clips_u8)        # (N, T, S, S, 3) uint8
@@ -21,6 +24,8 @@ from gava_clip_tpu.data import video as V
 from .data.device_preprocess import CLIP_MEAN, CLIP_STD, normalize_frames
 from .models.vision import fold_normalize_into_patch_embed, patchify
 from .models.vita_clip import VitaClip
+from .ops.int8_matmul import with_kernel_layout
+from .ops.quant import quantize_tower_params
 
 
 def _to_bf16(tree, device):
@@ -30,6 +35,14 @@ def _to_bf16(tree, device):
         return [_to_bf16(v, device) for v in tree]
     dtype = torch.bfloat16 if tree.is_floating_point() else tree.dtype
     return tree.to(device=device, dtype=dtype)
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device)
 
 
 class VideoClassifier:
@@ -46,11 +59,15 @@ class VideoClassifier:
         patch_major: ship clips as raw uint8 patch rows (patchify on the
         host) with the normalization folded into the patch-embed weights.
         pad_buckets: pad a partial batch to the next power of two instead
-        of the full serving batch."""
-        if quantize:
+        of the full serving batch.
+        quantize: '' / False (bf16 weights) or 'w8a8' (int8 weights and
+        per-row int8 activations); True / 'w8' (weight-only int8) needs
+        the w8 GEMM, not ported yet (ROADMAP B9)."""
+        if quantize not in ("", None, False, "w8a8"):
             raise NotImplementedError(
-                "quantized serving (w8 / w8a8) is not ported yet "
-                "(ROADMAP A5)")
+                f"quantize={quantize!r}: weight-only int8 serving needs the "
+                f"w8 dequant GEMM, not ported yet (ROADMAP B9)")
+        self.quantize = quantize or ""
         self.device = torch.device(device) if device is not None else \
             model.text_features.device
         self.classnames = list(classnames)
@@ -70,9 +87,17 @@ class VideoClassifier:
                 visual["patch_embed"], mean, std, self._patch_size)
             params = dict(params)
             params["visual"] = visual
-        # bf16 weights on the device, once; the text features keep their
-        # dtype (as the JAX classifier keeps its buffers)
-        self.net = VitaClip(model.cfg, _to_bf16(params, self.device),
+        # weights on the device, once: quantize after the fold, so the
+        # patch-embed sidecar quantizes the folded W'; in w8a8 mode nothing
+        # is cast to bf16, and each int8 weight gets the W^T copy its CUDA
+        # kernel reads. The text features keep their dtype (as the JAX
+        # classifier keeps its buffers)
+        if self.quantize:
+            params = with_kernel_layout(_to_device(
+                quantize_tower_params(params, act_quant=True), self.device))
+        else:
+            params = _to_bf16(params, self.device)
+        self.net = VitaClip(model.cfg, params,
                             model.text_features.to(self.device))
 
     @classmethod

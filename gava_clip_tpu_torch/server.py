@@ -2,9 +2,11 @@
 
 The HTTP front end and the cross-request micro-batcher are the JAX
 package's own (`gava_clip_tpu.server.serve`, stdlib + numpy only); this
-module builds the port's bf16 `VideoClassifier` and hands it over.
+module builds the port's `VideoClassifier` (bf16, or w8a8 with
+`--quantize w8a8`) and hands it over.
 
 Run: python -m gava_clip_tpu_torch.server --port 8000 [--device cuda]
+         [--quantize w8a8 --patch_major]
 """
 
 import argparse
@@ -16,7 +18,9 @@ from gava_clip_tpu.data.video import parse_classes_file
 from gava_clip_tpu.server import serve
 
 
-def main(argv=None):
+def make_server(argv=None):
+    """Parse the flags, build and warm up the classifier, and return the
+    (not yet serving) HTTP server."""
     from .serve import VideoClassifier
     from .utils.flagship import build_zero_shot
 
@@ -31,6 +35,9 @@ def main(argv=None):
     ap.add_argument("--patch_major", action="store_true",
                     help="ship clips as uint8 patch rows with normalization "
                          "folded into the patch-embed weights")
+    ap.add_argument("--quantize", default="", choices=["", "w8a8"],
+                    help="w8a8: int8 weights + per-row int8 activations "
+                         "(the throughput mode)")
     ap.add_argument("--max_wait_ms", type=float, default=5.0)
     ap.add_argument("--device",
                     default="cuda" if torch.cuda.is_available() else "cpu")
@@ -42,11 +49,17 @@ def main(argv=None):
                             num_classes=len(labels), text_features=tf)
     clf = VideoClassifier.from_model(
         model, classnames=labels, batch_size=args.batch_size,
-        patch_major=args.patch_major, device=args.device).warmup()
+        patch_major=args.patch_major, quantize=args.quantize,
+        device=args.device).warmup()
     httpd = serve(clf, args.host, args.port, args.max_wait_ms)
-    print(f"serving on {args.host}:{args.port} "
-          f"(batch={args.batch_size}, bf16, device={args.device})")
-    httpd.serve_forever()
+    print(f"serving on {args.host}:{httpd.server_address[1]} "
+          f"(batch={args.batch_size}, {args.quantize or 'bf16'}, "
+          f"device={args.device})")
+    return httpd
+
+
+def main(argv=None):
+    make_server(argv).serve_forever()
 
 
 if __name__ == "__main__":

@@ -4,6 +4,12 @@ The JAX `VitaClip.params` is a nested dict of numpy arrays whose vision
 blocks are stacked on a leading layer axis; the port keeps one dict per
 layer in a list. Every other path and the (in, out) kernel layout are the
 same. Neither direction needs JAX.
+
+Quantized trees (ops/quant.py) go across both ways: a w8a8 leaf
+{'qa': int8 (L, K, N), 'scale': fp32 (L, 1, N)} becomes per-layer
+{'qa', 'scale'} leaves, and the patch-embed sidecar `kernel_q8` goes with
+it; int8 stays int8 and scales stay fp32. Weight-only 'q' (ROADMAP B9) and
+frozen-training 'qt' (ROADMAP A9) leaves raise.
 """
 
 from typing import Dict, Mapping
@@ -25,6 +31,30 @@ def _take(src, i: int, n: int, path: str):
     return arr[i]
 
 
+def _convert_quant(src, expected, path: str, device):
+    """A quantized kernel leaf whose float form has expected's shape."""
+    keys = set(src)
+    if keys == {"q", "scale"}:
+        raise NotImplementedError(
+            f"{path}: weight-only int8 ('q') leaves need the w8 GEMM, not "
+            f"ported yet (ROADMAP B9)")
+    if keys == {"qt", "scale"}:
+        raise NotImplementedError(
+            f"{path}: frozen-int8 training ('qt') leaves are not ported yet "
+            f"(ROADMAP A9)")
+    if keys != {"qa", "scale"}:
+        raise KeyError(f"{path}: not a quantized leaf: keys {sorted(keys)}")
+    qa, scale = np.asarray(src["qa"]), np.asarray(src["scale"])
+    K, N = tuple(expected.shape)
+    if qa.dtype != np.int8 or qa.shape != (K, N) or \
+            scale.shape != (1, N) or scale.dtype != np.float32:
+        raise ValueError(f"{path}: qa {qa.dtype} {qa.shape} / scale "
+                         f"{scale.dtype} {scale.shape}, expected int8 "
+                         f"({K}, {N}) / float32 (1, {N})")
+    return {"qa": torch.from_numpy(np.array(qa)).to(device),
+            "scale": torch.from_numpy(np.array(scale)).to(device)}
+
+
 def _convert(src, expected, path: str, device):
     if isinstance(expected, list):
         return [_convert(_take(src, i, len(expected), path), e,
@@ -35,6 +65,13 @@ def _convert(src, expected, path: str, device):
             raise TypeError(f"{path}: expected a dict, got {type(src)}")
         missing = sorted(set(expected) - set(src))
         unused = sorted(set(src) - set(expected))
+        if unused == ["kernel_q8"] and "kernel" in expected:
+            out = _convert({k: v for k, v in src.items() if k != unused[0]},
+                           expected, path, device)
+            out["kernel_q8"] = _convert_quant(
+                src["kernel_q8"], expected["kernel"],
+                f"{path}.kernel_q8".lstrip("."), device)
+            return out
         if missing:
             raise KeyError(f"{path or 'params'}: missing leaves {missing}")
         if unused:
@@ -43,8 +80,7 @@ def _convert(src, expected, path: str, device):
                             device)
                 for k in expected}
     if isinstance(src, Mapping):
-        raise NotImplementedError(
-            f"{path}: quantized leaves are not ported yet (ROADMAP A5)")
+        return _convert_quant(src, expected, path, device)
     arr = np.asarray(src)
     if tuple(arr.shape) != tuple(expected.shape):
         raise ValueError(f"{path}: shape {arr.shape}, expected "
@@ -61,13 +97,16 @@ def params_from_jax(params: Mapping, cfg: VitaClipConfig,
 
 
 def params_to_jax(params: Mapping) -> Dict:
-    """The port's params -> the JAX layout (numpy, stacked blocks)."""
+    """The port's params -> the JAX layout (numpy, stacked blocks). Every
+    leaf keeps its dtype (int8 stays int8), except bf16, which numpy lacks:
+    it becomes float32."""
     def to_np(x):
         if isinstance(x, Mapping):
             return {k: to_np(v) for k, v in x.items()}
         if isinstance(x, list):
             return _stack([to_np(v) for v in x])
-        return x.detach().float().cpu().numpy()
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
 
     def _stack(layers):
         if isinstance(layers[0], dict):

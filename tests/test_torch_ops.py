@@ -104,10 +104,16 @@ def test_linear_and_mlp_block():
 
 
 def test_linear_rejects_quantized_leaf():
-    leaf = {"kernel": {"qa": torch.zeros(4, 4, dtype=torch.int8),
-                       "scale": torch.ones(1, 4)}}
-    with pytest.raises(NotImplementedError, match="A5"):
-        tlin.linear(leaf, torch.zeros(2, 4))
+    """w8a8 'qa' leaves are ported; weight-only 'q' (the w8 GEMM, B9) and
+    frozen-training 'qt' (A9) leaves still raise."""
+    for kind, roadmap in (("q", "B9"), ("qt", "A9")):
+        leaf = {"kernel": {kind: torch.zeros(4, 4, dtype=torch.int8),
+                           "scale": torch.ones(1, 4)}}
+        with pytest.raises(NotImplementedError, match=roadmap):
+            tlin.linear(leaf, torch.zeros(2, 4))
+    qa = {"kernel": {"qa": torch.ones(4, 4, dtype=torch.int8),
+                     "scale": torch.ones(1, 4)}}
+    assert tlin.linear(qa, torch.ones(2, 4)).shape == (2, 4)
 
 
 def _qkv(seed, B=3, Lq=13, Lk=21, D=32, q_gain=1.0):

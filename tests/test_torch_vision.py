@@ -235,11 +235,19 @@ def test_bridge_rejects_bad_trees(pair):
     with pytest.raises(ValueError, match="layer axis"):
         params_from_jax(dict(p, visual=dict(p["visual"], blocks=blocks)),
                         cfg)
-    quant = dict(p["visual"]["patch_embed"],
-                 kernel={"qa": np.zeros((768, 32), np.int8)})
-    with pytest.raises(NotImplementedError, match="A5"):
-        params_from_jax(dict(p, visual=dict(p["visual"], patch_embed=quant)),
-                        cfg)
+    # w8a8 leaves go across (tests/test_torch_serve_w8a8.py); weight-only
+    # 'q' (B9) and frozen-training 'qt' (A9) leaves raise, a malformed one
+    # is refused
+    for kind, scale, err, match in (
+            ("q", (1, 32), NotImplementedError, "B9"),
+            ("qt", (1, 32), NotImplementedError, "A9"),
+            ("qa", (32,), ValueError, "int8")):
+        quant = dict(p["visual"]["patch_embed"],
+                     kernel={kind: np.zeros((768, 32), np.int8),
+                             "scale": np.ones(scale, np.float32)})
+        with pytest.raises(err, match=match):
+            params_from_jax(dict(p, visual=dict(p["visual"],
+                                                patch_embed=quant)), cfg)
 
 
 def test_init_matches_jax_shapes_and_limits(pair):
