@@ -1,8 +1,12 @@
 // Packed whole-row attention forward for Hopper (sm_90a), bf16.
 //
-// Replaces the TPU kernel gava_clip_tpu/ops/flash_attention.py:
-// _attention_kernel (reached through _packed_forward's pl.pallas_call), and
-// computes its function, not its block structure:
+// Replaces the TPU kernels gava_clip_tpu/ops/flash_attention.py:
+// _attention_kernel and _attention_kernel_den (reached through
+// _packed_forward's pl.pallas_call), and computes their function, not their
+// block structure. The second entry point also writes the per-head softmax
+// denominators den (B, Lq, H) fp32, the sums of the bf16-ROUNDED e (on the
+// TPU the ones column of the same dot), which the backward
+// (packed_attention_bwd.cu) takes as a saved residual:
 //
 //   q (B, Lq, H*Dh), k/v (B, Lk, H*Dh), packed as the projections emit them
 //   (no head relayout), o (B, Lq, H*Dh) in the input dtype. Per head:
@@ -68,9 +72,10 @@ __global__ void __launch_bounds__(kThreads)
 packed_attention_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
-                        __nv_bfloat16* __restrict__ o, int Lq, int Lk,
-                        int q_sb, int q_sl, int k_sb, int k_sl, int v_sb,
-                        int v_sl, int o_sb, int o_sl, float c) {
+                        __nv_bfloat16* __restrict__ o,
+                        float* __restrict__ den, int Lq, int Lk, int q_sb,
+                        int q_sl, int k_sb, int k_sl, int v_sb, int v_sl,
+                        int o_sb, int o_sl, float c) {
   static_assert(HD % 16 == 0, "head dim must be a multiple of 16");
   constexpr int LDS = HD + 8;  // padded shared row: fewer bank conflicts
   constexpr int KD = HD / 16;  // k-steps of the score product
@@ -173,6 +178,12 @@ packed_attention_kernel(const __nv_bfloat16* __restrict__ q,
     rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 1);
     rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], 2);
   }
+  if (den != nullptr && t == 0) {
+    // the unclamped sums, (B, Lq, H) contiguous
+    float* db = den + static_cast<long long>(b) * Lq * gridDim.y + blockIdx.y;
+    if (r0 < Lq) db[static_cast<long long>(r0) * gridDim.y] = rsum[0];
+    if (r1 < Lq) db[static_cast<long long>(r1) * gridDim.y] = rsum[1];
+  }
   const float d0 = fmaxf(rsum[0], 1e-30f), d1 = fmaxf(rsum[1], 1e-30f);
   __nv_bfloat16* ob = o + static_cast<long long>(b) * o_sb + hoff;
 #pragma unroll
@@ -188,14 +199,14 @@ packed_attention_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int HD>
-void launch(const void* q, const void* k, const void* v, void* o, int B, int Lq,
-            int Lk, int H, int q_sb, int q_sl, int k_sb, int k_sl, int v_sb,
+void launch(const void* q, const void* k, const void* v, void* o, float* den,
+            int B, int Lq, int Lk, int H, int q_sb, int q_sl, int k_sb, int k_sl, int v_sb,
             int v_sl, int o_sb, int o_sl, float c, cudaStream_t stream) {
   const dim3 grid((Lq + kTileQ - 1) / kTileQ, H, B);
   packed_attention_kernel<HD><<<grid, kThreads, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Lq,
-      Lk, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl, c);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), den,
+      Lq, Lk, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl, c);
 }
 
 }  // namespace
@@ -211,8 +222,22 @@ extern "C" int packed_attention_bf16(const void* q, const void* k, const void* v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // ViT-B/16 (and every CLIP tower the repo configures) has Dh = 64
   if (Dh != 64) return static_cast<int>(cudaErrorInvalidValue);
-  launch<64>(q, k, v, o, B, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb,
-             o_sl, c, st);
+  launch<64>(q, k, v, o, nullptr, B, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb,
+             v_sl, o_sb, o_sl, c, st);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same forward, which also writes den (B, Lq, H) fp32 contiguous.
+extern "C" int packed_attention_den_bf16(const void* q, const void* k,
+                                         const void* v, void* o, void* den,
+                                         int B, int Lq, int Lk, int H, int Dh,
+                                         int q_sb, int q_sl, int k_sb, int k_sl,
+                                         int v_sb, int v_sl, int o_sb, int o_sl,
+                                         float c, void* stream) {
+  if (Dh != 64 || den == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  launch<64>(q, k, v, o, static_cast<float*>(den), B, Lq, Lk, H, q_sb, q_sl,
+             k_sb, k_sl, v_sb, v_sl, o_sb, o_sl, c,
+             static_cast<cudaStream_t>(stream));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,5 @@
-"""Vita-CLIP vision tower (port of gava_clip_tpu/models/vision.py, the bf16
-and the w8a8 serving paths).
+"""Vita-CLIP vision tower (port of gava_clip_tpu/models/vision.py: the bf16
+and the w8a8 serving paths, and the bf16 / fp32 training path).
 
 Per-frame ViT with summary, local and global prompt tokens; the prompt
 tokens are attention KEYS only (queries are [cls, patches]), as in the JAX
@@ -16,6 +16,13 @@ the patch-major embed runs its int8 sidecar through `w8a8_matmul`. The
 TPU's 8-row padded layout is not ported, only its semantics: the queries
 are the first Lx rows, the keys all Lx + Le rows with the extras in the
 order [global, summary, local], and LN1 and the quant act on every kv row.
+
+Training runs the same bf16 `_block` under autograd: the gradient reaches
+the prompts (global, local, summary) only through the keys-only extra rows
+of the attention kernel's dk / dv, and `time_embed` through dx of all the
+frozen blocks. `remat="full"` recomputes each block in the backward
+(`torch.utils.checkpoint`); the JAX package's named policies (save_attn,
+save_attn_qkv, save_attn_mlp, dots) are not ported (ROADMAP A7b).
 """
 
 from dataclasses import dataclass
@@ -23,6 +30,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.activations import quick_gelu
 from ..ops.attention import attention_core, multi_head_attention
@@ -231,15 +239,36 @@ def _block(p, g_prompt: Optional[torch.Tensor], x: torch.Tensor,
     return x, summary
 
 
+_NAMED_REMAT = ("dots", "save_attn", "save_attn_qkv", "save_attn_mlp")
+
+
+def _remat_full(remat) -> bool:
+    """False for False / 'none', True for True / 'full'; the named
+    selective policies and anything else raise."""
+    if remat in (False, None, "none"):
+        return False
+    if remat in (True, "full"):
+        return True
+    if remat in _NAMED_REMAT:
+        raise NotImplementedError(
+            f"remat={remat!r}: the named rematerialization policies are not "
+            f"ported yet (ROADMAP A7b); use 'none' or 'full'")
+    raise ValueError(f"unknown remat policy {remat!r}")
+
+
 def vision_encoder(params, x: torch.Tensor, cfg: VisionConfig,
                    compute_dtype=torch.float32, attn_impl: str = "xla",
-                   input_format: str = "frames", int8_impl: str = "kernel"):
+                   input_format: str = "frames", int8_impl: str = "kernel",
+                   remat="none"):
     """Encode video -> (video_features (B, embed_dim), summary (B, D) | None).
 
     input_format: 'frames' = (B, T, H, W, 3) pixels; 'patches' =
     (B, T, N, ph*pw*3) patch-major rows (see patchify). int8_impl: the w8a8
     ops' kernels ('kernel') or their plain versions on any device
-    ('plain')."""
+    ('plain'). remat: False / 'none' keeps every activation for the
+    backward; True / 'full' keeps only each block's input and recomputes
+    the block in the backward (lowest memory)."""
+    remat_full = _remat_full(remat)
     D = cfg.feature_dim
     if input_format == "patches":
         B, T, N, P = x.shape
@@ -262,7 +291,11 @@ def vision_encoder(params, x: torch.Tensor, cfg: VisionConfig,
     summary = None
     for i, p in enumerate(params["blocks"]):
         g = None if g_prompts is None else g_prompts[i]
-        x, summary = _block(p, g, x, cfg, attn_impl, int8_impl)
+        if remat_full and torch.is_grad_enabled():
+            x, summary = checkpoint(_block, p, g, x, cfg, attn_impl,
+                                    int8_impl, use_reentrant=False)
+        else:
+            x, summary = _block(p, g, x, cfg, attn_impl, int8_impl)
 
     cls_x = layer_norm(x[:, 0], params["ln_post"]["scale"],
                        params["ln_post"]["bias"])

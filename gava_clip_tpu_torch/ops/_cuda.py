@@ -35,6 +35,30 @@ _SIGNATURES = {
         # exp2 constant; stream
         "packed_attention_bf16": (
             [_VP] * 4 + [_I] * 5 + [_I] * 8 + [ctypes.c_float, _VP], _I),
+        # the same with den after o
+        "packed_attention_den_bf16": (
+            [_VP] * 5 + [_I] * 5 + [_I] * 8 + [ctypes.c_float, _VP], _I),
+        "cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "packed_attention_bwd": {
+        # q, k, v, do, o, den, dq, dk, dv; B, Lq, Lk, H, Dh; q/k/v batch and
+        # row strides; scale; stream
+        "packed_attention_bwd_bf16": (
+            [_VP] * 9 + [_I] * 5 + [_I] * 6 + [ctypes.c_float, _VP], _I),
+        "cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "streaming_attention": {
+        # q, k, v, o, lse; B, Lq, Lk, H, Dh; q/k/v batch and row strides;
+        # scale; causal; stream
+        "streaming_attention_fwd_bf16": (
+            [_VP] * 5 + [_I] * 5 + [_I] * 6 + [ctypes.c_float, _I, _VP], _I),
+        "cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "streaming_attention_bwd": {
+        # q, k, v, do, o, lse, dq, dk, dv; B, Lq, Lk, H, Dh; q/k/v batch
+        # and row strides; scale; causal; stream
+        "streaming_attention_bwd_bf16": (
+            [_VP] * 9 + [_I] * 5 + [_I] * 6 + [ctypes.c_float, _I, _VP], _I),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "w8a8_matmul": {

@@ -5,10 +5,13 @@ Two implementations share one parameter layout
 
   * impl="xla": plain attention, fp32 softmax. Like the JAX einsum path it
     multiplies q by the scale in the compute dtype before the score product.
-  * impl="flash": the packed attention kernel (ops/flash_attention.py),
-    which scales the fp32 scores instead and uses the one-pass exp2-clamp
-    softmax. The two round differently; each is held against its own JAX
-    counterpart.
+  * impl="flash": the attention kernels (ops/flash_attention.py), which
+    scale the fp32 scores instead. Non-causal with at most 640 keys is the
+    packed kernel with the one-pass exp2-clamp softmax; causal=True (the
+    text tower) or longer keys the streaming kernel with a standard online
+    softmax. Both are differentiable. The implementations round
+    differently; each is held against its own JAX counterpart. The "xla"
+    path is the differentiable oracle for all of them.
 """
 
 from typing import Dict, Optional

@@ -1,10 +1,14 @@
-"""Packed whole-row attention forward (port of the short-L, non-causal part of
-gava_clip_tpu/ops/flash_attention.py).
+"""Attention over packed activations (port of
+gava_clip_tpu/ops/flash_attention.py): the packed whole-row kernels,
+forward and backward, and the streaming kernels for causal or long keys.
 
 q is (B, Lq, H*Dh), k/v are (B, Lk, H*Dh), packed as the projections emit
-them — no head relayout. The softmax is the JAX kernel's one-pass form
-(`_onepass_softmax_av_masked`), which is a different function from a
-standard softmax once scores pass the clamp:
+them — no head relayout. Two regimes, dispatched by `flash_attention` as
+the JAX function does.
+
+Non-causal, Lk <= 640: the packed kernels. The softmax is the JAX kernel's
+one-pass form (`_onepass_softmax_av_masked`), which is a different function
+from a standard softmax once scores pass the clamp:
 
   * the scale folds into the exp2 constant: e = exp2(min(s * c, 110)) with
     c = Dh**-0.5 * log2(e) and s the fp32 score;
@@ -14,9 +18,22 @@ standard softmax once scores pass the clamp:
     (on the TPU the denominator is the ones column of the same dot);
   * out = (e @ v) / max(sum(e), 1e-30), cast to the output dtype.
 
-`flash_attention` dispatches on the tensor's device: a CPU tensor runs
-`packed_attention_plain`; a CUDA tensor runs the hand-written kernel in
-csrc/packed_attention.cu or raises. There is no fallback between the two.
+When a gradient is wanted the forward also emits the per-head
+denominators den (B, Lq, H) fp32 (the sums of the rounded e), and the
+backward rebuilds e from q and k and consumes the saved output and den
+(JAX `_packed_flash_saved`); `packed_attention_bwd_plain` spells out its
+rounding points.
+
+Causal, or Lk > 640: the streaming kernels, a KV-blocked online softmax
+(standard softmax with max subtraction, probabilities cast to v's dtype
+before the AV product) that saves the per-row log-sum-exp for its backward
+(JAX `_streaming_flash`). The causal mask is top-left aligned: key j is
+visible to query row i iff j <= i.
+
+Every function dispatches on the tensor's device: a CPU tensor runs the
+plain version (`*_plain`); a CUDA tensor runs the hand-written kernel in
+csrc/ or raises. There is no fallback between the two. The gradients are
+`torch.autograd.Function`s whose backward is a kernel too.
 
 `flash_attention_out_int8` is the w8a8 serving fusion (TPU
 `_attention_out_kernel` + `_int8_outproj_epilogue`): the same attention
@@ -26,20 +43,23 @@ the residual add (csrc/attention_out_int8.cu; plain version
 `attention_out_int8_plain`).
 """
 
-from typing import Dict, Optional
+import contextlib
+from typing import Dict, Optional, Tuple
 
 import torch
 
 _LOG2E = 1.4426950408889634
 _CLAMP = 110.0
+_LN2 = 0.6931471805599453
 # above this key length the JAX package switches to the streaming kernel
-# (ROADMAP B7), which is not ported yet
 _PACKED_MAX_LK = 640
 _KERNEL_HEAD_DIM = 64     # the only head width the kernel is built for
 
 # launches of each hand-written kernel since the last reset; a run reads
 # these to show that its main path went through the kernels
-launch_counts = {"packed_attention": 0, "attention_out_int8": 0}
+launch_counts = {"packed_attention": 0, "attention_out_int8": 0,
+                 "packed_attention_den": 0, "packed_attention_bwd": 0,
+                 "streaming_attention": 0, "streaming_attention_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -47,13 +67,41 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
+_force_plain = False
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Inside this context `flash_attention` (forward and backward) runs
+    the plain versions on every device. It exists to hold a whole step
+    through the kernels against the same step without them on the card; the
+    port's own paths never enter it."""
+    global _force_plain
+    before, _force_plain = _force_plain, True
+    try:
+        yield
+    finally:
+        _force_plain = before
+
+
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     B, L, D = x.shape
     return x.reshape(B, L, num_heads, D // num_heads).transpose(1, 2)
 
 
+def _unheads(x: torch.Tensor) -> torch.Tensor:
+    B, H, L, Dh = x.shape
+    return x.transpose(1, 2).reshape(B, L, H * Dh)
+
+
 def _onepass_attention_f32(q, k, v, num_heads: int) -> torch.Tensor:
     """The one-pass clamp softmax attention, (B, Lq, H*Dh) fp32 output."""
+    return _onepass_attention_den_f32(q, k, v, num_heads)[0]
+
+
+def _onepass_attention_den_f32(q, k, v, num_heads: int):
+    """(out (B, Lq, H*Dh) fp32, den (B, Lq, H) fp32): the one-pass clamp
+    softmax attention and its per-head denominators."""
     B, Lq, D = q.shape
     Dh = D // num_heads
     c = Dh ** -0.5 * _LOG2E
@@ -65,7 +113,8 @@ def _onepass_attention_f32(q, k, v, num_heads: int) -> torch.Tensor:
     num = e @ vh.float()
     den = e.sum(dim=-1, keepdim=True)
     out = num / torch.clamp(den, min=1e-30)
-    return out.transpose(1, 2).reshape(B, Lq, D)
+    return (out.transpose(1, 2).reshape(B, Lq, D),
+            den[..., 0].transpose(1, 2).contiguous())
 
 
 def packed_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -143,28 +192,316 @@ def packed_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             v.stride(0), v.stride(1), out.stride(0), out.stride(1),
             Dh ** -0.5 * _LOG2E, stream)
     if err != 0:
-        raise RuntimeError(f"packed_attention kernel launch failed: "
-                           f"{lib.cuda_error_string(err).decode()} ({err})")
+        raise _launch_failed("packed_attention", lib, err)
     launch_counts["packed_attention"] += 1
     return out
+
+
+def packed_attention_den_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, num_heads: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the denominator-emitting forward (JAX
+    `_attention_kernel_den`): (out in q's dtype, den (B, Lq, H) fp32). den
+    is the sum of the e values AFTER their cast to v's dtype."""
+    out, den = _onepass_attention_den_f32(q, k, v, num_heads)
+    return out.to(q.dtype), den
+
+
+def packed_attention_bwd_plain(q, k, v, do, o, den, num_heads: int):
+    """Plain version of the saved-residual backward (JAX
+    `_attention_bwd_kernel`), the explicit formula with its rounding
+    points, not autograd: e, ds and do * inv_d are cast to v's dtype before
+    their products, the products accumulate in fp32, the scale comes after
+    the dot and each gradient is cast once. Returns dq, dk, dv."""
+    Dh = q.shape[-1] // num_heads
+    scale = Dh ** -0.5
+    c = scale * _LOG2E
+    qh, kh, vh = (_heads(x, num_heads).float() for x in (q, k, v))
+    doh, oh = _heads(do, num_heads).float(), _heads(o, num_heads).float()
+    inv_d = (1.0 / torch.clamp(den.float(), min=1e-30)
+             ).transpose(1, 2)[..., None]                 # (B, H, Lq, 1)
+    delta = (doh * oh).sum(dim=-1, keepdim=True)
+    s = qh @ kh.transpose(-1, -2)
+    e = torch.exp2(torch.clamp(s * c, max=_CLAMP)).to(v.dtype).float()
+    dp = doh @ vh.transpose(-1, -2)
+    ds = ((e * inv_d) * (dp - delta)).to(v.dtype).float()
+    do_n = (doh * inv_d).to(v.dtype).float()
+    dq = (ds @ kh) * scale
+    dk = (ds.transpose(-1, -2) @ qh) * scale
+    dv = e.transpose(-1, -2) @ do_n
+    return (_unheads(dq).to(q.dtype), _unheads(dk).to(k.dtype),
+            _unheads(dv).to(v.dtype))
+
+
+def _visible(Lq: int, Lk: int, causal: bool, device) -> Optional[torch.Tensor]:
+    """(Lq, Lk) bool mask of the keys each query row sees, None when all."""
+    if not causal:
+        return None
+    return torch.ones(Lq, Lk, dtype=torch.bool, device=device).tril()
+
+
+def streaming_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, num_heads: int,
+                              causal: bool = False
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the streaming forward: standard softmax with max
+    subtraction over fp32 scores, the probabilities cast to v's dtype
+    before the AV product and summed in fp32. Returns (out in q's dtype,
+    lse (B, H, Lq) fp32, the natural-log sum of exp of the scaled scores)."""
+    Dh = q.shape[-1] // num_heads
+    c = Dh ** -0.5 * _LOG2E
+    qh, kh, vh = (_heads(x, num_heads).float() for x in (q, k, v))
+    s2 = (qh @ kh.transpose(-1, -2)) * c                   # log2 units
+    mask = _visible(q.shape[1], k.shape[1], causal, q.device)
+    if mask is not None:
+        s2 = s2.masked_fill(~mask, float("-inf"))
+    m = s2.max(dim=-1, keepdim=True).values
+    p = torch.exp2(s2 - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = (p.to(v.dtype).float() @ vh) / l
+    lse = ((m + torch.log2(l)) * _LN2)[..., 0]
+    return _unheads(out).to(q.dtype), lse
+
+
+def streaming_attention_bwd_plain(q, k, v, do, o, lse, num_heads: int,
+                                  causal: bool = False):
+    """Plain version of the streaming backward, the explicit formula: p is
+    rebuilt from the saved log-sum-exp, ds = p * (do v^T - delta) * scale
+    and p are cast to v's dtype before their products. Returns dq, dk,
+    dv."""
+    Dh = q.shape[-1] // num_heads
+    scale = Dh ** -0.5
+    c = scale * _LOG2E
+    qh, kh, vh = (_heads(x, num_heads).float() for x in (q, k, v))
+    doh, oh = _heads(do, num_heads).float(), _heads(o, num_heads).float()
+    delta = (doh * oh).sum(dim=-1, keepdim=True)
+    s2 = (qh @ kh.transpose(-1, -2)) * c
+    p = torch.exp2(s2 - (lse.float() * _LOG2E)[..., None])
+    mask = _visible(q.shape[1], k.shape[1], causal, q.device)
+    if mask is not None:
+        p = p.masked_fill(~mask, 0.0)
+    dp = doh @ vh.transpose(-1, -2)
+    ds = (p * (dp - delta) * scale).to(v.dtype).float()
+    dq = ds @ kh
+    dk = ds.transpose(-1, -2) @ qh
+    dv = p.to(v.dtype).float().transpose(-1, -2) @ doh
+    return (_unheads(dq).to(q.dtype), _unheads(dk).to(k.dtype),
+            _unheads(dv).to(v.dtype))
+
+
+def _launch_failed(name: str, lib, err: int) -> RuntimeError:
+    return RuntimeError(f"{name} kernel launch failed: "
+                        f"{lib.cuda_error_string(err).decode()} ({err})")
+
+
+def _qkv_strides(q, k, v):
+    return (q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+            v.stride(0), v.stride(1))
+
+
+def packed_attention_den_cuda(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, num_heads: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the denominator-emitting entry of csrc/packed_attention.cu on
+    the current stream (no sync): (out, den (B, Lq, H) fp32)."""
+    from ._cuda import load_library
+    _check_kernel_args(q, k, v, num_heads)
+    B, Lq, D = q.shape
+    Dh = D // num_heads
+    lib = load_library("packed_attention")
+    out = torch.empty((B, Lq, D), dtype=q.dtype, device=q.device)
+    den = torch.empty((B, Lq, num_heads), dtype=torch.float32,
+                      device=q.device)
+    if B == 0 or Lq == 0:
+        return out, den
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.packed_attention_den_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            den.data_ptr(), B, Lq, k.shape[1], num_heads, Dh,
+            *_qkv_strides(q, k, v), out.stride(0), out.stride(1),
+            Dh ** -0.5 * _LOG2E, stream)
+    if err != 0:
+        raise _launch_failed("packed_attention_den", lib, err)
+    launch_counts["packed_attention_den"] += 1
+    return out, den
+
+
+def _check_bwd_args(q, do, o, stat, stat_shape):
+    for name, t in (("do", do), ("o", o)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}, expected q's {q.dtype} "
+                             f"{tuple(q.shape)} on {q.device}")
+    if tuple(stat.shape) != stat_shape or stat.dtype != torch.float32 or \
+            stat.device != q.device:
+        raise ValueError(f"saved row statistics {stat.dtype} "
+                         f"{tuple(stat.shape)}, expected float32 "
+                         f"{stat_shape}")
+
+
+def packed_attention_bwd_cuda(q, k, v, do, o, den, num_heads: int):
+    """Launch csrc/packed_attention_bwd.cu (its dq kernel, then its dk/dv
+    kernel) on the current stream (no sync). Returns dq, dk, dv."""
+    from ._cuda import load_library
+    _check_kernel_args(q, k, v, num_heads)
+    B, Lq, D = q.shape
+    Lk = k.shape[1]
+    _check_bwd_args(q, do, o, den, (B, Lq, num_heads))
+    do, o, den = do.contiguous(), o.contiguous(), den.contiguous()
+    lib = load_library("packed_attention_bwd")
+    dq = torch.empty((B, Lq, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Lk, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, Lk, D), dtype=q.dtype, device=q.device)
+    if B == 0 or Lq == 0 or Lk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.packed_attention_bwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            o.data_ptr(), den.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, Lq, Lk, num_heads, D // num_heads,
+            *_qkv_strides(q, k, v), (D // num_heads) ** -0.5, stream)
+    if err != 0:
+        raise _launch_failed("packed_attention_bwd", lib, err)
+    launch_counts["packed_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+def streaming_attention_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, num_heads: int,
+                             causal: bool = False
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch csrc/streaming_attention.cu on the current stream (no sync):
+    (out, lse (B, H, Lq) fp32)."""
+    from ._cuda import load_library
+    _check_kernel_args(q, k, v, num_heads)
+    B, Lq, D = q.shape
+    if k.shape[1] == 0:
+        raise ValueError("streaming attention needs at least one key")
+    lib = load_library("streaming_attention")
+    out = torch.empty((B, Lq, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, num_heads, Lq), dtype=torch.float32,
+                      device=q.device)
+    if B == 0 or Lq == 0:
+        return out, lse
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.streaming_attention_fwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, Lq, k.shape[1], num_heads, D // num_heads,
+            *_qkv_strides(q, k, v), (D // num_heads) ** -0.5, int(causal),
+            stream)
+    if err != 0:
+        raise _launch_failed("streaming_attention", lib, err)
+    launch_counts["streaming_attention"] += 1
+    return out, lse
+
+
+def streaming_attention_bwd_cuda(q, k, v, do, o, lse, num_heads: int,
+                                 causal: bool = False):
+    """Launch csrc/streaming_attention_bwd.cu (its dq kernel, then its
+    dk/dv kernel) on the current stream (no sync). Returns dq, dk, dv."""
+    from ._cuda import load_library
+    _check_kernel_args(q, k, v, num_heads)
+    B, Lq, D = q.shape
+    Lk = k.shape[1]
+    _check_bwd_args(q, do, o, lse, (B, num_heads, Lq))
+    do, o, lse = do.contiguous(), o.contiguous(), lse.contiguous()
+    lib = load_library("streaming_attention_bwd")
+    dq = torch.empty((B, Lq, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Lk, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, Lk, D), dtype=q.dtype, device=q.device)
+    if B == 0 or Lq == 0 or Lk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.streaming_attention_bwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            o.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, Lq, Lk, num_heads, D // num_heads,
+            *_qkv_strides(q, k, v), (D // num_heads) ** -0.5, int(causal),
+            stream)
+    if err != 0:
+        raise _launch_failed("streaming_attention_bwd", lib, err)
+    launch_counts["streaming_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+def _by_device(t: torch.Tensor, plain, cuda, what: str):
+    """The plain version for a CPU tensor, the kernel for a CUDA tensor."""
+    if _force_plain or t.device.type == "cpu":
+        return plain
+    if t.device.type == "cuda":
+        return cuda
+    raise ValueError(f"no {what} for device {t.device}")
+
+
+class _PackedAttention(torch.autograd.Function):
+    """Differentiable packed attention (JAX `_packed_flash_saved`): the
+    forward saves q, k, v, its output and the denominators; the backward is
+    one more kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads: int):
+        fwd = _by_device(q, packed_attention_den_plain,
+                         packed_attention_den_cuda, "packed attention")
+        out, den = fwd(q, k, v, num_heads)
+        ctx.save_for_backward(q, k, v, out, den)
+        ctx.num_heads = num_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, den = ctx.saved_tensors
+        bwd = _by_device(q, packed_attention_bwd_plain,
+                         packed_attention_bwd_cuda, "packed attention")
+        dq, dk, dv = bwd(q, k, v, do, out, den, ctx.num_heads)
+        return dq, dk, dv, None
+
+
+class _StreamingAttention(torch.autograd.Function):
+    """Differentiable streaming attention (JAX `_streaming_flash`): the
+    forward saves q, k, v, its output and the log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads: int, causal: bool):
+        fwd = _by_device(q, streaming_attention_plain,
+                         streaming_attention_cuda, "streaming attention")
+        out, lse = fwd(q, k, v, num_heads, causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.num_heads, ctx.causal = num_heads, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = _by_device(q, streaming_attention_bwd_plain,
+                         streaming_attention_bwd_cuda, "streaming attention")
+        dq, dk, dv = bwd(q, k, v, do, out, lse, ctx.num_heads, ctx.causal)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     num_heads: int = 12, causal: bool = False) -> torch.Tensor:
     """Self-attention over packed (B, L, H*Dh) q/k/v (JAX `flash_attention`).
 
-    Non-causal with Lk <= 640 is the packed whole-row path. The streaming
-    path (causal, or longer keys) is not ported yet and raises on every
-    device."""
-    if causal or k.shape[1] > _PACKED_MAX_LK:
-        raise NotImplementedError(
-            "causal / Lk > 640 attention needs the streaming kernel, not "
-            "ported yet (ROADMAP B7)")
-    if q.device.type == "cpu":
-        return packed_attention_plain(q, k, v, num_heads)
-    if q.device.type == "cuda":
-        return packed_attention_cuda(q, k, v, num_heads)
-    raise ValueError(f"no packed attention for device {q.device}")
+    Non-causal with Lk <= 640 is the packed whole-row path; causal or
+    longer keys the streaming path. Both are differentiable with kernel
+    backward passes. Where no gradient is wanted (under `torch.no_grad()`,
+    or none of q, k, v requires one) the packed path runs the forward that
+    writes no denominators."""
+    wants_grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
+    if not causal and k.shape[1] <= _PACKED_MAX_LK:
+        if wants_grad:
+            return _PackedAttention.apply(q, k, v, num_heads)
+        return _by_device(q, packed_attention_plain, packed_attention_cuda,
+                          "packed attention")(q, k, v, num_heads)
+    if wants_grad:
+        return _StreamingAttention.apply(q, k, v, num_heads, causal)
+    return _by_device(q, streaming_attention_plain, streaming_attention_cuda,
+                      "streaming attention")(q, k, v, num_heads, causal)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -225,8 +562,7 @@ def attention_out_int8_cuda(q, k, v, num_heads: int, out_params: Dict,
             k.stride(0), k.stride(1), v.stride(0), v.stride(1),
             (D // num_heads) ** -0.5 * _LOG2E, stream)
     if err != 0:
-        raise RuntimeError(f"attention_out_int8 kernel launch failed: "
-                           f"{lib.cuda_error_string(err).decode()} ({err})")
+        raise _launch_failed("attention_out_int8", lib, err)
     launch_counts["attention_out_int8"] += 1
     return out
 
@@ -242,8 +578,8 @@ def flash_attention_out_int8(q, k, v, num_heads: int, out_params: Dict,
     CUDA kernel on a card."""
     if k.shape[1] > _PACKED_MAX_LK:
         raise NotImplementedError(
-            "Lk > 640 attention needs the streaming kernel, not ported yet "
-            "(ROADMAP B7)")
+            "the fused attention + int8 out-projection holds whole key "
+            "rows; Lk > 640 is outside it (ROADMAP B4)")
     if impl == "plain" or q.device.type == "cpu":
         return attention_out_int8_plain(q, k, v, num_heads, out_params,
                                         residual, lq)

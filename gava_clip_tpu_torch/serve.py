@@ -9,7 +9,7 @@ the next power-of-two bucket up to the serving batch. On a CUDA device
 attention (bf16) or the four w8a8 ops run the hand-written kernels; on the
 CPU their plain versions.
 
-    clf = VideoClassifier.from_model(model, classnames, device="cuda")
+    clf = VideoClassifier.from_model(model, classnames)   # on the card
     probs = clf.classify_clips(clips_u8)        # (N, T, S, S, 3) uint8
     label, probs = clf.classify_video("walk.mp4")
 """
@@ -19,13 +19,13 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from gava_clip_tpu.data import video as V
-
+from .data import video as V
 from .data.device_preprocess import CLIP_MEAN, CLIP_STD, normalize_frames
 from .models.vision import fold_normalize_into_patch_embed, patchify
 from .models.vita_clip import VitaClip
 from .ops.int8_matmul import with_kernel_layout
 from .ops.quant import quantize_tower_params
+from .utils.device import resolve_device
 
 
 def _to_bf16(tree, device):
@@ -62,14 +62,15 @@ class VideoClassifier:
         of the full serving batch.
         quantize: '' / False (bf16 weights) or 'w8a8' (int8 weights and
         per-row int8 activations); True / 'w8' (weight-only int8) needs
-        the w8 GEMM, not ported yet (ROADMAP B9)."""
+        the w8 GEMM, not ported yet (ROADMAP B9).
+        device: None means the card (and raises without one); pass 'cpu'
+        to serve from the host."""
         if quantize not in ("", None, False, "w8a8"):
             raise NotImplementedError(
                 f"quantize={quantize!r}: weight-only int8 serving needs the "
                 f"w8 dequant GEMM, not ported yet (ROADMAP B9)")
         self.quantize = quantize or ""
-        self.device = torch.device(device) if device is not None else \
-            model.text_features.device
+        self.device = resolve_device(device)
         self.classnames = list(classnames)
         self.batch_size = batch_size
         self.num_frames = model.cfg.vision.num_frames

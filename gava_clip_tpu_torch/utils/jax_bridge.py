@@ -1,9 +1,14 @@
 """Parameters of the JAX package <-> parameters of the port.
 
 The JAX `VitaClip.params` is a nested dict of numpy arrays whose vision
-blocks are stacked on a leading layer axis; the port keeps one dict per
-layer in a list. Every other path and the (in, out) kernel layout are the
-same. Neither direction needs JAX.
+and text blocks are stacked on a leading layer axis; the port keeps one
+dict per layer in a list. Every other path (`visual`, `textual`, `prompt`,
+the heads, the scalar logit scales) and the (in, out) kernel layout are the
+same. The buffers (`token_prefix`, `token_suffix`, `kv_mask`, `pool_idx`,
+`cntn_embeds`, `text_features`) cross as they are. Gradients and a train
+state go back to the JAX layout with None where the JAX partition has None,
+so that a test can set `jax.grad`'s tree beside the port's leaf by leaf.
+Neither direction needs JAX.
 
 Quantized trees (ops/quant.py) go across both ways: a w8a8 leaf
 {'qa': int8 (L, K, N), 'scale': fp32 (L, 1, N)} becomes per-layer
@@ -90,8 +95,8 @@ def _convert(src, expected, path: str, device):
 
 def params_from_jax(params: Mapping, cfg: VitaClipConfig,
                     device=None) -> Dict:
-    """JAX zero-shot VitaClip params -> the port's params, every shape
-    checked; a missing or unused leaf raises."""
+    """JAX VitaClip params (the whole tree that cfg asks for) -> the port's
+    params, every shape checked; a missing or unused leaf raises."""
     expected = init_vita_clip_params(None, cfg, device="meta")
     return _convert(params, expected, "", device)
 
@@ -101,6 +106,8 @@ def params_to_jax(params: Mapping) -> Dict:
     leaf keeps its dtype (int8 stays int8), except bf16, which numpy lacks:
     it becomes float32."""
     def to_np(x):
+        if x is None:
+            return None
         if isinstance(x, Mapping):
             return {k: to_np(v) for k, v in x.items()}
         if isinstance(x, list):
@@ -111,6 +118,59 @@ def params_to_jax(params: Mapping) -> Dict:
     def _stack(layers):
         if isinstance(layers[0], dict):
             return {k: _stack([l[k] for l in layers]) for k in layers[0]}
+        if layers[0] is None:       # a leaf frozen in every layer
+            return None
         return np.stack(layers)
 
     return to_np(params)
+
+
+_BUFFERS = ("token_prefix", "token_suffix", "kv_mask", "pool_idx",
+            "cntn_embeds", "text_features")
+
+
+def buffers_from_jax(buffers: Mapping, device=None) -> Dict:
+    """JAX `VitaClip.buffers` -> tensors; an unknown buffer raises."""
+    unknown = sorted(set(buffers) - set(_BUFFERS))
+    if unknown:
+        raise KeyError(f"buffers: unused leaves {unknown}")
+    return {k: torch.from_numpy(np.array(np.asarray(v))).to(device)
+            for k, v in buffers.items()}
+
+
+def _map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def grads_to_jax(trainable: Mapping) -> Dict:
+    """The `.grad` of every leaf of a TrainState's trainable tree, in the
+    JAX layout (numpy, stacked blocks); None where the leaf is frozen. A
+    trainable leaf without a gradient raises."""
+    def grad(t):
+        if t is None:
+            return None
+        if t.grad is None:
+            raise ValueError("a trainable leaf has no gradient")
+        return t.grad
+    return params_to_jax(_map(grad, trainable))
+
+
+def train_state_to_jax(state) -> Dict:
+    """A TrainState in the JAX layout: step, the trainable and frozen
+    halves (None placeholders as in the JAX partition) and AdamW's first
+    and second moments `mu` / `nu` shaped like `trainable` (None for a
+    leaf that has not been updated yet)."""
+    def moment(name):
+        def get(t):
+            if t is None:
+                return None
+            return state.optimizer.state.get(t, {}).get(name)
+        return params_to_jax(_map(get, state.trainable))
+    return {"step": state.step,
+            "trainable": params_to_jax(state.trainable),
+            "frozen": params_to_jax(state.frozen),
+            "mu": moment("exp_avg"), "nu": moment("exp_avg_sq")}

@@ -17,10 +17,10 @@ from gava_clip_tpu.models.vision import VisionConfig as JVisionConfig
 from gava_clip_tpu.models.vita_clip import VitaClip as JVitaClip
 from gava_clip_tpu.models.vita_clip import VitaClipConfig as JVitaClipConfig
 from gava_clip_tpu.serve import VideoClassifier as JVideoClassifier
-from gava_clip_tpu.server import serve
 from gava_clip_tpu_torch.models.vision import VisionConfig
 from gava_clip_tpu_torch.models.vita_clip import VitaClip, VitaClipConfig
 from gava_clip_tpu_torch.serve import VideoClassifier
+from gava_clip_tpu_torch.server import MicroBatcher, serve
 from gava_clip_tpu_torch.utils.jax_bridge import params_from_jax
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -150,6 +150,11 @@ def test_server_endpoints(clf):
         with pytest.raises(urllib.error.HTTPError) as e:
             urllib.request.urlopen(bad, timeout=30)
         assert e.value.code == 400
+        # the front end and the micro-batcher are the port's own copies
+        with urllib.request.urlopen(base + "/v1/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+        assert stats["requests"] >= 1 and stats["posts"] >= 1
+        assert isinstance(httpd.batcher, MicroBatcher)
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -160,10 +165,12 @@ def test_server_endpoints(clf):
 
 def test_port_imports_without_jax():
     """Every module of the port, its server entry and chip_smoke.py import
-    with jax blocked: the port runs where JAX is not installed."""
+    with jax and the JAX package blocked: the port runs where neither is
+    installed."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['gava_clip_tpu'] = None\n"
         "import gava_clip_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
         "pkg.__name__ + '.')]\n"
@@ -171,6 +178,7 @@ def test_port_imports_without_jax():
         "    importlib.import_module(n)\n"
         "import chip_smoke\n"
         "assert sys.modules['jax'] is None\n"
+        "assert sys.modules['gava_clip_tpu'] is None\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

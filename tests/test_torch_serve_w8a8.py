@@ -218,7 +218,8 @@ def test_server_quantize_w8a8(models, monkeypatch, tmp_path):
     classes.write_text("\n".join(NAMES) + "\n")
     seen = {}
 
-    def tiny_zero_shot(num_frames, num_classes, text_features=None):
+    def tiny_zero_shot(num_frames, num_classes, text_features=None,
+                       device=None):
         seen["args"] = (num_frames, num_classes)
         return models[1]
 

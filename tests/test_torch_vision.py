@@ -274,7 +274,7 @@ def test_init_matches_jax_shapes_and_limits(pair):
 
 def test_build_zero_shot_config():
     model = tflagship.build_zero_shot(num_frames=2, num_classes=5,
-                                      input_size=32)
+                                      input_size=32, device="cpu")
     v = model.cfg.vision
     ref = dataclasses.asdict(JVisionConfig(
         input_size=(32, 32), num_frames=2, feature_dim=768,
