@@ -51,6 +51,25 @@ The training step:
           falls, frozen leaves bit-unchanged, trainable leaves moved,
           ms/step and peak memory;
   train-long    steps at 4 clips x 70 frames with remat="full".
+The remaining serving modes:
+  w8-kernel    the weight-only int8 GEMM (int8_matmul), the residual-free
+          w8a8 MLP (w8a8_mlp), the fused prompt extras (fused_extras) and
+          the int8 QK^T form of attention_out_int8 against their plain
+          versions at the serving shapes and ragged ones (limits in
+          W8_LIMITS, EXTRAS_LIMITS, W8A8_LIMITS), with CUDA-event times of
+          kernel, plain version and, where there is one, a stock PyTorch
+          yardstick; the qkv kernel without extras rows is timed here too;
+  w8-slice     VideoClassifier(quantize="w8") at batch 16: 72 int8_matmul
+          and 12 packed_attention launches per forward, the logits against
+          the same forward through the plain versions and against the bf16
+          forward, the prob-delta gate, clips/s, batch-1 latency; the
+          patch-major w8 classifier beside it; mlp_block(residual=None) on
+          w8a8 leaves at the tower's shape;
+  w8a8-variants  the w8a8 + patch-major classifier with set_fused_extras,
+          then with set_int8_qk as well: launches per forward, logits
+          against the unfused forward and the plain-version forward, the
+          gate, times beside the unfused forward; both switches reset;
+  w8-server    the w8 classifier behind the same server.
 
 Any failure raises and the script exits nonzero without printing a result.
 On success the line before the last but one is a JSON object describing
@@ -77,7 +96,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SYMBOLS = ("packed_attention_kernel", "w8a8_matmul_kernel",
                   "w8a8_qkv_cat_kernel", "attention_out_int8_kernel",
                   "w8a8_mlp_res_kernel", "attn_bwd_dq_kernel",
-                  "attn_bwd_dkdv_kernel", "streaming_attention_fwd_kernel")
+                  "attn_bwd_dkdv_kernel", "streaming_attention_fwd_kernel",
+                  "w8_matmul_kernel", "fused_extras_kernel")
 KERNEL_SOURCE = "gava_clip_tpu_torch/csrc/packed_attention.cu"
 KERNEL_REPLACES = "gava_clip_tpu/ops/flash_attention.py:181"
 # every kernel of the two serving paths and of the training step:
@@ -108,6 +128,17 @@ KERNELS = {
         "streaming_attention_bwd",
         "gava_clip_tpu_torch/csrc/streaming_attention_bwd.cu",
         "gava_clip_tpu/ops/flash_attention.py:534"),
+    "int8_matmul": ("w8_matmul", "gava_clip_tpu_torch/csrc/w8_matmul.cu",
+                    "gava_clip_tpu/ops/int8_matmul.py:54"),
+    "w8a8_mlp": ("w8a8_mlp", "gava_clip_tpu_torch/csrc/w8a8_mlp.cu",
+                 "gava_clip_tpu/ops/int8_matmul.py:594"),
+    "fused_extras": ("fused_extras",
+                     "gava_clip_tpu_torch/csrc/fused_extras.cu",
+                     "gava_clip_tpu/ops/extras_kernel.py:48"),
+    "attention_out_int8_qk8": (
+        "attention_out_int8",
+        "gava_clip_tpu_torch/csrc/attention_out_int8.cu",
+        "gava_clip_tpu/ops/flash_attention.py:117"),
 }
 # (B, Lq, Lk, heads, head_dim); the first is the serving shape: 16 clips x
 # 8 frames, 197 query tokens, 197 + 8 global + 1 summary + 8 local keys
@@ -183,6 +214,15 @@ def phase_device(state):
         for _ in range(20):
             a @ a
         torch.cuda.synchronize()
+
+
+def _card_state() -> str:
+    """SM clock, power draw and temperature right now (a run whose clocks
+    fell mid-way shows here)."""
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    return res.stdout.strip() or "nvidia-smi gave nothing"
 
 
 def phase_build(state):
@@ -279,12 +319,20 @@ def phase_kernel(state):
 # those.
 # B2 has no LayerNorm and no attention sum, so its codes and its epilogue
 # are the plain version's exactly: it must match bit for bit.
+# The int8 QK^T attention is held to the limits of the kernel it is a form
+# of (its integer scores are exact on both sides).
 W8A8_LIMITS = {
     "w8a8_matmul": (0.0, 0.0, 0.0),
     "w8a8_matmul3_cat": (1e-3, 1e-4, 2.0),
     "attention_out_int8": (1e-2, 2e-3, 4.0),
     "w8a8_mlp_res": (5e-3, 1e-3, 2.0),
 }
+# Without the residual the MLP's output is small beside a flip unit, so the
+# rare row whose first-stage flip moves the hidden row's absmax (and with it
+# every hidden code) shows: measured 2.54 units in one of 25,216 rows, while
+# the shares stay where the residual form's are.
+W8A8_LIMITS["w8a8_mlp"] = W8A8_LIMITS["w8a8_mlp_res"][:2] + (4.0,)
+W8A8_LIMITS["attention_out_int8_qk8"] = W8A8_LIMITS["attention_out_int8"]
 # shapes: the serving shape first, then ragged ones (M not a multiple of
 # the tile, odd N, K not a multiple of 64, Le = 0, lq < Lkv)
 W8A8_MATMUL_SHAPES = ((25088, 768, 768), (37, 768, 77), (45, 100, 33))
@@ -484,6 +532,30 @@ def _classifier(model, params, classnames, **kw):
                            device="cuda", **kw)
 
 
+def _check_probs(name, p, n):
+    if p.shape != (n, 400) or not np.isfinite(p).all():
+        raise AssertionError(f"{name}: bad probabilities {p.shape}")
+    err = np.abs(p.sum(-1) - 1.0).max()
+    if err > 1e-3:
+        raise AssertionError(f"{name}: probabilities sum off by {err}")
+
+
+def _serving_times(clf, clips, x, iters=10):
+    """(clips/s end to end at batch 16, device forward ms, batch-1 latency
+    p50 ms)."""
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        clf.classify_clips(clips)
+    e2e = 16 * iters / (time.perf_counter() - t0)
+    fwd_ms = cuda_time_ms(lambda: clf._forward(x), iters=iters)
+    lat = []
+    for _ in range(20):
+        t1 = time.perf_counter()
+        clf.classify_clips(clips[:1])
+        lat.append((time.perf_counter() - t1) * 1e3)
+    return e2e, fwd_ms, float(np.median(lat))
+
+
 def phase_slice(state):
     import torch
     from gava_clip_tpu_torch.data.device_preprocess import normalize_frames
@@ -518,12 +590,8 @@ def phase_slice(state):
     if (n16, n_all) != (12, 24):
         raise AssertionError("the main path did not launch the kernel once "
                              "per block")
-    for name, p, n in (("16 clips", p16, 16), ("5 clips", p5, 5)):
-        if p.shape != (n, 400) or not np.isfinite(p).all():
-            raise AssertionError(f"{name}: bad probabilities {p.shape}")
-        err = np.abs(p.sum(-1) - 1.0).max()
-        if err > 1e-3:
-            raise AssertionError(f"{name}: probabilities sum off by {err}")
+    _check_probs("16 clips", p16, 16)
+    _check_probs("5 clips", p5, 5)
     # the 5-clip request pads to the bucket of 8: other GEMM shapes, so
     # only bf16 noise may differ
     d_pad = np.abs(p5 - p16[:5]).max()
@@ -566,23 +634,13 @@ def phase_slice(state):
 
     # throughput at batch 16 (host prep + H2D + forward + D2H) and the
     # device forward alone
-    iters = 10
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        clf.classify_clips(clips)
-    e2e = time.perf_counter() - t0
-    fwd_ms = cuda_time_ms(lambda: clf._forward(x), iters=iters)
-    lat = []
-    for _ in range(20):
-        t1 = time.perf_counter()
-        clf.classify_clips(clips[:1])
-        lat.append((time.perf_counter() - t1) * 1e3)
+    e2e, fwd_ms, lat = _serving_times(clf, clips, x)
     state.update(clf=clf, clips=clips, fwd_ms=fwd_ms, model=model,
                  params=params, labels=labels, p16_bf16=p16,
                  d_logit_bf16_paths=d_logit)
-    log(f"[slice] batch 16: {16 * iters / e2e:.1f} clips/s end to end, "
-        f"device forward {fwd_ms:.2f} ms = {16e3 / fwd_ms:.1f} clips/s; "
-        f"batch 1 latency p50 {np.median(lat):.2f} ms ({state['smi']})")
+    log(f"[slice] batch 16: {e2e:.1f} clips/s end to end, device forward "
+        f"{fwd_ms:.2f} ms = {16e3 / fwd_ms:.1f} clips/s; batch 1 latency p50 "
+        f"{lat:.2f} ms ({state['smi']})")
 
 
 # the w8a8 forward against the same forward with the plain versions of its
@@ -600,16 +658,19 @@ W8A8_PER_FORWARD = {"w8a8_matmul": 1, "w8a8_matmul3_cat": 12,
 
 
 def _launch_counts():
+    from gava_clip_tpu_torch.ops import extras_kernel as ek
     from gava_clip_tpu_torch.ops import flash_attention as fa
     from gava_clip_tpu_torch.ops import int8_matmul as im
-    return {**fa.launch_counts, **im.launch_counts}
+    return {**fa.launch_counts, **im.launch_counts, **ek.launch_counts}
 
 
 def _reset_launch_counts():
+    from gava_clip_tpu_torch.ops import extras_kernel as ek
     from gava_clip_tpu_torch.ops import flash_attention as fa
     from gava_clip_tpu_torch.ops import int8_matmul as im
     fa.reset_launch_counts()
     im.reset_launch_counts()
+    ek.reset_launch_counts()
 
 
 def _w8a8_logits(clf, x, impl: str):
@@ -651,12 +712,8 @@ def phase_w8a8_slice(state):
         if (n16[name], n_all[name]) != (per, 2 * per):
             raise AssertionError(f"{name}: {n16[name]} / {n_all[name]} "
                                  f"launches, expected {per} per forward")
-    for name, p, n in (("16 clips", p16, 16), ("5 clips", p5, 5)):
-        if p.shape != (n, 400) or not np.isfinite(p).all():
-            raise AssertionError(f"{name}: bad probabilities {p.shape}")
-        err = np.abs(p.sum(-1) - 1.0).max()
-        if err > 1e-3:
-            raise AssertionError(f"{name}: probabilities sum off by {err}")
+    _check_probs("16 clips", p16, 16)
+    _check_probs("5 clips", p5, 5)
     d_pad = np.abs(p5 - p16[:5]).max()
     if d_pad > 1e-3:
         raise AssertionError("padding a partial batch changed the results")
@@ -707,25 +764,15 @@ def phase_w8a8_slice(state):
     if d_prob > W8A8_PROB_GATE:
         raise AssertionError("the w8a8 forward fails the prob-delta gate")
 
-    iters = 10
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        clf.classify_clips(clips)
-    e2e = time.perf_counter() - t0
-    fwd_ms = cuda_time_ms(lambda: clf._forward(x), iters=iters)
+    e2e, fwd_ms, lat = _serving_times(clf, clips, x)
     plain_ms = cuda_time_ms(lambda: _w8a8_logits(clf, x, "plain"), iters=3,
                             warmup=1)
-    lat = []
-    for _ in range(20):
-        t1 = time.perf_counter()
-        clf.classify_clips(clips[:1])
-        lat.append((time.perf_counter() - t1) * 1e3)
     state.update(clf_w8a8=clf, fwd_ms_w8a8=fwd_ms)
-    log(f"[w8a8-slice] batch 16: {16 * iters / e2e:.1f} clips/s end to end, "
-        f"device forward {fwd_ms:.2f} ms = {16e3 / fwd_ms:.1f} clips/s "
-        f"(bf16 path {state['fwd_ms']:.2f} ms; the forward through the "
-        f"plain versions {plain_ms:.2f} ms); batch 1 latency p50 "
-        f"{np.median(lat):.2f} ms ({state['smi']})")
+    log(f"[w8a8-slice] batch 16: {e2e:.1f} clips/s end to end, device "
+        f"forward {fwd_ms:.2f} ms = {16e3 / fwd_ms:.1f} clips/s (bf16 path "
+        f"{state['fwd_ms']:.2f} ms; the forward through the plain versions "
+        f"{plain_ms:.2f} ms); batch 1 latency p50 {lat:.2f} ms "
+        f"({state['smi']})")
 
 
 # (B, Lq, Lk, heads): the two training shapes of the packed kernels first
@@ -770,14 +817,16 @@ MAX_DEN_REL_ERR = 2.0 ** -8
 H100_BYTES_PER_S = 3.35e12
 H100_BF16_FLOPS = 989e12
 H100_INT8_OPS = 1979e12
+H100_FP32_FLOPS = 67e12
 
 
-def _bound(n_bytes, flops_bf16=0.0, ops_int8=0.0):
+def _bound(n_bytes, flops_bf16=0.0, ops_int8=0.0, flops_fp32=0.0):
     """(bound_ms, bound_by): the larger of the bytes over the card's memory
     rate and the operations over the card's peak rate for their type
     (H100 SXM data sheet)."""
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = (flops_bf16 / H100_BF16_FLOPS + ops_int8 / H100_INT8_OPS) * 1e3
+    t_ops = (flops_bf16 / H100_BF16_FLOPS + ops_int8 / H100_INT8_OPS
+             + flops_fp32 / H100_FP32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1239,6 +1288,643 @@ def phase_train_long(state):
         raise AssertionError("the long-clip step failed its checks")
 
 
+# ---------------------------------------------------------------------------
+# the remaining serving modes: w8, fused prompt extras, int8 QK^T, the
+# residual-free w8a8 MLP
+# ---------------------------------------------------------------------------
+
+# The w8 GEMM against its plain version: (most outputs that may differ at
+# all, most that may differ by more than 2 bf16 ulp, the ceiling's factor k
+# in err <= 2 ulp + k * (|x| @ |w|)). Both dequantize each weight with one
+# rounding and round each output once; only the order of the fp32 sums
+# differs, which moves an output across a bf16 rounding boundary in a small
+# share of elements, and by more than 2 ulp only where a sum cancels to
+# near zero: there the error stays within fp32 accumulation noise of the
+# sum of the terms' magnitudes. A kernel that rounds the scale to bf16
+# before the product moves most weights by a bf16 ulp and so most outputs.
+W8_LIMITS = (5e-3, 1e-3, 2e-5)
+# (M, K, N): the projections of one block at batch 16 (q and out; k and v
+# over the 214 kv rows; fc1; fc2), then ragged ones (K no multiple of 8: the
+# element-wise loads; K a multiple of 8 but not of 16, ragged M and N)
+W8_MATMUL_SHAPES = ((25216, 768, 768, "q / out"), (27392, 768, 768, "k / v"),
+                    (25216, 768, 3072, "fc1"), (25216, 3072, 768, "fc2"),
+                    (37, 100, 33, "ragged"), (300, 776, 130, "ragged"))
+# The fused extras against their plain version: fp32 arithmetic on both
+# sides, sums in another order. fp32 outputs within EXTRAS_TOL * max(1,
+# max |plain|); bf16 outputs (each the rounding of such an fp32 value) equal
+# in all but a share EXTRAS_MAX_DIFF_SHARE, and then one bf16 ulp apart. A
+# kernel that rounds cls_proj to bf16 as the stock branch does moves every
+# later value by up to 2^-9 of itself, most bf16 outputs with it.
+EXTRAS_TOL = 2e-5
+EXTRAS_MAX_DIFF_SHARE = 5e-3
+# (Bb, Tb, D, heads, G, le_pad, activations, weights, LayerNorm gain,
+# tolerance factor)
+EXTRAS_SHAPES = ((16, 8, 768, 12, 8, 17, "bf16", "fp32", 1.0, 1),
+                 (16, 8, 768, 12, 8, 24, "bf16", "bf16", 1.0, 1),
+                 (16, 8, 768, 12, 8, 17, "fp32", "fp32", 1.0, 1),
+                 (3, 3, 40, 2, 2, 8, "fp32", "fp32", 1.0, 1),
+                 (2, 5, 64, 4, 3, 9, "bf16", "bf16", 1.0, 1),
+                 # scores of ~1e3, far beyond a one-pass clamp: the exact
+                 # softmax. The fp32 noise of such a score (~1e-4) moves an
+                 # unsaturated probability by as much of itself, so the
+                 # tolerance is 1e3 times wider; a clamped softmax is off
+                 # by the outputs' own size, 1e4 times the tolerance
+                 (4, 8, 768, 12, 8, 17, "fp32", "fp32", 40.0, 1000))
+# the int8 QK^T form against the fp32-score form of the same kernel, at the
+# JAX test's input statistics (tests/test_flash_attention.py
+# test_int8_qk_scores_close_to_fp32, which holds 5e-3 at D = 64 in fp32).
+# Here D = 256 (the kernel's head dim is 64) and the outputs are bf16, so
+# the check is on the whole tensor: the relative L2 distance, measured
+# against the attention's contribution (output minus residual), and the
+# largest |diff| against the largest |output|. The plain versions give
+# 6.0e-3..6.7e-3 and 0.8e-2..1.1e-2 over five seeds.
+INT8_QK_LOOSE_L2 = 2e-2
+INT8_QK_LOOSE_MAX = 3e-2
+
+
+def _w8_leaf(gen, K, N):
+    """A weight-only kernel leaf {'q', 'scale', 'q_t'} (heavy-tailed rows)."""
+    leaf = _qleaf(gen, K, N)
+    return {"q": leaf["qa"], "scale": leaf["scale"], "q_t": leaf["qa_t"]}
+
+
+def _record(state, name, err, ms, plain_ms, bound, library_ms):
+    state.setdefault("kstats", {})[name] = {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms}
+
+
+def _w8_matmul_checks(state, gen):
+    import torch
+    from gava_clip_tpu_torch.ops import int8_matmul as im
+    lim_diff, lim_far, k_ceiling = W8_LIMITS
+    for M, K, N, what in W8_MATMUL_SHAPES:
+        x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+        leaf = _w8_leaf(gen, K, N)
+        out = im.int8_matmul_cuda(x, leaf)
+        ref = im.int8_matmul_plain(x, leaf["q"], leaf["scale"])
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        ulp = bf16_ulp(ref)
+        w = im.dequant_weight(leaf["q"], leaf["scale"], x.dtype)
+        spread = x.float().abs() @ w.float().abs()
+        ceiling = 2 * ulp + k_ceiling * spread
+        diff_share = (err > 0).float().mean().item()
+        far_share = (err > 2 * ulp).float().mean().item()
+        ok = (out.shape == ref.shape and bool(torch.isfinite(out).all())
+              and diff_share <= lim_diff and far_share <= lim_far
+              and bool((err <= ceiling).all()))
+        log(f"[w8-kernel] int8_matmul {what} M={M} K={K} N={N}: max_abs_err "
+            f"{err.max().item():.3e}; outputs != plain {diff_share:.3e} "
+            f"(limit {lim_diff:g}), > 2 bf16 ulp {far_share:.3e} (limit "
+            f"{lim_far:g}); max err/ceiling {(err / ceiling).max().item():.3f}"
+            f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            state.setdefault("w8_failures", []).append(f"int8_matmul {what}")
+        del spread, ceiling, ulp
+        if what == "ragged":
+            continue
+        ms, plain_ms, t = _time_pair(
+            lambda: im.int8_matmul_cuda(x, leaf),
+            lambda: im.int8_matmul_plain(x, leaf["q"], leaf["scale"]))
+        # the one PyTorch call that computes the same function (a yardstick
+        # only: the port never calls it)
+        lib = cuda_time_ms(lambda: torch.matmul(
+            x, (leaf["q"].float() * leaf["scale"]).to(x.dtype)), iters=10)
+        bound = _bound(2 * M * K + K * N + 4 * N + 2 * M * N,
+                       flops_bf16=2 * M * K * N)
+        log(f"[w8-kernel] int8_matmul {what}: kernel {t['kernel']} ms "
+            f"({2e-9 * M * K * N / ms:.0f} TFLOP/s), plain {t['plain']} ms, "
+            f"torch.matmul on the dequantized weight {lib:.4f} ms, bound "
+            f"{bound[0]:.4f} ms ({bound[1]}) (order plain, kernel, kernel, "
+            f"plain; {state['smi']})")
+        if what == "fc1":
+            _record(state, "int8_matmul", err.max().item(), ms, plain_ms,
+                    bound, lib)
+
+
+def _w8a8_mlp_checks(state, gen):
+    """B5a at the tower's shape with and without the LayerNorm, and a ragged
+    shape; and the qkv kernel with no extras rows (B3a), timed."""
+    import torch
+    from gava_clip_tpu_torch.ops import int8_matmul as im
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(bf)
+
+    def bias(n):
+        return torch.randn(n, generator=gen, device="cuda") * 0.02
+
+    for i, (M, K, Hd, N, with_ln) in enumerate((
+            (25216, 768, 3072, 768, True), (25216, 768, 3072, 768, False),
+            (37, 768, 3072, 768, True), (20, 64, 200, 33, False))):
+        x = randn(M, K)
+        ln = _ln_params(gen, K) if with_ln else None
+        fc1 = {"kernel": _qleaf(gen, K, Hd), "bias": bias(Hd)}
+        fc2 = {"kernel": _qleaf(gen, Hd, N), "bias": bias(N)}
+        x32 = x.float() if ln is None else im.ln_f32(x.float(), *ln)
+        codes, xs = im.quant_rows(x32)
+        k1 = fc1["kernel"]
+        h = im.quick_gelu_f32(im.rescale(im.int_matmul(codes, k1["qa"]), xs,
+                                         k1["scale"], fc1["bias"]))
+        unit = _flip_unit(im.quant_rows(h)[1], fc2["kernel"]["scale"])
+        del codes, h, x32
+        out = im.w8a8_mlp_cuda(x, fc1, fc2, ln)
+        ref = im.w8a8_mlp_plain(x, fc1, fc2, ln)
+        torch.cuda.synchronize()
+        ok, err, text = _check_w8a8("w8a8_mlp", out, ref, unit)
+        label = f"M={M} K={K} H={Hd} N={N} ln={'yes' if with_ln else 'none'}"
+        log(f"[w8-kernel] w8a8_mlp {label}: {text} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            state.setdefault("w8_failures", []).append(f"w8a8_mlp {label}")
+        if i < 2:
+            ms, plain_ms, t = _time_pair(
+                lambda: im.w8a8_mlp_cuda(x, fc1, fc2, ln),
+                lambda: im.w8a8_mlp_plain(x, fc1, fc2, ln), iters=5)
+            bound = _bound(2 * M * K + 2 * M * N + K * Hd + Hd * N
+                           + 8 * (Hd + N + K), ops_int8=2 * M * Hd * (K + N))
+            log(f"[w8-kernel] w8a8_mlp {label}: kernel {t['kernel']} ms, "
+                f"plain {t['plain']} ms, bound {bound[0]:.4f} ms "
+                f"({bound[1]}) (order plain, kernel, kernel, plain; "
+                f"{state['smi']})")
+            if i == 0:
+                # no one PyTorch call computes a w8a8 op: no library time
+                _record(state, "w8a8_mlp", err, ms, plain_ms, bound, None)
+
+    # the qkv kernel with no extras rows (the TPU's _w8a8_kernel3) at the
+    # tower's shape: checked at Le = 0 in the w8a8-kernel phase, timed here
+    B, Lx, K, N = 128, 197, 768, 768
+    x, ln = randn(B, Lx, K), _ln_params(gen, K)
+    k3 = [_qleaf(gen, K, N) for _ in range(3)]
+    b3 = [bias(N) for _ in range(3)]
+    ms, plain_ms, t = _time_pair(
+        lambda: im.w8a8_matmul3_cat_cuda(x, None, k3, b3, ln),
+        lambda: im.w8a8_matmul3_cat_plain(x, None, k3, b3, ln))
+    bound = _bound(B * Lx * (2 * K + 6 * N) + 3 * K * N + 24 * N + 8 * K,
+                   ops_int8=6 * B * Lx * K * N)
+    log(f"[w8-kernel] w8a8_matmul3_cat with no extras rows (Le = 0) B={B} "
+        f"Lx={Lx} K={K} N={N}: kernel {t['kernel']} ms, plain {t['plain']} "
+        f"ms, bound {bound[0]:.4f} ms ({bound[1]}), no library call, 0 "
+        f"launches on a main path ({state['smi']})")
+
+
+def _extras_params(gen, Tb, D, G, wdtype, ln_gain):
+    """A block's prompt-branch params as the w8a8 classifier holds them
+    (fp32) or as a caller that cast its tree would (bf16 weights)."""
+    import torch
+
+    def randn(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * std
+
+    def lin():
+        return {"kernel": randn(D, D, std=D ** -0.5).to(wdtype),
+                "bias": randn(D, std=0.02)}
+
+    p = {"cls_proj": lin(),
+         "summary_ln": {"scale": (1 + 0.1 * randn(D)) * ln_gain,
+                        "bias": randn(D, std=0.02)},
+         "summary_attn": {n: lin() for n in ("q", "k", "v", "out")},
+         "local_prompts": randn(1, Tb, D, std=0.05)}
+    return p, randn(G, D, std=0.05)
+
+
+def _fused_extras_checks(state, gen):
+    import torch
+    from gava_clip_tpu_torch.models.vision import VisionConfig, prompt_extras
+    from gava_clip_tpu_torch.ops import extras_kernel as ek
+    dt = {"bf16": torch.bfloat16, "fp32": torch.float32}
+    for i, (Bb, Tb, D, H, G, le_pad, act, wd, gain, tol_factor) in enumerate(
+            EXTRAS_SHAPES):
+        tol = EXTRAS_TOL * tol_factor
+        BT = Bb * Tb
+        p, gp = _extras_params(gen, Tb, D, G, dt[wd], gain)
+        # the cls rows as the tower hands them over: a strided view
+        x = (torch.randn(BT, 5, D, generator=gen, device="cuda")
+             ).to(dt[act])
+        cls = x[:, 0]
+        kw = dict(Tb=Tb, num_heads=H, le_pad=le_pad)
+        e, summ = ek.fused_extras_cuda(cls, p, gp, **kw)
+        e_ref, summ_ref = ek.fused_extras_plain(cls, p, gp, **kw)
+        torch.cuda.synchronize()
+        le = G + 1 + Tb
+        oks, texts, worst = [], [], 0.0
+        for name, out, ref in (("e", e, e_ref), ("summary", summ, summ_ref)):
+            err = (out.float() - ref.float()).abs()
+            scale = max(1.0, ref.float().abs().max().item())
+            worst = max(worst, err.max().item())
+            if act == "fp32":
+                ok = bool((err <= tol * scale).all())
+                texts.append(f"{name} max_abs_err {err.max().item():.3e} "
+                             f"(limit {tol * scale:.1e})")
+            else:
+                share = (err > 0).float().mean().item()
+                ok = share <= EXTRAS_MAX_DIFF_SHARE and bool(
+                    (err <= bf16_ulp(ref) + tol * scale).all())
+                texts.append(f"{name} max_abs_err {err.max().item():.3e}, "
+                             f"outputs != plain {share:.3e} (limit "
+                             f"{EXTRAS_MAX_DIFF_SHARE:g})")
+            oks.append(ok and out.shape == ref.shape and out.dtype == dt[act]
+                       and bool(torch.isfinite(out.float()).all()))
+        # the rows that are copies: global prompts and zero pad rows
+        oks.append(bool((e[:, le:] == 0).all()) and torch.equal(
+            e[:, :G], gp.to(dt[act])[None].expand(BT, G, D)))
+        label = (f"Bb={Bb} Tb={Tb} D={D} H={H} G={G} le_pad={le_pad} "
+                 f"activations {act} weights {wd} LN gain {gain:g}")
+        log(f"[w8-kernel] fused_extras {label}: {'; '.join(texts)}; pad rows "
+            f"zero and global rows exact: {oks[-1]} "
+            f"{'ok' if all(oks) else 'FAIL'}")
+        if not all(oks):
+            state.setdefault("w8_failures", []).append(f"fused_extras {label}")
+        if i >= 2:
+            continue
+        # the stock ops that the fused launch replaces, on the same inputs,
+        # in the activations' dtype (the yardstick of this row)
+        cfg = VisionConfig(num_frames=Tb, feature_dim=D, heads=H,
+                           use_summary_token=True, use_local_prompts=True,
+                           use_global_prompts=True, num_global_prompts=G)
+
+        def stock():
+            extras, s_ = prompt_extras(p, gp, x, cfg)
+            return torch.cat(extras, dim=1), s_
+
+        ms, plain_ms, t = _time_pair(
+            lambda: ek.fused_extras_cuda(cls, p, gp, **kw),
+            lambda: ek.fused_extras_plain(cls, p, gp, **kw), iters=20)
+        stock_ms = cuda_time_ms(stock, iters=20)
+        d_stock = (stock()[0].float() - e_ref[:, :le].float()).abs().max()
+        wb, ab = (2 if wd == "bf16" else 4), (2 if act == "bf16" else 4)
+        bound = _bound(5 * D * D * wb + BT * D * ab * 2
+                       + BT * le_pad * D * ab + 4 * (7 + Tb + G) * D,
+                       flops_fp32=2 * 5 * BT * D * D
+                       + 4 * Bb * Tb * Tb * D)
+        log(f"[w8-kernel] fused_extras {label}: kernel {t['kernel']} ms, "
+            f"plain {t['plain']} ms, the stock ops it replaces (with the "
+            f"concatenation) {stock_ms:.4f} ms, bound {bound[0]:.4f} ms "
+            f"({bound[1]}); stock ops vs the fp32 arithmetic max |diff| "
+            f"{d_stock.item():.3e} (order plain, kernel, kernel, plain; "
+            f"{state['smi']})")
+        if i == 0:
+            _record(state, "fused_extras", worst, ms, plain_ms, bound,
+                    stock_ms)
+
+
+def _int8_qk_checks(state, gen):
+    import torch
+    from gava_clip_tpu_torch.ops import flash_attention as fa
+    from gava_clip_tpu_torch.ops import int8_matmul as im
+    bf = torch.bfloat16
+
+    def randn(*shape, gain=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * gain).to(bf)
+
+    name = "attention_out_int8_qk8"
+    for i, (B, lq, Lq, Lk, H) in enumerate(W8A8_ATTN_SHAPES):
+        D = H * 64
+        q, k, v = randn(B, Lq, D), randn(B, Lk, D), randn(B, Lk, D)
+        op = {"kernel": _qleaf(gen, D, D),
+              "bias": torch.randn(D, generator=gen, device="cuda") * 0.02}
+        r = randn(B, lq, D)
+        xs = im.quant_rows(fa._onepass_attention_den_f32(
+            q[:, :lq], k, v, H, int8_qk=True)[0])[1]
+        unit = _flip_unit(xs, op["kernel"]["scale"])
+        out = fa.attention_out_int8_cuda(q, k, v, H, op, r, lq, True)
+        ref = fa.attention_out_int8_plain(q, k, v, H, op, r, lq, True)
+        torch.cuda.synchronize()
+        ok, err, text = _check_w8a8(name, out, ref, unit)
+        label = f"B={B} lq={lq} Lq={Lq} Lk={Lk} H={H}"
+        log(f"[w8-kernel] {name} {label}: {text} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            state.setdefault("w8_failures", []).append(f"{name} {label}")
+        if i == 0:
+            t = {"plain": [], "int8": [], "fp32": []}
+            fns = {"plain": lambda: fa.attention_out_int8_plain(
+                       q, k, v, H, op, r, lq, True),
+                   "int8": lambda: fa.attention_out_int8_cuda(
+                       q, k, v, H, op, r, lq, True),
+                   "fp32": lambda: fa.attention_out_int8_cuda(
+                       q, k, v, H, op, r, lq, False)}
+            for which in ("plain", "fp32", "int8", "int8", "fp32", "plain"):
+                t[which].append(cuda_time_ms(fns[which], iters=10))
+            bound = _bound(6 * B * lq * D + 4 * B * Lk * D + D * D + 8 * D,
+                           flops_bf16=2 * B * lq * Lk * D,
+                           ops_int8=2 * B * lq * Lk * D + 2 * B * lq * D * D)
+            log(f"[w8-kernel] {name} serving shape: kernel {t['int8']} ms, "
+                f"the fp32-score form of the same kernel {t['fp32']} ms, "
+                f"plain {t['plain']} ms, bound {bound[0]:.4f} ms "
+                f"({bound[1]}) (order plain, fp32, int8, int8, fp32, plain; "
+                f"{state['smi']})")
+            _record(state, name, err, sum(t["int8"]) / 2,
+                    sum(t["plain"]) / 2, bound, None)
+    # the loose check against the fp32-score form
+    B, Lq, Lk, H = 3, 30, 38, 4
+    D = H * 64
+    q, k = randn(B, Lq, D, gain=0.3), randn(B, Lk, D, gain=0.3)
+    v, r = randn(B, Lk, D, gain=0.1), randn(B, Lq, D, gain=0.1)
+    from gava_clip_tpu_torch.ops.int8_matmul import with_kernel_layout
+    op = {"kernel": with_kernel_layout({
+        "qa": torch.randint(-127, 127, (D, D), generator=gen,
+                            device="cuda").to(torch.int8),
+        "scale": torch.randn(1, D, generator=gen, device="cuda").abs()
+        * 0.01}),
+        "bias": torch.randn(D, generator=gen, device="cuda") * 0.01}
+    got = fa.attention_out_int8_cuda(q, k, v, H, op, r, None, True).float()
+    want = fa.attention_out_int8_cuda(q, k, v, H, op, r, None, False).float()
+    diff = (got - want).abs()
+    rel_l2 = (diff.norm() / (want - r.float()).norm()).item()
+    rel_max = (diff.max() / want.abs().max().clamp_min(1.0)).item()
+    ok = rel_l2 <= INT8_QK_LOOSE_L2 and rel_max <= INT8_QK_LOOSE_MAX and \
+        diff.max().item() > 0
+    log(f"[w8-kernel] {name} vs the fp32-score form (B={B} Lq={Lq} Lk={Lk} "
+        f"H={H}, q, k x 0.3): relative L2 of the diff against the "
+        f"attention's contribution {rel_l2:.3e} (limit "
+        f"{INT8_QK_LOOSE_L2:g}), max |diff| / max |output| {rel_max:.3e} "
+        f"(limit {INT8_QK_LOOSE_MAX:g}); the switch changes the result: "
+        f"{diff.max().item() > 0} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        state.setdefault("w8_failures", []).append(f"{name} loose check")
+
+
+def phase_w8_kernels(state):
+    """B9, B5a, B10 and B11 against their plain versions on the card."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    _w8_matmul_checks(state, gen)
+    _w8a8_mlp_checks(state, gen)
+    _fused_extras_checks(state, gen)
+    _int8_qk_checks(state, gen)
+    if state.get("w8_failures"):
+        raise AssertionError(f"kernels disagree with their plain versions: "
+                             f"{state['w8_failures']}")
+
+
+W8_PER_FORWARD = {"int8_matmul": 72, "packed_attention": 12,
+                  "w8a8_matmul": 0, "w8a8_mlp_res": 0}
+# The w8 forward is held to the same forward through the plain versions of
+# its GEMM and its attention as the w8a8 slice is (W8A8_MAX_LOGIT_DIFF_INIT
+# on the plain init, W8A8_PATHOLOGY_FACTOR on the pathology weights), and to
+# the bf16 forward by the prob gate and this multiple of the bf16
+# kernel-vs-plain logit distance (measured 1.35 against 1.58 on an H100).
+W8_BF16_FACTOR = 2.0
+
+
+def _w8_logits(clf, xn, plain: bool):
+    import contextlib
+    import torch
+    from gava_clip_tpu_torch.ops import flash_attention as fa
+    with torch.inference_mode(), \
+            (fa.plain_versions() if plain else contextlib.nullcontext()):
+        return clf.net(xn, compute_dtype=torch.bfloat16, attn_impl="flash",
+                       int8_impl="plain" if plain else "kernel")["logits"]
+
+
+def phase_w8_slice(state):
+    """The weight-only int8 zero-shot path (ViT-B/16, T=8, 224^2, 400
+    classes) at batch 16 on the pathology-injected weights, and
+    mlp_block(residual=None) on w8a8 leaves at the tower's shape."""
+    import torch
+    from gava_clip_tpu_torch.data.device_preprocess import normalize_frames
+    model, params, labels = state["model"], state["params"], state["labels"]
+    clips = state["clips"]
+    t0 = time.perf_counter()
+    clf = _classifier(model, params, labels, quantize="w8")
+    assert clf.attn_impl == "flash" and clf.quantize == "w8"
+    clf.warmup()
+    log(f"[w8-slice] built + warmed up in {time.perf_counter() - t0:.1f} s "
+        f"(w8, batch 16)")
+    _reset_launch_counts()
+    p16 = clf.classify_clips(clips)
+    torch.cuda.synchronize()
+    n16 = _launch_counts()
+    p5 = clf.classify_clips(clips[:5])
+    torch.cuda.synchronize()
+    n_all = _launch_counts()
+    state.setdefault("launches_by_kernel", {})["int8_matmul"] = \
+        n_all["int8_matmul"]
+    log(f"[w8-slice] launches for the 16-clip forward {n16}, after the "
+        f"5-clip forward {n_all} (expect {W8_PER_FORWARD} per forward)")
+    for name, per in W8_PER_FORWARD.items():
+        if (n16[name], n_all[name]) != (per, 2 * per):
+            raise AssertionError(f"{name}: {n16[name]} / {n_all[name]} "
+                                 f"launches, expected {per} per forward")
+    _check_probs("16 clips", p16, 16)
+    _check_probs("5 clips", p5, 5)
+    d_pad = np.abs(p5 - p16[:5]).max()
+    if d_pad > 1e-3:
+        raise AssertionError("padding a partial batch changed the results")
+
+    x = clf._prepare(clips)
+    with torch.inference_mode():
+        xn = normalize_frames(x, clf._mean, clf._std)
+    lg, lg_plain = _w8_logits(clf, xn, False), _w8_logits(clf, xn, True)
+    d_path = (lg - lg_plain).abs().max().item()
+    init_clf = _classifier(model, model.param_tree(), labels, quantize="w8")
+    d_init = (_w8_logits(init_clf, xn, False)
+              - _w8_logits(init_clf, xn, True)).abs().max().item()
+    del init_clf
+    bf16 = state["clf"]
+    with torch.inference_mode():
+        lg_bf16 = bf16.net(xn, compute_dtype=torch.bfloat16,
+                           attn_impl="flash")["logits"]
+    d_prob = np.abs(p16 - state["p16_bf16"]).max()
+    d_logit_bf16 = (lg - lg_bf16).abs().max().item()
+    lim_path = W8A8_PATHOLOGY_FACTOR * state["d_logit_bf16_paths"]
+    log(f"[w8-slice] max |logit diff| kernels vs plain versions: pathology "
+        f"weights {d_path:.4f} (limit {lim_path:.4f} = {W8A8_PATHOLOGY_FACTOR}"
+        f" x the bf16 kernel-vs-plain {state['d_logit_bf16_paths']:.4f}), "
+        f"plain init {d_init:.4f} (limit {W8A8_MAX_LOGIT_DIFF_INIT}); padded "
+        f"(5 of 8) vs full batch max |prob diff| {d_pad:.2e}")
+    # int8 weights move the logits as far from bf16 as rounding paths move
+    # them on these weights: within twice the bf16 kernel-vs-plain distance
+    lim_bf16 = W8_BF16_FACTOR * state["d_logit_bf16_paths"]
+    log(f"[w8-slice] gate vs the bf16 classifier: max |prob diff| "
+        f"{d_prob:.4e} (limit {W8A8_PROB_GATE}), max |logit diff| "
+        f"{d_logit_bf16:.4f} (limit {lim_bf16:.4f} = {W8_BF16_FACTOR} x the "
+        f"bf16 kernel-vs-plain)")
+    if not bool(torch.isfinite(lg).all()) or d_path > lim_path or \
+            d_init > W8A8_MAX_LOGIT_DIFF_INIT:
+        raise AssertionError("the w8 kernels' forward disagrees with the "
+                             "plain versions' forward")
+    if d_prob > W8A8_PROB_GATE or d_logit_bf16 > lim_bf16:
+        raise AssertionError("the w8 forward is too far from the bf16 one")
+
+    # patch-major + w8: the embed is the float GEMM on the folded kernel
+    # (no int8 sidecar without activation quant), the blocks are the same
+    pm = _classifier(model, params, labels, quantize="w8", patch_major=True)
+    _reset_launch_counts()
+    p_pm = pm.classify_clips(clips)
+    torch.cuda.synchronize()
+    n_pm = _launch_counts()
+    _check_probs("patch-major", p_pm, 16)
+    # another rounding path through the embed (raw uint8 rows against the
+    # folded fp32 kernel cast to bf16), which the pathology weights amplify
+    # as they amplify every rounding: held to the repo's gate
+    d_pm = np.abs(p_pm - p16).max()
+    d_pm_bf16 = np.abs(p_pm - state["p16_bf16"]).max()
+    log(f"[w8-slice] w8 + patch-major: launches {n_pm['int8_matmul']} "
+        f"int8_matmul, {n_pm['w8a8_matmul']} w8a8_matmul (expect 72, 0); "
+        f"max |prob diff| vs the frames-input w8 classifier {d_pm:.3e}, vs "
+        f"the bf16 classifier {d_pm_bf16:.4e} (limit {W8A8_PROB_GATE})")
+    if (n_pm["int8_matmul"], n_pm["w8a8_matmul"]) != (72, 0) or \
+            d_pm_bf16 > W8A8_PROB_GATE:
+        raise AssertionError("the patch-major w8 classifier failed")
+    del pm
+
+    e2e, fwd_ms, lat = _serving_times(clf, clips, x)
+    plain_ms = cuda_time_ms(lambda: _w8_logits(clf, xn, True), iters=3,
+                            warmup=1)
+    state.update(clf_w8=clf, fwd_ms_w8=fwd_ms)
+    log(f"[w8-slice] batch 16: {e2e:.1f} clips/s end to end, device forward "
+        f"{fwd_ms:.2f} ms = {16e3 / fwd_ms:.1f} clips/s (bf16 path "
+        f"{state['fwd_ms']:.2f} ms; the forward through the plain versions "
+        f"{plain_ms:.2f} ms); batch 1 latency p50 {lat:.2f} ms "
+        f"({state['smi']})")
+
+    # B5a's path: an MLP block called without a residual on w8a8 leaves, at
+    # the tower's shape, through ops.linear.mlp_block
+    from gava_clip_tpu_torch.ops.activations import quick_gelu
+    from gava_clip_tpu_torch.ops.linear import mlp_block
+    blk = state["clf_w8a8"].net.visual.blocks[0]
+    xb = torch.randn(128, 197, 768, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(4)
+                     ).to(torch.bfloat16)
+    _reset_launch_counts()
+    with torch.inference_mode():
+        y = mlp_block(blk["mlp"], blk["norm2"], xb, quick_gelu)
+        y_plain = mlp_block(blk["mlp"], blk["norm2"], xb, quick_gelu,
+                            int8_impl="plain")
+        y_res = mlp_block(blk["mlp"], blk["norm2"], xb, quick_gelu,
+                          residual=xb)
+    torch.cuda.synchronize()
+    n = _launch_counts()
+    state["launches_by_kernel"]["w8a8_mlp"] = n["w8a8_mlp"]
+    d = (y.float() - y_plain.float()).abs().max().item()
+    # with the residual the same block is x + y, rounded once more
+    d_res = (y_res.float() - (xb.float() + y.float())).abs()
+    ok = (y.shape == xb.shape and bool(torch.isfinite(y).all())
+          and n["w8a8_mlp"] == 1 and n["w8a8_mlp_res"] == 1
+          and (y != y_plain).float().mean().item()
+          <= W8A8_LIMITS["w8a8_mlp"][0]
+          and bool((d_res <= bf16_ulp(y_res) + bf16_ulp(y)).all()))
+    log(f"[w8-slice] mlp_block(residual=None) on the first block's w8a8 "
+        f"leaves, (128, 197, 768): launches {n['w8a8_mlp']} w8a8_mlp / "
+        f"{n['w8a8_mlp_res']} w8a8_mlp_res (expect 1 / 1), max |diff| vs "
+        f"the plain version {d:.3e}, the residual form minus (x + y) at "
+        f"most {(d_res / (bf16_ulp(y_res) + bf16_ulp(y))).max().item():.2f} "
+        f"of one bf16 ulp of each {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("mlp_block(residual=None) failed its checks")
+
+
+VARIANT_PER_FORWARD = {
+    "fused": {"fused_extras": 12, "w8a8_matmul": 1, "w8a8_matmul3_cat": 12,
+              "attention_out_int8": 12, "attention_out_int8_qk8": 0,
+              "w8a8_mlp_res": 12},
+    "fused + int8 QK^T": {"fused_extras": 12, "w8a8_matmul": 1,
+                          "w8a8_matmul3_cat": 12, "attention_out_int8": 0,
+                          "attention_out_int8_qk8": 12, "w8a8_mlp_res": 12},
+}
+# The fused extras replace bf16 stock ops by fp32 arithmetic: the extras
+# rows move by bf16 roundings, which the tower carries on as it carries the
+# roundings of the two bf16 attention paths; so the fused forward may sit as
+# far from the unfused one as those sit from each other (x1.5), and within
+# the plain-init limit of the w8a8 slice on the plain init. The int8 QK^T
+# forward is held to its own plain-version forward the same way.
+
+
+def phase_w8a8_variants(state):
+    """The w8a8 + patch-major classifier with the fused prompt extras, then
+    with the int8 QK^T scores as well."""
+    import torch
+    from gava_clip_tpu_torch.ops import extras_kernel as ek
+    from gava_clip_tpu_torch.ops import flash_attention as fa
+    clf, clips = state["clf_w8a8"], state["clips"]
+    model, labels = state["model"], state["labels"]
+    x = clf._prepare(clips)
+    init_clf = _classifier(model, model.param_tree(), labels,
+                           quantize="w8a8", patch_major=True)
+    lim_path = W8A8_PATHOLOGY_FACTOR * state["d_logit_bf16_paths"]
+    base = _w8a8_logits(clf, x, "kernel")
+    base_init = _w8a8_logits(init_clf, x, "kernel")
+    try:
+        for variant, int8_qk in (("fused", False),
+                                 ("fused + int8 QK^T", True)):
+            ek.set_fused_extras(True)
+            fa.set_int8_qk(int8_qk)
+            clf.warmup()
+            _reset_launch_counts()
+            p16 = clf.classify_clips(clips)
+            torch.cuda.synchronize()
+            n16 = _launch_counts()
+            p5 = clf.classify_clips(clips[:5])
+            torch.cuda.synchronize()
+            n_all = _launch_counts()
+            per = VARIANT_PER_FORWARD[variant]
+            log(f"[w8a8-variants] {variant}: launches for the 16-clip "
+                f"forward {n16}, after the 5-clip forward {n_all} (expect "
+                f"{per} per forward)")
+            for name, want in per.items():
+                if (n16[name], n_all[name]) != (want, 2 * want):
+                    raise AssertionError(
+                        f"{variant}: {name} {n16[name]} / {n_all[name]} "
+                        f"launches, expected {want} per forward")
+            by_kernel = state.setdefault("launches_by_kernel", {})
+            by_kernel["fused_extras"] = by_kernel.get("fused_extras", 0) \
+                + n_all["fused_extras"]
+            if int8_qk:
+                by_kernel["attention_out_int8_qk8"] = \
+                    n_all["attention_out_int8_qk8"]
+            _check_probs(f"{variant}, 16 clips", p16, 16)
+            _check_probs(f"{variant}, 5 clips", p5, 5)
+            d_pad = np.abs(p5 - p16[:5]).max()
+            lg, lg_plain = (_w8a8_logits(clf, x, i)
+                            for i in ("kernel", "plain"))
+            d_path = (lg - lg_plain).abs().max().item()
+            d_init = (_w8a8_logits(init_clf, x, "kernel")
+                      - _w8a8_logits(init_clf, x, "plain")).abs().max().item()
+            d_base = (lg - base).abs().max().item()
+            d_base_init = (_w8a8_logits(init_clf, x, "kernel")
+                           - base_init).abs().max().item()
+            d_prob = np.abs(p16 - state["p16_bf16"]).max()
+            log(f"[w8a8-variants] {variant}: max |logit diff| kernels vs "
+                f"plain versions: pathology weights {d_path:.4f} (limit "
+                f"{lim_path:.4f}), plain init {d_init:.4f} (limit "
+                f"{W8A8_MAX_LOGIT_DIFF_INIT}); vs the unfused w8a8 forward: "
+                f"pathology weights {d_base:.4f} (limit {lim_path:.4f}), "
+                f"plain init {d_base_init:.4f} (limit "
+                f"{W8A8_MAX_LOGIT_DIFF_INIT}); gate vs the bf16 classifier "
+                f"max |prob diff| {d_prob:.4e} (limit {W8A8_PROB_GATE}); "
+                f"padded vs full batch {d_pad:.2e}")
+            if not bool(torch.isfinite(lg).all()) or d_path > lim_path or \
+                    d_init > W8A8_MAX_LOGIT_DIFF_INIT or d_pad > 1e-3:
+                raise AssertionError(f"{variant}: the kernels' forward "
+                                     f"disagrees with the plain versions'")
+            if d_base > lim_path or d_base_init > W8A8_MAX_LOGIT_DIFF_INIT:
+                raise AssertionError(f"{variant}: too far from the unfused "
+                                     f"w8a8 forward")
+            if d_prob > W8A8_PROB_GATE:
+                raise AssertionError(f"{variant}: fails the prob-delta gate")
+            e2e, fwd_ms, lat = _serving_times(clf, clips, x)
+            log(f"[w8a8-variants] {variant}, batch 16: {e2e:.1f} clips/s end "
+                f"to end, device forward {fwd_ms:.2f} ms = "
+                f"{16e3 / fwd_ms:.1f} clips/s (unfused w8a8 "
+                f"{state['fwd_ms_w8a8']:.2f} ms in this run); batch 1 "
+                f"latency p50 {lat:.2f} ms ({state['smi']})")
+            if state.get("profile_dir"):
+                tag = "_w8a8_int8qk" if int8_qk else "_w8a8_fused"
+                _profile(lambda: clf._forward(x), 3,
+                         f"batch-16 forward, {variant}", fwd_ms, state["smi"],
+                         os.path.join(state["profile_dir"],
+                                      f"profile_slice{tag}.txt"), tag, 25)
+    finally:
+        ek.set_fused_extras(False)
+        fa.set_int8_qk(False)
+    # both switches off again: the unfused forward, bit for bit
+    if not torch.equal(_w8a8_logits(clf, x, "kernel"), base):
+        raise AssertionError("the switches did not reset")
+
+
 def _profile(fn, runs: int, what: str, ms: float, smi: str, path: str,
              tag: str, rows: int):
     """torch.profiler over `runs` calls of fn: self device time by
@@ -1348,28 +2034,34 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    state = {}
+    state = {"profile_dir": args.profile}
+    slice_tags = {"slice": "", "w8a8-slice": "_w8a8", "w8-slice": "_w8"}
     for name, phase in (
             ("device", phase_device), ("build", phase_build),
             ("kernel", phase_kernel), ("w8a8-kernel", phase_w8a8_kernels),
             ("train-kernel", phase_train_kernels),
+            ("w8-kernel", phase_w8_kernels),
             ("slice", phase_slice), ("w8a8-slice", phase_w8a8_slice),
+            ("w8-slice", phase_w8_slice),
+            ("w8a8-variants", phase_w8a8_variants),
             ("server", phase_server),
             ("w8a8-server", lambda st: phase_server(st, "_w8a8")),
+            ("w8-server", lambda st: phase_server(st, "_w8")),
             ("train-slice", phase_train_slice),
             ("train-long", phase_train_long)):
         t0 = time.perf_counter()
         phase(state)
-        log(f"[{name}] done in {time.perf_counter() - t0:.1f} s")
-        if name in ("slice", "w8a8-slice") and args.profile:
-            profile_slice(state, args.profile,
-                          "_w8a8" if name == "w8a8-slice" else "")
+        log(f"[{name}] done in {time.perf_counter() - t0:.1f} s "
+            f"({_card_state()})")
+        if name in slice_tags and args.profile:
+            profile_slice(state, args.profile, slice_tags[name])
         if name == "train-slice" and args.profile:
             profile_train(state, args.profile)
-        if name == "w8a8-server":
+        if name == "w8-server":
             # the serving phases are done: free their weights before the
             # training step
-            for key in ("clf", "clf_w8a8", "model", "params", "clips"):
+            for key in ("clf", "clf_w8a8", "clf_w8", "model", "params",
+                        "clips"):
                 state.pop(key, None)
             torch.cuda.empty_cache()
     _assert_no_jax()
@@ -1383,11 +2075,17 @@ def main(argv=None) -> int:
                 "library_ms": state["b1_library_ms"]}]
     for name, stats in state["kstats"].items():
         _, source, replaces = KERNELS[name]
-        launches = state["launches_w8a8"] if name in W8A8_PER_FORWARD \
+        # the count from the run of the kernel's own main path
+        launches = state["launches_by_kernel"] \
+            if name in state["launches_by_kernel"] \
+            else state["launches_w8a8"] if name in W8A8_PER_FORWARD \
             else state["launches_train"]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         **stats})
+    missing = sorted(set(KERNELS) - {e["name"] for e in kernels})
+    if missing:
+        raise AssertionError(f"kernels without a check and a time: {missing}")
     for entry in kernels:
         if entry["launches"] < 1:
             raise AssertionError(f"{entry['name']} was never launched on "

@@ -35,6 +35,20 @@
 // warps share a weight fragment and each loads its own from W^T straight
 // into registers, gemm_direct) with the bias and the residual in the
 // epilogue. Head dim 64 only; H*64 <= 1024.
+//
+// The int8 QK^T form (a template flag; TPU: the int8_qk branch of
+// _onepass_softmax_av_masked inside the same pallas_call) quantizes each
+// head's 64-wide slice of a query row and of a key row per row,
+//     qs = max(max |q_h|, 1e-6),  qq = rint(q_h * (127 / qs))   (same for k)
+// runs the score product as s8 mma.sync m16n8k32 and folds the scales into
+// the exp2 argument in this order of multiplication:
+//     e = bf16(exp2(min(((float)(qq . kq) * (qs * c2)) * ks, 110)))
+// with c2 = c / 127^2 handed over by the caller. The AV product, the
+// denominator and everything after stay as above. The query codes are made
+// in registers from the bf16 A fragments; a thread per (head, key) row
+// quantizes the keys of a tile straight from device memory into the head's
+// K area of shared memory, in the k order in which the query codes sit (a
+// permutation of k applied to both operands: the int32 sums are exact).
 
 #include "w8a8_common.cuh"
 
@@ -69,6 +83,19 @@ __device__ __forceinline__ uint32_t ld2(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// two bf16 in one register -> their two int8 codes in the low 16 bits
+__device__ __forceinline__ uint32_t quant_pair(uint32_t pair, float inv) {
+  const float lo = __uint_as_float(pair << 16), hi = __uint_as_float(pair & 0xffff0000u);
+  return (static_cast<uint32_t>(__float2int_rn(__fmul_rn(lo, inv))) & 0xffu) |
+         ((static_cast<uint32_t>(__float2int_rn(__fmul_rn(hi, inv))) & 0xffu) << 8);
+}
+
+__device__ __forceinline__ float absmax_pair(uint32_t pair, float m) {
+  return fmaxf(m, fmaxf(fabsf(__uint_as_float(pair << 16)),
+                        fabsf(__uint_as_float(pair & 0xffff0000u))));
+}
+
+template <bool kInt8QK>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_out_int8_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
@@ -97,6 +124,9 @@ attention_out_int8_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + static_cast<long long>(b) * v_sb;
   __nv_bfloat16* ks = kv + slot * kSlotElems;
   __nv_bfloat16* vs = ks + kTileK * kLDS;
+  // int8 QK^T: the head's K area holds kTileK x 64 codes, then kTileK scales
+  const int8_t* kq = reinterpret_cast<const int8_t*>(ks);
+  const float* ksc = reinterpret_cast<const float*>(kq + kTileK * kHD);
 
   // ---- attention, kSlots heads at a time, fp32 outputs into af ----------
   for (int hb = 0; hb < H; hb += kSlots) {
@@ -115,6 +145,36 @@ attention_out_int8_kernel(const __nv_bfloat16* __restrict__ q,
       qa[kk][1] = ok1 ? ld2(p1) : 0u;
       qa[kk][2] = ok0 ? ld2(p0 + 8) : 0u;
       qa[kk][3] = ok1 ? ld2(p1 + 8) : 0u;
+    }
+    // int8 QK^T: the rows' codes as A fragments of two m16n8k32 steps; a
+    // thread's 16 values of a row fill its k slots 4t..4t+3 and 16+4t..
+    // of each step in the order kk = 2 * step, 2 * step + 1
+    uint32_t qi[2][4];
+    float rq[2];   // qs * c2 of rows g and g + 8
+    if constexpr (kInt8QK) {
+      float mx0 = 0.f, mx1 = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        mx0 = absmax_pair(qa[kk][2], absmax_pair(qa[kk][0], mx0));
+        mx1 = absmax_pair(qa[kk][3], absmax_pair(qa[kk][1], mx1));
+      }
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+      }
+      const float qs0 = fmaxf(mx0, 1e-6f), qs1 = fmaxf(mx1, 1e-6f);
+      const float inv0 = __fdiv_rn(127.0f, qs0), inv1 = __fdiv_rn(127.0f, qs1);
+#pragma unroll
+      for (int st = 0; st < 2; ++st)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int kk = 2 * st + hf;
+          qi[st][2 * hf] = quant_pair(qa[kk][0], inv0) | (quant_pair(qa[kk][2], inv0) << 16);
+          qi[st][2 * hf + 1] = quant_pair(qa[kk][1], inv1) | (quant_pair(qa[kk][3], inv1) << 16);
+        }
+      rq[0] = __fmul_rn(qs0, c);
+      rq[1] = __fmul_rn(qs1, c);
     }
     float acc[ND][4];
 #pragma unroll
@@ -135,22 +195,82 @@ attention_out_int8_kernel(const __nv_bfloat16* __restrict__ q,
           vx = *reinterpret_cast<const uint4*>(vb + static_cast<long long>(k0 + row) * v_sl + off);
         }
         __nv_bfloat16* kd = kv + sl * kSlotElems;
-        *reinterpret_cast<uint4*>(kd + row * kLDS + cv) = kx;
+        if constexpr (!kInt8QK) *reinterpret_cast<uint4*>(kd + row * kLDS + cv) = kx;
         *reinterpret_cast<uint4*>(kd + kTileK * kLDS + row * kLDS + cv) = vx;
+      }
+      if constexpr (kInt8QK) {
+        // thread (head slot, key row): the row's 64 values -> scale and codes
+        static_assert(kThreads == kSlots * kTileK, "one thread per staged key row");
+        const int sl = threadIdx.x / kTileK, row = threadIdx.x % kTileK;
+        const int hd = hb + sl;
+        uint4 raw[VPR];
+#pragma unroll
+        for (int i = 0; i < VPR; ++i) raw[i] = make_uint4(0u, 0u, 0u, 0u);
+        if (hd < H && k0 + row < Lk) {
+          const uint4* src = reinterpret_cast<const uint4*>(
+              kb + static_cast<long long>(k0 + row) * k_sl + static_cast<long long>(hd) * kHD);
+#pragma unroll
+          for (int i = 0; i < VPR; ++i) raw[i] = src[i];
+        }
+        float mx = 0.f;
+#pragma unroll
+        for (int i = 0; i < VPR; ++i)
+          mx = absmax_pair(raw[i].w, absmax_pair(raw[i].z, absmax_pair(raw[i].y,
+                                                           absmax_pair(raw[i].x, mx))));
+        const float kscale = fmaxf(mx, 1e-6f);
+        const float inv = __fdiv_rn(127.0f, kscale);
+        // codes in natural order, four to a word: word w holds dims 4w..4w+3
+        uint32_t nat[kHD / 4];
+#pragma unroll
+        for (int i = 0; i < VPR; ++i) {
+          nat[2 * i] = quant_pair(raw[i].x, inv) | (quant_pair(raw[i].y, inv) << 16);
+          nat[2 * i + 1] = quant_pair(raw[i].z, inv) | (quant_pair(raw[i].w, inv) << 16);
+        }
+        // thread t of a quad reads bytes 16t..16t+15 of the row: word kk of
+        // them holds dims kk*16 + 2t, +1 and kk*16 + 8 + 2t, +1
+        int8_t* kqd = reinterpret_cast<int8_t*>(kv + sl * kSlotElems);
+        float* kscd = reinterpret_cast<float*>(kqd + kTileK * kHD);
+#pragma unroll
+        for (int tt = 0; tt < 4; ++tt) {
+          const uint32_t sel = (tt & 1) ? 0x7632u : 0x5410u;
+          uint4 w;
+          w.x = __byte_perm(nat[0 + tt / 2], nat[2 + tt / 2], sel);
+          w.y = __byte_perm(nat[4 + tt / 2], nat[6 + tt / 2], sel);
+          w.z = __byte_perm(nat[8 + tt / 2], nat[10 + tt / 2], sel);
+          w.w = __byte_perm(nat[12 + tt / 2], nat[14 + tt / 2], sel);
+          *reinterpret_cast<uint4*>(kqd + row * kHD + 16 * tt) = w;
+        }
+        kscd[row] = kscale;
       }
       __syncthreads();
       if (!active) continue;
 
       float sc[NS][4];
-#pragma unroll
-      for (int n = 0; n < NS; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
+      if constexpr (kInt8QK) {
 #pragma unroll
         for (int n = 0; n < NS; ++n) {
-          const __nv_bfloat16* kp = ks + (n * 8 + g) * kLDS + kk * 16 + t * 2;
-          mma_16816(sc[n], qa[kk], ld2(kp), ld2(kp + 8));
+          int si[4] = {0, 0, 0, 0};
+          const uint4 kw = *reinterpret_cast<const uint4*>(kq + (n * 8 + g) * kHD + 16 * t);
+          mma_s8(si, qi[0], kw.x, kw.y);
+          mma_s8(si, qi[1], kw.z, kw.w);
+          const float2 kscale = *reinterpret_cast<const float2*>(ksc + n * 8 + t * 2);
+          // ((float)s32 * (qs * c2)) * ks, in this order
+          sc[n][0] = __fmul_rn(__fmul_rn(__int2float_rn(si[0]), rq[0]), kscale.x);
+          sc[n][1] = __fmul_rn(__fmul_rn(__int2float_rn(si[1]), rq[0]), kscale.y);
+          sc[n][2] = __fmul_rn(__fmul_rn(__int2float_rn(si[2]), rq[1]), kscale.x);
+          sc[n][3] = __fmul_rn(__fmul_rn(__int2float_rn(si[3]), rq[1]), kscale.y);
         }
+      } else {
+#pragma unroll
+        for (int n = 0; n < NS; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+          for (int n = 0; n < NS; ++n) {
+            const __nv_bfloat16* kp = ks + (n * 8 + g) * kLDS + kk * 16 + t * 2;
+            mma_16816(sc[n], qa[kk], ld2(kp), ld2(kp + 8));
+          }
+      }
       // e rounded to bf16 feeds both the AV product and the denominator
       uint32_t pa[kTileK / 16][4];
 #pragma unroll
@@ -159,7 +279,8 @@ attention_out_int8_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int key = k0 + n * 8 + t * 2 + (i & 1);
-          const float e = key < Lk ? exp2f(fminf(sc[n][i] * c, 110.f)) : 0.f;
+          const float arg = kInt8QK ? sc[n][i] : sc[n][i] * c;
+          const float e = key < Lk ? exp2f(fminf(arg, 110.f)) : 0.f;
           eb[i] = __float2bfloat16(e);
           rsum[i >> 1] += __bfloat162float(eb[i]);
         }
@@ -247,35 +368,54 @@ attention_out_int8_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-}  // namespace
-
-// q/k/v strides in elements, last dim contiguous, rows 16-byte aligned
-// (checked by the Python wrapper); W^T (D, D) int8 (the out-projection
-// kernel transposed, k contiguous), s, bias (D) fp32;
-// r, o (B, lq, D) bf16 contiguous, D = H * 64. Returns cudaGetLastError()
-// after the launch.
-extern "C" int attention_out_int8_bf16(const void* q, const void* k, const void* v,
-                                       const void* Wt, const void* s, const void* bias,
-                                       const void* r, void* o, int B, int lq, int Lk, int H,
-                                       int q_sb, int q_sl, int k_sb, int k_sl, int v_sb,
-                                       int v_sl, float c, void* stream) {
+template <bool kInt8QK>
+int launch(const void* q, const void* k, const void* v, const void* Wt, const void* s,
+           const void* bias, const void* r, void* o, int B, int lq, int Lk, int H, int q_sb,
+           int q_sl, int k_sb, int k_sl, int v_sb, int v_sl, float c, void* stream) {
   const int D = H * kHD;
   if (H <= 0 || D > kMaxRowPerLane * 32 || B <= 0 || lq <= 0 || Lk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = static_cast<size_t>(kBM) * (D + 16) * sizeof(float) +
                        static_cast<size_t>(kSlots) * kSlotElems * sizeof(__nv_bfloat16) +
                        kBM * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(attention_out_int8_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto kernel = attention_out_int8_kernel<kInt8QK>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool fast = aligned16(Wt);  // D = H * 64
   const dim3 grid((lq + kBM - 1) / kBM, B);
-  attention_out_int8_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const int8_t*>(Wt),
       static_cast<const float*>(s), static_cast<const float*>(bias),
       static_cast<const __nv_bfloat16*>(r), static_cast<__nv_bfloat16*>(o), lq, Lk, H, q_sb,
       q_sl, k_sb, k_sl, v_sb, v_sl, c, fast);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q/k/v strides in elements, last dim contiguous, rows 16-byte aligned
+// (checked by the Python wrapper); W^T (D, D) int8 (the out-projection
+// kernel transposed, k contiguous), s, bias (D) fp32;
+// r, o (B, lq, D) bf16 contiguous, D = H * 64; c = 64^-0.5 * log2(e).
+// Returns cudaGetLastError() after the launch.
+extern "C" int attention_out_int8_bf16(const void* q, const void* k, const void* v,
+                                       const void* Wt, const void* s, const void* bias,
+                                       const void* r, void* o, int B, int lq, int Lk, int H,
+                                       int q_sb, int q_sl, int k_sb, int k_sl, int v_sb,
+                                       int v_sl, float c, void* stream) {
+  return launch<false>(q, k, v, Wt, s, bias, r, o, B, lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb,
+                       v_sl, c, stream);
+}
+
+// The int8 QK^T form: the same arguments, except that the constant is
+// c2 = fp32(c / 127^2).
+extern "C" int attention_out_int8_qk8_bf16(const void* q, const void* k, const void* v,
+                                           const void* Wt, const void* s, const void* bias,
+                                           const void* r, void* o, int B, int lq, int Lk,
+                                           int H, int q_sb, int q_sl, int k_sb, int k_sl,
+                                           int v_sb, int v_sl, float c2, void* stream) {
+  return launch<true>(q, k, v, Wt, s, bias, r, o, B, lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb,
+                      v_sl, c2, stream);
 }

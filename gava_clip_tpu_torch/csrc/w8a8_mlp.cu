@@ -1,8 +1,14 @@
-// Fused w8a8 transformer MLP with the residual add, for Hopper (sm_90a).
+// Fused w8a8 transformer MLP, with and without the residual add, for Hopper
+// (sm_90a).
 //
-// Replaces the TPU kernel gava_clip_tpu/ops/int8_matmul.py: `kernel` inside
-// w8a8_mlp_res (its pl.pallas_call); on the serving path it closes every
-// block:
+// Replaces two TPU kernels of gava_clip_tpu/ops/int8_matmul.py: `kernel`
+// inside w8a8_mlp_res (its pl.pallas_call), which closes every block of the
+// serving path, and _w8a8_mlp_kernel (w8a8_mlp's pl.pallas_call), the same
+// without the residual and with the LayerNorm optional, which an MLP block
+// called without a residual reaches. One kernel template serves both: a
+// flag drops the residual read, another the LayerNorm (the input rows are
+// then quantized as they are); the residual form is the instantiation with
+// both on.
 //
 //   x, r (M, K) bf16 (r is the residual, x itself in the tower); W1 (K, H),
 //   W2 (H, N) int8, passed transposed (W1^T (H, K), W2^T (N, H), k
@@ -53,6 +59,7 @@ constexpr int kMT = 1, kNT = 6;
 // 16-byte loads want
 __host__ __device__ constexpr int hidden_stride(int H) { return round_up(H, kBK) + 16; }
 
+template <bool kRes, bool kLN>
 __global__ void __launch_bounds__(kThreads, 1)
 w8a8_mlp_res_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ W1t,
                     const float* __restrict__ s1, const float* __restrict__ b1,
@@ -76,8 +83,8 @@ w8a8_mlp_res_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
   for (int rr = warp; rr < kBM; rr += kWarps) {
     const int m = m0 + rr;
     if (m < M) {
-      const float v = quant_row_bf16(x + static_cast<long long>(m) * K, K, gamma, beta,
-                                     as + rr * sa, lane);
+      const float v = quant_row_bf16(x + static_cast<long long>(m) * K, K,
+                                     kLN ? gamma : nullptr, beta, as + rr * sa, lane);
       if (lane == 0) xs[rr] = v;
     } else {
       for (int c = lane; c < sa; c += 32) as[rr * sa + c] = 0;
@@ -141,7 +148,7 @@ w8a8_mlp_res_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
 
   __syncthreads();
 
-  // phase 3: y = fc2(codes) + b2 + r
+  // phase 3: y = fc2(codes) + b2 [+ r]
   const int sh = hst * 4;  // bytes per row of the in-place codes
   const int8_t* hc = reinterpret_cast<const int8_t*>(hsm);
   for (int n0 = 0; n0 < N; n0 += kBN) {
@@ -152,20 +159,49 @@ w8a8_mlp_res_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
       const int rr = g + 8 * hh, m = m0 + rr;
       if (m >= M) continue;
       const float hr = hs[rr];
-      const __nv_bfloat16* rrow = r + static_cast<long long>(m) * N;
+      const __nv_bfloat16* rrow = kRes ? r + static_cast<long long>(m) * N : nullptr;
       __nv_bfloat16* yrow = y + static_cast<long long>(m) * N;
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
         const int n = n0 + warp * kNT * 8 + j * 8 + t * 2;
 #pragma unroll
         for (int c = 0; c < 2; ++c)
-          if (n + c < N)
-            yrow[n + c] = __float2bfloat16(
-                __fadd_rn(epilogue(acc[0][j][2 * hh + c], hr, s2[n + c], b2[n + c]),
-                          __bfloat162float(rrow[n + c])));
+          if (n + c < N) {
+            const float v = epilogue(acc[0][j][2 * hh + c], hr, s2[n + c], b2[n + c]);
+            yrow[n + c] =
+                __float2bfloat16(kRes ? __fadd_rn(v, __bfloat162float(rrow[n + c])) : v);
+          }
       }
     }
   }
+}
+
+template <bool kRes, bool kLN>
+int launch(const void* x, const void* W1t, const void* s1, const void* b1, const void* W2t,
+           const void* s2, const void* b2, const void* gamma, const void* beta, const void* r,
+           void* y, int M, int K, int H, int N, void* stream) {
+  if (K > kMaxRowPerLane * 32 || M <= 0 || K <= 0 || H <= 0 || N <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = static_cast<size_t>(kBM) * hidden_stride(H) * sizeof(float) +
+                       static_cast<size_t>(kBM) * codes_stride(K) + 2 * kBM * sizeof(float);
+  int dev = 0, max_bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (bytes > static_cast<size_t>(max_bytes)) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = w8a8_mlp_res_kernel<kRes, kLN>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool fast1 = K % 64 == 0 && aligned16(W1t);
+  const bool fast2 = H % 64 == 0 && aligned16(W2t);
+  kernel<<<(M + kBM - 1) / kBM, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(W1t),
+      static_cast<const float*>(s1), static_cast<const float*>(b1),
+      static_cast<const int8_t*>(W2t), static_cast<const float*>(s2),
+      static_cast<const float*>(b2), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const __nv_bfloat16*>(r),
+      static_cast<__nv_bfloat16*>(y), M, K, H, N, fast1, fast2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -179,26 +215,18 @@ extern "C" int w8a8_mlp_res_bf16(const void* x, const void* W1t, const void* s1,
                                  const void* b2, const void* gamma, const void* beta,
                                  const void* r, void* y, int M, int K, int H, int N,
                                  void* stream) {
-  if (K > kMaxRowPerLane * 32 || M <= 0 || K <= 0 || H <= 0 || N <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = static_cast<size_t>(kBM) * hidden_stride(H) * sizeof(float) +
-                       static_cast<size_t>(kBM) * codes_stride(K) + 2 * kBM * sizeof(float);
-  int dev = 0, max_bytes = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (bytes > static_cast<size_t>(max_bytes)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      w8a8_mlp_res_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const bool fast1 = K % 64 == 0 && aligned16(W1t);
-  const bool fast2 = H % 64 == 0 && aligned16(W2t);
-  w8a8_mlp_res_kernel<<<(M + kBM - 1) / kBM, kThreads, bytes,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(W1t),
-      static_cast<const float*>(s1), static_cast<const float*>(b1),
-      static_cast<const int8_t*>(W2t), static_cast<const float*>(s2),
-      static_cast<const float*>(b2), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const __nv_bfloat16*>(r),
-      static_cast<__nv_bfloat16*>(y), M, K, H, N, fast1, fast2);
-  return static_cast<int>(cudaGetLastError());
+  return launch<true, true>(x, W1t, s1, b1, W2t, s2, b2, gamma, beta, r, y, M, K, H, N, stream);
+}
+
+// The same without the residual; gamma == beta == nullptr skips the
+// LayerNorm.
+extern "C" int w8a8_mlp_bf16(const void* x, const void* W1t, const void* s1, const void* b1,
+                             const void* W2t, const void* s2, const void* b2,
+                             const void* gamma, const void* beta, void* y, int M, int K, int H,
+                             int N, void* stream) {
+  if (gamma != nullptr && beta != nullptr)
+    return launch<false, true>(x, W1t, s1, b1, W2t, s2, b2, gamma, beta, nullptr, y, M, K, H, N,
+                               stream);
+  return launch<false, false>(x, W1t, s1, b1, W2t, s2, b2, nullptr, nullptr, nullptr, y, M, K,
+                              H, N, stream);
 }

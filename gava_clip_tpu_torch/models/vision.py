@@ -12,7 +12,12 @@ w8a8 serving (kernels quantized by ops/quant.quantize_tower_params) runs
 each block through three fused int8 ops: LN1 + q/k/v
 (`w8a8_matmul3_cat`), attention + out-projection + residual
 (`flash_attention_out_int8`) and LN2 + MLP + residual (`w8a8_mlp_res`);
-the patch-major embed runs its int8 sidecar through `w8a8_matmul`. The
+the patch-major embed runs its int8 sidecar through `w8a8_matmul`. With
+the switch `ops.extras_kernel.set_fused_extras` on, the prompt extras in
+front of the qkv op are one fused launch too (`fused_extras`, fp32
+arithmetic) instead of about ten stock ops. In the w8 mode (weight-only
+'q' leaves) the block is the bf16 one with every projection through the w8
+dequant GEMM. The
 TPU's 8-row padded layout is not ported, only its semantics: the queries
 are the first Lx rows, the keys all Lx + Le rows with the extras in the
 order [global, summary, local], and LN1 and the quant act on every kv row.
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import extras_kernel
 from ..ops.activations import quick_gelu
 from ..ops.attention import attention_core, multi_head_attention
 from ..ops.flash_attention import flash_attention_out_int8
@@ -179,19 +185,15 @@ def resize_time_embed(time_embed: torch.Tensor, T: int) -> torch.Tensor:
     return time_embed[idx]
 
 
-def _block(p, g_prompt: Optional[torch.Tensor], x: torch.Tensor,
-           cfg: VisionConfig, attn_impl: str, int8_impl: str = "kernel"):
-    """One prompt-aware transformer block over per-frame token rows.
-
-    x: (B*T, 1+N, D) = [cls, patches]. Returns (x, summary | None). The
-    global prompts, the summary token and the local prompts are appended
-    as attention keys only. Like the reference, the summary/local grouping
-    uses the TRAIN-time frame count cfg.num_frames."""
-    BT, Lx, D = x.shape
+def prompt_extras(p, g_prompt: Optional[torch.Tensor], x: torch.Tensor,
+                  cfg: VisionConfig):
+    """The prompt rows of one block from stock ops, in x's dtype: ([global
+    (BT, G, D)], [summary (BT, 1, D)], [local (BT, Tb, D)]) for the prompt
+    kinds that are on, and the summary tokens (Bb, Tb, D) or None."""
+    BT, _, D = x.shape
     G = cfg.num_global_prompts
     Tb = cfg.num_frames
     Bb = BT // Tb
-
     summary = None
     extras = []
     if cfg.use_summary_token or cfg.use_local_prompts:
@@ -208,7 +210,39 @@ def _block(p, g_prompt: Optional[torch.Tensor], x: torch.Tensor,
         lp = p["local_prompts"].to(x.dtype) + cls_proj          # (Bb, Tb, D)
         # every frame row of a pseudo-video attends over the same Tb prompts
         extras.append(lp[:, None].expand(Bb, Tb, Tb, D).reshape(BT, Tb, D))
-    if quant_kind(p["attn"]["q"]["kernel"]) == "qa":
+    return extras, summary
+
+
+def _block(p, g_prompt: Optional[torch.Tensor], x: torch.Tensor,
+           cfg: VisionConfig, attn_impl: str, int8_impl: str = "kernel"):
+    """One prompt-aware transformer block over per-frame token rows.
+
+    x: (B*T, 1+N, D) = [cls, patches]. Returns (x, summary | None). The
+    global prompts, the summary token and the local prompts are appended
+    as attention keys only. Like the reference, the summary/local grouping
+    uses the TRAIN-time frame count cfg.num_frames."""
+    BT, Lx, D = x.shape
+    G = cfg.num_global_prompts
+    Tb = cfg.num_frames
+
+    w8a8 = quant_kind(p["attn"]["q"]["kernel"]) == "qa"
+    fused_out = attn_impl == "flash" and \
+        quant_kind(p["attn"]["out"]["kernel"]) == "qa"
+    # the whole prompt branch in one launch: the w8a8 block with the fused
+    # out-projection and all three prompt kinds on (the switch is read here,
+    # at every call)
+    use_fused_extras = (extras_kernel.FUSED_EXTRAS and w8a8 and fused_out
+                        and cfg.use_summary_token and cfg.use_local_prompts
+                        and cfg.use_global_prompts)
+
+    if use_fused_extras:
+        fused_e, summary = extras_kernel.fused_extras(
+            x[:, 0], p, g_prompt, Tb=Tb, num_heads=cfg.heads,
+            le_pad=G + 1 + Tb, impl=int8_impl)
+        extras = [fused_e]
+    else:
+        extras, summary = prompt_extras(p, g_prompt, x, cfg)
+    if w8a8:
         # LN1 + one shared quant + the three int8 projections over the
         # per-clip rows [x; extras], the concatenation never materialised
         names = ("q", "k", "v")
@@ -218,8 +252,7 @@ def _block(p, g_prompt: Optional[torch.Tensor], x: torch.Tensor,
             x, e, [p["attn"][n]["kernel"] for n in names],
             [p["attn"][n]["bias"] for n in names],
             (p["norm1"]["scale"], p["norm1"]["bias"]), impl=int8_impl)
-        if attn_impl == "flash" and \
-                quant_kind(p["attn"]["out"]["kernel"]) == "qa":
+        if fused_out:
             # the first Lx kv rows are the queries; the fp32 attention
             # output never leaves the kernel
             x = flash_attention_out_int8(qp, kp, vp, cfg.heads,
@@ -233,7 +266,8 @@ def _block(p, g_prompt: Optional[torch.Tensor], x: torch.Tensor,
         kv = torch.cat([x] + extras, dim=1) if extras else x
         kv_n = layer_norm(kv, p["norm1"]["scale"], p["norm1"]["bias"])
         x = x + multi_head_attention(p["attn"], kv_n[:, :Lx], kv_n, kv_n,
-                                     cfg.heads, impl=attn_impl)
+                                     cfg.heads, impl=attn_impl,
+                                     int8_impl=int8_impl)
     x = mlp_block(p["mlp"], p["norm2"], x, quick_gelu, residual=x,
                   int8_impl=int8_impl)
     return x, summary

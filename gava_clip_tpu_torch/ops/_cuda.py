@@ -77,11 +77,29 @@ _SIGNATURES = {
         # strides; exp2 constant; stream
         "attention_out_int8_bf16": (
             [_VP] * 8 + [_I] * 4 + [_I] * 6 + [ctypes.c_float, _VP], _I),
+        # the int8 QK^T form: the constant is c / 127^2
+        "attention_out_int8_qk8_bf16": (
+            [_VP] * 8 + [_I] * 4 + [_I] * 6 + [ctypes.c_float, _VP], _I),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "w8a8_mlp": {
         # x, W1, s1, b1, W2, s2, b2, gamma, beta, r, y; M, K, H, N; stream
         "w8a8_mlp_res_bf16": ([_VP] * 11 + [_I] * 4 + [_VP], _I),
+        # without the residual (gamma, beta may be null: no LayerNorm)
+        "w8a8_mlp_bf16": ([_VP] * 10 + [_I] * 4 + [_VP], _I),
+        "cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "w8_matmul": {
+        # x, W^T, scale, y; M, K, N; stream
+        "w8_matmul_bf16": ([_VP] * 4 + [_I] * 3 + [_VP], _I),
+        "cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "fused_extras": {
+        # cls, cls row stride; Wc, bc, lns, lnb, Wq, bq, Wk, bk, Wv, bv, Wo,
+        # bo, lp, gp; e, summary; Bb, Tb, G, D, H, le_pad; weights bf16?,
+        # activations bf16?; stream
+        "fused_extras": ([_VP, ctypes.c_longlong] + [_VP] * 16 + [_I] * 8
+                         + [_VP], _I),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
 }

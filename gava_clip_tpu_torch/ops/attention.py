@@ -51,10 +51,12 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def multi_head_attention(params: Dict, q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor, num_heads: int,
                          mask: Optional[torch.Tensor] = None,
-                         impl: str = "xla",
-                         causal: bool = False) -> torch.Tensor:
-    """Full attention module: project q/k/v, attend, project out."""
-    out = attention_core(linear(params["q"], q), linear(params["k"], k),
-                         linear(params["v"], v), num_heads, mask=mask,
-                         impl=impl, causal=causal)
-    return linear(params["out"], out)
+                         impl: str = "xla", causal: bool = False,
+                         int8_impl: str = "kernel") -> torch.Tensor:
+    """Full attention module: project q/k/v, attend, project out.
+    int8_impl reaches the projections' quantized leaves (ops/linear.py)."""
+    out = attention_core(linear(params["q"], q, int8_impl),
+                         linear(params["k"], k, int8_impl),
+                         linear(params["v"], v, int8_impl), num_heads,
+                         mask=mask, impl=impl, causal=causal)
+    return linear(params["out"], out, int8_impl)

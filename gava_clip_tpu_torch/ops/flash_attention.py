@@ -40,10 +40,15 @@ csrc/ or raises. There is no fallback between the two. The gradients are
 over the first `lq` query rows and all keys, kept in fp32, then a per-row
 int8 quant over the whole H*Dh-wide row, the int8 out-projection, bias and
 the residual add (csrc/attention_out_int8.cu; plain version
-`attention_out_int8_plain`).
+`attention_out_int8_plain`). Its int8 QK^T form (`set_int8_qk`, or
+GAVA_INT8_QK=1 in the environment; off by default) quantizes each head's
+slice of every query and key row to int8 and runs the score product in
+int8, with the two row scales folded into the exp2 argument; the other
+attention functions never take it.
 """
 
 import contextlib
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -58,6 +63,7 @@ _KERNEL_HEAD_DIM = 64     # the only head width the kernel is built for
 # launches of each hand-written kernel since the last reset; a run reads
 # these to show that its main path went through the kernels
 launch_counts = {"packed_attention": 0, "attention_out_int8": 0,
+                 "attention_out_int8_qk8": 0,
                  "packed_attention_den": 0, "packed_attention_bwd": 0,
                  "streaming_attention": 0, "streaming_attention_bwd": 0}
 
@@ -68,6 +74,18 @@ def reset_launch_counts() -> None:
 
 
 _force_plain = False
+
+# int8 QK^T score products in the w8a8 serving fusion
+# (`flash_attention_out_int8`), read at every call
+_INT8_QK = os.environ.get("GAVA_INT8_QK", "0") == "1"
+
+
+def set_int8_qk(enabled: bool) -> None:
+    """Route the score products of `flash_attention_out_int8` through int8
+    (per-row q / k quantization, the rescale folded into the exp2
+    argument). Affects calls made after it."""
+    global _INT8_QK
+    _INT8_QK = bool(enabled)
 
 
 @contextlib.contextmanager
@@ -99,7 +117,25 @@ def _onepass_attention_f32(q, k, v, num_heads: int) -> torch.Tensor:
     return _onepass_attention_den_f32(q, k, v, num_heads)[0]
 
 
-def _onepass_attention_den_f32(q, k, v, num_heads: int):
+def _int8_qk_exp2_arg(qh, kh, c: float) -> torch.Tensor:
+    """The exp2 argument of the int8 QK^T form from fp32 head slices
+    (B, H, L, Dh): per row qs = max(absmax, 1e-6), codes rint(x * (127 /
+    qs)) (no clip needed), the integer score product (exact in fp32: at
+    most 127^2 * Dh), then ((s32 * (qs * (c / 127^2))) * ks), in that order
+    of multiplication."""
+    qs = torch.clamp(qh.abs().amax(dim=-1, keepdim=True), min=1e-6)
+    ks = torch.clamp(kh.abs().amax(dim=-1, keepdim=True), min=1e-6)
+    # a true division: `127.0 / qs` would be reciprocal(qs) * 127, which
+    # rounds twice
+    top = qs.new_full((), 127.0)
+    qq = torch.round(qh * (top / qs))
+    kq = torch.round(kh * (top / ks))
+    s32 = qq @ kq.transpose(-1, -2)
+    return s32 * (qs * (c / (127.0 * 127.0))) * ks.transpose(-1, -2)
+
+
+def _onepass_attention_den_f32(q, k, v, num_heads: int,
+                               int8_qk: bool = False):
     """(out (B, Lq, H*Dh) fp32, den (B, Lq, H) fp32): the one-pass clamp
     softmax attention and its per-head denominators."""
     B, Lq, D = q.shape
@@ -108,8 +144,11 @@ def _onepass_attention_den_f32(q, k, v, num_heads: int):
     qh = _heads(q, num_heads).float()
     kh = _heads(k, num_heads).float()
     vh = _heads(v, num_heads)
-    s = qh @ kh.transpose(-1, -2)                     # (B, H, Lq, Lk) fp32
-    e = torch.exp2(torch.clamp(s * c, max=_CLAMP)).to(v.dtype).float()
+    if int8_qk:
+        arg = _int8_qk_exp2_arg(qh, kh, c)
+    else:
+        arg = (qh @ kh.transpose(-1, -2)) * c         # (B, H, Lq, Lk) fp32
+    e = torch.exp2(torch.clamp(arg, max=_CLAMP)).to(v.dtype).float()
     num = e @ vh.float()
     den = e.sum(dim=-1, keepdim=True)
     out = num / torch.clamp(den, min=1e-30)
@@ -510,13 +549,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_out_int8_plain(q, k, v, num_heads: int, out_params: Dict,
                              residual: torch.Tensor,
-                             lq: Optional[int] = None) -> torch.Tensor:
+                             lq: Optional[int] = None,
+                             int8_qk: bool = False) -> torch.Tensor:
     """Plain version of csrc/attention_out_int8.cu: residual +
     w8a8_linear(attention(q[:, :lq], k, v)) with the attention output kept
-    in fp32 up to its per-row quant."""
+    in fp32 up to its per-row quant; int8_qk takes the int8 score
+    product."""
     from .int8_matmul import int_matmul, quant_rows, rescale
     lq = q.shape[1] if lq is None else lq
-    a = _onepass_attention_f32(q[:, :lq], k, v, num_heads)
+    a = _onepass_attention_den_f32(q[:, :lq], k, v, num_heads, int8_qk)[0]
     codes, xs = quant_rows(a)
     kernel = out_params["kernel"]
     y = rescale(int_matmul(codes, kernel["qa"]), xs, kernel["scale"],
@@ -526,8 +567,10 @@ def attention_out_int8_plain(q, k, v, num_heads: int, out_params: Dict,
 
 def attention_out_int8_cuda(q, k, v, num_heads: int, out_params: Dict,
                             residual: torch.Tensor,
-                            lq: Optional[int] = None) -> torch.Tensor:
-    """Launch csrc/attention_out_int8.cu on the current stream (no sync)."""
+                            lq: Optional[int] = None,
+                            int8_qk: bool = False) -> torch.Tensor:
+    """Launch csrc/attention_out_int8.cu on the current stream (no sync):
+    its fp32-score entry point, or with int8_qk its int8 QK^T one."""
     from ._cuda import load_library
     _check_kernel_args(q, k, v, num_heads)
     B, Lq_arr, D = q.shape
@@ -554,16 +597,18 @@ def attention_out_int8_cuda(q, k, v, num_heads: int, out_params: Dict,
         return out
     lib = load_library("attention_out_int8")
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    c = (D // num_heads) ** -0.5 * _LOG2E
+    name = "attention_out_int8_qk8" if int8_qk else "attention_out_int8"
     with torch.cuda.device(q.device):
-        err = lib.attention_out_int8_bf16(
+        err = getattr(lib, name + "_bf16")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), wt.data_ptr(),
             scale.data_ptr(), bias.data_ptr(), r.data_ptr(), out.data_ptr(),
             B, lq, k.shape[1], num_heads, q.stride(0), q.stride(1),
             k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            (D // num_heads) ** -0.5 * _LOG2E, stream)
+            c / (127.0 * 127.0) if int8_qk else c, stream)
     if err != 0:
-        raise _launch_failed("attention_out_int8", lib, err)
-    launch_counts["attention_out_int8"] += 1
+        raise _launch_failed(name, lib, err)
+    launch_counts[name] += 1
     return out
 
 
@@ -575,17 +620,18 @@ def flash_attention_out_int8(q, k, v, num_heads: int, out_params: Dict,
     `flash_attention_out_int8`). q may be longer than lq (the full kv-row
     projection); the output has lq rows. impl='plain' runs the plain
     version on any device; 'kernel' the plain version on the CPU and the
-    CUDA kernel on a card."""
+    CUDA kernel on a card. The int8 QK^T switch (`set_int8_qk`) is read
+    here, at every call."""
     if k.shape[1] > _PACKED_MAX_LK:
         raise NotImplementedError(
             "the fused attention + int8 out-projection holds whole key "
             "rows; Lk > 640 is outside it (ROADMAP B4)")
     if impl == "plain" or q.device.type == "cpu":
-        return attention_out_int8_plain(q, k, v, num_heads, out_params,
-                                        residual, lq)
-    if impl != "kernel":
+        fn = attention_out_int8_plain
+    elif impl != "kernel":
         raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
-    if q.device.type == "cuda":
-        return attention_out_int8_cuda(q, k, v, num_heads, out_params,
-                                       residual, lq)
-    raise ValueError(f"no attention kernel for device {q.device}")
+    elif q.device.type == "cuda":
+        fn = attention_out_int8_cuda
+    else:
+        raise ValueError(f"no attention kernel for device {q.device}")
+    return fn(q, k, v, num_heads, out_params, residual, lq, _INT8_QK)

@@ -1,7 +1,8 @@
-"""Fused w8a8 int8 GEMMs (port of the serving kernels in
-gava_clip_tpu/ops/int8_matmul.py).
+"""Int8 GEMMs of the serving paths (port of the serving kernels in
+gava_clip_tpu/ops/int8_matmul.py): the weight-only dequant GEMM of the w8
+mode and the fused w8a8 ops.
 
-Three ops, each a hand-written CUDA kernel for sm_90a beside a plain PyTorch
+Each op is a hand-written CUDA kernel for sm_90a beside a plain PyTorch
 version of the same math:
 
   * `w8a8_matmul` (csrc/w8a8_matmul.cu, TPU `_w8a8_kernel`): per-row int8
@@ -11,20 +12,31 @@ version of the same math:
     rows], LayerNorm, ONE shared quant, three int8 GEMMs + bias (q/k/v);
   * `w8a8_mlp_res` (csrc/w8a8_mlp.cu, TPU `kernel` in `w8a8_mlp_res`):
     LayerNorm, quant, int8 fc1 + bias, QuickGELU on the fp32 hidden,
-    requant over the whole hidden row, int8 fc2 + bias + residual.
+    requant over the whole hidden row, int8 fc2 + bias + residual;
+  * `w8a8_mlp` (a second entry point of csrc/w8a8_mlp.cu, TPU
+    `_w8a8_mlp_kernel`): the same without the residual, the LayerNorm
+    optional (`ln=None` quantizes the input rows as they are);
+  * `int8_matmul` / `quantized_linear` (csrc/w8_matmul.cu, TPU `_kernel`):
+    the weight-only GEMM x @ dtype(f32(w_q) * scale) with fp32
+    accumulation. The weight is dequantized with ONE rounding per element
+    (the fp32 product cast to x's dtype), as the TPU kernel does, not with
+    the scale rounded first as the JAX XLA fallback does. The bias is
+    added after the kernel, in the output dtype: two roundings.
 
-The plain versions follow the KERNEL semantics, not the JAX XLA fallback
-`quantize_act` (which divides by xs and clips): the row scale is
+The plain versions of the w8a8 ops follow the KERNEL semantics, not the
+JAX XLA fallback `quantize_act` (which divides by xs and clips): the row
+scale is
 xs = max(absmax, 1e-6) * fp32(1/127), the codes are rint(x * (1/xs)) with
 no clip; LayerNorm is fp32 with two-pass biased variance, eps 1e-5; bias
 and residual are added in fp32 and only the final store is cast. The
 integer products are exact: int8 x int8 sums reach 127^2 * 3072 > 2^24, so
 they run in float64 (exact below 2^53) on either device.
 
-Each op takes its weights as kernel leaves {'qa': int8 (K, N), 'scale':
-fp32 (1, N)}. The CUDA kernels read the weight as W^T (N, K), k contiguous,
-from the leaf's 'qa_t', which `with_kernel_layout` adds once where the
-weights are placed on the card; a CUDA call on a leaf without it raises.
+Each w8a8 op takes its weights as kernel leaves {'qa': int8 (K, N),
+'scale': fp32 (1, N)}, the w8 GEMM as {'q', 'scale'}. The CUDA kernels read
+the weight as W^T (N, K), k contiguous, from the leaf's 'qa_t' / 'q_t',
+which `with_kernel_layout` adds once where the weights are placed on the
+card; a CUDA call on a leaf without it raises.
 
 Dispatch: `impl="kernel"` (the default) runs the plain version for a CPU
 tensor and the CUDA kernel for a CUDA tensor (or raises: there is no
@@ -41,7 +53,8 @@ _LN_EPS = 1e-5
 _KERNEL_MAX_K = 1024      # the kernels keep one row of K values in registers
 
 # launches of each hand-written kernel since the last reset
-launch_counts = {"w8a8_matmul": 0, "w8a8_matmul3_cat": 0, "w8a8_mlp_res": 0}
+launch_counts = {"w8a8_matmul": 0, "w8a8_matmul3_cat": 0, "w8a8_mlp_res": 0,
+                 "w8a8_mlp": 0, "int8_matmul": 0}
 
 
 def reset_launch_counts() -> None:
@@ -102,14 +115,38 @@ def w8a8_matmul3_cat_plain(x, e, kernels3, bias3, ln):
                          b).to(x.dtype) for k, b in zip(kernels3, bias3))
 
 
-def w8a8_mlp_res_plain(x, fc1, fc2, ln, residual):
-    codes, xs = quant_rows(ln_f32(x.float(), *ln))
+def _w8a8_mlp_f32(x, fc1, fc2, ln):
+    """fc2(QuickGELU(fc1([LayerNorm](x)))) in fp32, before any residual."""
+    x32 = x.float()
+    codes, xs = quant_rows(x32 if ln is None else ln_f32(x32, *ln))
     k1, k2 = fc1["kernel"], fc2["kernel"]
     h = quick_gelu_f32(rescale(int_matmul(codes, k1["qa"]), xs,
                                k1["scale"], fc1["bias"]))
     hq, hs = quant_rows(h)
-    y = rescale(int_matmul(hq, k2["qa"]), hs, k2["scale"], fc2["bias"])
-    return (y + residual.float()).to(residual.dtype)
+    return rescale(int_matmul(hq, k2["qa"]), hs, k2["scale"], fc2["bias"])
+
+
+def w8a8_mlp_res_plain(x, fc1, fc2, ln, residual):
+    return (_w8a8_mlp_f32(x, fc1, fc2, ln)
+            + residual.float()).to(residual.dtype)
+
+
+def w8a8_mlp_plain(x, fc1, fc2, ln=None):
+    return _w8a8_mlp_f32(x, fc1, fc2, ln).to(x.dtype)
+
+
+def dequant_weight(w_q: torch.Tensor, scale: torch.Tensor,
+                   dtype) -> torch.Tensor:
+    """The w8 kernel's weight: the fp32 product f32(w_q) * scale rounded
+    once to `dtype`."""
+    return (w_q.float() * scale.float()).to(dtype)
+
+
+def int8_matmul_plain(x, w_q, scale):
+    """x (M, K) @ dequant(w_q (K, N), scale (1, N)) -> (M, N) in x.dtype,
+    the products summed in fp32 and cast once."""
+    w = dequant_weight(w_q, scale, x.dtype)
+    return (x.float() @ w.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -166,26 +203,28 @@ def kernel_layout(w: torch.Tensor) -> torch.Tensor:
 
 def with_kernel_layout(tree):
     """A copy of a param tree in which every w8a8 kernel leaf {'qa',
-    'scale'} also carries 'qa_t' = kernel_layout(qa). Made once, where the
-    weights are placed on the device (the CUDA wrappers read only 'qa_t';
-    the plain versions only 'qa')."""
+    'scale'} also carries 'qa_t' = kernel_layout(qa), and every w8 leaf
+    {'q', 'scale'} 'q_t'. Made once, where the weights are placed on the
+    device (the CUDA wrappers read only the transposed copy; the plain
+    versions only 'qa' / 'q')."""
     if isinstance(tree, list):
         return [with_kernel_layout(v) for v in tree]
     if not isinstance(tree, dict):
         return tree
     out = {k: with_kernel_layout(v) for k, v in tree.items()}
-    if isinstance(tree.get("qa"), torch.Tensor):
-        out["qa_t"] = kernel_layout(tree["qa"])
+    for key in ("qa", "q"):
+        if isinstance(tree.get(key), torch.Tensor) and "scale" in tree:
+            out[key + "_t"] = kernel_layout(tree[key])
     return out
 
 
-def _kernel_weight(name, kernel, K, N=None):
+def _kernel_weight(name, kernel, K, N=None, key="qa_t"):
     """The W^T (N, K) int8 weight of a kernel leaf, checked."""
-    if "qa_t" not in kernel:
+    if key not in kernel:
         raise ValueError(f"{name}: the kernel reads the weight as W^T from "
-                         f"the leaf's 'qa_t'; add it where the weights are "
+                         f"the leaf's '{key}'; add it where the weights are "
                          f"placed (ops.int8_matmul.with_kernel_layout)")
-    w = kernel["qa_t"]
+    w = kernel[key]
     if w.dtype != torch.int8 or w.dim() != 2 or w.shape[1] != K or \
             (N is not None and w.shape[0] != N) or not w.is_contiguous():
         raise ValueError(f"{name}: contiguous int8 W^T ({N or 'N'}, {K}) "
@@ -241,34 +280,74 @@ def w8a8_matmul3_cat_cuda(x, e, kernels3, bias3, ln):
     return tuple(outs)
 
 
-def w8a8_mlp_res_cuda(x, fc1, fc2, ln, residual):
-    """Launch csrc/w8a8_mlp.cu: x, residual (M, K) bf16 -> (M, N) bf16."""
+def _w8a8_mlp_launch(name, x, fc1, fc2, ln, residual):
+    """Launch csrc/w8a8_mlp.cu: the residual form (ln and residual given) or
+    the residual-free entry point (residual None, ln optional)."""
     k1, k2 = fc1["kernel"], fc2["kernel"]
-    _check_cuda("w8a8_mlp_res", x.device,
+    _check_cuda(name, x.device,
                 (x, residual, k1.get("qa_t"), k1["scale"], fc1["bias"],
-                 k2.get("qa_t"), k2["scale"], fc2["bias"], *ln))
-    x = _bf16_rows("w8a8_mlp_res", x)
+                 k2.get("qa_t"), k2["scale"], fc2["bias"], *(ln or ())))
+    x = _bf16_rows(name, x)
     M, K = x.shape
-    w1 = _kernel_weight("w8a8_mlp_res fc1", k1, K)
+    w1 = _kernel_weight(f"{name} fc1", k1, K)
     H = w1.shape[0]
-    w2 = _kernel_weight("w8a8_mlp_res fc2", k2, H)
+    w2 = _kernel_weight(f"{name} fc2", k2, H)
     N = w2.shape[0]
-    if residual.shape != (M, N) or residual.dtype != x.dtype:
+    if residual is not None and (residual.shape != (M, N)
+                                 or residual.dtype != x.dtype):
         raise ValueError(f"residual {residual.dtype} {tuple(residual.shape)}"
                          f", expected ({M}, {N}) {x.dtype}")
-    r = residual.contiguous()
+    r = None if residual is None else residual.contiguous()
     s1, b1 = _f32_vec(k1["scale"], H, "scale"), _f32_vec(fc1["bias"], H,
                                                          "bias")
     s2, b2 = _f32_vec(k2["scale"], N, "scale"), _f32_vec(fc2["bias"], N,
                                                          "bias")
-    g, beta = (_f32_vec(p, K, "LayerNorm") for p in ln)
+    g, beta = (None, None) if ln is None else \
+        (_f32_vec(p, K, "LayerNorm") for p in ln)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M:
-        _launch("w8a8_mlp", "w8a8_mlp_res_bf16", x.device, x.data_ptr(),
-                w1.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                s2.data_ptr(), b2.data_ptr(), g.data_ptr(), beta.data_ptr(),
-                r.data_ptr(), out.data_ptr(), M, K, H, N)
-        launch_counts["w8a8_mlp_res"] += 1
+        head = (x.data_ptr(), w1.data_ptr(), s1.data_ptr(), b1.data_ptr(),
+                w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), _ptr(g),
+                _ptr(beta))
+        if residual is None:
+            _launch("w8a8_mlp", "w8a8_mlp_bf16", x.device, *head,
+                    out.data_ptr(), M, K, H, N)
+        else:
+            _launch("w8a8_mlp", "w8a8_mlp_res_bf16", x.device, *head,
+                    r.data_ptr(), out.data_ptr(), M, K, H, N)
+        launch_counts[name] += 1
+    return out
+
+
+def w8a8_mlp_res_cuda(x, fc1, fc2, ln, residual):
+    """Launch csrc/w8a8_mlp.cu: x, residual (M, K) bf16 -> (M, N) bf16."""
+    return _w8a8_mlp_launch("w8a8_mlp_res", x, fc1, fc2, ln, residual)
+
+
+def w8a8_mlp_cuda(x, fc1, fc2, ln=None):
+    """Launch the residual-free entry point of csrc/w8a8_mlp.cu: x (M, K)
+    bf16 -> (M, N) bf16; ln None skips the LayerNorm."""
+    return _w8a8_mlp_launch("w8a8_mlp", x, fc1, fc2, ln, None)
+
+
+def int8_matmul_cuda(x, kernel):
+    """Launch csrc/w8_matmul.cu: x (M, K) bf16 x kernel leaf {'q_t': int8
+    W^T (N, K), 'scale': fp32 (1, N)} -> (M, N) bf16."""
+    _check_cuda("int8_matmul", x.device, (x, kernel.get("q_t"),
+                                          kernel["scale"]))
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"int8_matmul kernel takes bfloat16 activations, "
+                        f"got {x.dtype}")
+    x = x.contiguous()
+    M, K = x.shape
+    wt = _kernel_weight("int8_matmul", kernel, K, key="q_t")
+    N = wt.shape[0]
+    s = _f32_vec(kernel["scale"], N, "scale")
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M and N:
+        _launch("w8_matmul", "w8_matmul_bf16", x.device, x.data_ptr(),
+                wt.data_ptr(), s.data_ptr(), out.data_ptr(), M, K, N)
+        launch_counts["int8_matmul"] += 1
     return out
 
 
@@ -306,3 +385,29 @@ def w8a8_mlp_res(x, fc1, fc2, ln, residual, impl: str = "kernel"):
     """residual + fc2(QuickGELU(fc1(LN(x)))), all w8a8, over (M, K) rows."""
     fn = w8a8_mlp_res_cuda if _use_kernel(x, impl) else w8a8_mlp_res_plain
     return fn(x, fc1, fc2, tuple(ln), residual)
+
+
+def w8a8_mlp(x, fc1, fc2, ln=None, impl: str = "kernel"):
+    """fc2(QuickGELU(fc1([LN](x)))), all w8a8, over (M, K) rows, with no
+    residual (JAX `w8a8_mlp`); ln is (scale, bias) or None."""
+    fn = w8a8_mlp_cuda if _use_kernel(x, impl) else w8a8_mlp_plain
+    return fn(x, fc1, fc2, None if ln is None else tuple(ln))
+
+
+def int8_matmul(x, kernel, impl: str = "kernel"):
+    """x (M, K) @ dequant(kernel leaf {'q': int8 (K, N), 'scale': (1, N)})
+    -> (M, N) in x.dtype (JAX `int8_matmul`)."""
+    if _use_kernel(x, impl):
+        return int8_matmul_cuda(x, kernel)
+    return int8_matmul_plain(x, kernel["q"], kernel["scale"])
+
+
+def quantized_linear(params, x, impl: str = "kernel"):
+    """A linear layer whose kernel is a weight-only int8 leaf {'q', 'scale'}
+    (JAX `quantized_linear`): the w8 GEMM over the flattened rows, then the
+    bias added in the output dtype."""
+    kernel = params["kernel"]
+    y = int8_matmul(x.reshape(-1, x.shape[-1]), kernel, impl=impl)
+    y = y.reshape(*x.shape[:-1], y.shape[-1])
+    bias = params.get("bias")
+    return y if bias is None else y + bias.to(y.dtype)

@@ -10,8 +10,8 @@ act_quant=True (w8a8, throughput serving) makes each targeted kernel
 vision tower run through the fused int8 kernels (ops/int8_matmul.py,
 ops/flash_attention.py), and adds the int8 sidecar `kernel_q8` beside the
 float patch-embed kernel for the patch-major input path.
-act_quant=False (w8) makes {'q', 'scale'} leaves; nothing in the port
-consumes them yet: they need the weight-only int8 GEMM (ROADMAP B9).
+act_quant=False (w8, weight-only) makes {'q', 'scale'} leaves, which
+`ops.linear` runs through the dequant GEMM (`int8_matmul.quantized_linear`).
 
 Trees are the port's nested dicts (blocks as a per-layer list); the result
 is bit-equal to the JAX function on the same weights.
@@ -67,13 +67,74 @@ def quantize_tower_params(params: Dict, act_quant: bool = False) -> Dict:
 
 
 def _quant_values(x) -> Optional[torch.Tensor]:
-    """The int8 payload of a quantized leaf dict ('q', 'qa' or 'qt' beside
-    'scale'), or None."""
-    if isinstance(x, dict) and "scale" in x and len(x) == 2:
+    """The int8 payload of a quantized leaf dict (exactly 'q', 'qa' or 'qt'
+    beside 'scale', and at most the W^T copy `<key>_t` that
+    `int8_matmul.with_kernel_layout` adds), or None."""
+    if isinstance(x, dict):
         for k in QUANT_KEYS:
-            if k in x:
+            if x.keys() - {k + "_t"} == {k, "scale"}:
                 return x[k]
     return None
+
+
+def prepare_inference_params(params: Dict, quantize: str = "",
+                             compute_dtype=None) -> Dict:
+    """Eval / serving param prep: optionally int8-quantize the projection
+    kernels (quantize in {'', 'w8', 'w8a8'}) and cast the remaining float
+    leaves to compute_dtype. The scales of quantized leaves (exactly
+    {'q' | 'qa' | 'qt', 'scale'}; a LayerNorm's {'scale', 'bias'} is not
+    one) stay fp32: every kernel's contract."""
+    if quantize not in ("", "w8", "w8a8"):
+        raise ValueError(f"quantize must be '', 'w8' or 'w8a8', got "
+                         f"{quantize!r}")
+    if quantize:
+        params = quantize_tower_params(params, act_quant=quantize == "w8a8")
+    if compute_dtype is None or compute_dtype == torch.float32:
+        return params
+
+    def cast(x):
+        if _quant_values(x) is not None:
+            return x
+        if isinstance(x, dict):
+            return {k: cast(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [cast(v) for v in x]
+        return x.to(compute_dtype) if x.is_floating_point() else x
+
+    return cast(params)
+
+
+def _flat_leaves(tree, path=()):
+    """{path: leaf} with quantized leaf dicts kept whole."""
+    if _quant_values(tree) is not None or not isinstance(tree, (dict, list)):
+        return {path: tree}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = {}
+    for k, v in items:
+        out.update(_flat_leaves(v, path + (str(k),)))
+    return out
+
+
+def quantization_error(params: Dict, quantized: Dict) -> float:
+    """Max relative Frobenius error over the quantized kernels, one per
+    layer in the port's tree (a diagnostic). Every leaf form counts ('q' /
+    'qa' / 'qt'); the patch-embed sidecar has no float counterpart and is
+    skipped. A tree with no quantized leaf raises: it must never read as
+    0.0."""
+    flat_p = _flat_leaves(params)
+    errs = []
+    for path, leaf in _flat_leaves(quantized).items():
+        q = _quant_values(leaf)
+        if q is None or path not in flat_p:
+            continue
+        orig = flat_p[path].float()
+        deq = q.float() * leaf["scale"].float()
+        errs.append((torch.linalg.norm(deq - orig)
+                     / torch.linalg.norm(orig)).item())
+    if not errs:
+        raise ValueError("quantization_error: no quantized leaves found; "
+                         "refusing to report 0.0 for a non-quantized tree")
+    return float(max(errs))
 
 
 def dequantize_tree(params, dtype=torch.bfloat16):

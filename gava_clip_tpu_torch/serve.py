@@ -1,13 +1,15 @@
-"""Inference serving (port of gava_clip_tpu/serve.py: bf16 and w8a8).
+"""Inference serving (port of gava_clip_tpu/serve.py: bf16, w8 and w8a8).
 
 A classifier around the zero-shot path: uint8 clips in, class probabilities
 out. Weights are moved to the device once: cast to bf16, or with
-quantize="w8a8" int8-quantized (ops/quant.py) with every other leaf kept
-fp32, as the JAX classifier keeps them (a bf16-rounded LayerNorm gain
+quantize="w8" / "w8a8" int8-quantized (ops/quant.py) with every other leaf
+kept fp32, as the JAX classifier keeps them (a bf16-rounded LayerNorm gain
 would move int8 codes). Requests are padded (repeating the last clip) to
 the next power-of-two bucket up to the serving batch. On a CUDA device
-attention (bf16) or the four w8a8 ops run the hand-written kernels; on the
-CPU their plain versions.
+attention (bf16, w8), the w8 dequant GEMM or the w8a8 ops run the
+hand-written kernels; on the CPU their plain versions. The w8a8 classifier
+honours the two kernel switches `ops.extras_kernel.set_fused_extras` and
+`ops.flash_attention.set_int8_qk`, read at every forward.
 
     clf = VideoClassifier.from_model(model, classnames)   # on the card
     probs = clf.classify_clips(clips_u8)        # (N, T, S, S, 3) uint8
@@ -60,15 +62,17 @@ class VideoClassifier:
         host) with the normalization folded into the patch-embed weights.
         pad_buckets: pad a partial batch to the next power of two instead
         of the full serving batch.
-        quantize: '' / False (bf16 weights) or 'w8a8' (int8 weights and
-        per-row int8 activations); True / 'w8' (weight-only int8) needs
-        the w8 GEMM, not ported yet (ROADMAP B9).
+        quantize: '' / False (bf16 weights), True / 'w8' (weight-only
+        int8: the projections run the dequant GEMM on bf16 activations;
+        with patch_major the embed stays a float GEMM) or 'w8a8' (int8
+        weights and per-row int8 activations).
         device: None means the card (and raises without one); pass 'cpu'
         to serve from the host."""
-        if quantize not in ("", None, False, "w8a8"):
-            raise NotImplementedError(
-                f"quantize={quantize!r}: weight-only int8 serving needs the "
-                f"w8 dequant GEMM, not ported yet (ROADMAP B9)")
+        if quantize is True:
+            quantize = "w8"
+        if quantize not in ("", None, False, "w8", "w8a8"):
+            raise ValueError(f"quantize must be '', 'w8' or 'w8a8', got "
+                             f"{quantize!r}")
         self.quantize = quantize or ""
         self.device = resolve_device(device)
         self.classnames = list(classnames)
@@ -89,13 +93,14 @@ class VideoClassifier:
             params = dict(params)
             params["visual"] = visual
         # weights on the device, once: quantize after the fold, so the
-        # patch-embed sidecar quantizes the folded W'; in w8a8 mode nothing
-        # is cast to bf16, and each int8 weight gets the W^T copy its CUDA
-        # kernel reads. The text features keep their dtype (as the JAX
-        # classifier keeps its buffers)
+        # patch-embed sidecar quantizes the folded W'; in the quantized
+        # modes nothing is cast to bf16, and each int8 weight gets the W^T
+        # copy its CUDA kernel reads. The text features keep their dtype
+        # (as the JAX classifier keeps its buffers)
         if self.quantize:
             params = with_kernel_layout(_to_device(
-                quantize_tower_params(params, act_quant=True), self.device))
+                quantize_tower_params(
+                    params, act_quant=self.quantize == "w8a8"), self.device))
         else:
             params = _to_bf16(params, self.device)
         self.net = VitaClip(model.cfg, params,

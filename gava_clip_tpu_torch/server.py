@@ -16,7 +16,7 @@ Endpoints:
 Responses: JSON {"label": str, "probs": [...]}.
 
 Run: python -m gava_clip_tpu_torch.server --port 8000 [--device cuda]
-         [--quantize w8a8 --patch_major]
+         [--quantize w8 | --quantize w8a8 --patch_major]
 The device defaults to the card; without one the server fails at start-up
 (pass --device cpu to serve from the host).
 """
@@ -241,9 +241,10 @@ def make_server(argv=None):
     ap.add_argument("--patch_major", action="store_true",
                     help="ship clips as uint8 patch rows with normalization "
                          "folded into the patch-embed weights")
-    ap.add_argument("--quantize", default="", choices=["", "w8a8"],
-                    help="w8a8: int8 weights + per-row int8 activations "
-                         "(the throughput mode)")
+    ap.add_argument("--quantize", default="", choices=["", "w8", "w8a8"],
+                    help="w8: weight-only int8 projections; w8a8: int8 "
+                         "weights + per-row int8 activations (the "
+                         "throughput mode)")
     ap.add_argument("--max_wait_ms", type=float, default=5.0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the default) fails at start-up without a "

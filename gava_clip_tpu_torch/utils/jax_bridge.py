@@ -11,10 +11,12 @@ so that a test can set `jax.grad`'s tree beside the port's leaf by leaf.
 Neither direction needs JAX.
 
 Quantized trees (ops/quant.py) go across both ways: a w8a8 leaf
-{'qa': int8 (L, K, N), 'scale': fp32 (L, 1, N)} becomes per-layer
-{'qa', 'scale'} leaves, and the patch-embed sidecar `kernel_q8` goes with
-it; int8 stays int8 and scales stay fp32. Weight-only 'q' (ROADMAP B9) and
-frozen-training 'qt' (ROADMAP A9) leaves raise.
+{'qa': int8 (L, K, N), 'scale': fp32 (L, 1, N)} or a weight-only leaf
+{'q', 'scale'} becomes per-layer leaves of the same keys, and the
+patch-embed sidecar `kernel_q8` goes with it; int8 stays int8 and scales
+stay fp32. The W^T copies the CUDA kernels read are added where the weights
+are placed (`ops.int8_matmul.with_kernel_layout`), not here.
+Frozen-training 'qt' leaves (ROADMAP A9) raise.
 """
 
 from typing import Dict, Mapping
@@ -39,24 +41,21 @@ def _take(src, i: int, n: int, path: str):
 def _convert_quant(src, expected, path: str, device):
     """A quantized kernel leaf whose float form has expected's shape."""
     keys = set(src)
-    if keys == {"q", "scale"}:
-        raise NotImplementedError(
-            f"{path}: weight-only int8 ('q') leaves need the w8 GEMM, not "
-            f"ported yet (ROADMAP B9)")
     if keys == {"qt", "scale"}:
         raise NotImplementedError(
             f"{path}: frozen-int8 training ('qt') leaves are not ported yet "
             f"(ROADMAP A9)")
-    if keys != {"qa", "scale"}:
+    if keys not in ({"qa", "scale"}, {"q", "scale"}):
         raise KeyError(f"{path}: not a quantized leaf: keys {sorted(keys)}")
-    qa, scale = np.asarray(src["qa"]), np.asarray(src["scale"])
+    key = "qa" if "qa" in keys else "q"
+    q, scale = np.asarray(src[key]), np.asarray(src["scale"])
     K, N = tuple(expected.shape)
-    if qa.dtype != np.int8 or qa.shape != (K, N) or \
+    if q.dtype != np.int8 or q.shape != (K, N) or \
             scale.shape != (1, N) or scale.dtype != np.float32:
-        raise ValueError(f"{path}: qa {qa.dtype} {qa.shape} / scale "
+        raise ValueError(f"{path}: {key} {q.dtype} {q.shape} / scale "
                          f"{scale.dtype} {scale.shape}, expected int8 "
                          f"({K}, {N}) / float32 (1, {N})")
-    return {"qa": torch.from_numpy(np.array(qa)).to(device),
+    return {key: torch.from_numpy(np.array(q)).to(device),
             "scale": torch.from_numpy(np.array(scale)).to(device)}
 
 

@@ -104,16 +104,20 @@ def test_linear_and_mlp_block():
 
 
 def test_linear_rejects_quantized_leaf():
-    """w8a8 'qa' leaves are ported; weight-only 'q' (the w8 GEMM, B9) and
-    frozen-training 'qt' (A9) leaves still raise."""
-    for kind, roadmap in (("q", "B9"), ("qt", "A9")):
-        leaf = {"kernel": {kind: torch.zeros(4, 4, dtype=torch.int8),
-                           "scale": torch.ones(1, 4)}}
-        with pytest.raises(NotImplementedError, match=roadmap):
-            tlin.linear(leaf, torch.zeros(2, 4))
-    qa = {"kernel": {"qa": torch.ones(4, 4, dtype=torch.int8),
-                     "scale": torch.ones(1, 4)}}
-    assert tlin.linear(qa, torch.ones(2, 4)).shape == (2, 4)
+    """w8a8 'qa' and weight-only 'q' leaves are ported; frozen-training
+    'qt' (A9) leaves still raise, and an unknown leaf is refused."""
+    leaf = {"kernel": {"qt": torch.zeros(4, 4, dtype=torch.int8),
+                       "scale": torch.ones(1, 4)}}
+    with pytest.raises(NotImplementedError, match="A9"):
+        tlin.linear(leaf, torch.zeros(2, 4))
+    with pytest.raises(TypeError, match="unknown kernel leaf"):
+        tlin.linear({"kernel": {"w4": torch.zeros(4, 4)}}, torch.zeros(2, 4))
+    for kind in ("qa", "q"):
+        q = {"kernel": {kind: torch.ones(4, 4, dtype=torch.int8),
+                        "scale": torch.ones(1, 4)}}
+        out = tlin.linear(q, torch.ones(2, 4))
+        assert out.shape == (2, 4)
+        torch.testing.assert_close(out, torch.full((2, 4), 4.0))
 
 
 def _qkv(seed, B=3, Lq=13, Lk=21, D=32, q_gain=1.0):

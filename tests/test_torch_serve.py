@@ -104,12 +104,18 @@ def test_patch_major_matches_frames(models):
 
 
 def test_quantized_serving_not_ported(models):
-    """w8a8 serving is ported (tests/test_torch_serve_w8a8.py); weight-only
-    int8 ('w8', and True as in the JAX classifier) needs B9."""
+    """Every quantized mode is ported now (tests/test_torch_serve_w8a8.py,
+    tests/test_torch_w8.py): 'w8', and True as in the JAX classifier, build
+    a weight-only int8 classifier; only an unknown mode is refused."""
     for quantize in ("w8", True):
-        with pytest.raises(NotImplementedError, match="B9"):
-            VideoClassifier.from_model(models[1], NAMES, quantize=quantize,
-                                       device="cpu")
+        clf = VideoClassifier.from_model(models[1], NAMES, quantize=quantize,
+                                         batch_size=2, device="cpu")
+        assert clf.quantize == "w8"
+        p = clf.classify_clips(_clips(6, 1))
+        assert p.shape == (1, 3) and np.isfinite(p).all()
+    with pytest.raises(ValueError, match="quantize"):
+        VideoClassifier.from_model(models[1], NAMES, quantize="int4",
+                                   device="cpu")
 
 
 def test_classify_video(clf, tmp_path):

@@ -1,6 +1,7 @@
 """The port's w8a8 serving slice on the CPU: VideoClassifier(quantize="w8a8")
 against the JAX classifier with its Pallas kernels forced (interpret mode),
-the quantized weights and the bridge bit for bit, and the server's
+also with the fused-extras and the int8 QK^T switches set on both sides, the
+quantized weights and the bridge bit for bit, and the server's
 `--quantize w8a8`."""
 
 import json
@@ -16,6 +17,8 @@ from gava_clip_tpu.models.vision import \
     fold_normalize_into_patch_embed as jfold
 from gava_clip_tpu.models.vita_clip import VitaClip as JVitaClip
 from gava_clip_tpu.models.vita_clip import VitaClipConfig as JVitaClipConfig
+from gava_clip_tpu.ops.extras_kernel import set_fused_extras as jset_fused
+from gava_clip_tpu.ops.flash_attention import set_int8_qk as jset_int8_qk
 from gava_clip_tpu.ops.int8_matmul import force_tpu_kernels, kernels_active
 from gava_clip_tpu.ops.quant import quantize_tower_params as jquantize
 from gava_clip_tpu.serve import VideoClassifier as JVideoClassifier
@@ -24,6 +27,7 @@ from gava_clip_tpu_torch.data.device_preprocess import CLIP_MEAN, CLIP_STD
 from gava_clip_tpu_torch.models.vision import VisionConfig
 from gava_clip_tpu_torch.models.vision import fold_normalize_into_patch_embed
 from gava_clip_tpu_torch.models.vita_clip import VitaClip, VitaClipConfig
+from gava_clip_tpu_torch.ops import extras_kernel as tek
 from gava_clip_tpu_torch.ops import flash_attention as tflash
 from gava_clip_tpu_torch.ops import int8_matmul as tim
 from gava_clip_tpu_torch.ops.quant import quantize_tower_params
@@ -105,6 +109,43 @@ def test_w8a8_classifier_matches_jax(models, forced_kernels, patch_major):
     np.testing.assert_allclose(p_t.sum(-1), 1.0, atol=1e-5)
     np.testing.assert_allclose(p_t, p_j, atol=2e-3)
     np.testing.assert_allclose(np.log(p_t), np.log(p_j), atol=0.15)
+
+
+@pytest.mark.parametrize("fused,int8_qk", [(True, False), (False, True),
+                                           (True, True)])
+def test_w8a8_classifier_switches_match_jax(models, forced_kernels, fused,
+                                            int8_qk):
+    """The two kernel switches of the w8a8 block, set on both sides: the
+    fused prompt extras (fp32 arithmetic in place of bf16 stock ops) and the
+    int8 QK^T scores. Same limits as the unswitched classifier; and each
+    switch really changes the port's result, and is off again afterwards."""
+    jmodel, model = models
+    clips = _clips(1, 6)
+    kw = dict(batch_size=4, quantize="w8a8", attn_impl="flash",
+              patch_major=True)
+    clf = VideoClassifier.from_model(model, NAMES, device="cpu", **kw)
+    p_off = clf.classify_clips(clips)
+    jset_fused(fused)
+    jset_int8_qk(int8_qk)
+    tek.set_fused_extras(fused)
+    tflash.set_int8_qk(int8_qk)
+    try:
+        p_j = JVideoClassifier.from_model(jmodel, NAMES,
+                                          **kw).classify_clips(clips)
+        tek.reset_launch_counts()
+        p_t = clf.classify_clips(clips)         # the flags are read per call
+    finally:
+        jset_fused(False)
+        jset_int8_qk(False)
+        tek.set_fused_extras(False)
+        tflash.set_int8_qk(False)
+    assert tek.launch_counts["fused_extras"] == 0       # CPU: plain version
+    np.testing.assert_allclose(p_t.sum(-1), 1.0, atol=1e-5)
+    np.testing.assert_allclose(p_t, p_j, atol=2e-3)
+    np.testing.assert_allclose(np.log(p_t), np.log(p_j), atol=0.15)
+    assert np.abs(p_t - p_off).max() > 0
+    np.testing.assert_allclose(p_t, p_off, atol=5e-3)
+    np.testing.assert_array_equal(clf.classify_clips(clips), p_off)
 
 
 def test_w8a8_unfused_attention_matches_fused(models):

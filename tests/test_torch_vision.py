@@ -235,11 +235,11 @@ def test_bridge_rejects_bad_trees(pair):
     with pytest.raises(ValueError, match="layer axis"):
         params_from_jax(dict(p, visual=dict(p["visual"], blocks=blocks)),
                         cfg)
-    # w8a8 leaves go across (tests/test_torch_serve_w8a8.py); weight-only
-    # 'q' (B9) and frozen-training 'qt' (A9) leaves raise, a malformed one
-    # is refused
+    # w8a8 and weight-only leaves go across (tests/test_torch_serve_w8a8.py,
+    # tests/test_torch_w8.py); frozen-training 'qt' (A9) leaves raise, a
+    # malformed one is refused
     for kind, scale, err, match in (
-            ("q", (1, 32), NotImplementedError, "B9"),
+            ("q", (32,), ValueError, "int8"),
             ("qt", (1, 32), NotImplementedError, "A9"),
             ("qa", (32,), ValueError, "int8")):
         quant = dict(p["visual"]["patch_embed"],

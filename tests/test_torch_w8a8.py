@@ -1,8 +1,9 @@
 """Parity of the port's w8a8 ops with the JAX package's Pallas kernels on the
 CPU: the row quant, the weight quantization, and the plain versions of the
-four fused serving kernels (w8a8_matmul, w8a8_matmul3[_cat],
-flash_attention_out_int8, w8a8_mlp_res) against the JAX kernels run in
-interpret mode through `force_tpu_kernels(True)`.
+fused serving kernels (w8a8_matmul, w8a8_matmul3[_cat],
+flash_attention_out_int8 with fp32 and with int8 QK^T scores, w8a8_mlp_res,
+w8a8_mlp) against the JAX kernels run in interpret mode through
+`force_tpu_kernels(True)`.
 
 Tolerance of the fused ops: both sides compute the same int8 codes and the
 same fp32 epilogue, except that a LayerNorm or attention row sum taken in
@@ -254,6 +255,114 @@ def test_w8a8_mlp_res_plain_matches_jax_kernel(forced_kernels, M, K, Hd):
     _assert_close(out_t, out_j, 2 * _unit(tim.quant_rows(h)[1], s2t))
 
 
+@pytest.mark.parametrize("with_ln", [True, False])
+@pytest.mark.parametrize("M,K,Hd", [(37, 32, 64), (16, 48, 200)])
+def test_w8a8_mlp_plain_matches_jax_kernel(forced_kernels, M, K, Hd,
+                                           with_ln):
+    """The residual-free form, with the LayerNorm and without it (the input
+    rows are then quantized as they are: the first-stage codes are equal,
+    only hidden codes on a tie can flip)."""
+    rs = np.random.RandomState(12)
+    x = rs.randn(M, K)
+    (q1j, s1j), (q1t, s1t) = _qweight(rs, K, Hd)
+    (q2j, s2j), (q2t, s2t) = _qweight(rs, Hd, K)
+    b1, b2 = rs.randn(Hd) * 0.02, rs.randn(K) * 0.02
+    g, beta = 1 + rs.rand(K) * 4, rs.randn(K) * 0.1
+    xj, xt = _j(x, jnp.bfloat16), _t(x, torch.bfloat16)
+    out_j = jim.w8a8_mlp(
+        xj, {"kernel": {"qa": q1j, "scale": s1j}, "bias": _j(b1)},
+        {"kernel": {"qa": q2j, "scale": s2j}, "bias": _j(b2)},
+        ln=(_j(g), _j(beta)) if with_ln else None)
+    fc1 = {"kernel": {"qa": q1t, "scale": s1t}, "bias": _t(b1)}
+    fc2 = {"kernel": {"qa": q2t, "scale": s2t}, "bias": _t(b2)}
+    ln = (_t(g), _t(beta)) if with_ln else None
+    out_t = tim.w8a8_mlp(xt, fc1, fc2, ln)
+    assert out_t.shape == (M, K) and out_t.dtype == torch.bfloat16
+    x32 = tim.ln_f32(xt.float(), *ln) if with_ln else xt.float()
+    codes, xs = tim.quant_rows(x32)
+    if not with_ln:
+        np.testing.assert_array_equal(
+            codes.numpy().astype(np.int8),
+            np.asarray(jim._quant_rows(xj.astype(jnp.float32))[0]))
+    h = tim.quick_gelu_f32(tim.rescale(tim.int_matmul(codes, q1t), xs, s1t,
+                                       fc1["bias"]))
+    _assert_close(out_t, out_j, 2 * _unit(tim.quant_rows(h)[1], s2t))
+    # the residual form is this plus the residual, rounded once
+    res = tim.w8a8_mlp_res(xt, fc1, fc2, ln, xt) if with_ln else None
+    if res is not None:
+        y32 = tim._w8a8_mlp_f32(xt, fc1, fc2, ln)
+        torch.testing.assert_close(res, (y32 + xt.float()).bfloat16(),
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(out_t, y32.bfloat16(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("B,lq,Lk,H,Dh", [(3, 13, 21, 2, 16),
+                                          (2, 9, 14, 2, 64)])
+def test_attention_out_int8_qk_plain_matches_jax_kernel(forced_kernels, B,
+                                                        lq, Lk, H, Dh):
+    """The int8 QK^T form on both sides (`set_int8_qk`): per-row codes of
+    each head's q / k slice, the integer score product (exact) and the
+    rescale in the JAX kernel's order of multiplication give the same exp2
+    argument up to exp2 itself; after that the path is the fp32-score one."""
+    rs = np.random.RandomState(13)
+    D = H * Dh
+    q, k, v = (rs.randn(B, Lk, D) for _ in range(3))
+    (qj, sj), (qt, st) = _qweight(rs, D, D)
+    bias, res = rs.randn(D) * 0.02, rs.randn(B, lq, D)
+    tq, tk, tv = (_t(a, torch.bfloat16) for a in (q, k, v))
+    top = {"kernel": {"qa": qt, "scale": st}, "bias": _t(bias)}
+    tres = _t(res, torch.bfloat16)
+    off_t = tflash.flash_attention_out_int8(tq, tk, tv, H, top, tres, lq=lq)
+    jflash.set_int8_qk(True)
+    tflash.set_int8_qk(True)
+    try:
+        assert tflash._INT8_QK
+        out_j = jflash.flash_attention_out_int8(
+            _j(q, jnp.bfloat16), _j(k, jnp.bfloat16), _j(v, jnp.bfloat16), H,
+            {"kernel": {"qa": qj, "scale": sj}, "bias": _j(bias)},
+            _j(res, jnp.bfloat16), lq=lq)
+        out_t = tflash.flash_attention_out_int8(tq, tk, tv, H, top, tres,
+                                                lq=lq)
+    finally:
+        jflash.set_int8_qk(False)
+        tflash.set_int8_qk(False)
+    assert out_t.shape == (B, lq, D) and out_t.dtype == torch.bfloat16
+    a32 = tflash._onepass_attention_den_f32(tq[:, :lq], tk, tv, H,
+                                            int8_qk=True)[0]
+    _assert_close(out_t, out_j, _unit(tim.quant_rows(a32)[1], st))
+    # the switch changes the result, and is off again
+    assert (out_t != off_t).any()
+    torch.testing.assert_close(
+        tflash.flash_attention_out_int8(tq, tk, tv, H, top, tres, lq=lq),
+        off_t, rtol=0, atol=0)
+    torch.testing.assert_close(
+        tflash.attention_out_int8_plain(tq, tk, tv, H, top, tres, lq, True),
+        out_t, rtol=0, atol=0)
+
+
+def test_int8_qk_exp2_argument_bit_equal_jax():
+    """The codes and the folded rescale, bit for bit: the same fp32 head
+    slices through the JAX formula (ops/flash_attention.py, the int8_qk
+    branch) and the port's."""
+    rs = np.random.RandomState(14)
+    qh = (rs.randn(2, 3, 9, 16) * 3).astype(np.float32)
+    kh = (rs.randn(2, 3, 11, 16) * 0.02).astype(np.float32)
+    kh[0, 0, 4] = 0.0                       # an all-zero key row: ks = 1e-6
+    c = 16 ** -0.5 * 1.4426950408889634
+    jq, jk = jnp.asarray(qh), jnp.asarray(kh)
+    qs = jnp.maximum(jnp.max(jnp.abs(jq), axis=-1, keepdims=True), 1e-6)
+    ks = jnp.maximum(jnp.max(jnp.abs(jk), axis=-1, keepdims=True), 1e-6)
+    qq = jnp.round(jq * (127.0 / qs)).astype(jnp.int8)
+    kq = jnp.round(jk * (127.0 / ks)).astype(jnp.int8)
+    s32 = jnp.einsum("bhqd,bhkd->bhqk", qq.astype(jnp.int32),
+                     kq.astype(jnp.int32))
+    want = s32.astype(jnp.float32) * (qs * (c / (127.0 * 127.0))) \
+        * jnp.swapaxes(ks, -1, -2)
+    got = tflash._int8_qk_exp2_arg(torch.from_numpy(qh),
+                                   torch.from_numpy(kh), c)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 # ---------------------------------------------------------------------------
 # dispatch through ops.linear
 # ---------------------------------------------------------------------------
@@ -287,6 +396,17 @@ def test_linear_and_mlp_block_dispatch_w8a8(forced_kernels):
         tlin.mlp_block(tp, {"scale": _t(ln[0]), "bias": _t(ln[1])}, xt,
                        quick_gelu, residual=xt, int8_impl="plain"), out_t,
         rtol=0, atol=0)
+    # without a residual: the fused w8a8_mlp on both sides
+    nores_t = tlin.mlp_block(tp, {"scale": _t(ln[0]), "bias": _t(ln[1])}, xt,
+                             quick_gelu)
+    nores_j = jmlp_block(jp, {"scale": _j(ln[0]), "bias": _j(ln[1])}, xj,
+                         jquick_gelu)
+    assert nores_t.shape == (2, 7, K) and nores_t.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(nores_t), _np(nores_j), atol=0.05)
+    torch.testing.assert_close(
+        nores_t, tim.w8a8_mlp(xt.reshape(-1, K), tp["fc1"], tp["fc2"],
+                              (_t(ln[0]), _t(ln[1]))).reshape(2, 7, K),
+        rtol=0, atol=0)
 
 
 def test_cpu_runs_plain_versions_and_wrappers_need_cuda():
@@ -311,7 +431,13 @@ def test_cpu_runs_plain_versions_and_wrappers_need_cuda():
     with pytest.raises(ValueError, match="CUDA"):
         tim.w8a8_mlp_res_cuda(x, fc, fc, (torch.ones(16), torch.zeros(16)),
                               x)
+    with pytest.raises(ValueError, match="CUDA"):
+        tim.w8a8_mlp_cuda(x, fc, fc)
+    with pytest.raises(ValueError, match="CUDA"):
+        tflash.attention_out_int8_cuda(qkv, qkv, qkv, 2, op, qkv,
+                                       int8_qk=True)
     assert tflash.launch_counts["attention_out_int8"] == 0
+    assert tflash.launch_counts["attention_out_int8_qk8"] == 0
 
 
 def test_kernel_layout_is_cached_transpose():
@@ -340,15 +466,21 @@ def test_kernel_layout_is_cached_transpose():
 @pytest.mark.parametrize("kind,roadmap", [("q", "B9"), ("qt", "A9"),
                                           ("qa", "B5a")])
 def test_unported_quantized_leaves_raise(kind, roadmap):
-    """'q' and 'qt' leaves raise everywhere; 'qa' leaves only in an MLP
-    block without a residual (the JAX w8a8_mlp kernel)."""
+    """Only frozen-training 'qt' leaves (A9) still raise. Weight-only 'q'
+    leaves (B9) run the w8 GEMM, and 'qa' leaves in an MLP block without a
+    residual the fused w8a8_mlp (B5a): no NotImplementedError names them."""
     leaf = {"kernel": {kind: torch.zeros(4, 4, dtype=torch.int8),
                        "scale": torch.ones(1, 4)}, "bias": torch.zeros(4)}
-    if kind != "qa":
+    norm = {"scale": torch.ones(4), "bias": torch.zeros(4)}
+    block = {"fc1": leaf, "fc2": leaf}
+    x = torch.zeros(2, 4)
+    if kind == "qt":
         with pytest.raises(NotImplementedError, match=roadmap):
-            tlin.linear(leaf, torch.zeros(2, 4))
-    with pytest.raises(NotImplementedError, match=roadmap):
-        tlin.mlp_block({"fc1": leaf, "fc2": leaf},
-                       {"scale": torch.ones(4), "bias": torch.zeros(4)},
-                       torch.zeros(2, 4), quick_gelu,
-                       residual=None if kind == "qa" else torch.zeros(2, 4))
+            tlin.linear(leaf, x)
+        with pytest.raises(NotImplementedError, match=roadmap):
+            tlin.mlp_block(block, norm, x, quick_gelu, residual=x)
+        return
+    assert tlin.linear(leaf, x).shape == (2, 4)
+    for residual in (None, x):
+        out = tlin.mlp_block(block, norm, x, quick_gelu, residual=residual)
+        assert out.shape == (2, 4) and torch.isfinite(out).all()
