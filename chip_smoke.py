@@ -51,6 +51,30 @@ The training step:
           falls, frozen leaves bit-unchanged, trainable leaves moved,
           ms/step and peak memory;
   train-long    steps at 4 clips x 70 frames with remat="full".
+The training and evaluation programs:
+  train-recompute  the same step under set_flash_bwd_mode("recompute"): the
+          first step's loss and gradients against the saved mode, 3 steps
+          with 12 launches each of the recompute backward and of the
+          forward that writes no denominators; the mode reset and the
+          saved-mode gradients back bit for bit;
+  driver  writes a synthetic fold from a seed into a temporary directory
+          (lists, separable uint8 clips as decoded-view cache files, NTE
+          arrays, the memory pickle, the knowledge directory, a classes
+          file) and runs gava_clip_tpu_torch.cli.train.main at full width,
+          16 clips x 8 frames, bf16: 12 steps with one evaluation and
+          periodic checkpoints; the loss falls, the run's files exist,
+          prefetch on and off give the same losses, a run resumed with
+          --auto_resume repeats the uninterrupted run's losses, the clamp
+          monitor stays below 110; then cli.evaluate.main on that run
+          (plain and --quantize_eval w8a8) and cli.zero_shot.main on a
+          reference-format .pth written from a model's own weights;
+  driver-long  cli.train.main at 4 clips x 70 frames (selects
+          save_attn_qkv), then the bare step under every remat policy:
+          ms/step, peak memory, attention forward launches per step.
+The two-source attention + int8 out-projection (attention_out_int8_2src)
+is held in w8a8-kernel against its plain version and, bit for bit, against
+the single-source kernel on the concatenated keys, and launched once
+through its public entry point at the serving shape in w8-slice.
 The remaining serving modes:
   w8-kernel    the weight-only int8 GEMM (int8_matmul), the residual-free
           w8a8 MLP (w8a8_mlp), the fused prompt extras (fused_extras) and
@@ -97,7 +121,8 @@ KERNEL_SYMBOLS = ("packed_attention_kernel", "w8a8_matmul_kernel",
                   "w8a8_qkv_cat_kernel", "attention_out_int8_kernel",
                   "w8a8_mlp_res_kernel", "attn_bwd_dq_kernel",
                   "attn_bwd_dkdv_kernel", "streaming_attention_fwd_kernel",
-                  "w8_matmul_kernel", "fused_extras_kernel")
+                  "w8_matmul_kernel", "fused_extras_kernel",
+                  "recompute_stats_kernel")
 KERNEL_SOURCE = "gava_clip_tpu_torch/csrc/packed_attention.cu"
 KERNEL_REPLACES = "gava_clip_tpu/ops/flash_attention.py:181"
 # every kernel of the two serving paths and of the training step:
@@ -139,6 +164,14 @@ KERNELS = {
         "attention_out_int8",
         "gava_clip_tpu_torch/csrc/attention_out_int8.cu",
         "gava_clip_tpu/ops/flash_attention.py:117"),
+    "packed_attention_bwd_recompute": (
+        "packed_attention_bwd_recompute",
+        "gava_clip_tpu_torch/csrc/packed_attention_bwd_recompute.cu",
+        "gava_clip_tpu/ops/flash_attention.py:410"),
+    "attention_out_int8_2src": (
+        "attention_out_int8",
+        "gava_clip_tpu_torch/csrc/attention_out_int8.cu",
+        "gava_clip_tpu/ops/flash_attention.py:775"),
 }
 # (B, Lq, Lk, heads, head_dim); the first is the serving shape: 16 clips x
 # 8 frames, 197 query tokens, 197 + 8 global + 1 summary + 8 local keys
@@ -326,6 +359,9 @@ W8A8_LIMITS = {
     "w8a8_matmul3_cat": (1e-3, 1e-4, 2.0),
     "attention_out_int8": (1e-2, 2e-3, 4.0),
     "w8a8_mlp_res": (5e-3, 1e-3, 2.0),
+    # the single-source kernel's limits: the two-source entry point must
+    # equal that kernel bit for bit on the concatenated keys
+    "attention_out_int8_2src": (1e-2, 2e-3, 4.0),
 }
 # Without the residual the MLP's output is small beside a flip unit, so the
 # rare row whose first-stage flip moves the hidden row's absmax (and with it
@@ -341,6 +377,12 @@ W8A8_QKV_SHAPES = ((128, 197, 17, 768, 768), (3, 13, 5, 96, 40),
 # (B, lq, Lq rows of q, Lk, H)
 W8A8_ATTN_SHAPES = ((128, 197, 214, 214, 12), (3, 13, 21, 21, 2),
                     (2, 77, 77, 150, 4), (2, 40, 100, 100, 12))
+# (B, L1, L2, heads) of the two-source form: the serving shape (197 patch
+# rows; 8 global + 1 summary + 8 local extras rows), then ragged ones (a
+# second source that starts inside a 64-key tile, that fills one exactly,
+# of one row)
+W8A8_2SRC_SHAPES = ((128, 197, 17, 12), (3, 13, 5, 2), (2, 70, 64, 3),
+                    (2, 64, 1, 4))
 # (M, K, hidden, N)
 W8A8_MLP_SHAPES = ((25216, 768, 3072, 768), (37, 768, 3072, 768),
                    (20, 64, 200, 33))
@@ -496,6 +538,50 @@ def phase_w8a8_kernels(state):
             lambda: im.w8a8_mlp_res_plain(x, fc1, fc2, ln, r), unit, i == 0,
             _bound(2 * M * K + 4 * M * N + K * Hd + Hd * N
                    + 8 * (Hd + N + K), ops_int8=2 * M * Hd * (K + N)))
+    # the two-source form last: the checks above keep their random inputs
+    for i, (B, L1, L2, H) in enumerate(W8A8_2SRC_SHAPES):
+        D = H * 64
+        q, k1, v1, r = (randn(B, L1, D) for _ in range(4))
+        k2, v2 = randn(B, L2, D), randn(B, L2, D)
+        kc, vc = torch.cat([k1, k2], dim=1), torch.cat([v1, v2], dim=1)
+        op = {"kernel": _qleaf(gen, D, D),
+              "bias": torch.randn(D, generator=gen, device="cuda") * 0.02}
+        xs = im.quant_rows(fa._onepass_attention_f32(q, kc, vc, H))[1]
+        unit = _flip_unit(xs, op["kernel"]["scale"])
+        args = (q, k1, v1, k2, v2, H, op, r)
+        run("attention_out_int8_2src", f"B={B} L1={L1} L2={L2} H={H}",
+            lambda: fa.attention_out_int8_2src_cuda(*args),
+            lambda: fa.attention_out_int8_2src_plain(*args), unit, i == 0,
+            # q, the residual, the output; k1, v1, k2, v2; the weight
+            _bound(6 * B * L1 * D + 4 * B * (L1 + L2) * D + D * D + 8 * D,
+                   flops_bf16=4 * B * L1 * (L1 + L2) * D,
+                   ops_int8=2 * B * L1 * D * D))
+        for qk8 in (False, True):
+            two = fa.attention_out_int8_2src_cuda(*args, qk8)
+            one = fa.attention_out_int8_cuda(q, kc, vc, H, op, r, None, qk8)
+            plain = fa.attention_out_int8_2src_plain(*args, qk8)
+            torch.cuda.synchronize()
+            same = torch.equal(two, one)
+            diff = (two != plain).float().mean().item()
+            form = "int8 QK^T" if qk8 else "fp32 scores"
+            log(f"[w8a8] attention_out_int8_2src B={B} L1={L1} L2={L2} "
+                f"H={H}, {form}: equal to the single-source kernel on "
+                f"[k1; k2] bit for bit: {same}; outputs != plain {diff:.3e} "
+                f"(limit {W8A8_LIMITS['attention_out_int8_2src'][0]:g})")
+            if not same or diff > W8A8_LIMITS["attention_out_int8_2src"][0]:
+                state.setdefault("w8a8_failures", []).append(
+                    f"attention_out_int8_2src B={B} L2={L2} {form}")
+        if i == 0:
+            t_two = cuda_time_ms(
+                lambda: fa.attention_out_int8_2src_cuda(*args))
+            t_one = cuda_time_ms(
+                lambda: fa.attention_out_int8_cuda(q, kc, vc, H, op, r))
+            t_cat = cuda_time_ms(lambda: (torch.cat([k1, k2], dim=1),
+                                          torch.cat([v1, v2], dim=1)))
+            log(f"[w8a8] attention_out_int8_2src serving shape: {t_two:.4f} "
+                f"ms; the single-source kernel on keys concatenated "
+                f"beforehand {t_one:.4f} ms, the two concatenations "
+                f"{t_cat:.4f} ms ({state['smi']})")
     if state.get("w8a8_failures"):
         raise AssertionError(f"w8a8 kernels disagree with their plain "
                              f"versions: {state['w8a8_failures']}")
@@ -807,11 +893,18 @@ TRAIN_STREAM_SHAPES = ((15, 77, 77, 8, True), (4, 1024, 1024, 8, True),
 TRAIN_LIMITS = {
     "packed_attention_den": (5e-3, 1e-3, 1.0),
     "packed_attention_bwd": (5e-3, 1e-3, 2.0),
+    "packed_attention_bwd_recompute": (5e-3, 1e-3, 2.0),
     "streaming_attention": (1.0, 1.5e-1, 1.0),
     "streaming_attention_bwd": (5e-2, 5e-3, 2.0),
 }
 # den: the sum of at most 640 bf16 values in fp32 is exact in most rows
 # whatever the order; a kernel that sums the unrounded e moves every row
+# The recompute backward against the saved-residual backward's own output:
+# the two differ in one rounding (delta from the fp32 output instead of its
+# bf16 rounding), which moves delta by up to 2^-9 of sum |do * o| and with
+# it about a fifth of the bf16 values of ds; held as a relative L2 distance
+# per gradient (measured 2e-3 .. 4e-3 on an H100)
+RECOMPUTE_VS_SAVED_MAX_REL_L2 = 2e-2
 MAX_DEN_DIFF_SHARE = 2e-2
 MAX_DEN_REL_ERR = 2.0 ** -8
 H100_BYTES_PER_S = 3.35e12
@@ -849,6 +942,9 @@ def _attention_bounds(B, Lq, Lk, H, causal=False):
         # reads q, do, o, k, v and the statistic, writes dq, dk, dv; five
         # products per score entry
         "bwd": _bound(4 * qo + 4 * kv + stat, 5 * 2 * 64 * pairs),
+        # reads q, do, k, v, writes dq, dk, dv; the forward's two products
+        # and the backward's four per score entry
+        "bwd_recompute": _bound(3 * qo + 4 * kv, 6 * 2 * 64 * pairs),
     }
 
 
@@ -951,8 +1047,35 @@ def phase_train_kernels(state):
                                  m, state)
                     for n, g, r, m in zip(("dq", "dk", "dv"), grads, g_ref,
                                           absmax(g_ref)))
-        del spread, grads, g_ref
+        # the backward that takes q, k, v, do alone: against its plain
+        # version, and against the saved-residual kernel's output
+        g8 = fa.packed_attention_bwd_recompute_cuda(q, k, v, do, H)
+        g8_ref = fa.packed_attention_bwd_recompute_plain(q, k, v, do, H)
+        torch.cuda.synchronize()
+        err_8 = max(_check_train("packed_attention_bwd_recompute",
+                                 f"{label} {n}", g, r, m, state)
+                    for n, g, r, m in zip(("dq", "dk", "dv"), g8, g8_ref,
+                                          absmax(g8_ref)))
+        rel = [((a.float() - b.float()).norm()
+                / b.float().norm().clamp_min(1e-30)).item()
+               for a, b in zip(g8, grads)]
+        share = [(a != b).float().mean().item() for a, b in zip(g8, grads)]
+        rel_ok = max(rel) <= RECOMPUTE_VS_SAVED_MAX_REL_L2
+        log(f"[train-kernel] packed_attention_bwd_recompute {label}: vs the "
+            f"saved-residual kernel's dq, dk, dv: relative L2 "
+            f"{[f'{x:.2e}' for x in rel]} (limit "
+            f"{RECOMPUTE_VS_SAVED_MAX_REL_L2:g}), outputs that differ "
+            f"{[f'{x:.2e}' for x in share]} {'ok' if rel_ok else 'FAIL'}")
+        if not rel_ok:
+            state.setdefault("train_failures", []).append(
+                f"recompute vs saved {label}")
+        del spread, grads, g_ref, g8, g8_ref
         if i < 2:
+            ms_8, plain_8, t_8 = _time_pair(
+                lambda: fa.packed_attention_bwd_recompute_cuda(q, k, v, do,
+                                                               H),
+                lambda: fa.packed_attention_bwd_recompute_plain(q, k, v, do,
+                                                                H), iters=5)
             ms_f, plain_f, t_f = _time_pair(
                 lambda: fa.packed_attention_den_cuda(q, k, v, H),
                 lambda: fa.packed_attention_den_plain(q, k, v, H))
@@ -968,14 +1091,19 @@ def phase_train_kernels(state):
                 f"{bounds['fwd_stat'][0]:.4f} ms ({bounds['fwd_stat'][1]}); "
                 f"B6b kernel {t_b['kernel']} ms, plain {t_b['plain']} ms, "
                 f"SDPA backward {lib_b:.4f} ms, bound {bounds['bwd'][0]:.4f} "
-                f"ms ({bounds['bwd'][1]}) (order plain, kernel, kernel, "
-                f"plain; {state['smi']})")
+                f"ms ({bounds['bwd'][1]}); B8 kernel {t_8['kernel']} ms, "
+                f"plain {t_8['plain']} ms, bound "
+                f"{bounds['bwd_recompute'][0]:.4f} ms "
+                f"({bounds['bwd_recompute'][1]}) (order plain, kernel, "
+                f"kernel, plain; {state['smi']})")
             if i == 0:
                 for name, err, ms, plain, lib, key in (
                         ("packed_attention_den", err_f, ms_f, plain_f, lib_f,
                          "fwd_stat"),
                         ("packed_attention_bwd", err_b, ms_b, plain_b, lib_b,
-                         "bwd")):
+                         "bwd"),
+                        ("packed_attention_bwd_recompute", err_8, ms_8,
+                         plain_8, lib_b, "bwd_recompute")):
                     stats[name] = {
                         "max_abs_err": err, "ms": ms, "plain_ms": plain,
                         "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
@@ -1054,6 +1182,13 @@ def phase_train_kernels(state):
     for n, g, r, m in zip(("dq", "dk", "dv"), grads, g_ref, absmax(g_ref)):
         _check_train("packed_attention_bwd", f"clamp regime (q x 30) {n}", g,
                      r, m, state, hold_diff=False)
+    g8 = fa.packed_attention_bwd_recompute_cuda(q, k, v, do, H)
+    g8_ref = fa.packed_attention_bwd_recompute_plain(q, k, v, do, H)
+    torch.cuda.synchronize()
+    for n, g, r, m in zip(("dq", "dk", "dv"), g8, g8_ref, absmax(g8_ref)):
+        _check_train("packed_attention_bwd_recompute",
+                     f"clamp regime (q x 30) {n}", g, r, m, state,
+                     hold_diff=False)
     if state.get("train_failures"):
         raise AssertionError(f"training kernels disagree with their plain "
                              f"versions: {state['train_failures']}")
@@ -1232,6 +1367,7 @@ def phase_train_slice(state):
         f"{np.median(host_ms[1:]):.2f} ms; {16e3 / np.median(host_ms[1:]):.1f}"
         f" clips/s; peak memory {peak:.2f} GiB ({state['smi']})")
     state.update(train_step=step, train_state=ts, train_batch=batch,
+                 train_loss_fn=loss_fn,
                  train_ms=float(np.median(dev_ms[1:])))
 
 
@@ -1247,7 +1383,7 @@ def phase_train_long(state):
                                                  make_optimizer)
     from gava_clip_tpu_torch.train.step import LossConfig, make_train_step
     from gava_clip_tpu_torch.utils.flagship import build_flagship
-    for key in ("train_step", "train_state", "train_batch"):
+    for key in ("train_step", "train_state", "train_batch", "train_loss_fn"):
         state.pop(key, None)
     torch.cuda.empty_cache()
     loss_cfg = LossConfig(num_classes=3, focal_ordinal=True, fo_beta=0.2,
@@ -1816,6 +1952,41 @@ def phase_w8_slice(state):
     if not ok:
         raise AssertionError("mlp_block(residual=None) failed its checks")
 
+    # the two-source attention's path: its public entry point on the first
+    # block's out-projection at the serving shape, keys from two arrays
+    from gava_clip_tpu_torch.ops import flash_attention as fa
+    g4 = torch.Generator(device="cuda").manual_seed(6)
+    q, k1, v1 = (torch.randn(128, 197, 768, device="cuda", generator=g4
+                             ).to(torch.bfloat16) for _ in range(3))
+    k2, v2 = (torch.randn(128, 17, 768, device="cuda", generator=g4
+                          ).to(torch.bfloat16) for _ in range(2))
+    _reset_launch_counts()
+    with torch.inference_mode():
+        y2 = fa.flash_attention_out_int8_2src(q, k1, v1, k2, v2, 12,
+                                              blk["attn"]["out"], xb)
+        n = _launch_counts()
+        y1 = fa.flash_attention_out_int8(
+            q, torch.cat([k1, k2], dim=1), torch.cat([v1, v2], dim=1), 12,
+            blk["attn"]["out"], xb)
+        y2_plain = fa.flash_attention_out_int8_2src(
+            q, k1, v1, k2, v2, 12, blk["attn"]["out"], xb, impl="plain")
+    torch.cuda.synchronize()
+    state["launches_by_kernel"]["attention_out_int8_2src"] = \
+        n["attention_out_int8_2src"]
+    diff = (y2 != y2_plain).float().mean().item()
+    ok = (n["attention_out_int8_2src"] == 1 and n["attention_out_int8"] == 0
+          and y2.shape == xb.shape and bool(torch.isfinite(y2).all())
+          and torch.equal(y2, y1)
+          and diff <= W8A8_LIMITS["attention_out_int8_2src"][0])
+    log(f"[w8-slice] flash_attention_out_int8_2src on the first block's "
+        f"out-projection, q / k1 / v1 (128, 197, 768), k2 / v2 (128, 17, "
+        f"768): launches {n['attention_out_int8_2src']} (expect 1), equal to "
+        f"flash_attention_out_int8 on the concatenation bit for bit: "
+        f"{torch.equal(y2, y1)}, outputs != plain {diff:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("flash_attention_out_int8_2src failed its checks")
+
 
 VARIANT_PER_FORWARD = {
     "fused": {"fused_extras": 12, "w8a8_matmul": 1, "w8a8_matmul3_cat": 12,
@@ -1923,6 +2094,566 @@ def phase_w8a8_variants(state):
     # both switches off again: the unfused forward, bit for bit
     if not torch.equal(_w8a8_logits(clf, x, "kernel"), base):
         raise AssertionError("the switches did not reset")
+
+
+# ---------------------------------------------------------------------------
+# the training and evaluation programs
+# ---------------------------------------------------------------------------
+
+# launches per step under set_flash_bwd_mode("recompute"): the forward that
+# writes no denominators and the backward that rebuilds them, 12 blocks each
+RECOMPUTE_PER_STEP = {"packed_attention": 12,
+                      "packed_attention_bwd_recompute": 12,
+                      "packed_attention_den": 0, "packed_attention_bwd": 0,
+                      "streaming_attention": 12,
+                      "streaming_attention_bwd": 12}
+RECOMPUTE_STEPS = 3
+
+
+def _loss_and_grads(state):
+    """One loss + backward of the train-slice model on its fixed batch (no
+    update): (loss, gradient leaves, launch counts)."""
+    import torch
+    ts, loss_fn = state["train_state"], state["train_loss_fn"]
+    ts.optimizer.zero_grad(set_to_none=True)
+    _reset_launch_counts()
+    total, _ = loss_fn(ts.trainable, ts.frozen, state["train_batch"])
+    total.backward()
+    torch.cuda.synchronize()
+    grads = _grad_list(ts.trainable)
+    ts.optimizer.zero_grad(set_to_none=True)
+    return total.item(), grads, _launch_counts()
+
+
+def phase_train_recompute(state):
+    """The training step with the backward that saves no forward output."""
+    import torch
+    from gava_clip_tpu_torch.ops import flash_attention as fa
+    ts, step, batch = (state[k] for k in ("train_state", "train_step",
+                                          "train_batch"))
+    loss_s, g_s, _ = _loss_and_grads(state)
+    try:
+        fa.set_flash_bwd_mode("recompute")
+        loss_r, g_r, n_r = _loss_and_grads(state)
+        fa.set_flash_bwd_mode("saved")
+        loss_s2, g_s2, n_s2 = _loss_and_grads(state)
+        fa.set_flash_bwd_mode("recompute")
+        d_loss = abs(loss_r - loss_s)
+        scale = max(g.norm().item() for g in g_s)
+        rel = [((a - b).norm() / b.norm().clamp_min(1e-3 * scale)).item()
+               for a, b in zip(g_r, g_s)]
+        back = loss_s2 == loss_s and all(torch.equal(a, b)
+                                         for a, b in zip(g_s2, g_s))
+        log(f"[train-recompute] first step, recompute vs saved mode: total "
+            f"{loss_r:.6f} vs {loss_s:.6f} (diff {d_loss:.2e}, limit "
+            f"{TRAIN_MAX_LOSS_DIFF:g}); gradient leaves {len(rel)}, max "
+            f"relative L2 error {max(rel):.3e}, median "
+            f"{float(np.median(rel)):.3e} (limit {TRAIN_MAX_GRAD_REL_ERR:g}); "
+            f"launches {n_r}; back in saved mode the loss and every gradient "
+            f"equal the first pass bit for bit: {back}")
+        if d_loss > TRAIN_MAX_LOSS_DIFF or max(rel) > TRAIN_MAX_GRAD_REL_ERR \
+                or not back or \
+                any(n_r[k] != v for k, v in RECOMPUTE_PER_STEP.items()) or \
+                any(n_s2[k] != v for k, v in TRAIN_PER_STEP.items()):
+            raise AssertionError("the recompute mode failed its checks")
+        del g_s, g_r, g_s2
+        _reset_launch_counts()
+        totals, dev_ms = [], []
+        for _ in range(RECOMPUTE_STEPS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            ts, metrics = step(ts, batch)
+            ev[1].record()
+            totals.append(metrics["total"].item())
+            dev_ms.append(ev[0].elapsed_time(ev[1]))
+        counts = _launch_counts()
+    finally:
+        fa.set_flash_bwd_mode("saved")
+    state.setdefault("launches_by_kernel", {})[
+        "packed_attention_bwd_recompute"] = \
+        counts["packed_attention_bwd_recompute"]
+    log(f"[train-recompute] {RECOMPUTE_STEPS} steps: total "
+        f"{[round(t, 4) for t in totals]}; launches {counts} (expect "
+        f"{RECOMPUTE_PER_STEP} per step); step by CUDA events "
+        f"{[round(t, 1) for t in dev_ms]} ms (saved mode "
+        f"{state['train_ms']:.2f} ms) ({state['smi']})")
+    if not all(np.isfinite(totals)) or any(
+            counts[k] != v * RECOMPUTE_STEPS
+            for k, v in RECOMPUTE_PER_STEP.items()):
+        raise AssertionError("the recompute-mode steps failed their checks")
+    # one more saved-mode step: the default path is back
+    _reset_launch_counts()
+    ts, metrics = step(ts, batch)
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    if any(counts[k] != v for k, v in TRAIN_PER_STEP.items()):
+        raise AssertionError(f"after the reset: launches {counts}")
+
+
+FOLD_CLASSES = ("normal\nslight difficulty\nmoderate difficulty\n"
+                "*normal\n*slight\n*moderate\n")
+KNOWLEDGE_VERSIONS = ("v1", "v2", "v3", "v4", "v5")
+CLI_STEPS = 12
+CLI_PRINT_FREQ = 2
+CLI_SAVE_FREQ = 6
+# data-root substrings that the fold remapping of the training program
+# rewrites (utils/config.remap_fold_data_root)
+_REMAPPED = ("park", "mix", "real", "miccai", "tulip", "sep")
+
+
+def _separable_clip(rs, label: int, T: int, S: int = 224) -> np.ndarray:
+    """A uint8 clip (T, S, S, 3) whose class shows in its brightness and in
+    the direction of a gradient, under uniform noise."""
+    ramp = np.linspace(0.0, 1.0, S, dtype=np.float32)
+    base = (ramp[None, :], ramp[:, None],
+            np.abs(ramp[:, None] - ramp[None, :]))[label]
+    img = 40.0 + 70.0 * label + 60.0 * np.broadcast_to(base, (S, S))
+    clip = img[None, :, :, None] + rs.uniform(-25, 25, (T, S, S, 3))
+    return np.clip(clip, 0, 255).astype(np.uint8)
+
+
+def _write_fold(root: str, T: int, n_train: int, n_val: int, seed: int = 0):
+    """A synthetic fold under `root`: lists, decoded-view cache files in
+    place of videos (no decoder needed), NTE arrays, the memory pickle, the
+    knowledge directory and a classes file. Returns the program's data
+    arguments."""
+    import pickle
+    from gava_clip_tpu_torch.data.datasets import (VideoDataset,
+                                                   VideoDatasetConfig)
+    from gava_clip_tpu_torch.utils.flagship import make_synthetic_knowledge_dir
+    if any(w in root for w in _REMAPPED):
+        raise RuntimeError(f"temporary directory {root} contains one of "
+                           f"{_REMAPPED}, which the fold remapping rewrites")
+    rs = np.random.RandomState(seed)
+    cache = os.path.join(root, "cache")
+    os.makedirs(os.path.join(root, "nte"))
+    for split, n in (("train", n_train), ("val", n_val)):
+        rows = [(f"{split}vid{i:03d}.mp4", i % 3) for i in range(n)]
+        lst = os.path.join(root, f"{split}_updrs.csv")
+        with open(lst, "w") as f:
+            f.write("".join(f"{p},{c}\n" for p, c in rows))
+        ds = VideoDataset(VideoDatasetConfig(
+            list_path=lst, data_root=root, num_spatial_views=1,
+            num_temporal_views=1, num_frames=T, sampling_rate=1,
+            is_train=split == "train", cache_dir=cache))
+        for path, label in rows:
+            ds._cache_store(path, _separable_clip(rs, label, T)[None])
+            np.save(os.path.join(root, "nte", path.split(".")[0] + ".npy"),
+                    rs.randn(70, 512).astype(np.float32))
+    with open(os.path.join(root, "mem.pkl"), "wb") as f:
+        pickle.dump({"embeds": rs.randn(192, 4, 512).astype(np.float32),
+                     "updrs": np.arange(192) % 3}, f)
+    classes = os.path.join(root, "classes.txt")
+    with open(classes, "w") as f:
+        f.write(FOLD_CLASSES)
+    kdir = make_synthetic_knowledge_dir(3, KNOWLEDGE_VERSIONS)
+    args = ["--nfold", "1", "--type", "updrs", "--data_root", root,
+            "--text_prompt_classes_path", classes,
+            "--decoded_cache_dir", cache, "--num_temporal_views", "1",
+            "--num_frames", str(T), "--use_bf16",
+            "--use_text_prompt_learning", "--use_text_prompt_CSC",
+            "--text_num_prompts", "8",
+            "--text_prompt_init", "cntn_split_uni_disc",
+            "--knowledge_dir", kdir,
+            "--use_summary_token", "--use_local_prompts",
+            "--use_global_prompts", "--use_support_memory",
+            "--memory_data_path", os.path.join(root, "mem.pkl"),
+            "--mem_batch_size", "64", "--clLoss_nte_video",
+            "--use_focal_ordinal_loss", "--num_workers", "4"]
+    for kv in KNOWLEDGE_VERSIONS:
+        args += ["--knowledge_version", kv]
+    return args, kdir
+
+
+def _run_records(logdir: str):
+    with open(os.path.join(logdir, "fold_0", "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _only_logdir(before):
+    new = sorted(set(os.listdir("logs")) - before)
+    if len(new) != 1:
+        raise AssertionError(f"expected one new run directory, got {new}")
+    return os.path.join("logs", new[0])
+
+
+def _train_main(argv, tag: str):
+    """cli.train.main in a run directory of its own: (logdir, records)."""
+    from gava_clip_tpu_torch.cli import train as cli_train
+    os.makedirs("logs", exist_ok=True)
+    before = set(os.listdir("logs"))
+    t0 = time.perf_counter()
+    cli_train.main(argv)
+    secs = time.perf_counter() - t0
+    logdir = _only_logdir(before)
+    os.rename(logdir, os.path.join("logs", tag))   # the name holds a minute
+    logdir = os.path.join("logs", tag)
+    log(f"[driver] {tag}: cli.train.main returned in {secs:.1f} s")
+    return logdir, _run_records(logdir)
+
+
+def _reference_state_dict(params) -> dict:
+    """The port's `visual` / `textual` trees under the reference model's
+    state-dict names (the inverse of utils/torch_convert), to write a
+    .pth that the zero-shot program loads."""
+    import torch
+    sd = {}
+
+    def lin(name, p):
+        sd[f"{name}.weight"] = p["kernel"].t().contiguous()
+        if p.get("bias") is not None:
+            sd[f"{name}.bias"] = p["bias"]
+
+    def ln(name, p):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = p["scale"], p["bias"]
+
+    vis = params["visual"]
+    D = vis["patch_embed"]["kernel"].shape[1]
+    sd["visual.patch_embed.proj.weight"] = vis["patch_embed"]["kernel"] \
+        .reshape(16, 16, 3, D).permute(3, 2, 0, 1).contiguous()
+    sd["visual.patch_embed.proj.bias"] = vis["patch_embed"]["bias"]
+    for name in ("cls_token", "pos_embed", "time_embed", "proj",
+                 "global_prompts"):
+        sd[f"visual.{name}"] = vis[name]
+    ln("visual.ln_pre", vis["ln_pre"])
+    ln("visual.ln_post", vis["ln_post"])
+    for i, b in enumerate(vis["blocks"]):
+        pre = f"visual.blocks.{i}"
+        for n in ("q", "k", "v", "out"):
+            lin(f"{pre}.attn.{n}_proj", b["attn"][n])
+            lin(f"{pre}.summary_attn_layer.{n}_proj", b["summary_attn"][n])
+        ln(f"{pre}.norm1", b["norm1"])
+        ln(f"{pre}.norm2", b["norm2"])
+        ln(f"{pre}.summary_ln", b["summary_ln"])
+        lin(f"{pre}.mlp.fc1", b["mlp"]["fc1"])
+        lin(f"{pre}.mlp.fc2", b["mlp"]["fc2"])
+        lin(f"{pre}.cls_proj", b["cls_proj"])
+        sd[f"{pre}.local_prompts"] = b["local_prompts"]
+    txt = params["textual"]
+    sd["textual.token_embedding.weight"] = txt["token_embedding"]
+    sd["textual.positional_embedding"] = txt["positional_embedding"]
+    sd["textual.text_projection"] = txt["text_projection"]
+    ln("textual.ln_final", txt["ln_final"])
+    for i, b in enumerate(txt["blocks"]):
+        pre = f"textual.transformer.resblocks.{i}"
+        a = b["attn"]
+        sd[f"{pre}.attn.in_proj_weight"] = torch.cat(
+            [a[n]["kernel"].t() for n in ("q", "k", "v")]).contiguous()
+        sd[f"{pre}.attn.in_proj_bias"] = torch.cat(
+            [a[n]["bias"] for n in ("q", "k", "v")])
+        lin(f"{pre}.attn.out_proj", a["out"])
+        ln(f"{pre}.ln_1", b["ln_1"])
+        ln(f"{pre}.ln_2", b["ln_2"])
+        lin(f"{pre}.mlp.c_fc", b["mlp"]["fc1"])
+        lin(f"{pre}.mlp.c_proj", b["mlp"]["fc2"])
+    return {k: v.detach().float().cpu() for k, v in sd.items()}
+
+
+def phase_cli(state):
+    """cli.train, cli.evaluate and cli.zero_shot at full width on a
+    synthetic fold."""
+    import shutil
+    import tempfile
+    import torch
+    from gava_clip_tpu_torch.cli import evaluate as cli_eval
+    from gava_clip_tpu_torch.cli import train as cli_train
+    from gava_clip_tpu_torch.cli import zero_shot as cli_zs
+    from gava_clip_tpu_torch.train import checkpoint as ckpt_lib
+    for key in ("train_step", "train_state", "train_batch", "train_loss_fn"):
+        state.pop(key, None)
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="gava_fold_")
+    cwd = os.getcwd()
+    kdir = None
+    try:
+        t0 = time.perf_counter()
+        data_args, kdir = _write_fold(root, T=8, n_train=64, n_val=32)
+        log(f"[driver] synthetic fold written in "
+            f"{time.perf_counter() - t0:.1f} s: 64 train + 32 val clips of "
+            f"8 x 224 x 224 x 3 uint8 as decoded-view cache files, NTE "
+            f"arrays, memory pickle, knowledge directory")
+        os.chdir(root)
+        train_args = data_args + [
+            "--batch_size", "16", "--num_steps", str(CLI_STEPS),
+            "--print_freq", str(CLI_PRINT_FREQ), "--lr", "1e-3",
+            "--eval_freq", str(CLI_STEPS)]
+        _reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        run_a, rec_a = _train_main(
+            train_args + ["--save_freq", str(CLI_SAVE_FREQ)], "run_a")
+        counts = _launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        save_secs = dict(ckpt_lib.last_save_seconds)
+        eval_rate = cli_train.last_eval["clips"] / \
+            cli_train.last_eval["seconds"]
+        steps_a = [r for r in rec_a if "loss" in r]
+        loss_a = {r["step"]: r["loss"] for r in steps_a}
+        # sustained time per step between print steps, the first window
+        # (set-up, warm-up) left out
+        sustained = [(b["t"] - a["t"]) / (b["step"] - a["step"]) * 1e3
+                     for a, b in zip(steps_a[1:], steps_a[2:])]
+        data_ms = [r["data_time_s"] * 1e3 for r in steps_a[1:]]
+        log(f"[driver] run_a: {CLI_STEPS} steps of 16 clips x 8 frames, "
+            f"bf16, flash, prefetch 2: loss at the print steps "
+            f"{ {k: round(v, 4) for k, v in loss_a.items()} }; sustained "
+            f"{[round(x, 1) for x in sustained]} ms/step between print steps "
+            f"(median {np.median(sustained):.2f}; the bare step "
+            f"{state['train_ms']:.2f} ms by CUDA events), data_time "
+            f"{[round(x, 1) for x in data_ms]} ms; evaluation "
+            f"{eval_rate:.1f} clips/s over "
+            f"{cli_train.last_eval['clips']} clips; last checkpoint: fetch "
+            f"{save_secs['fetch']:.2f} s, write {save_secs['write']:.2f} s; "
+            f"peak memory {peak:.2f} GiB; launches {counts} "
+            f"({state['smi']})")
+        first, last = steps_a[:2], steps_a[-2:]
+        if not all(np.isfinite(list(loss_a.values()))) or not \
+                np.mean([r["loss"] for r in last]) < \
+                np.mean([r["loss"] for r in first]):
+            raise AssertionError(f"the program's loss did not fall: {loss_a}")
+        # 12 steps + 2 evaluation batches of 12 blocks
+        want = {"packed_attention_den": 12 * CLI_STEPS,
+                "packed_attention_bwd": 12 * CLI_STEPS,
+                "packed_attention": 24,
+                "streaming_attention_bwd": 12 * CLI_STEPS}
+        if any(counts[k] != v for k, v in want.items()):
+            raise AssertionError(f"launches {counts}, expected {want}")
+        state["launches_cli"] = counts
+        files = set(os.listdir(run_a))
+        fold_files = set(os.listdir(os.path.join(run_a, "fold_0")))
+        need = {"config.yaml", "results.txt", "confusion_matrix_fold-0.txt",
+                "confusion_matrix_total.txt"}
+        need_fold = {"metrics.jsonl", "fold-0-best.ckpt",
+                     f"checkpoint-{CLI_SAVE_FREQ}.ckpt",
+                     f"checkpoint-{CLI_STEPS}.ckpt"}
+        if not need <= files or not need_fold <= fold_files:
+            raise AssertionError(f"files of the run: {sorted(files)}, "
+                                 f"{sorted(fold_files)}")
+        with open(os.path.join(run_a, "results.txt")) as f:
+            txt = f.read()
+        best = ckpt_lib.load_checkpoint(
+            os.path.join(run_a, "fold_0", "fold-0-best.ckpt"))
+        if "Average F1-score" not in txt or \
+                best["next_step"] != CLI_STEPS or \
+                best["text_features"].shape != (3, 512) or \
+                not any("eval_macro_f1" in r for r in rec_a):
+            raise AssertionError("the run's reports are incomplete")
+        conf_a = np.loadtxt(os.path.join(run_a,
+                                         "confusion_matrix_fold-0.txt"))
+        del best
+
+        # the same run without the device prefetch and with the clamp
+        # monitor: the same losses
+        import contextlib
+        import io
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            run_b, rec_b = _train_main(
+                train_args + ["--save_freq", "1000", "--device_prefetch", "0",
+                              "--debug_attn_clamp"], "run_b")
+        out_b = buf.getvalue()
+        sys.stdout.write(out_b)
+        from gava_clip_tpu_torch.ops import flash_attention as fa
+        clamp = dict(fa.read_clamp_stats())
+        fa.enable_clamp_monitor(False)
+        steps_b = [r for r in rec_b if "loss" in r]
+        loss_b = {r["step"]: r["loss"] for r in steps_b}
+        sustained_b = [(b["t"] - a["t"]) / (b["step"] - a["step"]) * 1e3
+                       for a, b in zip(steps_b[1:], steps_b[2:])]
+        log(f"[driver] run_b (--device_prefetch 0, --debug_attn_clamp): "
+            f"losses equal run_a's: {loss_b == loss_a}; sustained "
+            f"{np.median(sustained_b):.2f} ms/step, data_time "
+            f"{[round(r['data_time_s'] * 1e3, 1) for r in steps_b[1:]]} ms; "
+            f"clamp monitor: max exp2 argument {clamp['max_exp2_arg']:.2f} "
+            f"over {clamp['calls']} calls, clipped {clamp['clipped']}")
+        if loss_b != loss_a or "attn_max_exp2_arg" not in out_b or \
+                not 0.0 < clamp["max_exp2_arg"] < 110.0 or clamp["clipped"] \
+                or clamp["calls"] < 12 * CLI_STEPS:
+            raise AssertionError("prefetch off / clamp monitor run failed")
+        shutil.rmtree(run_b)
+
+        # resume from the periodic checkpoint: the uninterrupted run's losses
+        os.makedirs("resume_from")
+        shutil.copy(os.path.join(run_a, "fold_0",
+                                 f"checkpoint-{CLI_SAVE_FREQ}.ckpt"),
+                    "resume_from")
+        run_c, rec_c = _train_main(
+            train_args + ["--save_freq", "1000", "--auto_resume",
+                          "--checkpoint_dir", "resume_from"], "run_c")
+        loss_c = {r["step"]: r["loss"] for r in rec_c if "loss" in r}
+        tail = {k: v for k, v in loss_a.items() if k >= CLI_SAVE_FREQ}
+        conf_c = np.loadtxt(os.path.join(run_c,
+                                         "confusion_matrix_fold-0.txt"))
+        log(f"[driver] run_c (--auto_resume from checkpoint-"
+            f"{CLI_SAVE_FREQ}): steps {sorted(loss_c)}, losses equal the "
+            f"uninterrupted run's: {loss_c == tail}, confusion matrix equal: "
+            f"{np.array_equal(conf_c, conf_a)}")
+        if loss_c != tail or not np.array_equal(conf_c, conf_a):
+            raise AssertionError(f"resumed run {loss_c} vs {tail}")
+        shutil.rmtree(run_c)
+        shutil.rmtree("resume_from")
+
+        # cli.evaluate on run_a: plain, then w8a8
+        eval_args = ["--checkpoint_dir", run_a, "--data_root", root,
+                     "--val_list_path", os.path.join(root, "val_updrs.csv"),
+                     "--text_prompt_classes_path",
+                     os.path.join(root, "classes.txt")]
+        perf, conf = cli_eval.main(eval_args)
+        plain_rate = cli_train.last_eval["clips"] / \
+            cli_train.last_eval["seconds"]
+        _reset_launch_counts()
+        perf8, conf8 = cli_eval.main(eval_args + ["--quantize_eval", "w8a8"])
+        n8 = _launch_counts()
+        w8a8_rate = cli_train.last_eval["clips"] / \
+            cli_train.last_eval["seconds"]
+        log(f"[driver] cli.evaluate on run_a: accuracy {perf[0]:.4f}, "
+            f"confusion {conf.tolist()} (the training run's best "
+            f"{conf_a.astype(int).tolist()}), {plain_rate:.1f} clips/s; "
+            f"--quantize_eval w8a8: accuracy {perf8[0]:.4f}, confusion "
+            f"{conf8.tolist()}, {w8a8_rate:.1f} clips/s, launches "
+            f"attention_out_int8 {n8['attention_out_int8']}, w8a8_mlp_res "
+            f"{n8['w8a8_mlp_res']}")
+        if not np.array_equal(conf, conf_a) or conf8.sum() != 32 or \
+                n8["attention_out_int8"] != 24 or \
+                not any(f.startswith("eval_") for f in os.listdir(run_a)):
+            raise AssertionError("cli.evaluate failed its checks")
+
+        # cli.zero_shot on reference-format files written from a model's
+        # own weights
+        from gava_clip_tpu_torch.utils.flagship import build_flagship
+        model = build_flagship(num_frames=8, knowledge_dir=kdir)
+        sd = _reference_state_dict(model.params)
+        torch.save(sd, "clip_backbone.pth")
+        vlm = {f"module.{k}": v for k, v in sd.items()
+               if k.startswith("visual.")}
+        vlm["module.logit_scale"] = model.params["logit_scale"].cpu()
+        torch.save({"model": vlm}, "vlm.pth")
+        want_tf = model.params["textual"]["text_projection"].shape
+        del model, sd, vlm
+        zs_perf, zs_conf = cli_zs.main([
+            "--type", "updrs", "--eval_data_root", root,
+            "--eval_list_path", os.path.join(root, "val_updrs.csv"),
+            "--text_prompt_classes_path", os.path.join(root, "classes.txt"),
+            "--backbone_path", "clip_backbone.pth",
+            "--pretrained_vlm", "vlm.pth", "--info_dir", "zs_info",
+            "--decoded_cache_dir", os.path.join(root, "cache"),
+            "--batch_size", "16", "--num_frames", "8",
+            "--num_temporal_views", "1", "--use_bf16", "--num_workers", "4"])
+        tf = np.load(os.path.join("zs_info", "ke_updrs",
+                                  "text_features_v0.npy"))
+        log(f"[driver] cli.zero_shot: accuracy {zs_perf:.4f}, confusion "
+            f"{zs_conf.tolist()}, text features {tf.shape}")
+        if zs_conf.sum() != 32 or tf.shape != (3, want_tf[1]) or \
+                not np.isfinite(tf).all() or \
+                not os.path.isfile("eval_output/class_name.txt"):
+            raise AssertionError("cli.zero_shot failed its checks")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+        if kdir:
+            shutil.rmtree(kdir, ignore_errors=True)
+
+
+REMAT_POLICIES = ("none", "full", "save_attn", "save_attn_qkv",
+                  "save_attn_mlp", "dots")
+# attention forward launches per step at 12 blocks: the policies that keep
+# the attention output launch it once per block
+REMAT_FORWARDS = {"none": 12, "full": 24, "save_attn": 12,
+                  "save_attn_qkv": 12, "save_attn_mlp": 12, "dots": 24}
+
+
+def phase_cli_long(state):
+    """The long clip: cli.train.main at 4 x 70 (the program picks
+    save_attn_qkv), then the bare step under every remat policy."""
+    import shutil
+    import tempfile
+    import torch
+    from gava_clip_tpu_torch.cli import train as cli_train
+    from gava_clip_tpu_torch.models.vita_clip import trainable_mask
+    from gava_clip_tpu_torch.train.state import (create_train_state,
+                                                 make_optimizer)
+    from gava_clip_tpu_torch.train.step import LossConfig, make_train_step
+    from gava_clip_tpu_torch.utils.flagship import build_flagship
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="gava_long_")
+    cwd = os.getcwd()
+    kdir = None
+    seen = {}
+    make = cli_train.make_train_step
+
+    def spy(*a, **kw):
+        seen["remat"] = kw.get("remat")
+        return make(*a, **kw)
+
+    try:
+        data_args, kdir = _write_fold(root, T=70, n_train=8, n_val=4)
+        os.chdir(root)
+        cli_train.make_train_step = spy
+        _reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        run, rec = _train_main(data_args + [
+            "--batch_size", "4", "--num_steps", "3", "--print_freq", "1",
+            "--lr", "5e-6", "--eval_freq", "1000", "--save_freq", "1000"],
+            "run_long")
+        counts = _launch_counts()
+        losses = [r["loss"] for r in rec if "loss" in r]
+        log(f"[driver-long] cli.train.main at 4 clips x 70 frames, 3 steps: "
+            f"remat {seen.get('remat')!r}, losses "
+            f"{[round(x, 4) for x in losses]}, batch_time "
+            f"{[r['batch_time_s'] for r in rec if 'loss' in r]} s, peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, "
+            f"launches {counts}")
+        if seen.get("remat") != "save_attn_qkv" or len(losses) != 3 or \
+                not all(np.isfinite(losses)) or \
+                counts["packed_attention_den"] != 36 or \
+                counts["packed_attention_bwd"] != 36:
+            raise AssertionError("the long-clip run failed its checks")
+    finally:
+        cli_train.make_train_step = make
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+        if kdir:
+            shutil.rmtree(kdir, ignore_errors=True)
+
+    loss_cfg = LossConfig(num_classes=3, focal_ordinal=True, fo_beta=0.2,
+                          use_support_memory=True, add_nte=True)
+    opt = make_optimizer(lr=5e-6, num_steps=2000, weight_decay=0.2)
+    model = build_flagship(num_frames=70)
+    ts = create_train_state(model.params,
+                            trainable_mask(model.params, model.cfg), opt)
+    batch = _train_batch(4, 70)
+    table = {}
+    for policy in REMAT_POLICIES:
+        step = make_train_step(model, loss_cfg, opt, remat=policy,
+                               compute_dtype=torch.bfloat16,
+                               attn_impl="flash")
+        torch.cuda.empty_cache()
+        ts, metrics = step(ts, batch)                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        dev_ms = []
+        for _ in range(2):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            ts, metrics = step(ts, batch)
+            ev[1].record()
+            total = metrics["total"].item()
+            dev_ms.append(ev[0].elapsed_time(ev[1]))
+        counts = _launch_counts()
+        fwd = (counts["packed_attention_den"] + counts["packed_attention"]) \
+            // 2
+        table[policy] = (float(np.mean(dev_ms)),
+                         torch.cuda.max_memory_allocated() / 2 ** 30, fwd)
+        log(f"[driver-long] remat {policy}: {table[policy][0]:.2f} ms/step "
+            f"(CUDA events, {[round(t, 1) for t in dev_ms]}), peak memory "
+            f"{table[policy][1]:.2f} GiB, attention forward launches per "
+            f"step {fwd} (expect {REMAT_FORWARDS[policy]}), backward "
+            f"{counts['packed_attention_bwd'] // 2}; total {total:.4f} "
+            f"({state['smi']})")
+        if not np.isfinite(total) or fwd != REMAT_FORWARDS[policy] or \
+                counts["packed_attention_bwd"] != 24:
+            raise AssertionError(f"remat {policy} failed its checks")
+    state["remat_table"] = table
 
 
 def _profile(fn, runs: int, what: str, ms: float, smi: str, path: str,
@@ -2048,7 +2779,10 @@ def main(argv=None) -> int:
             ("w8a8-server", lambda st: phase_server(st, "_w8a8")),
             ("w8-server", lambda st: phase_server(st, "_w8")),
             ("train-slice", phase_train_slice),
-            ("train-long", phase_train_long)):
+            ("train-recompute", phase_train_recompute),
+            ("driver", phase_cli),
+            ("train-long", phase_train_long),
+            ("driver-long", phase_cli_long)):
         t0 = time.perf_counter()
         phase(state)
         log(f"[{name}] done in {time.perf_counter() - t0:.1f} s "

@@ -27,6 +27,10 @@
 //                 dk / dv accumulate in registers; q / do tiles stream
 //                 through shared memory with the per-row inv_d (or lse) and
 //                 delta beside them.
+// With DELTA_IN (the packed backward that saves no forward output,
+// packed_attention_bwd_recompute.cu) delta is not taken from do and o: a
+// first kernel has written it, (B, Lq, H) fp32 beside the denominators, from
+// the unrounded fp32 output, and both kernels read it from there.
 // All products are mma.sync m16n8k16 bf16 -> fp32. Ragged tails: rows past
 // the end are loaded as zeros and never stored, their weights are forced
 // to 0. Launches on the caller's stream, no sync, no allocation.
@@ -40,6 +44,8 @@ namespace attn {
 struct BwdArgs {
   const __nv_bfloat16 *q, *k, *v, *dout, *o;
   const float* rowstat;  // den (B, Lq, H) or lse (B, H, Lq), contiguous
+  // DELTA_IN only: rowsum(do * o) (B, Lq, H), contiguous; o is then unused
+  const float* delta = nullptr;
   __nv_bfloat16 *dq, *dk, *dv;
   int Lq, Lk, H;
   // element strides (batch, row) of q, k, v; do, o, dq are (B, Lq, H*64)
@@ -79,7 +85,7 @@ __device__ __forceinline__ float weight_ds(float s, float dp, float stat,
   return e;
 }
 
-template <bool STREAM>
+template <bool STREAM, bool DELTA_IN>
 __global__ void __launch_bounds__(kThreads) attn_bwd_dq_kernel(BwdArgs a) {
   __shared__ __align__(16) __nv_bfloat16 ks[kTile * kLDS];
   __shared__ __align__(16) __nv_bfloat16 vs[kTile * kLDS];
@@ -95,7 +101,6 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dq_kernel(BwdArgs a) {
   const __nv_bfloat16* kb = a.k + b * a.k_sb + hoff;
   const __nv_bfloat16* vb = a.v + b * a.v_sb + hoff;
   const __nv_bfloat16* dob = a.dout + static_cast<long long>(b) * a.Lq * D + hoff;
-  const __nv_bfloat16* ob = a.o + static_cast<long long>(b) * a.Lq * D + hoff;
 
   uint32_t qa[kKD][4], da[kKD][4];
   load_a_frags(qa, qb, r0, r1, a.Lq, a.q_sl, t);
@@ -104,7 +109,12 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dq_kernel(BwdArgs a) {
   // delta = rowsum(do * o): this thread's columns, then the 4 threads of
   // the row's group
   float delta[2] = {0.f, 0.f};
-  {
+  if (DELTA_IN) {
+    const long long row0 = static_cast<long long>(b) * a.Lq;
+    if (r0 < a.Lq) delta[0] = a.delta[(row0 + r0) * a.H + h];
+    if (r1 < a.Lq) delta[1] = a.delta[(row0 + r1) * a.H + h];
+  } else {
+    const __nv_bfloat16* ob = a.o + static_cast<long long>(b) * a.Lq * D + hoff;
     uint32_t oa[kKD][4];
     load_a_frags(oa, ob, r0, r1, a.Lq, D, t);
 #pragma unroll
@@ -167,7 +177,7 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dq_kernel(BwdArgs a) {
   store_rows(a.dq + static_cast<long long>(b) * a.Lq * D + hoff, D, acc, r0, r1, a.Lq, t, mul, mul);
 }
 
-template <bool STREAM>
+template <bool STREAM, bool DELTA_IN>
 __global__ void __launch_bounds__(kThreads) attn_bwd_dkdv_kernel(BwdArgs a) {
   __shared__ __align__(16) __nv_bfloat16 qs[kTile * kLDS];
   __shared__ __align__(16) __nv_bfloat16 dos[kTile * kLDS];
@@ -187,7 +197,8 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dkdv_kernel(BwdArgs a) {
   const __nv_bfloat16* kb = a.k + b * a.k_sb + hoff;
   const __nv_bfloat16* vb = a.v + b * a.v_sb + hoff;
   const __nv_bfloat16* dob = a.dout + static_cast<long long>(b) * a.Lq * D + hoff;
-  const __nv_bfloat16* ob = a.o + static_cast<long long>(b) * a.Lq * D + hoff;
+  const __nv_bfloat16* ob =
+      DELTA_IN ? nullptr : a.o + static_cast<long long>(b) * a.Lq * D + hoff;
 
   uint32_t ka[kKD][4], va[kKD][4];
   load_a_frags(ka, kb, kr0, kr1, a.Lk, a.k_sl, t);
@@ -215,11 +226,13 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dkdv_kernel(BwdArgs a) {
       float sum = 0.f;
       if (r < a.Lq) {
         const __nv_bfloat16* dp_ = dob + r * D + half * 32;
-        const __nv_bfloat16* op_ = ob + r * D + half * 32;
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
-          const uint32_t dw = ld2(dp_ + 2 * j), ow = ld2(op_ + 2 * j);
-          sum += lo_f(dw) * lo_f(ow) + hi_f(dw) * hi_f(ow);
+          const uint32_t dw = ld2(dp_ + 2 * j);
+          if (!DELTA_IN) {
+            const uint32_t ow = ld2(ob + r * D + half * 32 + 2 * j);
+            sum += lo_f(dw) * lo_f(ow) + hi_f(dw) * hi_f(ow);
+          }
           if (!STREAM)
             *reinterpret_cast<uint32_t*>(dons + row * kLDS + half * 32 + 2 * j) =
                 pack2f(lo_f(dw) * st, hi_f(dw) * st);
@@ -230,6 +243,8 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dkdv_kernel(BwdArgs a) {
           *reinterpret_cast<uint32_t*>(dons + row * kLDS + half * 32 + 2 * j) = 0u;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      if (DELTA_IN && r < a.Lq)
+        sum = a.delta[(static_cast<long long>(b) * a.Lq + r) * a.H + h];
       if (half == 0) {
         stat_s[row] = st;
         delta_s[row] = sum;
@@ -275,15 +290,15 @@ __global__ void __launch_bounds__(kThreads) attn_bwd_dkdv_kernel(BwdArgs a) {
   store_rows(a.dv + static_cast<long long>(b) * a.Lk * D + hoff, D, dv, kr0, kr1, a.Lk, t, 1.f, 1.f);
 }
 
-template <bool STREAM>
+template <bool STREAM, bool DELTA_IN = false>
 int launch_bwd(const BwdArgs& a, int B, cudaStream_t stream) {
   if (B == 0 || a.Lq == 0 || a.Lk == 0) return 0;
   const dim3 grid_q((a.Lq + kTile - 1) / kTile, a.H, B);
-  attn_bwd_dq_kernel<STREAM><<<grid_q, kThreads, 0, stream>>>(a);
+  attn_bwd_dq_kernel<STREAM, DELTA_IN><<<grid_q, kThreads, 0, stream>>>(a);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   const dim3 grid_k((a.Lk + kTile - 1) / kTile, a.H, B);
-  attn_bwd_dkdv_kernel<STREAM><<<grid_k, kThreads, 0, stream>>>(a);
+  attn_bwd_dkdv_kernel<STREAM, DELTA_IN><<<grid_k, kThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -49,6 +49,15 @@
 // quantizes the keys of a tile straight from device memory into the head's
 // K area of shared memory, in the k order in which the query codes sit (a
 // permutation of k applied to both operands: the int32 sums are exact).
+//
+// The two-source form (a second template flag; replaces the TPU kernel
+// _attention_out_kernel_2src, reached through
+// flash_attention_out_int8_2src's pl.pallas_call) takes the keys and values
+// as the union [k1; k2] of two arrays, (B, L1, H*64) and (B, L2, H*64), that
+// are never concatenated in device memory: the staging loads take key row j
+// from the first source while j < L1 and row j - L1 of the second after, so
+// shared memory fills in the order [k1; k2] and every sum runs in the order
+// of the single-source kernel on the concatenation. Both score forms.
 
 #include "w8a8_common.cuh"
 
@@ -95,7 +104,14 @@ __device__ __forceinline__ float absmax_pair(uint32_t pair, float m) {
                         fabsf(__uint_as_float(pair & 0xffff0000u))));
 }
 
-template <bool kInt8QK>
+// the second key / value source of the two-source form: rows L1.. of the
+// keys are rows 0.. of k2, v2 (element strides, batch and row)
+struct Source2 {
+  const __nv_bfloat16 *k2, *v2;
+  int L1, k2_sb, k2_sl, v2_sb, v2_sl;
+};
+
+template <bool kInt8QK, bool k2Src>
 __global__ void __launch_bounds__(kThreads, 1)
 attention_out_int8_kernel(const __nv_bfloat16* __restrict__ q,
                           const __nv_bfloat16* __restrict__ k,
@@ -103,7 +119,7 @@ attention_out_int8_kernel(const __nv_bfloat16* __restrict__ q,
                           const float* __restrict__ s, const float* __restrict__ bias,
                           const __nv_bfloat16* __restrict__ r, __nv_bfloat16* __restrict__ o,
                           int lq, int Lk, int H, int q_sb, int q_sl, int k_sb, int k_sl,
-                          int v_sb, int v_sl, float c, bool fast) {
+                          int v_sb, int v_sl, float c, bool fast, Source2 s2) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int D = H * kHD;
   // floats per row of the attention tile: the in-place codes' rows are
@@ -122,6 +138,17 @@ attention_out_int8_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* qb = q + static_cast<long long>(b) * q_sb;
   const __nv_bfloat16* kb = k + static_cast<long long>(b) * k_sb;
   const __nv_bfloat16* vb = v + static_cast<long long>(b) * v_sb;
+  // key row j (< Lk) of this batch row, all heads: its k and v pointers
+  const __nv_bfloat16* k2b = k2Src ? s2.k2 + static_cast<long long>(b) * s2.k2_sb : nullptr;
+  const __nv_bfloat16* v2b = k2Src ? s2.v2 + static_cast<long long>(b) * s2.v2_sb : nullptr;
+  auto k_row = [&](int j) {
+    if (k2Src && j >= s2.L1) return k2b + static_cast<long long>(j - s2.L1) * s2.k2_sl;
+    return kb + static_cast<long long>(j) * k_sl;
+  };
+  auto v_row = [&](int j) {
+    if (k2Src && j >= s2.L1) return v2b + static_cast<long long>(j - s2.L1) * s2.v2_sl;
+    return vb + static_cast<long long>(j) * v_sl;
+  };
   __nv_bfloat16* ks = kv + slot * kSlotElems;
   __nv_bfloat16* vs = ks + kTileK * kLDS;
   // int8 QK^T: the head's K area holds kTileK x 64 codes, then kTileK scales
@@ -191,8 +218,8 @@ attention_out_int8_kernel(const __nv_bfloat16* __restrict__ q,
         uint4 kx = make_uint4(0u, 0u, 0u, 0u), vx = kx;
         if (hd < H && k0 + row < Lk) {
           const long long off = static_cast<long long>(hd) * kHD + cv;
-          kx = *reinterpret_cast<const uint4*>(kb + static_cast<long long>(k0 + row) * k_sl + off);
-          vx = *reinterpret_cast<const uint4*>(vb + static_cast<long long>(k0 + row) * v_sl + off);
+          kx = *reinterpret_cast<const uint4*>(k_row(k0 + row) + off);
+          vx = *reinterpret_cast<const uint4*>(v_row(k0 + row) + off);
         }
         __nv_bfloat16* kd = kv + sl * kSlotElems;
         if constexpr (!kInt8QK) *reinterpret_cast<uint4*>(kd + row * kLDS + cv) = kx;
@@ -208,7 +235,7 @@ attention_out_int8_kernel(const __nv_bfloat16* __restrict__ q,
         for (int i = 0; i < VPR; ++i) raw[i] = make_uint4(0u, 0u, 0u, 0u);
         if (hd < H && k0 + row < Lk) {
           const uint4* src = reinterpret_cast<const uint4*>(
-              kb + static_cast<long long>(k0 + row) * k_sl + static_cast<long long>(hd) * kHD);
+              k_row(k0 + row) + static_cast<long long>(hd) * kHD);
 #pragma unroll
           for (int i = 0; i < VPR; ++i) raw[i] = src[i];
         }
@@ -368,17 +395,18 @@ attention_out_int8_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <bool kInt8QK>
+template <bool kInt8QK, bool k2Src = false>
 int launch(const void* q, const void* k, const void* v, const void* Wt, const void* s,
            const void* bias, const void* r, void* o, int B, int lq, int Lk, int H, int q_sb,
-           int q_sl, int k_sb, int k_sl, int v_sb, int v_sl, float c, void* stream) {
+           int q_sl, int k_sb, int k_sl, int v_sb, int v_sl, float c, void* stream,
+           Source2 s2 = Source2{nullptr, nullptr, 0, 0, 0, 0, 0}) {
   const int D = H * kHD;
   if (H <= 0 || D > kMaxRowPerLane * 32 || B <= 0 || lq <= 0 || Lk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = static_cast<size_t>(kBM) * (D + 16) * sizeof(float) +
                        static_cast<size_t>(kSlots) * kSlotElems * sizeof(__nv_bfloat16) +
                        kBM * sizeof(float);
-  auto kernel = attention_out_int8_kernel<kInt8QK>;
+  auto kernel = attention_out_int8_kernel<kInt8QK, k2Src>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -389,7 +417,7 @@ int launch(const void* q, const void* k, const void* v, const void* Wt, const vo
       static_cast<const __nv_bfloat16*>(v), static_cast<const int8_t*>(Wt),
       static_cast<const float*>(s), static_cast<const float*>(bias),
       static_cast<const __nv_bfloat16*>(r), static_cast<__nv_bfloat16*>(o), lq, Lk, H, q_sb,
-      q_sl, k_sb, k_sl, v_sb, v_sl, c, fast);
+      q_sl, k_sb, k_sl, v_sb, v_sl, c, fast, s2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -418,4 +446,22 @@ extern "C" int attention_out_int8_qk8_bf16(const void* q, const void* k, const v
                                            int v_sb, int v_sl, float c2, void* stream) {
   return launch<true>(q, k, v, Wt, s, bias, r, o, B, lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb,
                       v_sl, c2, stream);
+}
+
+// The two-source form: keys and values are [k1; k2] and [v1; v2], k1, v1
+// (B, L1, D) and k2, v2 (B, L2, D) with their own strides; every row of q
+// (B, Lq, D) is a query. int8_qk picks the score form (c is then c / 127^2).
+extern "C" int attention_out_int8_2src_bf16(
+    const void* q, const void* k1, const void* v1, const void* k2, const void* v2,
+    const void* Wt, const void* s, const void* bias, const void* r, void* o, int B, int Lq,
+    int L1, int L2, int H, int q_sb, int q_sl, int k1_sb, int k1_sl, int v1_sb, int v1_sl,
+    int k2_sb, int k2_sl, int v2_sb, int v2_sl, float c, int int8_qk, void* stream) {
+  if (L1 < 0 || L2 < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Source2 s2{static_cast<const __nv_bfloat16*>(k2), static_cast<const __nv_bfloat16*>(v2),
+                   L1, k2_sb, k2_sl, v2_sb, v2_sl};
+  if (int8_qk)
+    return launch<true, true>(q, k1, v1, Wt, s, bias, r, o, B, Lq, L1 + L2, H, q_sb, q_sl,
+                              k1_sb, k1_sl, v1_sb, v1_sl, c, stream, s2);
+  return launch<false, true>(q, k1, v1, Wt, s, bias, r, o, B, Lq, L1 + L2, H, q_sb, q_sl,
+                             k1_sb, k1_sl, v1_sb, v1_sl, c, stream, s2);
 }

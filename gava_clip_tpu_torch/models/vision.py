@@ -26,8 +26,11 @@ Training runs the same bf16 `_block` under autograd: the gradient reaches
 the prompts (global, local, summary) only through the keys-only extra rows
 of the attention kernel's dk / dv, and `time_embed` through dx of all the
 frozen blocks. `remat="full"` recomputes each block in the backward
-(`torch.utils.checkpoint`); the JAX package's named policies (save_attn,
-save_attn_qkv, save_attn_mlp, dots) are not ported (ROADMAP A7b).
+(`torch.utils.checkpoint`); the JAX package's named policies keep part of a
+block (`_block_remat`): `save_attn` the attention output and denominators,
+`save_attn_qkv` also q, k, v, `save_attn_mlp` also the fc1 pre-activation,
+`dots` the outputs of the GEMMs. Under the three `save_attn*` policies the
+attention forward kernel is not launched again in the backward.
 """
 
 from dataclasses import dataclass
@@ -35,7 +38,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops import extras_kernel
 from ..ops.activations import quick_gelu
@@ -276,18 +280,112 @@ def _block(p, g_prompt: Optional[torch.Tensor], x: torch.Tensor,
 _NAMED_REMAT = ("dots", "save_attn", "save_attn_qkv", "save_attn_mlp")
 
 
-def _remat_full(remat) -> bool:
-    """False for False / 'none', True for True / 'full'; the named
-    selective policies and anything else raise."""
+def _remat_policy(remat) -> Optional[str]:
+    """None for False / 'none', 'full' for True / 'full', the name of a
+    named policy; anything else raises."""
     if remat in (False, None, "none"):
-        return False
+        return None
     if remat in (True, "full"):
-        return True
+        return "full"
     if remat in _NAMED_REMAT:
-        raise NotImplementedError(
-            f"remat={remat!r}: the named rematerialization policies are not "
-            f"ported yet (ROADMAP A7b); use 'none' or 'full'")
+        return remat
     raise ValueError(f"unknown remat policy {remat!r}")
+
+
+def _pre_attention(p, g_prompt, x, cfg: VisionConfig, int8_impl: str):
+    """Everything of a float block in front of the attention call: prompt
+    extras, LN1 over [x; extras], the three projections. Returns q (the
+    first Lx rows only), k, v and the summary tokens."""
+    Lx = x.shape[1]
+    extras, summary = prompt_extras(p, g_prompt, x, cfg)
+    kv = torch.cat([x] + extras, dim=1) if extras else x
+    kv_n = layer_norm(kv, p["norm1"]["scale"], p["norm1"]["bias"])
+    return (linear(p["attn"]["q"], kv_n[:, :Lx], int8_impl),
+            linear(p["attn"]["k"], kv_n, int8_impl),
+            linear(p["attn"]["v"], kv_n, int8_impl), summary)
+
+
+def _mlp_hidden(p, x, attn, int8_impl: str):
+    """Out-projection + residual, then LN2 and fc1: (x, pre-activation)."""
+    x = x + linear(p["attn"]["out"], attn, int8_impl)
+    h = layer_norm(x, p["norm2"]["scale"], p["norm2"]["bias"])
+    return x, linear(p["mlp"]["fc1"], h, int8_impl)
+
+
+def _post_attention(p, x, attn, int8_impl: str):
+    """Everything of a float block behind the attention call."""
+    x, h = _mlp_hidden(p, x, attn, int8_impl)
+    return x + linear(p["mlp"]["fc2"], quick_gelu(h), int8_impl)
+
+
+_GEMM_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_gemm_outputs(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of remat='dots': the products without a
+    batch dimension (the projections) keep their outputs, everything else
+    (LayerNorm, activations, concatenations, the attention) is recomputed."""
+    return CheckpointPolicy.MUST_SAVE if op in _GEMM_OPS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _block_remat(policy: str, p, g_prompt, x, cfg: VisionConfig,
+                 attn_impl: str, int8_impl: str):
+    """`_block` with part of its activations dropped after the forward and
+    rebuilt in the backward (the JAX package's `jax.checkpoint` policies).
+    A custom autograd.Function is opaque to torch's op-level selective
+    checkpointing, so the `save_attn*` policies cut the block into
+    checkpointed segments around the attention call instead:
+
+      full           one segment: the whole block is recomputed, the
+                     attention forward kernel with it;
+      save_attn      [extras, LN1, q/k/v, attention] is one segment whose
+                     recomputation takes the attention's kept output and
+                     denominators (`keep` of `flash_attention`) instead of
+                     launching the forward again; q, k, v are rebuilt;
+      save_attn_qkv  the attention call stands outside the segments, so its
+                     own saved q, k, v, output and denominators stay and
+                     nothing in front of its backward is recomputed;
+      save_attn_mlp  save_attn_qkv, and the segment behind the attention is
+                     cut after fc1, whose output stays;
+      dots           one segment under a selective policy that keeps the
+                     GEMM outputs; the attention is recomputed.
+
+    Float leaves only: the int8 paths are inference paths."""
+    if quant_kind(p["attn"]["q"]["kernel"]) is not None:
+        raise NotImplementedError(
+            "remat policies apply to float blocks; the int8 leaves are "
+            "inference-only")
+    ck = dict(use_reentrant=False)
+    if policy == "full":
+        return checkpoint(_block, p, g_prompt, x, cfg, attn_impl, int8_impl,
+                          **ck)
+    if policy == "dots":
+        return checkpoint(
+            _block, p, g_prompt, x, cfg, attn_impl, int8_impl,
+            context_fn=lambda: create_selective_checkpoint_contexts(
+                _save_gemm_outputs), **ck)
+    if policy == "save_attn":
+        keep: dict = {}
+
+        def attend(x_):
+            q, k, v, summary = _pre_attention(p, g_prompt, x_, cfg, int8_impl)
+            return attention_core(q, k, v, cfg.heads, impl=attn_impl,
+                                  keep=keep), summary
+
+        attn, summary = checkpoint(attend, x, **ck)
+    else:
+        q, k, v, summary = checkpoint(_pre_attention, p, g_prompt, x, cfg,
+                                      int8_impl, **ck)
+        attn = attention_core(q, k, v, cfg.heads, impl=attn_impl)
+    if policy == "save_attn_mlp":
+        x, h = checkpoint(_mlp_hidden, p, x, attn, int8_impl, **ck)
+        x = checkpoint(
+            lambda x_, h_: x_ + linear(p["mlp"]["fc2"], quick_gelu(h_),
+                                       int8_impl), x, h, **ck)
+    else:
+        x = checkpoint(_post_attention, p, x, attn, int8_impl, **ck)
+    return x, summary
 
 
 def vision_encoder(params, x: torch.Tensor, cfg: VisionConfig,
@@ -301,8 +399,10 @@ def vision_encoder(params, x: torch.Tensor, cfg: VisionConfig,
     ops' kernels ('kernel') or their plain versions on any device
     ('plain'). remat: False / 'none' keeps every activation for the
     backward; True / 'full' keeps only each block's input and recomputes
-    the block in the backward (lowest memory)."""
-    remat_full = _remat_full(remat)
+    the block in the backward (lowest memory); 'save_attn',
+    'save_attn_qkv', 'save_attn_mlp' and 'dots' keep part of each block
+    (see `_block_remat`)."""
+    policy = _remat_policy(remat)
     D = cfg.feature_dim
     if input_format == "patches":
         B, T, N, P = x.shape
@@ -325,9 +425,9 @@ def vision_encoder(params, x: torch.Tensor, cfg: VisionConfig,
     summary = None
     for i, p in enumerate(params["blocks"]):
         g = None if g_prompts is None else g_prompts[i]
-        if remat_full and torch.is_grad_enabled():
-            x, summary = checkpoint(_block, p, g, x, cfg, attn_impl,
-                                    int8_impl, use_reentrant=False)
+        if policy is not None and torch.is_grad_enabled():
+            x, summary = _block_remat(policy, p, g, x, cfg, attn_impl,
+                                      int8_impl)
         else:
             x, summary = _block(p, g, x, cfg, attn_impl, int8_impl)
 

@@ -220,10 +220,14 @@ class VitaClipModel:
 
     `params` and `buffers` are nested dicts of tensors on `device` (None
     means the card). Pass `params` / `buffers` to wrap existing trees (for
-    example from `utils.jax_bridge`) instead of drawing new ones."""
+    example from `utils.jax_bridge`) instead of drawing new ones.
+    `backbone_state` is a flat reference state dict
+    (`utils.torch_convert.load_torch_state_dict`) laid over the drawn
+    towers."""
 
     def __init__(self, cfg: VitaClipConfig,
                  classnames: Optional[Sequence[str]] = None,
+                 backbone_state: Optional[Dict[str, np.ndarray]] = None,
                  zeroshot_text_features: Optional[np.ndarray] = None,
                  gen: Optional[torch.Generator] = None, device=None,
                  params: Optional[Dict] = None,
@@ -243,6 +247,23 @@ class VitaClipModel:
             # CPU generator, then one move
             gen = gen if gen is not None else torch.Generator().manual_seed(0)
             params = init_vita_clip_params(gen, cfg)
+            if backbone_state is not None:
+                # overlay the CLIP backbone (non-strict) before the prompt
+                # buffers are derived from the token embedding
+                from ..utils.torch_convert import (convert_text_tower,
+                                                   convert_vision_tower,
+                                                   merge_pytrees,
+                                                   strip_prefix)
+                vis_sd = strip_prefix(backbone_state, "visual.")
+                if vis_sd:
+                    params["visual"] = merge_pytrees(
+                        params["visual"],
+                        convert_vision_tower(vis_sd, cfg.vision.layers))
+                txt_sd = strip_prefix(backbone_state, "textual.")
+                if txt_sd and cfg.use_text_prompt_learning:
+                    params["textual"] = merge_pytrees(
+                        params["textual"],
+                        convert_text_tower(txt_sd, cfg.text.layers))
         if buffers is None:
             buffers = {}
             if cfg.use_text_prompt_learning:

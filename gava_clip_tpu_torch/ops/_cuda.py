@@ -47,6 +47,13 @@ _SIGNATURES = {
             [_VP] * 9 + [_I] * 5 + [_I] * 6 + [ctypes.c_float, _VP], _I),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
+    "packed_attention_bwd_recompute": {
+        # q, k, v, do, den scratch, delta scratch, dq, dk, dv; B, Lq, Lk, H,
+        # Dh; q/k/v batch and row strides; scale; stream
+        "packed_attention_bwd_recompute_bf16": (
+            [_VP] * 9 + [_I] * 5 + [_I] * 6 + [ctypes.c_float, _VP], _I),
+        "cuda_error_string": ([_I], ctypes.c_char_p),
+    },
     "streaming_attention": {
         # q, k, v, o, lse; B, Lq, Lk, H, Dh; q/k/v batch and row strides;
         # scale; causal; stream
@@ -80,6 +87,12 @@ _SIGNATURES = {
         # the int8 QK^T form: the constant is c / 127^2
         "attention_out_int8_qk8_bf16": (
             [_VP] * 8 + [_I] * 4 + [_I] * 6 + [ctypes.c_float, _VP], _I),
+        # the two-source form: q, k1, v1, k2, v2, W, s, bias, r, o; B, Lq,
+        # L1, L2, H; q/k1/v1/k2/v2 batch and row strides; constant; int8
+        # QK^T?; stream
+        "attention_out_int8_2src_bf16": (
+            [_VP] * 10 + [_I] * 5 + [_I] * 10 + [ctypes.c_float, _I, _VP],
+            _I),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "w8a8_mlp": {

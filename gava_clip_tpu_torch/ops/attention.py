@@ -24,11 +24,13 @@ from .linear import linear
 
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    num_heads: int, mask: Optional[torch.Tensor] = None,
-                   impl: str = "xla", causal: bool = False) -> torch.Tensor:
+                   impl: str = "xla", causal: bool = False,
+                   keep: Optional[Dict] = None) -> torch.Tensor:
     """Scaled dot-product attention over projected (B, L, H*Dh) q/k/v.
-    mask: additive, broadcastable to (Lq, Lk), applied in fp32."""
+    mask: additive, broadcastable to (Lq, Lk), applied in fp32. keep: see
+    `flash_attention` (the other implementation ignores it)."""
     if impl == "flash" and mask is None:
-        return flash_attention(q, k, v, num_heads, causal=causal)
+        return flash_attention(q, k, v, num_heads, causal=causal, keep=keep)
     B, Lq, D = q.shape
     Lk = k.shape[1]
     Dh = D // num_heads

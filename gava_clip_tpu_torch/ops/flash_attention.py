@@ -22,7 +22,18 @@ When a gradient is wanted the forward also emits the per-head
 denominators den (B, Lq, H) fp32 (the sums of the rounded e), and the
 backward rebuilds e from q and k and consumes the saved output and den
 (JAX `_packed_flash_saved`); `packed_attention_bwd_plain` spells out its
-rounding points.
+rounding points. `set_flash_bwd_mode("recompute")` (or
+GAVA_FLASH_BWD=recompute in the environment) selects the other backward
+of the JAX package (`_packed_flash_recompute`): the forward writes no
+denominators and saves q, k, v only, and the backward rebuilds the output
+and the denominators itself (`packed_attention_bwd_recompute_plain`; it
+takes delta from the unrounded fp32 output, the one rounding point in which
+the two modes differ).
+
+`enable_clamp_monitor` turns on the drift monitor of the one-pass softmax:
+every packed call then also computes the exact largest positive exp2
+argument outside the kernel and keeps the running maximum on the device;
+`read_clamp_stats` fetches it (one sync, at the caller's print step).
 
 Causal, or Lk > 640: the streaming kernels, a KV-blocked online softmax
 (standard softmax with max subtraction, probabilities cast to v's dtype
@@ -40,7 +51,9 @@ csrc/ or raises. There is no fallback between the two. The gradients are
 over the first `lq` query rows and all keys, kept in fp32, then a per-row
 int8 quant over the whole H*Dh-wide row, the int8 out-projection, bias and
 the residual add (csrc/attention_out_int8.cu; plain version
-`attention_out_int8_plain`). Its int8 QK^T form (`set_int8_qk`, or
+`attention_out_int8_plain`); `flash_attention_out_int8_2src` is the same
+over the keys [k1; k2] of two arrays that are never concatenated in device
+memory (TPU `_attention_out_kernel_2src`). Its int8 QK^T form (`set_int8_qk`, or
 GAVA_INT8_QK=1 in the environment; off by default) quantizes each head's
 slice of every query and key row to int8 and runs the score product in
 int8, with the two row scales folded into the exp2 argument; the other
@@ -64,7 +77,9 @@ _KERNEL_HEAD_DIM = 64     # the only head width the kernel is built for
 # these to show that its main path went through the kernels
 launch_counts = {"packed_attention": 0, "attention_out_int8": 0,
                  "attention_out_int8_qk8": 0,
+                 "attention_out_int8_2src": 0,
                  "packed_attention_den": 0, "packed_attention_bwd": 0,
+                 "packed_attention_bwd_recompute": 0,
                  "streaming_attention": 0, "streaming_attention_bwd": 0}
 
 
@@ -272,6 +287,32 @@ def packed_attention_bwd_plain(q, k, v, do, o, den, num_heads: int):
             _unheads(dv).to(v.dtype))
 
 
+def packed_attention_bwd_recompute_plain(q, k, v, do, num_heads: int):
+    """Plain version of the backward that saves no forward output (JAX
+    `_attention_bwd_kernel_recompute`): from q, k, v, do alone. It rebuilds
+    e, takes den as the fp32 sum of the e values AFTER their cast to v's
+    dtype, o = (e @ v) * inv_d in fp32 WITHOUT a cast, delta = rowsum(do *
+    o), and then follows `packed_attention_bwd_plain`. Returns dq, dk,
+    dv."""
+    Dh = q.shape[-1] // num_heads
+    scale = Dh ** -0.5
+    c = scale * _LOG2E
+    qh, kh, vh, doh = (_heads(x, num_heads).float() for x in (q, k, v, do))
+    s = qh @ kh.transpose(-1, -2)
+    e = torch.exp2(torch.clamp(s * c, max=_CLAMP)).to(v.dtype).float()
+    inv_d = 1.0 / torch.clamp(e.sum(dim=-1, keepdim=True), min=1e-30)
+    oh = (e @ vh) * inv_d
+    delta = (doh * oh).sum(dim=-1, keepdim=True)
+    dp = doh @ vh.transpose(-1, -2)
+    ds = ((e * inv_d) * (dp - delta)).to(v.dtype).float()
+    do_n = (doh * inv_d).to(v.dtype).float()
+    dq = (ds @ kh) * scale
+    dk = (ds.transpose(-1, -2) @ qh) * scale
+    dv = e.transpose(-1, -2) @ do_n
+    return (_unheads(dq).to(q.dtype), _unheads(dk).to(k.dtype),
+            _unheads(dv).to(v.dtype))
+
+
 def _visible(Lq: int, Lk: int, causal: bool, device) -> Optional[torch.Tensor]:
     """(Lq, Lk) bool mask of the keys each query row sees, None when all."""
     if not causal:
@@ -407,6 +448,42 @@ def packed_attention_bwd_cuda(q, k, v, do, o, den, num_heads: int):
     return dq, dk, dv
 
 
+def packed_attention_bwd_recompute_cuda(q, k, v, do, num_heads: int):
+    """Launch csrc/packed_attention_bwd_recompute.cu (its kernel that
+    rebuilds den and delta, then the dq and dk/dv kernels) on the current
+    stream (no sync). Returns dq, dk, dv."""
+    from ._cuda import load_library
+    _check_kernel_args(q, k, v, num_heads)
+    B, Lq, D = q.shape
+    Lk = k.shape[1]
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"do {do.dtype} {tuple(do.shape)} on {do.device}, "
+                         f"expected q's {q.dtype} {tuple(q.shape)} on "
+                         f"{q.device}")
+    do = do.contiguous()
+    lib = load_library("packed_attention_bwd_recompute")
+    dq = torch.empty((B, Lq, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Lk, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, Lk, D), dtype=q.dtype, device=q.device)
+    if B == 0 or Lq == 0 or Lk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    # den and delta, written by the first kernel, read by the other two
+    scratch = torch.empty((2, B, Lq, num_heads), dtype=torch.float32,
+                          device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.packed_attention_bwd_recompute_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            scratch[0].data_ptr(), scratch[1].data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Lq, Lk, num_heads,
+            D // num_heads, *_qkv_strides(q, k, v), (D // num_heads) ** -0.5,
+            stream)
+    if err != 0:
+        raise _launch_failed("packed_attention_bwd_recompute", lib, err)
+    launch_counts["packed_attention_bwd_recompute"] += 1
+    return dq, dk, dv
+
+
 def streaming_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, num_heads: int,
                              causal: bool = False
@@ -482,12 +559,14 @@ class _PackedAttention(torch.autograd.Function):
     one more kernel."""
 
     @staticmethod
-    def forward(ctx, q, k, v, num_heads: int):
+    def forward(ctx, q, k, v, num_heads: int, keep=None):
         fwd = _by_device(q, packed_attention_den_plain,
                          packed_attention_den_cuda, "packed attention")
         out, den = fwd(q, k, v, num_heads)
         ctx.save_for_backward(q, k, v, out, den)
         ctx.num_heads = num_heads
+        if keep is not None:
+            keep["out"], keep["den"] = out.detach(), den
         return out
 
     @staticmethod
@@ -496,7 +575,131 @@ class _PackedAttention(torch.autograd.Function):
         bwd = _by_device(q, packed_attention_bwd_plain,
                          packed_attention_bwd_cuda, "packed attention")
         dq, dk, dv = bwd(q, k, v, do, out, den, ctx.num_heads)
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
+
+
+class _PackedAttentionReplay(torch.autograd.Function):
+    """The packed attention of a block that is being recomputed for its
+    backward while the first forward's results were kept (`keep` of
+    `flash_attention`): it launches no forward kernel, hands back the kept
+    output and saves what the mode's backward reads, the kept denominators
+    included."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, out, den, num_heads: int):
+        if den is None:
+            ctx.save_for_backward(q, k, v)
+        else:
+            ctx.save_for_backward(q, k, v, out, den)
+        ctx.num_heads = num_heads
+        return out.view_as(out)
+
+    @staticmethod
+    def backward(ctx, do):
+        if len(ctx.saved_tensors) == 3:
+            q, k, v = ctx.saved_tensors
+            bwd = _by_device(q, packed_attention_bwd_recompute_plain,
+                             packed_attention_bwd_recompute_cuda,
+                             "packed attention")
+            dq, dk, dv = bwd(q, k, v, do, ctx.num_heads)
+        else:
+            q, k, v, out, den = ctx.saved_tensors
+            bwd = _by_device(q, packed_attention_bwd_plain,
+                             packed_attention_bwd_cuda, "packed attention")
+            dq, dk, dv = bwd(q, k, v, do, out, den, ctx.num_heads)
+        return dq, dk, dv, None, None, None
+
+
+class _PackedAttentionRecompute(torch.autograd.Function):
+    """Differentiable packed attention that saves q, k, v only (JAX
+    `_packed_flash_recompute`): the forward is the one that writes no
+    denominators, the backward rebuilds output and denominators."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads: int, keep=None):
+        fwd = _by_device(q, packed_attention_plain, packed_attention_cuda,
+                         "packed attention")
+        ctx.save_for_backward(q, k, v)
+        ctx.num_heads = num_heads
+        out = fwd(q, k, v, num_heads)
+        if keep is not None:
+            keep["out"], keep["den"] = out.detach(), None
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        bwd = _by_device(q, packed_attention_bwd_recompute_plain,
+                         packed_attention_bwd_recompute_cuda,
+                         "packed attention")
+        dq, dk, dv = bwd(q, k, v, do, ctx.num_heads)
+        return dq, dk, dv, None, None
+
+
+# which backward the packed path takes: 'saved' or 'recompute', read at
+# every call
+_BWD_MODE = os.environ.get("GAVA_FLASH_BWD", "saved")
+
+
+def set_flash_bwd_mode(mode: str) -> None:
+    """'saved' (default: the backward consumes the forward's output and
+    per-head denominators) or 'recompute' (the backward rebuilds them; only
+    q, k, v are kept). Affects calls made after it."""
+    global _BWD_MODE
+    if mode not in ("saved", "recompute"):
+        raise ValueError(f"mode must be 'saved' or 'recompute', got {mode!r}")
+    _BWD_MODE = mode
+
+
+# ---------------------------------------------------------------------------
+# clamp drift monitor (debug mode)
+# ---------------------------------------------------------------------------
+# The one-pass softmax replaces max subtraction by a clamp of the exp2
+# argument at 110: exact while the scaled scores stay below it, silently
+# flattening the weighting between keys above it. Nothing on the kernel path
+# sees a trained tower drift past the clamp, so this opt-in monitor computes
+# the exact largest exp2 argument outside the kernel (one more fp32 score
+# product per call).
+
+_monitor_enabled = False
+clamp_stats = {"max_exp2_arg": 0.0, "clipped": False, "calls": 0}
+# running maximum per device, fetched by read_clamp_stats
+_clamp_max: Dict[torch.device, torch.Tensor] = {}
+
+
+def enable_clamp_monitor(enabled: bool = True) -> None:
+    """Toggle the drift monitor and reset its statistics. Read at every
+    call of `flash_attention`."""
+    global _monitor_enabled
+    _monitor_enabled = bool(enabled)
+    _clamp_max.clear()
+    clamp_stats.update(max_exp2_arg=0.0, clipped=False, calls=0)
+
+
+def read_clamp_stats() -> Dict:
+    """Fetch the running maximum from the device(s) into `clamp_stats` and
+    return it: the one host sync of the monitor."""
+    for t in _clamp_max.values():
+        m = float(t)
+        if m > clamp_stats["max_exp2_arg"]:
+            clamp_stats["max_exp2_arg"] = m
+    clamp_stats["clipped"] = clamp_stats["max_exp2_arg"] >= _CLAMP
+    return clamp_stats
+
+
+def _monitor_clamp(q: torch.Tensor, k: torch.Tensor, num_heads: int) -> None:
+    """The clamp is one-sided (min(s * c, 110) saturates positive scores
+    only), so only the positive maximum counts: a large negative score
+    underflows exp2 harmlessly."""
+    Dh = q.shape[-1] // num_heads
+    c = Dh ** -0.5 * _LOG2E
+    with torch.no_grad():
+        s = _heads(q, num_heads).float() @ \
+            _heads(k, num_heads).float().transpose(-1, -2)
+        m = torch.clamp(s.max(), min=0.0) * c
+        seen = _clamp_max.get(q.device)
+        _clamp_max[q.device] = m if seen is None else torch.maximum(seen, m)
+    clamp_stats["calls"] += 1
 
 
 class _StreamingAttention(torch.autograd.Function):
@@ -522,19 +725,33 @@ class _StreamingAttention(torch.autograd.Function):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    num_heads: int = 12, causal: bool = False) -> torch.Tensor:
+                    num_heads: int = 12, causal: bool = False,
+                    keep: Optional[Dict] = None) -> torch.Tensor:
     """Self-attention over packed (B, L, H*Dh) q/k/v (JAX `flash_attention`).
 
     Non-causal with Lk <= 640 is the packed whole-row path; causal or
     longer keys the streaming path. Both are differentiable with kernel
     backward passes. Where no gradient is wanted (under `torch.no_grad()`,
     or none of q, k, v requires one) the packed path runs the forward that
-    writes no denominators."""
+    writes no denominators.
+
+    keep: a dict that outlives a rematerialized block (models/vision.py,
+    remat='save_attn'). The first differentiated packed call stores its
+    output (and denominators) there; a later call with the filled dict, the
+    block's recomputation, launches no forward kernel and hands the kept
+    output back, so only q, k, v are rebuilt."""
     wants_grad = torch.is_grad_enabled() and (
         q.requires_grad or k.requires_grad or v.requires_grad)
     if not causal and k.shape[1] <= _PACKED_MAX_LK:
+        if _monitor_enabled:
+            _monitor_clamp(q, k, num_heads)
         if wants_grad:
-            return _PackedAttention.apply(q, k, v, num_heads)
+            if keep:
+                return _PackedAttentionReplay.apply(
+                    q, k, v, keep["out"], keep["den"], num_heads)
+            fn = _PackedAttentionRecompute if _BWD_MODE == "recompute" \
+                else _PackedAttention
+            return fn.apply(q, k, v, num_heads, keep)
         return _by_device(q, packed_attention_plain, packed_attention_cuda,
                           "packed attention")(q, k, v, num_heads)
     if wants_grad:
@@ -635,3 +852,86 @@ def flash_attention_out_int8(q, k, v, num_heads: int, out_params: Dict,
     else:
         raise ValueError(f"no attention kernel for device {q.device}")
     return fn(q, k, v, num_heads, out_params, residual, lq, _INT8_QK)
+
+
+def attention_out_int8_2src_plain(q, k1, v1, k2, v2, num_heads: int,
+                                  out_params: Dict, residual: torch.Tensor,
+                                  int8_qk: bool = False) -> torch.Tensor:
+    """Plain version of the two-source entry of csrc/attention_out_int8.cu:
+    `attention_out_int8_plain` with the keys [k1; k2] and the values
+    [v1; v2], every row of q a query."""
+    return attention_out_int8_plain(
+        q, torch.cat([k1, k2], dim=1), torch.cat([v1, v2], dim=1), num_heads,
+        out_params, residual, None, int8_qk)
+
+
+def attention_out_int8_2src_cuda(q, k1, v1, k2, v2, num_heads: int,
+                                 out_params: Dict, residual: torch.Tensor,
+                                 int8_qk: bool = False) -> torch.Tensor:
+    """Launch the two-source entry of csrc/attention_out_int8.cu on the
+    current stream (no sync); k1, v1 and k2, v2 are read where they lie."""
+    from ._cuda import load_library
+    from .int8_matmul import _kernel_weight
+    _check_kernel_args(q, k1, v1, num_heads)
+    _check_kernel_args(q, k2, v2, num_heads)
+    B, Lq, D = q.shape
+    L1, L2 = k1.shape[1], k2.shape[1]
+    kernel = out_params["kernel"]
+    wt = _kernel_weight("attention_out_int8_2src", kernel, D, D)
+    scale, bias = kernel["scale"], out_params["bias"]
+    for name, t in (("out kernel", wt), ("scale", scale), ("bias", bias),
+                    ("residual", residual)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    if tuple(residual.shape) != (B, Lq, D) or residual.dtype != q.dtype:
+        raise ValueError(f"residual {residual.dtype} "
+                         f"{tuple(residual.shape)}, expected ({B}, {Lq}, "
+                         f"{D}) {q.dtype}")
+    if L1 + L2 == 0:
+        raise ValueError("the fused attention needs at least one key")
+    scale = scale.reshape(-1).float().contiguous()
+    bias = bias.reshape(-1).float().contiguous()
+    r = residual.contiguous()
+    out = torch.empty((B, Lq, D), dtype=q.dtype, device=q.device)
+    if B == 0 or Lq == 0:
+        return out
+    lib = load_library("attention_out_int8")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    c = (D // num_heads) ** -0.5 * _LOG2E
+    with torch.cuda.device(q.device):
+        err = lib.attention_out_int8_2src_bf16(
+            q.data_ptr(), k1.data_ptr(), v1.data_ptr(), k2.data_ptr(),
+            v2.data_ptr(), wt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            r.data_ptr(), out.data_ptr(), B, Lq, L1, L2, num_heads,
+            q.stride(0), q.stride(1), k1.stride(0), k1.stride(1),
+            v1.stride(0), v1.stride(1), k2.stride(0), k2.stride(1),
+            v2.stride(0), v2.stride(1),
+            c / (127.0 * 127.0) if int8_qk else c, int(int8_qk), stream)
+    if err != 0:
+        raise _launch_failed("attention_out_int8_2src", lib, err)
+    launch_counts["attention_out_int8_2src"] += 1
+    return out
+
+
+def flash_attention_out_int8_2src(q, k1, v1, k2, v2, num_heads: int,
+                                  out_params: Dict, residual: torch.Tensor,
+                                  impl: str = "kernel") -> torch.Tensor:
+    """`flash_attention_out_int8` over two separate key / value sources (JAX
+    `flash_attention_out_int8_2src`): the keys are the union [k1; k2], so a
+    caller whose second source is projected apart (prompt extras, a
+    precomputed memory) never writes the (B, L1 + L2, D) concatenation.
+    q, k1, v1, residual are (B, L1, D), k2, v2 (B, L2, D). Inference only.
+    The int8 QK^T switch (`set_int8_qk`) is read here, at every call."""
+    if k1.shape[1] + k2.shape[1] > _PACKED_MAX_LK:
+        raise NotImplementedError(
+            "the fused attention + int8 out-projection holds whole key "
+            "rows; more than 640 keys are outside it (ROADMAP B4)")
+    if impl == "plain" or q.device.type == "cpu":
+        fn = attention_out_int8_2src_plain
+    elif impl != "kernel":
+        raise ValueError(f"impl must be 'kernel' or 'plain', got {impl!r}")
+    elif q.device.type == "cuda":
+        fn = attention_out_int8_2src_cuda
+    else:
+        raise ValueError(f"no attention kernel for device {q.device}")
+    return fn(q, k1, v1, k2, v2, num_heads, out_params, residual, _INT8_QK)

@@ -103,7 +103,8 @@ def make_train_step(model, loss_cfg: LossConfig, optimizer=None,
     The optimizer lives in the state (`create_train_state`); the argument
     is kept so that a call reads like the JAX one. The step updates
     `state` in place and returns it. remat: False / 'none' | True /
-    'full' (see models/vision.py).
+    'full' | 'save_attn' | 'save_attn_qkv' | 'save_attn_mlp' | 'dots'
+    (see models/vision.py `_block_remat`).
 
     batch = {'video': (B,T,H,W,3), 'labels': (B,), 'nte': (B,70,E)?,
              'memory': (Bm,S,E)?, 'mt_labels': (Bm,)?}

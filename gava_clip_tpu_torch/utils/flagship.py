@@ -4,8 +4,9 @@
 global prompts, KAPT split_uni prompts over 5 knowledge versions, support
 memory and NTE heads. Where no knowledge files are given, synthetic
 stand-ins with the right shapes are generated. `build_zero_shot` is the
-serving model. Both put the model on the card unless a device is given.
-Loading a reference backbone `.pth` is not ported yet (ROADMAP A10).
+serving model. Both put the model on the card unless a device is given,
+and both lay a reference CLIP backbone `.pth` over the drawn weights when
+`backbone_path` names one.
 """
 
 import os.path as osp
@@ -55,10 +56,18 @@ def make_synthetic_knowledge_dir(n_cls: int, versions: Sequence[str],
     return kdir
 
 
+def _backbone_state(path: Optional[str]):
+    if path and osp.isfile(path):
+        from .torch_convert import load_torch_state_dict
+        return load_torch_state_dict(path)
+    return None
+
+
 def build_flagship(num_frames: int = 8, num_classes: int = 3,
                    knowledge_versions: Sequence[str] = ("v1", "v2", "v3",
                                                         "v4", "v5"),
                    knowledge_dir: Optional[str] = None,
+                   backbone_path: Optional[str] = None,
                    use_support_memory: bool = True, add_nte: bool = True,
                    input_size: int = 224, rng_seed: int = 0,
                    device=None) -> VitaClipModel:
@@ -81,6 +90,7 @@ def build_flagship(num_frames: int = 8, num_classes: int = 3,
         zeroshot_evaluation=False,
         use_support_memory=use_support_memory, add_nte=add_nte)
     return VitaClipModel(cfg, classnames=list(UPDRS_3CLS_CLASSNAMES),
+                         backbone_state=_backbone_state(backbone_path),
                          gen=torch.Generator().manual_seed(rng_seed),
                          device=device)
 
@@ -88,6 +98,7 @@ def build_flagship(num_frames: int = 8, num_classes: int = 3,
 def build_zero_shot(num_frames: int = 8, num_classes: int = 400,
                     input_size: int = 224,
                     text_features: Optional[np.ndarray] = None,
+                    backbone_path: Optional[str] = None,
                     rng_seed: int = 0, device=None) -> VitaClip:
     """Zero-shot eval model: ViT-B/16 with summary, local and global
     prompts, random weights from a seeded torch.Generator, precomputed
@@ -103,6 +114,15 @@ def build_zero_shot(num_frames: int = 8, num_classes: int = 400,
     # init on the host with a CPU generator, then move
     gen = torch.Generator().manual_seed(rng_seed)
     params = init_vita_clip_params(gen, cfg)
+    backbone = _backbone_state(backbone_path)
+    if backbone is not None:
+        from .torch_convert import (convert_vision_tower, merge_pytrees,
+                                    strip_prefix)
+        vis_sd = strip_prefix(backbone, "visual.")
+        if vis_sd:
+            params["visual"] = merge_pytrees(
+                params["visual"],
+                convert_vision_tower(vis_sd, cfg.vision.layers))
     model = VitaClip(cfg, params, torch.from_numpy(
         np.asarray(text_features, np.float32)))
     return model.to(device)

@@ -283,3 +283,122 @@ def test_flash_attention_dispatch_and_counts():
         assert torch.equal(tflash.flash_attention(x, x, x, 2, causal=True),
                            causal)
     assert not tflash._force_plain
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", PACKED_CASES)
+def test_packed_bwd_recompute_plain_matches_pallas(case, dtype):
+    """The backward from q, k, v, do alone against
+    `_packed_backward_recompute` (interpret mode). Tolerance as for the
+    saved-residual backward: sum order and exp2 in fp32, flipped bf16
+    roundings in bf16."""
+    B, Lq, Lk, H, Dh = case
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _qkvdo(4, *case, dtype)
+    g_j = jflash._packed_backward_recompute(jq, jk, jv, jdo, H)
+    g_t = tflash.packed_attention_bwd_recompute_plain(tq, tk, tv, tdo, H)
+    for name, a, b in zip(("dq", "dk", "dv"), g_t, g_j):
+        assert a.dtype == TORCH_DTYPE[dtype]
+        _close(a, b, dtype, name)
+
+
+def test_packed_bwd_recompute_rounding_point():
+    """The one rounding point in which the two backward modes differ: the
+    recompute form takes delta from the fp32 output, the saved form from
+    the output rounded to its dtype. In fp32 they agree to summation
+    noise; in bf16 the recompute form equals the saved form fed an
+    UNROUNDED output, and differs from it fed the bf16 output."""
+    case = (2, 13, 21, 2, 32)
+    _, (q, k, v, do) = _qkvdo(5, *case, "float32")
+    o, den = tflash.packed_attention_den_plain(q, k, v, 2)
+    for a, b in zip(tflash.packed_attention_bwd_recompute_plain(q, k, v, do,
+                                                                2),
+                    tflash.packed_attention_bwd_plain(q, k, v, do, o, den,
+                                                      2)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-6)
+    _, (q, k, v, do) = _qkvdo(5, *case, "bfloat16")
+    o32, den = tflash._onepass_attention_den_f32(q, k, v, 2)
+    rec = tflash.packed_attention_bwd_recompute_plain(q, k, v, do, 2)
+    # `num * (1 / den)` against `num / den`: an fp32 ulp, which flips few
+    # bf16 roundings of ds
+    unrounded = tflash.packed_attention_bwd_plain(q, k, v, do, o32, den, 2)
+    rounded = tflash.packed_attention_bwd_plain(q, k, v, do,
+                                                o32.to(torch.bfloat16), den,
+                                                2)
+    for a, b, c in zip(rec[:2], unrounded[:2], rounded[:2]):
+        assert (a != b).float().mean() < 0.01
+        assert (a != c).float().mean() > 0.02
+
+
+@pytest.mark.parametrize("case", [(2, 13, 21, 2, 32), (1, 20, 20, 2, 16)])
+def test_recompute_mode_matches_jax_grad(case):
+    """`set_flash_bwd_mode("recompute")` on both sides: torch.autograd
+    through `flash_attention` against jax.grad of the JAX function (its
+    `_packed_flash_recompute` VJP, interpret mode), fp32; the forward saves
+    q, k, v only. Both switches are reset."""
+    B, Lq, Lk, H, Dh = case
+    (jq, jk, jv, _), (tq, tk, tv, _) = _qkvdo(6, *case, "float32")
+    jflash.set_flash_bwd_mode("recompute")
+    tflash.set_flash_bwd_mode("recompute")
+    try:
+        g_j = jax.grad(lambda a, b, c: (jflash.flash_attention(a, b, c, H)
+                                        ** 2).sum(),
+                       argnums=(0, 1, 2))(jq, jk, jv)
+        ts = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+        out = tflash.flash_attention(*ts, H)
+        assert type(out.grad_fn).__name__ == \
+            "_PackedAttentionRecomputeBackward"
+        assert len(out.grad_fn.saved_tensors) == 3
+        (out ** 2).sum().backward()
+    finally:
+        jflash.set_flash_bwd_mode("saved")
+        tflash.set_flash_bwd_mode("saved")
+    for name, t, g in zip("qkv", ts, g_j):
+        np.testing.assert_allclose(_np(t.grad), _np(g), atol=2e-5, rtol=1e-4,
+                                   err_msg=name)
+    out = tflash.flash_attention(*[t.detach().requires_grad_() for t in ts],
+                                 H)
+    assert type(out.grad_fn).__name__ == "_PackedAttentionBackward"
+    with pytest.raises(ValueError, match="saved"):
+        tflash.set_flash_bwd_mode("both")
+
+
+def test_clamp_monitor_detects_drift():
+    """The opt-in drift monitor, as the JAX package's test of it: it
+    records the exact largest exp2 argument (equal to JAX's) and flags
+    scores past the clamp at 110; only the positive maximum counts; off, it
+    records nothing."""
+    rs = np.random.RandomState(0)
+    q, k, v = (rs.randn(2, 16, 32).astype(np.float32) for _ in range(3))
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    jflash.enable_clamp_monitor(True)
+    tflash.enable_clamp_monitor(True)
+    try:
+        jflash.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               num_heads=2).block_until_ready()
+        tflash.flash_attention(tq, tk, tv, num_heads=2)
+        stats = tflash.read_clamp_stats()
+        assert stats["calls"] == 1 and not stats["clipped"]
+        assert 0 < stats["max_exp2_arg"] < tflash._CLAMP
+        np.testing.assert_allclose(stats["max_exp2_arg"],
+                                   jflash.clamp_stats["max_exp2_arg"],
+                                   rtol=1e-5)
+        # the running maximum holds over calls
+        tflash.flash_attention(tq * 0.1, tk, tv, num_heads=2)
+        assert tflash.read_clamp_stats()["max_exp2_arg"] == \
+            stats["max_exp2_arg"]
+        assert tflash.clamp_stats["calls"] == 2
+
+        tflash.enable_clamp_monitor(True)            # resets the statistics
+        assert tflash.clamp_stats["calls"] == 0
+        tflash.flash_attention(tq * 40.0, tk * 40.0, tv, num_heads=2)
+        stats = tflash.read_clamp_stats()
+        assert stats["clipped"] and stats["max_exp2_arg"] >= tflash._CLAMP
+
+        tflash.enable_clamp_monitor(True)
+        tflash.flash_attention(tq, -tq, tv, num_heads=2)   # negative scores
+        assert tflash.read_clamp_stats()["max_exp2_arg"] < 40.0
+    finally:
+        jflash.enable_clamp_monitor(False)
+        tflash.enable_clamp_monitor(False)
+    tflash.flash_attention(tq, tk, tv, num_heads=2)
+    assert tflash.read_clamp_stats()["calls"] == 0

@@ -484,3 +484,67 @@ def test_unported_quantized_leaves_raise(kind, roadmap):
     for residual in (None, x):
         out = tlin.mlp_block(block, norm, x, quick_gelu, residual=residual)
         assert out.shape == (2, 4) and torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("int8_qk", [False, True])
+@pytest.mark.parametrize("B,L1,L2,H,Dh", [(2, 29, 13, 4, 16),
+                                          (3, 13, 5, 2, 64),
+                                          (2, 16, 1, 2, 16)])
+def test_attention_out_int8_2src_plain_matches_jax_kernel(forced_kernels, B,
+                                                          L1, L2, H, Dh,
+                                                          int8_qk):
+    """The two-source form (JAX `flash_attention_out_int8_2src`, interpret
+    mode) in both score forms: keys [k1; k2] from two arrays. Tolerance as
+    for the single-source op (2 bf16 ulp + one flip unit). The port's plain
+    version equals its single-source plain version on the concatenation bit
+    for bit."""
+    rs = np.random.RandomState(17)
+    D = H * Dh
+    q, k1, v1, res = (rs.randn(B, L1, D) for _ in range(4))
+    k2, v2 = rs.randn(B, L2, D), rs.randn(B, L2, D)
+    (qj, sj), (qt, st) = _qweight(rs, D, D)
+    bias = rs.randn(D) * 0.02
+    bf = jnp.bfloat16
+    tq, tk1, tv1, tk2, tv2, tres = (_t(a, torch.bfloat16)
+                                    for a in (q, k1, v1, k2, v2, res))
+    top = {"kernel": {"qa": qt, "scale": st}, "bias": _t(bias)}
+    jflash.set_int8_qk(int8_qk)
+    tflash.set_int8_qk(int8_qk)
+    try:
+        out_j = jflash.flash_attention_out_int8_2src(
+            _j(q, bf), _j(k1, bf), _j(v1, bf), _j(k2, bf), _j(v2, bf), H,
+            {"kernel": {"qa": qj, "scale": sj}, "bias": _j(bias)},
+            _j(res, bf))
+        out_t = tflash.flash_attention_out_int8_2src(tq, tk1, tv1, tk2, tv2,
+                                                     H, top, tres)
+        one_t = tflash.flash_attention_out_int8(
+            tq, torch.cat([tk1, tk2], dim=1), torch.cat([tv1, tv2], dim=1),
+            H, top, tres)
+    finally:
+        jflash.set_int8_qk(False)
+        tflash.set_int8_qk(False)
+    assert out_t.shape == (B, L1, D) and out_t.dtype == torch.bfloat16
+    assert torch.equal(out_t, one_t)
+    a32 = tflash._onepass_attention_den_f32(
+        tq, torch.cat([tk1, tk2], dim=1), torch.cat([tv1, tv2], dim=1), H,
+        int8_qk=int8_qk)[0]
+    _assert_close(out_t, out_j, _unit(tim.quant_rows(a32)[1], st))
+    torch.testing.assert_close(
+        tflash.attention_out_int8_2src_plain(tq, tk1, tv1, tk2, tv2, H, top,
+                                             tres, int8_qk),
+        out_t, rtol=0, atol=0)
+
+
+def test_attention_out_int8_2src_wrapper_needs_cuda_and_640_keys():
+    rs = np.random.RandomState(3)
+    t = _t(rs.randn(1, 8, 128), torch.bfloat16)
+    (_, _), (qt, st) = _qweight(rs, 128, 128)
+    top = {"kernel": {"qa": qt, "scale": st}, "bias": _t(rs.randn(128))}
+    with pytest.raises(ValueError, match="CUDA"):
+        tflash.attention_out_int8_2src_cuda(t, t, t, t, t, 2, top, t)
+    long = _t(rs.randn(1, 640, 128), torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="640"):
+        tflash.flash_attention_out_int8_2src(t, t, t, long, long, 2, top, t)
+    with pytest.raises(ValueError, match="impl"):
+        tflash.flash_attention_out_int8_2src(
+            t.to("meta"), t, t, t, t, 2, top, t, impl="fast")
