@@ -26,7 +26,9 @@ The w8a8 path gets the same three checks:
   w8a8-kernel  the four int8 kernels (w8a8_matmul, w8a8_matmul3_cat,
           attention_out_int8, w8a8_mlp_res) against their plain versions at
           the serving shapes and ragged ones, with CUDA-event times of both
-          (limits in W8A8_LIMITS);
+          (limits in W8A8_LIMITS); w8a8_matmul also at rows longer than the
+          1,024 values a warp holds in registers (the text MLP's fc2, 1,155
+          x 2,048, and a ragged K), bit for bit;
   w8a8-slice   VideoClassifier(quantize="w8a8", patch_major=True) on the
           pathology weights at batch 16: launches per forward (1, 12, 12, 12
           and no packed attention), probabilities, the padded bucket, the
@@ -42,8 +44,9 @@ The training step:
           (limits in TRAIN_LIMITS); the packed backwards run twice and must
           give the same bits; CUDA-event times of kernel, plain version and
           F.scaled_dot_product_attention (a yardstick only), the packed
-          backwards against SDPA's backward in turns (the median ratio of
-          7 rounds, and their range);
+          backwards against SDPA's backward and the packed forwards (B6a,
+          and B1 on the same inputs) against SDPA's forward in turns (the
+          median ratio of 7 rounds, and their range);
   train-slice   build_flagship (ViT-B/16, T=8, text tower 12 x 512, KAPT
           prompts over 5 knowledge versions, memory + NTE heads, random
           seeded weights) -> trainable_mask -> create_train_state ->
@@ -70,10 +73,12 @@ The training and evaluation programs:
           --auto_resume repeats the uninterrupted run's losses, the clamp
           monitor stays below 110; then cli.evaluate.main on that run
           (plain and --quantize_eval w8a8), the flagship's text features
-          with its text attention projections in w8a8 (12 B3a launches of
-          15 x 77 rows, each held against w8a8_matmul3_plain on its own
-          inputs) and cli.zero_shot.main on a reference-format .pth written
-          from a model's own weights;
+          with its whole text tower in w8a8 (12 B3a launches of 15 x 77
+          rows, each held against w8a8_matmul3_plain on its own inputs, and
+          36 B2 launches, the out-projections and fc1 at rows of 512 and
+          fc2 at rows of 2,048, each held bit for bit against
+          w8a8_matmul_plain) and cli.zero_shot.main on a reference-format
+          .pth written from a model's own weights;
   driver-long  cli.train.main at 4 clips x 70 frames (selects
           save_attn_qkv), then the bare step under every remat policy:
           ms/step, peak memory, attention forward launches per step.
@@ -88,7 +93,10 @@ The remaining serving modes:
           versions at the serving shapes and ragged ones (limits in
           W8_LIMITS, EXTRAS_LIMITS, W8A8_LIMITS), with CUDA-event times of
           kernel, plain version and, where there is one, a stock PyTorch
-          yardstick; the qkv kernel without extras rows is timed here too,
+          yardstick (for the w8 GEMM torch.matmul on the dequantized
+          weight, in turns: the median ratio of 7 rounds at each of the
+          four projection shapes); the qkv kernel without extras rows is
+          timed here too,
           and its entry w8a8_matmul3 (B3a) checked and timed at the text
           attention's shape of the driver phase;
   w8-slice     VideoClassifier(quantize="w8") at batch 16: 72 int8_matmul
@@ -282,6 +290,15 @@ def phase_build(state):
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
+    # B9 is a wgmma kernel: its machine code must hold HGMMA instructions
+    cuobjdump = os.path.join(os.path.dirname(_cuda.find_nvcc()), "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", _cuda.build_info["w8_matmul"]["so"]],
+        capture_output=True, text=True, check=True).stdout
+    log(f"[build] w8_matmul SASS: {sass.count('HGMMA')} HGMMA (wgmma), "
+        f"{sass.count('HMMA')} HMMA (mma.sync) instructions")
+    if not sass.count("HGMMA"):
+        raise AssertionError("w8_matmul was built without wgmma")
 
 
 def phase_kernel(state):
@@ -380,8 +397,17 @@ W8A8_LIMITS = {
 W8A8_LIMITS["w8a8_mlp"] = W8A8_LIMITS["w8a8_mlp_res"][:2] + (4.0,)
 W8A8_LIMITS["attention_out_int8_qk8"] = W8A8_LIMITS["attention_out_int8"]
 # shapes: the serving shape first, then ragged ones (M not a multiple of
-# the tile, odd N, K not a multiple of 64, Le = 0, lq < Lkv)
-W8A8_MATMUL_SHAPES = ((25088, 768, 768), (37, 768, 77), (45, 100, 33))
+# the tile, odd N, K not a multiple of 64, Le = 0, lq < Lkv). B2 also takes
+# rows longer than the 1,024 values a warp holds in registers: the text
+# MLP's fc2 (15 prompts x 77 tokens, K = 2,048, N = 512), a ragged K, and
+# rows too long for 64 rows of codes in shared memory (32 and 16 per block).
+# Its inputs: raw pixels at the patch embed, else normal activations, whose
+# absmax sits anywhere in the row (a kernel that took the absmax of the
+# first 1,024 values only would wrap codes past 127 in about half the rows)
+W8A8_MATMUL_SHAPES = ((25088, 768, 768, "pixels"), (37, 768, 77, "pixels"),
+                      (45, 100, 33, "pixels"), (1155, 2048, 512, "normal"),
+                      (37, 1100, 77, "normal"), (37, 4096, 77, "normal"),
+                      (19, 8000, 40, "normal"))
 W8A8_QKV_SHAPES = ((128, 197, 17, 768, 768), (3, 13, 5, 96, 40),
                    (4, 21, 0, 768, 768), (2, 9, 0, 64, 19))
 # (B, lq, Lq rows of q, Lk, H)
@@ -485,17 +511,24 @@ def phase_w8a8_kernels(state):
                 f"({bound[1]}) (order plain, kernel, kernel, plain; "
                 f"{state['smi']})")
 
-    for i, (M, K, N) in enumerate(W8A8_MATMUL_SHAPES):
-        x = torch.randint(0, 256, (M, K), generator=gen,
-                          device="cuda").to(bf)
-        kern = _qleaf(gen, K, N)
-        b = torch.randn(N, generator=gen, device="cuda") * 0.1
+    def b2_check(M, K, N, kind, g, first):
+        x = torch.randint(0, 256, (M, K), generator=g,
+                          device="cuda").to(bf) if kind == "pixels" \
+            else torch.randn(M, K, generator=g, device="cuda").to(bf)
+        kern = _qleaf(g, K, N)
+        b = torch.randn(N, generator=g, device="cuda") * 0.1
         unit = _flip_unit(im.quant_rows(x.float())[1], kern["scale"])
         run("w8a8_matmul", f"M={M} K={K} N={N}",
             lambda: im.w8a8_matmul_cuda(x, kern, b),
-            lambda: im.w8a8_matmul_plain(x, kern, b), unit, i == 0,
+            lambda: im.w8a8_matmul_plain(x, kern, b), unit, first,
             _bound(2 * M * K + K * N + 8 * N + 2 * M * N,
                    ops_int8=2 * M * K * N))
+
+    # the rows of at most 1,024 values first, on the generator the checks
+    # below draw from; the long rows last, on one of their own
+    short = [s for s in W8A8_MATMUL_SHAPES if s[1] <= 1024]
+    for i, shape in enumerate(short):
+        b2_check(*shape, gen, i == 0)
 
     for i, (B, Lx, Le, K, N) in enumerate(W8A8_QKV_SHAPES):
         x, e = randn(B, Lx, K), (randn(B, Le, K) if Le else None)
@@ -592,6 +625,10 @@ def phase_w8a8_kernels(state):
                 f"ms; the single-source kernel on keys concatenated "
                 f"beforehand {t_one:.4f} ms, the two concatenations "
                 f"{t_cat:.4f} ms ({state['smi']})")
+    gen_long = torch.Generator(device="cuda").manual_seed(4)
+    for shape in W8A8_MATMUL_SHAPES:
+        if shape[1] > 1024:
+            b2_check(*shape, gen_long, False)
     if state.get("w8a8_failures"):
         raise AssertionError(f"w8a8 kernels disagree with their plain "
                              f"versions: {state['w8a8_failures']}")
@@ -982,6 +1019,24 @@ def _sdpa_times(q, k, v, do, H, causal):
     return fwd, bwd
 
 
+def _sdpa_fwd(q, k, v, H):
+    """A call of F.scaled_dot_product_attention's forward on the same inputs
+    (a yardstick only: the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+    B, Lq, D = q.shape
+
+    def heads(x):
+        return x.view(B, x.shape[1], H, D // H).transpose(1, 2)
+
+    qh, kh, vh = heads(q), heads(k), heads(v)
+
+    def call():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qh, kh, vh)
+    return call
+
+
 def _sdpa_bwd(q, k, v, do, H, causal=False):
     """A call of F.scaled_dot_product_attention's backward on the same
     inputs (a yardstick only: the port never calls it)."""
@@ -1054,9 +1109,9 @@ def phase_train_kernels(state):
     versions on the card, at the training shapes, ragged ones and the edge
     of the packed path; B6b and B8 also run twice and must give the same
     bits; CUDA-event times of kernel, plain version and
-    F.scaled_dot_product_attention at the training shapes, and B6b's and
-    B8's time against SDPA backward's, taken in turns (median of 7
-    rounds)."""
+    F.scaled_dot_product_attention at the training shapes, B6b's and B8's
+    time against SDPA backward's and B6a's and B1's against SDPA forward's,
+    taken in turns (median of 7 rounds)."""
     import torch
     from gava_clip_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -1163,6 +1218,21 @@ def phase_train_kernels(state):
                     for name, r in (("B6b", r6), ("B8", r8)))
                 + f" ({state['smi']})")
             del sdpa_b
+            # B6a and B1 (the same kernel without den) against SDPA's
+            # forward, in turns
+            sdpa_f = _sdpa_fwd(q, k, v, H)
+            r6a = _ratio_turns(lambda: fa.packed_attention_den_cuda(q, k, v,
+                                                                    H),
+                               sdpa_f)
+            r1 = _ratio_turns(lambda: fa.packed_attention_cuda(q, k, v, H),
+                              sdpa_f)
+            log(f"[train-kernel] {label}: kernel vs SDPA forward, median of "
+                f"7 rounds in turns (kernel, SDPA, SDPA, kernel; 10 calls "
+                f"each): " + "; ".join(
+                    f"{name} {r[0]:.4f} ms vs {r[1]:.4f} ms, ratio {r[2]:.3f} "
+                    f"(rounds {r[3]:.3f}-{r[4]:.3f})"
+                    for name, r in (("B6a", r6a), ("B1", r1)))
+                + f" ({state['smi']})")
             bounds = _attention_bounds(B, Lq, Lk, H)
             log(f"[train-kernel] {label}: B6a kernel {t_f['kernel']} ms, "
                 f"plain {t_f['plain']} ms, SDPA forward {lib_f:.4f} ms, bound "
@@ -1176,7 +1246,7 @@ def phase_train_kernels(state):
                 f"kernel, plain; {state['smi']})")
             if i == 0:
                 for name, err, ms, plain, lib, key in (
-                        ("packed_attention_den", err_f, ms_f, plain_f, lib_f,
+                        ("packed_attention_den", err_f, ms_f, plain_f, r6a[1],
                          "fwd_stat"),
                         ("packed_attention_bwd", err_b, ms_b, plain_b, r6[1],
                          "bwd"),
@@ -1188,7 +1258,7 @@ def phase_train_kernels(state):
                         "library_ms": lib}
                 # B1 shares this shape: its bound and its yardstick
                 state["b1_bound"] = bounds["fwd"]
-                state["b1_library_ms"] = lib_f
+                state["b1_library_ms"] = r1[1]
 
     for i, (B, Lq, Lk, H, causal) in enumerate(TRAIN_STREAM_SHAPES):
         D = H * 64
@@ -1518,11 +1588,13 @@ def phase_train_long(state):
 # before the product moves most weights by a bf16 ulp and so most outputs.
 W8_LIMITS = (5e-3, 1e-3, 2e-5)
 # (M, K, N): the projections of one block at batch 16 (q and out; k and v
-# over the 214 kv rows; fc1; fc2), then ragged ones (K no multiple of 8: the
-# element-wise loads; K a multiple of 8 but not of 16, ragged M and N)
+# over the 214 kv rows; fc1; fc2), then ragged ones (K no multiple of 8:
+# x copied zero-padded; K a multiple of 8 but not of 16, ragged M and odd
+# N: element-wise stores; ragged M, N and K with 16-byte stores)
 W8_MATMUL_SHAPES = ((25216, 768, 768, "q / out"), (27392, 768, 768, "k / v"),
                     (25216, 768, 3072, "fc1"), (25216, 3072, 768, "fc2"),
-                    (37, 100, 33, "ragged"), (300, 776, 130, "ragged"))
+                    (37, 100, 33, "ragged"), (300, 776, 130, "ragged"),
+                    (391, 1000, 264, "ragged"))
 # The fused extras against their plain version: fp32 arithmetic on both
 # sides, sums in another order. fp32 outputs within EXTRAS_TOL * max(1,
 # max |plain|); bf16 outputs (each the rounding of such an fp32 value) equal
@@ -1557,9 +1629,11 @@ INT8_QK_LOOSE_MAX = 3e-2
 
 
 def _w8_leaf(gen, K, N):
-    """A weight-only kernel leaf {'q', 'scale', 'q_t'} (heavy-tailed rows)."""
+    """A weight-only kernel leaf {'q', 'scale', 'q_t'} (heavy-tailed rows;
+    'q_t' the w8 kernel's tiles)."""
+    from gava_clip_tpu_torch.ops.int8_matmul import with_kernel_layout
     leaf = _qleaf(gen, K, N)
-    return {"q": leaf["qa"], "scale": leaf["scale"], "q_t": leaf["qa_t"]}
+    return with_kernel_layout({"q": leaf["qa"], "scale": leaf["scale"]})
 
 
 def _record(state, name, err, ms, plain_ms, bound, library_ms):
@@ -1601,20 +1675,24 @@ def _w8_matmul_checks(state, gen):
         ms, plain_ms, t = _time_pair(
             lambda: im.int8_matmul_cuda(x, leaf),
             lambda: im.int8_matmul_plain(x, leaf["q"], leaf["scale"]))
-        # the one PyTorch call that computes the same function (a yardstick
-        # only: the port never calls it)
-        lib = cuda_time_ms(lambda: torch.matmul(
-            x, (leaf["q"].float() * leaf["scale"]).to(x.dtype)), iters=10)
+        # the one PyTorch call that computes the same function, on the
+        # weight dequantized beforehand (a yardstick only: the port never
+        # calls it), in turns with the kernel
+        w = im.dequant_weight(leaf["q"], leaf["scale"], x.dtype)
+        r = _ratio_turns(lambda: im.int8_matmul_cuda(x, leaf),
+                         lambda: torch.matmul(x, w))
         bound = _bound(2 * M * K + K * N + 4 * N + 2 * M * N,
                        flops_bf16=2 * M * K * N)
         log(f"[w8-kernel] int8_matmul {what}: kernel {t['kernel']} ms "
             f"({2e-9 * M * K * N / ms:.0f} TFLOP/s), plain {t['plain']} ms, "
-            f"torch.matmul on the dequantized weight {lib:.4f} ms, bound "
-            f"{bound[0]:.4f} ms ({bound[1]}) (order plain, kernel, kernel, "
-            f"plain; {state['smi']})")
+            f"bound {bound[0]:.4f} ms ({bound[1]}) (order plain, kernel, "
+            f"kernel, plain); vs torch.matmul on the dequantized weight, "
+            f"median of 7 rounds in turns (kernel, matmul, matmul, kernel; "
+            f"10 calls each): {r[0]:.4f} ms vs {r[1]:.4f} ms, ratio "
+            f"{r[2]:.3f} (rounds {r[3]:.3f}-{r[4]:.3f}) ({state['smi']})")
         if what == "fc1":
             _record(state, "int8_matmul", err.max().item(), ms, plain_ms,
-                    bound, lib)
+                    bound, r[1])
 
 
 def _w8a8_mlp_checks(state, gen):
@@ -2455,6 +2533,114 @@ def _reference_state_dict(params) -> dict:
     return {k: v.detach().float().cpu() for k, v in sd.items()}
 
 
+def _w8a8_text_features(state, model):
+    """The flagship's text features with the whole text tower in w8a8:
+    launch counts, each B3a and B2 launch against its plain version on
+    its own inputs, the cosine to the bf16 features."""
+    import torch
+    # B3a's main path, and B2's at rows of 2,048. No program runs a
+    # quantized text tower (cli.evaluate's zero-shot model holds the
+    # vision tower only). So: the text features of the flagship with
+    # its whole text tower in w8a8 (the attention projections and the
+    # MLP), held against the same call on the bf16 weights
+    from gava_clip_tpu_torch.ops.int8_matmul import with_kernel_layout
+    from gava_clip_tpu_torch.ops.quant import quantize_weight
+    bf = torch.bfloat16
+    textual = model.params["textual"]
+
+    def q8_linears(group):
+        return {n: dict(p, kernel=dict(zip(("qa", "scale"),
+                                           quantize_weight(p["kernel"]))))
+                for n, p in group.items()}
+    blocks = [dict(blk, attn=q8_linears(blk["attn"]),
+                   mlp=q8_linears(blk["mlp"]))
+              for blk in textual["blocks"]]
+    q8 = with_kernel_layout(dict(model.params,
+                                 textual=dict(textual, blocks=blocks)))
+    # keep each B3a and B2 launch's inputs and outputs, to hold it
+    # against the plain version on the same inputs after the call
+    from gava_clip_tpu_torch.ops import int8_matmul as im
+    b3a_calls, b3a_cuda = [], im.w8a8_matmul3_cuda
+    b2_calls, b2_cuda = [], im.w8a8_matmul_cuda
+
+    def recording_b3a(x, kernels3, bias3, ln=None):
+        outs = b3a_cuda(x, kernels3, bias3, ln)
+        b3a_calls.append(((x.clone(), kernels3, bias3, ln),
+                          tuple(o.clone() for o in outs)))
+        return outs
+
+    def recording_b2(x, kernel, bias=None):
+        out = b2_cuda(x, kernel, bias)
+        b2_calls.append(((x.clone(), kernel, bias), out.clone()))
+        return out
+    im.w8a8_matmul3_cuda, im.w8a8_matmul_cuda = recording_b3a, \
+        recording_b2
+    try:
+        _reset_launch_counts()
+        tf8 = model.text_features_only(q8, model.buffers, bf)
+        torch.cuda.synchronize()
+        n3 = _launch_counts()
+    finally:
+        im.w8a8_matmul3_cuda, im.w8a8_matmul_cuda = b3a_cuda, b2_cuda
+    b3a_ok, b3a_errs = True, []
+    for i, ((x, k3, b3, ln), outs) in enumerate(b3a_calls):
+        refs = im.w8a8_matmul3_plain(x, k3, b3, ln)
+        xs = im.quant_rows(x.float())[1]
+        for o, r, leaf in zip(outs, refs, k3):
+            good, err, text = _check_w8a8(
+                "w8a8_matmul3_cat", o, r, _flip_unit(xs, leaf["scale"]))
+            b3a_ok, b3a_errs = b3a_ok and good, b3a_errs + [err]
+            if not good:
+                log(f"[driver] text block {i} B3a {tuple(x.shape)}: "
+                    f"{text} FAIL")
+        b3a_ok = b3a_ok and tuple(x.shape) == (TEXT_QKV_ROWS, TEXT_WIDTH)
+    log(f"[driver] B3a launches of the text features held against "
+        f"w8a8_matmul3_plain on their inputs: {len(b3a_calls)} launches "
+        f"of {sorted({tuple(c[0][0].shape) for c in b3a_calls})} rows "
+        f"(expect ({TEXT_QKV_ROWS}, {TEXT_WIDTH})), largest max_abs_err "
+        f"{max(b3a_errs, default=float('nan')):.3e}, limits "
+        f"{W8A8_LIMITS['w8a8_matmul3_cat']}: {'ok' if b3a_ok else 'FAIL'}")
+    del b3a_calls
+    # B2: the out-projection and fc1 (K = 512) and fc2 (K = 2,048) of
+    # each block, each launch bit-equal to the plain version
+    b2_ok, b2_errs = True, []
+    for i, ((x, kern, bias), out) in enumerate(b2_calls):
+        ref = im.w8a8_matmul_plain(x, kern, bias)
+        good, err, text = _check_w8a8(
+            "w8a8_matmul", out, ref,
+            _flip_unit(im.quant_rows(x.float())[1], kern["scale"]))
+        b2_ok, b2_errs = b2_ok and good, b2_errs + [err]
+        if not good:
+            log(f"[driver] text launch {i} B2 {tuple(x.shape)}: {text} "
+                f"FAIL")
+    b2_widths = sorted({c[0][0].shape[1] for c in b2_calls})
+    b2_ok = b2_ok and b2_widths == sorted(TEXT_B2_WIDTHS) and all(
+        c[0][0].shape[0] == TEXT_QKV_ROWS for c in b2_calls)
+    log(f"[driver] B2 launches of the text features held against "
+        f"w8a8_matmul_plain on their inputs: {len(b2_calls)} launches of "
+        f"{TEXT_QKV_ROWS} rows, row widths {b2_widths} (expect "
+        f"{sorted(TEXT_B2_WIDTHS)}), largest max_abs_err "
+        f"{max(b2_errs, default=float('nan')):.3e}, limits "
+        f"{W8A8_LIMITS['w8a8_matmul']} (bit-equal): "
+        f"{'ok' if b2_ok else 'FAIL'}")
+    del b2_calls
+    tf16 = model.text_features_only(model.params, model.buffers, bf)
+    cos = (tf8.float() * tf16.float()).sum(-1).min().item()
+    log(f"[driver] text features, w8a8 text tower "
+        f"{tuple(tf8.shape)}: "
+        f"launches w8a8_matmul3 {n3['w8a8_matmul3']}, w8a8_matmul "
+        f"{n3['w8a8_matmul']} (expect {TEXT_W8A8_LAUNCHES}); smallest "
+        f"cosine to the bf16 model's {cos:.5f} (limit "
+        f"{TEXT_W8A8_MIN_COSINE})")
+    state.setdefault("launches_by_kernel", {})["w8a8_matmul3"] = \
+        n3["w8a8_matmul3"]
+    if any(n3[k] != n for k, n in TEXT_W8A8_LAUNCHES.items()) or \
+            not b3a_ok or not b2_ok or tf8.shape != tf16.shape or \
+            not bool(torch.isfinite(tf8.float()).all()) or \
+            cos < TEXT_W8A8_MIN_COSINE:
+        raise AssertionError("the w8a8 text features failed their checks")
+
+
 def phase_cli(state):
     """cli.train, cli.evaluate and cli.zero_shot at full width on a
     synthetic fold."""
@@ -2628,75 +2814,7 @@ def phase_cli(state):
         # own weights
         from gava_clip_tpu_torch.utils.flagship import build_flagship
         model = build_flagship(num_frames=8, knowledge_dir=kdir)
-        # B3a's main path. No program runs a quantized text tower
-        # (cli.evaluate's zero-shot model holds the vision tower only), and
-        # a w8a8 text MLP is outside the w8a8 GEMM kernels (its fc2 takes
-        # rows of 2,048 > 1,024). So: the text features of the flagship
-        # with its text attention projections in w8a8, held against the
-        # same call on the bf16 weights
-        from gava_clip_tpu_torch.ops.int8_matmul import with_kernel_layout
-        from gava_clip_tpu_torch.ops.quant import quantize_weight
-        bf = torch.bfloat16
-        textual = model.params["textual"]
-        blocks = [dict(blk, attn={
-            n: dict(p, kernel=dict(zip(("qa", "scale"),
-                                       quantize_weight(p["kernel"]))))
-            for n, p in blk["attn"].items()}) for blk in textual["blocks"]]
-        q8 = with_kernel_layout(dict(model.params,
-                                     textual=dict(textual, blocks=blocks)))
-        # keep each B3a launch's inputs and outputs, to hold it against the
-        # plain version on the same inputs after the call
-        from gava_clip_tpu_torch.ops import int8_matmul as im
-        b3a_calls, b3a_cuda = [], im.w8a8_matmul3_cuda
-
-        def recording_b3a(x, kernels3, bias3, ln=None):
-            outs = b3a_cuda(x, kernels3, bias3, ln)
-            b3a_calls.append(((x.clone(), kernels3, bias3, ln),
-                              tuple(o.clone() for o in outs)))
-            return outs
-        im.w8a8_matmul3_cuda = recording_b3a
-        try:
-            _reset_launch_counts()
-            tf8 = model.text_features_only(q8, model.buffers, bf)
-            torch.cuda.synchronize()
-            n3 = _launch_counts()
-        finally:
-            im.w8a8_matmul3_cuda = b3a_cuda
-        b3a_ok, b3a_errs = True, []
-        for i, ((x, k3, b3, ln), outs) in enumerate(b3a_calls):
-            refs = im.w8a8_matmul3_plain(x, k3, b3, ln)
-            xs = im.quant_rows(x.float())[1]
-            for o, r, leaf in zip(outs, refs, k3):
-                good, err, text = _check_w8a8(
-                    "w8a8_matmul3_cat", o, r, _flip_unit(xs, leaf["scale"]))
-                b3a_ok, b3a_errs = b3a_ok and good, b3a_errs + [err]
-                if not good:
-                    log(f"[driver] text block {i} B3a {tuple(x.shape)}: "
-                        f"{text} FAIL")
-            b3a_ok = b3a_ok and tuple(x.shape) == (TEXT_QKV_ROWS, TEXT_WIDTH)
-        log(f"[driver] B3a launches of the text features held against "
-            f"w8a8_matmul3_plain on their inputs: {len(b3a_calls)} launches "
-            f"of {sorted({tuple(c[0][0].shape) for c in b3a_calls})} rows "
-            f"(expect ({TEXT_QKV_ROWS}, {TEXT_WIDTH})), largest max_abs_err "
-            f"{max(b3a_errs, default=float('nan')):.3e}, limits "
-            f"{W8A8_LIMITS['w8a8_matmul3_cat']}: {'ok' if b3a_ok else 'FAIL'}")
-        del b3a_calls
-        tf16 = model.text_features_only(model.params, model.buffers, bf)
-        cos = (tf8.float() * tf16.float()).sum(-1).min().item()
-        log(f"[driver] text features, w8a8 text attention "
-            f"{tuple(tf8.shape)}: "
-            f"launches w8a8_matmul3 {n3['w8a8_matmul3']}, w8a8_matmul "
-            f"{n3['w8a8_matmul']} (expect {TEXT_W8A8_LAUNCHES}); smallest "
-            f"cosine to the bf16 model's {cos:.5f} (limit "
-            f"{TEXT_W8A8_MIN_COSINE})")
-        state.setdefault("launches_by_kernel", {})["w8a8_matmul3"] = \
-            n3["w8a8_matmul3"]
-        if any(n3[k] != n for k, n in TEXT_W8A8_LAUNCHES.items()) or \
-                not b3a_ok or tf8.shape != tf16.shape or \
-                not bool(torch.isfinite(tf8.float()).all()) or \
-                cos < TEXT_W8A8_MIN_COSINE:
-            raise AssertionError("the w8a8 text features failed their checks")
-        del q8, tf8, tf16
+        _w8a8_text_features(state, model)
         sd = _reference_state_dict(model.params)
         torch.save(sd, "clip_backbone.pth")
         vlm = {f"module.{k}": v for k, v in sd.items()
@@ -2736,10 +2854,12 @@ def phase_cli(state):
 # is launched
 EVAL_W8A8_LAUNCHES = {"attention_out_int8": 24, "w8a8_matmul3": 0,
                       "w8a8_matmul": 0}
-# the text features of the flagship with its text attention projections
-# in w8a8: 12 text blocks, each one B3a (the fused q/k/v of its
-# self-attention) and one B2 (the out-projection)
-TEXT_W8A8_LAUNCHES = {"w8a8_matmul3": 12, "w8a8_matmul": 12}
+# the text features of the flagship with its whole text tower in w8a8: 12
+# text blocks, each one B3a (the fused q/k/v of its self-attention) and
+# three B2 (the out-projection, fc1 and fc2, whose rows are the MLP's
+# hidden width, 2,048)
+TEXT_W8A8_LAUNCHES = {"w8a8_matmul3": 12, "w8a8_matmul": 36}
+TEXT_B2_WIDTHS = (512, 2048)
 TEXT_W8A8_MIN_COSINE = 0.95
 # rows of each of those B3a launches: the flagship's 3 classes x 5
 # knowledge versions = 15 prompts of 77 tokens, 512 wide

@@ -26,6 +26,11 @@
 // warp shares a weight fragment with another, so nothing is staged through
 // shared memory and the loop has no barrier; each fragment feeds MT mma.
 // ldmatrix, TMA and wgmma are later work.
+//
+// Rows of up to kMaxRowPerLane * 32 = 1,024 values are held in a warp's
+// registers (quant_row_bf16); a longer row (a text MLP's fc2 takes 2,048)
+// is read again for each pass instead (quant_row_long): its sums, absmax
+// and codes are the same operations in the same order, so the same bits.
 
 #pragma once
 
@@ -78,14 +83,53 @@ __device__ __forceinline__ float quick_gelu(float h) {
   return __fmul_rn(h, sig);
 }
 
-// One warp: row `src` of K bf16 values (K <= 1024) -> [LayerNorm ->] int8
-// codes at `dst` (round_up(K, kBK) bytes, the tail zeroed); returns xs.
-// LayerNorm (when gamma != nullptr): fp32, mean and two-pass biased
-// variance over K, ((x - mean) * rsqrt(var + 1e-5)) * gamma + beta.
+// One warp, a row of K > 1,024 values: quant_row_bf16's arithmetic, each
+// pass reading the row again (from L1 / L2) instead of from registers: the
+// LayerNorm's two sums, the absmax of the (normalised) values, the codes.
+// Lane `lane` sums columns lane, lane + 32, ... in that order, as the
+// register form does, so both give the same bits where both apply.
+__device__ __noinline__ float quant_row_long(const __nv_bfloat16* __restrict__ src, int K,
+                                             const float* __restrict__ gamma,
+                                             const float* __restrict__ beta, int8_t* dst,
+                                             int lane) {
+  float mean = 0.f, rstd = 0.f;
+  if (gamma != nullptr) {
+    float s = 0.f;
+    for (int c = lane; c < K; c += 32) s = __fadd_rn(s, __bfloat162float(src[c]));
+    mean = __fdiv_rn(warp_sum(s), static_cast<float>(K));
+    float q = 0.f;
+    for (int c = lane; c < K; c += 32) {
+      const float d = __fadd_rn(__bfloat162float(src[c]), -mean);
+      q = __fadd_rn(q, __fmul_rn(d, d));
+    }
+    rstd = rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(q), static_cast<float>(K)), 1e-5f));
+  }
+  auto value = [&](int c) {
+    const float x = __bfloat162float(src[c]);
+    return gamma == nullptr
+               ? x
+               : __fadd_rn(__fmul_rn(__fmul_rn(__fadd_rn(x, -mean), rstd), gamma[c]), beta[c]);
+  };
+  float m = 0.f;
+  for (int c = lane; c < K; c += 32) m = fmaxf(m, fabsf(value(c)));  // absmax over the row
+  const float xs = quant_scale(warp_max(m));
+  const float inv = __fdiv_rn(1.0f, xs);
+  const int Kp = round_up(K, kBK);
+  for (int c = lane; c < Kp; c += 32)
+    dst[c] = c < K ? quant_code(value(c), inv) : static_cast<int8_t>(0);
+  return xs;
+}
+
+// One warp: row `src` of K bf16 values -> [LayerNorm ->] int8 codes at
+// `dst` (round_up(K, kBK) bytes, the tail zeroed); returns xs. LayerNorm
+// (when gamma != nullptr): fp32, mean and two-pass biased variance over K,
+// ((x - mean) * rsqrt(var + 1e-5)) * gamma + beta. Rows longer than 1,024
+// values take quant_row_long.
 __device__ __forceinline__ float quant_row_bf16(const __nv_bfloat16* __restrict__ src,
                                                 int K, const float* __restrict__ gamma,
                                                 const float* __restrict__ beta,
                                                 int8_t* dst, int lane) {
+  if (K > kMaxRowPerLane * 32) return quant_row_long(src, K, gamma, beta, dst, lane);
   float v[kMaxRowPerLane];
 #pragma unroll
   for (int i = 0; i < kMaxRowPerLane; ++i) {

@@ -27,7 +27,10 @@
 // registers (gemm_direct); x is read from HBM once. The epilogue is the
 // exact fp32 rounding sequence of the plain version, so the kernel matches
 // it bit for bit. The weight comes transposed (W^T (N, K), k contiguous).
-// K <= 1024 (one row in registers).
+// The codes of a block's rows sit in shared memory for the whole K: 64 rows
+// while they fit (K <= 3,456), else 32 or 16 (K <= 14,272), each warp then
+// multiplying fewer rows by its columns; a row longer than 1,024 values is
+// quantized in passes over the row (w8a8_common.cuh quant_row_long).
 
 #include "w8a8_common.cuh"
 
@@ -35,13 +38,15 @@ namespace {
 
 using namespace w8a8;
 
-constexpr int kMT = 4, kNT = 6;  // each warp: all 64 rows x 48 columns
-constexpr int kBM = kMT * 16, kBN = kWarps * kNT * 8;
+constexpr int kNT = 6;  // each warp: all kMT * 16 rows x 48 columns
+constexpr int kBN = kWarps * kNT * 8;
 
+template <int kMT>
 __global__ void __launch_bounds__(kThreads, 1)
 w8a8_matmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ Wt,
                    const float* __restrict__ s, const float* __restrict__ b,
                    __nv_bfloat16* __restrict__ y, int M, int K, int N, bool fast) {
+  constexpr int kBM = kMT * 16;
   extern __shared__ __align__(16) unsigned char smem[];
   const int sa = codes_stride(K);
   int8_t* as = reinterpret_cast<int8_t*>(smem);
@@ -88,23 +93,43 @@ w8a8_matmul_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
   }
 }
 
+template <int kMT>
+cudaError_t launch(const void* x, const void* Wt, const void* s, const void* b, void* y, int M,
+                   int K, int N, size_t bytes, cudaStream_t stream) {
+  constexpr int kBM = kMT * 16;
+  cudaError_t err = cudaFuncSetAttribute(
+      w8a8_matmul_kernel<kMT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + kBM - 1) / kBM);
+  w8a8_matmul_kernel<kMT><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(Wt),
+      static_cast<const float*>(s), static_cast<const float*>(b),
+      static_cast<__nv_bfloat16*>(y), M, K, N, K % 64 == 0 && aligned16(Wt));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x (M, K) bf16 and y (M, N) bf16 contiguous; W^T (N, K) int8 contiguous;
 // s, b (N) fp32 (b may be null). Returns cudaGetLastError() after the
-// launch: 0 when the launch was accepted.
+// launch: 0 when the launch was accepted; cudaErrorInvalidValue when not
+// even 16 rows of K codes fit in shared memory.
 extern "C" int w8a8_matmul_bf16(const void* x, const void* Wt, const void* s, const void* b,
                                 void* y, int M, int K, int N, void* stream) {
-  if (K > kMaxRowPerLane * 32 || M <= 0 || N <= 0 || K <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = static_cast<size_t>(kBM) * codes_stride(K) + kBM * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      w8a8_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((M + kBM - 1) / kBM);
-  w8a8_matmul_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(Wt),
-      static_cast<const float*>(s), static_cast<const float*>(b),
-      static_cast<__nv_bfloat16*>(y), M, K, N, K % 64 == 0 && aligned16(Wt));
-  return static_cast<int>(cudaGetLastError());
+  if (M <= 0 || N <= 0 || K <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, max_bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // the most rows per block whose codes (and row scales) fit
+  for (int mt = 4; mt >= 1; mt /= 2) {
+    const size_t bytes = static_cast<size_t>(mt * 16) * (codes_stride(K) + sizeof(float));
+    if (bytes > static_cast<size_t>(max_bytes)) continue;
+    const cudaError_t err = mt == 4   ? launch<4>(x, Wt, s, b, y, M, K, N, bytes, st)
+                            : mt == 2 ? launch<2>(x, Wt, s, b, y, M, K, N, bytes, st)
+                                      : launch<1>(x, Wt, s, b, y, M, K, N, bytes, st);
+    return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -25,7 +25,9 @@
 // all kBM rows by its own 48 columns (mma.sync m16n8k32 s8), loading the
 // weight fragments from W^T straight into registers (gemm_direct): each
 // fragment feeds kMT mma, and no barrier is needed. The weights come
-// transposed (W^T (N, K), k contiguous). K <= 1024.
+// transposed (W^T (N, K), k contiguous). K is bounded by the block's codes
+// in shared memory (64 rows: K <= 3,456); a row longer than 1,024 values is
+// normalised and quantized in passes over the row (quant_row_long).
 
 #include "w8a8_common.cuh"
 
@@ -112,8 +114,7 @@ extern "C" int w8a8_qkv_cat_bf16(const void* x, const void* e, const void* Wq, c
                                  const void* bq, const void* bk, const void* bv,
                                  const void* gamma, const void* beta, void* oq, void* ok,
                                  void* ov, int B, int Lx, int Le, int K, int N, void* stream) {
-  if (K > kMaxRowPerLane * 32 || K <= 0 || N <= 0 || B <= 0 || Lx < 0 || Le < 0 ||
-      (Le > 0 && e == nullptr))
+  if (K <= 0 || N <= 0 || B <= 0 || Lx < 0 || Le < 0 || (Le > 0 && e == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long M = static_cast<long long>(B) * (Lx + Le);
   if (M == 0) return 0;
@@ -131,6 +132,10 @@ extern "C" int w8a8_qkv_cat_bf16(const void* x, const void* e, const void* Wq, c
     fast = fast && aligned16(Ws[i]);
   }
   const size_t bytes = static_cast<size_t>(kBM) * codes_stride(K) + kBM * sizeof(float);
+  int dev = 0, max_bytes = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&max_bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (bytes > static_cast<size_t>(max_bytes)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       w8a8_qkv_cat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -163,6 +163,10 @@ def _onepass_attention_den_f32(q, k, v, num_heads: int,
         arg = _int8_qk_exp2_arg(qh, kh, c)
     else:
         arg = (qh @ kh.transpose(-1, -2)) * c         # (B, H, Lq, Lk) fp32
+    # The packed forward kernel (csrc/packed_attention.cu) takes this exp2
+    # with ex2.approx.ftz: a result below 2^-126 is 0 there, a subnormal
+    # here (an e 126 powers of two below 1; only a row whose every key is
+    # that far down sees the difference)
     e = torch.exp2(torch.clamp(arg, max=_CLAMP)).to(v.dtype).float()
     num = e @ vh.float()
     den = e.sum(dim=-1, keepdim=True)

@@ -38,9 +38,12 @@ they run in float64 (exact below 2^53) on either device.
 
 Each w8a8 op takes its weights as kernel leaves {'qa': int8 (K, N),
 'scale': fp32 (1, N)}, the w8 GEMM as {'q', 'scale'}. The CUDA kernels read
-the weight as W^T (N, K), k contiguous, from the leaf's 'qa_t' / 'q_t',
-which `with_kernel_layout` adds once where the weights are placed on the
-card; a CUDA call on a leaf without it raises.
+the weight in a layout of their own from the leaf's 'qa_t' (W^T (N, K), k
+contiguous) / 'q_t' (`w8_kernel_layout`: W^T cut into the w8 kernel's
+weight tiles), which `with_kernel_layout` adds once where the weights are
+placed on the card; a CUDA call on a leaf without it raises. 'q' / 'qa',
+the plain versions and everything the bridge or a checkpoint sees keep the
+JAX layout.
 
 Dispatch: `impl="kernel"` (the default) runs the plain version for a CPU
 tensor and the CUDA kernel for a CUDA tensor (or raises: there is no
@@ -54,7 +57,9 @@ import torch
 
 _INV127 = 1.0 / 127.0     # applied as fp32(1/127), as the kernels do
 _LN_EPS = 1e-5
-_KERNEL_MAX_K = 1024      # the kernels keep one row of K values in registers
+# the w8 kernel's weight tile (csrc/w8_matmul.cu): 128 rows of W^T (columns
+# of y) by 64 k, 8,192 bytes
+_W8_TILE_N, _W8_TILE_K = 128, 64
 
 # launches of each hand-written kernel since the last reset
 launch_counts = {"w8a8_matmul": 0, "w8a8_matmul3_cat": 0, "w8a8_matmul3": 0,
@@ -183,9 +188,6 @@ def _bf16_rows(name, x):
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name} kernel takes bfloat16 activations, got "
                         f"{x.dtype}")
-    if x.shape[-1] > _KERNEL_MAX_K:
-        raise ValueError(f"{name} kernel: row width {x.shape[-1]} > "
-                         f"{_KERNEL_MAX_K}")
     return x.contiguous()
 
 
@@ -196,8 +198,13 @@ def _launch(lib_name: str, fn: str, device, *args) -> None:
     with torch.cuda.device(device):
         err = getattr(lib, fn)(*args, stream)
     if err != 0:
+        # 1 (invalid value) is also a tile that does not fit in shared
+        # memory: the w8a8 kernels hold a block's rows of K codes there
+        hint = " (or rows too long for the kernel's shared-memory tile)" \
+            if err == 1 else ""
         raise RuntimeError(f"{fn} kernel launch failed: "
-                           f"{lib.cuda_error_string(err).decode()} ({err})")
+                           f"{lib.cuda_error_string(err).decode()} ({err})"
+                           f"{hint}")
 
 
 def _ptr(t):
@@ -211,30 +218,77 @@ def kernel_layout(w: torch.Tensor) -> torch.Tensor:
     return w.t().contiguous()
 
 
+def _w8_tiled_view(K: int, N: int):
+    """Shape and permutation between W^T (N, K) padded to whole tiles and
+    the w8 kernel's layout. W^T[n][k] with n = ((nb * 8 + slab) * 2 + r8) *
+    8 + g and k = (((kb * 2 + h) * 2 + j) * 2 + kh) * 8 + t * 2 + e sits at
+    [nb][kb][slab][h][g][t][j][kh][r8][e]: one tile (128 x 64) is 8,192
+    contiguous bytes; in it, lane (g, t) of the warp of 16-row slab `slab`
+    finds the A fragments of its k16 steps 2h and 2h + 1 as 16 contiguous
+    bytes (for each step: rows g, g + 8 at k 2t, 2t + 1, then at k + 8)."""
+    nb = -(-N // _W8_TILE_N)
+    kb = -(-K // _W8_TILE_K)
+    split = (nb, 8, 2, 8, kb, 2, 2, 2, 4, 2)   # nb slab r8 g kb h j kh t e
+    perm = (0, 4, 1, 5, 3, 8, 6, 7, 2, 9)
+    return nb, kb, split, perm
+
+
+def w8_kernel_layout(w: torch.Tensor) -> torch.Tensor:
+    """The int8 weight (K, N) in the w8 kernel's layout (csrc/w8_matmul.cu):
+    (ceil(N / 128), ceil(K / 64), 8192) int8, W^T zero-padded to whole
+    tiles, each tile in the order in which the kernel's warps read their A
+    fragments (`_w8_tiled_view`)."""
+    K, N = w.shape
+    nb, kb, split, perm = _w8_tiled_view(K, N)
+    wt = torch.zeros((nb * _W8_TILE_N, kb * _W8_TILE_K), dtype=w.dtype,
+                     device=w.device)
+    wt[:N, :K] = w.t()
+    return wt.view(split).permute(perm).reshape(nb, kb,
+                                                _W8_TILE_N * _W8_TILE_K)
+
+
+def w8_layout_inverse(tiles: torch.Tensor, K: int, N: int) -> torch.Tensor:
+    """The (K, N) weight back from `w8_kernel_layout`."""
+    nb, kb, split, perm = _w8_tiled_view(K, N)
+    inv = [perm.index(i) for i in range(len(perm))]
+    shaped = tiles.reshape([split[p] for p in perm]).permute(inv)
+    return shaped.reshape(nb * _W8_TILE_N, kb * _W8_TILE_K)[:N, :K].t()
+
+
 def with_kernel_layout(tree):
     """A copy of a param tree in which every w8a8 kernel leaf {'qa',
     'scale'} also carries 'qa_t' = kernel_layout(qa), and every w8 leaf
-    {'q', 'scale'} 'q_t'. Made once, where the weights are placed on the
-    device (the CUDA wrappers read only the transposed copy; the plain
-    versions only 'qa' / 'q')."""
+    {'q', 'scale'} 'q_t' = w8_kernel_layout(q). Made once, where the weights
+    are placed on the device (the CUDA wrappers read only these copies; the
+    plain versions only 'qa' / 'q')."""
     if isinstance(tree, list):
         return [with_kernel_layout(v) for v in tree]
     if not isinstance(tree, dict):
         return tree
     out = {k: with_kernel_layout(v) for k, v in tree.items()}
-    for key in ("qa", "q"):
+    for key, layout in (("qa", kernel_layout), ("q", w8_kernel_layout)):
         if isinstance(tree.get(key), torch.Tensor) and "scale" in tree:
-            out[key + "_t"] = kernel_layout(tree[key])
+            out[key + "_t"] = layout(tree[key])
     return out
 
 
 def _kernel_weight(name, kernel, K, N=None, key="qa_t"):
-    """The W^T (N, K) int8 weight of a kernel leaf, checked."""
+    """The W^T (N, K) int8 weight of a w8a8 kernel leaf, or (key 'q_t')
+    the w8 kernel's tiles of a w8 leaf (N then required), checked."""
     if key not in kernel:
-        raise ValueError(f"{name}: the kernel reads the weight as W^T from "
-                         f"the leaf's '{key}'; add it where the weights are "
-                         f"placed (ops.int8_matmul.with_kernel_layout)")
+        raise ValueError(f"{name}: the kernel reads the weight in its own "
+                         f"layout from the leaf's '{key}'; add it where the "
+                         f"weights are placed "
+                         f"(ops.int8_matmul.with_kernel_layout)")
     w = kernel[key]
+    if key == "q_t":
+        shape = _w8_tiled_view(K, N)[:2] + (_W8_TILE_N * _W8_TILE_K,)
+        if w.dtype != torch.int8 or tuple(w.shape) != shape or \
+                not w.is_contiguous():
+            raise ValueError(f"{name}: contiguous int8 w8 kernel layout "
+                             f"{shape} expected, got {w.dtype} "
+                             f"{tuple(w.shape)}")
+        return w
     if w.dtype != torch.int8 or w.dim() != 2 or w.shape[1] != K or \
             (N is not None and w.shape[0] != N) or not w.is_contiguous():
         raise ValueError(f"{name}: contiguous int8 W^T ({N or 'N'}, {K}) "
@@ -356,8 +410,11 @@ def w8a8_mlp_cuda(x, fc1, fc2, ln=None):
 
 
 def int8_matmul_cuda(x, kernel):
-    """Launch csrc/w8_matmul.cu: x (M, K) bf16 x kernel leaf {'q_t': int8
-    W^T (N, K), 'scale': fp32 (1, N)} -> (M, N) bf16."""
+    """Launch csrc/w8_matmul.cu: x (M, K) bf16 x kernel leaf {'q_t': the
+    w8 kernel layout of the int8 weight, 'scale': fp32 (1, N)} -> (M, N)
+    bf16. The kernel loads x by TMA, which takes rows of a multiple of 16
+    bytes at 16-byte aligned addresses: other rows are copied, zero-padded
+    to a multiple of 8 values, first (the padding multiplies zero weights)."""
     _check_cuda("int8_matmul", x.device, (x, kernel.get("q_t"),
                                           kernel["scale"]))
     if x.dtype != torch.bfloat16:
@@ -365,13 +422,18 @@ def int8_matmul_cuda(x, kernel):
                         f"got {x.dtype}")
     x = x.contiguous()
     M, K = x.shape
-    wt = _kernel_weight("int8_matmul", kernel, K, key="q_t")
-    N = wt.shape[0]
+    N = kernel["scale"].numel()
+    wt = _kernel_weight("int8_matmul", kernel, K, N, key="q_t")
     s = _f32_vec(kernel["scale"], N, "scale")
+    if K % 8 or x.data_ptr() % 16:
+        padded = x.new_zeros((M, K + -K % 8))
+        padded[:, :K] = x
+        x = padded
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M and N:
         _launch("w8_matmul", "w8_matmul_bf16", x.device, x.data_ptr(),
-                wt.data_ptr(), s.data_ptr(), out.data_ptr(), M, K, N)
+                wt.data_ptr(), s.data_ptr(), out.data_ptr(), M, x.shape[1],
+                N)
         launch_counts["int8_matmul"] += 1
     return out
 

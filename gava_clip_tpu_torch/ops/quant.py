@@ -68,7 +68,7 @@ def quantize_tower_params(params: Dict, act_quant: bool = False) -> Dict:
 
 def _quant_values(x) -> Optional[torch.Tensor]:
     """The int8 payload of a quantized leaf dict (exactly 'q', 'qa' or 'qt'
-    beside 'scale', and at most the W^T copy `<key>_t` that
+    beside 'scale', and at most the kernel-layout copy `<key>_t` that
     `int8_matmul.with_kernel_layout` adds), or None."""
     if isinstance(x, dict):
         for k in QUANT_KEYS:

@@ -21,6 +21,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _BWD = "gava_clip_tpu_torch/csrc/packed_attention_bwd.cuh"
 _B12 = "gava_clip_tpu_torch/csrc/attention_out_int8.cu"
+_B9 = "gava_clip_tpu_torch/csrc/w8_matmul.cu"
+_B1 = "gava_clip_tpu_torch/csrc/packed_attention.cu"
+_W8A8 = "gava_clip_tpu_torch/csrc/w8a8_common.cuh"
 _ROUND = "__bfloat162float(__float2bfloat16({}))"
 # name -> (source, [(old, new)], chip_smoke phase, word that marks the
 # kernel's lines)
@@ -53,6 +56,41 @@ MUTANTS = {
                 "B, Lq, L1 + L2 - 1, H, q_sb, q_sl,\n"
                 "                             k1_sb")],
         "phase_w8a8_kernels", "2src"),
+    # B9: the weights cast to bf16 unscaled and the scale applied to the
+    # fp32 sum, y = bf16(scale * sum x * bf16(W))
+    "b9_scale_after_product": (
+        _B9, [("load_a(a[0], smem + ring.stage * kStageBytes + kXBytes, slab, "
+               "lane, s0, s1);",
+               "load_a(a[0], smem + ring.stage * kStageBytes + kXBytes, slab, "
+               "lane, 1.f, 1.f);"),
+              ("load_a(a[CUR ^ 1], r.smem + next * kStageBytes + kXBytes, "
+               "slab, lane, s0, s1);",
+               "load_a(a[CUR ^ 1], r.smem + next * kStageBytes + kXBytes, "
+               "slab, lane, 1.f, 1.f);"),
+              ("__float2bfloat16(acc[4 * c + 2 * h + e]);",
+               "__float2bfloat16(acc[4 * c + 2 * h + e] * (h ? s1 : s0));")],
+        "phase_w8_kernels", "int8_matmul"),
+    # B1 (and B6a, the same kernel): the denominator summed from the
+    # unrounded e
+    "b1_den_unrounded": (
+        _B1, [("        // the denominators: the same weights against a "
+               "column of ones\n        mma(dsum, pa[kc], kOnes, kOnes);\n",
+               ""),
+              ("const uint32_t p = cvt_pack(e[0], e[1]);\n",
+               "const uint32_t p = cvt_pack(e[0], e[1]);\n"
+               "        dsum[2 * h] += e[0];\n        dsum[2 * h] += e[1];\n"),
+              ("  for (int h = 0; h < 2; ++h) rsum[h] = dsum[2 * h];\n",
+               "  for (int h = 0; h < 2; ++h) {\n    rsum[h] = dsum[2 * h] + "
+               "__shfl_xor_sync(0xffffffffu, dsum[2 * h], 1);\n    rsum[h] "
+               "+= __shfl_xor_sync(0xffffffffu, rsum[h], 2);\n  }\n")],
+        "phase_kernel", "[kernel]"),
+    # B2 at K > 1,024: the row's absmax over its first 1,024 values only
+    "b2_absmax_first_1024": (
+        _W8A8, [("for (int c = lane; c < K; c += 32) m = fmaxf(m, "
+                 "fabsf(value(c)));",
+                 "for (int c = lane; c < min(K, 1024); c += 32) m = fmaxf(m, "
+                 "fabsf(value(c)));")],
+        "phase_w8a8_kernels", "w8a8_matmul M="),
     # the second source's values read one row early
     "b12_second_source_row_shift": (
         _B12, [("return v2b + static_cast<long long>(j - s2.L1) * s2.v2_sl;",

@@ -229,7 +229,8 @@ def test_w8_wrappers_need_cuda_and_kernel_layout():
     _, (q, s) = _qweight(rs, 16, 8)
     leaf = tim.with_kernel_layout({"q": q, "scale": s})
     assert set(leaf) == {"q", "scale", "q_t"}
-    assert leaf["q_t"].is_contiguous() and torch.equal(leaf["q_t"], q.t())
+    assert leaf["q_t"].is_contiguous() and leaf["q_t"].shape == (1, 1, 8192)
+    assert torch.equal(tim.w8_layout_inverse(leaf["q_t"], 16, 8), q)
     x = torch.from_numpy(rs.randn(4, 16).astype(np.float32)).bfloat16()
     tim.reset_launch_counts()
     assert tim.int8_matmul(x, leaf).shape == (4, 8)      # CPU: plain version
@@ -240,11 +241,49 @@ def test_w8_wrappers_need_cuda_and_kernel_layout():
         tim.int8_matmul(x.to("meta"), leaf, impl="fast")
     assert tim._kernel_weight("t", leaf, 16, 8, key="q_t") is leaf["q_t"]
     with pytest.raises(ValueError, match="q_t"):
-        tim._kernel_weight("t", {"q": q, "scale": s}, 16, key="q_t")
+        tim._kernel_weight("t", {"q": q, "scale": s}, 16, 8, key="q_t")
+    with pytest.raises(ValueError, match="w8 kernel layout"):
+        tim._kernel_weight("t", {"q_t": q.t().contiguous()}, 16, 8,
+                           key="q_t")
     # a LayerNorm's {'scale', 'bias'} is no quantized leaf
     ln = {"scale": torch.ones(4), "bias": torch.zeros(4)}
     assert set(tim.with_kernel_layout({"norm": ln})["norm"]) == {"scale",
                                                                  "bias"}
+
+
+@pytest.mark.parametrize("K,N", [(768, 3072), (3072, 768), (100, 33),
+                                 (776, 130), (64, 128), (1, 1)])
+def test_w8_kernel_layout_inverts(K, N):
+    """The w8 kernel's weight tiles hold W exactly: ceil(N / 128) x
+    ceil(K / 64) tiles of 8,192 bytes, and the inverse gives W back."""
+    w = torch.randint(-127, 128, (K, N), dtype=torch.int8,
+                      generator=torch.Generator().manual_seed(K * N))
+    tiles = tim.w8_kernel_layout(w)
+    assert tiles.shape == (-(-N // 128), -(-K // 64), 8192)
+    assert tiles.is_contiguous() and tiles.dtype == torch.int8
+    assert torch.equal(tim.w8_layout_inverse(tiles, K, N), w)
+    # the padding is zeros: only the real weights are non-zero
+    assert int((tiles != 0).sum()) == int((w != 0).sum())
+
+
+def test_w8_kernel_layout_fragment_order():
+    """Inside a tile, lane (g, t) of the warp of slab s finds at byte
+    ((s * 2 + h) * 32 + lane) * 16 the A fragments of k16 steps 2h and
+    2h + 1: for each, W^T rows g, g + 8 at k 2t, 2t + 1, then at k + 8, in
+    the order the kernel's dequantization unpacks them
+    (csrc/w8_matmul.cu load_a)."""
+    w = torch.randint(-127, 128, (64, 128), dtype=torch.int8,
+                      generator=torch.Generator().manual_seed(1))
+    tile, wt = tim.w8_kernel_layout(w)[0, 0], w.t()
+    for s, h, lane in ((0, 0, 0), (3, 1, 13), (7, 1, 31), (5, 0, 22)):
+        g, t = lane >> 2, lane & 3
+        base = ((s * 2 + h) * 32 + lane) * 16
+        for jj in range(2):
+            k = 16 * (2 * h + jj) + 2 * t
+            want = [wt[s * 16 + g + 8 * r8, k + 8 * kh + e]
+                    for kh in range(2) for r8 in range(2) for e in range(2)]
+            got = tile[base + 8 * jj: base + 8 * jj + 8]
+            assert got.tolist() == [int(x) for x in want]
 
 
 # ---------------------------------------------------------------------------
@@ -407,7 +446,7 @@ def test_w8_classifier_matches_jax(models, forced_kernels, quantize,
 
 def test_w8_classifier_weights(models):
     """In w8 mode nothing is cast to bf16: int8 kernels under attn / mlp
-    with the W^T their CUDA kernel reads, fp32 scales and every other leaf
+    with the tiles their CUDA kernel reads, fp32 scales and every other leaf
     fp32; no patch-embed sidecar even with patch_major (the embed stays the
     float GEMM on the folded kernel)."""
     clf = VideoClassifier.from_model(models[1], NAMES, batch_size=2,
@@ -424,8 +463,9 @@ def test_w8_classifier_weights(models):
     q = [n for n in dtypes if n.endswith(".q")]
     assert len(q) == 6 * len(clf.net.visual.blocks)
     for n in q:
-        wt = params[n + "_t"]
-        assert wt.is_contiguous() and torch.equal(wt, params[n].t()), n
+        wt, (K, N) = params[n + "_t"], params[n].shape
+        assert wt.is_contiguous() and torch.equal(
+            tim.w8_layout_inverse(wt, K, N), params[n]), n
     with pytest.raises(ValueError, match="quantize"):
         VideoClassifier.from_model(models[1], NAMES, quantize="w4",
                                    device="cpu")
