@@ -290,15 +290,18 @@ def phase_build(state):
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
-    # B9 is a wgmma kernel: its machine code must hold HGMMA instructions
+    # B9 and B5 are wgmma kernels: their machine code must hold GMMA
+    # instructions (HGMMA for bf16, IGMMA for int8)
     cuobjdump = os.path.join(os.path.dirname(_cuda.find_nvcc()), "cuobjdump")
-    sass = subprocess.run(
-        [cuobjdump, "-sass", _cuda.build_info["w8_matmul"]["so"]],
-        capture_output=True, text=True, check=True).stdout
-    log(f"[build] w8_matmul SASS: {sass.count('HGMMA')} HGMMA (wgmma), "
-        f"{sass.count('HMMA')} HMMA (mma.sync) instructions")
-    if not sass.count("HGMMA"):
-        raise AssertionError("w8_matmul was built without wgmma")
+    for lib in ("w8_matmul", "w8a8_mlp"):
+        sass = subprocess.run(
+            [cuobjdump, "-sass", _cuda.build_info[lib]["so"]],
+            capture_output=True, text=True, check=True).stdout
+        log(f"[build] {lib} SASS: {sass.count('HGMMA')} HGMMA, "
+            f"{sass.count('IGMMA')} IGMMA (wgmma), {sass.count('HMMA')} "
+            f"HMMA, {sass.count('IMMA')} IMMA (mma.sync) instructions")
+        if not sass.count("GMMA"):
+            raise AssertionError(f"{lib} was built without wgmma")
 
 
 def phase_kernel(state):
@@ -422,6 +425,10 @@ W8A8_2SRC_SHAPES = ((128, 197, 17, 12), (3, 13, 5, 2), (2, 70, 64, 3),
 # (M, K, hidden, N)
 W8A8_MLP_SHAPES = ((25216, 768, 3072, 768), (37, 768, 3072, 768),
                    (20, 64, 200, 33))
+# B5 with rows longer than the 1,024 values a warp holds in registers (a
+# ragged K, and the longest that 64 rows of codes in shared memory take),
+# over more than one row tile
+W8A8_MLP_LONG_SHAPES = ((200, 1100, 512, 77), (70, 2048, 3072, 768))
 
 
 def _qleaf(gen, K, N, heavy_frac=0.02, heavy_scale=16.0):
@@ -563,13 +570,14 @@ def phase_w8a8_kernels(state):
                    flops_bf16=4 * B * lq * Lk * D,
                    ops_int8=2 * B * lq * D * D))
 
-    for i, (M, K, Hd, N) in enumerate(W8A8_MLP_SHAPES):
-        x, r = randn(M, K), randn(M, N)
-        ln = _ln_params(gen, K)
-        fc1 = {"kernel": _qleaf(gen, K, Hd),
-               "bias": torch.randn(Hd, generator=gen, device="cuda") * 0.02}
-        fc2 = {"kernel": _qleaf(gen, Hd, N),
-               "bias": torch.randn(N, generator=gen, device="cuda") * 0.02}
+    def b5_check(M, K, Hd, N, g, first):
+        x = torch.randn(M, K, generator=g, device="cuda").to(bf)
+        r = torch.randn(M, N, generator=g, device="cuda").to(bf)
+        ln = _ln_params(g, K)
+        fc1 = {"kernel": _qleaf(g, K, Hd),
+               "bias": torch.randn(Hd, generator=g, device="cuda") * 0.02}
+        fc2 = {"kernel": _qleaf(g, Hd, N),
+               "bias": torch.randn(N, generator=g, device="cuda") * 0.02}
         k1 = fc1["kernel"]
         codes, xs = im.quant_rows(im.ln_f32(x.float(), *ln))
         h = im.quick_gelu_f32(im.rescale(im.int_matmul(codes, k1["qa"]), xs,
@@ -578,9 +586,12 @@ def phase_w8a8_kernels(state):
         del codes, h
         run("w8a8_mlp_res", f"M={M} K={K} H={Hd} N={N}",
             lambda: im.w8a8_mlp_res_cuda(x, fc1, fc2, ln, r),
-            lambda: im.w8a8_mlp_res_plain(x, fc1, fc2, ln, r), unit, i == 0,
+            lambda: im.w8a8_mlp_res_plain(x, fc1, fc2, ln, r), unit, first,
             _bound(2 * M * K + 4 * M * N + K * Hd + Hd * N
                    + 8 * (Hd + N + K), ops_int8=2 * M * Hd * (K + N)))
+
+    for i, shape in enumerate(W8A8_MLP_SHAPES):
+        b5_check(*shape, gen, i == 0)
     # the two-source form last: the checks above keep their random inputs
     for i, (B, L1, L2, H) in enumerate(W8A8_2SRC_SHAPES):
         D = H * 64
@@ -629,6 +640,21 @@ def phase_w8a8_kernels(state):
     for shape in W8A8_MATMUL_SHAPES:
         if shape[1] > 1024:
             b2_check(*shape, gen_long, False)
+    for shape in W8A8_MLP_LONG_SHAPES:
+        b5_check(*shape, gen_long, False)
+    # B5's QuickGELU takes its reciprocal without the division's slow path:
+    # it must be the IEEE reciprocal for every d in [1, 2^126)
+    from gava_clip_tpu_torch.ops._cuda import load_library
+    bad = torch.zeros(1, dtype=torch.int64, device="cuda")
+    err = load_library("w8a8_mlp").w8a8_mlp_rcp_check(
+        bad.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    n_bad = bad.item()
+    log(f"[w8a8] w8a8_mlp reciprocal: {n_bad} of the 1,056,964,608 floats "
+        f"in [1, 2^126) differ from the IEEE reciprocal (launch {err}) "
+        f"{'ok' if err == 0 and n_bad == 0 else 'FAIL'}")
+    if err or n_bad:
+        state.setdefault("w8a8_failures", []).append("w8a8_mlp reciprocal")
     if state.get("w8a8_failures"):
         raise AssertionError(f"w8a8 kernels disagree with their plain "
                              f"versions: {state['w8a8_failures']}")
@@ -1019,7 +1045,7 @@ def _sdpa_times(q, k, v, do, H, causal):
     return fwd, bwd
 
 
-def _sdpa_fwd(q, k, v, H):
+def _sdpa_fwd(q, k, v, H, causal=False):
     """A call of F.scaled_dot_product_attention's forward on the same inputs
     (a yardstick only: the port never calls it)."""
     import torch
@@ -1033,7 +1059,8 @@ def _sdpa_fwd(q, k, v, H):
 
     def call():
         with torch.no_grad():
-            return F.scaled_dot_product_attention(qh, kh, vh)
+            return F.scaled_dot_product_attention(qh, kh, vh,
+                                                  is_causal=causal)
     return call
 
 
@@ -1071,6 +1098,34 @@ def _ratio_turns(kernel, other, turns=7, iters=10):
                     (_time_turns(kernel, other, iters) for _ in range(turns)))
     ratio, k, o = rounds[turns // 2]
     return k, o, ratio, rounds[0][0], rounds[-1][0]
+
+
+GRAPH_LAUNCHES = 20
+
+
+def _graph_call(fn, launches=GRAPH_LAUNCHES):
+    """`fn` captured `launches` times in one CUDA graph: a call replays it
+    (device time without the host's cost of each launch)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return graph.replay
+
+
+def _ratio_graphs(kernel, other, launches=GRAPH_LAUNCHES):
+    """_ratio_turns on `launches` calls of each captured in a CUDA graph:
+    (kernel ms, other ms per call, median ratio, its range)."""
+    k, o, ratio, lo, hi = _ratio_turns(_graph_call(kernel, launches),
+                                       _graph_call(other, launches), iters=5)
+    return k / launches, o / launches, ratio, lo, hi
 
 
 def _check_train(name, label, out, ref, bound, state, hold_diff=True):
@@ -1298,7 +1353,24 @@ def phase_train_kernels(state):
                                                         lse_ref, H, causal),
                 lambda: fa.streaming_attention_bwd_plain(q, k, v, do, ref,
                                                          lse_ref, H, causal))
-            lib_f, lib_b = _sdpa_times(q, k, v, do, H, causal)
+            lib_b = _sdpa_times(q, k, v, do, H, causal)[1]
+            # B7's forward against SDPA's forward in turns, median of 7
+            # rounds; then the same with both sides' launches captured in
+            # CUDA graphs: device time, without the wrapper's host cost,
+            # which the launch-bound text shape otherwise reads
+            for name, ratio in (("", _ratio_turns), (
+                    f", {GRAPH_LAUNCHES} launches per CUDA graph replay",
+                    _ratio_graphs)):
+                r = ratio(
+                    lambda: fa.streaming_attention_cuda(q, k, v, H, causal),
+                    _sdpa_fwd(q, k, v, H, causal))
+                log(f"[train-kernel] {label}: B7 kernel vs SDPA forward{name}"
+                    f", median of 7 rounds in turns (kernel, SDPA, SDPA, "
+                    f"kernel): {r[0]:.5f} ms vs {r[1]:.5f} ms per call, ratio "
+                    f"{r[2]:.3f} (rounds {r[3]:.3f}-{r[4]:.3f}) "
+                    f"({state['smi']})")
+                if not name:
+                    lib_f = r[1]
             bounds = _attention_bounds(B, Lq, Lk, H, causal)
             log(f"[train-kernel] {label}: B7 forward kernel {t_f['kernel']} "
                 f"ms, plain {t_f['plain']} ms, SDPA forward {lib_f:.4f} ms, "

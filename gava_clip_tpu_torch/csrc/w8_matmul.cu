@@ -61,13 +61,13 @@
 // sides. x's rows must be 16-byte aligned with K a multiple of 8 (the
 // Python wrapper pads them otherwise).
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <dlfcn.h>
-#include <stdint.h>
+
+#include "hopper_tma.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int kBN = 128;                        // weight rows per tile: 2 x 64
 constexpr int kBM = 256;                        // rows of x per tile: the wgmma N
@@ -81,84 +81,6 @@ constexpr int kYBytes = kBM * kYLD * 2;         // 69,632
 constexpr int kSmemBytes = 1024 + kStages * kStageBytes + kYBytes;
 constexpr int kThreads = 384;                   // producer warpgroup + 2 consumer warpgroups
 constexpr int kAcc = kBM / 2;                   // fp32 accumulators per consumer thread
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// spin until the phase of parity `parity` of the barrier has completed; a
-// phase that never completes (a fault of the ring) traps after ~2^36 clock
-// cycles instead of holding the card
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  const long long start = clock64();
-  do {
-    if (clock64() - start > (1ll << 36)) __trap();
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// a (64 k x kBM rows) box of x at (k0, m0) into a 128-byte swizzled tile
-__device__ __forceinline__ void tma_load_x(void* dst, const CUtensorMap* map, int k0, int m0,
-                                           uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(m0), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// `bytes` contiguous bytes (a weight tile) into shared memory
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-      "[%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// wgmma descriptor of a K-major, 128-byte swizzled tile (1,024-byte aligned):
-// rows of 128 bytes, 8-row groups 1,024 bytes apart
-__device__ __forceinline__ uint64_t x_desc(const void* tile) {
-  const uint64_t a = smem_u32(tile);
-  return ((a & 0x3FFFFull) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
 
 // keep the compiler from moving reads or writes of these registers across
 // the asynchronous products
@@ -280,7 +202,7 @@ template <int CUR>
 __device__ __forceinline__ void consume_stage(float (&acc)[kAcc], uint32_t (&a)[2][4][4],
                                               Ring& r, bool more, int slab, int lane, float s0,
                                               float s1) {
-  const uint64_t desc = x_desc(r.smem + r.stage * kStageBytes);
+  const uint64_t desc = tile_desc(r.smem + r.stage * kStageBytes);
   fence_regs(acc);
   wgmma_fence();
 #pragma unroll
@@ -296,7 +218,7 @@ __device__ __forceinline__ void consume_stage(float (&acc)[kAcc], uint32_t (&a)[
     mbar_wait(&r.full[next], next_phase);
     load_a(a[CUR ^ 1], r.smem + next * kStageBytes + kXBytes, slab, lane, s0, s1);
   }
-  wgmma_wait_all();
+  wgmma_wait<0>();
   fence_regs(acc);
   fence_regs(a[CUR]);
   __syncwarp();
@@ -341,7 +263,7 @@ w8_matmul_kernel(const __grid_constant__ CUtensorMap xmap, const int8_t* __restr
           mbar_wait(&empty[stage], phase ^ 1u);
           unsigned char* st = smem + stage * kStageBytes;
           mbar_expect_tx(&full[stage], kStageBytes);
-          tma_load_x(st, &xmap, kt * kBK, m0, &full[stage]);
+          tma_load(st, &xmap, kt * kBK, m0, &full[stage]);
           bulk_load(st + kXBytes, wsrc + static_cast<long long>(kt) * kWBytes, kWBytes,
                     &full[stage]);
           if (++stage == kStages) {
@@ -400,23 +322,6 @@ w8_matmul_kernel(const __grid_constant__ CUtensorMap xmap, const int8_t* __restr
       }
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// the driver's tensor-map encoder, from the driver library the process
-// already has loaded (no link against libcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    if (lib != nullptr) fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
 }
 
 }  // namespace

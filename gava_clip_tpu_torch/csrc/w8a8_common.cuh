@@ -8,8 +8,9 @@
 //   * row quant: xs = max(absmax, 1e-6) * fp32(1/127), inv = 1 / xs (an IEEE
 //     division), code = rint(x * inv) rounded half to even, no clip (|code|
 //     <= 127 by construction);
-//   * every multiply and add of the LayerNorm, the quant, QuickGELU and the
-//     epilogue is written with the __fmul_rn / __fadd_rn intrinsics, which
+//   * every multiply and add of the LayerNorm, the quant, QuickGELU
+//     (w8a8_mlp.cu) and the epilogue is written with the __fmul_rn /
+//     __fadd_rn intrinsics, which
 //     the compiler never contracts into an FMA: the results are the same
 //     fp32 roundings as the plain version's separate ops. The only
 //     differences left are the ORDER of the LayerNorm row sums (a warp
@@ -78,20 +79,16 @@ __device__ __forceinline__ int8_t quant_code(float x, float inv) {
   return static_cast<int8_t>(__float2int_rn(__fmul_rn(x, inv)));
 }
 
-__device__ __forceinline__ float quick_gelu(float h) {
-  const float sig = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-__fmul_rn(1.702f, h))));
-  return __fmul_rn(h, sig);
-}
-
 // One warp, a row of K > 1,024 values: quant_row_bf16's arithmetic, each
 // pass reading the row again (from L1 / L2) instead of from registers: the
 // LayerNorm's two sums, the absmax of the (normalised) values, the codes.
 // Lane `lane` sums columns lane, lane + 32, ... in that order, as the
 // register form does, so both give the same bits where both apply.
+template <class Store>
 __device__ __noinline__ float quant_row_long(const __nv_bfloat16* __restrict__ src, int K,
                                              const float* __restrict__ gamma,
-                                             const float* __restrict__ beta, int8_t* dst,
-                                             int lane) {
+                                             const float* __restrict__ beta, int Kp,
+                                             Store store, int lane) {
   float mean = 0.f, rstd = 0.f;
   if (gamma != nullptr) {
     float s = 0.f;
@@ -114,22 +111,23 @@ __device__ __noinline__ float quant_row_long(const __nv_bfloat16* __restrict__ s
   for (int c = lane; c < K; c += 32) m = fmaxf(m, fabsf(value(c)));  // absmax over the row
   const float xs = quant_scale(warp_max(m));
   const float inv = __fdiv_rn(1.0f, xs);
-  const int Kp = round_up(K, kBK);
   for (int c = lane; c < Kp; c += 32)
-    dst[c] = c < K ? quant_code(value(c), inv) : static_cast<int8_t>(0);
+    store(c, c < K ? quant_code(value(c), inv) : static_cast<int8_t>(0));
   return xs;
 }
 
-// One warp: row `src` of K bf16 values -> [LayerNorm ->] int8 codes at
-// `dst` (round_up(K, kBK) bytes, the tail zeroed); returns xs. LayerNorm
-// (when gamma != nullptr): fp32, mean and two-pass biased variance over K,
-// ((x - mean) * rsqrt(var + 1e-5)) * gamma + beta. Rows longer than 1,024
-// values take quant_row_long.
-__device__ __forceinline__ float quant_row_bf16(const __nv_bfloat16* __restrict__ src,
-                                                int K, const float* __restrict__ gamma,
-                                                const float* __restrict__ beta,
-                                                int8_t* dst, int lane) {
-  if (K > kMaxRowPerLane * 32) return quant_row_long(src, K, gamma, beta, dst, lane);
+// One warp: row `src` of K bf16 values -> [LayerNorm ->] int8 codes, code
+// c (0 <= c < Kp, zero from K on) handed to store(c, code); returns xs.
+// LayerNorm (when gamma != nullptr): fp32, mean and two-pass biased
+// variance over K, ((x - mean) * rsqrt(var + 1e-5)) * gamma + beta. Rows
+// longer than 1,024 values take quant_row_long. Kp <= kMaxRowPerLane * 32
+// for the register form.
+template <class Store>
+__device__ __forceinline__ float quant_row_to(const __nv_bfloat16* __restrict__ src, int K,
+                                              const float* __restrict__ gamma,
+                                              const float* __restrict__ beta, int Kp,
+                                              Store store, int lane) {
+  if (Kp > kMaxRowPerLane * 32) return quant_row_long(src, K, gamma, beta, Kp, store, lane);
   float v[kMaxRowPerLane];
 #pragma unroll
   for (int i = 0; i < kMaxRowPerLane; ++i) {
@@ -161,13 +159,21 @@ __device__ __forceinline__ float quant_row_bf16(const __nv_bfloat16* __restrict_
   for (int i = 0; i < kMaxRowPerLane; ++i) m = fmaxf(m, fabsf(v[i]));
   const float xs = quant_scale(warp_max(m));
   const float inv = __fdiv_rn(1.0f, xs);
-  const int Kp = round_up(K, kBK);
 #pragma unroll
   for (int i = 0; i < kMaxRowPerLane; ++i) {
     const int c = lane + 32 * i;
-    if (c < Kp) dst[c] = c < K ? quant_code(v[i], inv) : static_cast<int8_t>(0);
+    if (c < Kp) store(c, c < K ? quant_code(v[i], inv) : static_cast<int8_t>(0));
   }
   return xs;
+}
+
+// quant_row_to into `dst` (round_up(K, kBK) bytes, the tail zeroed)
+__device__ __forceinline__ float quant_row_bf16(const __nv_bfloat16* __restrict__ src,
+                                                int K, const float* __restrict__ gamma,
+                                                const float* __restrict__ beta,
+                                                int8_t* dst, int lane) {
+  return quant_row_to(src, K, gamma, beta, round_up(K, kBK),
+                      [dst](int c, int8_t code) { dst[c] = code; }, lane);
 }
 
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,

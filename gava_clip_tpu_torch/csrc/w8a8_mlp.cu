@@ -21,214 +21,654 @@
 // What bounds it on an H100 SXM (data-sheet figures, not measured), at the
 // serving shape M = 25216 (128 frame rows x 197 tokens), K = N = 768,
 // H = 3072: 237.9 G int8 operations, 120 us at 1,979 TOP/s; it reads x and
-// r and writes y, ~116 MB, 35 us at 3.35 TB/s. Compute-bound at the roof;
-// the first thing this kernel buys is that the (M, H) hidden (310 MB in
-// fp32) never reaches device memory.
+// r and writes y, ~116 MB, 35 us at 3.35 TB/s. Compute-bound at the roof,
+// and only wgmma reaches that rate on this card.
 //
 // The hard part: the requant needs the absmax of the whole fp32 hidden row
 // before any code of it exists, and a bf16-rounded h would be a different
-// function. Design (simple first): one block of 8 warps per 16 rows keeps
-// the 16 x H fp32 hidden in dynamic shared memory (197,632 bytes at
-// H = 3072, with the 16 x K codes: 210,944 of the 232,448 bytes a block may
-// have). Phase 1: LayerNorm + quant of the rows, then fc1 in 384-column
-// passes (mma.sync m16n8k32 s8, each warp 16 x 48), bias and QuickGELU into
-// the fp32 tile. Phase 2: per-row absmax over the H values, and the codes
-// written in place over the first H bytes of each fp32 row. Phase 3: fc2
-// over the in-place codes, bias, residual, bf16 store. With 16 rows a block
-// has one row tile, so no two warps share a weight fragment: each warp
-// loads its own B fragments from W^T straight into registers, with no
-// barrier in either GEMM (gemm_direct). The cost of the layout: both
-// weights are read from L2 once per 16 rows (7.4 GB per call at the
-// serving shape), and with one block per SM the per-element phases (the
-// QuickGELU epilogue, the requant) do not overlap the GEMMs: measured on an
-// H100 (NVIDIA H100 80GB HBM3, 700.00 W), about half of the kernel's time
-// is outside the two GEMMs. Clusters with TMA multicast and wgmma are later
-// work. K is bounded by the shared-memory tile; a row longer than 1,024
-// values is normalised and quantized in passes over the row
+// function. Keeping the fp32 hidden of a row tile in shared memory caps the
+// tile at 16 rows (196 KB at H = 3072), and then every weight is read from
+// L2 once per 16 rows (7.4 GB per call at the serving shape) by products
+// too narrow for wgmma: the earlier form of this kernel spent 1.63 ms so.
+//
+// Design. fc1 runs TWICE, and the fp32 hidden never needs a home: the first
+// pass keeps only each row's running absmax (in registers, then one
+// shared-memory max per row), the second recomputes the same h bit for bit
+// (the int32 products are exact and the epilogue is the same fp32
+// sequence) and quantizes it with the now known scale. That frees the row
+// tile from the hidden's size, so a block takes BM = 192 rows (64 for short
+// or long rows: the launch plan, ops/int8_matmul.w8a8_mlp_plan), and each
+// weight tile serves 192 rows: 1.5x the products of one pass, but the
+// weights cross L2 12x less often (0.94 GB per call) and every product is a
+// wgmma. The block computes transposed tiles, h^T = W1^T c^T and y^T =
+// W2^T hc^T: A is a 64-row slab of W^T (one per consumer warpgroup), B the
+// block's rows (the wgmma N = BM), both k-major in 128-byte swizzled shared
+// memory as wgmma wants them for s8:
+//   * phase 0: each consumer warp normalises and quantizes its rows into a
+//     swizzled code tile (BM x K) that stays in shared memory;
+//   * fc1, two passes: two producer threads stream the 64 x 128-byte W1^T
+//     slabs of the two consumer warpgroups by TMA, each through its own
+//     3-stage mbarrier ring; each warpgroup runs wgmma m64nBMk32 (s8 x s8
+//     -> s32) over K, then the epilogue (scale, bias, QuickGELU) on its 64
+//     hidden columns x BM rows. The second pass writes the codes of each
+//     slab through a shared staging tile, 16 bytes a thread, to an int8
+//     scratch (Mp, Hp) in device memory (78 MB at the serving shape);
+//   * fc2: the producer streams 256 x 128-byte W2^T tiles and the block's
+//     own hidden codes back by TMA (the code tile's space now holds a ring
+//     of up to 4 stages); each warpgroup runs two 64-row slabs of the tile,
+//     so the codes are read back once per 256 output columns; epilogue
+//     scale, bias, residual, bf16 store.
+// One wgmma group stays in flight while the previous stage is released. A
+// ring barrier that never completes traps after ~2^36 cycles instead of
+// holding the card.
+//
+// Where the time goes (utils/kernel_variants.py, on an H100): QuickGELU's
+// fp32 evaluations, 2 x 77.5 M at the serving shape, each a chain of ~15
+// dependent instructions with two MUFU ops, and only two consumer warps
+// per scheduler to hide them. A branch around a value's chain (the IEEE
+// division's slow path, a bounds check, a warp vote that skips values
+// that cannot move the max) keeps the compiler from interleaving the
+// chains, so the epilogues have none: QuickGELU takes its reciprocal
+// without the division's slow-path branch (qgelu), and columns past H run
+// the same code on zero products and scales.
+//
+// TMA wants the weights 16-byte aligned with rows of a multiple of 16
+// bytes (the Python wrapper zero-pads other weights). K is bounded by the
+// code tile in shared memory (the plan raises beyond it); a row longer
+// than 1,024 values is normalised and quantized in passes over the row
 // (quant_row_long).
 
+#include <type_traits>
+
+#include "hopper_tma.cuh"
 #include "w8a8_common.cuh"
 
 namespace {
 
+using namespace hopper;
 using namespace w8a8;
 
-constexpr int kBM = 16, kBN = 384;  // 8 warps side by side, 16 x 48 each
-constexpr int kMT = 1, kNT = 6;
+constexpr int kKC = 128;                        // k bytes per stage: one swizzled row
+constexpr int kWRows = 128;                     // W^T rows per stage: 2 warpgroups x 64
+constexpr int kWTileBytes = kWRows * kKC;       // 16,384
+// fc2: W2^T rows per stage, 2 x 64 per consumer warpgroup, so that the
+// block's hidden codes are read back once per 256 output columns
+constexpr int kW2Slabs = 2;
+constexpr int kW2Rows = kWRows * kW2Slabs;
+constexpr int kW2TileBytes = kW2Rows * kKC;     // 32,768
+constexpr int kStages1 = 3;                     // fc1 ring of each consumer warpgroup
+constexpr int kW1Half = kWTileBytes / 2;        // one warpgroup's 64-row slab of a tile
+constexpr int kMaxStages2 = 4;                  // fc2 ring
+constexpr int kStageLD = kKC + 16;              // bytes per row of the code staging tile
+constexpr int kStaticBytes = 256;               // the static shared barriers (168), rounded up
+constexpr int kThreadsMlp = 384;                // producer warpgroup + 2 consumer warpgroups
 
-// floats per row of the hidden tile: H rounded up to kBK plus 16, so the
-// in-place codes' rows are 64 bytes (mod 128) apart, as gemm_direct's
-// 16-byte loads want
-__host__ __device__ constexpr int hidden_stride(int H) { return round_up(H, kBK) + 16; }
+// dynamic shared bytes of one block (1,024 of alignment slack, the code
+// tile or the fc2 ring, the staging tile, four floats per row)
+__host__ __device__ constexpr int region_bytes(int BM, int Kp, int stages2) {
+  return BM * Kp + kStages1 * kWTileBytes > stages2 * (kW2TileBytes + BM * kKC)
+             ? BM * Kp + kStages1 * kWTileBytes
+             : stages2 * (kW2TileBytes + BM * kKC);
+}
 
-template <bool kRes, bool kLN>
-__global__ void __launch_bounds__(kThreads, 1)
-w8a8_mlp_res_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ W1t,
-                    const float* __restrict__ s1, const float* __restrict__ b1,
-                    const int8_t* __restrict__ W2t, const float* __restrict__ s2,
-                    const float* __restrict__ b2, const float* __restrict__ gamma,
-                    const float* __restrict__ beta, const __nv_bfloat16* __restrict__ r,
-                    __nv_bfloat16* __restrict__ y, int M, int K, int H, int N, bool fast1,
-                    bool fast2) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int hst = hidden_stride(H), sa = codes_stride(K);
-  float* hsm = reinterpret_cast<float*>(smem);               // kBM x hst fp32
-  int8_t* as = reinterpret_cast<int8_t*>(hsm + kBM * hst);   // kBM x sa codes
-  float* xs = reinterpret_cast<float*>(as + kBM * sa);     // kBM
-  float* hs = xs + kBM;                                        // kBM
+__host__ __device__ constexpr int smem_bytes(int BM, int Kp, int stages2) {
+  return 1024 + region_bytes(BM, Kp, stages2) + BM * kStageLD + 16 * BM;
+}
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.x * kBM;
-
-  // phase 1a: LayerNorm + quant, two rows per warp
-  for (int rr = warp; rr < kBM; rr += kWarps) {
-    const int m = m0 + rr;
-    if (m < M) {
-      const float v = quant_row_bf16(x + static_cast<long long>(m) * K, K,
-                                     kLN ? gamma : nullptr, beta, as + rr * sa, lane);
-      if (lane == 0) xs[rr] = v;
-    } else {
-      for (int c = lane; c < sa; c += 32) as[rr * sa + c] = 0;
-      if (lane == 0) xs[rr] = 0.f;
-    }
-  }
-
-  __syncthreads();
-
-  // phase 1b: h = QuickGELU(fc1) into the fp32 tile (rows past M compute
-  // on zero codes and are never stored)
-  for (int n0 = 0; n0 < H; n0 += kBN) {
-    int acc[kMT][kNT][4];
-    gemm_direct<kMT, kNT>(acc, as, sa, 0, W1t, K, H, n0 + warp * kNT * 8, fast1);
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int rr = g + 8 * hh;
-      const float xr = xs[rr];
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const int n = n0 + warp * kNT * 8 + j * 8 + t * 2;
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          if (n + c < H)
-            hsm[rr * hst + n + c] =
-                quick_gelu(epilogue(acc[0][j][2 * hh + c], xr, s1[n + c], b1[n + c]));
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// a named barrier of one consumer warpgroup alone
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+}
+
+// QuickGELU h * (1 / (1 + exp(-1.702 h))) with the plain version's fp32
+// roundings. The reciprocal of d = 1 + exp(..) >= 1 is rcp.approx and one
+// Newton step in FMAs, with no branch: that is the correctly rounded 1/d,
+// the IEEE division's value, for every d in [1, 2^126) (w8a8_mlp_rcp_check
+// tries them all on the card; chip_smoke.py runs it). The division's own
+// sequence branches to a slow path for each value, which kept the
+// compiler from overlapping the values' instruction chains. For d >= 2^126
+// (h < -51) it gives 0 where the division gives a subnormal; h times either
+// quantizes to code 0 under any row scale, and d = inf is clamped so that
+// the Newton step sees no inf * 0.
+__device__ __forceinline__ float rcp_newton(float d) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
+  return fmaf(fmaf(-d, r, 1.0f), r, r);
+}
+
+__device__ __forceinline__ float qgelu(float h) {
+  return __fmul_rn(h, rcp_newton(fminf(__fadd_rn(1.0f, expf(-__fmul_rn(1.702f, h))), 3.0e38f)));
+}
+
+// d (64 rows of W^T x N rows of the block, s32) += A (desc) x B (desc), k 32
+template <int N>
+__device__ __forceinline__ void wgmma_ss(int (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(int (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<192>(int (&d)[96], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+
+struct Params {
+  const __nv_bfloat16* x;
+  const float* s1;
+  const float* b1;
+  const float* s2;
+  const float* b2;
+  const float* gamma;
+  const float* beta;
+  int8_t* hq;          // (Mp, Hp) hidden codes, rows of this block at m0
+  int M, K, H, N, Kp, Hp, stages2;
+};
+
+template <int BM, bool kRes, bool kLN>
+__global__ void __launch_bounds__(kThreadsMlp, 1)
+w8a8_mlp_kernel(const __grid_constant__ CUtensorMap w1map,
+                const __grid_constant__ CUtensorMap w2map,
+                const __grid_constant__ CUtensorMap hqmap, const Params p,
+                const __nv_bfloat16* __restrict__ r, __nv_bfloat16* __restrict__ y) {
+  constexpr int kAcc = BM / 2;   // s32 accumulators per consumer thread
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full1[2][kStages1], empty1[2][kStages1];
+  __shared__ __align__(8) uint64_t full2[kMaxStages2], empty2[kMaxStages2];
+  __shared__ __align__(8) uint64_t hq_ready;
+  // the swizzled tiles need 1,024-byte alignment
+  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  const int KC = p.Kp / kKC, HC = p.Hp / kKC, NC = (p.N + kW2Rows - 1) / kW2Rows;
+  const int region = region_bytes(BM, p.Kp, p.stages2);
+  const int S2 = kW2TileBytes + BM * kKC;   // fc2 stage: a W2^T tile, the block's codes
+  int8_t* xc = reinterpret_cast<int8_t*>(smem);        // [KC][BM][128] swizzled codes
+  unsigned char* ring1 = smem + BM * p.Kp;             // fc1: [wg][stage][64][128]
+  unsigned char* ring2 = smem;                         // fc2: over both, after fc1
+  int8_t* stg = reinterpret_cast<int8_t*>(smem + region);   // BM x kStageLD
+  float* xs = reinterpret_cast<float*>(smem + region + BM * kStageLD);
+  float* hs = xs + BM;
+  float* hinv = hs + BM;
+  unsigned* amax = reinterpret_cast<unsigned*>(hinv + BM);
+  const int m0 = blockIdx.x * BM;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages1; ++s) {
+      for (int w = 0; w < 2; ++w) {
+        mbar_init(&full1[w][s], 1);
+        mbar_init(&empty1[w][s], 4);   // one arrival per warp of the warpgroup
       }
     }
-  }
-  __syncthreads();
-
-  // phase 2: per-row absmax over the H values, then the codes in place: the
-  // int8 code of column c lands in byte c of the row, inside float c / 4,
-  // which an earlier group of 256 columns (or this one, before the
-  // __syncwarp) has already read
-  const int Hp = round_up(H, kBK);
-  for (int rr = warp; rr < kBM; rr += kWarps) {
-    float* row = hsm + rr * hst;
-    float mx = 0.f;
-    for (int c = lane; c < H; c += 32) mx = fmaxf(mx, fabsf(row[c]));
-    const float scale = quant_scale(warp_max(mx));
-    const float inv = __fdiv_rn(1.0f, scale);
-    if (lane == 0) hs[rr] = scale;
-    int8_t* codes = reinterpret_cast<int8_t*>(row);
-    for (int c0 = 0; c0 < Hp; c0 += 256) {
-      float v[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int c = c0 + lane + 32 * i;
-        v[i] = c < H ? row[c] : 0.f;
-      }
-      __syncwarp();
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int c = c0 + lane + 32 * i;
-        if (c < Hp) codes[c] = c < H ? quant_code(v[i], inv) : static_cast<int8_t>(0);
-      }
-      __syncwarp();
+    for (int s = 0; s < kMaxStages2; ++s) {
+      mbar_init(&full2[s], 1);
+      mbar_init(&empty2[s], 8);
     }
+    mbar_init(&hq_ready, 256);    // every consumer thread, its codes written
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-
   __syncthreads();
 
-  // phase 3: y = fc2(codes) + b2 [+ r]
-  const int sh = hst * 4;  // bytes per row of the in-place codes
-  const int8_t* hc = reinterpret_cast<const int8_t*>(hsm);
-  for (int n0 = 0; n0 < N; n0 += kBN) {
-    int acc[kMT][kNT][4];
-    gemm_direct<kMT, kNT>(acc, hc, sh, 0, W2t, H, N, n0 + warp * kNT * 8, fast2);
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int rr = g + 8 * hh, m = m0 + rr;
-      if (m >= M) continue;
-      const float hr = hs[rr];
-      const __nv_bfloat16* rrow = kRes ? r + static_cast<long long>(m) * N : nullptr;
-      __nv_bfloat16* yrow = y + static_cast<long long>(m) * N;
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const int n = n0 + warp * kNT * 8 + j * 8 + t * 2;
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          if (n + c < N) {
-            const float v = epilogue(acc[0][j][2 * hh + c], hr, s2[n + c], b2[n + c]);
-            yrow[n + c] =
-                __float2bfloat16(kRes ? __fadd_rn(v, __bfloat162float(rrow[n + c])) : v);
+  if (threadIdx.x < 128) {
+    // producer warpgroup: thread 0 feeds consumer warpgroup 0's fc1 ring
+    // and then the fc2 ring, thread 32 warpgroup 1's fc1 ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0 || threadIdx.x == 32) {
+      const int w = threadIdx.x / 32;
+      int st = 0;
+      uint32_t ph = 0;
+      for (int pass = 0; pass < 2; ++pass)
+        for (int ch = 0; ch < HC; ++ch)
+          for (int kc = 0; kc < KC; ++kc) {
+            mbar_wait(&empty1[w][st], ph ^ 1u);
+            mbar_expect_tx(&full1[w][st], kW1Half);
+            tma_load(ring1 + (w * kStages1 + st) * kW1Half, &w1map, kc * kKC,
+                     ch * kWRows + w * 64, &full1[w][st]);
+            if (++st == kStages1) {
+              st = 0;
+              ph ^= 1u;
+            }
           }
-      }
+      if (w == 1) return;
+      // the hidden codes of every row are in device memory, and fc1 no
+      // longer reads the code tile or its ring
+      mbar_wait(&hq_ready, 0);
+      asm volatile("fence.proxy.async.global;\n" ::: "memory");
+      st = 0;
+      ph = 0;
+      for (int nc = 0; nc < NC; ++nc)
+        for (int hc = 0; hc < HC; ++hc) {
+          mbar_wait(&empty2[st], ph ^ 1u);
+          mbar_expect_tx(&full2[st], S2);
+          unsigned char* s = ring2 + st * S2;
+          tma_load(s, &w2map, hc * kKC, nc * kW2Rows, &full2[st]);
+          tma_load(s + kW2TileBytes, &hqmap, hc * kKC, m0, &full2[st]);
+          if (++st == p.stages2) {
+            st = 0;
+            ph ^= 1u;
+          }
+        }
+    }
+    return;
+  }
+
+  // consumer warpgroups: 64 rows of W^T each
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int ct = threadIdx.x - 128;            // 0 .. 255
+  const int wg = ct / 128, cw = ct / 32, wi = cw % 4;
+  const int lane = ct % 32, g = lane >> 2, t = lane & 3;
+
+  // phase 0: LayerNorm + quant of the block's rows into the swizzled code
+  // tile (byte k of row rr: k-chunk k / 128, its 16-byte piece XOR rr % 8)
+  for (int rr = cw; rr < BM; rr += 8) {
+    const int m = m0 + rr;
+    auto store = [xc, rr](int c, int8_t code) {
+      xc[(c >> 7) * (BM * kKC) + rr * kKC + ((((c >> 4) & 7) ^ (rr & 7)) << 4) + (c & 15)] =
+          code;
+    };
+    float v = 0.f;
+    if (m < p.M)
+      v = quant_row_to(p.x + static_cast<long long>(m) * p.K, p.K, kLN ? p.gamma : nullptr,
+                       p.beta, p.Kp, store, lane);
+    else
+      for (int c = lane; c < p.Kp; c += 32) store(c, static_cast<int8_t>(0));
+    if (lane == 0) {
+      xs[rr] = v;
+      amax[rr] = 0u;
     }
   }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  consumers_sync();
+
+  int acc[kAcc];
+  int st = 0;
+  uint32_t ph = 0;
+  // acc = this warpgroup's 64 hidden columns of slab ch x the BM rows, over
+  // K, from its own ring; one wgmma group in flight while the previous
+  // stage is released
+  auto fc1 = [&]() {
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i) acc[i] = 0;
+    int prev = -1;
+    for (int kc = 0; kc < KC; ++kc) {
+      mbar_wait(&full1[wg][st], ph);
+      const uint64_t da = tile_desc(ring1 + (wg * kStages1 + st) * kW1Half);
+      const uint64_t db = tile_desc(xc + kc * BM * kKC);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wgmma_ss<BM>(acc, da + 2 * j, db + 2 * j, 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (prev >= 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty1[wg][prev]);
+      }
+      prev = st;
+      if (++st == kStages1) {
+        st = 0;
+        ph ^= 1u;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty1[wg][prev]);
+  };
+
+  // acc[4c + 2h + e] is h^T[col0 + 8h][row 8c + 2t + e]
+  const int lcol = wg * 64 + wi * 16 + g;   // column of the 128-wide slab, h = 0
+  // fc1, first pass: each row's absmax over its H values
+  {
+    float mx[BM / 4];
+#pragma unroll
+    for (int i = 0; i < BM / 4; ++i) mx[i] = 0.f;
+    for (int ch = 0; ch < HC; ++ch) {
+      float sa[2], ba[2];   // 0 past H, where the products are 0 too
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = ch * kWRows + lcol + 8 * h;
+        sa[h] = col < p.H ? p.s1[col] : 0.f;
+        ba[h] = col < p.H ? p.b1[col] : 0.f;
+      }
+      fc1();
+#pragma unroll
+      for (int c = 0; c < BM / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float xr = xs[8 * c + 2 * t + e];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {   // no branch: columns past H give 0
+            const float v = qgelu(epilogue(acc[4 * c + 2 * h + e], xr, sa[h], ba[h]));
+            mx[2 * c + e] = fmaxf(mx[2 * c + e], fabsf(v));
+          }
+        }
+    }
+    // the 8 groups of a warp hold other columns of the same rows
+#pragma unroll
+    for (int i = 0; i < BM / 4; ++i) {
+      float v = mx[i];
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
+      if (g == 0) atomicMax(&amax[8 * (i >> 1) + 2 * t + (i & 1)], __float_as_uint(v));
+    }
+  }
+  consumers_sync();
+  for (int rr = ct; rr < BM; rr += 256) {
+    const float scale = quant_scale(__uint_as_float(amax[rr]));
+    hs[rr] = scale;
+    hinv[rr] = __fdiv_rn(1.0f, scale);
+  }
+  consumers_sync();
+
+  // fc1, second pass: the same h, quantized, through the staging tile to
+  // the block's rows of the hidden codes
+  for (int ch = 0; ch < HC; ++ch) {
+    float sa[2], ba[2];   // 0 past H, where the products are 0 too
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = ch * kWRows + lcol + 8 * h;
+      sa[h] = col < p.H ? p.s1[col] : 0.f;
+      ba[h] = col < p.H ? p.b1[col] : 0.f;
+    }
+    fc1();
+#pragma unroll
+    for (int c = 0; c < BM / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = 8 * c + 2 * t + e;
+        const float xr = xs[row], inv = hinv[row];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {   // no branch: columns past H give 0
+          const float v = qgelu(epilogue(acc[4 * c + 2 * h + e], xr, sa[h], ba[h]));
+          stg[row * kStageLD + lcol + 8 * h] = quant_code(v, inv);
+        }
+      }
+    // this warpgroup's 64 columns of the slab, 16 bytes a thread
+    warpgroup_sync(wg);
+    for (int i = ct % 128; i < BM * 4; i += 128) {
+      const int row = i / 4, at = wg * 64 + (i % 4) * 16;
+      *reinterpret_cast<uint4*>(p.hq + static_cast<long long>(m0 + row) * p.Hp + ch * kKC +
+                                at) = *reinterpret_cast<const uint4*>(stg + row * kStageLD + at);
+    }
+    warpgroup_sync(wg);
+  }
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  __threadfence();
+  mbar_arrive(&hq_ready);
+
+  // fc2: y^T slab nc = W2^T slab x hc^T over H, then scale, bias, residual;
+  // this warpgroup's kW2Slabs 64-row slabs of the stage's W2^T tile
+  int acc2[kW2Slabs][kAcc];
+  st = 0;
+  ph = 0;
+  for (int nc = 0; nc < NC; ++nc) {
+#pragma unroll
+    for (int sl = 0; sl < kW2Slabs; ++sl)
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i) acc2[sl][i] = 0;
+    int prev = -1;
+    for (int hc = 0; hc < HC; ++hc) {
+      mbar_wait(&full2[st], ph);
+      const unsigned char* s = ring2 + st * S2;
+      const uint64_t da = tile_desc(s + wg * kW2Slabs * kW1Half);
+      const uint64_t db = tile_desc(s + kW2TileBytes);
+#pragma unroll
+      for (int sl = 0; sl < kW2Slabs; ++sl) fence_regs(acc2[sl]);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int sl = 0; sl < kW2Slabs; ++sl)
+          wgmma_ss<BM>(acc2[sl], da + sl * (kW1Half >> 4) + 2 * j, db + 2 * j, 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (prev >= 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty2[prev]);
+      }
+      prev = st;
+      if (++st == p.stages2) {
+        st = 0;
+        ph ^= 1u;
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int sl = 0; sl < kW2Slabs; ++sl) fence_regs(acc2[sl]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty2[prev]);
+
+    // acc2[sl][4c + 2h + e] is y^T[col of slab sl + 8h][row 8c + 2t + e];
+    // q = 2 sl + h
+    constexpr int kQ = 2 * kW2Slabs;
+    float sa[kQ], ba[kQ];
+    int col[kQ];
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      col[q] = nc * kW2Rows + (wg * kW2Slabs + (q >> 1)) * 64 + wi * 16 + g + 8 * (q & 1);
+      sa[q] = col[q] < p.N ? p.s2[col[q]] : 0.f;
+      ba[q] = col[q] < p.N ? p.b2[col[q]] : 0.f;
+    }
+    // FULL: every row and column of the tile is inside y, so the loop has
+    // no branch and the residual loads need not wait for one another
+    auto store = [&](auto full_c) {
+      constexpr bool FULL = decltype(full_c)::value;
+#pragma unroll
+      for (int c = 0; c < BM / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = 8 * c + 2 * t + e, m = m0 + row;
+          if (!FULL && m >= p.M) continue;
+          const float hr = hs[row];
+#pragma unroll
+          for (int q = 0; q < kQ; ++q) {
+            if (!FULL && col[q] >= p.N) continue;
+            const long long at = static_cast<long long>(m) * p.N + col[q];
+            const float v = epilogue(acc2[q >> 1][4 * c + 2 * (q & 1) + e], hr, sa[q], ba[q]);
+            y[at] = __float2bfloat16(kRes ? __fadd_rn(v, __bfloat162float(r[at])) : v);
+          }
+        }
+    };
+    if (m0 + BM <= p.M && (nc + 1) * kW2Rows <= p.N)
+      store(std::true_type{});
+    else
+      store(std::false_type{});
+  }
+}
+
+// a map of the row-major int8 matrix (rows, cols) in boxes of 128 bytes x
+// box_rows, 128-byte swizzled; rows past the matrix load as zeros
+bool encode_codes(EncodeTiled encode, CUtensorMap* map, const void* base, int rows, int cols,
+                  int box_rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kKC), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int BM, bool kRes, bool kLN>
+int launch_rows(const CUtensorMap& w1map, const CUtensorMap& w2map, const CUtensorMap& hqmap,
+                const Params& p, const void* r, void* y, int smem, cudaStream_t stream) {
+  auto kernel = w8a8_mlp_kernel<BM, kRes, kLN>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(p.M + BM - 1) / BM, kThreadsMlp, smem, stream>>>(
+      w1map, w2map, hqmap, p, static_cast<const __nv_bfloat16*>(r),
+      static_cast<__nv_bfloat16*>(y));
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool kRes, bool kLN>
 int launch(const void* x, const void* W1t, const void* s1, const void* b1, const void* W2t,
            const void* s2, const void* b2, const void* gamma, const void* beta, const void* r,
-           void* y, int M, int K, int H, int N, void* stream) {
-  if (M <= 0 || K <= 0 || H <= 0 || N <= 0)
+           void* y, void* hq, int M, int K, int H, int N, int rows, int stages2, int smem,
+           void* stream) {
+  const int Kp = round_up(K, kKC), Hp = round_up(H, kKC);
+  if (M <= 0 || K <= 0 || H <= 0 || N <= 0 || (rows != 64 && rows != 192) || stages2 < 2 ||
+      stages2 > kMaxStages2 ||
+      smem < smem_bytes(rows, Kp, stages2) || !aligned16(W1t) || !aligned16(W2t) ||
+      !aligned16(hq))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = static_cast<size_t>(kBM) * hidden_stride(H) * sizeof(float) +
-                       static_cast<size_t>(kBM) * codes_stride(K) + 2 * kBM * sizeof(float);
-  int dev = 0, max_bytes = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&max_bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (bytes > static_cast<size_t>(max_bytes)) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = w8a8_mlp_res_kernel<kRes, kLN>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const bool fast1 = K % 64 == 0 && aligned16(W1t);
-  const bool fast2 = H % 64 == 0 && aligned16(W2t);
-  kernel<<<(M + kBM - 1) / kBM, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(W1t),
-      static_cast<const float*>(s1), static_cast<const float*>(b1),
-      static_cast<const int8_t*>(W2t), static_cast<const float*>(s2),
-      static_cast<const float*>(b2), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const __nv_bfloat16*>(r),
-      static_cast<__nv_bfloat16*>(y), M, K, H, N, fast1, fast2);
-  return static_cast<int>(cudaGetLastError());
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
+  const int Mp = (M + rows - 1) / rows * rows;
+  CUtensorMap w1map, w2map, hqmap;
+  if (!encode_codes(encode, &w1map, W1t, H, round_up(K, 16), 64) ||
+      !encode_codes(encode, &w2map, W2t, N, round_up(H, 16), kW2Rows) ||
+      !encode_codes(encode, &hqmap, hq, Mp, Hp, rows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Params p{static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(s1),
+                 static_cast<const float*>(b1), static_cast<const float*>(s2),
+                 static_cast<const float*>(b2), static_cast<const float*>(gamma),
+                 static_cast<const float*>(beta), static_cast<int8_t*>(hq), M, K, H, N, Kp, Hp,
+                 stages2};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return rows == 64 ? launch_rows<64, kRes, kLN>(w1map, w2map, hqmap, p, r, y, smem, st)
+                    : launch_rows<192, kRes, kLN>(w1map, w2map, hqmap, p, r, y, smem, st);
+}
+
+// Every d in [1, 2^126) (float bit patterns 0x3F800000 .. 0x7E7FFFFF): add
+// to *mismatches the ones for which rcp_newton(d) is not the IEEE
+// reciprocal.
+__global__ void rcp_check_kernel(unsigned long long* mismatches) {
+  unsigned long long bad = 0;
+  for (uint32_t u = 0x3F800000u + blockIdx.x * blockDim.x + threadIdx.x; u < 0x7E800000u;
+       u += gridDim.x * blockDim.x) {
+    const float d = __uint_as_float(u);
+    bad += __float_as_uint(rcp_newton(d)) != __float_as_uint(__frcp_rn(d));
+  }
+  if (bad) atomicAdd(mismatches, bad);
 }
 
 }  // namespace
 
 // x, r (M, K) / (M, N) bf16 contiguous (N == K in the tower); W1^T (H, K),
-// W2^T (N, H) int8 contiguous; s1, b1 (H), s2, b2 (N), gamma, beta (K) fp32;
-// y (M, N) bf16 contiguous. Returns cudaGetLastError() after the launch
-// (cudaErrorInvalidValue when the tile does not fit in shared memory).
+// W2^T (N, H) int8, 16-byte aligned, each row zero-padded to a multiple of
+// 16 bytes (round_up(K, 16), round_up(H, 16): TMA's stride rule);
+// s1, b1 (H), s2, b2 (N), gamma, beta (K) fp32; y (M, N) bf16 contiguous;
+// hq the int8 scratch of the hidden codes, (ceil(M / rows) * rows,
+// round_up(H, 128)), 16-byte aligned. rows (64 or 192), stages2 and smem
+// are the launch plan (ops/int8_matmul.w8a8_mlp_plan). Returns
+// cudaGetLastError() after the launch (cudaErrorInvalidValue for a shape
+// or plan the kernel does not take).
 extern "C" int w8a8_mlp_res_bf16(const void* x, const void* W1t, const void* s1,
                                  const void* b1, const void* W2t, const void* s2,
                                  const void* b2, const void* gamma, const void* beta,
-                                 const void* r, void* y, int M, int K, int H, int N,
-                                 void* stream) {
-  return launch<true, true>(x, W1t, s1, b1, W2t, s2, b2, gamma, beta, r, y, M, K, H, N, stream);
+                                 const void* r, void* y, void* hq, int M, int K, int H, int N,
+                                 int rows, int stages2, int smem, void* stream) {
+  return launch<true, true>(x, W1t, s1, b1, W2t, s2, b2, gamma, beta, r, y, hq, M, K, H, N,
+                            rows, stages2, smem, stream);
 }
 
 // The same without the residual; gamma == beta == nullptr skips the
 // LayerNorm.
 extern "C" int w8a8_mlp_bf16(const void* x, const void* W1t, const void* s1, const void* b1,
                              const void* W2t, const void* s2, const void* b2,
-                             const void* gamma, const void* beta, void* y, int M, int K, int H,
-                             int N, void* stream) {
+                             const void* gamma, const void* beta, void* y, void* hq, int M,
+                             int K, int H, int N, int rows, int stages2, int smem,
+                             void* stream) {
   if (gamma != nullptr && beta != nullptr)
-    return launch<false, true>(x, W1t, s1, b1, W2t, s2, b2, gamma, beta, nullptr, y, M, K, H, N,
-                               stream);
-  return launch<false, false>(x, W1t, s1, b1, W2t, s2, b2, nullptr, nullptr, nullptr, y, M, K,
-                              H, N, stream);
+    return launch<false, true>(x, W1t, s1, b1, W2t, s2, b2, gamma, beta, nullptr, y, hq, M, K,
+                               H, N, rows, stages2, smem, stream);
+  return launch<false, false>(x, W1t, s1, b1, W2t, s2, b2, nullptr, nullptr, nullptr, y, hq, M,
+                              K, H, N, rows, stages2, smem, stream);
+}
+
+// The constants of the launch plan, for the Python side to check its own
+// against: {bytes of an fc1 weight tile, fc1 stages, most fc2 stages,
+// bytes per staging row, static shared bytes, bytes of an fc2 weight tile,
+// the current device's opt-in shared bytes per block}.
+extern "C" void w8a8_mlp_layout(int* out) {
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  out[0] = kWTileBytes;
+  out[1] = kStages1;
+  out[2] = kMaxStages2;
+  out[3] = kStageLD;
+  out[4] = kStaticBytes;
+  out[5] = kW2TileBytes;
+  out[6] = optin;
+}
+
+// rcp_check_kernel on the stream; *mismatches (a device counter, zeroed by
+// the caller) receives the count
+extern "C" int w8a8_mlp_rcp_check(void* mismatches, void* stream) {
+  rcp_check_kernel<<<1024, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(mismatches));
+  return static_cast<int>(cudaGetLastError());
 }

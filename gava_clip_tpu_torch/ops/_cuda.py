@@ -102,10 +102,17 @@ _SIGNATURES = {
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "w8a8_mlp": {
-        # x, W1, s1, b1, W2, s2, b2, gamma, beta, r, y; M, K, H, N; stream
-        "w8a8_mlp_res_bf16": ([_VP] * 11 + [_I] * 4 + [_VP], _I),
+        # x, W1, s1, b1, W2, s2, b2, gamma, beta, r, y, hidden-code scratch;
+        # M, K, H, N; the launch plan (rows per block, fc2 stages, shared
+        # bytes); stream
+        "w8a8_mlp_res_bf16": ([_VP] * 12 + [_I] * 7 + [_VP], _I),
         # without the residual (gamma, beta may be null: no LayerNorm)
-        "w8a8_mlp_bf16": ([_VP] * 10 + [_I] * 4 + [_VP], _I),
+        "w8a8_mlp_bf16": ([_VP] * 11 + [_I] * 7 + [_VP], _I),
+        # the plan's constants and the device's shared-memory limit: seven
+        # ints
+        "w8a8_mlp_layout": ([ctypes.POINTER(_I)], None),
+        # the reciprocal check: a device uint64 counter; stream
+        "w8a8_mlp_rcp_check": ([_VP, _VP], _I),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "w8_matmul": {

@@ -533,19 +533,23 @@ def streaming_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch csrc/streaming_attention.cu on the current stream (no sync):
     (out, lse (B, H, Lq) fp32)."""
+    # the text tower's attention is launch-bound: this wrapper's host time
+    # is most of the call's, so it asks for the device, the stream and the
+    # current device once each
     from ._cuda import load_library
     _check_kernel_args(q, k, v, num_heads)
     B, Lq, D = q.shape
     if k.shape[1] == 0:
         raise ValueError("streaming attention needs at least one key")
     lib = load_library("streaming_attention")
-    out = torch.empty((B, Lq, D), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, num_heads, Lq), dtype=torch.float32,
-                      device=q.device)
+    dev = q.device
+    out = torch.empty((B, Lq, D), dtype=q.dtype, device=dev)
+    lse = torch.empty((B, num_heads, Lq), dtype=torch.float32, device=dev)
     if B == 0 or Lq == 0:
         return out, lse
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
         err = lib.streaming_attention_fwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), B, Lq, k.shape[1], num_heads, D // num_heads,

@@ -51,7 +51,7 @@ fallback); `impl="plain"` runs the plain version on any device, which is
 how a run holds the kernels against it on the card.
 """
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -359,6 +359,78 @@ def w8a8_matmul3_cuda(x, kernels3, bias3, ln=None):
                                                 None, kernels3, bias3, ln))
 
 
+# the fused MLP's launch plan (csrc/w8a8_mlp.cu): bytes of an fc1 weight
+# tile (128 x 128), stages of the fc1 ring, most stages of the fc2 ring,
+# bytes per row of the code staging tile, the kernel's static shared bytes,
+# bytes of an fc2 weight tile (256 x 128); rows per block, largest first
+_MLP_LAYOUT = (16384, 3, 4, 144, 256, 32768)
+_MLP_ROWS = (192, 64)
+_mlp_layout_checked: Dict = {}
+
+
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def w8a8_mlp_plan(M: int, K: int, H: int, N: int, sm_count: int,
+                  smem_limit: int) -> Dict:
+    """Launch plan of the fused w8a8 MLP on a card of `sm_count` SMs whose
+    blocks may have `smem_limit` shared bytes: {'rows' (per block), 'grid',
+    'stages2' (fc2 ring), 'smem_bytes', 'scratch' (rows, columns of the
+    int8 hidden codes)}. A block keeps its rows' K codes in shared memory:
+    192 rows where that fits and still gives every SM a block, else 64.
+    Raises for rows too long for even 64 of them."""
+    if min(M, K, H, N) <= 0:
+        raise ValueError(f"w8a8 MLP plan: M={M}, K={K}, H={H}, N={N}")
+    tile, stages1, max_stages2, stage_ld, static, tile2 = _MLP_LAYOUT
+    kp, hp = _round_up(K, 128), _round_up(H, 128)
+    fits = []
+    for rows in _MLP_ROWS:
+        codes = rows * kp + stages1 * tile
+        stage2 = tile2 + rows * 128
+        stages2 = max(2, min(max_stages2, codes // stage2))
+        smem = 1024 + max(codes, stages2 * stage2) + rows * stage_ld + 16 * rows
+        if smem + static <= smem_limit:
+            fits.append((rows, stages2, smem))
+    if not fits:
+        raise ValueError(f"w8a8 MLP: rows of K={K} do not fit the kernel's "
+                         f"shared-memory code tile ({smem_limit} bytes a "
+                         f"block)")
+    full = [f for f in fits if -(-M // f[0]) >= sm_count]
+    rows, stages2, smem = full[0] if full else fits[-1]
+    grid = -(-M // rows)
+    return {"rows": rows, "grid": grid, "stages2": stages2,
+            "smem_bytes": smem, "scratch": (grid * rows, hp)}
+
+
+def _mlp_smem_limit(lib, device) -> int:
+    """The device's shared bytes per block, after checking that the built
+    kernel's layout constants are the plan's."""
+    import ctypes
+    key = torch.cuda.current_device() if device.index is None else device.index
+    if key not in _mlp_layout_checked:
+        out = (ctypes.c_int * 7)()
+        with torch.cuda.device(device):
+            lib.w8a8_mlp_layout(out)
+        if tuple(out)[:6] != _MLP_LAYOUT:
+            raise RuntimeError(f"w8a8_mlp: the kernel's layout "
+                               f"{tuple(out)[:6]} is not the launch plan's "
+                               f"{_MLP_LAYOUT}")
+        _mlp_layout_checked[key] = out[6]
+    return _mlp_layout_checked[key]
+
+
+def _tma_rows(w: torch.Tensor) -> torch.Tensor:
+    """The int8 W^T as TMA loads it: 16-byte aligned rows of a multiple of
+    16 bytes, zero-padded (a copy) where they are not."""
+    n, k = w.shape
+    if k % 16 == 0 and w.data_ptr() % 16 == 0:
+        return w
+    out = w.new_zeros((n, _round_up(k, 16)))
+    out[:, :k] = w
+    return out
+
+
 def _w8a8_mlp_launch(name, x, fc1, fc2, ln, residual):
     """Launch csrc/w8a8_mlp.cu: the residual form (ln and residual given) or
     the residual-free entry point (residual None, ln optional)."""
@@ -385,15 +457,24 @@ def _w8a8_mlp_launch(name, x, fc1, fc2, ln, residual):
         (_f32_vec(p, K, "LayerNorm") for p in ln)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M:
+        from ._cuda import load_library
+        plan = w8a8_mlp_plan(
+            M, K, H, N,
+            torch.cuda.get_device_properties(x.device).multi_processor_count,
+            _mlp_smem_limit(load_library("w8a8_mlp"), x.device))
+        w1, w2 = _tma_rows(w1), _tma_rows(w2)
+        hq = torch.empty(plan["scratch"], dtype=torch.int8, device=x.device)
         head = (x.data_ptr(), w1.data_ptr(), s1.data_ptr(), b1.data_ptr(),
                 w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), _ptr(g),
                 _ptr(beta))
+        tail = (hq.data_ptr(), M, K, H, N, plan["rows"], plan["stages2"],
+                plan["smem_bytes"])
         if residual is None:
             _launch("w8a8_mlp", "w8a8_mlp_bf16", x.device, *head,
-                    out.data_ptr(), M, K, H, N)
+                    out.data_ptr(), *tail)
         else:
             _launch("w8a8_mlp", "w8a8_mlp_res_bf16", x.device, *head,
-                    r.data_ptr(), out.data_ptr(), M, K, H, N)
+                    r.data_ptr(), out.data_ptr(), *tail)
         launch_counts[name] += 1
     return out
 

@@ -2,7 +2,7 @@
 or a wrong bound: build deliberately broken copies of a kernel source and
 run the check phase of chip_smoke.py on each.
 
-    python3 -m gava_clip_tpu_torch.utils.kernel_mutants      # from the repo root, on a card
+    python3 -m gava_clip_tpu_torch.utils.kernel_mutants [b7 b5]   # repo root, on a card
 
 Each mutant is a copy of the package and of chip_smoke.py under
 `_scratch/mut_<name>/` (gitignored) with one source patched; the copy
@@ -24,6 +24,8 @@ _B12 = "gava_clip_tpu_torch/csrc/attention_out_int8.cu"
 _B9 = "gava_clip_tpu_torch/csrc/w8_matmul.cu"
 _B1 = "gava_clip_tpu_torch/csrc/packed_attention.cu"
 _W8A8 = "gava_clip_tpu_torch/csrc/w8a8_common.cuh"
+_B7 = "gava_clip_tpu_torch/csrc/streaming_attention.cu"
+_B5 = "gava_clip_tpu_torch/csrc/w8a8_mlp.cu"
 _ROUND = "__bfloat162float(__float2bfloat16({}))"
 # name -> (source, [(old, new)], chip_smoke phase, word that marks the
 # kernel's lines)
@@ -97,12 +99,43 @@ MUTANTS = {
                 "return v2b + static_cast<long long>(j - s2.L1 > 0 ? "
                 "j - s2.L1 - 1 : 0) * s2.v2_sl;")],
         "phase_w8a8_kernels", "2src"),
+    # B7 forward: the row sum taken from bf16(p), the AV product's weights,
+    # instead of the fp32 p
+    "b7_sum_of_rounded_p": (
+        _B7, [("          l[sl][j] += p0;\n          l[sl][j] += p1;\n"
+               "          pa[sl][n / 2][(n % 2) * 2 + j] = cvt_pack(p0, p1);\n",
+               "          pa[sl][n / 2][(n % 2) * 2 + j] = cvt_pack(p0, p1);\n"
+               "          l[sl][j] += attn::lo_f(pa[sl][n / 2][(n % 2) * 2 + j]);"
+               "\n          l[sl][j] += attn::hi_f(pa[sl][n / 2][(n % 2) * 2 + j]);"
+               "\n")],
+        "phase_train_kernels", "streaming_attention B="),
+    # B5: the fp32 hidden rounded to bf16 before the requant (its absmax
+    # and its codes)
+    "b5_hidden_bf16": (
+        _B5, [("mx[2 * c + e] = fmaxf(mx[2 * c + e], fabsf(v));",
+               "mx[2 * c + e] = fmaxf(mx[2 * c + e], fabsf(__bfloat162float("
+               "__float2bfloat16(v))));"),
+              ("stg[row * kStageLD + lcol + 8 * h] = quant_code(v, inv);",
+               "stg[row * kStageLD + lcol + 8 * h] = quant_code("
+               "__bfloat162float(__float2bfloat16(v)), inv);")],
+        "phase_w8a8_kernels", "w8a8_mlp_res M="),
+    # B5: each row's absmax over the first 64-column slab of h only
+    "b5_absmax_first_slab": (
+        _B5, [("mx[2 * c + e] = fmaxf(mx[2 * c + e], fabsf(v));",
+               "if (ch == 0 && wg == 0) mx[2 * c + e] = fmaxf(mx[2 * c + e], "
+               "fabsf(v));")],
+        "phase_w8a8_kernels", "w8a8_mlp_res M="),
 }
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    """argv: name prefixes of the mutants to run (all when none is given),
+    e.g. `b7 b5`."""
+    prefixes = tuple(sys.argv[1:] if argv is None else argv)
     passed = []
     for name, (path, edits, phase, word) in MUTANTS.items():
+        if prefixes and not name.startswith(prefixes):
+            continue
         d = os.path.join(ROOT, "_scratch", "mut_" + name)
         shutil.rmtree(d, ignore_errors=True)
         os.makedirs(d)

@@ -2,7 +2,7 @@
 variants of a kernel source (patched copies, as kernel_mutants.py does)
 and time each against the same yardstick, in turns.
 
-    python3 -m gava_clip_tpu_torch.utils.kernel_variants   # from the repo root, on a card
+    python3 -m gava_clip_tpu_torch.utils.kernel_variants [b1 b9 b7 b5]   # repo root, on a card
 
 B1 / B6a (csrc/packed_attention.cu, the den entry) against
 F.scaled_dot_product_attention's forward at the two training shapes: the
@@ -12,11 +12,22 @@ summed by the threads instead of against a column of ones, three stages
 instead of four. B9 (csrc/w8_matmul.cu) against torch.matmul on the
 dequantized weight at fc1 and fc2: the source as it is, and a variant that
 skips the dequantization (its outputs are wrong; it shows what the
-conversion costs). Each variant builds into `_scratch/variants/`
-(gitignored), is called through the real entry point's ctypes signature,
-is compared with the plain version (the share of outputs that differ), and
-is timed with chip_smoke's turns: the median ratio of 7 rounds and their
-range. Prints one line per variant and shape.
+conversion costs). B7's causal forward (csrc/streaming_attention.cu)
+against SDPA's forward, both captured in CUDA graphs, at the text tower's
+shape and at (4, 1024, 1024, 8): the source as it is (4 warps of one
+16-row slab), 8 warps, two slabs per warp, four stages, key tiles of 128,
+two stages with four blocks per SM, three blocks per SM, the accumulator
+rescaled only when a max moved, exp2f. B5 (csrc/w8a8_mlp.cu) at the
+serving shape, each in turns with the source as it is and held to its
+bits: the IEEE division in QuickGELU, fc2's epilogue always
+bounds-checked, one W2^T slab per warpgroup in fc2, and two that show
+where the time goes (no QuickGELU, no fc1 products: wrong outputs).
+
+Each variant builds into `_scratch/variants/` (gitignored), is called
+through the real entry point's ctypes signature, is compared with the
+plain version (the share of outputs that differ), and is timed with
+chip_smoke's turns: the median ratio of 7 rounds and their range. Prints
+one line per variant and shape.
 """
 
 import ctypes
@@ -29,6 +40,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 _PA = "gava_clip_tpu_torch/csrc/packed_attention.cu"
 _W8 = "gava_clip_tpu_torch/csrc/w8_matmul.cu"
+_B7 = "gava_clip_tpu_torch/csrc/streaming_attention.cu"
+_B5 = "gava_clip_tpu_torch/csrc/w8a8_mlp.cu"
+_LIB = {_PA: "packed_attention", _W8: "w8_matmul", _B7: "streaming_attention",
+        _B5: "w8a8_mlp"}
 # name -> (source, [(old, new)])
 VARIANTS = {
     "b1_as_is": (_PA, []),
@@ -59,7 +74,66 @@ VARIANTS = {
          "    a[2 * h][2] = a[2 * h][3] = v.y;\n"
          "    a[2 * h + 1][0] = a[2 * h + 1][1] = v.z;\n"
          "    a[2 * h + 1][2] = a[2 * h + 1][3] = v.w;")]),
+    "b7_as_is": (_B7, []),
+    # 8 warps of one 16-row slab (128-row chunks); 4 warps of two slabs
+    # (each K and V fragment feeding both)
+    "b7_8_warps": (_B7, [("constexpr int kWarps = 4;",
+                          "constexpr int kWarps = 8;")]),
+    "b7_two_slabs_per_warp": (_B7, [("constexpr int kSlabs = 1;",
+                                     "constexpr int kSlabs = 2;")]),
+    "b7_4_stages": (_B7, [("constexpr int kStages = 3;",
+                           "constexpr int kStages = 4;")]),
+    "b7_3_blocks": (_B7, [("__launch_bounds__(kWarps * 32, 2)",
+                           "__launch_bounds__(kWarps * 32, 3)")]),
+    # key tiles of 128 (two blocks per SM); two stages of 64 keys with
+    # four blocks per SM
+    "b7_128_key_tiles": (_B7, [("constexpr int kTileK = 64;",
+                                "constexpr int kTileK = 128;")]),
+    "b7_2_stages_4_blocks": (_B7, [("constexpr int kStages = 3;",
+                                    "constexpr int kStages = 2;"),
+                                   ("__launch_bounds__(kWarps * 32, 2)",
+                                    "__launch_bounds__(kWarps * 32, 4)")]),
+    # the accumulator rescaled only when a row's max moved in the warp
+    "b7_rescale_on_move": (_B7, [
+        ("#pragma unroll\n        for (int d = 0; d < kND; ++d) {\n"
+         "          acc[sl][d][2 * j] *= alpha;\n"
+         "          acc[sl][d][2 * j + 1] *= alpha;\n        }\n",
+         "        if (__any_sync(0xffffffffu, alpha != 1.f)) {\n"
+         "#pragma unroll\n        for (int d = 0; d < kND; ++d) {\n"
+         "          acc[sl][d][2 * j] *= alpha;\n"
+         "          acc[sl][d][2 * j + 1] *= alpha;\n        }\n"
+         "        }\n")]),
+    "b7_exp2f": (_B7, [("const float p0 = ex2f(", "const float p0 = exp2f("),
+                       ("const float p1 = ex2f(", "const float p1 = exp2f("),
+                       ("const float alpha = ex2f(",
+                        "const float alpha = exp2f(")]),
+    "b5_as_is": (_B5, []),
+    # where B5's time goes (wrong outputs): no QuickGELU in either fc1
+    # pass; no fc1 products
+    "b5_no_quick_gelu": (_B5, [(
+        "  return __fmul_rn(h, rcp_newton(fminf(__fadd_rn(1.0f, expf("
+        "-__fmul_rn(1.702f, h))), 3.0e38f)));", "  return h;")]),
+    "b5_no_fc1_products": (_B5, [
+        ("      for (int j = 0; j < 4; ++j) wgmma_ss<BM>(acc, da + 2 * j, "
+         "db + 2 * j, 1);\n", "")]),
+    # QuickGELU's reciprocal by the IEEE division, as the plain version
+    # writes it (a slow-path branch for each value)
+    "b5_ieee_division": (_B5, [(
+        "rcp_newton(fminf(__fadd_rn(1.0f, expf(-__fmul_rn(1.702f, h))), "
+        "3.0e38f))", "__fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-__fmul_rn("
+        "1.702f, h))))")]),
+    # fc2's epilogue always through the bounds-checked loop
+    "b5_checked_store": (_B5, [(
+        "if (m0 + BM <= p.M && (nc + 1) * kW2Rows <= p.N)", "if (false)")]),
+    # fc2 with one 64-row W2^T slab per warpgroup (128 output columns a
+    # stage): the hidden codes read back twice as often
+    "b5_fc2_one_slab": (_B5, [("constexpr int kW2Slabs = 2;",
+                               "constexpr int kW2Slabs = 1;")]),
 }
+# the fc2 weight tile of each B5 variant, for its launch plan
+B5_TILE2 = {"b5_fc2_one_slab": 16384}   # the others: 32,768
+# (B, Lq, heads) of B7's causal forward: the text tower, a longer L
+B7_SHAPES = ((15, 77, 8), (4, 1024, 8))
 ATTN_SHAPES = ((128, 197, 214, 12), (280, 197, 276, 12))
 W8_SHAPES = ((25216, 768, 3072, "fc1"), (25216, 3072, 768, "fc2"))
 
@@ -85,14 +159,17 @@ def _build(name):
     if res.returncode:
         raise RuntimeError(f"nvcc failed for {name}:\n{res.stderr}")
     lib = ctypes.CDLL(so)
-    lib_name = "packed_attention" if path == _PA else "w8_matmul"
-    for fn, (argtypes, restype) in _cuda._SIGNATURES[lib_name].items():
+    for fn, (argtypes, restype) in _cuda._SIGNATURES[_LIB[path]].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
     return name, lib
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    """argv: name prefixes of the variants to build and time (all when
+    none is given), e.g. `b7 b5`."""
+    prefixes = tuple(sys.argv[1:] if argv is None else argv)
+    names = [n for n in VARIANTS if not prefixes or n.startswith(prefixes)]
     sys.path.insert(0, ROOT)
     import torch
     import chip_smoke as cs
@@ -101,11 +178,11 @@ def main() -> int:
     cs.import_port()
     state = {}
     cs.phase_device(state)
-    with ThreadPoolExecutor(len(VARIANTS)) as ex:
-        libs = dict(ex.map(_build, VARIANTS))
+    with ThreadPoolExecutor(len(names)) as ex:
+        libs = dict(ex.map(_build, names))
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
-    for B, Lq, Lk, H in ATTN_SHAPES:
+    for B, Lq, Lk, H in ATTN_SHAPES if _any(libs, "b1") else ():
         D = H * 64
         q, k, v = (torch.randn(B, L, D, generator=gen, device="cuda",
                                dtype=torch.bfloat16) for L in (Lq, Lk, Lk))
@@ -132,7 +209,7 @@ def main() -> int:
                   f"!= plain {share:.3e}; {r[0]:.4f} ms vs SDPA forward "
                   f"{r[1]:.4f} ms, ratio {r[2]:.3f} (rounds {r[3]:.3f}-"
                   f"{r[4]:.3f}) ({state['smi']})", flush=True)
-    for M, K, N, what in W8_SHAPES:
+    for M, K, N, what in W8_SHAPES if _any(libs, "b9") else ():
         x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
         leaf = cs._w8_leaf(gen, K, N)
         ref = im.int8_matmul_plain(x, leaf["q"], leaf["scale"])
@@ -157,7 +234,108 @@ def main() -> int:
                   f"plain {share:.3e}; {r[0]:.4f} ms vs torch.matmul "
                   f"{r[1]:.4f} ms, ratio {r[2]:.3f} (rounds {r[3]:.3f}-"
                   f"{r[4]:.3f}) ({state['smi']})", flush=True)
+    if _any(libs, "b7"):
+        _b7_variants(cs, fa, libs, gen, state)
+    if _any(libs, "b5"):
+        _b5_variants(cs, im, libs, gen, stream, state)
     return 0
+
+
+def _any(libs, prefix):
+    return any(name.startswith(prefix) for name in libs)
+
+
+def _b7_variants(cs, fa, libs, gen, state):
+    """B7's causal forward, each variant against SDPA's forward, both
+    captured in CUDA graphs (device time)."""
+    import torch
+    for B, L, H in B7_SHAPES:
+        D = H * 64
+        q, k, v = (torch.randn(B, L, D, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(3))
+        ref = fa.streaming_attention_plain(q, k, v, H, True)[0]
+        o = torch.empty_like(q)
+        lse = torch.empty(B, H, L, device="cuda")
+        sdpa = cs._sdpa_fwd(q, k, v, H, True)
+        for name, lib in libs.items():
+            if not name.startswith("b7"):
+                continue
+            def call(lib=lib):
+                # the current stream: a CUDA graph captures on its own
+                err = lib.streaming_attention_fwd_bf16(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    o.data_ptr(), lse.data_ptr(), B, L, L, H, 64,
+                    *fa._qkv_strides(q, k, v), 64 ** -0.5, 1,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{name}: launch failed ({err})")
+            call()
+            torch.cuda.synchronize()
+            far = ((o.float() - ref.float()).abs()
+                   > 2 * cs.bf16_ulp(ref)).float().mean().item()
+            r = cs._ratio_graphs(call, sdpa)
+            print(f"[variants] {name} B={B} L={L} H={H} causal: "
+                  f"outputs > 2 ulp from plain {far:.3e}; "
+                  f"{r[0]:.5f} ms vs SDPA forward {r[1]:.5f} ms per call "
+                  f"in CUDA graphs, ratio {r[2]:.3f} (rounds {r[3]:.3f}-"
+                  f"{r[4]:.3f}) ({state['smi']})", flush=True)
+
+
+def _b5_variants(cs, im, libs, gen, stream, state):
+    """B5 (the residual entry) at the serving shape, each variant in turns
+    with the source as it is."""
+    import torch
+    M, K, Hd, N = 25216, 768, 3072, 768
+    x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
+    r = torch.randn(M, N, generator=gen, device="cuda").to(torch.bfloat16)
+    ln = [t.contiguous() for t in cs._ln_params(gen, K)]
+    k1, k2 = cs._qleaf(gen, K, Hd), cs._qleaf(gen, Hd, N)
+    b1 = torch.randn(Hd, generator=gen, device="cuda") * 0.02
+    b2 = torch.randn(N, generator=gen, device="cuda") * 0.02
+    s1, s2 = (k["scale"].reshape(-1).float().contiguous() for k in (k1, k2))
+    ref = im.w8a8_mlp_res_plain(x, {"kernel": k1, "bias": b1},
+                                {"kernel": k2, "bias": b2}, ln, r)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    calls, outs = {}, {}
+    # the source as it is first: the others are held to its bits
+    for name, lib in sorted(libs.items(), key=lambda kv: kv[0] != "b5_as_is"):
+        if not name.startswith("b5"):
+            continue
+        layout = im._MLP_LAYOUT[:5] + (B5_TILE2.get(name, 32768),)
+        saved, im._MLP_LAYOUT = im._MLP_LAYOUT, layout
+        try:
+            plan = im.w8a8_mlp_plan(M, K, Hd, N, sms, 232448)
+        finally:
+            im._MLP_LAYOUT = saved
+        hq = torch.empty(plan["scratch"], dtype=torch.int8, device="cuda")
+        y = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
+
+        def call(lib=lib, plan=plan, hq=hq, y=y):
+            err = lib.w8a8_mlp_res_bf16(
+                x.data_ptr(), k1["qa_t"].data_ptr(), s1.data_ptr(),
+                b1.data_ptr(), k2["qa_t"].data_ptr(), s2.data_ptr(),
+                b2.data_ptr(), ln[0].data_ptr(), ln[1].data_ptr(),
+                r.data_ptr(), y.data_ptr(), hq.data_ptr(), M, K, Hd, N,
+                plan["rows"], plan["stages2"], plan["smem_bytes"], stream)
+            if err:
+                raise RuntimeError(f"{name}: launch failed ({err})")
+        call()
+        torch.cuda.synchronize()
+        share = (y != ref).float().mean().item()
+        calls[name] = call
+        outs[name] = y
+        same = torch.equal(y, outs.get("b5_as_is", y))
+        print(f"[variants] {name} M={M} K={K} H={Hd} N={N}: outputs != plain "
+              f"{share:.3e}, bit-equal to b5_as_is: {same}; "
+              f"{cs.cuda_time_ms(call, iters=10):.4f} ms ({state['smi']})",
+              flush=True)
+    for name, call in calls.items():
+        if name != "b5_as_is":
+            t = cs._ratio_turns(call, calls["b5_as_is"])
+            print(f"[variants] {name} vs b5_as_is, median of 7 rounds in "
+                  f"turns: {t[0]:.4f} ms vs {t[1]:.4f} ms, ratio {t[2]:.3f} "
+                  f"(rounds {t[3]:.3f}-{t[4]:.3f}) ({state['smi']})",
+                  flush=True)
 
 
 if __name__ == "__main__":
