@@ -28,7 +28,11 @@ The w8a8 path gets the same three checks:
           the serving shapes and ragged ones, with CUDA-event times of both
           (limits in W8A8_LIMITS); w8a8_matmul also at rows longer than the
           1,024 values a warp holds in registers (the text MLP's fc2, 1,155
-          x 2,048, and a ragged K), bit for bit;
+          x 2,048, and a ragged K), bit for bit; w8a8_matmul3_cat also
+          against three w8a8_matmul launches on its rows, and
+          attention_out_int8 against packed_attention then w8a8_matmul,
+          each in turns, and the int8 product of each alone through
+          torch._int_mm (the `yardsticks` of their kernels-line entries);
   w8a8-slice   VideoClassifier(quantize="w8a8", patch_major=True) on the
           pathology weights at batch 16: launches per forward (1, 12, 12, 12
           and no packed attention), probabilities, the padded bucket, the
@@ -98,7 +102,8 @@ The remaining serving modes:
           four projection shapes); the qkv kernel without extras rows is
           timed here too,
           and its entry w8a8_matmul3 (B3a) checked and timed at the text
-          attention's shape of the driver phase;
+          attention's shape of the driver phase, also in a CUDA graph of
+          20 launches (device time: `graph_ms`);
   w8-slice     VideoClassifier(quantize="w8") at batch 16: 72 int8_matmul
           and 12 packed_attention launches per forward, the logits against
           the same forward through the plain versions and against the bf16
@@ -134,8 +139,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # the kernels' symbols, as a device trace names them
 KERNEL_SYMBOLS = ("packed_attention_kernel", "w8a8_matmul_kernel",
-                  "w8a8_qkv_cat_kernel", "attention_out_int8_kernel",
-                  "w8a8_mlp_res_kernel", "attn_bwd_dq_kernel",
+                  "w8a8_qkv_kernel", "attention_out_int8_kernel",
+                  "w8a8_mlp_kernel", "attn_bwd_dq_kernel",
                   "attn_bwd_dkdv_kernel", "streaming_attention_fwd_kernel",
                   "w8_matmul_kernel", "fused_extras_kernel",
                   "packed_bwd_kernel")
@@ -290,10 +295,10 @@ def phase_build(state):
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
-    # B9 and B5 are wgmma kernels: their machine code must hold GMMA
-    # instructions (HGMMA for bf16, IGMMA for int8)
+    # B9, B5, B3 and B4 are wgmma kernels: their machine code must hold
+    # GMMA instructions (HGMMA for bf16, IGMMA for int8)
     cuobjdump = os.path.join(os.path.dirname(_cuda.find_nvcc()), "cuobjdump")
-    for lib in ("w8_matmul", "w8a8_mlp"):
+    for lib in ("w8_matmul", "w8a8_mlp", "w8a8_qkv", "attention_out_int8"):
         sass = subprocess.run(
             [cuobjdump, "-sass", _cuda.build_info[lib]["so"]],
             capture_output=True, text=True, check=True).stdout
@@ -483,6 +488,70 @@ def _check_w8a8(name, out, ref, unit):
         f"unit {units:.3f} (limit {lim_units:g})")
 
 
+def _int_mm_ms(gen, M, K, wt):
+    """CUDA-event ms of the int8 product alone in one PyTorch call,
+    torch._int_mm of (M, K) codes and the W^T (N, K) weight: a part of a
+    w8a8 op (no quant, no epilogue) that the port never calls."""
+    import torch
+    a = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    b = wt.t()
+    try:
+        torch._int_mm(a, b)
+    except RuntimeError:
+        b = b.contiguous()
+    return cuda_time_ms(lambda: torch._int_mm(a, b), iters=10)
+
+
+def _yardsticks(state, name, kernel, other, what, int_mm_ms):
+    """The kernel against `other` (the unfused kernels it replaces) in
+    turns, median of 5 rounds, and the product alone through torch._int_mm;
+    logged and kept beside the kernel's times (library_ms stays None)."""
+    k, o, ratio, lo, hi = _ratio_turns(kernel, other, turns=5)
+    log(f"[w8a8] {name} serving shape vs {what}, median of 5 rounds in "
+        f"turns: {k:.4f} ms vs {o:.4f} ms, ratio {ratio:.3f} (rounds "
+        f"{lo:.3f}-{hi:.3f}); the int8 product alone through torch._int_mm "
+        f"{int_mm_ms:.4f} ms ({state['smi']})")
+    state["kstats"][name]["yardsticks"] = {
+        "unfused_ms": o, "kernel_ms_in_turns": k, "int_mm_ms": int_mm_ms}
+
+
+def _b3_yardsticks(state, x, e, k3, b3, ln):
+    """B3 against three B2 launches on its kv rows (the unfused q, k, v
+    projections, without the LayerNorm); torch._int_mm of (27392, 768) x
+    (768, 2304)."""
+    import torch
+    from gava_clip_tpu_torch.ops import int8_matmul as im
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    kv = torch.cat([x, e], dim=1).reshape(-1, x.shape[-1])
+    wt = torch.cat([k["qa_t"] for k in k3], dim=0)
+    _yardsticks(state, "w8a8_matmul3_cat",
+                lambda: im.w8a8_matmul3_cat_cuda(x, e, k3, b3, ln),
+                lambda: [im.w8a8_matmul_cuda(kv, k, b)
+                         for k, b in zip(k3, b3)],
+                f"three B2 launches at ({kv.shape[0]}, {kv.shape[1]}, "
+                f"{k3[0]['qa_t'].shape[0]})",
+                _int_mm_ms(gen, kv.shape[0], kv.shape[1], wt))
+
+
+def _b4_yardsticks(state, q, k, v, H, op, r, lq):
+    """B4 against B1 (bf16 attention of the lq queries) followed by B2 (the
+    out-projection of its rows); torch._int_mm of (B * lq, D) x (D, D)."""
+    import torch
+    from gava_clip_tpu_torch.ops import flash_attention as fa
+    from gava_clip_tpu_torch.ops import int8_matmul as im
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    B, _, D = q.shape
+    a = torch.randn(B * lq, D, generator=gen, device="cuda").to(q.dtype)
+    _yardsticks(state, "attention_out_int8",
+                lambda: fa.attention_out_int8_cuda(q, k, v, H, op, r, lq),
+                lambda: (fa.packed_attention_cuda(q[:, :lq], k, v, H),
+                         im.w8a8_matmul_cuda(a, op["kernel"], op["bias"])),
+                f"B1 + B2 at ({B}, {lq}, {k.shape[1]}, {H}) and "
+                f"({B * lq}, {D}, {D})",
+                _int_mm_ms(gen, B * lq, D, op["kernel"]["qa_t"]))
+
+
 def phase_w8a8_kernels(state):
     """B2-B5 against their plain versions, at the serving shape and ragged
     ones, with CUDA-event times of both at the serving shape."""
@@ -496,7 +565,10 @@ def phase_w8a8_kernels(state):
         return (torch.randn(*shape, generator=gen, device="cuda")
                 * gain).to(bf)
 
-    def run(name, label, kernel, plain, unit, first, bound=None):
+    def run(name, label, kernel, plain, unit, first, bound=None, timed=None):
+        """Check `kernel` against `plain`; at the serving shape (`first`)
+        time them, or the pair `timed` (the same calls without what the
+        check adds to them)."""
         out, ref = kernel(), plain()
         torch.cuda.synchronize()
         ok, err, text = _check_w8a8(name, out, ref, unit)
@@ -504,6 +576,7 @@ def phase_w8a8_kernels(state):
         if not ok:
             state.setdefault("w8a8_failures", []).append(f"{name} {label}")
         if first:
+            kernel, plain = timed or (kernel, plain)
             t = {"plain": [], "kernel": []}
             for which in ("plain", "kernel", "kernel", "plain"):
                 t[which].append(cuda_time_ms(kernel if which == "kernel"
@@ -551,7 +624,11 @@ def phase_w8a8_kernels(state):
             lambda: torch.cat(im.w8a8_matmul3_cat_plain(*args), dim=-1),
             unit, i == 0,
             _bound(B * (Lx + Le) * (2 * K + 6 * N) + 3 * K * N + 24 * N
-                   + 8 * K, ops_int8=6 * B * (Lx + Le) * K * N))
+                   + 8 * K, ops_int8=6 * B * (Lx + Le) * K * N),
+            (lambda: im.w8a8_matmul3_cat_cuda(*args),
+             lambda: im.w8a8_matmul3_cat_plain(*args)))
+        if i == 0:
+            _b3_yardsticks(state, x, e, k3, b3, ln)
 
     for i, (B, lq, Lq, Lk, H) in enumerate(W8A8_ATTN_SHAPES):
         D = H * 64
@@ -569,6 +646,8 @@ def phase_w8a8_kernels(state):
             _bound(6 * B * lq * D + 4 * B * Lk * D + D * D + 8 * D,
                    flops_bf16=4 * B * lq * Lk * D,
                    ops_int8=2 * B * lq * D * D))
+        if i == 0:
+            _b4_yardsticks(state, q, k, v, H, op, r, lq)
 
     def b5_check(M, K, Hd, N, g, first):
         x = torch.randn(M, K, generator=g, device="cuda").to(bf)
@@ -1855,10 +1934,18 @@ def _w8a8_mlp_checks(state, gen):
                                  lambda: im.w8a8_matmul3_plain(x, k3, b3))
     bound = _bound(M * (2 * K + 6 * K) + 3 * K * K + 24 * K,
                    ops_int8=6 * M * K * K)
+    # a launch of a few microseconds: CUDA events around host-launched
+    # calls read the host's cost of each call; a CUDA graph of 20 reads the
+    # device's
+    graph_ms = cuda_time_ms(_graph_call(lambda: im.w8a8_matmul3_cuda(
+        x, k3, b3)), iters=5) / GRAPH_LAUNCHES
     log(f"[w8-kernel] w8a8_matmul3 M={M} K={K}: kernel {t['kernel']} ms, "
         f"plain {t['plain']} ms, bound {bound[0]:.5f} ms ({bound[1]}), no "
-        f"library call (order plain, kernel, kernel, plain; {state['smi']})")
+        f"library call (order plain, kernel, kernel, plain); "
+        f"{GRAPH_LAUNCHES} launches in a CUDA graph {graph_ms:.5f} ms a "
+        f"launch ({state['smi']})")
     _record(state, "w8a8_matmul3", max(errs), ms, plain_ms, bound, None)
+    state["kstats"]["w8a8_matmul3"]["graph_ms"] = graph_ms
 
 
 def _extras_params(gen, Tb, D, G, wdtype, ln_gain):

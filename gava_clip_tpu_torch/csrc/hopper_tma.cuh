@@ -1,6 +1,7 @@
 // The Hopper (sm_90a) pieces the TMA-fed wgmma kernels share
-// (w8_matmul.cu, w8a8_mlp.cu): mbarriers with a wait that traps instead of
-// hanging, TMA and bulk copies into shared memory, the wgmma descriptor of
+// (w8_matmul.cu, w8a8_mlp.cu, w8a8_qkv.cu, attention_out_int8.cu): mbarriers
+// with a wait that traps instead of hanging, TMA and bulk copies into shared
+// memory, the wgmma descriptor of
 // a k-major 128-byte swizzled tile, the wgmma fences, and the driver's
 // tensor-map encoder found with dlopen (no link against libcuda).
 

@@ -1,6 +1,6 @@
 // Pieces shared by the w8a8 kernels for Hopper (sm_90a): fp32 row
-// LayerNorm, per-row int8 quant, the int8 mma.sync tile loop and the
-// `acc * xs * s + b (+ r)` epilogue.
+// LayerNorm, per-row int8 quant, the int8 mma.sync tile loop of
+// w8a8_matmul.cu and the `acc * xs * s + b (+ r)` epilogue.
 //
 // Bit-level semantics, held against the plain PyTorch versions in
 // ops/int8_matmul.py and ops/flash_attention.py:
@@ -17,16 +17,18 @@
 //     butterfly here, torch's reduction there) and, in the attention
 //     kernel, of the fp32 mma sums; both move a value by an fp32 ulp and so
 //     flip an int8 code only where it sits on a rounding tie;
-//   * the int8 products are exact: mma.sync m16n8k32 s8 x s8 -> s32.
+//   * the int8 products are exact: mma.sync m16n8k32 or wgmma, s8 x s8 -> s32.
 //
-// The GEMM core (gemm_direct): a block holds its rows' int8 codes in shared
-// memory for the whole K (row-major, k contiguous); every warp multiplies
-// all of them by its own columns, loading the "col" B fragments of mma from
-// a k-contiguous copy of the weight (W^T (N, K), made once per weight by
-// the Python wrapper) straight into registers, a few k-steps ahead. No
-// warp shares a weight fragment with another, so nothing is staged through
-// shared memory and the loop has no barrier; each fragment feeds MT mma.
-// ldmatrix, TMA and wgmma are later work.
+// The GEMM core of w8a8_matmul.cu (gemm_direct): a block holds its rows'
+// int8 codes in shared memory for the whole K (row-major, k contiguous);
+// every warp multiplies all of them by its own columns, loading the "col" B
+// fragments of mma from a k-contiguous copy of the weight (W^T (N, K), made
+// once per weight by the Python wrapper) straight into registers, a few
+// k-steps ahead. No warp shares a weight fragment with another, so nothing
+// is staged through shared memory and the loop has no barrier; each
+// fragment feeds MT mma. The fused kernels (w8a8_qkv.cu, w8a8_mlp.cu,
+// attention_out_int8.cu) run wgmma on TMA-fed tiles instead
+// (w8a8_wgmma.cuh).
 //
 // Rows of up to kMaxRowPerLane * 32 = 1,024 values are held in a warp's
 // registers (quant_row_bf16); a longer row (a text MLP's fc2 takes 2,048)
@@ -58,6 +60,14 @@ __host__ __device__ constexpr int codes_stride(int K) {
   return round_up(K, 128) + 64;
 }
 
+__host__ __device__ __forceinline__ bool aligned4(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 3u) == 0;
+}
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = __fadd_rn(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -83,7 +93,7 @@ __device__ __forceinline__ int8_t quant_code(float x, float inv) {
 // pass reading the row again (from L1 / L2) instead of from registers: the
 // LayerNorm's two sums, the absmax of the (normalised) values, the codes.
 // Lane `lane` sums columns lane, lane + 32, ... in that order, as the
-// register form does, so both give the same bits where both apply.
+// register form does for a row it does not read 8 values a load.
 template <class Store>
 __device__ __noinline__ float quant_row_long(const __nv_bfloat16* __restrict__ src, int K,
                                              const float* __restrict__ gamma,
@@ -117,17 +127,92 @@ __device__ __noinline__ float quant_row_long(const __nv_bfloat16* __restrict__ s
 }
 
 // One warp: row `src` of K bf16 values -> [LayerNorm ->] int8 codes, code
-// c (0 <= c < Kp, zero from K on) handed to store(c, code); returns xs.
-// LayerNorm (when gamma != nullptr): fp32, mean and two-pass biased
-// variance over K, ((x - mean) * rsqrt(var + 1e-5)) * gamma + beta. Rows
-// longer than 1,024 values take quant_row_long. Kp <= kMaxRowPerLane * 32
-// for the register form.
-template <class Store>
+// c (0 <= c < Kp, zero from K on) handed to store(c, code), or eight at a
+// time, codes c0 .. c0 + 7 (c0 a multiple of 8) packed into a uint2, to
+// store8(c0, codes); returns xs. LayerNorm (when gamma != nullptr): fp32,
+// mean and two-pass biased variance over K, ((x - mean) * rsqrt(var +
+// 1e-5)) * gamma + beta. Rows longer than 1,024 values take
+// quant_row_long. A row of a multiple of 8 values at 16-byte aligned
+// addresses is read 8 values a load (lane `lane` holds columns 8 * (lane +
+// 32 i) .. + 7, and sums them in that order); other rows a value a load
+// (columns lane + 32 i).
+template <class Store, class Store8>
 __device__ __forceinline__ float quant_row_to(const __nv_bfloat16* __restrict__ src, int K,
                                               const float* __restrict__ gamma,
                                               const float* __restrict__ beta, int Kp,
-                                              Store store, int lane) {
+                                              Store store, Store8 store8, int lane) {
   if (Kp > kMaxRowPerLane * 32) return quant_row_long(src, K, gamma, beta, Kp, store, lane);
+  if (K % 8 == 0 && aligned16(src) &&
+      (gamma == nullptr || (aligned16(gamma) && aligned16(beta)))) {
+    constexpr int kChunks = kMaxRowPerLane / 8;   // of eight values each
+    float v[kChunks][8];
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i) {
+      const int c0 = 8 * (lane + 32 * i);
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);   // zeros past K
+      if (c0 < K) raw = *reinterpret_cast<const uint4*>(src + c0);
+      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[i][2 * j] = __uint_as_float(w[j] << 16);
+        v[i][2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+      }
+    }
+    if (gamma != nullptr) {
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < kChunks; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s = __fadd_rn(s, v[i][j]);
+      const float mean = __fdiv_rn(warp_sum(s), static_cast<float>(K));
+      float q = 0.f;
+#pragma unroll
+      for (int i = 0; i < kChunks; ++i)
+        if (8 * (lane + 32 * i) < K)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const float d = __fadd_rn(v[i][j], -mean);
+            q = __fadd_rn(q, __fmul_rn(d, d));
+          }
+      const float rs = rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(q), static_cast<float>(K)), 1e-5f));
+#pragma unroll
+      for (int i = 0; i < kChunks; ++i) {
+        const int c0 = 8 * (lane + 32 * i);
+        if (c0 < K) {
+          const float4* g4 = reinterpret_cast<const float4*>(gamma + c0);
+          const float4* b4 = reinterpret_cast<const float4*>(beta + c0);
+          const float4 ga = g4[0], gb = g4[1], ba = b4[0], bb = b4[1];
+          const float gv[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+          const float bv[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            v[i][j] = __fadd_rn(__fmul_rn(__fmul_rn(__fadd_rn(v[i][j], -mean), rs), gv[j]),
+                                bv[j]);
+        }
+      }
+    }
+    float m = 0.f;
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(v[i][j]));
+    const float xs = quant_scale(warp_max(m));
+    const float inv = __fdiv_rn(1.0f, xs);
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i) {
+      const int c0 = 8 * (lane + 32 * i);
+      if (c0 < Kp) {
+        uint32_t w[2] = {0u, 0u};   // zero codes past K
+        if (c0 < K)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            w[j / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(quant_code(v[i][j], inv)))
+                        << (8 * (j % 4));
+        store8(c0, make_uint2(w[0], w[1]));
+      }
+    }
+    return xs;
+  }
   float v[kMaxRowPerLane];
 #pragma unroll
   for (int i = 0; i < kMaxRowPerLane; ++i) {
@@ -167,13 +252,15 @@ __device__ __forceinline__ float quant_row_to(const __nv_bfloat16* __restrict__ 
   return xs;
 }
 
-// quant_row_to into `dst` (round_up(K, kBK) bytes, the tail zeroed)
+// quant_row_to into `dst` (round_up(K, kBK) bytes, 8-byte aligned, the
+// tail zeroed)
 __device__ __forceinline__ float quant_row_bf16(const __nv_bfloat16* __restrict__ src,
                                                 int K, const float* __restrict__ gamma,
                                                 const float* __restrict__ beta,
                                                 int8_t* dst, int lane) {
-  return quant_row_to(src, K, gamma, beta, round_up(K, kBK),
-                      [dst](int c, int8_t code) { dst[c] = code; }, lane);
+  return quant_row_to(
+      src, K, gamma, beta, round_up(K, kBK), [dst](int c, int8_t code) { dst[c] = code; },
+      [dst](int c0, uint2 codes) { *reinterpret_cast<uint2*>(dst + c0) = codes; }, lane);
 }
 
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -187,14 +274,6 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
 
 __device__ __forceinline__ uint32_t lds32(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__host__ __device__ __forceinline__ bool aligned4(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 3u) == 0;
-}
-
-__host__ __device__ __forceinline__ bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 // One 4-byte B fragment register straight from device memory: W^T (N, K)

@@ -80,15 +80,13 @@
 
 #include <type_traits>
 
-#include "hopper_tma.cuh"
-#include "w8a8_common.cuh"
+#include "w8a8_wgmma.cuh"
 
 namespace {
 
 using namespace hopper;
 using namespace w8a8;
 
-constexpr int kKC = 128;                        // k bytes per stage: one swizzled row
 constexpr int kWRows = 128;                     // W^T rows per stage: 2 warpgroups x 64
 constexpr int kWTileBytes = kWRows * kKC;       // 16,384
 // fc2: W2^T rows per stage, 2 x 64 per consumer warpgroup, so that the
@@ -115,20 +113,10 @@ __host__ __device__ constexpr int smem_bytes(int BM, int Kp, int stages2) {
   return 1024 + region_bytes(BM, Kp, stages2) + BM * kStageLD + 16 * BM;
 }
 
-template <int R>
-__device__ __forceinline__ void fence_regs(int (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, 256;\n" ::: "memory");
-}
+__device__ __forceinline__ void consumers_sync() { named_sync(1, 256); }
 
 // a named barrier of one consumer warpgroup alone
-__device__ __forceinline__ void warpgroup_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
-}
+__device__ __forceinline__ void warpgroup_sync(int wg) { named_sync(2 + wg, 128); }
 
 // QuickGELU h * (1 / (1 + exp(-1.702 h))) with the plain version's fp32
 // roundings. The reciprocal of d = 1 + exp(..) >= 1 is rcp.approx and one
@@ -149,78 +137,6 @@ __device__ __forceinline__ float rcp_newton(float d) {
 __device__ __forceinline__ float qgelu(float h) {
   return __fmul_rn(h, rcp_newton(fminf(__fadd_rn(1.0f, expf(-__fmul_rn(1.702f, h))), 3.0e38f)));
 }
-
-// d (64 rows of W^T x N rows of the block, s32) += A (desc) x B (desc), k 32
-template <int N>
-__device__ __forceinline__ void wgmma_ss(int (&d)[N / 2], uint64_t da, uint64_t db,
-                                         int scale_d);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(int (&d)[32], uint64_t da, uint64_t db,
-                                             int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
-        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<192>(int (&d)[96], uint64_t da, uint64_t db,
-                                             int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %98, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95"
-      "}, %96, %97, p;\n"
-      "}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
-        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
-        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
-        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
-        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
-        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
-        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
-        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
-        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
-        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
-        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
-        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
-        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
-        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
-        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
 
 struct Params {
   const __nv_bfloat16* x;
@@ -246,7 +162,7 @@ w8a8_mlp_kernel(const __grid_constant__ CUtensorMap w1map,
   __shared__ __align__(8) uint64_t full2[kMaxStages2], empty2[kMaxStages2];
   __shared__ __align__(8) uint64_t hq_ready;
   // the swizzled tiles need 1,024-byte alignment
-  unsigned char* smem = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  unsigned char* smem = align1024(smem_raw);
   const int KC = p.Kp / kKC, HC = p.Hp / kKC, NC = (p.N + kW2Rows - 1) / kW2Rows;
   const int region = region_bytes(BM, p.Kp, p.stages2);
   const int S2 = kW2TileBytes + BM * kKC;   // fc2 stage: a W2^T tile, the block's codes
@@ -327,23 +243,13 @@ w8a8_mlp_kernel(const __grid_constant__ CUtensorMap w1map,
 
   // phase 0: LayerNorm + quant of the block's rows into the swizzled code
   // tile (byte k of row rr: k-chunk k / 128, its 16-byte piece XOR rr % 8)
-  for (int rr = cw; rr < BM; rr += 8) {
-    const int m = m0 + rr;
-    auto store = [xc, rr](int c, int8_t code) {
-      xc[(c >> 7) * (BM * kKC) + rr * kKC + ((((c >> 4) & 7) ^ (rr & 7)) << 4) + (c & 15)] =
-          code;
-    };
-    float v = 0.f;
-    if (m < p.M)
-      v = quant_row_to(p.x + static_cast<long long>(m) * p.K, p.K, kLN ? p.gamma : nullptr,
-                       p.beta, p.Kp, store, lane);
-    else
-      for (int c = lane; c < p.Kp; c += 32) store(c, static_cast<int8_t>(0));
-    if (lane == 0) {
-      xs[rr] = v;
-      amax[rr] = 0u;
-    }
-  }
+  quant_tile<BM>(
+      xc, xs,
+      [&](int rr) {
+        return m0 + rr < p.M ? p.x + static_cast<long long>(m0 + rr) * p.K : nullptr;
+      },
+      p.K, p.Kp, kLN ? p.gamma : nullptr, p.beta, cw, 8, lane);
+  for (int rr = ct; rr < BM; rr += 256) amax[rr] = 0u;
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   consumers_sync();
 
@@ -351,36 +257,10 @@ w8a8_mlp_kernel(const __grid_constant__ CUtensorMap w1map,
   int st = 0;
   uint32_t ph = 0;
   // acc = this warpgroup's 64 hidden columns of slab ch x the BM rows, over
-  // K, from its own ring; one wgmma group in flight while the previous
-  // stage is released
+  // K, from its own ring
   auto fc1 = [&]() {
-#pragma unroll
-    for (int i = 0; i < kAcc; ++i) acc[i] = 0;
-    int prev = -1;
-    for (int kc = 0; kc < KC; ++kc) {
-      mbar_wait(&full1[wg][st], ph);
-      const uint64_t da = tile_desc(ring1 + (wg * kStages1 + st) * kW1Half);
-      const uint64_t db = tile_desc(xc + kc * BM * kKC);
-      fence_regs(acc);
-      wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wgmma_ss<BM>(acc, da + 2 * j, db + 2 * j, 1);
-      wgmma_commit();
-      wgmma_wait<1>();
-      if (prev >= 0) {
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&empty1[wg][prev]);
-      }
-      prev = st;
-      if (++st == kStages1) {
-        st = 0;
-        ph ^= 1u;
-      }
-    }
-    wgmma_wait<0>();
-    fence_regs(acc);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty1[wg][prev]);
+    ring_product<BM>(acc, ring1 + wg * kStages1 * kW1Half, kW1Half, full1[wg], empty1[wg],
+                     kStages1, st, ph, xc, BM * kKC, KC, lane);
   };
 
   // acc[4c + 2h + e] is h^T[col0 + 8h][row 8c + 2t + e]
@@ -543,20 +423,6 @@ w8a8_mlp_kernel(const __grid_constant__ CUtensorMap w1map,
     else
       store(std::false_type{});
   }
-}
-
-// a map of the row-major int8 matrix (rows, cols) in boxes of 128 bytes x
-// box_rows, 128-byte swizzled; rows past the matrix load as zeros
-bool encode_codes(EncodeTiled encode, CUtensorMap* map, const void* base, int rows, int cols,
-                  int box_rows) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kKC), static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int BM, bool kRes, bool kLN>

@@ -81,24 +81,35 @@ _SIGNATURES = {
     },
     "w8a8_qkv": {
         # x, e, Wq, Wk, Wv, sq, sk, sv, bq, bk, bv, gamma, beta, oq, ok, ov;
-        # B, Lx, Le, K, N; stream
-        "w8a8_qkv_cat_bf16": ([_VP] * 16 + [_I] * 5 + [_VP], _I),
+        # B, Lx, Le, K, N; the launch plan (rows per block, units per
+        # block, ring stages, shared bytes); stream
+        "w8a8_qkv_cat_bf16": ([_VP] * 16 + [_I] * 9 + [_VP], _I),
+        # the plan's constants and the device's shared-memory limit: five
+        # ints
+        "w8a8_qkv_layout": ([ctypes.POINTER(_I)], None),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "attention_out_int8": {
-        # q, k, v, W, s, bias, r, o; B, lq, Lk, H; q/k/v batch and row
-        # strides; exp2 constant; stream
+        # q, k, v, W, s, bias, r, o, fp32 scratch; B, lq, Lk, H; q/k/v
+        # batch and row strides; exp2 constant; the launch plan (rows per
+        # block, shared bytes); stream
         "attention_out_int8_bf16": (
-            [_VP] * 8 + [_I] * 4 + [_I] * 6 + [ctypes.c_float, _VP], _I),
+            [_VP] * 9 + [_I] * 4 + [_I] * 6 + [ctypes.c_float, _I, _I, _VP],
+            _I),
         # the int8 QK^T form: the constant is c / 127^2
         "attention_out_int8_qk8_bf16": (
-            [_VP] * 8 + [_I] * 4 + [_I] * 6 + [ctypes.c_float, _VP], _I),
-        # the two-source form: q, k1, v1, k2, v2, W, s, bias, r, o; B, Lq,
-        # L1, L2, H; q/k1/v1/k2/v2 batch and row strides; constant; int8
-        # QK^T?; stream
-        "attention_out_int8_2src_bf16": (
-            [_VP] * 10 + [_I] * 5 + [_I] * 10 + [ctypes.c_float, _I, _VP],
+            [_VP] * 9 + [_I] * 4 + [_I] * 6 + [ctypes.c_float, _I, _I, _VP],
             _I),
+        # the two-source form: q, k1, v1, k2, v2, W, s, bias, r, o, scratch;
+        # B, Lq,
+        # L1, L2, H; q/k1/v1/k2/v2 batch and row strides; constant; int8
+        # QK^T?; the launch plan; stream
+        "attention_out_int8_2src_bf16": (
+            [_VP] * 11 + [_I] * 5 + [_I] * 10 + [ctypes.c_float, _I, _I, _I,
+                                                 _VP], _I),
+        # the plan's constants and the device's shared-memory limit: six
+        # ints
+        "attention_out_int8_layout": ([ctypes.POINTER(_I)], None),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "w8a8_mlp": {

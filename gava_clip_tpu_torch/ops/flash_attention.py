@@ -811,6 +811,94 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # w8a8 serving fusion: attention + int8 out-projection + residual
 # ---------------------------------------------------------------------------
 
+# Launch plan of csrc/attention_out_int8.cu: bytes of a K/V ring stage (64
+# keys of K and V, 144-byte rows), its stages, threads per block (7 warps,
+# one 16-row query slab each), the kernel's static shared bytes, bytes of
+# the W^T ring; then the query rows per block (the out-projection's wgmma
+# N). The launch holds the five constants against the library's
+# `attention_out_int8_layout` before its first use.
+_ATTN_OUT_LAYOUT = (18432, 4, 224, 128, 24576)
+_ATTN_OUT_ROWS = 112
+
+
+def attention_out_plan(B: int, lq: int, num_heads: int,
+                       smem_limit: int) -> Dict:
+    """Grid, shared bytes and scratch of one launch of the fused attention +
+    int8 out-projection: {'rows' (query rows per block), 'grid' (query
+    chunks, frame rows), 'per_sm' (blocks an SM holds at once),
+    'smem_bytes', 'scratch' (the shape of the fp32 attention outputs that
+    wait there for their row's scale)}. A block of 112 rows holds their
+    int8 codes of the whole H*64-wide attention output, in the space its
+    K/V ring used, beside the W^T ring: at 12 heads two blocks share an SM,
+    and a 197-token frame row takes two."""
+    from .int8_matmul import _BLOCK_RESERVED_SMEM, _SM90_SMEM_PER_SM
+    D = num_heads * _KERNEL_HEAD_DIM
+    if min(B, lq, num_heads) <= 0 or D > 1024:
+        raise ValueError(f"attention_out_int8 plan: B={B}, lq={lq}, "
+                         f"H={num_heads}")
+    stage, stages, _, static, wring = _ATTN_OUT_LAYOUT
+    rows = _ATTN_OUT_ROWS
+    dp = -(-D // 128) * 128
+    # the K/V ring, then in its space the code tile; the W^T ring; row
+    # scales; the key scales
+    smem = (1024 + max(rows * dp, stages * stage) + wring + 4 * rows
+            + 4 * stages * 64)
+    if smem + static > smem_limit:
+        raise ValueError(f"attention_out_int8: rows of {D} codes do not fit "
+                         f"the kernel's shared memory ({smem_limit} bytes)")
+    need = smem + static + _BLOCK_RESERVED_SMEM
+    chunks = -(-lq // rows)
+    return {"rows": rows, "grid": (chunks, B),
+            "per_sm": 2 if 2 * need <= _SM90_SMEM_PER_SM else 1,
+            "smem_bytes": smem, "scratch": (B, chunks * rows, D)}
+
+
+def _attention_out_launch(fn: str, q, k, v, wt, extra, num_heads: int,
+                          out_params: Dict, residual, lq: int, tail):
+    """Check the out-projection's leaves and the residual, allocate the
+    output and launch entry `fn` of csrc/attention_out_int8.cu with its
+    launch plan; `extra` are the pointers between v and W (the second
+    source's k2, v2), `tail` the sizes, strides and constants between the
+    output's pointer and the plan. Returns the output (no launch for an
+    empty one)."""
+    from ._cuda import load_library
+    from .int8_matmul import _tma_rows, smem_limit
+    B, _, D = q.shape
+    kernel = out_params["kernel"]
+    scale, bias = kernel["scale"], out_params["bias"]
+    for name, t in (("out kernel", wt), ("scale", scale), ("bias", bias),
+                    ("residual", residual)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    if tuple(residual.shape) != (B, lq, D) or residual.dtype != q.dtype:
+        raise ValueError(f"residual {residual.dtype} "
+                         f"{tuple(residual.shape)}, expected ({B}, {lq}, "
+                         f"{D}) {q.dtype}")
+    scale = scale.reshape(-1).float().contiguous()
+    bias = bias.reshape(-1).float().contiguous()
+    r = residual.contiguous()
+    out = torch.empty((B, lq, D), dtype=q.dtype, device=q.device)
+    if B == 0 or lq == 0:
+        return out
+    lib = load_library("attention_out_int8")
+    plan = attention_out_plan(
+        B, lq, num_heads,
+        smem_limit(lib, "attention_out_int8_layout", _ATTN_OUT_LAYOUT,
+                   q.device))
+    wt = _tma_rows(wt)
+    a32 = torch.empty(plan["scratch"], dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = getattr(lib, fn)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            *(t.data_ptr() for t in extra), wt.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), r.data_ptr(), out.data_ptr(), a32.data_ptr(),
+            *tail, plan["rows"], plan["smem_bytes"], stream)
+    if err != 0:
+        raise _launch_failed(fn, lib, err)
+    return out
+
+
 def attention_out_int8_plain(q, k, v, num_heads: int, out_params: Dict,
                              residual: torch.Tensor,
                              lq: Optional[int] = None,
@@ -835,44 +923,22 @@ def attention_out_int8_cuda(q, k, v, num_heads: int, out_params: Dict,
                             int8_qk: bool = False) -> torch.Tensor:
     """Launch csrc/attention_out_int8.cu on the current stream (no sync):
     its fp32-score entry point, or with int8_qk its int8 QK^T one."""
-    from ._cuda import load_library
+    from .int8_matmul import _kernel_weight
     _check_kernel_args(q, k, v, num_heads)
     B, Lq_arr, D = q.shape
     lq = Lq_arr if lq is None else lq
     if not 0 <= lq <= Lq_arr:
         raise ValueError(f"lq {lq} outside 0..{Lq_arr}")
-    from .int8_matmul import _kernel_weight
-    kernel = out_params["kernel"]
-    wt = _kernel_weight("attention_out_int8", kernel, D, D)
-    scale, bias = kernel["scale"], out_params["bias"]
-    for name, t in (("out kernel", wt), ("scale", scale), ("bias", bias),
-                    ("residual", residual)):
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
-    if tuple(residual.shape) != (B, lq, D) or residual.dtype != q.dtype:
-        raise ValueError(f"residual {residual.dtype} "
-                         f"{tuple(residual.shape)}, expected ({B}, {lq}, "
-                         f"{D}) {q.dtype}")
-    scale = scale.reshape(-1).float().contiguous()
-    bias = bias.reshape(-1).float().contiguous()
-    r = residual.contiguous()
-    out = torch.empty((B, lq, D), dtype=q.dtype, device=q.device)
-    if B == 0 or lq == 0:
-        return out
-    lib = load_library("attention_out_int8")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    c = (D // num_heads) ** -0.5 * _LOG2E
+    wt = _kernel_weight("attention_out_int8", out_params["kernel"], D, D)
     name = "attention_out_int8_qk8" if int8_qk else "attention_out_int8"
-    with torch.cuda.device(q.device):
-        err = getattr(lib, name + "_bf16")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), wt.data_ptr(),
-            scale.data_ptr(), bias.data_ptr(), r.data_ptr(), out.data_ptr(),
-            B, lq, k.shape[1], num_heads, q.stride(0), q.stride(1),
-            k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-            c / (127.0 * 127.0) if int8_qk else c, stream)
-    if err != 0:
-        raise _launch_failed(name, lib, err)
-    launch_counts[name] += 1
+    c = (D // num_heads) ** -0.5 * _LOG2E
+    out = _attention_out_launch(
+        name + "_bf16", q, k, v, wt, (), num_heads, out_params, residual, lq,
+        (B, lq, k.shape[1], num_heads, q.stride(0), q.stride(1), k.stride(0),
+         k.stride(1), v.stride(0), v.stride(1),
+         c / (127.0 * 127.0) if int8_qk else c))
+    if B and lq:
+        launch_counts[name] += 1
     return out
 
 
@@ -917,46 +983,24 @@ def attention_out_int8_2src_cuda(q, k1, v1, k2, v2, num_heads: int,
                                  int8_qk: bool = False) -> torch.Tensor:
     """Launch the two-source entry of csrc/attention_out_int8.cu on the
     current stream (no sync); k1, v1 and k2, v2 are read where they lie."""
-    from ._cuda import load_library
     from .int8_matmul import _kernel_weight
     _check_kernel_args(q, k1, v1, num_heads)
     _check_kernel_args(q, k2, v2, num_heads)
     B, Lq, D = q.shape
     L1, L2 = k1.shape[1], k2.shape[1]
-    kernel = out_params["kernel"]
-    wt = _kernel_weight("attention_out_int8_2src", kernel, D, D)
-    scale, bias = kernel["scale"], out_params["bias"]
-    for name, t in (("out kernel", wt), ("scale", scale), ("bias", bias),
-                    ("residual", residual)):
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
-    if tuple(residual.shape) != (B, Lq, D) or residual.dtype != q.dtype:
-        raise ValueError(f"residual {residual.dtype} "
-                         f"{tuple(residual.shape)}, expected ({B}, {Lq}, "
-                         f"{D}) {q.dtype}")
+    wt = _kernel_weight("attention_out_int8_2src", out_params["kernel"], D, D)
     if L1 + L2 == 0:
         raise ValueError("the fused attention needs at least one key")
-    scale = scale.reshape(-1).float().contiguous()
-    bias = bias.reshape(-1).float().contiguous()
-    r = residual.contiguous()
-    out = torch.empty((B, Lq, D), dtype=q.dtype, device=q.device)
-    if B == 0 or Lq == 0:
-        return out
-    lib = load_library("attention_out_int8")
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     c = (D // num_heads) ** -0.5 * _LOG2E
-    with torch.cuda.device(q.device):
-        err = lib.attention_out_int8_2src_bf16(
-            q.data_ptr(), k1.data_ptr(), v1.data_ptr(), k2.data_ptr(),
-            v2.data_ptr(), wt.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            r.data_ptr(), out.data_ptr(), B, Lq, L1, L2, num_heads,
-            q.stride(0), q.stride(1), k1.stride(0), k1.stride(1),
-            v1.stride(0), v1.stride(1), k2.stride(0), k2.stride(1),
-            v2.stride(0), v2.stride(1),
-            c / (127.0 * 127.0) if int8_qk else c, int(int8_qk), stream)
-    if err != 0:
-        raise _launch_failed("attention_out_int8_2src", lib, err)
-    launch_counts["attention_out_int8_2src"] += 1
+    out = _attention_out_launch(
+        "attention_out_int8_2src_bf16", q, k1, v1, wt, (k2, v2), num_heads,
+        out_params, residual, Lq,
+        (B, Lq, L1, L2, num_heads, q.stride(0), q.stride(1), k1.stride(0),
+         k1.stride(1), v1.stride(0), v1.stride(1), k2.stride(0),
+         k2.stride(1), v2.stride(0), v2.stride(1),
+         c / (127.0 * 127.0) if int8_qk else c, int(int8_qk)))
+    if B and Lq:
+        launch_counts["attention_out_int8_2src"] += 1
     return out
 
 

@@ -9,7 +9,7 @@ version of the same math:
     quant of x, int8 GEMM, `acc * xs * s + b`;
   * `w8a8_matmul3_cat` (csrc/w8a8_qkv.cu, TPU `_w8a8_kernel3_cat`): per
     clip the rows [x rows; extras rows], LayerNorm, ONE shared quant, three
-    int8 GEMMs + bias (q/k/v);
+    int8 GEMMs + bias (q/k/v); its launch plan is `w8a8_qkv_plan`;
   * `w8a8_matmul3` (the same kernel with no extras rows, TPU
     `_w8a8_kernel3`): (M, K) rows, the LayerNorm optional, one shared quant,
     three int8 GEMMs + bias: a w8a8 self-attention's q/k/v projections
@@ -212,9 +212,10 @@ def _ptr(t):
 
 
 def kernel_layout(w: torch.Tensor) -> torch.Tensor:
-    """The int8 weight (K, N) as W^T (N, K) with k contiguous, the layout
-    in which a kernel loads its mma B fragments straight from device memory
-    (csrc/w8a8_common.cuh gemm_direct)."""
+    """The int8 weight (K, N) as W^T (N, K) with k contiguous: the layout
+    from which the w8a8 GEMM loads its mma B fragments straight from device
+    memory (csrc/w8a8_common.cuh gemm_direct) and the fused w8a8 kernels
+    their W^T slabs by TMA (csrc/w8a8_wgmma.cuh)."""
     return w.t().contiguous()
 
 
@@ -337,11 +338,19 @@ def _w8a8_qkv_launch(name, x, e, kernels3, bias3, ln):
     outs = [torch.empty((B, Lx + Le, N), dtype=x.dtype, device=x.device)
             for _ in range(3)]
     if B and Lx + Le:
+        from ._cuda import load_library
+        plan = w8a8_qkv_plan(
+            B * (Lx + Le), K, N,
+            torch.cuda.get_device_properties(x.device).multi_processor_count,
+            smem_limit(load_library("w8a8_qkv"), "w8a8_qkv_layout",
+                       _QKV_LAYOUT, x.device))
+        ws = [_tma_rows(w) for w in ws]
         _launch("w8a8_qkv", "w8a8_qkv_cat_bf16", x.device, x.data_ptr(),
                 _ptr(e) if Le else None, *(w.data_ptr() for w in ws),
                 *(s.data_ptr() for s in ss), *(b.data_ptr() for b in bs),
                 _ptr(g), _ptr(beta), *(o.data_ptr() for o in outs),
-                B, Lx, Le, K, N)
+                B, Lx, Le, K, N, plan["rows"], plan["units"],
+                plan["stages"], plan["smem_bytes"])
         launch_counts[name] += 1
     return tuple(outs)
 
@@ -365,7 +374,22 @@ def w8a8_matmul3_cuda(x, kernels3, bias3, ln=None):
 # bytes of an fc2 weight tile (256 x 128); rows per block, largest first
 _MLP_LAYOUT = (16384, 3, 4, 144, 256, 32768)
 _MLP_ROWS = (192, 64)
-_mlp_layout_checked: Dict = {}
+# the fused q/k/v kernel's launch plan (csrc/w8a8_qkv.cu): bytes of one
+# consumer warpgroup's ring stage (64 W^T rows x 128 k), most stages per
+# ring, output columns per unit, the kernel's static shared bytes; rows per
+# block (the wgmma N), largest first; the fewest ring stages a plan takes
+_QKV_LAYOUT = (8192, 8, 128, 256)
+_QKV_ROWS = (128, 64, 32)
+_QKV_MIN_STAGES = 3
+# shared memory of one SM of an sm_90 card, and what the card reserves for
+# each block beside its own bytes: two blocks of at most 64 rows share an SM
+# where both fit
+_SM90_SMEM_PER_SM = 233472
+_BLOCK_RESERVED_SMEM = 1024
+# the card's shared bytes per block, as a kernel library reports them
+# beside its layout constants once they have been checked: (layout
+# function, device) -> bytes
+_layout_checked: Dict = {}
 
 
 def _round_up(a: int, b: int) -> int:
@@ -403,21 +427,80 @@ def w8a8_mlp_plan(M: int, K: int, H: int, N: int, sm_count: int,
             "smem_bytes": smem, "scratch": (grid * rows, hp)}
 
 
-def _mlp_smem_limit(lib, device) -> int:
-    """The device's shared bytes per block, after checking that the built
-    kernel's layout constants are the plan's."""
+def w8a8_qkv_plan(M: int, K: int, N: int, sm_count: int,
+                  smem_limit: int) -> Dict:
+    """Launch plan of the fused LN + q/k/v kernel on a card of `sm_count`
+    SMs whose blocks may have `smem_limit` shared bytes: {'rows' (per block,
+    the wgmma N), 'units' (128-column slabs of one output per block),
+    'grid' (row tiles, unit groups), 'blocks', 'per_sm' (blocks an SM holds
+    at once), 'stages' (of each weight ring), 'smem_bytes'}. A block keeps
+    its rows' K codes in shared memory; the rest of it goes to the weight
+    rings, as deep as it allows (up to 8 stages), and a tile of at most 64
+    rows keeps two blocks on an SM where two fit with 3 stages each. The
+    rows: 128 where those tiles alone give every SM a block (the serving
+    shape), else 64, else 32 (measured fastest in that order on an H100,
+    utils/kernel_variants.py); the 3 * ceil(N / 128) units are then shared
+    out over the fewest groups that give every SM a block (the text tower's
+    1,155 rows: 37 tiles of 32 x 4 groups). Raises for rows too long for
+    even 32 of them with 3 stages."""
+    if min(M, K, N) <= 0:
+        raise ValueError(f"w8a8 q/k/v plan: M={M}, K={K}, N={N}")
+    slab, max_stages, unit_cols, static = _QKV_LAYOUT
+    kp = _round_up(K, 128)
+
+    def smem(rows, stages):
+        return 1024 + rows * kp + 2 * stages * slab + 4 * rows
+
+    def form(rows):
+        """(stages, blocks per SM) of a tile of `rows`, or None."""
+        for per_sm in ((2, 1) if rows <= 64 else (1,)):
+            room = min(smem_limit, _SM90_SMEM_PER_SM // per_sm
+                       - _BLOCK_RESERVED_SMEM) - static
+            stages = min(max_stages,
+                         (room - smem(rows, 0)) // (2 * slab))
+            if stages >= _QKV_MIN_STAGES:
+                return stages, per_sm
+        return None
+
+    fits = {r: form(r) for r in _QKV_ROWS if form(r)}
+    if not fits:
+        raise ValueError(f"w8a8 q/k/v: rows of K={K} do not fit the "
+                         f"kernel's shared-memory code tile ({smem_limit} "
+                         f"bytes a block)")
+    rows = next((r for r in fits if -(-M // r) >= sm_count), min(fits))
+    stages, per_sm = fits[rows]
+    tiles = -(-M // rows)
+    total = 3 * -(-N // unit_cols)
+    splits = [d for d in range(1, total + 1) if total % d == 0]
+    split = next((d for d in splits if tiles * d >= sm_count), total)
+    return {"rows": rows, "units": total // split, "grid": (tiles, split),
+            "blocks": tiles * split, "per_sm": per_sm, "stages": stages,
+            "smem_bytes": smem(rows, stages)}
+
+
+def check_layout(lib, fn: str, want: Tuple[int, ...]) -> int:
+    """Raise unless the constants that the built library's `fn` reports
+    are `want`, those of the launch plan; return the shared bytes per block
+    that it reports after them (the current device's opt-in limit)."""
     import ctypes
-    key = torch.cuda.current_device() if device.index is None else device.index
-    if key not in _mlp_layout_checked:
-        out = (ctypes.c_int * 7)()
+    out = (ctypes.c_int * (len(want) + 1))()
+    getattr(lib, fn)(out)
+    if tuple(out)[:len(want)] != tuple(want):
+        raise RuntimeError(f"{fn}: the kernel's layout "
+                           f"{tuple(out)[:len(want)]} is not the launch "
+                           f"plan's {tuple(want)}")
+    return out[len(want)]
+
+
+def smem_limit(lib, fn: str, want: Tuple[int, ...], device) -> int:
+    """`check_layout` on `device`, once per library layout and device,
+    before the wrapper's first launch there."""
+    key = (fn, torch.cuda.current_device() if device.index is None
+           else device.index)
+    if key not in _layout_checked:
         with torch.cuda.device(device):
-            lib.w8a8_mlp_layout(out)
-        if tuple(out)[:6] != _MLP_LAYOUT:
-            raise RuntimeError(f"w8a8_mlp: the kernel's layout "
-                               f"{tuple(out)[:6]} is not the launch plan's "
-                               f"{_MLP_LAYOUT}")
-        _mlp_layout_checked[key] = out[6]
-    return _mlp_layout_checked[key]
+            _layout_checked[key] = check_layout(lib, fn, want)
+    return _layout_checked[key]
 
 
 def _tma_rows(w: torch.Tensor) -> torch.Tensor:
@@ -461,7 +544,8 @@ def _w8a8_mlp_launch(name, x, fc1, fc2, ln, residual):
         plan = w8a8_mlp_plan(
             M, K, H, N,
             torch.cuda.get_device_properties(x.device).multi_processor_count,
-            _mlp_smem_limit(load_library("w8a8_mlp"), x.device))
+            smem_limit(load_library("w8a8_mlp"), "w8a8_mlp_layout",
+                       _MLP_LAYOUT, x.device))
         w1, w2 = _tma_rows(w1), _tma_rows(w2)
         hq = torch.empty(plan["scratch"], dtype=torch.int8, device=x.device)
         head = (x.data_ptr(), w1.data_ptr(), s1.data_ptr(), b1.data_ptr(),

@@ -2,7 +2,7 @@
 or a wrong bound: build deliberately broken copies of a kernel source and
 run the check phase of chip_smoke.py on each.
 
-    python3 -m gava_clip_tpu_torch.utils.kernel_mutants [b7 b5]   # repo root, on a card
+    python3 -m gava_clip_tpu_torch.utils.kernel_mutants [b7 b5 b3 b4]   # repo root, on a card
 
 Each mutant is a copy of the package and of chip_smoke.py under
 `_scratch/mut_<name>/` (gitignored) with one source patched; the copy
@@ -26,6 +26,7 @@ _B1 = "gava_clip_tpu_torch/csrc/packed_attention.cu"
 _W8A8 = "gava_clip_tpu_torch/csrc/w8a8_common.cuh"
 _B7 = "gava_clip_tpu_torch/csrc/streaming_attention.cu"
 _B5 = "gava_clip_tpu_torch/csrc/w8a8_mlp.cu"
+_B4 = _B12
 _ROUND = "__bfloat162float(__float2bfloat16({}))"
 # name -> (source, [(old, new)], chip_smoke phase, word that marks the
 # kernel's lines)
@@ -49,14 +50,7 @@ MUTANTS = {
         "phase_train_kernels", "packed_attention_bwd"),
     # the second source one key short
     "b12_len_off_by_one": (
-        _B12, [("B, Lq, L1 + L2, H, q_sb, q_sl,\n"
-                "                              k1_sb",
-                "B, Lq, L1 + L2 - 1, H, q_sb, q_sl,\n"
-                "                              k1_sb"),
-               ("B, Lq, L1 + L2, H, q_sb, q_sl,\n"
-                "                             k1_sb",
-                "B, Lq, L1 + L2 - 1, H, q_sb, q_sl,\n"
-                "                             k1_sb")],
+        _B12, [("  const int Lk = L1 + L2;\n", "  const int Lk = L1 + L2 - 1;\n")],
         "phase_w8a8_kernels", "2src"),
     # B9: the weights cast to bf16 unscaled and the scale applied to the
     # fp32 sum, y = bf16(scale * sum x * bf16(W))
@@ -95,9 +89,10 @@ MUTANTS = {
         "phase_w8a8_kernels", "w8a8_matmul M="),
     # the second source's values read one row early
     "b12_second_source_row_shift": (
-        _B12, [("return v2b + static_cast<long long>(j - s2.L1) * s2.v2_sl;",
-                "return v2b + static_cast<long long>(j - s2.L1 > 0 ? "
-                "j - s2.L1 - 1 : 0) * s2.v2_sl;")],
+        _B12, [("which ? v2b + static_cast<long long>(j - p.s2.L1) * "
+                "p.s2.v2_sl",
+                "which ? v2b + static_cast<long long>(j - p.s2.L1 > 0 ? "
+                "j - p.s2.L1 - 1 : 0) * p.s2.v2_sl")],
         "phase_w8a8_kernels", "2src"),
     # B7 forward: the row sum taken from bf16(p), the AV product's weights,
     # instead of the fp32 p
@@ -125,6 +120,26 @@ MUTANTS = {
                "if (ch == 0 && wg == 0) mx[2 * c + e] = fmaxf(mx[2 * c + e], "
                "fabsf(v));")],
         "phase_w8a8_kernels", "w8a8_mlp_res M="),
+    # B3: each row's scale from the absmax of its first 64 columns (the
+    # shared row quant as B3's phase 0 runs it, in both the forms that read
+    # 8 values a load and a value a load; B2 and B5 take it too)
+    "b3_scale_first_64_columns": (
+        _W8A8, [("      for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(v[i][j]));",
+                 "      for (int j = 0; j < 8; ++j)\n"
+                 "        if (i == 0 && lane < 8) m = fmaxf(m, fabsf(v[i][j]));"),
+                ("  for (int i = 0; i < kMaxRowPerLane; ++i) m = fmaxf(m, "
+                 "fabsf(v[i]));",
+                 "  for (int i = 0; i < 2; ++i) m = fmaxf(m, fabsf(v[i]));")],
+        "phase_w8a8_kernels", "w8a8_matmul3_cat B="),
+    # B4: each row's absmax over the first 4 heads only
+    "b4_absmax_first_4_heads": (
+        _B4, [("          rmax[0] = fmaxf(rmax[0], fmaxf(fabsf(v0.x), fabsf(v0.y)));\n",
+               "          if (head < 4) rmax[0] = fmaxf(rmax[0], fmaxf(fabsf(v0.x), "
+               "fabsf(v0.y)));\n"),
+              ("          rmax[1] = fmaxf(rmax[1], fmaxf(fabsf(v1.x), fabsf(v1.y)));\n",
+               "          if (head < 4) rmax[1] = fmaxf(rmax[1], fmaxf(fabsf(v1.x), "
+               "fabsf(v1.y)));\n")],
+        "phase_w8a8_kernels", "attention_out_int8 B="),
 }
 
 

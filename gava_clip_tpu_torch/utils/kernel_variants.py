@@ -2,7 +2,7 @@
 variants of a kernel source (patched copies, as kernel_mutants.py does)
 and time each against the same yardstick, in turns.
 
-    python3 -m gava_clip_tpu_torch.utils.kernel_variants [b1 b9 b7 b5]   # repo root, on a card
+    python3 -m gava_clip_tpu_torch.utils.kernel_variants [b1 b9 b7 b5 b3 b4]   # repo root, on a card
 
 B1 / B6a (csrc/packed_attention.cu, the den entry) against
 F.scaled_dot_product_attention's forward at the two training shapes: the
@@ -20,8 +20,15 @@ two stages with four blocks per SM, three blocks per SM, the accumulator
 rescaled only when a max moved, exp2f. B5 (csrc/w8a8_mlp.cu) at the
 serving shape, each in turns with the source as it is and held to its
 bits: the IEEE division in QuickGELU, fc2's epilogue always
-bounds-checked, one W2^T slab per warpgroup in fc2, and two that show
-where the time goes (no QuickGELU, no fc1 products: wrong outputs).
+bounds-checked, one W2^T slab per warpgroup in fc2, and one that shows
+where the time goes (no QuickGELU: wrong outputs). B3 (csrc/w8a8_qkv.cu)
+at the serving shape in its launch forms (rows per block x ring stages,
+B3_FORMS), without the LayerNorm (wrong outputs), and B3a at the text
+shape in CUDA graphs by rows and units per block. B4
+(csrc/attention_out_int8.cu) at the serving shape: exp2f, two or three K/V
+stages, and four that drop a part to show where the time goes (score
+products, AV products, the fp32 scratch round trip, the out-projection's
+products; wrong outputs).
 
 Each variant builds into `_scratch/variants/` (gitignored), is called
 through the real entry point's ctypes signature, is compared with the
@@ -42,8 +49,10 @@ _PA = "gava_clip_tpu_torch/csrc/packed_attention.cu"
 _W8 = "gava_clip_tpu_torch/csrc/w8_matmul.cu"
 _B7 = "gava_clip_tpu_torch/csrc/streaming_attention.cu"
 _B5 = "gava_clip_tpu_torch/csrc/w8a8_mlp.cu"
+_B3 = "gava_clip_tpu_torch/csrc/w8a8_qkv.cu"
+_B4 = "gava_clip_tpu_torch/csrc/attention_out_int8.cu"
 _LIB = {_PA: "packed_attention", _W8: "w8_matmul", _B7: "streaming_attention",
-        _B5: "w8a8_mlp"}
+        _B5: "w8a8_mlp", _B3: "w8a8_qkv", _B4: "attention_out_int8"}
 # name -> (source, [(old, new)])
 VARIANTS = {
     "b1_as_is": (_PA, []),
@@ -109,13 +118,10 @@ VARIANTS = {
                         "const float alpha = exp2f(")]),
     "b5_as_is": (_B5, []),
     # where B5's time goes (wrong outputs): no QuickGELU in either fc1
-    # pass; no fc1 products
+    # pass
     "b5_no_quick_gelu": (_B5, [(
         "  return __fmul_rn(h, rcp_newton(fminf(__fadd_rn(1.0f, expf("
         "-__fmul_rn(1.702f, h))), 3.0e38f)));", "  return h;")]),
-    "b5_no_fc1_products": (_B5, [
-        ("      for (int j = 0; j < 4; ++j) wgmma_ss<BM>(acc, da + 2 * j, "
-         "db + 2 * j, 1);\n", "")]),
     # QuickGELU's reciprocal by the IEEE division, as the plain version
     # writes it (a slow-path branch for each value)
     "b5_ieee_division": (_B5, [(
@@ -129,9 +135,84 @@ VARIANTS = {
     # stage): the hidden codes read back twice as often
     "b5_fc2_one_slab": (_B5, [("constexpr int kW2Slabs = 2;",
                                "constexpr int kW2Slabs = 1;")]),
+    "b3_as_is": (_B3, []),
+    # where the time goes (wrong outputs): no LayerNorm in phase 0
+    "b3_no_layernorm": (_B3, [(
+        "      p.K, p.Kp, p.gamma, p.beta, warp, kWarpsQkv, lane);",
+        "      p.K, p.Kp, nullptr, nullptr, warp, kWarpsQkv, lane);")]),
+    "b4_as_is": (_B4, []),
+    # exp2f (with its handling of subnormal results) instead of
+    # ex2.approx.ftz
+    "b4_exp2f": (_B4, [("apipe::ex2f(fminf(arg, 110.f))",
+                        "exp2f(fminf(arg, 110.f))")]),
+    # (wrong outputs) no K / V copies (the tiles keep what they held); no
+    # division of the outputs by the denominators
+    "b4_no_kv_copies": (_B4, [(
+        "        apipe::cp_async16(st + (which * kTileElems + rr * kLDS + cv) * 2, src + hoff + cv, ok);",
+        "        if (src == nullptr) apipe::cp_async16(st + (which * kTileElems + rr * kLDS + cv) * 2, src + hoff + cv, ok);")]),
+    "b4_no_division": (_B4, [(
+        "        const float d0 = fmaxf(dsum[0], 1e-30f), d1 = fmaxf(dsum[2], 1e-30f);\n"
+        "#pragma unroll\n"
+        "        for (int d = 0; d < kND; ++d) {\n"
+        "          const float2 v0 = make_float2(acc[d][0] / d0, acc[d][1] / d0);\n"
+        "          const float2 v1 = make_float2(acc[d][2] / d1, acc[d][3] / d1);\n",
+        "#pragma unroll\n"
+        "        for (int d = 0; d < kND; ++d) {\n"
+        "          const float2 v0 = make_float2(acc[d][0] * dsum[0], acc[d][1]);\n"
+        "          const float2 v1 = make_float2(acc[d][2] * dsum[2], acc[d][3]);\n")]),
+    # two or three K/V ring stages instead of four
+    "b4_2_kv_stages": (_B4, [("constexpr int kKVStages = 4;",
+                              "constexpr int kKVStages = 2;")]),
+    "b4_3_kv_stages": (_B4, [("constexpr int kKVStages = 4;",
+                              "constexpr int kKVStages = 3;")]),
+    # where the attention's time goes (wrong outputs): no score products,
+    # no AV products, no fp32 scratch round trip, no exp2
+    "b4_no_score_products": (_B4, [(
+        "                uint32_t bk[4];\n"
+        "                apipe::ldsm(bk, ks + (n * 8 + (lane & 7)) * kLDS + (lane >> 3) * 8 + "
+        "half * 32);\n"
+        "                apipe::mma(s[n], qa[2 * half], bk[0], bk[1]);\n"
+        "                apipe::mma(s[n], qa[2 * half + 1], bk[2], bk[3]);\n",
+        "                s[n][0] += __uint_as_float(qa[2 * half][0]);\n")]),
+    "b4_no_av_products": (_B4, [(
+        "              uint32_t bv[4];\n"
+        "              apipe::ldsm_t(bv, vs + (kc * 16 + (lane & 15)) * kLDS + (2 * dp + "
+        "(lane >> 4)) * 8);\n"
+        "              apipe::mma(acc[2 * dp], pa[kc], bv[0], bv[1]);\n"
+        "              apipe::mma(acc[2 * dp + 1], pa[kc], bv[2], bv[3]);\n",
+        "              acc[2 * dp][0] += __uint_as_float(pa[kc][0]);\n")]),
+    "b4_no_scratch": (_B4, [
+        ("          *reinterpret_cast<float2*>(a0 + head * kHD + d * 8) = v0;\n"
+         "          *reinterpret_cast<float2*>(a1 + head * kHD + d * 8) = v1;\n", ""),
+        ("        const float2 v0 = *reinterpret_cast<const float2*>(a0 + col - 2 * t);\n"
+         "        const float2 v1 = *reinterpret_cast<const float2*>(a1 + col - 2 * t);\n",
+         "        const float2 v0 = make_float2(rmax[0], rmax[1]);\n"
+         "        const float2 v1 = make_float2(rmax[1], rmax[0]);\n")]),
+    "b4_no_exp2": (_B4, [(
+        "e[j] = FULL || key < p.Lk ? apipe::ex2f(fminf(arg, 110.f)) : 0.f;",
+        "e[j] = FULL || key < p.Lk ? arg : 0.f;")]),
+    # where the time goes (wrong outputs): no out-projection products
+    # (ring_product's waits and arrivals without its wgmma: the attention,
+    # the scratch and the epilogue alone)
+    "b4_no_outproj_products": (_B4, [(
+        "    ring_product<N>(acc, ring, kSlabBytes, full, empty, kWStages, st, ph, "
+        "xc, R * kKC, KC, lane);",
+        "    for (int kc = 0; kc < KC; ++kc) {\n"
+        "      hopper::mbar_wait(&full[st], ph);\n"
+        "      __syncwarp();\n"
+        "      if (lane == 0) hopper::mbar_arrive(&empty[st]);\n"
+        "      if (++st == kWStages) { st = 0; ph ^= 1u; }\n"
+        "    }\n"
+        "#pragma unroll\n"
+        "    for (int i = 0; i < N / 2; ++i) acc[i] = i;")]),
 }
+# the K/V stages of each B4 variant, for its shared bytes
+B4_KV_STAGES = {"b4_2_kv_stages": 2, "b4_3_kv_stages": 3}   # the others: 4
 # the fc2 weight tile of each B5 variant, for its launch plan
 B5_TILE2 = {"b5_fc2_one_slab": 16384}   # the others: 32,768
+# B3's launch forms timed at the serving shape: (rows per block, ring
+# stages); the source variants take the first
+B3_FORMS = ((128, 8), (128, 3), (64, 3))
 # (B, Lq, heads) of B7's causal forward: the text tower, a longer L
 B7_SHAPES = ((15, 77, 8), (4, 1024, 8))
 ATTN_SHAPES = ((128, 197, 214, 12), (280, 197, 276, 12))
@@ -238,6 +319,10 @@ def main(argv=None) -> int:
         _b7_variants(cs, fa, libs, gen, state)
     if _any(libs, "b5"):
         _b5_variants(cs, im, libs, gen, stream, state)
+    if _any(libs, "b3"):
+        _b3_variants(cs, im, libs, gen, stream, state)
+    if _any(libs, "b4"):
+        _b4_variants(cs, fa, im, libs, gen, stream, state)
     return 0
 
 
@@ -336,6 +421,151 @@ def _b5_variants(cs, im, libs, gen, stream, state):
                   f"turns: {t[0]:.4f} ms vs {t[1]:.4f} ms, ratio {t[2]:.3f} "
                   f"(rounds {t[3]:.3f}-{t[4]:.3f}) ({state['smi']})",
                   flush=True)
+
+
+def _turns_vs(cs, calls, base, state):
+    for name, call in calls.items():
+        if name != base:
+            t = cs._ratio_turns(call, calls[base])
+            print(f"[variants] {name} vs {base}, median of 7 rounds in "
+                  f"turns: {t[0]:.4f} ms vs {t[1]:.4f} ms, ratio {t[2]:.3f} "
+                  f"(rounds {t[3]:.3f}-{t[4]:.3f}) ({state['smi']})",
+                  flush=True)
+
+
+def _b3_variants(cs, im, libs, gen, stream, state):
+    """B3 at the serving shape (B 128, Lx 197, Le 17, K = N = 768): the
+    source as it is in each launch form of B3_FORMS (rows per block, ring
+    stages) and each source variant in the first, all held to the bits of
+    the first and timed in turns with it. Then B3a at the text shape
+    (1,155 x 512, no LayerNorm) in CUDA graphs: 64 rows a block and one
+    unit (128 columns of one output) each, against other rows and units
+    per block."""
+    import torch
+    B, Lx, Le, K, N = 128, 197, 17, 768, 768
+    bf = torch.bfloat16
+    x = torch.randn(B, Lx, K, generator=gen, device="cuda").to(bf)
+    e = torch.randn(B, Le, K, generator=gen, device="cuda").to(bf)
+    ln = [t.contiguous() for t in cs._ln_params(gen, K)]
+    k3 = [cs._qleaf(gen, K, N) for _ in range(3)]
+    b3 = [torch.randn(N, generator=gen, device="cuda") * 0.02
+          for _ in range(3)]
+    s3 = [k["scale"].reshape(-1).float().contiguous() for k in k3]
+    ref = torch.cat(im.w8a8_matmul3_cat_plain(x, e, k3, b3, ln), dim=-1)
+
+    def forms(name, lib):
+        for rows, stages in B3_FORMS if name == "b3_as_is" else B3_FORMS[:1]:
+            yield (f"{name}_{rows}_rows_{stages}_stages", lib, rows, stages,
+                   1024 + rows * K + 2 * stages * 8192 + 4 * rows)
+
+    calls, outs = {}, {}
+    for name, lib in sorted(libs.items(), key=lambda kv: kv[0] != "b3_as_is"):
+        if not name.startswith("b3"):
+            continue
+        for label, lib_, rows, stages, smem in forms(name, lib):
+            o3 = [torch.empty(B, Lx + Le, N, dtype=bf, device="cuda")
+                  for _ in range(3)]
+
+            def call(lib=lib_, rows=rows, stages=stages, smem=smem, o3=o3):
+                err = lib.w8a8_qkv_cat_bf16(
+                    x.data_ptr(), e.data_ptr(),
+                    *(k["qa_t"].data_ptr() for k in k3),
+                    *(t.data_ptr() for t in s3), *(t.data_ptr() for t in b3),
+                    ln[0].data_ptr(), ln[1].data_ptr(),
+                    *(o.data_ptr() for o in o3), B, Lx, Le, K, N, rows, 18,
+                    stages, smem, stream)
+                if err:
+                    raise RuntimeError(f"{label}: launch failed ({err})")
+            call()
+            torch.cuda.synchronize()
+            y = torch.cat(o3, dim=-1)
+            outs[label], calls[label] = y, call
+            share = (y != ref).float().mean().item()
+            base = f"b3_as_is_{B3_FORMS[0][0]}_rows_{B3_FORMS[0][1]}_stages"
+            same = torch.equal(y, outs[base])
+            print(f"[variants] {label} B={B} Lx={Lx} Le={Le} K={K} N={N}: "
+                  f"outputs != plain {share:.3e}, bit-equal to b3_as_is: "
+                  f"{same}; {cs.cuda_time_ms(call, iters=10):.4f} ms "
+                  f"({state['smi']})", flush=True)
+    _turns_vs(cs, calls, f"b3_as_is_{B3_FORMS[0][0]}_rows_{B3_FORMS[0][1]}_stages",
+              state)
+    lib = libs.get("b3_as_is")
+    if lib is None:
+        return
+    M, K = 1155, 512
+    xt = torch.randn(1, M, K, generator=gen, device="cuda").to(bf)
+    t3 = [cs._qleaf(gen, K, K) for _ in range(3)]
+    tb = [torch.randn(K, generator=gen, device="cuda") * 0.02
+          for _ in range(3)]
+    ts = [k["scale"].reshape(-1).float().contiguous() for k in t3]
+    o3 = [torch.empty(1, M, K, dtype=bf, device="cuda") for _ in range(3)]
+    graphs = {}
+    for rows, units in ((64, 1), (64, 2), (64, 3), (32, 1), (32, 3), (128, 1)):
+        def call(rows=rows, units=units):
+            err = lib.w8a8_qkv_cat_bf16(
+                xt.data_ptr(), None, *(k["qa_t"].data_ptr() for k in t3),
+                *(t.data_ptr() for t in ts), *(t.data_ptr() for t in tb),
+                None, None, *(o.data_ptr() for o in o3), 1, M, 0, K, K,
+                rows, units, 4, 1024 + rows * K + 8 * 8192 + 4 * rows,
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"B3a {rows} rows: launch failed ({err})")
+        graphs[f"b3a_{rows}_rows_{units}_units"] = call
+    base = "b3a_64_rows_1_units"
+    for name, call in graphs.items():
+        if name != base:
+            r = cs._ratio_graphs(call, graphs[base])
+            print(f"[variants] {name} vs {base} (the plan's) at M={M} K={K}"
+                  f", CUDA graphs of {cs.GRAPH_LAUNCHES}: {r[0]:.5f} ms vs "
+                  f"{r[1]:.5f} ms a launch, ratio {r[2]:.3f} (rounds "
+                  f"{r[3]:.3f}-{r[4]:.3f}) ({state['smi']})", flush=True)
+
+
+def _b4_variants(cs, fa, im, libs, gen, stream, state):
+    """B4 at the serving shape (B 128, lq 197, Lk 214, 12 heads): each source
+    variant held to the bits of the source as it is and timed in turns with
+    it."""
+    import torch
+    B, lq, Lk, H = 128, 197, 214, 12
+    D = H * 64
+    bf = torch.bfloat16
+    q, k, v = (torch.randn(B, Lk, D, generator=gen, device="cuda").to(bf)
+               for _ in range(3))
+    r = torch.randn(B, lq, D, generator=gen, device="cuda").to(bf)
+    op = {"kernel": cs._qleaf(gen, D, D),
+          "bias": torch.randn(D, generator=gen, device="cuda") * 0.02}
+    sc = op["kernel"]["scale"].reshape(-1).float().contiguous()
+    ref = fa.attention_out_int8_plain(q, k, v, H, op, r, lq)
+    calls, outs = {}, {}
+    for name, lib in sorted(libs.items(), key=lambda kv: kv[0] != "b4_as_is"):
+        if not name.startswith("b4"):
+            continue
+        stages = B4_KV_STAGES.get(name, 4)
+        rows = 112
+        smem = (1024 + max(rows * D, stages * 18432) + 24576 + 4 * rows
+                + 4 * stages * 64)
+        o = torch.empty(B, lq, D, dtype=bf, device="cuda")
+        a32 = torch.empty(B, -(-lq // rows) * rows, D, device="cuda")
+
+        def call(lib=lib, smem=smem, o=o, a32=a32):
+            err = lib.attention_out_int8_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                op["kernel"]["qa_t"].data_ptr(), sc.data_ptr(),
+                op["bias"].data_ptr(), r.data_ptr(), o.data_ptr(),
+                a32.data_ptr(), B, lq, Lk, H, *fa._qkv_strides(q, k, v),
+                64 ** -0.5 * fa._LOG2E, rows, smem, stream)
+            if err:
+                raise RuntimeError(f"{name}: launch failed ({err})")
+        call()
+        torch.cuda.synchronize()
+        outs[name], calls[name] = o, call
+        share = (o != ref).float().mean().item()
+        same = torch.equal(o, outs["b4_as_is"])
+        print(f"[variants] {name} B={B} lq={lq} Lk={Lk} H={H}: outputs "
+              f"!= plain {share:.3e}, bit-equal to b4_as_is: {same}; "
+              f"{cs.cuda_time_ms(call, iters=10):.4f} ms "
+              f"({state['smi']})", flush=True)
+    _turns_vs(cs, calls, "b4_as_is", state)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,18 @@
-"""The launch plan of the fused w8a8 MLP (csrc/w8a8_mlp.cu) and the
-host-side weight padding its TMA loads need: pure host arithmetic, checked
-on the CPU at the serving, text and ragged shapes."""
+"""The launch plans of the fused w8a8 MLP (csrc/w8a8_mlp.cu), the fused
+LN + q/k/v kernel (csrc/w8a8_qkv.cu) and the fused attention + int8
+out-projection (csrc/attention_out_int8.cu), the layout check their
+wrappers make before a first launch, and the host-side weight padding the
+TMA loads need: pure host arithmetic, checked on the CPU at the serving,
+text and ragged shapes."""
+
+import ast
+import re
+from pathlib import Path
 
 import pytest
 import torch
 
+from gava_clip_tpu_torch.ops import flash_attention as tfa
 from gava_clip_tpu_torch.ops import int8_matmul as tim
 
 _H100_SMS = 132                 # SMs of an H100 SXM
@@ -75,3 +83,185 @@ def test_tma_rows_padding_and_its_inverse(n, k):
     assert not out[:, k:].any()
     if k % 16 == 0:
         assert out is w
+
+
+# ---------------------------------------------------------------------------
+# the fused LN + q/k/v kernel (csrc/w8a8_qkv.cu) and the fused attention +
+# int8 out-projection (csrc/attention_out_int8.cu)
+# ---------------------------------------------------------------------------
+
+_CSRC = Path(tim.__file__).resolve().parent.parent / "csrc"
+
+
+def _cuda_constants(*names):
+    """The `constexpr int` constants of kernel sources, evaluated from
+    their expressions (each may name constants defined before it)."""
+    env = {}
+    pat = re.compile(r"^constexpr (?:int|uint32_t) (\w+) = ([^;]+);", re.M)
+    for name in names:
+        for n, expr in pat.findall((_CSRC / name).read_text()):
+            expr = re.sub(r"(0x[0-9A-Fa-f]+)u\b", r"\1", expr)
+            env[n] = eval(compile(ast.parse(expr, mode="eval"), name, "eval"),
+                          {}, dict(env))
+    return env
+
+
+def test_qkv_layout_is_the_kernel_source_s():
+    """The plan's constants are the ones w8a8_qkv_layout reports: the
+    source's own constants, read here without building it."""
+    c = _cuda_constants("w8a8_wgmma.cuh", "w8a8_qkv.cu")
+    assert tim._QKV_LAYOUT == (c["kSlabBytes"], c["kMaxStages"],
+                               c["kUnitCols"], c["kStaticBytes"])
+
+
+def test_attention_out_layout_is_the_kernel_source_s():
+    c = _cuda_constants("w8a8_wgmma.cuh", "attention_out_int8.cu")
+    assert tfa._ATTN_OUT_LAYOUT == (c["kKVStageBytes"], c["kKVStages"],
+                                    c["kThreadsAttn"], c["kStaticBytes"],
+                                    c["kWRingBytes"])
+    assert tfa._ATTN_OUT_ROWS == c["kRows"]
+
+
+class _FakeLayoutLib:
+    """Stands for a built library: its layout function writes `vals`."""
+
+    def __init__(self, fn, vals):
+        def layout(out):
+            for i, v in enumerate(vals):
+                out[i] = v
+        setattr(self, fn, layout)
+
+
+@pytest.mark.parametrize("fn,want", [
+    ("w8a8_qkv_layout", tim._QKV_LAYOUT),
+    ("attention_out_int8_layout", tfa._ATTN_OUT_LAYOUT),
+    ("w8a8_mlp_layout", tim._MLP_LAYOUT),
+])
+def test_layout_check_before_first_launch(fn, want):
+    """The wrappers hold the built library's constants against the plan's
+    before the first launch (smem_limit -> check_layout) and take the card's
+    shared-memory limit from it; another layout raises."""
+    assert tim.check_layout(_FakeLayoutLib(fn, want + (_H100_SMEM_OPTIN,)),
+                            fn, want) == _H100_SMEM_OPTIN
+    bad = (want[0] + 16,) + tuple(want[1:]) + (_H100_SMEM_OPTIN,)
+    with pytest.raises(RuntimeError, match="layout"):
+        tim.check_layout(_FakeLayoutLib(fn, bad), fn, want)
+
+
+def _qkv_smem(rows, K, stages):
+    """The kernel's count (w8a8_qkv.cu smem_bytes): slack, the code tile,
+    the two rings, the row scales."""
+    slab = tim._QKV_LAYOUT[0]
+    return 1024 + rows * (-(-K // 128) * 128) + 2 * stages * slab + 4 * rows
+
+
+@pytest.mark.parametrize("M,K,N,rows,grid,per_sm,stages", [
+    (128 * 214, 768, 768, 128, (214, 1), 1, 8),   # the serving shape (B3)
+    (128 * 197, 768, 768, 128, (197, 1), 1, 8),   # no extras rows
+    (3 * 18, 96, 40, 32, (2, 3), 2, 6),           # chip_smoke's ragged shapes
+    (4 * 21, 768, 768, 32, (3, 18), 2, 5),
+    (2 * 9, 64, 19, 32, (1, 3), 2, 6),
+    (1155, 512, 512, 32, (37, 4), 2, 5),          # B3a: the text tower
+    (100, 3456, 768, 32, (4, 18), 1, 7),          # the longest rows of before
+])
+def test_w8a8_qkv_plan_at_checked_shapes(M, K, N, rows, grid, per_sm,
+                                         stages):
+    """Every shape chip_smoke checks (W8A8_QKV_SHAPES and B3a's) gets a
+    plan whose shared bytes are the kernel's count and fit a block (and
+    two where two share an SM); the grid covers every row and every unit
+    exactly once."""
+    p = tim.w8a8_qkv_plan(M, K, N, _H100_SMS, _H100_SMEM_OPTIN)
+    assert (p["rows"], p["grid"], p["per_sm"], p["stages"]) == \
+        (rows, grid, per_sm, stages)
+    tiles, split = p["grid"]
+    assert tiles * p["rows"] >= M > (tiles - 1) * p["rows"]
+    assert p["units"] * split == 3 * -(-N // 128)
+    assert p["blocks"] == tiles * split
+    assert 3 <= p["stages"] <= tim._QKV_LAYOUT[1]
+    assert p["smem_bytes"] == _qkv_smem(p["rows"], K, p["stages"])
+    assert p["smem_bytes"] + tim._QKV_LAYOUT[3] <= _H100_SMEM_OPTIN
+    assert p["per_sm"] * (p["smem_bytes"] + tim._QKV_LAYOUT[3] + 1024) \
+        <= tim._SM90_SMEM_PER_SM
+
+
+def test_w8a8_qkv_plan_fills_the_card_at_the_text_shape():
+    """B3a's 1,155 rows: 37 tiles of 32 rows; the units are shared out until
+    every SM has a block (148 blocks, two to an SM: one wave)."""
+    p = tim.w8a8_qkv_plan(1155, 512, 512, _H100_SMS, _H100_SMEM_OPTIN)
+    assert _H100_SMS <= p["blocks"] <= p["per_sm"] * _H100_SMS
+
+
+@pytest.mark.parametrize("K", [16, 100, 768, 1024, 1100, 2048, 3456, 5632])
+def test_w8a8_qkv_plan_fits_every_admitted_row_length(K):
+    for M in (1, 64, 1155, 27392, 100000):
+        p = tim.w8a8_qkv_plan(M, K, 768, _H100_SMS, _H100_SMEM_OPTIN)
+        assert p["rows"] in tim._QKV_ROWS
+        assert p["smem_bytes"] + tim._QKV_LAYOUT[3] <= _H100_SMEM_OPTIN
+
+
+@pytest.mark.parametrize("args", [
+    (37, 5760, 768, _H100_SMS, _H100_SMEM_OPTIN),   # rows too long
+    (37, 768, 768, _H100_SMS, 48 * 1024),           # a small card
+    (0, 768, 768, _H100_SMS, _H100_SMEM_OPTIN),
+])
+def test_w8a8_qkv_plan_raises_for_shapes_it_cannot_take(args):
+    with pytest.raises(ValueError):
+        tim.w8a8_qkv_plan(*args)
+
+
+def _attn_smem(H):
+    """The kernel's count (attention_out_int8.cu smem_bytes): slack, the K/V
+    ring or the code tile in its space, the W^T ring, floats."""
+    stage, stages, _, _, wring = tfa._ATTN_OUT_LAYOUT
+    rows = tfa._ATTN_OUT_ROWS
+    dp = -(-H * 64 // 128) * 128
+    return (1024 + max(rows * dp, stages * stage) + wring + 4 * rows
+            + 4 * stages * 64)
+
+
+@pytest.mark.parametrize("B,lq,H,chunks,per_sm", [
+    (128, 197, 12, 2, 2),   # the serving shape: two blocks a frame row
+    (3, 13, 2, 1, 2),       # chip_smoke's W8A8_ATTN_SHAPES
+    (2, 77, 4, 1, 2),
+    (2, 40, 12, 1, 2),
+    (3, 13, 2, 1, 2),       # and W8A8_2SRC_SHAPES (every q row a query)
+    (2, 70, 3, 1, 2),
+    (2, 64, 4, 1, 2),
+    (128, 197, 16, 2, 1),   # the widest rows: 16 heads
+])
+def test_attention_out_plan_at_checked_shapes(B, lq, H, chunks, per_sm):
+    p = tfa.attention_out_plan(B, lq, H, _H100_SMEM_OPTIN)
+    rows = p["rows"]
+    assert rows == tfa._ATTN_OUT_ROWS and rows % 16 == 0
+    assert p["grid"] == (chunks, B) and chunks * rows >= lq > (chunks - 1) * rows
+    assert p["per_sm"] == per_sm
+    assert p["smem_bytes"] == _attn_smem(H)
+    assert p["smem_bytes"] + tfa._ATTN_OUT_LAYOUT[3] <= _H100_SMEM_OPTIN
+    assert p["per_sm"] * (p["smem_bytes"] + tfa._ATTN_OUT_LAYOUT[3] + 1024) \
+        <= tim._SM90_SMEM_PER_SM
+    # the fp32 scratch holds every row of every block
+    assert p["scratch"] == (B, chunks * rows, H * 64)
+
+
+@pytest.mark.parametrize("args", [(2, 197, 17), (0, 197, 12), (2, 0, 12),
+                                  (2, 197, 12, 48 * 1024)])
+def test_attention_out_plan_raises_for_shapes_it_cannot_take(args):
+    if len(args) == 3:
+        args = args + (_H100_SMEM_OPTIN,)
+    with pytest.raises(ValueError):
+        tfa.attention_out_plan(*args)
+
+
+def test_profiled_symbols_are_kernels_of_the_sources():
+    """Every name chip_smoke's profile tables list a hand-written kernel by
+    is the name of a __global__ function in csrc/ (a renamed kernel would
+    drop out of the tables unseen)."""
+    import sys
+    sys.path.insert(0, str(_CSRC.parent.parent))
+    import chip_smoke
+    text = "".join(p.read_text() for p in sorted(_CSRC.glob("*.cu*")))
+    kernels = set(re.findall(
+        r"__global__ void(?: __launch_bounds__\((?:[^()]|\([^()]*\))*\))?"
+        r"\s+(\w+)\(", text))
+    missing = [s for s in chip_smoke.KERNEL_SYMBOLS if s not in kernels]
+    assert not missing, (missing, sorted(kernels))
