@@ -104,6 +104,14 @@ The remaining serving modes:
           and its entry w8a8_matmul3 (B3a) checked and timed at the text
           attention's shape of the driver phase, also in a CUDA graph of
           20 launches (device time: `graph_ms`);
+  mega         the port's tool (tools/bench_attn_variants.py): the
+          whole-layer w8a8 kernel (mega_layer) against its plain version at
+          the tool's 64 frame rows, the serving 128 and a ragged shape
+          (MEGA_LIMITS), the tool's gate (mega against B3a + B4 + B5 through
+          their kernels, rel < 2e-2) at its shape and draws, the kernel,
+          plain version and that composition timed in turns at 64 and 128
+          frame rows, then the tool's entry point (--parity, timing) with
+          its launches counted;
   w8-slice     VideoClassifier(quantize="w8") at batch 16: 72 int8_matmul
           and 12 packed_attention launches per forward, the logits against
           the same forward through the plain versions and against the bf16
@@ -143,7 +151,7 @@ KERNEL_SYMBOLS = ("packed_attention_kernel", "w8a8_matmul_kernel",
                   "w8a8_mlp_kernel", "attn_bwd_dq_kernel",
                   "attn_bwd_dkdv_kernel", "streaming_attention_fwd_kernel",
                   "w8_matmul_kernel", "fused_extras_kernel",
-                  "packed_bwd_kernel")
+                  "packed_bwd_kernel", "mega_layer_kernel")
 KERNEL_SOURCE = "gava_clip_tpu_torch/csrc/packed_attention.cu"
 KERNEL_REPLACES = "gava_clip_tpu/ops/flash_attention.py:181"
 # every kernel of the two serving paths and of the training step:
@@ -195,6 +203,8 @@ KERNELS = {
         "attention_out_int8",
         "gava_clip_tpu_torch/csrc/attention_out_int8.cu",
         "gava_clip_tpu/ops/flash_attention.py:775"),
+    "mega_layer": ("mega_layer", "gava_clip_tpu_torch/csrc/mega_layer.cu",
+                   "tools/bench_attn_variants.py:37"),
 }
 # (B, Lq, Lk, heads, head_dim); the first is the serving shape: 16 clips x
 # 8 frames, 197 query tokens, 197 + 8 global + 1 summary + 8 local keys
@@ -404,6 +414,27 @@ W8A8_LIMITS = {
 # the shares stay where the residual form's are.
 W8A8_LIMITS["w8a8_mlp"] = W8A8_LIMITS["w8a8_mlp_res"][:2] + (4.0,)
 W8A8_LIMITS["attention_out_int8_qk8"] = W8A8_LIMITS["attention_out_int8"]
+# The whole-layer kernel (csrc/mega_layer.cu) against its plain version: the
+# same int8 codes and fp32 epilogues except where a LayerNorm, softmax or
+# score / AV sum taken in another order (or expf against torch's exp) moves
+# a value across a rounding tie. A tie flip in a k or v row of the first
+# quant moves every query's softmax in its frame row, and the flips reach the
+# output through LN2 and the whole hidden row, so (as between the port's
+# plain version and the JAX kernel on the CPU, tests/test_torch_mega_layer.py)
+# most of a frame row can move by a little: limits on the share of outputs
+# that differ at all, beyond 2 bf16 ulp, and a ceiling of 2 ulp + k flip
+# units of the hidden's quant (xs_hidden * s2 * 127). Measured on an H100
+# (NVIDIA H100 80GB HBM3, 700.00 W): 64 frame rows 1.22e-2 / 3.1e-3 / 50.7,
+# 128 frame rows 2.37e-2 / 6.1e-3 / 44.6, the ragged shape bit-equal. A
+# kernel whose residual is rounded to bf16 after the out-projection (the
+# serving composition's rounding) and one that takes the hidden's absmax
+# over its first 1,024 values are rejected (utils/kernel_mutants.py).
+MEGA_LIMITS = (5e-2, 1.5e-2, 100.0)
+# (frame rows, Lx, Le, D, hidden, heads): the tool's shape (8 clips x 8
+# frames), the serving batch (16 x 8), a ragged one (Lx, Le and the key
+# count off every tile, 4 heads)
+MEGA_SHAPES = ((64, 197, 17, 768, 3072, 12), (128, 197, 17, 768, 3072, 12),
+               (3, 50, 5, 256, 1024, 4))
 # shapes: the serving shape first, then ragged ones (M not a multiple of
 # the tile, odd N, K not a multiple of 64, Le = 0, lq < Lkv). B2 also takes
 # rows longer than the 1,024 values a warp holds in registers: the text
@@ -899,16 +930,20 @@ def _launch_counts():
     from gava_clip_tpu_torch.ops import extras_kernel as ek
     from gava_clip_tpu_torch.ops import flash_attention as fa
     from gava_clip_tpu_torch.ops import int8_matmul as im
-    return {**fa.launch_counts, **im.launch_counts, **ek.launch_counts}
+    from gava_clip_tpu_torch.tools import bench_attn_variants as tool
+    return {**fa.launch_counts, **im.launch_counts, **ek.launch_counts,
+            **tool.launch_counts}
 
 
 def _reset_launch_counts():
     from gava_clip_tpu_torch.ops import extras_kernel as ek
     from gava_clip_tpu_torch.ops import flash_attention as fa
     from gava_clip_tpu_torch.ops import int8_matmul as im
+    from gava_clip_tpu_torch.tools import bench_attn_variants as tool
     fa.reset_launch_counts()
     im.reset_launch_counts()
     ek.reset_launch_counts()
+    tool.reset_launch_counts()
 
 
 def _w8a8_logits(clf, x, impl: str):
@@ -2138,6 +2173,113 @@ def phase_w8_kernels(state):
                              f"{state['w8_failures']}")
 
 
+def _mega_bound(F, lx, le, d, hd):
+    """Bound of one whole w8a8 layer over F frame rows: the int8 products
+    (q from the x rows, k and v from all rows, the out-projection, fc1,
+    fc2), the bf16 score and AV products, and the bytes of x, e, the output
+    and the weights with their scales, biases and LayerNorm params."""
+    lkv = lx + le
+    ops = 2 * F * d * (lx * d + 2 * lkv * d + lx * d + 2 * lx * hd)
+    flops = 4 * F * lx * lkv * d
+    n_bytes = (2 * F * (2 * lx + le) * d + 4 * d * d + 2 * d * hd
+               + 4 * (10 * d + 2 * hd))
+    return _bound(n_bytes, flops_bf16=flops, ops_int8=ops)
+
+
+def phase_mega(state):
+    """The port's tool (tools/bench_attn_variants.py): the whole-layer w8a8
+    kernel against its plain version at the tool's shape, the serving batch
+    and a ragged shape (MEGA_LIMITS); the tool's gate (mega against the
+    serving composition through the kernels) at its shape and draws; times
+    of kernel, plain version and composition in turns; then the tool's own
+    entry point, `--parity` and timing, with the launches counted."""
+    import torch
+    from gava_clip_tpu_torch.tools import bench_attn_variants as tool
+    lim_diff, lim_far, lim_units = MEGA_LIMITS
+    for i, (F, lx, le, d, hd, heads) in enumerate(MEGA_SHAPES):
+        rs = np.random.RandomState(0)
+        params = tool.params_to_port(*tool.make_params(rs, d, hd),
+                                     device="cuda")
+        x, e = tool.make_inputs(rs, F, lx, le, d, device="cuda")
+        out = tool.mega_layer_cuda(x, e, *params, heads=heads)
+        y32, xs_hidden = tool.mega_layer_f32(x, e, *params, heads=heads)
+        ref = y32.to(x.dtype)
+        torch.cuda.synchronize()
+        unit = (xs_hidden * 127.0
+                * params[1]["fc2"]["kernel"]["scale"].reshape(-1).float())
+        err = (out.float() - ref.float()).abs()
+        ulp = bf16_ulp(ref)
+        diff_share = (err > 0).float().mean().item()
+        far_share = (err > 2 * ulp).float().mean().item()
+        units = ((err - 2 * ulp).clamp_min(0) / unit).max().item()
+        max_err = err.max().item()
+        ok = (out.shape == ref.shape and bool(torch.isfinite(out).all())
+              and diff_share <= lim_diff and far_share <= lim_far
+              and units <= lim_units)
+        label = f"F={F} Lx={lx} Le={le} D={d} H={hd} heads={heads}"
+        log(f"[mega] mega_layer {label}: max_abs_err {max_err:.3e}"
+            f"; outputs != plain {diff_share:.3e} (limit {lim_diff:g}), > 2 "
+            f"bf16 ulp {far_share:.3e} (limit {lim_far:g}), max (err - 2 "
+            f"ulp) / hidden flip unit {units:.3f} (limit {lim_units:g}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            state.setdefault("mega_failures", []).append(label)
+        del y32, ref, err, ulp, unit
+        if i == 2:
+            # the plan spreads a frame row over a cluster of CTAs; one CTA a
+            # frame row must give the same bits
+            one = tool.mega_layer_cuda(x, e, *params, heads=heads, split=1)
+            same = torch.equal(one, out)
+            log(f"[mega] mega_layer {label}: one CTA a frame row equal to "
+                f"the plan's cluster bit for bit: {same} "
+                f"{'ok' if same else 'FAIL'}")
+            if not same:
+                state.setdefault("mega_failures", []).append(f"split {label}")
+            continue
+        # the tool's gate: mega against the serving composition, both
+        # through their kernels
+        diff, rel = tool.parity(x, e, *params, heads=heads)
+        gate = i == 0
+        log(f"[mega] mega vs base (B3a + B4 + B5) {label}: max abs diff "
+            f"{diff:.5f}, rel {rel:.5f}"
+            + (f" (the tool's gate {tool.PARITY_REL:g}) "
+               f"{'ok' if rel < tool.PARITY_REL else 'FAIL'}" if gate
+               else " (no gate at this shape)"))
+        if gate and not rel < tool.PARITY_REL:
+            state.setdefault("mega_failures", []).append(f"parity {label}")
+        kernel = lambda: tool.mega_layer_cuda(x, e, *params, heads=heads)
+        base = lambda: tool.base_layer(x, e, *params, heads=heads)
+        k, o, ratio, lo, hi = _ratio_turns(kernel, base)
+        plain_ms = cuda_time_ms(
+            lambda: tool.mega_layer_plain(x, e, *params, heads=heads),
+            iters=3, warmup=1)
+        bound = _mega_bound(F, lx, le, d, hd)
+        log(f"[mega] mega_layer {label}: kernel {k:.4f} ms, base "
+            f"composition {o:.4f} ms (median of 7 rounds in turns, ratio "
+            f"{ratio:.3f}, rounds {lo:.3f}-{hi:.3f}), plain {plain_ms:.4f} "
+            f"ms, bound {bound[0]:.4f} ms ({bound[1]}) ({state['smi']})")
+        if i == 0:
+            # no one PyTorch call computes a layer: no library time; the
+            # serving composition is the yardstick
+            _record(state, "mega_layer", max_err, k, plain_ms, bound, None)
+            state["kstats"]["mega_layer"]["yardsticks"] = {"base_ms": o}
+        del x, e, params
+    # the tool's own entry point, as a user runs it: the launches of its path
+    _reset_launch_counts()
+    rc_parity = tool.main(["--parity", "--device", "cuda"])
+    rc_time = tool.main(["--iters", "10", "--device", "cuda"])
+    torch.cuda.synchronize()
+    n = _launch_counts()["mega_layer"]
+    state.setdefault("launches_by_kernel", {})["mega_layer"] = n
+    log(f"[mega] the tool's path (--parity, then timing): exit codes "
+        f"{rc_parity} / {rc_time}, {n} mega_layer launches")
+    if rc_parity or rc_time or n < 1:
+        state.setdefault("mega_failures", []).append("the tool's path")
+    if state.get("mega_failures"):
+        raise AssertionError(f"mega layer checks failed: "
+                             f"{state['mega_failures']}")
+
+
 W8_PER_FORWARD = {"int8_matmul": 72, "packed_attention": 12,
                   "w8a8_matmul": 0, "w8a8_mlp_res": 0}
 # The w8 forward is held to the same forward through the plain versions of
@@ -3243,7 +3385,7 @@ def main(argv=None) -> int:
             ("device", phase_device), ("build", phase_build),
             ("kernel", phase_kernel), ("w8a8-kernel", phase_w8a8_kernels),
             ("train-kernel", phase_train_kernels),
-            ("w8-kernel", phase_w8_kernels),
+            ("w8-kernel", phase_w8_kernels), ("mega", phase_mega),
             ("slice", phase_slice), ("w8a8-slice", phase_w8a8_slice),
             ("w8-slice", phase_w8_slice),
             ("w8a8-variants", phase_w8a8_variants),

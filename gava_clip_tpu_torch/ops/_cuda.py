@@ -139,6 +139,15 @@ _SIGNATURES = {
                          + [_VP], _I),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
+    "mega_layer": {
+        # x, e; W^T of q, k, v, out, fc1, fc2; scales of q, k, v, out;
+        # their biases; s1, b1, s2, b2; LayerNorm 1 and 2 gamma, beta; y,
+        # workspace; F, Lx, Le, D, hidden, heads, CTAs per frame row; stream
+        "mega_layer_bf16": ([_VP] * 26 + [_I] * 7 + [_VP], _I),
+        # workspace bytes of F frame rows: F, Lx, Le, D, hidden
+        "mega_layer_workspace": ([_I] * 5, ctypes.c_longlong),
+        "cuda_error_string": ([_I], ctypes.c_char_p),
+    },
 }
 
 _lock = threading.Lock()

@@ -2,7 +2,7 @@
 or a wrong bound: build deliberately broken copies of a kernel source and
 run the check phase of chip_smoke.py on each.
 
-    python3 -m gava_clip_tpu_torch.utils.kernel_mutants [b7 b5 b3 b4]   # repo root, on a card
+    python3 -m gava_clip_tpu_torch.utils.kernel_mutants [b7 b5 b3 b4 mega]   # repo root, on a card
 
 Each mutant is a copy of the package and of chip_smoke.py under
 `_scratch/mut_<name>/` (gitignored) with one source patched; the copy
@@ -27,6 +27,7 @@ _W8A8 = "gava_clip_tpu_torch/csrc/w8a8_common.cuh"
 _B7 = "gava_clip_tpu_torch/csrc/streaming_attention.cu"
 _B5 = "gava_clip_tpu_torch/csrc/w8a8_mlp.cu"
 _B4 = _B12
+_MEGA = "gava_clip_tpu_torch/csrc/mega_layer.cu"
 _ROUND = "__bfloat162float(__float2bfloat16({}))"
 # name -> (source, [(old, new)], chip_smoke phase, word that marks the
 # kernel's lines)
@@ -140,6 +141,22 @@ MUTANTS = {
                "          if (head < 4) rmax[1] = fmaxf(rmax[1], fmaxf(fabsf(v1.x), "
                "fabsf(v1.y)));\n")],
         "phase_w8a8_kernels", "attention_out_int8 B="),
+    # the whole layer: the residual rounded to bf16 after the
+    # out-projection, as the serving composition rounds it
+    "mega_residual_bf16": (
+        _MEGA, [("*reinterpret_cast<float2*>(x1 + static_cast<long long>(row) "
+                 "* D + col) = make_float2(r0, r1);",
+                 "*reinterpret_cast<float2*>(x1 + static_cast<long long>(row) "
+                 "* D + col) = make_float2(__bfloat162float(__float2bfloat16("
+                 "r0)), __bfloat162float(__float2bfloat16(r1)));")],
+        "phase_mega", "mega_layer F="),
+    # the whole layer: the hidden's absmax over its first 1,024 values only
+    "mega_hidden_absmax_first_1024": (
+        _MEGA, [("for (int c = lane; c < Hd / 64; c += 32) m = fmaxf(m, "
+                 "__ldcg(hm + c));",
+                 "for (int c = lane; c < min(Hd, 1024) / 64; c += 32) m = "
+                 "fmaxf(m, __ldcg(hm + c));")],
+        "phase_mega", "mega_layer F="),
 }
 
 

@@ -2,7 +2,7 @@
 variants of a kernel source (patched copies, as kernel_mutants.py does)
 and time each against the same yardstick, in turns.
 
-    python3 -m gava_clip_tpu_torch.utils.kernel_variants [b1 b9 b7 b5 b3 b4]   # repo root, on a card
+    python3 -m gava_clip_tpu_torch.utils.kernel_variants [b1 b9 b7 b5 b3 b4 mega]   # repo root, on a card
 
 B1 / B6a (csrc/packed_attention.cu, the den entry) against
 F.scaled_dot_product_attention's forward at the two training shapes: the
@@ -28,7 +28,10 @@ shape in CUDA graphs by rows and units per block. B4
 (csrc/attention_out_int8.cu) at the serving shape: exp2f, two or three K/V
 stages, and four that drop a part to show where the time goes (score
 products, AV products, the fp32 scratch round trip, the out-projection's
-products; wrong outputs).
+products; wrong outputs). The whole-layer kernel (csrc/mega_layer.cu) at
+the tool's shape: the source as it is at several CTAs per frame row, one
+block an SM, and eight that stop after a phase to show where the time goes
+(wrong outputs).
 
 Each variant builds into `_scratch/variants/` (gitignored), is called
 through the real entry point's ctypes signature, is compared with the
@@ -51,8 +54,10 @@ _B7 = "gava_clip_tpu_torch/csrc/streaming_attention.cu"
 _B5 = "gava_clip_tpu_torch/csrc/w8a8_mlp.cu"
 _B3 = "gava_clip_tpu_torch/csrc/w8a8_qkv.cu"
 _B4 = "gava_clip_tpu_torch/csrc/attention_out_int8.cu"
+_MEGA = "gava_clip_tpu_torch/csrc/mega_layer.cu"
 _LIB = {_PA: "packed_attention", _W8: "w8_matmul", _B7: "streaming_attention",
-        _B5: "w8a8_mlp", _B3: "w8a8_qkv", _B4: "attention_out_int8"}
+        _B5: "w8a8_mlp", _B3: "w8a8_qkv", _B4: "attention_out_int8",
+        _MEGA: "mega_layer"}
 # name -> (source, [(old, new)])
 VARIANTS = {
     "b1_as_is": (_PA, []),
@@ -205,7 +210,38 @@ VARIANTS = {
         "    }\n"
         "#pragma unroll\n"
         "    for (int i = 0; i < N / 2; ++i) acc[i] = i;")]),
+    "mega_as_is": (_MEGA, []),
+    # one block an SM (up to 255 registers a thread: no spills)
+    "mega_1_block": (_MEGA, [("__launch_bounds__(kThreadsMega, 2)",
+                              "__launch_bounds__(kThreadsMega, 1)")]),
+    # where the time goes (wrong outputs): phases 0 .. 0 only
+    "mega_phases_to_0": (_MEGA, [("  // phase 1: ",
+                                  "  return;\n  // phase 1: ")]),
+    # where the time goes (wrong outputs): phases 0 .. 1 only
+    "mega_phases_to_1": (_MEGA, [("  // phase 2: ",
+                                  "  return;\n  // phase 2: ")]),
+    # where the time goes (wrong outputs): phases 0 .. 2 only
+    "mega_phases_to_2": (_MEGA, [("  // phase 3: ",
+                                  "  return;\n  // phase 3: ")]),
+    # where the time goes (wrong outputs): phases 0 .. 3 only
+    "mega_phases_to_3": (_MEGA, [("  // phase 4: ",
+                                  "  return;\n  // phase 4: ")]),
+    # where the time goes (wrong outputs): phases 0 .. 4 only
+    "mega_phases_to_4": (_MEGA, [("  // phase 5: ",
+                                  "  return;\n  // phase 5: ")]),
+    # where the time goes (wrong outputs): phases 0 .. 5 only
+    "mega_phases_to_5": (_MEGA, [("  // phase 6: ",
+                                  "  return;\n  // phase 6: ")]),
+    # where the time goes (wrong outputs): phases 0 .. 6 only
+    "mega_phases_to_6": (_MEGA, [("  // phase 7: ",
+                                  "  return;\n  // phase 7: ")]),
+    # where the time goes (wrong outputs): phases 0 .. 7 only
+    "mega_phases_to_7": (_MEGA, [("  // phase 8: ",
+                                  "  return;\n  // phase 8: ")]),
 }
+# CTAs per frame row each mega variant is timed at (the plan's: None)
+MEGA_SPLITS = {"mega_as_is": (None, 1, 2, 4, 8),
+               "mega_1_block": (None, 1, 2, 4)}
 # the K/V stages of each B4 variant, for its shared bytes
 B4_KV_STAGES = {"b4_2_kv_stages": 2, "b4_3_kv_stages": 3}   # the others: 4
 # the fc2 weight tile of each B5 variant, for its launch plan
@@ -323,6 +359,8 @@ def main(argv=None) -> int:
         _b3_variants(cs, im, libs, gen, stream, state)
     if _any(libs, "b4"):
         _b4_variants(cs, fa, im, libs, gen, stream, state)
+    if _any(libs, "mega"):
+        _mega_variants(cs, libs, state)
     return 0
 
 
@@ -567,6 +605,46 @@ def _b4_variants(cs, fa, im, libs, gen, stream, state):
               f"({state['smi']})", flush=True)
     _turns_vs(cs, calls, "b4_as_is", state)
 
+
+
+def _mega_variants(cs, libs, state):
+    """The whole-layer kernel at the tool's shape (64 frame rows, its
+    draws) and at the serving batch (128) through the tool's wrapper, each
+    variant's library standing in for the built one: held to the bits of
+    the source as it is (the truncated ones are wrong on purpose; they run
+    at 64 rows only), timed at the plan's CTAs per frame row and at those
+    of MEGA_SPLITS, and in turns with the source as it is."""
+    import numpy as np
+    import torch
+    from gava_clip_tpu_torch.ops import _cuda
+    from gava_clip_tpu_torch.tools import bench_attn_variants as tool
+    for frames in (64, 128):
+        rs = np.random.RandomState(0)
+        params = tool.params_to_port(*tool.make_params(rs), device="cuda")
+        x, e = tool.make_inputs(rs, frames, device="cuda")
+        calls, outs = {}, {}
+        for name, lib in sorted(libs.items(),
+                                key=lambda kv: kv[0] != "mega_as_is"):
+            if not name.startswith("mega") or (
+                    frames != 64 and "phases" in name):
+                continue
+            for split in MEGA_SPLITS.get(name, (None,)):
+                def call(lib=lib, split=split):
+                    _cuda._libs["mega_layer"] = lib
+                    try:
+                        return tool.mega_layer_cuda(x, e, *params,
+                                                    split=split)
+                    finally:
+                        del _cuda._libs["mega_layer"]
+                key = name if split is None else f"{name}_split_{split}"
+                outs[key], calls[key] = call(), call
+                torch.cuda.synchronize()
+                same = torch.equal(outs[key], outs["mega_as_is"])
+                print(f"[variants] {key} F={frames}: bit-equal to "
+                      f"mega_as_is: {same}; "
+                      f"{cs.cuda_time_ms(call, iters=10):.4f} ms "
+                      f"({state['smi']})", flush=True)
+        _turns_vs(cs, calls, "mega_as_is", state)
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -167,3 +167,117 @@ def test_attention_out_int8_full_width_matches_jax_kernel(forced_kernels,
     a32 = tflash._onepass_attention_den_f32(tq[:, :lq], tk, tv, _HEADS,
                                             int8_qk=int8_qk)[0]
     _assert_close(out_t, out_j, _unit(tim.quant_rows(a32)[1], st))
+
+
+def _mlp_inputs(rs, M):
+    """Rows (M, 768), the two MLP weights (768 -> 3072 -> 768), biases and
+    LayerNorm params as tests/test_torch_w8a8.py draws them."""
+    x = rs.randn(M, _D)
+    w1, w2 = _qweight(rs, _D, 4 * _D), _qweight(rs, 4 * _D, _D)
+    b1, b2 = rs.randn(4 * _D) * 0.02, rs.randn(_D) * 0.02
+    return x, w1, w2, b1, b2, (1 + rs.rand(_D) * 4, rs.randn(_D) * 0.1)
+
+
+def _mlp_leaves(w1, w2, b1, b2):
+    """(JAX fc1, fc2), (port fc1, fc2)."""
+    return tuple(
+        tuple({"kernel": {"qa": w[side][0], "scale": w[side][1]},
+               "bias": conv(b)} for w, b in ((w1, b1), (w2, b2)))
+        for side, conv in ((0, _j), (1, _t)))
+
+
+def _hidden_unit(xt, fc1, fc2, ln):
+    """Two flip units of the second stage (the hidden's codes): a code flip
+    in the first quant moves the hidden and may flip hidden codes."""
+    x32 = xt.float() if ln is None else tim.ln_f32(xt.float(), *ln)
+    codes, xs = tim.quant_rows(x32)
+    k1 = fc1["kernel"]
+    h = tim.quick_gelu_f32(tim.rescale(tim.int_matmul(codes, k1["qa"]), xs,
+                                       k1["scale"], fc1["bias"]))
+    return 2 * _unit(tim.quant_rows(h)[1], fc2["kernel"]["scale"])
+
+
+def test_w8a8_mlp_res_full_width_matches_jax_kernel(forced_kernels):
+    """B5 at two frame rows (the JAX kernel takes rows in multiples of 8:
+    200 + 16), K 768 -> 3072 -> 768 with LN2: a row's requant runs over all
+    3,072 hidden values."""
+    rs = np.random.RandomState(24)
+    x, w1, w2, b1, b2, ln = _mlp_inputs(rs, 216)
+    (j1, j2), (t1, t2) = _mlp_leaves(w1, w2, b1, b2)
+    xj, xt = _j(x, jnp.bfloat16), _t(x, torch.bfloat16)
+    out_j = jim.w8a8_mlp_res(xj, j1, j2, (_j(ln[0]), _j(ln[1])), xj)
+    lnt = (_t(ln[0]), _t(ln[1]))
+    out_t = tim.w8a8_mlp_res(xt, t1, t2, lnt, xt)
+    assert out_t.shape == (216, _D) and out_t.dtype == torch.bfloat16
+    _assert_close(out_t, out_j, _hidden_unit(xt, t1, t2, lnt))
+
+
+@pytest.mark.parametrize("with_ln", [True, False])
+def test_w8a8_mlp_full_width_matches_jax_kernel(forced_kernels, with_ln):
+    """B5a, the residual-free form, at the same widths, with the LayerNorm
+    and without it (the input rows are then quantized as they are)."""
+    rs = np.random.RandomState(25)
+    x, w1, w2, b1, b2, ln = _mlp_inputs(rs, 216)
+    (j1, j2), (t1, t2) = _mlp_leaves(w1, w2, b1, b2)
+    out_j = jim.w8a8_mlp(_j(x, jnp.bfloat16), j1, j2,
+                         ln=(_j(ln[0]), _j(ln[1])) if with_ln else None)
+    xt = _t(x, torch.bfloat16)
+    lnt = (_t(ln[0]), _t(ln[1])) if with_ln else None
+    out_t = tim.w8a8_mlp(xt, t1, t2, lnt)
+    assert out_t.shape == (216, _D) and out_t.dtype == torch.bfloat16
+    _assert_close(out_t, out_j, _hidden_unit(xt, t1, t2, lnt))
+
+
+def test_w8a8_matmul_patch_embed_width_matches_jax_kernel(forced_kernels):
+    """B2 at the patch embed's K = N = 768 over two frame rows of 196
+    patches of raw pixels: no LayerNorm, so the codes are equal and only
+    the fp32 epilogue's rounding order may differ: within one bf16 ulp."""
+    rs = np.random.RandomState(26)
+    x = rs.randint(0, 256, (2 * 196, _D))
+    (qj, sj), (qt, st) = _qweight(rs, _D, _D)
+    b = rs.randn(_D) * 0.1
+    out_j = jim.w8a8_matmul(_j(x, jnp.bfloat16), qj, sj, bias=_j(b))
+    out_t = tim.w8a8_matmul(_t(x, torch.bfloat16), {"qa": qt, "scale": st},
+                            _t(b))
+    assert out_t.shape == (2 * 196, _D) and out_t.dtype == torch.bfloat16
+    a, r = _np(out_t), _np(out_j)
+    assert np.all(np.abs(a - r) <= _bf16_ulp(np.maximum(abs(a), abs(r))))
+
+
+@pytest.mark.parametrize("int8_qk", [False, True])
+def test_attention_out_int8_2src_full_width_matches_jax_kernel(
+        forced_kernels, int8_qk):
+    """B12 at 12 heads: lq 197 queries over 197 + 17 keys from two sources,
+    in both score forms; equal to the one-source plain version on [k1; k2]
+    bit for bit."""
+    rs = np.random.RandomState(27 + int8_qk)
+    B, L1, L2 = 2, 197, 17
+    q, k1, v1, res = (rs.randn(B, L1, _D) for _ in range(4))
+    k2, v2 = rs.randn(B, L2, _D), rs.randn(B, L2, _D)
+    (qj, sj), (qt, st) = _qweight(rs, _D, _D)
+    bias = rs.randn(_D) * 0.02
+    bf = jnp.bfloat16
+    tq, tk1, tv1, tk2, tv2, tres = (_t(a, torch.bfloat16)
+                                    for a in (q, k1, v1, k2, v2, res))
+    top = {"kernel": {"qa": qt, "scale": st}, "bias": _t(bias)}
+    jflash.set_int8_qk(int8_qk)
+    tflash.set_int8_qk(int8_qk)
+    try:
+        out_j = jflash.flash_attention_out_int8_2src(
+            _j(q, bf), _j(k1, bf), _j(v1, bf), _j(k2, bf), _j(v2, bf),
+            _HEADS, {"kernel": {"qa": qj, "scale": sj}, "bias": _j(bias)},
+            _j(res, bf))
+        out_t = tflash.flash_attention_out_int8_2src(
+            tq, tk1, tv1, tk2, tv2, _HEADS, top, tres)
+    finally:
+        jflash.set_int8_qk(False)
+        tflash.set_int8_qk(False)
+    assert out_t.shape == (B, L1, _D) and out_t.dtype == torch.bfloat16
+    kc, vc = torch.cat([tk1, tk2], dim=1), torch.cat([tv1, tv2], dim=1)
+    torch.testing.assert_close(
+        tflash.attention_out_int8_plain(tq, kc, vc, _HEADS, top, tres,
+                                        None, int8_qk),
+        out_t, rtol=0, atol=0)
+    a32 = tflash._onepass_attention_den_f32(tq, kc, vc, _HEADS,
+                                            int8_qk=int8_qk)[0]
+    _assert_close(out_t, out_j, _unit(tim.quant_rows(a32)[1], st))
