@@ -45,8 +45,10 @@ The training step:
           backwards (saved-residual and recompute) and the streaming
           (causal / long) forward and backward against their plain versions
           at the training shapes, ragged ones and the packed path's edge
-          (limits in TRAIN_LIMITS); the packed backwards run twice and must
-          give the same bits; CUDA-event times of kernel, plain version and
+          (limits in TRAIN_LIMITS); the packed backwards and the streaming
+          backward run twice and must give the same bits (the streaming
+          backward also timed in a CUDA graph); CUDA-event times of
+          kernel, plain version and
           F.scaled_dot_product_attention (a yardstick only), the packed
           backwards against SDPA's backward and the packed forwards (B6a,
           and B1 on the same inputs) against SDPA's forward in turns (the
@@ -95,7 +97,9 @@ The remaining serving modes:
           w8a8 MLP (w8a8_mlp), the fused prompt extras (fused_extras) and
           the int8 QK^T form of attention_out_int8 against their plain
           versions at the serving shapes and ragged ones (limits in
-          W8_LIMITS, EXTRAS_LIMITS, W8A8_LIMITS), with CUDA-event times of
+          W8_LIMITS, EXTRAS_*, W8A8_LIMITS; the fused extras also past one
+          tile of their launch plan, EXTRAS_TILED_SHAPES, and timed in a
+          CUDA graph), with CUDA-event times of
           kernel, plain version and, where there is one, a stock PyTorch
           yardstick (for the w8 GEMM torch.matmul on the dequantized
           weight, in turns: the median ratio of 7 rounds at each of the
@@ -148,8 +152,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # the kernels' symbols, as a device trace names them
 KERNEL_SYMBOLS = ("packed_attention_kernel", "w8a8_matmul_kernel",
                   "w8a8_qkv_kernel", "attention_out_int8_kernel",
-                  "w8a8_mlp_kernel", "attn_bwd_dq_kernel",
-                  "attn_bwd_dkdv_kernel", "streaming_attention_fwd_kernel",
+                  "w8a8_mlp_kernel", "attn_bwd_fused_kernel",
+                  "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel",
+                  "streaming_attention_fwd_kernel",
                   "w8_matmul_kernel", "fused_extras_kernel",
                   "packed_bwd_kernel", "mega_layer_kernel")
 KERNEL_SOURCE = "gava_clip_tpu_torch/csrc/packed_attention.cu"
@@ -1457,7 +1462,19 @@ def phase_train_kernels(state):
                                  r, m, state)
                     for n, g, r, m in zip(("dq", "dk", "dv"), grads, g_ref,
                                           absmax(g_ref)))
-        del spread, grads, g_ref
+        # one deterministic launch plan: the same inputs, the same bits
+        form = fa.streaming_bwd_plan(B, Lq, Lk, H)["form"]
+        again = fa.streaming_attention_bwd_cuda(q, k, v, do, ref, lse_ref, H,
+                                                causal)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(grads, again))
+        log(f"[train-kernel] streaming_attention_bwd {label} ({form}): a "
+            f"second run gives the same bits: {same} "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            state.setdefault("train_failures", []).append(
+                f"determinism streaming {label}")
+        del spread, grads, g_ref, again
         if i < 2:
             ms_f, plain_f, t_f = _time_pair(
                 lambda: fa.streaming_attention_cuda(q, k, v, H, causal),
@@ -1493,6 +1510,16 @@ def phase_train_kernels(state):
                 f"{t_b['kernel']} ms, plain {t_b['plain']} ms, SDPA backward "
                 f"{lib_b:.4f} ms, bound {bounds['bwd'][0]:.5f} ms "
                 f"({bounds['bwd'][1]}) ({state['smi']})")
+            # the backward's device time: launches captured in a CUDA
+            # graph (CUDA events around host-launched calls read the host at
+            # the text shape)
+            graph_b = cuda_time_ms(_graph_call(
+                lambda: fa.streaming_attention_bwd_cuda(
+                    q, k, v, do, ref, lse_ref, H, causal)),
+                iters=5) / GRAPH_LAUNCHES
+            log(f"[train-kernel] {label}: B7 backward ({form}) "
+                f"{GRAPH_LAUNCHES} launches in a CUDA graph {graph_b:.5f} ms "
+                f"a launch ({state['smi']})")
             if i == 0:
                 for name, err, ms, plain, lib, key in (
                         ("streaming_attention", err_f, ms_f, plain_f, lib_f,
@@ -1503,6 +1530,7 @@ def phase_train_kernels(state):
                         "max_abs_err": err, "ms": ms, "plain_ms": plain,
                         "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
                         "library_ms": lib}
+                stats["streaming_attention_bwd"]["graph_ms"] = graph_b
     # the clamp regime of the packed backward. There the softmax is nearly
     # one-hot and dq, dk cancel to ~1e-7 of dv's scale: fp32 noise decides
     # their bits, so only the far share and the ceiling are held
@@ -1802,6 +1830,13 @@ EXTRAS_SHAPES = ((16, 8, 768, 12, 8, 17, "bf16", "fp32", 1.0, 1),
                  # tolerance is 1e3 times wider; a clamped softmax is off
                  # by the outputs' own size, 1e4 times the tolerance
                  (4, 8, 768, 12, 8, 17, "fp32", "fp32", 40.0, 1000))
+# shapes past one tile of the kernel's plan, under the same limits: 160
+# frame rows (two row tiles), D = 1,024 (two K sub-chunks a block, 16
+# slices and heads: more items than resident clusters on some cards) with
+# zero pad rows; fp32 rows with bf16 weights and Tb = 40 (clips of a
+# group that do not fill a row tile)
+EXTRAS_TILED_SHAPES = ((20, 8, 1024, 16, 8, 20, "bf16", "fp32", 1.0, 1),
+                       (3, 40, 256, 4, 2, 43, "fp32", "bf16", 1.0, 1))
 # the int8 QK^T form against the fp32-score form of the same kernel, at the
 # JAX test's input statistics (tests/test_flash_attention.py
 # test_int8_qk_scores_close_to_fp32, which holds 5e-3 at D = 64 in fp32).
@@ -2009,7 +2044,7 @@ def _fused_extras_checks(state, gen):
     from gava_clip_tpu_torch.ops import extras_kernel as ek
     dt = {"bf16": torch.bfloat16, "fp32": torch.float32}
     for i, (Bb, Tb, D, H, G, le_pad, act, wd, gain, tol_factor) in enumerate(
-            EXTRAS_SHAPES):
+            EXTRAS_SHAPES + EXTRAS_TILED_SHAPES):
         tol = EXTRAS_TOL * tol_factor
         BT = Bb * Tb
         p, gp = _extras_params(gen, Tb, D, G, dt[wd], gain)
@@ -2078,9 +2113,16 @@ def _fused_extras_checks(state, gen):
             f"({bound[1]}); stock ops vs the fp32 arithmetic max |diff| "
             f"{d_stock.item():.3e} (order plain, kernel, kernel, plain; "
             f"{state['smi']})")
+        # device time: launches captured in a CUDA graph
+        graph_ms = cuda_time_ms(_graph_call(
+            lambda: ek.fused_extras_cuda(cls, p, gp, **kw)),
+            iters=5) / GRAPH_LAUNCHES
+        log(f"[w8-kernel] fused_extras {label}: {GRAPH_LAUNCHES} launches in "
+            f"a CUDA graph {graph_ms:.5f} ms a launch ({state['smi']})")
         if i == 0:
             _record(state, "fused_extras", worst, ms, plain_ms, bound,
                     stock_ms)
+            state["kstats"]["fused_extras"]["graph_ms"] = graph_ms
 
 
 def _int8_qk_checks(state, gen):

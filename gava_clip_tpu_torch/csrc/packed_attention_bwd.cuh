@@ -60,10 +60,12 @@
 #include <type_traits>
 
 #include "attention_common.cuh"
+#include "attention_frags.cuh"
 
 namespace pbwd {
 
 using namespace attn;
+using namespace afrag;
 
 constexpr int kWarpsB = 8;
 constexpr int kThreadsB = kWarpsB * 32;
@@ -96,121 +98,6 @@ struct PArgs {
   long long q_sb, q_sl, k_sb, k_sl, v_sb, v_sl;
   float c, scale;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled (nothing read) when !ok
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-// mma.sync m16n8k16 bf16 -> fp32, free for the compiler to schedule (a
-// register-only instruction)
-__device__ __forceinline__ void mma_nv(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x, one MUFU instruction (at most 2 ulp from 2^x). The .ftz form flushes
-// a result below 2^-126 to 0 where the plain version's exp2 (and exp2f, as
-// the forward kernels call it) keeps a subnormal: an e that small (a score
-// 126 powers of two below the largest) adds nothing a bf16 gradient can
-// hold, and the flush saves the subnormal handling on every score entry
-__device__ __forceinline__ float ex2f(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// bf16(lo) | bf16(hi) << 16, round to nearest even, one instruction
-__device__ __forceinline__ uint32_t cvt_pack(float lo, float hi) {
-  uint32_t r;
-  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
-  return r;
-}
-
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// rows [row0, row0 + ROWS) of one head (64 columns at `src`) into a padded
-// shared tile, asynchronously; rows >= L become zeros
-template <int ROWS>
-__device__ __forceinline__ void tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           int row0, int L, long long stride) {
-  for (int idx = threadIdx.x; idx < ROWS * 8; idx += kThreadsB) {
-    const int r = idx >> 3, cv = (idx & 7) * 8;
-    const bool ok = row0 + r < L;
-    cp_async16(dst + r * kLDS + cv, ok ? src + (row0 + r) * stride + cv : src, ok);
-  }
-}
-
-// A fragments (16 rows from `row0` x 64 columns) of a shared tile
-__device__ __forceinline__ void a_frags(uint32_t (&a)[kKD][4], const __nv_bfloat16* tile,
-                                        int row0, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kKD; ++kk)
-    ldsm(a[kk], tile + (row0 + (lane & 15)) * kLDS + kk * 16 + (lane >> 4) * 8);
-}
-
-// s[i] += A x rows n8[i] .. n8[i] + 7 of a shared tile^T for the fragments
-// with use[i] (constant after unrolling where the callers can make it so):
-// NG independent mma chains
-template <int NG>
-__device__ __forceinline__ void mma_rows_tn(float (&s)[NG][4], const uint32_t (&a)[kKD][4],
-                                            const __nv_bfloat16* tile, const int (&n8)[NG],
-                                            const bool (&use)[NG], int lane) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-#pragma unroll
-    for (int i = 0; i < NG; ++i) {
-      if (use[i]) {
-        uint32_t b[4];
-        ldsm(b, tile + (n8[i] + (lane & 7)) * kLDS + (lane >> 3) * 8 + half * 32);
-        mma_nv(s[i], a[2 * half], b[0], b[1]);
-        mma_nv(s[i], a[2 * half + 1], b[2], b[3]);
-      }
-    }
-  }
-}
-
-// acc[j] += P (16 x 16 chunk `kc` of the tile's rows, fragment `p`) x tile
-// rows kc * 16 .. + 15, columns col0 + j * 8 (j < 2 * NP)
-template <int NP>
-__device__ __forceinline__ void mma_chunk(float (&acc)[2 * NP][4], const uint32_t (&p)[4],
-                                          const __nv_bfloat16* tile, int kc, int col0,
-                                          int lane) {
-#pragma unroll
-  for (int j = 0; j < NP; ++j) {
-    uint32_t b[4];
-    ldsm_t(b, tile + (kc * 16 + (lane & 15)) * kLDS + col0 + (2 * j + (lane >> 4)) * 8);
-    mma_nv(acc[2 * j], p, b[0], b[1]);
-    mma_nv(acc[2 * j + 1], p, b[2], b[3]);
-  }
-}
 
 template <bool RECOMPUTE>
 __global__ void __launch_bounds__(kThreadsB, 1) packed_bwd_kernel(PArgs a, bool acc_in_smem) {
@@ -258,8 +145,8 @@ __global__ void __launch_bounds__(kThreadsB, 1) packed_bwd_kernel(PArgs a, bool 
         int kvi = -1, m = -1;
         if (s < npass) {
           kvi = s;
-          if (KTn > 1 && s % KTn == 0) tile_async<kPT>(ds_s, qb, (s / KTn) * ptr, a.Lq, a.q_sl);
-          if (KTn > 1 && s % KTn == KTn - 1) tile_async<kPT>(o_s, dob, (s / KTn) * ptr, a.Lq, D);
+          if (KTn > 1 && s % KTn == 0) tile_async<kPT, kThreadsB>(ds_s, qb, (s / KTn) * ptr, a.Lq, a.q_sl);
+          if (KTn > 1 && s % KTn == KTn - 1) tile_async<kPT, kThreadsB>(o_s, dob, (s / KTn) * ptr, a.Lq, D);
         } else {
           m = s - npass;
           if (m % QTn == 0) kvi = npass + m / QTn;
@@ -267,16 +154,16 @@ __global__ void __launch_bounds__(kThreadsB, 1) packed_bwd_kernel(PArgs a, bool 
         if (kvi >= 0) {
           const int k0 = (s < npass ? kvi % KTn : kvi - npass) * kKT;
           __nv_bfloat16* st = kv_s + (kvi & 1) * 2 * kKT * kLDS;
-          tile_async<kKT>(st, kb, k0, a.Lk, a.k_sl);
-          tile_async<kKT>(st + kKT * kLDS, vb, k0, a.Lk, a.v_sl);
+          tile_async<kKT, kThreadsB>(st, kb, k0, a.Lk, a.k_sl);
+          tile_async<kKT, kThreadsB>(st + kKT * kLDS, vb, k0, a.Lk, a.v_sl);
         }
         if (m >= 0) {
           const int q0 = (m % QTn) * kQT;
           __nv_bfloat16* st = qd_s + (m & 1) * 2 * kQT * kLDS;
-          tile_async<kQT>(st, qb, q0, a.Lq, a.q_sl);
-          tile_async<kQT>(st + kQT * kLDS, dob, q0, a.Lq, D);
+          tile_async<kQT, kThreadsB>(st, qb, q0, a.Lq, a.q_sl);
+          tile_async<kQT, kThreadsB>(st + kQT * kLDS, dob, q0, a.Lq, D);
           if (!RECOMPUTE && m < QTn) {
-            tile_async<kQT>(o_s + (m & 1) * kQT * kLDS, ob, q0, a.Lq, D);
+            tile_async<kQT, kThreadsB>(o_s + (m & 1) * kQT * kLDS, ob, q0, a.Lq, D);
             if (threadIdx.x < kQT) {
               const int r = q0 + threadIdx.x;
               cp_async4(den_s + (m & 1) * kQT + threadIdx.x, r < a.Lq ? denb + r * a.H : denb,

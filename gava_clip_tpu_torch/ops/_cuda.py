@@ -69,9 +69,13 @@ _SIGNATURES = {
     },
     "streaming_attention_bwd": {
         # q, k, v, do, o, lse, dq, dk, dv; B, Lq, Lk, H, Dh; q/k/v batch
-        # and row strides; scale; causal; stream
+        # and row strides; scale; causal; the launch plan (form, shared
+        # bytes); stream
         "streaming_attention_bwd_bf16": (
-            [_VP] * 9 + [_I] * 5 + [_I] * 6 + [ctypes.c_float, _I, _VP], _I),
+            [_VP] * 9 + [_I] * 5 + [_I] * 6 + [ctypes.c_float, _I, _I, _I,
+                                               _VP], _I),
+        # the one-launch form's layout: three ints
+        "streaming_attention_bwd_layout": ([ctypes.POINTER(_I)], None),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "w8a8_matmul": {
@@ -133,10 +137,15 @@ _SIGNATURES = {
     },
     "fused_extras": {
         # cls, cls row stride; Wc, bc, lns, lnb, Wq, bq, Wk, bk, Wv, bv, Wo,
-        # bo, lp, gp; e, summary; Bb, Tb, G, D, H, le_pad; weights bf16?,
-        # activations bf16?; stream
-        "fused_extras": ([_VP, ctypes.c_longlong] + [_VP] * 16 + [_I] * 8
+        # bo, lp, gp; e, summary, workspace; Bb, Tb, G, D, H, le_pad;
+        # weights bf16?, activations bf16?; the launch plan (blocks a
+        # cluster, clusters); stream
+        "fused_extras": ([_VP, ctypes.c_longlong] + [_VP] * 17 + [_I] * 10
                          + [_VP], _I),
+        # the plan's constants: eight ints
+        "fused_extras_layout": ([ctypes.POINTER(_I)], None),
+        # the most resident clusters of CS blocks (bf16 weights?)
+        "fused_extras_max_clusters": ([_I, _I], _I),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "mega_layer": {

@@ -19,9 +19,10 @@ Switch: `set_fused_extras(True)`, or GAVA_FUSED_EXTRAS=1 in the environment;
 off by default. `models/vision._block` reads it at every call.
 """
 
+import contextlib
 import math
 import os
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -90,10 +91,88 @@ def fused_extras_plain(cls: torch.Tensor, p, g_prompt: torch.Tensor, *,
 
 
 def _f32(t: torch.Tensor, shape, what: str) -> torch.Tensor:
+    """t's values as a contiguous fp32 tensor of `shape` (t itself when it
+    is one already, in whatever shape: the kernel reads its pointer)."""
     if t.numel() != math.prod(shape):
         raise ValueError(f"{what}: {tuple(shape)} expected, got "
                          f"{tuple(t.shape)}")
+    if t.dtype == torch.float32 and t.is_contiguous():
+        return t
     return t.reshape(shape).float().contiguous()
+
+
+# Launch plan of csrc/fused_extras.cu: one persistent cooperative launch of
+# clusters of `cs` blocks, a cluster per 64-column slice of cls_proj / the
+# out-projection and per head (12 at ViT-B/16's width), every block
+# resident at once (the kernel's stages meet at grid-wide barriers). The
+# numbers are the source's layout (`fused_extras_layout`): rows of a row
+# tile, K values of a sub-chunk, columns of a slice, q/k/v columns of a
+# head, most frame rows of a clip, most blocks of a cluster, and the
+# dynamic shared bytes with fp32 and with bf16 weights.
+_EXTRAS_LAYOUT = (128, 96, 64, 192, 64, 8, 231424, 193024)
+_EXTRAS_CS = 8
+_layout_checked = set()
+# (device index, cluster size, bf16 weights?) -> most resident clusters
+_max_clusters = {}
+
+
+def fused_extras_plan(Bb: int, Tb: int, D: int, num_heads: int,
+                      max_clusters: int, cs: int = _EXTRAS_CS) -> Dict:
+    """Clusters, blocks and workspace of one launch on a card that holds
+    `max_clusters` clusters of `cs` blocks at once: {'cs', 'clusters',
+    'blocks', 'k_per_block', 'sub_chunks', 'row_tiles',
+    'workspace_floats'}. Raises ValueError for shapes the kernel does not
+    take."""
+    rows, kc, slice_n, head_n, max_tb, max_cs, _, _ = _EXTRAS_LAYOUT
+    Dh = D // num_heads if num_heads else 0
+    if D % 4 or not num_heads or D % num_heads or Dh % 4 or \
+            Dh > head_n // 3:
+        raise ValueError(f"fused_extras kernel: width {D} over {num_heads} "
+                         f"heads (a head of a multiple of 4 values, at most "
+                         f"{head_n // 3})")
+    if not 1 <= Tb <= max_tb or Bb < 1:
+        raise ValueError(f"fused_extras kernel: {Bb} clips of {Tb} frames "
+                         f"(at most {max_tb} frames)")
+    if cs not in (1, 2, 4, 8) or cs > max_cs:
+        raise ValueError(f"fused_extras kernel: cluster of {cs} blocks")
+    if max_clusters < 1:
+        raise ValueError("fused_extras kernel: the card holds no cluster of "
+                         f"{cs} blocks")
+    ns = -(-D // slice_n)
+    clusters = min(max(ns, num_heads), max_clusters)
+    k_per_block = -(-D // (cs * 8)) * 8
+    BT = Bb * Tb
+    return {"cs": cs, "clusters": clusters, "blocks": cs * clusters,
+            "k_per_block": k_per_block,
+            "sub_chunks": -(-k_per_block // kc),
+            "row_tiles": -(-BT // rows),
+            "workspace_floats": (2 * BT * D + head_n * num_heads * BT
+                                 + 2 * BT * ns)}
+
+
+def _check_layout(lib) -> None:
+    """Raise unless the built library's layout is the plan's."""
+    if "fused_extras" in _layout_checked:
+        return
+    import ctypes
+    out = (ctypes.c_int * len(_EXTRAS_LAYOUT))()
+    lib.fused_extras_layout(out)
+    if tuple(out) != _EXTRAS_LAYOUT:
+        raise RuntimeError(f"fused_extras: the kernel's layout {tuple(out)} "
+                           f"is not the launch plan's {_EXTRAS_LAYOUT}")
+    _layout_checked.add("fused_extras")
+
+
+def _resident_clusters(lib, device, cs: int, w_bf16: bool) -> int:
+    key = (device.index, cs, w_bf16)
+    if key not in _max_clusters:
+        with torch.cuda.device(device):
+            n = lib.fused_extras_max_clusters(cs, int(w_bf16))
+        if n < 0:
+            raise RuntimeError(f"fused_extras: occupancy query failed: "
+                               f"{lib.cuda_error_string(-n).decode()}")
+        _max_clusters[key] = n
+    return _max_clusters[key]
 
 
 def fused_extras_cuda(cls: torch.Tensor, p, g_prompt: torch.Tensor, *,
@@ -101,7 +180,9 @@ def fused_extras_cuda(cls: torch.Tensor, p, g_prompt: torch.Tensor, *,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch csrc/fused_extras.cu on the current stream (no sync). cls
     (BT, D) bf16 or fp32, rows any stride; the five (D, D) weights all bf16
-    or all fp32, contiguous; the vectors and prompts of any float dtype."""
+    or all fp32, contiguous; the vectors and prompts of any float dtype.
+    The launch is cooperative: it raises when other work keeps the plan's
+    blocks from all being resident at once."""
     from ._cuda import load_library
     BT, D, G = _check_shapes(cls, g_prompt, Tb, num_heads, le_pad)
     a = p["summary_attn"]
@@ -129,31 +210,43 @@ def fused_extras_cuda(cls: torch.Tensor, p, g_prompt: torch.Tensor, *,
             raise ValueError(f"fused_extras kernel: contiguous 16-byte "
                              f"aligned ({D}, {D}) weights expected, got "
                              f"{tuple(w.shape)}")
-    if D % 4:
-        raise ValueError(f"fused_extras kernel: width {D} not a multiple "
-                         f"of 4")
-    if cls.stride(1) != 1:
+    # rows read four values a load: a stride of a multiple of 4, 16 bytes
+    # aligned
+    if cls.stride(1) != 1 or cls.stride(0) % 4 or cls.data_ptr() % 16:
         cls = cls.contiguous()
     bc, bq, bk, bv, bo = (_f32(l["bias"], (D,), "bias") for l in lins)
     lns = _f32(p["summary_ln"]["scale"], (D,), "summary_ln scale")
     lnb = _f32(p["summary_ln"]["bias"], (D,), "summary_ln bias")
     lp = _f32(p["local_prompts"], (Tb, D), "local_prompts")
     gp = _f32(g_prompt, (G, D), "global prompts")
-    e = torch.empty((BT, le_pad, D), dtype=cls.dtype, device=cls.device)
-    summary = torch.empty((BT, D), dtype=cls.dtype, device=cls.device)
+    dev = cls.device
+    e = torch.empty((BT, le_pad, D), dtype=cls.dtype, device=dev)
+    summary = torch.empty((BT, D), dtype=cls.dtype, device=dev)
     if BT:
         lib = load_library("fused_extras")
-        stream = torch.cuda.current_stream(cls.device).cuda_stream
+        _check_layout(lib)
+        w_bf16 = wdtype == torch.bfloat16
+        plan = fused_extras_plan(
+            BT // Tb, Tb, D, num_heads,
+            _resident_clusters(lib, dev, _EXTRAS_CS, w_bf16))
+        ws = torch.empty(plan["workspace_floats"], dtype=torch.float32,
+                         device=dev)
         wc, wq, wk, wv, wo = (w.data_ptr() for w in weights)
-        with torch.cuda.device(cls.device):
+        # the wrapper's host time is of the kernel's order: the stream and
+        # the current device are asked for the cheapest way
+        stream = torch._C._cuda_getCurrentRawStream(dev.index)
+        with (contextlib.nullcontext()
+              if dev.index == torch.cuda.current_device()
+              else torch.cuda.device(dev)):
             err = lib.fused_extras(
                 cls.data_ptr(), cls.stride(0), wc, bc.data_ptr(),
                 lns.data_ptr(), lnb.data_ptr(), wq, bq.data_ptr(), wk,
                 bk.data_ptr(), wv, bv.data_ptr(), wo, bo.data_ptr(),
                 lp.data_ptr(), gp.data_ptr(), e.data_ptr(),
-                summary.data_ptr(), BT // Tb, Tb, G, D, num_heads, le_pad,
-                int(wdtype == torch.bfloat16),
-                int(cls.dtype == torch.bfloat16), stream)
+                summary.data_ptr(), ws.data_ptr(), BT // Tb, Tb, G, D,
+                num_heads, le_pad, int(w_bf16),
+                int(cls.dtype == torch.bfloat16), plan["cs"],
+                plan["clusters"], stream)
         if err != 0:
             raise RuntimeError(
                 f"fused_extras kernel launch failed: "

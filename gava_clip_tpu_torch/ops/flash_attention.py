@@ -455,16 +455,15 @@ def packed_bwd_plan(B: int, Lq: int, H: int, sm_count: int) -> Dict:
             "smem_bytes": _BWD_FIXED_SMEM, "scratch_floats": grid * acc}
 
 
-def _check_bwd_layout(name: str, lib) -> None:
-    """Raise unless the built library's layout is the one packed_bwd_plan
-    computes with."""
+def _check_layout(name: str, lib, fn: str, want: Tuple[int, ...]) -> None:
+    """Raise unless the built library's layout (`fn`'s ints) is the one the
+    launch plan computes with."""
     if name in _bwd_layout_checked:
         return
     import ctypes
-    out = (ctypes.c_int * 3)()
-    lib.packed_attention_bwd_layout(out)
-    want = (_BWD_FIXED_SMEM, _BWD_ACC_FLOATS_PER_ROW, _BWD_MAX_SMEM)
-    if tuple(out) != want:
+    out = (ctypes.c_int * len(want))()
+    getattr(lib, fn)(out)
+    if tuple(out) != tuple(want):
         raise RuntimeError(f"{name}: the kernel's shared-memory layout "
                            f"{tuple(out)} is not the launch plan's {want}")
     _bwd_layout_checked.add(name)
@@ -483,7 +482,8 @@ def _packed_bwd_launch(name: str, q, k, v, do, extra, num_heads: int):
     dv = torch.empty((B, Lk, D), dtype=q.dtype, device=q.device)
     if B == 0 or Lq == 0 or Lk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    _check_bwd_layout(name, lib)
+    _check_layout(name, lib, "packed_attention_bwd_layout",
+                  (_BWD_FIXED_SMEM, _BWD_ACC_FLOATS_PER_ROW, _BWD_MAX_SMEM))
     plan = packed_bwd_plan(B, Lq, num_heads, torch.cuda.get_device_properties(
         q.device).multi_processor_count)
     scratch = None if plan["acc_in_smem"] else torch.empty(
@@ -561,10 +561,35 @@ def streaming_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     return out, lse
 
 
+# Launch plan of csrc/streaming_attention_bwd.cu: one launch of a block per
+# (batch row, head) while every query row and key of a head fits its shared
+# tiles, else the dq kernel and the dk/dv kernel. The three numbers are the
+# source's layout (`streaming_attention_bwd_layout`): the most query rows
+# and keys of the one-launch form, its dynamic shared bytes (q, do, k, v
+# tiles of 128 x 72 bf16, ds^T of 128 x 136 bf16, two floats a row) and
+# its threads a block.
+_SBWD_LAYOUT = (128, 109568, 256)
+
+
+def streaming_bwd_plan(B: int, Lq: int, Lk: int, H: int) -> Dict:
+    """The form of one call of the streaming backward: {'form': 'one_launch'
+    (1 launch, grid B * H) or 'two_kernels' (2 launches, grids of 64-row
+    tiles), 'launches', 'smem_bytes'}."""
+    rows, smem, _ = _SBWD_LAYOUT
+    if Lq <= rows and Lk <= rows:
+        return {"form": "one_launch", "launches": 1, "grid": B * H,
+                "smem_bytes": smem}
+    return {"form": "two_kernels", "launches": 2,
+            "grid": (-(-Lq // 64) * H * B, -(-Lk // 64) * H * B),
+            "smem_bytes": 0}
+
+
 def streaming_attention_bwd_cuda(q, k, v, do, o, lse, num_heads: int,
                                  causal: bool = False):
-    """Launch csrc/streaming_attention_bwd.cu (its dq kernel, then its
-    dk/dv kernel) on the current stream (no sync). Returns dq, dk, dv."""
+    """Launch csrc/streaming_attention_bwd.cu on the current stream (no
+    sync), in the form of `streaming_bwd_plan`. Returns dq, dk, dv."""
+    # launch-bound at the text shape, like the forward: the device, the
+    # stream and the current device are asked for once each
     from ._cuda import load_library
     _check_kernel_args(q, k, v, num_heads)
     B, Lq, D = q.shape
@@ -572,19 +597,24 @@ def streaming_attention_bwd_cuda(q, k, v, do, o, lse, num_heads: int,
     _check_bwd_args(q, do, o, lse, (B, num_heads, Lq))
     do, o, lse = do.contiguous(), o.contiguous(), lse.contiguous()
     lib = load_library("streaming_attention_bwd")
-    dq = torch.empty((B, Lq, D), dtype=q.dtype, device=q.device)
-    dk = torch.empty((B, Lk, D), dtype=q.dtype, device=q.device)
-    dv = torch.empty((B, Lk, D), dtype=q.dtype, device=q.device)
+    dev = q.device
+    dq = torch.empty((B, Lq, D), dtype=q.dtype, device=dev)
+    dk = torch.empty((B, Lk, D), dtype=q.dtype, device=dev)
+    dv = torch.empty((B, Lk, D), dtype=q.dtype, device=dev)
     if B == 0 or Lq == 0 or Lk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
+    _check_layout("streaming_attention_bwd", lib,
+                  "streaming_attention_bwd_layout", _SBWD_LAYOUT)
+    plan = streaming_bwd_plan(B, Lq, Lk, num_heads)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
         err = lib.streaming_attention_bwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             o.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), B, Lq, Lk, num_heads, D // num_heads,
             *_qkv_strides(q, k, v), (D // num_heads) ** -0.5, int(causal),
-            stream)
+            int(plan["form"] == "one_launch"), plan["smem_bytes"], stream)
     if err != 0:
         raise _launch_failed("streaming_attention_bwd", lib, err)
     launch_counts["streaming_attention_bwd"] += 1

@@ -2,7 +2,7 @@
 or a wrong bound: build deliberately broken copies of a kernel source and
 run the check phase of chip_smoke.py on each.
 
-    python3 -m gava_clip_tpu_torch.utils.kernel_mutants [b7 b5 b3 b4 mega]   # repo root, on a card
+    python3 -m gava_clip_tpu_torch.utils.kernel_mutants [b7 b5 b3 b4 b10 mega]   # repo root, on a card
 
 Each mutant is a copy of the package and of chip_smoke.py under
 `_scratch/mut_<name>/` (gitignored) with one source patched; the copy
@@ -28,6 +28,8 @@ _B7 = "gava_clip_tpu_torch/csrc/streaming_attention.cu"
 _B5 = "gava_clip_tpu_torch/csrc/w8a8_mlp.cu"
 _B4 = _B12
 _MEGA = "gava_clip_tpu_torch/csrc/mega_layer.cu"
+_B10 = "gava_clip_tpu_torch/csrc/fused_extras.cu"
+_B7B = "gava_clip_tpu_torch/csrc/attention_bwd.cuh"
 _ROUND = "__bfloat162float(__float2bfloat16({}))"
 # name -> (source, [(old, new)], chip_smoke phase, word that marks the
 # kernel's lines)
@@ -157,6 +159,55 @@ MUTANTS = {
                  "for (int c = lane; c < min(Hd, 1024) / 64; c += 32) m = "
                  "fmaxf(m, __ldcg(hm + c));")],
         "phase_mega", "mega_layer F="),
+    # B10: cls_proj's output rounded to bf16, as the stock branch rounds it
+    # (EXTRAS_MAX_DIFF_SHARE exists for this case)
+    "b10_cls_proj_bf16": (
+        _B10, [("          v = make_float4(v.x + b4.x, v.y + b4.y, v.z + b4.z, "
+                "v.w + b4.w);\n          *reinterpret_cast<float4*>(a.cp",
+                "          v = make_float4(v.x + b4.x, v.y + b4.y, v.z + b4.z, "
+                "v.w + b4.w);\n          v = make_float4(" + ", ".join(
+                    _ROUND.format(f"v.{c}") for c in "xyzw") + ");\n"
+                "          *reinterpret_cast<float4*>(a.cp")],
+        "phase_w8_kernels", "fused_extras Bb="),
+    # B7's one-launch backward: dv from the unrounded p (its bf16 rounding
+    # and the remainder, both through the product)
+    "b7b_dv_from_unrounded_p": (
+        _B7B, [("      uint32_t ea[4][4], dsa[4][4];",
+                "      uint32_t ea[4][4], dsa[4][4], er[4][4];"),
+               ("          ea[f / 2][(f % 2) * 2 + 1] = afrag::cvt_pack(p[2], "
+                "p[3]);     // key kr1\n",
+                "          ea[f / 2][(f % 2) * 2 + 1] = afrag::cvt_pack(p[2], "
+                "p[3]);     // key kr1\n"
+                "          er[f / 2][(f % 2) * 2] = afrag::cvt_pack(p[0] - "
+                "lo_f(ea[f / 2][(f % 2) * 2]), p[1] - hi_f(ea[f / 2][(f % 2) "
+                "* 2]));\n"
+                "          er[f / 2][(f % 2) * 2 + 1] = afrag::cvt_pack(p[2] - "
+                "lo_f(ea[f / 2][(f % 2) * 2 + 1]), p[3] - hi_f(ea[f / 2][(f % "
+                "2) * 2 + 1]));\n"),
+               ("          afrag::mma_chunk<kHD / 16>(dv, ea[kc], dos, c0 + kc, 0, "
+                "lane);   // dv += bf16(p)^T do\n",
+                "          afrag::mma_chunk<kHD / 16>(dv, ea[kc], dos, c0 + kc, 0, "
+                "lane);   // dv += bf16(p)^T do\n"
+                "          afrag::mma_chunk<kHD / 16>(dv, er[kc], dos, c0 + kc, 0, "
+                "lane);\n")],
+        "phase_train_kernels", "streaming_attention_bwd B="),
+    # B7's one-launch backward: dk from the unrounded ds (the same split)
+    "b7b_dk_from_unrounded_ds": (
+        _B7B, [("      uint32_t ea[4][4], dsa[4][4];",
+                "      uint32_t ea[4][4], dsa[4][4], dr[4][4];"),
+               ("          dsa[f / 2][(f % 2) * 2 + 1] = d23;\n",
+                "          dsa[f / 2][(f % 2) * 2 + 1] = d23;\n"
+                "          dr[f / 2][(f % 2) * 2] = afrag::cvt_pack(ds[0] - "
+                "lo_f(d01), ds[1] - hi_f(d01));\n"
+                "          dr[f / 2][(f % 2) * 2 + 1] = afrag::cvt_pack(ds[2] - "
+                "lo_f(d23), ds[3] - hi_f(d23));\n"),
+               ("          afrag::mma_chunk<kHD / 16>(dk, dsa[kc], qs, c0 + kc, 0, "
+                "lane);   // dk += ds^T q\n",
+                "          afrag::mma_chunk<kHD / 16>(dk, dsa[kc], qs, c0 + kc, 0, "
+                "lane);   // dk += ds^T q\n"
+                "          afrag::mma_chunk<kHD / 16>(dk, dr[kc], qs, c0 + kc, 0, "
+                "lane);\n")],
+        "phase_train_kernels", "streaming_attention_bwd B="),
 }
 
 

@@ -2,7 +2,8 @@
 variants of a kernel source (patched copies, as kernel_mutants.py does)
 and time each against the same yardstick, in turns.
 
-    python3 -m gava_clip_tpu_torch.utils.kernel_variants [b1 b9 b7 b5 b3 b4 mega]   # repo root, on a card
+    python3 -m gava_clip_tpu_torch.utils.kernel_variants [b1 b9 b7 b5 b3 b4 mega b10 b7b]   # repo root, on a card
+    python3 -m gava_clip_tpu_torch.utils.kernel_variants e2e   # the parent's tree against this one
 
 B1 / B6a (csrc/packed_attention.cu, the den entry) against
 F.scaled_dot_product_attention's forward at the two training shapes: the
@@ -31,7 +32,16 @@ products, AV products, the fp32 scratch round trip, the out-projection's
 products; wrong outputs). The whole-layer kernel (csrc/mega_layer.cu) at
 the tool's shape: the source as it is at several CTAs per frame row, one
 block an SM, and eight that stop after a phase to show where the time goes
-(wrong outputs).
+(wrong outputs). B10 (csrc/fused_extras.cu) at the serving shape and B7's
+causal backward (csrc/streaming_attention_bwd.cu) at the text tower's, each
+beside the parent commit's kernel built from its own source (`b10_parent`,
+`b7b_parent`, from the tree unpacked into `_scratch/parent/`) and the
+yardstick (the stock ops; SDPA's flash backward op), by CUDA events and in
+CUDA graphs: B10 at 8, 4 and 2 blocks a cluster, its stages cut off one by
+one, its attention, copied rows or q/k/v products left out, or two of the
+three TF32 products taken (wrong outputs); B7's backward in its one-launch
+and two-kernel forms, and with ex2.approx. `e2e` runs chip_smoke's serving
+and training phases of the parent's tree and of this one in turns.
 
 Each variant builds into `_scratch/variants/` (gitignored), is called
 through the real entry point's ctypes signature, is compared with the
@@ -44,6 +54,7 @@ import ctypes
 import os
 import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -55,9 +66,31 @@ _B5 = "gava_clip_tpu_torch/csrc/w8a8_mlp.cu"
 _B3 = "gava_clip_tpu_torch/csrc/w8a8_qkv.cu"
 _B4 = "gava_clip_tpu_torch/csrc/attention_out_int8.cu"
 _MEGA = "gava_clip_tpu_torch/csrc/mega_layer.cu"
+_B10 = "gava_clip_tpu_torch/csrc/fused_extras.cu"
+_B7B = "gava_clip_tpu_torch/csrc/streaming_attention_bwd.cu"
+_B7BH = "gava_clip_tpu_torch/csrc/attention_bwd.cuh"
 _LIB = {_PA: "packed_attention", _W8: "w8_matmul", _B7: "streaming_attention",
         _B5: "w8a8_mlp", _B3: "w8a8_qkv", _B4: "attention_out_int8",
-        _MEGA: "mega_layer"}
+        _MEGA: "mega_layer", _B10: "fused_extras",
+        _B7B: "streaming_attention_bwd", _B7BH: "streaming_attention_bwd"}
+# The parent commit's tree, for the kernels redesigned since: unpack it with
+# `git archive <parent> | tar -x -C _scratch/parent` before the call. Its
+# B10 and B7-backward sources are built as they are into the variants
+# `b10_parent` and `b7b_parent`, with the parent's own entry points.
+PARENT = os.path.join(ROOT, "_scratch", "parent")
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+_PARENT_SIGNATURES = {
+    # cls, cls row stride; Wc, bc, lns, lnb, Wq, bq, Wk, bk, Wv, bv, Wo, bo,
+    # lp, gp; e, summary; Bb, Tb, G, D, H, le_pad; weights bf16?,
+    # activations bf16?; stream
+    _B10: {"fused_extras": ([_VP, ctypes.c_longlong] + [_VP] * 16
+                            + [_I] * 8 + [_VP], _I)},
+    # q, k, v, do, o, lse, dq, dk, dv; B, Lq, Lk, H, Dh; q/k/v batch and row
+    # strides; scale; causal; stream
+    _B7B: {"streaming_attention_bwd_bf16": (
+        [_VP] * 9 + [_I] * 5 + [_I] * 6 + [ctypes.c_float, _I, _VP], _I)},
+}
+PARENT_VARIANTS = {"b10_parent": _B10, "b7b_parent": _B7B}
 # name -> (source, [(old, new)])
 VARIANTS = {
     "b1_as_is": (_PA, []),
@@ -210,6 +243,41 @@ VARIANTS = {
         "    }\n"
         "#pragma unroll\n"
         "    for (int i = 0; i < N / 2; ++i) acc[i] = i;")]),
+    "b10_as_is": (_B10, []),
+    # where B10's time goes (wrong outputs): the launch cut off after stage
+    # 1, after the first grid barrier, before and after the second; the
+    # attention or e's copied rows left out
+    "b10_cut_stage1": (_B10, [(
+        "  // stage 2's first weight tile, while the blocks meet",
+        "  return;\n  // stage 2's first weight tile, while the blocks meet")]),
+    "b10_cut_barrier1": (_B10, [(
+        "  // ---------------- stage 2: LayerNorm",
+        "  return;\n  // ---------------- stage 2: LayerNorm")]),
+    "b10_cut_stage2": (_B10, [(
+        "  // stage 3's first weight tile, while the blocks meet",
+        "  return;\n  // stage 3's first weight tile, while the blocks meet")]),
+    "b10_cut_barrier2": (_B10, [(
+        "  // ---------------- stage 3: out-projection",
+        "  return;\n  // ---------------- stage 3: out-projection")]),
+    "b10_no_attention": (_B10, [(
+        "  const int tid = threadIdx.x;\n  const float scale",
+        "  if (nc >= 0) return;\n  const int tid = threadIdx.x;\n  const float scale")]),
+    # (wrong outputs) stage 2's q/k/v products left out; the same with
+    # two of their three TF32 products (lo_a hi_b dropped)
+    "b10_no_qkv_products": (_B10, [(
+        "warp_gemm<kHeadN / 8, true, kWLo>(acc, A_s, W_s, ldw(kHeadN), (kn + 7) / 8 * 8,",
+        "warp_gemm<kHeadN / 8, true, kWLo>(acc, A_s, W_s, ldw(kHeadN), 0 * kn,")]),
+    "b10_qkv_two_products": (_B10, [(
+        "warp_gemm<kHeadN / 8, true, kWLo>(acc, A_s, W_s, ldw(kHeadN), (kn + 7) / 8 * 8,",
+        "warp_gemm<kHeadN / 8, false, kWLo>(acc, A_s, W_s, ldw(kHeadN), (kn + 7) / 8 * 8,")]),
+    "b10_no_copied_rows": (_B10, [(
+        "rl < BT * nl;\n", "rl < 0;\n")]),
+    "b7b_as_is": (_B7B, []),
+    # exp2 by one MUFU instruction (ex2.approx.ftz, as B1 and B7's forward
+    # take it) in place of exp2f, in both forms
+    "b7b_ex2f": (_B7BH, [
+        ("const float p = valid ? exp2f(s * c - stat) : 0.f;",
+         "const float p = valid ? afrag::ex2f(s * c - stat) : 0.f;")]),
     "mega_as_is": (_MEGA, []),
     # one block an SM (up to 255 registers a thread: no spills)
     "mega_1_block": (_MEGA, [("__launch_bounds__(kThreadsMega, 2)",
@@ -257,36 +325,86 @@ W8_SHAPES = ((25216, 768, 3072, "fc1"), (25216, 3072, 768, "fc2"))
 
 def _build(name):
     from gava_clip_tpu_torch.ops import _cuda
-    path, edits = VARIANTS[name]
-    with open(os.path.join(ROOT, path)) as f:
+    if name in PARENT_VARIANTS:
+        path, edits, root = PARENT_VARIANTS[name], [], PARENT
+        signatures = _PARENT_SIGNATURES[path]
+    else:
+        (path, edits), root = VARIANTS[name], ROOT
+        signatures = _cuda._SIGNATURES[_LIB[path]]
+    with open(os.path.join(root, path)) as f:
         src = f.read()
     for old, new in edits:
         if src.count(old) != 1:
             raise RuntimeError(f"{name}: {old!r} occurs {src.count(old)} "
                                f"times in {path}")
         src = src.replace(old, new)
-    d = os.path.join(ROOT, "_scratch", "variants")
+    # each variant in a directory of its own: a patched header there is the
+    # one its source's quoted #include finds first
+    d = os.path.join(ROOT, "_scratch", "variants", name)
     os.makedirs(d, exist_ok=True)
     cu, so = os.path.join(d, f"{name}.cu"), os.path.join(d, f"lib{name}.so")
+    if path.endswith(".cuh"):
+        with open(os.path.join(d, os.path.basename(path)), "w") as f:
+            f.write(src)
+        with open(os.path.join(root, os.path.dirname(path),
+                               _LIB[path] + ".cu")) as f:
+            src = f.read()
     with open(cu, "w") as f:
         f.write(src)
     res = subprocess.run([_cuda.find_nvcc(), *_cuda.NVCC_FLAGS, "-I",
-                          str(_cuda.CSRC), "-o", so, cu],
-                         capture_output=True, text=True)
+                          os.path.join(root, os.path.dirname(path)), "-o",
+                          so, cu], capture_output=True, text=True)
     if res.returncode:
         raise RuntimeError(f"nvcc failed for {name}:\n{res.stderr}")
     lib = ctypes.CDLL(so)
-    for fn, (argtypes, restype) in _cuda._SIGNATURES[_LIB[path]].items():
+    for fn, (argtypes, restype) in signatures.items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
     return name, lib
 
 
+# the paths that B10 and B7's backward sit on, end to end: chip_smoke's
+# phases up to the fused-extras w8a8 forward at batch 16, and its training
+# step at 16 x 8 (the lines of those phases are printed)
+E2E_PHASES = ("phase_device", "phase_build", "phase_slice",
+              "phase_w8a8_slice", "phase_w8a8_variants", "phase_train_slice")
+
+
+def e2e() -> int:
+    """The parent commit's tree (PARENT) and this one, each through
+    E2E_PHASES of its own chip_smoke.py in a process of its own, in turns:
+    parent, this tree, this tree, parent."""
+    code = ("import sys, torch\nsys.path.insert(0, '.')\n"
+            "import chip_smoke as cs\ncs.import_port()\n"
+            "torch.backends.cuda.matmul.allow_tf32 = False\n"
+            "torch.backends.cudnn.allow_tf32 = False\n"
+            "state = {'profile_dir': None}\n"
+            + "".join(f"cs.{ph}(state)\n" for ph in E2E_PHASES))
+    rc = 0
+    for label, tree in (("parent", PARENT), ("this tree", ROOT),
+                        ("this tree", ROOT), ("parent", PARENT)):
+        res = subprocess.run([sys.executable, "-c", code], cwd=tree,
+                             capture_output=True, text=True)
+        print(f"===== e2e, {label} ({tree}): exit code {res.returncode}",
+              flush=True)
+        for line in res.stdout.splitlines():
+            if line.startswith(("[device] nvidia-smi", "[w8a8-slice]",
+                                "[w8a8-variants]", "[train-slice]")):
+                print("    " + line[:600], flush=True)
+        if res.returncode:
+            print(res.stderr[-3000:], flush=True)
+            rc = 1
+    return rc
+
+
 def main(argv=None) -> int:
     """argv: name prefixes of the variants to build and time (all when
-    none is given), e.g. `b7 b5`."""
+    none is given), e.g. `b7 b5`; or `e2e` alone (see e2e)."""
     prefixes = tuple(sys.argv[1:] if argv is None else argv)
-    names = [n for n in VARIANTS if not prefixes or n.startswith(prefixes)]
+    if prefixes == ("e2e",):
+        return e2e()
+    names = [n for n in (*VARIANTS, *PARENT_VARIANTS)
+             if not prefixes or n.startswith(prefixes)]
     sys.path.insert(0, ROOT)
     import torch
     import chip_smoke as cs
@@ -299,7 +417,7 @@ def main(argv=None) -> int:
         libs = dict(ex.map(_build, names))
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
-    for B, Lq, Lk, H in ATTN_SHAPES if _any(libs, "b1") else ():
+    for B, Lq, Lk, H in ATTN_SHAPES if _any(libs, "b1_") else ():
         D = H * 64
         q, k, v = (torch.randn(B, L, D, generator=gen, device="cuda",
                                dtype=torch.bfloat16) for L in (Lq, Lk, Lk))
@@ -307,7 +425,7 @@ def main(argv=None) -> int:
         o = torch.empty_like(q)
         den = torch.empty(B, Lq, H, device="cuda")
         for name, lib in libs.items():
-            if not name.startswith("b1"):
+            if not name.startswith("b1_"):
                 continue
 
             def call(lib=lib):
@@ -351,7 +469,7 @@ def main(argv=None) -> int:
                   f"plain {share:.3e}; {r[0]:.4f} ms vs torch.matmul "
                   f"{r[1]:.4f} ms, ratio {r[2]:.3f} (rounds {r[3]:.3f}-"
                   f"{r[4]:.3f}) ({state['smi']})", flush=True)
-    if _any(libs, "b7"):
+    if _any(libs, "b7_"):
         _b7_variants(cs, fa, libs, gen, state)
     if _any(libs, "b5"):
         _b5_variants(cs, im, libs, gen, stream, state)
@@ -361,6 +479,10 @@ def main(argv=None) -> int:
         _b4_variants(cs, fa, im, libs, gen, stream, state)
     if _any(libs, "mega"):
         _mega_variants(cs, libs, state)
+    if _any(libs, "b10"):
+        _b10_variants(cs, libs, gen, state)
+    if _any(libs, "b7b"):
+        _b7b_variants(cs, fa, libs, gen, state)
     return 0
 
 
@@ -381,7 +503,7 @@ def _b7_variants(cs, fa, libs, gen, state):
         lse = torch.empty(B, H, L, device="cuda")
         sdpa = cs._sdpa_fwd(q, k, v, H, True)
         for name, lib in libs.items():
-            if not name.startswith("b7"):
+            if not name.startswith("b7_"):
                 continue
             def call(lib=lib):
                 # the current stream: a CUDA graph captures on its own
@@ -645,6 +767,278 @@ def _mega_variants(cs, libs, state):
                       f"{cs.cuda_time_ms(call, iters=10):.4f} ms "
                       f"({state['smi']})", flush=True)
         _turns_vs(cs, calls, "mega_as_is", state)
+
+
+# B10 at the serving path's shape: (Bb, Tb, D, heads, G, le_pad), bf16 cls
+# rows, fp32 weights
+B10_SHAPE = (16, 8, 768, 12, 8, 17)
+# B7's backward at the text tower's shape: (B, L, heads), causal
+B7B_SHAPE = (15, 77, 8)
+
+
+# blocks a cluster B10's source as it is is timed at (the plan's first)
+B10_CS = (8, 4, 2)
+
+
+def _kernels_per_call(call):
+    """The kernel launches of one call, by name, from a torch.profiler
+    trace of the device. The profiler's schedule takes one call to warm up
+    (a trace's first launch may be missed) and records the next."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    names = {}
+
+    def ready(prof):
+        for ev in prof.key_averages():
+            if ev.device_type.name == "CUDA" and ev.count:
+                names[ev.key[:48]] = ev.count
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=ready) as prof:
+        for _ in range(2):
+            call()
+            torch.cuda.synchronize()
+            prof.step()
+    return f"device kernels of one call: {names or 'none in the trace'}"
+
+
+def _graph_ms(cs, call):
+    """Device ms of one call: GRAPH_LAUNCHES calls in one CUDA graph,
+    replayed 5 times after a warm-up."""
+    return cs.cuda_time_ms(cs._graph_call(call), iters=5) / cs.GRAPH_LAUNCHES
+
+
+def _report_times(cs, label, calls, yard, yard_name, plain, bound, state):
+    """Each call of `calls` and the yardstick by CUDA events (host-launched,
+    20 calls) and in CUDA graphs; each call against the yardstick and
+    against the first call in turns in CUDA graphs (median of 7 rounds);
+    the plain version by events; the bound."""
+    names = list(calls)
+    for name in names + [yard_name]:
+        call = calls.get(name, yard)
+        print(f"[variants] {name} {label}: {cs.cuda_time_ms(call):.5f} ms by "
+              f"CUDA events, {_graph_ms(cs, call):.5f} ms in CUDA graphs "
+              f"of {cs.GRAPH_LAUNCHES} ({state['smi']})", flush=True)
+    for name in names:
+        r = cs._ratio_graphs(calls[name], yard)
+        print(f"[variants] {name} vs {yard_name} {label}, CUDA graphs, "
+              f"median of 7 rounds in turns: {r[0]:.5f} ms vs {r[1]:.5f} ms, "
+              f"ratio {r[2]:.3f} (rounds {r[3]:.3f}-{r[4]:.3f}) "
+              f"({state['smi']})", flush=True)
+        if name != names[0]:
+            r = cs._ratio_graphs(calls[name], calls[names[0]])
+            print(f"[variants] {name} vs {names[0]} {label}, CUDA graphs, "
+                  f"median of 7 rounds in turns: {r[0]:.5f} ms vs {r[1]:.5f} "
+                  f"ms, ratio {r[2]:.3f} (rounds {r[3]:.3f}-{r[4]:.3f}) "
+                  f"({state['smi']})", flush=True)
+    print(f"[variants] plain version {label}: {cs.cuda_time_ms(plain, iters=5):.5f}"
+          f" ms by CUDA events; bound {bound} ({state['smi']})", flush=True)
+
+
+def _b10_variants(cs, libs, gen, state):
+    """B10 at the serving shape: each variant, through its library's entry
+    point (the parent's own; the others at a cluster size of the plan),
+    against the plain version (largest |diff| of e and summary) and timed against the stock ops it
+    replaces, by CUDA events and in CUDA graphs."""
+    import torch
+    from gava_clip_tpu_torch.models.vision import VisionConfig, prompt_extras
+    from gava_clip_tpu_torch.ops import extras_kernel as ek
+    Bb, Tb, D, H, G, le_pad = B10_SHAPE
+    BT = Bb * Tb
+    p, gp = cs._extras_params(gen, Tb, D, G, torch.float32, 1.0)
+    x = torch.randn(BT, 5, D, generator=gen, device="cuda").to(torch.bfloat16)
+    cls = x[:, 0]
+    kw = dict(Tb=Tb, num_heads=H, le_pad=le_pad)
+    e_ref, s_ref = ek.fused_extras_plain(cls, p, gp, **kw)
+    cfg = VisionConfig(num_frames=Tb, feature_dim=D, heads=H,
+                       use_summary_token=True, use_local_prompts=True,
+                       use_global_prompts=True, num_global_prompts=G)
+
+    def stock():
+        extras, s_ = prompt_extras(p, gp, x, cfg)
+        return torch.cat(extras, dim=1), s_
+
+    calls = {}
+    for name, lib in sorted(libs.items(), key=lambda kv: kv[0] != "b10_parent"):
+        if not name.startswith("b10"):
+            continue
+        if name == "b10_parent":
+            forms = {name: _b10_call(lib, cls, p, gp, B10_SHAPE)}
+        else:
+            # the plan's 8 blocks a cluster, and 4 and 2 (K split over fewer
+            # blocks, fewer blocks in all)
+            forms = {f"{name}_cs{cs_}": _b10_call(
+                lib, cls, p, gp, B10_SHAPE, ek.fused_extras_plan(
+                    Bb, Tb, D, H, lib.fused_extras_max_clusters(cs_, 0), cs_))
+                for cs_ in (B10_CS if name == "b10_as_is" else (8,))}
+        for label, call in forms.items():
+            e, s_ = call()
+            torch.cuda.synchronize()
+            err = max((e.float() - e_ref.float()).abs().max().item(),
+                      (s_.float() - s_ref.float()).abs().max().item())
+            share = (e != e_ref).float().mean().item()
+            again = call()
+            torch.cuda.synchronize()
+            same = torch.equal(e, again[0]) and torch.equal(s_, again[1])
+            print(f"[variants] {label} Bb={Bb} Tb={Tb} D={D} H={H} G={G} "
+                  f"le_pad={le_pad}: max |diff| from plain {err:.3e}, outputs "
+                  f"of e != plain {share:.3e}; a second run the same bits: "
+                  f"{same}; {_kernels_per_call(call)} ({state['smi']})",
+                  flush=True)
+            calls[label] = call
+    # the wrapper as the serving path calls it (models/vision.py passes
+    # g_prompts[i], a new view every forward): its host time a call, 200
+    # calls back to back, against the kernel's device time in a graph
+    gps = gp[None].expand(2, G, D).contiguous()
+    for _ in range(20):
+        ek.fused_extras_cuda(cls, p, gps[1], **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        ek.fused_extras_cuda(cls, p, gps[1], **kw)
+    host_ms = (time.perf_counter() - t0) / 200 * 1e3
+    torch.cuda.synchronize()
+    print(f"[variants] fused_extras_cuda, the wrapper as the serving path "
+          f"calls it: {host_ms:.5f} ms of host time a call; the kernel "
+          f"{_graph_ms(cs, lambda: ek.fused_extras_cuda(cls, p, gp, **kw)):.5f}"
+          f" ms in CUDA graphs ({state['smi']})", flush=True)
+    wb, ab = 4, 2
+    fp32 = cs._bound(5 * D * D * wb + BT * D * ab * 2 + BT * le_pad * D * ab
+                     + 4 * (7 + Tb + G) * D,
+                     flops_fp32=2 * 5 * BT * D * D + 4 * Bb * Tb * Tb * D)
+    # the same products as 3xTF32 on the tensor cores: three TF32 products
+    # each, at 495 TFLOP/s
+    tf32 = 3 * 2 * 5 * BT * D * D / 495e12 * 1e3
+    _report_times(cs, f"Bb={Bb} Tb={Tb} D={D}", calls, stock, "stock ops",
+                  lambda: ek.fused_extras_plain(cls, p, gp, **kw),
+                  f"{fp32[0]:.5f} ms ({fp32[1]}, fp32); 3xTF32 products "
+                  f"{tf32:.5f} ms", state)
+
+
+def _b10_call(lib, cls, p, gp, shape, plan=None):
+    """A call of a B10 entry point with its arguments prepared once: the
+    parent's (plan None) or this tree's, launched by `plan`
+    (ops.extras_kernel.fused_extras_plan, fp32 weights)."""
+    import torch
+    Bb, Tb, D, H, G, le_pad = shape
+    a = p["summary_attn"]
+    lins = [p["cls_proj"]] + [a[n] for n in ("q", "k", "v", "out")]
+    ws = [l["kernel"].contiguous() for l in lins]
+    bs = [l["bias"].float().contiguous() for l in lins]
+    lns, lnb = (p["summary_ln"][n].float().contiguous()
+                for n in ("scale", "bias"))
+    lp = p["local_prompts"].reshape(Tb, D).float().contiguous()
+    gpc = gp.float().contiguous()
+    BT = Bb * Tb
+    if plan is None:
+        space, launch = (), ()
+    else:
+        space = (torch.empty(plan["workspace_floats"], device=cls.device),)
+        launch = (plan["cs"], plan["clusters"])
+
+    def call():
+        e = torch.empty((BT, le_pad, D), dtype=cls.dtype, device=cls.device)
+        s_ = torch.empty((BT, D), dtype=cls.dtype, device=cls.device)
+        err = lib.fused_extras(
+            cls.data_ptr(), cls.stride(0), ws[0].data_ptr(), bs[0].data_ptr(),
+            lns.data_ptr(), lnb.data_ptr(), ws[1].data_ptr(),
+            bs[1].data_ptr(), ws[2].data_ptr(), bs[2].data_ptr(),
+            ws[3].data_ptr(), bs[3].data_ptr(), ws[4].data_ptr(),
+            bs[4].data_ptr(), lp.data_ptr(), gpc.data_ptr(), e.data_ptr(),
+            s_.data_ptr(), *(t.data_ptr() for t in space), Bb, Tb, G, D, H,
+            le_pad, int(ws[0].dtype == torch.bfloat16),
+            int(cls.dtype == torch.bfloat16), *launch,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"fused_extras: launch failed ({err})")
+        return e, s_.reshape(Bb, Tb, D)
+    return call
+
+
+def _sdpa_flash_bwd(q, k, v, do, H, causal):
+    """The backward op that SDPA's flash backend runs, called directly on the
+    saved results of its forward (a yardstick only): unlike
+    torch.autograd.grad, a CUDA graph can capture it on any stream."""
+    import torch
+    B, L, D = q.shape
+
+    def heads(x):
+        return x.view(B, x.shape[1], H, D // H).transpose(1, 2)
+
+    qh, kh, vh, doh = (heads(x) for x in (q, k, v, do))
+    out, lse, cq, ck, mq, mk, seed, off = \
+        torch.ops.aten._scaled_dot_product_flash_attention(
+            qh, kh, vh, 0.0, causal)[:8]
+    return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        doh, qh, kh, vh, out, lse, cq, ck, mq, mk, 0.0, causal, seed, off)
+
+
+def _b7b_variants(cs, fa, libs, gen, state):
+    """B7's causal backward at the text tower's shape: each variant, through
+    its library's entry point (the parent's own; the others in a form),
+    against the plain version and timed against SDPA's backward, by CUDA
+    events and in CUDA graphs."""
+    import torch
+    B, L, H = B7B_SHAPE
+    D = H * 64
+    q, k, v, do = (torch.randn(B, L, D, generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    o, lse = fa.streaming_attention_plain(q, k, v, H, True)
+    ref = fa.streaming_attention_bwd_plain(q, k, v, do, o, lse, H, True)
+    calls = {}
+    for name, lib in sorted(libs.items(), key=lambda kv: kv[0] != "b7b_parent"):
+        if not name.startswith("b7b"):
+            continue
+
+        def launch(lib=lib, form=()):
+            g = [torch.empty_like(t) for t in (q, k, v)]
+            err = lib.streaming_attention_bwd_bf16(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                o.data_ptr(), lse.data_ptr(), *(t.data_ptr() for t in g),
+                B, L, L, H, 64, *fa._qkv_strides(q, k, v), 64 ** -0.5, 1,
+                *form, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"streaming_attention_bwd: launch failed "
+                                   f"({err})")
+            return g
+        # the parent's entry point has no form arguments; this tree's takes
+        # the plan's (form, shared bytes): 1 the one-launch form, 0 the two
+        # kernels
+        one = (1, fa.streaming_bwd_plan(B, L, L, H)["smem_bytes"])
+        forms = {name: launch} if name == "b7b_parent" else {
+            f"{name}_{label}": lambda form=form, run=launch: run(form=form)
+            for label, form in ((("one_launch", one), ("two_kernels", (0, 0)))
+                                if name == "b7b_as_is"
+                                else (("one_launch", one),))}
+        for label, call in forms.items():
+            grads = call()
+            torch.cuda.synchronize()
+            far = max(((g.float() - r.float()).abs()
+                       > 2 * cs.bf16_ulp(r)).float().mean().item()
+                      for g, r in zip(grads, ref))
+            diff = max((g != r).float().mean().item()
+                       for g, r in zip(grads, ref))
+            again = call()
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(grads, again))
+            print(f"[variants] {label} B={B} L={L} H={H} causal: outputs != "
+                  f"plain {diff:.3e}, > 2 ulp from plain {far:.3e} (worst of "
+                  f"dq, dk, dv); a second run the same bits: {same}; "
+                  f"{_kernels_per_call(call)} ({state['smi']})", flush=True)
+            calls[label] = call
+    bound = cs._attention_bounds(B, L, L, H, True)["bwd"]
+    print(f"[variants] SDPA backward through autograd B={B} L={L} H={H} "
+          f"causal: {cs.cuda_time_ms(cs._sdpa_bwd(q, k, v, do, H, True)):.5f}"
+          f" ms by CUDA events ({state['smi']})", flush=True)
+    _report_times(cs, f"B={B} L={L} H={H} causal", calls,
+                  _sdpa_flash_bwd(q, k, v, do, H, True),
+                  "SDPA flash backward (aten op)",
+                  lambda: fa.streaming_attention_bwd_plain(q, k, v, do, o,
+                                                           lse, H, True),
+                  f"{bound[0]:.5f} ms ({bound[1]})", state)
 
 if __name__ == "__main__":
     sys.exit(main())

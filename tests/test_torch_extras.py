@@ -77,6 +77,45 @@ def test_fused_extras_matches_jax_kernel(Bb, Tb, G, H, D, pad):
                                   np.broadcast_to(g, (Bb * Tb, G, D)))
 
 
+@pytest.mark.parametrize("le_pad", [17, 24])
+def test_fused_extras_matches_jax_kernel_at_serving_width(le_pad):
+    """ViT-B/16's width, the serving path's geometry (Bb 2 clips, Tb 8, G 8,
+    12 heads, D 768): the plain version (the CUDA kernel's reference on the
+    card) against the JAX kernel in interpret mode, fp32, with zero pad rows
+    at le_pad 24. Weights of std D^-0.5 keep the activations of order one;
+    the bound is chip_smoke's EXTRAS_TOL, 2e-5 of max(1, largest |output|):
+    only the order of the fp32 sums differs."""
+    rs = np.random.RandomState(13)
+    Bb, Tb, G, H, D = 2, 8, 8, 12, 768
+
+    def lin():
+        return {"kernel": rs.randn(D, D).astype(np.float32) * D ** -0.5,
+                "bias": rs.randn(D).astype(np.float32) * 0.02}
+
+    p = {"cls_proj": lin(),
+         "summary_ln": {"scale": 1 + 0.1 * rs.randn(D).astype(np.float32),
+                        "bias": rs.randn(D).astype(np.float32) * 0.02},
+         "summary_attn": {n: lin() for n in ("q", "k", "v", "out")},
+         "local_prompts": rs.randn(Tb, D).astype(np.float32) * 0.05}
+    g = rs.randn(G, D).astype(np.float32) * 0.05
+    cls = rs.randn(Bb * Tb, D).astype(np.float32)
+    kw = dict(Tb=Tb, num_heads=H, le_pad=le_pad)
+    e_j, s_j = jfused_extras(jnp.asarray(cls), _map(jnp.asarray, p),
+                             jnp.asarray(g), **kw)
+    tp = _map(torch.from_numpy, p)
+    tp["local_prompts"] = tp["local_prompts"][None]
+    e_t, s_t = tek.fused_extras_plain(torch.from_numpy(cls), tp,
+                                      torch.from_numpy(g), **kw)
+    assert e_t.shape == (Bb * Tb, le_pad, D) and s_t.shape == (Bb, Tb, D)
+    for got, want in ((_np(e_t), _np(e_j)), (_np(s_t), _np(s_j))):
+        tol = 2e-5 * max(1.0, np.abs(want).max())
+        assert np.abs(got - want).max() <= tol
+    le = G + 1 + Tb
+    assert (e_t[:, le:] == 0).all()
+    np.testing.assert_array_equal(_np(e_t[:, :G]),
+                                  np.broadcast_to(g, (Bb * Tb, G, D)))
+
+
 def test_fused_extras_bf16_inputs_match_jax_kernel():
     """bf16 cls rows and bf16 weights: cast up, fp32 arithmetic, outputs
     rounded once to bf16 on both sides: at most one bf16 ulp apart."""

@@ -227,6 +227,33 @@ def test_streaming_grads_match_jax_grad(case):
                                    err_msg=name)
 
 
+def test_streaming_grads_match_jax_grad_at_text_width():
+    """The text tower's width, where the CUDA backward takes its one-launch
+    form: B 1, L 77, 8 heads of 64, causal. The gradients of
+    `_StreamingAttention` (its backward on the CPU is
+    `streaming_attention_bwd_plain`, the kernel's reference on the card)
+    against jax.vjp of the JAX streaming path (the stock Pallas TPU kernels
+    in interpret mode) and of the reference, for the same upstream gradient
+    do; the tolerance against the stock kernel is the JAX package's own
+    (tests/test_flash_attention.py: atol 2e-3)."""
+    B, L, H, Dh = 1, 77, 8, 64
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _qkvdo(12, B, L, L, H, Dh,
+                                                  "float32")
+    ts = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    out = tflash._StreamingAttention.apply(*ts, H, True)
+    g_t = torch.autograd.grad(out, ts, tdo)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda a, b, c: jflash._streaming_flash(
+            a, b, c, H, True), jq, jk, jv)
+        g_j = vjp(jdo)
+    _, vjp_r = jax.vjp(lambda a, b, c: jflash._reference_attention(
+        a, b, c, H, causal=True), jq, jk, jv)
+    g_r = vjp_r(jdo)
+    for name, gt, gj, gr in zip("qkv", g_t, g_j, g_r):
+        np.testing.assert_allclose(_np(gt), _np(gj), atol=2e-3, err_msg=name)
+        np.testing.assert_allclose(_np(gt), _np(gr), atol=1e-4, err_msg=name)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_streaming_bwd_plain_rounding_points(dtype):
     """The explicit streaming backward: p and ds are cast to v's dtype

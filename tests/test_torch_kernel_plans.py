@@ -265,3 +265,134 @@ def test_profiled_symbols_are_kernels_of_the_sources():
         r"\s+(\w+)\(", text))
     missing = [s for s in chip_smoke.KERNEL_SYMBOLS if s not in kernels]
     assert not missing, (missing, sorted(kernels))
+
+
+# ---------------------------------------------------------------------------
+# the streaming attention backward (csrc/streaming_attention_bwd.cu,
+# attention_bwd.cuh) and the fused prompt extras (csrc/fused_extras.cu)
+# ---------------------------------------------------------------------------
+
+def test_streaming_bwd_layout_is_the_kernel_source_s():
+    """The plan's constants are the ones streaming_attention_bwd_layout
+    reports: the most rows of the one-launch form (8 warps of 16 keys), its
+    shared bytes (q, do, k, v tiles, ds^T, two floats a row) and threads."""
+    c = _cuda_constants("attention_common.cuh", "attention_bwd.cuh")
+    assert tfa._SBWD_LAYOUT == (c["kFRows"], c["kFSmemBytes"],
+                                c["kFThreads"])
+    rows = c["kFRows"]
+    assert c["kFSmemBytes"] == (4 * rows * c["kLDS"] * 2
+                                + rows * (rows + 8) * 2 + 2 * rows * 4)
+    assert c["kFSmemBytes"] <= _H100_SMEM_OPTIN
+
+
+@pytest.mark.parametrize("B,Lq,Lk,H,form", [
+    (15, 77, 77, 8, "one_launch"),      # the text tower (TRAIN_STREAM_SHAPES)
+    (4, 1024, 1024, 8, "two_kernels"),
+    (2, 130, 700, 2, "two_kernels"),
+    (3, 13, 21, 2, "one_launch"),
+    (2, 100, 60, 2, "one_launch"),
+    (2, 200, 200, 3, "two_kernels"),
+    (1, 128, 128, 1, "one_launch"),     # the layout's edge
+    (1, 129, 16, 1, "two_kernels"),
+    (1, 16, 129, 1, "two_kernels"),
+])
+def test_streaming_bwd_plan_at_checked_shapes(B, Lq, Lk, H, form):
+    """Every shape chip_smoke checks: one launch of a block per (row, head)
+    with the layout's shared bytes while every query row and key fits the
+    one-launch tiles, else the two kernels (two launches)."""
+    p = tfa.streaming_bwd_plan(B, Lq, Lk, H)
+    assert p["form"] == form
+    if form == "one_launch":
+        assert (p["launches"], p["grid"]) == (1, B * H)
+        assert p["smem_bytes"] == tfa._SBWD_LAYOUT[1]
+    else:
+        assert p["launches"] == 2 and p["smem_bytes"] == 0
+        assert p["grid"] == (-(-Lq // 64) * H * B, -(-Lk // 64) * H * B)
+
+
+def test_streaming_bwd_layout_check_before_first_launch():
+    """The wrapper holds the built library's layout against the plan's
+    before its first launch; another layout raises."""
+    fn, want = "streaming_attention_bwd_layout", tfa._SBWD_LAYOUT
+    tfa._bwd_layout_checked.discard("fake")
+    tfa._check_layout("fake", _FakeLayoutLib(fn, want), fn, want)
+    tfa._bwd_layout_checked.discard("fake")
+    bad = (want[0],) + (want[1] + 16,) + tuple(want[2:])
+    with pytest.raises(RuntimeError, match="layout"):
+        tfa._check_layout("fake", _FakeLayoutLib(fn, bad), fn, want)
+
+
+def test_fused_extras_layout_is_the_kernel_source_s():
+    """The plan's constants are fused_extras_layout's: the source's own,
+    and the shared bytes its smem_bytes<WT>() counts (A tile, weight tile
+    of the widest stage, partial tile, two floats a row)."""
+    from gava_clip_tpu_torch.ops import extras_kernel as tek
+    c = _cuda_constants("fused_extras.cu")
+    rows, kc, slice_n, head_n = (c["kRowsT"], c["kKC"], c["kSliceN"],
+                                 c["kHeadN"])
+    assert tek._EXTRAS_LAYOUT[:6] == (rows, kc, slice_n, head_n, c["kMaxTb"],
+                                      c["kMaxCS"])
+    for wbytes, want in ((4, tek._EXTRAS_LAYOUT[6]),
+                         (2, tek._EXTRAS_LAYOUT[7])):
+        assert want == (rows * c["kLDA"] * 4 + kc * (head_n + 8) * wbytes
+                        + rows * c["kLDP3"] * 4 + 2 * rows * 4)
+        assert want <= _H100_SMEM_OPTIN
+    # every thread takes whole groups of four A values
+    assert rows * (kc // 4) % c["kThreads"] == 0
+
+
+@pytest.mark.parametrize("Bb,Tb,D,H,fit,clusters,sub,tiles", [
+    (16, 8, 768, 12, 16, 12, 1, 1),     # the serving shape: 96 blocks
+    (16, 8, 768, 12, 10, 10, 1, 1),     # a card that holds fewer clusters
+    (4, 8, 768, 12, 16, 12, 1, 1),      # chip_smoke's EXTRAS_SHAPES
+    (3, 3, 40, 2, 16, 2, 1, 1),
+    (2, 5, 64, 4, 16, 4, 1, 1),
+    (20, 8, 1024, 16, 14, 14, 2, 2),    # and EXTRAS_TILED_SHAPES
+    (3, 40, 256, 4, 16, 4, 1, 1),
+])
+def test_fused_extras_plan_at_checked_shapes(Bb, Tb, D, H, fit, clusters,
+                                             sub, tiles):
+    """A cluster per 64-column slice and per head, at most as many as the
+    card holds at once (the stages meet at grid-wide barriers); K split
+    over the cluster's 8 blocks in sub-chunks of 96; 128-row tiles; the
+    workspace holds cp, the attention output, every head's q, k, v and two
+    statistics per (row, slice)."""
+    from gava_clip_tpu_torch.ops import extras_kernel as tek
+    p = tek.fused_extras_plan(Bb, Tb, D, H, fit)
+    assert (p["cs"], p["clusters"], p["blocks"]) == (8, clusters,
+                                                     8 * clusters)
+    assert (p["sub_chunks"], p["row_tiles"]) == (sub, tiles)
+    # K values of a block: D / 8 rounded up to a whole mma step of 8
+    assert p["k_per_block"] == -(-D // 64) * 8
+    BT, ns = Bb * Tb, -(-D // 64)
+    assert p["workspace_floats"] == 2 * BT * D + 192 * H * BT + 2 * BT * ns
+
+
+@pytest.mark.parametrize("args", [
+    (16, 8, 768, 6, 16),        # heads of 128 values
+    (16, 8, 36, 6, 16),         # heads of 6 values (not a multiple of 4)
+    (16, 8, 770, 10, 16),       # a width not a multiple of 4
+    (2, 65, 768, 12, 16),       # clips of more than 64 frames
+    (16, 8, 768, 12, 0),        # a card that holds no cluster
+])
+def test_fused_extras_plan_raises_for_shapes_it_cannot_take(args):
+    from gava_clip_tpu_torch.ops import extras_kernel as tek
+    with pytest.raises(ValueError):
+        tek.fused_extras_plan(*args)
+    with pytest.raises(ValueError):
+        tek.fused_extras_plan(16, 8, 768, 12, 16, cs=3)
+
+
+def test_fused_extras_stages_meet_at_a_cooperative_grid_barrier():
+    """Every launch of B10 is cooperative (the driver refuses it unless
+    every block of the plan can be resident at once) and its stages meet at
+    cooperative groups' grid barrier: there is no counter of the kernel's
+    own, so no launch shares state with another."""
+    import re
+    src = (_CSRC / "fused_extras.cu").read_text()
+    code = re.sub(r"//[^\n]*", "", src)
+    assert code.count("cudaLaunchAttributeCooperative") == 1
+    assert "cudaLaunchKernelEx(&l.cfg" in code
+    assert "cg::this_grid()" in code
+    assert "grid.barrier_arrive()" in code and "grid.sync()" in code
+    assert "atomic" not in code
