@@ -28,7 +28,8 @@ The w8a8 path gets the same three checks:
           the serving shapes and ragged ones, with CUDA-event times of both
           (limits in W8A8_LIMITS); w8a8_matmul also at rows longer than the
           1,024 values a warp holds in registers (the text MLP's fc2, 1,155
-          x 2,048, and a ragged K), bit for bit; w8a8_matmul3_cat also
+          x 2,048, and a ragged K) and at the text tower's out-projection
+          and fc1 (1,155 x 512), bit for bit; w8a8_matmul3_cat also
           against three w8a8_matmul launches on its rows, and
           attention_out_int8 against packed_attention then w8a8_matmul,
           each in turns, and the int8 product of each alone through
@@ -114,8 +115,9 @@ The remaining serving modes:
           (MEGA_LIMITS), the tool's gate (mega against B3a + B4 + B5 through
           their kernels, rel < 2e-2) at its shape and draws, the kernel,
           plain version and that composition timed in turns at 64 and 128
-          frame rows, then the tool's entry point (--parity, timing) with
-          its launches counted;
+          frame rows, one CTA a frame row against the plan's cluster bit for
+          bit, then the tool's entry point (--parity, timing) with its
+          launches counted;
   w8-slice     VideoClassifier(quantize="w8") at batch 16: 72 int8_matmul
           and 12 packed_attention launches per forward, the logits against
           the same forward through the plain versions and against the bf16
@@ -310,10 +312,12 @@ def phase_build(state):
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
-    # B9, B5, B3 and B4 are wgmma kernels: their machine code must hold
-    # GMMA instructions (HGMMA for bf16, IGMMA for int8)
+    # B9, B2, B5, B3, B4 and the whole-layer kernel are wgmma kernels:
+    # their machine code must hold GMMA instructions (HGMMA for bf16, IGMMA
+    # for int8)
     cuobjdump = os.path.join(os.path.dirname(_cuda.find_nvcc()), "cuobjdump")
-    for lib in ("w8_matmul", "w8a8_mlp", "w8a8_qkv", "attention_out_int8"):
+    for lib in ("w8_matmul", "w8a8_matmul", "w8a8_mlp", "w8a8_qkv",
+                "attention_out_int8", "mega_layer"):
         sass = subprocess.run(
             [cuobjdump, "-sass", _cuda.build_info[lib]["so"]],
             capture_output=True, text=True, check=True).stdout
@@ -444,14 +448,17 @@ MEGA_SHAPES = ((64, 197, 17, 768, 3072, 12), (128, 197, 17, 768, 3072, 12),
 # the tile, odd N, K not a multiple of 64, Le = 0, lq < Lkv). B2 also takes
 # rows longer than the 1,024 values a warp holds in registers: the text
 # MLP's fc2 (15 prompts x 77 tokens, K = 2,048, N = 512), a ragged K, and
-# rows too long for 64 rows of codes in shared memory (32 and 16 per block).
+# rows too long for 64 rows of codes in shared memory (16 and 8 per block),
+# and the w8a8 text tower's out-projection and fc1 ("text": normal
+# activations, on a generator of their own, after the other checks).
 # Its inputs: raw pixels at the patch embed, else normal activations, whose
 # absmax sits anywhere in the row (a kernel that took the absmax of the
 # first 1,024 values only would wrap codes past 127 in about half the rows)
 W8A8_MATMUL_SHAPES = ((25088, 768, 768, "pixels"), (37, 768, 77, "pixels"),
                       (45, 100, 33, "pixels"), (1155, 2048, 512, "normal"),
                       (37, 1100, 77, "normal"), (37, 4096, 77, "normal"),
-                      (19, 8000, 40, "normal"))
+                      (19, 8000, 40, "normal"), (1155, 512, 512, "text"),
+                      (1155, 512, 2048, "text"))
 W8A8_QKV_SHAPES = ((128, 197, 17, 768, 768), (3, 13, 5, 96, 40),
                    (4, 21, 0, 768, 768), (2, 9, 0, 64, 19))
 # (B, lq, Lq rows of q, Lk, H)
@@ -639,10 +646,24 @@ def phase_w8a8_kernels(state):
             lambda: im.w8a8_matmul_plain(x, kern, b), unit, first,
             _bound(2 * M * K + K * N + 8 * N + 2 * M * N,
                    ops_int8=2 * M * K * N))
+        if first:
+            # the int8 product alone through torch._int_mm (a yardstick: no
+            # quant, no epilogue), and the kernel's device time in a graph
+            mm = _int_mm_ms(torch.Generator(device="cuda").manual_seed(8), M,
+                            K, kern["qa_t"])
+            graph = cuda_time_ms(_graph_call(
+                lambda: im.w8a8_matmul_cuda(x, kern, b)),
+                iters=5) / GRAPH_LAUNCHES
+            state["kstats"]["w8a8_matmul"]["yardsticks"] = {
+                "int_mm_ms": mm, "graph_ms": graph}
+            log(f"[w8a8] w8a8_matmul M={M} K={K} N={N}: {graph:.5f} ms a "
+                f"launch in a CUDA graph of {GRAPH_LAUNCHES}; the int8 "
+                f"product alone through torch._int_mm {mm:.4f} ms "
+                f"({state['smi']})")
 
     # the rows of at most 1,024 values first, on the generator the checks
     # below draw from; the long rows last, on one of their own
-    short = [s for s in W8A8_MATMUL_SHAPES if s[1] <= 1024]
+    short = [s for s in W8A8_MATMUL_SHAPES if s[1] <= 1024 and s[3] != "text"]
     for i, shape in enumerate(short):
         b2_check(*shape, gen, i == 0)
 
@@ -757,6 +778,10 @@ def phase_w8a8_kernels(state):
             b2_check(*shape, gen_long, False)
     for shape in W8A8_MLP_LONG_SHAPES:
         b5_check(*shape, gen_long, False)
+    gen_text = torch.Generator(device="cuda").manual_seed(7)
+    for shape in W8A8_MATMUL_SHAPES:
+        if shape[3] == "text":
+            b2_check(*shape, gen_text, False)
     # B5's QuickGELU takes its reciprocal without the division's slow path:
     # it must be the IEEE reciprocal for every d in [1, 2^126)
     from gava_clip_tpu_torch.ops._cuda import load_library
@@ -2267,16 +2292,18 @@ def phase_mega(state):
         if not ok:
             state.setdefault("mega_failures", []).append(label)
         del y32, ref, err, ulp, unit
+        # the plan spreads a frame row over a cluster of CTAs (two at the
+        # tool's shape); one CTA a frame row, taking all its tiles, must
+        # give the same bits
+        one = tool.mega_layer_cuda(x, e, *params, heads=heads, split=1)
+        same = torch.equal(one, out)
+        log(f"[mega] mega_layer {label}: one CTA a frame row equal to "
+            f"the plan's cluster bit for bit: {same} "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            state.setdefault("mega_failures", []).append(f"split {label}")
+        del one
         if i == 2:
-            # the plan spreads a frame row over a cluster of CTAs; one CTA a
-            # frame row must give the same bits
-            one = tool.mega_layer_cuda(x, e, *params, heads=heads, split=1)
-            same = torch.equal(one, out)
-            log(f"[mega] mega_layer {label}: one CTA a frame row equal to "
-                f"the plan's cluster bit for bit: {same} "
-                f"{'ok' if same else 'FAIL'}")
-            if not same:
-                state.setdefault("mega_failures", []).append(f"split {label}")
             continue
         # the tool's gate: mega against the serving composition, both
         # through their kernels

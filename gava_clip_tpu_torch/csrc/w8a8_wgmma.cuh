@@ -1,6 +1,6 @@
 // The pieces of the TMA-fed wgmma w8a8 kernels for Hopper (sm_90a) that
-// more than one of them uses (w8a8_qkv.cu, w8a8_mlp.cu,
-// attention_out_int8.cu):
+// more than one of them uses (w8a8_matmul.cu, w8a8_qkv.cu, w8a8_mlp.cu,
+// attention_out_int8.cu, mega_layer.cu):
 //   * the block's int8 code tile: BM rows of Kp = round_up(K, 128) codes,
 //     k-major and 128-byte swizzled as wgmma wants its B operand (byte k of
 //     row rr sits in k-chunk k / 128, its 16-byte piece XOR rr % 8), and
@@ -11,6 +11,8 @@
 //   * the product of one consumer warpgroup's 64-row W^T slab with the code
 //     tile over K, its slabs arriving by TMA through an mbarrier ring of its
 //     own, one wgmma group in flight while the previous stage is released;
+//   * the bf16 epilogue of a transposed tile through a per-warp staging tile
+//     in 16-byte stores (w8a8_matmul.cu, mega_layer.cu);
 //   * the tensor map of a row-major int8 matrix in 128-byte swizzled boxes.
 // The kernels compute transposed tiles, y^T = W^T c^T: A is a 64-row slab of
 // W^T, B the block's rows, and the accumulator acc[4c + 2h + e] of thread
@@ -75,6 +77,34 @@ __device__ __forceinline__ void named_sync(int id, int count) {
 template <int N>
 __device__ __forceinline__ void wgmma_ss(int (&d)[N / 2], uint64_t da, uint64_t db,
                                          int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<8>(int (&d)[4], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 "
+      "{%0, %1, %2, %3}, %4, %5, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(int (&d)[8], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
 template <>
 __device__ __forceinline__ void wgmma_ss<32>(int (&d)[16], uint64_t da, uint64_t db,
@@ -265,6 +295,84 @@ __device__ __forceinline__ void ring_product(int (&acc)[BM / 2], const unsigned 
   fence_regs(acc);
   __syncwarp();
   if (lane == 0) mbar_arrive(&empty[prev]);
+}
+
+// bytes of one warp's staging tile of store_tile_bf16: 32 rows x 16 bf16
+constexpr int kWarpStageBytes = 32 * 32;
+
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(hi))) << 16);
+}
+
+// The epilogue of one warp's 16 columns of a transposed tile (acc[4c + 2h +
+// e] = out^T[col0 + g + 8h][row 8c + 2t + e], thread g * 4 + t of the warp):
+//   y[m0 + row][col0 + j] = bf16(((float)acc * xs[row]) * s[col] + b[col])
+// (b null adds 0, as the plain version's zero bias does). A lane pair swaps
+// one value so that each thread holds two neighbouring columns of one row;
+// the pairs go through the warp's staging tile `wst` (32 rows x 32 bytes,
+// the two 16-byte halves of a row swapped in every second group of four
+// rows, so that neither the 4-byte writes nor the 16-byte reads meet a bank
+// twice) and leave it as 16-byte stores, 32 rows at a time: the 32 bytes of
+// a row fill one sector. Rows from M and columns from N are not written;
+// other than 16 whole columns of a y with N % 8 == 0 at a 16-byte aligned
+// base go out 2 bytes at a time.
+template <int BM>
+__device__ __forceinline__ void store_tile_bf16(const int (&acc)[BM / 2], const float* xs,
+                                                const float* __restrict__ s,
+                                                const float* __restrict__ b,
+                                                __nv_bfloat16* __restrict__ y, int m0,
+                                                int col0, int M, int N, unsigned char* wst,
+                                                int lane) {
+  constexpr int kRows = BM < 32 ? BM : 32;   // rows staged at a time
+  const int g = lane >> 2, t = lane & 3, odd = g & 1;
+  float sa[2], ba[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int col = col0 + g + 8 * h;
+    sa[h] = col < N ? s[col] : 0.f;
+    ba[h] = col < N && b != nullptr ? b[col] : 0.f;
+  }
+  const bool vec = N % 8 == 0 && col0 + 16 <= N && aligned16(y);
+#pragma unroll
+  for (int r0 = 0; r0 < BM; r0 += kRows) {
+#pragma unroll
+    for (int cc = 0; cc < kRows / 8; ++cc) {
+      const int c = r0 / 8 + cc;
+      const float x0 = xs[8 * c + 2 * t], x1 = xs[8 * c + 2 * t + 1];
+      const int lr = 8 * cc + 2 * t + odd;   // this thread's row of the staging tile
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float v0 = epilogue(acc[4 * c + 2 * h], x0, sa[h], ba[h]);
+        const float v1 = epilogue(acc[4 * c + 2 * h + 1], x1, sa[h], ba[h]);
+        const float other = __shfl_xor_sync(0xffffffffu, odd ? v0 : v1, 4);
+        const float lo = odd ? other : v0, hi = odd ? v1 : other;
+        // columns (g - odd) + 8h and the next: word g / 2 of half h
+        *reinterpret_cast<uint32_t*>(wst + lr * 32 + ((h ^ ((lr >> 2) & 1)) << 4) +
+                                     (g >> 1) * 4) = bf16_pair(lo, hi);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < (kRows + 15) / 16; ++i) {
+      const int lr = 16 * i + (lane >> 1), hl = lane & 1, m = m0 + r0 + lr;
+      if (lr < kRows && m < M) {
+        const uint4 v = *reinterpret_cast<const uint4*>(wst + lr * 32 +
+                                                        ((hl ^ ((lr >> 2) & 1)) << 4));
+        __nv_bfloat16* dst = y + static_cast<long long>(m) * N + col0 + 8 * hl;
+        if (vec) {
+          *reinterpret_cast<uint4*>(dst) = v;
+        } else {
+          const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (col0 + 8 * hl + j < N)
+              dst[j] = __ushort_as_bfloat16(static_cast<unsigned short>(w[j / 2] >> (16 * (j & 1))));
+        }
+      }
+    }
+    __syncwarp();
+  }
 }
 
 // a map of the row-major int8 matrix (rows, cols) in boxes of 128 bytes x

@@ -79,8 +79,12 @@ _SIGNATURES = {
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "w8a8_matmul": {
-        # x, W, s, b, y; M, K, N; stream
-        "w8a8_matmul_bf16": ([_VP] * 5 + [_I] * 3 + [_VP], _I),
+        # x, W, s, b, y; M, K, N; the launch plan (rows per block, units
+        # per block, ring stages, shared bytes); stream
+        "w8a8_matmul_bf16": ([_VP] * 5 + [_I] * 7 + [_VP], _I),
+        # the plan's constants and the device's shared-memory limit: six
+        # ints
+        "w8a8_matmul_layout": ([ctypes.POINTER(_I)], None),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "w8a8_qkv": {

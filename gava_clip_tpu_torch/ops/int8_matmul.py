@@ -213,9 +213,8 @@ def _ptr(t):
 
 def kernel_layout(w: torch.Tensor) -> torch.Tensor:
     """The int8 weight (K, N) as W^T (N, K) with k contiguous: the layout
-    from which the w8a8 GEMM loads its mma B fragments straight from device
-    memory (csrc/w8a8_common.cuh gemm_direct) and the fused w8a8 kernels
-    their W^T slabs by TMA (csrc/w8a8_wgmma.cuh)."""
+    from which the w8a8 kernels load their W^T slabs by TMA
+    (csrc/w8a8_wgmma.cuh)."""
     return w.t().contiguous()
 
 
@@ -309,8 +308,16 @@ def w8a8_matmul_cuda(x, kernel, bias=None):
     b = None if bias is None else _f32_vec(bias, N, "bias")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M:
+        from ._cuda import load_library
+        plan = w8a8_matmul_plan(
+            M, K, N,
+            torch.cuda.get_device_properties(x.device).multi_processor_count,
+            smem_limit(load_library("w8a8_matmul"), "w8a8_matmul_layout",
+                       _B2_LAYOUT, x.device))
         _launch("w8a8_matmul", "w8a8_matmul_bf16", x.device, x.data_ptr(),
-                wt.data_ptr(), s.data_ptr(), _ptr(b), out.data_ptr(), M, K, N)
+                _tma_rows(wt).data_ptr(), s.data_ptr(), _ptr(b),
+                out.data_ptr(), M, K, N, plan["rows"], plan["units"],
+                plan["stages"], plan["smem_bytes"])
         launch_counts["w8a8_matmul"] += 1
     return out
 
@@ -381,6 +388,19 @@ _MLP_ROWS = (192, 64)
 _QKV_LAYOUT = (8192, 8, 128, 256)
 _QKV_ROWS = (128, 64, 32)
 _QKV_MIN_STAGES = 3
+# the w8a8 GEMM's launch plan (csrc/w8a8_matmul.cu): bytes of one consumer
+# warpgroup's ring stage (64 W^T rows x 128 k), most stages per ring, output
+# columns per unit, bytes of the epilogue's staging tiles, the kernel's
+# static shared bytes; rows per block (the wgmma N), largest first; the
+# most rows a plan takes when no tile size gives every SM a block
+_B2_LAYOUT = (8192, 8, 128, 8192, 256)
+_B2_ROWS = (192, 128, 64, 32, 16, 8)
+_B2_SMALL_ROWS = 32
+# the tile the plan takes where those tiles give every SM but at most one a
+# block (measured on an H100 at the patch embed, 25,088 x 768 -> 768, in
+# CUDA graphs: 192 rows 0.0616 ms, 64 rows two blocks an SM 0.0693, 128
+# rows 0.0841; utils/kernel_variants.py b2)
+_B2_WIDE_ROWS = 192
 # shared memory of one SM of an sm_90 card, and what the card reserves for
 # each block beside its own bytes: two blocks of at most 64 rows share an SM
 # where both fit
@@ -474,6 +494,69 @@ def w8a8_qkv_plan(M: int, K: int, N: int, sm_count: int,
     splits = [d for d in range(1, total + 1) if total % d == 0]
     split = next((d for d in splits if tiles * d >= sm_count), total)
     return {"rows": rows, "units": total // split, "grid": (tiles, split),
+            "blocks": tiles * split, "per_sm": per_sm, "stages": stages,
+            "smem_bytes": smem(rows, stages)}
+
+
+def w8a8_matmul_plan(M: int, K: int, N: int, sm_count: int,
+                     smem_limit: int, rows: Optional[int] = None,
+                     units: Optional[int] = None) -> Dict:
+    """Launch plan of the w8a8 GEMM on a card of `sm_count` SMs whose blocks
+    may have `smem_limit` shared bytes: {'rows' (per block, the wgmma N),
+    'units' (128-column slabs of W^T per block), 'grid' (row tiles, unit
+    groups), 'blocks', 'per_sm' (blocks an SM holds at once), 'stages' (of
+    each weight ring), 'smem_bytes'}. A block keeps its rows' K codes in
+    shared memory; the rest goes to the weight rings, as deep as it allows
+    (up to 8 stages), and a tile of at most 64 rows keeps two blocks on an SM
+    where two fit with 3 stages each. The rows, in the order measured
+    fastest on an H100: 192 where those tiles alone give every SM but at
+    most one a block (the patch embed at batch 16: 131 tiles), else 32 (or
+    the most that fit below it); the ceil(N / 128) units are then shared out
+    over the most groups whose blocks still run in one wave (the text
+    tower's 1,155 rows: 37 tiles of 32 x 4 groups, two blocks to an SM, at
+    K = 512; x 2 groups, one block to an SM, at K = 2,048). `rows`
+    and `units` take a form other than the plan's (utils/kernel_variants.py
+    times them). Raises for rows too long for even 8 of them, or for a
+    `rows` that does not fit."""
+    if min(M, K, N) <= 0:
+        raise ValueError(f"w8a8 GEMM plan: M={M}, K={K}, N={N}")
+    slab, max_stages, unit_cols, stage_bytes, static = _B2_LAYOUT
+    kp = _round_up(K, 128)
+
+    def smem(rows, stages):
+        return 1024 + rows * kp + 2 * stages * slab + stage_bytes + 4 * rows
+
+    def form(rows):
+        """(stages, blocks per SM) of a tile of `rows`, or None."""
+        for per_sm in ((2, 1) if rows <= 64 else (1,)):
+            room = min(smem_limit, _SM90_SMEM_PER_SM // per_sm
+                       - _BLOCK_RESERVED_SMEM) - static
+            stages = min(max_stages, (room - smem(rows, 0)) // (2 * slab))
+            if stages >= _QKV_MIN_STAGES:
+                return stages, per_sm
+        return None
+
+    fits = {r: form(r) for r in _B2_ROWS if form(r)}
+    if not fits:
+        raise ValueError(f"w8a8 GEMM: rows of K={K} do not fit the kernel's "
+                         f"shared-memory code tile ({smem_limit} bytes a "
+                         f"block)")
+    small = max(r for r in fits if r <= _B2_SMALL_ROWS)
+    enough = sm_count - 1   # blocks: every SM but at most one has one
+    if rows is None:
+        wide = _B2_WIDE_ROWS in fits and -(-M // _B2_WIDE_ROWS) >= enough
+        rows = _B2_WIDE_ROWS if wide else small
+    elif rows not in fits:
+        raise ValueError(f"w8a8 GEMM: {rows} rows of K={K} do not fit")
+    stages, per_sm = fits[rows]
+    tiles = -(-M // rows)
+    total = -(-N // unit_cols)
+    if units is None:
+        splits = [d for d in range(1, total + 1) if total % d == 0
+                  and tiles * d <= per_sm * sm_count]
+        units = total // max(splits, default=1)
+    split = -(-total // units)
+    return {"rows": rows, "units": units, "grid": (tiles, split),
             "blocks": tiles * split, "per_sm": per_sm, "stages": stages,
             "smem_bytes": smem(rows, stages)}
 

@@ -182,22 +182,26 @@ def mega_layer_plain(x, extras, attn_p, mlp_p, ln1, ln2, heads=HEADS):
 # ---------------------------------------------------------------------------
 
 # the kernel's limits (csrc/mega_layer.cu): head dim, most keys of a frame
-# row (a whole score row is held per head), most values of a quantized row
-# in registers, CTAs a frame row may be split over (one cluster)
-_HEAD_DIM, _MAX_KEYS, _MAX_ROW, _MAX_SPLIT = 64, 256, 1024, 8
+# row (two tiles of 128; a whole score row is held per head), most values of
+# a quantized row in registers, rows of a tile
+_HEAD_DIM, _MAX_KEYS, _MAX_ROW, _TILE = 64, 256, 1024, 128
 
 
-def mega_layer_plan(frames: int, sm_count: int) -> Dict:
+def mega_layer_plan(frames: int, sm_count: int, lx: int = Lx,
+                    le: int = Lext) -> Dict:
     """Launch plan of csrc/mega_layer.cu: {'split': CTAs per frame row (one
-    thread-block cluster, sharing the row's work phase by phase), 'grid':
-    (split, frames)}. Two CTAs fit an SM, so a frame row takes as many as
-    fill two per SM, at least one and at most 8 (the portable cluster
-    size)."""
-    if frames <= 0 or sm_count <= 0:
+    thread-block cluster), 'grid': (split, frames), 'tiles': the frame
+    row's kv and query tiles of up to 128 rows, (ceil((lx + le) / 128),
+    ceil(lx / 128))}. CTA r of a cluster takes the tiles r, r + split, ..
+    of each kind; one CTA fits an SM. A frame row takes as many CTAs as it
+    has tiles (2 at the tool's shape) where every CTA of the grid then has
+    an SM of its own, else one."""
+    if frames <= 0 or sm_count <= 0 or lx <= 0 or le < 0:
         raise ValueError(f"mega layer plan: frames={frames}, "
-                         f"sm_count={sm_count}")
-    split = max(1, min(_MAX_SPLIT, 2 * sm_count // frames))
-    return {"split": split, "grid": (split, frames)}
+                         f"sm_count={sm_count}, lx={lx}, le={le}")
+    tiles = (-(-(lx + le) // _TILE), -(-lx // _TILE))
+    split = max(tiles) if frames * max(tiles) <= sm_count else 1
+    return {"split": split, "grid": (split, frames), "tiles": tiles}
 
 
 def _check_shapes(x, extras, heads, d_hidden):
@@ -221,7 +225,8 @@ def mega_layer_cuda(x, extras, attn_p, mlp_p, ln1, ln2, heads=HEADS,
                     split: Optional[int] = None):
     """Launch csrc/mega_layer.cu on the current stream (no sync): x (F, Lx,
     D), extras (F, Le, D) bf16 -> (F, Lx, D) bf16. `split` overrides the
-    plan's CTAs per frame row."""
+    plan's CTAs per frame row (the kernel refuses more than the frame row
+    has tiles of a kind)."""
     from ..ops._cuda import load_library
     from ..ops.int8_matmul import _check_cuda, _f32_vec, _kernel_weight
     names = ("q", "k", "v", "out")
@@ -255,9 +260,7 @@ def mega_layer_cuda(x, extras, attn_p, mlp_p, ln1, ln2, heads=HEADS,
     lib = load_library("mega_layer")
     if split is None:
         split = mega_layer_plan(F_, torch.cuda.get_device_properties(
-            x.device).multi_processor_count)["split"]
-    if not 1 <= split <= _MAX_SPLIT:
-        raise ValueError(f"split {split} outside 1..{_MAX_SPLIT}")
+            x.device).multi_processor_count, lx, le)["split"]
     work = torch.empty(lib.mega_layer_workspace(F_, lx, le, d, hd),
                        dtype=torch.uint8, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream

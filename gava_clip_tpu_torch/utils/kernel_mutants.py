@@ -2,7 +2,7 @@
 or a wrong bound: build deliberately broken copies of a kernel source and
 run the check phase of chip_smoke.py on each.
 
-    python3 -m gava_clip_tpu_torch.utils.kernel_mutants [b7 b5 b3 b4 b10 mega]   # repo root, on a card
+    python3 -m gava_clip_tpu_torch.utils.kernel_mutants [b2 b7 b5 b3 b4 b10 mega]   # repo root, on a card
 
 Each mutant is a copy of the package and of chip_smoke.py under
 `_scratch/mut_<name>/` (gitignored) with one source patched; the copy
@@ -24,6 +24,7 @@ _B12 = "gava_clip_tpu_torch/csrc/attention_out_int8.cu"
 _B9 = "gava_clip_tpu_torch/csrc/w8_matmul.cu"
 _B1 = "gava_clip_tpu_torch/csrc/packed_attention.cu"
 _W8A8 = "gava_clip_tpu_torch/csrc/w8a8_common.cuh"
+_WG = "gava_clip_tpu_torch/csrc/w8a8_wgmma.cuh"
 _B7 = "gava_clip_tpu_torch/csrc/streaming_attention.cu"
 _B5 = "gava_clip_tpu_torch/csrc/w8a8_mlp.cu"
 _B4 = _B12
@@ -85,10 +86,15 @@ MUTANTS = {
         "phase_kernel", "[kernel]"),
     # B2 at K > 1,024: the row's absmax over its first 1,024 values only
     "b2_absmax_first_1024": (
-        _W8A8, [("for (int c = lane; c < K; c += 32) m = fmaxf(m, "
-                 "fabsf(value(c)));",
-                 "for (int c = lane; c < min(K, 1024); c += 32) m = fmaxf(m, "
-                 "fabsf(value(c)));")],
+        _W8A8, [("  for (int c0 = 8 * lane; c0 < K; c0 += 256) {",
+                 "  for (int c0 = 8 * lane; c0 < min(K, 1024); c0 += 256) {")],
+        "phase_w8a8_kernels", "w8a8_matmul M="),
+    # B2: the epilogue's scale and bias as one FMA (one rounding where the
+    # plain version takes two)
+    "b2_epilogue_fma": (
+        _WG, [("        const float v0 = epilogue(acc[4 * c + 2 * h], x0, sa[h], ba[h]);",
+               "        const float v0 = fmaf(__fmul_rn(__int2float_rn(acc[4 * c + "
+               "2 * h]), x0), sa[h], ba[h]);")],
         "phase_w8a8_kernels", "w8a8_matmul M="),
     # the second source's values read one row early
     "b12_second_source_row_shift": (
@@ -146,18 +152,18 @@ MUTANTS = {
     # the whole layer: the residual rounded to bf16 after the
     # out-projection, as the serving composition rounds it
     "mega_residual_bf16": (
-        _MEGA, [("*reinterpret_cast<float2*>(x1 + static_cast<long long>(row) "
-                 "* D + col) = make_float2(r0, r1);",
-                 "*reinterpret_cast<float2*>(x1 + static_cast<long long>(row) "
-                 "* D + col) = make_float2(__bfloat162float(__float2bfloat16("
-                 "r0)), __bfloat162float(__float2bfloat16(r1)));")],
+        _MEGA, [("            *reinterpret_cast<float2*>(a32 + static_cast<long "
+                 "long>(rr) * D + col) =\n                make_float2(v0, v1);",
+                 "            *reinterpret_cast<float2*>(a32 + static_cast<long "
+                 "long>(rr) * D + col) =\n                make_float2("
+                 + _ROUND.format("v0") + ", " + _ROUND.format("v1") + ");")],
         "phase_mega", "mega_layer F="),
     # the whole layer: the hidden's absmax over its first 1,024 values only
+    # (fc1's first pass)
     "mega_hidden_absmax_first_1024": (
-        _MEGA, [("for (int c = lane; c < Hd / 64; c += 32) m = fmaxf(m, "
-                 "__ldcg(hm + c));",
-                 "for (int c = lane; c < min(Hd, 1024) / 64; c += 32) m = "
-                 "fmaxf(m, __ldcg(hm + c));")],
+        _MEGA, [("              mx[2 * c + e] = fmaxf(mx[2 * c + e], fabsf(v));",
+                 "              if (ch * kKC < 1024) mx[2 * c + e] = "
+                 "fmaxf(mx[2 * c + e], fabsf(v));")],
         "phase_mega", "mega_layer F="),
     # B10: cls_proj's output rounded to bf16, as the stock branch rounds it
     # (EXTRAS_MAX_DIFF_SHARE exists for this case)

@@ -2,7 +2,7 @@
 variants of a kernel source (patched copies, as kernel_mutants.py does)
 and time each against the same yardstick, in turns.
 
-    python3 -m gava_clip_tpu_torch.utils.kernel_variants [b1 b9 b7 b5 b3 b4 mega b10 b7b]   # repo root, on a card
+    python3 -m gava_clip_tpu_torch.utils.kernel_variants [b1 b9 b7 b5 b3 b4 b2 mega b10 b7b]   # repo root, on a card
     python3 -m gava_clip_tpu_torch.utils.kernel_variants e2e   # the parent's tree against this one
 
 B1 / B6a (csrc/packed_attention.cu, the den entry) against
@@ -29,10 +29,15 @@ shape in CUDA graphs by rows and units per block. B4
 (csrc/attention_out_int8.cu) at the serving shape: exp2f, two or three K/V
 stages, and four that drop a part to show where the time goes (score
 products, AV products, the fp32 scratch round trip, the out-projection's
-products; wrong outputs). The whole-layer kernel (csrc/mega_layer.cu) at
-the tool's shape: the source as it is at several CTAs per frame row, one
-block an SM, and eight that stop after a phase to show where the time goes
-(wrong outputs). B10 (csrc/fused_extras.cu) at the serving shape and B7's
+products; wrong outputs). B2 (csrc/w8a8_matmul.cu) at the patch embed and
+the text tower's three shapes in its launch forms (rows x units), each
+held to the plain version's bits, in CUDA graphs beside the parent's
+kernel (`b2_parent`) and the int8 product alone through torch._int_mm.
+The whole-layer kernel (csrc/mega_layer.cu) at the tool's shape and at
+128 frame rows: the source as it is at 1 and 2 CTAs per frame row and
+five copies that stop after a stage to show where the time goes (wrong
+outputs), beside the parent's kernel (`mega_parent`) and the composition
+B3a + B4 + B5, in turns. B10 (csrc/fused_extras.cu) at the serving shape and B7's
 causal backward (csrc/streaming_attention_bwd.cu) at the text tower's, each
 beside the parent commit's kernel built from its own source (`b10_parent`,
 `b7b_parent`, from the tree unpacked into `_scratch/parent/`) and the
@@ -66,12 +71,13 @@ _B5 = "gava_clip_tpu_torch/csrc/w8a8_mlp.cu"
 _B3 = "gava_clip_tpu_torch/csrc/w8a8_qkv.cu"
 _B4 = "gava_clip_tpu_torch/csrc/attention_out_int8.cu"
 _MEGA = "gava_clip_tpu_torch/csrc/mega_layer.cu"
+_B2 = "gava_clip_tpu_torch/csrc/w8a8_matmul.cu"
 _B10 = "gava_clip_tpu_torch/csrc/fused_extras.cu"
 _B7B = "gava_clip_tpu_torch/csrc/streaming_attention_bwd.cu"
 _B7BH = "gava_clip_tpu_torch/csrc/attention_bwd.cuh"
 _LIB = {_PA: "packed_attention", _W8: "w8_matmul", _B7: "streaming_attention",
         _B5: "w8a8_mlp", _B3: "w8a8_qkv", _B4: "attention_out_int8",
-        _MEGA: "mega_layer", _B10: "fused_extras",
+        _MEGA: "mega_layer", _B2: "w8a8_matmul", _B10: "fused_extras",
         _B7B: "streaming_attention_bwd", _B7BH: "streaming_attention_bwd"}
 # The parent commit's tree, for the kernels redesigned since: unpack it with
 # `git archive <parent> | tar -x -C _scratch/parent` before the call. Its
@@ -90,7 +96,16 @@ _PARENT_SIGNATURES = {
     _B7B: {"streaming_attention_bwd_bf16": (
         [_VP] * 9 + [_I] * 5 + [_I] * 6 + [ctypes.c_float, _I, _VP], _I)},
 }
-PARENT_VARIANTS = {"b10_parent": _B10, "b7b_parent": _B7B}
+_PARENT_SIGNATURES[_B2] = {
+    # x, W^T, s, b, y; M, K, N; stream
+    "w8a8_matmul_bf16": ([_VP] * 5 + [_I] * 3 + [_VP], _I)}
+_PARENT_SIGNATURES[_MEGA] = {
+    # the parent's entry points take the same arguments as this tree's
+    "mega_layer_bf16": ([_VP] * 26 + [_I] * 7 + [_VP], _I),
+    "mega_layer_workspace": ([_I] * 5, ctypes.c_longlong),
+    "cuda_error_string": ([_I], ctypes.c_char_p)}
+PARENT_VARIANTS = {"b10_parent": _B10, "b7b_parent": _B7B,
+                   "b2_parent": _B2, "mega_parent": _MEGA}
 # name -> (source, [(old, new)])
 VARIANTS = {
     "b1_as_is": (_PA, []),
@@ -278,38 +293,26 @@ VARIANTS = {
     "b7b_ex2f": (_B7BH, [
         ("const float p = valid ? exp2f(s * c - stat) : 0.f;",
          "const float p = valid ? afrag::ex2f(s * c - stat) : 0.f;")]),
+    "b2_as_is": (_B2, []),
     "mega_as_is": (_MEGA, []),
-    # one block an SM (up to 255 registers a thread: no spills)
-    "mega_1_block": (_MEGA, [("__launch_bounds__(kThreadsMega, 2)",
-                              "__launch_bounds__(kThreadsMega, 1)")]),
-    # where the time goes (wrong outputs): phases 0 .. 0 only
-    "mega_phases_to_0": (_MEGA, [("  // phase 1: ",
-                                  "  return;\n  // phase 1: ")]),
-    # where the time goes (wrong outputs): phases 0 .. 1 only
-    "mega_phases_to_1": (_MEGA, [("  // phase 2: ",
-                                  "  return;\n  // phase 2: ")]),
-    # where the time goes (wrong outputs): phases 0 .. 2 only
-    "mega_phases_to_2": (_MEGA, [("  // phase 3: ",
-                                  "  return;\n  // phase 3: ")]),
-    # where the time goes (wrong outputs): phases 0 .. 3 only
-    "mega_phases_to_3": (_MEGA, [("  // phase 4: ",
-                                  "  return;\n  // phase 4: ")]),
-    # where the time goes (wrong outputs): phases 0 .. 4 only
-    "mega_phases_to_4": (_MEGA, [("  // phase 5: ",
-                                  "  return;\n  // phase 5: ")]),
-    # where the time goes (wrong outputs): phases 0 .. 5 only
-    "mega_phases_to_5": (_MEGA, [("  // phase 6: ",
-                                  "  return;\n  // phase 6: ")]),
-    # where the time goes (wrong outputs): phases 0 .. 6 only
-    "mega_phases_to_6": (_MEGA, [("  // phase 7: ",
-                                  "  return;\n  // phase 7: ")]),
-    # where the time goes (wrong outputs): phases 0 .. 7 only
-    "mega_phases_to_7": (_MEGA, [("  // phase 8: ",
-                                  "  return;\n  // phase 8: ")]),
+    # where the time goes (wrong outputs): the launch stopped after stage
+    # n of six (1 q/k/v, 2 the attention, 3 the out-projection and LN2, 4
+    # and 5 the fc1 passes)
+    **{f"mega_stages_to_{n}": (_MEGA, [(
+        "constexpr int kRunStages = 6;", f"constexpr int kRunStages = {n};")])
+       for n in range(1, 6)},
 }
-# CTAs per frame row each mega variant is timed at (the plan's: None)
-MEGA_SPLITS = {"mega_as_is": (None, 1, 2, 4, 8),
-               "mega_1_block": (None, 1, 2, 4)}
+# CTAs per frame row each mega variant is timed at (the plan's: None); the
+# stopped ones at 2, where each CTA takes one tile of each kind
+MEGA_SPLITS = {"mega_as_is": (None, 1, 2)}
+
+
+def _parent_mega_split(frames, sms):
+    """The parent commit's launch plan of its mega kernel: CTAs per frame
+    row filling two an SM, 1 to 8."""
+    return max(1, min(8, 2 * sms // frames))
+
+
 # the K/V stages of each B4 variant, for its shared bytes
 B4_KV_STAGES = {"b4_2_kv_stages": 2, "b4_3_kv_stages": 3}   # the others: 4
 # the fc2 weight tile of each B5 variant, for its launch plan
@@ -477,6 +480,8 @@ def main(argv=None) -> int:
         _b3_variants(cs, im, libs, gen, stream, state)
     if _any(libs, "b4"):
         _b4_variants(cs, fa, im, libs, gen, stream, state)
+    if _any(libs, "b2"):
+        _b2_variants(cs, im, libs, gen, state)
     if _any(libs, "mega"):
         _mega_variants(cs, libs, state)
     if _any(libs, "b10"):
@@ -732,41 +737,144 @@ def _b4_variants(cs, fa, im, libs, gen, stream, state):
 def _mega_variants(cs, libs, state):
     """The whole-layer kernel at the tool's shape (64 frame rows, its
     draws) and at the serving batch (128) through the tool's wrapper, each
-    variant's library standing in for the built one: held to the bits of
-    the source as it is (the truncated ones are wrong on purpose; they run
-    at 64 rows only), timed at the plan's CTAs per frame row and at those
-    of MEGA_SPLITS, and in turns with the source as it is."""
+    variant's library standing in for the built one: the parent's kernel
+    (`mega_parent`, at its own plan), the source as it is at its plan and at
+    each split of MEGA_SPLITS, held to the bits of the source as it is (the
+    stopped ones are wrong on purpose; they run at 64 rows only), and timed
+    in turns with the parent; the composition B3a + B4 + B5 in turns with
+    the source as it is."""
     import numpy as np
     import torch
     from gava_clip_tpu_torch.ops import _cuda
     from gava_clip_tpu_torch.tools import bench_attn_variants as tool
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for frames in (64, 128):
         rs = np.random.RandomState(0)
         params = tool.params_to_port(*tool.make_params(rs), device="cuda")
         x, e = tool.make_inputs(rs, frames, device="cuda")
         calls, outs = {}, {}
+        order = {"mega_parent": 0, "mega_as_is": 1}
         for name, lib in sorted(libs.items(),
-                                key=lambda kv: kv[0] != "mega_as_is"):
+                                key=lambda kv: order.get(kv[0], 2)):
             if not name.startswith("mega") or (
-                    frames != 64 and "phases" in name):
+                    frames != 64 and "stages_to" in name):
                 continue
-            for split in MEGA_SPLITS.get(name, (None,)):
+            if name == "mega_parent":
+                splits = (_parent_mega_split(frames, sms),)
+            else:
+                splits = MEGA_SPLITS.get(name, (2,))
+            for split in splits:
                 def call(lib=lib, split=split):
+                    saved = _cuda._libs.get("mega_layer")
                     _cuda._libs["mega_layer"] = lib
                     try:
                         return tool.mega_layer_cuda(x, e, *params,
                                                     split=split)
                     finally:
-                        del _cuda._libs["mega_layer"]
+                        if saved is None:
+                            del _cuda._libs["mega_layer"]
+                        else:
+                            _cuda._libs["mega_layer"] = saved
                 key = name if split is None else f"{name}_split_{split}"
                 outs[key], calls[key] = call(), call
                 torch.cuda.synchronize()
-                same = torch.equal(outs[key], outs["mega_as_is"])
+                same = torch.equal(outs[key], outs.get("mega_as_is",
+                                                       outs[key]))
                 print(f"[variants] {key} F={frames}: bit-equal to "
                       f"mega_as_is: {same}; "
                       f"{cs.cuda_time_ms(call, iters=10):.4f} ms "
                       f"({state['smi']})", flush=True)
-        _turns_vs(cs, calls, "mega_as_is", state)
+        parent = next((k for k in calls if k.startswith("mega_parent")), None)
+        if "mega_as_is" in calls:
+            calls["base (B3a + B4 + B5)"] = \
+                lambda: tool.base_layer(x, e, *params)
+            _turns_vs(cs, {k: v for k, v in calls.items() if k != parent},
+                      "mega_as_is", state)
+        if parent and "mega_as_is" in calls:
+            _turns_vs(cs, {k: calls[k] for k in (parent, "mega_as_is")},
+                      parent, state)
+
+
+# B2's shapes (M, K, N): the patch embed, then the w8a8 text tower's
+# out-projection, fc1 and fc2 (15 prompts x 77 tokens)
+B2_SHAPES = ((25088, 768, 768), (1155, 512, 512), (1155, 512, 2048),
+             (1155, 2048, 512))
+# B2's launch forms (rows per block, units per block) timed beside the
+# plan's at the patch embed and at the text tower's rows
+B2_FORMS = {25088: ((192, 6), (128, 6), (128, 3), (64, 6), (64, 3)),
+            1155: ((64, 1), (64, 2), (32, 1), (32, 2), (32, 4), (16, 1),
+                   (128, 1))}
+
+
+def _b2_variants(cs, im, libs, gen, state):
+    """B2 at the patch embed and the text tower's three shapes: the
+    parent's kernel (`b2_parent`), the source as it is at its plan and in
+    the forms of B2_FORMS, each held to the plain version's bits and timed
+    by CUDA events and in CUDA graphs, against the parent in turns and
+    against the int8 product alone through torch._int_mm."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bf = torch.bfloat16
+    for M, K, N in B2_SHAPES:
+        x = (torch.randint(0, 256, (M, K), generator=gen, device="cuda")
+             if M == 25088 else
+             torch.randn(M, K, generator=gen, device="cuda")).to(bf)
+        leaf = cs._qleaf(gen, K, N)
+        b = torch.randn(N, generator=gen, device="cuda") * 0.1
+        s = leaf["scale"].reshape(-1).float().contiguous()
+        wt = leaf["qa_t"]
+        ref = im.w8a8_matmul_plain(x, leaf, b)
+        calls = {}
+        for name, lib in sorted(libs.items(),
+                                key=lambda kv: kv[0] != "b2_parent"):
+            if not name.startswith("b2"):
+                continue
+            if name == "b2_parent":
+                forms = {name: None}
+            else:
+                plan = im.w8a8_matmul_plan(M, K, N, sms, 232448)
+                forms = {f"{name}_plan_{plan['rows']}_rows_{plan['units']}"
+                         f"_units": plan}
+                for rows, units in B2_FORMS[M]:
+                    if (rows, units) == (plan["rows"], plan["units"]) or \
+                            rows * K > 64 * 1024:   # 128 rows of K 2,048
+                        continue
+                    forms[f"{name}_{rows}_rows_{units}_units"] = \
+                        im.w8a8_matmul_plan(M, K, N, sms, 232448, rows=rows,
+                                            units=units)
+            for label, plan in forms.items():
+                y = torch.empty(M, N, dtype=bf, device="cuda")
+
+                def call(lib=lib, plan=plan, y=y):
+                    st = torch.cuda.current_stream().cuda_stream
+                    form = () if plan is None else (
+                        plan["rows"], plan["units"], plan["stages"],
+                        plan["smem_bytes"])
+                    err = lib.w8a8_matmul_bf16(
+                        x.data_ptr(), wt.data_ptr(), s.data_ptr(),
+                        b.data_ptr(), y.data_ptr(), M, K, N, *form, st)
+                    if err:
+                        raise RuntimeError(f"{label}: launch failed ({err})")
+                    return y
+                out = call()
+                torch.cuda.synchronize()
+                print(f"[variants] {label} M={M} K={K} N={N}: bit-equal to "
+                      f"the plain version: {torch.equal(out, ref)} "
+                      f"({state['smi']})", flush=True)
+                calls[label] = call
+        a = torch.randint(-127, 128, (M, K), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        wk = wt.t()
+        try:
+            torch._int_mm(a, wk)
+        except RuntimeError:
+            wk = wk.contiguous()
+        bound = cs._bound(2 * M * K + K * N + 8 * N + 2 * M * N,
+                          ops_int8=2 * M * K * N)
+        _report_times(cs, f"M={M} K={K} N={N}", calls,
+                      lambda: torch._int_mm(a, wk), "torch._int_mm alone",
+                      lambda: im.w8a8_matmul_plain(x, leaf, b),
+                      f"{bound[0]:.5f} ms ({bound[1]})", state)
 
 
 # B10 at the serving path's shape: (Bb, Tb, D, heads, G, le_pad), bf16 cls

@@ -133,6 +133,7 @@ class _FakeLayoutLib:
 
 
 @pytest.mark.parametrize("fn,want", [
+    ("w8a8_matmul_layout", tim._B2_LAYOUT),
     ("w8a8_qkv_layout", tim._QKV_LAYOUT),
     ("attention_out_int8_layout", tfa._ATTN_OUT_LAYOUT),
     ("w8a8_mlp_layout", tim._MLP_LAYOUT),
@@ -207,6 +208,124 @@ def test_w8a8_qkv_plan_fits_every_admitted_row_length(K):
 def test_w8a8_qkv_plan_raises_for_shapes_it_cannot_take(args):
     with pytest.raises(ValueError):
         tim.w8a8_qkv_plan(*args)
+
+
+# ---------------------------------------------------------------------------
+# the w8a8 GEMM (csrc/w8a8_matmul.cu)
+# ---------------------------------------------------------------------------
+
+def test_w8a8_matmul_layout_is_the_kernel_source_s():
+    c = _cuda_constants("w8a8_wgmma.cuh", "w8a8_matmul.cu")
+    assert tim._B2_LAYOUT == (c["kSlabBytes"], c["kMaxStages"],
+                              c["kUnitCols"], c["kStageBytes"],
+                              c["kStaticBytes"])
+
+
+def _b2_smem(rows, K, stages):
+    """The kernel's count (w8a8_matmul.cu smem_bytes): slack, the code tile,
+    the two rings, the staging tiles, the row scales."""
+    slab, _, _, stage_bytes, _ = tim._B2_LAYOUT
+    return (1024 + rows * (-(-K // 128) * 128) + 2 * stages * slab
+            + stage_bytes + 4 * rows)
+
+
+@pytest.mark.parametrize("M,K,N,rows,units,blocks", [
+    (25088, 768, 768, 192, 6, 131),   # the patch embed at batch 16: one wave
+    (1155, 512, 512, 32, 1, 148),     # the text tower: out-projection,
+    (1155, 512, 2048, 32, 4, 148),    # fc1,
+    (1155, 2048, 512, 32, 2, 74),     # fc2 (one block to an SM)
+    (1568, 768, 768, 32, 2, 147),     # the patch embed of one clip
+    (37, 768, 77, 32, 1, 2),          # chip_smoke's ragged shapes
+    (45, 100, 33, 32, 1, 2),
+    (37, 1100, 77, 32, 1, 2),
+    (37, 4096, 77, 32, 1, 2),
+    (19, 8000, 40, 16, 1, 2),
+    (19, 14272, 40, 8, 1, 3),         # the longest rows of before
+])
+def test_w8a8_matmul_plan_at_checked_shapes(M, K, N, rows, units, blocks):
+    """Every shape chip_smoke checks (W8A8_MATMUL_SHAPES) gets the measured
+    form: 192 rows where those tiles alone fill all SMs but one (the patch
+    embed: 131 blocks, one wave), else 32 with N shared out over as many
+    blocks as run in one wave (the text tower's 1,155 rows: 148 blocks two
+    to an SM, or 74 where one fits an SM), fewer rows for rows too long;
+    the shared bytes are the kernel's count and fit a block (and two where
+    two share an SM); the grid covers every row and unit exactly once."""
+    p = tim.w8a8_matmul_plan(M, K, N, _H100_SMS, _H100_SMEM_OPTIN)
+    assert (p["rows"], p["units"], p["blocks"]) == (rows, units, blocks)
+    tiles, groups = p["grid"]
+    total = -(-N // 128)
+    assert tiles * rows >= M > (tiles - 1) * rows
+    assert groups * units >= total > (groups - 1) * units
+    assert p["blocks"] == tiles * groups
+    assert tim._QKV_MIN_STAGES <= p["stages"] <= tim._B2_LAYOUT[1]
+    assert p["smem_bytes"] == _b2_smem(rows, K, p["stages"])
+    assert p["smem_bytes"] + tim._B2_LAYOUT[4] <= _H100_SMEM_OPTIN
+    assert p["per_sm"] * (p["smem_bytes"] + tim._B2_LAYOUT[4] + 1024) \
+        <= tim._SM90_SMEM_PER_SM
+    assert p["blocks"] <= p["per_sm"] * _H100_SMS or groups == 1
+
+
+def test_w8a8_matmul_plan_takes_other_forms():
+    """The forms the variants tool times beside the plan's: the rows and
+    units asked for, with the stages and bytes that they fit."""
+    p = tim.w8a8_matmul_plan(25088, 768, 768, _H100_SMS, _H100_SMEM_OPTIN,
+                             rows=128, units=3)
+    assert (p["rows"], p["units"], p["grid"]) == (128, 3, (196, 2))
+    assert p["smem_bytes"] == _b2_smem(128, 768, p["stages"])
+    with pytest.raises(ValueError):
+        tim.w8a8_matmul_plan(1155, 2048, 512, _H100_SMS, _H100_SMEM_OPTIN,
+                             rows=128)
+
+
+@pytest.mark.parametrize("K", [16, 100, 768, 1024, 1100, 2048, 8000, 14272,
+                               21632])
+def test_w8a8_matmul_plan_fits_every_admitted_row_length(K):
+    """K up to 21,632 (8 rows of codes and three ring stages fill a
+    block's shared memory), a multiple of 64 or not."""
+    for M in (1, 64, 1155, 25088, 100000):
+        p = tim.w8a8_matmul_plan(M, K, 768, _H100_SMS, _H100_SMEM_OPTIN)
+        assert p["rows"] in tim._B2_ROWS
+        assert p["smem_bytes"] + tim._B2_LAYOUT[4] <= _H100_SMEM_OPTIN
+
+
+@pytest.mark.parametrize("args", [
+    (19, 21760, 40, _H100_SMS, _H100_SMEM_OPTIN),   # rows too long
+    (37, 768, 768, _H100_SMS, 48 * 1024),           # a small card
+    (0, 768, 768, _H100_SMS, _H100_SMEM_OPTIN),
+    (37, 768, 0, _H100_SMS, _H100_SMEM_OPTIN),
+])
+def test_w8a8_matmul_plan_raises_for_shapes_it_cannot_take(args):
+    with pytest.raises(ValueError):
+        tim.w8a8_matmul_plan(*args)
+
+
+# ---------------------------------------------------------------------------
+# the whole-layer kernel of the layer tool (csrc/mega_layer.cu)
+# ---------------------------------------------------------------------------
+
+def test_mega_layer_limits_are_the_kernel_source_s():
+    """The tool's limits are the kernel's constants: tiles of 128 rows, a
+    frame row's workspace of two of them, at most 256 keys, head dim 64."""
+    from gava_clip_tpu_torch.tools import bench_attn_variants as tool
+    c = _cuda_constants("w8a8_wgmma.cuh", "mega_layer.cu")
+    assert (tool._TILE, tool._MAX_KEYS, tool._HEAD_DIM) == \
+        (c["kBM"], c["kMaxKeys"], c["kHD"])
+    assert c["kRowsF"] == 2 * c["kBM"] == c["kMaxKeys"]
+    assert c["kRunStages"] == 6
+
+
+@pytest.mark.parametrize("frames,lx,le,split,tiles", [
+    (64, 197, 17, 2, (2, 2)),     # the tool's shape: 128 CTAs
+    (128, 197, 17, 1, (2, 2)),    # the serving batch: 128 CTAs of two tiles
+    (3, 50, 5, 1, (1, 1)),        # chip_smoke's ragged shape
+    (3, 100, 60, 2, (2, 1)),      # two kv tiles, one query tile
+    (1000, 197, 17, 1, (2, 2)),
+])
+def test_mega_layer_plan_at_checked_shapes(frames, lx, le, split, tiles):
+    from gava_clip_tpu_torch.tools import bench_attn_variants as tool
+    p = tool.mega_layer_plan(frames, _H100_SMS, lx, le)
+    assert p == {"split": split, "grid": (split, frames), "tiles": tiles}
+    assert p["grid"][0] * frames <= _H100_SMS or split == 1
 
 
 def _attn_smem(H):

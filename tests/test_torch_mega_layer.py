@@ -216,11 +216,14 @@ def test_cpu_runs_the_plain_version_and_never_reaches_cuda(monkeypatch):
 
 
 def test_mega_layer_plan():
-    """Two CTAs an SM: a frame row takes enough of them to fill the card,
-    one to eight (one cluster)."""
-    assert tool.mega_layer_plan(64, 132) == {"split": 4, "grid": (4, 64)}
-    assert tool.mega_layer_plan(128, 132) == {"split": 2, "grid": (2, 128)}
-    assert tool.mega_layer_plan(3, 132)["split"] == 8
+    """One CTA an SM: a frame row takes as many CTAs (one cluster) as it has
+    tiles of 128 kv or query rows where every CTA then has an SM of its
+    own, else one, which takes all its tiles."""
+    assert tool.mega_layer_plan(64, 132) == {"split": 2, "grid": (2, 64),
+                                             "tiles": (2, 2)}
+    assert tool.mega_layer_plan(128, 132) == {"split": 1, "grid": (1, 128),
+                                              "tiles": (2, 2)}
+    assert tool.mega_layer_plan(3, 132, 50, 5)["split"] == 1
     assert tool.mega_layer_plan(1000, 132)["split"] == 1
     with pytest.raises(ValueError):
         tool.mega_layer_plan(0, 132)

@@ -244,6 +244,23 @@ def test_w8a8_matmul_patch_embed_width_matches_jax_kernel(forced_kernels):
     assert np.all(np.abs(a - r) <= _bf16_ulp(np.maximum(abs(a), abs(r))))
 
 
+def test_w8a8_matmul_text_tower_shape_matches_jax_kernel(forced_kernels):
+    """B2 at the w8a8 text tower's fc2 (one prompt of 77 tokens, K = 2,048,
+    N = 512): normal activations in rows longer than the 1,024 values a
+    warp holds in registers. No LayerNorm, so the codes are equal and only
+    the fp32 epilogue's rounding order may differ: within one bf16 ulp."""
+    rs = np.random.RandomState(27)
+    x = rs.randn(77, 2048)
+    (qj, sj), (qt, st) = _qweight(rs, 2048, 512)
+    b = rs.randn(512) * 0.1
+    out_j = jim.w8a8_matmul(_j(x, jnp.bfloat16), qj, sj, bias=_j(b))
+    out_t = tim.w8a8_matmul(_t(x, torch.bfloat16), {"qa": qt, "scale": st},
+                            _t(b))
+    assert out_t.shape == (77, 512) and out_t.dtype == torch.bfloat16
+    a, r = _np(out_t), _np(out_j)
+    assert np.all(np.abs(a - r) <= _bf16_ulp(np.maximum(abs(a), abs(r))))
+
+
 @pytest.mark.parametrize("int8_qk", [False, True])
 def test_attention_out_int8_2src_full_width_matches_jax_kernel(
         forced_kernels, int8_qk):
