@@ -70,6 +70,22 @@ The training and evaluation programs:
           with 12 launches each of the recompute backward and of the
           forward that writes no denominators; the mode reset and the
           saved-mode gradients back bit for bit;
+  int8-train  int8-forward training (--int8_frozen): the straight-through
+          ops int8_qkv3_st (B3a, 27,392 x 768 -> 3 x 768 with LN1),
+          int8_linear_st (B2 at the vision out-projection and the text
+          tower's three shapes) and int8_mlp_st (B5 with LN2 and the
+          residual), each forward one counted launch within its limits of
+          the impl="plain" forward (B2 bit for bit), each dx through the
+          kernel path bit-equal to the plain path's and within
+          INT8_TRAIN_DX_REL_ERR of autograd through the float block on the
+          dequantized weights, timed; the flagship's step at 16 x 8 with
+          frozen_int8=True: the first step against the plain versions
+          (TRAIN_MAX_LOSS_DIFF, TRAIN_MAX_GRAD_REL_ERR), 6 steps in turns
+          with the bf16 step (launches INT8_TRAIN_PER_STEP, the loss falls,
+          frozen leaves bit-unchanged, ms/step, peak memory, the largest
+          int8 - bf16 loss gap); 4 x 70 under save_attn_qkv and full, 2
+          steps each beside bf16; cli.train --int8_frozen --use_bf16 on a
+          synthetic fold (the loss falls, the run's files, launches);
   driver  writes a synthetic fold from a seed into a temporary directory
           (lists, separable uint8 clips as decoded-view cache files, NTE
           arrays, the memory pickle, the knowledge directory, a classes
@@ -2744,6 +2760,475 @@ def phase_train_recompute(state):
         raise AssertionError(f"after the reset: launches {counts}")
 
 
+# ---------------------------------------------------------------------------
+# int8-forward training (--int8_frozen): the straight-through ops B3a, B2
+# and B5 at the shapes of the flagship's training step, the step itself at
+# 16 x 8 and 4 x 70 beside the bf16 step, and cli.train --int8_frozen
+# ---------------------------------------------------------------------------
+
+# (M, K, N): B2 at the vision out-projection (16 clips x 8 frames x 197
+# query rows) and at the text tower's out-projection / q / k / v, fc1 and
+# fc2 (15 prompts x 77 tokens)
+INT8_TRAIN_B2_SHAPES = ((25216, 768, 768), (1155, 512, 512),
+                        (1155, 512, 2048), (1155, 2048, 512))
+# B3a: LN1 + q / k / v over the 27,392 kv rows (197 + 17 prompt rows a
+# frame row); B5: LN2 + MLP + residual over the 25,216 query rows
+INT8_TRAIN_B3A_SHAPE = (27392, 768, 768)
+INT8_TRAIN_B5_SHAPE = (25216, 768, 3072, 768)
+# dx of each straight-through op through its kernel against autograd
+# through the float block (fp32) on the dequantized weights, relative L2
+# error. The op rounds to bf16 where the float block does not: the
+# dequantized weight (values and scales cast first), each bf16 product's
+# output, and for B5 the recomputed LN2 output, fc1 product and dh, each
+# 2^-9 of a value. Measured on the CPU at 1,024 rows of these widths:
+# 2.8e-3 (B2), 3.9e-3 (B3a), 5.2e-3 (B5). A dx without the LayerNorm's mean
+# terms, or through W instead of W^T, is off by its whole norm.
+INT8_TRAIN_DX_REL_ERR = 2e-2
+# launches of one step of the flagship at 16 x 8 with frozen_int8, remat
+# none: the attention kernels of the bf16 step, and in the 12 vision blocks
+# one B3a (LN1 + q/k/v), one B2 (the out-projection) and one B5 (LN2 + MLP
+# + residual), in the 12 text blocks six B2 (q, k, v, out, fc1, fc2)
+INT8_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, w8a8_matmul3=12,
+                           w8a8_matmul=12 + 72, w8a8_mlp_res=12)
+INT8_TRAIN_KERNELS = ("w8a8_matmul3", "w8a8_matmul", "w8a8_mlp_res")
+# under any remat policy the straight-through ops of each vision block run
+# again in the backward (their custom autograd functions are opaque to the
+# policies, as the JAX ones are to jax.checkpoint's names: see
+# models/vision._block_remat); the attention forward runs again under full
+INT8_REMAT_PER_STEP = {
+    policy: dict(INT8_TRAIN_PER_STEP, w8a8_matmul3=24, w8a8_matmul=24 + 72,
+                 w8a8_mlp_res=24,
+                 packed_attention_den=24 if policy == "full" else 12)
+    for policy in ("save_attn_qkv", "full")}
+INT8_CLI_STEPS = 8
+
+
+def _qtleaf(gen, K, N):
+    """A frozen-training leaf {'qt', 'scale', 'qt_t'} from _qleaf's draw."""
+    leaf = _qleaf(gen, K, N)
+    return {"qt": leaf["qa"], "scale": leaf["scale"], "qt_t": leaf["qa_t"]}
+
+
+def _int8_train_op(state, name, label, run, inputs, cots, float_ref,
+                   unit, bound):
+    """One straight-through op at a training shape: its forward through
+    the kernel (one launch) against the plain forward, its dx through the
+    kernel path against the plain path's (bit for bit) and against autograd
+    through the float block (`float_ref`: fp32 dx), the kernel and plain
+    forwards timed in turns and the backward timed."""
+    import torch
+    _reset_launch_counts()
+    outs = run("kernel")
+    torch.cuda.synchronize()
+    launches = _launch_counts()[name]
+    refs = run("plain")
+    if name == "w8a8_matmul":
+        ok = all(torch.equal(o, r) for o, r in zip(outs, refs))
+        err = max((o.float() - r.float()).abs().max().item()
+                  for o, r in zip(outs, refs))
+        text = f"bit-equal {ok}"
+    else:
+        lim = "w8a8_matmul3_cat" if name == "w8a8_matmul3" else name
+        checks = [_check_w8a8(lim, o.detach(), r.detach(), u)
+                  for o, r, u in zip(outs, refs, unit)]
+        ok = all(c[0] for c in checks)
+        err = max(c[1] for c in checks)
+        text = "; ".join(c[2] for c in checks[:1]) + \
+            f" (limits {W8A8_LIMITS[lim]})"
+    dk = torch.autograd.grad(outs, inputs, cots, retain_graph=True)
+    dp = torch.autograd.grad(refs, inputs, cots)
+    same = all(torch.equal(a, b) for a, b in zip(dk, dp))
+    rel = max(((a.float() - r).norm() / r.norm()).item()
+              for a, r in zip(dk, float_ref()))
+    ok = ok and same and launches == 1 and rel <= INT8_TRAIN_DX_REL_ERR
+
+    def fwd(impl):
+        def call():
+            with torch.no_grad():
+                run(impl)
+        return call
+    ms, plain_ms, t = _time_pair(fwd("kernel"), fwd("plain"))
+    bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
+        outs, inputs, cots, retain_graph=True), iters=10)
+    log(f"[int8-train] {name} {label}: forward one launch ({launches}); "
+        f"{text}; dx kernel path == plain path bit for bit: {same}; dx vs "
+        f"autograd through the float block relative L2 {rel:.3e} (limit "
+        f"{INT8_TRAIN_DX_REL_ERR:g}) {'ok' if ok else 'FAIL'}; forward "
+        f"kernel {t['kernel']} ms, plain {t['plain']} ms (order plain, "
+        f"kernel, kernel, plain), bound {bound[0]:.4f} ms ({bound[1]}); "
+        f"backward (stock products) {bwd_ms:.4f} ms ({state['smi']})")
+    if not ok:
+        state.setdefault("int8_failures", []).append(f"{name} {label}")
+    state["kstats"][name].setdefault("int8_train", {"shapes": []})[
+        "shapes"].append({"shape": label, "max_abs_err": err, "ms": ms,
+                          "plain_ms": plain_ms, "bound_ms": bound[0],
+                          "bound_by": bound[1], "backward_ms": bwd_ms,
+                          "dx_rel_err": rel})
+
+
+def _int8_train_ops(state):
+    import torch
+    import torch.nn.functional as F
+    from gava_clip_tpu_torch.ops import int8_matmul as im
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(bf)
+
+    def deq(leaf):
+        return leaf["qt"].float() * leaf["scale"]
+
+    def grad32(fn, inputs, cots):
+        xs = [x.detach().float().requires_grad_() for x in inputs]
+        return torch.autograd.grad(fn(*xs), xs, [c.float() for c in cots])
+
+    for M, K, N in INT8_TRAIN_B2_SHAPES:
+        x = randn(M, K).requires_grad_()
+        leaf = _qtleaf(gen, K, N)
+        b = torch.randn(N, generator=gen, device="cuda") * 0.1
+        g = randn(M, N)
+        _int8_train_op(
+            state, "w8a8_matmul", f"M={M} K={K} N={N}",
+            lambda impl: (im.int8_linear_st(x, leaf, b, impl=impl),),
+            [x], [g], lambda: grad32(lambda a: a @ deq(leaf) + b, [x], [g]),
+            None, _bound(2 * M * K + K * N + 8 * N + 2 * M * N,
+                         ops_int8=2 * M * K * N))
+    M, K, N = INT8_TRAIN_B3A_SHAPE
+    x = randn(M, K).requires_grad_()
+    k3 = [_qtleaf(gen, K, N) for _ in range(3)]
+    b3 = [torch.randn(N, generator=gen, device="cuda") * 0.1
+          for _ in range(3)]
+    ln = _ln_params(gen, K)
+    gs = [randn(M, N) for _ in range(3)]
+    xs = im.quant_rows(im.ln_f32(x.detach().float(), *ln))[1]
+    _int8_train_op(
+        state, "w8a8_matmul3", f"M={M} K={K} N=3x{N} with LN1",
+        lambda impl: im.int8_qkv3_st(x, k3, b3, ln, impl=impl), [x], gs,
+        lambda: grad32(lambda a: [F.layer_norm(a, (K,), *ln) @ deq(k) + bb
+                                  for k, bb in zip(k3, b3)], [x], gs),
+        [_flip_unit(xs, k["scale"]) for k in k3],
+        _bound(M * (2 * K + 6 * N) + 3 * K * N + 24 * N + 8 * K,
+               ops_int8=6 * M * K * N))
+    M, K, H, N = INT8_TRAIN_B5_SHAPE
+    x, r = randn(M, K).requires_grad_(), randn(M, N).requires_grad_()
+    fc1 = {"kernel": _qtleaf(gen, K, H),
+           "bias": torch.randn(H, generator=gen, device="cuda") * 0.02}
+    fc2 = {"kernel": _qtleaf(gen, H, N),
+           "bias": torch.randn(N, generator=gen, device="cuda") * 0.02}
+    ln = _ln_params(gen, K)
+    g = randn(M, N)
+    codes, xs = im.quant_rows(im.ln_f32(x.detach().float(), *ln))
+    h = im.quick_gelu_f32(im.rescale(im.int_matmul(codes, fc1["kernel"]["qt"]),
+                                     xs, fc1["kernel"]["scale"], fc1["bias"]))
+    unit = _flip_unit(im.quant_rows(h)[1], fc2["kernel"]["scale"])
+    del codes, h
+
+    def mlp32(a, res):
+        hh = F.layer_norm(a, (K,), *ln) @ deq(fc1["kernel"]) + fc1["bias"]
+        return hh * torch.sigmoid(1.702 * hh) @ deq(fc2["kernel"]) + \
+            fc2["bias"] + res
+    _int8_train_op(
+        state, "w8a8_mlp_res", f"M={M} K={K} H={H} N={N} with LN2 and the "
+        f"residual",
+        lambda impl: (im.int8_mlp_st(x, fc1, fc2, ln, r, impl=impl),),
+        [x, r], [g], lambda: grad32(mlp32, [x, r], [g]), [unit],
+        _bound(2 * M * K + 4 * M * N + K * H + H * N + 8 * (H + N) + 8 * K,
+               ops_int8=2 * M * K * H + 2 * M * H * N))
+    # fp32 rows on the card raise, naming the ROADMAP item; no quiet cast
+    rows32 = torch.zeros(8, K, device="cuda")
+    for label, call in (
+            ("int8_linear_st", lambda a: im.int8_linear_st(
+                a, fc1["kernel"], fc1["bias"])),
+            ("int8_qkv3_st", lambda a: im.int8_qkv3_st(a, k3, b3, ln)),
+            ("int8_mlp_st", lambda a: im.int8_mlp_st(a, fc1, fc2, ln, a))):
+        try:
+            call(rows32)
+            state.setdefault("int8_failures", []).append(
+                f"{label} took fp32 rows")
+        except NotImplementedError as e:
+            log(f"[int8-train] {label} on fp32 rows raises: {e}")
+            if "A11" not in str(e):
+                state.setdefault("int8_failures", []).append(label)
+    if state.get("int8_failures"):
+        raise AssertionError(f"the straight-through ops failed: "
+                             f"{state['int8_failures']}")
+
+
+def _timed_steps(step, ts, batch, n):
+    """n steps: (losses, CUDA-event ms, (peak GiB over the resting memory,
+    peak GiB allocated in all, resting GiB))."""
+    import torch
+    torch.cuda.synchronize()
+    rest = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(n):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        ts, metrics = step(ts, batch)
+        ev[1].record()
+        losses.append(metrics["total"].item())     # waits for the step
+        ms.append(ev[0].elapsed_time(ev[1]))
+    peak = torch.cuda.max_memory_allocated()
+    return losses, ms, ((peak - rest) / 2 ** 30, peak / 2 ** 30,
+                        rest / 2 ** 30)
+
+
+def _int8_flagship_step(state):
+    """The flagship's step at 16 x 8 with frozen_int8: the first step
+    against the plain versions, 6 steps beside the bf16 step in turns."""
+    import torch
+    from gava_clip_tpu_torch.models.vita_clip import trainable_mask
+    from gava_clip_tpu_torch.ops import flash_attention as fa
+    from gava_clip_tpu_torch.train.state import (create_train_state,
+                                                 make_optimizer, tree_leaves)
+    from gava_clip_tpu_torch.train.step import (LossConfig, make_loss_fn,
+                                                make_train_step,
+                                                quantize_frozen)
+    from gava_clip_tpu_torch.utils.flagship import build_flagship
+    loss_cfg = LossConfig(num_classes=3, focal_ordinal=True, fo_beta=0.2,
+                          use_support_memory=True, add_nte=True)
+    opt = make_optimizer(lr=1e-3, num_steps=2000, weight_decay=0.2)
+    kw = dict(compute_dtype=torch.bfloat16, attn_impl="flash", remat="none")
+    model = build_flagship(num_frames=8)
+    mask = trainable_mask(model.params, model.cfg)
+    ts8, ts16 = (create_train_state(model.params, mask, opt)
+                 for _ in range(2))
+    batch = _train_batch(16, 8)
+
+    # the frozen tree quantized once, as the loss does, and then again:
+    # the first call pays the first use of its torch ops and the
+    # allocator's new blocks
+    quant_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        q = quantize_frozen(ts8.frozen)
+        torch.cuda.synchronize()
+        quant_ms.append((time.perf_counter() - t0) * 1e3)
+    n_qt = sum(1 for leaf in tree_leaves(q) if leaf is not None and
+               leaf.dtype == torch.int8) // 2       # codes and W^T
+    # what the cached tree holds beside the float frozen tree it shares
+    shared = {id(p) for p in tree_leaves(ts8.frozen)}
+    qt_gib = sum(leaf.numel() * leaf.element_size()
+                 for leaf in tree_leaves(q) if leaf is not None and
+                 id(leaf) not in shared) / 2 ** 30
+    del q
+    loss_k = make_loss_fn(model, loss_cfg, frozen_int8=True, **kw)
+    loss_p = make_loss_fn(model, loss_cfg, frozen_int8=True,
+                          int8_impl="plain", **kw)
+    with fa.plain_versions():
+        total_p, _ = loss_p(ts8.trainable, ts8.frozen, batch)
+        total_p.backward()
+    g_plain = _grad_list(ts8.trainable)
+    ts8.optimizer.zero_grad(set_to_none=True)
+    _reset_launch_counts()
+    total_k, _ = loss_k(ts8.trainable, ts8.frozen, batch)
+    total_k.backward()
+    torch.cuda.synchronize()
+    counts = _launch_counts()
+    g_kernel = _grad_list(ts8.trainable)
+    ts8.optimizer.zero_grad(set_to_none=True)
+    d_loss = abs(total_k.item() - total_p.item())
+    scale = max(g.norm().item() for g in g_plain)
+    rel = [((a - b).norm() / b.norm().clamp_min(1e-3 * scale)).item()
+           for a, b in zip(g_kernel, g_plain)]
+    worst = [n for n, _ in _named_leaves(ts8.trainable)][int(np.argmax(rel))]
+    log(f"[int8-train] {n_qt} frozen projections quantized to 'qt' leaves "
+        f"(with the kernels' W^T; {qt_gib:.3f} GiB beside the float frozen "
+        f"tree) in {quant_ms[0]:.1f} ms by the host clock, {quant_ms[1]:.1f} "
+        f"ms when done again; the loss quantizes once per run; first step "
+        f"with frozen_int8, kernels vs plain "
+        f"versions on the card: total {total_k.item():.6f} vs "
+        f"{total_p.item():.6f} (diff {d_loss:.2e}, limit "
+        f"{TRAIN_MAX_LOSS_DIFF:g}); gradient leaves {len(rel)}, max "
+        f"relative L2 error {max(rel):.3e} ({worst}), median "
+        f"{float(np.median(rel)):.3e} (limit {TRAIN_MAX_GRAD_REL_ERR:g}); "
+        f"launches {counts}")
+    if any(counts[k] != v for k, v in INT8_TRAIN_PER_STEP.items()) or \
+            not all(bool(torch.isfinite(g).all()) for g in g_kernel) or \
+            d_loss > TRAIN_MAX_LOSS_DIFF or max(rel) > TRAIN_MAX_GRAD_REL_ERR:
+        raise AssertionError(f"the int8 training step through the kernels "
+                             f"disagrees with the plain versions (launches "
+                             f"{counts}, expected {INT8_TRAIN_PER_STEP})")
+    del g_plain, g_kernel, loss_k, loss_p       # and their cached trees
+
+    step8 = make_train_step(model, loss_cfg, opt, frozen_int8=True, **kw)
+    step16 = make_train_step(model, loss_cfg, opt, **kw)
+    frozen = [p for p in tree_leaves(ts8.frozen) if p is not None]
+    before_f = [p.detach().clone() for p in frozen]
+    before_t = [p.detach().clone() for _, p in _named_leaves(ts8.trainable)]
+    # one warm-up step each (the allocator's first blocks, cuBLAS's first
+    # plans), then in turns: bf16, int8, int8, bf16, three times; the main
+    # path's launches are those of the 6 int8 steps in turns
+    step16(ts16, batch)
+    step8(ts8, batch)
+    runs = {"bf16": ([], [], []), "int8": ([], [], [])}
+    launches = {k: 0 for k in INT8_TRAIN_PER_STEP}
+    for which in ("bf16", "int8", "int8", "bf16") * 3:
+        _reset_launch_counts()
+        losses, ms, peak = _timed_steps(
+            *((step8, ts8) if which == "int8" else (step16, ts16)), batch, 1)
+        if which == "int8":
+            n = _launch_counts()
+            launches = {k: launches[k] + n[k] for k in launches}
+        for acc, v in zip(runs[which], (losses, ms, [peak])):
+            acc.extend(v)
+    (l8, ms8, pk8), (l16, ms16, pk16) = runs["int8"], runs["bf16"]
+    # the largest of each memory figure over the three turns of each step
+    pk8, pk16 = (tuple(max(p[i] for p in pk) for i in range(3))
+                 for pk in (pk8, pk16))
+    gap = max(abs(a - b) for a, b in zip(l8, l16))
+    state["int8_launches"] = launches
+    moved = sum(not torch.equal(a, b) for a, (_, b) in
+                zip(before_t, _named_leaves(ts8.trainable)))
+    log(f"[int8-train] 16 x 8, bf16, flash, remat none, after a warm-up "
+        f"step each 6 steps each in turns (bf16, int8, int8, bf16): int8 "
+        f"total "
+        f"{[round(t, 4) for t in l8]}, bf16 {[round(t, 4) for t in l16]}, "
+        f"largest int8 - bf16 gap "
+        f"{gap:.4f} (no gate on the card); step by CUDA events int8 "
+        f"{[round(t, 2) for t in ms8]} ms (median "
+        f"{np.median(ms8):.2f}), bf16 {[round(t, 2) for t in ms16]} "
+        f"(median {np.median(ms16):.2f}); peak memory over the resting "
+        f"int8 {pk8[0]:.2f} GiB, bf16 {pk16[0]:.2f} GiB; peak allocated in "
+        f"all int8 {pk8[1]:.2f} GiB, bf16 {pk16[1]:.2f} GiB, resting int8 "
+        f"{pk8[2]:.2f}, bf16 {pk16[2]:.2f} GiB (the process holds both "
+        f"steps' states, and the int8 step its cached tree); int8 launches "
+        f"over 6 steps {launches} (expect {INT8_TRAIN_PER_STEP} per step); "
+        f"{moved} of {len(before_t)} trainable leaves moved "
+        f"({state['smi']})")
+    if any(launches[k] != 6 * v for k, v in INT8_TRAIN_PER_STEP.items()):
+        raise AssertionError("int8 step launches")
+    if not all(np.isfinite(l8)) or not l8[-1] < l8[0] < total_k.item():
+        raise AssertionError(f"the int8 loss did not fall: {l8}")
+    if not all(torch.equal(a, b) for a, b in zip(frozen, before_f)):
+        raise AssertionError("a frozen leaf changed in the int8 steps")
+    state["int8_step"] = {"int8_ms": float(np.median(ms8)),
+                          "bf16_ms": float(np.median(ms16)),
+                          "int8_peak_gib": pk8[0],
+                          "bf16_peak_gib": pk16[0],
+                          "int8_peak_abs_gib": pk8[1],
+                          "bf16_peak_abs_gib": pk16[1],
+                          "qt_tree_gib": qt_gib, "max_loss_gap": gap,
+                          "quantize_ms": quant_ms}
+    if state.get("profile_dir"):
+        _profile(lambda: step8(ts8, batch), 2,
+                 "batch-16 training step with frozen_int8",
+                 state["int8_step"]["int8_ms"], state["smi"],
+                 os.path.join(state["profile_dir"], "profile_train_int8.txt"),
+                 "_int8", 40)
+
+
+def _int8_long_steps(state):
+    """4 clips x 70 frames under remat save_attn_qkv (cli.train's choice)
+    and full: 2 steps each with and without frozen_int8."""
+    import torch
+    from gava_clip_tpu_torch.models.vita_clip import trainable_mask
+    from gava_clip_tpu_torch.train.state import (create_train_state,
+                                                 make_optimizer)
+    from gava_clip_tpu_torch.train.step import LossConfig, make_train_step
+    from gava_clip_tpu_torch.utils.flagship import build_flagship
+    torch.cuda.empty_cache()
+    loss_cfg = LossConfig(num_classes=3, focal_ordinal=True, fo_beta=0.2,
+                          use_support_memory=True, add_nte=True)
+    opt = make_optimizer(lr=5e-6, num_steps=2000, weight_decay=0.2)
+    model = build_flagship(num_frames=70)
+    ts = create_train_state(model.params,
+                            trainable_mask(model.params, model.cfg), opt)
+    batch = _train_batch(4, 70)
+    for policy, want in INT8_REMAT_PER_STEP.items():
+        for int8 in (False, True):
+            step = make_train_step(model, loss_cfg, opt, remat=policy,
+                                   compute_dtype=torch.bfloat16,
+                                   attn_impl="flash", frozen_int8=int8)
+            ts, _ = step(ts, batch)                 # warm-up
+            _reset_launch_counts()
+            losses, ms, peak = _timed_steps(step, ts, batch, 2)
+            n = _launch_counts()
+            expect = want if int8 else dict(
+                TRAIN_PER_STEP, **{k: 0 for k in INT8_TRAIN_KERNELS},
+                packed_attention_den=want["packed_attention_den"])
+            log(f"[int8-train] 4 x 70, remat {policy}, "
+                f"{'int8' if int8 else 'bf16'}: step by CUDA events "
+                f"{[round(t, 2) for t in ms]} ms, peak memory over the "
+                f"resting {peak[0]:.2f} GiB, peak allocated in all "
+                f"{peak[1]:.2f} GiB (resting {peak[2]:.2f}), launches {n} "
+                f"(expect {expect} per "
+                f"step), total {[round(t, 4) for t in losses]} "
+                f"({state['smi']})")
+            if not all(np.isfinite(losses)) or any(
+                    n[k] != 2 * v for k, v in expect.items()):
+                raise AssertionError(f"4 x 70 {policy} int8={int8} failed")
+
+
+def _int8_cli(state):
+    """cli.train --int8_frozen --use_bf16 at 16 x 8 on a synthetic fold."""
+    import shutil
+    import tempfile
+    import torch
+    root = tempfile.mkdtemp(prefix="gava_int8_")
+    cwd = os.getcwd()
+    kdir = None
+    try:
+        data_args, kdir = _write_fold(root, T=8, n_train=32, n_val=16)
+        os.chdir(root)
+        _reset_launch_counts()
+        logdir, rec = _train_main(data_args + [
+            "--int8_frozen", "--batch_size", "16", "--num_steps",
+            str(INT8_CLI_STEPS), "--print_freq", "1", "--lr", "1e-3",
+            "--eval_freq", str(INT8_CLI_STEPS), "--save_freq", "1000"],
+            "run_int8")
+        counts = _launch_counts()
+        steps = [r for r in rec if "loss" in r]
+        losses = [r["loss"] for r in steps]
+        sustained = [(b["t"] - a["t"]) / (b["step"] - a["step"]) * 1e3
+                     for a, b in zip(steps[1:], steps[2:])]
+        files = set(os.listdir(logdir)) | set(
+            os.listdir(os.path.join(logdir, "fold_0")))
+        # the evaluation at the end runs bf16 forwards (B1, and B7 in the
+        # text tower), so only the training kernels are counted
+        want = {k: INT8_CLI_STEPS * INT8_TRAIN_PER_STEP[k] for k in
+                INT8_TRAIN_KERNELS + ("packed_attention_den",
+                                      "packed_attention_bwd",
+                                      "streaming_attention_bwd")}
+        log(f"[int8-train] cli.train --int8_frozen --use_bf16, "
+            f"{INT8_CLI_STEPS} steps of 16 clips x 8 frames: loss "
+            f"{[round(x, 4) for x in losses]}; sustained "
+            f"{np.median(sustained):.2f} ms/step between print steps (host "
+            f"clock); launches {counts} (expect {want}, and the evaluation's "
+            f"bf16 forwards)")
+        if not all(np.isfinite(losses)) or not \
+                np.mean(losses[-2:]) < np.mean(losses[:2]) or \
+                any(counts[k] != v for k, v in want.items()) or not \
+                {"config.yaml", "results.txt", "metrics.jsonl",
+                 "fold-0-best.ckpt"} <= files:
+            raise AssertionError("cli.train --int8_frozen failed its checks")
+        state["int8_cli_sustained_ms"] = float(np.median(sustained))
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+        if kdir:
+            shutil.rmtree(kdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def phase_int8_train(state):
+    """int8-forward training (--int8_frozen) through B3a, B2 and B5."""
+    import torch
+    for key in ("train_step", "train_state", "train_batch", "train_loss_fn"):
+        state.pop(key, None)
+    torch.cuda.empty_cache()
+    _int8_train_ops(state)
+    torch.cuda.empty_cache()
+    _int8_flagship_step(state)
+    _int8_long_steps(state)
+    _int8_cli(state)
+    for name in INT8_TRAIN_KERNELS:
+        state["kstats"][name]["int8_train"]["launches"] = \
+            state["int8_launches"][name]
+
+
 FOLD_CLASSES = ("normal\nslight difficulty\nmoderate difficulty\n"
                 "*normal\n*slight\n*moderate\n")
 KNOWLEDGE_VERSIONS = ("v1", "v2", "v3", "v4", "v5")
@@ -3463,6 +3948,7 @@ def main(argv=None) -> int:
             ("w8-server", lambda st: phase_server(st, "_w8")),
             ("train-slice", phase_train_slice),
             ("train-recompute", phase_train_recompute),
+            ("int8-train", phase_int8_train),
             ("driver", phase_cli),
             ("train-long", phase_train_long),
             ("driver-long", phase_cli_long)):

@@ -13,8 +13,10 @@ confusion matrices), config.yaml dump.
 Execution: one eager train step (forward + losses + backward + AdamW, in
 place) on one device, the card unless `--device cpu`; uint8 frames are
 normalized on the device; the host-to-device copy of the next batch runs on
-a side CUDA stream. Data parallelism over several cards and
-`--int8_frozen` are not ported yet (ROADMAP A9).
+a side CUDA stream. `--int8_frozen` runs the frozen projections of both
+towers as int8 GEMMs through the w8a8 kernels (with `--use_bf16` on the
+card; `train.step.make_train_step(frozen_int8=True)`). Data parallelism
+over several cards is not ported yet (ROADMAP A9, second half).
 """
 
 import json

@@ -6,6 +6,9 @@ LayerNorm islands, QuickGELU MLP, EOT-token pooling through a
 encoded in one call. Parameters are a nested dict in the JAX layout, except
 that `blocks` is a list with one dict per layer where the JAX tree stacks
 the layers on a leading axis; the JAX `lax.scan` is a Python loop here.
+Quantized block leaves ('qa' serving, 'qt' frozen-int8 training) reach
+their int8 ops through `ops.attention` and `ops.linear`; `int8_impl` picks
+the kernels or their plain versions there.
 """
 
 from dataclasses import dataclass
@@ -64,8 +67,8 @@ def causal_mask(length: int, device=None) -> torch.Tensor:
 
 def text_transformer(params, x: torch.Tensor, cfg: TextConfig,
                      attn_impl: str = "xla",
-                     maple_prompts: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
+                     maple_prompts: Optional[torch.Tensor] = None,
+                     int8_impl: str = "kernel") -> torch.Tensor:
     """Run the causal transformer stack over embedded prompts (N, L, W).
 
     maple_prompts: optional (layers-1, P, W) MaPLe-style per-layer prompts:
@@ -76,9 +79,10 @@ def text_transformer(params, x: torch.Tensor, cfg: TextConfig,
         # causal=True sends the flash impl through the streaming kernel's
         # in-kernel causal mask; the xla impl builds the additive mask
         h = h + multi_head_attention(p["attn"], hn, hn, hn, cfg.heads,
-                                     impl=attn_impl, causal=True)
+                                     impl=attn_impl, causal=True,
+                                     int8_impl=int8_impl)
         hn = layer_norm(h, p["ln_2"]["scale"], p["ln_2"]["bias"])
-        return h + mlp(p["mlp"], hn, quick_gelu)
+        return h + mlp(p["mlp"], hn, quick_gelu, int8_impl)
 
     blocks = list(params["blocks"])
     if maple_prompts is None:
@@ -98,14 +102,16 @@ def text_transformer(params, x: torch.Tensor, cfg: TextConfig,
 def encode_text_embeds(params, prompt_embeds: torch.Tensor,
                        eot_idx: torch.Tensor, cfg: TextConfig,
                        compute_dtype=torch.float32,
-                       attn_impl: str = "xla") -> torch.Tensor:
+                       attn_impl: str = "xla",
+                       int8_impl: str = "kernel") -> torch.Tensor:
     """Encode pre-embedded prompts (N, L, W) -> pooled features
     (N, embed_dim): + positional embedding, transformer, ln_final, gather
     at the EOT position, project. `eot_idx` (N,) is the EOT column per
     row."""
     x = prompt_embeds.to(compute_dtype) + \
         params["positional_embedding"].to(compute_dtype)
-    x = text_transformer(params, x, cfg, attn_impl=attn_impl)
+    x = text_transformer(params, x, cfg, attn_impl=attn_impl,
+                         int8_impl=int8_impl)
     x = layer_norm(x, params["ln_final"]["scale"], params["ln_final"]["bias"])
     pooled = x[torch.arange(x.shape[0], device=x.device), eot_idx.long()]
     return pooled @ params["text_projection"].to(pooled.dtype)

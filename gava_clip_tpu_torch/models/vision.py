@@ -1,5 +1,6 @@
 """Vita-CLIP vision tower (port of gava_clip_tpu/models/vision.py: the bf16
-and the w8a8 serving paths, and the bf16 / fp32 training path).
+and the w8a8 serving paths, and the bf16 / fp32 training paths, float and
+frozen-int8).
 
 Per-frame ViT with summary, local and global prompt tokens; the prompt
 tokens are attention KEYS only (queries are [cls, patches]), as in the JAX
@@ -31,6 +32,13 @@ block (`_block_remat`): `save_attn` the attention output and denominators,
 `save_attn_qkv` also q, k, v, `save_attn_mlp` also the fc1 pre-activation,
 `dots` the outputs of the GEMMs. Under the three `save_attn*` policies the
 attention forward kernel is not launched again in the backward.
+
+Frozen-int8 training (`--int8_frozen`: the frozen projection kernels as
+'qt' leaves, ops/quant.quantize_frozen_for_train) runs LN1 + q/k/v over
+[x; extras] as one straight-through op (`int8_qkv3_st`, B3a), the
+out-projection through `linear` (B2) and LN2 + MLP + residual as one more
+(`int8_mlp_st`, B5); the attention is the float block's. Each saves its
+input rows alone and computes dx alone in the backward.
 """
 
 from dataclasses import dataclass
@@ -45,7 +53,7 @@ from ..ops import extras_kernel
 from ..ops.activations import quick_gelu
 from ..ops.attention import attention_core, multi_head_attention
 from ..ops.flash_attention import flash_attention_out_int8
-from ..ops.int8_matmul import w8a8_matmul, w8a8_matmul3_cat
+from ..ops.int8_matmul import int8_qkv3_st, w8a8_matmul, w8a8_matmul3_cat
 from ..ops.linear import linear, mlp_block, quant_kind
 from ..ops.norm import layer_norm
 from .common import (init_attention, init_layer_norm, init_linear, normal,
@@ -266,14 +274,12 @@ def _block(p, g_prompt: Optional[torch.Tensor], x: torch.Tensor,
             attn = attention_core(qp[:, :Lx], kp, vp, cfg.heads,
                                   impl=attn_impl)
             x = x + linear(p["attn"]["out"], attn, int8_impl)
+        x = mlp_block(p["mlp"], p["norm2"], x, quick_gelu, residual=x,
+                      int8_impl=int8_impl)
     else:
-        kv = torch.cat([x] + extras, dim=1) if extras else x
-        kv_n = layer_norm(kv, p["norm1"]["scale"], p["norm1"]["bias"])
-        x = x + multi_head_attention(p["attn"], kv_n[:, :Lx], kv_n, kv_n,
-                                     cfg.heads, impl=attn_impl,
-                                     int8_impl=int8_impl)
-    x = mlp_block(p["mlp"], p["norm2"], x, quick_gelu, residual=x,
-                  int8_impl=int8_impl)
+        q, k, v = _project_qkv(p, x, extras, int8_impl)
+        x = _post_attention(p, x, attention_core(q, k, v, cfg.heads,
+                                                 impl=attn_impl), int8_impl)
     return x, summary
 
 
@@ -292,30 +298,51 @@ def _remat_policy(remat) -> Optional[str]:
     raise ValueError(f"unknown remat policy {remat!r}")
 
 
-def _pre_attention(p, g_prompt, x, cfg: VisionConfig, int8_impl: str):
-    """Everything of a float block in front of the attention call: prompt
-    extras, LN1 over [x; extras], the three projections. Returns q (the
-    first Lx rows only), k, v and the summary tokens."""
+def _project_qkv(p, x, extras, int8_impl: str):
+    """LN1 over the kv rows [x; extras] and the three projections: q of the
+    first Lx rows, k and v of all. Float and weight-only leaves take a
+    LayerNorm and three `linear` calls; 'qt' leaves one straight-through op
+    (B3a) over the kv rows, whose q of the extras rows is dropped."""
     Lx = x.shape[1]
-    extras, summary = prompt_extras(p, g_prompt, x, cfg)
     kv = torch.cat([x] + extras, dim=1) if extras else x
+    a = p["attn"]
+    if quant_kind(a["q"]["kernel"]) == "qt":
+        names = ("q", "k", "v")
+        outs = int8_qkv3_st(kv.reshape(-1, kv.shape[-1]),
+                            [a[n]["kernel"] for n in names],
+                            [a[n]["bias"] for n in names],
+                            (p["norm1"]["scale"], p["norm1"]["bias"]),
+                            impl=int8_impl)
+        q, k, v = (o.reshape(*kv.shape[:-1], o.shape[-1]) for o in outs)
+        return q[:, :Lx], k, v
     kv_n = layer_norm(kv, p["norm1"]["scale"], p["norm1"]["bias"])
-    return (linear(p["attn"]["q"], kv_n[:, :Lx], int8_impl),
-            linear(p["attn"]["k"], kv_n, int8_impl),
-            linear(p["attn"]["v"], kv_n, int8_impl), summary)
+    return (linear(a["q"], kv_n[:, :Lx], int8_impl),
+            linear(a["k"], kv_n, int8_impl), linear(a["v"], kv_n, int8_impl))
+
+
+def _pre_attention(p, g_prompt, x, cfg: VisionConfig, int8_impl: str):
+    """Everything of a block in front of the attention call: prompt extras,
+    LN1 over [x; extras], the three projections. Returns q (the first Lx
+    rows only), k, v and the summary tokens."""
+    extras, summary = prompt_extras(p, g_prompt, x, cfg)
+    return (*_project_qkv(p, x, extras, int8_impl), summary)
 
 
 def _mlp_hidden(p, x, attn, int8_impl: str):
-    """Out-projection + residual, then LN2 and fc1: (x, pre-activation)."""
+    """Out-projection + residual, then LN2 and fc1: (x, pre-activation).
+    Float leaves only: on 'qt' leaves fc1 is inside the fused MLP op."""
     x = x + linear(p["attn"]["out"], attn, int8_impl)
     h = layer_norm(x, p["norm2"]["scale"], p["norm2"]["bias"])
     return x, linear(p["mlp"]["fc1"], h, int8_impl)
 
 
 def _post_attention(p, x, attn, int8_impl: str):
-    """Everything of a float block behind the attention call."""
-    x, h = _mlp_hidden(p, x, attn, int8_impl)
-    return x + linear(p["mlp"]["fc2"], quick_gelu(h), int8_impl)
+    """Everything of a block behind the attention call: out-projection +
+    residual, then LN2 + MLP + residual (`mlp_block`: on 'qt' leaves one
+    straight-through op, B5)."""
+    x = x + linear(p["attn"]["out"], attn, int8_impl)
+    return mlp_block(p["mlp"], p["norm2"], x, quick_gelu, residual=x,
+                     int8_impl=int8_impl)
 
 
 _GEMM_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -351,11 +378,28 @@ def _block_remat(policy: str, p, g_prompt, x, cfg: VisionConfig,
       dots           one segment under a selective policy that keeps the
                      GEMM outputs; the attention is recomputed.
 
-    Float leaves only: the int8 paths are inference paths."""
-    if quant_kind(p["attn"]["q"]["kernel"]) is not None:
+    Frozen-int8 blocks ('qt' leaves) take every policy and give the values
+    of remat 'none'. Their straight-through ops are opaque to the JAX
+    policies, which then name no q / k / v ('qkv') and no fc1
+    pre-activation ('mlp_h') on this path, so here as there:
+
+      full           the whole block again: B3a, the attention forward, B2
+                     and B5;
+      save_attn      the attention's output and denominators stay; B3a
+      save_attn_qkv  (the q, k, v the attention backward reads), B2 and B5
+      save_attn_mlp  run again;
+      dots           as full, except that the outputs of stock GEMMs stay:
+                     those of the prompt extras (and, on the CPU, the plain
+                     versions' integer products).
+
+    Float and 'qt' leaves only: 'qa' / 'q' leaves are inference-only."""
+    kind = quant_kind(p["attn"]["q"]["kernel"])
+    if kind not in (None, "qt"):
         raise NotImplementedError(
-            "remat policies apply to float blocks; the int8 leaves are "
-            "inference-only")
+            "remat policies apply to float and frozen-int8 ('qt') blocks; "
+            "the 'qa' / 'q' int8 leaves are inference-only")
+    if kind == "qt" and policy.startswith("save_attn"):
+        policy = "save_attn"
     ck = dict(use_reentrant=False)
     if policy == "full":
         return checkpoint(_block, p, g_prompt, x, cfg, attn_impl, int8_impl,

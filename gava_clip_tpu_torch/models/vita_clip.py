@@ -120,7 +120,8 @@ def _tree_to(tree, device):
 
 
 def _per_kv_text_features(cfg: VitaClipConfig, params, buffers,
-                          compute_dtype, attn_impl: str = "xla"):
+                          compute_dtype, attn_impl: str = "xla",
+                          int8_impl: str = "kernel"):
     """Shared text-branch core (apply and text_features_only must never
     diverge: the kv-masked mean and the EOT-pooling quirk are
     parity-sensitive): assemble prompts, batch-encode, l2-normalize.
@@ -131,7 +132,7 @@ def _per_kv_text_features(cfg: VitaClipConfig, params, buffers,
                             prompt_embeds.reshape(n_cls * max_kv, L, W),
                             buffers["pool_idx"].reshape(n_cls * max_kv),
                             cfg.text, compute_dtype=compute_dtype,
-                            attn_impl=attn_impl)
+                            attn_impl=attn_impl, int8_impl=int8_impl)
     tf = _l2norm(tf.float()).reshape(n_cls, max_kv, -1)
     kv_mask = buffers["kv_mask"]
     kv_count = kv_mask.sum(-1, keepdim=True).clamp_min(1.0)
@@ -161,7 +162,7 @@ def apply(cfg: VitaClipConfig, params: Dict, buffers: Dict, x: torch.Tensor,
 
     if cfg.use_text_prompt_learning:
         tf, kv_mask, kv_count = _per_kv_text_features(
-            cfg, params, buffers, compute_dtype, attn_impl)
+            cfg, params, buffers, compute_dtype, attn_impl, int8_impl)
         sim = logit_scale * torch.einsum("be,cke->bck", video_features, tf)
         if desc_wise:
             out["desc_logits"] = sim                    # (B, n_cls, max_kv)

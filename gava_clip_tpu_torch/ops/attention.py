@@ -60,7 +60,9 @@ def multi_head_attention(params: Dict, q: torch.Tensor, k: torch.Tensor,
     w8a8 self-attention (q is k is v, 'qa' leaves) on the kernel path
     projects q, k and v in one launch that quantizes the rows once
     (`w8a8_matmul3`), as the JAX function does when its kernels are
-    active."""
+    active. Frozen-training 'qt' leaves have no fused branch (nor in the
+    JAX function): q, k, v and out are four `linear` calls, each one
+    straight-through B2 launch."""
     from . import int8_matmul
     if q is k and k is v and quant_kind(params["q"]["kernel"]) == "qa" \
             and int8_matmul._use_kernel(q, int8_impl):

@@ -49,11 +49,22 @@ Dispatch: `impl="kernel"` (the default) runs the plain version for a CPU
 tensor and the CUDA kernel for a CUDA tensor (or raises: there is no
 fallback); `impl="plain"` runs the plain version on any device, which is
 how a run holds the kernels against it on the card.
+
+Int8-forward training of frozen weights (`--int8_frozen`, JAX
+`int8_linear_st`, `int8_qkv3_st`, `int8_mlp_st`) runs B2, B3a and B5 (or
+their plain versions, by `impl`) inside three autograd functions whose
+backwards compute dx alone by the JAX formulas; their leaves are the
+frozen-training {'qt', 'scale'[, 'qt_t']}. On the card the kernels take
+bf16 rows only, and fp32 rows raise. The generic JAX helpers
+`quantize_act`, `int8_apply` and `int8_dynamic_linear` are ported beside
+them.
 """
 
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+
+from .quant import dequantize_weight
 
 _INV127 = 1.0 / 127.0     # applied as fp32(1/127), as the kernels do
 _LN_EPS = 1e-5
@@ -257,16 +268,18 @@ def w8_layout_inverse(tiles: torch.Tensor, K: int, N: int) -> torch.Tensor:
 
 def with_kernel_layout(tree):
     """A copy of a param tree in which every w8a8 kernel leaf {'qa',
-    'scale'} also carries 'qa_t' = kernel_layout(qa), and every w8 leaf
+    'scale'} also carries 'qa_t' = kernel_layout(qa), every frozen-training
+    leaf {'qt', 'scale'} 'qt_t' = kernel_layout(qt), and every w8 leaf
     {'q', 'scale'} 'q_t' = w8_kernel_layout(q). Made once, where the weights
     are placed on the device (the CUDA wrappers read only these copies; the
-    plain versions only 'qa' / 'q')."""
+    plain versions only 'qa' / 'qt' / 'q')."""
     if isinstance(tree, list):
         return [with_kernel_layout(v) for v in tree]
     if not isinstance(tree, dict):
         return tree
     out = {k: with_kernel_layout(v) for k, v in tree.items()}
-    for key, layout in (("qa", kernel_layout), ("q", w8_kernel_layout)):
+    for key, layout in (("qa", kernel_layout), ("qt", kernel_layout),
+                        ("q", w8_kernel_layout)):
         if isinstance(tree.get(key), torch.Tensor) and "scale" in tree:
             out[key + "_t"] = layout(tree[key])
     return out
@@ -756,3 +769,205 @@ def quantized_linear(params, x, impl: str = "kernel"):
     y = y.reshape(*x.shape[:-1], y.shape[-1])
     bias = params.get("bias")
     return y if bias is None else y + bias.to(y.dtype)
+
+
+# ---------------------------------------------------------------------------
+# int8 training of frozen weights (`--int8_frozen`): the generic w8a8
+# helpers of the JAX package and its three straight-through ops
+# ---------------------------------------------------------------------------
+
+def quantize_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric int8 quantization (JAX `quantize_act`): int8 codes
+    and the fp32 row scale xs (..., 1). Unlike the kernels' `quant_rows` it
+    divides by xs (a tensor by a tensor, one IEEE rounding) and clips to
+    +-127, so a code can differ from theirs by one at a rounding tie."""
+    xf = x.float()
+    xs = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-6) * \
+        _INV127
+    return torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8), xs
+
+
+def int8_apply(qleaf, xq: torch.Tensor, xs: torch.Tensor, bias=None,
+               out_dtype=None) -> torch.Tensor:
+    """The int8 product of codes xq (..., K) and the leaf's 'qa' (K, N),
+    rescaled by xs and the channel scales [+ bias] in fp32, cast to
+    out_dtype (xs's dtype by default) (JAX `int8_apply`)."""
+    q = qleaf["qa"]
+    acc = int_matmul(xq.reshape(-1, xq.shape[-1]), q)
+    y = rescale(acc, xs.reshape(-1, 1), qleaf["scale"], bias)
+    return y.reshape(*xq.shape[:-1], q.shape[-1]).to(out_dtype or xs.dtype)
+
+
+def int8_dynamic_linear(params, x: torch.Tensor,
+                        impl: str = "kernel") -> torch.Tensor:
+    """A whole w8a8 linear over a 'qa' leaf (JAX `int8_dynamic_linear`):
+    the B2 kernel on the card, else the composition `quantize_act` +
+    `int8_apply` with the bias added in the output dtype, as the JAX
+    function runs where its kernels are not active."""
+    kernel, bias = params["kernel"], params.get("bias")
+    x2 = x.reshape(-1, x.shape[-1])
+    if _use_kernel(x2, impl):
+        y = w8a8_matmul_cuda(x2, kernel, bias)
+    else:
+        y = int8_apply(kernel, *quantize_act(x2), out_dtype=x.dtype)
+        if bias is not None:
+            y = y + bias.to(y.dtype)
+    return y.reshape(*x.shape[:-1], y.shape[-1])
+
+
+# The straight-through ops run frozen projections (the CLIP backbone) with
+# an int8 forward through the w8a8 ops (B2, B3a, B5, or their plain versions)
+# and a backward that computes dx alone, by the JAX package's formulas: the
+# weight dequantized in the cotangent's dtype, the quantization passed
+# straight through, no gradient for the int8 weights, scales, biases or
+# LayerNorm parameters (frozen). The backward never reads the forward's
+# output, so the kernel path and the plain path give the same dx.
+
+def _as_w8a8_leaf(kernel) -> Dict:
+    """A frozen-training leaf {'qt', 'scale'[, 'qt_t']} as the w8a8 ops'
+    leaf {'qa', 'scale'[, 'qa_t']}."""
+    out = {"qa": kernel["qt"], "scale": kernel["scale"]}
+    if "qt_t" in kernel:
+        out["qa_t"] = kernel["qt_t"]
+    return out
+
+
+def _st_rows(name: str, x: torch.Tensor, impl: str) -> None:
+    """On the kernel path the w8a8 kernels take bf16 rows only: fp32 rows
+    raise rather than being cast."""
+    if _use_kernel(x, impl) and x.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"{name}: the w8a8 kernels take bfloat16 rows, got {x.dtype}; "
+            f"fp32 rows for B2 / B3a / B5 are ROADMAP A11 (train with "
+            f"bf16 on the card)")
+
+
+def _dequant_as(kernel, dtype) -> torch.Tensor:
+    """The (K, N) weight of a w8a8 leaf in `dtype`, as JAX's
+    straight-through backwards dequantize it."""
+    return dequantize_weight(kernel["qa"], kernel["scale"], dtype)
+
+
+def _ln_stats(x32: torch.Tensor, eps: float = _LN_EPS):
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mean).square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    return (x32 - mean) * inv, inv
+
+
+def _ln_bwd_input(g_n, xhat, inv, gamma):
+    """dx of y = gamma * xhat + beta with respect to x, gamma and beta
+    constant."""
+    g = g_n * gamma
+    return inv * (g - g.mean(dim=-1, keepdim=True)
+                  - xhat * (g * xhat).mean(dim=-1, keepdim=True))
+
+
+def _f32_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of the fp32 values of a and b (JAX `a32 @ b.astype(f32)`).
+    bf16 operands on the card take the bf16 tensor-core product with fp32
+    accumulation and an fp32 output: each product of two bf16 values is
+    exact in fp32, so only the order of the fp32 sums differs from the
+    fp32 product, at the bf16 rate instead of the fp32 one."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+def _quick_gelu_grad(h: torch.Tensor) -> torch.Tensor:
+    s = torch.sigmoid(1.702 * h)
+    return s + h * 1.702 * s * (1.0 - s)
+
+
+class _Int8LinearST(torch.autograd.Function):
+    """JAX `int8_linear_st`: saves no activation."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias, impl):
+        ctx.kernel = kernel
+        y = w8a8_matmul(x.reshape(-1, x.shape[-1]), kernel, bias, impl=impl)
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        w = _dequant_as(ctx.kernel, g.dtype)
+        dx = g.reshape(-1, g.shape[-1]) @ w.t()
+        return dx.reshape(*g.shape[:-1], w.shape[0]), None, None, None
+
+
+class _Int8QKV3ST(torch.autograd.Function):
+    """JAX `int8_qkv3_st`: saves the input rows."""
+
+    @staticmethod
+    def forward(ctx, x, kernels3, bias3, ln, impl):
+        ctx.save_for_backward(x)
+        ctx.kernels3, ctx.gamma = kernels3, ln[0]
+        return w8a8_matmul3(x, kernels3, bias3, ln, impl=impl)
+
+    @staticmethod
+    def backward(ctx, gq, gk, gv):
+        x, = ctx.saved_tensors
+        dn = None
+        for gi, kernel in zip((gq, gk, gv), ctx.kernels3):
+            d = gi @ _dequant_as(kernel, gi.dtype).t()
+            dn = d if dn is None else dn + d
+        xhat, inv = _ln_stats(x.float())
+        dx = _ln_bwd_input(dn.float(), xhat, inv, ctx.gamma.float())
+        return dx.to(x.dtype), None, None, None, None
+
+
+class _Int8MlpST(torch.autograd.Function):
+    """JAX `int8_mlp_st`: saves the input rows; the backward recomputes LN2
+    and fc1 in the cotangent's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, fc1, fc2, ln, residual, impl):
+        ctx.save_for_backward(x)
+        ctx.fc1, ctx.fc2, ctx.ln = fc1, fc2, ln
+        return w8a8_mlp_res(x, fc1, fc2, ln, residual, impl=impl)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        xhat, inv = _ln_stats(x.float())
+        gamma = ctx.ln[0].float()
+        n = (xhat * gamma + ctx.ln[1].float()).to(g.dtype)
+        w1 = _dequant_as(ctx.fc1["kernel"], g.dtype)
+        w2 = _dequant_as(ctx.fc2["kernel"], g.dtype)
+        h = (n @ w1).float() + ctx.fc1["bias"].float()
+        da = _f32_product(g, w2.t())
+        dh = (da * _quick_gelu_grad(h)).to(g.dtype)
+        dx = _ln_bwd_input((dh @ w1.t()).float(), xhat, inv, gamma)
+        return dx.to(x.dtype), None, None, None, g, None
+
+
+def int8_linear_st(x: torch.Tensor, kernel, bias=None,
+                   impl: str = "kernel") -> torch.Tensor:
+    """x (..., K) through a frozen int8 linear: B2 (`w8a8_matmul`) forward,
+    dx = g @ dequant(W)^T backward (JAX `int8_linear_st`). kernel: a 'qt'
+    leaf."""
+    _st_rows("int8_linear_st", x, impl)
+    return _Int8LinearST.apply(x, _as_w8a8_leaf(kernel), bias, impl)
+
+
+def int8_qkv3_st(x: torch.Tensor, kernels3: Sequence, bias3: Sequence,
+                 ln: Sequence, impl: str = "kernel"):
+    """LN1 + one shared quant + the q/k/v int8 GEMMs over (M, K) rows, B3a
+    (`w8a8_matmul3`) forward; backward dx = the LayerNorm input formula on
+    sum_i g_i @ dequant(W_i)^T (JAX `int8_qkv3_st`). kernels3: three 'qt'
+    leaves; ln: (scale, bias)."""
+    _st_rows("int8_qkv3_st", x, impl)
+    return _Int8QKV3ST.apply(x, tuple(_as_w8a8_leaf(k) for k in kernels3),
+                             tuple(bias3), tuple(ln), impl)
+
+
+def int8_mlp_st(x: torch.Tensor, fc1, fc2, ln: Sequence,
+                residual: torch.Tensor, impl: str = "kernel"):
+    """residual + fc2(QuickGELU(fc1(LN2(x)))) over (M, K) rows, B5
+    (`w8a8_mlp_res`) forward; backward dx through LN2, fc1 recomputed and
+    QuickGELU's derivative, and the residual's cotangent g (JAX
+    `int8_mlp_st`). fc1 / fc2: {'kernel': 'qt' leaf, 'bias'}."""
+    _st_rows("int8_mlp_st", x, impl)
+    fc1, fc2 = ({"kernel": _as_w8a8_leaf(fc["kernel"]), "bias": fc["bias"]}
+                for fc in (fc1, fc2))
+    return _Int8MlpST.apply(x, fc1, fc2, tuple(ln), residual, impl)

@@ -12,6 +12,10 @@ ops/flash_attention.py), and adds the int8 sidecar `kernel_q8` beside the
 float patch-embed kernel for the patch-major input path.
 act_quant=False (w8, weight-only) makes {'q', 'scale'} leaves, which
 `ops.linear` runs through the dequant GEMM (`int8_matmul.quantized_linear`).
+`quantize_frozen_for_train` makes {'qt', 'scale'} leaves of the frozen
+half of a train state (`--int8_frozen`), which `ops.linear` and the vision
+tower run through the straight-through int8 ops (int8 forward through the
+w8a8 kernels, dx only in the backward).
 
 Trees are the port's nested dicts (blocks as a per-layer list); the result
 is bit-equal to the JAX function on the same weights.
@@ -36,18 +40,47 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
-def _quantize_visit(tree, path: str, key: str):
+def dequantize_weight(q: torch.Tensor, scale: torch.Tensor,
+                      dtype=torch.bfloat16) -> torch.Tensor:
+    """int8 values times their scales, both cast to `dtype` first (JAX
+    `dequantize_weight`: two roundings in a low-precision dtype)."""
+    return q.to(dtype) * scale.to(dtype)
+
+
+def _quantize_visit(tree, path: str, key: str, quantize=quantize_weight):
     if isinstance(tree, dict):
-        return {k: _quantize_visit(v, f"{path}/{k}", key)
+        return {k: _quantize_visit(v, f"{path}/{k}", key, quantize)
                 for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_quantize_visit(v, f"{path}/{i}", key)
+        return [_quantize_visit(v, f"{path}/{i}", key, quantize)
                 for i, v in enumerate(tree)]
-    if path.endswith("kernel") and tree.dim() >= 2 and \
+    if tree is not None and path.endswith("kernel") and tree.dim() >= 2 and \
             any(f"/{k}/" in path for k in QUANT_KEY_FRAGMENTS):
-        q, scale = quantize_weight(tree)
+        q, scale = quantize(tree)
         return {key: q, "scale": scale}
     return tree
+
+
+def _quantize_frozen_weight(w: torch.Tensor):
+    """JAX `quantize_frozen_for_train`'s per-leaf formula: the scale is 1
+    where a column's absmax is 0, else absmax / 127; the values are
+    w / scale rounded half to even and clipped to +-127. (`quantize_weight`
+    tests the scale for 0 instead, which differs where absmax / 127
+    underflows.)"""
+    w = w.detach().float()
+    absmax = w.abs().amax(dim=-2, keepdim=True)
+    scale = torch.where(absmax == 0, torch.ones_like(absmax), absmax / 127.0)
+    q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def quantize_frozen_for_train(frozen: Dict) -> Dict:
+    """The frozen half of a train state with its projection kernels (ndim
+    >= 2, under `/attn/` or `/mlp/`) as {'qt': int8 (K, N), 'scale': fp32
+    (1, N)} leaves; None placeholders and every other leaf pass through.
+    Bit-equal to the JAX function on the same weights. The trainable half
+    must never pass through here: its leaves need their own gradients."""
+    return _quantize_visit(frozen, "", "qt", _quantize_frozen_weight)
 
 
 def quantize_tower_params(params: Dict, act_quant: bool = False) -> Dict:
@@ -143,7 +176,7 @@ def dequantize_tree(params, dtype=torch.bfloat16):
     beside it is the real one)."""
     q = _quant_values(params)
     if q is not None:
-        return q.to(dtype) * params["scale"].to(dtype)
+        return dequantize_weight(q, params["scale"], dtype)
     if isinstance(params, dict):
         return {k: dequantize_tree(v, dtype) for k, v in params.items()
                 if k != "kernel_q8"}

@@ -8,6 +8,13 @@ update is in place, so nothing is copied that donation would save).
 Micro-batching (`batch_split`) is a loop over micro-batches whose
 gradients accumulate in `.grad`: each micro-batch's loss is divided by
 `batch_split`, which averages the gradients as the JAX `lax.scan` does.
+
+`frozen_int8` (`--int8_frozen`) runs the frozen projection kernels of both
+towers as 'qt' leaves (ops/quant.quantize_frozen_for_train): int8 forwards
+through the w8a8 kernels, dx alone in the backward. The JAX step
+requantizes the frozen tree inside every step; the loss here quantizes it
+once and again only when a frozen leaf is replaced or written in place
+(the same bits: the frozen leaves do not change).
 """
 
 from dataclasses import dataclass
@@ -17,6 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from ..data.device_preprocess import normalize_frames
+from ..ops.int8_matmul import with_kernel_layout
+from ..ops.quant import quantize_frozen_for_train
 from .losses import cross_entropy, focal_ordinal_weight, sigmoid_focal_loss
 from .state import TrainState, combine_params, tree_leaves
 
@@ -71,23 +80,49 @@ def compute_losses(outputs: Dict, labels: torch.Tensor,
     return total, {k: v.detach() for k, v in metrics.items()}
 
 
+def quantize_frozen(frozen: Dict) -> Dict:
+    """The frozen tree of a train state as `frozen_int8` runs it: 'qt'
+    leaves, with the W^T copies the CUDA kernels read."""
+    return with_kernel_layout(quantize_frozen_for_train(frozen))
+
+
+class _QuantizedFrozen:
+    """`quantize_frozen` of a frozen tree, made again only when one of its
+    leaves was replaced or written in place (a leaf's version counter moves
+    then, as under a checkpoint load)."""
+
+    def __init__(self):
+        self.key, self.leaves, self.tree = None, None, None
+
+    def __call__(self, frozen: Dict) -> Dict:
+        leaves = [t for t in tree_leaves(frozen) if t is not None]
+        key = [(id(t), t._version) for t in leaves]
+        if key != self.key:
+            # the leaves are held, so no id is reused while the key stands
+            self.key, self.leaves = key, leaves
+            self.tree = quantize_frozen(frozen)
+        return self.tree
+
+
 def make_loss_fn(model, loss_cfg: LossConfig, compute_dtype=torch.float32,
                  attn_impl: str = "xla", remat="none",
-                 frozen_int8: bool = False) -> Callable:
+                 frozen_int8: bool = False,
+                 int8_impl: str = "kernel") -> Callable:
     """(trainable, frozen, batch) -> (loss, metrics): the differentiable
-    core of make_train_step, exposed for tests and custom loops."""
-    if frozen_int8:
-        raise NotImplementedError(
-            "frozen_int8: int8 forwards of the frozen GEMMs ('qt' leaves) "
-            "come with the int8 training slice (ROADMAP A9)")
+    core of make_train_step, exposed for tests and custom loops. With
+    frozen_int8 the frozen tree is quantized at the first call and again
+    only after one of its leaves changed (see the module docstring);
+    int8_impl 'plain' runs the int8 ops' plain versions on any device."""
+    frozen_of = _QuantizedFrozen() if frozen_int8 else (lambda f: f)
 
     def loss_fn(trainable, frozen, batch):
-        params = combine_params(trainable, frozen)
+        params = combine_params(trainable, frozen_of(frozen))
         outputs = model.apply(params, model.buffers, batch["video"],
                               memory=batch.get("memory"),
                               video_nte=batch.get("nte"),
                               compute_dtype=compute_dtype,
-                              attn_impl=attn_impl, remat=remat)
+                              attn_impl=attn_impl, remat=remat,
+                              int8_impl=int8_impl)
         return compute_losses(outputs, batch["labels"],
                               batch.get("mt_labels"), loss_cfg)
 
@@ -104,7 +139,9 @@ def make_train_step(model, loss_cfg: LossConfig, optimizer=None,
     is kept so that a call reads like the JAX one. The step updates
     `state` in place and returns it. remat: False / 'none' | True /
     'full' | 'save_attn' | 'save_attn_qkv' | 'save_attn_mlp' | 'dots'
-    (see models/vision.py `_block_remat`).
+    (see models/vision.py `_block_remat`). frozen_int8: the frozen
+    projections as int8 ('qt') leaves, quantized once (see the module
+    docstring); the trainable leaves never pass through the quantizer.
 
     batch = {'video': (B,T,H,W,3), 'labels': (B,), 'nte': (B,70,E)?,
              'memory': (Bm,S,E)?, 'mt_labels': (Bm,)?}

@@ -167,8 +167,8 @@ def setup_train_args(parser: argparse.ArgumentParser):
     parser.add_argument('--int8_frozen', action='store_true',
                         help='run the frozen CLIP backbone projections as '
                              'int8 GEMMs in the train forward (straight-'
-                             'through bf16 backward for dx). Not ported '
-                             'yet: raises (ROADMAP A9)')
+                             'through backward for dx alone; train with '
+                             '--use_bf16 on the card)')
     parser.add_argument('--debug_attn_clamp', action='store_true',
                         help='monitor the flash-attention exp2-clamp: '
                              'recompute the exact max scaled logit outside '

@@ -11,12 +11,12 @@ so that a test can set `jax.grad`'s tree beside the port's leaf by leaf.
 Neither direction needs JAX.
 
 Quantized trees (ops/quant.py) go across both ways: a w8a8 leaf
-{'qa': int8 (L, K, N), 'scale': fp32 (L, 1, N)} or a weight-only leaf
-{'q', 'scale'} becomes per-layer leaves of the same keys, and the
-patch-embed sidecar `kernel_q8` goes with it; int8 stays int8 and scales
-stay fp32. The W^T copies the CUDA kernels read are added where the weights
-are placed (`ops.int8_matmul.with_kernel_layout`), not here.
-Frozen-training 'qt' leaves (ROADMAP A9) raise.
+{'qa': int8 (L, K, N), 'scale': fp32 (L, 1, N)}, a weight-only leaf
+{'q', 'scale'} or a frozen-training leaf {'qt', 'scale'} becomes per-layer
+leaves of the same keys, and the patch-embed sidecar `kernel_q8` goes with
+it; int8 stays int8 and scales stay fp32. The W^T copies the CUDA kernels
+read are added where the weights are placed
+(`ops.int8_matmul.with_kernel_layout`), not here.
 """
 
 from typing import Dict, Mapping
@@ -41,13 +41,9 @@ def _take(src, i: int, n: int, path: str):
 def _convert_quant(src, expected, path: str, device):
     """A quantized kernel leaf whose float form has expected's shape."""
     keys = set(src)
-    if keys == {"qt", "scale"}:
-        raise NotImplementedError(
-            f"{path}: frozen-int8 training ('qt') leaves are not ported yet "
-            f"(ROADMAP A9)")
-    if keys not in ({"qa", "scale"}, {"q", "scale"}):
+    key = next((k for k in ("qa", "q", "qt") if keys == {k, "scale"}), None)
+    if key is None:
         raise KeyError(f"{path}: not a quantized leaf: keys {sorted(keys)}")
-    key = "qa" if "qa" in keys else "q"
     q, scale = np.asarray(src[key]), np.asarray(src["scale"])
     K, N = tuple(expected.shape)
     if q.dtype != np.int8 or q.shape != (K, N) or \

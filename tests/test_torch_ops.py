@@ -104,15 +104,30 @@ def test_linear_and_mlp_block():
 
 
 def test_linear_rejects_quantized_leaf():
-    """w8a8 'qa' and weight-only 'q' leaves are ported; frozen-training
-    'qt' (A9) leaves still raise, and an unknown leaf is refused."""
-    leaf = {"kernel": {"qt": torch.zeros(4, 4, dtype=torch.int8),
-                       "scale": torch.ones(1, 4)}}
-    with pytest.raises(NotImplementedError, match="A9"):
-        tlin.linear(leaf, torch.zeros(2, 4))
+    """w8a8 'qa', weight-only 'q' and frozen-training 'qt' leaves are
+    ported, and an unknown leaf is refused. A 'qt' leaf is the w8a8 linear
+    of its plain math: per-row scale xs = absmax / 127, codes rint(x / xs),
+    exact integer products rescaled by xs and the channel scales, + bias;
+    its dx is g @ (values * scales)^T (bit for bit: fp32 products of the
+    same values), and the frozen leaf gets no gradient."""
+    rs = np.random.RandomState(3)
+    q = torch.from_numpy(rs.randint(-127, 128, (24, 16)).astype(np.int8))
+    scale = torch.from_numpy(rs.rand(1, 16).astype(np.float32)) * 1e-2
+    bias = torch.from_numpy(rs.randn(16).astype(np.float32)).requires_grad_()
+    x = torch.from_numpy(rs.randn(3, 5, 24).astype(np.float32))
+    x.requires_grad_()
+    out = tlin.linear({"kernel": {"qt": q, "scale": scale}, "bias": bias}, x)
+    xs = x.detach().abs().amax(-1, keepdim=True) * np.float32(1 / 127)
+    codes = torch.round(x.detach() * torch.reciprocal(xs))
+    want = (codes.double() @ q.double()).float() * xs * scale[0] + bias
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    g = torch.from_numpy(rs.randn(3, 5, 16).astype(np.float32))
+    out.backward(g)
+    assert torch.equal(x.grad, g @ (q.float() * scale).t())
+    assert bias.grad is None
     with pytest.raises(TypeError, match="unknown kernel leaf"):
         tlin.linear({"kernel": {"w4": torch.zeros(4, 4)}}, torch.zeros(2, 4))
-    for kind in ("qa", "q"):
+    for kind in ("qa", "q", "qt"):
         q = {"kernel": {kind: torch.ones(4, 4, dtype=torch.int8),
                         "scale": torch.ones(1, 4)}}
         out = tlin.linear(q, torch.ones(2, 4))

@@ -485,9 +485,23 @@ def test_remat_policies_that_are_not_ported_raise(models):
     with pytest.raises(ValueError, match="unknown remat"):
         vision_encoder(model.params["visual"], x, model.cfg.vision,
                        remat="everything")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tstep.make_train_step(model, tstep.LossConfig(num_classes=3),
-                              frozen_int8=True)
+    # frozen_int8 is ported too (tests/test_torch_int8_train.py): one step
+    # runs, moves the trainable leaves and leaves the frozen ones alone
+    opt = tstate.make_optimizer(1e-3, 10, 0.0)
+    st = tstate.create_train_state(
+        model.params, tvc.trainable_mask(model.params, model.cfg), opt,
+        device="cpu")
+    before = st.trainable["visual"]["time_embed"].detach().clone()
+    frozen = [p.clone() for p in tstate.tree_leaves(st.frozen)
+              if p is not None]
+    step = tstep.make_train_step(model, tstep.LossConfig(num_classes=3),
+                                 opt, frozen_int8=True)
+    st, metrics = step(st, _tb({k: v for k, v in _batch().items()
+                                if k in ("video", "labels")}))
+    assert st.step == 1 and np.isfinite(metrics["total"].item())
+    assert not torch.equal(st.trainable["visual"]["time_embed"], before)
+    assert all(torch.equal(a, b) for a, b in zip(
+        frozen, [p for p in tstate.tree_leaves(st.frozen) if p is not None]))
 
 
 def test_full_step_bf16(models):

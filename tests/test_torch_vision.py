@@ -236,18 +236,28 @@ def test_bridge_rejects_bad_trees(pair):
         params_from_jax(dict(p, visual=dict(p["visual"], blocks=blocks)),
                         cfg)
     # w8a8 and weight-only leaves go across (tests/test_torch_serve_w8a8.py,
-    # tests/test_torch_w8.py); frozen-training 'qt' (A9) leaves raise, a
-    # malformed one is refused
+    # tests/test_torch_w8.py), and so does a frozen-training 'qt' leaf
+    # (tests/test_torch_int8_train.py); a malformed one is refused
     for kind, scale, err, match in (
             ("q", (32,), ValueError, "int8"),
-            ("qt", (1, 32), NotImplementedError, "A9"),
+            ("qt", (1, 32), None, None),
             ("qa", (32,), ValueError, "int8")):
         quant = dict(p["visual"]["patch_embed"],
                      kernel={kind: np.zeros((768, 32), np.int8),
                              "scale": np.ones(scale, np.float32)})
+        tree = dict(p, visual=dict(p["visual"], patch_embed=quant))
+        if err is None:
+            leaf = params_from_jax(tree, cfg)["visual"]["patch_embed"][
+                "kernel"]
+            assert set(leaf) == {"qt", "scale"}
+            assert leaf["qt"].dtype == torch.int8
+            assert leaf["scale"].dtype == torch.float32
+            back = params_to_jax({"k": leaf})["k"]
+            assert back["qt"].dtype == np.int8 and back["qt"].shape == (
+                768, 32)
+            continue
         with pytest.raises(err, match=match):
-            params_from_jax(dict(p, visual=dict(p["visual"],
-                                                patch_embed=quant)), cfg)
+            params_from_jax(tree, cfg)
 
 
 def test_init_matches_jax_shapes_and_limits(pair):

@@ -466,20 +466,15 @@ def test_kernel_layout_is_cached_transpose():
 @pytest.mark.parametrize("kind,roadmap", [("q", "B9"), ("qt", "A9"),
                                           ("qa", "B5a")])
 def test_unported_quantized_leaves_raise(kind, roadmap):
-    """Only frozen-training 'qt' leaves (A9) still raise. Weight-only 'q'
-    leaves (B9) run the w8 GEMM, and 'qa' leaves in an MLP block without a
-    residual the fused w8a8_mlp (B5a): no NotImplementedError names them."""
+    """No quantized leaf raises any more: weight-only 'q' leaves (B9) run
+    the w8 GEMM, 'qa' leaves in an MLP block without a residual the fused
+    w8a8_mlp (B5a), frozen-training 'qt' leaves (A9) the straight-through
+    int8 ops (B2 each without a residual, B5 with one)."""
     leaf = {"kernel": {kind: torch.zeros(4, 4, dtype=torch.int8),
                        "scale": torch.ones(1, 4)}, "bias": torch.zeros(4)}
     norm = {"scale": torch.ones(4), "bias": torch.zeros(4)}
     block = {"fc1": leaf, "fc2": leaf}
     x = torch.zeros(2, 4)
-    if kind == "qt":
-        with pytest.raises(NotImplementedError, match=roadmap):
-            tlin.linear(leaf, x)
-        with pytest.raises(NotImplementedError, match=roadmap):
-            tlin.mlp_block(block, norm, x, quick_gelu, residual=x)
-        return
     assert tlin.linear(leaf, x).shape == (2, 4)
     for residual in (None, x):
         out = tlin.mlp_block(block, norm, x, quick_gelu, residual=residual)
