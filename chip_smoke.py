@@ -102,6 +102,23 @@ The training and evaluation programs:
           fc2 at rows of 2,048, each held bit for bit against
           w8a8_matmul_plain) and cli.zero_shot.main on a reference-format
           .pth written from a model's own weights;
+  gait-text  the gait-knowledge programs from 128 synthetic WHAM walks
+          drawn from a seed: offline.gait_params (10 parameters, so 210
+          combinations), offline.preprocess.data_preprocess on the card
+          through the flagship's text tower at full width in fp32 (107,520
+          sentences of 77 tokens in calls of 4,096: seconds, sentences/s,
+          peak memory; the bank unit-norm, every NTE file the means of its
+          bank rows, two combinations recomputed on the host within
+          BANK_HOST_ATOL), cli.train for 4 steps on a fold whose clips are
+          the bank's videos with the bank as support memory and its NTE
+          files (every read a real 210-row file; B6a, B6b, B7 launches),
+          cli.decoder_train for one epoch at the full DecapConfig (420
+          steps of 64: ms/step by the host clock and by CUDA events, peak
+          memory, the loss falls and the token accuracy rises), the host
+          loop, K/V-cached and 8-lane decoders on 64 bank features (the
+          same tokens on the first 8; captions/s, tokens/s), the bank's own
+          number tokens de-scaled through the scale dict and rendered, and
+          cli.decode's centroid study on the training run's checkpoint;
   driver-long  cli.train.main at 4 clips x 70 frames (selects
           save_attn_qkv), then the bare step under every remat policy:
           ms/step, peak memory, attention forward launches per step.
@@ -155,6 +172,7 @@ the JAX package.
 """
 
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -3251,11 +3269,14 @@ def _separable_clip(rs, label: int, T: int, S: int = 224) -> np.ndarray:
     return np.clip(clip, 0, 255).astype(np.uint8)
 
 
-def _write_fold(root: str, T: int, n_train: int, n_val: int, seed: int = 0):
+def _write_fold(root: str, T: int, n_train: int, n_val: int, seed: int = 0,
+                videos=None, memory: str = ""):
     """A synthetic fold under `root`: lists, decoded-view cache files in
     place of videos (no decoder needed), NTE arrays, the memory pickle, the
     knowledge directory and a classes file. Returns the program's data
-    arguments."""
+    arguments. With `videos` (n_train + n_val names) the clips are
+    `<name>*0.mp4`, whose NTE files `<name>.npy` the caller wrote under
+    root/nte, and `memory` is the memory pickle: neither is drawn here."""
     import pickle
     from gava_clip_tpu_torch.data.datasets import (VideoDataset,
                                                    VideoDatasetConfig)
@@ -3265,9 +3286,13 @@ def _write_fold(root: str, T: int, n_train: int, n_val: int, seed: int = 0):
                            f"{_REMAPPED}, which the fold remapping rewrites")
     rs = np.random.RandomState(seed)
     cache = os.path.join(root, "cache")
-    os.makedirs(os.path.join(root, "nte"))
+    os.makedirs(os.path.join(root, "nte"), exist_ok=videos is not None)
     for split, n in (("train", n_train), ("val", n_val)):
-        rows = [(f"{split}vid{i:03d}.mp4", i % 3) for i in range(n)]
+        if videos is None:
+            rows = [(f"{split}vid{i:03d}.mp4", i % 3) for i in range(n)]
+        else:
+            first = 0 if split == "train" else n_train
+            rows = [(f"{videos[first + i]}*0.mp4", i % 3) for i in range(n)]
         lst = os.path.join(root, f"{split}_updrs.csv")
         with open(lst, "w") as f:
             f.write("".join(f"{p},{c}\n" for p, c in rows))
@@ -3277,11 +3302,15 @@ def _write_fold(root: str, T: int, n_train: int, n_val: int, seed: int = 0):
             is_train=split == "train", cache_dir=cache))
         for path, label in rows:
             ds._cache_store(path, _separable_clip(rs, label, T)[None])
-            np.save(os.path.join(root, "nte", path.split(".")[0] + ".npy"),
-                    rs.randn(70, 512).astype(np.float32))
-    with open(os.path.join(root, "mem.pkl"), "wb") as f:
-        pickle.dump({"embeds": rs.randn(192, 4, 512).astype(np.float32),
-                     "updrs": np.arange(192) % 3}, f)
+            if videos is None:
+                np.save(os.path.join(root, "nte",
+                                     path.split(".")[0] + ".npy"),
+                        rs.randn(70, 512).astype(np.float32))
+    if not memory:
+        memory = os.path.join(root, "mem.pkl")
+        with open(memory, "wb") as f:
+            pickle.dump({"embeds": rs.randn(192, 4, 512).astype(np.float32),
+                         "updrs": np.arange(192) % 3}, f)
     classes = os.path.join(root, "classes.txt")
     with open(classes, "w") as f:
         f.write(FOLD_CLASSES)
@@ -3296,7 +3325,7 @@ def _write_fold(root: str, T: int, n_train: int, n_val: int, seed: int = 0):
             "--knowledge_dir", kdir,
             "--use_summary_token", "--use_local_prompts",
             "--use_global_prompts", "--use_support_memory",
-            "--memory_data_path", os.path.join(root, "mem.pkl"),
+            "--memory_data_path", memory,
             "--mem_batch_size", "64", "--clLoss_nte_video",
             "--use_focal_ordinal_loss", "--num_workers", "4"]
     for kv in KNOWLEDGE_VERSIONS:
@@ -3721,6 +3750,424 @@ TEXT_W8A8_MIN_COSINE = 0.95
 TEXT_QKV_ROWS, TEXT_WIDTH = 3 * len(KNOWLEDGE_VERSIONS) * 77, 512
 
 
+# the gait-text phase. 128 synthetic WHAM walks give the 10 gait
+# parameters of offline/gait_params, so C(10, 4) = 210 combinations and a
+# bank of 210 x 128 = 26,880 rows of 4 sentences (107,520 sentences)
+GAIT_VIDEOS = 128
+GAIT_SEED = 15
+GAIT_COMBINATIONS = 210
+GAIT_TRAIN_CLIPS, GAIT_VAL_CLIPS, GAIT_TRAIN_STEPS, GAIT_BATCH = 64, 16, 4, 16
+GAIT_DEVICE = "cuda"
+# the decoder at its full DecapConfig for one epoch of the bank (26,880 //
+# 64 = 420 steps); the program's defaults (1e-5 over a 1,000-step warm-up)
+# barely move the weights in 420 steps
+DECAP_ARGS = ["--bs", "64", "--epochs", "1", "--lr", "1e-4",
+              "--warmup_steps", "50"]
+DECAP_STEPS = GAIT_COMBINATIONS * GAIT_VIDEOS // 64
+DECODE_FEATURES, DECODE_CHECKED = 64, 8
+# unit-norm bank rows: a norm off by more than fp32 rounding of 512 squares
+BANK_NORM_TOL = 1e-5
+# two combinations (the first and the last), 8 videos each, recomputed by
+# the port on the host from the bank's own number tokens. Both sides are
+# fp32 with TF32 off: the same operations summed in another order (cuBLAS
+# against the host BLAS), each product of <= 2,048 terms off by ~sqrt(K)
+# 2^-24 relative, the 12 residual blocks adding rather than compounding
+# (LayerNorm rescales): ~1e-6 on these unit rows (~0.044 rms an element).
+# 2e-5 leaves a 10x margin; a bf16 tower (2^-8 relative), a wrong row, slot
+# or number level lands 10-1,000x above it
+BANK_HOST_COMBOS, BANK_HOST_VIDEOS, BANK_HOST_ATOL = (0, 209), 8, 2e-5
+# an NTE row is the mean of its bank row's 4 sentences: the same float32
+# operations on the same values, so only last-bit differences
+NTE_ATOL = 1e-6
+
+
+def _synthetic_walk(rs, n_frames=240, fps=30):
+    """A y-up SMPL walking skeleton (T, 24, 3) whose step frequency and
+    speed are drawn from `rs`: the pelvis advances in x, the feet alternate
+    (the pattern of the JAX package's offline tests)."""
+    step_freq, speed = rs.uniform(1.4, 2.2), rs.uniform(0.8, 1.5)
+    t = np.arange(n_frames) / fps
+    joints = np.zeros((n_frames, 24, 3))
+    phase = 2 * np.pi * step_freq * t
+    x = speed * t
+    joints[:, 0] = np.stack([x, 0.9 + 0.02 * np.sin(2 * phase),
+                             np.zeros_like(t)], 1)
+    joints[:, 1] = joints[:, 0] + [0, 0, 0.1]
+    joints[:, 2] = joints[:, 0] + [0, 0, -0.1]
+    joints[:, 10] = np.stack([x + 0.3 * np.sin(phase),
+                              0.05 + 0.05 * np.maximum(np.sin(phase), 0),
+                              0.1 * np.ones_like(t)], 1)
+    joints[:, 11] = np.stack([x - 0.3 * np.sin(phase),
+                              0.05 + 0.05 * np.maximum(-np.sin(phase), 0),
+                              -0.1 * np.ones_like(t)], 1)
+    return joints + rs.randn(*joints.shape) * 1e-3
+
+
+def _gait_bank(state, root: str):
+    """Steps 1-2: walks -> gait parameters -> metadata file -> the bank, the
+    scale dict and the NTE files through the flagship's text tower on the
+    card; the bank's checks. Returns (table, paths, bank)."""
+    import math
+    import pickle
+    import torch
+    from gava_clip_tpu_torch.models.text import (TextConfig,
+                                                 encode_text_embeds,
+                                                 init_text_params)
+    from gava_clip_tpu_torch.offline import gait_params, preprocess
+    from gava_clip_tpu_torch.text import tokenize
+    from gava_clip_tpu_torch.text.tokenizer import EOT_TOKEN, VOCAB_SIZE
+    from gava_clip_tpu_torch.utils.device import tree_to
+
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(GAIT_SEED)
+    skeletons = {f"walk{i:03d}": {"joints3D": _synthetic_walk(rs),
+                                      "gait_score": i % 3, "diag": i % 2}
+                 for i in range(GAIT_VIDEOS)}
+    table = gait_params.process_skeletons(skeletons)
+    meta = gait_params.save_metadata(
+        table, os.path.join(root, "tulip_basic_gparams.xlsx"))
+    log(f"[gait-text] {GAIT_VIDEOS} synthetic walks -> "
+        f"{len(table['vidname'])} rows of {len(gait_params.GAIT_PARAM_NAMES)}"
+        f" gait parameters -> {os.path.basename(meta)} in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    if len(table["vidname"]) != GAIT_VIDEOS or \
+            math.comb(len(gait_params.GAIT_PARAM_NAMES), 4) != \
+            GAIT_COMBINATIONS:
+        raise AssertionError("the gait-parameter table is short")
+
+    cfg = TextConfig()
+    text = init_text_params(torch.Generator().manual_seed(GAIT_SEED), cfg)
+    n_sent = GAIT_COMBINATIONS * 4 * GAIT_VIDEOS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rest = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    paths = preprocess.data_preprocess(meta, text, cfg,
+                                       save_dir=os.path.join(root, "gait"),
+                                       video_dir=root, device=GAIT_DEVICE)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - rest) / 2 ** 30
+    # the tower alone: one call of batch_rows sentences by CUDA events
+    params = tree_to(text, GAIT_DEVICE)
+    rows = preprocess.PreprocessConfig().batch_rows
+    x = torch.randn(rows, cfg.context_length, cfg.width, device=GAIT_DEVICE)
+    eot = torch.full((rows,), 4, dtype=torch.int32, device=GAIT_DEVICE)
+    with torch.inference_mode():
+        call_ms = cuda_time_ms(lambda: encode_text_embeds(params, x, eot, cfg),
+                               iters=3, warmup=1)
+    del params, x
+    flop = 2 * n_sent * cfg.context_length * cfg.layers * (
+        12 * cfg.width ** 2 + 2 * cfg.context_length * cfg.width)
+    tower_s = call_ms * n_sent / rows / 1e3
+    state["gait_bank"] = {"seconds": secs, "sentences_per_s": n_sent / secs,
+                          "peak_gib": peak, "call_ms": call_ms}
+    log(f"[gait-text] bank: {n_sent:,} sentences of {cfg.context_length} "
+        f"tokens through the text tower ({cfg.layers} x {cfg.width}, fp32, "
+        f"plain attention) in calls of {rows:,}: {secs:.2f} s by the host "
+        f"clock, {n_sent / secs:,.0f} sentences/s, peak "
+        f"{peak:.2f} GiB over the resting memory; one call of {rows:,} "
+        f"{call_ms:.1f} ms by CUDA events, so the tower ~{tower_s:.2f} s of "
+        f"it ({flop / 1e15:.3f} PFLOP, {flop / tower_s / 1e12:.1f} TFLOP/s; "
+        f"bound {flop / 67e12:.2f} s at 67 TFLOP/s fp32) ({state['smi']})")
+
+    with open(paths["data"], "rb") as f:
+        bank = pickle.load(f)
+    emb = bank["embeds"]
+    n_rows = GAIT_COMBINATIONS * GAIT_VIDEOS
+    norms = np.linalg.norm(emb, axis=-1)
+    if emb.shape != (n_rows, 4, cfg.embed_dim) or emb.dtype != np.float32 \
+            or not np.isfinite(emb).all() or \
+            np.abs(norms - 1).max() > BANK_NORM_TOL or \
+            bank["tokens"].shape != (n_rows, 77) or \
+            len(bank["text"]) != n_rows or \
+            ((bank["tokens"] >= VOCAB_SIZE).sum(1) != 4).any():
+        raise AssertionError(f"bank {emb.shape} {emb.dtype}, norms "
+                             f"{norms.min()}..{norms.max()}")
+    by_video = emb.reshape(GAIT_COMBINATIONS, GAIT_VIDEOS, 4, -1)
+    nte_err = 0.0
+    for v, vn in enumerate(table["vidname"]):
+        nte = np.load(os.path.join(paths["nte_dir"], f"{vn}.npy"))
+        if nte.shape != (GAIT_COMBINATIONS, cfg.embed_dim):
+            raise AssertionError(f"NTE file {vn}: {nte.shape}")
+        nte_err = max(nte_err, float(np.abs(
+            nte - by_video[:, v].mean(axis=1)).max()))
+
+    # two combinations recomputed on the host from the bank's own tokens
+    t0 = time.perf_counter()
+    host = tree_to(text, "cpu")
+    names = [k for k in table if k not in ("vidname", "updrs", "diag",
+                                           "leglength")]
+    base = preprocess.encode_tokens(host, tokenize(names), cfg)
+    base /= np.linalg.norm(base, axis=-1, keepdims=True)
+    combos = preprocess.enumerate_combinations(len(names))
+    rows_h = [c * GAIT_VIDEOS + v for c in BANK_HOST_COMBOS
+              for v in range(BANK_HOST_VIDEOS)]
+    tok = bank["tokens"][rows_h]
+    levels = (tok[tok >= VOCAB_SIZE] - VOCAB_SIZE).astype(np.int64)
+    name_idx = np.concatenate([combos[c] for c in BANK_HOST_COMBOS
+                               for _ in range(BANK_HOST_VIDEOS)])
+    template_ids = tokenize("X is X")[0]
+    ne = preprocess.orthogonal_num_embedding(
+        preprocess.sinusoidal_pe(1000, cfg.embed_dim))
+    with torch.inference_mode():
+        template = host["token_embedding"][torch.from_numpy(
+            template_ids).long()]
+    pooled = preprocess.encode_sentences(
+        host, template, int(np.argmax(template_ids == EOT_TOKEN)),
+        torch.from_numpy(base), torch.from_numpy(name_idx),
+        torch.from_numpy(levels), True, torch.from_numpy(ne),
+        torch.zeros(1, cfg.embed_dim, dtype=torch.float64), cfg, 4096)
+    pooled /= np.linalg.norm(pooled, axis=-1, keepdims=True)
+    host_err = float(np.abs(pooled.reshape(len(rows_h), 4, -1)
+                            - emb[rows_h]).max())
+    log(f"[gait-text] bank {emb.shape}, unit-norm within "
+        f"{np.abs(norms - 1).max():.2e}, finite; {GAIT_VIDEOS} NTE files of "
+        f"({GAIT_COMBINATIONS}, {cfg.embed_dim}), each row the mean of its "
+        f"bank row within {nte_err:.2e} (limit {NTE_ATOL}); combinations "
+        f"{BANK_HOST_COMBOS} x {BANK_HOST_VIDEOS} videos recomputed on the "
+        f"host in {time.perf_counter() - t0:.2f} s: max |card - host| "
+        f"{host_err:.2e} (limit {BANK_HOST_ATOL})")
+    if nte_err > NTE_ATOL or not host_err <= BANK_HOST_ATOL:
+        raise AssertionError("the bank disagrees with its NTE files or with "
+                             "the host")
+    return table, paths, bank
+
+
+def _gait_train(state, root: str, table, paths):
+    """Step 3: cli.train on a fold whose clips are the bank's videos, with
+    the port's bank as support memory and its NTE files. Returns the run's
+    best checkpoint."""
+    from gava_clip_tpu_torch.data import datasets as tds
+
+    videos = table["vidname"]
+    data_args, kdir = _write_fold(root, T=8, n_train=GAIT_TRAIN_CLIPS,
+                                  n_val=GAIT_VAL_CLIPS, videos=videos,
+                                  memory=paths["data"])
+    state["gait_kdir"] = kdir
+    reads = []
+    load_nte = tds.VideoDataset._load_nte
+
+    def counted(self, rel_path):
+        nte = load_nte(self, rel_path)
+        reads.append((rel_path, nte.shape, bool(np.any(nte))))
+        return nte
+
+    tds.VideoDataset._load_nte = counted
+    os.chdir(root)
+    _reset_launch_counts()
+    try:
+        logdir, rec = _train_main(data_args + [
+            "--batch_size", str(GAIT_BATCH), "--num_steps",
+            str(GAIT_TRAIN_STEPS),
+            "--print_freq", "1", "--lr", "1e-3",
+            "--eval_freq", str(GAIT_TRAIN_STEPS)], "gait_run")
+    finally:
+        tds.VideoDataset._load_nte = load_nte
+    counts = _launch_counts()
+    losses = [r["loss"] for r in rec if "loss" in r]
+    real = [r for r in reads if r[1] == (GAIT_COMBINATIONS, 512) and r[2]]
+    best = os.path.join(root, logdir, "fold_0", "fold-0-best.ckpt")
+    log(f"[gait-text] cli.train, {GAIT_TRAIN_STEPS} steps of {GAIT_BATCH} "
+        f"clips x 8 "
+        f"frames on the port's bank (--use_support_memory "
+        f"--clLoss_nte_video): losses {[round(x, 4) for x in losses]}; NTE "
+        f"reads {len(reads)}, {len(real)} of them a real "
+        f"({GAIT_COMBINATIONS}, 512) file, "
+        f"{len(reads) - len(real)} the zero default; launches {counts}")
+    per_run = 12 * GAIT_TRAIN_STEPS
+    if not losses or not np.isfinite(losses).all() or \
+            len(reads) < GAIT_TRAIN_STEPS * GAIT_BATCH or \
+            len(real) != len(reads) or \
+            not os.path.isfile(best) or \
+            any(counts[k] != per_run for k in (
+                "packed_attention_den", "packed_attention_bwd",
+                "streaming_attention_bwd")) or \
+            counts["streaming_attention"] < per_run:
+        raise AssertionError("cli.train on the port's bank failed its checks")
+    state["launches_gait"] = counts
+    return best
+
+
+def _gait_decoder(state, root: str, paths):
+    """Step 4: cli.decoder_train at the full DecapConfig on the bank, one
+    epoch; ms/step by the host clock and by CUDA events, peak memory."""
+    import torch
+    from gava_clip_tpu_torch.cli import decode as cli_decode
+    from gava_clip_tpu_torch.cli import decoder_train as cli_dt
+    from gava_clip_tpu_torch.train.state import tree_leaves
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rest = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    best = cli_dt.main(["--train_data", paths["data"], "--output_dir",
+                        os.path.join(root, "decap"), "--device", GAIT_DEVICE]
+                       + DECAP_ARGS)
+    secs = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - rest) / 2 ** 30
+    run = dict(cli_dt.last_run)
+    host_ms = run["seconds"] / max(run["steps"], 1) * 1e3
+
+    params, cfg = cli_decode.load_decap(best, GAIT_DEVICE)
+    ds = cli_dt.ClipGaitDataset(paths["data"])
+    opt, sched = cli_dt.make_optimizer(params, 1e-4, 50, DECAP_STEPS)
+    step = cli_dt.make_train_step(params, cfg, opt, sched)
+    rs = np.random.RandomState(0)
+    feeds = itertools.cycle([
+        (torch.from_numpy(ds.embeds[i]).to(GAIT_DEVICE),
+         torch.from_numpy(ds.tokens[i]).to(GAIT_DEVICE))
+        for i in (rs.randint(0, len(ds), 64) for _ in range(4))])
+    event_ms = cuda_time_ms(lambda: step(*next(feeds)), iters=20, warmup=3)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    del params, opt, step, feeds
+    tokens = 64 * 78
+    flop = 3 * 2 * tokens * (cfg.n_layer * 12 * cfg.n_embd ** 2
+                             + cfg.n_embd * cfg.vocab_size)
+    if len(run["prints"]) < 2:
+        raise AssertionError(f"{len(run['prints'])} prints of the decoder")
+    first, last = run["prints"][0], run["prints"][-1]
+    state["gait_decoder"] = {"host_ms": host_ms, "event_ms": event_ms,
+                             "peak_gib": peak}
+    log(f"[gait-text] cli.decoder_train, DecapConfig "
+        f"{cfg.n_layer} x {cfg.n_embd}, vocabulary {cfg.vocab_size:,}, "
+        f"{n_params / 1e6:.1f} M parameters, {' '.join(DECAP_ARGS)}: "
+        f"{run['steps']} steps in {secs:.1f} s ({run['seconds']:.1f} s of "
+        f"steps, {host_ms:.2f} ms/step by the host clock, the checkpoint "
+        f"write included); the bare step {event_ms:.2f} ms by CUDA events "
+        f"({flop / 1e12:.2f} TFLOP, {flop / event_ms / 1e9:.1f} TFLOP/s; "
+        f"bound {flop / 67e12 * 1e3:.1f} ms at 67 TFLOP/s fp32); peak "
+        f"{peak:.2f} GiB over the resting memory; prints (step, loss, acc) "
+        f"{[(s, round(l, 4), round(a, 4)) for s, l, a in run['prints']]}")
+    if run["steps"] != DECAP_STEPS or not np.isfinite(
+            [l for _, l, _ in run["prints"]]).all() or \
+            not last[1] < first[1] or not last[2] > first[2]:
+        raise AssertionError("the decoder did not learn: loss and accuracy "
+                             f"{first} -> {last}")
+    return best
+
+
+def _gait_decode(state, root: str, paths, bank, decap_ckpt: str,
+                 vlm_ckpt: str):
+    """Step 5: caption bank features with the three decoders; de-scale the
+    bank's own number tokens through the scale dict and render them; then
+    cli.decode's centroid study on the VLM checkpoint."""
+    import pickle
+    import torch
+    from gava_clip_tpu_torch.cli import decode as cli_decode
+    from gava_clip_tpu_torch.cli import decoder_train as cli_dt
+    from gava_clip_tpu_torch.models import decap
+    from gava_clip_tpu_torch.offline import preprocess
+    from gava_clip_tpu_torch.text import ClipBpeTokenizer
+    from gava_clip_tpu_torch.text.tokenizer import VOCAB_SIZE
+
+    params, cfg = cli_decode.load_decap(decap_ckpt, GAIT_DEVICE)
+    ds = cli_dt.ClipGaitDataset(paths["data"])
+    rows = np.linspace(0, len(ds) - 1, DECODE_FEATURES).astype(int)
+    feats = ds.embeds[rows]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    host, host_s = timed(lambda: [decap.greedy_decode(params, f, cfg)
+                                  for f in feats[:DECODE_CHECKED]])
+    cached_fn = decap.make_greedy_decoder(params, cfg)
+    cached, cached_s = timed(lambda: [cached_fn(f) for f in feats])
+    batched, batched_s = timed(
+        lambda: decap.make_batched_decoder(params, cfg, batch=8)(feats))
+    del params
+    n_tok = sum(len(t) for t, _ in batched)
+    agree = sum(a == b for a, b in zip(cached, batched))
+    with open(paths["scale"], "rb") as f:
+        scale = pickle.load(f)
+    extra = scale["extra_info"]
+    names = [k for k in scale if k != "extra_info"]
+    tok = ClipBpeTokenizer()
+    captions = [cli_decode.render_caption(list(t), n, scale, tok)
+                for t, n in batched]
+    decoded = [decap.descale_number(n, scale[k], extra)
+               for _, ns in batched for n in ns for k in names]
+
+    # the same rows' own tokens: each number token de-scales to its text's
+    # value within one quantization level (graduated / weight * std) plus
+    # the two roundings to 3 decimals, and the rendered caption carries it
+    combos = preprocess.enumerate_combinations(len(names))
+    worst, missing = 0.0, 0
+    for r in rows:
+        t = bank["tokens"][r].astype(int)
+        levels = (t[t >= VOCAB_SIZE] - VOCAB_SIZE).tolist()
+        combo = combos[r // GAIT_VIDEOS]
+        written = [float(seg.split()[1]) for seg in
+                   bank["text"][r].split(" , ")]
+        values = [decap.descale_number(n, scale[names[i]], extra)
+                  for n, i in zip(levels, combo)]
+        for v, w, i in zip(values, written, combo):
+            e = scale[names[i]]
+            worst = max(worst, abs(v - w) / (
+                extra["graduated"] / e["weight"] * e["std"] + 1e-3))
+        t = [decap.QUESTION_TOKEN if x >= VOCAB_SIZE else x
+             for x in t[:int(np.argmax(t == 49407)) + 1]]
+        words = cli_decode.render_caption(t, levels, scale, tok).split()
+        missing += sum(str(v) not in words for v in values)
+    state["gait_decode"] = {"captions_per_s": DECODE_FEATURES / batched_s,
+                            "tokens_per_s": n_tok / batched_s}
+    log(f"[gait-text] decoding {DECODE_FEATURES} bank features: host loop "
+        f"{DECODE_CHECKED} captions in {host_s:.2f} s "
+        f"({DECODE_CHECKED / host_s:.2f} captions/s); K/V-cached "
+        f"{DECODE_FEATURES / cached_s:.2f} captions/s; batched (8 lanes) "
+        f"{DECODE_FEATURES / batched_s:.2f} captions/s, "
+        f"{n_tok / batched_s:.0f} tokens/s ({n_tok} tokens); the cached and "
+        f"batched decoders agree on {agree} of {DECODE_FEATURES}, both with "
+        f"the host loop on the first {DECODE_CHECKED}: "
+        f"{cached[:DECODE_CHECKED] == host}, "
+        f"{batched[:DECODE_CHECKED] == host}; "
+        f"{len(decoded) // len(names)} numbers decoded; the rows' own number "
+        f"tokens de-scale to their text within {worst:.3f} of a level, "
+        f"{missing} missing from the rendered captions; e.g. {captions[:2]}")
+    if cached[:DECODE_CHECKED] != host or \
+            batched[:DECODE_CHECKED] != host or \
+            not np.isfinite(decoded).all() or worst > 1.0 or missing:
+        raise AssertionError("the decoders disagree, or a number does not "
+                             "de-scale")
+    t0 = time.perf_counter()
+    study = cli_decode.main(["--decap_ckpt", decap_ckpt, "--vlm_ckpt",
+                             vlm_ckpt, "--memory_bank", paths["data"],
+                             "--use_centroid", "--scale_dict", paths["scale"],
+                             "--output", os.path.join(root, "centroid.txt"),
+                             "--device", GAIT_DEVICE])
+    log(f"[gait-text] cli.decode --use_centroid on the run's checkpoint in "
+        f"{time.perf_counter() - t0:.2f} s: {study}")
+    if set(study) != {"updrs 0", "updrs 1", "updrs 2"} or \
+            not all(isinstance(v, str) for v in study.values()):
+        raise AssertionError("cli.decode's centroid study failed")
+
+
+def phase_gait_text(state):
+    """WHAM joints to captions on the card: gait parameters, the bank and
+    the NTE files, cli.train on them, the DeCap decoder and its decoding."""
+    import shutil
+    import tempfile
+    import torch
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="gava_gait_")
+    cwd = os.getcwd()
+    try:
+        table, paths, bank = _gait_bank(state, root)
+        vlm_ckpt = _gait_train(state, root, table, paths)
+        decap_ckpt = _gait_decoder(state, root, paths)
+        _gait_decode(state, root, paths, bank, decap_ckpt, vlm_ckpt)
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+        if state.get("gait_kdir"):
+            shutil.rmtree(state.pop("gait_kdir"), ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
 REMAT_POLICIES = ("none", "full", "save_attn", "save_attn_qkv",
                   "save_attn_mlp", "dots")
 # attention forward launches per step at 12 blocks: the policies that keep
@@ -3950,6 +4397,7 @@ def main(argv=None) -> int:
             ("train-recompute", phase_train_recompute),
             ("int8-train", phase_int8_train),
             ("driver", phase_cli),
+            ("gait-text", phase_gait_text),
             ("train-long", phase_train_long),
             ("driver-long", phase_cli_long)):
         t0 = time.perf_counter()

@@ -8,7 +8,9 @@ same. The buffers (`token_prefix`, `token_suffix`, `kv_mask`, `pool_idx`,
 `cntn_embeds`, `text_features`) cross as they are. Gradients and a train
 state go back to the JAX layout with None where the JAX partition has None,
 so that a test can set `jax.grad`'s tree beside the port's leaf by leaf.
-Neither direction needs JAX.
+The text tower alone and the DeCap decoder cross the same way
+(`text_params_from_jax`, `decap_params_from_jax`; `params_to_jax` takes
+any of the port's trees back). Neither direction needs JAX.
 
 Quantized trees (ops/quant.py) go across both ways: a w8a8 leaf
 {'qa': int8 (L, K, N), 'scale': fp32 (L, 1, N)}, a weight-only leaf
@@ -24,6 +26,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from ..models.decap import DecapConfig, init_decap_params
+from ..models.text import TextConfig, init_text_params
 from ..models.vita_clip import VitaClipConfig, init_vita_clip_params
 
 
@@ -93,6 +97,24 @@ def params_from_jax(params: Mapping, cfg: VitaClipConfig,
     """JAX VitaClip params (the whole tree that cfg asks for) -> the port's
     params, every shape checked; a missing or unused leaf raises."""
     expected = init_vita_clip_params(None, cfg, device="meta")
+    return _convert(params, expected, "", device)
+
+
+def text_params_from_jax(params: Mapping, cfg: TextConfig,
+                         device=None) -> Dict:
+    """A JAX `init_text_params` tree (the text tower alone, blocks stacked)
+    -> the port's `models/text.py` params; every shape checked, a missing or
+    unused leaf raises."""
+    expected = init_text_params(None, cfg, device="meta")
+    return _convert(params, expected, "", device)
+
+
+def decap_params_from_jax(params: Mapping, cfg: DecapConfig,
+                          device=None) -> Dict:
+    """JAX DeCap params (blocks stacked) -> the port's `models/decap.py`
+    params (one dict a layer); every shape checked, a missing or unused
+    leaf raises. `params_to_jax` takes them back."""
+    expected = init_decap_params(None, cfg, device="meta")
     return _convert(params, expected, "", device)
 
 
