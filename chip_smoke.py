@@ -112,6 +112,16 @@ The training and evaluation programs:
           BANK_HOST_ATOL), cli.train for 4 steps on a fold whose clips are
           the bank's videos with the bank as support memory and its NTE
           files (every read a real 210-row file; B6a, B6b, B7 launches),
+          the evaluation and analysis programs on that run: cli.iwa over
+          the run and a copy of it (equal weights; top-1 and confusion
+          those of cli.evaluate on the same val split; B1 12 a batch
+          forward), cli.analysis (every class's descriptor rows, every
+          precision in [0, 100]; B1 and B7 12 a forward), the memory
+          prompt through the text tower at full width (B7 against the
+          plain attention within MEMORY_PROMPT_REL_ERR; 12 launches) and
+          cli.visualize on the bank (PCA on the card against the host's
+          eigenvalues, --project_vlm with the run's checkpoint,
+          --pairwise; the .npz files finite, of the right shapes),
           cli.decoder_train for one epoch at the full DecapConfig (420
           steps of 64: ms/step by the host clock and by CUDA events, peak
           memory, the loss falls and the token accuracy rises), the host
@@ -3989,8 +3999,244 @@ def _gait_train(state, root: str, table, paths):
     return best
 
 
+# the memory prompt at the CLIP text tower's full width: 3 classes over 16
+# bank rows of 4 sentences, so 192 prompts of 77 tokens through the 12 x 512
+# tower in bf16, B7 against the plain attention. Both paths run the same
+# bf16 GEMMs, LayerNorms and MLPs; only the attention differs, where B7
+# rounds its one-pass probabilities to bf16 (2^-9 relative each) and the
+# plain path rounds the exact softmax: a few 2^-9 of each attention output,
+# 12 times into a LayerNorm-bounded residual stream, adding rather than
+# compounding: ~sqrt(12) x 2^-9 ~ 7e-3 at the very most, a few 1e-3
+# expected. 2e-2 relative L2 leaves that a margin of 3x; a wrong mask,
+# scale or row lands near 1
+MEMORY_PROMPT_ROWS, MEMORY_PROMPT_CLASSES = 16, 3
+MEMORY_PROMPT_REL_ERR = 2e-2
+# the PCA on the card: its two variances against the top two eigenvalues of
+# the same float32 rows' covariance on the host in float64, and its two
+# columns uncorrelated. Both sides work in float64 on the same values and
+# eigenvalues are well conditioned (Weyl), so they differ by summation
+# order (~1e-12); the points are stored in float32 (2^-24 each, ~1e-7 on a
+# variance). 1e-5 leaves 100x; a float32 SVD on the card moved them by
+# 2.2e-4, an uncentred or wrong subspace is off by O(1)
+PCA_REL_ERR = 1e-5
+VIS_POINTS = 2000
+
+
+def _rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _gait_iwa(state, root: str, data, run: str):
+    """cli.iwa over the gait run and a copy of it, beside cli.evaluate of
+    the run on the same val split."""
+    import math
+    import shutil
+    from gava_clip_tpu_torch.cli import evaluate as cli_eval
+    from gava_clip_tpu_torch.cli import iwa as cli_iwa
+    copy = run + "_copy"
+    shutil.copytree(run, copy)
+    _reset_launch_counts()
+    perf, conf = cli_iwa.main(["--model_dirs", run, copy] + data)
+    counts = _launch_counts()
+    run_iwa = dict(cli_iwa.last_run)
+    weights, forwards = run_iwa["weights"][0], run_iwa["forwards"]
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    eperf, econf = cli_eval.main(["--checkpoint_dir", run] + data)
+    eval_s = time.perf_counter() - t0
+    want = 2 * (math.ceil(GAIT_TRAIN_CLIPS / GAIT_BATCH)
+                + math.ceil(GAIT_VAL_CLIPS / GAIT_BATCH))
+    others = {k: v for k, v in counts.items()
+              if v and k != "packed_attention"}
+    state["gait_iwa"] = {"seconds": run_iwa["seconds"],
+                         "forwards": forwards,
+                         "packed_attention": counts["packed_attention"]}
+    log(f"[gait-text] cli.iwa over the run and its copy: {forwards} batch "
+        f"forwards of {GAIT_BATCH} clips x 8 frames (2 models x train "
+        f"{GAIT_TRAIN_CLIPS} + val {GAIT_VAL_CLIPS} clips) in "
+        f"{run_iwa['seconds']:.2f} s by the host clock, the models' builds "
+        f"and loaders included; weights {weights.tolist()}; top-1 "
+        f"{perf[0]:.4f}, confusion {conf.tolist()}; cli.evaluate of the run "
+        f"in {eval_s:.2f} s: top-1 {eperf[0]:.4f}, confusion "
+        f"{econf.tolist()}; launches {counts['packed_attention']} "
+        f"packed_attention (12 x {forwards}), others {others}")
+    # two copies of one checkpoint give one logit matrix twice: a rank-1
+    # Gram matrix whose pseudo-inverse spreads the weight evenly (the two
+    # entries one SVD's rounding apart)
+    if not np.isclose(weights[0], weights[1], rtol=1e-9, atol=0) or \
+            forwards != want or \
+            counts["packed_attention"] != 12 * forwards or others or \
+            not np.isclose(perf[0], eperf[0], rtol=0, atol=1e-12) or \
+            not np.array_equal(conf, econf) or \
+            conf.sum() != GAIT_VAL_CLIPS:
+        raise AssertionError("cli.iwa failed its checks")
+
+
+def _gait_analysis(state, root: str, data, run: str):
+    """cli.analysis of the gait run: the desc_wise forward, both towers."""
+    import re
+    from gava_clip_tpu_torch.cli import analysis as cli_an
+    _reset_launch_counts()
+    per_desc = cli_an.main(["--model_dir", run, "--output_dir",
+                            os.path.join(root, "analysis")] + data)
+    counts = _launch_counts()
+    run_an = dict(cli_an.last_run)
+    forwards = run_an["forwards"]
+    with open(run_an["report"]) as f:
+        report = f.read()
+    precs = [float(x) for x in re.findall(r"\[\s*([-0-9.]+)%\]", report)]
+    rows = {c: len(d) for c, d in per_desc.items()}
+    state["gait_analysis"] = {"seconds": run_an["seconds"],
+                              "forwards": forwards, **{
+                                  k: counts[k] for k in (
+                                      "packed_attention",
+                                      "streaming_attention")}}
+    log(f"[gait-text] cli.analysis of the run: {forwards} desc_wise "
+        f"forward(s) of {GAIT_BATCH} clips in {run_an['seconds']:.2f} s by "
+        f"the host clock; descriptor rows per class {rows}, precisions "
+        f"{precs}; launches packed_attention "
+        f"{counts['packed_attention']}, streaming_attention "
+        f"{counts['streaming_attention']} (12 x {forwards} each)")
+    if set(per_desc) != {0, 1, 2} or \
+            any(n != len(KNOWLEDGE_VERSIONS) for n in rows.values()) or \
+            len(precs) != sum(rows.values()) or \
+            not all(0.0 <= p <= 100.0 for p in precs) or forwards < 1 or \
+            counts["packed_attention"] != 12 * forwards or \
+            counts["streaming_attention"] != 12 * forwards:
+        raise AssertionError("cli.analysis failed its checks")
+
+
+def _gait_memory_prompt(state, bank):
+    """memory_prompt_features at the text tower's full width on the bank's
+    rows, through B7 and through the plain attention."""
+    import torch
+    from gava_clip_tpu_torch.models.memory_prompt import (
+        init_memory_prompt_params, memory_prompt_features)
+    from gava_clip_tpu_torch.models.text import TextConfig, init_text_params
+    from gava_clip_tpu_torch.utils.device import tree_to
+    cfg = TextConfig()
+    text = tree_to(init_text_params(torch.Generator().manual_seed(GAIT_SEED),
+                                    cfg), GAIT_DEVICE)
+    mp = init_memory_prompt_params(
+        torch.Generator().manual_seed(GAIT_SEED), MEMORY_PROMPT_CLASSES,
+        inp_dim=cfg.embed_dim, out_dim=cfg.width, device=GAIT_DEVICE)
+    rows = torch.from_numpy(
+        bank["embeds"][:MEMORY_PROMPT_ROWS]).to(GAIT_DEVICE)
+    with torch.inference_mode():
+        memory_prompt_features(mp, text, rows, rows, cfg)     # warm-up
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        got = memory_prompt_features(mp, text, rows, rows, cfg)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _launch_counts()
+        ms = cuda_time_ms(lambda: memory_prompt_features(
+            mp, text, rows, rows, cfg), iters=5, warmup=1)
+        plain = memory_prompt_features(mp, text, rows, rows, cfg,
+                                       attn_impl="xla")
+        plain_ms = cuda_time_ms(lambda: memory_prompt_features(
+            mp, text, rows, rows, cfg, attn_impl="xla"), iters=5, warmup=1)
+    err = _rel_l2(got, plain)
+    n = MEMORY_PROMPT_CLASSES * MEMORY_PROMPT_ROWS * 4
+    state["gait_memory_prompt"] = {"seconds": secs, "ms": ms,
+                                   "plain_ms": plain_ms}
+    log(f"[gait-text] memory prompt, {MEMORY_PROMPT_CLASSES} classes x "
+        f"{MEMORY_PROMPT_ROWS} bank rows x 4 sentences = {n} prompts of "
+        f"{cfg.context_length} tokens through the {cfg.layers} x "
+        f"{cfg.width} text tower in bf16: {tuple(got.shape)}, "
+        f"{secs * 1e3:.2f} ms by the host clock, {ms:.2f} ms by CUDA "
+        f"events (the plain attention {plain_ms:.2f}); relative L2 to the "
+        f"plain attention {err:.2e} (limit {MEMORY_PROMPT_REL_ERR}); "
+        f"launches streaming_attention {counts['streaming_attention']}")
+    if tuple(got.shape) != (MEMORY_PROMPT_CLASSES, MEMORY_PROMPT_ROWS,
+                            cfg.embed_dim) or \
+            not torch.isfinite(got).all() or \
+            not err <= MEMORY_PROMPT_REL_ERR or \
+            counts["streaming_attention"] != cfg.layers or \
+            sum(counts.values()) != cfg.layers:
+        raise AssertionError("the memory prompt failed its checks")
+
+
+def _gait_visualize(state, root: str, paths, vlm_ckpt: str):
+    """cli.visualize on the bank: PCA on the card, --project_vlm with the
+    run's checkpoint, --pairwise against one video's NTE file."""
+    import torch
+    from gava_clip_tpu_torch.cli import visualize as cli_vis
+    secs = {}
+
+    def timed(name, argv):
+        """One run of the program, in an output directory of its own."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = cli_vis.main(argv + ["--device", GAIT_DEVICE, "--output_dir",
+                                   os.path.join(root, "vis", name)])
+        secs[name] = time.perf_counter() - t0
+        return dict(np.load(res["npz"])) if "npz" in res else res
+
+    pca = timed("pca", ["--embeddings", paths["data"]])
+    proj = timed("project_vlm", ["--embeddings", paths["data"],
+                                 "--project_vlm", vlm_ckpt])
+    feats, labels = cli_vis.load_embeddings(paths["data"])
+    idx = np.random.RandomState(0).choice(len(feats), VIS_POINTS,
+                                          replace=False)
+    sub = feats[idx].astype(np.float64)
+    base = os.path.join(root, "bank_rows.npy")
+    np.save(base, feats[idx])
+    nte = os.path.join(paths["nte_dir"], sorted(os.listdir(
+        paths["nte_dir"]))[0])
+    pair = timed("pairwise", ["--pairwise", f"nte={nte}", "--base", base])
+    pair = dict(np.load(pair["nte"]["npz"]))
+    # the card's PCA against the host's covariance in float64
+    cov = np.cov(sub, rowvar=False)
+    eig = np.linalg.eigvalsh(cov)[::-1][:2]
+    pts = pca["points"].astype(np.float64)
+    pcov = np.cov(pts, rowvar=False)
+    var_err = float(np.abs(np.diag(pcov) / eig - 1).max())
+    corr = float(abs(pcov[0, 1]) / pcov[0, 0])
+    n_sub = 210
+    shapes = {"pca": pca["points"].shape, "pca_labels": pca["labels"].shape,
+              "project_vlm": proj["points"].shape,
+              "base_base": pair["base_base"].shape,
+              "base_sub": pair["base_sub"].shape}
+    want = {"pca": (VIS_POINTS, 2), "pca_labels": (VIS_POINTS,),
+            "project_vlm": (VIS_POINTS, 2),
+            "base_base": (VIS_POINTS * (VIS_POINTS - 1) // 2,),
+            "base_sub": (VIS_POINTS * n_sub + n_sub * (n_sub - 1) // 2,)}
+    finite = all(np.isfinite(a).all() for a in (
+        pca["points"], proj["points"], pair["base_base"], pair["base_sub"]))
+    state["gait_visualize"] = secs
+    log(f"[gait-text] cli.visualize on the bank: seconds "
+        f"{ {k: round(v, 2) for k, v in secs.items()} } (host clock, the "
+        f"220 MB pickle read included); PCA of {VIS_POINTS} rows on the "
+        f"card: variances {np.diag(pcov).tolist()} against the host's "
+        f"eigenvalues {eig.tolist()}, worst {var_err:.2e}, correlation "
+        f"{corr:.2e} (limit {PCA_REL_ERR}); shapes {shapes}; finite "
+        f"{finite}")
+    if shapes != want or not finite or not var_err <= PCA_REL_ERR or \
+            not corr <= PCA_REL_ERR:
+        raise AssertionError("cli.visualize failed its checks")
+
+
+def _gait_eval_tools(state, root: str, paths, bank, vlm_ckpt: str):
+    """Step 4: the evaluation and analysis programs on the gait run."""
+    run = os.path.dirname(os.path.dirname(vlm_ckpt))
+    data = ["--data_root", root,
+            "--val_list_path", os.path.join(root, "val_updrs.csv"),
+            "--text_prompt_classes_path", os.path.join(root, "classes.txt"),
+            "--batch_size", str(GAIT_BATCH), "--device", GAIT_DEVICE]
+    t0 = time.perf_counter()
+    _gait_iwa(state, root, data, run)
+    _gait_analysis(state, root, data, run)
+    _gait_memory_prompt(state, bank)
+    _gait_visualize(state, root, paths, vlm_ckpt)
+    state["gait_tools_s"] = time.perf_counter() - t0
+    log(f"[gait-text] the evaluation and analysis programs in "
+        f"{state['gait_tools_s']:.2f} s by the host clock ({state['smi']})")
+
+
 def _gait_decoder(state, root: str, paths):
-    """Step 4: cli.decoder_train at the full DecapConfig on the bank, one
+    """Step 5: cli.decoder_train at the full DecapConfig on the bank, one
     epoch; ms/step by the host clock and by CUDA events, peak memory."""
     import torch
     from gava_clip_tpu_torch.cli import decode as cli_decode
@@ -4049,7 +4295,7 @@ def _gait_decoder(state, root: str, paths):
 
 def _gait_decode(state, root: str, paths, bank, decap_ckpt: str,
                  vlm_ckpt: str):
-    """Step 5: caption bank features with the three decoders; de-scale the
+    """Step 6: caption bank features with the three decoders; de-scale the
     bank's own number tokens through the scale dict and render them; then
     cli.decode's centroid study on the VLM checkpoint."""
     import pickle
@@ -4148,7 +4394,8 @@ def _gait_decode(state, root: str, paths, bank, decap_ckpt: str,
 
 def phase_gait_text(state):
     """WHAM joints to captions on the card: gait parameters, the bank and
-    the NTE files, cli.train on them, the DeCap decoder and its decoding."""
+    the NTE files, cli.train on them, the evaluation and analysis programs
+    on that run, the DeCap decoder and its decoding."""
     import shutil
     import tempfile
     import torch
@@ -4158,6 +4405,7 @@ def phase_gait_text(state):
     try:
         table, paths, bank = _gait_bank(state, root)
         vlm_ckpt = _gait_train(state, root, table, paths)
+        _gait_eval_tools(state, root, paths, bank, vlm_ckpt)
         decap_ckpt = _gait_decoder(state, root, paths)
         _gait_decode(state, root, paths, bank, decap_ckpt, vlm_ckpt)
     finally:

@@ -93,7 +93,8 @@ def render_caption(tokens: list, numbers: list,
 def _load_vlm_heads(path: str):
     """memory_project / tf_project / text_features of a trained VLM
     checkpoint: a .ckpt of either package or a reference torch .pth
-    (decode.py:288-353). Orbax directories raise (ROADMAP A10)."""
+    (decode.py:288-353). Orbax directories raise (they need JAX;
+    `train/checkpoint.py` names the conversion)."""
     from ..train.checkpoint import load_checkpoint
     ckpt = load_checkpoint(path)
     text_features = ckpt.get("text_features")

@@ -50,7 +50,7 @@ class VideoDataset:
     """Decode + sample + spatially prepare one clip; returns uint8 frames.
 
     __getitem__ ->
-      train: (frames (V?,T,S,S,3) uint8, label, nte (70,512) f32)
+      train: (frames (V?,T,S,S,3) uint8, label, nte (rows, E) f32)
       eval:  (frames, label, vidname)
     matching reference dataset.py:79-158 (with V views stacked; the reference
     keeps only view 0 at train, reproduced here).
@@ -59,6 +59,7 @@ class VideoDataset:
     def __init__(self, cfg: VideoDatasetConfig, seed: int = 0):
         self.cfg = cfg
         self.nte_root = osp.join(cfg.data_root, "nte")
+        self._nte_rows: Optional[int] = None
         self.rng = np.random.RandomState(seed)
         if cfg.num_folds > 1:
             # multi-fold eval list assembly (reference dataset.py:59-69)
@@ -111,7 +112,24 @@ class VideoDataset:
         p = osp.join(self.nte_root, npy_fn)
         if osp.isfile(p):
             return np.load(p).astype(np.float32)
-        return np.zeros((NUM_COMB, self.cfg.nte_dim), np.float32)
+        return np.zeros((self._nte_zero_rows(), self.cfg.nte_dim), np.float32)
+
+    def _nte_zero_rows(self) -> int:
+        """Rows of the zero NTE matrix of a clip without a file: those of
+        the first file under the NTE root, so that it stacks with its
+        batch (offline/preprocess writes C(10, 4) = 210 rows for the ten
+        gait parameters), or NUM_COMB where the root holds none. The models
+        drop an all-zero matrix from the loss (`valid`)."""
+        if self._nte_rows is None:
+            rows = NUM_COMB
+            if osp.isdir(self.nte_root):
+                first = next((f for f in sorted(os.listdir(self.nte_root))
+                              if f.endswith(".npy")), None)
+                if first is not None:
+                    rows = np.load(osp.join(self.nte_root, first),
+                                   mmap_mode="r").shape[0]
+            self._nte_rows = rows
+        return self._nte_rows
 
     def __getitem__(self, idx: int):
         cfg = self.cfg

@@ -112,6 +112,17 @@ def prefetch_to_device(iterator: Iterable[T], transfer: Callable[[T], U],
     q: "queue.Queue" = queue.Queue(maxsize=size)
     stop = threading.Event()
 
+    def _put(out) -> bool:
+        """Queue `out`, however long the consumer's step takes; False once
+        the consumer has stopped."""
+        while not stop.is_set():
+            try:
+                q.put(out, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
     def _worker():
         try:
             for item in iterator:
@@ -123,20 +134,11 @@ def prefetch_to_device(iterator: Iterable[T], transfer: Callable[[T], U],
                     out = (out, ready)
                 else:
                     out = (transfer(item), None)
-                while not stop.is_set():
-                    try:
-                        q.put(out, timeout=0.1)
-                        break
-                    except queue.Full:
-                        continue
-                if stop.is_set():
+                if not _put(out):
                     return
-            q.put(_SENTINEL)
+            _put(_SENTINEL)
         except BaseException as e:  # noqa: BLE001: surfaces at the consumer
-            try:
-                q.put(e, timeout=1.0)
-            except queue.Full:
-                pass
+            _put(e)
 
     t = threading.Thread(target=_worker, daemon=True, name="device-prefetch")
     t.start()
@@ -156,10 +158,5 @@ def prefetch_to_device(iterator: Iterable[T], transfer: Callable[[T], U],
                         x.record_stream(cur)
             yield item
     finally:
-        stop.set()
-        # drain one slot so a blocked put() wakes and sees stop
-        try:
-            q.get_nowait()
-        except queue.Empty:
-            pass
+        stop.set()      # every put of the worker looks at it each 0.1 s
         t.join(timeout=5.0)

@@ -20,6 +20,9 @@ from .datasets import (DummyDataset, DummyMemoDataset, MemoryDataset,
                        VideoDataset, VideoDatasetConfig)
 from .sampler import eval_sampler, step_sampler
 
+# the producer's last item: every batch has been queued
+_END = object()
+
 
 @dataclass
 class LoaderConfig:
@@ -64,7 +67,14 @@ class LoaderConfig:
 
 
 class _Prefetcher:
-    """Index-driven thread-pool prefetcher preserving order."""
+    """Index-driven thread-pool prefetcher preserving order.
+
+    An exception of `fetch_fn` reaches the consumer: the producer hands it
+    to the queue and the consumer's next `next()` raises it. A consumer
+    that stops early (break, close) releases the producer, whose every
+    `put` waits at most 0.1 s at a time before it looks at `stop`, and the
+    fetches not yet started are cancelled. (The JAX package's loader lets
+    the producer die on a fetch error and its consumer wait forever.)"""
 
     def __init__(self, fetch_fn, index_batches: List[np.ndarray],
                  num_workers: int = 4, prefetch: int = 2):
@@ -80,29 +90,45 @@ class _Prefetcher:
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
 
+        def put(item) -> bool:
+            """Queue `item`; False once the consumer has stopped."""
+            while not stop.is_set():
+                try:
+                    out_q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
         def producer():
             from concurrent.futures import ThreadPoolExecutor
+            n = len(self.index_batches)
             with ThreadPoolExecutor(self.num_workers) as pool:
                 futures = [pool.submit(self.fetch_fn, idxs)
                            for idxs in self.index_batches[:self.prefetch + 1]]
-                next_submit = self.prefetch + 1
-                for i in range(len(self.index_batches)):
-                    if stop.is_set():
-                        break
-                    out_q.put(futures[i].result())
-                    if next_submit < len(self.index_batches):
-                        futures.append(pool.submit(self.fetch_fn,
-                                                   self.index_batches[next_submit]))
-                        next_submit += 1
-            out_q.put(None)
+                try:
+                    for i in range(n):
+                        if not put(futures[i].result()):
+                            return
+                        if len(futures) < n:
+                            futures.append(pool.submit(
+                                self.fetch_fn, self.index_batches[len(futures)]))
+                    put(_END)
+                except BaseException as e:  # noqa: BLE001: the consumer raises it
+                    put(e)
+                finally:
+                    for f in futures:
+                        f.cancel()
 
         th = threading.Thread(target=producer, daemon=True)
         th.start()
         try:
             while True:
                 item = out_q.get()
-                if item is None:
+                if item is _END:
                     break
+                if isinstance(item, BaseException):
+                    raise item
                 yield item
         finally:
             stop.set()

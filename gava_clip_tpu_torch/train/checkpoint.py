@@ -133,9 +133,13 @@ def save_checkpoint(checkpoint_dir: str, state: TrainState, next_step: int,
 
 
 def _orbax_not_ported():
+    # orbax needs JAX, which the port never imports (ROADMAP A10b)
     return NotImplementedError(
-        "Orbax checkpoint directories are not ported (ROADMAP A10); use the "
-        ".ckpt pickle")
+        "Orbax checkpoint directories are not read by the port (they need "
+        "JAX; ROADMAP A10b). Convert one on a machine with JAX: payload = "
+        "gava_clip_tpu.train.checkpoint.load_checkpoint(DIR), then "
+        "pickle.dump(payload, open('NAME.ckpt', 'wb')); the port loads the "
+        ".ckpt")
 
 
 def save_checkpoint_orbax(*args, **kwargs) -> str:

@@ -8,9 +8,10 @@ same. The buffers (`token_prefix`, `token_suffix`, `kv_mask`, `pool_idx`,
 `cntn_embeds`, `text_features`) cross as they are. Gradients and a train
 state go back to the JAX layout with None where the JAX partition has None,
 so that a test can set `jax.grad`'s tree beside the port's leaf by leaf.
-The text tower alone and the DeCap decoder cross the same way
-(`text_params_from_jax`, `decap_params_from_jax`; `params_to_jax` takes
-any of the port's trees back). Neither direction needs JAX.
+The text tower alone, the DeCap decoder and the memory-prompt projectors
+cross the same way (`text_params_from_jax`, `decap_params_from_jax`,
+`memory_prompt_params_from_jax`; `params_to_jax` takes any of the port's
+trees back). Neither direction needs JAX.
 
 Quantized trees (ops/quant.py) go across both ways: a w8a8 leaf
 {'qa': int8 (L, K, N), 'scale': fp32 (L, 1, N)}, a weight-only leaf
@@ -115,6 +116,19 @@ def decap_params_from_jax(params: Mapping, cfg: DecapConfig,
     params (one dict a layer); every shape checked, a missing or unused
     leaf raises. `params_to_jax` takes them back."""
     expected = init_decap_params(None, cfg, device="meta")
+    return _convert(params, expected, "", device)
+
+
+def memory_prompt_params_from_jax(params: Mapping, device=None) -> Dict:
+    """A JAX `init_memory_prompt_params` tree, class-stacked (split_mlp) or
+    not -> the port's `models/memory_prompt.py` params; the four leaves'
+    shapes are checked against w1 and w2, a missing or unused leaf
+    raises."""
+    w1, w2 = np.shape(params["w1"]), np.shape(params["w2"])
+    lead, (inp, h), out = w1[:-2], w1[-2:], w2[-1]
+    expected = {k: torch.empty(shape, device="meta") for k, shape in (
+        ("w1", lead + (inp, h)), ("b1", lead + (h,)),
+        ("w2", lead + (h, out)), ("b2", lead + (out,)))}
     return _convert(params, expected, "", device)
 
 

@@ -163,6 +163,33 @@ def test_save_async_and_autoresume(assets, tmp_path):
         tckpt.load_checkpoint(str(tmp_path / "x.orbax"))
 
 
+def test_orbax_directory_converts_to_a_port_checkpoint(assets, tmp_path):
+    """The port reads no Orbax directory (orbax needs JAX); its raise names
+    the conversion, which is carried out here: JAX `save_checkpoint_orbax`,
+    JAX `load_checkpoint` of the directory, the payload pickled to a .ckpt,
+    which the port's `load_checkpoint` reads with identical params,
+    next_step and text_features."""
+    jmodel, mask, jst = _jax_state(assets, seed=4)
+    tf = np.random.RandomState(2).randn(3, 32).astype(np.float32)
+    d = jckpt.save_checkpoint_orbax(str(tmp_path), jst, 7, text_features=tf,
+                                    is_best=True)
+    for path in (d, str(tmp_path / "x.orbax")):
+        with pytest.raises(NotImplementedError) as err:
+            tckpt.load_checkpoint(path)
+        for words in ("gava_clip_tpu.train.checkpoint.load_checkpoint",
+                      "pickle.dump", ".ckpt"):
+            assert words in str(err.value)
+    payload = jckpt.load_checkpoint(d)
+    ckpt = str(tmp_path / "fold-0-best.ckpt")
+    with open(ckpt, "wb") as f:
+        pickle.dump(payload, f)
+    got = tckpt.load_checkpoint(ckpt)
+    assert got["next_step"] == 7
+    np.testing.assert_array_equal(got["text_features"], tf)
+    _assert_same_params(got["params"],
+                        jax.tree_util.tree_map(np.asarray, jmodel.params))
+
+
 def test_port_reads_jax_checkpoint(assets, tmp_path):
     """JAX `save_checkpoint` -> the port's `load_checkpoint` and
     `--pretrain`: every parameter, next_step and text_features arrive; a

@@ -26,16 +26,23 @@ import pytest
 import torch
 
 import chip_smoke
+from gava_clip_tpu.cli import analysis as janalysis
 from gava_clip_tpu.cli import evaluate as jeval
+from gava_clip_tpu.cli import iwa as jiwa
 from gava_clip_tpu.cli import train as jtrain
+from gava_clip_tpu.cli import visualize as jvis
 from gava_clip_tpu.cli import zero_shot as jzs
 from gava_clip_tpu.models import factory as jfactory
 from gava_clip_tpu.models import vita_clip as jvc
 from gava_clip_tpu.train import checkpoint as jckpt
 from gava_clip_tpu.train import state as jstate
+from gava_clip_tpu.utils import aggregation as jagg
 from gava_clip_tpu.utils import config as jconfig
+from gava_clip_tpu_torch.cli import analysis as tanalysis
 from gava_clip_tpu_torch.cli import evaluate as teval
+from gava_clip_tpu_torch.cli import iwa as tiwa
 from gava_clip_tpu_torch.cli import train as ttrain
+from gava_clip_tpu_torch.cli import visualize as tvis
 from gava_clip_tpu_torch.cli import zero_shot as tzs
 from gava_clip_tpu_torch.models import factory as tfactory
 from gava_clip_tpu_torch.train import checkpoint as tckpt
@@ -387,3 +394,177 @@ def test_profile_dir_and_nan_recovery(runs, capsys):
     assert "[anomaly] rolled back weights to" in out
     steps = [r["step"] for r in _records(logdir) if "loss" in r]
     assert steps == list(range(6))
+
+
+# --- the evaluation and analysis programs on the two runs --------------------
+
+def _data_argv(runs):
+    """Batches of 3 over the 4 clips: the last one is padded."""
+    return ["--data_root", str(runs["root"]),
+            "--val_list_path", str(runs["root"] / "val_updrs.csv"),
+            "--batch_size", "3"]
+
+
+def test_iwa_programs_agree(runs, monkeypatch):
+    """cli.iwa of both packages over the same two run directories (the
+    port's and the JAX package's): equal accuracies and confusion
+    matrices, the weights to rtol 1e-4 (fp32 logits through two towers
+    into a 2 x 2 Gram matrix). The two runs are close, so the Gram
+    matrix's second singular value lies far below the cutoff 0.1 s_max
+    and the pseudo-inverse keeps one. `--use_text_features` scores the
+    same logits, as the JAX program does."""
+    seen = []
+
+    def weights(g, f, rcond=1e-1, num_singular_values=-1):
+        s = np.linalg.svd(jagg.model_gram(g), compute_uv=False)
+        assert np.all(np.abs(s / (rcond * s.max()) - 1) > 0.05), s
+        seen.append(jagg.aggregation_weights(g, f, rcond,
+                                             num_singular_values))
+        return seen[-1]
+
+    monkeypatch.setattr(jiwa, "aggregation_weights", weights)
+    argv = ["--model_dirs", runs["torch"], runs["jax"],
+            "--text_prompt_classes_path", str(runs["classes"]),
+            "--type", "updrs"] + _data_argv(runs)
+    (jperf, jconf), _ = _run_in(runs["root"] / "iwa_j", jiwa.main, argv)
+    (tperf, tconf), _ = _run_in(runs["root"] / "iwa_t", tiwa.main,
+                                argv + CPU)
+    assert len(tperf) == 1 and tconf.sum() == 4
+    assert tperf == jperf
+    np.testing.assert_array_equal(tconf, jconf)
+    assert len(seen) == len(tiwa.last_run["weights"]) == 1
+    np.testing.assert_allclose(tiwa.last_run["weights"][0], seen[0],
+                               rtol=1e-4)
+    # 2 models x (2 train + 2 val batches)
+    assert tiwa.last_run["forwards"] == 8
+    (fperf, fconf), _ = _run_in(runs["root"] / "iwa_tf", tiwa.main,
+                                argv + CPU + ["--use_text_features"])
+    assert fperf == jperf
+    np.testing.assert_array_equal(fconf, jconf)
+
+
+def test_analysis_programs_write_the_same_report(runs):
+    """cli.analysis of both packages on the port's run: the same
+    per-descriptor precisions and the same report, every precision in
+    [0, 1] and every class with its descriptor rows."""
+    argv = ["--model_dir", runs["torch"]] + _data_argv(runs)
+    out = {p: runs["root"] / f"an_{p}" for p in "tj"}
+    tres, _ = _run_in(out["t"], tanalysis.main,
+                      argv + CPU + ["--output_dir", str(out["t"] / "o")])
+    jres, _ = _run_in(out["j"], janalysis.main,
+                      argv + ["--output_dir", str(out["j"] / "o")])
+    assert tres == jres and set(tres) == {0, 1, 2}
+    assert all(len(d) >= 1 and all(0.0 <= v <= 1.0 for vals in d.values()
+                                   for v in vals) for d in tres.values())
+    name = "updrs_per_descriptor_precision.txt"
+    with open(out["t"] / "o" / name) as f, open(out["j"] / "o" / name) as g:
+        assert f.read() == g.read()
+    assert tanalysis.last_run["forwards"] == 2
+
+
+def _spy(monkeypatch, mod, name, seen):
+    real = getattr(mod, name)
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        seen.append((a, out))
+        return out
+
+    monkeypatch.setattr(mod, name, spy)
+
+
+def test_visualize_project_vlm_agrees(runs, monkeypatch):
+    """--project_vlm on the runs' memory bank through the port's run's
+    memory heads: the projected rows to 1e-5 (numpy fp32, per-class
+    products against the JAX program's einsum) and their PCA points to
+    1e-4, sign included; the .npz holds the points and labels."""
+    seen = {"t": [], "j": []}
+    _spy(monkeypatch, tvis, "project", seen["t"])
+    _spy(monkeypatch, jvis, "project", seen["j"])
+    ckpt = osp.join(runs["torch"], "fold_0", "fold-0-best.ckpt")
+    argv = ["--embeddings", str(runs["root"] / "mem.pkl"),
+            "--project_vlm", ckpt]
+    tout, _ = _run_in(runs["root"] / "vis_t", tvis.main, argv + CPU + [
+        "--output_dir", str(runs["root"] / "vis_t")])
+    _run_in(runs["root"] / "vis_j", jvis.main, argv + [
+        "--output_dir", str(runs["root"] / "vis_j")])
+    (targs, tpts), (jargs, jpts) = seen["t"][0], seen["j"][0]
+    assert targs[0].shape == (12, 4)
+    np.testing.assert_allclose(targs[0], jargs[0], atol=1e-5)
+    np.testing.assert_allclose(tpts, jpts, atol=1e-4)
+    npz = np.load(tout["npz"])
+    np.testing.assert_array_equal(npz["points"], tpts)
+    np.testing.assert_array_equal(npz["labels"], [0, 1, 2] * 4)
+
+
+@pytest.mark.parametrize("study", ["number", "pe"])
+def test_visualize_studies_agree(runs, monkeypatch, study):
+    """The number-word and PE studies through the runs' tiny text tower
+    (fp32, sums in another order through 2 blocks): every similarity
+    matrix to 1e-5 of the JAX program's, every distance matrix through its
+    square (2 - 2 cos) to 2e-5: the square root turns a rounding of 1e-7
+    on the diagonal, where the distance is 0, into 3e-4."""
+    seen = []
+    _spy(monkeypatch, jvis, "_save_matrix", seen)
+    argv = ["--study", study, "--study_n", "12",
+            "--backbone_path", runs["backbone"], "--embed_dim", "32",
+            "--text_width", "32", "--text_heads", "2", "--text_layers", "2"]
+    tdir, jdir = (runs["root"] / f"study_{p}_{study}" for p in "tj")
+    tout, _ = _run_in(tdir, tvis.main,
+                      argv + CPU + ["--output_dir", str(tdir)])
+    _run_in(jdir, jvis.main, argv + ["--output_dir", str(jdir)])
+    got = np.load(tout["npz"])
+    assert len(got.files) == len(seen) == (10 if study == "number" else 2)
+    for (mat, title, png, _), _ in seen:
+        key = osp.basename(png)[len("number_"):-len(".png")]
+        key = key[:-len("_pe")] if study == "pe" else key
+        assert osp.isfile(tout[key])
+        if key.endswith("distance"):
+            np.testing.assert_allclose(got[key] ** 2, mat ** 2, atol=2e-5,
+                                       err_msg=title)
+        else:
+            np.testing.assert_allclose(got[key], mat, atol=1e-5,
+                                       err_msg=title)
+
+
+def test_visualize_cones_and_pairwise_without_matplotlib(runs, monkeypatch,
+                                                         tmp_path):
+    """--cones and --pairwise on two files: the points (1e-4) and the
+    similarity means of the JAX program; without matplotlib (the card's
+    machine) the port still writes its .npz files and draws nothing."""
+    rs = np.random.RandomState(5)
+    other = str(tmp_path / "text.npy")
+    np.save(other, rs.randn(9, 32).astype(np.float32))
+    bank = str(runs["root"] / "mem.pkl")
+    cones = ["--cones", f"bank={bank}", f"text={other}"]
+    pair = ["--pairwise", f"text={other}", "--base", bank]
+    jc = jvis.main(cones + ["--output_dir", str(tmp_path / "j")])
+    jp = jvis.main(pair + ["--output_dir", str(tmp_path / "j")])
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    out = str(tmp_path / "t")
+    tc = tvis.main(cones + CPU + ["--output_dir", out])
+    tp = tvis.main(pair + CPU + ["--output_dir", out])
+    assert tc["labels"] == jc["labels"] and "cones" not in tc
+    np.testing.assert_allclose(tc["points"], jc["points"], atol=1e-4)
+    np.testing.assert_allclose(np.load(tc["npz"])["points"], jc["points"],
+                               atol=1e-4)
+    for k in ("mean_base", "mean_sub"):
+        assert tp["text"][k] == pytest.approx(jp["text"][k], abs=1e-6)
+    assert "png" not in tp["text"] and osp.isfile(tp["text"]["npz"])
+    assert not [f for f in os.listdir(out) if f.endswith(".png")]
+
+
+@pytest.mark.parametrize("program", ["iwa", "analysis", "visualize"])
+def test_evaluation_tools_need_a_card_by_default(runs, monkeypatch, program):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    main, argv = {
+        "iwa": (tiwa.main, ["--model_dirs", runs["torch"],
+                            "--text_prompt_classes_path",
+                            str(runs["classes"])] + _data_argv(runs)),
+        "analysis": (tanalysis.main,
+                     ["--model_dir", runs["torch"]] + _data_argv(runs)),
+        "visualize": (tvis.main,
+                      ["--embeddings", str(runs["root"] / "mem.pkl")]),
+    }[program]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        _run_in(runs["root"] / "nocard_tools", main, argv)

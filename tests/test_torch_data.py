@@ -426,3 +426,84 @@ def test_pinned_batch_copier_on_the_host():
     assert out["video"].dtype == torch.uint8 and out["labels"].dtype == \
         torch.int64
     np.testing.assert_array_equal(out["video"].numpy(), batch["video"])
+
+
+# --- ROADMAP C.3: a fetch error reaches the consumer, no thread is left ------
+
+def _wait_for(cond, seconds=5.0):
+    deadline = time.time() + seconds
+    while not cond() and time.time() < deadline:
+        time.sleep(0.01)
+    return cond()
+
+
+@pytest.mark.parametrize("k", [0, 3, 9])
+def test_loader_fetch_error_raises_within_a_bounded_time(k):
+    """A `fetch_fn` that raises on its k-th batch makes iteration raise
+    that exception after the k batches before it, within well under 10 s
+    (the JAX package's prefetcher waits forever there), and no producer
+    thread stays behind."""
+    def fetch(idxs):
+        if int(idxs[0]) == k:
+            raise OSError(f"clip {k} cannot be read")
+        time.sleep(0.01)
+        return int(idxs[0])
+
+    before = threading.active_count()
+    pf = tld._Prefetcher(fetch, [np.array([i]) for i in range(10)],
+                         num_workers=3, prefetch=2)
+    got = []
+    t0 = time.time()
+    with pytest.raises(OSError, match=f"clip {k} cannot be read"):
+        for item in pf:
+            got.append(item)
+    assert time.time() - t0 < 5.0
+    assert got == list(range(k))
+    assert _wait_for(lambda: threading.active_count() <= before)
+
+
+def test_loader_consumer_that_stops_early_releases_the_producer():
+    """A consumer that breaks (or closes the iterator) after one batch,
+    with the queue full and fetches in flight, leaves no producer thread
+    alive, and the fetches not yet started never run."""
+    calls = []
+
+    def fetch(idxs):
+        calls.append(int(idxs[0]))
+        time.sleep(0.02)
+        return int(idxs[0])
+
+    batches = [np.array([i]) for i in range(200)]
+    for stop in ("break", "close"):
+        calls.clear()
+        before = threading.active_count()
+        pf = tld._Prefetcher(fetch, batches, num_workers=2, prefetch=2)
+        if stop == "break":
+            for item in pf:
+                break
+        else:
+            it = iter(pf)
+            assert next(it) == 0
+            time.sleep(0.2)           # the queue fills, the producer blocks
+            it.close()
+        # the producer and its pool's workers are gone
+        assert _wait_for(lambda: threading.active_count() <= before), stop
+        assert len(calls) < 20, (stop, len(calls))
+
+
+def test_device_prefetch_raises_with_a_full_queue_and_a_slow_consumer():
+    """The worker's error reaches a consumer whose step takes longer than
+    a second while the queue is full: its put waits as long as an item's
+    would (it gave up after 1 s and the consumer hung)."""
+    def gen():
+        yield from range(3)
+        raise ValueError("decode failed")
+
+    it = tprefetch.prefetch_to_device(gen(), lambda x: x, size=2)
+    got = [next(it)]
+    time.sleep(1.5)                  # the worker holds the error, q is full
+    with pytest.raises(ValueError, match="decode failed"):
+        for v in it:
+            got.append(v)
+            time.sleep(0.6)
+    assert got == [0, 1, 2]

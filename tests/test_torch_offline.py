@@ -19,21 +19,29 @@ import jax
 from gava_clip_tpu.data import datasets as jdatasets
 from gava_clip_tpu.data import loader as jloader
 from gava_clip_tpu.models import text as jtext
+from gava_clip_tpu.models import vita_clip as jvc
 from gava_clip_tpu.offline import embeddings as jemb
 from gava_clip_tpu.offline import gait_params as jgait
 from gava_clip_tpu.offline import metadata as jmeta
 from gava_clip_tpu.offline import preprocess as jpre
 from gava_clip_tpu.offline import video_prep as jvp
+from gava_clip_tpu.train import state as jstate
+from gava_clip_tpu.train import step as jstep
 from gava_clip_tpu_torch.data import datasets as tdatasets
 from gava_clip_tpu_torch.data import loader as tloader
+from gava_clip_tpu_torch.models import vita_clip as tvc
 from gava_clip_tpu_torch.models.text import TextConfig
 from gava_clip_tpu_torch.offline import embeddings as temb
 from gava_clip_tpu_torch.offline import gait_params as tgait
 from gava_clip_tpu_torch.offline import metadata as tmeta
 from gava_clip_tpu_torch.offline import preprocess as tpre
 from gava_clip_tpu_torch.offline import video_prep as tvp
+from gava_clip_tpu_torch.train import state as tstate
+from gava_clip_tpu_torch.train import step as tstep
 from gava_clip_tpu_torch.utils import jax_bridge
 from tests.test_offline import synthetic_walk
+from tests.test_torch_train_step import LOSS_KW, _jb, _tb
+from tests.test_torch_train_step import _batch as _tsbatch
 from tests.test_torch_train_step import models  # noqa: F401  (fixture)
 
 JCFG = jtext.TextConfig(embed_dim=32, width=32, heads=2, layers=2)
@@ -205,9 +213,9 @@ def test_data_preprocess_matches_jax(tmp_path, tiny_text, kw):
         assert emb.shape == (4, 32) and 0 <= label <= 2
 
 
-def _nte_fold(root, n_comb, missing):
+def _nte_fold(root, n_comb, missing, width=8):
     """Two training clips as decoded-view cache files; clip 0's NTE file
-    holds n_comb rows, clip 1's is missing when `missing`."""
+    holds n_comb rows of `width`, clip 1's is missing when `missing`."""
     cache = osp.join(root, "cache")
     os.makedirs(osp.join(root, "nte"), exist_ok=True)
     rows = [("walk000*0.mp4", 0), ("walk001*0.mp4", 1)]
@@ -217,33 +225,63 @@ def _nte_fold(root, n_comb, missing):
     rs = np.random.RandomState(0)
     for i in range(1 if missing else 2):
         np.save(osp.join(root, "nte", f"walk00{i}.npy"),
-                rs.randn(n_comb, 8).astype(np.float32))
+                rs.randn(n_comb, width).astype(np.float32))
     return lst, cache, [p for p, _ in rows]
 
 
 @pytest.mark.parametrize("missing", [False, True])
-def test_fold_with_a_missing_nte_file(tmp_path, missing):
-    """ROADMAP C: a clip without an NTE file gets the zero default of
-    NUM_COMB = 70 rows, while offline/preprocess writes C(10, 4) = 210
-    rows for the ten gait parameters. In both packages the batch of such a
-    fold cannot be stacked (np.stack raises ValueError); with every file
-    present it stacks to (2, 210, E)."""
-    lst, cache, paths = _nte_fold(str(tmp_path), 210, missing)
+def test_fold_with_a_missing_nte_file(tmp_path, models, missing):
+    """ROADMAP C.2: offline/preprocess writes C(10, 4) = 210 rows for the
+    ten gait parameters. The JAX package gives a clip without an NTE file
+    the zero default of NUM_COMB = 70 rows, so its batch cannot be stacked
+    (np.stack raises ValueError). The port shapes the zero default like
+    the fold's files: the batch stacks to (2, 210, E), the clip's matrix
+    is all zero (`valid` 0 in both models), and the port's loss equals the
+    JAX loss fed the batch that the port built. With every file present
+    both stack to (2, 210, E)."""
+    E = 32     # the embedding width of the tiny models
+    lst, cache, paths = _nte_fold(str(tmp_path), 210, missing, width=E)
     frames = np.zeros((1, 2, 8, 8, 3), np.uint8)
-    for mod, loader in ((jdatasets, jloader), (tdatasets, tloader)):
+    batches = {}
+    for name, mod, loader in (("jax", jdatasets, jloader),
+                              ("torch", tdatasets, tloader)):
         ds = mod.VideoDataset(mod.VideoDatasetConfig(
             list_path=lst, data_root=str(tmp_path), num_frames=2,
-            spatial_size=8, is_train=True, add_nte=True, nte_dim=8,
+            spatial_size=8, is_train=True, add_nte=True, nte_dim=E,
             cache_dir=cache))
         for p in paths:
             ds._cache_store(p, frames)
-        assert ds[1][2].shape == ((70, 8) if missing else (210, 8))
-        if missing:
+        if name == "jax" and missing:
+            assert ds[1][2].shape == (70, E)
             with pytest.raises(ValueError):
                 loader._collate_video(ds, [0, 1])
-        else:
-            assert loader._collate_video(ds, [0, 1])["nte"].shape == \
-                (2, 210, 8)
+            continue
+        assert ds[1][2].shape == (210, E)
+        batches[name] = loader._collate_video(ds, [0, 1])
+        assert batches[name]["nte"].shape == (2, 210, E)
+    if not missing:
+        np.testing.assert_array_equal(batches["torch"]["nte"],
+                                      batches["jax"]["nte"])
+        return
+    built = batches["torch"]
+    np.testing.assert_array_equal(built["nte"].sum(axis=(-1, -2)) != 0,
+                                  [True, False])
+    jmodel, model = models
+    batch = _tsbatch(B=2)
+    batch.update(labels=built["labels"].astype(np.int64), nte=built["nte"])
+    jmask = jvc.trainable_mask(jmodel.params, jmodel.cfg)
+    jst = jstate.create_train_state(jmodel.params, jmask,
+                                    jstate.make_optimizer(1e-2, 10, 0.0))
+    want, _ = jstep.make_loss_fn(jmodel, jstep.LossConfig(**LOSS_KW))(
+        jst.trainable, jst.frozen, _jb(batch))
+    tst = tstate.create_train_state(
+        model.params, tvc.trainable_mask(model.params, model.cfg),
+        tstate.make_optimizer(1e-2, 10, 0.0), device="cpu")
+    with torch.no_grad():
+        got, metrics = tstep.make_loss_fn(model, tstep.LossConfig(**LOSS_KW))(
+            tst.trainable, tst.frozen, _tb(batch))
+    assert np.isfinite(float(got))
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5, atol=1e-5)
 
 
 # --- the slerp metadata and the knowledge embeddings ------------------------
