@@ -64,6 +64,25 @@ The training step:
           falls, frozen leaves bit-unchanged, trainable leaves moved,
           ms/step and peak memory;
   train-long    steps at 4 clips x 70 frames with remat="full".
+The float32 forms of the attention kernels (csrc/attention_f32.cu), which
+a run without --use_bf16 takes:
+  f32-kernel  B1 / B6a, B6b, B8 and B7's forward and backward in fp32
+          against their plain versions at the training shapes (16 x 8, 4 x
+          70, the text tower's causal 15 x 77), ragged ones and the packed
+          path's edge (F32_REL of the scale, den and lse), the backwards
+          twice with the same bits, B8 bit-equal to B6b on the forward
+          kernel's o and den; kernel, plain version and SDPA in fp32 timed
+          in turns; fp32 into B4 and mixed or fp16 q/k/v raise TypeError;
+  f32-mutants  the f32_* mutants of utils/kernel_mutants.py (one of them
+          rounds every product to TF32), built and checked all at once:
+          each must fail f32-kernel;
+  train-f32  the train-slice step in fp32: the first step against the
+          plain versions (F32_STEP_MAX_*), launches per step
+          (F32_PER_STEP), the recompute mode's step against the saved
+          mode's, fp32 and bf16 steps in turns (ms/step, peak GiB); the
+          driver phase also runs cli.train without --use_bf16 (12 steps,
+          the fp32 kernels only) and cli.evaluate on that run (24 launches
+          of the fp32 B1, the run's confusion matrix).
 The training and evaluation programs:
   train-recompute  the same step under set_flash_bwd_mode("recompute"): the
           first step's loss and gradients against the saved mode, 3 steps
@@ -256,6 +275,15 @@ KERNELS = {
         "gava_clip_tpu/ops/flash_attention.py:775"),
     "mega_layer": ("mega_layer", "gava_clip_tpu_torch/csrc/mega_layer.cu",
                    "tools/bench_attn_variants.py:37"),
+    # the float32 forms of B1 / B6a, B6b, B8 and B7 (csrc/attention_f32.cu)
+    **{name: ("attention_f32", "gava_clip_tpu_torch/csrc/attention_f32.cu",
+              f"gava_clip_tpu/ops/flash_attention.py:{line}")
+       for name, line in (("packed_attention_f32", 181),
+                          ("packed_attention_den_f32", 193),
+                          ("packed_attention_bwd_f32", 213),
+                          ("packed_attention_bwd_recompute_f32", 410),
+                          ("streaming_attention_f32", 534),
+                          ("streaming_attention_bwd_f32", 534))},
 }
 # (B, Lq, Lk, heads, head_dim); the first is the serving shape: 16 clips x
 # 8 frames, 197 query tokens, 197 + 8 global + 1 summary + 8 local keys
@@ -1194,21 +1222,26 @@ def _visible_pairs(Lq, Lk, causal):
     return sum(min(i + 1, Lk) for i in range(Lq))
 
 
-def _attention_bounds(B, Lq, Lk, H, causal=False):
+def _attention_bounds(B, Lq, Lk, H, causal=False, esize=2):
     """Bounds of the four attention functions at one shape: forward (with
-    and without the fp32 row statistic) and backward."""
+    and without the fp32 row statistic) and backward; esize 2 (bf16, the
+    products on the tensor cores) or 4 (fp32, the products as fp32 FMA)."""
     D = H * 64
     pairs = B * H * _visible_pairs(Lq, Lk, causal)
-    qo, kv, stat = 2 * B * Lq * D, 2 * B * Lk * D, 4 * B * Lq * H
+    qo, kv, stat = esize * B * Lq * D, esize * B * Lk * D, 4 * B * Lq * H
+
+    def bound(n_bytes, flops):
+        return _bound(n_bytes, flops_bf16=flops) if esize == 2 else \
+            _bound(n_bytes, flops_fp32=flops)
     return {
-        "fwd": _bound(2 * qo + 2 * kv, 2 * 2 * 64 * pairs),
-        "fwd_stat": _bound(2 * qo + 2 * kv + stat, 2 * 2 * 64 * pairs),
+        "fwd": bound(2 * qo + 2 * kv, 2 * 2 * 64 * pairs),
+        "fwd_stat": bound(2 * qo + 2 * kv + stat, 2 * 2 * 64 * pairs),
         # reads q, do, o, k, v and the statistic, writes dq, dk, dv; five
         # products per score entry
-        "bwd": _bound(4 * qo + 4 * kv + stat, 5 * 2 * 64 * pairs),
+        "bwd": bound(4 * qo + 4 * kv + stat, 5 * 2 * 64 * pairs),
         # reads q, do, k, v, writes dq, dk, dv; the forward's two products
         # and the backward's four per score entry
-        "bwd_recompute": _bound(3 * qo + 4 * kv, 6 * 2 * 64 * pairs),
+        "bwd_recompute": bound(3 * qo + 4 * kv, 6 * 2 * 64 * pairs),
     }
 
 
@@ -1625,6 +1658,255 @@ def phase_train_kernels(state):
                              f"versions: {state['train_failures']}")
 
 
+# ---------------------------------------------------------------------------
+# the float32 forms of the attention kernels (csrc/attention_f32.cu): B1 /
+# B6a, B6b, B8 and B7's forward and backward, which an fp32 run (no
+# --use_bf16) takes on the card
+# ---------------------------------------------------------------------------
+
+# (B, Lq, Lk, heads): the two training shapes of the packed kernels (16
+# clips x 8 frames, 4 clips x 70 frames), ragged ones and the packed path's
+# edge (640 keys)
+F32_PACKED_SHAPES = ((128, 197, 214, 12), (280, 197, 276, 12), (3, 13, 21, 2),
+                     (2, 65, 64, 3), (2, 640, 640, 4))
+# (B, Lq, Lk, heads, causal): the text tower (15 prompts x 77 tokens, 8
+# heads, causal), a long causal L, keys past 640, ragged cross shapes
+F32_STREAM_SHAPES = ((15, 77, 77, 8, True), (4, 1024, 1024, 8, True),
+                     (2, 130, 700, 2, False), (2, 100, 60, 2, True),
+                     (3, 13, 21, 2, False))
+# Limit of each fp32 kernel against its plain version on the same inputs:
+# err <= F32_REL * scale, where scale is sum p |v| for a forward (exact: the
+# plain version on |v|) and the largest |gradient| of the tensor for a
+# backward. Both sides compute the same formula in fp32 and differ only in
+# the order of their sums (64-term score dots, sums over up to 1,024 keys:
+# a few 2^-24 of the terms' magnitude each, which an exp2 argument of O(10)
+# carries into a weight as ~1e-6 relative) and in exp2 (ex2.approx: 2 ulp).
+# A product taken in TF32 instead rounds each operand to 10 mantissa bits
+# (2^-11 relative), ~1e-3 of the scale: the fp32 mutant of
+# utils/kernel_mutants.py that does exactly that must fail this limit.
+# Measured on an H100 (NVIDIA H100 80GB HBM3, 700.00 W), worst over the
+# shapes above: 4.5e-7 (den 2.3e-7 relative, lse 9.5e-7); the TF32 mutant
+# 1.2e-3 to 2.7e-3.
+F32_REL = 2.0 ** -14
+# den: sums of at most 640 fp32 weights, each ~1e-6 relative (above)
+F32_DEN_REL = 2.0 ** -16
+# lse: log of such a sum, O(1..10): absolute
+F32_LSE_ABS = 3e-5
+
+
+def _check_f32(name, label, out, ref, scale, state):
+    """Hold an fp32 kernel's output against its plain version's:
+    max(|out - ref| / scale) <= F32_REL. Returns the largest |out - ref|."""
+    import torch
+    err = (out - ref).abs()
+    ratio = (err / scale).max().item()
+    ok = (out.shape == ref.shape and out.dtype == torch.float32
+          and bool(torch.isfinite(out).all()) and ratio <= F32_REL)
+    log(f"[f32-kernel] {name} {label}: max_abs_err {err.max().item():.3e}, "
+        f"max err / scale {ratio:.3e} (limit 2^-14 = {F32_REL:.3e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        state.setdefault("f32_failures", []).append(f"{name} {label}")
+    return err.max().item()
+
+
+def _f32_timings(state, label, rows):
+    """Time each (name, kernel, plain, library, bound) in `rows`: kernel and
+    plain version in turns, kernel and the library call (SDPA in fp32) in
+    turns (median of 7 rounds); record the kernels-line stats."""
+    stats = state.setdefault("kstats", {})
+    for name, kernel, plain, library, bound, err in rows:
+        ms, plain_ms, t = _time_pair(kernel, plain, iters=5)
+        r = _ratio_turns(kernel, library, iters=5)
+        log(f"[f32-kernel] {label}: {name} kernel {t['kernel']} ms, plain "
+            f"{t['plain']} ms (order plain, kernel, kernel, plain); vs SDPA "
+            f"in fp32, median of 7 rounds in turns: {r[0]:.4f} ms vs "
+            f"{r[1]:.4f} ms, ratio {r[2]:.3f} (rounds {r[3]:.3f}-{r[4]:.3f}); "
+            f"bound {bound[0]:.4f} ms ({bound[1]}) ({state['smi']})")
+        stats[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound[0], "bound_by": bound[1],
+                       "library_ms": r[1]}
+
+
+def phase_f32_kernels(state):
+    """B1 / B6a, B6b, B8 and B7 (forward and backward) in float32 against
+    their plain versions on the card at the training shapes, ragged ones and
+    the packed path's edge (F32_REL); the backwards run twice and must give
+    the same bits; B8 equals B6b on the forward kernel's own o and den bit
+    for bit; CUDA-event times of kernel, plain version and SDPA in fp32 at
+    the 16 x 8 shape and the text tower's. With state['checks_only'] (the
+    mutants' runs) nothing is timed."""
+    import torch
+    from gava_clip_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    timed = not state.get("checks_only")
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=torch.float32)
+
+    def same_bits(a, b):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    def hold_grads(name, label, grads, refs):
+        return max(_check_f32(name, f"{label} {n}", g, r, r.abs().max(),
+                              state)
+                   for n, g, r in zip(("dq", "dk", "dv"), grads, refs))
+
+    for i, (B, Lq, Lk, H) in enumerate(F32_PACKED_SHAPES):
+        D = H * 64
+        label = f"B={B} Lq={Lq} Lk={Lk} H={H}"
+        q, k, v, do = rand(B, Lq, D), rand(B, Lk, D), rand(B, Lk, D), \
+            rand(B, Lq, D)
+        out, den = fa.packed_attention_den_cuda(q, k, v, H)
+        out1 = fa.packed_attention_cuda(q, k, v, H)
+        ref, den_ref = fa.packed_attention_den_plain(q, k, v, H)
+        spread = fa.packed_attention_plain(q, k, v.abs(), H)
+        torch.cuda.synchronize()
+        err_f = _check_f32("packed_attention_den_f32", label, out, ref, spread,
+                           state)
+        err_1 = _check_f32("packed_attention_f32", label, out1, ref, spread,
+                           state)
+        den_rel = ((den - den_ref).abs() / den_ref).max().item()
+        den_ok = den.shape == den_ref.shape and den_rel <= F32_DEN_REL and \
+            torch.equal(out1, out)
+        log(f"[f32-kernel] packed_attention_den_f32 {label}: den max relative "
+            f"error {den_rel:.3e} (limit 2^-16); B1's output equals B6a's "
+            f"bit for bit: {torch.equal(out1, out)} "
+            f"{'ok' if den_ok else 'FAIL'}")
+        if not den_ok:
+            state.setdefault("f32_failures", []).append(f"den {label}")
+        grads = fa.packed_attention_bwd_cuda(q, k, v, do, ref, den_ref, H)
+        g_ref = fa.packed_attention_bwd_plain(q, k, v, do, ref, den_ref, H)
+        torch.cuda.synchronize()
+        err_b = hold_grads("packed_attention_bwd_f32", label, grads, g_ref)
+        g8 = fa.packed_attention_bwd_recompute_cuda(q, k, v, do, H)
+        g8_ref = fa.packed_attention_bwd_recompute_plain(q, k, v, do, H)
+        # B8 is the forward kernel, then B6b's kernels on its o and den
+        g6_own = fa.packed_attention_bwd_cuda(q, k, v, do, out, den, H)
+        torch.cuda.synchronize()
+        err_8 = hold_grads("packed_attention_bwd_recompute_f32", label, g8,
+                           g8_ref)
+        again = (fa.packed_attention_bwd_cuda(q, k, v, do, ref, den_ref, H),
+                 fa.packed_attention_bwd_recompute_cuda(q, k, v, do, H))
+        torch.cuda.synchronize()
+        same = [same_bits(grads, again[0]), same_bits(g8, again[1]),
+                same_bits(g8, g6_own)]
+        log(f"[f32-kernel] packed_attention_bwd_recompute_f32 {label}: a "
+            f"second run gives the same bits: B6b {same[0]}, B8 {same[1]}; "
+            f"B8 equals B6b on the forward kernel's o and den bit for bit: "
+            f"{same[2]} {'ok' if all(same) else 'FAIL'}")
+        if not all(same):
+            state.setdefault("f32_failures", []).append(f"bits {label}")
+        del spread, g_ref, g8_ref, again, g6_own
+        if i == 0 and timed:
+            bounds = _attention_bounds(B, Lq, Lk, H, esize=4)
+            sdpa_f, sdpa_b = _sdpa_fwd(q, k, v, H), _sdpa_bwd(q, k, v, do, H)
+            _f32_timings(state, label, (
+                ("packed_attention_den_f32",
+                 lambda: fa.packed_attention_den_cuda(q, k, v, H),
+                 lambda: fa.packed_attention_den_plain(q, k, v, H), sdpa_f,
+                 bounds["fwd_stat"], err_f),
+                ("packed_attention_f32",
+                 lambda: fa.packed_attention_cuda(q, k, v, H),
+                 lambda: fa.packed_attention_plain(q, k, v, H), sdpa_f,
+                 bounds["fwd"], err_1),
+                ("packed_attention_bwd_f32",
+                 lambda: fa.packed_attention_bwd_cuda(q, k, v, do, ref,
+                                                      den_ref, H),
+                 lambda: fa.packed_attention_bwd_plain(q, k, v, do, ref,
+                                                       den_ref, H), sdpa_b,
+                 bounds["bwd"], err_b),
+                ("packed_attention_bwd_recompute_f32",
+                 lambda: fa.packed_attention_bwd_recompute_cuda(q, k, v, do,
+                                                                H),
+                 lambda: fa.packed_attention_bwd_recompute_plain(q, k, v, do,
+                                                                 H), sdpa_b,
+                 bounds["bwd_recompute"], err_8)))
+            del sdpa_f, sdpa_b
+        del q, k, v, do, out, out1, den, ref, den_ref, grads, g8
+
+    for i, (B, Lq, Lk, H, causal) in enumerate(F32_STREAM_SHAPES):
+        D = H * 64
+        label = f"B={B} Lq={Lq} Lk={Lk} H={H} causal={causal}"
+        q, k, v, do = rand(B, Lq, D), rand(B, Lk, D), rand(B, Lk, D), \
+            rand(B, Lq, D)
+        out, lse = fa.streaming_attention_cuda(q, k, v, H, causal)
+        ref, lse_ref = fa.streaming_attention_plain(q, k, v, H, causal)
+        spread = fa.streaming_attention_plain(q, k, v.abs(), H, causal)[0]
+        torch.cuda.synchronize()
+        err_f = _check_f32("streaming_attention_f32", label, out, ref, spread,
+                           state)
+        lse_err = (lse - lse_ref).abs().max().item()
+        lse_ok = lse.shape == lse_ref.shape and lse_err <= F32_LSE_ABS
+        log(f"[f32-kernel] streaming_attention_f32 {label}: max |lse - "
+            f"plain| {lse_err:.3e} (limit {F32_LSE_ABS:g}) "
+            f"{'ok' if lse_ok else 'FAIL'}")
+        if not lse_ok:
+            state.setdefault("f32_failures", []).append(f"lse {label}")
+        grads = fa.streaming_attention_bwd_cuda(q, k, v, do, ref, lse_ref, H,
+                                                causal)
+        g_ref = fa.streaming_attention_bwd_plain(q, k, v, do, ref, lse_ref,
+                                                 H, causal)
+        torch.cuda.synchronize()
+        err_b = hold_grads("streaming_attention_bwd_f32", label, grads, g_ref)
+        again = fa.streaming_attention_bwd_cuda(q, k, v, do, ref, lse_ref, H,
+                                                causal)
+        torch.cuda.synchronize()
+        same = same_bits(grads, again)
+        log(f"[f32-kernel] streaming_attention_bwd_f32 {label}: a second run "
+            f"gives the same bits: {same} {'ok' if same else 'FAIL'}")
+        if not same:
+            state.setdefault("f32_failures", []).append(f"bits {label}")
+        del spread, g_ref, again
+        if i == 0 and timed:
+            bounds = _attention_bounds(B, Lq, Lk, H, causal, esize=4)
+            _f32_timings(state, label, (
+                ("streaming_attention_f32",
+                 lambda: fa.streaming_attention_cuda(q, k, v, H, causal),
+                 lambda: fa.streaming_attention_plain(q, k, v, H, causal),
+                 _sdpa_fwd(q, k, v, H, causal), bounds["fwd_stat"], err_f),
+                ("streaming_attention_bwd_f32",
+                 lambda: fa.streaming_attention_bwd_cuda(q, k, v, do, ref,
+                                                         lse_ref, H, causal),
+                 lambda: fa.streaming_attention_bwd_plain(q, k, v, do, ref,
+                                                          lse_ref, H, causal),
+                 _sdpa_bwd(q, k, v, do, H, causal), bounds["bwd"], err_b)))
+        del q, k, v, do, out, lse, ref, lse_ref, grads
+    # fp32 q/k/v into a kernel with a bf16 form only raises, naming its
+    # ROADMAP item; mixed and half inputs raise in every kernel
+    q = rand(2, 13, 128)
+    refusals = []
+    for what, call in (
+            ("B4", lambda: fa.attention_out_int8_cuda(
+                q, q, q, 2, {"kernel": {}, "bias": None}, q)),
+            ("mixed", lambda: fa.packed_attention_cuda(q, q.bfloat16(), q, 2)),
+            ("fp16", lambda: fa.streaming_attention_cuda(
+                q.half(), q.half(), q.half(), 2, True))):
+        try:
+            call()
+            refusals.append(f"{what}: no error")
+        except TypeError as e:
+            if what == "B4" and "ROADMAP A12" not in str(e):
+                refusals.append(f"{what}: {e}")
+    log(f"[f32-kernel] fp32 into B4 (ROADMAP A12), mixed bf16 / fp32 and fp16 "
+        f"q/k/v raise TypeError: {not refusals} {refusals}")
+    if refusals:
+        state.setdefault("f32_failures", []).append("refusals")
+    if state.get("f32_failures"):
+        raise AssertionError(f"fp32 attention kernels disagree with their "
+                             f"plain versions: {state['f32_failures']}")
+
+
+def phase_f32_mutants(state):
+    """The fp32 mutants of utils/kernel_mutants.py, all at once: each must
+    fail phase_f32_kernels."""
+    from gava_clip_tpu_torch.utils import kernel_mutants
+    names = [n for n in kernel_mutants.MUTANTS if n.startswith("f32_")]
+    if kernel_mutants.main(names, jobs=len(names)):
+        raise AssertionError("an fp32 mutant passed the checks")
+
+
 # launches of the attention kernels in one training step of the flagship
 # model: 12 vision blocks (B6a forward, B6b backward) and 12 text blocks
 # (B7 forward and backward); the forward that writes no denominators (B1)
@@ -1798,7 +2080,8 @@ def phase_train_slice(state):
         f"{np.median(host_ms[1:]):.2f} ms; {16e3 / np.median(host_ms[1:]):.1f}"
         f" clips/s; peak memory {peak:.2f} GiB ({state['smi']})")
     state.update(train_step=step, train_state=ts, train_batch=batch,
-                 train_loss_fn=loss_fn,
+                 train_loss_fn=loss_fn, train_model=model,
+                 train_cfg=loss_cfg, train_opt=opt, train_peak=peak,
                  train_ms=float(np.median(dev_ms[1:])))
 
 
@@ -1814,7 +2097,8 @@ def phase_train_long(state):
                                                  make_optimizer)
     from gava_clip_tpu_torch.train.step import LossConfig, make_train_step
     from gava_clip_tpu_torch.utils.flagship import build_flagship
-    for key in ("train_step", "train_state", "train_batch", "train_loss_fn"):
+    for key in ("train_step", "train_state", "train_batch", "train_loss_fn",
+                "train_model", "train_cfg", "train_opt"):
         state.pop(key, None)
     torch.cuda.empty_cache()
     loss_cfg = LossConfig(num_classes=3, focal_ordinal=True, fo_beta=0.2,
@@ -2788,6 +3072,161 @@ def phase_train_recompute(state):
         raise AssertionError(f"after the reset: launches {counts}")
 
 
+# the fp32 step (no --use_bf16): the float32 attention kernels, 12 vision
+# blocks (B6a forward, B6b backward) and 12 text blocks (B7 forward and
+# backward) a step, and no bf16 attention kernel
+F32_PER_STEP = {"packed_attention_den_f32": 12, "packed_attention_bwd_f32": 12,
+                "streaming_attention_f32": 12,
+                "streaming_attention_bwd_f32": 12, "packed_attention_f32": 0,
+                "packed_attention_den": 0, "packed_attention_bwd": 0,
+                "streaming_attention": 0, "streaming_attention_bwd": 0}
+# under set_flash_bwd_mode("recompute"): B1 and B8 in fp32
+F32_RECOMPUTE_PER_STEP = dict(F32_PER_STEP, packed_attention_f32=12,
+                              packed_attention_bwd_recompute_f32=12,
+                              packed_attention_den_f32=0,
+                              packed_attention_bwd_f32=0)
+F32_STEP_TURNS = 2
+# The first fp32 step through the kernels against the same step through the
+# plain versions on the card: each attention output and gradient differs by
+# at most 2^-14 of its scale (F32_REL; measured ~1e-6), where the bf16 step
+# differs by whole bf16 roundings (TRAIN_MAX_*: 2e-2 / 0.1). 24 blocks and
+# the heads carry that on, so the limits are 20 and 10 times tighter than
+# the bf16 step's; a wrong kernel moves the loss and the leaves by their
+# whole scale.
+F32_STEP_MAX_LOSS_DIFF = 1e-3
+F32_STEP_MAX_GRAD_REL_ERR = 1e-2
+# the recompute mode in fp32 rebuilds o and den with the forward kernel
+# that wrote them in the saved mode, and remat="save_attn" rebuilds a block
+# around the kept o and den (the replay Function, no forward launch), so
+# the gradients of both equal the saved mode's without remat up to the
+# order of sums outside the attention (measured: equal)
+F32_REBUILT_MAX_REL_L2 = 1e-6
+
+
+def phase_train_f32(state):
+    """The train-slice step in fp32 (compute_dtype float32, the fp32
+    attention kernels): the first step's loss and gradients against the
+    same step through the plain versions on the card, the launches per step,
+    the recompute mode's step (B1 and B8 in fp32) and the step under
+    remat="save_attn" (the kept fp32 o and den) against the saved mode's,
+    then fp32 and bf16 steps in turns: ms/step, peak GiB, finite losses.
+    These steps start from the weights train-slice left, near the fixed
+    batch's minimum, where the loss no longer falls step by step: the
+    driver phase's fp32 cli.train run, from the initial weights, holds
+    that."""
+    import contextlib
+    import torch
+    from gava_clip_tpu_torch.ops import flash_attention as fa
+    from gava_clip_tpu_torch.train.step import make_loss_fn, make_train_step
+    model, loss_cfg, opt = (state[k] for k in ("train_model", "train_cfg",
+                                              "train_opt"))
+    ts, batch, step16 = (state[k] for k in ("train_state", "train_batch",
+                                            "train_step"))
+    kw = dict(compute_dtype=torch.float32, attn_impl="flash")
+    loss_fn = make_loss_fn(model, loss_cfg, remat="none", **kw)
+
+    def loss_and_grads(plain=False, fn=loss_fn):
+        ts.optimizer.zero_grad(set_to_none=True)
+        _reset_launch_counts()
+        with fa.plain_versions() if plain else contextlib.nullcontext():
+            total, _ = fn(ts.trainable, ts.frozen, batch)
+            total.backward()
+        torch.cuda.synchronize()
+        grads = _grad_list(ts.trainable)
+        ts.optimizer.zero_grad(set_to_none=True)
+        return total.item(), grads, _launch_counts()
+
+    def rel_l2(got, want):
+        scale = max(g.norm().item() for g in want)
+        return [((a - b).norm() / b.norm().clamp_min(1e-3 * scale)).item()
+                for a, b in zip(got, want)]
+
+    loss_p, g_p, _ = loss_and_grads(plain=True)
+    loss_k, g_k, n_k = loss_and_grads()
+    rel = rel_l2(g_k, g_p)
+    worst = [n for n, _ in _named_leaves(ts.trainable)][int(np.argmax(rel))]
+    log(f"[train-f32] first fp32 step, kernels vs plain versions on the card: "
+        f"total {loss_k:.7f} vs {loss_p:.7f} (diff {abs(loss_k - loss_p):.2e}, "
+        f"limit {F32_STEP_MAX_LOSS_DIFF:g}); gradient leaves {len(rel)}, max "
+        f"relative L2 error {max(rel):.3e} ({worst}), median "
+        f"{float(np.median(rel)):.3e} (limit {F32_STEP_MAX_GRAD_REL_ERR:g}); "
+        f"launches {n_k}")
+    if not all(bool(torch.isfinite(g).all()) for g in g_k) or \
+            abs(loss_k - loss_p) > F32_STEP_MAX_LOSS_DIFF or \
+            max(rel) > F32_STEP_MAX_GRAD_REL_ERR or \
+            any(n_k[k] != v for k, v in F32_PER_STEP.items()):
+        raise AssertionError("the fp32 step through the kernels disagrees "
+                             "with the plain versions")
+    del g_p
+    try:
+        fa.set_flash_bwd_mode("recompute")
+        loss_r, g_r, n_r = loss_and_grads()
+    finally:
+        fa.set_flash_bwd_mode("saved")
+    loss_a, g_a, n_a = loss_and_grads(fn=make_loss_fn(
+        model, loss_cfg, remat="save_attn", **kw))
+    for what, loss_x, g_x, n_x, want in (
+            ("the recompute mode", loss_r, g_r, n_r, F32_RECOMPUTE_PER_STEP),
+            ('remat="save_attn"', loss_a, g_a, n_a, F32_PER_STEP)):
+        rel_x = rel_l2(g_x, g_k)
+        equal = loss_x == loss_k and all(torch.equal(a, b)
+                                         for a, b in zip(g_x, g_k))
+        log(f"[train-f32] {what}: the fp32 step vs the saved mode's without "
+            f"remat: total {loss_x:.7f} vs {loss_k:.7f}, max relative L2 "
+            f"{max(rel_x):.3e} (limit {F32_REBUILT_MAX_REL_L2:g}), equal bit "
+            f"for bit: {equal}; launches {n_x}")
+        if max(rel_x) > F32_REBUILT_MAX_REL_L2 or \
+                any(n_x[k] != v for k, v in want.items()):
+            raise AssertionError(f"the fp32 step under {what} failed its "
+                                 f"checks")
+    by_kernel = state.setdefault("launches_by_kernel", {})
+    for name in ("packed_attention_den_f32", "packed_attention_bwd_f32",
+                 "streaming_attention_f32", "streaming_attention_bwd_f32"):
+        by_kernel[name] = n_k[name]
+    by_kernel["packed_attention_bwd_recompute_f32"] = \
+        n_r["packed_attention_bwd_recompute_f32"]
+    del g_k, g_r, g_a
+
+    step32 = make_train_step(model, loss_cfg, opt, remat="none", **kw)
+    first_step = ts.step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ts, metrics = step32(ts, batch)          # the first fp32 step: warm-up
+    totals = [metrics["total"].item()]
+    peak32 = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = {"fp32": [], "bf16": []}
+    _reset_launch_counts()
+    for which in ("fp32", "bf16", "bf16", "fp32") * F32_STEP_TURNS:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        ts, metrics = (step32 if which == "fp32" else step16)(ts, batch)
+        ev[1].record()
+        total = metrics["total"].item()
+        if which == "fp32":
+            totals.append(total)
+        ms[which].append(ev[0].elapsed_time(ev[1]))
+    counts = _launch_counts()
+    state["train_state"] = ts
+    n32 = len(ms["fp32"])
+    log(f"[train-f32] fp32 and bf16 steps in turns (fp32, bf16, bf16, fp32; "
+        f"x{F32_STEP_TURNS}): fp32 {[round(t, 2) for t in ms['fp32']]} ms "
+        f"(median {np.median(ms['fp32']):.2f}), bf16 "
+        f"{[round(t, 2) for t in ms['bf16']]} ms (median "
+        f"{np.median(ms['bf16']):.2f}), ratio "
+        f"{np.median(ms['fp32']) / np.median(ms['bf16']):.3f}; peak memory "
+        f"over the first fp32 step {peak32:.2f} GiB (the bf16 step's "
+        f"{state['train_peak']:.2f} GiB in train-slice); fp32 total loss "
+        f"{[round(t, 4) for t in totals]}; launches {counts} "
+        f"({state['smi']})")
+    if not all(np.isfinite(totals)) or \
+            ts.step != first_step + 1 + 2 * n32 or any(
+                counts[k] != v * n32 for k, v in F32_PER_STEP.items()
+                if k.endswith("_f32")):
+        raise AssertionError("the fp32 steps failed their checks")
+    state.update(train_f32_ms=float(np.median(ms["fp32"])),
+                 train_f32_peak=peak32)
+
+
 # ---------------------------------------------------------------------------
 # int8-forward training (--int8_frozen): the straight-through ops B3a, B2
 # and B5 at the shapes of the flagship's training step, the step itself at
@@ -3244,7 +3683,8 @@ def _int8_cli(state):
 def phase_int8_train(state):
     """int8-forward training (--int8_frozen) through B3a, B2 and B5."""
     import torch
-    for key in ("train_step", "train_state", "train_batch", "train_loss_fn"):
+    for key in ("train_step", "train_state", "train_batch", "train_loss_fn",
+                "train_model", "train_cfg", "train_opt"):
         state.pop(key, None)
     torch.cuda.empty_cache()
     _int8_train_ops(state)
@@ -3545,7 +3985,8 @@ def phase_cli(state):
     from gava_clip_tpu_torch.cli import train as cli_train
     from gava_clip_tpu_torch.cli import zero_shot as cli_zs
     from gava_clip_tpu_torch.train import checkpoint as ckpt_lib
-    for key in ("train_step", "train_state", "train_batch", "train_loss_fn"):
+    for key in ("train_step", "train_state", "train_batch", "train_loss_fn",
+                "train_model", "train_cfg", "train_opt"):
         state.pop(key, None)
     torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="gava_fold_")
@@ -3703,6 +4144,65 @@ def phase_cli(state):
                 any(n8[k] != n for k, n in EVAL_W8A8_LAUNCHES.items()) or \
                 not any(f.startswith("eval_") for f in os.listdir(run_a)):
             raise AssertionError("cli.evaluate failed its checks")
+
+        # the same program in fp32 (no --use_bf16): the fp32 attention
+        # kernels and no bf16 one, then cli.evaluate on that run (fp32 from
+        # the run's config.yaml) through the fp32 B1
+        f32_args = [a for a in train_args if a != "--use_bf16"]
+        _reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        run_f, rec_f = _train_main(f32_args + ["--save_freq", "1000"],
+                                   "run_f32")
+        n_f = _launch_counts()
+        peak_f = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps_f = [r for r in rec_f if "loss" in r]
+        loss_f = {r["step"]: r["loss"] for r in steps_f}
+        sustained_f = [(b["t"] - a["t"]) / (b["step"] - a["step"]) * 1e3
+                       for a, b in zip(steps_f[1:], steps_f[2:])]
+        f32_rate = cli_train.last_eval["clips"] / \
+            cli_train.last_eval["seconds"]
+        want_f = {"packed_attention_den_f32": 12 * CLI_STEPS,
+                  "packed_attention_bwd_f32": 12 * CLI_STEPS,
+                  "packed_attention_f32": 24,
+                  "streaming_attention_bwd_f32": 12 * CLI_STEPS,
+                  "packed_attention_den": 0, "packed_attention_bwd": 0,
+                  "packed_attention": 0, "streaming_attention": 0,
+                  "streaming_attention_bwd": 0}
+        log(f"[driver] run_f32 (no --use_bf16): {CLI_STEPS} steps of 16 clips "
+            f"x 8 frames, fp32, flash, prefetch 2: loss at the print steps "
+            f"{ {k: round(v, 4) for k, v in loss_f.items()} }; sustained "
+            f"{[round(x, 1) for x in sustained_f]} ms/step (median "
+            f"{np.median(sustained_f):.2f}; bf16 run_a {np.median(sustained):.2f}"
+            f"); evaluation {f32_rate:.1f} clips/s; peak memory {peak_f:.2f} "
+            f"GiB; launches {n_f} ({state['smi']})")
+        first, last = steps_f[:2], steps_f[-2:]
+        if not all(np.isfinite(list(loss_f.values()))) or not \
+                np.mean([r["loss"] for r in last]) < \
+                np.mean([r["loss"] for r in first]) or \
+                any(n_f[k] != v for k, v in want_f.items()):
+            raise AssertionError(f"the fp32 run failed its checks: losses "
+                                 f"{loss_f}, launches {n_f}, expected "
+                                 f"{want_f}")
+        conf_f_run = np.loadtxt(os.path.join(run_f,
+                                             "confusion_matrix_fold-0.txt"))
+        _reset_launch_counts()
+        perf_f, conf_f = cli_eval.main(["--checkpoint_dir", run_f] +
+                                       eval_args[2:])
+        n_ef = _launch_counts()
+        log(f"[driver] cli.evaluate on run_f32: accuracy {perf_f[0]:.4f}, "
+            f"confusion {conf_f.tolist()} (the run's best "
+            f"{conf_f_run.astype(int).tolist()}), "
+            f"{cli_train.last_eval['clips'] / cli_train.last_eval['seconds']:.1f}"
+            f" clips/s, launches packed_attention_f32 "
+            f"{n_ef['packed_attention_f32']} (expect 24), packed_attention "
+            f"{n_ef['packed_attention']} (expect 0)")
+        if not np.array_equal(conf_f, conf_f_run) or \
+                n_ef["packed_attention_f32"] != 24 or n_ef["packed_attention"]:
+            raise AssertionError("cli.evaluate on the fp32 run failed its "
+                                 "checks")
+        state.setdefault("launches_by_kernel", {})["packed_attention_f32"] = \
+            n_ef["packed_attention_f32"]
+        shutil.rmtree(run_f)
 
         # cli.zero_shot on reference-format files written from a model's
         # own weights
@@ -4634,6 +5134,8 @@ def main(argv=None) -> int:
             ("device", phase_device), ("build", phase_build),
             ("kernel", phase_kernel), ("w8a8-kernel", phase_w8a8_kernels),
             ("train-kernel", phase_train_kernels),
+            ("f32-kernel", phase_f32_kernels),
+            ("f32-mutants", phase_f32_mutants),
             ("w8-kernel", phase_w8_kernels), ("mega", phase_mega),
             ("slice", phase_slice), ("w8a8-slice", phase_w8a8_slice),
             ("w8-slice", phase_w8_slice),
@@ -4643,6 +5145,7 @@ def main(argv=None) -> int:
             ("w8-server", lambda st: phase_server(st, "_w8")),
             ("train-slice", phase_train_slice),
             ("train-recompute", phase_train_recompute),
+            ("train-f32", phase_train_f32),
             ("int8-train", phase_int8_train),
             ("driver", phase_cli),
             ("gait-text", phase_gait_text),

@@ -11,11 +11,13 @@ carrying text_features, per-fold and aggregate reports (results.txt,
 confusion matrices), config.yaml dump.
 
 Execution: one eager train step (forward + losses + backward + AdamW, in
-place) on one device, the card unless `--device cpu`; uint8 frames are
-normalized on the device; the host-to-device copy of the next batch runs on
-a side CUDA stream. `--int8_frozen` runs the frozen projections of both
-towers as int8 GEMMs through the w8a8 kernels (with `--use_bf16` on the
-card; `train.step.make_train_step(frozen_int8=True)`). Data parallelism
+place) on one device, the card unless `--device cpu`, in fp32 or with
+`--use_bf16` in bf16, the attention through the kernels of that dtype;
+uint8 frames are normalized on the device; the host-to-device copy of the
+next batch runs on a side CUDA stream. `--int8_frozen` runs the frozen
+projections of both towers as int8 GEMMs through the w8a8 kernels (with
+`--use_bf16` on the card until their fp32 rows, ROADMAP A11;
+`train.step.make_train_step(frozen_int8=True)`). Data parallelism
 over several cards is not ported yet (ROADMAP A9, second half).
 """
 

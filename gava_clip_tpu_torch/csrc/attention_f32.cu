@@ -1,0 +1,671 @@
+// Float32 attention for Hopper (sm_90a): the fp32 forms of the packed
+// forward (with and without den), of its backward from the saved output
+// and den, of the backward that rebuilds them, and of the streaming (causal
+// or long) forward and backward.
+//
+// Replaces, for float32 q / k / v, the TPU kernels of
+// gava_clip_tpu/ops/flash_attention.py: _attention_kernel (:181) and
+// _attention_kernel_den (:193) (B1 / B6a), _attention_bwd_kernel (:213)
+// (B6b), _attention_bwd_kernel_recompute (:410) (B8), and the forward and
+// backward kernels of the stock TPU flash attention that _streaming_flash
+// (:534) wraps (B7). Those emit their input's dtype; the port's bf16
+// kernels (packed_attention.cu, packed_attention_bwd.cuh,
+// streaming_attention.cu, attention_bwd.cuh) are built on bf16 mma
+// fragments and take bf16 only. The functions are the bf16 forms' with
+// every cast to v's dtype a no-op:
+//
+//   packed (Lk <= 640, per head): s = q k^T (fp32), c = 64^-0.5 * log2(e)
+//     e   = exp2(min(s * c, 110))           keys >= Lk give 0; no max
+//                                           subtraction: the clamp is the
+//                                           semantics
+//     den = sum(e)                          written by the den entry
+//     o   = (e @ v) / max(den, 1e-30)
+//   its backward, from o and den (or, recompute, from o and den rebuilt by
+//   the forward above into scratch):
+//     inv = 1 / max(den, 1e-30), delta = rowsum(do * o), p = e * inv,
+//     ds = p * (do v^T - delta), dq = scale ds k, dk = scale ds^T q,
+//     dv = p^T do
+//   streaming: s2 = s * c; key j is visible to row i iff j < Lk and (not
+//     causal or j <= i); a running max m and sum l over key tiles,
+//     p = exp2(s2 - m), o = (p @ v) / l, lse = (m + log2(l)) * ln(2);
+//   its backward: p = exp2(s2 - lse * log2(e)) over the visible keys, then
+//     as the packed backward with inv = 1.
+//
+// Every product runs on the CUDA cores as fp32 FMA. TF32 tensor-core
+// products would round each operand to a 10-bit mantissa (~5e-4
+// relative), which an fp32 run must not see. The exp2 is ex2.approx.ftz
+// (at most 2 ulp; results below 2^-126 flush to 0), as in the bf16 forms.
+//
+// What bounds it on an H100 SXM (data-sheet figures, not measured), per
+// layer at the training shape B = 16 clips x 8 frames = 128, Lq = 197,
+// Lk = 214, H = 12: the forward does two products per score entry, 16.6
+// GFLOP, 0.247 ms at 67 TFLOP/s fp32, against 161 MB of q, k, v and o,
+// 0.048 ms at 3.35 TB/s; the backward five products, 0.62 ms, against 0.19
+// ms of bytes. Without tensor cores every form is bound by its operations:
+// what matters is that each FMA takes its operands from registers, which
+// the 4 x 4 patches below do (two 16-byte shared loads per 16 FMA).
+//
+// Design. A simple kernel that is right: every product is a 64 x 64 x 64
+// product of tiles in shared memory, 256 threads (16 x 16) each holding a
+// 4 x 4 patch of the result, 64 rank-1 steps from two float4 loads. Both
+// operands are stored with the summed index as the row ("x-major"): a tile
+// of q, k, v or do is stored transposed (loader load_t, conflict-free: a
+// warp writes 16 rows x 2 float4 into distinct banks) where its head
+// columns are summed, and as it is (load_n) where its rows are.
+//   forward: one block per (64 query rows, head, batch row); key tiles of
+//     64 stream through shared memory with no rescaling in the packed form
+//     (no running max), so the result is the plain formula in another fp32
+//     summation order; the streaming form rescales its accumulator when a
+//     row's max moves. Under the causal mask a block stops at its last
+//     row's key.
+//   backward: a dq kernel, one block per (64 query rows, head, batch row),
+//     walks the key tiles; it first takes each row's delta and statistic
+//     and leaves them in a scratch buffer for the dk / dv kernel, one block
+//     per (64 keys, head, batch row), which walks the query tiles (causal:
+//     from the key tile's own). Each owns its output tile: no atomics, the
+//     same bits on every run.
+// Launches on the caller's stream, no sync, no allocation (the wrapper
+// allocates the outputs and the scratch).
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kHD = 64;                  // head dim the kernels are built for
+constexpr int kT = 64;                   // query rows or keys of a tile
+constexpr int kLD = kT + 4;              // padded shared row: 272 bytes, 16-byte aligned
+constexpr int kTileFloats = kHD * kLD;   // one 64 x 64 tile, either orientation
+constexpr int kThreads = 256;            // 16 x 16 threads, a 4 x 4 patch each
+// dynamic shared bytes: the forward's q^T, k^T, v, e^T tiles; the dq
+// kernel's q^T, do^T, k^T, k, v^T, ds^T and two floats a row; the dk / dv
+// kernel's k^T, v^T, q^T, do^T, q, do, p, ds and two floats a row
+constexpr int kFwdSmemBytes = 4 * kTileFloats * 4;
+constexpr int kDqSmemBytes = 6 * kTileFloats * 4 + 2 * kT * 4;
+constexpr int kDkvSmemBytes = 8 * kTileFloats * 4 + 2 * kT * 4;
+constexpr float kClamp = 110.f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// 2^x in one MUFU instruction (see attention_pipe.cuh's ex2f)
+__device__ __forceinline__ float ex2f(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Rows [r0, r0 + 64) of one head (64 floats from `src`, row stride `ld`)
+// into a tile stored transposed, dst[d * kLD + r]; rows >= L are zeros and
+// are never read. A warp loads 16 rows x 2 float4 (one 32-byte sector a
+// row) and its stores fall in 32 distinct banks.
+__device__ __forceinline__ void load_t(float* dst, const float* src, int r0, int L,
+                                       long long ld) {
+#pragma unroll
+  for (int it = 0; it < kT * kHD / 4 / kThreads; ++it) {
+    const int idx = it * kThreads + threadIdx.x;
+    const int w = idx >> 5, l = idx & 31;
+    const int r = (w & 3) * 16 + (l >> 1);
+    const int c = ((w >> 2) * 2 + (l & 1)) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < L) x = *reinterpret_cast<const float4*>(src + (r0 + r) * ld + c);
+    dst[(c + 0) * kLD + r] = x.x;
+    dst[(c + 1) * kLD + r] = x.y;
+    dst[(c + 2) * kLD + r] = x.z;
+    dst[(c + 3) * kLD + r] = x.w;
+  }
+}
+
+// The same rows stored as they are, dst[r * kLD + d].
+__device__ __forceinline__ void load_n(float* dst, const float* src, int r0, int L,
+                                       long long ld) {
+#pragma unroll
+  for (int it = 0; it < kT * kHD / 4 / kThreads; ++it) {
+    const int idx = it * kThreads + threadIdx.x;
+    const int r = idx >> 4, c = (idx & 15) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < L) x = *reinterpret_cast<const float4*>(src + (r0 + r) * ld + c);
+    *reinterpret_cast<float4*>(dst + r * kLD + c) = x;
+  }
+}
+
+// acc[i][j] += sum over x < 64 of a[x][4 ty + i] * b[x][4 tx + j]: both
+// operands x-major, fp32 FMA.
+__device__ __forceinline__ void mm64(float (&acc)[4][4], const float* a, const float* b,
+                                     int ty, int tx) {
+#pragma unroll 8
+  for (int x = 0; x < kT; ++x) {
+    const float4 av = *reinterpret_cast<const float4*>(a + x * kLD + 4 * ty);
+    const float4 bv = *reinterpret_cast<const float4*>(b + x * kLD + 4 * tx);
+    const float ar[4] = {av.x, av.y, av.z, av.w};
+    const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+  }
+}
+
+// a thread's 4 x 4 patch, transposed, into an x-major tile: dst[4 tx + j][4 ty + i]
+__device__ __forceinline__ void store_patch_t(float* dst, const float (&p)[4][4], int ty,
+                                              int tx) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    *reinterpret_cast<float4*>(dst + (4 * tx + j) * kLD + 4 * ty) =
+        make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
+}
+
+// the sum (or max) of a row's value over the 16 threads tx that share it
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int off = 1; off < 16; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int off = 1; off < 16; off <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+
+struct FwdArgs {
+  const float *q, *k, *v;
+  float* o;
+  float* stat;   // den (B, Lq, H) in the packed form (may be null), lse (B, H, Lq) streaming
+  int Lq, Lk, H;
+  int q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl;
+  float c;       // 64^-0.5 * log2(e)
+  int causal;
+};
+
+// STREAM: the streaming form (running max, causal mask, lse); else the
+// packed clamp form
+template <bool STREAM>
+__global__ void __launch_bounds__(kThreads, 2) attention_f32_fwd_kernel(FwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  float* qt = smem;
+  float* kt = qt + kTileFloats;
+  float* vs = kt + kTileFloats;
+  float* et = vs + kTileFloats;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kT;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const long long hoff = static_cast<long long>(h) * kHD;
+  const float* qb = a.q + static_cast<long long>(b) * a.q_sb + hoff;
+  const float* kb = a.k + static_cast<long long>(b) * a.k_sb + hoff;
+  const float* vb = a.v + static_cast<long long>(b) * a.v_sb + hoff;
+  load_t(qt, qb, q0, a.Lq, a.q_sl);
+
+  float acc[4][4], l[4], m[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    l[i] = 0.f;
+    m[i] = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  }
+  // under the causal mask no row of the block sees a key past its last row
+  const int kend = STREAM && a.causal ? min(a.Lk, q0 + kT) : a.Lk;
+  for (int k0 = 0; k0 < kend; k0 += kT) {
+    __syncthreads();   // the previous tile's k^T, v and e^T are free
+    load_t(kt, kb, k0, a.Lk, a.k_sl);
+    load_n(vs, vb, k0, a.Lk, a.v_sl);
+    __syncthreads();
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    mm64(s, qt, kt, ty, tx);
+    if (!STREAM) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = k0 + 4 * tx + j;
+          const float e = key < a.Lk ? ex2f(fminf(s[i][j] * a.c, kClamp)) : 0.f;
+          s[i][j] = e;
+          l[i] += e;
+        }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + 4 * ty + i;
+        float mt = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = k0 + 4 * tx + j;
+          const bool vis = key < a.Lk && (!a.causal || key <= row);
+          s[i][j] = vis ? s[i][j] * a.c : -INFINITY;
+          mt = fmaxf(mt, s[i][j]);
+        }
+        const float mn = fmaxf(m[i], row_max(mt));
+        const float mu = mn == -INFINITY ? 0.f : mn;   // a row with no visible key yet
+        const float alpha = ex2f(m[i] - mu);            // 0 while m is -inf
+        l[i] *= alpha;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][j] *= alpha;
+          s[i][j] = ex2f(s[i][j] - mu);
+          l[i] += s[i][j];
+        }
+        m[i] = mn;
+      }
+    }
+    store_patch_t(et, s, ty, tx);
+    __syncthreads();
+    mm64(acc, et, vs, ty, tx);   // acc += e @ v (p @ v)
+  }
+
+  float* ob = a.o + static_cast<long long>(b) * a.o_sb + hoff;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float sum = row_sum(l[i]);
+    const int row = q0 + 4 * ty + i;
+    if (row >= a.Lq) continue;
+    float d;
+    if (!STREAM) {
+      if (a.stat != nullptr && tx == 0)
+        a.stat[(static_cast<long long>(b) * a.Lq + row) * a.H + h] = sum;
+      d = fmaxf(sum, 1e-30f);
+    } else {
+      if (tx == 0)
+        a.stat[(static_cast<long long>(b) * a.H + h) * a.Lq + row] =
+            (m[i] + log2f(sum)) * kLn2;
+      d = sum;
+    }
+    *reinterpret_cast<float4*>(ob + static_cast<long long>(row) * a.o_sl + 4 * tx) =
+        make_float4(acc[i][0] / d, acc[i][1] / d, acc[i][2] / d, acc[i][3] / d);
+  }
+}
+
+struct BwdArgs {
+  const float *q, *k, *v, *dout, *o;
+  const float* rowstat;   // den (B, Lq, H) packed, lse (B, H, Lq) streaming
+  float *dq, *dk, *dv;
+  float* sd;              // scratch (2, B, H, Lq): each row's statistic, then its delta
+  int B, Lq, Lk, H;
+  int q_sb, q_sl, k_sb, k_sl, v_sb, v_sl;   // do and o: (B, Lq, H*64) contiguous
+  float scale, c;
+  int causal;
+};
+
+// p of one score entry: e * inv_d (packed; st = inv_d) or exp2(s2 - lse
+// log2 e) (streaming; st = lse * log2 e); 0 for a key past Lk, a row past
+// Lq and a key the causal mask hides
+template <bool STREAM>
+__device__ __forceinline__ float prob(float s, float st, int key, int row, int Lq, int Lk,
+                                      int causal, float c) {
+  if (key >= Lk || row >= Lq) return 0.f;
+  if (STREAM) return causal && key > row ? 0.f : ex2f(s * c - st);
+  return ex2f(fminf(s * c, kClamp)) * st;
+}
+
+template <bool STREAM>
+__global__ void __launch_bounds__(kThreads, 2) attention_f32_bwd_dq_kernel(BwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  float* qt = smem;
+  float* dot = qt + kTileFloats;
+  float* kt = dot + kTileFloats;
+  float* kn = kt + kTileFloats;
+  float* vt = kn + kTileFloats;
+  float* dst = vt + kTileFloats;
+  float* sst = dst + kTileFloats;
+  float* sdl = sst + kT;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kT;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const long long D = static_cast<long long>(a.H) * kHD;
+  const long long hoff = static_cast<long long>(h) * kHD;
+  const float* qb = a.q + static_cast<long long>(b) * a.q_sb + hoff;
+  const float* kb = a.k + static_cast<long long>(b) * a.k_sb + hoff;
+  const float* vb = a.v + static_cast<long long>(b) * a.v_sb + hoff;
+  const float* dob = a.dout + static_cast<long long>(b) * a.Lq * D + hoff;
+  const float* obb = a.o + static_cast<long long>(b) * a.Lq * D + hoff;
+
+  // each row's delta = rowsum(do * o) (4 threads a row, 16 columns each)
+  // and its statistic, here and in the scratch for the dk / dv kernel
+  {
+    const int r = threadIdx.x >> 2, part = threadIdx.x & 3, row = q0 + r;
+    float d = 0.f;
+    if (row < a.Lq) {
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        const long long off = row * D + part * 16 + 4 * x;
+        const float4 u = *reinterpret_cast<const float4*>(dob + off);
+        const float4 w = *reinterpret_cast<const float4*>(obb + off);
+        d = fmaf(u.x, w.x, d);
+        d = fmaf(u.y, w.y, d);
+        d = fmaf(u.z, w.z, d);
+        d = fmaf(u.w, w.w, d);
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    if (part == 0) {
+      float st = 0.f;
+      if (row < a.Lq) {
+        const long long bh = static_cast<long long>(b) * a.H + h;
+        st = STREAM ? a.rowstat[bh * a.Lq + row] * kLog2e
+                    : 1.f / fmaxf(a.rowstat[(static_cast<long long>(b) * a.Lq + row) * a.H + h],
+                                  1e-30f);
+        a.sd[bh * a.Lq + row] = st;
+        a.sd[static_cast<long long>(a.B) * a.H * a.Lq + bh * a.Lq + row] = d;
+      }
+      sst[r] = st;
+      sdl[r] = row < a.Lq ? d : 0.f;
+    }
+  }
+  load_t(qt, qb, q0, a.Lq, a.q_sl);
+  load_t(dot, dob, q0, a.Lq, D);
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  const int kend = STREAM && a.causal ? min(a.Lk, q0 + kT) : a.Lk;
+  for (int k0 = 0; k0 < kend; k0 += kT) {
+    __syncthreads();
+    load_t(kt, kb, k0, a.Lk, a.k_sl);
+    load_n(kn, kb, k0, a.Lk, a.k_sl);
+    load_t(vt, vb, k0, a.Lk, a.v_sl);
+    __syncthreads();
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    mm64(s, qt, kt, ty, tx);    // q k^T
+    mm64(dp, dot, vt, ty, tx);  // do v^T
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * ty + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        s[i][j] = prob<STREAM>(s[i][j], sst[r], k0 + 4 * tx + j, q0 + r, a.Lq, a.Lk,
+                               a.causal, a.c) *
+                  (dp[i][j] - sdl[r]);   // ds
+    }
+    store_patch_t(dst, s, ty, tx);
+    __syncthreads();
+    mm64(acc, dst, kn, ty, tx);   // dq += ds k
+  }
+  float* dqb = a.dq + static_cast<long long>(b) * a.Lq * D + hoff;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row < a.Lq)
+      *reinterpret_cast<float4*>(dqb + row * D + 4 * tx) =
+          make_float4(acc[i][0] * a.scale, acc[i][1] * a.scale, acc[i][2] * a.scale,
+                      acc[i][3] * a.scale);
+  }
+}
+
+template <bool STREAM>
+__global__ void __launch_bounds__(kThreads, 1) attention_f32_bwd_dkdv_kernel(BwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  float* kt = smem;
+  float* vt = kt + kTileFloats;
+  float* qt = vt + kTileFloats;
+  float* dot = qt + kTileFloats;
+  float* qn = dot + kTileFloats;
+  float* don = qn + kTileFloats;
+  float* ps = don + kTileFloats;
+  float* dss = ps + kTileFloats;
+  float* sst = dss + kTileFloats;
+  float* sdl = sst + kT;
+  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kT;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const long long D = static_cast<long long>(a.H) * kHD;
+  const long long hoff = static_cast<long long>(h) * kHD;
+  const long long bh = static_cast<long long>(b) * a.H + h;
+  const float* qb = a.q + static_cast<long long>(b) * a.q_sb + hoff;
+  const float* kb = a.k + static_cast<long long>(b) * a.k_sb + hoff;
+  const float* vb = a.v + static_cast<long long>(b) * a.v_sb + hoff;
+  const float* dob = a.dout + static_cast<long long>(b) * a.Lq * D + hoff;
+  const float* sdd = a.sd + static_cast<long long>(a.B) * a.H * a.Lq;
+  load_t(kt, kb, k0, a.Lk, a.k_sl);
+  load_t(vt, vb, k0, a.Lk, a.v_sl);
+
+  float dk[4][4], dv[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dk[i][j] = dv[i][j] = 0.f;
+  // under the causal mask the query tiles before this key tile's own see
+  // none of its keys
+  for (int q0 = STREAM && a.causal ? k0 : 0; q0 < a.Lq; q0 += kT) {
+    __syncthreads();
+    load_t(qt, qb, q0, a.Lq, a.q_sl);
+    load_t(dot, dob, q0, a.Lq, D);
+    load_n(qn, qb, q0, a.Lq, a.q_sl);
+    load_n(don, dob, q0, a.Lq, D);
+    if (threadIdx.x < kT) {
+      const int row = q0 + threadIdx.x;
+      sst[threadIdx.x] = row < a.Lq ? a.sd[bh * a.Lq + row] : 0.f;
+      sdl[threadIdx.x] = row < a.Lq ? sdd[bh * a.Lq + row] : 0.f;
+    }
+    __syncthreads();
+    float s[4][4], dp[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    mm64(s, qt, kt, ty, tx);    // q k^T: rows are queries, columns keys
+    mm64(dp, dot, vt, ty, tx);  // do v^T
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * ty + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = prob<STREAM>(s[i][j], sst[r], k0 + 4 * tx + j, q0 + r, a.Lq, a.Lk,
+                               a.causal, a.c);
+        dp[i][j] = s[i][j] * (dp[i][j] - sdl[r]);
+      }
+      *reinterpret_cast<float4*>(ps + r * kLD + 4 * tx) =
+          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+      *reinterpret_cast<float4*>(dss + r * kLD + 4 * tx) =
+          make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]);
+    }
+    __syncthreads();
+    mm64(dv, ps, don, ty, tx);   // dv += p^T do
+    mm64(dk, dss, qn, ty, tx);   // dk += ds^T q
+  }
+  float* dkb = a.dk + static_cast<long long>(b) * a.Lk * D + hoff;
+  float* dvb = a.dv + static_cast<long long>(b) * a.Lk * D + hoff;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int key = k0 + 4 * ty + i;
+    if (key >= a.Lk) continue;
+    *reinterpret_cast<float4*>(dkb + key * D + 4 * tx) =
+        make_float4(dk[i][0] * a.scale, dk[i][1] * a.scale, dk[i][2] * a.scale,
+                    dk[i][3] * a.scale);
+    *reinterpret_cast<float4*>(dvb + key * D + 4 * tx) =
+        make_float4(dv[i][0], dv[i][1], dv[i][2], dv[i][3]);
+  }
+}
+
+FwdArgs make_fwd(const void* q, const void* k, const void* v, void* o, void* stat, int Lq,
+                 int Lk, int H, int q_sb, int q_sl, int k_sb, int k_sl, int v_sb, int v_sl,
+                 int o_sb, int o_sl, float c, int causal) {
+  FwdArgs a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.o = static_cast<float*>(o);
+  a.stat = static_cast<float*>(stat);
+  a.Lq = Lq; a.Lk = Lk; a.H = H;
+  a.q_sb = q_sb; a.q_sl = q_sl; a.k_sb = k_sb; a.k_sl = k_sl;
+  a.v_sb = v_sb; a.v_sl = v_sl; a.o_sb = o_sb; a.o_sl = o_sl;
+  a.c = c;
+  a.causal = causal;
+  return a;
+}
+
+template <bool STREAM>
+cudaError_t launch_fwd(const FwdArgs& a, int B, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(attention_f32_fwd_kernel<STREAM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kFwdSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Lq + kT - 1) / kT, a.H, B);
+  attention_f32_fwd_kernel<STREAM><<<grid, kThreads, kFwdSmemBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// the dq kernel (which also writes the row statistics), then the dk / dv
+// kernel, on one stream
+template <bool STREAM>
+cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(attention_f32_bwd_dq_kernel<STREAM>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kDqSmemBytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attention_f32_bwd_dkdv_kernel<STREAM>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmemBytes);
+  if (err != cudaSuccess) return err;
+  attention_f32_bwd_dq_kernel<STREAM>
+      <<<dim3((a.Lq + kT - 1) / kT, a.H, a.B), kThreads, kDqSmemBytes, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attention_f32_bwd_dkdv_kernel<STREAM>
+      <<<dim3((a.Lk + kT - 1) / kT, a.H, a.B), kThreads, kDkvSmemBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+BwdArgs make_bwd(const void* q, const void* k, const void* v, const void* dout,
+                 const void* o, const void* rowstat, void* dq, void* dk, void* dv,
+                 void* scratch, int B, int Lq, int Lk, int H, int q_sb, int q_sl, int k_sb,
+                 int k_sl, int v_sb, int v_sl, float scale, int causal) {
+  BwdArgs a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.dout = static_cast<const float*>(dout);
+  a.o = static_cast<const float*>(o);
+  a.rowstat = static_cast<const float*>(rowstat);
+  a.dq = static_cast<float*>(dq);
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
+  a.sd = static_cast<float*>(scratch);
+  a.B = B; a.Lq = Lq; a.Lk = Lk; a.H = H;
+  a.q_sb = q_sb; a.q_sl = q_sl; a.k_sb = k_sb; a.k_sl = k_sl;
+  a.v_sb = v_sb; a.v_sl = v_sl;
+  a.scale = scale;
+  a.c = scale * kLog2e;
+  a.causal = causal;
+  return a;
+}
+
+inline int bad_args(int Dh, const void* p) {
+  return Dh != kHD || p == nullptr;
+}
+
+}  // namespace
+
+// Strides are in elements; the last dim is contiguous and rows are 16-byte
+// aligned (checked by the Python wrapper). Each entry returns
+// cudaGetLastError() after its launches: 0 when they were accepted.
+
+// B1: o (B, Lq, H*64) fp32; c = Dh^-0.5 * log2(e)
+extern "C" int packed_attention_f32(const void* q, const void* k, const void* v, void* o,
+                                    int B, int Lq, int Lk, int H, int Dh, int q_sb, int q_sl,
+                                    int k_sb, int k_sl, int v_sb, int v_sl, int o_sb,
+                                    int o_sl, float c, void* stream) {
+  if (bad_args(Dh, o)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_fwd<false>(
+      make_fwd(q, k, v, o, nullptr, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl,
+               c, 0),
+      B, static_cast<cudaStream_t>(stream)));
+}
+
+// B6a: the same, which also writes den (B, Lq, H) fp32 contiguous
+extern "C" int packed_attention_den_f32(const void* q, const void* k, const void* v, void* o,
+                                        void* den, int B, int Lq, int Lk, int H, int Dh,
+                                        int q_sb, int q_sl, int k_sb, int k_sl, int v_sb,
+                                        int v_sl, int o_sb, int o_sl, float c, void* stream) {
+  if (bad_args(Dh, den)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_fwd<false>(
+      make_fwd(q, k, v, o, den, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl, c,
+               0),
+      B, static_cast<cudaStream_t>(stream)));
+}
+
+// B6b: dq, dk, dv from do and o (B, Lq, H*64) contiguous and den (B, Lq, H);
+// scratch holds 2 * B * H * Lq floats
+extern "C" int packed_attention_bwd_f32(const void* q, const void* k, const void* v,
+                                        const void* dout, const void* o, const void* den,
+                                        void* dq, void* dk, void* dv, void* scratch, int B,
+                                        int Lq, int Lk, int H, int Dh, int q_sb, int q_sl,
+                                        int k_sb, int k_sl, int v_sb, int v_sl, float scale,
+                                        void* stream) {
+  if (bad_args(Dh, scratch)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_bwd<false>(
+      make_bwd(q, k, v, dout, o, den, dq, dk, dv, scratch, B, Lq, Lk, H, q_sb, q_sl, k_sb,
+               k_sl, v_sb, v_sl, scale, 0),
+      static_cast<cudaStream_t>(stream)));
+}
+
+// B8: the forward (o and den into o_scratch (B, Lq, H*64) and den_scratch
+// (B, Lq, H)), then B6b's kernels on them
+extern "C" int packed_attention_bwd_recompute_f32(
+    const void* q, const void* k, const void* v, const void* dout, void* o_scratch,
+    void* den_scratch, void* dq, void* dk, void* dv, void* scratch, int B, int Lq, int Lk,
+    int H, int Dh, int q_sb, int q_sl, int k_sb, int k_sl, int v_sb, int v_sl, float scale,
+    void* stream) {
+  if (bad_args(Dh, scratch) || o_scratch == nullptr || den_scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int D = H * kHD;
+  cudaError_t err = launch_fwd<false>(
+      make_fwd(q, k, v, o_scratch, den_scratch, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb,
+               v_sl, Lq * D, D, scale * kLog2e, 0),
+      B, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_bwd<false>(
+      make_bwd(q, k, v, dout, o_scratch, den_scratch, dq, dk, dv, scratch, B, Lq, Lk, H,
+               q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, scale, 0),
+      st));
+}
+
+// B7 forward: o (B, Lq, H*64) fp32 and lse (B, H, Lq) fp32
+extern "C" int streaming_attention_f32(const void* q, const void* k, const void* v,
+                                       void* o, void* lse, int B, int Lq, int Lk, int H,
+                                       int Dh, int q_sb, int q_sl, int k_sb, int k_sl,
+                                       int v_sb, int v_sl, int o_sb, int o_sl, float scale,
+                                       int causal, void* stream) {
+  if (bad_args(Dh, lse)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_fwd<true>(
+      make_fwd(q, k, v, o, lse, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl,
+               scale * kLog2e, causal),
+      B, static_cast<cudaStream_t>(stream)));
+}
+
+// B7 backward: from do and o (B, Lq, H*64) contiguous and lse (B, H, Lq);
+// scratch holds 2 * B * H * Lq floats
+extern "C" int streaming_attention_bwd_f32(const void* q, const void* k, const void* v,
+                                           const void* dout, const void* o, const void* lse,
+                                           void* dq, void* dk, void* dv, void* scratch, int B,
+                                           int Lq, int Lk, int H, int Dh, int q_sb, int q_sl,
+                                           int k_sb, int k_sl, int v_sb, int v_sl,
+                                           float scale, int causal, void* stream) {
+  if (bad_args(Dh, scratch)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_bwd<true>(
+      make_bwd(q, k, v, dout, o, lse, dq, dk, dv, scratch, B, Lq, Lk, H, q_sb, q_sl, k_sb,
+               k_sl, v_sb, v_sl, scale, causal),
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The layout the launch plan is computed from: rows of a tile, threads a
+// block, and the dynamic shared bytes of the forward, the dq kernel and
+// the dk / dv kernel.
+extern "C" void attention_f32_layout(int* out) {
+  out[0] = kT;
+  out[1] = kThreads;
+  out[2] = kFwdSmemBytes;
+  out[3] = kDqSmemBytes;
+  out[4] = kDkvSmemBytes;
+}
+
+extern "C" const char* cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -78,6 +78,34 @@ _SIGNATURES = {
         "streaming_attention_bwd_layout": ([ctypes.POINTER(_I)], None),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
+    "attention_f32": {
+        # B1: q, k, v, o; B, Lq, Lk, H, Dh; q/k/v/o batch and row strides;
+        # exp2 constant; stream
+        "packed_attention_f32": (
+            [_VP] * 4 + [_I] * 5 + [_I] * 8 + [ctypes.c_float, _VP], _I),
+        # B6a: the same with den after o
+        "packed_attention_den_f32": (
+            [_VP] * 5 + [_I] * 5 + [_I] * 8 + [ctypes.c_float, _VP], _I),
+        # B6b: q, k, v, do, o, den, dq, dk, dv, scratch; B, Lq, Lk, H, Dh;
+        # q/k/v batch and row strides; scale; stream
+        "packed_attention_bwd_f32": (
+            [_VP] * 10 + [_I] * 5 + [_I] * 6 + [ctypes.c_float, _VP], _I),
+        # B8: q, k, v, do, o and den scratch, dq, dk, dv, scratch; then as
+        # B6b
+        "packed_attention_bwd_recompute_f32": (
+            [_VP] * 10 + [_I] * 5 + [_I] * 6 + [ctypes.c_float, _VP], _I),
+        # B7 forward: q, k, v, o, lse; B, Lq, Lk, H, Dh; q/k/v/o batch and
+        # row strides; scale; causal; stream
+        "streaming_attention_f32": (
+            [_VP] * 5 + [_I] * 5 + [_I] * 8 + [ctypes.c_float, _I, _VP], _I),
+        # B7 backward: q, k, v, do, o, lse, dq, dk, dv, scratch; B, Lq, Lk,
+        # H, Dh; q/k/v batch and row strides; scale; causal; stream
+        "streaming_attention_bwd_f32": (
+            [_VP] * 10 + [_I] * 5 + [_I] * 6 + [ctypes.c_float, _I, _VP], _I),
+        # the launch plan's layout: five ints
+        "attention_f32_layout": ([ctypes.POINTER(_I)], None),
+        "cuda_error_string": ([_I], ctypes.c_char_p),
+    },
     "w8a8_matmul": {
         # x, W, s, b, y; M, K, N; the launch plan (rows per block, units
         # per block, ring stages, shared bytes); stream

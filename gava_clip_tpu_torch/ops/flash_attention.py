@@ -46,6 +46,13 @@ plain version (`*_plain`); a CUDA tensor runs the hand-written kernel in
 csrc/ or raises. There is no fallback between the two. The gradients are
 `torch.autograd.Function`s whose backward is a kernel too.
 
+Each of these kernels has a bf16 form and a float32 form, picked by the
+dtype of q, k, v (all bfloat16 or all float32): the bf16 kernels above, and
+csrc/attention_f32.cu, where every product is an fp32 FMA and every cast to
+v's dtype a no-op (`attention_f32_plan`; launch counts `*_f32`). Nothing is
+cast from one to the other. The w8a8 serving fusion below has a bf16 form
+only and raises on float32 (ROADMAP A12).
+
 `flash_attention_out_int8` is the w8a8 serving fusion (TPU
 `_attention_out_kernel` + `_int8_outproj_epilogue`): the same attention
 over the first `lq` query rows and all keys, kept in fp32, then a per-row
@@ -80,7 +87,13 @@ launch_counts = {"packed_attention": 0, "attention_out_int8": 0,
                  "attention_out_int8_2src": 0,
                  "packed_attention_den": 0, "packed_attention_bwd": 0,
                  "packed_attention_bwd_recompute": 0,
-                 "streaming_attention": 0, "streaming_attention_bwd": 0}
+                 "streaming_attention": 0, "streaming_attention_bwd": 0,
+                 # the float32 forms (csrc/attention_f32.cu)
+                 "packed_attention_f32": 0, "packed_attention_den_f32": 0,
+                 "packed_attention_bwd_f32": 0,
+                 "packed_attention_bwd_recompute_f32": 0,
+                 "streaming_attention_f32": 0,
+                 "streaming_attention_bwd_f32": 0}
 
 
 def reset_launch_counts() -> None:
@@ -200,16 +213,22 @@ def _reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2).reshape(B, Lq, D)
 
 
-def _check_kernel_args(q, k, v, num_heads):
+def _check_kernel_args(q, k, v, num_heads, no_f32: str = ""):
+    """Raise unless q, k, v suit the attention kernels: one CUDA device, all
+    bfloat16 or all float32 (`no_f32`, when given, is the message for a
+    kernel that has no float32 form), (B, L, H*64) with 16-byte rows."""
+    if not q.dtype == k.dtype == v.dtype or \
+            q.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError("the attention kernels take q/k/v all bfloat16 or "
+                        f"all float32, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if q.dtype == torch.float32 and no_f32:
+        raise TypeError(no_f32)
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("packed attention kernel needs q, k, v on one "
                          "CUDA device")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q/k/v on different devices: {q.device}, "
                          f"{k.device}, {v.device}")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError("packed attention kernel takes bfloat16 q/k/v, got "
-                        f"{q.dtype}/{k.dtype}/{v.dtype}")
     if q.dim() != 3 or k.dim() != 3 or v.dim() != 3:
         raise ValueError("q/k/v must be (B, L, H*Dh)")
     B, _, D = q.shape
@@ -221,19 +240,24 @@ def _check_kernel_args(q, k, v, num_heads):
     if D // num_heads != _KERNEL_HEAD_DIM:
         raise ValueError(f"head dim {D // num_heads}: the kernel is built "
                          f"for {_KERNEL_HEAD_DIM}")
+    esize = q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} last dim must be contiguous")
-        # the kernel moves 16-byte vectors of 8 bf16 values
-        if t.data_ptr() % 16 or t.stride(0) % 8 or t.stride(1) % 8:
+        # the kernels move 16-byte vectors (8 bf16 or 4 fp32 values)
+        if t.data_ptr() % 16 or t.stride(0) * esize % 16 or \
+                t.stride(1) * esize % 16:
             raise ValueError(f"{name} rows must be 16-byte aligned")
 
 
 def packed_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           num_heads: int) -> torch.Tensor:
-    """Launch csrc/packed_attention.cu on the current stream (no sync)."""
+    """Launch csrc/packed_attention.cu (bf16) or the float32 form in
+    csrc/attention_f32.cu on the current stream (no sync)."""
     from ._cuda import load_library
     _check_kernel_args(q, k, v, num_heads)
+    if q.dtype == torch.float32:
+        return _packed_fwd_f32("packed_attention_f32", q, k, v, num_heads)
     B, Lq, D = q.shape
     Lk = k.shape[1]
     Dh = D // num_heads
@@ -387,9 +411,12 @@ def packed_attention_den_cuda(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, num_heads: int
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the denominator-emitting entry of csrc/packed_attention.cu on
-    the current stream (no sync): (out, den (B, Lq, H) fp32)."""
+    the current stream (no sync), or its float32 form in
+    csrc/attention_f32.cu: (out, den (B, Lq, H) fp32)."""
     from ._cuda import load_library
     _check_kernel_args(q, k, v, num_heads)
+    if q.dtype == torch.float32:
+        return _packed_fwd_f32("packed_attention_den_f32", q, k, v, num_heads)
     B, Lq, D = q.shape
     Dh = D // num_heads
     lib = load_library("packed_attention")
@@ -504,11 +531,15 @@ def _packed_bwd_launch(name: str, q, k, v, do, extra, num_heads: int):
 
 
 def packed_attention_bwd_cuda(q, k, v, do, o, den, num_heads: int):
-    """Launch csrc/packed_attention_bwd.cu (one kernel) on the current
-    stream (no sync). Returns dq, dk, dv."""
+    """Launch csrc/packed_attention_bwd.cu (one kernel) or its float32 form
+    in csrc/attention_f32.cu on the current stream (no sync). Returns dq,
+    dk, dv."""
     _check_kernel_args(q, k, v, num_heads)
     B, Lq, D = q.shape
     _check_bwd_args(q, do, o, den, (B, Lq, num_heads))
+    if q.dtype == torch.float32:
+        return _bwd_f32("packed_attention_bwd_f32", q, k, v, do,
+                        (o.contiguous(), den.contiguous()), num_heads)
     return _packed_bwd_launch("packed_attention_bwd", q, k, v,
                               do.contiguous(),
                               (o.contiguous(), den.contiguous()), num_heads)
@@ -516,13 +547,19 @@ def packed_attention_bwd_cuda(q, k, v, do, o, den, num_heads: int):
 
 def packed_attention_bwd_recompute_cuda(q, k, v, do, num_heads: int):
     """Launch csrc/packed_attention_bwd_recompute.cu (one kernel that
-    rebuilds den and delta itself) on the current stream (no sync). Returns
-    dq, dk, dv."""
+    rebuilds den and delta itself), or its float32 form in
+    csrc/attention_f32.cu (the forward into scratch, then B6b's kernels), on
+    the current stream (no sync). Returns dq, dk, dv."""
     _check_kernel_args(q, k, v, num_heads)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
         raise ValueError(f"do {do.dtype} {tuple(do.shape)} on {do.device}, "
                          f"expected q's {q.dtype} {tuple(q.shape)} on "
                          f"{q.device}")
+    if q.dtype == torch.float32:
+        B, Lq, D = q.shape
+        return _bwd_f32("packed_attention_bwd_recompute_f32", q, k, v, do,
+                        (q.new_empty((B, Lq, D)),
+                         q.new_empty((B, Lq, num_heads))), num_heads)
     return _packed_bwd_launch("packed_attention_bwd_recompute", q, k, v,
                               do.contiguous(), (), num_heads)
 
@@ -531,8 +568,9 @@ def streaming_attention_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, num_heads: int,
                              causal: bool = False
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch csrc/streaming_attention.cu on the current stream (no sync):
-    (out, lse (B, H, Lq) fp32)."""
+    """Launch csrc/streaming_attention.cu (bf16) or the float32 form in
+    csrc/attention_f32.cu on the current stream (no sync): (out, lse (B, H,
+    Lq) fp32)."""
     # the text tower's attention is launch-bound: this wrapper's host time
     # is most of the call's, so it asks for the device, the stream and the
     # current device once each
@@ -541,6 +579,8 @@ def streaming_attention_cuda(q: torch.Tensor, k: torch.Tensor,
     B, Lq, D = q.shape
     if k.shape[1] == 0:
         raise ValueError("streaming attention needs at least one key")
+    if q.dtype == torch.float32:
+        return _streaming_fwd_f32(q, k, v, num_heads, causal)
     lib = load_library("streaming_attention")
     dev = q.device
     out = torch.empty((B, Lq, D), dtype=q.dtype, device=dev)
@@ -587,7 +627,8 @@ def streaming_bwd_plan(B: int, Lq: int, Lk: int, H: int) -> Dict:
 def streaming_attention_bwd_cuda(q, k, v, do, o, lse, num_heads: int,
                                  causal: bool = False):
     """Launch csrc/streaming_attention_bwd.cu on the current stream (no
-    sync), in the form of `streaming_bwd_plan`. Returns dq, dk, dv."""
+    sync), in the form of `streaming_bwd_plan`, or for float32 its form in
+    csrc/attention_f32.cu. Returns dq, dk, dv."""
     # launch-bound at the text shape, like the forward: the device, the
     # stream and the current device are asked for once each
     from ._cuda import load_library
@@ -596,6 +637,9 @@ def streaming_attention_bwd_cuda(q, k, v, do, o, lse, num_heads: int,
     Lk = k.shape[1]
     _check_bwd_args(q, do, o, lse, (B, num_heads, Lq))
     do, o, lse = do.contiguous(), o.contiguous(), lse.contiguous()
+    if q.dtype == torch.float32:
+        return _bwd_f32("streaming_attention_bwd_f32", q, k, v, do, (o, lse),
+                        num_heads, causal)
     lib = load_library("streaming_attention_bwd")
     dev = q.device
     dq = torch.empty((B, Lq, D), dtype=q.dtype, device=dev)
@@ -618,6 +662,123 @@ def streaming_attention_bwd_cuda(q, k, v, do, o, lse, num_heads: int,
     if err != 0:
         raise _launch_failed("streaming_attention_bwd", lib, err)
     launch_counts["streaming_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+# Launch plan of csrc/attention_f32.cu, the float32 forms: 64-row tiles of
+# fp32 in shared memory (rows padded to 68 floats), 256 threads a block,
+# and the dynamic shared bytes of its three kernels: the forward (q^T, k^T,
+# v and e^T tiles), the backward's dq kernel (q^T, do^T, k^T, k, v^T, ds^T
+# and two floats a row) and its dk / dv kernel (eight tiles and two floats
+# a row). The launch holds the five numbers against the library's
+# `attention_f32_layout` before its first use.
+_F32_LAYOUT = (64, 256, 69632, 104960, 139776)
+_CUDA_MAX_GRID_YZ = 65535
+
+
+def attention_f32_plan(B: int, Lq: int, Lk: int, H: int,
+                       Dh: int = _KERNEL_HEAD_DIM, packed: bool = True
+                       ) -> Dict:
+    """The launches of the float32 kernels at one shape: {'fwd', 'dq',
+    'dkdv': {'grid': (tiles, H, B), 'smem_bytes'}, 'threads',
+    'scratch_floats' (the backward's row statistics and deltas, 2 B H
+    Lq)}. The forward and the dq kernel take a block per 64 query rows, the
+    dk / dv kernel one per 64 keys; keys stream through fixed tiles, so no
+    size depends on Lk. packed: the clamp form, whose path ends at 640
+    keys."""
+    rows, threads, fwd, dq, dkdv = _F32_LAYOUT
+    if Dh != _KERNEL_HEAD_DIM:
+        raise ValueError(f"head dim {Dh}: the kernels are built for "
+                         f"{_KERNEL_HEAD_DIM}")
+    if min(B, Lq, Lk, H) < 1:
+        raise ValueError(f"attention_f32 plan: B={B}, Lq={Lq}, Lk={Lk}, "
+                         f"H={H}")
+    if packed and Lk > _PACKED_MAX_LK:
+        raise ValueError(f"{Lk} keys: the packed path ends at "
+                         f"{_PACKED_MAX_LK} (longer keys stream)")
+    if max(B, H) > _CUDA_MAX_GRID_YZ:
+        raise ValueError(f"B={B}, H={H}: a grid's y and z take at most "
+                         f"{_CUDA_MAX_GRID_YZ}")
+    q_tiles, k_tiles = -(-Lq // rows), -(-Lk // rows)
+    return {"fwd": {"grid": (q_tiles, H, B), "smem_bytes": fwd},
+            "dq": {"grid": (q_tiles, H, B), "smem_bytes": dq},
+            "dkdv": {"grid": (k_tiles, H, B), "smem_bytes": dkdv},
+            "threads": threads, "scratch_floats": 2 * B * H * Lq}
+
+
+def _f32_launch(name: str, dev, *args) -> None:
+    """Call entry `name` of csrc/attention_f32.cu on the current stream and
+    count one launch of it."""
+    from ._cuda import load_library
+    lib = load_library("attention_f32")
+    _check_layout("attention_f32", lib, "attention_f32_layout", _F32_LAYOUT)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = getattr(lib, name)(*args, stream)
+    if err != 0:
+        raise _launch_failed(name, lib, err)
+    launch_counts[name] += 1
+
+
+def _packed_fwd_f32(name: str, q, k, v, num_heads: int):
+    """B1 (`name` 'packed_attention_f32': out) or B6a
+    ('packed_attention_den_f32': out, den) in float32."""
+    B, Lq, D = q.shape
+    with_den = name == "packed_attention_den_f32"
+    out = torch.empty((B, Lq, D), dtype=q.dtype, device=q.device)
+    den = torch.empty((B, Lq, num_heads), dtype=torch.float32,
+                      device=q.device) if with_den else None
+    if B and Lq:
+        Dh = D // num_heads
+        attention_f32_plan(B, Lq, k.shape[1], num_heads, Dh)
+        _f32_launch(name, q.device, q.data_ptr(), k.data_ptr(),
+                    v.data_ptr(), out.data_ptr(),
+                    *((den.data_ptr(),) if with_den else ()), B, Lq,
+                    k.shape[1], num_heads, Dh, *_qkv_strides(q, k, v),
+                    out.stride(0), out.stride(1), Dh ** -0.5 * _LOG2E)
+    return (out, den) if with_den else out
+
+
+def _streaming_fwd_f32(q, k, v, num_heads: int, causal: bool):
+    """B7's forward in float32: (out, lse (B, H, Lq))."""
+    B, Lq, D = q.shape
+    out = torch.empty((B, Lq, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, num_heads, Lq), dtype=torch.float32,
+                      device=q.device)
+    if B and Lq:
+        Dh = D // num_heads
+        attention_f32_plan(B, Lq, k.shape[1], num_heads, Dh, packed=False)
+        _f32_launch("streaming_attention_f32", q.device, q.data_ptr(),
+                    k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    lse.data_ptr(), B, Lq, k.shape[1], num_heads, Dh,
+                    *_qkv_strides(q, k, v), out.stride(0), out.stride(1),
+                    Dh ** -0.5, int(causal))
+    return out, lse
+
+
+def _bwd_f32(name: str, q, k, v, do, extra, num_heads: int, causal=None):
+    """Allocate the gradients and the row-statistics scratch and launch
+    entry `name` of csrc/attention_f32.cu: B6b (`extra` o, den), B8 (the
+    scratch of the rebuilt o and den) or, with `causal` given, B7's
+    backward (o, lse). do and the tensors of `extra` are contiguous."""
+    B, Lq, D = q.shape
+    Lk = k.shape[1]
+    do = do.contiguous()
+    dq = torch.empty((B, Lq, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Lk, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, Lk, D), dtype=q.dtype, device=q.device)
+    if B == 0 or Lq == 0 or Lk == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    Dh = D // num_heads
+    plan = attention_f32_plan(B, Lq, Lk, num_heads, Dh,
+                              packed=causal is None)
+    scratch = torch.empty(plan["scratch_floats"], dtype=torch.float32,
+                          device=q.device)
+    tail = (Dh ** -0.5,) if causal is None else (Dh ** -0.5, int(causal))
+    _f32_launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                do.data_ptr(), *(t.data_ptr() for t in extra), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), B, Lq, Lk,
+                num_heads, Dh, *_qkv_strides(q, k, v), *tail)
     return dq, dk, dv
 
 
@@ -849,6 +1010,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # `attention_out_int8_layout` before its first use.
 _ATTN_OUT_LAYOUT = (18432, 4, 224, 128, 24576)
 _ATTN_OUT_ROWS = 112
+_NO_F32_OUT_INT8 = (
+    "the fused attention + int8 out-projection kernel (B4 / B11 / B12) "
+    "takes bfloat16 q/k/v only; its float32 form is ROADMAP A12 (evaluate "
+    "with --quantize_eval and --use_bf16 on the card)")
 
 
 def attention_out_plan(B: int, lq: int, num_heads: int,
@@ -954,7 +1119,7 @@ def attention_out_int8_cuda(q, k, v, num_heads: int, out_params: Dict,
     """Launch csrc/attention_out_int8.cu on the current stream (no sync):
     its fp32-score entry point, or with int8_qk its int8 QK^T one."""
     from .int8_matmul import _kernel_weight
-    _check_kernel_args(q, k, v, num_heads)
+    _check_kernel_args(q, k, v, num_heads, _NO_F32_OUT_INT8)
     B, Lq_arr, D = q.shape
     lq = Lq_arr if lq is None else lq
     if not 0 <= lq <= Lq_arr:
@@ -1014,8 +1179,8 @@ def attention_out_int8_2src_cuda(q, k1, v1, k2, v2, num_heads: int,
     """Launch the two-source entry of csrc/attention_out_int8.cu on the
     current stream (no sync); k1, v1 and k2, v2 are read where they lie."""
     from .int8_matmul import _kernel_weight
-    _check_kernel_args(q, k1, v1, num_heads)
-    _check_kernel_args(q, k2, v2, num_heads)
+    _check_kernel_args(q, k1, v1, num_heads, _NO_F32_OUT_INT8)
+    _check_kernel_args(q, k2, v2, num_heads, _NO_F32_OUT_INT8)
     B, Lq, D = q.shape
     L1, L2 = k1.shape[1], k2.shape[1]
     wt = _kernel_weight("attention_out_int8_2src", out_params["kernel"], D, D)

@@ -198,7 +198,8 @@ def _f32_vec(t, n: int, what: str):
 def _bf16_rows(name, x):
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name} kernel takes bfloat16 activations, got "
-                        f"{x.dtype}")
+                        f"{x.dtype}; fp32 rows for B2 / B3a / B5 are ROADMAP "
+                        f"A11 (run with --use_bf16 on the card)")
     return x.contiguous()
 
 
@@ -680,7 +681,8 @@ def int8_matmul_cuda(x, kernel):
                                           kernel["scale"]))
     if x.dtype != torch.bfloat16:
         raise TypeError(f"int8_matmul kernel takes bfloat16 activations, "
-                        f"got {x.dtype}")
+                        f"got {x.dtype}; its float32 form is ROADMAP A12 "
+                        f"(run with --use_bf16 on the card)")
     x = x.contiguous()
     M, K = x.shape
     N = kernel["scale"].numel()

@@ -2,20 +2,22 @@
 or a wrong bound: build deliberately broken copies of a kernel source and
 run the check phase of chip_smoke.py on each.
 
-    python3 -m gava_clip_tpu_torch.utils.kernel_mutants [b2 b7 b5 b3 b4 b10 mega]   # repo root, on a card
+    python3 -m gava_clip_tpu_torch.utils.kernel_mutants [b2 b7 b5 b3 b4 b10 mega f32]   # repo root, on a card
 
 Each mutant is a copy of the package and of chip_smoke.py under
 `_scratch/mut_<name>/` (gitignored) with one source patched; the copy
 builds into its own `_build/`, so the real build is never touched. A
 mutant is rejected when its phase raises and a check on the kernel under
 test reports FAIL; those lines are printed. The script exits 1 if a mutant
-is not rejected.
+is not rejected. The fp32 attention mutants (`f32_*`) are also run by
+chip_smoke.py's f32-mutants phase, all at once.
 """
 
 import os
 import shutil
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -31,7 +33,11 @@ _B4 = _B12
 _MEGA = "gava_clip_tpu_torch/csrc/mega_layer.cu"
 _B10 = "gava_clip_tpu_torch/csrc/fused_extras.cu"
 _B7B = "gava_clip_tpu_torch/csrc/attention_bwd.cuh"
+_F32 = "gava_clip_tpu_torch/csrc/attention_f32.cu"
 _ROUND = "__bfloat162float(__float2bfloat16({}))"
+# an fp32 value with its 13 low mantissa bits cut: what a TF32 tensor-core
+# product reads of an fp32 operand
+_TF32 = "__uint_as_float(__float_as_uint({}) & 0xffffe000u)"
 # name -> (source, [(old, new)], chip_smoke phase, word that marks the
 # kernel's lines)
 MUTANTS = {
@@ -214,52 +220,97 @@ MUTANTS = {
                 "          afrag::mma_chunk<kHD / 16>(dk, dr[kc], qs, c0 + kc, 0, "
                 "lane);\n")],
         "phase_train_kernels", "streaming_attention_bwd B="),
+    # the fp32 attention kernels: every product of tiles with its operands
+    # rounded to TF32, which the fp32 limit must tell from fp32
+    "f32_products_tf32": (
+        _F32, [("acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);",
+                "acc[i][j] = fmaf(" + _TF32.format("ar[i]") + ", "
+                + _TF32.format("br[j]") + ", acc[i][j]);")],
+        "phase_f32_kernels", "packed_attention_den_f32 B="),
+    # B1 / B6a in fp32: the weights of the keys past Lk (exp2(0) = 1)
+    # summed into den
+    "f32_b1_den_of_masked_keys": (
+        _F32, [("          const float e = key < a.Lk ? ex2f(fminf(s[i][j] * "
+                "a.c, kClamp)) : 0.f;\n          s[i][j] = e;\n",
+                "          const float e = ex2f(fminf(s[i][j] * a.c, kClamp));\n"
+                "          s[i][j] = key < a.Lk ? e : 0.f;\n")],
+        "phase_f32_kernels", "packed_attention_f32 B="),
+    # B6b in fp32 (and B7's backward, which shares the kernel): delta from
+    # the first 32 head columns of do * o only
+    "f32_b6b_delta_half_row": (
+        _F32, [("      for (int x = 0; x < 4; ++x) {\n        const long long off",
+                "      for (int x = 0; x < 2; ++x) {\n        const long long off")],
+        "phase_f32_kernels", "packed_attention_bwd_f32 B="),
+    # B8 in fp32: its forward over one key too few
+    "f32_b8_forward_one_key_short": (
+        _F32, [("make_fwd(q, k, v, o_scratch, den_scratch, Lq, Lk, H,",
+                "make_fwd(q, k, v, o_scratch, den_scratch, Lq, Lk - 1, H,")],
+        "phase_f32_kernels", "packed_attention_bwd_recompute_f32 B="),
+    # B7's forward in fp32: the running sum not rescaled when a row's max
+    # moves
+    "f32_b7_sum_not_rescaled": (
+        _F32, [("        l[i] *= alpha;\n", "")],
+        "phase_f32_kernels", "streaming_attention_f32 B="),
+    # B7's backward in fp32: p of the keys the causal mask hides kept
+    "f32_b7b_causal_mask_dropped": (
+        _F32, [("if (STREAM) return causal && key > row ? 0.f : "
+                "ex2f(s * c - st);", "if (STREAM) return ex2f(s * c - st);")],
+        "phase_f32_kernels", "streaming_attention_bwd_f32 B="),
 }
 
 
-def main(argv=None) -> int:
+def _run_mutant(name):
+    """Build and check one mutant in its own copy: (rejected, report)."""
+    path, edits, phase, word = MUTANTS[name]
+    d = os.path.join(ROOT, "_scratch", "mut_" + name)
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    shutil.copytree(os.path.join(ROOT, "gava_clip_tpu_torch"),
+                    os.path.join(d, "gava_clip_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build",
+                                                  "__pycache__"))
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), d)
+    with open(os.path.join(d, path)) as f:
+        src = f.read()
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError(f"{name}: {old!r} occurs "
+                               f"{src.count(old)} times in {path}")
+        src = src.replace(old, new)
+    with open(os.path.join(d, path), "w") as f:
+        f.write(src)
+    code = ("import chip_smoke as cs\ncs.import_port()\n"
+            "state = {'checks_only': True}\n"
+            f"cs.phase_device(state)\ncs.{phase}(state)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=d,
+                         capture_output=True, text=True)
+    # rejected only by a failed check on the kernel's own lines: a phase
+    # that stops on an error of its own shows nothing about the mutant
+    lines = [line for line in res.stdout.splitlines() if word in line]
+    rejected = res.returncode != 0 and any(
+        line.rstrip().endswith("FAIL") for line in lines)
+    report = [f"===== mutant {name}: exit code {res.returncode} "
+              f"({'rejected' if rejected else 'NOT REJECTED'})"]
+    report += ["    " + line[:400] for line in res.stdout.splitlines()
+               if word in line or line.startswith("[device] nvidia-smi")]
+    if not rejected:
+        report += ["    " + line
+                   for line in res.stderr.strip().splitlines()[-3:]]
+    return rejected, report
+
+
+def main(argv=None, jobs: int = 1) -> int:
     """argv: name prefixes of the mutants to run (all when none is given),
-    e.g. `b7 b5`."""
+    e.g. `b7 b5`; jobs: mutants built and checked at once."""
     prefixes = tuple(sys.argv[1:] if argv is None else argv)
+    names = [n for n in MUTANTS if not prefixes or n.startswith(prefixes)]
     passed = []
-    for name, (path, edits, phase, word) in MUTANTS.items():
-        if prefixes and not name.startswith(prefixes):
-            continue
-        d = os.path.join(ROOT, "_scratch", "mut_" + name)
-        shutil.rmtree(d, ignore_errors=True)
-        os.makedirs(d)
-        shutil.copytree(os.path.join(ROOT, "gava_clip_tpu_torch"),
-                        os.path.join(d, "gava_clip_tpu_torch"),
-                        ignore=shutil.ignore_patterns("_build",
-                                                      "__pycache__"))
-        shutil.copy(os.path.join(ROOT, "chip_smoke.py"), d)
-        with open(os.path.join(d, path)) as f:
-            src = f.read()
-        for old, new in edits:
-            if src.count(old) != 1:
-                raise RuntimeError(f"{name}: {old!r} occurs "
-                                   f"{src.count(old)} times in {path}")
-            src = src.replace(old, new)
-        with open(os.path.join(d, path), "w") as f:
-            f.write(src)
-        code = ("import chip_smoke as cs\ncs.import_port()\nstate = {}\n"
-                f"cs.phase_device(state)\ncs.{phase}(state)\n")
-        res = subprocess.run([sys.executable, "-c", code], cwd=d,
-                             capture_output=True, text=True)
-        # rejected only by a failed check on the kernel's own lines: a phase
-        # that stops on an error of its own shows nothing about the mutant
-        lines = [line for line in res.stdout.splitlines() if word in line]
-        rejected = res.returncode != 0 and any(
-            line.rstrip().endswith("FAIL") for line in lines)
-        print(f"===== mutant {name}: exit code {res.returncode} "
-              f"({'rejected' if rejected else 'NOT REJECTED'})", flush=True)
-        for line in res.stdout.splitlines():
-            if word in line or line.startswith("[device] nvidia-smi"):
-                print("    " + line[:400], flush=True)
-        if not rejected:
-            print("    " + "\n    ".join(res.stderr.strip().splitlines()[-3:]),
-                  flush=True)
-            passed.append(name)
+    with ThreadPoolExecutor(max(1, jobs)) as ex:
+        for name, (rejected, report) in zip(names,
+                                            ex.map(_run_mutant, names)):
+            print("\n".join(report), flush=True)
+            if not rejected:
+                passed.append(name)
     if passed:
         print(f"mutants that no check rejected: {passed}")
     return 1 if passed else 0

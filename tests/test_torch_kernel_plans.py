@@ -515,3 +515,80 @@ def test_fused_extras_stages_meet_at_a_cooperative_grid_barrier():
     assert "cg::this_grid()" in code
     assert "grid.barrier_arrive()" in code and "grid.sync()" in code
     assert "atomic" not in code
+
+
+# ---------------------------------------------------------------------------
+# the float32 attention kernels (csrc/attention_f32.cu)
+# ---------------------------------------------------------------------------
+
+_SM90_SMEM_PER_SM = 233472      # shared bytes of an SM (228 KB)
+_BLOCK_RESERVED = 1024          # shared bytes the runtime keeps per block
+
+
+def test_attention_f32_layout_is_the_kernel_source_s():
+    """The plan's constants are the ones attention_f32_layout reports: 64-row
+    tiles padded to 68 floats, 256 threads, and each kernel's shared bytes
+    as its tiles and row floats add up; every kernel fits one block's
+    limit, the forward three blocks to an SM and the dq kernel two."""
+    c = _cuda_constants("attention_f32.cu")
+    assert tfa._F32_LAYOUT == (c["kT"], c["kThreads"], c["kFwdSmemBytes"],
+                               c["kDqSmemBytes"], c["kDkvSmemBytes"])
+    tile = c["kHD"] * c["kLD"] * 4
+    assert c["kHD"] == tfa._KERNEL_HEAD_DIM == c["kT"]
+    assert c["kLD"] * 4 % 16 == 0                  # float4 rows
+    assert c["kThreads"] == (c["kT"] // 4) ** 2     # a 4 x 4 patch a thread
+    assert (c["kFwdSmemBytes"], c["kDqSmemBytes"], c["kDkvSmemBytes"]) == (
+        4 * tile, 6 * tile + 2 * c["kT"] * 4, 8 * tile + 2 * c["kT"] * 4)
+    for smem, per_sm in ((c["kFwdSmemBytes"], 3), (c["kDqSmemBytes"], 2),
+                         (c["kDkvSmemBytes"], 1)):
+        assert smem <= _H100_SMEM_OPTIN
+        assert per_sm * (smem + _BLOCK_RESERVED) <= _SM90_SMEM_PER_SM
+
+
+@pytest.mark.parametrize("B,Lq,Lk,H,packed", [
+    (128, 197, 214, 12, True),     # the 16 x 8 step (F32_PACKED_SHAPES)
+    (280, 197, 276, 12, True),     # 4 clips x 70 frames
+    (3, 13, 21, 2, True), (2, 65, 64, 3, True),
+    (2, 640, 640, 4, True),        # the packed path's edge
+    (15, 77, 77, 8, False),        # the text tower (F32_STREAM_SHAPES)
+    (4, 1024, 1024, 8, False), (2, 130, 700, 2, False),
+    (2, 100, 60, 2, False), (1, 1, 1, 1, False),
+])
+def test_attention_f32_plan_covers_every_row_head_and_tile(B, Lq, Lk, H,
+                                                          packed):
+    """Every shape chip_smoke checks: the forward's and the dq kernel's grid
+    cover every query row of every head and batch row in 64-row tiles, the
+    dk / dv kernel's every key; the scratch holds two floats a row; the
+    shared bytes are the layout's at any key length (640 included)."""
+    p = tfa.attention_f32_plan(B, Lq, Lk, H, packed=packed)
+    rows, threads, fwd, dq, dkdv = tfa._F32_LAYOUT
+    for kernel, L in (("fwd", Lq), ("dq", Lq), ("dkdv", Lk)):
+        tiles, heads, batch = p[kernel]["grid"]
+        assert tiles * rows >= L > (tiles - 1) * rows
+        assert (heads, batch) == (H, B)
+    assert (p["fwd"]["smem_bytes"], p["dq"]["smem_bytes"],
+            p["dkdv"]["smem_bytes"]) == (fwd, dq, dkdv)
+    assert p["threads"] == threads and p["scratch_floats"] == 2 * B * H * Lq
+
+
+@pytest.mark.parametrize("args,kw", [
+    ((2, 13, 21, 2, 32), {}),                  # head dim 32
+    ((0, 13, 21, 2), {}), ((2, 0, 21, 2), {}), ((2, 13, 0, 2), {}),
+    ((2, 13, 21, 0), {}),
+    ((2, 13, 641, 2), {}),                     # past the packed path
+    ((70000, 13, 21, 2), {"packed": False}),   # past a grid's z
+])
+def test_attention_f32_plan_raises_for_shapes_it_cannot_take(args, kw):
+    with pytest.raises(ValueError):
+        tfa.attention_f32_plan(*args, **kw)
+
+
+def test_attention_f32_layout_check_before_first_launch():
+    fn, want = "attention_f32_layout", tfa._F32_LAYOUT
+    tfa._bwd_layout_checked.discard("fake_f32")
+    tfa._check_layout("fake_f32", _FakeLayoutLib(fn, want), fn, want)
+    tfa._bwd_layout_checked.discard("fake_f32")
+    bad = want[:2] + (want[2] + 16,) + want[3:]
+    with pytest.raises(RuntimeError, match="layout"):
+        tfa._check_layout("fake_f32", _FakeLayoutLib(fn, bad), fn, want)
+    tfa._bwd_layout_checked.discard("fake_f32")
