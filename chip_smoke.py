@@ -73,9 +73,21 @@ a run without --use_bf16 takes:
           twice with the same bits, B8 bit-equal to B6b on the forward
           kernel's o and den; kernel, plain version and SDPA in fp32 timed
           in turns; fp32 into B4 and mixed or fp16 q/k/v raise TypeError;
+  w8a8-f32  the fp32 forms of the w8a8 kernels (B2, B3 / B3a, B5 / B5a;
+          B4 as B1's fp32 form into a scratch, then B2's fp32 entry with
+          the residual) against their plain versions at the shapes of the
+          fp32 int8 step and the fp32 w8a8 evaluation and at ragged ones
+          (F32_W8A8_LIMITS; B2 bit for bit), one counted `_f32` launch each,
+          timed beside their bf16 forms in turns and the int8 products
+          alone through torch._int_mm; mlp_block(residual=None) on fp32
+          rows (B5a's path); fp16 and mixed rows raise TypeError, B11 and
+          B12 on fp32 name ROADMAP A12;
   f32-mutants  the f32_* mutants of utils/kernel_mutants.py (one of them
-          rounds every product to TF32), built and checked all at once:
-          each must fail f32-kernel;
+          rounds every product to TF32) and its f32w8_* mutants (an fp32
+          row rounded to bf16 before the quant, B5's residual read as bf16,
+          B3a's LayerNorm mean over the first 1,024 columns, B4's attention
+          products in TF32), built and checked all at once: each must fail
+          f32-kernel or w8a8-f32;
   train-f32  the train-slice step in fp32: the first step against the
           plain versions (F32_STEP_MAX_*), launches per step
           (F32_PER_STEP), the recompute mode's step against the saved
@@ -104,7 +116,12 @@ The training and evaluation programs:
           frozen leaves bit-unchanged, ms/step, peak memory, the largest
           int8 - bf16 loss gap); 4 x 70 under save_attn_qkv and full, 2
           steps each beside bf16; cli.train --int8_frozen --use_bf16 on a
-          synthetic fold (the loss falls, the run's files, launches);
+          synthetic fold (the loss falls, the run's files, launches); then
+          in fp32: fp32 rows through the three ops take their `_f32` forms
+          (fp16 rows raise), the 16 x 8 step with frozen_int8 against the
+          plain versions (F32_STEP_MAX_*), 6 steps in turns with the fp32
+          step (INT8_F32_PER_STEP: only fp32 entries), and cli.train
+          --int8_frozen without --use_bf16;
   driver  writes a synthetic fold from a seed into a temporary directory
           (lists, separable uint8 clips as decoded-view cache files, NTE
           arrays, the memory pickle, the knowledge directory, a classes
@@ -119,8 +136,11 @@ The training and evaluation programs:
           rows, each held against w8a8_matmul3_plain on its own inputs, and
           36 B2 launches, the out-projections and fc1 at rows of 512 and
           fc2 at rows of 2,048, each held bit for bit against
-          w8a8_matmul_plain) and cli.zero_shot.main on a reference-format
-          .pth written from a model's own weights;
+          w8a8_matmul_plain), the same 12 steps in fp32 (no --use_bf16)
+          with cli.evaluate on that run, plain and --quantize_eval w8a8
+          (EVAL_W8A8_F32_LAUNCHES: the fp32 B3, B4 and B5 only; accuracy
+          within one clip of the plain evaluation), and cli.zero_shot.main
+          on a reference-format .pth written from a model's own weights;
   gait-text  the gait-knowledge programs from 128 synthetic WHAM walks
           drawn from a seed: offline.gait_params (10 parameters, so 210
           combinations), offline.preprocess.data_preprocess on the card
@@ -284,6 +304,23 @@ KERNELS = {
                           ("packed_attention_bwd_recompute_f32", 410),
                           ("streaming_attention_f32", 534),
                           ("streaming_attention_bwd_f32", 534))},
+    # the float32 forms of B2, B3 / B3a, B5 / B5a (the same sources) and B4
+    # (B1's fp32 form into a scratch, then B2's fp32 entry with the
+    # residual: csrc/w8a8_matmul.cu w8a8_matmul_f32)
+    "w8a8_matmul_f32": ("w8a8_matmul", "gava_clip_tpu_torch/csrc/w8a8_matmul.cu",
+                        "gava_clip_tpu/ops/int8_matmul.py:374"),
+    "w8a8_matmul3_cat_f32": ("w8a8_qkv", "gava_clip_tpu_torch/csrc/w8a8_qkv.cu",
+                             "gava_clip_tpu/ops/int8_matmul.py:514"),
+    "w8a8_matmul3_f32": ("w8a8_qkv", "gava_clip_tpu_torch/csrc/w8a8_qkv.cu",
+                         "gava_clip_tpu/ops/int8_matmul.py:433"),
+    "w8a8_mlp_res_f32": ("w8a8_mlp_f32",
+                         "gava_clip_tpu_torch/csrc/w8a8_mlp_f32.cu",
+                         "gava_clip_tpu/ops/int8_matmul.py:694"),
+    "w8a8_mlp_f32": ("w8a8_mlp_f32", "gava_clip_tpu_torch/csrc/w8a8_mlp_f32.cu",
+                     "gava_clip_tpu/ops/int8_matmul.py:594"),
+    "attention_out_int8_f32": (
+        "w8a8_matmul", "gava_clip_tpu_torch/csrc/w8a8_matmul.cu",
+        "gava_clip_tpu/ops/flash_attention.py:661"),
 }
 # (B, Lq, Lk, heads, head_dim); the first is the serving shape: 16 clips x
 # 8 frames, 197 query tokens, 197 + 8 global + 1 summary + 8 local keys
@@ -388,8 +425,8 @@ def phase_build(state):
     # their machine code must hold GMMA instructions (HGMMA for bf16, IGMMA
     # for int8)
     cuobjdump = os.path.join(os.path.dirname(_cuda.find_nvcc()), "cuobjdump")
-    for lib in ("w8_matmul", "w8a8_matmul", "w8a8_mlp", "w8a8_qkv",
-                "attention_out_int8", "mega_layer"):
+    for lib in ("w8_matmul", "w8a8_matmul", "w8a8_mlp", "w8a8_mlp_f32",
+                "w8a8_qkv", "attention_out_int8", "mega_layer"):
         sass = subprocess.run(
             [cuobjdump, "-sass", _cuda.build_info[lib]["so"]],
             capture_output=True, text=True, check=True).stdout
@@ -1873,13 +1910,14 @@ def phase_f32_kernels(state):
                                                           lse_ref, H, causal),
                  _sdpa_bwd(q, k, v, do, H, causal), bounds["bwd"], err_b)))
         del q, k, v, do, out, lse, ref, lse_ref, grads
-    # fp32 q/k/v into a kernel with a bf16 form only raises, naming its
-    # ROADMAP item; mixed and half inputs raise in every kernel
+    # fp32 q/k/v into a kernel with a bf16 form only (B4's int8 QK^T form,
+    # B11) raises, naming its ROADMAP item; mixed and half inputs raise in
+    # every kernel (B4 itself takes fp32: phase_w8a8_f32)
     q = rand(2, 13, 128)
     refusals = []
     for what, call in (
-            ("B4", lambda: fa.attention_out_int8_cuda(
-                q, q, q, 2, {"kernel": {}, "bias": None}, q)),
+            ("B11", lambda: fa.attention_out_int8_cuda(
+                q, q, q, 2, {"kernel": {}, "bias": None}, q, None, True)),
             ("mixed", lambda: fa.packed_attention_cuda(q, q.bfloat16(), q, 2)),
             ("fp16", lambda: fa.streaming_attention_cuda(
                 q.half(), q.half(), q.half(), 2, True))):
@@ -1887,10 +1925,10 @@ def phase_f32_kernels(state):
             call()
             refusals.append(f"{what}: no error")
         except TypeError as e:
-            if what == "B4" and "ROADMAP A12" not in str(e):
+            if what == "B11" and "ROADMAP A12" not in str(e):
                 refusals.append(f"{what}: {e}")
-    log(f"[f32-kernel] fp32 into B4 (ROADMAP A12), mixed bf16 / fp32 and fp16 "
-        f"q/k/v raise TypeError: {not refusals} {refusals}")
+    log(f"[f32-kernel] fp32 into B11 (ROADMAP A12), mixed bf16 / fp32 and "
+        f"fp16 q/k/v raise TypeError: {not refusals} {refusals}")
     if refusals:
         state.setdefault("f32_failures", []).append("refusals")
     if state.get("f32_failures"):
@@ -1900,11 +1938,348 @@ def phase_f32_kernels(state):
 
 def phase_f32_mutants(state):
     """The fp32 mutants of utils/kernel_mutants.py, all at once: each must
-    fail phase_f32_kernels."""
+    fail its phase (phase_f32_kernels for the attention kernels' f32_*,
+    phase_w8a8_f32 for the w8a8 kernels' f32w8_*)."""
     from gava_clip_tpu_torch.utils import kernel_mutants
-    names = [n for n in kernel_mutants.MUTANTS if n.startswith("f32_")]
+    names = [n for n in kernel_mutants.MUTANTS
+             if n.startswith(("f32_", "f32w8_"))]
     if kernel_mutants.main(names, jobs=len(names)):
         raise AssertionError("an fp32 mutant passed the checks")
+
+
+# ---------------------------------------------------------------------------
+# the fp32 forms of the w8a8 kernels (B2, B3 / B3a, B5 / B5a and B4), which
+# an fp32 `--int8_frozen` step and an fp32 `--quantize_eval w8a8` run take
+# ---------------------------------------------------------------------------
+
+# Limits of each fp32 form against its plain version on the same inputs:
+# (share of outputs != plain, share beyond 2 fp32 ulp, ceiling of (err -
+# 2 ulp) / flip unit), the flip unit xs * s * 127 as in W8A8_LIMITS.
+#   * B2 reads the rows as they are (no LayerNorm): the same codes and the
+#     same fp32 epilogue, so the same bits.
+#   * B3 / B3a: the LayerNorm's two sums run in another order (a warp
+#     butterfly, torch's reduction), and fp32 rows, unlike bf16 ones, make
+#     those sums inexact, so a row's normalised values move by an ulp. At
+#     the row's absmax that moves xs, and with it every output of the row
+#     by about an ulp: the share != plain is reported and not held (1.0).
+#     A code flips where a value lies within those ulps of a rounding tie
+#     (~127 * 2^-23 of a code: ~1e-5 of the codes, ~1% of the 768-code
+#     rows), and its row then moves by up to one flip unit: the share
+#     beyond 2 ulp is held at 2e-2, the ceiling at 2 units.
+#   * B5 / B5a: the same first-stage flips, and the hidden row they move
+#     (its absmax and codes, 3,072 of them a row) flips hidden codes at
+#     their ties too: far share 5e-2; a first-stage flip moves the whole
+#     hidden row and may flip several of its codes, so the ceiling is 4
+#     units with the residual or without it (W8A8_LIMITS' w8a8_mlp; the
+#     bf16 B5's 2 held in bf16, whose rounding hides most of these moves,
+#     and failed in fp32 at 2.81 units on an H100, NVIDIA H100 80GB HBM3,
+#     700.00 W).
+#   * B4: the attention's sums in another order (attention_f32.cu against
+#     torch, ~1e-7 of the scale, F32_REL) move most fp32 attention values
+#     by ulps, so every row's xs and a code a tie: far share 5e-2, ceiling
+#     4 units (W8A8_LIMITS' for B4).
+# With a residual (B4, B5) the last add rounds at an ulp of the larger of
+# its two terms, and where they cancel the output is far smaller than
+# either: an ulp's move of xs then shows as many ulp of the output. The
+# "2 ulp" of those forms are an ulp of max(|output|, |residual|).
+# A product taken in TF32, a row rounded to bf16 or a residual read as
+# bf16 moves most outputs by far more than 2 ulp: the f32w8_* mutants of
+# utils/kernel_mutants.py must fail these limits.
+F32_W8A8_LIMITS = {
+    "w8a8_matmul_f32": (0.0, 0.0, 0.0),
+    "w8a8_matmul3_cat_f32": (1.0, 2e-2, 2.0),
+    "w8a8_matmul3_f32": (1.0, 2e-2, 2.0),
+    "w8a8_mlp_res_f32": (1.0, 5e-2, 4.0),
+    "w8a8_mlp_f32": (1.0, 5e-2, 4.0),
+    "attention_out_int8_f32": (1.0, 5e-2, 4.0),
+}
+# (M, K, N): B2 at the vision out-projection of the 16 x 8 step (the first:
+# timed), the text tower's three shapes, the patch embed of raw pixels,
+# then ragged ones: K % 8 == 4 in registers and in passes (the half chunk
+# of an fp32 row), K 13 and 1,101 (rows not 16-byte aligned: a value a
+# load)
+F32_B2_SHAPES = ((25216, 768, 768), (1155, 512, 512), (1155, 512, 2048),
+                 (1155, 2048, 512), (25088, 768, 768, "pixels"),
+                 (45, 100, 33), (37, 1100, 77), (37, 13, 77), (19, 1101, 40))
+# (M, K, N, LayerNorm?): B3a at the 16 x 8 step's 27,392 kv rows with LN1,
+# rows held in passes with a LayerNorm (K 1,100), no LayerNorm
+F32_B3A_SHAPES = ((27392, 768, 768, True), (200, 1100, 77, True),
+                  (37, 100, 40, False))
+# (B, Lx, Le, K, N): B3 at the w8a8 evaluation's frame rows, ragged
+F32_B3_SHAPES = ((128, 197, 17, 768, 768), (3, 13, 5, 96, 40))
+# (M, K, hidden, N, residual?, LayerNorm?): B5 and B5a
+F32_B5_SHAPES = ((25216, 768, 3072, 768, True, True),
+                 (25216, 768, 3072, 768, False, True),
+                 (37, 768, 3072, 768, True, True),
+                 (20, 64, 200, 33, True, True), (20, 64, 200, 33, False, False))
+# (B, lq, Lq rows of q, Lk, H): B4 at the w8a8 evaluation's shape, ragged
+F32_B4_SHAPES = ((128, 197, 214, 214, 12), (3, 13, 21, 21, 2),
+                 (2, 40, 100, 100, 12))
+
+
+def f32_ulp(x):
+    import torch
+    mag = x.abs().float().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 23)
+
+
+def _check_w8a8_f32(name, out, ref, unit, residual=None):
+    """Hold an fp32 w8a8 form's output against its plain version's within
+    F32_W8A8_LIMITS[name]: (ok, max |err|, text). The ulp are those of
+    max(|ref|, |residual|) where the form adds a residual."""
+    import torch
+    lim_diff, lim_far, lim_units = F32_W8A8_LIMITS[name]
+    err = (out - ref).abs()
+    ulp = f32_ulp(ref if residual is None
+                  else torch.maximum(ref.abs(), residual.abs()))
+    diff_share = (err > 0).float().mean().item()
+    far_share = (err > 2 * ulp).float().mean().item()
+    units = ((err - 2 * ulp).clamp_min(0) / unit.clamp_min(1e-30)).max().item()
+    ok = (out.dtype == torch.float32 and out.shape == ref.shape
+          and bool(torch.isfinite(out).all()) and diff_share <= lim_diff
+          and far_share <= lim_far and units <= lim_units)
+    return ok, err.max().item(), (
+        f"max_abs_err {err.max().item():.3e}; outputs != plain "
+        f"{diff_share:.3e} (limit {lim_diff:g}), > 2 fp32 ulp "
+        f"{far_share:.3e} (limit {lim_far:g}), max (err - 2 ulp) / flip "
+        f"unit {units:.3f} (limit {lim_units:g})")
+
+
+def phase_w8a8_f32(state):
+    """The fp32 forms of B2, B3 / B3a, B5 / B5a and B4 against their plain
+    versions on the card (F32_W8A8_LIMITS), one counted launch each, at the
+    shapes of the fp32 `--int8_frozen` step and the fp32 w8a8 evaluation
+    and at ragged ones; at the first shape of each, CUDA-event times of the
+    kernel and its plain version in turns, of the kernel and its bf16 form
+    on the same values in bf16 in turns (median of 5 rounds), and of the
+    int8 products alone through torch._int_mm; then B5a's path,
+    mlp_block(residual=None) on fp32 rows. With state['checks_only'] (the
+    mutants' runs) nothing is timed, and with state['only'] (a mutant's
+    kernel) only that kernel is checked, its libraries built at once."""
+    import torch
+    from gava_clip_tpu_torch.ops import _cuda
+    from gava_clip_tpu_torch.ops import flash_attention as fa
+    from gava_clip_tpu_torch.ops import int8_matmul as im
+    from gava_clip_tpu_torch.ops.activations import quick_gelu
+    from gava_clip_tpu_torch.ops.linear import mlp_block
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    gen_mm = torch.Generator(device="cuda").manual_seed(13)
+    timed = not state.get("checks_only")
+    only = state.get("only")
+    stats = state.setdefault("kstats", {})
+    bf = torch.bfloat16
+    names = [n for n in F32_W8A8_LIMITS if only in (None, n)]
+    _cuda.load_libraries(sorted(
+        {KERNELS[n][0] for n in names} |
+        ({"attention_f32"} if "attention_out_int8_f32" in names else set())))
+
+    def randn(*shape, gain=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * gain
+
+    def cat(out):
+        return torch.cat(out, dim=-1) if isinstance(out, tuple) else out
+
+    def run(name, label, kernel, plain, unit, timing=None, residual=None):
+        """`kernel` against `plain` (one launch of `name`); `timing` (the
+        first shape): (bound, the bf16 form's call on inputs cast
+        beforehand, [(M, K, W^T)] of the int8 products)."""
+        if name not in names:
+            return
+        _reset_launch_counts()
+        out = cat(kernel())
+        torch.cuda.synchronize()
+        n = _launch_counts()[name]
+        ok, err, text = _check_w8a8_f32(name, out, cat(plain()), unit,
+                                        residual)
+        ok = ok and n == 1
+        log(f"[w8a8-f32] {name} {label}: one launch ({n}); {text} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            state.setdefault("w8a8_f32_failures", []).append(
+                f"{name} {label}")
+        if timing is None or not timed:
+            return
+        bound, bf16_call, products = timing
+        ms, plain_ms, t = _time_pair(kernel, plain, iters=5)
+        k, b, ratio, lo, hi = _ratio_turns(kernel, bf16_call, turns=5)
+        mm = sum(_int_mm_ms(gen_mm, *p) for p in products)
+        log(f"[w8a8-f32] {name} {label}: kernel {t['kernel']} ms, plain "
+            f"{t['plain']} ms (order plain, kernel, kernel, plain); vs its "
+            f"bf16 form on the same values in bf16, median of 5 rounds in "
+            f"turns: {k:.4f} ms vs {b:.4f} ms, ratio {ratio:.3f} (rounds "
+            f"{lo:.3f}-{hi:.3f}); the int8 products alone through "
+            f"torch._int_mm {mm:.4f} ms; bound {bound[0]:.4f} ms "
+            f"({bound[1]}) ({state['smi']})")
+        stats[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bound[0], "bound_by": bound[1],
+                       "library_ms": None,
+                       "yardsticks": {"bf16_ms": b, "kernel_ms_in_turns": k,
+                                      "int_mm_ms": mm}}
+
+    for i, (M, K, N, *kind) in enumerate(F32_B2_SHAPES):
+        x = torch.randint(0, 256, (M, K), generator=gen, device="cuda").float() \
+            if kind else randn(M, K)
+        kern = _qleaf(gen, K, N)
+        b = randn(N, gain=0.1)
+        xb = x.to(bf)
+        run("w8a8_matmul_f32", f"M={M} K={K} N={N}",
+            lambda: im.w8a8_matmul_cuda(x, kern, b),
+            lambda: im.w8a8_matmul_plain(x, kern, b),
+            _flip_unit(im.quant_rows(x)[1], kern["scale"]),
+            (_bound(4 * M * K + K * N + 8 * N + 4 * M * N,
+                    ops_int8=2 * M * K * N),
+             lambda: im.w8a8_matmul_cuda(xb, kern, b),
+             [(M, K, kern["qa_t"])]) if i == 0 else None)
+
+    for i, (M, K, N, with_ln) in enumerate(F32_B3A_SHAPES):
+        x = randn(M, K)
+        ln = _ln_params(gen, K) if with_ln else None
+        k3 = [_qleaf(gen, K, N) for _ in range(3)]
+        b3 = [randn(N, gain=0.02) for _ in range(3)]
+        xs = im.quant_rows(x if ln is None else im.ln_f32(x, *ln))[1]
+        xb = x.to(bf)
+        run("w8a8_matmul3_f32", f"M={M} K={K} N=3x{N} LN {with_ln}",
+            lambda: im.w8a8_matmul3_cuda(x, k3, b3, ln),
+            lambda: im.w8a8_matmul3_plain(x, k3, b3, ln),
+            torch.cat([_flip_unit(xs, k["scale"]) for k in k3], dim=-1),
+            (_bound(M * (4 * K + 12 * N) + 3 * K * N + 24 * N + 8 * K,
+                    ops_int8=6 * M * K * N),
+             lambda: im.w8a8_matmul3_cuda(xb, k3, b3, ln),
+             [(M, K, torch.cat([k["qa_t"] for k in k3]))])
+            if i == 0 else None)
+
+    for i, (B, Lx, Le, K, N) in enumerate(F32_B3_SHAPES):
+        x, e = randn(B, Lx, K), randn(B, Le, K)
+        ln = _ln_params(gen, K)
+        k3 = [_qleaf(gen, K, N) for _ in range(3)]
+        b3 = [randn(N, gain=0.02) for _ in range(3)]
+        xs = im.quant_rows(im.ln_f32(im._kv_rows(x, e), *ln))[1]
+        M = B * (Lx + Le)
+        xb, eb = x.to(bf), e.to(bf)
+        run("w8a8_matmul3_cat_f32", f"B={B} Lx={Lx} Le={Le} K={K} N={N}",
+            lambda: im.w8a8_matmul3_cat_cuda(x, e, k3, b3, ln),
+            lambda: im.w8a8_matmul3_cat_plain(x, e, k3, b3, ln),
+            torch.cat([_flip_unit(xs, k["scale"]) for k in k3], dim=-1),
+            (_bound(M * (4 * K + 12 * N) + 3 * K * N + 24 * N + 8 * K,
+                    ops_int8=6 * M * K * N),
+             lambda: im.w8a8_matmul3_cat_cuda(xb, eb, k3, b3, ln),
+             [(M, K, torch.cat([k["qa_t"] for k in k3]))])
+            if i == 0 else None)
+
+    first = set()
+    for M, K, Hd, N, res, with_ln in F32_B5_SHAPES:
+        name = "w8a8_mlp_res_f32" if res else "w8a8_mlp_f32"
+        x = randn(M, K)
+        r = randn(M, N) if res else None
+        ln = _ln_params(gen, K) if with_ln else None
+        fc1 = {"kernel": _qleaf(gen, K, Hd), "bias": randn(Hd, gain=0.02)}
+        fc2 = {"kernel": _qleaf(gen, Hd, N), "bias": randn(N, gain=0.02)}
+        k1 = fc1["kernel"]
+        codes, xs = im.quant_rows(x if ln is None else im.ln_f32(x, *ln))
+        h = im.quick_gelu_f32(im.rescale(im.int_matmul(codes, k1["qa"]), xs,
+                                         k1["scale"], fc1["bias"]))
+        unit = _flip_unit(im.quant_rows(h)[1], fc2["kernel"]["scale"])
+        del codes, h
+        xb = x.to(bf)
+        if res:
+            rb = r.to(bf)
+            calls = (lambda: im.w8a8_mlp_res_cuda(x, fc1, fc2, ln, r),
+                     lambda: im.w8a8_mlp_res_plain(x, fc1, fc2, ln, r),
+                     lambda: im.w8a8_mlp_res_cuda(xb, fc1, fc2, ln, rb))
+        else:
+            calls = (lambda: im.w8a8_mlp_cuda(x, fc1, fc2, ln),
+                     lambda: im.w8a8_mlp_plain(x, fc1, fc2, ln),
+                     lambda: im.w8a8_mlp_cuda(xb, fc1, fc2, ln))
+        run(name, f"M={M} K={K} H={Hd} N={N} LN {with_ln}", calls[0],
+            calls[1], unit,
+            (_bound(4 * M * K + (8 if res else 4) * M * N + K * Hd + Hd * N
+                    + 8 * (Hd + N + K), ops_int8=2 * M * Hd * (K + N)),
+             calls[2], [(M, K, k1["qa_t"]), (M, Hd, fc2["kernel"]["qa_t"])])
+            if name not in first else None, residual=r)
+        first.add(name)
+
+    for i, (B, lq, Lq, Lk, H) in enumerate(F32_B4_SHAPES):
+        D = H * 64
+        q, k, v = randn(B, Lq, D), randn(B, Lk, D), randn(B, Lk, D)
+        op = {"kernel": _qleaf(gen, D, D), "bias": randn(D, gain=0.02)}
+        r = randn(B, lq, D)
+        xs = im.quant_rows(fa._onepass_attention_f32(q[:, :lq], k, v, H))[1]
+        qb, kb, vb, rb = q.to(bf), k.to(bf), v.to(bf), r.to(bf)
+        run("attention_out_int8_f32", f"B={B} lq={lq} Lq={Lq} Lk={Lk} H={H}",
+            lambda: fa.attention_out_int8_cuda(q, k, v, H, op, r, lq),
+            lambda: fa.attention_out_int8_plain(q, k, v, H, op, r, lq),
+            _flip_unit(xs, op["kernel"]["scale"]),
+            # the lq query rows, the residual and the output, k and v, the
+            # weight; the attention's products as fp32 FMA
+            (_bound(12 * B * lq * D + 8 * B * Lk * D + D * D + 8 * D,
+                    ops_int8=2 * B * lq * D * D,
+                    flops_fp32=4 * B * lq * Lk * D),
+             lambda: fa.attention_out_int8_cuda(qb, kb, vb, H, op, rb, lq),
+             [(B * lq, D, op["kernel"]["qa_t"])]) if i == 0 else None,
+            residual=r)
+
+    if only:
+        if state.get("w8a8_f32_failures"):
+            raise AssertionError(f"fp32 w8a8 kernels disagree with their "
+                                 f"plain versions: "
+                                 f"{state['w8a8_f32_failures']}")
+        return
+    # B5a's path: an MLP block called without a residual on w8a8 leaves with
+    # fp32 rows, through ops.linear.mlp_block
+    K, Hd = 768, 3072
+    params = {"fc1": {"kernel": _qleaf(gen, K, Hd), "bias": randn(Hd)},
+              "fc2": {"kernel": _qleaf(gen, Hd, K), "bias": randn(K)}}
+    g, beta = _ln_params(gen, K)
+    norm = {"scale": g, "bias": beta}
+    xb = randn(128, 197, K)
+    _reset_launch_counts()
+    with torch.inference_mode():
+        y = mlp_block(params, norm, xb, quick_gelu)
+        y_plain = mlp_block(params, norm, xb, quick_gelu, int8_impl="plain")
+    torch.cuda.synchronize()
+    n = _launch_counts()
+    state.setdefault("launches_by_kernel", {})["w8a8_mlp_f32"] = \
+        n["w8a8_mlp_f32"]
+    ok = (y.dtype == torch.float32 and y.shape == xb.shape
+          and n["w8a8_mlp_f32"] == 1 and n["w8a8_mlp"] == 0
+          and bool(torch.isfinite(y).all()))
+    log(f"[w8a8-f32] mlp_block(residual=None) on w8a8 leaves, fp32 rows "
+        f"(128, 197, 768): launches {n['w8a8_mlp_f32']} w8a8_mlp_f32 / "
+        f"{n['w8a8_mlp']} w8a8_mlp (expect 1 / 0), outputs != plain "
+        f"{(y != y_plain).float().mean().item():.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        state.setdefault("w8a8_f32_failures", []).append("mlp_block")
+    # fp16 and mixed rows raise TypeError; B4's int8 QK^T form (B11) and
+    # the two-source entry (B12) refuse fp32, naming ROADMAP A12
+    x16 = randn(8, 64).half()
+    q = randn(2, 13, 128)
+    leaf = _qleaf(gen, 128, 128)
+    op = {"kernel": leaf, "bias": randn(128)}
+    refusals = []
+    for what, call, word in (
+            ("fp16 B2", lambda: im.w8a8_matmul_cuda(x16, _qleaf(gen, 64, 8)),
+             "all bfloat16 or all float32"),
+            ("mixed B5", lambda: im.w8a8_mlp_res_cuda(
+                q[0], op, op, _ln_params(gen, 128), q[0].to(bf)),
+             "all bfloat16 or all float32"),
+            ("fp32 B11", lambda: fa.attention_out_int8_cuda(
+                q, q, q, 2, op, q, None, True), "ROADMAP A12"),
+            ("fp32 B12", lambda: fa.attention_out_int8_2src_cuda(
+                q, q, q, q, q, 2, op, q), "ROADMAP A12")):
+        try:
+            call()
+            refusals.append(f"{what}: no error")
+        except TypeError as e:
+            if word not in str(e):
+                refusals.append(f"{what}: {e}")
+    log(f"[w8a8-f32] fp16 and mixed rows raise TypeError, B11 and B12 on "
+        f"fp32 name ROADMAP A12: {not refusals} {refusals}")
+    if refusals:
+        state.setdefault("w8a8_f32_failures", []).append("refusals")
+    if state.get("w8a8_f32_failures"):
+        raise AssertionError(f"fp32 w8a8 kernels disagree with their plain "
+                             f"versions: {state['w8a8_f32_failures']}")
 
 
 # launches of the attention kernels in one training step of the flagship
@@ -3258,6 +3633,27 @@ INT8_TRAIN_DX_REL_ERR = 2e-2
 INT8_TRAIN_PER_STEP = dict(TRAIN_PER_STEP, w8a8_matmul3=12,
                            w8a8_matmul=12 + 72, w8a8_mlp_res=12)
 INT8_TRAIN_KERNELS = ("w8a8_matmul3", "w8a8_matmul", "w8a8_mlp_res")
+# the same step in fp32 (no --use_bf16): the fp32 attention kernels of the
+# fp32 step and the fp32 forms of B3a, B2 and B5; no bf16 w8a8 or
+# attention entry
+INT8_F32_PER_STEP = dict(F32_PER_STEP, w8a8_matmul3_f32=12,
+                         w8a8_matmul_f32=12 + 72, w8a8_mlp_res_f32=12,
+                         w8a8_matmul3=0, w8a8_matmul=0, w8a8_mlp_res=0)
+INT8_F32_KERNELS = ("w8a8_matmul3_f32", "w8a8_matmul_f32", "w8a8_mlp_res_f32")
+# The first fp32 step with frozen_int8 against the same step through the
+# plain versions: both take the same int8 codes except where one flips at a
+# rounding tie (w8a8-f32: ~1% of B3a's rows, ~3% of B5's), and a flip moves
+# its row by up to a flip unit. The loss keeps the fp32 step's limit
+# (F32_STEP_MAX_LOSS_DIFF; measured 1.03e-4). A leaf that reads few rows
+# carries a flip's whole effect (the last block's summary attention
+# kernels: 3.17e-2, where the bf16 int8 step shows 4.17e-2; measured on an
+# H100, NVIDIA H100 80GB HBM3, 700.00 W),
+# so the largest leaf takes the int8 step's limit (TRAIN_MAX_GRAD_REL_ERR)
+# and the median leaf is held to 1e-3 (measured 2.3e-4; 5.8e-8 in the fp32
+# step without int8). A wrong kernel moves every leaf by its whole scale.
+INT8_F32_STEP_MAX_LOSS_DIFF = F32_STEP_MAX_LOSS_DIFF
+INT8_F32_STEP_MAX_GRAD_REL_ERR = TRAIN_MAX_GRAD_REL_ERR
+INT8_F32_STEP_MAX_MEDIAN_GRAD_REL_ERR = 1e-3
 # under any remat policy the straight-through ops of each vision block run
 # again in the backward (their custom autograd functions are opaque to the
 # policies, as the JAX ones are to jax.checkpoint's names: see
@@ -3402,21 +3798,46 @@ def _int8_train_ops(state):
         [x, r], [g], lambda: grad32(mlp32, [x, r], [g]), [unit],
         _bound(2 * M * K + 4 * M * N + K * H + H * N + 8 * (H + N) + 8 * K,
                ops_int8=2 * M * K * H + 2 * M * H * N))
-    # fp32 rows on the card raise, naming the ROADMAP item; no quiet cast
-    rows32 = torch.zeros(8, K, device="cuda")
-    for label, call in (
-            ("int8_linear_st", lambda a: im.int8_linear_st(
-                a, fc1["kernel"], fc1["bias"])),
-            ("int8_qkv3_st", lambda a: im.int8_qkv3_st(a, k3, b3, ln)),
-            ("int8_mlp_st", lambda a: im.int8_mlp_st(a, fc1, fc2, ln, a))):
+    # fp32 rows take the fp32 forms (held at these shapes in w8a8-f32): one
+    # counted launch of each, an fp32 output, no cast; fp16 rows raise
+    rows32 = torch.randn(64, K, generator=gen, device="cuda")
+    for label, name, call in (
+            ("int8_linear_st", "w8a8_matmul_f32",
+             lambda a, impl="kernel": im.int8_linear_st(
+                 a, fc1["kernel"], fc1["bias"], impl=impl)),
+            ("int8_qkv3_st", "w8a8_matmul3_f32",
+             lambda a, impl="kernel": im.int8_qkv3_st(a, k3, b3, ln,
+                                                      impl=impl)),
+            ("int8_mlp_st", "w8a8_mlp_res_f32",
+             lambda a, impl="kernel": im.int8_mlp_st(a, fc1, fc2, ln, a,
+                                                     impl=impl))):
+        a = rows32.clone().requires_grad_()
+        _reset_launch_counts()
+        out = call(a)
+        torch.cuda.synchronize()
+        n = _launch_counts()
+        outs = out if isinstance(out, tuple) else (out,)
+        ref = call(a, "plain")
+        refs = ref if isinstance(ref, tuple) else (ref,)
+        cots = [torch.randn(o.shape, generator=gen, device="cuda")
+                for o in outs]
+        same = all(torch.equal(x, y) for x, y in zip(
+            torch.autograd.grad(outs, a, cots),
+            torch.autograd.grad(refs, a, cots)))
+        ok = n[name] == 1 and sum(n[k] for k in INT8_TRAIN_KERNELS) == 0 \
+            and same and all(o.dtype == torch.float32
+                             and bool(torch.isfinite(o).all()) for o in outs)
         try:
-            call(rows32)
-            state.setdefault("int8_failures", []).append(
-                f"{label} took fp32 rows")
-        except NotImplementedError as e:
-            log(f"[int8-train] {label} on fp32 rows raises: {e}")
-            if "A11" not in str(e):
-                state.setdefault("int8_failures", []).append(label)
+            call(rows32.half())
+            ok = False
+        except TypeError:
+            pass
+        log(f"[int8-train] {label} on fp32 rows: one {name} launch "
+            f"({n[name]}), fp32 out; dx kernel path == plain path bit for "
+            f"bit: {same}; fp16 rows raise TypeError "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            state.setdefault("int8_failures", []).append(f"{label} fp32")
     if state.get("int8_failures"):
         raise AssertionError(f"the straight-through ops failed: "
                              f"{state['int8_failures']}")
@@ -3442,9 +3863,11 @@ def _timed_steps(step, ts, batch, n):
                         rest / 2 ** 30)
 
 
-def _int8_flagship_step(state):
-    """The flagship's step at 16 x 8 with frozen_int8: the first step
-    against the plain versions, 6 steps beside the bf16 step in turns."""
+def _int8_flagship_step(state, dtype=None):
+    """The flagship's step at 16 x 8 with frozen_int8 in `dtype` (bf16, or
+    fp32: the w8a8 kernels' fp32 forms): the first step against the plain
+    versions, 6 steps beside the step without int8 of the same dtype in
+    turns."""
     import torch
     from gava_clip_tpu_torch.models.vita_clip import trainable_mask
     from gava_clip_tpu_torch.ops import flash_attention as fa
@@ -3454,10 +3877,21 @@ def _int8_flagship_step(state):
                                                 make_train_step,
                                                 quantize_frozen)
     from gava_clip_tpu_torch.utils.flagship import build_flagship
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
+    # the float step beside the int8 one, the limits of the first step
+    # against the plain versions, the launches a step, the state's keys
+    tag = "fp32" if f32 else "bf16"
+    max_loss, max_grad, max_median = (
+        INT8_F32_STEP_MAX_LOSS_DIFF, INT8_F32_STEP_MAX_GRAD_REL_ERR,
+        INT8_F32_STEP_MAX_MEDIAN_GRAD_REL_ERR) if f32 else (
+        TRAIN_MAX_LOSS_DIFF, TRAIN_MAX_GRAD_REL_ERR, 1.0)
+    per_step = INT8_F32_PER_STEP if f32 else INT8_TRAIN_PER_STEP
+    key = "_f32" if f32 else ""
     loss_cfg = LossConfig(num_classes=3, focal_ordinal=True, fo_beta=0.2,
                           use_support_memory=True, add_nte=True)
     opt = make_optimizer(lr=1e-3, num_steps=2000, weight_decay=0.2)
-    kw = dict(compute_dtype=torch.bfloat16, attn_impl="flash", remat="none")
+    kw = dict(compute_dtype=dtype, attn_impl="flash", remat="none")
     model = build_flagship(num_frames=8)
     mask = trainable_mask(model.params, model.cfg)
     ts8, ts16 = (create_train_state(model.params, mask, opt)
@@ -3501,23 +3935,24 @@ def _int8_flagship_step(state):
     rel = [((a - b).norm() / b.norm().clamp_min(1e-3 * scale)).item()
            for a, b in zip(g_kernel, g_plain)]
     worst = [n for n, _ in _named_leaves(ts8.trainable)][int(np.argmax(rel))]
-    log(f"[int8-train] {n_qt} frozen projections quantized to 'qt' leaves "
-        f"(with the kernels' W^T; {qt_gib:.3f} GiB beside the float frozen "
-        f"tree) in {quant_ms[0]:.1f} ms by the host clock, {quant_ms[1]:.1f} "
-        f"ms when done again; the loss quantizes once per run; first step "
-        f"with frozen_int8, kernels vs plain "
+    log(f"[int8-train] {tag}: {n_qt} frozen projections quantized to 'qt' "
+        f"leaves (with the kernels' W^T; {qt_gib:.3f} GiB beside the float "
+        f"frozen tree) in {quant_ms[0]:.1f} ms by the host clock, "
+        f"{quant_ms[1]:.1f} ms when done again; the loss quantizes once per "
+        f"run; first {tag} step with frozen_int8, kernels vs plain "
         f"versions on the card: total {total_k.item():.6f} vs "
         f"{total_p.item():.6f} (diff {d_loss:.2e}, limit "
-        f"{TRAIN_MAX_LOSS_DIFF:g}); gradient leaves {len(rel)}, max "
-        f"relative L2 error {max(rel):.3e} ({worst}), median "
-        f"{float(np.median(rel)):.3e} (limit {TRAIN_MAX_GRAD_REL_ERR:g}); "
+        f"{max_loss:g}); gradient leaves {len(rel)}, max "
+        f"relative L2 error {max(rel):.3e} ({worst}) (limit {max_grad:g}), "
+        f"median {float(np.median(rel)):.3e} (limit {max_median:g}); "
         f"launches {counts}")
-    if any(counts[k] != v for k, v in INT8_TRAIN_PER_STEP.items()) or \
+    if any(counts[k] != v for k, v in per_step.items()) or \
             not all(bool(torch.isfinite(g).all()) for g in g_kernel) or \
-            d_loss > TRAIN_MAX_LOSS_DIFF or max(rel) > TRAIN_MAX_GRAD_REL_ERR:
-        raise AssertionError(f"the int8 training step through the kernels "
-                             f"disagrees with the plain versions (launches "
-                             f"{counts}, expected {INT8_TRAIN_PER_STEP})")
+            d_loss > max_loss or max(rel) > max_grad or \
+            float(np.median(rel)) > max_median:
+        raise AssertionError(f"the {tag} int8 training step through the "
+                             f"kernels disagrees with the plain versions "
+                             f"(launches {counts}, expected {per_step})")
     del g_plain, g_kernel, loss_k, loss_p       # and their cached trees
 
     step8 = make_train_step(model, loss_cfg, opt, frozen_int8=True, **kw)
@@ -3526,12 +3961,12 @@ def _int8_flagship_step(state):
     before_f = [p.detach().clone() for p in frozen]
     before_t = [p.detach().clone() for _, p in _named_leaves(ts8.trainable)]
     # one warm-up step each (the allocator's first blocks, cuBLAS's first
-    # plans), then in turns: bf16, int8, int8, bf16, three times; the main
+    # plans), then in turns: float, int8, int8, float, three times; the main
     # path's launches are those of the 6 int8 steps in turns
     step16(ts16, batch)
     step8(ts8, batch)
     runs = {"bf16": ([], [], []), "int8": ([], [], [])}
-    launches = {k: 0 for k in INT8_TRAIN_PER_STEP}
+    launches = {k: 0 for k in per_step}
     for which in ("bf16", "int8", "int8", "bf16") * 3:
         _reset_launch_counts()
         losses, ms, peak = _timed_steps(
@@ -3546,32 +3981,32 @@ def _int8_flagship_step(state):
     pk8, pk16 = (tuple(max(p[i] for p in pk) for i in range(3))
                  for pk in (pk8, pk16))
     gap = max(abs(a - b) for a, b in zip(l8, l16))
-    state["int8_launches"] = launches
+    state["int8_launches" + key] = launches
     moved = sum(not torch.equal(a, b) for a, (_, b) in
                 zip(before_t, _named_leaves(ts8.trainable)))
-    log(f"[int8-train] 16 x 8, bf16, flash, remat none, after a warm-up "
-        f"step each 6 steps each in turns (bf16, int8, int8, bf16): int8 "
+    log(f"[int8-train] 16 x 8, {tag}, flash, remat none, after a warm-up "
+        f"step each 6 steps each in turns ({tag}, int8, int8, {tag}): int8 "
         f"total "
-        f"{[round(t, 4) for t in l8]}, bf16 {[round(t, 4) for t in l16]}, "
-        f"largest int8 - bf16 gap "
+        f"{[round(t, 4) for t in l8]}, {tag} {[round(t, 4) for t in l16]}, "
+        f"largest int8 - {tag} gap "
         f"{gap:.4f} (no gate on the card); step by CUDA events int8 "
         f"{[round(t, 2) for t in ms8]} ms (median "
-        f"{np.median(ms8):.2f}), bf16 {[round(t, 2) for t in ms16]} "
+        f"{np.median(ms8):.2f}), {tag} {[round(t, 2) for t in ms16]} "
         f"(median {np.median(ms16):.2f}); peak memory over the resting "
-        f"int8 {pk8[0]:.2f} GiB, bf16 {pk16[0]:.2f} GiB; peak allocated in "
-        f"all int8 {pk8[1]:.2f} GiB, bf16 {pk16[1]:.2f} GiB, resting int8 "
-        f"{pk8[2]:.2f}, bf16 {pk16[2]:.2f} GiB (the process holds both "
+        f"int8 {pk8[0]:.2f} GiB, {tag} {pk16[0]:.2f} GiB; peak allocated in "
+        f"all int8 {pk8[1]:.2f} GiB, {tag} {pk16[1]:.2f} GiB, resting int8 "
+        f"{pk8[2]:.2f}, {tag} {pk16[2]:.2f} GiB (the process holds both "
         f"steps' states, and the int8 step its cached tree); int8 launches "
-        f"over 6 steps {launches} (expect {INT8_TRAIN_PER_STEP} per step); "
+        f"over 6 steps {launches} (expect {per_step} per step); "
         f"{moved} of {len(before_t)} trainable leaves moved "
         f"({state['smi']})")
-    if any(launches[k] != 6 * v for k, v in INT8_TRAIN_PER_STEP.items()):
-        raise AssertionError("int8 step launches")
+    if any(launches[k] != 6 * v for k, v in per_step.items()):
+        raise AssertionError(f"{tag} int8 step launches")
     if not all(np.isfinite(l8)) or not l8[-1] < l8[0] < total_k.item():
         raise AssertionError(f"the int8 loss did not fall: {l8}")
     if not all(torch.equal(a, b) for a, b in zip(frozen, before_f)):
         raise AssertionError("a frozen leaf changed in the int8 steps")
-    state["int8_step"] = {"int8_ms": float(np.median(ms8)),
+    state["int8_step" + key] = {"int8_ms": float(np.median(ms8)),
                           "bf16_ms": float(np.median(ms16)),
                           "int8_peak_gib": pk8[0],
                           "bf16_peak_gib": pk16[0],
@@ -3579,7 +4014,7 @@ def _int8_flagship_step(state):
                           "bf16_peak_abs_gib": pk16[1],
                           "qt_tree_gib": qt_gib, "max_loss_gap": gap,
                           "quantize_ms": quant_ms}
-    if state.get("profile_dir"):
+    if state.get("profile_dir") and not f32:
         _profile(lambda: step8(ts8, batch), 2,
                  "batch-16 training step with frozen_int8",
                  state["int8_step"]["int8_ms"], state["smi"],
@@ -3630,7 +4065,8 @@ def _int8_long_steps(state):
 
 
 def _int8_cli(state):
-    """cli.train --int8_frozen --use_bf16 at 16 x 8 on a synthetic fold."""
+    """cli.train --int8_frozen at 16 x 8 on a synthetic fold, with
+    --use_bf16 and without it (fp32: the w8a8 kernels' fp32 forms)."""
     import shutil
     import tempfile
     import torch
@@ -3640,38 +4076,57 @@ def _int8_cli(state):
     try:
         data_args, kdir = _write_fold(root, T=8, n_train=32, n_val=16)
         os.chdir(root)
-        _reset_launch_counts()
-        logdir, rec = _train_main(data_args + [
-            "--int8_frozen", "--batch_size", "16", "--num_steps",
-            str(INT8_CLI_STEPS), "--print_freq", "1", "--lr", "1e-3",
-            "--eval_freq", str(INT8_CLI_STEPS), "--save_freq", "1000"],
-            "run_int8")
-        counts = _launch_counts()
-        steps = [r for r in rec if "loss" in r]
-        losses = [r["loss"] for r in steps]
-        sustained = [(b["t"] - a["t"]) / (b["step"] - a["step"]) * 1e3
-                     for a, b in zip(steps[1:], steps[2:])]
-        files = set(os.listdir(logdir)) | set(
-            os.listdir(os.path.join(logdir, "fold_0")))
-        # the evaluation at the end runs bf16 forwards (B1, and B7 in the
-        # text tower), so only the training kernels are counted
-        want = {k: INT8_CLI_STEPS * INT8_TRAIN_PER_STEP[k] for k in
-                INT8_TRAIN_KERNELS + ("packed_attention_den",
-                                      "packed_attention_bwd",
-                                      "streaming_attention_bwd")}
-        log(f"[int8-train] cli.train --int8_frozen --use_bf16, "
-            f"{INT8_CLI_STEPS} steps of 16 clips x 8 frames: loss "
-            f"{[round(x, 4) for x in losses]}; sustained "
-            f"{np.median(sustained):.2f} ms/step between print steps (host "
-            f"clock); launches {counts} (expect {want}, and the evaluation's "
-            f"bf16 forwards)")
-        if not all(np.isfinite(losses)) or not \
-                np.mean(losses[-2:]) < np.mean(losses[:2]) or \
-                any(counts[k] != v for k, v in want.items()) or not \
-                {"config.yaml", "results.txt", "metrics.jsonl",
-                 "fold-0-best.ckpt"} <= files:
-            raise AssertionError("cli.train --int8_frozen failed its checks")
-        state["int8_cli_sustained_ms"] = float(np.median(sustained))
+        for f32 in (False, True):
+            tag = "fp32 (no --use_bf16)" if f32 else "--use_bf16"
+            args = [a for a in data_args if not (f32 and a == "--use_bf16")]
+            _reset_launch_counts()
+            logdir, rec = _train_main(args + [
+                "--int8_frozen", "--batch_size", "16", "--num_steps",
+                str(INT8_CLI_STEPS), "--print_freq", "1", "--lr", "1e-3",
+                "--eval_freq", str(INT8_CLI_STEPS), "--save_freq", "1000"],
+                "run_int8_f32" if f32 else "run_int8")
+            counts = _launch_counts()
+            steps = [r for r in rec if "loss" in r]
+            losses = [r["loss"] for r in steps]
+            sustained = [(b["t"] - a["t"]) / (b["step"] - a["step"]) * 1e3
+                         for a, b in zip(steps[1:], steps[2:])]
+            files = set(os.listdir(logdir)) | set(
+                os.listdir(os.path.join(logdir, "fold_0")))
+            # the evaluation at the end runs forwards of the run's dtype
+            # (B1, and B7 in the text tower), so only the training kernels
+            # are counted; in fp32 no bf16 w8a8 or attention kernel runs
+            if f32:
+                want = {k: INT8_CLI_STEPS * INT8_F32_PER_STEP[k] for k in
+                        INT8_F32_KERNELS + INT8_TRAIN_KERNELS
+                        + ("packed_attention_den_f32",
+                           "packed_attention_bwd_f32",
+                           "streaming_attention_bwd_f32")}
+                want.update({k: 0 for k in (
+                    "packed_attention", "packed_attention_den",
+                    "packed_attention_bwd", "streaming_attention",
+                    "streaming_attention_bwd", "w8a8_matmul3_cat",
+                    "w8a8_mlp", "attention_out_int8")})
+            else:
+                want = {k: INT8_CLI_STEPS * INT8_TRAIN_PER_STEP[k] for k in
+                        INT8_TRAIN_KERNELS + ("packed_attention_den",
+                                              "packed_attention_bwd",
+                                              "streaming_attention_bwd")}
+            log(f"[int8-train] cli.train --int8_frozen {tag}, "
+                f"{INT8_CLI_STEPS} steps of 16 clips x 8 frames: loss "
+                f"{[round(x, 4) for x in losses]}; sustained "
+                f"{np.median(sustained):.2f} ms/step between print steps "
+                f"(host clock); launches {counts} (expect {want}, and the "
+                f"evaluation's forwards)")
+            if not all(np.isfinite(losses)) or not \
+                    np.mean(losses[-2:]) < np.mean(losses[:2]) or \
+                    any(counts[k] != v for k, v in want.items()) or not \
+                    {"config.yaml", "results.txt", "metrics.jsonl",
+                     "fold-0-best.ckpt"} <= files:
+                raise AssertionError(f"cli.train --int8_frozen {tag} failed "
+                                     f"its checks")
+            state["int8_cli_sustained_ms" + ("_f32" if f32 else "")] = \
+                float(np.median(sustained))
+            shutil.rmtree(logdir, ignore_errors=True)
     finally:
         os.chdir(cwd)
         shutil.rmtree(root, ignore_errors=True)
@@ -3690,11 +4145,17 @@ def phase_int8_train(state):
     _int8_train_ops(state)
     torch.cuda.empty_cache()
     _int8_flagship_step(state)
+    torch.cuda.empty_cache()
+    _int8_flagship_step(state, torch.float32)
+    torch.cuda.empty_cache()
     _int8_long_steps(state)
     _int8_cli(state)
     for name in INT8_TRAIN_KERNELS:
         state["kstats"][name]["int8_train"]["launches"] = \
             state["int8_launches"][name]
+    # the fp32 forms' main path is the fp32 step: its 6 steps in turns
+    for name in INT8_F32_KERNELS:
+        state["launches_by_kernel"][name] = state["int8_launches_f32"][name]
 
 
 FOLD_CLASSES = ("normal\nslight difficulty\nmoderate difficulty\n"
@@ -4202,6 +4663,26 @@ def phase_cli(state):
                                  "checks")
         state.setdefault("launches_by_kernel", {})["packed_attention_f32"] = \
             n_ef["packed_attention_f32"]
+        # --quantize_eval w8a8 on the fp32 run: the fp32 forms of B3 (with
+        # the extras rows), B4 and B5 in every block, no bf16 w8a8 entry
+        _reset_launch_counts()
+        perf_q, conf_q = cli_eval.main(["--checkpoint_dir", run_f] +
+                                       eval_args[2:] +
+                                       ["--quantize_eval", "w8a8"])
+        n_q = _launch_counts()
+        log(f"[driver] cli.evaluate --quantize_eval w8a8 on run_f32: accuracy "
+            f"{perf_q[0]:.4f} (plain {perf_f[0]:.4f}), confusion "
+            f"{conf_q.tolist()}, "
+            f"{cli_train.last_eval['clips'] / cli_train.last_eval['seconds']:.1f}"
+            f" clips/s, launches "
+            f"{ {k: n_q[k] for k in EVAL_W8A8_F32_LAUNCHES} } (expect "
+            f"{EVAL_W8A8_F32_LAUNCHES})")
+        if conf_q.sum() != 32 or abs(perf_q[0] - perf_f[0]) > 1 / 32 + 1e-9 \
+                or any(n_q[k] != v for k, v in EVAL_W8A8_F32_LAUNCHES.items()):
+            raise AssertionError("cli.evaluate --quantize_eval w8a8 on the "
+                                 "fp32 run failed its checks")
+        for name in ("attention_out_int8_f32", "w8a8_matmul3_cat_f32"):
+            state["launches_by_kernel"][name] = n_q[name]
         shutil.rmtree(run_f)
 
         # cli.zero_shot on reference-format files written from a model's
@@ -4248,6 +4729,16 @@ def phase_cli(state):
 # is launched
 EVAL_W8A8_LAUNCHES = {"attention_out_int8": 24, "w8a8_matmul3": 0,
                       "w8a8_matmul": 0}
+# the same evaluation of an fp32 run: the fp32 forms of B3 (the kv rows of
+# a block with its extras rows), B4 and B5 in every block of the 2 batches
+# (W8A8_PER_FORWARD's), and no bf16 w8a8 entry; the fp32 B1 is not
+# launched on its own (B4's first launch is counted as B4)
+EVAL_W8A8_F32_LAUNCHES = {
+    "attention_out_int8_f32": 24, "w8a8_matmul3_cat_f32": 24,
+    "w8a8_mlp_res_f32": 24, "w8a8_matmul3_f32": 0, "w8a8_matmul_f32": 0,
+    "packed_attention_f32": 0, "attention_out_int8": 0,
+    "w8a8_matmul3_cat": 0, "w8a8_mlp_res": 0, "w8a8_matmul3": 0,
+    "w8a8_matmul": 0}
 # the text features of the flagship with its whole text tower in w8a8: 12
 # text blocks, each one B3a (the fused q/k/v of its self-attention) and
 # three B2 (the out-projection, fc1 and fc2, whose rows are the MLP's
@@ -5135,6 +5626,7 @@ def main(argv=None) -> int:
             ("kernel", phase_kernel), ("w8a8-kernel", phase_w8a8_kernels),
             ("train-kernel", phase_train_kernels),
             ("f32-kernel", phase_f32_kernels),
+            ("w8a8-f32", phase_w8a8_f32),
             ("f32-mutants", phase_f32_mutants),
             ("w8-kernel", phase_w8_kernels), ("mega", phase_mega),
             ("slice", phase_slice), ("w8a8-slice", phase_w8a8_slice),

@@ -28,6 +28,15 @@
 // with no LayerNorm): its sums, absmax and codes are the same operations in
 // the same order (the absmax and codes of a row without LayerNorm are the
 // same bits in any order), so the same bits.
+//
+// The rows are bf16 or fp32 (the element type T of the row functions); only
+// the load differs, and after it the same fp32 arithmetic runs. A 16-byte
+// load holds 8 bf16 or 4 fp32 values: the eight-value chunks of the
+// vector forms are one load of bf16 or two of fp32, so they need every row
+// 16-byte aligned, which takes K % 8 == 0 in bf16 and K % 4 == 0 in fp32
+// (kVecK<T>). An fp32 row with K % 8 == 4 ends in a half chunk, whose
+// second load is not made and whose values past K are zero and take no
+// part in the sums.
 
 #pragma once
 
@@ -46,6 +55,47 @@ __host__ __device__ constexpr int round_up(int a, int b) {
 
 __host__ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+// values of T in one 16-byte load: the K of a row read by such loads is a
+// multiple of it
+template <class T>
+constexpr int kVecK = 16 / static_cast<int>(sizeof(T));
+
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+
+// v stored as the output's type: rounded to bf16, or as it is
+__device__ __forceinline__ void store_as(__nv_bfloat16* y, float v) { *y = __float2bfloat16(v); }
+__device__ __forceinline__ void store_as(float* y, float v) { *y = v; }
+
+// values c0 .. c0 + 7 of a row (c0 a multiple of 8, c0 < K, the row 16-byte
+// aligned and K % kVecK<T> == 0): one 16-byte load of bf16, two of fp32 (the
+// second only where c0 + 4 < K; zeros past K)
+__device__ __forceinline__ void load8(const __nv_bfloat16* __restrict__ src, int c0, int,
+                                      float (&v)[8]) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src + c0);
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    v[2 * j] = __uint_as_float(w[j] << 16);
+    v[2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ void load8(const float* __restrict__ src, int c0, int K,
+                                      float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(src + c0);
+  const float4 b = c0 + 4 < K ? *reinterpret_cast<const float4*>(src + c0 + 4)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = a.z;
+  v[3] = a.w;
+  v[4] = b.x;
+  v[5] = b.y;
+  v[6] = b.z;
+  v[7] = b.w;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -74,25 +124,25 @@ __device__ __forceinline__ int8_t quant_code(float x, float inv) {
 // LayerNorm's two sums, the absmax of the (normalised) values, the codes.
 // Lane `lane` sums columns lane, lane + 32, ... in that order, as the
 // register form does for a row it does not read 8 values a load.
-template <class Store>
-__device__ __noinline__ float quant_row_long(const __nv_bfloat16* __restrict__ src, int K,
+template <class T, class Store>
+__device__ __noinline__ float quant_row_long(const T* __restrict__ src, int K,
                                              const float* __restrict__ gamma,
                                              const float* __restrict__ beta, int Kp,
                                              Store store, int lane) {
   float mean = 0.f, rstd = 0.f;
   if (gamma != nullptr) {
     float s = 0.f;
-    for (int c = lane; c < K; c += 32) s = __fadd_rn(s, __bfloat162float(src[c]));
+    for (int c = lane; c < K; c += 32) s = __fadd_rn(s, to_f32(src[c]));
     mean = __fdiv_rn(warp_sum(s), static_cast<float>(K));
     float q = 0.f;
     for (int c = lane; c < K; c += 32) {
-      const float d = __fadd_rn(__bfloat162float(src[c]), -mean);
+      const float d = __fadd_rn(to_f32(src[c]), -mean);
       q = __fadd_rn(q, __fmul_rn(d, d));
     }
     rstd = rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(q), static_cast<float>(K)), 1e-5f));
   }
   auto value = [&](int c) {
-    const float x = __bfloat162float(src[c]);
+    const float x = to_f32(src[c]);
     return gamma == nullptr
                ? x
                : __fadd_rn(__fmul_rn(__fmul_rn(__fadd_rn(x, -mean), rstd), gamma[c]), beta[c]);
@@ -106,74 +156,71 @@ __device__ __noinline__ float quant_row_long(const __nv_bfloat16* __restrict__ s
   return xs;
 }
 
-// One warp, a row of K > 1,024 values with no LayerNorm, K % 8 == 0 at a
-// 16-byte aligned address: the absmax and the codes (the same bits in any
-// order: a max, and one rounding a value) from 16-byte loads, eight values
-// a lane, reading the row twice; codes c0 .. c0 + 7 go to store8(c0, codes).
-template <class Store8>
-__device__ __noinline__ float quant_row_long8(const __nv_bfloat16* __restrict__ src, int K,
-                                              int Kp, Store8 store8, int lane) {
+// One warp, a row of K > 1,024 values with no LayerNorm, K % kVecK<T> == 0
+// at a 16-byte aligned address: the absmax and the codes (the same bits in
+// any order: a max, and one rounding a value) from 16-byte loads, eight
+// values a lane (load8), reading the row twice; codes c0 .. c0 + 7 go to
+// store8(c0, codes).
+template <class T, class Store8>
+__device__ __noinline__ float quant_row_long8(const T* __restrict__ src, int K, int Kp,
+                                              Store8 store8, int lane) {
   float m = 0.f;
   for (int c0 = 8 * lane; c0 < K; c0 += 256) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + c0);
-    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+    float v[8];
+    load8(src, c0, K, v);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      m = fmaxf(m, fmaxf(fabsf(__uint_as_float(w[j] << 16)),
-                         fabsf(__uint_as_float(w[j] & 0xffff0000u))));
+    for (int j = 0; j < 8; ++j) m = fmaxf(m, fabsf(v[j]));
   }
   const float xs = quant_scale(warp_max(m));
   const float inv = __fdiv_rn(1.0f, xs);
   for (int c0 = 8 * lane; c0 < Kp; c0 += 256) {
     uint32_t q[2] = {0u, 0u};   // zero codes past K
     if (c0 < K) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + c0);
-      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+      float v[8];
+      load8(src, c0, K, v);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float v = __uint_as_float(j & 1 ? w[j / 2] & 0xffff0000u : w[j / 2] << 16);
-        q[j / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(quant_code(v, inv))) << (8 * (j % 4));
-      }
+      for (int j = 0; j < 8; ++j)
+        q[j / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(quant_code(v[j], inv)))
+                    << (8 * (j % 4));
     }
     store8(c0, make_uint2(q[0], q[1]));
   }
   return xs;
 }
 
-// One warp: row `src` of K bf16 values -> [LayerNorm ->] int8 codes, code
-// c (0 <= c < Kp, zero from K on) handed to store(c, code), or eight at a
-// time, codes c0 .. c0 + 7 (c0 a multiple of 8) packed into a uint2, to
-// store8(c0, codes); returns xs. LayerNorm (when gamma != nullptr): fp32,
+// One warp: row `src` of K bf16 or fp32 values -> [LayerNorm ->] int8
+// codes, code c (0 <= c < Kp, zero from K on) handed to store(c, code), or
+// eight at a time, codes c0 .. c0 + 7 (c0 a multiple of 8) packed into a
+// uint2, to store8(c0, codes); returns xs. LayerNorm (when gamma != nullptr): fp32,
 // mean and two-pass biased variance over K, ((x - mean) * rsqrt(var +
 // 1e-5)) * gamma + beta. Rows longer than 1,024 values take
 // quant_row_long8 (no LayerNorm, 16-byte loads) or quant_row_long. A row of
-// a multiple of 8 values at 16-byte aligned addresses is read 8 values a
-// load (lane `lane` holds columns 8 * (lane + 32 i) .. + 7, and sums them
-// in that order); other rows a value a load (columns lane + 32 i).
-template <class Store, class Store8>
-__device__ __forceinline__ float quant_row_to(const __nv_bfloat16* __restrict__ src, int K,
+// a multiple of kVecK<T> values at 16-byte aligned addresses is read in
+// chunks of 8 values (load8: lane `lane` holds columns 8 * (lane + 32 i) ..
+// + 7, and sums them in that order); other rows a value a load (columns
+// lane + 32 i).
+template <class T, class Store, class Store8>
+__device__ __forceinline__ float quant_row_to(const T* __restrict__ src, int K,
                                               const float* __restrict__ gamma,
                                               const float* __restrict__ beta, int Kp,
                                               Store store, Store8 store8, int lane) {
   if (Kp > kMaxRowPerLane * 32) {
-    if (gamma == nullptr && K % 8 == 0 && aligned16(src))
+    if (gamma == nullptr && K % kVecK<T> == 0 && aligned16(src))
       return quant_row_long8(src, K, Kp, store8, lane);
     return quant_row_long(src, K, gamma, beta, Kp, store, lane);
   }
-  if (K % 8 == 0 && aligned16(src) &&
+  if (K % kVecK<T> == 0 && aligned16(src) &&
       (gamma == nullptr || (aligned16(gamma) && aligned16(beta)))) {
     constexpr int kChunks = kMaxRowPerLane / 8;   // of eight values each
     float v[kChunks][8];
 #pragma unroll
     for (int i = 0; i < kChunks; ++i) {
       const int c0 = 8 * (lane + 32 * i);
-      uint4 raw = make_uint4(0u, 0u, 0u, 0u);   // zeros past K
-      if (c0 < K) raw = *reinterpret_cast<const uint4*>(src + c0);
-      const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+      if (c0 < K) {
+        load8(src, c0, K, v[i]);
+      } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        v[i][2 * j] = __uint_as_float(w[j] << 16);
-        v[i][2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+        for (int j = 0; j < 8; ++j) v[i][j] = 0.f;   // zeros past K
       }
     }
     if (gamma != nullptr) {
@@ -186,9 +233,9 @@ __device__ __forceinline__ float quant_row_to(const __nv_bfloat16* __restrict__ 
       float q = 0.f;
 #pragma unroll
       for (int i = 0; i < kChunks; ++i)
-        if (8 * (lane + 32 * i) < K)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
+        for (int j = 0; j < 8; ++j)   // a half chunk ends an fp32 row
+          if (kVecK<T> == 8 ? 8 * (lane + 32 * i) < K : 8 * (lane + 32 * i) + j < K) {
             const float d = __fadd_rn(v[i][j], -mean);
             q = __fadd_rn(q, __fmul_rn(d, d));
           }
@@ -197,9 +244,12 @@ __device__ __forceinline__ float quant_row_to(const __nv_bfloat16* __restrict__ 
       for (int i = 0; i < kChunks; ++i) {
         const int c0 = 8 * (lane + 32 * i);
         if (c0 < K) {
+          // the second half of gamma and beta only where it lies inside K
           const float4* g4 = reinterpret_cast<const float4*>(gamma + c0);
           const float4* b4 = reinterpret_cast<const float4*>(beta + c0);
-          const float4 ga = g4[0], gb = g4[1], ba = b4[0], bb = b4[1];
+          const bool two = kVecK<T> == 8 || c0 + 4 < K;
+          const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+          const float4 ga = g4[0], gb = two ? g4[1] : z, ba = b4[0], bb = two ? b4[1] : z;
           const float gv[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
           const float bv[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
 #pragma unroll
@@ -235,7 +285,7 @@ __device__ __forceinline__ float quant_row_to(const __nv_bfloat16* __restrict__ 
 #pragma unroll
   for (int i = 0; i < kMaxRowPerLane; ++i) {
     const int c = lane + 32 * i;
-    v[i] = c < K ? __bfloat162float(src[c]) : 0.f;
+    v[i] = c < K ? to_f32(src[c]) : 0.f;
   }
   if (gamma != nullptr) {
     float s = 0.f;

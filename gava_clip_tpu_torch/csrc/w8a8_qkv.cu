@@ -12,6 +12,12 @@
 //   out_w = bf16(((float)(codes @ W_w) * xs) * s_w + b_w), three
 //   (B, Lx + Le, N) outputs.
 //
+// The fp32 form (w8a8_qkv_cat_f32: the TPU kernels emit their input's
+// dtype) reads fp32 rows (w8a8_common.cuh's row load, 4 values a 16-byte
+// load) and stores the three outputs in fp32, the epilogue's last rounding
+// theirs; it serves int8-forward training in fp32 (B3a) and the w8a8
+// evaluation of an fp32 run (B3).
+//
 // What bounds it on an H100 SXM (data-sheet figures, not measured), at the
 // serving shape B = 128 frame rows, Lx = 197, Le = 17, K = N = 768: 96.9 G
 // int8 operations, 49 us at 1,979 TOP/s; it reads 42 MB and writes 126 MB,
@@ -36,9 +42,10 @@
 //   * per unit, each consumer warpgroup runs wgmma m64nBMk32 s8 over K on
 //     its 64 W^T rows (ring_product), then the epilogue acc * xs * s + b:
 //     a lane pair swaps one value so that each thread holds two neighbouring
-//     columns of one row, and stores them as one 4-byte bf16 pair; the
-//     8 lanes of a row write 16 contiguous bytes. A tile wholly inside the
-//     output (rows, columns, even N) has no branch.
+//     columns of one row (w8a8_wgmma.cuh epilogue_pair), and stores them as
+//     one 4-byte bf16 pair (the 8 lanes of a row write 16 contiguous bytes)
+//     or one 8-byte fp32 pair (32 bytes, a whole sector). A tile wholly
+//     inside the output (rows, columns, even N) has no branch.
 // What holds it back on the card (utils/kernel_variants.py): the weight
 // tiles' trip through L2 (a deeper ring, fewer rows per tile than 208 and
 // 192 but not fewer than 128 made it faster), the LayerNorm of phase 0,
@@ -78,12 +85,13 @@ __host__ __device__ constexpr int smem_bytes(int BM, int Kp, int stages) {
 // threads then get at most 80 registers), else one
 __host__ __device__ constexpr int blocks_per_sm(int BM) { return BM <= 64 ? 2 : 1; }
 
+template <class T>   // __nv_bfloat16 or float: x, e and the outputs
 struct Params {
-  const __nv_bfloat16* x;
-  const __nv_bfloat16* e;
+  const T* x;
+  const T* e;
   const float* s[3];
   const float* b[3];
-  __nv_bfloat16* out[3];
+  T* out[3];
   const float* gamma;
   const float* beta;
   int Lx, Le, M, K, N, Kp;
@@ -92,10 +100,19 @@ struct Params {
   int stages;      // ring stages of each consumer warpgroup
 };
 
-template <int BM>
+// a pair of neighbouring outputs (lo, hi) at y[0], y[1]: one 4-byte bf16
+// pair or one 8-byte fp32 pair (y at an even column of a row of even N)
+__device__ __forceinline__ void store_pair(__nv_bfloat16* y, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(y) = bf16_pair(lo, hi);
+}
+__device__ __forceinline__ void store_pair(float* y, float lo, float hi) {
+  *reinterpret_cast<float2*>(y) = make_float2(lo, hi);
+}
+
+template <int BM, class T>
 __global__ void __launch_bounds__(kThreadsQkv, blocks_per_sm(BM))
 w8a8_qkv_kernel(const __grid_constant__ CUtensorMap wq, const __grid_constant__ CUtensorMap wk,
-                const __grid_constant__ CUtensorMap wv, const Params p) {
+                const __grid_constant__ CUtensorMap wv, const Params<T> p) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[2][kMaxStages], empty[2][kMaxStages];
   unsigned char* smem = align1024(smem_raw);
@@ -121,7 +138,7 @@ w8a8_qkv_kernel(const __grid_constant__ CUtensorMap wq, const __grid_constant__ 
   const int Lkv = p.Lx + p.Le;
   quant_tile<BM>(
       xc, xs,
-      [&](int rr) -> const __nv_bfloat16* {
+      [&](int rr) -> const T* {
         const int m = m0 + rr;
         if (m >= p.M) return nullptr;
         const int clip = m / Lkv, j = m % Lkv;
@@ -180,7 +197,7 @@ w8a8_qkv_kernel(const __grid_constant__ CUtensorMap wq, const __grid_constant__ 
       sa[h] = col < p.N ? p.s[w][col] : 0.f;
       ba[h] = col < p.N ? p.b[w][col] : 0.f;
     }
-    __nv_bfloat16* out = p.out[w];
+    T* out = p.out[w];
     // after the swap, this thread holds row 8c + 2t + odd, columns
     // col0 + 8h - odd and the next one
     auto store = [&](auto full_c) {
@@ -191,19 +208,15 @@ w8a8_qkv_kernel(const __grid_constant__ CUtensorMap wq, const __grid_constant__ 
         const float x0 = xs[8 * c + 2 * t], x1 = xs[8 * c + 2 * t + 1];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const float v0 = epilogue(acc[4 * c + 2 * h], x0, sa[h], ba[h]);
-          const float v1 = epilogue(acc[4 * c + 2 * h + 1], x1, sa[h], ba[h]);
-          const float other = __shfl_xor_sync(0xffffffffu, odd ? v0 : v1, 4);
-          const float lo = odd ? other : v0, hi = odd ? v1 : other;
+          const float2 v = epilogue_pair(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1], x0, x1,
+                                         sa[h], ba[h], odd);
           const int col = col0 + 8 * h - odd;
+          T* y = out + static_cast<long long>(m) * p.N + col;
           if (FULL) {
-            *reinterpret_cast<uint32_t*>(out + static_cast<long long>(m) * p.N + col) =
-                static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
-                (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(hi))) << 16);
+            store_pair(y, v.x, v.y);
           } else if (m < p.M) {
-            __nv_bfloat16* y = out + static_cast<long long>(m) * p.N + col;
-            if (col < p.N) y[0] = __float2bfloat16(lo);
-            if (col + 1 < p.N) y[1] = __float2bfloat16(hi);
+            if (col < p.N) store_as(y, v.x);
+            if (col + 1 < p.N) store_as(y + 1, v.y);
           }
         }
       }
@@ -215,16 +228,68 @@ w8a8_qkv_kernel(const __grid_constant__ CUtensorMap wq, const __grid_constant__ 
   }
 }
 
-template <int BM>
-int launch_rows(const CUtensorMap (&maps)[3], const Params& p, int grid_y, int smem,
+template <int BM, class T>
+int launch_rows(const CUtensorMap (&maps)[3], const Params<T>& p, int grid_y, int smem,
                 cudaStream_t stream) {
-  auto kernel = w8a8_qkv_kernel<BM>;
+  auto kernel = w8a8_qkv_kernel<BM, T>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((p.M + BM - 1) / BM, grid_y);
   kernel<<<grid, kThreadsQkv, smem, stream>>>(maps[0], maps[1], maps[2], p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int launch(const void* x, const void* e, const void* Wq, const void* Wk, const void* Wv,
+           const void* sq, const void* sk, const void* sv, const void* bq, const void* bk,
+           const void* bv, const void* gamma, const void* beta, void* oq, void* ok, void* ov,
+           int B, int Lx, int Le, int K, int N, int rows, int units, int stages, int smem,
+           void* stream) {
+  const long long Mll = static_cast<long long>(B) * (Lx + Le);
+  if (K <= 0 || N <= 0 || B <= 0 || Lx < 0 || Le < 0 || (Le > 0 && e == nullptr) ||
+      Mll > (1ll << 30) || (gamma == nullptr) != (beta == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (Mll == 0) return 0;
+  const int Kp = round_up(K, kKC), total = 3 * ((N + kUnitCols - 1) / kUnitCols);
+  if ((rows != 128 && rows != 64 && rows != 32) || units <= 0 ||
+      stages < 2 || stages > kMaxStages || smem < smem_bytes(rows, Kp, stages))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* Ws[3] = {Wq, Wk, Wv};
+  const void* ss[3] = {sq, sk, sv};
+  const void* bs[3] = {bq, bk, bv};
+  void* os[3] = {oq, ok, ov};
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
+  Params<T> p{};
+  CUtensorMap maps[3];
+  for (int i = 0; i < 3; ++i) {
+    if (!aligned16(Ws[i]) || !encode_codes(encode, &maps[i], Ws[i], N, round_up(K, 16), 64))
+      return static_cast<int>(cudaErrorInvalidValue);
+    p.s[i] = static_cast<const float*>(ss[i]);
+    p.b[i] = static_cast<const float*>(bs[i]);
+    p.out[i] = static_cast<T*>(os[i]);
+  }
+  p.x = static_cast<const T*>(x);
+  p.e = static_cast<const T*>(e);
+  p.gamma = static_cast<const float*>(gamma);
+  p.beta = static_cast<const float*>(beta);
+  p.Lx = Lx;
+  p.Le = Le;
+  p.M = static_cast<int>(Mll);
+  p.K = K;
+  p.N = N;
+  p.Kp = Kp;
+  p.units = units;
+  p.total = total;
+  p.stages = stages;
+  const int grid_y = (total + units - 1) / units;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (rows) {
+    case 128: return launch_rows<128>(maps, p, grid_y, smem, st);
+    case 64: return launch_rows<64>(maps, p, grid_y, smem, st);
+    default: return launch_rows<32>(maps, p, grid_y, smem, st);
+  }
 }
 
 }  // namespace
@@ -244,50 +309,20 @@ extern "C" int w8a8_qkv_cat_bf16(const void* x, const void* e, const void* Wq, c
                                  const void* gamma, const void* beta, void* oq, void* ok,
                                  void* ov, int B, int Lx, int Le, int K, int N, int rows,
                                  int units, int stages, int smem, void* stream) {
-  const long long Mll = static_cast<long long>(B) * (Lx + Le);
-  if (K <= 0 || N <= 0 || B <= 0 || Lx < 0 || Le < 0 || (Le > 0 && e == nullptr) ||
-      Mll > (1ll << 30) || (gamma == nullptr) != (beta == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (Mll == 0) return 0;
-  const int Kp = round_up(K, kKC), total = 3 * ((N + kUnitCols - 1) / kUnitCols);
-  if ((rows != 128 && rows != 64 && rows != 32) || units <= 0 ||
-      stages < 2 || stages > kMaxStages || smem < smem_bytes(rows, Kp, stages))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const void* Ws[3] = {Wq, Wk, Wv};
-  const void* ss[3] = {sq, sk, sv};
-  const void* bs[3] = {bq, bk, bv};
-  void* os[3] = {oq, ok, ov};
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return static_cast<int>(cudaErrorSharedObjectSymbolNotFound);
-  Params p{};
-  CUtensorMap maps[3];
-  for (int i = 0; i < 3; ++i) {
-    if (!aligned16(Ws[i]) || !encode_codes(encode, &maps[i], Ws[i], N, round_up(K, 16), 64))
-      return static_cast<int>(cudaErrorInvalidValue);
-    p.s[i] = static_cast<const float*>(ss[i]);
-    p.b[i] = static_cast<const float*>(bs[i]);
-    p.out[i] = static_cast<__nv_bfloat16*>(os[i]);
-  }
-  p.x = static_cast<const __nv_bfloat16*>(x);
-  p.e = static_cast<const __nv_bfloat16*>(e);
-  p.gamma = static_cast<const float*>(gamma);
-  p.beta = static_cast<const float*>(beta);
-  p.Lx = Lx;
-  p.Le = Le;
-  p.M = static_cast<int>(Mll);
-  p.K = K;
-  p.N = N;
-  p.Kp = Kp;
-  p.units = units;
-  p.total = total;
-  p.stages = stages;
-  const int grid_y = (total + units - 1) / units;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rows) {
-    case 128: return launch_rows<128>(maps, p, grid_y, smem, st);
-    case 64: return launch_rows<64>(maps, p, grid_y, smem, st);
-    default: return launch_rows<32>(maps, p, grid_y, smem, st);
-  }
+  return launch<__nv_bfloat16>(x, e, Wq, Wk, Wv, sq, sk, sv, bq, bk, bv, gamma, beta, oq, ok, ov,
+                               B, Lx, Le, K, N, rows, units, stages, smem, stream);
+}
+
+// The fp32 form: x, e and oq/ok/ov fp32; the rest, and the launch plan, as
+// w8a8_qkv_cat_bf16.
+extern "C" int w8a8_qkv_cat_f32(const void* x, const void* e, const void* Wq, const void* Wk,
+                                const void* Wv, const void* sq, const void* sk, const void* sv,
+                                const void* bq, const void* bk, const void* bv,
+                                const void* gamma, const void* beta, void* oq, void* ok,
+                                void* ov, int B, int Lx, int Le, int K, int N, int rows,
+                                int units, int stages, int smem, void* stream) {
+  return launch<float>(x, e, Wq, Wk, Wv, sq, sk, sv, bq, bk, bv, gamma, beta, oq, ok, ov, B, Lx,
+                       Le, K, N, rows, units, stages, smem, stream);
 }
 
 // The constants of the launch plan, for the Python side to check its own

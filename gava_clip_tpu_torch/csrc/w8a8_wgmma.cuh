@@ -11,8 +11,10 @@
 //   * the product of one consumer warpgroup's 64-row W^T slab with the code
 //     tile over K, its slabs arriving by TMA through an mbarrier ring of its
 //     own, one wgmma group in flight while the previous stage is released;
-//   * the bf16 epilogue of a transposed tile through a per-warp staging tile
-//     in 16-byte stores (w8a8_matmul.cu, mega_layer.cu);
+//   * the epilogue of a transposed tile: bf16 through a per-warp staging
+//     tile in 16-byte stores (w8a8_matmul.cu, mega_layer.cu), fp32 (with an
+//     optional fp32 residual) straight from the registers in 8-byte stores
+//     (w8a8_matmul.cu);
 //   * the tensor map of a row-major int8 matrix in 128-byte swizzled boxes.
 // The kernels compute transposed tiles, y^T = W^T c^T: A is a 64-row slab of
 // W^T, B the block's rows, and the accumulator acc[4c + 2h + e] of thread
@@ -39,9 +41,9 @@ __device__ __forceinline__ int code_at(int rr, int c) {
 }
 
 // Phase 0: warps w0, w0 + nw, ... of the block fill rows rr of the code
-// tile `xc` from row_ptr(rr) (K bf16 values, or nullptr for a row past the
-// matrix: zero codes, scale 0) through [LayerNorm (gamma != nullptr) ->]
-// the per-row quant; xs[rr] receives the row scale.
+// tile `xc` from row_ptr(rr) (K bf16 or fp32 values, or nullptr for a row
+// past the matrix: zero codes, scale 0) through [LayerNorm (gamma !=
+// nullptr) ->] the per-row quant; xs[rr] receives the row scale.
 template <int BM, class RowPtr>
 __device__ __forceinline__ void quant_tile(int8_t* xc, float* xs, RowPtr row_ptr, int K, int Kp,
                                            const float* gamma, const float* beta, int w0,
@@ -52,7 +54,7 @@ __device__ __forceinline__ void quant_tile(int8_t* xc, float* xs, RowPtr row_ptr
     auto store8 = [xc, rr](int c0, uint2 codes) {
       *reinterpret_cast<uint2*>(xc + code_at<BM>(rr, c0)) = codes;
     };
-    const __nv_bfloat16* src = row_ptr(rr);
+    const auto src = row_ptr(rr);
     float v = 0.f;
     if (src != nullptr)
       v = quant_row_to(src, K, gamma, beta, Kp, store, store8, lane);
@@ -305,18 +307,30 @@ __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
          (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(hi))) << 16);
 }
 
+// The epilogue of accumulators a0 = acc[4c + 2h], a1 = acc[4c + 2h + 1]
+// (rows 8c + 2t and 8c + 2t + 1 of column g + 8h, scales x0, x1), fp32:
+// ((float)acc * xs) * s + b. A lane pair swaps one value so that each
+// thread holds two neighbouring columns of one row: row 8c + 2t + odd,
+// columns (g - odd) + 8h and the next, returned as (lo, hi).
+__device__ __forceinline__ float2 epilogue_pair(int a0, int a1, float x0, float x1, float s,
+                                                float b, int odd) {
+  const float v0 = epilogue(a0, x0, s, b);
+  const float v1 = epilogue(a1, x1, s, b);
+  const float other = __shfl_xor_sync(0xffffffffu, odd ? v0 : v1, 4);
+  return make_float2(odd ? other : v0, odd ? v1 : other);
+}
+
 // The epilogue of one warp's 16 columns of a transposed tile (acc[4c + 2h +
 // e] = out^T[col0 + g + 8h][row 8c + 2t + e], thread g * 4 + t of the warp):
 //   y[m0 + row][col0 + j] = bf16(((float)acc * xs[row]) * s[col] + b[col])
-// (b null adds 0, as the plain version's zero bias does). A lane pair swaps
-// one value so that each thread holds two neighbouring columns of one row;
-// the pairs go through the warp's staging tile `wst` (32 rows x 32 bytes,
-// the two 16-byte halves of a row swapped in every second group of four
-// rows, so that neither the 4-byte writes nor the 16-byte reads meet a bank
-// twice) and leave it as 16-byte stores, 32 rows at a time: the 32 bytes of
-// a row fill one sector. Rows from M and columns from N are not written;
-// other than 16 whole columns of a y with N % 8 == 0 at a 16-byte aligned
-// base go out 2 bytes at a time.
+// (b null adds 0, as the plain version's zero bias does). The pairs of
+// epilogue_pair go through the warp's staging tile `wst` (32 rows x 32
+// bytes, the two 16-byte halves of a row swapped in every second group of
+// four rows, so that neither the 4-byte writes nor the 16-byte reads meet a
+// bank twice) and leave it as 16-byte stores, 32 rows at a time: the 32
+// bytes of a row fill one sector. Rows from M and columns from N are not
+// written; other than 16 whole columns of a y with N % 8 == 0 at a 16-byte
+// aligned base go out 2 bytes at a time.
 template <int BM>
 __device__ __forceinline__ void store_tile_bf16(const int (&acc)[BM / 2], const float* xs,
                                                 const float* __restrict__ s,
@@ -343,13 +357,11 @@ __device__ __forceinline__ void store_tile_bf16(const int (&acc)[BM / 2], const 
       const int lr = 8 * cc + 2 * t + odd;   // this thread's row of the staging tile
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const float v0 = epilogue(acc[4 * c + 2 * h], x0, sa[h], ba[h]);
-        const float v1 = epilogue(acc[4 * c + 2 * h + 1], x1, sa[h], ba[h]);
-        const float other = __shfl_xor_sync(0xffffffffu, odd ? v0 : v1, 4);
-        const float lo = odd ? other : v0, hi = odd ? v1 : other;
+        const float2 v = epilogue_pair(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1], x0, x1,
+                                       sa[h], ba[h], odd);
         // columns (g - odd) + 8h and the next: word g / 2 of half h
         *reinterpret_cast<uint32_t*>(wst + lr * 32 + ((h ^ ((lr >> 2) & 1)) << 4) +
-                                     (g >> 1) * 4) = bf16_pair(lo, hi);
+                                     (g >> 1) * 4) = bf16_pair(v.x, v.y);
       }
     }
     __syncwarp();
@@ -372,6 +384,55 @@ __device__ __forceinline__ void store_tile_bf16(const int (&acc)[BM / 2], const 
       }
     }
     __syncwarp();
+  }
+}
+
+// The fp32 form of store_tile_bf16, with an optional fp32 residual r (same
+// shape as y): y = (((float)acc * xs) * s + b) [+ r], each step rounded on
+// its own (__fadd_rn: no FMA). No staging: after epilogue_pair's swap each
+// thread holds two neighbouring fp32 columns of one row, 8 bytes, and the
+// 32 lanes of a warp cover 8 rows x 32 contiguous bytes, one whole sector a
+// row; where N is even they go out (and r comes in) 8 bytes at a time, else
+// a value at a time. Rows from M and columns from N are not written.
+template <int BM>
+__device__ __forceinline__ void store_tile_f32(const int (&acc)[BM / 2], const float* xs,
+                                               const float* __restrict__ s,
+                                               const float* __restrict__ b,
+                                               const float* __restrict__ r,
+                                               float* __restrict__ y, int m0, int col0, int M,
+                                               int N, int lane) {
+  const int g = lane >> 2, t = lane & 3, odd = g & 1;
+  float sa[2], ba[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int col = col0 + g + 8 * h;
+    sa[h] = col < N ? s[col] : 0.f;
+    ba[h] = col < N && b != nullptr ? b[col] : 0.f;
+  }
+  const bool vec = N % 2 == 0 && (reinterpret_cast<uintptr_t>(y) & 7u) == 0 &&
+                   (r == nullptr || (reinterpret_cast<uintptr_t>(r) & 7u) == 0);
+#pragma unroll
+  for (int c = 0; c < BM / 8; ++c) {
+    const float x0 = xs[8 * c + 2 * t], x1 = xs[8 * c + 2 * t + 1];
+    const int m = m0 + 8 * c + 2 * t + odd;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float2 v = epilogue_pair(acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1], x0, x1, sa[h], ba[h],
+                               odd);
+      const int col = col0 + g - odd + 8 * h;
+      if (m >= M || col >= N) continue;
+      const long long at = static_cast<long long>(m) * N + col;
+      if (vec) {
+        if (r != nullptr) {
+          const float2 rr = *reinterpret_cast<const float2*>(r + at);
+          v = make_float2(__fadd_rn(v.x, rr.x), __fadd_rn(v.y, rr.y));
+        }
+        *reinterpret_cast<float2*>(y + at) = v;
+      } else {
+        y[at] = r != nullptr ? __fadd_rn(v.x, r[at]) : v.x;
+        if (col + 1 < N) y[at + 1] = r != nullptr ? __fadd_rn(v.y, r[at + 1]) : v.y;
+      }
+    }
   }
 }
 

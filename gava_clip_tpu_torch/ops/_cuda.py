@@ -110,9 +110,13 @@ _SIGNATURES = {
         # x, W, s, b, y; M, K, N; the launch plan (rows per block, units
         # per block, ring stages, shared bytes); stream
         "w8a8_matmul_bf16": ([_VP] * 5 + [_I] * 7 + [_VP], _I),
+        # the fp32 form: x, W, s, b, r (fp32 residual or null), y; then as
+        # the bf16 entry
+        "w8a8_matmul_f32": ([_VP] * 6 + [_I] * 7 + [_VP], _I),
         # the plan's constants and the device's shared-memory limit: six
-        # ints
+        # ints (the bf16 form's, the fp32 form's)
         "w8a8_matmul_layout": ([ctypes.POINTER(_I)], None),
+        "w8a8_matmul_layout_f32": ([ctypes.POINTER(_I)], None),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "w8a8_qkv": {
@@ -120,6 +124,8 @@ _SIGNATURES = {
         # B, Lx, Le, K, N; the launch plan (rows per block, units per
         # block, ring stages, shared bytes); stream
         "w8a8_qkv_cat_bf16": ([_VP] * 16 + [_I] * 9 + [_VP], _I),
+        # the fp32 form, the same arguments
+        "w8a8_qkv_cat_f32": ([_VP] * 16 + [_I] * 9 + [_VP], _I),
         # the plan's constants and the device's shared-memory limit: five
         # ints
         "w8a8_qkv_layout": ([ctypes.POINTER(_I)], None),
@@ -160,6 +166,13 @@ _SIGNATURES = {
         "w8a8_mlp_layout": ([ctypes.POINTER(_I)], None),
         # the reciprocal check: a device uint64 counter; stream
         "w8a8_mlp_rcp_check": ([_VP, _VP], _I),
+        "cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "w8a8_mlp_f32": {
+        # the fp32 forms of w8a8_mlp's entries, the same arguments
+        "w8a8_mlp_res_f32": ([_VP] * 12 + [_I] * 7 + [_VP], _I),
+        "w8a8_mlp_f32": ([_VP] * 11 + [_I] * 7 + [_VP], _I),
+        "w8a8_mlp_layout": ([ctypes.POINTER(_I)], None),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "w8_matmul": {

@@ -50,8 +50,11 @@ Each of these kernels has a bf16 form and a float32 form, picked by the
 dtype of q, k, v (all bfloat16 or all float32): the bf16 kernels above, and
 csrc/attention_f32.cu, where every product is an fp32 FMA and every cast to
 v's dtype a no-op (`attention_f32_plan`; launch counts `*_f32`). Nothing is
-cast from one to the other. The w8a8 serving fusion below has a bf16 form
-only and raises on float32 (ROADMAP A12).
+cast from one to the other. The w8a8 serving fusion below takes float32
+too, in two launches (B1's fp32 form into a scratch, then B2's fp32 form
+with the residual: launch count `attention_out_int8_f32`); its int8 QK^T
+form and its two-source entry are bf16 only and raise on float32 (ROADMAP
+A12).
 
 `flash_attention_out_int8` is the w8a8 serving fusion (TPU
 `_attention_out_kernel` + `_int8_outproj_epilogue`): the same attention
@@ -83,7 +86,7 @@ _KERNEL_HEAD_DIM = 64     # the only head width the kernel is built for
 # launches of each hand-written kernel since the last reset; a run reads
 # these to show that its main path went through the kernels
 launch_counts = {"packed_attention": 0, "attention_out_int8": 0,
-                 "attention_out_int8_qk8": 0,
+                 "attention_out_int8_qk8": 0, "attention_out_int8_f32": 0,
                  "attention_out_int8_2src": 0,
                  "packed_attention_den": 0, "packed_attention_bwd": 0,
                  "packed_attention_bwd_recompute": 0,
@@ -706,9 +709,9 @@ def attention_f32_plan(B: int, Lq: int, Lk: int, H: int,
             "threads": threads, "scratch_floats": 2 * B * H * Lq}
 
 
-def _f32_launch(name: str, dev, *args) -> None:
+def _f32_launch(name: str, dev, *args, count: bool = True) -> None:
     """Call entry `name` of csrc/attention_f32.cu on the current stream and
-    count one launch of it."""
+    count one launch of it (`count` False: the caller counts its own)."""
     from ._cuda import load_library
     lib = load_library("attention_f32")
     _check_layout("attention_f32", lib, "attention_f32_layout", _F32_LAYOUT)
@@ -717,7 +720,8 @@ def _f32_launch(name: str, dev, *args) -> None:
         err = getattr(lib, name)(*args, stream)
     if err != 0:
         raise _launch_failed(name, lib, err)
-    launch_counts[name] += 1
+    if count:
+        launch_counts[name] += 1
 
 
 def _packed_fwd_f32(name: str, q, k, v, num_heads: int):
@@ -1011,9 +1015,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 _ATTN_OUT_LAYOUT = (18432, 4, 224, 128, 24576)
 _ATTN_OUT_ROWS = 112
 _NO_F32_OUT_INT8 = (
-    "the fused attention + int8 out-projection kernel (B4 / B11 / B12) "
-    "takes bfloat16 q/k/v only; its float32 form is ROADMAP A12 (evaluate "
-    "with --quantize_eval and --use_bf16 on the card)")
+    "the int8 QK^T form (B11) and the two-source entry (B12) of the fused "
+    "attention + int8 out-projection take bfloat16 q/k/v only; their "
+    "float32 forms are ROADMAP A12 (evaluate with --use_bf16 on the card, "
+    "or without the int8 QK^T switch)")
 
 
 def attention_out_plan(B: int, lq: int, num_heads: int,
@@ -1117,14 +1122,20 @@ def attention_out_int8_cuda(q, k, v, num_heads: int, out_params: Dict,
                             lq: Optional[int] = None,
                             int8_qk: bool = False) -> torch.Tensor:
     """Launch csrc/attention_out_int8.cu on the current stream (no sync):
-    its fp32-score entry point, or with int8_qk its int8 QK^T one."""
+    its fp32-score entry point, or with int8_qk its int8 QK^T one; float32
+    q/k/v take the fp32 form (`_attention_out_f32`), which has no int8
+    QK^T form."""
     from .int8_matmul import _kernel_weight
-    _check_kernel_args(q, k, v, num_heads, _NO_F32_OUT_INT8)
+    _check_kernel_args(q, k, v, num_heads, _NO_F32_OUT_INT8 if int8_qk
+                       else "")
     B, Lq_arr, D = q.shape
     lq = Lq_arr if lq is None else lq
     if not 0 <= lq <= Lq_arr:
         raise ValueError(f"lq {lq} outside 0..{Lq_arr}")
     wt = _kernel_weight("attention_out_int8", out_params["kernel"], D, D)
+    if q.dtype == torch.float32:
+        return _attention_out_f32(q, k, v, num_heads, out_params, residual,
+                                  lq)
     name = "attention_out_int8_qk8" if int8_qk else "attention_out_int8"
     c = (D // num_heads) ** -0.5 * _LOG2E
     out = _attention_out_launch(
@@ -1135,6 +1146,38 @@ def attention_out_int8_cuda(q, k, v, num_heads: int, out_params: Dict,
     if B and lq:
         launch_counts[name] += 1
     return out
+
+
+def _attention_out_f32(q, k, v, num_heads: int, out_params: Dict,
+                       residual: torch.Tensor, lq: int) -> torch.Tensor:
+    """B4 in float32, two launches: B1's fp32 form (csrc/attention_f32.cu)
+    writes the attention of the first lq queries, kept in fp32, into a
+    scratch (B, lq, D); then B2's fp32 form (csrc/w8a8_matmul.cu) quantizes
+    each scratch row, runs the int8 out-projection and adds the bias and
+    the fp32 residual, each step rounded as `_int8_outproj_epilogue`
+    rounds it. One count, `attention_out_int8_f32`, for the pair."""
+    from .int8_matmul import _w8a8_matmul_launch
+    B, _, D = q.shape
+    if residual.device != q.device:
+        raise ValueError(f"residual on {residual.device}, q on {q.device}")
+    if tuple(residual.shape) != (B, lq, D) or residual.dtype != q.dtype:
+        raise ValueError(f"residual {residual.dtype} "
+                         f"{tuple(residual.shape)}, expected ({B}, {lq}, "
+                         f"{D}) {q.dtype}")
+    if B == 0 or lq == 0:
+        return torch.empty((B, lq, D), dtype=q.dtype, device=q.device)
+    Dh = D // num_heads
+    attention_f32_plan(B, lq, k.shape[1], num_heads, Dh)
+    a = torch.empty((B, lq, D), dtype=torch.float32, device=q.device)
+    _f32_launch("packed_attention_f32", q.device, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), a.data_ptr(), B, lq, k.shape[1], num_heads, Dh,
+                *_qkv_strides(q, k, v), a.stride(0), a.stride(1),
+                Dh ** -0.5 * _LOG2E, count=False)
+    out = _w8a8_matmul_launch("f32", a.view(B * lq, D), out_params["kernel"],
+                              out_params["bias"],
+                              residual.reshape(B * lq, D))
+    launch_counts["attention_out_int8_f32"] += 1
+    return out.view(B, lq, D)
 
 
 def flash_attention_out_int8(q, k, v, num_heads: int, out_params: Dict,

@@ -14,10 +14,11 @@ version of the same math:
     `_w8a8_kernel3`): (M, K) rows, the LayerNorm optional, one shared quant,
     three int8 GEMMs + bias: a w8a8 self-attention's q/k/v projections
     (`ops/attention.multi_head_attention`);
-  * `w8a8_mlp_res` (csrc/w8a8_mlp.cu, TPU `kernel` in `w8a8_mlp_res`):
+  * `w8a8_mlp_res` (csrc/w8a8_mlp.cuh, built by w8a8_mlp.cu and its fp32
+    form by w8a8_mlp_f32.cu; TPU `kernel` in `w8a8_mlp_res`):
     LayerNorm, quant, int8 fc1 + bias, QuickGELU on the fp32 hidden,
     requant over the whole hidden row, int8 fc2 + bias + residual;
-  * `w8a8_mlp` (a second entry point of csrc/w8a8_mlp.cu, TPU
+  * `w8a8_mlp` (a second entry point of the same sources, TPU
     `_w8a8_mlp_kernel`): the same without the residual, the LayerNorm
     optional (`ln=None` quantizes the input rows as they are);
   * `int8_matmul` / `quantized_linear` (csrc/w8_matmul.cu, TPU `_kernel`):
@@ -50,12 +51,19 @@ tensor and the CUDA kernel for a CUDA tensor (or raises: there is no
 fallback); `impl="plain"` runs the plain version on any device, which is
 how a run holds the kernels against it on the card.
 
+Dtypes: each w8a8 kernel has a bf16 form and an fp32 form (the TPU kernels
+emit their input's dtype), picked by the dtype of the rows: all bfloat16 or
+all float32, the extras rows and the residual in the rows' dtype, the
+output in it too. Nothing is cast from one to the other; fp16 or mixed rows
+raise TypeError. The fp32 forms read fp32 rows and store fp32 (launch
+counts `*_f32`); their arithmetic after the load is the bf16 forms'.
+
 Int8-forward training of frozen weights (`--int8_frozen`, JAX
 `int8_linear_st`, `int8_qkv3_st`, `int8_mlp_st`) runs B2, B3a and B5 (or
 their plain versions, by `impl`) inside three autograd functions whose
 backwards compute dx alone by the JAX formulas; their leaves are the
 frozen-training {'qt', 'scale'[, 'qt_t']}. On the card the kernels take
-bf16 rows only, and fp32 rows raise. The generic JAX helpers
+the step's rows in bf16 or in fp32. The generic JAX helpers
 `quantize_act`, `int8_apply` and `int8_dynamic_linear` are ported beside
 them.
 """
@@ -72,9 +80,13 @@ _LN_EPS = 1e-5
 # of y) by 64 k, 8,192 bytes
 _W8_TILE_N, _W8_TILE_K = 128, 64
 
-# launches of each hand-written kernel since the last reset
+# launches of each hand-written kernel since the last reset; `*_f32` counts
+# the fp32 form of the kernel
 launch_counts = {"w8a8_matmul": 0, "w8a8_matmul3_cat": 0, "w8a8_matmul3": 0,
-                 "w8a8_mlp_res": 0, "w8a8_mlp": 0, "int8_matmul": 0}
+                 "w8a8_mlp_res": 0, "w8a8_mlp": 0, "int8_matmul": 0,
+                 "w8a8_matmul_f32": 0, "w8a8_matmul3_cat_f32": 0,
+                 "w8a8_matmul3_f32": 0, "w8a8_mlp_res_f32": 0,
+                 "w8a8_mlp_f32": 0}
 
 
 def reset_launch_counts() -> None:
@@ -195,12 +207,22 @@ def _f32_vec(t, n: int, what: str):
     return t.float().contiguous()
 
 
-def _bf16_rows(name, x):
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name} kernel takes bfloat16 activations, got "
-                        f"{x.dtype}; fp32 rows for B2 / B3a / B5 are ROADMAP "
-                        f"A11 (run with --use_bf16 on the card)")
-    return x.contiguous()
+def _rows_dtype(name: str, *rows) -> str:
+    """The w8a8 kernels' dtype rule: the rows (and the extras rows, the
+    residual: every tensor given, None skipped) all bfloat16 or all
+    float32. Returns the suffix of the entry point and of the launch count
+    of that form ('bf16' or 'f32'); anything else raises TypeError. Nothing
+    is cast."""
+    dtypes = {t.dtype for t in rows if t is not None}
+    if len(dtypes) != 1 or not dtypes <= {torch.bfloat16, torch.float32}:
+        raise TypeError(f"{name} kernel takes rows all bfloat16 or all "
+                        f"float32, got {sorted(map(str, dtypes))}")
+    return "f32" if dtypes == {torch.float32} else "bf16"
+
+
+def _counted(name: str, form: str) -> str:
+    """The launch count of `name` in form `form`."""
+    return name if form == "bf16" else f"{name}_f32"
 
 
 def _launch(lib_name: str, fn: str, device, *args) -> None:
@@ -311,43 +333,66 @@ def _kernel_weight(name, kernel, K, N=None, key="qa_t"):
 
 
 def w8a8_matmul_cuda(x, kernel, bias=None):
-    """Launch csrc/w8a8_matmul.cu: x (M, K) bf16 -> (M, N) bf16."""
+    """Launch csrc/w8a8_matmul.cu: x (M, K) bf16 or fp32 -> (M, N) in
+    x's dtype."""
+    form = _rows_dtype("w8a8_matmul", x)
+    out = _w8a8_matmul_launch(form, x, kernel, bias, None)
+    if x.shape[0]:
+        launch_counts[_counted("w8a8_matmul", form)] += 1
+    return out
+
+
+def _w8a8_matmul_launch(form, x, kernel, bias, residual):
+    """Check and launch B2's entry of form `form` ('bf16' or 'f32'): x (M,
+    K) -> (M, N); fp32 only, a residual (M, N) fp32 added last (the fp32
+    B4's out-projection). Counts nothing."""
     _check_cuda("w8a8_matmul", x.device,
-                (x, kernel.get("qa_t"), kernel["scale"], bias))
-    x = _bf16_rows("w8a8_matmul", x)
+                (x, kernel.get("qa_t"), kernel["scale"], bias, residual))
+    x = x.contiguous()
     M, K = x.shape
     wt = _kernel_weight("w8a8_matmul", kernel, K)
     N = wt.shape[0]
     s = _f32_vec(kernel["scale"], N, "scale")
     b = None if bias is None else _f32_vec(bias, N, "bias")
+    r = None if residual is None else residual.contiguous()
+    if r is not None and tuple(r.shape) != (M, N):
+        raise ValueError(f"residual {tuple(r.shape)}, expected ({M}, {N})")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M:
         from ._cuda import load_library
+        layout, fn = (_B2_LAYOUT, "w8a8_matmul_layout") if form == "bf16" \
+            else (_B2_LAYOUT_F32, "w8a8_matmul_layout_f32")
         plan = w8a8_matmul_plan(
             M, K, N,
             torch.cuda.get_device_properties(x.device).multi_processor_count,
-            smem_limit(load_library("w8a8_matmul"), "w8a8_matmul_layout",
-                       _B2_LAYOUT, x.device))
-        _launch("w8a8_matmul", "w8a8_matmul_bf16", x.device, x.data_ptr(),
-                _tma_rows(wt).data_ptr(), s.data_ptr(), _ptr(b),
-                out.data_ptr(), M, K, N, plan["rows"], plan["units"],
+            smem_limit(load_library("w8a8_matmul"), fn, layout, x.device),
+            esize=x.element_size())
+        head = (x.data_ptr(), _tma_rows(wt).data_ptr(), s.data_ptr(),
+                _ptr(b))
+        tail = (out.data_ptr(), M, K, N, plan["rows"], plan["units"],
                 plan["stages"], plan["smem_bytes"])
-        launch_counts["w8a8_matmul"] += 1
+        if form == "bf16":
+            _launch("w8a8_matmul", "w8a8_matmul_bf16", x.device, *head,
+                    *tail)
+        else:
+            _launch("w8a8_matmul", "w8a8_matmul_f32", x.device, *head,
+                    _ptr(r), *tail)
     return out
 
 
 def _w8a8_qkv_launch(name, x, e, kernels3, bias3, ln):
-    """Launch csrc/w8a8_qkv.cu: x (B, Lx, K), e (B, Le, K) or None, bf16 ->
-    three (B, Lx + Le, N) bf16; ln None skips the LayerNorm. Counts the
-    launch under `name`."""
+    """Launch csrc/w8a8_qkv.cu: x (B, Lx, K), e (B, Le, K) or None, bf16 or
+    fp32 -> three (B, Lx + Le, N) in x's dtype; ln None skips the LayerNorm.
+    Counts the launch under `name` (its `_f32` count in fp32)."""
+    Le = 0 if e is None else e.shape[1]
+    form = _rows_dtype(name, x, e if Le else None)
     _check_cuda(name, x.device,
                 (x, e, *(k.get("qa_t") for k in kernels3),
                  *(k["scale"] for k in kernels3), *bias3, *(ln or ())))
-    x = _bf16_rows(name, x)
+    x = x.contiguous()
     B, Lx, K = x.shape
-    Le = 0 if e is None else e.shape[1]
     if Le:
-        e = _bf16_rows(name, e)
+        e = e.contiguous()
         if e.shape[0] != B or e.shape[2] != K:
             raise ValueError(f"extras {tuple(e.shape)} vs x {tuple(x.shape)}")
     N = _kernel_weight(name, kernels3[0], K).shape[0]
@@ -366,30 +411,30 @@ def _w8a8_qkv_launch(name, x, e, kernels3, bias3, ln):
             smem_limit(load_library("w8a8_qkv"), "w8a8_qkv_layout",
                        _QKV_LAYOUT, x.device))
         ws = [_tma_rows(w) for w in ws]
-        _launch("w8a8_qkv", "w8a8_qkv_cat_bf16", x.device, x.data_ptr(),
+        _launch("w8a8_qkv", f"w8a8_qkv_cat_{form}", x.device, x.data_ptr(),
                 _ptr(e) if Le else None, *(w.data_ptr() for w in ws),
                 *(s.data_ptr() for s in ss), *(b.data_ptr() for b in bs),
                 _ptr(g), _ptr(beta), *(o.data_ptr() for o in outs),
                 B, Lx, Le, K, N, plan["rows"], plan["units"],
                 plan["stages"], plan["smem_bytes"])
-        launch_counts[name] += 1
+        launch_counts[_counted(name, form)] += 1
     return tuple(outs)
 
 
 def w8a8_matmul3_cat_cuda(x, e, kernels3, bias3, ln):
-    """Launch csrc/w8a8_qkv.cu: x (B, Lx, K), e (B, Le, K) or None, bf16 ->
-    three (B, Lx + Le, N) bf16."""
+    """Launch csrc/w8a8_qkv.cu: x (B, Lx, K), e (B, Le, K) or None, bf16 or
+    fp32 -> three (B, Lx + Le, N) in x's dtype."""
     return _w8a8_qkv_launch("w8a8_matmul3_cat", x, e, kernels3, bias3, ln)
 
 
 def w8a8_matmul3_cuda(x, kernels3, bias3, ln=None):
-    """Launch csrc/w8a8_qkv.cu with no extras rows: x (M, K) bf16 -> three
-    (M, N) bf16; ln None skips the LayerNorm."""
+    """Launch csrc/w8a8_qkv.cu with no extras rows: x (M, K) bf16 or fp32
+    -> three (M, N) in x's dtype; ln None skips the LayerNorm."""
     return tuple(o[0] for o in _w8a8_qkv_launch("w8a8_matmul3", x[None],
                                                 None, kernels3, bias3, ln))
 
 
-# the fused MLP's launch plan (csrc/w8a8_mlp.cu): bytes of an fc1 weight
+# the fused MLP's launch plan (csrc/w8a8_mlp.cuh): bytes of an fc1 weight
 # tile (128 x 128), stages of the fc1 ring, most stages of the fc2 ring,
 # bytes per row of the code staging tile, the kernel's static shared bytes,
 # bytes of an fc2 weight tile (256 x 128); rows per block, largest first
@@ -405,9 +450,12 @@ _QKV_MIN_STAGES = 3
 # the w8a8 GEMM's launch plan (csrc/w8a8_matmul.cu): bytes of one consumer
 # warpgroup's ring stage (64 W^T rows x 128 k), most stages per ring, output
 # columns per unit, bytes of the epilogue's staging tiles, the kernel's
-# static shared bytes; rows per block (the wgmma N), largest first; the
-# most rows a plan takes when no tile size gives every SM a block
+# static shared bytes; the same of its fp32 form, whose epilogue stores
+# from the registers (no staging tiles); rows per block (the wgmma N),
+# largest first; the most rows a plan takes when no tile size gives every
+# SM a block
 _B2_LAYOUT = (8192, 8, 128, 8192, 256)
+_B2_LAYOUT_F32 = (8192, 8, 128, 0, 256)
 _B2_ROWS = (192, 128, 64, 32, 16, 8)
 _B2_SMALL_ROWS = 32
 # the tile the plan takes where those tiles give every SM but at most one a
@@ -514,7 +562,7 @@ def w8a8_qkv_plan(M: int, K: int, N: int, sm_count: int,
 
 def w8a8_matmul_plan(M: int, K: int, N: int, sm_count: int,
                      smem_limit: int, rows: Optional[int] = None,
-                     units: Optional[int] = None) -> Dict:
+                     units: Optional[int] = None, esize: int = 2) -> Dict:
     """Launch plan of the w8a8 GEMM on a card of `sm_count` SMs whose blocks
     may have `smem_limit` shared bytes: {'rows' (per block, the wgmma N),
     'units' (128-column slabs of W^T per block), 'grid' (row tiles, unit
@@ -530,11 +578,15 @@ def w8a8_matmul_plan(M: int, K: int, N: int, sm_count: int,
     tower's 1,155 rows: 37 tiles of 32 x 4 groups, two blocks to an SM, at
     K = 512; x 2 groups, one block to an SM, at K = 2,048). `rows`
     and `units` take a form other than the plan's (utils/kernel_variants.py
-    times them). Raises for rows too long for even 8 of them, or for a
-    `rows` that does not fit."""
+    times them). `esize`: bytes of an element of x and y, 2 (bf16) or 4
+    (the fp32 form, `_B2_LAYOUT_F32`: no staging tiles). Raises for rows
+    too long for even 8 of them, or for a `rows` that does not fit."""
     if min(M, K, N) <= 0:
         raise ValueError(f"w8a8 GEMM plan: M={M}, K={K}, N={N}")
-    slab, max_stages, unit_cols, stage_bytes, static = _B2_LAYOUT
+    if esize not in (2, 4):
+        raise ValueError(f"w8a8 GEMM plan: elements of {esize} bytes")
+    slab, max_stages, unit_cols, stage_bytes, static = \
+        _B2_LAYOUT if esize == 2 else _B2_LAYOUT_F32
     kp = _round_up(K, 128)
 
     def smem(rows, stages):
@@ -590,9 +642,10 @@ def check_layout(lib, fn: str, want: Tuple[int, ...]) -> int:
 
 
 def smem_limit(lib, fn: str, want: Tuple[int, ...], device) -> int:
-    """`check_layout` on `device`, once per library layout and device,
+    """`check_layout` on `device`, once per library, layout and device,
     before the wrapper's first launch there."""
-    key = (fn, torch.cuda.current_device() if device.index is None
+    key = (getattr(lib, "_name", id(lib)), fn,
+           torch.cuda.current_device() if device.index is None
            else device.index)
     if key not in _layout_checked:
         with torch.cuda.device(device):
@@ -612,22 +665,24 @@ def _tma_rows(w: torch.Tensor) -> torch.Tensor:
 
 
 def _w8a8_mlp_launch(name, x, fc1, fc2, ln, residual):
-    """Launch csrc/w8a8_mlp.cu: the residual form (ln and residual given) or
-    the residual-free entry point (residual None, ln optional)."""
+    """Launch csrc/w8a8_mlp.cu (bf16) or w8a8_mlp_f32.cu (fp32): the
+    residual form (ln and residual given) or the residual-free entry point
+    (residual None, ln optional); rows and residual bf16 or fp32, counted
+    under `name` (its `_f32` count in fp32)."""
     k1, k2 = fc1["kernel"], fc2["kernel"]
+    form = _rows_dtype(name, x, residual)
     _check_cuda(name, x.device,
                 (x, residual, k1.get("qa_t"), k1["scale"], fc1["bias"],
                  k2.get("qa_t"), k2["scale"], fc2["bias"], *(ln or ())))
-    x = _bf16_rows(name, x)
+    x = x.contiguous()
     M, K = x.shape
     w1 = _kernel_weight(f"{name} fc1", k1, K)
     H = w1.shape[0]
     w2 = _kernel_weight(f"{name} fc2", k2, H)
     N = w2.shape[0]
-    if residual is not None and (residual.shape != (M, N)
-                                 or residual.dtype != x.dtype):
-        raise ValueError(f"residual {residual.dtype} {tuple(residual.shape)}"
-                         f", expected ({M}, {N}) {x.dtype}")
+    if residual is not None and residual.shape != (M, N):
+        raise ValueError(f"residual {tuple(residual.shape)}, expected "
+                         f"({M}, {N})")
     r = None if residual is None else residual.contiguous()
     s1, b1 = _f32_vec(k1["scale"], H, "scale"), _f32_vec(fc1["bias"], H,
                                                          "bias")
@@ -638,11 +693,12 @@ def _w8a8_mlp_launch(name, x, fc1, fc2, ln, residual):
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M:
         from ._cuda import load_library
+        lib = "w8a8_mlp" if form == "bf16" else "w8a8_mlp_f32"
         plan = w8a8_mlp_plan(
             M, K, H, N,
             torch.cuda.get_device_properties(x.device).multi_processor_count,
-            smem_limit(load_library("w8a8_mlp"), "w8a8_mlp_layout",
-                       _MLP_LAYOUT, x.device))
+            smem_limit(load_library(lib), "w8a8_mlp_layout", _MLP_LAYOUT,
+                       x.device))
         w1, w2 = _tma_rows(w1), _tma_rows(w2)
         hq = torch.empty(plan["scratch"], dtype=torch.int8, device=x.device)
         head = (x.data_ptr(), w1.data_ptr(), s1.data_ptr(), b1.data_ptr(),
@@ -651,23 +707,25 @@ def _w8a8_mlp_launch(name, x, fc1, fc2, ln, residual):
         tail = (hq.data_ptr(), M, K, H, N, plan["rows"], plan["stages2"],
                 plan["smem_bytes"])
         if residual is None:
-            _launch("w8a8_mlp", "w8a8_mlp_bf16", x.device, *head,
+            _launch(lib, f"w8a8_mlp_{form}", x.device, *head,
                     out.data_ptr(), *tail)
         else:
-            _launch("w8a8_mlp", "w8a8_mlp_res_bf16", x.device, *head,
+            _launch(lib, f"w8a8_mlp_res_{form}", x.device, *head,
                     r.data_ptr(), out.data_ptr(), *tail)
-        launch_counts[name] += 1
+        launch_counts[_counted(name, form)] += 1
     return out
 
 
 def w8a8_mlp_res_cuda(x, fc1, fc2, ln, residual):
-    """Launch csrc/w8a8_mlp.cu: x, residual (M, K) bf16 -> (M, N) bf16."""
+    """Launch csrc/w8a8_mlp.cu (bf16) or w8a8_mlp_f32.cu (fp32): x,
+    residual (M, K) -> (M, N) in their dtype."""
     return _w8a8_mlp_launch("w8a8_mlp_res", x, fc1, fc2, ln, residual)
 
 
 def w8a8_mlp_cuda(x, fc1, fc2, ln=None):
-    """Launch the residual-free entry point of csrc/w8a8_mlp.cu: x (M, K)
-    bf16 -> (M, N) bf16; ln None skips the LayerNorm."""
+    """Launch the residual-free entry point of csrc/w8a8_mlp.cu (bf16) or
+    w8a8_mlp_f32.cu (fp32): x (M, K) -> (M, N) in x's dtype; ln None skips
+    the LayerNorm."""
     return _w8a8_mlp_launch("w8a8_mlp", x, fc1, fc2, ln, None)
 
 
@@ -834,16 +892,6 @@ def _as_w8a8_leaf(kernel) -> Dict:
     return out
 
 
-def _st_rows(name: str, x: torch.Tensor, impl: str) -> None:
-    """On the kernel path the w8a8 kernels take bf16 rows only: fp32 rows
-    raise rather than being cast."""
-    if _use_kernel(x, impl) and x.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"{name}: the w8a8 kernels take bfloat16 rows, got {x.dtype}; "
-            f"fp32 rows for B2 / B3a / B5 are ROADMAP A11 (train with "
-            f"bf16 on the card)")
-
-
 def _dequant_as(kernel, dtype) -> torch.Tensor:
     """The (K, N) weight of a w8a8 leaf in `dtype`, as JAX's
     straight-through backwards dequantize it."""
@@ -948,7 +996,6 @@ def int8_linear_st(x: torch.Tensor, kernel, bias=None,
     """x (..., K) through a frozen int8 linear: B2 (`w8a8_matmul`) forward,
     dx = g @ dequant(W)^T backward (JAX `int8_linear_st`). kernel: a 'qt'
     leaf."""
-    _st_rows("int8_linear_st", x, impl)
     return _Int8LinearST.apply(x, _as_w8a8_leaf(kernel), bias, impl)
 
 
@@ -958,7 +1005,6 @@ def int8_qkv3_st(x: torch.Tensor, kernels3: Sequence, bias3: Sequence,
     (`w8a8_matmul3`) forward; backward dx = the LayerNorm input formula on
     sum_i g_i @ dequant(W_i)^T (JAX `int8_qkv3_st`). kernels3: three 'qt'
     leaves; ln: (scale, bias)."""
-    _st_rows("int8_qkv3_st", x, impl)
     return _Int8QKV3ST.apply(x, tuple(_as_w8a8_leaf(k) for k in kernels3),
                              tuple(bias3), tuple(ln), impl)
 
@@ -969,7 +1015,6 @@ def int8_mlp_st(x: torch.Tensor, fc1, fc2, ln: Sequence,
     (`w8a8_mlp_res`) forward; backward dx through LN2, fc1 recomputed and
     QuickGELU's derivative, and the residual's cotangent g (JAX
     `int8_mlp_st`). fc1 / fc2: {'kernel': 'qt' leaf, 'bias'}."""
-    _st_rows("int8_mlp_st", x, impl)
     fc1, fc2 = ({"kernel": _as_w8a8_leaf(fc["kernel"]), "bias": fc["bias"]}
                 for fc in (fc1, fc2))
     return _Int8MlpST.apply(x, fc1, fc2, tuple(ln), residual, impl)

@@ -6,11 +6,14 @@ run the check phase of chip_smoke.py on each.
 
 Each mutant is a copy of the package and of chip_smoke.py under
 `_scratch/mut_<name>/` (gitignored) with one source patched; the copy
-builds into its own `_build/`, so the real build is never touched. A
-mutant is rejected when its phase raises and a check on the kernel under
-test reports FAIL; those lines are printed. The script exits 1 if a mutant
-is not rejected. The fp32 attention mutants (`f32_*`) are also run by
-chip_smoke.py's f32-mutants phase, all at once.
+builds into its own `_build/` (a copy of the real one, whose libraries it
+reuses where their sources and headers are unchanged: a build's name
+carries their hash), so the real build is never touched. A mutant is
+rejected when its phase raises and a check on the kernel under test
+reports FAIL; those lines are printed. The script exits 1 if a mutant is
+not rejected. The fp32 mutants (`f32_*` of the attention kernels, `f32w8_*`
+of the w8a8 kernels) are also run by chip_smoke.py's f32-mutants phase,
+all at once.
 """
 
 import os
@@ -28,7 +31,7 @@ _B1 = "gava_clip_tpu_torch/csrc/packed_attention.cu"
 _W8A8 = "gava_clip_tpu_torch/csrc/w8a8_common.cuh"
 _WG = "gava_clip_tpu_torch/csrc/w8a8_wgmma.cuh"
 _B7 = "gava_clip_tpu_torch/csrc/streaming_attention.cu"
-_B5 = "gava_clip_tpu_torch/csrc/w8a8_mlp.cu"
+_B5 = "gava_clip_tpu_torch/csrc/w8a8_mlp.cuh"
 _B4 = _B12
 _MEGA = "gava_clip_tpu_torch/csrc/mega_layer.cu"
 _B10 = "gava_clip_tpu_torch/csrc/fused_extras.cu"
@@ -98,9 +101,8 @@ MUTANTS = {
     # B2: the epilogue's scale and bias as one FMA (one rounding where the
     # plain version takes two)
     "b2_epilogue_fma": (
-        _WG, [("        const float v0 = epilogue(acc[4 * c + 2 * h], x0, sa[h], ba[h]);",
-               "        const float v0 = fmaf(__fmul_rn(__int2float_rn(acc[4 * c + "
-               "2 * h]), x0), sa[h], ba[h]);")],
+        _WG, [("  const float v0 = epilogue(a0, x0, s, b);",
+               "  const float v0 = fmaf(__fmul_rn(__int2float_rn(a0), x0), s, b);")],
         "phase_w8a8_kernels", "w8a8_matmul M="),
     # the second source's values read one row early
     "b12_second_source_row_shift": (
@@ -256,6 +258,40 @@ MUTANTS = {
         _F32, [("if (STREAM) return causal && key > row ? 0.f : "
                 "ex2f(s * c - st);", "if (STREAM) return ex2f(s * c - st);")],
         "phase_f32_kernels", "streaming_attention_bwd_f32 B="),
+    # the fp32 forms of the w8a8 kernels (chip_smoke's w8a8-f32 phase):
+    # B2 (and B3, B5, which share the row load) with each fp32 row rounded
+    # to bf16 before the quant, in the 16-byte load and the value load
+    "f32w8_b2_rows_bf16": (
+        _W8A8, [("  v[0] = a.x;\n  v[1] = a.y;\n  v[2] = a.z;\n  v[3] = a.w;\n"
+                 "  v[4] = b.x;\n  v[5] = b.y;\n  v[6] = b.z;\n  v[7] = b.w;\n",
+                 "".join(f"  v[{i}] = " + _ROUND.format(f"{ab}.{c}") + ";\n"
+                         for i, (ab, c) in enumerate(
+                             (ab, c) for ab in "ab" for c in "xyzw"))),
+                ("__device__ __forceinline__ float to_f32(float v) { return v; }",
+                 "__device__ __forceinline__ float to_f32(float v) { return "
+                 + _ROUND.format("v") + "; }")],
+        "phase_w8a8_f32", "w8a8_matmul_f32 M="),
+    # B5 in fp32: the residual read as bf16
+    "f32w8_b5_residual_bf16": (
+        _B5, [("store_as(y + at, kRes ? __fadd_rn(v, to_f32(r[at])) : v);",
+               "store_as(y + at, kRes ? __fadd_rn(v, "
+               + _ROUND.format("to_f32(r[at])") + ") : v);")],
+        "phase_w8a8_f32", "w8a8_mlp_res_f32 M="),
+    # B3a in fp32 at rows held in passes (K 1,100): the LayerNorm's mean
+    # summed over the first 1,024 columns only
+    "f32w8_b3_ln_mean_first_1024": (
+        _W8A8, [("    for (int c = lane; c < K; c += 32) s = __fadd_rn(s, "
+                 "to_f32(src[c]));",
+                 "    for (int c = lane; c < min(K, 1024); c += 32) s = "
+                 "__fadd_rn(s, to_f32(src[c]));")],
+        "phase_w8a8_f32", "w8a8_matmul3_f32 M="),
+    # B4 in fp32: the attention's products in TF32 (its first launch is
+    # attention_f32.cu's forward)
+    "f32w8_b4_products_tf32": (
+        _F32, [("acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);",
+                "acc[i][j] = fmaf(" + _TF32.format("ar[i]") + ", "
+                + _TF32.format("br[j]") + ", acc[i][j]);")],
+        "phase_w8a8_f32", "attention_out_int8_f32 B="),
 }
 
 
@@ -267,8 +303,7 @@ def _run_mutant(name):
     os.makedirs(d)
     shutil.copytree(os.path.join(ROOT, "gava_clip_tpu_torch"),
                     os.path.join(d, "gava_clip_tpu_torch"),
-                    ignore=shutil.ignore_patterns("_build",
-                                                  "__pycache__"))
+                    ignore=shutil.ignore_patterns("__pycache__", "*.tmp"))
     shutil.copy(os.path.join(ROOT, "chip_smoke.py"), d)
     with open(os.path.join(d, path)) as f:
         src = f.read()
@@ -279,8 +314,9 @@ def _run_mutant(name):
         src = src.replace(old, new)
     with open(os.path.join(d, path), "w") as f:
         f.write(src)
+    # the phase checks the mutant's kernel alone where it can (`only`)
     code = ("import chip_smoke as cs\ncs.import_port()\n"
-            "state = {'checks_only': True}\n"
+            f"state = {{'checks_only': True, 'only': {word.split()[0]!r}}}\n"
             f"cs.phase_device(state)\ncs.{phase}(state)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=d,
                          capture_output=True, text=True)

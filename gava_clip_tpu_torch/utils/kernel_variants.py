@@ -18,7 +18,7 @@ against SDPA's forward, both captured in CUDA graphs, at the text tower's
 shape and at (4, 1024, 1024, 8): the source as it is (4 warps of one
 16-row slab), 8 warps, two slabs per warp, four stages, key tiles of 128,
 two stages with four blocks per SM, three blocks per SM, the accumulator
-rescaled only when a max moved, exp2f. B5 (csrc/w8a8_mlp.cu) at the
+rescaled only when a max moved, exp2f. B5 (csrc/w8a8_mlp.cuh) at the
 serving shape, each in turns with the source as it is and held to its
 bits: the IEEE division in QuickGELU, fc2's epilogue always
 bounds-checked, one W2^T slab per warpgroup in fc2, and one that shows
@@ -67,7 +67,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 _PA = "gava_clip_tpu_torch/csrc/packed_attention.cu"
 _W8 = "gava_clip_tpu_torch/csrc/w8_matmul.cu"
 _B7 = "gava_clip_tpu_torch/csrc/streaming_attention.cu"
-_B5 = "gava_clip_tpu_torch/csrc/w8a8_mlp.cu"
+_B5 = "gava_clip_tpu_torch/csrc/w8a8_mlp.cuh"   # built by w8a8_mlp.cu
 _B3 = "gava_clip_tpu_torch/csrc/w8a8_qkv.cu"
 _B4 = "gava_clip_tpu_torch/csrc/attention_out_int8.cu"
 _MEGA = "gava_clip_tpu_torch/csrc/mega_layer.cu"

@@ -10,8 +10,8 @@ ex2.approx becomes exp2f here, so this checks the kernels' indexing,
 masking, tiling and summation, not the card's instructions.
 
 Also the dtype rules of the attention wrappers: q/k/v all bfloat16 or all
-float32, and fp32 into a kernel without an fp32 form raises naming its
-ROADMAP item.
+float32, and fp32 into a kernel without an fp32 form (B4's int8 QK^T form
+B11, the two-source B12) raises naming its ROADMAP item.
 """
 
 import ctypes
@@ -290,21 +290,24 @@ def test_f32_mutants_fail_the_limit(emu, name):
 def test_attention_wrappers_take_bf16_or_fp32_and_refuse_the_rest():
     """The dtype rules hold before any device work: all bfloat16 or all
     float32 (then a CPU tensor is refused for want of a card), mixed or
-    half inputs raise TypeError, and fp32 into the w8a8 attention +
-    out-projection (no fp32 form) raises naming its ROADMAP item."""
+    half inputs raise TypeError. The w8a8 attention + out-projection (B4)
+    takes fp32 as well; its int8 QK^T form (B11) and its two-source entry
+    (B12), which have no fp32 form, raise naming their ROADMAP item."""
     x = torch.zeros(1, 5, 128)
+    op = {"kernel": {"qa": torch.zeros(128, 128, dtype=torch.int8),
+                     "scale": torch.ones(1, 128)}, "bias": torch.zeros(128)}
     for dtype in (torch.float32, torch.bfloat16):
         t = x.to(dtype)
         with pytest.raises(ValueError, match="CUDA"):
             tfa.packed_attention_cuda(t, t, t, 2)
+        with pytest.raises(ValueError, match="CUDA"):
+            tfa.attention_out_int8_cuda(t, t, t, 2, op, t)
     with pytest.raises(TypeError, match="all bfloat16 or all float32"):
         tfa.packed_attention_den_cuda(x, x.bfloat16(), x, 2)
     with pytest.raises(TypeError, match="all bfloat16 or all float32"):
         tfa.streaming_attention_cuda(x.half(), x.half(), x.half(), 2, True)
-    op = {"kernel": {"qa": torch.zeros(128, 128, dtype=torch.int8),
-                     "scale": torch.ones(1, 128)}, "bias": torch.zeros(128)}
     with pytest.raises(TypeError, match="ROADMAP A12"):
-        tfa.attention_out_int8_cuda(x, x, x, 2, op, x)
+        tfa.attention_out_int8_cuda(x, x, x, 2, op, x, int8_qk=True)
     with pytest.raises(TypeError, match="ROADMAP A12"):
         tfa.attention_out_int8_2src_cuda(x, x, x, x, x, 2, op, x)
     assert set(tfa.launch_counts.values()) == {0}

@@ -337,28 +337,41 @@ def test_int8_mlp_st_matches_jax_vjp(dtype):
 
 
 def test_straight_through_ops_raise_on_fp32_card_rows(monkeypatch):
-    """On the kernel path the w8a8 kernels take bf16 rows only: fp32 rows
-    raise (no quiet cast, no CPU fallback), naming the ROADMAP item. The
-    card's dispatch is stood in for by routing every tensor to the kernels;
-    bf16 rows then reach the wrapper, which needs CUDA tensors. On the CPU
-    the plain versions take both dtypes."""
+    """On the kernel path the w8a8 kernels take rows all bf16 or all fp32
+    (the residual too) and pick their entry by that dtype: fp32 and bf16
+    rows pass the dtype rule and reach the wrapper's CUDA check (no quiet
+    cast, no CPU fallback), while fp16 rows and a residual of another dtype
+    raise TypeError first. The card's dispatch is stood in for by routing
+    every tensor to the kernels. On the CPU the plain versions take both
+    dtypes."""
     rs = np.random.RandomState(0)
     _, tl = _weights(rs, 16, 16)
     for dt in (torch.float32, torch.bfloat16):
         assert tim.int8_linear_st(torch.ones(4, 16, dtype=dt),
                                   tl).dtype == dt
     monkeypatch.setattr(tim, "_use_kernel", lambda x, impl: True)
-    x = torch.zeros(4, 16)
     ln = (torch.ones(16), torch.zeros(16))
     fc = {"kernel": tl, "bias": torch.zeros(16)}
-    with pytest.raises(NotImplementedError, match="A11"):
-        tim.int8_linear_st(x, tl)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tim.int8_qkv3_st(x, [tl] * 3, [torch.zeros(16)] * 3, ln)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tim.int8_mlp_st(x, fc, fc, ln, x)
-    with pytest.raises(ValueError, match="CUDA"):
-        tim.int8_linear_st(x.to(torch.bfloat16), tl)
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.zeros(4, 16, dtype=dt)
+        with pytest.raises(ValueError, match="CUDA"):
+            tim.int8_linear_st(x, tl)
+        with pytest.raises(ValueError, match="CUDA"):
+            tim.int8_qkv3_st(x, [tl] * 3, [torch.zeros(16)] * 3, ln)
+        with pytest.raises(ValueError, match="CUDA"):
+            tim.int8_mlp_st(x, fc, fc, ln, x)
+    half = torch.zeros(4, 16, dtype=torch.float16)
+    with pytest.raises(TypeError, match="all bfloat16 or all float32"):
+        tim.int8_linear_st(half, tl)
+    with pytest.raises(TypeError, match="all bfloat16 or all float32"):
+        tim.int8_qkv3_st(half, [tl] * 3, [torch.zeros(16)] * 3, ln)
+    x = torch.zeros(4, 16)
+    with pytest.raises(TypeError, match="all bfloat16 or all float32"):
+        tim.int8_mlp_st(x, fc, fc, ln, x.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="all bfloat16 or all float32"):
+        tim.w8a8_matmul3_cat_cuda(x[None], x[None].to(torch.bfloat16),
+                                  [tl] * 3, [torch.zeros(16)] * 3, ln)
+    assert not any(tim.launch_counts.values())
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from gava_clip_tpu_torch.ops import _cuda
 from gava_clip_tpu_torch.ops import flash_attention as tfa
 from gava_clip_tpu_torch.ops import int8_matmul as tim
 
@@ -134,6 +135,7 @@ class _FakeLayoutLib:
 
 @pytest.mark.parametrize("fn,want", [
     ("w8a8_matmul_layout", tim._B2_LAYOUT),
+    ("w8a8_matmul_layout_f32", tim._B2_LAYOUT_F32),
     ("w8a8_qkv_layout", tim._QKV_LAYOUT),
     ("attention_out_int8_layout", tfa._ATTN_OUT_LAYOUT),
     ("w8a8_mlp_layout", tim._MLP_LAYOUT),
@@ -221,10 +223,20 @@ def test_w8a8_matmul_layout_is_the_kernel_source_s():
                               c["kStaticBytes"])
 
 
-def _b2_smem(rows, K, stages):
+def test_w8a8_matmul_f32_layout_is_the_kernel_source_s():
+    """The fp32 form's constants (w8a8_matmul_layout_f32): the bf16 form's,
+    without the epilogue's staging tiles."""
+    c = _cuda_constants("w8a8_wgmma.cuh", "w8a8_matmul.cu")
+    assert tim._B2_LAYOUT_F32 == (c["kSlabBytes"], c["kMaxStages"],
+                                  c["kUnitCols"], c["kStageBytesF32"],
+                                  c["kStaticBytes"])
+    assert c["kStageBytesF32"] == 0
+
+
+def _b2_smem(rows, K, stages, layout=tim._B2_LAYOUT):
     """The kernel's count (w8a8_matmul.cu smem_bytes): slack, the code tile,
     the two rings, the staging tiles, the row scales."""
-    slab, _, _, stage_bytes, _ = tim._B2_LAYOUT
+    slab, _, _, stage_bytes, _ = layout
     return (1024 + rows * (-(-K // 128) * 128) + 2 * stages * slab
             + stage_bytes + 4 * rows)
 
@@ -297,6 +309,37 @@ def test_w8a8_matmul_plan_fits_every_admitted_row_length(K):
 def test_w8a8_matmul_plan_raises_for_shapes_it_cannot_take(args):
     with pytest.raises(ValueError):
         tim.w8a8_matmul_plan(*args)
+
+
+@pytest.mark.parametrize("M,K,N", [
+    (25216, 768, 768),   # the vision out-projection at 16 x 8, and B4's
+    (1155, 512, 512),    # the text tower: q / k / v / out-projection,
+    (1155, 512, 2048),   # fc1,
+    (1155, 2048, 512),   # fc2
+    (37, 768, 77), (45, 100, 33), (37, 1100, 77), (37, 4096, 77),
+    (19, 8000, 40), (19, 14272, 40),
+])
+def test_w8a8_matmul_f32_plan_at_checked_shapes(M, K, N):
+    """The fp32 form (esize 4) takes the bf16 plan's rows, units and grid;
+    its shared bytes are the kernel's count without the staging tiles (the
+    stages may grow into them) and fit a block, two where two share an
+    SM."""
+    p = tim.w8a8_matmul_plan(M, K, N, _H100_SMS, _H100_SMEM_OPTIN, esize=4)
+    b = tim.w8a8_matmul_plan(M, K, N, _H100_SMS, _H100_SMEM_OPTIN)
+    assert (p["rows"], p["units"], p["grid"], p["per_sm"]) == \
+        (b["rows"], b["units"], b["grid"], b["per_sm"])
+    assert b["stages"] <= p["stages"] <= tim._B2_LAYOUT_F32[1]
+    assert p["smem_bytes"] == _b2_smem(p["rows"], K, p["stages"],
+                                       tim._B2_LAYOUT_F32)
+    assert p["smem_bytes"] + tim._B2_LAYOUT_F32[4] <= _H100_SMEM_OPTIN
+    assert p["per_sm"] * (p["smem_bytes"] + tim._B2_LAYOUT_F32[4] + 1024) \
+        <= tim._SM90_SMEM_PER_SM
+
+
+def test_w8a8_matmul_plan_refuses_other_element_sizes():
+    with pytest.raises(ValueError, match="bytes"):
+        tim.w8a8_matmul_plan(37, 768, 77, _H100_SMS, _H100_SMEM_OPTIN,
+                             esize=1)
 
 
 # ---------------------------------------------------------------------------
@@ -592,3 +635,43 @@ def test_attention_f32_layout_check_before_first_launch():
     with pytest.raises(RuntimeError, match="layout"):
         tfa._check_layout("fake_f32", _FakeLayoutLib(fn, bad), fn, want)
     tfa._bwd_layout_checked.discard("fake_f32")
+
+
+# ---------------------------------------------------------------------------
+# the C entry points and their ctypes signatures (ops/_cuda._SIGNATURES)
+# ---------------------------------------------------------------------------
+
+def _with_includes(fname, seen):
+    """The source of csrc/<fname> and of every csrc header it includes."""
+    if fname in seen or not (_CSRC / fname).is_file():
+        return ""
+    seen.add(fname)
+    src = (_CSRC / fname).read_text()
+    return src + "".join(_with_includes(h, seen) for h in
+                         re.findall(r'#include "([\w.]+)"', src))
+
+
+def _c_entries(name):
+    """{entry: number of parameters} of the `extern "C"` functions that
+    csrc/<name>.cu and the headers it includes define."""
+    src = _with_includes(f"{name}.cu", set())
+    out = {}
+    for m in re.finditer(r'extern "C" [\w\s\*]*?\b(\w+)\(([^)]*)\)\s*\{', src):
+        params = [p for p in m.group(2).split(",") if p.strip()]
+        out[m.group(1)] = len(params)
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(_cuda._SIGNATURES))
+def test_every_c_entry_has_its_ctypes_signature(name):
+    """Every entry a kernel library exports is bound with argtypes of its
+    own parameter count: an entry without them would take its pointers as
+    32-bit ints on the card."""
+    entries = _c_entries(name)
+    sigs = _cuda._SIGNATURES[name]
+    for fn, n in entries.items():
+        if fn == "cuda_error_string" and fn not in sigs:
+            continue
+        assert fn in sigs, (name, fn)
+        assert len(sigs[fn][0]) == n, (name, fn, len(sigs[fn][0]), n)
+    assert set(sigs) <= set(entries) | {"cuda_error_string"}

@@ -13,6 +13,13 @@ attention sum taken in another order moves a value across a rounding tie of
 its code; such a flip moves an output by at most xs * s * 127 (one "flip
 unit"). Every output lies within 2 bf16 ulp + one flip unit of the JAX
 kernel's, and almost all within 2 bf16 ulp.
+
+The `_f32` cases feed both sides fp32 rows (the kernels then emit fp32, as
+the TPU kernels emit their input's dtype): B2 at the patch embed and the
+text fc2, B3 / B3a, B4 (fp32 scores) and B5 / B5a. Their tolerance is the
+fp32 one of tests/test_torch_int8_train.py `_check_fwd`: 2 "ulp" of 2^-21
+of the output's largest value (sums in another order, ~1e-7 relative)
+plus one flip unit, at most 5% of outputs beyond the 2 ulp.
 """
 
 import numpy as np
@@ -73,7 +80,9 @@ def _assert_close(out_t, out_j, unit, far_share=0.05):
     a, b = _np(out_t), _np(out_j)
     assert a.shape == b.shape and np.isfinite(a).all()
     err = np.abs(a - b)
-    two_ulp = 2 * _bf16_ulp(np.maximum(abs(a), abs(b)))
+    two_ulp = 2 * (2.0 ** -21 * np.abs(b).max()
+                   if out_t.dtype == torch.float32
+                   else _bf16_ulp(np.maximum(abs(a), abs(b))))
     assert np.all(err <= two_ulp + unit), (err - two_ulp - unit).max()
     assert (err > two_ulp).mean() <= far_share
 
@@ -92,16 +101,16 @@ def _qkv_inputs(rs, B, Lx, Le):
     return x, e, ws, bs, (g, rs.randn(_D) * 0.02)
 
 
-def _qkv_port(x, e, ws, bs, ln):
+def _qkv_port(x, e, ws, bs, ln, dtype=torch.bfloat16):
     return tim.w8a8_matmul3_cat(
-        _t(x, torch.bfloat16), _t(e, torch.bfloat16),
+        _t(x, dtype), _t(e, dtype),
         [{"qa": w[1][0], "scale": w[1][1]} for w in ws], [_t(v) for v in bs],
         (_t(ln[0]), _t(ln[1])))
 
 
-def _kv_scales(x, e, ln):
+def _kv_scales(x, e, ln, dtype=torch.bfloat16):
     kv = np.concatenate([x, e], axis=1)
-    return tim.quant_rows(tim.ln_f32(_t(kv, torch.bfloat16).float(),
+    return tim.quant_rows(tim.ln_f32(_t(kv, dtype).float(),
                                      _t(ln[0]), _t(ln[1])))[1]
 
 
@@ -298,3 +307,116 @@ def test_attention_out_int8_2src_full_width_matches_jax_kernel(
     a32 = tflash._onepass_attention_den_f32(tq, kc, vc, _HEADS,
                                             int8_qk=int8_qk)[0]
     _assert_close(out_t, out_j, _unit(tim.quant_rows(a32)[1], st))
+
+
+# ---------------------------------------------------------------------------
+# the fp32 forms: fp32 rows in, fp32 out, on both sides
+# ---------------------------------------------------------------------------
+
+def test_w8a8_matmul3_cat_full_width_matches_jax_kernel_f32(forced_kernels):
+    """B3 in fp32: (B 2, Lx 200, Le 16, K = N = 768), LN1, one shared quant,
+    three fp32 outputs."""
+    rs = np.random.RandomState(30)
+    x, e, ws, bs, ln = _qkv_inputs(rs, 2, 200, 16)
+    outs_j = jim.w8a8_matmul3_cat(
+        _j(x), _j(e), [w[0][0] for w in ws], [w[0][1] for w in ws],
+        bias3=[_j(v) for v in bs], ln=(_j(ln[0]), _j(ln[1])),
+        clips_per_block=2)
+    outs_t = _qkv_port(x, e, ws, bs, ln, torch.float32)
+    xs = _kv_scales(x, e, ln, torch.float32)
+    for o_t, o_j, w in zip(outs_t, outs_j, ws):
+        assert o_t.shape == (2, 216, _D) and o_t.dtype == torch.float32
+        assert o_j.dtype == jnp.float32
+        _assert_close(o_t, o_j, _unit(xs, w[1][1]))
+
+
+def test_w8a8_matmul3_serving_rows_match_jax_kernel3_f32(forced_kernels):
+    """B3a in fp32: the 197 + 17 rows of a frame row, twice, against the
+    one-source JAX kernel with LN1 (the q/k/v of an fp32 `--int8_frozen`
+    step)."""
+    rs = np.random.RandomState(31)
+    x, e, ws, bs, ln = _qkv_inputs(rs, 2, 197, 17)
+    kv = np.concatenate([x, e], axis=1).reshape(-1, _D)
+    outs_j = jim.w8a8_matmul3(
+        _j(kv), [w[0][0] for w in ws], [w[0][1] for w in ws],
+        bias3=[_j(v) for v in bs], ln=(_j(ln[0]), _j(ln[1])))
+    outs_t = tim.w8a8_matmul3(
+        _t(kv), [{"qa": w[1][0], "scale": w[1][1]} for w in ws],
+        [_t(v) for v in bs], (_t(ln[0]), _t(ln[1])))
+    xs = _kv_scales(x, e, ln, torch.float32).reshape(-1, 1)
+    for o_t, o_j, w in zip(outs_t, outs_j, ws):
+        assert o_t.dtype == torch.float32
+        _assert_close(o_t, o_j, _unit(xs, w[1][1]))
+
+
+def test_attention_out_int8_full_width_matches_jax_kernel_f32(
+        forced_kernels):
+    """B4 in fp32 (fp32 scores, the form that has an fp32 kernel): lq 197
+    over 214 keys at 12 heads, fp32 q/k/v and residual, fp32 out."""
+    rs = np.random.RandomState(32)
+    B, lq, Lk = 2, 197, 214
+    q, k, v = (rs.randn(B, Lk, _D) for _ in range(3))
+    (qj, sj), (qt, st) = _qweight(rs, _D, _D)
+    bias, res = rs.randn(_D) * 0.02, rs.randn(B, lq, _D)
+    tq, tk, tv = (_t(a) for a in (q, k, v))
+    out_j = jflash.flash_attention_out_int8(
+        _j(q), _j(k), _j(v), _HEADS,
+        {"kernel": {"qa": qj, "scale": sj}, "bias": _j(bias)}, _j(res),
+        lq=lq)
+    out_t = tflash.flash_attention_out_int8(
+        tq, tk, tv, _HEADS, {"kernel": {"qa": qt, "scale": st},
+                             "bias": _t(bias)}, _t(res), lq=lq)
+    assert out_t.shape == (B, lq, _D) and out_t.dtype == torch.float32
+    assert out_j.dtype == jnp.float32
+    a32 = tflash._onepass_attention_den_f32(tq[:, :lq], tk, tv, _HEADS)[0]
+    _assert_close(out_t, out_j, _unit(tim.quant_rows(a32)[1], st))
+
+
+def test_w8a8_mlp_res_full_width_matches_jax_kernel_f32(forced_kernels):
+    """B5 in fp32: 216 rows, 768 -> 3072 -> 768 with LN2 and the fp32
+    residual added to the fp32 value (nothing rounded to bf16)."""
+    rs = np.random.RandomState(33)
+    x, w1, w2, b1, b2, ln = _mlp_inputs(rs, 216)
+    (j1, j2), (t1, t2) = _mlp_leaves(w1, w2, b1, b2)
+    r = rs.randn(216, _D)
+    out_j = jim.w8a8_mlp_res(_j(x), j1, j2, (_j(ln[0]), _j(ln[1])), _j(r))
+    lnt = (_t(ln[0]), _t(ln[1]))
+    xt = _t(x)
+    out_t = tim.w8a8_mlp_res(xt, t1, t2, lnt, _t(r))
+    assert out_t.shape == (216, _D) and out_t.dtype == torch.float32
+    assert out_j.dtype == jnp.float32
+    _assert_close(out_t, out_j, _hidden_unit(xt, t1, t2, lnt))
+
+
+@pytest.mark.parametrize("with_ln", [True, False])
+def test_w8a8_mlp_full_width_matches_jax_kernel_f32(forced_kernels,
+                                                    with_ln):
+    """B5a in fp32, with the LayerNorm and without it."""
+    rs = np.random.RandomState(34)
+    x, w1, w2, b1, b2, ln = _mlp_inputs(rs, 216)
+    (j1, j2), (t1, t2) = _mlp_leaves(w1, w2, b1, b2)
+    out_j = jim.w8a8_mlp(_j(x), j1, j2,
+                         ln=(_j(ln[0]), _j(ln[1])) if with_ln else None)
+    xt = _t(x)
+    lnt = (_t(ln[0]), _t(ln[1])) if with_ln else None
+    out_t = tim.w8a8_mlp(xt, t1, t2, lnt)
+    assert out_t.shape == (216, _D) and out_t.dtype == torch.float32
+    _assert_close(out_t, out_j, _hidden_unit(xt, t1, t2, lnt))
+
+
+@pytest.mark.parametrize("M,K,N,pixels", [(2 * 196, _D, _D, True),
+                                          (77, 2048, 512, False)],
+                         ids=["patch_embed", "text_fc2"])
+def test_w8a8_matmul_matches_jax_kernel_f32(forced_kernels, M, K, N, pixels):
+    """B2 in fp32 at the patch embed (raw pixels, 768 x 768) and the text
+    tower's fc2 (K 2,048 > 1,024): no LayerNorm, so the codes are equal and
+    only the order of the epilogue's roundings may differ."""
+    rs = np.random.RandomState(35 + pixels)
+    x = rs.randint(0, 256, (M, K)) if pixels else rs.randn(M, K)
+    (qj, sj), (qt, st) = _qweight(rs, K, N)
+    b = rs.randn(N) * 0.1
+    out_j = jim.w8a8_matmul(_j(x), qj, sj, bias=_j(b))
+    out_t = tim.w8a8_matmul(_t(x), {"qa": qt, "scale": st}, _t(b))
+    assert out_t.shape == (M, N) and out_t.dtype == torch.float32
+    assert out_j.dtype == jnp.float32
+    _assert_close(out_t, out_j, 0.0, far_share=0.0)
