@@ -80,14 +80,27 @@ a run without --use_bf16 takes:
           (F32_W8A8_LIMITS; B2 bit for bit), one counted `_f32` launch each,
           timed beside their bf16 forms in turns and the int8 products
           alone through torch._int_mm; mlp_block(residual=None) on fp32
-          rows (B5a's path); fp16 and mixed rows raise TypeError, B11 and
-          B12 on fp32 name ROADMAP A12;
+          rows (B5a's path); fp16 and mixed rows raise TypeError;
+  serving-f32  the fp32 forms of B9 (csrc/w8_matmul_f32.cu) at the w8
+          evaluation's four projection shapes and ragged ones within
+          W8_F32_REL of sum |x| |w| (timed beside torch.matmul on the
+          dequantized fp32 weight and beside its bf16 form), of B11 (its
+          codes and exp2 arguments bit for bit against the plain version's,
+          on random rows and on rows at the codes' rounding ties
+          (int8_qk_tie_rows), the op within F32_W8A8_LIMITS, the loose
+          check against the fp32-score form, timed beside its bf16 form)
+          and of B12 (both score forms bit for bit equal to B4 / B11 fp32
+          on the concatenated keys, timed; its public entry on fp32 rows at
+          the serving shape: one launch); fp16 and mixed rows raise;
   f32-mutants  the f32_* mutants of utils/kernel_mutants.py (one of them
-          rounds every product to TF32) and its f32w8_* mutants (an fp32
+          rounds every product to TF32), its f32w8_* mutants (an fp32
           row rounded to bf16 before the quant, B5's residual read as bf16,
           B3a's LayerNorm mean over the first 1,024 columns, B4's attention
-          products in TF32), built and checked all at once: each must fail
-          f32-kernel or w8a8-f32;
+          products in TF32) and its f32b9_ / f32b11_ / f32b12_ mutants
+          (B9's products in TF32, B11's codes by the reciprocal or its
+          rescale in another order, B12's second source read from the
+          first), built and checked all at once: each must fail f32-kernel,
+          w8a8-f32 or serving-f32;
   train-f32  the train-slice step in fp32: the first step against the
           plain versions (F32_STEP_MAX_*), launches per step
           (F32_PER_STEP), the recompute mode's step against the saved
@@ -139,8 +152,12 @@ The training and evaluation programs:
           w8a8_matmul_plain), the same 12 steps in fp32 (no --use_bf16)
           with cli.evaluate on that run, plain and --quantize_eval w8a8
           (EVAL_W8A8_F32_LAUNCHES: the fp32 B3, B4 and B5 only; accuracy
-          within one clip of the plain evaluation), and cli.zero_shot.main
-          on a reference-format .pth written from a model's own weights;
+          within one clip of the plain evaluation), --quantize_eval w8 on
+          it (EVAL_W8_F32_LAUNCHES: 144 B9 fp32), w8a8 under the int8 QK^T
+          switch (24 B11 fp32) and under the fused-extras switch (24 B10 on
+          fp32 rows), each within one clip, and cli.zero_shot.main on a
+          reference-format .pth written from a model's own weights, in bf16
+          and with --quantize_eval w8 in fp32;
   gait-text  the gait-knowledge programs from 128 synthetic WHAM walks
           drawn from a seed: offline.gait_params (10 parameters, so 210
           combinations), offline.preprocess.data_preprocess on the card
@@ -210,6 +227,9 @@ The remaining serving modes:
           then with set_int8_qk as well: launches per forward, logits
           against the unfused forward and the plain-version forward, the
           gate, times beside the unfused forward; both switches reset;
+          then the fused extras on fp32 rows (the classifier run in fp32:
+          12 B10 launches, logits within W8A8_MAX_LOGIT_DIFF_INIT of the
+          unfused fp32 forward);
   w8-server    the w8 classifier behind the same server.
 
 Any failure raises and the script exits nonzero without printing a result.
@@ -241,7 +261,8 @@ KERNEL_SYMBOLS = ("packed_attention_kernel", "w8a8_matmul_kernel",
                   "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel",
                   "streaming_attention_fwd_kernel",
                   "w8_matmul_kernel", "fused_extras_kernel",
-                  "packed_bwd_kernel", "mega_layer_kernel")
+                  "packed_bwd_kernel", "mega_layer_kernel",
+                  "w8_matmul_f32_kernel", "attention_f32_fwd_kernel")
 KERNEL_SOURCE = "gava_clip_tpu_torch/csrc/packed_attention.cu"
 KERNEL_REPLACES = "gava_clip_tpu/ops/flash_attention.py:181"
 # every kernel of the two serving paths and of the training step:
@@ -321,6 +342,18 @@ KERNELS = {
     "attention_out_int8_f32": (
         "w8a8_matmul", "gava_clip_tpu_torch/csrc/w8a8_matmul.cu",
         "gava_clip_tpu/ops/flash_attention.py:661"),
+    # the float32 forms of B9 and of B11 / B12 (attention_f32.cu's int8-score
+    # and two-source forward into a scratch, then B2's fp32 entry with the
+    # residual, as B4's)
+    "int8_matmul_f32": ("w8_matmul_f32",
+                        "gava_clip_tpu_torch/csrc/w8_matmul_f32.cu",
+                        "gava_clip_tpu/ops/int8_matmul.py:54"),
+    "attention_out_int8_qk8_f32": (
+        "attention_f32", "gava_clip_tpu_torch/csrc/attention_f32.cu",
+        "gava_clip_tpu/ops/flash_attention.py:117"),
+    "attention_out_int8_2src_f32": (
+        "attention_f32", "gava_clip_tpu_torch/csrc/attention_f32.cu",
+        "gava_clip_tpu/ops/flash_attention.py:775"),
 }
 # (B, Lq, Lk, heads, head_dim); the first is the serving shape: 16 clips x
 # 8 frames, 197 query tokens, 197 + 8 global + 1 summary + 8 local keys
@@ -1912,12 +1945,14 @@ def phase_f32_kernels(state):
         del q, k, v, do, out, lse, ref, lse_ref, grads
     # fp32 q/k/v into a kernel with a bf16 form only (B4's int8 QK^T form,
     # B11) raises, naming its ROADMAP item; mixed and half inputs raise in
-    # every kernel (B4 itself takes fp32: phase_w8a8_f32)
+    # every kernel (B4, B11 and B12 take fp32 too: phase_w8a8_f32,
+    # phase_serving_f32)
     q = rand(2, 13, 128)
     refusals = []
     for what, call in (
-            ("B11", lambda: fa.attention_out_int8_cuda(
-                q, q, q, 2, {"kernel": {}, "bias": None}, q, None, True)),
+            ("fp16 B11", lambda: fa.attention_out_int8_cuda(
+                q.half(), q.half(), q.half(), 2, {"kernel": {}, "bias": None},
+                q.half(), None, True)),
             ("mixed", lambda: fa.packed_attention_cuda(q, q.bfloat16(), q, 2)),
             ("fp16", lambda: fa.streaming_attention_cuda(
                 q.half(), q.half(), q.half(), 2, True))):
@@ -1925,10 +1960,10 @@ def phase_f32_kernels(state):
             call()
             refusals.append(f"{what}: no error")
         except TypeError as e:
-            if what == "B11" and "ROADMAP A12" not in str(e):
+            if "all bfloat16 or all float32" not in str(e):
                 refusals.append(f"{what}: {e}")
-    log(f"[f32-kernel] fp32 into B11 (ROADMAP A12), mixed bf16 / fp32 and "
-        f"fp16 q/k/v raise TypeError: {not refusals} {refusals}")
+    log(f"[f32-kernel] fp16 into B11, mixed bf16 / fp32 and fp16 q/k/v "
+        f"raise TypeError: {not refusals} {refusals}")
     if refusals:
         state.setdefault("f32_failures", []).append("refusals")
     if state.get("f32_failures"):
@@ -1939,10 +1974,10 @@ def phase_f32_kernels(state):
 def phase_f32_mutants(state):
     """The fp32 mutants of utils/kernel_mutants.py, all at once: each must
     fail its phase (phase_f32_kernels for the attention kernels' f32_*,
-    phase_w8a8_f32 for the w8a8 kernels' f32w8_*)."""
+    phase_w8a8_f32 for the w8a8 kernels' f32w8_*, phase_serving_f32 for
+    B9's, B11's and B12's f32b9_*, f32b11_*, f32b12_*)."""
     from gava_clip_tpu_torch.utils import kernel_mutants
-    names = [n for n in kernel_mutants.MUTANTS
-             if n.startswith(("f32_", "f32w8_"))]
+    names = [n for n in kernel_mutants.MUTANTS if n.startswith("f32")]
     if kernel_mutants.main(names, jobs=len(names)):
         raise AssertionError("an fp32 mutant passed the checks")
 
@@ -1978,6 +2013,13 @@ def phase_f32_mutants(state):
 #     torch, ~1e-7 of the scale, F32_REL) move most fp32 attention values
 #     by ulps, so every row's xs and a code a tie: far share 5e-2, ceiling
 #     4 units (W8A8_LIMITS' for B4).
+#   * B11 (B4's int8-score form) and B12 (B4 or B11 over two sources):
+#     their codes and exp2 arguments are the plain version's bit for bit
+#     (phase_serving_f32 holds them), and B12 is the one-source form's bits;
+#     from the exp2 on they are B4 in fp32, so B4's limits. In bf16 the
+#     INT8_QK_LOOSE_* limits were reasoned from a flipped code of q or k;
+#     here no score code flips, only the attention row's codes at their
+#     ties, as in B4.
 # With a residual (B4, B5) the last add rounds at an ulp of the larger of
 # its two terms, and where they cancel the output is far smaller than
 # either: an ulp's move of xs then shows as many ulp of the output. The
@@ -1992,6 +2034,8 @@ F32_W8A8_LIMITS = {
     "w8a8_mlp_res_f32": (1.0, 5e-2, 4.0),
     "w8a8_mlp_f32": (1.0, 5e-2, 4.0),
     "attention_out_int8_f32": (1.0, 5e-2, 4.0),
+    "attention_out_int8_qk8_f32": (1.0, 5e-2, 4.0),
+    "attention_out_int8_2src_f32": (1.0, 5e-2, 4.0),
 }
 # (M, K, N): B2 at the vision out-projection of the 16 x 8 step (the first:
 # timed), the text tower's three shapes, the patch embed of raw pixels,
@@ -2250,36 +2294,383 @@ def phase_w8a8_f32(state):
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         state.setdefault("w8a8_f32_failures", []).append("mlp_block")
-    # fp16 and mixed rows raise TypeError; B4's int8 QK^T form (B11) and
-    # the two-source entry (B12) refuse fp32, naming ROADMAP A12
+    # fp16 and mixed rows raise TypeError (B11 and B12 take fp32:
+    # phase_serving_f32), no launch counted
     x16 = randn(8, 64).half()
     q = randn(2, 13, 128)
     leaf = _qleaf(gen, 128, 128)
     op = {"kernel": leaf, "bias": randn(128)}
     refusals = []
-    for what, call, word in (
-            ("fp16 B2", lambda: im.w8a8_matmul_cuda(x16, _qleaf(gen, 64, 8)),
-             "all bfloat16 or all float32"),
+    _reset_launch_counts()
+    for what, call in (
+            ("fp16 B2", lambda: im.w8a8_matmul_cuda(x16, _qleaf(gen, 64, 8))),
             ("mixed B5", lambda: im.w8a8_mlp_res_cuda(
-                q[0], op, op, _ln_params(gen, 128), q[0].to(bf)),
-             "all bfloat16 or all float32"),
-            ("fp32 B11", lambda: fa.attention_out_int8_cuda(
-                q, q, q, 2, op, q, None, True), "ROADMAP A12"),
-            ("fp32 B12", lambda: fa.attention_out_int8_2src_cuda(
-                q, q, q, q, q, 2, op, q), "ROADMAP A12")):
+                q[0], op, op, _ln_params(gen, 128), q[0].to(bf))),
+            ("mixed B4", lambda: fa.attention_out_int8_cuda(
+                q, q.to(bf), q, 2, op, q, None)),
+            ("fp16 B4", lambda: fa.attention_out_int8_cuda(
+                q.half(), q.half(), q.half(), 2, op, q.half(), None))):
         try:
             call()
             refusals.append(f"{what}: no error")
         except TypeError as e:
-            if word not in str(e):
+            if "all bfloat16 or all float32" not in str(e):
                 refusals.append(f"{what}: {e}")
-    log(f"[w8a8-f32] fp16 and mixed rows raise TypeError, B11 and B12 on "
-        f"fp32 name ROADMAP A12: {not refusals} {refusals}")
+    launched = {k: v for k, v in _launch_counts().items() if v}
+    if launched:
+        refusals.append(f"launches counted: {launched}")
+    log(f"[w8a8-f32] fp16 and mixed rows raise, no launch counted: "
+        f"{not refusals} {refusals}")
     if refusals:
         state.setdefault("w8a8_f32_failures", []).append("refusals")
     if state.get("w8a8_f32_failures"):
         raise AssertionError(f"fp32 w8a8 kernels disagree with their plain "
                              f"versions: {state['w8a8_f32_failures']}")
+
+
+# ---------------------------------------------------------------------------
+# the fp32 forms of the serving kernels B9, B11 and B12, which an fp32
+# `--quantize_eval w8` run and the int8 QK^T switch on an fp32 run take
+# ---------------------------------------------------------------------------
+
+# (B, Lq, Lk, heads, tie rows) of the check of B11's codes and exp2
+# arguments (int8_qk_args_cuda, bit for bit against _int8_qk_exp2_arg):
+# the w8a8 evaluation's kv rows, and rows whose values sit on the codes'
+# rounding ties (int8_qk_tie_rows), full width and ragged
+F32_B11_ARGS_SHAPES = ((128, 214, 214, 12, False), (2, 197, 214, 12, True),
+                       (3, 13, 21, 2, True))
+
+
+def _serving_f32_b9(state, gen, timed, only):
+    """B9 in fp32 at the w8 evaluation's four projection shapes and the
+    ragged ones within W8_F32_REL, one counted launch each; at the four
+    serving shapes kernel and plain version in turns, the kernel beside
+    torch.matmul on the dequantized fp32 weight (TF32 off) and beside its
+    bf16 form on the same values, medians of 5 rounds in turns."""
+    import torch
+    from gava_clip_tpu_torch.ops import int8_matmul as im
+    name = "int8_matmul_f32"
+    if only not in (None, name):
+        return
+    for M, K, N, what in W8_MATMUL_SHAPES:
+        x = torch.randn(M, K, generator=gen, device="cuda")
+        leaf = _w8_leaf(gen, K, N)
+        _reset_launch_counts()
+        out = im.int8_matmul_cuda(x, leaf)
+        n = _launch_counts()
+        ref = im.int8_matmul_plain(x, leaf["q"], leaf["scale"])
+        w = im.dequant_weight(leaf["q"], leaf["scale"], torch.float32)
+        err = (out - ref).abs()
+        rel = (err / (x.abs() @ w.abs()).clamp_min(1e-30)).max().item()
+        ok = (out.dtype == torch.float32 and out.shape == ref.shape
+              and bool(torch.isfinite(out).all()) and rel <= W8_F32_REL
+              and n[name] == 1 and n["int8_matmul"] == 0)
+        log(f"[serving-f32] {name} M={M} K={K} N={N} ({what}): launches "
+            f"{n[name]} fp32 / {n['int8_matmul']} bf16 (expect 1 / 0); "
+            f"max_abs_err {err.max().item():.3e}, max |err| / (|x| @ |w|) "
+            f"{rel / W8_F32_REL:.4f} x 2^-19 (limit 1) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            state.setdefault("serving_f32_failures", []).append(
+                f"{name} {what} M={M}")
+        max_err = err.max().item()
+        del err
+        if what == "ragged" or not timed:
+            continue
+        kernel = lambda: im.int8_matmul_cuda(x, leaf)      # noqa: E731
+        ms, plain_ms, t = _time_pair(
+            kernel, lambda: im.int8_matmul_plain(x, leaf["q"], leaf["scale"]),
+            iters=5)
+        lib_k, lib_ms, lib_r, lib_lo, lib_hi = _ratio_turns(
+            kernel, lambda: torch.matmul(x, w), turns=5, iters=5)
+        xb = x.to(torch.bfloat16)
+        b_k, b_ms, b_r, b_lo, b_hi = _ratio_turns(
+            kernel, lambda: im.int8_matmul_cuda(xb, leaf), turns=5, iters=5)
+        bound = _bound(4 * M * K + K * N + 4 * N + 4 * M * N,
+                       flops_fp32=2 * M * K * N)
+        log(f"[serving-f32] {name} {what}: kernel {t['kernel']} ms "
+            f"({2e-9 * M * K * N / ms:.1f} TFLOP/s), plain {t['plain']} ms "
+            f"(order plain, kernel, kernel, plain); bound {bound[0]:.4f} ms "
+            f"({bound[1]}); vs torch.matmul on the dequantized fp32 weight, "
+            f"median of 5 rounds in turns: {lib_k:.4f} ms vs {lib_ms:.4f} "
+            f"ms, ratio {lib_r:.3f} (rounds {lib_lo:.3f}-{lib_hi:.3f}); vs "
+            f"its bf16 form on the same values in bf16: {b_k:.4f} ms vs "
+            f"{b_ms:.4f} ms, ratio {b_r:.3f} (rounds {b_lo:.3f}-{b_hi:.3f})"
+            f" ({state['smi']})")
+        if what == "fc1":
+            _record(state, name, max_err, ms, plain_ms, bound, lib_ms)
+            state["kstats"][name]["yardsticks"] = {
+                "bf16_ms": b_ms, "kernel_ms_in_turns": b_k}
+
+
+def _serving_f32_b11(state, gen, timed, only):
+    """B11 in fp32: its codes and exp2 arguments bit for bit against the
+    plain version's (random rows and rows on the codes' ties), the whole
+    op against its plain version at F32_B4_SHAPES within
+    F32_W8A8_LIMITS, the loose check against the fp32-score form, timed
+    at the serving shape beside its bf16 form."""
+    import torch
+    from gava_clip_tpu_torch.ops import flash_attention as fa
+    from gava_clip_tpu_torch.ops import int8_matmul as im
+    name = "attention_out_int8_qk8_f32"
+    if only not in (None, name):
+        return
+    rs = np.random.RandomState(19)
+    for B, Lq, Lk, H, ties in F32_B11_ARGS_SHAPES:
+        D = H * 64
+        if ties:
+            q, k = (torch.from_numpy(int8_qk_tie_rows(rs, B * L * H).reshape(
+                B, L, D)).cuda() for L in (Lq, Lk))
+        else:
+            q, k = (torch.randn(B, L, D, generator=gen, device="cuda")
+                    for L in (Lq, Lk))
+        _reset_launch_counts()
+        args = fa.int8_qk_args_cuda(q, k, H)
+        want = fa._int8_qk_exp2_arg(fa._heads(q, H), fa._heads(k, H),
+                                    64 ** -0.5 * fa._LOG2E)
+        torch.cuda.synchronize()
+        differ = (args != want).sum().item()
+        launched = {k_: v for k_, v in _launch_counts().items() if v}
+        ok = differ == 0 and not launched
+        rows = "rows on rounding ties" if ties else "random rows"
+        log(f"[serving-f32] {name} codes and exp2 arguments B={B} Lq={Lq} "
+            f"Lk={Lk} H={H} ({rows}): equal to the plain version's bit for "
+            f"bit ({differ} of "
+            f"{args.numel()} differ), no launch counted ({launched}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            state.setdefault("serving_f32_failures", []).append(
+                f"{name} arguments B={B}")
+    del q, k, args, want
+    for i, (B, lq, Lq, Lk, H) in enumerate(F32_B4_SHAPES):
+        D = H * 64
+        q, k, v = (torch.randn(B, L, D, generator=gen, device="cuda")
+                   for L in (Lq, Lk, Lk))
+        op = {"kernel": _qleaf(gen, D, D),
+              "bias": torch.randn(D, generator=gen, device="cuda") * 0.02}
+        r = torch.randn(B, lq, D, generator=gen, device="cuda")
+        xs = im.quant_rows(fa._onepass_attention_den_f32(
+            q[:, :lq], k, v, H, int8_qk=True)[0])[1]
+        kernel = lambda: fa.attention_out_int8_cuda(       # noqa: E731
+            q, k, v, H, op, r, lq, True)
+        plain = lambda: fa.attention_out_int8_plain(       # noqa: E731
+            q, k, v, H, op, r, lq, True)
+        _reset_launch_counts()
+        out = kernel()
+        torch.cuda.synchronize()
+        n = _launch_counts()
+        ok, err, text = _check_w8a8_f32(name, out, plain(),
+                                        _flip_unit(xs, op["kernel"]["scale"]),
+                                        r)
+        ok = ok and n[name] == 1 and n["attention_out_int8_f32"] == 0 and \
+            n["attention_out_int8_qk8"] == 0
+        label = f"B={B} lq={lq} Lq={Lq} Lk={Lk} H={H}"
+        log(f"[serving-f32] {name} {label}: launches {n[name]} (expect 1); "
+            f"{text} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            state.setdefault("serving_f32_failures", []).append(
+                f"{name} {label}")
+        if i or not timed:
+            continue
+        ms, plain_ms, t = _time_pair(kernel, plain, iters=5)
+        qb, kb, vb, rb = (a.to(torch.bfloat16) for a in (q, k, v, r))
+        b_k, b_ms, b_r, b_lo, b_hi = _ratio_turns(
+            kernel, lambda: fa.attention_out_int8_cuda(qb, kb, vb, H, op, rb,
+                                                       lq, True),
+            turns=5, iters=5)
+        f_k, f_ms, f_r, f_lo, f_hi = _ratio_turns(
+            kernel, lambda: fa.attention_out_int8_cuda(q, k, v, H, op, r, lq),
+            turns=5, iters=5)
+        # the lq query rows, the residual and the output, k and v, the
+        # weight; the score product in int8, the AV product as fp32 FMA,
+        # the out-projection in int8
+        bound = _bound(12 * B * lq * D + 8 * B * Lk * D + D * D + 8 * D,
+                       ops_int8=2 * B * lq * Lk * D + 2 * B * lq * D * D,
+                       flops_fp32=2 * B * lq * Lk * D)
+        log(f"[serving-f32] {name} {label}: kernel {t['kernel']} ms, plain "
+            f"{t['plain']} ms (order plain, kernel, kernel, plain); bound "
+            f"{bound[0]:.4f} ms ({bound[1]}); vs its bf16 form on the same "
+            f"values in bf16, median of 5 rounds in turns: {b_k:.4f} ms vs "
+            f"{b_ms:.4f} ms, ratio {b_r:.3f} (rounds {b_lo:.3f}-{b_hi:.3f});"
+            f" vs the fp32-score form (B4 fp32): {f_k:.4f} ms vs {f_ms:.4f} "
+            f"ms, ratio {f_r:.3f} (rounds {f_lo:.3f}-{f_hi:.3f}) "
+            f"({state['smi']})")
+        _record(state, name, err, ms, plain_ms, bound, None)
+        state["kstats"][name]["yardsticks"] = {
+            "bf16_ms": b_ms, "fp32_scores_ms": f_ms, "kernel_ms_in_turns": b_k}
+    # the loose check against the fp32-score form (INT8_QK_LOOSE_*, at the
+    # JAX test's statistics)
+    B, Lq, Lk, H = 3, 30, 38, 4
+    D = H * 64
+    q, k = (torch.randn(B, L, D, generator=gen, device="cuda") * 0.3
+            for L in (Lq, Lk))
+    v, r = (torch.randn(B, L, D, generator=gen, device="cuda") * 0.1
+            for L in (Lk, Lq))
+    op = {"kernel": _qleaf(gen, D, D),
+          "bias": torch.randn(D, generator=gen, device="cuda") * 0.01}
+    got = fa.attention_out_int8_cuda(q, k, v, H, op, r, None, True)
+    want = fa.attention_out_int8_cuda(q, k, v, H, op, r, None, False)
+    diff = (got - want).abs()
+    rel_l2 = (diff.norm() / (want - r).norm()).item()
+    rel_max = (diff.max() / want.abs().max().clamp_min(1.0)).item()
+    ok = rel_l2 <= INT8_QK_LOOSE_L2 and rel_max <= INT8_QK_LOOSE_MAX and \
+        diff.max().item() > 0
+    log(f"[serving-f32] {name} vs the fp32-score form (B={B} Lq={Lq} "
+        f"Lk={Lk} H={H}, q, k x 0.3): relative L2 of the diff against the "
+        f"attention's contribution {rel_l2:.3e} (limit {INT8_QK_LOOSE_L2:g}),"
+        f" max |diff| / max |output| {rel_max:.3e} (limit "
+        f"{INT8_QK_LOOSE_MAX:g}); the switch changes the result: "
+        f"{diff.max().item() > 0} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        state.setdefault("serving_f32_failures", []).append(
+            f"{name} loose check")
+
+
+def _serving_f32_b12(state, gen, timed, only):
+    """B12 in fp32, both score forms, at W8A8_2SRC_SHAPES: bit for bit
+    equal to the one-source fp32 form (B4 / B11) on the concatenated keys
+    and within F32_W8A8_LIMITS of its plain version; timed at the serving
+    shape; then its path, the public entry flash_attention_out_int8_2src
+    on fp32 rows at the serving shape, one counted launch."""
+    import torch
+    from gava_clip_tpu_torch.ops import flash_attention as fa
+    from gava_clip_tpu_torch.ops import int8_matmul as im
+    name = "attention_out_int8_2src_f32"
+    if only not in (None, name):
+        return
+    for i, (B, L1, L2, H) in enumerate(W8A8_2SRC_SHAPES):
+        D = H * 64
+        q, k1, v1, r = (torch.randn(B, L1, D, generator=gen, device="cuda")
+                        for _ in range(4))
+        k2, v2 = (torch.randn(B, L2, D, generator=gen, device="cuda")
+                  for _ in range(2))
+        kc, vc = torch.cat([k1, k2], dim=1), torch.cat([v1, v2], dim=1)
+        op = {"kernel": _qleaf(gen, D, D),
+              "bias": torch.randn(D, generator=gen, device="cuda") * 0.02}
+        args = (q, k1, v1, k2, v2, H, op, r)
+        label = f"B={B} L1={L1} L2={L2} H={H}"
+        for qk8 in (False, True):
+            form = "int8 QK^T" if qk8 else "fp32 scores"
+            _reset_launch_counts()
+            two = fa.attention_out_int8_2src_cuda(*args, qk8)
+            torch.cuda.synchronize()
+            n = _launch_counts()
+            one = fa.attention_out_int8_cuda(q, kc, vc, H, op, r, None, qk8)
+            xs = im.quant_rows(fa._onepass_attention_den_f32(
+                q, kc, vc, H, int8_qk=qk8)[0])[1]
+            ok, err, text = _check_w8a8_f32(
+                name, two, fa.attention_out_int8_2src_plain(*args, qk8),
+                _flip_unit(xs, op["kernel"]["scale"]), r)
+            same = torch.equal(two, one)
+            ok = ok and same and n[name] == 1 and \
+                n["attention_out_int8_2src"] == 0
+            log(f"[serving-f32] {name} {label}, {form}: launches {n[name]} "
+                f"(expect 1); equal to the one-source fp32 form on [k1; k2] "
+                f"bit for bit: {same}; {text} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                state.setdefault("serving_f32_failures", []).append(
+                    f"{name} {label} {form}")
+            if qk8 or i or not timed:
+                continue
+            kernel = lambda: fa.attention_out_int8_2src_cuda(*args)  # noqa
+            ms, plain_ms, t = _time_pair(
+                kernel, lambda: fa.attention_out_int8_2src_plain(*args),
+                iters=5)
+            o_k, o_ms, o_r, o_lo, o_hi = _ratio_turns(
+                kernel, lambda: fa.attention_out_int8_cuda(q, kc, vc, H, op,
+                                                           r),
+                turns=5, iters=5)
+            bound = _bound(12 * B * L1 * D + 8 * B * (L1 + L2) * D + D * D
+                           + 8 * D, ops_int8=2 * B * L1 * D * D,
+                           flops_fp32=4 * B * L1 * (L1 + L2) * D)
+            log(f"[serving-f32] {name} {label}: kernel {t['kernel']} ms, "
+                f"plain {t['plain']} ms (order plain, kernel, kernel, plain);"
+                f" bound {bound[0]:.4f} ms ({bound[1]}); vs the one-source "
+                f"fp32 form on keys concatenated beforehand, median of 5 "
+                f"rounds in turns: {o_k:.4f} ms vs {o_ms:.4f} ms, ratio "
+                f"{o_r:.3f} (rounds {o_lo:.3f}-{o_hi:.3f}) ({state['smi']})")
+            _record(state, name, err, ms, plain_ms, bound, None)
+            state["kstats"][name]["yardsticks"] = {"one_source_ms": o_ms}
+    # its path: the public entry point on fp32 rows at the serving shape
+    q, k1, v1, r = (torch.randn(128, 197, 768, generator=gen, device="cuda")
+                    for _ in range(4))
+    k2, v2 = (torch.randn(128, 17, 768, generator=gen, device="cuda")
+              for _ in range(2))
+    op = {"kernel": _qleaf(gen, 768, 768),
+          "bias": torch.randn(768, generator=gen, device="cuda") * 0.02}
+    _reset_launch_counts()
+    with torch.inference_mode():
+        y = fa.flash_attention_out_int8_2src(q, k1, v1, k2, v2, 12, op, r)
+    torch.cuda.synchronize()
+    n = _launch_counts()
+    state.setdefault("launches_by_kernel", {})[name] = n[name]
+    ok = (n[name] == 1 and n["attention_out_int8_2src"] == 0
+          and y.dtype == torch.float32 and y.shape == r.shape
+          and bool(torch.isfinite(y).all()))
+    log(f"[serving-f32] {name} path: flash_attention_out_int8_2src on fp32 "
+        f"q / k1 / v1 (128, 197, 768), k2 / v2 (128, 17, 768): launches "
+        f"{n[name]} fp32 / {n['attention_out_int8_2src']} bf16 (expect 1 / "
+        f"0) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        state.setdefault("serving_f32_failures", []).append(f"{name} path")
+
+
+def phase_serving_f32(state):
+    """The fp32 forms of B9 (csrc/w8_matmul_f32.cu), B11 and B12
+    (attention_f32.cu's int8-score and two-source forward, then B2's fp32
+    entry) against their plain versions on the card; fp16 and mixed rows
+    raise TypeError with no launch counted. With state['checks_only'] (the
+    mutants' runs) nothing is timed, and with state['only'] only that
+    kernel is checked, its libraries built at once."""
+    import torch
+    from gava_clip_tpu_torch.ops import _cuda
+    from gava_clip_tpu_torch.ops import flash_attention as fa
+    from gava_clip_tpu_torch.ops import int8_matmul as im
+    torch.backends.cuda.matmul.allow_tf32 = False
+    only = state.get("only")
+    timed = not state.get("checks_only")
+    state.setdefault("kstats", {})
+    _cuda.load_libraries(["w8_matmul_f32"] if only == "int8_matmul_f32"
+                         else ["attention_f32", "w8a8_matmul"] if only
+                         else ["w8_matmul_f32", "w8_matmul", "attention_f32",
+                               "w8a8_matmul", "attention_out_int8"])
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    _serving_f32_b9(state, gen, timed, only)
+    _serving_f32_b11(state, gen, timed, only)
+    _serving_f32_b12(state, gen, timed, only)
+    if not only:
+        x = torch.randn(2, 13, 128, generator=gen, device="cuda")
+        op = {"kernel": _qleaf(gen, 128, 128),
+              "bias": torch.randn(128, generator=gen, device="cuda")}
+        leaf = _w8_leaf(gen, 128, 64)
+        refusals = []
+        _reset_launch_counts()
+        for what, call in (
+                ("fp16 B9", lambda: im.int8_matmul_cuda(x[0].half(), leaf)),
+                ("fp16 B11", lambda: fa.attention_out_int8_cuda(
+                    x.half(), x.half(), x.half(), 2, op, x.half(), None,
+                    True)),
+                ("mixed B11", lambda: fa.attention_out_int8_cuda(
+                    x, x, x.to(torch.bfloat16), 2, op, x, None, True)),
+                ("mixed B12", lambda: fa.attention_out_int8_2src_cuda(
+                    x, x, x, x.to(torch.bfloat16), x, 2, op, x, True))):
+            try:
+                call()
+                refusals.append(f"{what}: no error")
+            except TypeError as e:
+                if "all bfloat16 or all float32" not in str(e):
+                    refusals.append(f"{what}: {e}")
+        launched = {k: v for k, v in _launch_counts().items() if v}
+        if launched:
+            refusals.append(f"launches counted: {launched}")
+        log(f"[serving-f32] fp16 and mixed rows into B9, B11 and B12 raise "
+            f"TypeError, no launch counted: {not refusals} {refusals}")
+        if refusals:
+            state.setdefault("serving_f32_failures", []).append("refusals")
+    if state.get("serving_f32_failures"):
+        raise AssertionError(f"fp32 serving kernels disagree with their "
+                             f"plain versions: "
+                             f"{state['serving_f32_failures']}")
 
 
 # launches of the attention kernels in one training step of the flagship
@@ -2529,6 +2920,17 @@ def phase_train_long(state):
 # sum of the terms' magnitudes. A kernel that rounds the scale to bf16
 # before the product moves most weights by a bf16 ulp and so most outputs.
 W8_LIMITS = (5e-3, 1e-3, 2e-5)
+# B9 in fp32 (csrc/w8_matmul_f32.cu) against its plain version, x @ the
+# dequantized weight in fp32 (torch.matmul with TF32 off): both sum the
+# same K exact fp32 products in fp32, in other orders. With S = |x| @ |w|
+# for each output, a sum of K products errs by at most K * 2^-24 * S and,
+# its roundings a random walk, by about 2^-24 * S (the CPU emulation of the
+# kernel: at most 4.3 * 2^-24 * S against the float64 product). A product
+# whose operands are rounded to TF32 (10-bit mantissa, 2^-11 each) moves
+# a sum by ~2^-10 * |sum x w| ~ 2^-10 * S / sqrt(K), >= 2^-16 * S at K <=
+# 3,072. Every output within 2^-19 * S: 2^5 above the fp32 walk, 2^3
+# below TF32, which the f32b9_products_tf32 mutant must fail.
+W8_F32_REL = 2.0 ** -19
 # (M, K, N): the projections of one block at batch 16 (q and out; k and v
 # over the 214 kv rows; fc1; fc2), then ragged ones (K no multiple of 8:
 # x copied zero-padded; K a multiple of 8 but not of 16, ragged M and odd
@@ -2575,6 +2977,34 @@ EXTRAS_TILED_SHAPES = ((20, 8, 1024, 16, 8, 20, "bf16", "fp32", 1.0, 1),
 # 6.0e-3..6.7e-3 and 0.8e-2..1.1e-2 over five seeds.
 INT8_QK_LOOSE_L2 = 2e-2
 INT8_QK_LOOSE_MAX = 3e-2
+
+
+def int8_qk_tie_rows(rs, n, width=64):
+    """(n, width) float32 head slices whose values sit on the rounding ties
+    of the int8 QK^T codes: each row's absmax qs is drawn where fp32(127 /
+    qs) differs from fp32(fp32(1 / qs) * 127), and each other value is
+    fp32((m + 0.5) / fp32(127 / qs)) wherever its product with the true
+    quotient lands exactly on m + 0.5 (else a random value below qs). The
+    true division gives the tie, which rounds to even; a code made with the
+    reciprocal moves off it by an ulp and rounds the other way for about
+    half of them."""
+    f32 = np.float32
+    out = np.empty((n, width), np.float32)
+    for i in range(n):
+        while True:
+            qs = f32(rs.uniform(1.0, 4.0))
+            r = f32(127.0) / qs
+            if r != (f32(1.0) / qs) * f32(127.0):
+                break
+        m = rs.randint(0, 127, width)
+        x = ((m + 0.5) / np.float64(r)).astype(np.float32)
+        tie = (x * r == (m + 0.5).astype(np.float32)) & (x < qs)
+        row = np.where(tie, x, rs.uniform(0.0, 1.0, width).astype(np.float32)
+                       * qs)
+        row = row * np.where(rs.rand(width) < 0.5, f32(-1.0), f32(1.0))
+        row[rs.randint(width)] = qs if rs.rand() < 0.5 else -qs
+        out[i] = row
+    return out
 
 
 def _w8_leaf(gen, K, N):
@@ -3351,6 +3781,48 @@ def phase_w8a8_variants(state):
     # both switches off again: the unfused forward, bit for bit
     if not torch.equal(_w8a8_logits(clf, x, "kernel"), base):
         raise AssertionError("the switches did not reset")
+    _fused_extras_f32_forward(state, init_clf, x)
+
+
+def _fused_extras_f32_forward(state, clf, x):
+    """The fused extras (B10) on fp32 rows: the w8a8 + patch-major
+    classifier on the plain init run in fp32 (the dtype of an fp32 run's
+    evaluation), its forward with the switch on against the same forward
+    with it off, within the plain-init limit that the bf16 variants keep
+    (B10 replaces the stock extras ops by fp32 arithmetic in another order:
+    in fp32 neither side rounds to bf16); 12 B10 launches a forward, beside
+    the fp32 forms of B3, B4 and B5."""
+    import torch
+    from gava_clip_tpu_torch.ops import extras_kernel as ek
+
+    def logits():
+        with torch.inference_mode():
+            return clf.net(x.to(torch.float32), compute_dtype=torch.float32,
+                           attn_impl="flash", input_format="patches")["logits"]
+
+    base = logits()
+    ek.set_fused_extras(True)
+    try:
+        _reset_launch_counts()
+        fused = logits()
+        torch.cuda.synchronize()
+        n = _launch_counts()
+    finally:
+        ek.set_fused_extras(False)
+    want = {"fused_extras": 12, "w8a8_matmul3_cat_f32": 12,
+            "attention_out_int8_f32": 12, "w8a8_mlp_res_f32": 12,
+            "w8a8_matmul3_cat": 0, "attention_out_int8": 0}
+    d = (fused - base).abs().max().item()
+    ok = (fused.dtype == torch.float32 and bool(torch.isfinite(fused).all())
+          and d <= W8A8_MAX_LOGIT_DIFF_INIT
+          and all(n[k] == v for k, v in want.items()))
+    log(f"[w8a8-variants] fused extras on fp32 rows (plain init, batch 16): "
+        f"launches { {k: n[k] for k in want} } (expect {want}); max |logit "
+        f"diff| against the unfused fp32 forward {d:.3e} (limit "
+        f"{W8A8_MAX_LOGIT_DIFF_INIT}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the fused extras on fp32 rows failed their "
+                             "checks")
 
 
 # ---------------------------------------------------------------------------
@@ -4683,6 +5155,9 @@ def phase_cli(state):
                                  "fp32 run failed its checks")
         for name in ("attention_out_int8_f32", "w8a8_matmul3_cat_f32"):
             state["launches_by_kernel"][name] = n_q[name]
+        _quantized_f32_evaluations(state, cli_eval, ["--checkpoint_dir",
+                                                     run_f] + eval_args[2:],
+                                   perf_f[0])
         shutil.rmtree(run_f)
 
         # cli.zero_shot on reference-format files written from a model's
@@ -4715,6 +5190,33 @@ def phase_cli(state):
                 not np.isfinite(tf).all() or \
                 not os.path.isfile("eval_output/class_name.txt"):
             raise AssertionError("cli.zero_shot failed its checks")
+        # the same program in fp32 with --quantize_eval w8: B9's fp32 form
+        # for the vision tower's projections, no bf16 entry
+        _reset_launch_counts()
+        zs8_perf, zs8_conf = cli_zs.main([
+            "--type", "updrs", "--eval_data_root", root,
+            "--eval_list_path", os.path.join(root, "val_updrs.csv"),
+            "--text_prompt_classes_path", os.path.join(root, "classes.txt"),
+            "--backbone_path", "clip_backbone.pth",
+            "--pretrained_vlm", "vlm.pth", "--info_dir", "zs_info_w8",
+            "--decoded_cache_dir", os.path.join(root, "cache"),
+            "--batch_size", "16", "--num_frames", "8",
+            "--num_temporal_views", "1", "--num_workers", "4",
+            "--quantize_eval", "w8"])
+        n_zs = _launch_counts()
+        log(f"[driver] cli.zero_shot --quantize_eval w8 in fp32 (no "
+            f"--use_bf16): accuracy {zs8_perf:.4f} (bf16 {zs_perf:.4f}), "
+            f"confusion {zs8_conf.tolist()}, launches int8_matmul_f32 "
+            f"{n_zs['int8_matmul_f32']} (at least 2 forwards x "
+            f"{EVAL_W8_F32_LAUNCHES['int8_matmul_f32'] // 2}), int8_matmul "
+            f"{n_zs['int8_matmul']}, packed_attention_f32 "
+            f"{n_zs['packed_attention_f32']}, packed_attention "
+            f"{n_zs['packed_attention']}")
+        if zs8_conf.sum() != 32 or n_zs["int8_matmul"] or \
+                n_zs["packed_attention"] or n_zs["int8_matmul_f32"] < \
+                EVAL_W8_F32_LAUNCHES["int8_matmul_f32"]:
+            raise AssertionError("cli.zero_shot --quantize_eval w8 in fp32 "
+                                 "failed its checks")
     finally:
         os.chdir(cwd)
         shutil.rmtree(root, ignore_errors=True)
@@ -4739,6 +5241,61 @@ EVAL_W8A8_F32_LAUNCHES = {
     "packed_attention_f32": 0, "attention_out_int8": 0,
     "w8a8_matmul3_cat": 0, "w8a8_mlp_res": 0, "w8a8_matmul3": 0,
     "w8a8_matmul": 0}
+# the w8 evaluation of an fp32 run: B9's fp32 form for the q, k, v, out,
+# fc1 and fc2 projections of the 12 vision blocks (72 a forward) and the
+# fp32 B1 for their attention, in the 2 batches; no bf16 entry. The text
+# features come from the checkpoint, so no text tower runs
+EVAL_W8_F32_LAUNCHES = {"int8_matmul_f32": 144, "packed_attention_f32": 24,
+                        "int8_matmul": 0, "packed_attention": 0}
+# the w8a8 evaluation of an fp32 run under the int8 QK^T switch (B11 in
+# fp32 in place of B4), and under the fused-extras switch (B10 on the fp32
+# rows of each block's prompt extras, beside the fp32 B3, B4 and B5)
+EVAL_W8A8_QK8_F32_LAUNCHES = dict(
+    EVAL_W8A8_F32_LAUNCHES, attention_out_int8_f32=0,
+    attention_out_int8_qk8_f32=24, attention_out_int8_qk8=0, fused_extras=0)
+EVAL_W8A8_FUSED_F32_LAUNCHES = dict(EVAL_W8A8_F32_LAUNCHES, fused_extras=24,
+                                    attention_out_int8_qk8_f32=0)
+
+
+def _quantized_f32_evaluations(state, cli_eval, argv, plain_acc):
+    """cli.evaluate on phase_cli's fp32 run with --quantize_eval w8,
+    then --quantize_eval w8a8 under the int8 QK^T switch and under the
+    fused-extras switch (each reset afterwards): the launches of each, and
+    an accuracy within one clip (of 32) of the plain evaluation's."""
+    from gava_clip_tpu_torch.cli import train as cli_train
+    from gava_clip_tpu_torch.ops import extras_kernel as ek
+    from gava_clip_tpu_torch.ops import flash_attention as fa
+    runs = (("--quantize_eval w8", ["--quantize_eval", "w8"], None,
+             EVAL_W8_F32_LAUNCHES, "int8_matmul_f32"),
+            ("--quantize_eval w8a8, int8 QK^T", ["--quantize_eval", "w8a8"],
+             fa.set_int8_qk, EVAL_W8A8_QK8_F32_LAUNCHES,
+             "attention_out_int8_qk8_f32"),
+            ("--quantize_eval w8a8, fused extras",
+             ["--quantize_eval", "w8a8"], ek.set_fused_extras,
+             EVAL_W8A8_FUSED_F32_LAUNCHES, None))
+    for what, flags, switch, want, main_path in runs:
+        if switch is not None:
+            switch(True)
+        try:
+            _reset_launch_counts()
+            perf, conf = cli_eval.main(argv + flags)
+            n = _launch_counts()
+        finally:
+            fa.set_int8_qk(False)
+            ek.set_fused_extras(False)
+        rate = cli_train.last_eval["clips"] / cli_train.last_eval["seconds"]
+        log(f"[driver] cli.evaluate {what} on run_f32: accuracy "
+            f"{perf[0]:.4f} (plain {plain_acc:.4f}), confusion "
+            f"{conf.tolist()}, {rate:.1f} clips/s, launches "
+            f"{ {k: n[k] for k in want} } (expect {want})")
+        if conf.sum() != 32 or abs(perf[0] - plain_acc) > 1 / 32 + 1e-9 or \
+                any(n[k] != v for k, v in want.items()):
+            raise AssertionError(f"cli.evaluate {what} on the fp32 run "
+                                 f"failed its checks")
+        if main_path:
+            state["launches_by_kernel"][main_path] = n[main_path]
+
+
 # the text features of the flagship with its whole text tower in w8a8: 12
 # text blocks, each one B3a (the fused q/k/v of its self-attention) and
 # three B2 (the out-projection, fc1 and fc2, whose rows are the MLP's
@@ -5627,6 +6184,7 @@ def main(argv=None) -> int:
             ("train-kernel", phase_train_kernels),
             ("f32-kernel", phase_f32_kernels),
             ("w8a8-f32", phase_w8a8_f32),
+            ("serving-f32", phase_serving_f32),
             ("f32-mutants", phase_f32_mutants),
             ("w8-kernel", phase_w8_kernels), ("mega", phase_mega),
             ("slice", phase_slice), ("w8a8-slice", phase_w8a8_slice),

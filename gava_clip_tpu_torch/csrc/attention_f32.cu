@@ -1,14 +1,19 @@
 // Float32 attention for Hopper (sm_90a): the fp32 forms of the packed
-// forward (with and without den), of its backward from the saved output
-// and den, of the backward that rebuilds them, and of the streaming (causal
-// or long) forward and backward.
+// forward (with and without den, with the int8 score product, over two key
+// / value sources), of its backward from the saved output and den, of the
+// backward that rebuilds them, and of the streaming (causal or long)
+// forward and backward.
 //
 // Replaces, for float32 q / k / v, the TPU kernels of
 // gava_clip_tpu/ops/flash_attention.py: _attention_kernel (:181) and
 // _attention_kernel_den (:193) (B1 / B6a), _attention_bwd_kernel (:213)
 // (B6b), _attention_bwd_kernel_recompute (:410) (B8), and the forward and
 // backward kernels of the stock TPU flash attention that _streaming_flash
-// (:534) wraps (B7). Those emit their input's dtype; the port's bf16
+// (:534) wraps (B7); and the attention of the w8a8 serving fusion's int8
+// QK^T form (:117-132, inside the kernel of :754) (B11) and of its
+// two-source entry _attention_out_kernel_2src (:775) (B12), whose int8
+// out-projection is csrc/w8a8_matmul.cu's fp32 entry (the second launch of
+// their fp32 forms). Those emit their input's dtype; the port's bf16
 // kernels (packed_attention.cu, packed_attention_bwd.cuh,
 // streaming_attention.cu, attention_bwd.cuh) are built on bf16 mma
 // fragments and take bf16 only. The functions are the bf16 forms' with
@@ -20,6 +25,12 @@
 //                                           semantics
 //     den = sum(e)                          written by the den entry
 //     o   = (e @ v) / max(den, 1e-30)
+//   int8 scores (B11), per head: each q and k row's qs = max(absmax, 1e-6),
+//     its codes rint(x * (127 / qs)) (an IEEE division), s32 the codes'
+//     product, then the exp2 argument (s32 * (qs * (c / 127^2))) * ks in
+//     that order, clamped and masked as above;
+//   two sources (B12): the keys and values [k1; k2], [v1; v2], row j < L1
+//     read from source 1 and row j >= L1 from source 2 at j - L1;
 //   its backward, from o and den (or, recompute, from o and den rebuilt by
 //   the forward above into scratch):
 //     inv = 1 / max(den, 1e-30), delta = rowsum(do * o), p = e * inv,
@@ -35,6 +46,9 @@
 // products would round each operand to a 10-bit mantissa (~5e-4
 // relative), which an fp32 run must not see. The exp2 is ex2.approx.ftz
 // (at most 2 ulp; results below 2^-126 flush to 0), as in the bf16 forms.
+// The int8 score product runs as the same FMA on the codes held as floats:
+// every partial sum is an integer of at most 127^2 * 64 = 1,032,256 < 2^24,
+// so it is exact and equals the int32 product bit for bit.
 //
 // What bounds it on an H100 SXM (data-sheet figures, not measured), per
 // layer at the training shape B = 16 clips x 8 frames = 128, Lq = 197,
@@ -57,7 +71,11 @@
 //     (no running max), so the result is the plain formula in another fp32
 //     summation order; the streaming form rescales its accumulator when a
 //     row's max moves. Under the causal mask a block stops at its last
-//     row's key.
+//     row's key. The int8 form turns the q tile and each key tile into
+//     codes in place once they are loaded (four threads a row, the absmax
+//     met by two shuffles) and keeps each row's scale in shared memory; the
+//     two-source form picks each key row's source as it loads it, so its
+//     tiles, sums and bits are those of the one-source form on [k1; k2].
 //   backward: a dq kernel, one block per (64 query rows, head, batch row),
 //     walks the key tiles; it first takes each row's delta and statistic
 //     and leaves them in a scratch buffer for the dk / dv kernel, one block
@@ -78,10 +96,11 @@ constexpr int kT = 64;                   // query rows or keys of a tile
 constexpr int kLD = kT + 4;              // padded shared row: 272 bytes, 16-byte aligned
 constexpr int kTileFloats = kHD * kLD;   // one 64 x 64 tile, either orientation
 constexpr int kThreads = 256;            // 16 x 16 threads, a 4 x 4 patch each
-// dynamic shared bytes: the forward's q^T, k^T, v, e^T tiles; the dq
+// dynamic shared bytes: the forward's q^T, k^T, v, e^T tiles and two
+// floats a row (the int8 form's q and k scales); the dq
 // kernel's q^T, do^T, k^T, k, v^T, ds^T and two floats a row; the dk / dv
 // kernel's k^T, v^T, q^T, do^T, q, do, p, ds and two floats a row
-constexpr int kFwdSmemBytes = 4 * kTileFloats * 4;
+constexpr int kFwdSmemBytes = 4 * kTileFloats * 4 + 2 * kT * 4;
 constexpr int kDqSmemBytes = 6 * kTileFloats * 4 + 2 * kT * 4;
 constexpr int kDkvSmemBytes = 8 * kTileFloats * 4 + 2 * kT * 4;
 constexpr float kClamp = 110.f;
@@ -95,12 +114,26 @@ __device__ __forceinline__ float ex2f(float x) {
   return y;
 }
 
-// Rows [r0, r0 + 64) of one head (64 floats from `src`, row stride `ld`)
-// into a tile stored transposed, dst[d * kLD + r]; rows >= L are zeros and
-// are never read. A warp loads 16 rows x 2 float4 (one 32-byte sector a
-// row) and its stores fall in 32 distinct banks.
-__device__ __forceinline__ void load_t(float* dst, const float* src, int r0, int L,
-                                       long long ld) {
+// The rows of one head: rows [0, L1) at p1 (row stride ld1), rows [L1, L)
+// at p2 + (row - L1) * ld2 (the second source; L1 = L for one source)
+struct Rows {
+  const float *p1, *p2;
+  long long ld1, ld2;
+  int L1, L;
+  __device__ __forceinline__ const float* row(int r) const {
+    return r < L1 ? p1 + r * ld1 : r < L ? p2 + (r - L1) * ld2 : nullptr;
+  }
+};
+
+__device__ __forceinline__ Rows one_source(const float* p, int L, long long ld) {
+  return Rows{p, nullptr, ld, 0, L, L};
+}
+
+// Rows [r0, r0 + 64) of one head (64 floats a row) into a tile stored
+// transposed, dst[d * kLD + r]; rows >= L are zeros and are never read. A
+// warp loads 16 rows x 2 float4 (one 32-byte sector a row) and its stores
+// fall in 32 distinct banks.
+__device__ __forceinline__ void load_t(float* dst, const Rows& src, int r0) {
 #pragma unroll
   for (int it = 0; it < kT * kHD / 4 / kThreads; ++it) {
     const int idx = it * kThreads + threadIdx.x;
@@ -108,7 +141,7 @@ __device__ __forceinline__ void load_t(float* dst, const float* src, int r0, int
     const int r = (w & 3) * 16 + (l >> 1);
     const int c = ((w >> 2) * 2 + (l & 1)) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < L) x = *reinterpret_cast<const float4*>(src + (r0 + r) * ld + c);
+    if (const float* p = src.row(r0 + r)) x = *reinterpret_cast<const float4*>(p + c);
     dst[(c + 0) * kLD + r] = x.x;
     dst[(c + 1) * kLD + r] = x.y;
     dst[(c + 2) * kLD + r] = x.z;
@@ -116,17 +149,26 @@ __device__ __forceinline__ void load_t(float* dst, const float* src, int r0, int
   }
 }
 
-// The same rows stored as they are, dst[r * kLD + d].
-__device__ __forceinline__ void load_n(float* dst, const float* src, int r0, int L,
+__device__ __forceinline__ void load_t(float* dst, const float* src, int r0, int L,
                                        long long ld) {
+  load_t(dst, one_source(src, L, ld), r0);
+}
+
+// The same rows stored as they are, dst[r * kLD + d].
+__device__ __forceinline__ void load_n(float* dst, const Rows& src, int r0) {
 #pragma unroll
   for (int it = 0; it < kT * kHD / 4 / kThreads; ++it) {
     const int idx = it * kThreads + threadIdx.x;
     const int r = idx >> 4, c = (idx & 15) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < L) x = *reinterpret_cast<const float4*>(src + (r0 + r) * ld + c);
+    if (const float* p = src.row(r0 + r)) x = *reinterpret_cast<const float4*>(p + c);
     *reinterpret_cast<float4*>(dst + r * kLD + c) = x;
   }
+}
+
+__device__ __forceinline__ void load_n(float* dst, const float* src, int r0, int L,
+                                       long long ld) {
+  load_n(dst, one_source(src, L, ld), r0);
 }
 
 // acc[i][j] += sum over x < 64 of a[x][4 ty + i] * b[x][4 tx + j]: both
@@ -155,6 +197,35 @@ __device__ __forceinline__ void store_patch_t(float* dst, const float (&p)[4][4]
         make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
 }
 
+// The int8 form: a transposed tile's 64 rows (zeros past the source's
+// rows) as their int8 codes, in place, held as floats: four threads a row,
+// 16 values each, their absmax met by two shuffles; qs = max(absmax, 1e-6),
+// code = rint(x * (127 / qs)) with an IEEE division. sc[r] = qs * mul (mul
+// c / 127^2 for the q rows, 1 for the keys).
+__device__ __forceinline__ void quant_tile_t(float* t, float* sc, float mul) {
+  const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
+  float m = 0.f;
+#pragma unroll
+  for (int x = 0; x < 16; ++x) m = fmaxf(m, fabsf(t[(part * 16 + x) * kLD + r]));
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+  const float qs = fmaxf(m, 1e-6f);
+  const float inv = __fdiv_rn(127.f, qs);
+#pragma unroll
+  for (int x = 0; x < 16; ++x) {
+    float* v = t + (part * 16 + x) * kLD + r;
+    *v = rintf(__fmul_rn(*v, inv));
+  }
+  if (part == 0) sc[r] = __fmul_rn(qs, mul);
+}
+
+// The int8 form's exp2 argument of one score: the exact integer product
+// s32 times its rank-1 rescale, in the plain version's order, (s32 * (qs *
+// (c / 127^2))) * ks; qf = qs * (c / 127^2)
+__device__ __forceinline__ float qk8_arg(float s32, float qf, float ks) {
+  return __fmul_rn(__fmul_rn(s32, qf), ks);
+}
+
 // the sum (or max) of a row's value over the 16 threads tx that share it
 __device__ __forceinline__ float row_sum(float x) {
 #pragma unroll
@@ -174,26 +245,45 @@ struct FwdArgs {
   float* stat;   // den (B, Lq, H) in the packed form (may be null), lse (B, H, Lq) streaming
   int Lq, Lk, H;
   int q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl;
-  float c;       // 64^-0.5 * log2(e)
+  float c;       // 64^-0.5 * log2(e); 1 in the int8 form (its scales carry c)
   int causal;
+  // the int8 form: c / 127^2; the two-source form: the second source and
+  // the first source's key count (L1 = Lk for one source)
+  float cq;
+  const float *k2, *v2;
+  int L1, k2_sb, k2_sl, v2_sb, v2_sl;
 };
 
 // STREAM: the streaming form (running max, causal mask, lse); else the
-// packed clamp form
-template <bool STREAM>
+// packed clamp form. QK8 (packed only): the int8 score product. TWO
+// (packed only): keys and values from two sources.
+template <bool STREAM, bool QK8 = false, bool TWO = false>
 __global__ void __launch_bounds__(kThreads, 2) attention_f32_fwd_kernel(FwdArgs a) {
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;
   float* kt = qt + kTileFloats;
   float* vs = kt + kTileFloats;
   float* et = vs + kTileFloats;
+  float* sq = et + kTileFloats;   // the int8 form's q row scales (times c / 127^2)
+  float* sk = sq + kT;            // and key row scales
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kT;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const long long hoff = static_cast<long long>(h) * kHD;
   const float* qb = a.q + static_cast<long long>(b) * a.q_sb + hoff;
   const float* kb = a.k + static_cast<long long>(b) * a.k_sb + hoff;
   const float* vb = a.v + static_cast<long long>(b) * a.v_sb + hoff;
+  Rows krows = one_source(kb, a.Lk, a.k_sl), vrows = one_source(vb, a.Lk, a.v_sl);
+  if (TWO) {
+    krows = Rows{kb, a.k2 + static_cast<long long>(b) * a.k2_sb + hoff, a.k_sl, a.k2_sl, a.L1,
+                 a.Lk};
+    vrows = Rows{vb, a.v2 + static_cast<long long>(b) * a.v2_sb + hoff, a.v_sl, a.v2_sl, a.L1,
+                 a.Lk};
+  }
   load_t(qt, qb, q0, a.Lq, a.q_sl);
+  if (QK8) {
+    __syncthreads();   // the whole q tile is in
+    quant_tile_t(qt, sq, a.cq);
+  }
 
   float acc[4][4], l[4], m[4];
 #pragma unroll
@@ -207,15 +297,28 @@ __global__ void __launch_bounds__(kThreads, 2) attention_f32_fwd_kernel(FwdArgs 
   const int kend = STREAM && a.causal ? min(a.Lk, q0 + kT) : a.Lk;
   for (int k0 = 0; k0 < kend; k0 += kT) {
     __syncthreads();   // the previous tile's k^T, v and e^T are free
-    load_t(kt, kb, k0, a.Lk, a.k_sl);
-    load_n(vs, vb, k0, a.Lk, a.v_sl);
+    load_t(kt, krows, k0);
+    load_n(vs, vrows, k0);
     __syncthreads();
+    if (QK8) {
+      quant_tile_t(kt, sk, 1.f);
+      __syncthreads();
+    }
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
     mm64(s, qt, kt, ty, tx);
+    if (QK8) {
+      // the exact integer product times its rank-1 rescale, in the plain
+      // version's order: (s32 * (qs * (c / 127^2))) * ks
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          s[i][j] = qk8_arg(s[i][j], sq[4 * ty + i], sk[4 * tx + j]);
+    }
     if (!STREAM) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -484,6 +587,47 @@ __global__ void __launch_bounds__(kThreads, 1) attention_f32_bwd_dkdv_kernel(Bwd
   }
 }
 
+// A check of the int8 form's codes and rescale: the exp2 arguments of its
+// scores (before the clamp), a.o = args (B, H, Lq, Lk) fp32 contiguous,
+// computed by the forward's own steps (load, quant_tile_t, mm64, qk8_arg)
+__global__ void __launch_bounds__(kThreads, 2) attention_f32_qk8_args_kernel(FwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  float* qt = smem;
+  float* kt = qt + kTileFloats;
+  float* sq = kt + 3 * kTileFloats;
+  float* sk = sq + kT;
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kT;
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  const long long hoff = static_cast<long long>(h) * kHD;
+  load_t(qt, a.q + static_cast<long long>(b) * a.q_sb + hoff, q0, a.Lq, a.q_sl);
+  __syncthreads();
+  quant_tile_t(qt, sq, a.cq);
+  for (int k0 = 0; k0 < a.Lk; k0 += kT) {
+    __syncthreads();
+    load_t(kt, a.k + static_cast<long long>(b) * a.k_sb + hoff, k0, a.Lk, a.k_sl);
+    __syncthreads();
+    quant_tile_t(kt, sk, 1.f);
+    __syncthreads();
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    mm64(s, qt, kt, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + 4 * ty + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + 4 * tx + j;
+        if (row < a.Lq && key < a.Lk)
+          a.o[((static_cast<long long>(b) * a.H + h) * a.Lq + row) * a.Lk + key] =
+              qk8_arg(s[i][j], sq[4 * ty + i], sk[4 * tx + j]);
+      }
+    }
+  }
+}
+
 FwdArgs make_fwd(const void* q, const void* k, const void* v, void* o, void* stat, int Lq,
                  int Lk, int H, int q_sb, int q_sl, int k_sb, int k_sl, int v_sb, int v_sl,
                  int o_sb, int o_sl, float c, int causal) {
@@ -498,18 +642,36 @@ FwdArgs make_fwd(const void* q, const void* k, const void* v, void* o, void* sta
   a.v_sb = v_sb; a.v_sl = v_sl; a.o_sb = o_sb; a.o_sl = o_sl;
   a.c = c;
   a.causal = causal;
+  a.cq = 0.f;
+  a.k2 = a.v2 = nullptr;
+  a.L1 = Lk;
+  a.k2_sb = a.k2_sl = a.v2_sb = a.v2_sl = 0;
   return a;
 }
 
-template <bool STREAM>
+template <bool STREAM, bool QK8 = false, bool TWO = false>
 cudaError_t launch_fwd(const FwdArgs& a, int B, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(attention_f32_fwd_kernel<STREAM>,
+  cudaError_t err = cudaFuncSetAttribute(attention_f32_fwd_kernel<STREAM, QK8, TWO>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kFwdSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Lq + kT - 1) / kT, a.H, B);
-  attention_f32_fwd_kernel<STREAM><<<grid, kThreads, kFwdSmemBytes, stream>>>(a);
+  attention_f32_fwd_kernel<STREAM, QK8, TWO><<<grid, kThreads, kFwdSmemBytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+// the packed forward in its int8-score form (c = 1, the scales carry cq)
+// or over two sources, each with or without the other
+template <bool TWO>
+cudaError_t launch_fwd_int8_or_two(FwdArgs a, int B, int int8_qk, float c,
+                                   cudaStream_t stream) {
+  if (int8_qk) {
+    a.c = 1.f;
+    a.cq = c;
+    return launch_fwd<false, true, TWO>(a, B, stream);
+  }
+  a.c = c;
+  return launch_fwd<false, false, TWO>(a, B, stream);
 }
 
 // the dq kernel (which also writes the row statistics), then the dk / dv
@@ -588,6 +750,60 @@ extern "C" int packed_attention_den_f32(const void* q, const void* k, const void
       make_fwd(q, k, v, o, den, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl, c,
                0),
       B, static_cast<cudaStream_t>(stream)));
+}
+
+// B11's attention: B1 with the int8 score product; cq = Dh^-0.5 *
+// log2(e) / 127^2
+extern "C" int packed_attention_qk8_f32(const void* q, const void* k, const void* v, void* o,
+                                        int B, int Lq, int Lk, int H, int Dh, int q_sb,
+                                        int q_sl, int k_sb, int k_sl, int v_sb, int v_sl,
+                                        int o_sb, int o_sl, float cq, void* stream) {
+  if (bad_args(Dh, o)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_fwd_int8_or_two<false>(
+      make_fwd(q, k, v, o, nullptr, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl,
+               0.f, 0),
+      B, 1, cq, static_cast<cudaStream_t>(stream)));
+}
+
+// B12's attention: B1 (int8_qk 0; c = Dh^-0.5 * log2(e)) or B11 (int8_qk 1;
+// c / 127^2) over the keys [k1 (B, L1, H*64); k2 (B, L2, H*64)] and the
+// values [v1; v2], each source at its own strides
+extern "C" int packed_attention_2src_f32(const void* q, const void* k1, const void* v1,
+                                         const void* k2, const void* v2, void* o, int B, int Lq,
+                                         int L1, int L2, int H, int Dh, int q_sb, int q_sl,
+                                         int k1_sb, int k1_sl, int v1_sb, int v1_sl, int k2_sb,
+                                         int k2_sl, int v2_sb, int v2_sl, int o_sb, int o_sl,
+                                         float c, int int8_qk, void* stream) {
+  if (bad_args(Dh, o) || L1 < 0 || L2 < 0 || L1 + L2 < 1 || (L2 > 0 && (k2 == nullptr ||
+                                                                      v2 == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  FwdArgs a = make_fwd(q, k1, v1, o, nullptr, Lq, L1 + L2, H, q_sb, q_sl, k1_sb, k1_sl, v1_sb,
+                       v1_sl, o_sb, o_sl, c, 0);
+  a.k2 = static_cast<const float*>(k2);
+  a.v2 = static_cast<const float*>(v2);
+  a.L1 = L1;
+  a.k2_sb = k2_sb; a.k2_sl = k2_sl; a.v2_sb = v2_sb; a.v2_sl = v2_sl;
+  return static_cast<int>(
+      launch_fwd_int8_or_two<true>(a, B, int8_qk, c, static_cast<cudaStream_t>(stream)));
+}
+
+// The check of B11's codes and rescale: args (B, H, Lq, Lk) fp32, the exp2
+// arguments of the int8 form's scores; cq as packed_attention_qk8_f32's
+extern "C" int attention_f32_qk8_args(const void* q, const void* k, void* args, int B, int Lq,
+                                      int Lk, int H, int Dh, int q_sb, int q_sl, int k_sb,
+                                      int k_sl, float cq, void* stream) {
+  if (bad_args(Dh, args)) return static_cast<int>(cudaErrorInvalidValue);
+  FwdArgs a = make_fwd(q, k, k, args, nullptr, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, k_sb, k_sl, 0,
+                       0, 1.f, 0);
+  a.cq = cq;
+  cudaError_t err = cudaFuncSetAttribute(attention_f32_qk8_args_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kFwdSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Lq + kT - 1) / kT, H, B);
+  attention_f32_qk8_args_kernel<<<grid, kThreads, kFwdSmemBytes,
+                                  static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // B6b: dq, dk, dv from do and o (B, Lq, H*64) contiguous and den (B, Lq, H);

@@ -86,6 +86,19 @@ _SIGNATURES = {
         # B6a: the same with den after o
         "packed_attention_den_f32": (
             [_VP] * 5 + [_I] * 5 + [_I] * 8 + [ctypes.c_float, _VP], _I),
+        # B11's attention: B1's arguments, the constant c / 127^2
+        "packed_attention_qk8_f32": (
+            [_VP] * 4 + [_I] * 5 + [_I] * 8 + [ctypes.c_float, _VP], _I),
+        # the check of B11's codes and rescale: q, k, args; B, Lq, Lk, H,
+        # Dh; q/k batch and row strides; c / 127^2; stream
+        "attention_f32_qk8_args": (
+            [_VP] * 3 + [_I] * 5 + [_I] * 4 + [ctypes.c_float, _VP], _I),
+        # B12's attention: q, k1, v1, k2, v2, o; B, Lq, L1, L2, H, Dh;
+        # q/k1/v1/k2/v2/o batch and row strides; constant; int8 QK^T?;
+        # stream
+        "packed_attention_2src_f32": (
+            [_VP] * 6 + [_I] * 6 + [_I] * 12 + [ctypes.c_float, _I, _VP],
+            _I),
         # B6b: q, k, v, do, o, den, dq, dk, dv, scratch; B, Lq, Lk, H, Dh;
         # q/k/v batch and row strides; scale; stream
         "packed_attention_bwd_f32": (
@@ -178,6 +191,11 @@ _SIGNATURES = {
     "w8_matmul": {
         # x, W^T, scale, y; M, K, N; stream
         "w8_matmul_bf16": ([_VP] * 4 + [_I] * 3 + [_VP], _I),
+        "cuda_error_string": ([_I], ctypes.c_char_p),
+    },
+    "w8_matmul_f32": {
+        # the fp32 form, the same arguments
+        "w8_matmul_f32": ([_VP] * 4 + [_I] * 3 + [_VP], _I),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "fused_extras": {

@@ -51,10 +51,11 @@ dtype of q, k, v (all bfloat16 or all float32): the bf16 kernels above, and
 csrc/attention_f32.cu, where every product is an fp32 FMA and every cast to
 v's dtype a no-op (`attention_f32_plan`; launch counts `*_f32`). Nothing is
 cast from one to the other. The w8a8 serving fusion below takes float32
-too, in two launches (B1's fp32 form into a scratch, then B2's fp32 form
-with the residual: launch count `attention_out_int8_f32`); its int8 QK^T
-form and its two-source entry are bf16 only and raise on float32 (ROADMAP
-A12).
+too, in its every form, in two launches each: the fp32 attention (B1, its
+int8-score form B11, or either over two sources, B12) into a scratch, then
+B2's fp32 form with the residual (launch counts `attention_out_int8_f32`,
+`attention_out_int8_qk8_f32`, `attention_out_int8_2src_f32`, one for the
+pair).
 
 `flash_attention_out_int8` is the w8a8 serving fusion (TPU
 `_attention_out_kernel` + `_int8_outproj_epilogue`): the same attention
@@ -88,6 +89,8 @@ _KERNEL_HEAD_DIM = 64     # the only head width the kernel is built for
 launch_counts = {"packed_attention": 0, "attention_out_int8": 0,
                  "attention_out_int8_qk8": 0, "attention_out_int8_f32": 0,
                  "attention_out_int8_2src": 0,
+                 "attention_out_int8_qk8_f32": 0,
+                 "attention_out_int8_2src_f32": 0,
                  "packed_attention_den": 0, "packed_attention_bwd": 0,
                  "packed_attention_bwd_recompute": 0,
                  "streaming_attention": 0, "streaming_attention_bwd": 0,
@@ -216,16 +219,13 @@ def _reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.transpose(1, 2).reshape(B, Lq, D)
 
 
-def _check_kernel_args(q, k, v, num_heads, no_f32: str = ""):
+def _check_kernel_args(q, k, v, num_heads):
     """Raise unless q, k, v suit the attention kernels: one CUDA device, all
-    bfloat16 or all float32 (`no_f32`, when given, is the message for a
-    kernel that has no float32 form), (B, L, H*64) with 16-byte rows."""
+    bfloat16 or all float32, (B, L, H*64) with 16-byte rows."""
     if not q.dtype == k.dtype == v.dtype or \
             q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError("the attention kernels take q/k/v all bfloat16 or "
                         f"all float32, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if q.dtype == torch.float32 and no_f32:
-        raise TypeError(no_f32)
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("packed attention kernel needs q, k, v on one "
                          "CUDA device")
@@ -671,11 +671,12 @@ def streaming_attention_bwd_cuda(q, k, v, do, o, lse, num_heads: int,
 # Launch plan of csrc/attention_f32.cu, the float32 forms: 64-row tiles of
 # fp32 in shared memory (rows padded to 68 floats), 256 threads a block,
 # and the dynamic shared bytes of its three kernels: the forward (q^T, k^T,
-# v and e^T tiles), the backward's dq kernel (q^T, do^T, k^T, k, v^T, ds^T
-# and two floats a row) and its dk / dv kernel (eight tiles and two floats
-# a row). The launch holds the five numbers against the library's
-# `attention_f32_layout` before its first use.
-_F32_LAYOUT = (64, 256, 69632, 104960, 139776)
+# v and e^T tiles and two floats a row, the int8-score form's scales), the
+# backward's dq kernel (q^T, do^T, k^T, k, v^T, ds^T and two floats a row)
+# and its dk / dv kernel (eight tiles and two floats a row). The launch
+# holds the five numbers against the library's `attention_f32_layout`
+# before its first use.
+_F32_LAYOUT = (64, 256, 70144, 104960, 139776)
 _CUDA_MAX_GRID_YZ = 65535
 
 
@@ -1014,11 +1015,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # `attention_out_int8_layout` before its first use.
 _ATTN_OUT_LAYOUT = (18432, 4, 224, 128, 24576)
 _ATTN_OUT_ROWS = 112
-_NO_F32_OUT_INT8 = (
-    "the int8 QK^T form (B11) and the two-source entry (B12) of the fused "
-    "attention + int8 out-projection take bfloat16 q/k/v only; their "
-    "float32 forms are ROADMAP A12 (evaluate with --use_bf16 on the card, "
-    "or without the int8 QK^T switch)")
 
 
 def attention_out_plan(B: int, lq: int, num_heads: int,
@@ -1123,11 +1119,9 @@ def attention_out_int8_cuda(q, k, v, num_heads: int, out_params: Dict,
                             int8_qk: bool = False) -> torch.Tensor:
     """Launch csrc/attention_out_int8.cu on the current stream (no sync):
     its fp32-score entry point, or with int8_qk its int8 QK^T one; float32
-    q/k/v take the fp32 form (`_attention_out_f32`), which has no int8
-    QK^T form."""
+    q/k/v take the fp32 form of either (`_attention_out_f32`)."""
     from .int8_matmul import _kernel_weight
-    _check_kernel_args(q, k, v, num_heads, _NO_F32_OUT_INT8 if int8_qk
-                       else "")
+    _check_kernel_args(q, k, v, num_heads)
     B, Lq_arr, D = q.shape
     lq = Lq_arr if lq is None else lq
     if not 0 <= lq <= Lq_arr:
@@ -1135,7 +1129,7 @@ def attention_out_int8_cuda(q, k, v, num_heads: int, out_params: Dict,
     wt = _kernel_weight("attention_out_int8", out_params["kernel"], D, D)
     if q.dtype == torch.float32:
         return _attention_out_f32(q, k, v, num_heads, out_params, residual,
-                                  lq)
+                                  lq, int8_qk)
     name = "attention_out_int8_qk8" if int8_qk else "attention_out_int8"
     c = (D // num_heads) ** -0.5 * _LOG2E
     out = _attention_out_launch(
@@ -1149,13 +1143,18 @@ def attention_out_int8_cuda(q, k, v, num_heads: int, out_params: Dict,
 
 
 def _attention_out_f32(q, k, v, num_heads: int, out_params: Dict,
-                       residual: torch.Tensor, lq: int) -> torch.Tensor:
-    """B4 in float32, two launches: B1's fp32 form (csrc/attention_f32.cu)
-    writes the attention of the first lq queries, kept in fp32, into a
-    scratch (B, lq, D); then B2's fp32 form (csrc/w8a8_matmul.cu) quantizes
-    each scratch row, runs the int8 out-projection and adds the bias and
-    the fp32 residual, each step rounded as `_int8_outproj_epilogue`
-    rounds it. One count, `attention_out_int8_f32`, for the pair."""
+                       residual: torch.Tensor, lq: int, int8_qk: bool = False,
+                       second=None) -> torch.Tensor:
+    """B4, B11 (int8_qk) and B12 (`second` = (k2, v2): the keys [k; k2],
+    the values [v; v2]) in float32, two launches: the fp32 packed forward of
+    csrc/attention_f32.cu (B1's, its int8-score form, or either over two
+    sources) writes the attention of the first lq queries, kept in fp32,
+    into a scratch (B, lq, D); then B2's fp32 form (csrc/w8a8_matmul.cu)
+    quantizes each scratch row, runs the int8 out-projection and adds the
+    bias and the fp32 residual, each step rounded as
+    `_int8_outproj_epilogue` rounds it. One count for the pair:
+    `attention_out_int8_2src_f32` with a second source (either score
+    form), else `attention_out_int8_qk8_f32` or `attention_out_int8_f32`."""
     from .int8_matmul import _w8a8_matmul_launch
     B, _, D = q.shape
     if residual.device != q.device:
@@ -1167,17 +1166,57 @@ def _attention_out_f32(q, k, v, num_heads: int, out_params: Dict,
     if B == 0 or lq == 0:
         return torch.empty((B, lq, D), dtype=q.dtype, device=q.device)
     Dh = D // num_heads
-    attention_f32_plan(B, lq, k.shape[1], num_heads, Dh)
+    # the exp2 constant; the int8-score form folds 1 / 127^2 into it
+    c = Dh ** -0.5 * _LOG2E / (127.0 * 127.0 if int8_qk else 1.0)
+    L2 = 0 if second is None else second[0].shape[1]
+    attention_f32_plan(B, lq, k.shape[1] + L2, num_heads, Dh)
     a = torch.empty((B, lq, D), dtype=torch.float32, device=q.device)
-    _f32_launch("packed_attention_f32", q.device, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), a.data_ptr(), B, lq, k.shape[1], num_heads, Dh,
-                *_qkv_strides(q, k, v), a.stride(0), a.stride(1),
-                Dh ** -0.5 * _LOG2E, count=False)
+    head = (q.device, q.data_ptr(), k.data_ptr(), v.data_ptr())
+    if second is not None:
+        k2, v2 = second
+        name = "attention_out_int8_2src_f32"
+        _f32_launch("packed_attention_2src_f32", *head, k2.data_ptr(),
+                    v2.data_ptr(), a.data_ptr(), B, lq, k.shape[1], L2,
+                    num_heads, Dh, *_qkv_strides(q, k, v), k2.stride(0),
+                    k2.stride(1), v2.stride(0), v2.stride(1), a.stride(0),
+                    a.stride(1), c, int(int8_qk), count=False)
+    else:
+        name = "attention_out_int8_qk8_f32" if int8_qk \
+            else "attention_out_int8_f32"
+        _f32_launch("packed_attention_qk8_f32" if int8_qk
+                    else "packed_attention_f32", *head, a.data_ptr(), B, lq,
+                    k.shape[1], num_heads, Dh, *_qkv_strides(q, k, v),
+                    a.stride(0), a.stride(1), c, count=False)
     out = _w8a8_matmul_launch("f32", a.view(B * lq, D), out_params["kernel"],
                               out_params["bias"],
                               residual.reshape(B * lq, D))
-    launch_counts["attention_out_int8_f32"] += 1
+    launch_counts[name] += 1
     return out.view(B, lq, D)
+
+
+def int8_qk_args_cuda(q: torch.Tensor, k: torch.Tensor,
+                      num_heads: int) -> torch.Tensor:
+    """The check entry of csrc/attention_f32.cu: the exp2 arguments (B, H,
+    Lq, Lk) of the int8-score form's scores, before the clamp, for float32
+    q (B, Lq, H*64) and k (B, Lk, H*64), computed by the kernel's own steps;
+    `_int8_qk_exp2_arg` gives the same bits. It checks B11's codes and
+    rescale and lies on no path: it counts no launch."""
+    _check_kernel_args(q, k, k, num_heads)
+    if q.dtype != torch.float32:
+        raise TypeError(f"the int8 QK^T check takes float32 q/k, got "
+                        f"{q.dtype}")
+    B, Lq, D = q.shape
+    Lk = k.shape[1]
+    Dh = D // num_heads
+    out = torch.empty((B, num_heads, Lq, Lk), dtype=torch.float32,
+                      device=q.device)
+    if B and Lq and Lk:
+        attention_f32_plan(B, Lq, Lk, num_heads, Dh)
+        _f32_launch("attention_f32_qk8_args", q.device, q.data_ptr(),
+                    k.data_ptr(), out.data_ptr(), B, Lq, Lk, num_heads, Dh,
+                    q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                    Dh ** -0.5 * _LOG2E / (127.0 * 127.0), count=False)
+    return out
 
 
 def flash_attention_out_int8(q, k, v, num_heads: int, out_params: Dict,
@@ -1220,15 +1259,19 @@ def attention_out_int8_2src_cuda(q, k1, v1, k2, v2, num_heads: int,
                                  out_params: Dict, residual: torch.Tensor,
                                  int8_qk: bool = False) -> torch.Tensor:
     """Launch the two-source entry of csrc/attention_out_int8.cu on the
-    current stream (no sync); k1, v1 and k2, v2 are read where they lie."""
+    current stream (no sync), or for float32 q/k/v its fp32 form
+    (`_attention_out_f32`); k1, v1 and k2, v2 are read where they lie."""
     from .int8_matmul import _kernel_weight
-    _check_kernel_args(q, k1, v1, num_heads, _NO_F32_OUT_INT8)
-    _check_kernel_args(q, k2, v2, num_heads, _NO_F32_OUT_INT8)
+    _check_kernel_args(q, k1, v1, num_heads)
+    _check_kernel_args(q, k2, v2, num_heads)
     B, Lq, D = q.shape
     L1, L2 = k1.shape[1], k2.shape[1]
     wt = _kernel_weight("attention_out_int8_2src", out_params["kernel"], D, D)
     if L1 + L2 == 0:
         raise ValueError("the fused attention needs at least one key")
+    if q.dtype == torch.float32:
+        return _attention_out_f32(q, k1, v1, num_heads, out_params, residual,
+                                  Lq, int8_qk, (k2, v2))
     c = (D // num_heads) ** -0.5 * _LOG2E
     out = _attention_out_launch(
         "attention_out_int8_2src_bf16", q, k1, v1, wt, (k2, v2), num_heads,

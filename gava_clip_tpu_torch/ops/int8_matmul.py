@@ -21,12 +21,13 @@ version of the same math:
   * `w8a8_mlp` (a second entry point of the same sources, TPU
     `_w8a8_mlp_kernel`): the same without the residual, the LayerNorm
     optional (`ln=None` quantizes the input rows as they are);
-  * `int8_matmul` / `quantized_linear` (csrc/w8_matmul.cu, TPU `_kernel`):
-    the weight-only GEMM x @ dtype(f32(w_q) * scale) with fp32
-    accumulation. The weight is dequantized with ONE rounding per element
-    (the fp32 product cast to x's dtype), as the TPU kernel does, not with
-    the scale rounded first as the JAX XLA fallback does. The bias is
-    added after the kernel, in the output dtype: two roundings.
+  * `int8_matmul` / `quantized_linear` (csrc/w8_matmul.cu, its fp32 form
+    csrc/w8_matmul_f32.cu; TPU `_kernel`): the weight-only GEMM x @
+    dtype(f32(w_q) * scale) with fp32 accumulation. The weight is
+    dequantized with ONE rounding per element (the fp32 product cast to
+    x's dtype), as the TPU kernel does, not with the scale rounded first
+    as the JAX XLA fallback does. The bias is added after the kernel, in
+    the output dtype: two roundings.
 
 The plain versions of the w8a8 ops follow the KERNEL semantics, not the
 JAX XLA fallback `quantize_act` (which divides by xs and clips): the row
@@ -51,12 +52,14 @@ tensor and the CUDA kernel for a CUDA tensor (or raises: there is no
 fallback); `impl="plain"` runs the plain version on any device, which is
 how a run holds the kernels against it on the card.
 
-Dtypes: each w8a8 kernel has a bf16 form and an fp32 form (the TPU kernels
-emit their input's dtype), picked by the dtype of the rows: all bfloat16 or
-all float32, the extras rows and the residual in the rows' dtype, the
-output in it too. Nothing is cast from one to the other; fp16 or mixed rows
-raise TypeError. The fp32 forms read fp32 rows and store fp32 (launch
-counts `*_f32`); their arithmetic after the load is the bf16 forms'.
+Dtypes: each w8a8 kernel and the w8 GEMM has a bf16 form and an fp32 form
+(the TPU kernels emit their input's dtype), picked by the dtype of the
+rows: all bfloat16 or all float32, the extras rows and the residual in the
+rows' dtype, the output in it too. Nothing is cast from one to the other;
+fp16 or mixed rows raise TypeError. The fp32 forms read fp32 rows and
+store fp32 (launch counts `*_f32`). The w8a8 forms' arithmetic after the
+load is the bf16 forms'; the w8 GEMM's fp32 form runs its products as fp32
+FMA where the bf16 form runs bf16 wgmma.
 
 Int8-forward training of frozen weights (`--int8_frozen`, JAX
 `int8_linear_st`, `int8_qkv3_st`, `int8_mlp_st`) runs B2, B3a and B5 (or
@@ -86,7 +89,7 @@ launch_counts = {"w8a8_matmul": 0, "w8a8_matmul3_cat": 0, "w8a8_matmul3": 0,
                  "w8a8_mlp_res": 0, "w8a8_mlp": 0, "int8_matmul": 0,
                  "w8a8_matmul_f32": 0, "w8a8_matmul3_cat_f32": 0,
                  "w8a8_matmul3_f32": 0, "w8a8_mlp_res_f32": 0,
-                 "w8a8_mlp_f32": 0}
+                 "w8a8_mlp_f32": 0, "int8_matmul_f32": 0}
 
 
 def reset_launch_counts() -> None:
@@ -730,32 +733,34 @@ def w8a8_mlp_cuda(x, fc1, fc2, ln=None):
 
 
 def int8_matmul_cuda(x, kernel):
-    """Launch csrc/w8_matmul.cu: x (M, K) bf16 x kernel leaf {'q_t': the
-    w8 kernel layout of the int8 weight, 'scale': fp32 (1, N)} -> (M, N)
-    bf16. The kernel loads x by TMA, which takes rows of a multiple of 16
-    bytes at 16-byte aligned addresses: other rows are copied, zero-padded
-    to a multiple of 8 values, first (the padding multiplies zero weights)."""
+    """Launch csrc/w8_matmul.cu (bf16 x) or csrc/w8_matmul_f32.cu (fp32 x):
+    x (M, K) x kernel leaf {'q_t': the w8 kernel layout of the int8
+    weight, 'scale': fp32 (1, N)} -> (M, N) in x's dtype, counted under
+    `int8_matmul` or `int8_matmul_f32`; other dtypes raise TypeError (the
+    w8a8 wrappers' rule, `_rows_dtype`). Both kernels load x in 16-byte
+    rows at 16-byte aligned addresses (TMA in bf16, float4 in fp32): other
+    rows are copied first, zero-padded to a multiple of 8 bf16 or 4 fp32
+    values (the padding multiplies zero weights)."""
+    form = _rows_dtype("int8_matmul", x)
     _check_cuda("int8_matmul", x.device, (x, kernel.get("q_t"),
                                           kernel["scale"]))
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"int8_matmul kernel takes bfloat16 activations, "
-                        f"got {x.dtype}; its float32 form is ROADMAP A12 "
-                        f"(run with --use_bf16 on the card)")
     x = x.contiguous()
     M, K = x.shape
     N = kernel["scale"].numel()
     wt = _kernel_weight("int8_matmul", kernel, K, N, key="q_t")
     s = _f32_vec(kernel["scale"], N, "scale")
-    if K % 8 or x.data_ptr() % 16:
-        padded = x.new_zeros((M, K + -K % 8))
+    per_row = 16 // x.element_size()
+    if K % per_row or x.data_ptr() % 16:
+        padded = x.new_zeros((M, K + -K % per_row))
         padded[:, :K] = x
         x = padded
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M and N:
-        _launch("w8_matmul", "w8_matmul_bf16", x.device, x.data_ptr(),
+        lib = "w8_matmul" if form == "bf16" else "w8_matmul_f32"
+        _launch(lib, f"w8_matmul_{form}", x.device, x.data_ptr(),
                 wt.data_ptr(), s.data_ptr(), out.data_ptr(), M, x.shape[1],
                 N)
-        launch_counts["int8_matmul"] += 1
+        launch_counts[_counted("int8_matmul", form)] += 1
     return out
 
 

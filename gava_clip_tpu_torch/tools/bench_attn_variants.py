@@ -237,8 +237,8 @@ def mega_layer_cuda(x, extras, attn_p, mlp_p, ln1, ln2, heads=HEADS,
                  *(l["bias"] for l in leaves), *ln1, *ln2))
     if x.dtype != torch.bfloat16 or extras.dtype != torch.bfloat16:
         raise TypeError(f"mega layer kernel takes bfloat16 rows, got "
-                        f"{x.dtype} / {extras.dtype}; its float32 form is "
-                        f"ROADMAP A12")
+                        f"{x.dtype} / {extras.dtype}: the tool runs its "
+                        f"layer in bf16, as the JAX tool does")
     F_, lx, d = x.shape
     le = extras.shape[1]
     wt = [_kernel_weight("mega_layer", attn_p[n]["kernel"], d, d)

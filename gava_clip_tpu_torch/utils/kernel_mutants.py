@@ -12,8 +12,8 @@ carries their hash), so the real build is never touched. A mutant is
 rejected when its phase raises and a check on the kernel under test
 reports FAIL; those lines are printed. The script exits 1 if a mutant is
 not rejected. The fp32 mutants (`f32_*` of the attention kernels, `f32w8_*`
-of the w8a8 kernels) are also run by chip_smoke.py's f32-mutants phase,
-all at once.
+of the w8a8 kernels, `f32b9_*`, `f32b11_*`, `f32b12_*` of the fp32 serving
+forms) are also run by chip_smoke.py's f32-mutants phase, all at once.
 """
 
 import os
@@ -37,6 +37,7 @@ _MEGA = "gava_clip_tpu_torch/csrc/mega_layer.cu"
 _B10 = "gava_clip_tpu_torch/csrc/fused_extras.cu"
 _B7B = "gava_clip_tpu_torch/csrc/attention_bwd.cuh"
 _F32 = "gava_clip_tpu_torch/csrc/attention_f32.cu"
+_B9F32 = "gava_clip_tpu_torch/csrc/w8_matmul_f32.cu"
 _ROUND = "__bfloat162float(__float2bfloat16({}))"
 # an fp32 value with its 13 low mantissa bits cut: what a TF32 tensor-core
 # product reads of an fp32 operand
@@ -292,6 +293,29 @@ MUTANTS = {
                 "acc[i][j] = fmaf(" + _TF32.format("ar[i]") + ", "
                 + _TF32.format("br[j]") + ", acc[i][j]);")],
         "phase_w8a8_f32", "attention_out_int8_f32 B="),
+    # the fp32 serving forms (chip_smoke's serving-f32 phase): B9 in fp32
+    # with every product's operands rounded to TF32
+    "f32b9_products_tf32": (
+        _B9F32, [("acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);",
+                  "acc[i][j] = fmaf(" + _TF32.format("ar[i]") + ", "
+                  + _TF32.format("br[j]") + ", acc[i][j]);")],
+        "phase_serving_f32", "int8_matmul_f32 M="),
+    # B11 in fp32: the codes made with the reciprocal, rint(x * (rcp(qs) *
+    # 127)), which rounds twice where the plain version divides once
+    "f32b11_codes_reciprocal": (
+        _F32, [("const float inv = __fdiv_rn(127.f, qs);",
+                "const float inv = __fmul_rn(__frcp_rn(qs), 127.f);")],
+        "phase_serving_f32", "attention_out_int8_qk8_f32 "),
+    # B11 in fp32: the rescale in another order, s32 * ((qs * (c / 127^2))
+    # * ks)
+    "f32b11_rescale_order": (
+        _F32, [("return __fmul_rn(__fmul_rn(s32, qf), ks);",
+                "return __fmul_rn(s32, __fmul_rn(qf, ks));")],
+        "phase_serving_f32", "attention_out_int8_qk8_f32 "),
+    # B12 in fp32: the second source's rows read from the first
+    "f32b12_second_source_from_first": (
+        _F32, [("r < L ? p2 + (r - L1) * ld2", "r < L ? p1 + (r - L1) * ld1")],
+        "phase_serving_f32", "attention_out_int8_2src_f32 "),
 }
 
 

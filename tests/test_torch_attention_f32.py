@@ -9,9 +9,16 @@ their fp32 mutants (utils/kernel_mutants.py) rejected by the same limit.
 ex2.approx becomes exp2f here, so this checks the kernels' indexing,
 masking, tiling and summation, not the card's instructions.
 
+The same for the forms the w8a8 serving fusion's fp32 path adds: the
+int8-score form (B11), whose codes and exp2 arguments (the check entry
+`attention_f32_qk8_args`) equal the plain version's bit for bit on random
+rows and on rows whose values sit on the codes' rounding ties, and the
+two-source form (B12), equal bit for bit to the one-source forms on the
+concatenated keys; their mutants fail those checks.
+
 Also the dtype rules of the attention wrappers: q/k/v all bfloat16 or all
-float32, and fp32 into a kernel without an fp32 form (B4's int8 QK^T form
-B11, the two-source B12) raises naming its ROADMAP item.
+float32 (every form, B11 and B12 included, takes both), fp16 or mixed
+raise TypeError.
 """
 
 import ctypes
@@ -23,9 +30,11 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from gava_clip_tpu_torch.ops import _cuda
 from gava_clip_tpu_torch.ops import flash_attention as tfa
 from gava_clip_tpu_torch.utils import kernel_mutants
+from tests.test_torch_bounds import module_deadline  # noqa: F401
 
 # chip_smoke.F32_REL: fp32 summation order and exp2, ~1e-6 of the scale; a
 # TF32 product ~1e-3
@@ -127,15 +136,33 @@ def _emulated(src: str) -> str:
     return src
 
 
-def _build(tmp, name, src):
+# What the int8-score form (and csrc/w8_matmul_f32.cu) uses beyond the
+# header: the _rn intrinsics as one fp32 operation each (g++ contracts
+# nothing into an FMA for x86-64 without -mfma), the 16-byte integer vector.
+# Kept out of _EMU_HEADER, which tests/test_torch_w8a8_rows.py extends with
+# its own definitions of these.
+_EMU_EXTRA = r"""
+#include "cuda_runtime.h"
+#define __restrict__
+struct uint4 { unsigned x, y, z, w; };
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __frcp_rn(float a) { return 1.0f / a; }
+"""
+
+
+def _build(tmp, name, src, library="attention_f32"):
+    """The emulated source as a shared library bound with `library`'s
+    ctypes signatures."""
     (tmp / "cuda_runtime.h").write_text(_EMU_HEADER)
-    (tmp / f"{name}.cpp").write_text(_emulated(src))
+    (tmp / f"{name}.cpp").write_text(_EMU_EXTRA + _emulated(src))
     so = tmp / f"lib{name}.so"
     subprocess.run(["g++", "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC",
                     "-Wno-unknown-pragmas", "-I", str(tmp), "-o", str(so),
-                    str(tmp / f"{name}.cpp")], check=True, capture_output=True)
+                    str(tmp / f"{name}.cpp")], check=True, capture_output=True,
+                   timeout=300)
     lib = ctypes.CDLL(str(so))
-    for fn, (argtypes, restype) in _cuda._SIGNATURES["attention_f32"].items():
+    for fn, (argtypes, restype) in _cuda._SIGNATURES[library].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
     return lib
@@ -290,9 +317,9 @@ def test_f32_mutants_fail_the_limit(emu, name):
 def test_attention_wrappers_take_bf16_or_fp32_and_refuse_the_rest():
     """The dtype rules hold before any device work: all bfloat16 or all
     float32 (then a CPU tensor is refused for want of a card), mixed or
-    half inputs raise TypeError. The w8a8 attention + out-projection (B4)
-    takes fp32 as well; its int8 QK^T form (B11) and its two-source entry
-    (B12), which have no fp32 form, raise naming their ROADMAP item."""
+    half inputs raise TypeError. The w8a8 attention + out-projection takes
+    fp32 in every form: B4, its int8 QK^T form (B11) and its two-source
+    entry (B12) with either score."""
     x = torch.zeros(1, 5, 128)
     op = {"kernel": {"qa": torch.zeros(128, 128, dtype=torch.int8),
                      "scale": torch.ones(1, 128)}, "bias": torch.zeros(128)}
@@ -300,14 +327,123 @@ def test_attention_wrappers_take_bf16_or_fp32_and_refuse_the_rest():
         t = x.to(dtype)
         with pytest.raises(ValueError, match="CUDA"):
             tfa.packed_attention_cuda(t, t, t, 2)
-        with pytest.raises(ValueError, match="CUDA"):
-            tfa.attention_out_int8_cuda(t, t, t, 2, op, t)
+        for int8_qk in (False, True):
+            with pytest.raises(ValueError, match="CUDA"):
+                tfa.attention_out_int8_cuda(t, t, t, 2, op, t,
+                                            int8_qk=int8_qk)
+            with pytest.raises(ValueError, match="CUDA"):
+                tfa.attention_out_int8_2src_cuda(t, t, t, t, t, 2, op, t,
+                                                 int8_qk=int8_qk)
     with pytest.raises(TypeError, match="all bfloat16 or all float32"):
         tfa.packed_attention_den_cuda(x, x.bfloat16(), x, 2)
     with pytest.raises(TypeError, match="all bfloat16 or all float32"):
         tfa.streaming_attention_cuda(x.half(), x.half(), x.half(), 2, True)
-    with pytest.raises(TypeError, match="ROADMAP A12"):
-        tfa.attention_out_int8_cuda(x, x, x, 2, op, x, int8_qk=True)
-    with pytest.raises(TypeError, match="ROADMAP A12"):
-        tfa.attention_out_int8_2src_cuda(x, x, x, x, x, 2, op, x)
+    with pytest.raises(TypeError, match="all bfloat16 or all float32"):
+        tfa.attention_out_int8_cuda(x.half(), x.half(), x.half(), 2, op,
+                                    x.half(), int8_qk=True)
+    with pytest.raises(TypeError, match="all bfloat16 or all float32"):
+        tfa.attention_out_int8_2src_cuda(x, x.bfloat16(), x, x, x, 2, op, x)
     assert set(tfa.launch_counts.values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# the int8-score form (B11) and the two-source form (B12)
+# ---------------------------------------------------------------------------
+
+def _a12_inputs(seed, B, Lq, Lk, H, ties):
+    """q, k, v (B, L, H*64) fp32; `ties`: q and k rows from
+    chip_smoke.int8_qk_tie_rows (values on their codes' rounding ties)."""
+    rs = np.random.RandomState(seed)
+    D = H * 64
+    if ties:
+        q = chip_smoke.int8_qk_tie_rows(rs, B * Lq * H).reshape(B, Lq, D)
+        k = chip_smoke.int8_qk_tie_rows(rs, B * Lk * H).reshape(B, Lk, D)
+    else:
+        q, k = rs.randn(B, Lq, D), rs.randn(B, Lk, D)
+    v = rs.randn(B, Lk, D)
+    return tuple(torch.from_numpy(np.asarray(a, np.float32))
+                 for a in (q, k, v))
+
+
+def _run_a12(lib, B, Lq, Lk, H, ties, seed=0):
+    """The int8-score and two-source entries at one shape: {'args': the
+    int8 form's exp2 arguments equal the plain version's bit for bit,
+    'packed_attention_qk8_f32' / 'packed_attention_2src_f32': max err /
+    scale of B11 and of B12 in its int8 form against the plain int8
+    version, 'two': both two-source forms equal the one-source forms on
+    the concatenated keys bit for bit}. The second source is a column view
+    of one (B, L2, 2D) projection (row stride 2D) and starts inside a key
+    tile."""
+    q, k, v = _a12_inputs(seed, B, Lq, Lk, H, ties)
+    D, Dh = H * 64, 64
+    c = Dh ** -0.5 * tfa._LOG2E
+    cq = c / (127.0 * 127.0)
+    P = torch.Tensor.data_ptr
+    res = {}
+    args = torch.empty(B, H, Lq, Lk)
+    assert lib.attention_f32_qk8_args(
+        P(q), P(k), P(args), B, Lq, Lk, H, Dh, q.stride(0), q.stride(1),
+        k.stride(0), k.stride(1), cq, None) == 0
+    want = tfa._int8_qk_exp2_arg(tfa._heads(q, H), tfa._heads(k, H), c)
+    res["args"] = torch.equal(args, want)
+    ref = tfa._onepass_attention_den_f32(q, k, v, H, int8_qk=True)[0]
+    spread = tfa._onepass_attention_den_f32(q, k, v.abs(), H,
+                                            int8_qk=True)[0]
+    L1 = Lk // 3 + 1
+    k1, v1 = k[:, :L1].contiguous(), v[:, :L1].contiguous()
+    kv2 = torch.cat([k[:, L1:], v[:, L1:]], dim=-1)
+    k2, v2 = kv2[..., :D], kv2[..., D:]
+    res["two"] = True
+    for int8_qk in (0, 1):
+        one, two = torch.empty(B, Lq, D), torch.empty(B, Lq, D)
+        entry = lib.packed_attention_qk8_f32 if int8_qk \
+            else lib.packed_attention_f32
+        assert entry(P(q), P(k), P(v), P(one), B, Lq, Lk, H, Dh,
+                     *tfa._qkv_strides(q, k, v), one.stride(0),
+                     one.stride(1), cq if int8_qk else c, None) == 0
+        assert lib.packed_attention_2src_f32(
+            P(q), P(k1), P(v1), P(k2), P(v2), P(two), B, Lq, L1, Lk - L1, H,
+            Dh, q.stride(0), q.stride(1), k1.stride(0), k1.stride(1),
+            v1.stride(0), v1.stride(1), k2.stride(0), k2.stride(1),
+            v2.stride(0), v2.stride(1), two.stride(0), two.stride(1),
+            cq if int8_qk else c, int8_qk, None) == 0
+        res["two"] = res["two"] and torch.equal(one, two)
+        if int8_qk:
+            res["packed_attention_qk8_f32"] = (
+                (one - ref).abs() / spread).max().item()
+            res["packed_attention_2src_f32"] = (
+                (two - ref).abs() / spread).max().item()
+    return res
+
+
+# (B, Lq, Lk, H, tie rows): ragged tiles, more key than query tiles with
+# the second source starting inside the first key tile, Lk at a tile's edge
+_A12_SHAPES = [(2, 13, 21, 2, False), (1, 70, 130, 1, True),
+               (1, 65, 64, 2, True)]
+
+
+@pytest.mark.parametrize("shape", _A12_SHAPES)
+def test_int8_qk_and_two_source_forms_match_plain_versions(emu, shape):
+    res = _run_a12(emu[1], *shape)
+    assert res["args"]
+    assert res["two"]
+    for name in ("packed_attention_qk8_f32", "packed_attention_2src_f32"):
+        assert res[name] <= F32_REL, (name, res[name])
+
+
+@pytest.mark.parametrize("name", [n for n in kernel_mutants.MUTANTS
+                                  if n.startswith(("f32b11_", "f32b12_"))])
+def test_int8_qk_and_two_source_mutants_fail(emu, name):
+    """B11's mutants (codes by the reciprocal, the rescale in another
+    order) change the exp2 arguments at one of the shapes; B12's (the
+    second source read from the first) the two-source output."""
+    tmp, _ = emu
+    path, edits, _, _ = kernel_mutants.MUTANTS[name]
+    assert path.endswith(_SOURCE.name)
+    src = _SOURCE.read_text()
+    for old, new in edits:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    lib = _build(tmp, name, src)
+    check = "args" if name.startswith("f32b11_") else "two"
+    assert not all(_run_a12(lib, *shape)[check] for shape in _A12_SHAPES)

@@ -31,6 +31,7 @@ from gava_clip_tpu_torch.utils import config as tconfig
 from gava_clip_tpu_torch.utils import jax_bridge
 from gava_clip_tpu_torch.utils import torch_convert as tconvert
 from tests.test_cli_train import _make_assets
+from tests.test_torch_bounds import module_deadline  # noqa: F401
 
 NAMES = ["normal", "slight difficulty", "moderate difficulty"]
 TINY = [

@@ -19,7 +19,6 @@ import os.path as osp
 import signal
 import subprocess
 import sys
-import time
 
 import numpy as np
 import pytest
@@ -49,6 +48,7 @@ from gava_clip_tpu_torch.train import checkpoint as tckpt
 from gava_clip_tpu_torch.utils import config as tconfig
 from gava_clip_tpu_torch.utils import jax_bridge
 from tests.test_cli_train import _make_assets, _make_dataset
+from tests.test_torch_bounds import ChildOutput, module_deadline  # noqa: F401
 
 CPU = ["--device", "cpu"]
 NAMES = ["normal", "slight difficulty", "moderate difficulty"]
@@ -342,19 +342,11 @@ def test_sigterm_checkpoints_and_exits_cleanly(tmp_path):
     proc = subprocess.Popen([sys.executable, "-c", _RUNNER] + argv + CPU,
                             cwd=str(tmp_path), stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True, env=env)
-    saw_step, lines = False, []
-    deadline = time.time() + 300
-    while time.time() < deadline:
-        line = proc.stdout.readline()
-        if not line:
-            break
-        lines.append(line)
-        if "step 2 " in line:
-            saw_step = True
-            proc.send_signal(signal.SIGTERM)
-            break
-    assert saw_step, "never reached step 2:\n" + "".join(lines[-30:])
-    out, _ = proc.communicate(timeout=120)
+    child = ChildOutput(proc)
+    if not child.until("step 2 ", 300):
+        child.abandon("never reached step 2 within 300 s")
+    proc.send_signal(signal.SIGTERM)
+    out = child.finish(120)
     assert proc.returncode == 0, out[-2000:]
     assert "[preempt]" in out, out[-2000:]
     logdir = next((tmp_path / "logs").iterdir())

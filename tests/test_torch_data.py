@@ -36,6 +36,7 @@ from gava_clip_tpu_torch.data import sampler as tsampler
 from gava_clip_tpu_torch.data import video as tvideo
 from gava_clip_tpu_torch.train import metrics as tmetrics
 from gava_clip_tpu_torch.utils import config as tconfig
+from tests.test_torch_bounds import bounded_list, module_deadline  # noqa: F401
 
 
 def _write_video(path, n=12, seed=0, size=(48, 40)):
@@ -261,7 +262,10 @@ def test_loader_batches_equal_jax(fold, tmp_path, which):
             "eval": lambda m, c: m.create_eval_loader(c),
             "memory": lambda m, c: m.create_memory_loader(c)}[which]
     jb = list(make(jld, _loader_cfg(jld, root, **extra)))
-    tb = list(make(tld, _loader_cfg(tld, root, **extra)))
+    # the port's loader ends within its bound and leaves no thread behind
+    before = threading.active_count()
+    tb = bounded_list(lambda: make(tld, _loader_cfg(tld, root, **extra)))
+    assert _wait_for(lambda: threading.active_count() <= before)
     assert len(tb) == len(jb) > 0
     for a, b in zip(tb, jb):
         assert set(a) == set(b)

@@ -27,6 +27,7 @@ from gava_clip_tpu_torch.models import decap as tdecap
 from gava_clip_tpu_torch.text import ClipBpeTokenizer
 from gava_clip_tpu_torch.train.state import tree_leaves
 from gava_clip_tpu_torch.utils import jax_bridge
+from tests.test_torch_bounds import module_deadline  # noqa: F401
 
 JCFG = jdecap.DecapConfig(vocab_size=49408 + 500, n_layer=2, n_head=2,
                           n_embd=64, n_positions=32, prefix_size=16)

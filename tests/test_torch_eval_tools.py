@@ -24,6 +24,7 @@ from gava_clip_tpu_torch.models import memory_prompt as tmp
 from gava_clip_tpu_torch.models.text import TextConfig
 from gava_clip_tpu_torch.utils import aggregation as tagg
 from gava_clip_tpu_torch.utils import jax_bridge
+from tests.test_torch_bounds import module_deadline  # noqa: F401
 
 JCFG = jtext.TextConfig(embed_dim=32, width=32, heads=2, layers=2)
 CFG = TextConfig(embed_dim=32, width=32, heads=2, layers=2)

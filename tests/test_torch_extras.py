@@ -21,6 +21,7 @@ from gava_clip_tpu_torch.models.vision import (VisionConfig, _block,
 from gava_clip_tpu_torch.ops import extras_kernel as tek
 from gava_clip_tpu_torch.ops.int8_matmul import with_kernel_layout
 from gava_clip_tpu_torch.ops.quant import quantize_tower_params
+from tests.test_torch_bounds import module_deadline  # noqa: F401
 
 # (Bb, Tb, G, heads, D): the geometries of the JAX package's fuzz test, and
 # one whose head dim is no power of two
@@ -254,5 +255,6 @@ def test_env_switch():
         env = dict(os.environ, GAVA_FUSED_EXTRAS=flags[0],
                    GAVA_INT8_QK=flags[1], PYTHONPATH=root)
         out = subprocess.run([sys.executable, "-c", code], env=env,
-                             capture_output=True, text=True, check=True)
+                             capture_output=True, text=True, check=True,
+                             timeout=120)
         assert out.stdout.strip() == want

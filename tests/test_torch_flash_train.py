@@ -18,6 +18,7 @@ from jax.experimental.pallas import tpu as pltpu
 from gava_clip_tpu.ops import flash_attention as jflash
 from gava_clip_tpu_torch.ops import attention as tattn
 from gava_clip_tpu_torch.ops import flash_attention as tflash
+from tests.test_torch_bounds import module_deadline  # noqa: F401
 
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # what one flipped bf16 rounding may move: both sides round e, ds and

@@ -40,6 +40,7 @@ from gava_clip_tpu_torch.utils import jax_bridge
 from tests.test_torch_train_step import (_batch, _jb, _leaves_with_path,
                                          _tb, models)  # noqa: F401
 from tests.test_torch_w8a8 import _bf16_ulp, _j, _np, _qweight, _t
+from tests.test_torch_bounds import module_deadline  # noqa: F401
 
 DTYPES = ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16))
 

@@ -15,6 +15,7 @@ import torch
 from gava_clip_tpu_torch.ops import _cuda
 from gava_clip_tpu_torch.ops import flash_attention as tfa
 from gava_clip_tpu_torch.ops import int8_matmul as tim
+from tests.test_torch_bounds import module_deadline  # noqa: F401
 
 _H100_SMS = 132                 # SMs of an H100 SXM
 _H100_SMEM_OPTIN = 232448       # shared bytes one block may opt in to
@@ -571,7 +572,8 @@ _BLOCK_RESERVED = 1024          # shared bytes the runtime keeps per block
 def test_attention_f32_layout_is_the_kernel_source_s():
     """The plan's constants are the ones attention_f32_layout reports: 64-row
     tiles padded to 68 floats, 256 threads, and each kernel's shared bytes
-    as its tiles and row floats add up; every kernel fits one block's
+    as its tiles and row floats add up (the forward's two floats a row are
+    its int8-score form's q and key scales); every kernel fits one block's
     limit, the forward three blocks to an SM and the dq kernel two."""
     c = _cuda_constants("attention_f32.cu")
     assert tfa._F32_LAYOUT == (c["kT"], c["kThreads"], c["kFwdSmemBytes"],
@@ -581,7 +583,8 @@ def test_attention_f32_layout_is_the_kernel_source_s():
     assert c["kLD"] * 4 % 16 == 0                  # float4 rows
     assert c["kThreads"] == (c["kT"] // 4) ** 2     # a 4 x 4 patch a thread
     assert (c["kFwdSmemBytes"], c["kDqSmemBytes"], c["kDkvSmemBytes"]) == (
-        4 * tile, 6 * tile + 2 * c["kT"] * 4, 8 * tile + 2 * c["kT"] * 4)
+        4 * tile + 2 * c["kT"] * 4, 6 * tile + 2 * c["kT"] * 4,
+        8 * tile + 2 * c["kT"] * 4)
     for smem, per_sm in ((c["kFwdSmemBytes"], 3), (c["kDqSmemBytes"], 2),
                          (c["kDkvSmemBytes"], 1)):
         assert smem <= _H100_SMEM_OPTIN
@@ -635,6 +638,21 @@ def test_attention_f32_layout_check_before_first_launch():
     with pytest.raises(RuntimeError, match="layout"):
         tfa._check_layout("fake_f32", _FakeLayoutLib(fn, bad), fn, want)
     tfa._bwd_layout_checked.discard("fake_f32")
+
+
+def test_w8_f32_tile_is_the_w8_kernel_layout_s():
+    """B9's fp32 form reads the bf16 form's weight leaf: a block's columns
+    and k step are one tile of the w8 kernel layout (128 x 64, 8,192
+    bytes), 256 threads an 8 x 8 patch each of its 128 x 128 outputs, and
+    its two fp32 tiles (rows padded to 16-byte multiples) fit two blocks
+    to an SM."""
+    c = _cuda_constants("w8_matmul_f32.cu")
+    assert (c["kBN"], c["kBK"]) == (tim._W8_TILE_N, tim._W8_TILE_K)
+    assert c["kWTileBytes"] == tim._W8_TILE_N * tim._W8_TILE_K == 8192
+    assert c["kThreads"] * 64 == c["kBM"] * c["kBN"]
+    assert c["kLDS"] * 4 % 16 == 0 and c["kLDS"] >= max(c["kBM"], c["kBN"])
+    assert c["kSmemBytes"] == 2 * c["kBK"] * c["kLDS"] * 4
+    assert 2 * (c["kSmemBytes"] + _BLOCK_RESERVED) <= _SM90_SMEM_PER_SM
 
 
 # ---------------------------------------------------------------------------

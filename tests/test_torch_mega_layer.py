@@ -31,6 +31,7 @@ import jax.numpy as jnp
 from gava_clip_tpu.ops import int8_matmul as jim
 from gava_clip_tpu_torch.ops import int8_matmul as tim
 from gava_clip_tpu_torch.tools import bench_attn_variants as tool
+from tests.test_torch_bounds import module_deadline  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _UNITS, _FAR_SHARE = 20.0, 0.15

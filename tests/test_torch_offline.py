@@ -43,6 +43,7 @@ from tests.test_offline import synthetic_walk
 from tests.test_torch_train_step import LOSS_KW, _jb, _tb
 from tests.test_torch_train_step import _batch as _tsbatch
 from tests.test_torch_train_step import models  # noqa: F401  (fixture)
+from tests.test_torch_bounds import module_deadline  # noqa: F401
 
 JCFG = jtext.TextConfig(embed_dim=32, width=32, heads=2, layers=2)
 CFG = TextConfig(embed_dim=32, width=32, heads=2, layers=2)

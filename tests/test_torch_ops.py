@@ -23,6 +23,7 @@ from gava_clip_tpu_torch.ops import attention as tattn
 from gava_clip_tpu_torch.ops import flash_attention as tflash
 from gava_clip_tpu_torch.ops import linear as tlin
 from gava_clip_tpu_torch.ops import norm as tnorm
+from tests.test_torch_bounds import module_deadline  # noqa: F401
 
 TORCH_DTYPE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 

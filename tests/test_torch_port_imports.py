@@ -17,6 +17,7 @@ from gava_clip_tpu_torch.data import video as tvideo
 from gava_clip_tpu_torch.serve import VideoClassifier
 from gava_clip_tpu_torch.utils import flagship as tflagship
 from gava_clip_tpu_torch.utils.device import resolve_device
+from tests.test_torch_bounds import module_deadline  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "gava_clip_tpu_torch")

@@ -16,6 +16,7 @@ from gava_clip_tpu.models import prompts as jprompts
 from gava_clip_tpu.utils import flagship as jflagship
 from gava_clip_tpu_torch.models import prompts as tprompts
 from gava_clip_tpu_torch.utils import flagship as tflagship
+from tests.test_torch_bounds import module_deadline  # noqa: F401
 
 NAMES = ["normal", "slight difficulty", "moderate_difficulty"]
 VERSIONS = ("v1", "v2", "v3")

@@ -30,6 +30,7 @@ from gava_clip_tpu_torch.utils import jax_bridge
 from tests.test_torch_train_step import (LOSS_KW, _batch, _jb,
                                          _leaves_with_path, _port_grads,
                                          models)  # noqa: F401
+from tests.test_torch_bounds import module_deadline  # noqa: F401
 
 POLICIES = ("full", "save_attn", "save_attn_qkv", "save_attn_mlp", "dots")
 LAYERS = 2

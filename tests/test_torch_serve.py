@@ -22,6 +22,7 @@ from gava_clip_tpu_torch.models.vita_clip import VitaClip, VitaClipConfig
 from gava_clip_tpu_torch.serve import VideoClassifier
 from gava_clip_tpu_torch.server import MicroBatcher, serve
 from gava_clip_tpu_torch.utils.jax_bridge import params_from_jax
+from tests.test_torch_bounds import module_deadline, stop_server  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAMES = ["normal", "slight", "moderate"]
@@ -162,11 +163,7 @@ def test_server_endpoints(clf):
         assert stats["requests"] >= 1 and stats["posts"] >= 1
         assert isinstance(httpd.batcher, MicroBatcher)
     finally:
-        httpd.shutdown()
-        httpd.server_close()
-        httpd.batcher.stop()
-        th.join(timeout=10)
-    assert not th.is_alive()
+        stop_server(httpd, th)
 
 
 def test_port_imports_without_jax():

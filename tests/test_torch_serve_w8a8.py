@@ -34,6 +34,7 @@ from gava_clip_tpu_torch.ops.quant import quantize_tower_params
 from gava_clip_tpu_torch.serve import VideoClassifier
 from gava_clip_tpu_torch.utils import flagship as tflagship
 from gava_clip_tpu_torch.utils.jax_bridge import params_from_jax, params_to_jax
+from tests.test_torch_bounds import module_deadline, stop_server  # noqa: F401
 
 NAMES = ["normal", "slight", "moderate"]
 TINY = dict(input_size=(32, 32), num_frames=2, feature_dim=32,
@@ -287,8 +288,4 @@ def test_server_quantize_w8a8(models, monkeypatch, tmp_path):
             patch_major=True, device="cpu").classify_clips(clip[None])[0]
         np.testing.assert_allclose(body["probs"], ref, atol=1e-6)
     finally:
-        httpd.shutdown()
-        httpd.server_close()
-        httpd.batcher.stop()
-        th.join(timeout=10)
-    assert not th.is_alive()
+        stop_server(httpd, th)

@@ -16,6 +16,7 @@ from gava_clip_tpu.text import tokenizer as jtok
 from gava_clip_tpu_torch.models import text as ttext
 from gava_clip_tpu_torch.text import tokenizer as ttok
 from gava_clip_tpu_torch.utils import jax_bridge
+from tests.test_torch_bounds import module_deadline  # noqa: F401
 
 JCFG = jtext.TextConfig(embed_dim=24, context_length=20, vocab_size=120,
                         width=32, heads=2, layers=3)

@@ -33,6 +33,7 @@ from gava_clip_tpu.ops.quant import quantize_weight as jquantize_weight
 from gava_clip_tpu_torch.models import text as ttext
 from gava_clip_tpu_torch.ops import int8_matmul as tim
 from gava_clip_tpu_torch.utils import jax_bridge
+from tests.test_torch_bounds import module_deadline  # noqa: F401
 
 JCFG = jtext.TextConfig(embed_dim=64, context_length=77, vocab_size=100,
                         width=512, heads=8, layers=2)

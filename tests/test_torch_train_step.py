@@ -32,6 +32,7 @@ from gava_clip_tpu_torch.train import state as tstate
 from gava_clip_tpu_torch.train import step as tstep
 from gava_clip_tpu_torch.utils import flagship as tflagship
 from gava_clip_tpu_torch.utils import jax_bridge
+from tests.test_torch_bounds import module_deadline  # noqa: F401
 
 N_CLS = 3
 LOSS_KW = dict(num_classes=3, focal_ordinal=True, fo_beta=0.2,

@@ -23,6 +23,7 @@ from gava_clip_tpu_torch.models.vita_clip import (VitaClip, VitaClipConfig,
                                                   init_vita_clip_params)
 from gava_clip_tpu_torch.utils import flagship as tflagship
 from gava_clip_tpu_torch.utils.jax_bridge import params_from_jax, params_to_jax
+from tests.test_torch_bounds import module_deadline  # noqa: F401
 
 TINY = dict(input_size=(32, 32), num_frames=2, feature_dim=32,
             patch_size=(16, 16), heads=2, layers=2, mlp_factor=2.0,

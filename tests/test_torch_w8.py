@@ -42,6 +42,7 @@ from gava_clip_tpu_torch.ops.activations import quick_gelu
 from gava_clip_tpu_torch.serve import VideoClassifier
 from gava_clip_tpu_torch.utils import flagship as tflagship
 from gava_clip_tpu_torch.utils.jax_bridge import params_from_jax, params_to_jax
+from tests.test_torch_bounds import module_deadline, stop_server  # noqa: F401
 
 NAMES = ["normal", "slight", "moderate"]
 TINY = dict(input_size=(32, 32), num_frames=2, feature_dim=32,
@@ -444,6 +445,31 @@ def test_w8_classifier_matches_jax(models, forced_kernels, quantize,
     np.testing.assert_allclose(np.log(p_t), np.log(p_j), atol=0.15)
 
 
+@pytest.mark.parametrize("patch_major", [False, True])
+def test_w8_classifier_matches_jax_f32(models, forced_kernels, patch_major):
+    """The w8 classifier in fp32 (compute_dtype float32, the dtype of an
+    fp32 run's `cli.evaluate --quantize_eval w8`): the JAX one with its
+    Pallas GEMM forced in fp32 against the port's, which on the card runs
+    csrc/w8_matmul_f32.cu (its plain version here). The same dequantized
+    weights and fp32 sums in other orders, ~1e-7 of a value, which the
+    logit scale (100) carries into the logs of the probabilities (4e-6
+    measured): 1e-6 on the probabilities, 5e-5 on their logs."""
+    jmodel, model = models
+    clips = _clips(2, 6)
+    p_j = JVideoClassifier.from_model(
+        jmodel, NAMES, batch_size=4, quantize="w8", patch_major=patch_major,
+        compute_dtype=jnp.float32).classify_clips(clips)
+    tim.reset_launch_counts()
+    clf = VideoClassifier.from_model(
+        model, NAMES, batch_size=4, quantize="w8", patch_major=patch_major,
+        compute_dtype=torch.float32, device="cpu")
+    p_t = clf.classify_clips(clips)
+    assert set(tim.launch_counts.values()) == {0}       # CPU: plain versions
+    assert p_t.shape == (6, 3) and p_t.dtype == np.float32
+    np.testing.assert_allclose(p_t, p_j, atol=1e-6)
+    np.testing.assert_allclose(np.log(p_t), np.log(p_j), atol=5e-5)
+
+
 def test_w8_classifier_weights(models):
     """In w8 mode nothing is cast to bf16: int8 kernels under attn / mlp
     with the tiles their CUDA kernel reads, fp32 scales and every other leaf
@@ -499,10 +525,6 @@ def test_server_quantize_w8(models, monkeypatch, tmp_path):
             device="cpu").classify_clips(clip[None])[0]
         np.testing.assert_allclose(body["probs"], ref, atol=1e-6)
     finally:
-        httpd.shutdown()
-        httpd.server_close()
-        httpd.batcher.stop()
-        th.join(timeout=10)
-    assert not th.is_alive()
+        stop_server(httpd, th)
     with pytest.raises(SystemExit):
         tserver.make_server(["--quantize", "w4", "--device", "cpu"])

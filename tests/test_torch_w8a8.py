@@ -30,6 +30,7 @@ from gava_clip_tpu_torch.ops import int8_matmul as tim
 from gava_clip_tpu_torch.ops import linear as tlin
 from gava_clip_tpu_torch.ops import quant as tquant
 from gava_clip_tpu_torch.ops.activations import quick_gelu
+from tests.test_torch_bounds import module_deadline  # noqa: F401
 
 
 @pytest.fixture

@@ -16,7 +16,8 @@ kernel's, and almost all within 2 bf16 ulp.
 
 The `_f32` cases feed both sides fp32 rows (the kernels then emit fp32, as
 the TPU kernels emit their input's dtype): B2 at the patch embed and the
-text fc2, B3 / B3a, B4 (fp32 scores) and B5 / B5a. Their tolerance is the
+text fc2, B3 / B3a, B4 (fp32 scores), B11 (B4 with int8 scores), B12 (two
+sources, both score forms) and B5 / B5a. Their tolerance is the
 fp32 one of tests/test_torch_int8_train.py `_check_fwd`: 2 "ulp" of 2^-21
 of the output's largest value (sums in another order, ~1e-7 relative)
 plus one flip unit, at most 5% of outputs beyond the 2 ulp.
@@ -33,6 +34,7 @@ from gava_clip_tpu.ops import int8_matmul as jim
 from gava_clip_tpu.ops.quant import quantize_weight as jquantize_weight
 from gava_clip_tpu_torch.ops import flash_attention as tflash
 from gava_clip_tpu_torch.ops import int8_matmul as tim
+from tests.test_torch_bounds import module_deadline  # noqa: F401
 
 _D, _HEADS = 768, 12
 
@@ -369,6 +371,73 @@ def test_attention_out_int8_full_width_matches_jax_kernel_f32(
     assert out_t.shape == (B, lq, _D) and out_t.dtype == torch.float32
     assert out_j.dtype == jnp.float32
     a32 = tflash._onepass_attention_den_f32(tq[:, :lq], tk, tv, _HEADS)[0]
+    _assert_close(out_t, out_j, _unit(tim.quant_rows(a32)[1], st))
+
+
+def test_attention_out_int8_int8_qk_full_width_matches_jax_kernel_f32(
+        forced_kernels):
+    """B11 in fp32: the int8 score product (both packages' switch on, reset
+    in a finally) at lq 197 over 214 keys, 12 heads, fp32 in and out."""
+    rs = np.random.RandomState(33)
+    B, lq, Lk = 2, 197, 214
+    q, k, v = (rs.randn(B, Lk, _D) for _ in range(3))
+    (qj, sj), (qt, st) = _qweight(rs, _D, _D)
+    bias, res = rs.randn(_D) * 0.02, rs.randn(B, lq, _D)
+    tq, tk, tv = (_t(a) for a in (q, k, v))
+    jflash.set_int8_qk(True)
+    tflash.set_int8_qk(True)
+    try:
+        out_j = jflash.flash_attention_out_int8(
+            _j(q), _j(k), _j(v), _HEADS,
+            {"kernel": {"qa": qj, "scale": sj}, "bias": _j(bias)}, _j(res),
+            lq=lq)
+        out_t = tflash.flash_attention_out_int8(
+            tq, tk, tv, _HEADS, {"kernel": {"qa": qt, "scale": st},
+                                 "bias": _t(bias)}, _t(res), lq=lq)
+    finally:
+        jflash.set_int8_qk(False)
+        tflash.set_int8_qk(False)
+    assert out_t.shape == (B, lq, _D) and out_t.dtype == torch.float32
+    assert out_j.dtype == jnp.float32
+    a32 = tflash._onepass_attention_den_f32(tq[:, :lq], tk, tv, _HEADS,
+                                            int8_qk=True)[0]
+    _assert_close(out_t, out_j, _unit(tim.quant_rows(a32)[1], st))
+
+
+@pytest.mark.parametrize("int8_qk", [False, True])
+def test_attention_out_int8_2src_full_width_matches_jax_kernel_f32(
+        forced_kernels, int8_qk):
+    """B12 in fp32: 197 queries over 197 + 17 keys from two sources at 12
+    heads, in both score forms; equal to the one-source plain version on
+    [k1; k2] bit for bit."""
+    rs = np.random.RandomState(34 + int8_qk)
+    B, L1, L2 = 2, 197, 17
+    q, k1, v1, res = (rs.randn(B, L1, _D) for _ in range(4))
+    k2, v2 = rs.randn(B, L2, _D), rs.randn(B, L2, _D)
+    (qj, sj), (qt, st) = _qweight(rs, _D, _D)
+    bias = rs.randn(_D) * 0.02
+    tq, tk1, tv1, tk2, tv2, tres = (_t(a) for a in (q, k1, v1, k2, v2, res))
+    top = {"kernel": {"qa": qt, "scale": st}, "bias": _t(bias)}
+    jflash.set_int8_qk(int8_qk)
+    tflash.set_int8_qk(int8_qk)
+    try:
+        out_j = jflash.flash_attention_out_int8_2src(
+            _j(q), _j(k1), _j(v1), _j(k2), _j(v2), _HEADS,
+            {"kernel": {"qa": qj, "scale": sj}, "bias": _j(bias)}, _j(res))
+        out_t = tflash.flash_attention_out_int8_2src(
+            tq, tk1, tv1, tk2, tv2, _HEADS, top, tres)
+    finally:
+        jflash.set_int8_qk(False)
+        tflash.set_int8_qk(False)
+    assert out_t.shape == (B, L1, _D) and out_t.dtype == torch.float32
+    assert out_j.dtype == jnp.float32
+    kc, vc = torch.cat([tk1, tk2], dim=1), torch.cat([tv1, tv2], dim=1)
+    torch.testing.assert_close(
+        tflash.attention_out_int8_plain(tq, kc, vc, _HEADS, top, tres,
+                                        None, int8_qk),
+        out_t, rtol=0, atol=0)
+    a32 = tflash._onepass_attention_den_f32(tq, kc, vc, _HEADS,
+                                            int8_qk=int8_qk)[0]
     _assert_close(out_t, out_j, _unit(tim.quant_rows(a32)[1], st))
 
 

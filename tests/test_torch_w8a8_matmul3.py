@@ -19,6 +19,7 @@ from gava_clip_tpu.ops import int8_matmul as jim
 from gava_clip_tpu.ops.quant import quantize_weight as jquantize_weight
 from gava_clip_tpu_torch.ops import attention as tattn
 from gava_clip_tpu_torch.ops import int8_matmul as tim
+from tests.test_torch_bounds import module_deadline  # noqa: F401
 
 
 @pytest.fixture

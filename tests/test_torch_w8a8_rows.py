@@ -34,6 +34,7 @@ from gava_clip_tpu_torch.ops import int8_matmul as tim
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_torch_attention_f32 import _EMU_HEADER  # noqa: E402
+from tests.test_torch_bounds import module_deadline  # noqa: F401
 
 # What w8a8_common.cuh uses beyond the emulation of the attention kernels:
 # bf16 as its 16 bits (round to nearest even), the vector types, and the
@@ -143,7 +144,7 @@ def lib(tmp_path_factory):
     subprocess.run(["g++", "-std=c++20", "-O1", "-pthread", "-shared",
                     "-fPIC", "-Wno-unknown-pragmas", "-I", str(tmp), "-I",
                     str(_cuda.CSRC), "-o", str(so), str(tmp / "rows.cpp")],
-                   check=True, capture_output=True)
+                   check=True, capture_output=True, timeout=300)
     out = ctypes.CDLL(str(so))
     for fn in ("quant_rows_f32", "quant_rows_bf16"):
         getattr(out, fn).argtypes = _SIG
