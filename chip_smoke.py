@@ -262,7 +262,9 @@ KERNEL_SYMBOLS = ("packed_attention_kernel", "w8a8_matmul_kernel",
                   "streaming_attention_fwd_kernel",
                   "w8_matmul_kernel", "fused_extras_kernel",
                   "packed_bwd_kernel", "mega_layer_kernel",
-                  "w8_matmul_f32_kernel", "attention_f32_fwd_kernel")
+                  "w8_matmul_f32_kernel", "attention_f32_fwd_kernel",
+                  "packed_fwd_kernel", "stream_bwd_dq_kernel",
+                  "stream_bwd_dkdv_kernel")
 KERNEL_SOURCE = "gava_clip_tpu_torch/csrc/packed_attention.cu"
 KERNEL_REPLACES = "gava_clip_tpu/ops/flash_attention.py:181"
 # every kernel of the two serving paths and of the training step:
@@ -451,9 +453,12 @@ def phase_build(state):
     for lib in libs:
         info = _cuda.build_info[lib]
         log(f"[build] {lib}: nvcc {info['seconds']:.2f} s -> {info['so']}")
+        kernel = ""   # the (mangled) function that ptxas reports on
         for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {line.strip()}")
+            if "Function properties for" in line:
+                kernel = line.split("properties for")[-1].strip() + ": "
+            elif "registers" in line or "spill" in line:
+                log(f"[build]   {kernel}{line.strip()}")
     # B9, B2, B5, B3, B4 and the whole-layer kernel are wgmma kernels:
     # their machine code must hold GMMA instructions (HGMMA for bf16, IGMMA
     # for int8)
@@ -1273,15 +1278,19 @@ H100_BYTES_PER_S = 3.35e12
 H100_BF16_FLOPS = 989e12
 H100_INT8_OPS = 1979e12
 H100_FP32_FLOPS = 67e12
+H100_TF32_FLOPS = 495e12
 
 
-def _bound(n_bytes, flops_bf16=0.0, ops_int8=0.0, flops_fp32=0.0):
+def _bound(n_bytes, flops_bf16=0.0, ops_int8=0.0, flops_fp32=0.0,
+           flops_tf32=0.0):
     """(bound_ms, bound_by): the larger of the bytes over the card's memory
     rate and the operations over the card's peak rate for their type
-    (H100 SXM data sheet)."""
+    (H100 SXM data sheet); an fp32 product taken as 3xTF32 counts three
+    TF32 products."""
     t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
     t_ops = (flops_bf16 / H100_BF16_FLOPS + ops_int8 / H100_INT8_OPS
-             + flops_fp32 / H100_FP32_FLOPS) * 1e3
+             + flops_fp32 / H100_FP32_FLOPS
+             + flops_tf32 / H100_TF32_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1292,16 +1301,19 @@ def _visible_pairs(Lq, Lk, causal):
     return sum(min(i + 1, Lk) for i in range(Lq))
 
 
-def _attention_bounds(B, Lq, Lk, H, causal=False, esize=2):
+def _attention_bounds(B, Lq, Lk, H, causal=False, esize=2, tf32=False):
     """Bounds of the four attention functions at one shape: forward (with
     and without the fp32 row statistic) and backward; esize 2 (bf16, the
-    products on the tensor cores) or 4 (fp32, the products as fp32 FMA)."""
+    products on the tensor cores) or 4 (fp32: the products as fp32 FMA, or
+    with tf32 as 3xTF32 on the tensor cores, three TF32 products each)."""
     D = H * 64
     pairs = B * H * _visible_pairs(Lq, Lk, causal)
     qo, kv, stat = esize * B * Lq * D, esize * B * Lk * D, 4 * B * Lq * H
 
     def bound(n_bytes, flops):
-        return _bound(n_bytes, flops_bf16=flops) if esize == 2 else \
+        if esize == 2:
+            return _bound(n_bytes, flops_bf16=flops)
+        return _bound(n_bytes, flops_tf32=3 * flops) if tf32 else \
             _bound(n_bytes, flops_fp32=flops)
     return {
         "fwd": bound(2 * qo + 2 * kv, 2 * 2 * 64 * pairs),
@@ -1370,6 +1382,36 @@ def _sdpa_bwd(q, k, v, do, H, causal=False):
     out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
     return lambda: torch.autograd.grad(out, (qh, kh, vh), doh,
                                        retain_graph=True)
+
+
+def _sdpa_bwd_op(q, k, v, do, H, causal=False):
+    """The backward op that SDPA runs on fp32 inputs (its memory-efficient
+    backend), called directly on the saved results of its forward (a
+    yardstick only): unlike torch.autograd.grad, a CUDA graph can capture
+    it on any stream."""
+    import torch
+    B, Lq, D = q.shape
+
+    def heads(x):
+        return x.view(B, x.shape[1], H, D // H).transpose(1, 2)
+
+    qh, kh, vh, doh = (heads(x) for x in (q, k, v, do))
+    try:
+        out, lse, seed, off = \
+            torch.ops.aten._scaled_dot_product_efficient_attention(
+                qh, kh, vh, None, True, 0.0, causal)
+
+        op = torch.ops.aten._scaled_dot_product_efficient_attention_backward
+
+        def call():
+            return op(doh, qh, kh, vh, None, out, lse, seed, off, 0.0,
+                      [True, True, True, False], causal)
+        call()
+        torch.cuda.synchronize()
+    except RuntimeError as e:   # this torch has no such op: not measured
+        log(f"[f32-kernel] SDPA's fp32 backward op: {str(e)[:200]}")
+        return None
+    return call
 
 
 def _time_turns(kernel, other, iters=10):
@@ -1781,21 +1823,40 @@ def _check_f32(name, label, out, ref, scale, state):
 
 
 def _f32_timings(state, label, rows):
-    """Time each (name, kernel, plain, library, bound) in `rows`: kernel and
-    plain version in turns, kernel and the library call (SDPA in fp32) in
-    turns (median of 7 rounds); record the kernels-line stats."""
+    """Time each (name, kernel, plain, library, library's graph call,
+    (fp32-FMA bound, 3xTF32 bound or None), err) in `rows`: kernel and
+    plain version in turns; kernel and the library call (SDPA in fp32) in
+    turns and in CUDA graphs of GRAPH_LAUNCHES calls each (median of 7
+    rounds, device time where a call is launch-bound); record the
+    kernels-line stats, whose bound is the 3xTF32 one where the kernel
+    takes its products so."""
     stats = state.setdefault("kstats", {})
-    for name, kernel, plain, library, bound, err in rows:
+    for name, kernel, plain, library, library_graph, bounds, err in rows:
+        fma, tf32 = bounds
         ms, plain_ms, t = _time_pair(kernel, plain, iters=5)
         r = _ratio_turns(kernel, library, iters=5)
+        if library_graph is not None:
+            g = _ratio_graphs(kernel, library_graph)
+            graphs = (f"in CUDA graphs of {GRAPH_LAUNCHES} calls, median of "
+                      f"7 rounds: {g[0]:.5f} ms vs {g[1]:.5f} ms a call, "
+                      f"ratio {g[2]:.3f} (rounds {g[3]:.3f}-{g[4]:.3f})")
+        else:
+            g = (cuda_time_ms(_graph_call(kernel), iters=5) / GRAPH_LAUNCHES,
+                 None)
+            graphs = (f"in CUDA graphs of {GRAPH_LAUNCHES} calls: {g[0]:.5f} "
+                      f"ms a call, SDPA not measured")
+        bound = tf32 or fma
         log(f"[f32-kernel] {label}: {name} kernel {t['kernel']} ms, plain "
             f"{t['plain']} ms (order plain, kernel, kernel, plain); vs SDPA "
             f"in fp32, median of 7 rounds in turns: {r[0]:.4f} ms vs "
             f"{r[1]:.4f} ms, ratio {r[2]:.3f} (rounds {r[3]:.3f}-{r[4]:.3f}); "
-            f"bound {bound[0]:.4f} ms ({bound[1]}) ({state['smi']})")
+            f"{graphs}; bound as fp32 FMA {fma[0]:.4f} ms ({fma[1]})"
+            + (f", as 3xTF32 {tf32[0]:.4f} ms ({tf32[1]})" if tf32 else "")
+            + f" ({state['smi']})")
         stats[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                        "bound_ms": bound[0], "bound_by": bound[1],
-                       "library_ms": r[1]}
+                       "library_ms": r[1], "graph_ms": g[0],
+                       "library_graph_ms": g[1]}
 
 
 def phase_f32_kernels(state):
@@ -1804,8 +1865,9 @@ def phase_f32_kernels(state):
     the packed path's edge (F32_REL); the backwards run twice and must give
     the same bits; B8 equals B6b on the forward kernel's own o and den bit
     for bit; CUDA-event times of kernel, plain version and SDPA in fp32 at
-    the 16 x 8 shape and the text tower's. With state['checks_only'] (the
-    mutants' runs) nothing is timed."""
+    the 16 x 8 shape and the text tower's, the kernel against SDPA in turns
+    and in CUDA graphs, beside the fp32-FMA and (packed) 3xTF32 bounds. With
+    state['checks_only'] (the mutants' runs) nothing is timed."""
     import torch
     from gava_clip_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1870,30 +1932,33 @@ def phase_f32_kernels(state):
             state.setdefault("f32_failures", []).append(f"bits {label}")
         del spread, g_ref, g8_ref, again, g6_own
         if i == 0 and timed:
-            bounds = _attention_bounds(B, Lq, Lk, H, esize=4)
+            fma = _attention_bounds(B, Lq, Lk, H, esize=4)
+            tf32 = _attention_bounds(B, Lq, Lk, H, esize=4, tf32=True)
             sdpa_f, sdpa_b = _sdpa_fwd(q, k, v, H), _sdpa_bwd(q, k, v, do, H)
+            sdpa_b_op = _sdpa_bwd_op(q, k, v, do, H)
             _f32_timings(state, label, (
                 ("packed_attention_den_f32",
                  lambda: fa.packed_attention_den_cuda(q, k, v, H),
                  lambda: fa.packed_attention_den_plain(q, k, v, H), sdpa_f,
-                 bounds["fwd_stat"], err_f),
+                 sdpa_f, (fma["fwd_stat"], tf32["fwd_stat"]), err_f),
                 ("packed_attention_f32",
                  lambda: fa.packed_attention_cuda(q, k, v, H),
                  lambda: fa.packed_attention_plain(q, k, v, H), sdpa_f,
-                 bounds["fwd"], err_1),
+                 sdpa_f, (fma["fwd"], tf32["fwd"]), err_1),
                 ("packed_attention_bwd_f32",
                  lambda: fa.packed_attention_bwd_cuda(q, k, v, do, ref,
                                                       den_ref, H),
                  lambda: fa.packed_attention_bwd_plain(q, k, v, do, ref,
                                                        den_ref, H), sdpa_b,
-                 bounds["bwd"], err_b),
+                 sdpa_b_op, (fma["bwd"], tf32["bwd"]), err_b),
                 ("packed_attention_bwd_recompute_f32",
                  lambda: fa.packed_attention_bwd_recompute_cuda(q, k, v, do,
                                                                 H),
                  lambda: fa.packed_attention_bwd_recompute_plain(q, k, v, do,
                                                                  H), sdpa_b,
-                 bounds["bwd_recompute"], err_8)))
-            del sdpa_f, sdpa_b
+                 sdpa_b_op, (fma["bwd_recompute"], tf32["bwd_recompute"]),
+                 err_8)))
+            del sdpa_f, sdpa_b, sdpa_b_op
         del q, k, v, do, out, out1, den, ref, den_ref, grads, g8
 
     for i, (B, Lq, Lk, H, causal) in enumerate(F32_STREAM_SHAPES):
@@ -1931,17 +1996,20 @@ def phase_f32_kernels(state):
         del spread, g_ref, again
         if i == 0 and timed:
             bounds = _attention_bounds(B, Lq, Lk, H, causal, esize=4)
+            sdpa_f = _sdpa_fwd(q, k, v, H, causal)
             _f32_timings(state, label, (
                 ("streaming_attention_f32",
                  lambda: fa.streaming_attention_cuda(q, k, v, H, causal),
                  lambda: fa.streaming_attention_plain(q, k, v, H, causal),
-                 _sdpa_fwd(q, k, v, H, causal), bounds["fwd_stat"], err_f),
+                 sdpa_f, sdpa_f, (bounds["fwd_stat"], None), err_f),
                 ("streaming_attention_bwd_f32",
                  lambda: fa.streaming_attention_bwd_cuda(q, k, v, do, ref,
                                                          lse_ref, H, causal),
                  lambda: fa.streaming_attention_bwd_plain(q, k, v, do, ref,
                                                           lse_ref, H, causal),
-                 _sdpa_bwd(q, k, v, do, H, causal), bounds["bwd"], err_b)))
+                 _sdpa_bwd(q, k, v, do, H, causal),
+                 _sdpa_bwd_op(q, k, v, do, H, causal), (bounds["bwd"], None),
+                 err_b)))
         del q, k, v, do, out, lse, ref, lse_ref, grads
     # fp32 q/k/v into a kernel with a bf16 form only (B4's int8 QK^T form,
     # B11) raises, naming its ROADMAP item; mixed and half inputs raise in

@@ -42,46 +42,99 @@
 //   its backward: p = exp2(s2 - lse * log2(e)) over the visible keys, then
 //     as the packed backward with inv = 1.
 //
-// Every product runs on the CUDA cores as fp32 FMA. TF32 tensor-core
-// products would round each operand to a 10-bit mantissa (~5e-4
-// relative), which an fp32 run must not see. The exp2 is ex2.approx.ftz
-// (at most 2 ulp; results below 2^-126 flush to 0), as in the bf16 forms.
-// The int8 score product runs as the same FMA on the codes held as floats:
-// every partial sum is an integer of at most 127^2 * 64 = 1,032,256 < 2^24,
-// so it is exact and equals the int32 product bit for bit.
+// Two kinds of kernel. The packed attention of the training step and of
+// the evaluation forward (B1 / B6a, B6b, B8) runs every product on the
+// tensor cores as 3xTF32 (tf32_frags.cuh: mma.sync m16n8k8, each fp32
+// operand split once into hi and lo as it enters registers, the lo x lo
+// product dropped; each step's three products summed in a fresh
+// accumulator and added in fp32, since the tensor core truncates what it
+// accumulates): at least as close to a float64 attention as torch's fp32
+// matmuls (tests/test_torch_attention_f32.py holds that under an emulation
+// that truncates as the tensor core does), where one TF32 product alone
+// rounds each operand to a 10-bit mantissa (~5e-4 relative), which an fp32
+// run must not see. The streaming forms (B7) and the attention of the w8a8
+// fusion's fp32 forms (B4, B11, B12) run as fp32 FMA on 64 x 64 shared
+// tiles, each dot summed one product after another, as torch's fp32
+// matmuls sum it: the int8 out-projection behind B4 / B11 / B12 quantizes
+// each attention row, and its limits (chip_smoke's F32_W8A8_LIMITS) hold
+// the row's scale to within ulps of the plain version's, which a sum in
+// another order, even a more exact one, moves (the 3xTF32 forward puts
+// 10-15% of their outputs beyond 2 ulp where the limit is 5%). The int8
+// score product there runs as the same FMA on
+// the codes held as floats: every partial sum is an integer of at most
+// 127^2 * 64 = 1,032,256 < 2^24, so it is exact and equals the int32
+// product bit for bit. The exp2 is ex2.approx.ftz (at most 2 ulp; results
+// below 2^-126 flush to 0), as in the bf16 forms.
 //
-// What bounds it on an H100 SXM (data-sheet figures, not measured), per
-// layer at the training shape B = 16 clips x 8 frames = 128, Lq = 197,
-// Lk = 214, H = 12: the forward does two products per score entry, 16.6
-// GFLOP, 0.247 ms at 67 TFLOP/s fp32, against 161 MB of q, k, v and o,
-// 0.048 ms at 3.35 TB/s; the backward five products, 0.62 ms, against 0.19
-// ms of bytes. Without tensor cores every form is bound by its operations:
-// what matters is that each FMA takes its operands from registers, which
-// the 4 x 4 patches below do (two 16-byte shared loads per 16 FMA).
+// What bounds it on an H100 SXM (data-sheet figures, not measured) at the
+// training shape B = 16 clips x 8 frames = 128, Lq = 197, Lk = 214, H = 12:
+// the packed forward does two products per score entry, 16.6 GFLOP, 0.100
+// ms as 3xTF32 at 495 TFLOP/s (0.247 ms as fp32 FMA at 67), against 161 MB
+// of q, k, v and o, 0.048 ms at 3.35 TB/s; the backward five products,
+// 41.4 GFLOP, 0.251 ms as 3xTF32, against 0.19 ms of bytes.
 //
-// Design. A simple kernel that is right: every product is a 64 x 64 x 64
-// product of tiles in shared memory, 256 threads (16 x 16) each holding a
-// 4 x 4 patch of the result, 64 rank-1 steps from two float4 loads. Both
-// operands are stored with the summed index as the row ("x-major"): a tile
-// of q, k, v or do is stored transposed (loader load_t, conflict-free: a
-// warp writes 16 rows x 2 float4 into distinct banks) where its head
-// columns are summed, and as it is (load_n) where its rows are.
+// The 3xTF32 packed forward (B1 / B6a; the first launch of B8): one block
+// of 4 warps per (64 query rows, head, batch row), 16 query rows a warp (a
+// warp whose rows all lie past Lq only helps load). A warp loads its q
+// rows once and splits them into hi / lo A fragments that stay in
+// registers. Key / value tiles of 64 rows reach shared memory by cp.async
+// through two stages, the next tile in flight while the current one is
+// used. The keys go by chunks of 8 (214 keys compute 216), four chunks at
+// a time: s = q k^T for the four, then per chunk e = exp2(min(s c, 110)),
+// masked past Lk and summed into den in registers, and o += e v with e as
+// the A operand straight from the score accumulator. A k8 fragment's k
+// indices do not line up with an m16n8 accumulator's columns, so V's rows
+// are re-indexed instead: k index t reads key 2t of the chunk and t + 4 key
+// 2t + 1, which lines the accumulator's c0, c2, c1, c3 up with a0..a3.
+//
+// The 3xTF32 packed backward (B6b; the second launch of B8): one launch,
+// one block of 8 warps per (batch row, head) owning every query row and
+// every key of it, so all three sums run inside it in a fixed order: no
+// atomics, the same bits on every run (packed_attention_bwd.cuh's design in
+// bf16). It first takes each query row's inv_d = 1 / max(den, 1e-30) and
+// delta = rowsum(do * o), a warp a row, then walks key tiles of 128 keys
+// (16 a warp) and, inside each, query tiles of 32 rows (the last cut to 16:
+// Lq = 197 computes 208 rows). Per step each warp forms its 16 x 32
+// TRANSPOSED tiles k q^T and v do^T, p = e * inv_d (0 past Lk) and ds = p *
+// (dp - delta), and adds p^T do into dv and ds^T q into dk, both held in
+// registers for the key tile (p and ds enter as A operands by the forward's
+// re-indexing, with the query rows as k); it writes ds^T to shared memory,
+// and after a barrier the warps split the query tile's dq rows (16 rows x
+// 16 columns a warp) and add ds k into the block-private fp32 dq
+// accumulator: five products per score entry. The accumulator and the
+// rows' inv_d and delta (74 floats a query row) sit in dynamic shared
+// memory beside the fixed 154 KB of tiles while Lq <= 240; past that in a
+// block-private region of a global scratch, the blocks then walking the
+// (b, h) pairs with a grid stride (ops/flash_attention.attention_f32_plan
+// computes the plan from the layout attention_f32_layout exports). Tiles
+// come in by cp.async: key tiles and query / do tiles through two stages
+// each, the next step's in flight; the value tile, read only by the scores,
+// through one, the next key tile's issued as soon as the last step of the
+// current one has taken its scores.
+//
+// The FMA tiles: every product is a 64 x 64 x 64 product of tiles in
+// shared memory, 256 threads (16 x 16) each holding a 4 x 4 patch of the
+// result, 64 rank-1 steps from two float4 loads. Both operands are stored
+// with the summed index as the row ("x-major"): a tile of q, k, v or do is
+// stored transposed (loader load_t, conflict-free: a warp writes 16 rows x
+// 2 float4 into distinct banks) where its head columns are summed, and as
+// it is (load_n) where its rows are.
 //   forward: one block per (64 query rows, head, batch row); key tiles of
 //     64 stream through shared memory with no rescaling in the packed form
-//     (no running max), so the result is the plain formula in another fp32
-//     summation order; the streaming form rescales its accumulator when a
-//     row's max moves. Under the causal mask a block stops at its last
-//     row's key. The int8 form turns the q tile and each key tile into
-//     codes in place once they are loaded (four threads a row, the absmax
-//     met by two shuffles) and keeps each row's scale in shared memory; the
-//     two-source form picks each key row's source as it loads it, so its
-//     tiles, sums and bits are those of the one-source form on [k1; k2].
-//   backward: a dq kernel, one block per (64 query rows, head, batch row),
-//     walks the key tiles; it first takes each row's delta and statistic
-//     and leaves them in a scratch buffer for the dk / dv kernel, one block
-//     per (64 keys, head, batch row), which walks the query tiles (causal:
-//     from the key tile's own). Each owns its output tile: no atomics, the
-//     same bits on every run.
+//     (no running max), so the result is the plain formula summed key after
+//     key; the streaming form rescales its
+//     accumulator when a row's max moves. Under the causal mask a block
+//     stops at its last row's key. The int8 form turns the q tile and each
+//     key tile into codes in place once they are loaded (four threads a
+//     row, the absmax met by two shuffles) and keeps each row's scale in
+//     shared memory; the two-source form picks each key row's source as it
+//     loads it, so its tiles, sums and bits are those of the one-source
+//     form on [k1; k2].
+//   streaming backward: a dq kernel, one block per (64 query rows, head,
+//     batch row), walks the key tiles; it first takes each row's delta and
+//     statistic and leaves them in a scratch buffer for the dk / dv kernel,
+//     one block per (64 keys, head, batch row), which walks the query tiles
+//     from the key tile's own. Each owns its output tile: no atomics.
 // Launches on the caller's stream, no sync, no allocation (the wrapper
 // allocates the outputs and the scratch).
 
@@ -89,23 +142,53 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32_frags.cuh"
+
 namespace {
 
 constexpr int kHD = 64;                  // head dim the kernels are built for
+constexpr float kClamp = 110.f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+// the FMA tiles
 constexpr int kT = 64;                   // query rows or keys of a tile
 constexpr int kLD = kT + 4;              // padded shared row: 272 bytes, 16-byte aligned
 constexpr int kTileFloats = kHD * kLD;   // one 64 x 64 tile, either orientation
 constexpr int kThreads = 256;            // 16 x 16 threads, a 4 x 4 patch each
 // dynamic shared bytes: the forward's q^T, k^T, v, e^T tiles and two
-// floats a row (the int8 form's q and k scales); the dq
-// kernel's q^T, do^T, k^T, k, v^T, ds^T and two floats a row; the dk / dv
-// kernel's k^T, v^T, q^T, do^T, q, do, p, ds and two floats a row
+// floats a row (the int8 form's q and k scales); the dq kernel's q^T, do^T,
+// k^T, k, v^T, ds^T and two floats a row; the dk / dv kernel's k^T, v^T,
+// q^T, do^T, q, do, p, ds and two floats a row
 constexpr int kFwdSmemBytes = 4 * kTileFloats * 4 + 2 * kT * 4;
 constexpr int kDqSmemBytes = 6 * kTileFloats * 4 + 2 * kT * 4;
 constexpr int kDkvSmemBytes = 8 * kTileFloats * 4 + 2 * kT * 4;
-constexpr float kClamp = 110.f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+// the 3xTF32 tiles: rows of 64 floats padded to 68 (272 bytes, 16-byte
+// aligned; a fragment's 32 reads fall in 32 banks)
+constexpr int kLDF = kHD + 4;
+constexpr int kFwdWarps = 4;
+constexpr int kFwdThreads = kFwdWarps * 32;
+constexpr int kFwdRows = kFwdWarps * 16;   // query rows of a forward block
+constexpr int kFwdKeys = 64;               // keys of a forward key / value tile
+constexpr int kFwdStageFloats = 2 * kFwdKeys * kLDF;
+constexpr int kPFwdSmemBytes = 2 * kFwdStageFloats * 4;
+constexpr int kBwdWarps = 8;
+constexpr int kBwdThreads = kBwdWarps * 32;
+constexpr int kBwdKeys = kBwdWarps * 16;   // keys of a backward key tile, 16 a warp
+constexpr int kBwdRows = 32;               // query rows of a backward query tile
+constexpr int kLDD = kBwdRows + 4;         // floats per ds^T row
+constexpr int kAccLD = kHD + 8;            // floats per dq accumulator row
+// backward shared memory (floats): key stages | value tile | q, do stages |
+// ds^T | (shared form) dq accumulator, inv_d, delta
+constexpr int kOffV = 2 * kBwdKeys * kLDF;
+constexpr int kOffQD = kOffV + kBwdKeys * kLDF;
+constexpr int kOffDS = kOffQD + 4 * kBwdRows * kLDF;
+constexpr int kBwdFixedBytes = (kOffDS + kBwdKeys * kLDD) * 4;
+constexpr int kMaxSmem = 232448;
+
+// floats a block's dq accumulator and row statistics take at lq_pad rows
+__host__ __device__ constexpr long long acc_floats(int lq_pad) {
+  return static_cast<long long>(lq_pad) * (kAccLD + 2);
+}
 
 // 2^x in one MUFU instruction (see attention_pipe.cuh's ex2f)
 __device__ __forceinline__ float ex2f(float x) {
@@ -128,6 +211,442 @@ struct Rows {
 __device__ __forceinline__ Rows one_source(const float* p, int L, long long ld) {
   return Rows{p, nullptr, ld, 0, L, L};
 }
+
+struct FwdArgs {
+  const float *q, *k, *v;
+  float* o;
+  float* stat;   // den (B, Lq, H) in the packed form (may be null), lse (B, H, Lq) streaming
+  int Lq, Lk, H;
+  int q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl;
+  float c;       // 64^-0.5 * log2(e); 1 in the int8 form (its scales carry c)
+  int causal;
+  // the int8 form: c / 127^2; the two-source form: the second source and
+  // the first source's key count (L1 = Lk for one source)
+  float cq;
+  const float *k2, *v2;
+  int L1, k2_sb, k2_sl, v2_sb, v2_sl;
+};
+
+// ---------------------------------------------------------------------------
+// the packed attention on the tensor cores (B1 / B6a, B6b, B8)
+// ---------------------------------------------------------------------------
+
+// rows [r0, r0 + ROWS) of one head (64 floats a row) into a shared tile of
+// kLDF floats a row by cp.async, issued by a block of THREADS; rows past the
+// source's end are zero-filled
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void tile_async(float* dst, const Rows& src, int r0) {
+  static_assert(ROWS * 16 % THREADS == 0, "whole 16-byte pieces a thread");
+#pragma unroll
+  for (int it = 0; it < ROWS * 16 / THREADS; ++it) {
+    const int idx = it * THREADS + threadIdx.x;
+    const int r = idx >> 4, c = (idx & 15) * 4;
+    const float* p = src.row(r0 + r);
+    tf32::cp_async16(dst + r * kLDF + c, p != nullptr ? p + c : src.p1, p != nullptr);
+  }
+}
+
+// d += a b in 3xTF32: a = ah + al and b = bh + bl as tf32::split gives
+// them, the lo x lo product dropped. The three products are summed in a
+// fresh accumulator, the two of a lo part first, and added to d in fp32:
+// the tensor core truncates the sum it accumulates, which over a chain of
+// products into d would drift by about an ulp of d a step, where the fp32
+// add rounds to nearest
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0, uint32_t bh1,
+                                     uint32_t bl0, uint32_t bl1) {
+  float p[4];
+  tf32::mma_tf32_z(p, al, bh0, bh1);
+  tf32::mma_tf32(p, ah, bl0, bl1);
+  tf32::mma_tf32(p, ah, bh0, bh1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += p[i];
+}
+
+// an A fragment (a0..a3 in order) split into hi and lo
+__device__ __forceinline__ void split4(uint32_t (&hi)[4], uint32_t (&lo)[4], float a0,
+                                       float a1, float a2, float a3) {
+  tf32::split(a0, hi[0], lo[0]);
+  tf32::split(a1, hi[1], lo[1]);
+  tf32::split(a2, hi[2], lo[2]);
+  tf32::split(a3, hi[3], lo[3]);
+}
+
+// B1 / B6a in 3xTF32: o (and, with a.stat, den) of one block's 64 query
+// rows of one head
+__global__ void __launch_bounds__(kFwdThreads, 3) packed_fwd_kernel(FwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int w0 = blockIdx.x * kFwdRows + warp * 16;   // the warp's first query row
+  const int r0 = w0 + g, r1 = r0 + 8;                  // the thread's two rows
+  const bool active = w0 < a.Lq;
+  const long long hoff = static_cast<long long>(h) * kHD;
+  const float* qb = a.q + static_cast<long long>(b) * a.q_sb + hoff;
+  const Rows krows = one_source(a.k + static_cast<long long>(b) * a.k_sb + hoff, a.Lk, a.k_sl);
+  const Rows vrows = one_source(a.v + static_cast<long long>(b) * a.v_sb + hoff, a.Lk, a.v_sl);
+  const int nkt = (a.Lk + kFwdKeys - 1) / kFwdKeys;
+  auto issue = [&](int kt) {
+    if (kt < nkt) {
+      float* st = smem + (kt & 1) * kFwdStageFloats;
+      tile_async<kFwdKeys, kFwdThreads>(st, krows, kt * kFwdKeys);
+      tile_async<kFwdKeys, kFwdThreads>(st + kFwdKeys * kLDF, vrows, kt * kFwdKeys);
+    }
+    tf32::cp_commit();
+  };
+  issue(0);
+
+  // the warp's q rows as A fragments, split once: k step kk holds columns
+  // 8 kk + t (a0 row r0, a1 row r1) and 8 kk + t + 4 (a2, a3); zeros past Lq
+  uint32_t qh[kHD / 8][4], ql[kHD / 8][4];
+#pragma unroll
+  for (int kk = 0; kk < kHD / 8; ++kk) {
+    float x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = i & 1 ? r1 : r0;
+      x[i] = r < a.Lq ? qb[r * a.q_sl + 8 * kk + t + 4 * (i >> 1)] : 0.f;
+    }
+    split4(qh[kk], ql[kk], x[0], x[1], x[2], x[3]);
+  }
+
+  float oacc[kHD / 8][4];
+#pragma unroll
+  for (int n = 0; n < kHD / 8; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
+  float den0 = 0.f, den1 = 0.f;
+  for (int kt = 0; kt < nkt; ++kt) {
+    tf32::cp_wait_all();
+    __syncthreads();   // tile kt is in; every warp is done with the other stage
+    issue(kt + 1);
+    if (!active) continue;
+    const float* ks = smem + (kt & 1) * kFwdStageFloats;
+    const float* vs = ks + kFwdKeys * kLDF;
+    const int k0 = kt * kFwdKeys;
+    // chunks of 8 keys with a real key (the last tile's others are skipped)
+    const int nch = (min(kFwdKeys, a.Lk - k0) + 7) / 8;
+#pragma unroll
+    for (int c4 = 0; c4 < kFwdKeys / 32; ++c4) {
+      if (4 * c4 >= nch) break;
+      // s = q k^T for four chunks: B fragment of chunk c from key c * 8 + g
+      float s[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kHD / 8; ++kk) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (4 * c4 + j < nch) {
+            const float* kr = ks + ((4 * c4 + j) * 8 + g) * kLDF + 8 * kk + t;
+            uint32_t bh0, bl0, bh1, bl1;
+            tf32::split(kr[0], bh0, bl0);
+            tf32::split(kr[4], bh1, bl1);
+            mma3(s[j], qh[kk], ql[kk], bh0, bh1, bl0, bl1);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (4 * c4 + j >= nch) break;
+        // the tile's keys of the accumulator's columns 2t (c0, c2) and 2t + 1
+        const int kc = (4 * c4 + j) * 8 + 2 * t;
+        float e[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          e[i] = k0 + kc + (i & 1) < a.Lk ? ex2f(fminf(s[j][i] * a.c, kClamp)) : 0.f;
+        den0 += e[0] + e[1];
+        den1 += e[2] + e[3];
+        // e as the A operand of e v: k index t is key kc, t + 4 key kc + 1
+        uint32_t eh[4], el[4];
+        split4(eh, el, e[0], e[2], e[1], e[3]);
+        const float* vr = vs + kc * kLDF + g;
+#pragma unroll
+        for (int n = 0; n < kHD / 8; ++n) {
+          uint32_t bh0, bl0, bh1, bl1;
+          tf32::split(vr[8 * n], bh0, bl0);
+          tf32::split(vr[kLDF + 8 * n], bh1, bl1);
+          mma3(oacc[n], eh, el, bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+  }
+
+  // den: the four threads of a row in a fixed order
+  den0 += __shfl_xor_sync(0xffffffffu, den0, 1);
+  den0 += __shfl_xor_sync(0xffffffffu, den0, 2);
+  den1 += __shfl_xor_sync(0xffffffffu, den1, 1);
+  den1 += __shfl_xor_sync(0xffffffffu, den1, 2);
+  if (!active) return;
+  float* ob = a.o + static_cast<long long>(b) * a.o_sb + hoff;
+  const float d0 = fmaxf(den0, 1e-30f), d1 = fmaxf(den1, 1e-30f);
+#pragma unroll
+  for (int n = 0; n < kHD / 8; ++n) {
+    if (r0 < a.Lq)
+      *reinterpret_cast<float2*>(ob + static_cast<long long>(r0) * a.o_sl + 8 * n + 2 * t) =
+          make_float2(oacc[n][0] / d0, oacc[n][1] / d0);
+    if (r1 < a.Lq)
+      *reinterpret_cast<float2*>(ob + static_cast<long long>(r1) * a.o_sl + 8 * n + 2 * t) =
+          make_float2(oacc[n][2] / d1, oacc[n][3] / d1);
+  }
+  if (a.stat != nullptr && t == 0) {
+    if (r0 < a.Lq) a.stat[(static_cast<long long>(b) * a.Lq + r0) * a.H + h] = den0;
+    if (r1 < a.Lq) a.stat[(static_cast<long long>(b) * a.Lq + r1) * a.H + h] = den1;
+  }
+}
+
+struct PBwdArgs {
+  const float *q, *k, *v, *dout, *o;
+  const float* den;   // (B, Lq, H)
+  float *dq, *dk, *dv;
+  float* scratch;     // the global form: gridDim.x regions of acc_floats(lq_pad)
+  int B, Lq, Lk, H, lq_pad, acc_in_smem;
+  int q_sb, q_sl, k_sb, k_sl, v_sb, v_sl;   // do and o: (B, Lq, H*64) contiguous
+  float scale, c;
+};
+
+__global__ void __launch_bounds__(kBwdThreads, 1) packed_bwd_kernel(PBwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  float* k_st = smem;               // [stage][kBwdKeys][kLDF]
+  float* v_s = smem + kOffV;        // [kBwdKeys][kLDF]
+  float* qd_st = smem + kOffQD;     // [stage][q, do][kBwdRows][kLDF]
+  float* ds_s = smem + kOffDS;      // ds^T [kBwdKeys][kLDD]
+  float* acc = a.acc_in_smem ? ds_s + kBwdKeys * kLDD
+                             : a.scratch + blockIdx.x * acc_floats(a.lq_pad);
+  float* inv_s = acc + static_cast<long long>(a.lq_pad) * kAccLD;
+  float* dl_s = inv_s + a.lq_pad;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const long long D = static_cast<long long>(a.H) * kHD;
+  const int KTn = (a.Lk + kBwdKeys - 1) / kBwdKeys;
+  const int QTn = (a.lq_pad + kBwdRows - 1) / kBwdRows;
+  const int nsteps = KTn * QTn;
+
+  for (int item = blockIdx.x; item < a.B * a.H; item += gridDim.x) {
+    const int b = item / a.H, h = item % a.H;
+    const long long hoff = static_cast<long long>(h) * kHD;
+    const float* qb = a.q + static_cast<long long>(b) * a.q_sb + hoff;
+    const float* kb = a.k + static_cast<long long>(b) * a.k_sb + hoff;
+    const float* vb = a.v + static_cast<long long>(b) * a.v_sb + hoff;
+    const float* dob = a.dout + static_cast<long long>(b) * a.Lq * D + hoff;
+    const float* obb = a.o + static_cast<long long>(b) * a.Lq * D + hoff;
+    const float* denb = a.den + static_cast<long long>(b) * a.Lq * a.H + h;
+    const Rows qrows = one_source(qb, a.Lq, a.q_sl), dorows = one_source(dob, a.Lq, D);
+    const Rows krows = one_source(kb, a.Lk, a.k_sl), vrows = one_source(vb, a.Lk, a.v_sl);
+
+    // the copies of step s, issued after the barrier that opens step s - 1
+    // (the stages they overwrite are free): its q / do tile, and its key
+    // tile where it starts one (step 0: the first value tile too)
+    auto issue = [&](int s) {
+      if (s < nsteps) {
+        const int j = s / QTn, qt = s % QTn;
+        float* qd = qd_st + (s & 1) * 2 * kBwdRows * kLDF;
+        tile_async<kBwdRows, kBwdThreads>(qd, qrows, qt * kBwdRows);
+        tile_async<kBwdRows, kBwdThreads>(qd + kBwdRows * kLDF, dorows, qt * kBwdRows);
+        if (qt == 0)
+          tile_async<kBwdKeys, kBwdThreads>(k_st + (j & 1) * kBwdKeys * kLDF, krows,
+                                            j * kBwdKeys);
+        if (s == 0) tile_async<kBwdKeys, kBwdThreads>(v_s, vrows, 0);
+      }
+      tf32::cp_commit();
+    };
+    issue(0);
+
+    // while the first tiles are in flight: zero the dq accumulator, and
+    // take each query row's inv_d and delta = rowsum(do * o), a warp a row
+    // (0 for the rows past Lq, whose p and ds are then 0)
+    for (long long i = threadIdx.x * 4; i < static_cast<long long>(a.lq_pad) * kAccLD;
+         i += kBwdThreads * 4)
+      *reinterpret_cast<float4*>(acc + i) = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = warp; r < a.lq_pad; r += kBwdWarps) {
+      float d = 0.f;
+      if (r < a.Lq) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const long long at = r * D + half * 32 + lane;
+          d = fmaf(dob[at], obb[at], d);
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+      if (lane == 0) {
+        inv_s[r] = r < a.Lq ? 1.f / fmaxf(denb[static_cast<long long>(r) * a.H], 1e-30f) : 0.f;
+        dl_s[r] = d;
+      }
+    }
+
+    float dk[kHD / 8][4], dv[kHD / 8][4];
+#pragma unroll
+    for (int n = 0; n < kHD / 8; ++n) {
+      dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
+      dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
+    }
+    for (int s = 0; s < nsteps; ++s) {
+      tf32::cp_wait_all();
+      __syncthreads();
+      issue(s + 1);
+      const int j = s / QTn, qt = s % QTn, k0 = j * kBwdKeys, q0 = qt * kBwdRows;
+      const int nq = min(kBwdRows, a.lq_pad - q0);   // 16 or 32
+      const float* ks = k_st + (j & 1) * kBwdKeys * kLDF;
+      const float* qs = qd_st + (s & 1) * 2 * kBwdRows * kLDF;
+      const float* dos = qs + kBwdRows * kLDF;
+      const int kw = k0 + warp * 16;   // this warp's first key
+      if (kw < a.Lk) {
+        const bool kv0 = kw + g < a.Lk, kv1 = kw + g + 8 < a.Lk;
+        // transposed tiles: rows are this warp's keys kw + g (c0, c1) and
+        // kw + g + 8 (c2, c3), columns the query rows q0 + 8 f + 2 t, + 1
+        float sT[kBwdRows / 8][4], dpT[kBwdRows / 8][4];
+#pragma unroll
+        for (int f = 0; f < kBwdRows / 8; ++f) {
+          sT[f][0] = sT[f][1] = sT[f][2] = sT[f][3] = 0.f;
+          dpT[f][0] = dpT[f][1] = dpT[f][2] = dpT[f][3] = 0.f;
+        }
+        const float* kr = ks + (warp * 16 + g) * kLDF + t;
+        const float* vr = v_s + (warp * 16 + g) * kLDF + t;
+#pragma unroll
+        for (int kk = 0; kk < kHD / 8; ++kk) {
+          uint32_t kh[4], kl[4], vh[4], vl[4];
+          split4(kh, kl, kr[8 * kk], kr[8 * kLDF + 8 * kk], kr[8 * kk + 4],
+                 kr[8 * kLDF + 8 * kk + 4]);
+          split4(vh, vl, vr[8 * kk], vr[8 * kLDF + 8 * kk], vr[8 * kk + 4],
+                 vr[8 * kLDF + 8 * kk + 4]);
+#pragma unroll
+          for (int f = 0; f < kBwdRows / 8; ++f) {
+            if (8 * f < nq) {
+              const float* qr = qs + (8 * f + g) * kLDF + 8 * kk + t;
+              const float* dr = dos + (8 * f + g) * kLDF + 8 * kk + t;
+              uint32_t bh0, bl0, bh1, bl1;
+              tf32::split(qr[0], bh0, bl0);
+              tf32::split(qr[4], bh1, bl1);
+              mma3(sT[f], kh, kl, bh0, bh1, bl0, bl1);   // k q^T
+              tf32::split(dr[0], bh0, bl0);
+              tf32::split(dr[4], bh1, bl1);
+              mma3(dpT[f], vh, vl, bh0, bh1, bl0, bl1);  // v do^T
+            }
+          }
+        }
+        // per 8 query rows: p and ds, ds^T into shared memory, dv += p^T do
+        // and dk += ds^T q with the query rows as k (k index t: row 2t of
+        // the chunk, c0 / c2; t + 4: row 2t + 1, c1 / c3)
+#pragma unroll
+        for (int f = 0; f < kBwdRows / 8; ++f) {
+          if (8 * f < nq) {
+            const int qc = q0 + 8 * f + 2 * t;
+            const float inv[2] = {inv_s[qc], inv_s[qc + 1]};
+            const float dl[2] = {dl_s[qc], dl_s[qc + 1]};
+            float p[4], ds[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              p[i] = (i < 2 ? kv0 : kv1) ? ex2f(fminf(sT[f][i] * a.c, kClamp)) * inv[i & 1] : 0.f;
+              ds[i] = p[i] * (dpT[f][i] - dl[i & 1]);
+            }
+            *reinterpret_cast<float2*>(ds_s + (warp * 16 + g) * kLDD + 8 * f + 2 * t) =
+                make_float2(ds[0], ds[1]);
+            *reinterpret_cast<float2*>(ds_s + (warp * 16 + g + 8) * kLDD + 8 * f + 2 * t) =
+                make_float2(ds[2], ds[3]);
+            uint32_t ph[4], pl[4], dh[4], dlo[4];
+            split4(ph, pl, p[0], p[2], p[1], p[3]);
+            split4(dh, dlo, ds[0], ds[2], ds[1], ds[3]);
+            const float* dor = dos + (8 * f + 2 * t) * kLDF + g;
+            const float* qor = qs + (8 * f + 2 * t) * kLDF + g;
+#pragma unroll
+            for (int n = 0; n < kHD / 8; ++n) {
+              uint32_t bh0, bl0, bh1, bl1;
+              tf32::split(dor[8 * n], bh0, bl0);
+              tf32::split(dor[kLDF + 8 * n], bh1, bl1);
+              mma3(dv[n], ph, pl, bh0, bh1, bl0, bl1);    // dv += p^T do
+              tf32::split(qor[8 * n], bh0, bl0);
+              tf32::split(qor[kLDF + 8 * n], bh1, bl1);
+              mma3(dk[n], dh, dlo, bh0, bh1, bl0, bl1);   // dk += ds^T q
+            }
+          }
+        }
+      }
+      __syncthreads();   // ds^T is whole; no warp reads the value tile again
+      if (qt == QTn - 1 && j + 1 < KTn) {
+        tile_async<kBwdKeys, kBwdThreads>(v_s, vrows, (j + 1) * kBwdKeys);
+        tf32::cp_commit();
+      }
+
+      // dq rows of this query tile += ds k: warp w takes 16 rows (w / 4)
+      // and 16 head columns ((w % 4) * 16), the key chunks of 8 with a real
+      // key as k (k index t: key 2t of the chunk, t + 4: key 2t + 1)
+      {
+        const int slab = warp >> 2, c0 = (warp & 3) * 16;
+        if (16 * slab < nq) {
+          const int nkc = (min(kBwdKeys, a.Lk - k0) + 7) / 8;
+          float dq[2][4];
+#pragma unroll
+          for (int n = 0; n < 2; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+#pragma unroll
+          for (int kc = 0; kc < kBwdKeys / 8; ++kc) {
+            if (kc < nkc) {
+              const float* dr = ds_s + (8 * kc + 2 * t) * kLDD + 16 * slab + g;
+              uint32_t ah[4], al[4];
+              split4(ah, al, dr[0], dr[8], dr[kLDD], dr[kLDD + 8]);
+              const float* kr2 = ks + (8 * kc + 2 * t) * kLDF + c0 + g;
+#pragma unroll
+              for (int n = 0; n < 2; ++n) {
+                uint32_t bh0, bl0, bh1, bl1;
+                tf32::split(kr2[8 * n], bh0, bl0);
+                tf32::split(kr2[kLDF + 8 * n], bh1, bl1);
+                mma3(dq[n], ah, al, bh0, bh1, bl0, bl1);   // ds k
+              }
+            }
+          }
+          const int row = q0 + 16 * slab + g;
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            float* p0 = acc + static_cast<long long>(row) * kAccLD + c0 + 8 * n + 2 * t;
+            float* p1 = p0 + 8 * kAccLD;
+            float2 x0 = *reinterpret_cast<float2*>(p0), x1 = *reinterpret_cast<float2*>(p1);
+            x0.x += dq[n][0];
+            x0.y += dq[n][1];
+            x1.x += dq[n][2];
+            x1.y += dq[n][3];
+            *reinterpret_cast<float2*>(p0) = x0;
+            *reinterpret_cast<float2*>(p1) = x1;
+          }
+        }
+      }
+
+      // the key tile's last query tile: this warp's dk (scaled) and dv rows
+      if (qt == QTn - 1 && kw < a.Lk) {
+        float* dkb = a.dk + static_cast<long long>(b) * a.Lk * D + hoff;
+        float* dvb = a.dv + static_cast<long long>(b) * a.Lk * D + hoff;
+        const long long at0 = (kw + g) * D + 2 * t, at1 = at0 + 8 * D;
+#pragma unroll
+        for (int n = 0; n < kHD / 8; ++n) {
+          if (kw + g < a.Lk) {
+            *reinterpret_cast<float2*>(dkb + at0 + 8 * n) =
+                make_float2(dk[n][0] * a.scale, dk[n][1] * a.scale);
+            *reinterpret_cast<float2*>(dvb + at0 + 8 * n) = make_float2(dv[n][0], dv[n][1]);
+          }
+          if (kw + g + 8 < a.Lk) {
+            *reinterpret_cast<float2*>(dkb + at1 + 8 * n) =
+                make_float2(dk[n][2] * a.scale, dk[n][3] * a.scale);
+            *reinterpret_cast<float2*>(dvb + at1 + 8 * n) = make_float2(dv[n][2], dv[n][3]);
+          }
+          dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
+          dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
+        }
+      }
+    }
+    __syncthreads();   // every dq sum is in
+
+    // dq = acc * scale
+    float* dqb = a.dq + static_cast<long long>(b) * a.Lq * D + hoff;
+    for (int idx = threadIdx.x; idx < a.Lq * (kHD / 4); idx += kBwdThreads) {
+      const int r = idx / (kHD / 4), c = (idx % (kHD / 4)) * 4;
+      const float4 x = *reinterpret_cast<const float4*>(acc + static_cast<long long>(r) * kAccLD + c);
+      *reinterpret_cast<float4*>(dqb + r * D + c) =
+          make_float4(x.x * a.scale, x.y * a.scale, x.z * a.scale, x.w * a.scale);
+    }
+    __syncthreads();   // the next (b, h) zeroes the accumulator
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32 FMA tiles: the streaming forms (B7) and the w8a8 fusion's attention
+// (B4, B11, B12)
+// ---------------------------------------------------------------------------
 
 // Rows [r0, r0 + 64) of one head (64 floats a row) into a tile stored
 // transposed, dst[d * kLD + r]; rows >= L are zeros and are never read. A
@@ -238,21 +757,6 @@ __device__ __forceinline__ float row_max(float x) {
   for (int off = 1; off < 16; off <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
 }
-
-struct FwdArgs {
-  const float *q, *k, *v;
-  float* o;
-  float* stat;   // den (B, Lq, H) in the packed form (may be null), lse (B, H, Lq) streaming
-  int Lq, Lk, H;
-  int q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl;
-  float c;       // 64^-0.5 * log2(e); 1 in the int8 form (its scales carry c)
-  int causal;
-  // the int8 form: c / 127^2; the two-source form: the second source and
-  // the first source's key count (L1 = Lk for one source)
-  float cq;
-  const float *k2, *v2;
-  int L1, k2_sb, k2_sl, v2_sb, v2_sl;
-};
 
 // STREAM: the streaming form (running max, causal mask, lse); else the
 // packed clamp form. QK8 (packed only): the int8 score product. TWO
@@ -383,7 +887,7 @@ __global__ void __launch_bounds__(kThreads, 2) attention_f32_fwd_kernel(FwdArgs 
 
 struct BwdArgs {
   const float *q, *k, *v, *dout, *o;
-  const float* rowstat;   // den (B, Lq, H) packed, lse (B, H, Lq) streaming
+  const float* rowstat;   // lse (B, H, Lq)
   float *dq, *dk, *dv;
   float* sd;              // scratch (2, B, H, Lq): each row's statistic, then its delta
   int B, Lq, Lk, H;
@@ -392,19 +896,15 @@ struct BwdArgs {
   int causal;
 };
 
-// p of one score entry: e * inv_d (packed; st = inv_d) or exp2(s2 - lse
-// log2 e) (streaming; st = lse * log2 e); 0 for a key past Lk, a row past
-// Lq and a key the causal mask hides
-template <bool STREAM>
+// p of one score entry: exp2(s2 - lse log2 e) (st = lse * log2 e); 0 for a
+// key past Lk, a row past Lq and a key the causal mask hides
 __device__ __forceinline__ float prob(float s, float st, int key, int row, int Lq, int Lk,
                                       int causal, float c) {
   if (key >= Lk || row >= Lq) return 0.f;
-  if (STREAM) return causal && key > row ? 0.f : ex2f(s * c - st);
-  return ex2f(fminf(s * c, kClamp)) * st;
+  return causal && key > row ? 0.f : ex2f(s * c - st);
 }
 
-template <bool STREAM>
-__global__ void __launch_bounds__(kThreads, 2) attention_f32_bwd_dq_kernel(BwdArgs a) {
+__global__ void __launch_bounds__(kThreads, 2) stream_bwd_dq_kernel(BwdArgs a) {
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;
   float* dot = qt + kTileFloats;
@@ -447,9 +947,7 @@ __global__ void __launch_bounds__(kThreads, 2) attention_f32_bwd_dq_kernel(BwdAr
       float st = 0.f;
       if (row < a.Lq) {
         const long long bh = static_cast<long long>(b) * a.H + h;
-        st = STREAM ? a.rowstat[bh * a.Lq + row] * kLog2e
-                    : 1.f / fmaxf(a.rowstat[(static_cast<long long>(b) * a.Lq + row) * a.H + h],
-                                  1e-30f);
+        st = a.rowstat[bh * a.Lq + row] * kLog2e;
         a.sd[bh * a.Lq + row] = st;
         a.sd[static_cast<long long>(a.B) * a.H * a.Lq + bh * a.Lq + row] = d;
       }
@@ -465,7 +963,7 @@ __global__ void __launch_bounds__(kThreads, 2) attention_f32_bwd_dq_kernel(BwdAr
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  const int kend = STREAM && a.causal ? min(a.Lk, q0 + kT) : a.Lk;
+  const int kend = a.causal ? min(a.Lk, q0 + kT) : a.Lk;
   for (int k0 = 0; k0 < kend; k0 += kT) {
     __syncthreads();
     load_t(kt, kb, k0, a.Lk, a.k_sl);
@@ -484,8 +982,7 @@ __global__ void __launch_bounds__(kThreads, 2) attention_f32_bwd_dq_kernel(BwdAr
       const int r = 4 * ty + i;
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        s[i][j] = prob<STREAM>(s[i][j], sst[r], k0 + 4 * tx + j, q0 + r, a.Lq, a.Lk,
-                               a.causal, a.c) *
+        s[i][j] = prob(s[i][j], sst[r], k0 + 4 * tx + j, q0 + r, a.Lq, a.Lk, a.causal, a.c) *
                   (dp[i][j] - sdl[r]);   // ds
     }
     store_patch_t(dst, s, ty, tx);
@@ -503,8 +1000,7 @@ __global__ void __launch_bounds__(kThreads, 2) attention_f32_bwd_dq_kernel(BwdAr
   }
 }
 
-template <bool STREAM>
-__global__ void __launch_bounds__(kThreads, 1) attention_f32_bwd_dkdv_kernel(BwdArgs a) {
+__global__ void __launch_bounds__(kThreads, 1) stream_bwd_dkdv_kernel(BwdArgs a) {
   extern __shared__ __align__(16) float smem[];
   float* kt = smem;
   float* vt = kt + kTileFloats;
@@ -536,7 +1032,7 @@ __global__ void __launch_bounds__(kThreads, 1) attention_f32_bwd_dkdv_kernel(Bwd
     for (int j = 0; j < 4; ++j) dk[i][j] = dv[i][j] = 0.f;
   // under the causal mask the query tiles before this key tile's own see
   // none of its keys
-  for (int q0 = STREAM && a.causal ? k0 : 0; q0 < a.Lq; q0 += kT) {
+  for (int q0 = a.causal ? k0 : 0; q0 < a.Lq; q0 += kT) {
     __syncthreads();
     load_t(qt, qb, q0, a.Lq, a.q_sl);
     load_t(dot, dob, q0, a.Lq, D);
@@ -560,8 +1056,7 @@ __global__ void __launch_bounds__(kThreads, 1) attention_f32_bwd_dkdv_kernel(Bwd
       const int r = 4 * ty + i;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[i][j] = prob<STREAM>(s[i][j], sst[r], k0 + 4 * tx + j, q0 + r, a.Lq, a.Lk,
-                               a.causal, a.c);
+        s[i][j] = prob(s[i][j], sst[r], k0 + 4 * tx + j, q0 + r, a.Lq, a.Lk, a.causal, a.c);
         dp[i][j] = s[i][j] * (dp[i][j] - sdl[r]);
       }
       *reinterpret_cast<float4*>(ps + r * kLD + 4 * tx) =
@@ -628,6 +1123,10 @@ __global__ void __launch_bounds__(kThreads, 2) attention_f32_qk8_args_kernel(Fwd
   }
 }
 
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+
 FwdArgs make_fwd(const void* q, const void* k, const void* v, void* o, void* stat, int Lq,
                  int Lk, int H, int q_sb, int q_sl, int k_sb, int k_sl, int v_sb, int v_sl,
                  int o_sb, int o_sl, float c, int causal) {
@@ -647,6 +1146,16 @@ FwdArgs make_fwd(const void* q, const void* k, const void* v, void* o, void* sta
   a.L1 = Lk;
   a.k2_sb = a.k2_sl = a.v2_sb = a.v2_sl = 0;
   return a;
+}
+
+cudaError_t launch_packed_fwd(const FwdArgs& a, int B, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(packed_fwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kPFwdSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Lq + kFwdRows - 1) / kFwdRows, a.H, B);
+  packed_fwd_kernel<<<grid, kFwdThreads, kPFwdSmemBytes, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <bool STREAM, bool QK8 = false, bool TWO = false>
@@ -674,23 +1183,61 @@ cudaError_t launch_fwd_int8_or_two(FwdArgs a, int B, int int8_qk, float c,
   return launch_fwd<false, false, TWO>(a, B, stream);
 }
 
+PBwdArgs make_pbwd(const void* q, const void* k, const void* v, const void* dout,
+                   const void* o, const void* den, void* dq, void* dk, void* dv, void* scratch,
+                   int B, int Lq, int Lk, int H, int q_sb, int q_sl, int k_sb, int k_sl,
+                   int v_sb, int v_sl, int lq_pad, int acc_in_smem, float scale) {
+  PBwdArgs a;
+  a.q = static_cast<const float*>(q);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.dout = static_cast<const float*>(dout);
+  a.o = static_cast<const float*>(o);
+  a.den = static_cast<const float*>(den);
+  a.dq = static_cast<float*>(dq);
+  a.dk = static_cast<float*>(dk);
+  a.dv = static_cast<float*>(dv);
+  a.scratch = static_cast<float*>(scratch);
+  a.B = B; a.Lq = Lq; a.Lk = Lk; a.H = H; a.lq_pad = lq_pad; a.acc_in_smem = acc_in_smem;
+  a.q_sb = q_sb; a.q_sl = q_sl; a.k_sb = k_sb; a.k_sl = k_sl;
+  a.v_sb = v_sb; a.v_sl = v_sl;
+  a.scale = scale;
+  a.c = scale * kLog2e;
+  return a;
+}
+
+// One launch of the plan that ops/flash_attention.attention_f32_plan
+// computes from attention_f32_layout: smem_bytes is kBwdFixedBytes, plus
+// acc_floats(lq_pad) * 4 when the accumulator is in shared memory.
+cudaError_t launch_packed_bwd(const PBwdArgs& a, int grid, int smem_bytes,
+                              cudaStream_t stream) {
+  if (a.lq_pad < a.Lq || a.lq_pad % 16 != 0 || grid < 1 || smem_bytes > kMaxSmem ||
+      smem_bytes < kBwdFixedBytes + (a.acc_in_smem ? 4 * acc_floats(a.lq_pad) : 0) ||
+      (!a.acc_in_smem && a.scratch == nullptr))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(packed_bwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return err;
+  packed_bwd_kernel<<<grid, kBwdThreads, smem_bytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
 // the dq kernel (which also writes the row statistics), then the dk / dv
 // kernel, on one stream
-template <bool STREAM>
-cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(attention_f32_bwd_dq_kernel<STREAM>,
+cudaError_t launch_stream_bwd(const BwdArgs& a, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(stream_bwd_dq_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kDqSmemBytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(attention_f32_bwd_dkdv_kernel<STREAM>,
+  err = cudaFuncSetAttribute(stream_bwd_dkdv_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmemBytes);
   if (err != cudaSuccess) return err;
-  attention_f32_bwd_dq_kernel<STREAM>
-      <<<dim3((a.Lq + kT - 1) / kT, a.H, a.B), kThreads, kDqSmemBytes, stream>>>(a);
+  stream_bwd_dq_kernel<<<dim3((a.Lq + kT - 1) / kT, a.H, a.B), kThreads, kDqSmemBytes,
+                         stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_f32_bwd_dkdv_kernel<STREAM>
-      <<<dim3((a.Lk + kT - 1) / kT, a.H, a.B), kThreads, kDkvSmemBytes, stream>>>(a);
+  stream_bwd_dkdv_kernel<<<dim3((a.Lk + kT - 1) / kT, a.H, a.B), kThreads, kDkvSmemBytes,
+                           stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -734,6 +1281,19 @@ extern "C" int packed_attention_f32(const void* q, const void* k, const void* v,
                                     int k_sb, int k_sl, int v_sb, int v_sl, int o_sb,
                                     int o_sl, float c, void* stream) {
   if (bad_args(Dh, o)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_packed_fwd(
+      make_fwd(q, k, v, o, nullptr, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl,
+               c, 0),
+      B, static_cast<cudaStream_t>(stream)));
+}
+
+// B4's attention: B1's function and arguments, as fp32 FMA in the plain
+// version's summation order (the FMA tiles)
+extern "C" int packed_attention_fma_f32(const void* q, const void* k, const void* v, void* o,
+                                        int B, int Lq, int Lk, int H, int Dh, int q_sb,
+                                        int q_sl, int k_sb, int k_sl, int v_sb, int v_sl,
+                                        int o_sb, int o_sl, float c, void* stream) {
+  if (bad_args(Dh, o)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_fwd<false>(
       make_fwd(q, k, v, o, nullptr, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl,
                c, 0),
@@ -746,7 +1306,7 @@ extern "C" int packed_attention_den_f32(const void* q, const void* k, const void
                                         int q_sb, int q_sl, int k_sb, int k_sl, int v_sb,
                                         int v_sl, int o_sb, int o_sl, float c, void* stream) {
   if (bad_args(Dh, den)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_fwd<false>(
+  return static_cast<int>(launch_packed_fwd(
       make_fwd(q, k, v, o, den, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl, c,
                0),
       B, static_cast<cudaStream_t>(stream)));
@@ -806,41 +1366,45 @@ extern "C" int attention_f32_qk8_args(const void* q, const void* k, void* args, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// B6b: dq, dk, dv from do and o (B, Lq, H*64) contiguous and den (B, Lq, H);
-// scratch holds 2 * B * H * Lq floats
+// B6b: dq, dk, dv from do and o (B, Lq, H*64) contiguous and den (B, Lq,
+// H), one launch of the plan (lq_pad, grid, acc_in_smem, smem_bytes);
+// scratch (the plan's global form) holds grid * acc_floats(lq_pad) floats
 extern "C" int packed_attention_bwd_f32(const void* q, const void* k, const void* v,
                                         const void* dout, const void* o, const void* den,
                                         void* dq, void* dk, void* dv, void* scratch, int B,
                                         int Lq, int Lk, int H, int Dh, int q_sb, int q_sl,
-                                        int k_sb, int k_sl, int v_sb, int v_sl, float scale,
+                                        int k_sb, int k_sl, int v_sb, int v_sl, int lq_pad,
+                                        int grid, int acc_in_smem, int smem_bytes, float scale,
                                         void* stream) {
-  if (bad_args(Dh, scratch)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_bwd<false>(
-      make_bwd(q, k, v, dout, o, den, dq, dk, dv, scratch, B, Lq, Lk, H, q_sb, q_sl, k_sb,
-               k_sl, v_sb, v_sl, scale, 0),
-      static_cast<cudaStream_t>(stream)));
+  if (Dh != kHD) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || Lq == 0 || Lk == 0) return 0;
+  return static_cast<int>(launch_packed_bwd(
+      make_pbwd(q, k, v, dout, o, den, dq, dk, dv, scratch, B, Lq, Lk, H, q_sb, q_sl, k_sb,
+                k_sl, v_sb, v_sl, lq_pad, acc_in_smem, scale),
+      grid, smem_bytes, static_cast<cudaStream_t>(stream)));
 }
 
-// B8: the forward (o and den into o_scratch (B, Lq, H*64) and den_scratch
-// (B, Lq, H)), then B6b's kernels on them
+// B8: the packed forward (o and den into o_scratch (B, Lq, H*64) and
+// den_scratch (B, Lq, H)), then B6b's kernel on them
 extern "C" int packed_attention_bwd_recompute_f32(
     const void* q, const void* k, const void* v, const void* dout, void* o_scratch,
     void* den_scratch, void* dq, void* dk, void* dv, void* scratch, int B, int Lq, int Lk,
-    int H, int Dh, int q_sb, int q_sl, int k_sb, int k_sl, int v_sb, int v_sl, float scale,
-    void* stream) {
-  if (bad_args(Dh, scratch) || o_scratch == nullptr || den_scratch == nullptr)
+    int H, int Dh, int q_sb, int q_sl, int k_sb, int k_sl, int v_sb, int v_sl, int lq_pad,
+    int grid, int acc_in_smem, int smem_bytes, float scale, void* stream) {
+  if (Dh != kHD || o_scratch == nullptr || den_scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || Lq == 0 || Lk == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int D = H * kHD;
-  cudaError_t err = launch_fwd<false>(
+  cudaError_t err = launch_packed_fwd(
       make_fwd(q, k, v, o_scratch, den_scratch, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb,
                v_sl, Lq * D, D, scale * kLog2e, 0),
       B, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_bwd<false>(
-      make_bwd(q, k, v, dout, o_scratch, den_scratch, dq, dk, dv, scratch, B, Lq, Lk, H,
-               q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, scale, 0),
-      st));
+  return static_cast<int>(launch_packed_bwd(
+      make_pbwd(q, k, v, dout, o_scratch, den_scratch, dq, dk, dv, scratch, B, Lq, Lk, H, q_sb,
+                q_sl, k_sb, k_sl, v_sb, v_sl, lq_pad, acc_in_smem, scale),
+      grid, smem_bytes, st));
 }
 
 // B7 forward: o (B, Lq, H*64) fp32 and lse (B, H, Lq) fp32
@@ -865,21 +1429,31 @@ extern "C" int streaming_attention_bwd_f32(const void* q, const void* k, const v
                                            int k_sb, int k_sl, int v_sb, int v_sl,
                                            float scale, int causal, void* stream) {
   if (bad_args(Dh, scratch)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_bwd<true>(
+  return static_cast<int>(launch_stream_bwd(
       make_bwd(q, k, v, dout, o, lse, dq, dk, dv, scratch, B, Lq, Lk, H, q_sb, q_sl, k_sb,
                k_sl, v_sb, v_sl, scale, causal),
       static_cast<cudaStream_t>(stream)));
 }
 
-// The layout the launch plan is computed from: rows of a tile, threads a
-// block, and the dynamic shared bytes of the forward, the dq kernel and
-// the dk / dv kernel.
+// The layout the launch plans are computed from: the FMA tiles' rows, threads
+// a block and the dynamic shared bytes of their forward, dq kernel and dk /
+// dv kernel; the 3xTF32 forward's query rows a block, threads and shared
+// bytes; the 3xTF32 backward's threads, fixed shared bytes, floats a query
+// row of its accumulator and row statistics, and the most dynamic shared
+// memory a block may take.
 extern "C" void attention_f32_layout(int* out) {
   out[0] = kT;
   out[1] = kThreads;
   out[2] = kFwdSmemBytes;
   out[3] = kDqSmemBytes;
   out[4] = kDkvSmemBytes;
+  out[5] = kFwdRows;
+  out[6] = kFwdThreads;
+  out[7] = kPFwdSmemBytes;
+  out[8] = kBwdThreads;
+  out[9] = kBwdFixedBytes;
+  out[10] = static_cast<int>(acc_floats(1));
+  out[11] = kMaxSmem;
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -1,7 +1,7 @@
 // The fragment helpers of the one-block-per-(row, head) attention backwards
 // (packed_attention_bwd.cuh: B6b, B8; attention_bwd.cuh: B7's one-launch
 // backward; fused_extras.cu takes its cp.async copies too): cp.async
-// copies of padded 64-column tiles, ldmatrix fragments
+// copies (tf32_frags.cuh) of padded 64-column tiles, ldmatrix fragments
 // (.trans for the operands whose k index runs down the rows), mma.sync
 // m16n8k16 bf16 -> fp32 chains over a tile, the one-instruction exp2 and
 // the bf16 pair conversion.
@@ -9,21 +9,16 @@
 #pragma once
 
 #include "attention_common.cuh"
+#include "tf32_frags.cuh"
 
 namespace afrag {
 
 using attn::kKD;
 using attn::kLDS;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled (nothing read) when !ok
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
+using tf32::cp_async16;
+using tf32::cp_commit;
+using tf32::cp_wait_all;
+using tf32::smem_u32;
 
 __device__ __forceinline__ void cp_async8(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
@@ -34,10 +29,6 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(ok ? 4 : 0));
 }
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
 // mma.sync m16n8k16 bf16 -> fp32, free for the compiler to schedule (a
 // register-only instruction)

@@ -48,7 +48,8 @@
 //      Wo; the owner adds bo and cp and stores summary and e's summary rows.
 // e's global and zero rows are written by every block at the start.
 //
-// The products run on the tensor cores as 3xTF32 (mma.sync m16n8k8): each
+// The products run on the tensor cores as 3xTF32 (mma.sync m16n8k8, the
+// steps of tf32_frags.cuh, shared with attention_f32.cu): each
 // fp32 operand is split into hi = tf32(x) and lo = x - hi, and a * b is
 // taken as lo_a hi_b + hi_a lo_b + hi_a hi_b in the fp32 accumulator (the
 // lo_a lo_b term, 2^-22 of the product, is dropped): fp32 accuracy at three
@@ -64,6 +65,7 @@
 #include <utility>
 
 #include "attention_frags.cuh"
+#include "tf32_frags.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -145,23 +147,8 @@ __device__ __forceinline__ void cp_async4v(__nv_bfloat16* dst, const __nv_bfloat
   afrag::cp_async8(dst, src, ok);
 }
 
-// x = hi + lo: hi is x rounded to TF32 (to nearest, ties away from zero,
-// as cvt.rna.tf32 rounds, but in two integer instructions: the conversion
-// instruction runs at a quarter of their rate, and every warp splits every
-// weight value it reads), lo = x - hi exactly in fp32; the tensor core reads
-// lo's top 19 bits, 2^-22 of x from lo's own (0 where x is TF32 already)
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using tf32::mma_tf32;
+using tf32::split;
 
 // acc (this warp's 16 rows x 8 NT columns) += A_s (rows, kn values) x W_s
 // (kn rows, 8 NT columns), 3xTF32. kn is a multiple of 8; ALO / BLO: the

@@ -83,6 +83,9 @@ _SIGNATURES = {
         # exp2 constant; stream
         "packed_attention_f32": (
             [_VP] * 4 + [_I] * 5 + [_I] * 8 + [ctypes.c_float, _VP], _I),
+        # B4's attention: B1's arguments (the FMA tiles)
+        "packed_attention_fma_f32": (
+            [_VP] * 4 + [_I] * 5 + [_I] * 8 + [ctypes.c_float, _VP], _I),
         # B6a: the same with den after o
         "packed_attention_den_f32": (
             [_VP] * 5 + [_I] * 5 + [_I] * 8 + [ctypes.c_float, _VP], _I),
@@ -100,13 +103,16 @@ _SIGNATURES = {
             [_VP] * 6 + [_I] * 6 + [_I] * 12 + [ctypes.c_float, _I, _VP],
             _I),
         # B6b: q, k, v, do, o, den, dq, dk, dv, scratch; B, Lq, Lk, H, Dh;
-        # q/k/v batch and row strides; scale; stream
+        # q/k/v batch and row strides; the launch plan (lq_pad, grid,
+        # accumulator in shared memory?, shared bytes); scale; stream
         "packed_attention_bwd_f32": (
-            [_VP] * 10 + [_I] * 5 + [_I] * 6 + [ctypes.c_float, _VP], _I),
+            [_VP] * 10 + [_I] * 5 + [_I] * 6 + [_I] * 4
+            + [ctypes.c_float, _VP], _I),
         # B8: q, k, v, do, o and den scratch, dq, dk, dv, scratch; then as
         # B6b
         "packed_attention_bwd_recompute_f32": (
-            [_VP] * 10 + [_I] * 5 + [_I] * 6 + [ctypes.c_float, _VP], _I),
+            [_VP] * 10 + [_I] * 5 + [_I] * 6 + [_I] * 4
+            + [ctypes.c_float, _VP], _I),
         # B7 forward: q, k, v, o, lse; B, Lq, Lk, H, Dh; q/k/v/o batch and
         # row strides; scale; causal; stream
         "streaming_attention_f32": (
@@ -115,7 +121,7 @@ _SIGNATURES = {
         # H, Dh; q/k/v batch and row strides; scale; causal; stream
         "streaming_attention_bwd_f32": (
             [_VP] * 10 + [_I] * 5 + [_I] * 6 + [ctypes.c_float, _I, _VP], _I),
-        # the launch plan's layout: five ints
+        # the launch plans' layout: twelve ints
         "attention_f32_layout": ([ctypes.POINTER(_I)], None),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },

@@ -48,8 +48,10 @@ csrc/ or raises. There is no fallback between the two. The gradients are
 
 Each of these kernels has a bf16 form and a float32 form, picked by the
 dtype of q, k, v (all bfloat16 or all float32): the bf16 kernels above, and
-csrc/attention_f32.cu, where every product is an fp32 FMA and every cast to
-v's dtype a no-op (`attention_f32_plan`; launch counts `*_f32`). Nothing is
+csrc/attention_f32.cu, where the packed attention of B1 / B6a, B6b and B8
+takes its products as 3xTF32 on the tensor cores (fp32 accuracy), the rest
+as fp32 FMA, and every cast to v's dtype is a no-op (`attention_f32_plan`;
+launch counts `*_f32`). Nothing is
 cast from one to the other. The w8a8 serving fusion below takes float32
 too, in its every form, in two launches each: the fp32 attention (B1, its
 int8-score form B11, or either over two sources, B12) into a scratch, then
@@ -551,7 +553,7 @@ def packed_attention_bwd_cuda(q, k, v, do, o, den, num_heads: int):
 def packed_attention_bwd_recompute_cuda(q, k, v, do, num_heads: int):
     """Launch csrc/packed_attention_bwd_recompute.cu (one kernel that
     rebuilds den and delta itself), or its float32 form in
-    csrc/attention_f32.cu (the forward into scratch, then B6b's kernels), on
+    csrc/attention_f32.cu (the forward into scratch, then B6b's kernel), on
     the current stream (no sync). Returns dq, dk, dv."""
     _check_kernel_args(q, k, v, num_heads)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
@@ -668,29 +670,40 @@ def streaming_attention_bwd_cuda(q, k, v, do, o, lse, num_heads: int,
     return dq, dk, dv
 
 
-# Launch plan of csrc/attention_f32.cu, the float32 forms: 64-row tiles of
-# fp32 in shared memory (rows padded to 68 floats), 256 threads a block,
-# and the dynamic shared bytes of its three kernels: the forward (q^T, k^T,
-# v and e^T tiles and two floats a row, the int8-score form's scales), the
-# backward's dq kernel (q^T, do^T, k^T, k, v^T, ds^T and two floats a row)
-# and its dk / dv kernel (eight tiles and two floats a row). The launch
-# holds the five numbers against the library's `attention_f32_layout`
-# before its first use.
-_F32_LAYOUT = (64, 256, 70144, 104960, 139776)
+# Launch plans of csrc/attention_f32.cu, the float32 forms. The FMA tiles
+# (B7, and the attention of B4, B11, B12): 64-row tiles of fp32 in shared
+# memory (rows padded to 68 floats), 256 threads a block, and the dynamic
+# shared bytes of their three kernels: the forward (q^T, k^T, v and e^T
+# tiles and two floats a row, the int8 form's scales), the backward's dq
+# kernel (q^T, do^T, k^T, k, v^T, ds^T and two floats a row) and its dk /
+# dv kernel (eight tiles and two floats a row). The 3xTF32 forward (B1 /
+# B6a, B8's first launch): 64 query rows and 128 threads a block, two
+# stages of key / value tiles. The 3xTF32 backward (B6b, B8's second
+# launch): one block of 256 threads per (batch row, head) holds that head's
+# fp32 dq accumulator and row statistics, 74 floats per query row (Lq
+# rounded up to 16), beside 154 KB of tile stages; past a block's 227 KB
+# (Lq > 240) they move to a block-private region of a global scratch
+# buffer, and a grid of one block per SM walks the (row, head) pairs. The
+# launch holds the twelve numbers against the library's
+# `attention_f32_layout` before its first use.
+_F32_LAYOUT = (64, 256, 70144, 104960, 139776,   # FMA tiles
+               64, 128, 69632,                   # 3xTF32 forward
+               256, 157696, 74, 232448)          # 3xTF32 backward
 _CUDA_MAX_GRID_YZ = 65535
 
 
 def attention_f32_plan(B: int, Lq: int, Lk: int, H: int,
-                       Dh: int = _KERNEL_HEAD_DIM, packed: bool = True
-                       ) -> Dict:
-    """The launches of the float32 kernels at one shape: {'fwd', 'dq',
-    'dkdv': {'grid': (tiles, H, B), 'smem_bytes'}, 'threads',
-    'scratch_floats' (the backward's row statistics and deltas, 2 B H
-    Lq)}. The forward and the dq kernel take a block per 64 query rows, the
-    dk / dv kernel one per 64 keys; keys stream through fixed tiles, so no
-    size depends on Lk. packed: the clamp form, whose path ends at 640
-    keys."""
-    rows, threads, fwd, dq, dkdv = _F32_LAYOUT
+                       Dh: int = _KERNEL_HEAD_DIM, packed: bool = True,
+                       sm_count: int = 132) -> Dict:
+    """The launches of the float32 kernels at one shape on a card of
+    `sm_count` SMs. packed (the clamp form, whose path ends at 640 keys):
+    {'fwd': {'grid': (query tiles, H, B), 'threads', 'smem_bytes'}, 'bwd':
+    {'lq_pad', 'grid', 'acc_in_smem', 'smem_bytes', 'scratch_floats'}}, the
+    backward's grid one-dimensional; streaming: {'fwd', 'dq', 'dkdv':
+    {'grid': (tiles, H, B), 'threads', 'smem_bytes'}, 'scratch_floats' (the
+    backward's row statistics and deltas, 2 B H Lq)}, the forward and the dq
+    kernel a block per 64 query rows, the dk / dv kernel one per 64 keys.
+    Keys stream through fixed tiles, so no size depends on Lk."""
     if Dh != _KERNEL_HEAD_DIM:
         raise ValueError(f"head dim {Dh}: the kernels are built for "
                          f"{_KERNEL_HEAD_DIM}")
@@ -703,11 +716,30 @@ def attention_f32_plan(B: int, Lq: int, Lk: int, H: int,
     if max(B, H) > _CUDA_MAX_GRID_YZ:
         raise ValueError(f"B={B}, H={H}: a grid's y and z take at most "
                          f"{_CUDA_MAX_GRID_YZ}")
-    q_tiles, k_tiles = -(-Lq // rows), -(-Lk // rows)
-    return {"fwd": {"grid": (q_tiles, H, B), "smem_bytes": fwd},
-            "dq": {"grid": (q_tiles, H, B), "smem_bytes": dq},
-            "dkdv": {"grid": (k_tiles, H, B), "smem_bytes": dkdv},
-            "threads": threads, "scratch_floats": 2 * B * H * Lq}
+    if not packed:
+        rows, threads, fwd, dq, dkdv = _F32_LAYOUT[:5]
+        q_tiles, k_tiles = -(-Lq // rows), -(-Lk // rows)
+        return {"fwd": {"grid": (q_tiles, H, B), "threads": threads,
+                        "smem_bytes": fwd},
+                "dq": {"grid": (q_tiles, H, B), "threads": threads,
+                       "smem_bytes": dq},
+                "dkdv": {"grid": (k_tiles, H, B), "threads": threads,
+                         "smem_bytes": dkdv},
+                "scratch_floats": 2 * B * H * Lq}
+    rows, threads, fwd = _F32_LAYOUT[5:8]
+    bwd_threads, fixed, per_row, max_smem = _F32_LAYOUT[8:]
+    lq_pad = -(-Lq // 16) * 16
+    acc = lq_pad * per_row
+    if fixed + 4 * acc <= max_smem:
+        bwd = {"lq_pad": lq_pad, "grid": B * H, "acc_in_smem": True,
+               "smem_bytes": fixed + 4 * acc, "scratch_floats": 0}
+    else:
+        grid = min(B * H, sm_count)
+        bwd = {"lq_pad": lq_pad, "grid": grid, "acc_in_smem": False,
+               "smem_bytes": fixed, "scratch_floats": grid * acc}
+    bwd["threads"] = bwd_threads
+    return {"fwd": {"grid": (-(-Lq // rows), H, B), "threads": threads,
+                    "smem_bytes": fwd}, "bwd": bwd}
 
 
 def _f32_launch(name: str, dev, *args, count: bool = True) -> None:
@@ -762,10 +794,10 @@ def _streaming_fwd_f32(q, k, v, num_heads: int, causal: bool):
 
 
 def _bwd_f32(name: str, q, k, v, do, extra, num_heads: int, causal=None):
-    """Allocate the gradients and the row-statistics scratch and launch
-    entry `name` of csrc/attention_f32.cu: B6b (`extra` o, den), B8 (the
-    scratch of the rebuilt o and den) or, with `causal` given, B7's
-    backward (o, lse). do and the tensors of `extra` are contiguous."""
+    """Allocate the gradients and the plan's scratch and launch entry
+    `name` of csrc/attention_f32.cu: B6b (`extra` o, den), B8 (the scratch
+    of the rebuilt o and den) or, with `causal` given, B7's backward (o,
+    lse). do and the tensors of `extra` are contiguous."""
     B, Lq, D = q.shape
     Lk = k.shape[1]
     do = do.contiguous()
@@ -775,14 +807,23 @@ def _bwd_f32(name: str, q, k, v, do, extra, num_heads: int, causal=None):
     if B == 0 or Lq == 0 or Lk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     Dh = D // num_heads
-    plan = attention_f32_plan(B, Lq, Lk, num_heads, Dh,
-                              packed=causal is None)
-    scratch = torch.empty(plan["scratch_floats"], dtype=torch.float32,
-                          device=q.device)
-    tail = (Dh ** -0.5,) if causal is None else (Dh ** -0.5, int(causal))
+    if causal is None:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        plan = attention_f32_plan(B, Lq, Lk, num_heads, Dh,
+                                  sm_count=sms)["bwd"]
+        n_scratch = plan["scratch_floats"]
+        tail = (plan["lq_pad"], plan["grid"], int(plan["acc_in_smem"]),
+                plan["smem_bytes"], Dh ** -0.5)
+    else:
+        n_scratch = attention_f32_plan(B, Lq, Lk, num_heads, Dh,
+                                       packed=False)["scratch_floats"]
+        tail = (Dh ** -0.5, int(causal))
+    scratch = torch.empty(n_scratch, dtype=torch.float32,
+                          device=q.device) if n_scratch else None
     _f32_launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 do.data_ptr(), *(t.data_ptr() for t in extra), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), B, Lq, Lk,
+                dk.data_ptr(), dv.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), B, Lq, Lk,
                 num_heads, Dh, *_qkv_strides(q, k, v), *tail)
     return dq, dk, dv
 
@@ -1147,8 +1188,10 @@ def _attention_out_f32(q, k, v, num_heads: int, out_params: Dict,
                        second=None) -> torch.Tensor:
     """B4, B11 (int8_qk) and B12 (`second` = (k2, v2): the keys [k; k2],
     the values [v; v2]) in float32, two launches: the fp32 packed forward of
-    csrc/attention_f32.cu (B1's, its int8-score form, or either over two
-    sources) writes the attention of the first lq queries, kept in fp32,
+    csrc/attention_f32.cu on its FMA tiles (B1's function, its int8-score
+    form, or either over two sources; they sum as the plain version does,
+    which the row quant behind them needs to stay within its limits) writes
+    the attention of the first lq queries, kept in fp32,
     into a scratch (B, lq, D); then B2's fp32 form (csrc/w8a8_matmul.cu)
     quantizes each scratch row, runs the int8 out-projection and adds the
     bias and the fp32 residual, each step rounded as
@@ -1184,8 +1227,8 @@ def _attention_out_f32(q, k, v, num_heads: int, out_params: Dict,
         name = "attention_out_int8_qk8_f32" if int8_qk \
             else "attention_out_int8_f32"
         _f32_launch("packed_attention_qk8_f32" if int8_qk
-                    else "packed_attention_f32", *head, a.data_ptr(), B, lq,
-                    k.shape[1], num_heads, Dh, *_qkv_strides(q, k, v),
+                    else "packed_attention_fma_f32", *head, a.data_ptr(), B,
+                    lq, k.shape[1], num_heads, Dh, *_qkv_strides(q, k, v),
                     a.stride(0), a.stride(1), c, count=False)
     out = _w8a8_matmul_launch("f32", a.view(B * lq, D), out_params["kernel"],
                               out_params["bias"],

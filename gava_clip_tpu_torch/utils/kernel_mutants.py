@@ -42,6 +42,11 @@ _ROUND = "__bfloat162float(__float2bfloat16({}))"
 # an fp32 value with its 13 low mantissa bits cut: what a TF32 tensor-core
 # product reads of an fp32 operand
 _TF32 = "__uint_as_float(__float_as_uint({}) & 0xffffe000u)"
+# attention_f32.cu's 3xTF32 step, and the same as one TF32 product
+_3XTF32 = ("  tf32::mma_tf32_z(p, al, bh0, bh1);\n"
+           "  tf32::mma_tf32(p, ah, bl0, bl1);\n"
+           "  tf32::mma_tf32(p, ah, bh0, bh1);\n")
+_1XTF32 = "  tf32::mma_tf32_z(p, ah, bh0, bh1);\n"
 # name -> (source, [(old, new)], chip_smoke phase, word that marks the
 # kernel's lines)
 MUTANTS = {
@@ -223,26 +228,25 @@ MUTANTS = {
                 "          afrag::mma_chunk<kHD / 16>(dk, dr[kc], qs, c0 + kc, 0, "
                 "lane);\n")],
         "phase_train_kernels", "streaming_attention_bwd B="),
-    # the fp32 attention kernels: every product of tiles with its operands
-    # rounded to TF32, which the fp32 limit must tell from fp32
+    # the fp32 attention kernels: every product of the packed forms as one
+    # TF32 product (1xTF32: the two products of a lo part dropped), which
+    # the fp32 limit must tell from 3xTF32
     "f32_products_tf32": (
-        _F32, [("acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);",
-                "acc[i][j] = fmaf(" + _TF32.format("ar[i]") + ", "
-                + _TF32.format("br[j]") + ", acc[i][j]);")],
+        _F32, [(_3XTF32, _1XTF32)],
         "phase_f32_kernels", "packed_attention_den_f32 B="),
-    # B1 / B6a in fp32: the weights of the keys past Lk (exp2(0) = 1)
-    # summed into den
+    # B1 / B6a in fp32: the weights of the keys past Lk in their last chunk
+    # of 8 (exp2(0) = 1) kept, which sums them into den (their value rows
+    # are zeros)
     "f32_b1_den_of_masked_keys": (
-        _F32, [("          const float e = key < a.Lk ? ex2f(fminf(s[i][j] * "
-                "a.c, kClamp)) : 0.f;\n          s[i][j] = e;\n",
-                "          const float e = ex2f(fminf(s[i][j] * a.c, kClamp));\n"
-                "          s[i][j] = key < a.Lk ? e : 0.f;\n")],
+        _F32, [("          e[i] = k0 + kc + (i & 1) < a.Lk ? ex2f(fminf(s[j][i] * "
+                "a.c, kClamp)) : 0.f;",
+                "          e[i] = ex2f(fminf(s[j][i] * a.c, kClamp));")],
         "phase_f32_kernels", "packed_attention_f32 B="),
-    # B6b in fp32 (and B7's backward, which shares the kernel): delta from
-    # the first 32 head columns of do * o only
+    # B6b in fp32 (and B8, which shares the kernel): delta from the first 32
+    # head columns of do * o only
     "f32_b6b_delta_half_row": (
-        _F32, [("      for (int x = 0; x < 4; ++x) {\n        const long long off",
-                "      for (int x = 0; x < 2; ++x) {\n        const long long off")],
+        _F32, [("        for (int half = 0; half < 2; ++half) {",
+                "        for (int half = 0; half < 1; ++half) {")],
         "phase_f32_kernels", "packed_attention_bwd_f32 B="),
     # B8 in fp32: its forward over one key too few
     "f32_b8_forward_one_key_short": (
@@ -256,8 +260,8 @@ MUTANTS = {
         "phase_f32_kernels", "streaming_attention_f32 B="),
     # B7's backward in fp32: p of the keys the causal mask hides kept
     "f32_b7b_causal_mask_dropped": (
-        _F32, [("if (STREAM) return causal && key > row ? 0.f : "
-                "ex2f(s * c - st);", "if (STREAM) return ex2f(s * c - st);")],
+        _F32, [("return causal && key > row ? 0.f : ex2f(s * c - st);",
+                "return ex2f(s * c - st);")],
         "phase_f32_kernels", "streaming_attention_bwd_f32 B="),
     # the fp32 forms of the w8a8 kernels (chip_smoke's w8a8-f32 phase):
     # B2 (and B3, B5, which share the row load) with each fp32 row rounded
@@ -287,7 +291,7 @@ MUTANTS = {
                  "__fadd_rn(s, to_f32(src[c]));")],
         "phase_w8a8_f32", "w8a8_matmul3_f32 M="),
     # B4 in fp32: the attention's products in TF32 (its first launch is
-    # attention_f32.cu's forward)
+    # attention_f32.cu's forward on the FMA tiles)
     "f32w8_b4_products_tf32": (
         _F32, [("acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);",
                 "acc[i][j] = fmaf(" + _TF32.format("ar[i]") + ", "

@@ -570,23 +570,42 @@ _BLOCK_RESERVED = 1024          # shared bytes the runtime keeps per block
 
 
 def test_attention_f32_layout_is_the_kernel_source_s():
-    """The plan's constants are the ones attention_f32_layout reports: 64-row
-    tiles padded to 68 floats, 256 threads, and each kernel's shared bytes
-    as its tiles and row floats add up (the forward's two floats a row are
-    its int8-score form's q and key scales); every kernel fits one block's
-    limit, the forward three blocks to an SM and the dq kernel two."""
+    """The plans' constants are the ones attention_f32_layout reports. The
+    FMA tiles: 64-row tiles padded to 68 floats, 256 threads, each kernel's
+    shared bytes as its tiles and row floats add up (the forward's two
+    floats a row are its int8-score form's q and key scales), the forward
+    three blocks to an SM and the dq kernel two. The 3xTF32 forward: 4
+    warps of 16 query rows, two stages of 64-key k and v tiles, three
+    blocks to an SM. The 3xTF32 backward: 8 warps of 16 keys,
+    two key stages, one value tile, two stages of 32-row q and do tiles and
+    ds^T fixed, 74 floats a query row (a 72-float dq row, inv_d, delta),
+    its accumulator in shared memory up to Lq 240."""
     c = _cuda_constants("attention_f32.cu")
-    assert tfa._F32_LAYOUT == (c["kT"], c["kThreads"], c["kFwdSmemBytes"],
-                               c["kDqSmemBytes"], c["kDkvSmemBytes"])
+    assert tfa._F32_LAYOUT == (
+        c["kT"], c["kThreads"], c["kFwdSmemBytes"], c["kDqSmemBytes"],
+        c["kDkvSmemBytes"], c["kFwdRows"], c["kFwdThreads"],
+        c["kPFwdSmemBytes"], c["kBwdThreads"], c["kBwdFixedBytes"],
+        c["kAccLD"] + 2, c["kMaxSmem"])
     tile = c["kHD"] * c["kLD"] * 4
     assert c["kHD"] == tfa._KERNEL_HEAD_DIM == c["kT"]
-    assert c["kLD"] * 4 % 16 == 0                  # float4 rows
+    assert c["kLD"] * 4 % 16 == 0 and c["kLDF"] * 4 % 16 == 0   # 16-byte rows
     assert c["kThreads"] == (c["kT"] // 4) ** 2     # a 4 x 4 patch a thread
     assert (c["kFwdSmemBytes"], c["kDqSmemBytes"], c["kDkvSmemBytes"]) == (
         4 * tile + 2 * c["kT"] * 4, 6 * tile + 2 * c["kT"] * 4,
         8 * tile + 2 * c["kT"] * 4)
+    row = c["kLDF"] * 4
+    assert c["kFwdRows"] == 16 * c["kFwdThreads"] // 32
+    assert c["kPFwdSmemBytes"] == 2 * 2 * c["kFwdKeys"] * row
+    assert c["kBwdKeys"] == 16 * c["kBwdThreads"] // 32
+    assert c["kBwdFixedBytes"] == (3 * c["kBwdKeys"] * row
+                                   + 4 * c["kBwdRows"] * row
+                                   + c["kBwdKeys"] * c["kLDD"] * 4)
+    assert c["kMaxSmem"] == _H100_SMEM_OPTIN
+    assert c["kBwdFixedBytes"] + 240 * (c["kAccLD"] + 2) * 4 <= c["kMaxSmem"]
+    assert c["kBwdFixedBytes"] + 256 * (c["kAccLD"] + 2) * 4 > c["kMaxSmem"]
     for smem, per_sm in ((c["kFwdSmemBytes"], 3), (c["kDqSmemBytes"], 2),
-                         (c["kDkvSmemBytes"], 1)):
+                         (c["kDkvSmemBytes"], 1), (c["kPFwdSmemBytes"], 3),
+                         (c["kBwdFixedBytes"], 1)):
         assert smem <= _H100_SMEM_OPTIN
         assert per_sm * (smem + _BLOCK_RESERVED) <= _SM90_SMEM_PER_SM
 
@@ -602,19 +621,51 @@ def test_attention_f32_layout_is_the_kernel_source_s():
 ])
 def test_attention_f32_plan_covers_every_row_head_and_tile(B, Lq, Lk, H,
                                                           packed):
-    """Every shape chip_smoke checks: the forward's and the dq kernel's grid
-    cover every query row of every head and batch row in 64-row tiles, the
-    dk / dv kernel's every key; the scratch holds two floats a row; the
-    shared bytes are the layout's at any key length (640 included)."""
-    p = tfa.attention_f32_plan(B, Lq, Lk, H, packed=packed)
-    rows, threads, fwd, dq, dkdv = tfa._F32_LAYOUT
-    for kernel, L in (("fwd", Lq), ("dq", Lq), ("dkdv", Lk)):
-        tiles, heads, batch = p[kernel]["grid"]
-        assert tiles * rows >= L > (tiles - 1) * rows
-        assert (heads, batch) == (H, B)
-    assert (p["fwd"]["smem_bytes"], p["dq"]["smem_bytes"],
-            p["dkdv"]["smem_bytes"]) == (fwd, dq, dkdv)
-    assert p["threads"] == threads and p["scratch_floats"] == 2 * B * H * Lq
+    """Every shape chip_smoke checks. Streaming: the forward's and the dq
+    kernel's grid cover every query row of every head and batch row in
+    64-row tiles, the dk / dv kernel's every key; the scratch holds two
+    floats a row. Packed: the forward's grid covers every query row in
+    blocks of 64; the backward's one block per (batch row, head) holds the
+    dq accumulator of Lq rounded up to 16 rows in shared memory, or (Lq 640)
+    a grid of one block per SM walks the pairs with a global scratch of 74
+    floats a padded row a block. The shared bytes are the layout's at any
+    key length (640 included) and fit a block."""
+    p = tfa.attention_f32_plan(B, Lq, Lk, H, packed=packed, sm_count=_H100_SMS)
+    lay = tfa._F32_LAYOUT
+    if not packed:
+        rows, threads, fwd, dq, dkdv = lay[:5]
+        for kernel, L in (("fwd", Lq), ("dq", Lq), ("dkdv", Lk)):
+            tiles, heads, batch = p[kernel]["grid"]
+            assert tiles * rows >= L > (tiles - 1) * rows
+            assert (heads, batch) == (H, B)
+            assert p[kernel]["threads"] == threads
+        assert (p["fwd"]["smem_bytes"], p["dq"]["smem_bytes"],
+                p["dkdv"]["smem_bytes"]) == (fwd, dq, dkdv)
+        assert p["scratch_floats"] == 2 * B * H * Lq
+        return
+    rows, threads, fwd = lay[5:8]
+    bwd_threads, fixed, per_row, max_smem = lay[8:]
+    tiles, heads, batch = p["fwd"]["grid"]
+    assert tiles * rows >= Lq > (tiles - 1) * rows and (heads, batch) == (H, B)
+    assert (p["fwd"]["threads"], p["fwd"]["smem_bytes"]) == (threads, fwd)
+    bwd = p["bwd"]
+    assert bwd["threads"] == bwd_threads
+    assert bwd["lq_pad"] % 16 == 0 and 0 <= bwd["lq_pad"] - Lq < 16
+    acc = bwd["lq_pad"] * per_row
+    if Lq <= 240:
+        assert (bwd["acc_in_smem"], bwd["grid"], bwd["scratch_floats"]) == (
+            True, B * H, 0)
+        assert bwd["smem_bytes"] == fixed + 4 * acc <= max_smem
+    else:
+        assert (bwd["acc_in_smem"], bwd["grid"]) == (False,
+                                                     min(B * H, _H100_SMS))
+        assert bwd["scratch_floats"] == bwd["grid"] * acc
+        assert bwd["smem_bytes"] == fixed
+    if (B, Lq) == (128, 197):
+        assert (bwd["lq_pad"], bwd["smem_bytes"]) == (208, 219264)
+    if Lq == 640:
+        assert (bwd["lq_pad"], bwd["grid"], bwd["scratch_floats"]) == (
+            640, 8, 8 * 640 * 74)
 
 
 @pytest.mark.parametrize("args,kw", [
