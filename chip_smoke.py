@@ -71,8 +71,10 @@ a run without --use_bf16 takes:
           70, the text tower's causal 15 x 77), ragged ones and the packed
           path's edge (F32_REL of the scale, den and lse), the backwards
           twice with the same bits, B8 bit-equal to B6b on the forward
-          kernel's o and den; kernel, plain version and SDPA in fp32 timed
-          in turns; fp32 into B4 and mixed or fp16 q/k/v raise TypeError;
+          kernel's o and den, B7's backward in one launch where both
+          lengths are at most 128 and in its two kernels past that;
+          kernel, plain version and SDPA in fp32 timed in turns; fp32 into
+          B4 and mixed or fp16 q/k/v raise TypeError;
   w8a8-f32  the fp32 forms of the w8a8 kernels (B2, B3 / B3a, B5 / B5a;
           B4 as B1's fp32 form into a scratch, then B2's fp32 entry with
           the residual) against their plain versions at the shapes of the
@@ -97,9 +99,11 @@ a run without --use_bf16 takes:
           row rounded to bf16 before the quant, B5's residual read as bf16,
           B3a's LayerNorm mean over the first 1,024 columns, B4's attention
           products in TF32) and its f32b9_ / f32b11_ / f32b12_ mutants
-          (B9's products in TF32, B11's codes by the reciprocal or its
-          rescale in another order, B12's second source read from the
-          first), built and checked all at once: each must fail f32-kernel,
+          (B9's products in 1xTF32 or without hi_x lo_w, B11's codes by
+          the reciprocal or its rescale in another order, B12's second
+          source read from the first), built and checked all at once (B7's
+          backward has mutants of each of its two forms): each must fail
+          f32-kernel,
           w8a8-f32 or serving-f32;
   train-f32  the train-slice step in fp32: the first step against the
           plain versions (F32_STEP_MAX_*), launches per step
@@ -459,12 +463,13 @@ def phase_build(state):
                 kernel = line.split("properties for")[-1].strip() + ": "
             elif "registers" in line or "spill" in line:
                 log(f"[build]   {kernel}{line.strip()}")
-    # B9, B2, B5, B3, B4 and the whole-layer kernel are wgmma kernels:
-    # their machine code must hold GMMA instructions (HGMMA for bf16, IGMMA
-    # for int8)
+    # B9 (bf16 and fp32), B2, B5, B3, B4 and the whole-layer kernel are
+    # wgmma kernels: their machine code must hold GMMA instructions (HGMMA
+    # for bf16 and TF32, IGMMA for int8)
     cuobjdump = os.path.join(os.path.dirname(_cuda.find_nvcc()), "cuobjdump")
-    for lib in ("w8_matmul", "w8a8_matmul", "w8a8_mlp", "w8a8_mlp_f32",
-                "w8a8_qkv", "attention_out_int8", "mega_layer"):
+    for lib in ("w8_matmul", "w8_matmul_f32", "w8a8_matmul", "w8a8_mlp",
+                "w8a8_mlp_f32", "w8a8_qkv", "attention_out_int8",
+                "mega_layer"):
         sass = subprocess.run(
             [cuobjdump, "-sass", _cuda.build_info[lib]["so"]],
             capture_output=True, text=True, check=True).stdout
@@ -1866,12 +1871,15 @@ def phase_f32_kernels(state):
     the same bits; B8 equals B6b on the forward kernel's own o and den bit
     for bit; CUDA-event times of kernel, plain version and SDPA in fp32 at
     the 16 x 8 shape and the text tower's, the kernel against SDPA in turns
-    and in CUDA graphs, beside the fp32-FMA and (packed) 3xTF32 bounds. With
-    state['checks_only'] (the mutants' runs) nothing is timed."""
+    and in CUDA graphs, beside the fp32-FMA and 3xTF32 bounds. With
+    state['checks_only'] (the mutants' runs) nothing is timed, and with
+    state['only'] naming a packed or a streaming entry only those shapes
+    are checked."""
     import torch
     from gava_clip_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(3)
     timed = not state.get("checks_only")
+    only = state.get("only") or ""
 
     def rand(*shape):
         return torch.randn(*shape, generator=gen, device="cuda",
@@ -1885,7 +1893,8 @@ def phase_f32_kernels(state):
                               state)
                    for n, g, r in zip(("dq", "dk", "dv"), grads, refs))
 
-    for i, (B, Lq, Lk, H) in enumerate(F32_PACKED_SHAPES):
+    for i, (B, Lq, Lk, H) in enumerate(
+            () if only.startswith("streaming") else F32_PACKED_SHAPES):
         D = H * 64
         label = f"B={B} Lq={Lq} Lk={Lk} H={H}"
         q, k, v, do = rand(B, Lq, D), rand(B, Lk, D), rand(B, Lk, D), \
@@ -1961,7 +1970,8 @@ def phase_f32_kernels(state):
             del sdpa_f, sdpa_b, sdpa_b_op
         del q, k, v, do, out, out1, den, ref, den_ref, grads, g8
 
-    for i, (B, Lq, Lk, H, causal) in enumerate(F32_STREAM_SHAPES):
+    for i, (B, Lq, Lk, H, causal) in enumerate(
+            () if only.startswith("packed") else F32_STREAM_SHAPES):
         D = H * 64
         label = f"B={B} Lq={Lq} Lk={Lk} H={H} causal={causal}"
         q, k, v, do = rand(B, Lq, D), rand(B, Lk, D), rand(B, Lk, D), \
@@ -1979,11 +1989,23 @@ def phase_f32_kernels(state):
             f"{'ok' if lse_ok else 'FAIL'}")
         if not lse_ok:
             state.setdefault("f32_failures", []).append(f"lse {label}")
+        fa.reset_launch_counts()
         grads = fa.streaming_attention_bwd_cuda(q, k, v, do, ref, lse_ref, H,
                                                 causal)
+        forms = {f: n for f, n in fa.stream_bwd_f32_launches.items() if n}
         g_ref = fa.streaming_attention_bwd_plain(q, k, v, do, ref, lse_ref,
                                                  H, causal)
         torch.cuda.synchronize()
+        # one launch while both lengths fit one key tile (128), else the dq
+        # and dk / dv kernels
+        want = {"one_launch": 1} if max(Lq, Lk) <= 128 else \
+            {"two_kernels": 2}
+        form_ok = forms == want
+        log(f"[f32-kernel] streaming_attention_bwd_f32 {label}: form and "
+            f"kernel launches {forms} (expect {want}) "
+            f"{'ok' if form_ok else 'FAIL'}")
+        if not form_ok:
+            state.setdefault("f32_failures", []).append(f"form {label}")
         err_b = hold_grads("streaming_attention_bwd_f32", label, grads, g_ref)
         again = fa.streaming_attention_bwd_cuda(q, k, v, do, ref, lse_ref, H,
                                                 causal)
@@ -1996,6 +2018,9 @@ def phase_f32_kernels(state):
         del spread, g_ref, again
         if i == 0 and timed:
             bounds = _attention_bounds(B, Lq, Lk, H, causal, esize=4)
+            # the one-launch backward takes its products as 3xTF32
+            bounds_tf32 = _attention_bounds(B, Lq, Lk, H, causal, esize=4,
+                                            tf32=True)
             sdpa_f = _sdpa_fwd(q, k, v, H, causal)
             _f32_timings(state, label, (
                 ("streaming_attention_f32",
@@ -2008,8 +2033,9 @@ def phase_f32_kernels(state):
                  lambda: fa.streaming_attention_bwd_plain(q, k, v, do, ref,
                                                           lse_ref, H, causal),
                  _sdpa_bwd(q, k, v, do, H, causal),
-                 _sdpa_bwd_op(q, k, v, do, H, causal), (bounds["bwd"], None),
-                 err_b)))
+                 _sdpa_bwd_op(q, k, v, do, H, causal),
+                 (bounds["bwd"], bounds_tf32["bwd"]
+                  if "one_launch" in forms else None), err_b)))
         del q, k, v, do, out, lse, ref, lse_ref, grads
     # fp32 q/k/v into a kernel with a bf16 form only (B4's int8 QK^T form,
     # B11) raises, naming its ROADMAP item; mixed and half inputs raise in
@@ -2454,12 +2480,17 @@ def _serving_f32_b9(state, gen, timed, only):
         xb = x.to(torch.bfloat16)
         b_k, b_ms, b_r, b_lo, b_hi = _ratio_turns(
             kernel, lambda: im.int8_matmul_cuda(xb, leaf), turns=5, iters=5)
-        bound = _bound(4 * M * K + K * N + 4 * N + 4 * M * N,
-                       flops_fp32=2 * M * K * N)
+        # the kernel takes its products as 3xTF32 (three TF32 products
+        # each); the fp32-FMA bound beside it
+        n_bytes = 4 * M * K + K * N + 4 * N + 4 * M * N
+        bound = _bound(n_bytes, flops_tf32=3 * 2 * M * K * N)
+        fma = _bound(n_bytes, flops_fp32=2 * M * K * N)
         log(f"[serving-f32] {name} {what}: kernel {t['kernel']} ms "
             f"({2e-9 * M * K * N / ms:.1f} TFLOP/s), plain {t['plain']} ms "
-            f"(order plain, kernel, kernel, plain); bound {bound[0]:.4f} ms "
-            f"({bound[1]}); vs torch.matmul on the dequantized fp32 weight, "
+            f"(order plain, kernel, kernel, plain); bound as 3xTF32 "
+            f"{bound[0]:.4f} ms ({bound[1]}), as fp32 FMA {fma[0]:.4f} ms "
+            f"({fma[1]}); torch.matmul {lib_ms:.4f} ms, its bf16 form "
+            f"{b_ms:.4f} ms; vs torch.matmul on the dequantized fp32 weight, "
             f"median of 5 rounds in turns: {lib_k:.4f} ms vs {lib_ms:.4f} "
             f"ms, ratio {lib_r:.3f} (rounds {lib_lo:.3f}-{lib_hi:.3f}); vs "
             f"its bf16 form on the same values in bf16: {b_k:.4f} ms vs "
@@ -2989,15 +3020,22 @@ def phase_train_long(state):
 # before the product moves most weights by a bf16 ulp and so most outputs.
 W8_LIMITS = (5e-3, 1e-3, 2e-5)
 # B9 in fp32 (csrc/w8_matmul_f32.cu) against its plain version, x @ the
-# dequantized weight in fp32 (torch.matmul with TF32 off): both sum the
-# same K exact fp32 products in fp32, in other orders. With S = |x| @ |w|
-# for each output, a sum of K products errs by at most K * 2^-24 * S and,
-# its roundings a random walk, by about 2^-24 * S (the CPU emulation of the
-# kernel: at most 4.3 * 2^-24 * S against the float64 product). A product
-# whose operands are rounded to TF32 (10-bit mantissa, 2^-11 each) moves
-# a sum by ~2^-10 * |sum x w| ~ 2^-10 * S / sqrt(K), >= 2^-16 * S at K <=
-# 3,072. Every output within 2^-19 * S: 2^5 above the fp32 walk, 2^3
-# below TF32, which the f32b9_products_tf32 mutant must fail.
+# dequantized weight in fp32 (torch.matmul with TF32 off). The plain
+# version sums K exact fp32 products in fp32. The kernel takes each product
+# as 3xTF32, within 2^-20 of |x| |w| (the dropped lo x lo part and the
+# tensor core's cut of the lo parts to 19 bits: ~2.5 * 2^-22), sums each
+# k8 step's 24 products in a fresh accumulator (the tensor core truncates
+# that sum: a few 2^-24 of it) and adds the step to its running sum in
+# fp32, to nearest. With S = |x| @ |w| for each output, the per-product
+# errors bound the sum by ~2.5 * 2^-22 * S if they all had one sign, and
+# as a random walk they and the roundings stay near 2^-24 * S (the CPU
+# emulation of the kernel, with the tensor core's truncation: at most
+# 7.3 * 2^-24 * S against the plain version). A product whose operands
+# are rounded to TF32 (10-bit mantissa, 2^-11 each) moves a sum by ~2^-10
+# * |sum x w| ~ 2^-10 * S / sqrt(K), >= 2^-16 * S at K <= 3,072. Every
+# output within 2^-19 * S: 2^5 above the fp32 walk, 2^3 below TF32, which
+# the f32b9_products_tf32 (1xTF32) and f32b9_hi_x_lo_w_dropped mutants
+# must fail.
 W8_F32_REL = 2.0 ** -19
 # (M, K, N): the projections of one block at batch 16 (q and out; k and v
 # over the 214 kv rows; fc1; fc2), then ragged ones (K no multiple of 8:

@@ -43,8 +43,9 @@
 //     as the packed backward with inv = 1.
 //
 // Two kinds of kernel. The packed attention of the training step and of
-// the evaluation forward (B1 / B6a, B6b, B8) runs every product on the
-// tensor cores as 3xTF32 (tf32_frags.cuh: mma.sync m16n8k8, each fp32
+// the evaluation forward (B1 / B6a, B6b, B8), and B7's backward while its
+// rows fit one key tile (Lq, Lk <= 128: the text tower), run every product
+// on the tensor cores as 3xTF32 (tf32_frags.cuh: mma.sync m16n8k8, each fp32
 // operand split once into hi and lo as it enters registers, the lo x lo
 // product dropped; each step's three products summed in a fresh
 // accumulator and added in fp32, since the tensor core truncates what it
@@ -52,8 +53,9 @@
 // matmuls (tests/test_torch_attention_f32.py holds that under an emulation
 // that truncates as the tensor core does), where one TF32 product alone
 // rounds each operand to a 10-bit mantissa (~5e-4 relative), which an fp32
-// run must not see. The streaming forms (B7) and the attention of the w8a8
-// fusion's fp32 forms (B4, B11, B12) run as fp32 FMA on 64 x 64 shared
+// run must not see. B7's forward, its backward past 128 rows and the
+// attention of the w8a8 fusion's fp32 forms (B4, B11, B12) run as fp32 FMA
+// on 64 x 64 shared
 // tiles, each dot summed one product after another, as torch's fp32
 // matmuls sum it: the int8 out-projection behind B4 / B11 / B12 quantizes
 // each attention row, and its limits (chip_smoke's F32_W8A8_LIMITS) hold
@@ -112,6 +114,23 @@
 // through one, the next key tile's issued as soon as the last step of the
 // current one has taken its scores.
 //
+// B7's backward in one launch (the same kernel, packed_bwd_kernel<true>):
+// at the text tower's 15 prompts x 77 tokens x 8 heads it moves 19 MB
+// (0.0057 ms at 3.35 TB/s) for 0.23 GFLOP of visible scores (0.0014 ms as
+// 3xTF32): bytes, and at 120 blocks, one wave on 132 SMs, launch and
+// latency in fact. Its first form, the two FMA kernels below, rebuilt q k^T
+// and do v^T in both (seven products a score entry) and passed each row's
+// delta and statistic through a scratch. Here one block per (batch row,
+// head) walks the one key tile with the packed backward's steps: the row
+// slot of inv_d holds st = lse log2 e, p = exp2(s c - st), 0 past Lk, past
+// Lq and, under the causal mask, for a key past its row; delta = rowsum(do
+// o) as there; five products a score entry in a fixed order, no scratch and
+// the same bits on every run. Under the causal mask a warp whose 16 keys
+// all lie past the query tile's last row skips the tile (its p and ds are 0
+// and its ds^T is never read), and a slab's dq sum stops at the chunk of its
+// last row's key. Rows past 128 keep the two FMA kernels: a block per (b, h)
+// would leave most SMs idle there.
+//
 // The FMA tiles: every product is a 64 x 64 x 64 product of tiles in
 // shared memory, 256 threads (16 x 16) each holding a 4 x 4 patch of the
 // result, 64 rank-1 steps from two float4 loads. Both operands are stored
@@ -130,7 +149,8 @@
 //     shared memory; the two-source form picks each key row's source as it
 //     loads it, so its tiles, sums and bits are those of the one-source
 //     form on [k1; k2].
-//   streaming backward: a dq kernel, one block per (64 query rows, head,
+//   streaming backward past 128 rows (ops/flash_attention.attention_f32_plan
+//     'two_kernels'): a dq kernel, one block per (64 query rows, head,
 //     batch row), walks the key tiles; it first takes each row's delta and
 //     statistic and leaves them in a scratch buffer for the dk / dv kernel,
 //     one block per (64 keys, head, batch row), which walks the query tiles
@@ -184,6 +204,9 @@ constexpr int kOffQD = kOffV + kBwdKeys * kLDF;
 constexpr int kOffDS = kOffQD + 4 * kBwdRows * kLDF;
 constexpr int kBwdFixedBytes = (kOffDS + kBwdKeys * kLDD) * 4;
 constexpr int kMaxSmem = 232448;
+// the most query rows and keys the streaming backward takes in one launch
+// (one key tile; ops/flash_attention.attention_f32_plan's 'one_launch')
+constexpr int kStreamBwdRows = kBwdKeys;
 
 // floats a block's dq accumulator and row statistics take at lq_pad rows
 __host__ __device__ constexpr long long acc_floats(int lq_pad) {
@@ -395,14 +418,21 @@ __global__ void __launch_bounds__(kFwdThreads, 3) packed_fwd_kernel(FwdArgs a) {
 
 struct PBwdArgs {
   const float *q, *k, *v, *dout, *o;
-  const float* den;   // (B, Lq, H)
+  const float* rowstat;   // den (B, Lq, H); the streaming form: lse (B, H, Lq)
   float *dq, *dk, *dv;
   float* scratch;     // the global form: gridDim.x regions of acc_floats(lq_pad)
   int B, Lq, Lk, H, lq_pad, acc_in_smem;
   int q_sb, q_sl, k_sb, k_sl, v_sb, v_sl;   // do and o: (B, Lq, H*64) contiguous
   float scale, c;
+  int causal;         // the streaming form only
 };
 
+// STREAM false: B6b (and B8's second launch), p = e * inv_d from den, the
+// clamp. STREAM true: B7's backward, p = exp2(s c - lse log2 e) from the
+// saved log-sum-exp, 0 past Lq and, under the causal mask, for a key past
+// its row; a warp whose keys all lie past the query tile's last row skips
+// the tile, and the dq sums stop at a slab's last row's key.
+template <bool STREAM>
 __global__ void __launch_bounds__(kBwdThreads, 1) packed_bwd_kernel(PBwdArgs a) {
   extern __shared__ __align__(16) float smem[];
   float* k_st = smem;               // [stage][kBwdKeys][kLDF]
@@ -411,8 +441,8 @@ __global__ void __launch_bounds__(kBwdThreads, 1) packed_bwd_kernel(PBwdArgs a) 
   float* ds_s = smem + kOffDS;      // ds^T [kBwdKeys][kLDD]
   float* acc = a.acc_in_smem ? ds_s + kBwdKeys * kLDD
                              : a.scratch + blockIdx.x * acc_floats(a.lq_pad);
-  float* inv_s = acc + static_cast<long long>(a.lq_pad) * kAccLD;
-  float* dl_s = inv_s + a.lq_pad;
+  float* st_s = acc + static_cast<long long>(a.lq_pad) * kAccLD;   // inv_d, or lse log2 e
+  float* dl_s = st_s + a.lq_pad;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const long long D = static_cast<long long>(a.H) * kHD;
   const int KTn = (a.Lk + kBwdKeys - 1) / kBwdKeys;
@@ -427,7 +457,10 @@ __global__ void __launch_bounds__(kBwdThreads, 1) packed_bwd_kernel(PBwdArgs a) 
     const float* vb = a.v + static_cast<long long>(b) * a.v_sb + hoff;
     const float* dob = a.dout + static_cast<long long>(b) * a.Lq * D + hoff;
     const float* obb = a.o + static_cast<long long>(b) * a.Lq * D + hoff;
-    const float* denb = a.den + static_cast<long long>(b) * a.Lq * a.H + h;
+    // a query row r's statistic: rowstat[r * st_r]
+    const float* statb = STREAM ? a.rowstat + (static_cast<long long>(b) * a.H + h) * a.Lq
+                                : a.rowstat + static_cast<long long>(b) * a.Lq * a.H + h;
+    const long long st_r = STREAM ? 1 : a.H;
     const Rows qrows = one_source(qb, a.Lq, a.q_sl), dorows = one_source(dob, a.Lq, D);
     const Rows krows = one_source(kb, a.Lk, a.k_sl), vrows = one_source(vb, a.Lk, a.v_sl);
 
@@ -450,8 +483,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1) packed_bwd_kernel(PBwdArgs a) 
     issue(0);
 
     // while the first tiles are in flight: zero the dq accumulator, and
-    // take each query row's inv_d and delta = rowsum(do * o), a warp a row
-    // (0 for the rows past Lq, whose p and ds are then 0)
+    // take each query row's inv_d (streaming: lse log2 e) and delta =
+    // rowsum(do * o), a warp a row (0 for the rows past Lq, whose p and ds
+    // are then 0)
     for (long long i = threadIdx.x * 4; i < static_cast<long long>(a.lq_pad) * kAccLD;
          i += kBwdThreads * 4)
       *reinterpret_cast<float4*>(acc + i) = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -467,7 +501,12 @@ __global__ void __launch_bounds__(kBwdThreads, 1) packed_bwd_kernel(PBwdArgs a) 
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
       if (lane == 0) {
-        inv_s[r] = r < a.Lq ? 1.f / fmaxf(denb[static_cast<long long>(r) * a.H], 1e-30f) : 0.f;
+        float st = 0.f;
+        if (r < a.Lq) {
+          const float x = statb[r * st_r];
+          st = STREAM ? x * kLog2e : 1.f / fmaxf(x, 1e-30f);
+        }
+        st_s[r] = st;
         dl_s[r] = d;
       }
     }
@@ -488,7 +527,9 @@ __global__ void __launch_bounds__(kBwdThreads, 1) packed_bwd_kernel(PBwdArgs a) 
       const float* qs = qd_st + (s & 1) * 2 * kBwdRows * kLDF;
       const float* dos = qs + kBwdRows * kLDF;
       const int kw = k0 + warp * 16;   // this warp's first key
-      if (kw < a.Lk) {
+      // (streaming, causal) no row of the query tile sees this warp's keys
+      const bool hidden = STREAM && a.causal && kw > q0 + nq - 1;
+      if (kw < a.Lk && !hidden) {
         const bool kv0 = kw + g < a.Lk, kv1 = kw + g + 8 < a.Lk;
         // transposed tiles: rows are this warp's keys kw + g (c0, c1) and
         // kw + g + 8 (c2, c3), columns the query rows q0 + 8 f + 2 t, + 1
@@ -529,12 +570,20 @@ __global__ void __launch_bounds__(kBwdThreads, 1) packed_bwd_kernel(PBwdArgs a) 
         for (int f = 0; f < kBwdRows / 8; ++f) {
           if (8 * f < nq) {
             const int qc = q0 + 8 * f + 2 * t;
-            const float inv[2] = {inv_s[qc], inv_s[qc + 1]};
+            const float st[2] = {st_s[qc], st_s[qc + 1]};
             const float dl[2] = {dl_s[qc], dl_s[qc + 1]};
             float p[4], ds[4];
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
-              p[i] = (i < 2 ? kv0 : kv1) ? ex2f(fminf(sT[f][i] * a.c, kClamp)) * inv[i & 1] : 0.f;
+              const bool kv = i < 2 ? kv0 : kv1;
+              if (STREAM) {
+                // key kw + g (+ 8 for c2, c3), query row qc (+ 1 for c1, c3)
+                const int key = kw + g + 8 * (i >> 1), row = qc + (i & 1);
+                const bool vis = kv && row < a.Lq && (!a.causal || key <= row);
+                p[i] = vis ? ex2f(sT[f][i] * a.c - st[i & 1]) : 0.f;
+              } else {
+                p[i] = kv ? ex2f(fminf(sT[f][i] * a.c, kClamp)) * st[i & 1] : 0.f;
+              }
               ds[i] = p[i] * (dpT[f][i] - dl[i & 1]);
             }
             *reinterpret_cast<float2*>(ds_s + (warp * 16 + g) * kLDD + 8 * f + 2 * t) =
@@ -571,7 +620,11 @@ __global__ void __launch_bounds__(kBwdThreads, 1) packed_bwd_kernel(PBwdArgs a) 
       {
         const int slab = warp >> 2, c0 = (warp & 3) * 16;
         if (16 * slab < nq) {
-          const int nkc = (min(kBwdKeys, a.Lk - k0) + 7) / 8;
+          int nkc = (min(kBwdKeys, a.Lk - k0) + 7) / 8;
+          // (streaming, causal) the chunks with a key at or before the
+          // slab's last row; the others' ds are 0 (or, a hidden warp's, not
+          // written)
+          if (STREAM && a.causal) nkc = min(nkc, (q0 + 16 * slab + 15 - k0 + 8) / 8);
           float dq[2][4];
 #pragma unroll
           for (int n = 0; n < 2; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
@@ -1184,7 +1237,7 @@ cudaError_t launch_fwd_int8_or_two(FwdArgs a, int B, int int8_qk, float c,
 }
 
 PBwdArgs make_pbwd(const void* q, const void* k, const void* v, const void* dout,
-                   const void* o, const void* den, void* dq, void* dk, void* dv, void* scratch,
+                   const void* o, const void* rowstat, void* dq, void* dk, void* dv, void* scratch,
                    int B, int Lq, int Lk, int H, int q_sb, int q_sl, int k_sb, int k_sl,
                    int v_sb, int v_sl, int lq_pad, int acc_in_smem, float scale) {
   PBwdArgs a;
@@ -1193,7 +1246,7 @@ PBwdArgs make_pbwd(const void* q, const void* k, const void* v, const void* dout
   a.v = static_cast<const float*>(v);
   a.dout = static_cast<const float*>(dout);
   a.o = static_cast<const float*>(o);
-  a.den = static_cast<const float*>(den);
+  a.rowstat = static_cast<const float*>(rowstat);
   a.dq = static_cast<float*>(dq);
   a.dk = static_cast<float*>(dk);
   a.dv = static_cast<float*>(dv);
@@ -1203,22 +1256,24 @@ PBwdArgs make_pbwd(const void* q, const void* k, const void* v, const void* dout
   a.v_sb = v_sb; a.v_sl = v_sl;
   a.scale = scale;
   a.c = scale * kLog2e;
+  a.causal = 0;
   return a;
 }
 
 // One launch of the plan that ops/flash_attention.attention_f32_plan
 // computes from attention_f32_layout: smem_bytes is kBwdFixedBytes, plus
 // acc_floats(lq_pad) * 4 when the accumulator is in shared memory.
+template <bool STREAM>
 cudaError_t launch_packed_bwd(const PBwdArgs& a, int grid, int smem_bytes,
                               cudaStream_t stream) {
   if (a.lq_pad < a.Lq || a.lq_pad % 16 != 0 || grid < 1 || smem_bytes > kMaxSmem ||
       smem_bytes < kBwdFixedBytes + (a.acc_in_smem ? 4 * acc_floats(a.lq_pad) : 0) ||
       (!a.acc_in_smem && a.scratch == nullptr))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(packed_bwd_kernel,
+  cudaError_t err = cudaFuncSetAttribute(packed_bwd_kernel<STREAM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
-  packed_bwd_kernel<<<grid, kBwdThreads, smem_bytes, stream>>>(a);
+  packed_bwd_kernel<STREAM><<<grid, kBwdThreads, smem_bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1378,7 +1433,7 @@ extern "C" int packed_attention_bwd_f32(const void* q, const void* k, const void
                                         void* stream) {
   if (Dh != kHD) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Lq == 0 || Lk == 0) return 0;
-  return static_cast<int>(launch_packed_bwd(
+  return static_cast<int>(launch_packed_bwd<false>(
       make_pbwd(q, k, v, dout, o, den, dq, dk, dv, scratch, B, Lq, Lk, H, q_sb, q_sl, k_sb,
                 k_sl, v_sb, v_sl, lq_pad, acc_in_smem, scale),
       grid, smem_bytes, static_cast<cudaStream_t>(stream)));
@@ -1401,7 +1456,7 @@ extern "C" int packed_attention_bwd_recompute_f32(
                v_sl, Lq * D, D, scale * kLog2e, 0),
       B, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(launch_packed_bwd(
+  return static_cast<int>(launch_packed_bwd<false>(
       make_pbwd(q, k, v, dout, o_scratch, den_scratch, dq, dk, dv, scratch, B, Lq, Lk, H, q_sb,
                 q_sl, k_sb, k_sl, v_sb, v_sl, lq_pad, acc_in_smem, scale),
       grid, smem_bytes, st));
@@ -1420,15 +1475,29 @@ extern "C" int streaming_attention_f32(const void* q, const void* k, const void*
       B, static_cast<cudaStream_t>(stream)));
 }
 
-// B7 backward: from do and o (B, Lq, H*64) contiguous and lse (B, H, Lq);
-// scratch holds 2 * B * H * Lq floats
+// B7 backward: from do and o (B, Lq, H*64) contiguous and lse (B, H, Lq),
+// in the form of ops/flash_attention.attention_f32_plan's 'bwd': one_launch
+// (the 3xTF32 backward's streaming form, a block per (batch row, head), its
+// dq accumulator in shared memory at lq_pad rows, smem_bytes the plan's; no
+// scratch) or the two FMA kernels (scratch holds 2 * B * H * Lq floats;
+// lq_pad and smem_bytes unused)
 extern "C" int streaming_attention_bwd_f32(const void* q, const void* k, const void* v,
                                            const void* dout, const void* o, const void* lse,
                                            void* dq, void* dk, void* dv, void* scratch, int B,
                                            int Lq, int Lk, int H, int Dh, int q_sb, int q_sl,
                                            int k_sb, int k_sl, int v_sb, int v_sl,
-                                           float scale, int causal, void* stream) {
-  if (bad_args(Dh, scratch)) return static_cast<int>(cudaErrorInvalidValue);
+                                           float scale, int causal, int one_launch, int lq_pad,
+                                           int smem_bytes, void* stream) {
+  if (bad_args(Dh, lse)) return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || Lq == 0 || Lk == 0) return 0;
+  if (one_launch) {
+    PBwdArgs a = make_pbwd(q, k, v, dout, o, lse, dq, dk, dv, nullptr, B, Lq, Lk, H, q_sb, q_sl,
+                           k_sb, k_sl, v_sb, v_sl, lq_pad, 1, scale);
+    a.causal = causal;
+    return static_cast<int>(
+        launch_packed_bwd<true>(a, B * H, smem_bytes, static_cast<cudaStream_t>(stream)));
+  }
+  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_stream_bwd(
       make_bwd(q, k, v, dout, o, lse, dq, dk, dv, scratch, B, Lq, Lk, H, q_sb, q_sl, k_sb,
                k_sl, v_sb, v_sl, scale, causal),
@@ -1440,7 +1509,8 @@ extern "C" int streaming_attention_bwd_f32(const void* q, const void* k, const v
 // dv kernel; the 3xTF32 forward's query rows a block, threads and shared
 // bytes; the 3xTF32 backward's threads, fixed shared bytes, floats a query
 // row of its accumulator and row statistics, and the most dynamic shared
-// memory a block may take.
+// memory a block may take; the most query rows and keys of the streaming
+// backward's one-launch form.
 extern "C" void attention_f32_layout(int* out) {
   out[0] = kT;
   out[1] = kThreads;
@@ -1454,6 +1524,7 @@ extern "C" void attention_f32_layout(int* out) {
   out[9] = kBwdFixedBytes;
   out[10] = static_cast<int>(acc_floats(1));
   out[11] = kMaxSmem;
+  out[12] = kStreamBwdRows;
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -118,10 +118,12 @@ _SIGNATURES = {
         "streaming_attention_f32": (
             [_VP] * 5 + [_I] * 5 + [_I] * 8 + [ctypes.c_float, _I, _VP], _I),
         # B7 backward: q, k, v, do, o, lse, dq, dk, dv, scratch; B, Lq, Lk,
-        # H, Dh; q/k/v batch and row strides; scale; causal; stream
+        # H, Dh; q/k/v batch and row strides; scale; causal; the plan's
+        # form (one launch), lq_pad and shared bytes; stream
         "streaming_attention_bwd_f32": (
-            [_VP] * 10 + [_I] * 5 + [_I] * 6 + [ctypes.c_float, _I, _VP], _I),
-        # the launch plans' layout: twelve ints
+            [_VP] * 10 + [_I] * 5 + [_I] * 6
+            + [ctypes.c_float, _I, _I, _I, _I, _VP], _I),
+        # the launch plans' layout: thirteen ints
         "attention_f32_layout": ([ctypes.POINTER(_I)], None),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },

@@ -49,7 +49,8 @@ csrc/ or raises. There is no fallback between the two. The gradients are
 Each of these kernels has a bf16 form and a float32 form, picked by the
 dtype of q, k, v (all bfloat16 or all float32): the bf16 kernels above, and
 csrc/attention_f32.cu, where the packed attention of B1 / B6a, B6b and B8
-takes its products as 3xTF32 on the tensor cores (fp32 accuracy), the rest
+and B7's backward up to 128 rows (one launch, `stream_bwd_f32_launches`)
+take their products as 3xTF32 on the tensor cores (fp32 accuracy), the rest
 as fp32 FMA, and every cast to v's dtype is a no-op (`attention_f32_plan`;
 launch counts `*_f32`). Nothing is
 cast from one to the other. The w8a8 serving fusion below takes float32
@@ -102,11 +103,15 @@ launch_counts = {"packed_attention": 0, "attention_out_int8": 0,
                  "packed_attention_bwd_recompute_f32": 0,
                  "streaming_attention_f32": 0,
                  "streaming_attention_bwd_f32": 0}
+# kernel launches of B7's fp32 backward by the form its plan took: one
+# launch a call, or the dq and dk / dv kernels (two)
+stream_bwd_f32_launches = {"one_launch": 0, "two_kernels": 0}
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, stream_bwd_f32_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 _force_plain = False
@@ -683,12 +688,15 @@ def streaming_attention_bwd_cuda(q, k, v, do, o, lse, num_heads: int,
 # fp32 dq accumulator and row statistics, 74 floats per query row (Lq
 # rounded up to 16), beside 154 KB of tile stages; past a block's 227 KB
 # (Lq > 240) they move to a block-private region of a global scratch
-# buffer, and a grid of one block per SM walks the (row, head) pairs. The
-# launch holds the twelve numbers against the library's
-# `attention_f32_layout` before its first use.
+# buffer, and a grid of one block per SM walks the (row, head) pairs. B7's
+# backward takes the same kernel in its streaming form while Lq and Lk are
+# at most one key tile (128), its accumulator in shared memory, else the
+# two FMA kernels. The launch holds the thirteen numbers against the
+# library's `attention_f32_layout` before its first use.
 _F32_LAYOUT = (64, 256, 70144, 104960, 139776,   # FMA tiles
                64, 128, 69632,                   # 3xTF32 forward
-               256, 157696, 74, 232448)          # 3xTF32 backward
+               256, 157696, 74, 232448,          # 3xTF32 backward
+               128)                              # its streaming form's rows
 _CUDA_MAX_GRID_YZ = 65535
 
 
@@ -699,11 +707,16 @@ def attention_f32_plan(B: int, Lq: int, Lk: int, H: int,
     `sm_count` SMs. packed (the clamp form, whose path ends at 640 keys):
     {'fwd': {'grid': (query tiles, H, B), 'threads', 'smem_bytes'}, 'bwd':
     {'lq_pad', 'grid', 'acc_in_smem', 'smem_bytes', 'scratch_floats'}}, the
-    backward's grid one-dimensional; streaming: {'fwd', 'dq', 'dkdv':
+    backward's grid one-dimensional; streaming: {'fwd': {'grid': (tiles, H,
+    B), 'threads', 'smem_bytes'}, 'bwd'}, the forward a block per 64 query
+    rows, and the backward {'form': 'one_launch', 'launches': 1, 'grid': B
+    * H, 'threads', 'lq_pad', 'smem_bytes', 'scratch_floats': 0} (the packed
+    backward's kernel in its streaming form) while Lq and Lk are at most
+    its rows, else {'form': 'two_kernels', 'launches': 2, 'dq', 'dkdv':
     {'grid': (tiles, H, B), 'threads', 'smem_bytes'}, 'scratch_floats' (the
-    backward's row statistics and deltas, 2 B H Lq)}, the forward and the dq
-    kernel a block per 64 query rows, the dk / dv kernel one per 64 keys.
-    Keys stream through fixed tiles, so no size depends on Lk."""
+    row statistics and deltas, 2 B H Lq)}, the dq kernel a block per 64
+    query rows, the dk / dv kernel one per 64 keys. Keys stream through
+    fixed tiles, so no size depends on Lk."""
     if Dh != _KERNEL_HEAD_DIM:
         raise ValueError(f"head dim {Dh}: the kernels are built for "
                          f"{_KERNEL_HEAD_DIM}")
@@ -716,19 +729,26 @@ def attention_f32_plan(B: int, Lq: int, Lk: int, H: int,
     if max(B, H) > _CUDA_MAX_GRID_YZ:
         raise ValueError(f"B={B}, H={H}: a grid's y and z take at most "
                          f"{_CUDA_MAX_GRID_YZ}")
+    bwd_threads, fixed, per_row, max_smem, one_rows = _F32_LAYOUT[8:]
+    lq_pad = -(-Lq // 16) * 16
     if not packed:
         rows, threads, fwd, dq, dkdv = _F32_LAYOUT[:5]
         q_tiles, k_tiles = -(-Lq // rows), -(-Lk // rows)
+        if Lq <= one_rows and Lk <= one_rows:
+            bwd = {"form": "one_launch", "launches": 1, "grid": B * H,
+                   "threads": bwd_threads, "lq_pad": lq_pad,
+                   "smem_bytes": fixed + 4 * lq_pad * per_row,
+                   "scratch_floats": 0}
+        else:
+            bwd = {"form": "two_kernels", "launches": 2,
+                   "dq": {"grid": (q_tiles, H, B), "threads": threads,
+                          "smem_bytes": dq},
+                   "dkdv": {"grid": (k_tiles, H, B), "threads": threads,
+                            "smem_bytes": dkdv},
+                   "scratch_floats": 2 * B * H * Lq}
         return {"fwd": {"grid": (q_tiles, H, B), "threads": threads,
-                        "smem_bytes": fwd},
-                "dq": {"grid": (q_tiles, H, B), "threads": threads,
-                       "smem_bytes": dq},
-                "dkdv": {"grid": (k_tiles, H, B), "threads": threads,
-                         "smem_bytes": dkdv},
-                "scratch_floats": 2 * B * H * Lq}
+                        "smem_bytes": fwd}, "bwd": bwd}
     rows, threads, fwd = _F32_LAYOUT[5:8]
-    bwd_threads, fixed, per_row, max_smem = _F32_LAYOUT[8:]
-    lq_pad = -(-Lq // 16) * 16
     acc = lq_pad * per_row
     if fixed + 4 * acc <= max_smem:
         bwd = {"lq_pad": lq_pad, "grid": B * H, "acc_in_smem": True,
@@ -815,9 +835,13 @@ def _bwd_f32(name: str, q, k, v, do, extra, num_heads: int, causal=None):
         tail = (plan["lq_pad"], plan["grid"], int(plan["acc_in_smem"]),
                 plan["smem_bytes"], Dh ** -0.5)
     else:
-        n_scratch = attention_f32_plan(B, Lq, Lk, num_heads, Dh,
-                                       packed=False)["scratch_floats"]
-        tail = (Dh ** -0.5, int(causal))
+        plan = attention_f32_plan(B, Lq, Lk, num_heads, Dh,
+                                  packed=False)["bwd"]
+        n_scratch = plan["scratch_floats"]
+        one = plan["form"] == "one_launch"
+        tail = (Dh ** -0.5, int(causal), int(one),
+                plan["lq_pad"] if one else 0,
+                plan["smem_bytes"] if one else 0)
     scratch = torch.empty(n_scratch, dtype=torch.float32,
                           device=q.device) if n_scratch else None
     _f32_launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -825,6 +849,8 @@ def _bwd_f32(name: str, q, k, v, do, extra, num_heads: int, causal=None):
                 dk.data_ptr(), dv.data_ptr(),
                 None if scratch is None else scratch.data_ptr(), B, Lq, Lk,
                 num_heads, Dh, *_qkv_strides(q, k, v), *tail)
+    if causal is not None:
+        stream_bwd_f32_launches[plan["form"]] += plan["launches"]
     return dq, dk, dv
 
 

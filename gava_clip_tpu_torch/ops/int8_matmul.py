@@ -58,8 +58,9 @@ rows: all bfloat16 or all float32, the extras rows and the residual in the
 rows' dtype, the output in it too. Nothing is cast from one to the other;
 fp16 or mixed rows raise TypeError. The fp32 forms read fp32 rows and
 store fp32 (launch counts `*_f32`). The w8a8 forms' arithmetic after the
-load is the bf16 forms'; the w8 GEMM's fp32 form runs its products as fp32
-FMA where the bf16 form runs bf16 wgmma.
+load is the bf16 forms'; the w8 GEMM's fp32 form runs its products as
+3xTF32 wgmma (each fp32 operand split into two TF32 parts, fp32 accuracy)
+where the bf16 form runs bf16 wgmma.
 
 Int8-forward training of frozen weights (`--int8_frozen`, JAX
 `int8_linear_st`, `int8_qkv3_st`, `int8_mlp_st`) runs B2, B3a and B5 (or

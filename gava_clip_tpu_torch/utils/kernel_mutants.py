@@ -47,6 +47,12 @@ _3XTF32 = ("  tf32::mma_tf32_z(p, al, bh0, bh1);\n"
            "  tf32::mma_tf32(p, ah, bl0, bl1);\n"
            "  tf32::mma_tf32(p, ah, bh0, bh1);\n")
 _1XTF32 = "  tf32::mma_tf32_z(p, ah, bh0, bh1);\n"
+# w8_matmul_f32.cu's 3xTF32 step (three wgmma), and the same as one TF32
+# product
+_B9_3XTF32 = ("  tf32::wgmma_tf32_z(f, al, bh);   // lo_x hi_w\n"
+              "  tf32::wgmma_tf32(f, ah, bl);     // hi_x lo_w\n"
+              "  tf32::wgmma_tf32(f, ah, bh);     // hi_x hi_w\n")
+_B9_1XTF32 = "  tf32::wgmma_tf32_z(f, ah, bh);   // hi_x hi_w\n"
 # name -> (source, [(old, new)], chip_smoke phase, word that marks the
 # kernel's lines)
 MUTANTS = {
@@ -258,10 +264,30 @@ MUTANTS = {
     "f32_b7_sum_not_rescaled": (
         _F32, [("        l[i] *= alpha;\n", "")],
         "phase_f32_kernels", "streaming_attention_f32 B="),
-    # B7's backward in fp32: p of the keys the causal mask hides kept
+    # B7's backward in fp32, its two FMA kernels (rows past 128): p of the
+    # keys the causal mask hides kept
     "f32_b7b_causal_mask_dropped": (
         _F32, [("return causal && key > row ? 0.f : ex2f(s * c - st);",
                 "return ex2f(s * c - st);")],
+        "phase_f32_kernels", "streaming_attention_bwd_f32 B="),
+    # B7's backward in fp32, its one-launch form (the 3xTF32 backward's
+    # streaming form, rows up to 128): p of the keys the causal mask hides
+    # kept
+    "f32_b7b1_causal_mask_dropped": (
+        _F32, [("const bool vis = kv && row < a.Lq && (!a.causal || key <= row);",
+                "const bool vis = kv && row < a.Lq;")],
+        "phase_f32_kernels", "streaming_attention_bwd_f32 B="),
+    # ... p = exp2(s c) with the row's statistic not subtracted
+    "f32_b7b1_stat_not_subtracted": (
+        _F32, [("p[i] = vis ? ex2f(sT[f][i] * a.c - st[i & 1]) : 0.f;",
+                "p[i] = vis ? ex2f(sT[f][i] * a.c) : 0.f;")],
+        "phase_f32_kernels", "streaming_attention_bwd_f32 B="),
+    # ... delta from the first 32 head columns of do * o only (the pass it
+    # shares with B6b: f32_b6b_delta_half_row's edit, held here by B7's
+    # check)
+    "f32_b7b1_delta_half_row": (
+        _F32, [("        for (int half = 0; half < 2; ++half) {",
+                "        for (int half = 0; half < 1; ++half) {")],
         "phase_f32_kernels", "streaming_attention_bwd_f32 B="),
     # the fp32 forms of the w8a8 kernels (chip_smoke's w8a8-f32 phase):
     # B2 (and B3, B5, which share the row load) with each fp32 row rounded
@@ -298,11 +324,15 @@ MUTANTS = {
                 + _TF32.format("br[j]") + ", acc[i][j]);")],
         "phase_w8a8_f32", "attention_out_int8_f32 B="),
     # the fp32 serving forms (chip_smoke's serving-f32 phase): B9 in fp32
-    # with every product's operands rounded to TF32
+    # with every product as one TF32 product (1xTF32: both lo products
+    # dropped)
     "f32b9_products_tf32": (
-        _B9F32, [("acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);",
-                  "acc[i][j] = fmaf(" + _TF32.format("ar[i]") + ", "
-                  + _TF32.format("br[j]") + ", acc[i][j]);")],
+        _B9F32, [(_B9_3XTF32, _B9_1XTF32)],
+        "phase_serving_f32", "int8_matmul_f32 M="),
+    # B9 in fp32 with the hi_x lo_w product dropped (the weight's lo part
+    # never enters)
+    "f32b9_hi_x_lo_w_dropped": (
+        _B9F32, [("  tf32::wgmma_tf32(f, ah, bl);     // hi_x lo_w\n", "")],
         "phase_serving_f32", "int8_matmul_f32 M="),
     # B11 in fp32: the codes made with the reciprocal, rint(x * (rcp(qs) *
     # 127)), which rounds twice where the plain version divides once

@@ -2,7 +2,7 @@
 variants of a kernel source (patched copies, as kernel_mutants.py does)
 and time each against the same yardstick, in turns.
 
-    python3 -m gava_clip_tpu_torch.utils.kernel_variants [b1 b9 b7 b5 b3 b4 b2 mega b10 b7b]   # repo root, on a card
+    python3 -m gava_clip_tpu_torch.utils.kernel_variants [b1 b9 b7 b5 b3 b4 b2 mega b10 b7b f32b9 f32b7b]   # repo root, on a card
     python3 -m gava_clip_tpu_torch.utils.kernel_variants e2e   # the parent's tree against this one
 
 B1 / B6a (csrc/packed_attention.cu, the den entry) against
@@ -45,8 +45,18 @@ yardstick (the stock ops; SDPA's flash backward op), by CUDA events and in
 CUDA graphs: B10 at 8, 4 and 2 blocks a cluster, its stages cut off one by
 one, its attention, copied rows or q/k/v products left out, or two of the
 three TF32 products taken (wrong outputs); B7's backward in its one-launch
-and two-kernel forms, and with ex2.approx. `e2e` runs chip_smoke's serving
-and training phases of the parent's tree and of this one in turns.
+and two-kernel forms, and with ex2.approx. The fp32 forms: B9's
+(csrc/w8_matmul_f32.cu) at the w8 evaluation's four shapes against
+torch.matmul on the dequantized fp32 weight (TF32 off), held to
+W8_F32_REL of sum |x| |w|: the source as it is, beside the parent's kernel
+(`f32b9_parent`) and three that show where the time goes: no conversion
+of the weights (wrong outputs), the three products of every k8 step
+chained into the running sums with no wait a step (it drifts past the
+limit), one product a step (wrong outputs); B7's fp32 backward
+(csrc/attention_f32.cu) at the text tower's shape beside the parent's
+(`f32b7b_parent`) against SDPA's fp32 backward op, in CUDA graphs. `e2e`
+runs chip_smoke's serving and training phases of the parent's tree and of
+this one in turns.
 
 Each variant builds into `_scratch/variants/` (gitignored), is called
 through the real entry point's ctypes signature, is compared with the
@@ -75,7 +85,10 @@ _B2 = "gava_clip_tpu_torch/csrc/w8a8_matmul.cu"
 _B10 = "gava_clip_tpu_torch/csrc/fused_extras.cu"
 _B7B = "gava_clip_tpu_torch/csrc/streaming_attention_bwd.cu"
 _B7BH = "gava_clip_tpu_torch/csrc/attention_bwd.cuh"
+_F32 = "gava_clip_tpu_torch/csrc/attention_f32.cu"
+_W8F32 = "gava_clip_tpu_torch/csrc/w8_matmul_f32.cu"
 _LIB = {_PA: "packed_attention", _W8: "w8_matmul", _B7: "streaming_attention",
+        _F32: "attention_f32", _W8F32: "w8_matmul_f32",
         _B5: "w8a8_mlp", _B3: "w8a8_qkv", _B4: "attention_out_int8",
         _MEGA: "mega_layer", _B2: "w8a8_matmul", _B10: "fused_extras",
         _B7B: "streaming_attention_bwd", _B7BH: "streaming_attention_bwd"}
@@ -104,10 +117,52 @@ _PARENT_SIGNATURES[_MEGA] = {
     "mega_layer_bf16": ([_VP] * 26 + [_I] * 7 + [_VP], _I),
     "mega_layer_workspace": ([_I] * 5, ctypes.c_longlong),
     "cuda_error_string": ([_I], ctypes.c_char_p)}
+_PARENT_SIGNATURES[_W8F32] = {
+    # x, W^T tiles, s, y; M, K, N; stream
+    "w8_matmul_f32": ([_VP] * 4 + [_I] * 3 + [_VP], _I)}
+_PARENT_SIGNATURES[_F32] = {
+    # the two FMA kernels: q, k, v, do, o, lse, dq, dk, dv, scratch; B, Lq,
+    # Lk, H, Dh; q/k/v batch and row strides; scale; causal; stream
+    "streaming_attention_bwd_f32": (
+        [_VP] * 10 + [_I] * 5 + [_I] * 6 + [ctypes.c_float, _I, _VP], _I)}
 PARENT_VARIANTS = {"b10_parent": _B10, "b7b_parent": _B7B,
-                   "b2_parent": _B2, "mega_parent": _MEGA}
+                   "b2_parent": _B2, "mega_parent": _MEGA,
+                   "f32b9_parent": _W8F32, "f32b7b_parent": _F32}
+# w8_matmul_f32.cu's products of one k8 step and their handling
+_F32B9_STEP = ("      tf32::wgmma_fence();\n"
+               "      step3(f, ah, al, bh, bl);\n"
+               "      tf32::wgmma_commit();\n"
+               "      tf32::wgmma_wait_all();\n"
+               "      tf32::pin(f);\n")
 # name -> (source, [(old, new)])
 VARIANTS = {
+    "f32b9_as_is": (_W8F32, []),
+    # where B9 fp32's time goes (wrong outputs): no weight conversion (the
+    # plane sets keep what they held)
+    "f32b9_no_convert": (_W8F32, [(
+        "        convert_w(ws(ks + 1), wplanes(ks + 1), wplanes(ks + 1) + "
+        "kWPlaneFloats, sc, c);\n", "")]),
+    # every step's products chained into the running sums, no wait a step
+    # (the tensor core's truncation drifts past W8_F32_REL)
+    "f32b9_chained": (_W8F32, [
+        (_F32B9_STEP + "      // the step's sum added to the running one in "
+         "fp32, to nearest\n#pragma unroll\n"
+         "      for (int i = 0; i < kAcc; ++i) acc[i] += f[i];\n",
+         "      tf32::wgmma_fence();\n"
+         "      tf32::wgmma_tf32(acc, al, bh);\n"
+         "      tf32::wgmma_tf32(acc, ah, bl);\n"
+         "      tf32::wgmma_tf32(acc, ah, bh);\n"
+         "      tf32::wgmma_commit();\n"),
+        ("  // acc[4 j + 0, 1]: row row0",
+         "  tf32::wgmma_wait_all();\n  tf32::pin(acc);\n"
+         "  // acc[4 j + 0, 1]: row row0")]),
+    # one TF32 product a step (wrong outputs): what the other two cost
+    "f32b9_one_product": (_W8F32, [(
+        "  tf32::wgmma_tf32_z(f, al, bh);   // lo_x hi_w\n"
+        "  tf32::wgmma_tf32(f, ah, bl);     // hi_x lo_w\n"
+        "  tf32::wgmma_tf32(f, ah, bh);     // hi_x hi_w\n",
+        "  tf32::wgmma_tf32_z(f, ah, bh);\n")]),
+    "f32b7b_as_is": (_F32, []),
     "b1_as_is": (_PA, []),
     "b1_16_warps_1_block": (_PA, [
         ("constexpr int kWarps = 8;\nconstexpr int kMinBlocks = 2;",
@@ -488,6 +543,10 @@ def main(argv=None) -> int:
         _b10_variants(cs, libs, gen, state)
     if _any(libs, "b7b"):
         _b7b_variants(cs, fa, libs, gen, state)
+    if _any(libs, "f32b9"):
+        _f32b9_variants(cs, im, libs, gen, stream, state)
+    if _any(libs, "f32b7b"):
+        _f32b7b_variants(cs, fa, libs, gen, state)
     return 0
 
 
@@ -1147,6 +1206,91 @@ def _b7b_variants(cs, fa, libs, gen, state):
                   lambda: fa.streaming_attention_bwd_plain(q, k, v, do, o,
                                                            lse, H, True),
                   f"{bound[0]:.5f} ms ({bound[1]})", state)
+
+def _f32b9_variants(cs, im, libs, gen, stream, state):
+    """B9 in fp32 at the w8 evaluation's four shapes, each variant in turns
+    with torch.matmul on the dequantized fp32 weight (TF32 off), its
+    largest error against W8_F32_REL of sum |x| |w|."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for M, K, N, what in cs.W8_MATMUL_SHAPES[:4]:
+        x = torch.randn(M, K, generator=gen, device="cuda")
+        leaf = cs._w8_leaf(gen, K, N)
+        ref = im.int8_matmul_plain(x, leaf["q"], leaf["scale"])
+        w = im.dequant_weight(leaf["q"], leaf["scale"], torch.float32)
+        spread = x.abs() @ w.abs()
+        s = leaf["scale"].reshape(-1).float().contiguous()
+        y = torch.empty(M, N, device="cuda")
+        for name, lib in libs.items():
+            if not name.startswith("f32b9"):
+                continue
+
+            def call(lib=lib):
+                err = lib.w8_matmul_f32(x.data_ptr(), leaf["q_t"].data_ptr(),
+                                        s.data_ptr(), y.data_ptr(), M, K, N,
+                                        stream)
+                if err:
+                    raise RuntimeError(f"{name}: launch failed ({err})")
+            call()
+            torch.cuda.synchronize()
+            rel = ((y - ref).abs() / spread).max().item() / cs.W8_F32_REL
+            r = cs._ratio_turns(call, lambda: torch.matmul(x, w))
+            print(f"[variants] {name} {what} M={M} K={K} N={N}: max |err| / "
+                  f"(|x| @ |w|) {rel:.4f} x 2^-19; {r[0]:.4f} ms "
+                  f"({2e-9 * M * K * N / r[0]:.1f} TFLOP/s) vs torch.matmul "
+                  f"{r[1]:.4f} ms, ratio {r[2]:.3f} (rounds {r[3]:.3f}-"
+                  f"{r[4]:.3f}) ({state['smi']})", flush=True)
+
+
+def _f32b7b_variants(cs, fa, libs, gen, state):
+    """B7's fp32 backward at the text tower's shape (15, 77, 77, 8),
+    causal: this tree's form and the parent's, each against SDPA's fp32
+    backward op in CUDA graphs (device time), and its largest error
+    against the plain version over the largest |gradient|."""
+    import torch
+    B, L, H = 15, 77, 8
+    D = H * 64
+    q, k, v, do = (torch.randn(B, L, D, generator=gen, device="cuda")
+                   for _ in range(4))
+    o, lse = fa.streaming_attention_plain(q, k, v, H, True)
+    want = fa.streaming_attention_bwd_plain(q, k, v, do, o, lse, H, True)
+    grads = [torch.empty_like(q) for _ in range(3)]
+    plan = fa.attention_f32_plan(B, L, L, H, packed=False)["bwd"]
+    scratch = torch.empty(2 * B * H * L, device="cuda")
+    yard = cs._sdpa_bwd_op(q, k, v, do, H, True)
+    for name, lib in libs.items():
+        if not name.startswith("f32b7b"):
+            continue
+        # the parent's entry takes no plan; this tree's its one-launch form
+        tail = () if name.endswith("_parent") else (
+            1, plan["lq_pad"], plan["smem_bytes"])
+
+        def call(lib=lib, tail=tail):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = lib.streaming_attention_bwd_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                o.data_ptr(), lse.data_ptr(), *(g.data_ptr() for g in grads),
+                scratch.data_ptr(), B, L, L, H, 64, *fa._qkv_strides(q, k, v),
+                64 ** -0.5, 1, *tail, stream)
+            if err:
+                raise RuntimeError(f"{name}: launch failed ({err})")
+        call()
+        torch.cuda.synchronize()
+        err = max(((g - r).abs() / r.abs().max()).max().item()
+                  for g, r in zip(grads, want))
+        if yard is None:
+            ms = cs.cuda_time_ms(cs._graph_call(call)) / cs.GRAPH_LAUNCHES
+            print(f"[variants] {name} B={B} L={L} H={H} causal: max err / "
+                  f"scale {err:.3e}; {ms:.5f} ms a call in a CUDA graph, "
+                  f"SDPA's op not measured ({state['smi']})", flush=True)
+            continue
+        g = cs._ratio_graphs(call, yard)
+        print(f"[variants] {name} B={B} L={L} H={H} causal: max err / scale "
+              f"{err:.3e}; in CUDA graphs of {cs.GRAPH_LAUNCHES} calls, "
+              f"median of 7 rounds: {g[0]:.5f} ms vs SDPA's fp32 backward op "
+              f"{g[1]:.5f} ms a call, ratio {g[2]:.3f} (rounds {g[3]:.3f}-"
+              f"{g[4]:.3f}) ({state['smi']})", flush=True)
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -5,12 +5,17 @@ meeting at a std::barrier, a warp's at one of its own for its shuffles and
 its mma.sync, shared memory filled with NaN before each launch) and called
 through the same C entry points and ctypes signatures as on the card. The
 PTX of csrc/tf32_frags.cuh becomes C++: mma.sync m16n8k8 TF32 in its
-fragment layout with each operand cut to its top 19 bits, cp.async a plain
-copy (its waits no-ops); that product is held against numpy. The kernels
-are held against the plain versions at small ragged shapes with
-chip_smoke's fp32 limit, with their fp32 mutants (utils/kernel_mutants.py)
-rejected by the same limit. ex2.approx becomes exp2f here, so this checks
-the kernels' indexing, masking, tiling and summation, not the card's
+fragment layout with each operand cut to its top 19 bits, wgmma m64n128k8
+TF32 (csrc/w8_matmul_f32.cu's, tests/test_torch_w8_f32.py) as those
+products over its descriptor's unswizzled core matrices, cp.async a plain
+copy (its waits and the fences no-ops); that product is held against numpy.
+The kernels are held against the plain versions at small ragged shapes
+with chip_smoke's fp32 limit, with their fp32 mutants
+(utils/kernel_mutants.py) rejected by the same limit; B7's backward at rows
+up to 128 takes its one-launch form (the 3xTF32 backward's kernel in its
+streaming form), gives the same bits twice and is also held directly
+against JAX's gradient. ex2.approx becomes exp2f here, so this checks the
+kernels' indexing, masking, tiling and summation, not the card's
 instructions.
 
 The same for the forms the w8a8 serving fusion's fp32 path adds: the
@@ -89,7 +94,11 @@ enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
 template <class F> cudaError_t cudaFuncSetAttribute(F, int, int) { return 0; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
-inline size_t __cvta_generic_to_shared(const void* p) { return reinterpret_cast<size_t>(p); }
+// a shared-memory address: the offset into the launch's buffer (what a
+// wgmma descriptor holds)
+inline size_t __cvta_generic_to_shared(const void* p) {
+  return static_cast<size_t>(static_cast<const char*>(p) - reinterpret_cast<const char*>(g_smem));
+}
 inline void __syncthreads() { g_bar->arrive_and_wait(); }
 inline EmuWarp& emu_warp() { return (*g_warps)[threadIdx.x >> 5]; }
 inline float __shfl_xor_sync(unsigned, float x, int off) {
@@ -133,6 +142,28 @@ inline void emu_mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uin
     d[i] = f;
   }
 }
+// wgmma m64nNk8 TF32 with A from registers (N = 2 R): each warp of the
+// warpgroup its own 16 rows, as N / 8 m16n8k8 products of its A fragment and
+// the 8-column slices of B, read from shared memory by the descriptor
+// (unswizzled, k-major: core matrices of 8 rows x 16 bytes, lbo bytes apart
+// along k, sbo along the rows); `acc` false starts a fresh sum (scale-d 0)
+template <int R>
+inline void emu_wgmma_tf32(float (&d)[R], const uint32_t (&a)[4], uint64_t desc, bool acc) {
+  if ((desc >> 62) != 0) std::abort();   // a swizzled layout: not emulated
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const char* base = reinterpret_cast<const char*>(g_smem) + ((desc & 0x3FFFu) << 4);
+  const size_t lbo = ((desc >> 16) & 0x3FFFu) << 4, sbo = ((desc >> 32) & 0x3FFFu) << 4;
+  for (int j = 0; j < R / 4; ++j) {
+    const char* at = base + j * sbo + g * 16 + t * 4;   // B (k t, column 8 j + g)
+    uint32_t b0, b1;
+    std::memcpy(&b0, at, 4);
+    std::memcpy(&b1, at + lbo, 4);
+    float dj[4];
+    for (int i = 0; i < 4; ++i) dj[i] = acc ? d[4 * j + i] : 0.f;
+    emu_mma_tf32(dj, a, b0, b1);
+    for (int i = 0; i < 4; ++i) d[4 * j + i] = dj[i];
+  }
+}
 template <class K, class A>
 void emu_launch(K k, dim3 grid, int threads, int smem_bytes, const A& a) {
   gridDim = {grid.x, grid.y, grid.z};
@@ -155,18 +186,29 @@ void emu_launch(K k, dim3 grid, int threads, int smem_bytes, const A& a) {
 """
 
 # csrc/tf32_frags.cuh's PTX, one named function each, as C++: cp.async as
-# a plain copy (zeros when nothing is read) with its commit and wait as
+# a plain copy (zeros when nothing is read) with its commit and waits as
 # no-ops, mma.sync as the collective above (with its accumulator cleared
-# first where the statement binds it to zeros: mma_tf32_z)
+# first where the statement binds it to zeros: mma_tf32_z), wgmma as the
+# emulation above run at once (fresh where the statement's accumulator is
+# write-only: wgmma_tf32_z), its fences, commit and wait and the proxy
+# fence as no-ops
 _MMA = "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"
+_WGMMA = "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32"
 _PTX_EMULATION = {
     "cp.async.cg.shared.global": "if (ok) std::memcpy(dst, src, 16); "
                                  "else std::memset(dst, 0, 16);",
     "cp.async.commit_group": "",
     "cp.async.wait_group 0": "",
+    "cp.async.wait_group 1": "",
     _MMA: "emu_mma_tf32(d, a, b0, b1);",
     _MMA + " (zero accumulator)":
         "d[0] = d[1] = d[2] = d[3] = 0.f; emu_mma_tf32(d, a, b0, b1);",
+    "fence.proxy.async.shared::cta": "",
+    "wgmma.fence.sync.aligned": "",
+    "wgmma.commit_group.sync.aligned": "",
+    "wgmma.wait_group.sync.aligned 0": "",
+    _WGMMA: "emu_wgmma_tf32(d, a, desc, true);",
+    _WGMMA + " (zero accumulator)": "emu_wgmma_tf32(d, a, desc, false);",
 }
 
 
@@ -174,10 +216,15 @@ def _emulated_header(src: str) -> str:
     """tf32_frags.cuh with each PTX statement replaced by its emulation."""
     def sub(m):
         stmt = m.group(0)
+        if re.match(r'asm(?:\s+volatile)?\(""', stmt):   # tf32::pin: no code
+            return ";"
         ptx = [k for k in _PTX_EMULATION if f'"{k.split(" (")[0]}' in stmt]
         if _MMA in ptx:
             ptx = [_MMA + " (zero accumulator)" if '"f"(0.f)' in stmt
                    else _MMA]
+        if _WGMMA in ptx:
+            ptx = [_WGMMA + " (zero accumulator)" if "TF32_W)" in stmt
+                   else _WGMMA]
         assert len(ptx) == 1, stmt
         return _PTX_EMULATION[ptx[0]]
     out = re.sub(r"asm(?:\s+volatile)?\(.*?\);", sub, src, flags=re.S)
@@ -230,6 +277,14 @@ struct uint4 { unsigned x, y, z, w; };
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __frcp_rn(float a) { return 1.0f / a; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+// byte i of the result: byte (s >> 4 i & 7) of y:x
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const unsigned long long v = (static_cast<unsigned long long>(y) << 32) | x;
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i) r |= ((v >> (8 * ((s >> (4 * i)) & 7))) & 0xffu) << (8 * i);
+  return r;
+}
 """
 
 
@@ -292,10 +347,30 @@ def _inputs(seed, B, Lq, Lk, H, sliced):
     return q, k, v, do
 
 
+def _stream_bwd(lib, q, k, v, do, o, lse, H, causal):
+    """B7's fp32 backward through the entry in the form of its plan:
+    (dq, dk, dv), the form."""
+    B, Lq, D = q.shape
+    Lk = k.shape[1]
+    plan = tfa.attention_f32_plan(B, Lq, Lk, H, packed=False)["bwd"]
+    one = plan["form"] == "one_launch"
+    scratch = torch.full((max(plan["scratch_floats"], 1),), float("nan"))
+    g = [torch.empty(B, L, D) for L in (Lq, Lk, Lk)]
+    P = torch.Tensor.data_ptr
+    assert lib.streaming_attention_bwd_f32(
+        P(q), P(k), P(v), P(do), P(o), P(lse), *map(P, g),
+        P(scratch) if plan["scratch_floats"] else None, B, Lq, Lk, H, 64,
+        *tfa._qkv_strides(q, k, v), 64 ** -0.5, int(causal), int(one),
+        plan["lq_pad"] if one else 0, plan["smem_bytes"] if one else 0,
+        None) == 0
+    return g, plan["form"]
+
+
 def _run(lib, B, Lq, Lk, H, causal=None, sliced=False, seed=0):
     """Every entry at one shape against its plain version: {check: max err
     / scale} (forward: sum p |v|; backward: the tensor's largest |value|),
-    den's relative and lse's absolute error, and the bit equalities."""
+    den's relative and lse's absolute error, and the bit equalities (the
+    streaming backward: two runs give the same bits)."""
     q, k, v, do = _inputs(seed, B, Lq, Lk, H, sliced)
     D, Dh = H * 64, 64
     strides = tfa._qkv_strides(q, k, v)
@@ -310,7 +385,6 @@ def _run(lib, B, Lq, Lk, H, causal=None, sliced=False, seed=0):
     def rel_grads(got, want):
         return max(rel(a, b, b.abs().max()) for a, b in zip(got, want))
 
-    scratch = torch.empty(2 * B * H * Lq)
     res = {}
     if causal is None:
         plan = tfa.attention_f32_plan(B, Lq, Lk, H)["bwd"]
@@ -361,15 +435,13 @@ def _run(lib, B, Lq, Lk, H, causal=None, sliced=False, seed=0):
         spread = tfa.streaming_attention_plain(q, k, v.abs(), H, causal)[0]
         res["streaming_attention_f32"] = rel(o, ref, spread)
         res["lse"] = (lse - lse_ref).abs().max().item()
-        g = grads()
-        assert lib.streaming_attention_bwd_f32(
-            P(q), P(k), P(v), P(do), P(ref), P(lse_ref), *map(P, g),
-            P(scratch), B, Lq, Lk, H, Dh, *strides, Dh ** -0.5, int(causal),
-            None) == 0
+        g, res["form"] = _stream_bwd(lib, q, k, v, do, ref, lse_ref, H,
+                                     causal)
         res["streaming_attention_bwd_f32"] = rel_grads(
             g, tfa.streaming_attention_bwd_plain(q, k, v, do, ref, lse_ref, H,
                                                  causal))
-        res["bits"] = True
+        again = _stream_bwd(lib, q, k, v, do, ref, lse_ref, H, causal)[0]
+        res["bits"] = all(torch.equal(a, b) for a, b in zip(g, again))
     return res
 
 
@@ -396,6 +468,57 @@ def test_f32_kernels_match_plain_versions(emu, shape):
     assert res.get("den", 0.0) <= 2.0 ** -16
     assert res.get("lse", 0.0) <= 3e-5
     assert res["bits"]
+
+
+# (B, Lq, Lk, H, causal): B7's backward in its one-launch form (rows up to
+# 128): ragged, more keys than query rows, and causal with query rows that
+# are not a multiple of 16 over keys past one 32-row query tile
+_ONE_LAUNCH_SHAPES = [(2, 13, 21, 2, False), (1, 40, 40, 2, True)]
+
+
+@pytest.mark.parametrize("shape", _ONE_LAUNCH_SHAPES)
+def test_f32_stream_bwd_one_launch_matches_plain_version(emu, shape):
+    """B7's fp32 backward at rows up to 128 takes its plan's one launch (the
+    3xTF32 backward's kernel in its streaming form) and stays within
+    F32_REL of streaming_attention_bwd_plain, with the same bits on two
+    runs."""
+    *dims, causal = shape
+    res = _run(emu[1], *dims, causal=causal)
+    assert res["form"] == "one_launch"
+    assert res["streaming_attention_bwd_f32"] <= F32_REL, res
+    assert res["bits"]
+
+
+def test_f32_stream_bwd_one_launch_against_jax_grad(emu):
+    """The one-launch form held directly against JAX's gradient, as
+    tests/test_torch_flash_train.py takes it: jax.vjp of the JAX streaming
+    path (the stock Pallas TPU kernels in interpret mode) within the JAX
+    package's own tolerance for them (tests/test_flash_attention.py: atol
+    2e-3), and of the JAX reference attention within 1e-4 (fp32 sums in
+    another order). The kernel reads o and lse from the port's plain
+    streaming forward."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+    from gava_clip_tpu.ops import flash_attention as jflash
+    B, L, H = 1, 40, 2
+    q, k, v, do = _inputs(12, B, L, L, H, False)
+    o, lse = tfa.streaming_attention_plain(q, k, v, H, True)
+    g, form = _stream_bwd(emu[1], q, k, v, do, o, lse, H, True)
+    assert form == "one_launch"
+    jq, jk, jv, jdo = (jnp.asarray(t.numpy()) for t in (q, k, v, do))
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda a, b, c: jflash._streaming_flash(
+            a, b, c, H, True), jq, jk, jv)
+        g_j = vjp(jdo)
+    _, vjp_r = jax.vjp(lambda a, b, c: jflash._reference_attention(
+        a, b, c, H, causal=True), jq, jk, jv)
+    g_r = vjp_r(jdo)
+    for name, gt, gj, gr in zip("qkv", g, g_j, g_r):
+        np.testing.assert_allclose(gt.numpy(), np.asarray(gj), atol=2e-3,
+                                   err_msg=name)
+        np.testing.assert_allclose(gt.numpy(), np.asarray(gr), atol=1e-4,
+                                   err_msg=name)
 
 
 def test_f32_packed_bwd_global_accumulator_walks_the_items(emu):

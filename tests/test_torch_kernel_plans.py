@@ -12,6 +12,7 @@ from pathlib import Path
 import pytest
 import torch
 
+import chip_smoke
 from gava_clip_tpu_torch.ops import _cuda
 from gava_clip_tpu_torch.ops import flash_attention as tfa
 from gava_clip_tpu_torch.ops import int8_matmul as tim
@@ -579,13 +580,18 @@ def test_attention_f32_layout_is_the_kernel_source_s():
     blocks to an SM. The 3xTF32 backward: 8 warps of 16 keys,
     two key stages, one value tile, two stages of 32-row q and do tiles and
     ds^T fixed, 74 floats a query row (a 72-float dq row, inv_d, delta),
-    its accumulator in shared memory up to Lq 240."""
+    its accumulator in shared memory up to Lq 240; B7's backward takes it
+    in one launch for rows up to one key tile (128), whose accumulator
+    always fits."""
     c = _cuda_constants("attention_f32.cu")
     assert tfa._F32_LAYOUT == (
         c["kT"], c["kThreads"], c["kFwdSmemBytes"], c["kDqSmemBytes"],
         c["kDkvSmemBytes"], c["kFwdRows"], c["kFwdThreads"],
         c["kPFwdSmemBytes"], c["kBwdThreads"], c["kBwdFixedBytes"],
-        c["kAccLD"] + 2, c["kMaxSmem"])
+        c["kAccLD"] + 2, c["kMaxSmem"], c["kStreamBwdRows"])
+    assert c["kStreamBwdRows"] == c["kBwdKeys"] == 128
+    assert c["kBwdFixedBytes"] + c["kStreamBwdRows"] * (c["kAccLD"] + 2) * 4 \
+        <= c["kMaxSmem"]
     tile = c["kHD"] * c["kLD"] * 4
     assert c["kHD"] == tfa._KERNEL_HEAD_DIM == c["kT"]
     assert c["kLD"] * 4 % 16 == 0 and c["kLDF"] * 4 % 16 == 0   # 16-byte rows
@@ -632,19 +638,32 @@ def test_attention_f32_plan_covers_every_row_head_and_tile(B, Lq, Lk, H,
     key length (640 included) and fit a block."""
     p = tfa.attention_f32_plan(B, Lq, Lk, H, packed=packed, sm_count=_H100_SMS)
     lay = tfa._F32_LAYOUT
+    bwd_threads, fixed, per_row, max_smem, one_rows = lay[8:]
     if not packed:
         rows, threads, fwd, dq, dkdv = lay[:5]
-        for kernel, L in (("fwd", Lq), ("dq", Lq), ("dkdv", Lk)):
-            tiles, heads, batch = p[kernel]["grid"]
+        bwd = p["bwd"]
+        kernels = [("fwd", p["fwd"], Lq)]
+        if bwd["form"] == "two_kernels":
+            kernels += [("dq", bwd["dq"], Lq), ("dkdv", bwd["dkdv"], Lk)]
+            assert (bwd["dq"]["smem_bytes"], bwd["dkdv"]["smem_bytes"]) == (
+                dq, dkdv)
+            assert bwd["scratch_floats"] == 2 * B * H * Lq
+            assert bwd["launches"] == 2 and max(Lq, Lk) > one_rows
+        else:
+            assert max(Lq, Lk) <= one_rows and bwd["launches"] == 1
+            assert (bwd["grid"], bwd["threads"], bwd["scratch_floats"]) == (
+                B * H, bwd_threads, 0)
+            assert bwd["lq_pad"] % 16 == 0 and 0 <= bwd["lq_pad"] - Lq < 16
+            assert bwd["smem_bytes"] == fixed + 4 * bwd["lq_pad"] * per_row \
+                <= max_smem
+        for kernel, plan, L in kernels:
+            tiles, heads, batch = plan["grid"]
             assert tiles * rows >= L > (tiles - 1) * rows
             assert (heads, batch) == (H, B)
-            assert p[kernel]["threads"] == threads
-        assert (p["fwd"]["smem_bytes"], p["dq"]["smem_bytes"],
-                p["dkdv"]["smem_bytes"]) == (fwd, dq, dkdv)
-        assert p["scratch_floats"] == 2 * B * H * Lq
+            assert plan["threads"] == threads
+        assert p["fwd"]["smem_bytes"] == fwd
         return
     rows, threads, fwd = lay[5:8]
-    bwd_threads, fixed, per_row, max_smem = lay[8:]
     tiles, heads, batch = p["fwd"]["grid"]
     assert tiles * rows >= Lq > (tiles - 1) * rows and (heads, batch) == (H, B)
     assert (p["fwd"]["threads"], p["fwd"]["smem_bytes"]) == (threads, fwd)
@@ -666,6 +685,33 @@ def test_attention_f32_plan_covers_every_row_head_and_tile(B, Lq, Lk, H,
     if Lq == 640:
         assert (bwd["lq_pad"], bwd["grid"], bwd["scratch_floats"]) == (
             640, 8, 8 * 640 * 74)
+
+
+@pytest.mark.parametrize("B,Lq,Lk,H,form", [
+    (15, 77, 77, 8, "one_launch"),     # the text tower
+    (2, 100, 60, 2, "one_launch"), (3, 13, 21, 2, "one_launch"),
+    (1, 128, 128, 1, "one_launch"),    # one key tile's edge
+    (4, 1024, 1024, 8, "two_kernels"), (2, 130, 700, 2, "two_kernels"),
+    (1, 129, 128, 1, "two_kernels"), (1, 128, 129, 1, "two_kernels"),
+])
+def test_attention_f32_stream_bwd_form(B, Lq, Lk, H, form):
+    """B7's fp32 backward takes one launch (a block per batch row and head)
+    while both lengths fit one key tile of its kernel, as the bf16 form's
+    `streaming_bwd_plan`, else the dq and dk / dv kernels; chip_smoke's
+    F32_STREAM_SHAPES take the forms its f32-kernel phase expects. The
+    text tower's 120 blocks are one wave of an H100's 132 SMs, its shared
+    bytes those of 80 padded rows."""
+    bwd = tfa.attention_f32_plan(B, Lq, Lk, H, packed=False)["bwd"]
+    assert bwd["form"] == form
+    assert bwd["form"] == tfa.streaming_bwd_plan(B, Lq, Lk, H)["form"]
+    if (B, Lq, H) == (15, 77, 8):
+        assert bwd["grid"] == 120 <= _H100_SMS
+        assert (bwd["lq_pad"], bwd["smem_bytes"]) == (80, 157696 + 80 * 74 * 4)
+    forms = {shape[:4]: tfa.attention_f32_plan(*shape[:4], packed=False)[
+        "bwd"]["form"] for shape in chip_smoke.F32_STREAM_SHAPES}
+    assert forms == {shape[:4]: "one_launch" if max(shape[1:3]) <= 128
+                     else "two_kernels"
+                     for shape in chip_smoke.F32_STREAM_SHAPES}
 
 
 @pytest.mark.parametrize("args,kw", [
@@ -693,17 +739,31 @@ def test_attention_f32_layout_check_before_first_launch():
 
 def test_w8_f32_tile_is_the_w8_kernel_layout_s():
     """B9's fp32 form reads the bf16 form's weight leaf: a block's columns
-    and k step are one tile of the w8 kernel layout (128 x 64, 8,192
-    bytes), 256 threads an 8 x 8 patch each of its 128 x 128 outputs, and
-    its two fp32 tiles (rows padded to 16-byte multiples) fit two blocks
-    to an SM."""
+    are one tile of the w8 kernel layout (128 x 64, 8,192 bytes) and its k
+    step half of one (four k8 steps of wgmma m64n128k8), two product
+    warpgroups of 64 x 128 outputs (64 a thread) and a converter
+    warpgroup; the raw x rows are padded to 16-byte multiples, 4 floats past
+    a multiple of 32 so that a warp's fragment loads fall in 32 banks; w's
+    hi and lo planes (two sets), three raw stages of x and of the half
+    weight tile fit one block to an SM, whose 384 threads leave each 168
+    registers."""
     c = _cuda_constants("w8_matmul_f32.cu")
-    assert (c["kBN"], c["kBK"]) == (tim._W8_TILE_N, tim._W8_TILE_K)
+    assert (c["kBN"], c["kWTileK"]) == (tim._W8_TILE_N, tim._W8_TILE_K)
     assert c["kWTileBytes"] == tim._W8_TILE_N * tim._W8_TILE_K == 8192
-    assert c["kThreads"] * 64 == c["kBM"] * c["kBN"]
-    assert c["kLDS"] * 4 % 16 == 0 and c["kLDS"] >= max(c["kBM"], c["kBN"])
-    assert c["kSmemBytes"] == 2 * c["kBK"] * c["kLDS"] * 4
-    assert 2 * (c["kSmemBytes"] + _BLOCK_RESERVED) <= _SM90_SMEM_PER_SM
+    assert 2 * c["kBK"] == c["kWTileK"] and c["kBK"] % 8 == 0
+    assert c["kWStepBytes"] * 2 == c["kWTileBytes"]
+    assert c["kMmaThreads"] == 2 * 128 and c["kCvtThreads"] == 128
+    assert c["kThreads"] == c["kMmaThreads"] + c["kCvtThreads"]
+    assert c["kMmaThreads"] * c["kAcc"] == c["kBM"] * c["kBN"]
+    assert c["kCvtChunks"] * c["kCvtThreads"] * 16 == c["kWStepBytes"]
+    assert c["kLDP"] * 4 % 16 == 0 and c["kLDP"] % 32 == 4
+    assert c["kWPlaneFloats"] == c["kBN"] * c["kBK"] and c["kCoreBytes"] == 128
+    assert c["kSmemBytes"] == (4 * c["kWPlaneFloats"]
+                               + c["kStages"] * c["kBM"] * c["kLDP"]) * 4 \
+        + c["kStages"] * c["kWStepBytes"]
+    assert c["kSmemBytes"] <= _H100_SMEM_OPTIN
+    assert c["kSmemBytes"] + _BLOCK_RESERVED <= _SM90_SMEM_PER_SM
+    assert 65536 // c["kThreads"] >= 168
 
 
 # ---------------------------------------------------------------------------
