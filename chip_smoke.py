@@ -76,8 +76,10 @@ a run without --use_bf16 takes:
           kernel, plain version and SDPA in fp32 timed in turns; fp32 into
           B4 and mixed or fp16 q/k/v raise TypeError;
   w8a8-f32  the fp32 forms of the w8a8 kernels (B2, B3 / B3a, B5 / B5a;
-          B4 as B1's fp32 form into a scratch, then B2's fp32 entry with
-          the residual) against their plain versions at the shapes of the
+          B4 as B1's function in fp32, summed in the plain version's order,
+          into a scratch, then B2's fp32 entry with the residual; its
+          attention launch alone also timed beside SDPA's fp32 forward in
+          CUDA graphs) against their plain versions at the shapes of the
           fp32 int8 step and the fp32 w8a8 evaluation and at ragged ones
           (F32_W8A8_LIMITS; B2 bit for bit), one counted `_f32` launch each,
           timed beside their bf16 forms in turns and the int8 products
@@ -97,7 +99,7 @@ a run without --use_bf16 takes:
   f32-mutants  the f32_* mutants of utils/kernel_mutants.py (one of them
           rounds every product to TF32), its f32w8_* mutants (an fp32
           row rounded to bf16 before the quant, B5's residual read as bf16,
-          B3a's LayerNorm mean over the first 1,024 columns, B4's attention
+          B3a's LayerNorm mean over the first 1,024 columns, B4's score
           products in TF32) and its f32b9_ / f32b11_ / f32b12_ mutants
           (B9's products in 1xTF32 or without hi_x lo_w, B11's codes by
           the reciprocal or its rescale in another order, B12's second
@@ -266,7 +268,8 @@ KERNEL_SYMBOLS = ("packed_attention_kernel", "w8a8_matmul_kernel",
                   "streaming_attention_fwd_kernel",
                   "w8_matmul_kernel", "fused_extras_kernel",
                   "packed_bwd_kernel", "mega_layer_kernel",
-                  "w8_matmul_f32_kernel", "attention_f32_fwd_kernel",
+                  "w8_matmul_f32_kernel", "stream_fwd_kernel",
+                  "fma_fwd_kernel",
                   "packed_fwd_kernel", "stream_bwd_dq_kernel",
                   "stream_bwd_dkdv_kernel")
 KERNEL_SOURCE = "gava_clip_tpu_torch/csrc/packed_attention.cu"
@@ -345,8 +348,10 @@ KERNELS = {
                          "gava_clip_tpu/ops/int8_matmul.py:694"),
     "w8a8_mlp_f32": ("w8a8_mlp_f32", "gava_clip_tpu_torch/csrc/w8a8_mlp_f32.cu",
                      "gava_clip_tpu/ops/int8_matmul.py:594"),
+    # B4 in fp32: attention_f32.cu's fma_fwd_kernel into a scratch, then
+    # B2's fp32 entry with the residual
     "attention_out_int8_f32": (
-        "w8a8_matmul", "gava_clip_tpu_torch/csrc/w8a8_matmul.cu",
+        "attention_f32", "gava_clip_tpu_torch/csrc/attention_f32.cu",
         "gava_clip_tpu/ops/flash_attention.py:661"),
     # the float32 forms of B9 and of B11 / B12 (attention_f32.cu's int8-score
     # and two-source forward into a scratch, then B2's fp32 entry with the
@@ -478,6 +483,13 @@ def phase_build(state):
             f"HMMA, {sass.count('IMMA')} IMMA (mma.sync) instructions")
         if not sass.count("GMMA"):
             raise AssertionError(f"{lib} was built without wgmma")
+    # B11 in fp32 takes its int8 score product from mma.sync s8 (IMMA), the
+    # fp32 packed attention its products as 3xTF32 mma.sync (HMMA)
+    sass = subprocess.run(
+        [cuobjdump, "-sass", _cuda.build_info["attention_f32"]["so"]],
+        capture_output=True, text=True, check=True).stdout
+    log(f"[build] attention_f32 SASS: {sass.count('IMMA')} IMMA, "
+        f"{sass.count('HMMA')} HMMA (mma.sync) instructions")
 
 
 def phase_kernel(state):
@@ -2183,6 +2195,36 @@ def _check_w8a8_f32(name, out, ref, unit, residual=None):
         f"unit {units:.3f} (limit {lim_units:g})")
 
 
+def _attention_f32_yardsticks(state, name, q, k, v, H, lq, int8_qk):
+    """The first launch of B4 or B11 in fp32 alone (its attention of the
+    first lq query rows into a scratch, as _attention_out_f32 launches it)
+    beside SDPA's fp32 forward on the same rows, keys and values, 20 calls
+    of each in a CUDA graph, in turns (median of 7 rounds): a yardstick
+    only, SDPA sums in another order. Into the entry's yardsticks."""
+    import torch
+    from gava_clip_tpu_torch.ops import flash_attention as fa
+    B, _, D = q.shape
+    a = torch.empty(B, lq, D, device=q.device)
+    c = 64 ** -0.5 * fa._LOG2E / (127.0 * 127.0 if int8_qk else 1.0)
+    entry = "packed_attention_qk8_f32" if int8_qk else \
+        "packed_attention_fma_f32"
+
+    def attention():
+        fa._f32_launch(entry, q.device, q.data_ptr(), k.data_ptr(),
+                       v.data_ptr(), a.data_ptr(), B, lq, k.shape[1], H, 64,
+                       *fa._qkv_strides(q, k, v), a.stride(0), a.stride(1),
+                       c, count=False)
+    k_ms, s_ms, ratio, lo, hi = _ratio_graphs(
+        attention, _sdpa_fwd(q[:, :lq], k, v, H))
+    log(f"[{'serving' if int8_qk else 'w8a8'}-f32] {name} B={B} lq={lq} "
+        f"Lk={k.shape[1]} H={H}: its attention launch alone ({entry}) vs "
+        f"SDPA's fp32 forward, CUDA graphs of {GRAPH_LAUNCHES} calls, median "
+        f"of 7 rounds in turns: {k_ms:.4f} ms vs {s_ms:.4f} ms, ratio "
+        f"{ratio:.3f} (rounds {lo:.3f}-{hi:.3f}) ({state['smi']})")
+    state["kstats"][name]["yardsticks"].update(
+        {"attention_ms_graphs": k_ms, "sdpa_fp32_fwd_ms_graphs": s_ms})
+
+
 def phase_w8a8_f32(state):
     """The fp32 forms of B2, B3 / B3a, B5 / B5a and B4 against their plain
     versions on the card (F32_W8A8_LIMITS), one counted launch each, at the
@@ -2209,7 +2251,7 @@ def phase_w8a8_f32(state):
     names = [n for n in F32_W8A8_LIMITS if only in (None, n)]
     _cuda.load_libraries(sorted(
         {KERNELS[n][0] for n in names} |
-        ({"attention_f32"} if "attention_out_int8_f32" in names else set())))
+        ({"w8a8_matmul"} if "attention_out_int8_f32" in names else set())))
 
     def randn(*shape, gain=1.0):
         return torch.randn(*shape, generator=gen, device="cuda") * gain
@@ -2355,6 +2397,9 @@ def phase_w8a8_f32(state):
              lambda: fa.attention_out_int8_cuda(qb, kb, vb, H, op, rb, lq),
              [(B * lq, D, op["kernel"]["qa_t"])]) if i == 0 else None,
             residual=r)
+        if i == 0 and timed and "attention_out_int8_f32" in names:
+            _attention_f32_yardsticks(state, "attention_out_int8_f32", q, k,
+                                      v, H, lq, False)
 
     if only:
         if state.get("w8a8_f32_failures"):
@@ -2597,6 +2642,7 @@ def _serving_f32_b11(state, gen, timed, only):
         _record(state, name, err, ms, plain_ms, bound, None)
         state["kstats"][name]["yardsticks"] = {
             "bf16_ms": b_ms, "fp32_scores_ms": f_ms, "kernel_ms_in_turns": b_k}
+        _attention_f32_yardsticks(state, name, q, k, v, H, lq, True)
     # the loose check against the fp32-score form (INT8_QK_LOOSE_*, at the
     # JAX test's statistics)
     B, Lq, Lk, H = 3, 30, 38, 4

@@ -53,20 +53,22 @@
 // matmuls (tests/test_torch_attention_f32.py holds that under an emulation
 // that truncates as the tensor core does), where one TF32 product alone
 // rounds each operand to a 10-bit mantissa (~5e-4 relative), which an fp32
-// run must not see. B7's forward, its backward past 128 rows and the
-// attention of the w8a8 fusion's fp32 forms (B4, B11, B12) run as fp32 FMA
-// on 64 x 64 shared
-// tiles, each dot summed one product after another, as torch's fp32
-// matmuls sum it: the int8 out-projection behind B4 / B11 / B12 quantizes
-// each attention row, and its limits (chip_smoke's F32_W8A8_LIMITS) hold
-// the row's scale to within ulps of the plain version's, which a sum in
-// another order, even a more exact one, moves (the 3xTF32 forward puts
-// 10-15% of their outputs beyond 2 ulp where the limit is 5%). The int8
-// score product there runs as the same FMA on
-// the codes held as floats: every partial sum is an integer of at most
-// 127^2 * 64 = 1,032,256 < 2^24, so it is exact and equals the int32
-// product bit for bit. The exp2 is ex2.approx.ftz (at most 2 ulp; results
-// below 2^-126 flush to 0), as in the bf16 forms.
+// run must not see. B7's forward and its backward past 128 rows run as fp32
+// FMA on 64 x 64 shared tiles. The attention of the w8a8 fusion's fp32
+// forms (B4, B11, B12) runs as fp32 FMA too, every sum in one fixed order:
+// each score over the head columns and each numerator over the keys one
+// fmaf after another from 0, the denominator a pairwise tree over each key
+// tile, the tiles in order (the int8 out-projection behind them quantizes
+// each attention row, and its limits, chip_smoke's F32_W8A8_LIMITS, hold
+// the row's scale to within ulps of the plain version's, which other sums
+// move: on an H100 the 3xTF32 forward put more than the limit's 5% of B4's
+// outputs beyond 2 ulp, a denominator summed key after key 7.7%, the tree
+// 0.5%). B11's
+// score product is exact in any order (every partial sum an integer of at
+// most 127^2 * 64 = 1,032,256 < 2^24), so it runs on the int8 tensor cores
+// (mma.sync m16n8k32 s8) and equals the plain version's fp32 sums bit for
+// bit. The exp2 is ex2.approx.ftz (at most 2 ulp; results below 2^-126
+// flush to 0), as in the bf16 forms.
 //
 // What bounds it on an H100 SXM (data-sheet figures, not measured) at the
 // training shape B = 16 clips x 8 frames = 128, Lq = 197, Lk = 214, H = 12:
@@ -131,30 +133,47 @@
 // last row's key. Rows past 128 keep the two FMA kernels: a block per (b, h)
 // would leave most SMs idle there.
 //
-// The FMA tiles: every product is a 64 x 64 x 64 product of tiles in
-// shared memory, 256 threads (16 x 16) each holding a 4 x 4 patch of the
-// result, 64 rank-1 steps from two float4 loads. Both operands are stored
-// with the summed index as the row ("x-major"): a tile of q, k, v or do is
-// stored transposed (loader load_t, conflict-free: a warp writes 16 rows x
-// 2 float4 into distinct banks) where its head columns are summed, and as
-// it is (load_n) where its rows are.
+// The FMA tiles (B7's forward and its backward past 128 rows): every
+// product is a 64 x 64 x 64 product of tiles in shared memory, 256 threads
+// (16 x 16) each holding a 4 x 4 patch of the result, 64 rank-1 steps from
+// two float4 loads. Both operands are stored with the summed index as the
+// row ("x-major"): a tile of q, k, v or do is stored transposed (loader
+// load_t, conflict-free: a warp writes 16 rows x 2 float4 into distinct
+// banks) where its head columns are summed, and as it is (load_n) where
+// its rows are.
 //   forward: one block per (64 query rows, head, batch row); key tiles of
-//     64 stream through shared memory with no rescaling in the packed form
-//     (no running max), so the result is the plain formula summed key after
-//     key; the streaming form rescales its
-//     accumulator when a row's max moves. Under the causal mask a block
-//     stops at its last row's key. The int8 form turns the q tile and each
-//     key tile into codes in place once they are loaded (four threads a
-//     row, the absmax met by two shuffles) and keeps each row's scale in
-//     shared memory; the two-source form picks each key row's source as it
-//     loads it, so its tiles, sums and bits are those of the one-source
-//     form on [k1; k2].
-//   streaming backward past 128 rows (ops/flash_attention.attention_f32_plan
+//     64 stream through shared memory, the accumulator rescaled when a
+//     row's max moves. Under the causal mask a block stops at its last
+//     row's key.
+//   backward past 128 rows (ops/flash_attention.attention_f32_plan
 //     'two_kernels'): a dq kernel, one block per (64 query rows, head,
 //     batch row), walks the key tiles; it first takes each row's delta and
 //     statistic and leaves them in a scratch buffer for the dk / dv kernel,
 //     one block per (64 keys, head, batch row), which walks the query tiles
 //     from the key tile's own. Each owns its output tile: no atomics.
+//
+// The w8a8 fusion's fp32 attention (fma_fwd_kernel; B4, B11, B12): one
+// block of 7 warps per (112 query rows, head, batch row), 16 rows a warp,
+// two blocks an SM; a warp whose rows all lie past Lq only helps load, so
+// the rows computed are Lq rounded up to 16 (197: 208). The block's q rows
+// come in once by cp.async, then key and value tiles of 64 rows, each in
+// one buffer: the next key tile is issued when every warp has taken its
+// scores and lands during the AV product, the value tile is issued when
+// the AV product of the one before is done and lands during the scores;
+// two barriers a tile. A tile's work stops at its last eighth of keys with
+// a real key (214 keys compute 216). Per tile a warp forms its 16 x 64
+// scores as 4 x 8 patches a thread (rows rl + 4 i, keys cl + 8 j, lane 8
+// rl + cl: twelve float4 loads feed 128 fmaf, the q loads broadcast to the
+// eight lanes of a row group), e = exp2(min(s c, 110)) into its own e rows
+// in shared memory, each row's sum of the tile's e as a pairwise tree (lane
+// r and r + 16 row r, a half each), then the AV product as 4 x 8 patches (rows rl + 4 i, columns 4 cl + n and
+// 32 + 4 cl + n). The int8 form codes the block's q rows once and each key
+// tile once (four threads a row) into rows of bytes and takes the scores
+// from mma.sync m16n8k32 s8, the q codes held as A fragments for every
+// tile; its check entry runs the same kernel with the exp2 arguments
+// written out in place of the AV product. The two-source form picks each
+// key row's source where its copy is issued, so its tiles, sums and bits
+// are those of the one-source form on [k1; k2].
 // Launches on the caller's stream, no sync, no allocation (the wrapper
 // allocates the outputs and the scratch).
 
@@ -175,11 +194,10 @@ constexpr int kT = 64;                   // query rows or keys of a tile
 constexpr int kLD = kT + 4;              // padded shared row: 272 bytes, 16-byte aligned
 constexpr int kTileFloats = kHD * kLD;   // one 64 x 64 tile, either orientation
 constexpr int kThreads = 256;            // 16 x 16 threads, a 4 x 4 patch each
-// dynamic shared bytes: the forward's q^T, k^T, v, e^T tiles and two
-// floats a row (the int8 form's q and k scales); the dq kernel's q^T, do^T,
-// k^T, k, v^T, ds^T and two floats a row; the dk / dv kernel's k^T, v^T,
-// q^T, do^T, q, do, p, ds and two floats a row
-constexpr int kFwdSmemBytes = 4 * kTileFloats * 4 + 2 * kT * 4;
+// dynamic shared bytes: the streaming forward's q^T, k^T, v, e^T tiles;
+// the dq kernel's q^T, do^T, k^T, k, v^T, ds^T and two floats a row; the
+// dk / dv kernel's k^T, v^T, q^T, do^T, q, do, p, ds and two floats a row
+constexpr int kFwdSmemBytes = 4 * kTileFloats * 4;
 constexpr int kDqSmemBytes = 6 * kTileFloats * 4 + 2 * kT * 4;
 constexpr int kDkvSmemBytes = 8 * kTileFloats * 4 + 2 * kT * 4;
 // the 3xTF32 tiles: rows of 64 floats padded to 68 (272 bytes, 16-byte
@@ -207,6 +225,25 @@ constexpr int kMaxSmem = 232448;
 // the most query rows and keys the streaming backward takes in one launch
 // (one key tile; ops/flash_attention.attention_f32_plan's 'one_launch')
 constexpr int kStreamBwdRows = kBwdKeys;
+// the w8a8 fusion's fp32 attention (B4, B11, B12): warps of 16 query rows
+// each, key / value tiles of 64 rows, a warp's e rows of 64 floats padded
+// to 72 (a warp's stores of one e value a lane fall in 32 banks), int8
+// codes rows of 64 bytes padded to 80 (an mma fragment's 32 word loads
+// fall in 32 banks)
+constexpr int kFmaWarps = 7;
+constexpr int kFmaThreads = kFmaWarps * 32;
+constexpr int kFmaRows = kFmaWarps * 16;   // query rows of a block
+constexpr int kFmaKeys = 64;               // keys of a key / value tile
+constexpr int kLDE = kFmaKeys + 8;
+constexpr int kLDC = 80;
+// its shared memory (bytes): q rows | key tile | value tile | each warp's
+// e rows | q and key row scales | q and key codes
+constexpr int kFmaOffK = kFmaRows * kLDF * 4;
+constexpr int kFmaOffV = kFmaOffK + kFmaKeys * kLDF * 4;
+constexpr int kFmaOffE = kFmaOffV + kFmaKeys * kLDF * 4;
+constexpr int kFmaOffS = kFmaOffE + kFmaWarps * 16 * kLDE * 4;
+constexpr int kFmaOffC = kFmaOffS + (kFmaRows + kFmaKeys) * 4;
+constexpr int kFmaSmemBytes = kFmaOffC + (kFmaRows + kFmaKeys) * kLDC;
 
 // floats a block's dq accumulator and row statistics take at lq_pad rows
 __host__ __device__ constexpr long long acc_floats(int lq_pad) {
@@ -697,8 +734,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) packed_bwd_kernel(PBwdArgs a) 
 }
 
 // ---------------------------------------------------------------------------
-// fp32 FMA tiles: the streaming forms (B7) and the w8a8 fusion's attention
-// (B4, B11, B12)
+// fp32 FMA tiles: the streaming forms (B7)
 // ---------------------------------------------------------------------------
 
 // Rows [r0, r0 + 64) of one head (64 floats a row) into a tile stored
@@ -769,35 +805,6 @@ __device__ __forceinline__ void store_patch_t(float* dst, const float (&p)[4][4]
         make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
 }
 
-// The int8 form: a transposed tile's 64 rows (zeros past the source's
-// rows) as their int8 codes, in place, held as floats: four threads a row,
-// 16 values each, their absmax met by two shuffles; qs = max(absmax, 1e-6),
-// code = rint(x * (127 / qs)) with an IEEE division. sc[r] = qs * mul (mul
-// c / 127^2 for the q rows, 1 for the keys).
-__device__ __forceinline__ void quant_tile_t(float* t, float* sc, float mul) {
-  const int r = threadIdx.x >> 2, part = threadIdx.x & 3;
-  float m = 0.f;
-#pragma unroll
-  for (int x = 0; x < 16; ++x) m = fmaxf(m, fabsf(t[(part * 16 + x) * kLD + r]));
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-  const float qs = fmaxf(m, 1e-6f);
-  const float inv = __fdiv_rn(127.f, qs);
-#pragma unroll
-  for (int x = 0; x < 16; ++x) {
-    float* v = t + (part * 16 + x) * kLD + r;
-    *v = rintf(__fmul_rn(*v, inv));
-  }
-  if (part == 0) sc[r] = __fmul_rn(qs, mul);
-}
-
-// The int8 form's exp2 argument of one score: the exact integer product
-// s32 times its rank-1 rescale, in the plain version's order, (s32 * (qs *
-// (c / 127^2))) * ks; qf = qs * (c / 127^2)
-__device__ __forceinline__ float qk8_arg(float s32, float qf, float ks) {
-  return __fmul_rn(__fmul_rn(s32, qf), ks);
-}
-
 // the sum (or max) of a row's value over the 16 threads tx that share it
 __device__ __forceinline__ float row_sum(float x) {
 #pragma unroll
@@ -811,36 +818,21 @@ __device__ __forceinline__ float row_max(float x) {
   return x;
 }
 
-// STREAM: the streaming form (running max, causal mask, lse); else the
-// packed clamp form. QK8 (packed only): the int8 score product. TWO
-// (packed only): keys and values from two sources.
-template <bool STREAM, bool QK8 = false, bool TWO = false>
-__global__ void __launch_bounds__(kThreads, 2) attention_f32_fwd_kernel(FwdArgs a) {
+// B7's forward in fp32: the streaming form (running max, causal mask, lse)
+// on the FMA tiles
+__global__ void __launch_bounds__(kThreads, 2) stream_fwd_kernel(FwdArgs a) {
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;
   float* kt = qt + kTileFloats;
   float* vs = kt + kTileFloats;
   float* et = vs + kTileFloats;
-  float* sq = et + kTileFloats;   // the int8 form's q row scales (times c / 127^2)
-  float* sk = sq + kT;            // and key row scales
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kT;
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const long long hoff = static_cast<long long>(h) * kHD;
   const float* qb = a.q + static_cast<long long>(b) * a.q_sb + hoff;
   const float* kb = a.k + static_cast<long long>(b) * a.k_sb + hoff;
   const float* vb = a.v + static_cast<long long>(b) * a.v_sb + hoff;
-  Rows krows = one_source(kb, a.Lk, a.k_sl), vrows = one_source(vb, a.Lk, a.v_sl);
-  if (TWO) {
-    krows = Rows{kb, a.k2 + static_cast<long long>(b) * a.k2_sb + hoff, a.k_sl, a.k2_sl, a.L1,
-                 a.Lk};
-    vrows = Rows{vb, a.v2 + static_cast<long long>(b) * a.v2_sb + hoff, a.v_sl, a.v2_sl, a.L1,
-                 a.Lk};
-  }
   load_t(qt, qb, q0, a.Lq, a.q_sl);
-  if (QK8) {
-    __syncthreads();   // the whole q tile is in
-    quant_tile_t(qt, sq, a.cq);
-  }
 
   float acc[4][4], l[4], m[4];
 #pragma unroll
@@ -851,69 +843,44 @@ __global__ void __launch_bounds__(kThreads, 2) attention_f32_fwd_kernel(FwdArgs 
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
   }
   // under the causal mask no row of the block sees a key past its last row
-  const int kend = STREAM && a.causal ? min(a.Lk, q0 + kT) : a.Lk;
+  const int kend = a.causal ? min(a.Lk, q0 + kT) : a.Lk;
   for (int k0 = 0; k0 < kend; k0 += kT) {
     __syncthreads();   // the previous tile's k^T, v and e^T are free
-    load_t(kt, krows, k0);
-    load_n(vs, vrows, k0);
+    load_t(kt, kb, k0, a.Lk, a.k_sl);
+    load_n(vs, vb, k0, a.Lk, a.v_sl);
     __syncthreads();
-    if (QK8) {
-      quant_tile_t(kt, sk, 1.f);
-      __syncthreads();
-    }
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
     mm64(s, qt, kt, ty, tx);
-    if (QK8) {
-      // the exact integer product times its rank-1 rescale, in the plain
-      // version's order: (s32 * (qs * (c / 127^2))) * ks
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + 4 * ty + i;
+      float mt = -INFINITY;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          s[i][j] = qk8_arg(s[i][j], sq[4 * ty + i], sk[4 * tx + j]);
-    }
-    if (!STREAM) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int key = k0 + 4 * tx + j;
-          const float e = key < a.Lk ? ex2f(fminf(s[i][j] * a.c, kClamp)) : 0.f;
-          s[i][j] = e;
-          l[i] += e;
-        }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = q0 + 4 * ty + i;
-        float mt = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int key = k0 + 4 * tx + j;
-          const bool vis = key < a.Lk && (!a.causal || key <= row);
-          s[i][j] = vis ? s[i][j] * a.c : -INFINITY;
-          mt = fmaxf(mt, s[i][j]);
-        }
-        const float mn = fmaxf(m[i], row_max(mt));
-        const float mu = mn == -INFINITY ? 0.f : mn;   // a row with no visible key yet
-        const float alpha = ex2f(m[i] - mu);            // 0 while m is -inf
-        l[i] *= alpha;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc[i][j] *= alpha;
-          s[i][j] = ex2f(s[i][j] - mu);
-          l[i] += s[i][j];
-        }
-        m[i] = mn;
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + 4 * tx + j;
+        const bool vis = key < a.Lk && (!a.causal || key <= row);
+        s[i][j] = vis ? s[i][j] * a.c : -INFINITY;
+        mt = fmaxf(mt, s[i][j]);
       }
+      const float mn = fmaxf(m[i], row_max(mt));
+      const float mu = mn == -INFINITY ? 0.f : mn;   // a row with no visible key yet
+      const float alpha = ex2f(m[i] - mu);            // 0 while m is -inf
+      l[i] *= alpha;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] *= alpha;
+        s[i][j] = ex2f(s[i][j] - mu);
+        l[i] += s[i][j];
+      }
+      m[i] = mn;
     }
     store_patch_t(et, s, ty, tx);
     __syncthreads();
-    mm64(acc, et, vs, ty, tx);   // acc += e @ v (p @ v)
+    mm64(acc, et, vs, ty, tx);   // acc += p @ v
   }
 
   float* ob = a.o + static_cast<long long>(b) * a.o_sb + hoff;
@@ -922,19 +889,318 @@ __global__ void __launch_bounds__(kThreads, 2) attention_f32_fwd_kernel(FwdArgs 
     const float sum = row_sum(l[i]);
     const int row = q0 + 4 * ty + i;
     if (row >= a.Lq) continue;
-    float d;
-    if (!STREAM) {
-      if (a.stat != nullptr && tx == 0)
-        a.stat[(static_cast<long long>(b) * a.Lq + row) * a.H + h] = sum;
-      d = fmaxf(sum, 1e-30f);
-    } else {
-      if (tx == 0)
-        a.stat[(static_cast<long long>(b) * a.H + h) * a.Lq + row] =
-            (m[i] + log2f(sum)) * kLn2;
-      d = sum;
-    }
+    if (tx == 0)
+      a.stat[(static_cast<long long>(b) * a.H + h) * a.Lq + row] = (m[i] + log2f(sum)) * kLn2;
     *reinterpret_cast<float4*>(ob + static_cast<long long>(row) * a.o_sl + 4 * tx) =
+        make_float4(acc[i][0] / sum, acc[i][1] / sum, acc[i][2] / sum, acc[i][3] / sum);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the w8a8 fusion's attention in fp32 (B4, B11, B12): register-tiled FMA in
+// the plain version's summation order
+// ---------------------------------------------------------------------------
+
+// rows [r0, r0 + n) of one head into a shared tile of kLDF floats a row by
+// cp.async, issued by the block's kFmaThreads; rows past the source's end
+// are zero-filled
+__device__ __forceinline__ void rows_async(float* dst, const Rows& src, int r0, int n) {
+  for (int idx = threadIdx.x; idx < n * 16; idx += kFmaThreads) {
+    const int r = idx >> 4, c = (idx & 15) * 4;
+    const float* p = src.row(r0 + r);
+    tf32::cp_async16(dst + r * kLDF + c, p != nullptr ? p + c : src.p1, p != nullptr);
+  }
+}
+
+// The int8 form's codes of rows [0, n) of a shared tile (kLDF floats a row)
+// into dst (kLDC bytes a row): four threads a row, 16 values each, their
+// absmax met by two shuffles (n * 4 a multiple of 32: a warp takes whole
+// rows); qs = max(absmax, 1e-6), code = rint(x * (127 / qs)) with an IEEE
+// division; sc[r] = qs * mul (mul c / 127^2 for the q rows, 1 for the keys)
+__device__ __forceinline__ void quant_rows(const float* t, int8_t* dst, float* sc, int n,
+                                           float mul) {
+  for (int idx = threadIdx.x; idx < n * 4; idx += kFmaThreads) {
+    const int r = idx >> 2, part = idx & 3;
+    float x[16];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 v = *reinterpret_cast<const float4*>(t + r * kLDF + part * 16 + 4 * i);
+      x[4 * i] = v.x;
+      x[4 * i + 1] = v.y;
+      x[4 * i + 2] = v.z;
+      x[4 * i + 3] = v.w;
+    }
+    float m = 0.f;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) m = fmaxf(m, fabsf(x[i]));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+    const float qs = fmaxf(m, 1e-6f);
+    const float inv = __fdiv_rn(127.f, qs);
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      w[i] = 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int8_t code = static_cast<int8_t>(rintf(__fmul_rn(x[4 * i + j], inv)));
+        w[i] |= static_cast<uint32_t>(static_cast<uint8_t>(code)) << (8 * j);
+      }
+    }
+    uint4 u;
+    u.x = w[0];
+    u.y = w[1];
+    u.z = w[2];
+    u.w = w[3];
+    *reinterpret_cast<uint4*>(dst + r * kLDC + part * 16) = u;
+    if (part == 0) sc[r] = __fmul_rn(qs, mul);
+  }
+}
+
+// The int8 form's exp2 argument of one score: the exact integer product
+// s32 times its rank-1 rescale, in the plain version's order, (s32 * (qs *
+// (c / 127^2))) * ks; qf = qs * (c / 127^2)
+__device__ __forceinline__ float qk8_arg(float s32, float qf, float ks) {
+  return __fmul_rn(__fmul_rn(s32, qf), ks);
+}
+
+// acc + a . b as four fmaf, x first
+__device__ __forceinline__ float dot4(float acc, const float4& a, const float4& b) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+__device__ __forceinline__ float part4(const float4& x, int u) {
+  return u == 0 ? x.x : u == 1 ? x.y : u == 2 ? x.z : x.w;
+}
+
+// The fp32 scores of a warp's 16 query rows (qw, kLDF floats a row) against
+// a key tile (kt): s[i][j] = q[rl + 4 i] . k[cl + 8 j], summed over the 64
+// head columns one fmaf after another from 0, the first column first (the
+// plain version's order); only the first nj eighths of the tile's keys
+// (all of them when FULL)
+template <bool FULL>
+__device__ __forceinline__ void scores_fma(float (&s)[4][8], const float* qw, const float* kt,
+                                           int rl, int cl, int nj) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < kHD; d += 4) {
+    float4 qv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      qv[i] = *reinterpret_cast<const float4*>(qw + (rl + 4 * i) * kLDF + d);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (!FULL && j >= nj) break;
+      const float4 kv = *reinterpret_cast<const float4*>(kt + (cl + 8 * j) * kLDF + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[i][j] = dot4(s[i][j], qv[i], kv);
+    }
+  }
+}
+
+// e of those scores into the warp's e rows (ew, kLDE floats a row): exp2 of
+// the clamped s c, 0 for a key past Lk (every eighth of the tile, those
+// past nj too)
+__device__ __forceinline__ void store_e(float* ew, const float (&s)[4][8], int rl, int cl,
+                                        int k0, int Lk, float c) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const bool real = k0 + cl + 8 * j < Lk;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      ew[(rl + 4 * i) * kLDE + cl + 8 * j] = real ? ex2f(fminf(s[i][j] * c, kClamp)) : 0.f;
+  }
+}
+
+// The sum of a tile's 64 e of one row as a pairwise tree, the half-warp
+// lane's half of them (er: keys [32 h, 32 h + 32) of the row, lane 16 h + r
+// its row r) and the two halves added: the same bits in both lanes
+__device__ __forceinline__ float tile_sum(const float* er) {
+  float p[8];
+#pragma unroll
+  for (int m = 0; m < 8; ++m) {
+    const float4 e = *reinterpret_cast<const float4*>(er + 4 * m);
+    p[m] = (e.x + e.y) + (e.z + e.w);
+  }
+  const float t = ((p[0] + p[1]) + (p[2] + p[3])) + ((p[4] + p[5]) + (p[6] + p[7]));
+  return t + __shfl_xor_sync(0xffffffffu, t, 16);
+}
+
+// acc[i][n] += e[rl + 4 i][x] v[x][column n] over the tile's first nx keys
+// (a multiple of 4), one fmaf after another in key order; column n of the
+// thread: 4 cl + n for n < 4, 32 + 4 cl + n - 4 after
+__device__ __forceinline__ void av_fma(float (&acc)[4][8], const float* ew, const float* vt,
+                                       int rl, int cl, int nx) {
+#pragma unroll 2
+  for (int x = 0; x < nx; x += 4) {
+    float4 ev[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      ev[i] = *reinterpret_cast<const float4*>(ew + (rl + 4 * i) * kLDE + x);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float4 v0 = *reinterpret_cast<const float4*>(vt + (x + u) * kLDF + 4 * cl);
+      const float4 v1 = *reinterpret_cast<const float4*>(vt + (x + u) * kLDF + 32 + 4 * cl);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float e = part4(ev[i], u);
+        acc[i][0] = fmaf(e, v0.x, acc[i][0]);
+        acc[i][1] = fmaf(e, v0.y, acc[i][1]);
+        acc[i][2] = fmaf(e, v0.z, acc[i][2]);
+        acc[i][3] = fmaf(e, v0.w, acc[i][3]);
+        acc[i][4] = fmaf(e, v1.x, acc[i][4]);
+        acc[i][5] = fmaf(e, v1.y, acc[i][5]);
+        acc[i][6] = fmaf(e, v1.z, acc[i][6]);
+        acc[i][7] = fmaf(e, v1.w, acc[i][7]);
+      }
+    }
+  }
+}
+
+// B4's attention (B1's function on the FMA order), QK8 B11's (the int8
+// score product), TWO B12's (keys and values from two sources), and ARGS
+// the check of B11's codes and rescale (a.o = the exp2 arguments (B, H, Lq,
+// Lk) of the int8 form's scores, before the clamp, by the same steps; no
+// AV product). One block per (kFmaRows query rows, head, batch row), a warp
+// per 16 of its rows; a warp whose rows all lie past Lq only helps load.
+// Per key tile of 64: the warp's scores as 4 x 8 patches a thread (rows rl
+// + 4 i, keys cl + 8 j; lane = 8 rl + cl), or in the int8 form as mma.sync
+// m16n8k32 s8 on the codes; e into the warp's e rows; each row's sum of the
+// tile's e as a pairwise tree (tile_sum), added to its den tile after tile;
+// then the AV product as 4 x 8 patches (rows rl + 4 i, columns 4 cl + n and
+// 32 + 4 cl + n). The score and AV products skip every eighth of keys past
+// the last with a real key.
+template <bool QK8, bool TWO, bool ARGS>
+__global__ void __launch_bounds__(kFmaThreads, 2) fma_fwd_kernel(FwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  unsigned char* sb = reinterpret_cast<unsigned char*>(smem);
+  float* qs = smem;
+  float* ks = reinterpret_cast<float*>(sb + kFmaOffK);
+  float* vs = reinterpret_cast<float*>(sb + kFmaOffV);
+  float* sq = reinterpret_cast<float*>(sb + kFmaOffS);   // q row scales (times c / 127^2)
+  float* sk = sq + kFmaRows;                              // key row scales
+  int8_t* qc = reinterpret_cast<int8_t*>(sb + kFmaOffC);
+  int8_t* kc = qc + kFmaRows * kLDC;
+  const int b = blockIdx.z, h0 = blockIdx.y, q0 = blockIdx.x * kFmaRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rl = lane >> 3, cl = lane & 7, g = lane >> 2, t = lane & 3;
+  float* ew = reinterpret_cast<float*>(sb + kFmaOffE) + warp * 16 * kLDE;
+  const float* qw = qs + warp * 16 * kLDF;
+  const bool active = q0 + warp * 16 < a.Lq;
+  const long long hoff = static_cast<long long>(h0) * kHD;
+  const long long kb = static_cast<long long>(b) * a.k_sb + hoff;
+  const long long vb = static_cast<long long>(b) * a.v_sb + hoff;
+  Rows krows = one_source(a.k + kb, a.Lk, a.k_sl), vrows = one_source(a.v + vb, a.Lk, a.v_sl);
+  if (TWO) {
+    krows = Rows{a.k + kb, a.k2 + static_cast<long long>(b) * a.k2_sb + hoff, a.k_sl, a.k2_sl,
+                 a.L1, a.Lk};
+    vrows = Rows{a.v + vb, a.v2 + static_cast<long long>(b) * a.v2_sb + hoff, a.v_sl, a.v2_sl,
+                 a.L1, a.Lk};
+  }
+  rows_async(qs, one_source(a.q + static_cast<long long>(b) * a.q_sb + hoff, a.Lq, a.q_sl), q0,
+             kFmaRows);
+  rows_async(ks, krows, 0, kFmaKeys);
+  tf32::cp_commit();
+
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) acc[i][n] = 0.f;
+  float den = 0.f;
+  uint32_t qa[2][4];   // the int8 form: the warp's q codes as m16n8k32 A fragments
+  float qf[2];         // and the scales of the thread's rows g, g + 8
+  const int nkt = (a.Lk + kFmaKeys - 1) / kFmaKeys;
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * kFmaKeys;
+    const int nj = min(8, (a.Lk - k0 + 7) >> 3);   // eighths of the tile with a real key
+    tf32::cp_wait_all();
+    __syncthreads();   // key tile kt is in; every warp is done with the value tile and e
+    if (!ARGS) rows_async(vs, vrows, k0, kFmaKeys);
+    tf32::cp_commit();
+    if (QK8) {
+      if (kt == 0) quant_rows(qs, qc, sq, kFmaRows, a.cq);
+      quant_rows(ks, kc, sk, kFmaKeys, 1.f);
+      __syncthreads();   // the codes are in
+      if (kt == 0) {
+#pragma unroll
+        for (int k32 = 0; k32 < 2; ++k32)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            qa[k32][r] = *reinterpret_cast<const uint32_t*>(
+                qc + (warp * 16 + g + 8 * (r & 1)) * kLDC + 32 * k32 + 16 * (r >> 1) + 4 * t);
+        qf[0] = sq[warp * 16 + g];
+        qf[1] = sq[warp * 16 + g + 8];
+      }
+    }
+    if (active) {
+      if (QK8) {
+        // the exact integer product (all its partial sums are integers below
+        // 2^24, as the plain version's fp32 sums), then its rescale; every
+        // eighth of the tile (its keys past Lk are zero rows)
+#pragma unroll 2
+        for (int nt = 0; nt < 8; ++nt) {
+          int s32[4] = {0, 0, 0, 0};
+          const int8_t* kr = kc + (8 * nt + g) * kLDC + 4 * t;
+#pragma unroll
+          for (int k32 = 0; k32 < 2; ++k32)
+            tf32::mma_s8(s32, qa[k32], *reinterpret_cast<const uint32_t*>(kr + 32 * k32),
+                         *reinterpret_cast<const uint32_t*>(kr + 32 * k32 + 16));
+          const float2 kf = *reinterpret_cast<const float2*>(sk + 8 * nt + 2 * t);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = g + 8 * h, kl = 8 * nt + 2 * t;
+            const float a0 = qk8_arg(static_cast<float>(s32[2 * h]), qf[h], kf.x);
+            const float a1 = qk8_arg(static_cast<float>(s32[2 * h + 1]), qf[h], kf.y);
+            if (ARGS) {
+              const int row = q0 + warp * 16 + r;
+              float* arow = a.o + ((static_cast<long long>(b) * a.H + h0) * a.Lq + row) * a.Lk;
+              if (row < a.Lq && k0 + kl < a.Lk) arow[k0 + kl] = a0;
+              if (row < a.Lq && k0 + kl + 1 < a.Lk) arow[k0 + kl + 1] = a1;
+            } else {
+              *reinterpret_cast<float2*>(ew + r * kLDE + kl) =
+                  make_float2(k0 + kl < a.Lk ? ex2f(fminf(a0 * a.c, kClamp)) : 0.f,
+                              k0 + kl + 1 < a.Lk ? ex2f(fminf(a1 * a.c, kClamp)) : 0.f);
+            }
+          }
+        }
+      } else {
+        float s[4][8];
+        if (nj == 8)
+          scores_fma<true>(s, qw, ks, rl, cl, nj);
+        else
+          scores_fma<false>(s, qw, ks, rl, cl, nj);
+        store_e(ew, s, rl, cl, k0, a.Lk, a.c);
+      }
+    }
+    tf32::cp_wait_all();
+    __syncthreads();   // the value tile is in; every warp is done with the key tile and wrote e
+    if (kt + 1 < nkt) rows_async(ks, krows, k0 + kFmaKeys, kFmaKeys);
+    tf32::cp_commit();
+    if (ARGS || !active) continue;
+    // den: the tiles' sums of row (lane & 15) of the warp added in order
+    den += tile_sum(ew + (lane & 15) * kLDE + 32 * (lane >> 4));
+    av_fma(acc, ew, vs, rl, cl, 8 * nj);
+  }
+  tf32::cp_wait_all();   // (no key tile: Lk 0)
+  if (ARGS || !active) return;
+  float* ob = a.o + static_cast<long long>(b) * a.o_sb + hoff;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float d = fmaxf(__shfl_sync(0xffffffffu, den, rl + 4 * i), 1e-30f);
+    const int row = q0 + warp * 16 + rl + 4 * i;
+    if (row >= a.Lq) continue;
+    float* orow = ob + static_cast<long long>(row) * a.o_sl;
+    *reinterpret_cast<float4*>(orow + 4 * cl) =
         make_float4(acc[i][0] / d, acc[i][1] / d, acc[i][2] / d, acc[i][3] / d);
+    *reinterpret_cast<float4*>(orow + 32 + 4 * cl) =
+        make_float4(acc[i][4] / d, acc[i][5] / d, acc[i][6] / d, acc[i][7] / d);
   }
 }
 
@@ -1135,47 +1401,6 @@ __global__ void __launch_bounds__(kThreads, 1) stream_bwd_dkdv_kernel(BwdArgs a)
   }
 }
 
-// A check of the int8 form's codes and rescale: the exp2 arguments of its
-// scores (before the clamp), a.o = args (B, H, Lq, Lk) fp32 contiguous,
-// computed by the forward's own steps (load, quant_tile_t, mm64, qk8_arg)
-__global__ void __launch_bounds__(kThreads, 2) attention_f32_qk8_args_kernel(FwdArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;
-  float* kt = qt + kTileFloats;
-  float* sq = kt + 3 * kTileFloats;
-  float* sk = sq + kT;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kT;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const long long hoff = static_cast<long long>(h) * kHD;
-  load_t(qt, a.q + static_cast<long long>(b) * a.q_sb + hoff, q0, a.Lq, a.q_sl);
-  __syncthreads();
-  quant_tile_t(qt, sq, a.cq);
-  for (int k0 = 0; k0 < a.Lk; k0 += kT) {
-    __syncthreads();
-    load_t(kt, a.k + static_cast<long long>(b) * a.k_sb + hoff, k0, a.Lk, a.k_sl);
-    __syncthreads();
-    quant_tile_t(kt, sk, 1.f);
-    __syncthreads();
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    mm64(s, qt, kt, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * ty + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + 4 * tx + j;
-        if (row < a.Lq && key < a.Lk)
-          a.o[((static_cast<long long>(b) * a.H + h) * a.Lq + row) * a.Lk + key] =
-              qk8_arg(s[i][j], sq[4 * ty + i], sk[4 * tx + j]);
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
@@ -1211,29 +1436,41 @@ cudaError_t launch_packed_fwd(const FwdArgs& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool STREAM, bool QK8 = false, bool TWO = false>
-cudaError_t launch_fwd(const FwdArgs& a, int B, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(attention_f32_fwd_kernel<STREAM, QK8, TWO>,
+cudaError_t launch_stream_fwd(const FwdArgs& a, int B, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(stream_fwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kFwdSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Lq + kT - 1) / kT, a.H, B);
-  attention_f32_fwd_kernel<STREAM, QK8, TWO><<<grid, kThreads, kFwdSmemBytes, stream>>>(a);
+  stream_fwd_kernel<<<grid, kThreads, kFwdSmemBytes, stream>>>(a);
   return cudaGetLastError();
 }
 
-// the packed forward in its int8-score form (c = 1, the scales carry cq)
-// or over two sources, each with or without the other
+// one launch of fma_fwd_kernel: a block per (kFmaRows query rows, head,
+// batch row), as ops/flash_attention.attention_f32_plan's 'fma_fwd'
+template <bool QK8, bool TWO, bool ARGS = false>
+cudaError_t launch_fma_fwd(const FwdArgs& a, int B, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(fma_fwd_kernel<QK8, TWO, ARGS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kFmaSmemBytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Lq + kFmaRows - 1) / kFmaRows, a.H, B);
+  fma_fwd_kernel<QK8, TWO, ARGS><<<grid, kFmaThreads, kFmaSmemBytes, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// the w8a8 fusion's attention in its int8-score form (c = 1, the scales
+// carry cq) or with fp32 scores
 template <bool TWO>
-cudaError_t launch_fwd_int8_or_two(FwdArgs a, int B, int int8_qk, float c,
+cudaError_t launch_fma_int8_or_not(FwdArgs a, int B, int int8_qk, float c,
                                    cudaStream_t stream) {
   if (int8_qk) {
     a.c = 1.f;
     a.cq = c;
-    return launch_fwd<false, true, TWO>(a, B, stream);
+    return launch_fma_fwd<true, TWO>(a, B, stream);
   }
   a.c = c;
-  return launch_fwd<false, false, TWO>(a, B, stream);
+  return launch_fma_fwd<false, TWO>(a, B, stream);
 }
 
 PBwdArgs make_pbwd(const void* q, const void* k, const void* v, const void* dout,
@@ -1343,13 +1580,13 @@ extern "C" int packed_attention_f32(const void* q, const void* k, const void* v,
 }
 
 // B4's attention: B1's function and arguments, as fp32 FMA in the plain
-// version's summation order (the FMA tiles)
+// version's summation order (fma_fwd_kernel)
 extern "C" int packed_attention_fma_f32(const void* q, const void* k, const void* v, void* o,
                                         int B, int Lq, int Lk, int H, int Dh, int q_sb,
                                         int q_sl, int k_sb, int k_sl, int v_sb, int v_sl,
                                         int o_sb, int o_sl, float c, void* stream) {
   if (bad_args(Dh, o)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_fwd<false>(
+  return static_cast<int>(launch_fma_fwd<false, false>(
       make_fwd(q, k, v, o, nullptr, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl,
                c, 0),
       B, static_cast<cudaStream_t>(stream)));
@@ -1374,7 +1611,7 @@ extern "C" int packed_attention_qk8_f32(const void* q, const void* k, const void
                                         int q_sl, int k_sb, int k_sl, int v_sb, int v_sl,
                                         int o_sb, int o_sl, float cq, void* stream) {
   if (bad_args(Dh, o)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_fwd_int8_or_two<false>(
+  return static_cast<int>(launch_fma_int8_or_not<false>(
       make_fwd(q, k, v, o, nullptr, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl,
                0.f, 0),
       B, 1, cq, static_cast<cudaStream_t>(stream)));
@@ -1399,11 +1636,12 @@ extern "C" int packed_attention_2src_f32(const void* q, const void* k1, const vo
   a.L1 = L1;
   a.k2_sb = k2_sb; a.k2_sl = k2_sl; a.v2_sb = v2_sb; a.v2_sl = v2_sl;
   return static_cast<int>(
-      launch_fwd_int8_or_two<true>(a, B, int8_qk, c, static_cast<cudaStream_t>(stream)));
+      launch_fma_int8_or_not<true>(a, B, int8_qk, c, static_cast<cudaStream_t>(stream)));
 }
 
 // The check of B11's codes and rescale: args (B, H, Lq, Lk) fp32, the exp2
-// arguments of the int8 form's scores; cq as packed_attention_qk8_f32's
+// arguments of the int8 form's scores, by the steps of
+// packed_attention_qk8_f32's kernel (its ARGS form); cq as that entry's
 extern "C" int attention_f32_qk8_args(const void* q, const void* k, void* args, int B, int Lq,
                                       int Lk, int H, int Dh, int q_sb, int q_sl, int k_sb,
                                       int k_sl, float cq, void* stream) {
@@ -1411,14 +1649,8 @@ extern "C" int attention_f32_qk8_args(const void* q, const void* k, void* args, 
   FwdArgs a = make_fwd(q, k, k, args, nullptr, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, k_sb, k_sl, 0,
                        0, 1.f, 0);
   a.cq = cq;
-  cudaError_t err = cudaFuncSetAttribute(attention_f32_qk8_args_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kFwdSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Lq + kT - 1) / kT, H, B);
-  attention_f32_qk8_args_kernel<<<grid, kThreads, kFwdSmemBytes,
-                                  static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      launch_fma_fwd<true, false, true>(a, B, static_cast<cudaStream_t>(stream)));
 }
 
 // B6b: dq, dk, dv from do and o (B, Lq, H*64) contiguous and den (B, Lq,
@@ -1469,7 +1701,7 @@ extern "C" int streaming_attention_f32(const void* q, const void* k, const void*
                                        int v_sb, int v_sl, int o_sb, int o_sl, float scale,
                                        int causal, void* stream) {
   if (bad_args(Dh, lse)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_fwd<true>(
+  return static_cast<int>(launch_stream_fwd(
       make_fwd(q, k, v, o, lse, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl,
                scale * kLog2e, causal),
       B, static_cast<cudaStream_t>(stream)));
@@ -1510,7 +1742,8 @@ extern "C" int streaming_attention_bwd_f32(const void* q, const void* k, const v
 // bytes; the 3xTF32 backward's threads, fixed shared bytes, floats a query
 // row of its accumulator and row statistics, and the most dynamic shared
 // memory a block may take; the most query rows and keys of the streaming
-// backward's one-launch form.
+// backward's one-launch form; the w8a8 fusion's forward's query rows a
+// block, threads and shared bytes.
 extern "C" void attention_f32_layout(int* out) {
   out[0] = kT;
   out[1] = kThreads;
@@ -1525,6 +1758,9 @@ extern "C" void attention_f32_layout(int* out) {
   out[10] = static_cast<int>(acc_floats(1));
   out[11] = kMaxSmem;
   out[12] = kStreamBwdRows;
+  out[13] = kFmaRows;
+  out[14] = kFmaThreads;
+  out[15] = kFmaSmemBytes;
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -1,10 +1,11 @@
 // The fp32 tensor-core steps shared by the float32 attention kernels
-// (attention_f32.cu), the fused prompt extras (fused_extras.cu) and the
-// float32 weight-only GEMM (w8_matmul_f32.cu: wgmma m64n128k8 TF32 and its
-// fences), and the cp.async copies that those and the bf16 attention kernels
-// (attention_frags.cuh) issue. One named device function per PTX
-// instruction: the CPU emulation of attention_f32.cu and w8_matmul_f32.cu
-// (tests/test_torch_attention_f32.py) supplies a C++ version of each.
+// (attention_f32.cu, which also takes its int8 score product from mma_s8),
+// the fused prompt extras (fused_extras.cu) and the float32 weight-only GEMM
+// (w8_matmul_f32.cu: wgmma m64n128k8 TF32 and its fences), and the cp.async
+// copies that those and the bf16 attention kernels (attention_frags.cuh)
+// issue. One named device function per PTX instruction: the CPU emulation of
+// attention_f32.cu and w8_matmul_f32.cu (tests/test_torch_attention_f32.py)
+// supplies a C++ version of each.
 //
 // 3xTF32: an fp32 product a * b on the TF32 tensor cores as lo_a hi_b +
 // hi_a lo_b + hi_a hi_b in the fp32 accumulator, each operand split once
@@ -73,6 +74,18 @@ __device__ __forceinline__ void mma_tf32_z(float (&d)[4], const uint32_t (&a)[4]
       : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f), "f"(0.f),
         "f"(0.f), "f"(0.f));
+}
+
+// d += a b, mma.sync m16n8k32 s8 x s8 -> s32, exact. Four int8 a register,
+// the lowest byte first. Fragments, g = lane / 4, t = lane % 4: a0 (row g, k
+// 4t..4t + 3), a1 (g + 8, 4t..), a2 (g, 16 + 4t..), a3 (g + 8, 16 + 4t..);
+// b0 (k 4t..4t + 3, column g), b1 (k 16 + 4t.., g); d as mma_tf32's.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // this thread's writes to shared memory made visible to the async proxy,

@@ -83,7 +83,8 @@ _SIGNATURES = {
         # exp2 constant; stream
         "packed_attention_f32": (
             [_VP] * 4 + [_I] * 5 + [_I] * 8 + [ctypes.c_float, _VP], _I),
-        # B4's attention: B1's arguments (the FMA tiles)
+        # B4's attention: B1's arguments (the fp32 FMA forward in the plain
+        # version's summation order)
         "packed_attention_fma_f32": (
             [_VP] * 4 + [_I] * 5 + [_I] * 8 + [ctypes.c_float, _VP], _I),
         # B6a: the same with den after o
@@ -123,7 +124,7 @@ _SIGNATURES = {
         "streaming_attention_bwd_f32": (
             [_VP] * 10 + [_I] * 5 + [_I] * 6
             + [ctypes.c_float, _I, _I, _I, _I, _VP], _I),
-        # the launch plans' layout: thirteen ints
+        # the launch plans' layout: sixteen ints
         "attention_f32_layout": ([ctypes.POINTER(_I)], None),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },

@@ -54,8 +54,9 @@ take their products as 3xTF32 on the tensor cores (fp32 accuracy), the rest
 as fp32 FMA, and every cast to v's dtype is a no-op (`attention_f32_plan`;
 launch counts `*_f32`). Nothing is
 cast from one to the other. The w8a8 serving fusion below takes float32
-too, in its every form, in two launches each: the fp32 attention (B1, its
-int8-score form B11, or either over two sources, B12) into a scratch, then
+too, in its every form, in two launches each: the fp32 attention (B1's
+function summed in the plain version's order, its int8-score form B11, or
+either over two sources, B12) into a scratch, then
 B2's fp32 form with the residual (launch counts `attention_out_int8_f32`,
 `attention_out_int8_qk8_f32`, `attention_out_int8_2src_f32`, one for the
 pair).
@@ -676,27 +677,31 @@ def streaming_attention_bwd_cuda(q, k, v, do, o, lse, num_heads: int,
 
 
 # Launch plans of csrc/attention_f32.cu, the float32 forms. The FMA tiles
-# (B7, and the attention of B4, B11, B12): 64-row tiles of fp32 in shared
-# memory (rows padded to 68 floats), 256 threads a block, and the dynamic
-# shared bytes of their three kernels: the forward (q^T, k^T, v and e^T
-# tiles and two floats a row, the int8 form's scales), the backward's dq
-# kernel (q^T, do^T, k^T, k, v^T, ds^T and two floats a row) and its dk /
-# dv kernel (eight tiles and two floats a row). The 3xTF32 forward (B1 /
-# B6a, B8's first launch): 64 query rows and 128 threads a block, two
-# stages of key / value tiles. The 3xTF32 backward (B6b, B8's second
-# launch): one block of 256 threads per (batch row, head) holds that head's
-# fp32 dq accumulator and row statistics, 74 floats per query row (Lq
-# rounded up to 16), beside 154 KB of tile stages; past a block's 227 KB
-# (Lq > 240) they move to a block-private region of a global scratch
-# buffer, and a grid of one block per SM walks the (row, head) pairs. B7's
-# backward takes the same kernel in its streaming form while Lq and Lk are
-# at most one key tile (128), its accumulator in shared memory, else the
-# two FMA kernels. The launch holds the thirteen numbers against the
+# (B7's forward and its backward past 128 rows): 64-row tiles of fp32 in
+# shared memory (rows padded to 68 floats), 256 threads a block, and the
+# dynamic shared bytes of their three kernels: the forward (q^T, k^T, v and
+# e^T tiles), the backward's dq kernel (q^T, do^T, k^T, k, v^T, ds^T and two
+# floats a row) and its dk / dv kernel (eight tiles and two floats a row).
+# The 3xTF32 forward (B1 / B6a, B8's first launch): 64 query rows and 128
+# threads a block, two stages of key / value tiles. The 3xTF32 backward
+# (B6b, B8's second launch): one block of 256 threads per (batch row, head)
+# holds that head's fp32 dq accumulator and row statistics, 74 floats per
+# query row (Lq rounded up to 16), beside 154 KB of tile stages; past a
+# block's 227 KB (Lq > 240) they move to a block-private region of a global
+# scratch buffer, and a grid of one block per SM walks the (row, head)
+# pairs. B7's backward takes the same kernel in its streaming form while Lq
+# and Lk are at most one key tile (128), its accumulator in shared memory,
+# else the two FMA kernels. The attention of the w8a8 fusion's fp32 forms
+# (B4, B11, B12; 'fma_fwd'): 7 warps of 16 query rows a block (112 rows,
+# 224 threads), its q rows, one key and one value tile of 64 rows, the
+# warps' e rows and the int8 form's scales and codes in 112,320 bytes, two
+# blocks to an SM. The launch holds the sixteen numbers against the
 # library's `attention_f32_layout` before its first use.
-_F32_LAYOUT = (64, 256, 70144, 104960, 139776,   # FMA tiles
+_F32_LAYOUT = (64, 256, 69632, 104960, 139776,   # FMA tiles
                64, 128, 69632,                   # 3xTF32 forward
                256, 157696, 74, 232448,          # 3xTF32 backward
-               128)                              # its streaming form's rows
+               128,                              # its streaming form's rows
+               112, 224, 112320)                 # the w8a8 fusion's forward
 _CUDA_MAX_GRID_YZ = 65535
 
 
@@ -706,17 +711,19 @@ def attention_f32_plan(B: int, Lq: int, Lk: int, H: int,
     """The launches of the float32 kernels at one shape on a card of
     `sm_count` SMs. packed (the clamp form, whose path ends at 640 keys):
     {'fwd': {'grid': (query tiles, H, B), 'threads', 'smem_bytes'}, 'bwd':
-    {'lq_pad', 'grid', 'acc_in_smem', 'smem_bytes', 'scratch_floats'}}, the
-    backward's grid one-dimensional; streaming: {'fwd': {'grid': (tiles, H,
-    B), 'threads', 'smem_bytes'}, 'bwd'}, the forward a block per 64 query
-    rows, and the backward {'form': 'one_launch', 'launches': 1, 'grid': B
-    * H, 'threads', 'lq_pad', 'smem_bytes', 'scratch_floats': 0} (the packed
-    backward's kernel in its streaming form) while Lq and Lk are at most
-    its rows, else {'form': 'two_kernels', 'launches': 2, 'dq', 'dkdv':
-    {'grid': (tiles, H, B), 'threads', 'smem_bytes'}, 'scratch_floats' (the
-    row statistics and deltas, 2 B H Lq)}, the dq kernel a block per 64
-    query rows, the dk / dv kernel one per 64 keys. Keys stream through
-    fixed tiles, so no size depends on Lk."""
+    {'lq_pad', 'grid', 'acc_in_smem', 'smem_bytes', 'scratch_floats'},
+    'fma_fwd': {'grid': (query blocks, H, B), 'threads', 'smem_bytes'}}, the
+    backward's grid one-dimensional, 'fma_fwd' the attention of B4 / B11 /
+    B12 (a block per 112 query rows); streaming: {'fwd': {'grid': (tiles,
+    H, B), 'threads', 'smem_bytes'}, 'bwd'}, the forward a block per 64
+    query rows, and the backward {'form': 'one_launch', 'launches': 1,
+    'grid': B * H, 'threads', 'lq_pad', 'smem_bytes', 'scratch_floats': 0}
+    (the packed backward's kernel in its streaming form) while Lq and Lk
+    are at most its rows, else {'form': 'two_kernels', 'launches': 2, 'dq',
+    'dkdv': {'grid': (tiles, H, B), 'threads', 'smem_bytes'},
+    'scratch_floats' (the row statistics and deltas, 2 B H Lq)}, the dq
+    kernel a block per 64 query rows, the dk / dv kernel one per 64 keys.
+    Keys stream through fixed tiles, so no size depends on Lk."""
     if Dh != _KERNEL_HEAD_DIM:
         raise ValueError(f"head dim {Dh}: the kernels are built for "
                          f"{_KERNEL_HEAD_DIM}")
@@ -729,7 +736,7 @@ def attention_f32_plan(B: int, Lq: int, Lk: int, H: int,
     if max(B, H) > _CUDA_MAX_GRID_YZ:
         raise ValueError(f"B={B}, H={H}: a grid's y and z take at most "
                          f"{_CUDA_MAX_GRID_YZ}")
-    bwd_threads, fixed, per_row, max_smem, one_rows = _F32_LAYOUT[8:]
+    bwd_threads, fixed, per_row, max_smem, one_rows = _F32_LAYOUT[8:13]
     lq_pad = -(-Lq // 16) * 16
     if not packed:
         rows, threads, fwd, dq, dkdv = _F32_LAYOUT[:5]
@@ -758,8 +765,11 @@ def attention_f32_plan(B: int, Lq: int, Lk: int, H: int,
         bwd = {"lq_pad": lq_pad, "grid": grid, "acc_in_smem": False,
                "smem_bytes": fixed, "scratch_floats": grid * acc}
     bwd["threads"] = bwd_threads
+    fma_rows, fma_threads, fma_smem = _F32_LAYOUT[13:]
     return {"fwd": {"grid": (-(-Lq // rows), H, B), "threads": threads,
-                    "smem_bytes": fwd}, "bwd": bwd}
+                    "smem_bytes": fwd}, "bwd": bwd,
+            "fma_fwd": {"grid": (-(-Lq // fma_rows), H, B),
+                        "threads": fma_threads, "smem_bytes": fma_smem}}
 
 
 def _f32_launch(name: str, dev, *args, count: bool = True) -> None:
@@ -1213,10 +1223,11 @@ def _attention_out_f32(q, k, v, num_heads: int, out_params: Dict,
                        residual: torch.Tensor, lq: int, int8_qk: bool = False,
                        second=None) -> torch.Tensor:
     """B4, B11 (int8_qk) and B12 (`second` = (k2, v2): the keys [k; k2],
-    the values [v; v2]) in float32, two launches: the fp32 packed forward of
-    csrc/attention_f32.cu on its FMA tiles (B1's function, its int8-score
-    form, or either over two sources; they sum as the plain version does,
-    which the row quant behind them needs to stay within its limits) writes
+    the values [v; v2]) in float32, two launches: the fp32 forward of
+    csrc/attention_f32.cu's fma_fwd_kernel (B1's function, its int8-score
+    form, or either over two sources; every sum in the plain version's
+    order, which the row quant behind them needs to stay within its
+    limits) writes
     the attention of the first lq queries, kept in fp32,
     into a scratch (B, lq, D); then B2's fp32 form (csrc/w8a8_matmul.cu)
     quantizes each scratch row, runs the int8 out-projection and adds the

@@ -262,7 +262,7 @@ MUTANTS = {
     # B7's forward in fp32: the running sum not rescaled when a row's max
     # moves
     "f32_b7_sum_not_rescaled": (
-        _F32, [("        l[i] *= alpha;\n", "")],
+        _F32, [("      l[i] *= alpha;\n", "")],
         "phase_f32_kernels", "streaming_attention_f32 B="),
     # B7's backward in fp32, its two FMA kernels (rows past 128): p of the
     # keys the causal mask hides kept
@@ -316,12 +316,15 @@ MUTANTS = {
                  "    for (int c = lane; c < min(K, 1024); c += 32) s = "
                  "__fadd_rn(s, to_f32(src[c]));")],
         "phase_w8a8_f32", "w8a8_matmul3_f32 M="),
-    # B4 in fp32: the attention's products in TF32 (its first launch is
-    # attention_f32.cu's forward on the FMA tiles)
+    # B4 in fp32: the attention's score products in TF32 (its first launch
+    # is attention_f32.cu's fma_fwd_kernel, whose scores sum dot4's fmaf)
     "f32w8_b4_products_tf32": (
-        _F32, [("acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);",
-                "acc[i][j] = fmaf(" + _TF32.format("ar[i]") + ", "
-                + _TF32.format("br[j]") + ", acc[i][j]);")],
+        _F32, [("  acc = fmaf(a.x, b.x, acc);\n  acc = fmaf(a.y, b.y, acc);\n"
+                "  acc = fmaf(a.z, b.z, acc);\n  return fmaf(a.w, b.w, acc);\n",
+                "".join(f"  acc = fmaf({_TF32.format('a.' + c)}, "
+                        f"{_TF32.format('b.' + c)}, acc);\n" for c in "xyz")
+                + f"  return fmaf({_TF32.format('a.w')}, "
+                  f"{_TF32.format('b.w')}, acc);\n")],
         "phase_w8a8_f32", "attention_out_int8_f32 B="),
     # the fp32 serving forms (chip_smoke's serving-f32 phase): B9 in fp32
     # with every product as one TF32 product (1xTF32: both lo products

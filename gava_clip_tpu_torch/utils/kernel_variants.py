@@ -2,7 +2,7 @@
 variants of a kernel source (patched copies, as kernel_mutants.py does)
 and time each against the same yardstick, in turns.
 
-    python3 -m gava_clip_tpu_torch.utils.kernel_variants [b1 b9 b7 b5 b3 b4 b2 mega b10 b7b f32b9 f32b7b]   # repo root, on a card
+    python3 -m gava_clip_tpu_torch.utils.kernel_variants [b1 b9 b7 b5 b3 b4 b2 mega b10 b7b f32b9 f32b7b f32b4 f32b11]   # repo root, on a card
     python3 -m gava_clip_tpu_torch.utils.kernel_variants e2e   # the parent's tree against this one
 
 B1 / B6a (csrc/packed_attention.cu, the den entry) against
@@ -54,7 +54,13 @@ of the weights (wrong outputs), the three products of every k8 step
 chained into the running sums with no wait a step (it drifts past the
 limit), one product a step (wrong outputs); B7's fp32 backward
 (csrc/attention_f32.cu) at the text tower's shape beside the parent's
-(`f32b7b_parent`) against SDPA's fp32 backward op, in CUDA graphs. `e2e`
+(`f32b7b_parent`) against SDPA's fp32 backward op, in CUDA graphs. The
+attention of B4 and B11 in fp32 (csrc/attention_f32.cu's first launch of
+each) at the fp32 w8a8 evaluation's shape: this tree's (`f32b4`,
+`f32b11`) and the parent's (`f32b4_parent`, `f32b11_parent`) against each
+other and against SDPA's fp32 forward in turns in CUDA graphs, each
+followed by this tree's B2 fp32 launch into the whole op, whose outputs
+are held to F32_W8A8_LIMITS (the share beyond 2 ulp among them). `e2e`
 runs chip_smoke's serving and training phases of the parent's tree and of
 this one in turns.
 
@@ -120,14 +126,12 @@ _PARENT_SIGNATURES[_MEGA] = {
 _PARENT_SIGNATURES[_W8F32] = {
     # x, W^T tiles, s, y; M, K, N; stream
     "w8_matmul_f32": ([_VP] * 4 + [_I] * 3 + [_VP], _I)}
-_PARENT_SIGNATURES[_F32] = {
-    # the two FMA kernels: q, k, v, do, o, lse, dq, dk, dv, scratch; B, Lq,
-    # Lk, H, Dh; q/k/v batch and row strides; scale; causal; stream
-    "streaming_attention_bwd_f32": (
-        [_VP] * 10 + [_I] * 5 + [_I] * 6 + [ctypes.c_float, _I, _VP], _I)}
+# the parent's attention_f32.cu takes this tree's signatures
+# (_cuda._SIGNATURES['attention_f32'])
 PARENT_VARIANTS = {"b10_parent": _B10, "b7b_parent": _B7B,
                    "b2_parent": _B2, "mega_parent": _MEGA,
-                   "f32b9_parent": _W8F32, "f32b7b_parent": _F32}
+                   "f32b9_parent": _W8F32, "f32b7b_parent": _F32,
+                   "f32b4_parent": _F32, "f32b11_parent": _F32}
 # w8_matmul_f32.cu's products of one k8 step and their handling
 _F32B9_STEP = ("      tf32::wgmma_fence();\n"
                "      step3(f, ah, al, bh, bl);\n"
@@ -163,6 +167,8 @@ VARIANTS = {
         "  tf32::wgmma_tf32(f, ah, bh);     // hi_x hi_w\n",
         "  tf32::wgmma_tf32_z(f, ah, bh);\n")]),
     "f32b7b_as_is": (_F32, []),
+    "f32b4": (_F32, []),
+    "f32b11": (_F32, []),
     "b1_as_is": (_PA, []),
     "b1_16_warps_1_block": (_PA, [
         ("constexpr int kWarps = 8;\nconstexpr int kMinBlocks = 2;",
@@ -385,7 +391,8 @@ def _build(name):
     from gava_clip_tpu_torch.ops import _cuda
     if name in PARENT_VARIANTS:
         path, edits, root = PARENT_VARIANTS[name], [], PARENT
-        signatures = _PARENT_SIGNATURES[path]
+        signatures = _PARENT_SIGNATURES.get(path) or \
+            _cuda._SIGNATURES[_LIB[path]]
     else:
         (path, edits), root = VARIANTS[name], ROOT
         signatures = _cuda._SIGNATURES[_LIB[path]]
@@ -547,6 +554,8 @@ def main(argv=None) -> int:
         _f32b9_variants(cs, im, libs, gen, stream, state)
     if _any(libs, "f32b7b"):
         _f32b7b_variants(cs, fa, libs, gen, state)
+    if _any(libs, "f32b4") or _any(libs, "f32b11"):
+        _f32b4_variants(cs, fa, im, libs, gen, state)
     return 0
 
 
@@ -1261,9 +1270,8 @@ def _f32b7b_variants(cs, fa, libs, gen, state):
     for name, lib in libs.items():
         if not name.startswith("f32b7b"):
             continue
-        # the parent's entry takes no plan; this tree's its one-launch form
-        tail = () if name.endswith("_parent") else (
-            1, plan["lq_pad"], plan["smem_bytes"])
+        # this tree's entry and the parent's: the one-launch form
+        tail = (1, plan["lq_pad"], plan["smem_bytes"])
 
         def call(lib=lib, tail=tail):
             stream = torch.cuda.current_stream().cuda_stream
@@ -1290,6 +1298,72 @@ def _f32b7b_variants(cs, fa, libs, gen, state):
               f"median of 7 rounds: {g[0]:.5f} ms vs SDPA's fp32 backward op "
               f"{g[1]:.5f} ms a call, ratio {g[2]:.3f} (rounds {g[3]:.3f}-"
               f"{g[4]:.3f}) ({state['smi']})", flush=True)
+
+
+def _f32b4_variants(cs, fa, im, libs, gen, state):
+    """The attention of B4 (`f32b4*`) and B11 (`f32b11*`) in fp32 at the
+    fp32 w8a8 evaluation's shape (F32_B4_SHAPES[0]): each library's entry
+    (packed_attention_fma_f32 / packed_attention_qk8_f32) into a scratch,
+    then this tree's B2 fp32 launch with the residual, held to the plain
+    version within F32_W8A8_LIMITS (its text: the shares != plain and
+    beyond 2 ulp); the attention launches alone in CUDA graphs, this tree's
+    against the parent's and each against SDPA's fp32 forward, in turns
+    (median of 7 rounds)."""
+    import torch
+    B, lq, Lq, Lk, H = cs.F32_B4_SHAPES[0]
+    D = H * 64
+    q, k, v = (torch.randn(B, L, D, generator=gen, device="cuda")
+               for L in (Lq, Lk, Lk))
+    op = {"kernel": cs._qleaf(gen, D, D),
+          "bias": torch.randn(D, generator=gen, device="cuda") * 0.02}
+    r = torch.randn(B, lq, D, generator=gen, device="cuda")
+    sdpa = cs._sdpa_fwd(q[:, :lq], k, v, H)
+    label = f"B={B} lq={lq} Lk={Lk} H={H}"
+    for form, int8_qk in (("f32b4", False), ("f32b11", True)):
+        name = "attention_out_int8_qk8_f32" if int8_qk \
+            else "attention_out_int8_f32"
+        entry = "packed_attention_qk8_f32" if int8_qk \
+            else "packed_attention_fma_f32"
+        c = 64 ** -0.5 * fa._LOG2E / (127.0 * 127.0 if int8_qk else 1.0)
+        ref = fa.attention_out_int8_plain(q, k, v, H, op, r, lq, int8_qk)
+        xs = im.quant_rows(fa._onepass_attention_den_f32(
+            q[:, :lq], k, v, H, int8_qk=int8_qk)[0])[1]
+        unit = cs._flip_unit(xs, op["kernel"]["scale"])
+        calls = {}
+        for vname in sorted((n for n in libs if n in (form, form + "_parent")),
+                            key=lambda n: n.endswith("_parent")):
+            a = torch.empty(B, lq, D, device="cuda")
+
+            def call(lib=libs[vname], a=a, vname=vname):
+                err = getattr(lib, entry)(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), a.data_ptr(), B,
+                    lq, Lk, H, 64, *fa._qkv_strides(q, k, v), a.stride(0),
+                    a.stride(1), c, torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{vname}: launch failed ({err})")
+            call()
+            out = im._w8a8_matmul_launch(
+                "f32", a.view(B * lq, D), op["kernel"], op["bias"],
+                r.reshape(B * lq, D)).view(B, lq, D)
+            torch.cuda.synchronize()
+            ok, _, text = cs._check_w8a8_f32(name, out, ref, unit, r)
+            print(f"[variants] {vname} {label}: the whole op ({entry}, then "
+                  f"B2 fp32) against its plain version: {text} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            g = cs._ratio_graphs(call, sdpa)
+            print(f"[variants] {vname} {label}: its attention launch vs "
+                  f"SDPA's fp32 forward, CUDA graphs of {cs.GRAPH_LAUNCHES} "
+                  f"calls, median of 7 rounds in turns: {g[0]:.5f} ms vs "
+                  f"{g[1]:.5f} ms, ratio {g[2]:.3f} (rounds {g[3]:.3f}-"
+                  f"{g[4]:.3f}) ({state['smi']})", flush=True)
+            calls[vname] = call
+        if len(calls) == 2:
+            g = cs._ratio_graphs(calls[form], calls[form + "_parent"])
+            print(f"[variants] {form} vs {form}_parent {label}: the attention "
+                  f"launches in CUDA graphs of {cs.GRAPH_LAUNCHES} calls, "
+                  f"median of 7 rounds in turns: {g[0]:.5f} ms vs {g[1]:.5f} "
+                  f"ms, ratio {g[2]:.3f} (rounds {g[3]:.3f}-{g[4]:.3f}) "
+                  f"({state['smi']})", flush=True)
 
 
 if __name__ == "__main__":

@@ -110,6 +110,15 @@ inline float __shfl_xor_sync(unsigned, float x, int off) {
   w.bar.arrive_and_wait();
   return y;
 }
+inline float __shfl_sync(unsigned, float x, int src) {
+  EmuWarp& w = emu_warp();
+  const unsigned lane = threadIdx.x & 31;
+  w.shfl[lane] = x;
+  w.bar.arrive_and_wait();
+  const float y = w.shfl[src & 31];
+  w.bar.arrive_and_wait();
+  return y;
+}
 inline float __uint_as_float(unsigned x) { float f; std::memcpy(&f, &x, 4); return f; }
 inline unsigned __float_as_uint(float f) { unsigned x; std::memcpy(&x, &f, 4); return x; }
 inline int min(int a, int b) { return a < b ? a : b; }
@@ -140,6 +149,29 @@ inline void emu_mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uin
     float f = static_cast<float>(s);
     if (std::fabs(static_cast<double>(f)) > std::fabs(s)) f = std::nextafter(f, 0.f);
     d[i] = f;
+  }
+}
+// mma.sync m16n8k32 s8 x s8 -> s32 as the same collective: each output the
+// exact integer sum of its 32 byte products added to the accumulator
+inline void emu_mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  EmuWarp& w = emu_warp();
+  const int lane = threadIdx.x & 31, ph = w.phase[lane];
+  w.phase[lane] ^= 1;
+  for (int i = 0; i < 4; ++i) w.a[ph][lane][i] = a[i];
+  w.b[ph][lane][0] = b0;
+  w.b[ph][lane][1] = b1;
+  w.bar.arrive_and_wait();
+  const int g = lane >> 2, t = lane & 3;
+  for (int i = 0; i < 4; ++i) {
+    const int row = g + 8 * (i >> 1), col = 2 * t + (i & 1);
+    long long s = d[i];
+    for (int k = 0; k < 32; ++k) {
+      const uint32_t av = w.a[ph][(row & 7) * 4 + ((k & 15) >> 2)][(row >> 3) + 2 * (k >> 4)];
+      const uint32_t bv = w.b[ph][col * 4 + ((k & 15) >> 2)][k >> 4];
+      s += static_cast<int>(static_cast<int8_t>(av >> (8 * (k & 3)))) *
+           static_cast<int>(static_cast<int8_t>(bv >> (8 * (k & 3))));
+    }
+    d[i] = static_cast<int>(s);
   }
 }
 // wgmma m64nNk8 TF32 with A from registers (N = 2 R): each warp of the
@@ -187,12 +219,13 @@ void emu_launch(K k, dim3 grid, int threads, int smem_bytes, const A& a) {
 
 # csrc/tf32_frags.cuh's PTX, one named function each, as C++: cp.async as
 # a plain copy (zeros when nothing is read) with its commit and waits as
-# no-ops, mma.sync as the collective above (with its accumulator cleared
-# first where the statement binds it to zeros: mma_tf32_z), wgmma as the
-# emulation above run at once (fresh where the statement's accumulator is
-# write-only: wgmma_tf32_z), its fences, commit and wait and the proxy
-# fence as no-ops
+# no-ops, mma.sync as the collectives above (TF32, with its accumulator
+# cleared first where the statement binds it to zeros: mma_tf32_z; s8),
+# wgmma as the emulation above run at once (fresh where the statement's
+# accumulator is write-only: wgmma_tf32_z), its fences, commit and wait and
+# the proxy fence as no-ops
 _MMA = "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32"
+_MMA_S8 = "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32"
 _WGMMA = "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32"
 _PTX_EMULATION = {
     "cp.async.cg.shared.global": "if (ok) std::memcpy(dst, src, 16); "
@@ -203,6 +236,7 @@ _PTX_EMULATION = {
     _MMA: "emu_mma_tf32(d, a, b0, b1);",
     _MMA + " (zero accumulator)":
         "d[0] = d[1] = d[2] = d[3] = 0.f; emu_mma_tf32(d, a, b0, b1);",
+    _MMA_S8: "emu_mma_s8(d, a, b0, b1);",
     "fence.proxy.async.shared::cta": "",
     "wgmma.fence.sync.aligned": "",
     "wgmma.commit_group.sync.aligned": "",
@@ -745,15 +779,16 @@ def _a12_inputs(seed, B, Lq, Lk, H, ties):
                  for a in (q, k, v))
 
 
-def _run_a12(lib, B, Lq, Lk, H, ties, seed=0):
+def _run_a12(lib, B, Lq, Lk, H, ties, seed=0, seq=None):
     """The int8-score and two-source entries at one shape: {'args': the
     int8 form's exp2 arguments equal the plain version's bit for bit,
     'packed_attention_qk8_f32' / 'packed_attention_2src_f32': max err /
     scale of B11 and of B12 in its int8 form against the plain int8
     version, 'two': both two-source forms equal the one-source forms on
-    the concatenated keys bit for bit}. The second source is a column view
-    of one (B, L2, 2D) projection (row stride 2D) and starts inside a key
-    tile."""
+    the concatenated keys bit for bit, and with `seq` (the library of
+    _SEQ_SRC) 'seq': both one-source forms equal the sequential reference
+    bit for bit}. The second source is a column view of one (B, L2, 2D)
+    projection (row stride 2D) and starts inside a key tile."""
     q, k, v = _a12_inputs(seed, B, Lq, Lk, H, ties)
     D, Dh = H * 64, 64
     c = Dh ** -0.5 * tfa._LOG2E
@@ -774,13 +809,14 @@ def _run_a12(lib, B, Lq, Lk, H, ties, seed=0):
     kv2 = torch.cat([k[:, L1:], v[:, L1:]], dim=-1)
     k2, v2 = kv2[..., :D], kv2[..., D:]
     res["two"] = True
+    res["seq"] = seq is not None
     for int8_qk in (0, 1):
         one, two = torch.empty(B, Lq, D), torch.empty(B, Lq, D)
         entry = lib.packed_attention_qk8_f32 if int8_qk \
             else lib.packed_attention_fma_f32
-        assert entry(P(q), P(k), P(v), P(one), B, Lq, Lk, H, Dh,
-                     *tfa._qkv_strides(q, k, v), one.stride(0),
-                     one.stride(1), cq if int8_qk else c, None) == 0
+        strides = (*tfa._qkv_strides(q, k, v), one.stride(0), one.stride(1))
+        assert entry(P(q), P(k), P(v), P(one), B, Lq, Lk, H, Dh, *strides,
+                     cq if int8_qk else c, None) == 0
         assert lib.packed_attention_2src_f32(
             P(q), P(k1), P(v1), P(k2), P(v2), P(two), B, Lq, L1, Lk - L1, H,
             Dh, q.stride(0), q.stride(1), k1.stride(0), k1.stride(1),
@@ -788,12 +824,116 @@ def _run_a12(lib, B, Lq, Lk, H, ties, seed=0):
             v2.stride(0), v2.stride(1), two.stride(0), two.stride(1),
             cq if int8_qk else c, int8_qk, None) == 0
         res["two"] = res["two"] and torch.equal(one, two)
+        if seq is not None:
+            want_seq = torch.full_like(one, float("nan"))
+            seq.seq_attention(P(q), P(k), P(v), P(want_seq), B, Lq, Lk, H,
+                              *strides, cq if int8_qk else c, int8_qk)
+            res["seq"] = res["seq"] and torch.equal(one, want_seq)
         if int8_qk:
             res["packed_attention_qk8_f32"] = (
                 (one - ref).abs() / spread).max().item()
             res["packed_attention_2src_f32"] = (
                 (two - ref).abs() / spread).max().item()
     return res
+
+
+# The order that B4's and B11's limits on the card depend on, written out
+# one operation after another: per (batch row, head, query row) each score
+# as fmaf over the head columns in order from 0 (the int8 form: the codes'
+# exact integer product, then (s32 * (qs * cq)) * ks), e = exp2f(min(s c,
+# 110)) (exp2f for the card's ex2.approx, as in the emulation), den the sum
+# over the key tiles of 64 in order of each tile's e (0 past Lk) as a
+# pairwise tree (four keys, then eight sums of four in pairs, in each half
+# of 32, then the halves), each numerator fmaf over the keys in order from
+# 0, out = num / max(den, 1e-30). The codes: qs = max(absmax, 1e-6), rint(x
+# * (127 / qs)).
+_SEQ_SRC = r"""
+#include <cmath>
+#include <cstdint>
+#include <vector>
+
+static float codes(const float* x, int8_t* out) {
+  float m = 0.f;
+  for (int d = 0; d < 64; ++d) m = std::fmax(m, std::fabs(x[d]));
+  const float qs = std::fmax(m, 1e-6f);
+  const float inv = 127.f / qs;
+  for (int d = 0; d < 64; ++d) out[d] = static_cast<int8_t>(std::rint(x[d] * inv));
+  return qs;
+}
+
+extern "C" void seq_attention(const float* q, const float* k, const float* v, float* o,
+                              int B, int Lq, int Lk, int H, int q_sb, int q_sl, int k_sb,
+                              int k_sl, int v_sb, int v_sl, int o_sb, int o_sl, float c,
+                              int int8_qk) {
+  std::vector<float> e(Lk), ks(Lk);
+  std::vector<int8_t> kc(64 * Lk), qc(64);
+  for (int b = 0; b < B; ++b)
+    for (int h = 0; h < H; ++h) {
+      const float* kb = k + static_cast<long long>(b) * k_sb + 64 * h;
+      const float* vb = v + static_cast<long long>(b) * v_sb + 64 * h;
+      if (int8_qk)
+        for (int j = 0; j < Lk; ++j) ks[j] = codes(kb + static_cast<long long>(j) * k_sl, &kc[64 * j]);
+      for (int i = 0; i < Lq; ++i) {
+        const float* qr = q + static_cast<long long>(b) * q_sb + static_cast<long long>(i) * q_sl + 64 * h;
+        const float qf = int8_qk ? codes(qr, qc.data()) * c : 0.f;
+        for (int j = 0; j < Lk; ++j) {
+          const float* kr = kb + static_cast<long long>(j) * k_sl;
+          float arg;
+          if (int8_qk) {
+            int s32 = 0;
+            for (int d = 0; d < 64; ++d) s32 += qc[d] * kc[64 * j + d];
+            arg = (static_cast<float>(s32) * qf) * ks[j];
+          } else {
+            float s = 0.f;
+            for (int d = 0; d < 64; ++d) s = std::fmaf(qr[d], kr[d], s);
+            arg = s * c;
+          }
+          e[j] = std::exp2f(std::fmin(arg, 110.f));
+        }
+        float den = 0.f;
+        for (int k0 = 0; k0 < Lk; k0 += 64) {
+          float t[2];
+          for (int h = 0; h < 2; ++h) {
+            float p[8];
+            for (int m = 0; m < 8; ++m) {
+              float x[4];
+              for (int u = 0; u < 4; ++u) {
+                const int j = k0 + 32 * h + 4 * m + u;
+                x[u] = j < Lk ? e[j] : 0.f;
+              }
+              p[m] = (x[0] + x[1]) + (x[2] + x[3]);
+            }
+            t[h] = ((p[0] + p[1]) + (p[2] + p[3])) + ((p[4] + p[5]) + (p[6] + p[7]));
+          }
+          den += t[0] + t[1];
+        }
+        float* orow = o + static_cast<long long>(b) * o_sb + static_cast<long long>(i) * o_sl + 64 * h;
+        for (int d = 0; d < 64; ++d) {
+          float num = 0.f;
+          for (int j = 0; j < Lk; ++j)
+            num = std::fmaf(e[j], vb[static_cast<long long>(j) * v_sl + d], num);
+          orow[d] = num / std::fmax(den, 1e-30f);
+        }
+      }
+    }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def seq(emu):
+    """The sequential reference (_SEQ_SRC) as a shared library."""
+    tmp, _ = emu
+    (tmp / "seq.cpp").write_text(_SEQ_SRC)
+    so = tmp / "libseq.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-shared", "-fPIC", "-o",
+                    str(so), str(tmp / "seq.cpp")], check=True,
+                   capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    lib.seq_attention.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 \
+        + [ctypes.c_float, ctypes.c_int]
+    lib.seq_attention.restype = None
+    return lib
 
 
 # (B, Lq, Lk, H, tie rows): ragged tiles, more key than query tiles with
@@ -803,9 +943,16 @@ _A12_SHAPES = [(2, 13, 21, 2, False), (1, 70, 130, 1, True),
 
 
 @pytest.mark.parametrize("shape", _A12_SHAPES)
-def test_int8_qk_and_two_source_forms_match_plain_versions(emu, shape):
-    res = _run_a12(emu[1], *shape)
+def test_int8_qk_and_two_source_forms_match_plain_versions(emu, seq, shape):
+    """B11's exp2 arguments through the kernel's own steps equal the plain
+    version's bit for bit; B4's and B11's attention equal the sequential
+    reference bit for bit (the order their limits on the card depend on)
+    and B11's lies within F32_REL of the plain int8 version; B12 in both
+    score forms equals the one-source form on the concatenated keys bit for
+    bit."""
+    res = _run_a12(emu[1], *shape, seq=seq)
     assert res["args"]
+    assert res["seq"]
     assert res["two"]
     for name in ("packed_attention_qk8_f32", "packed_attention_2src_f32"):
         assert res[name] <= F32_REL, (name, res[name])
@@ -827,3 +974,81 @@ def test_int8_qk_and_two_source_mutants_fail(emu, name):
     lib = _build(tmp, name, src)
     check = "args" if name.startswith("f32b11_") else "two"
     assert not all(_run_a12(lib, *shape)[check] for shape in _A12_SHAPES)
+
+
+def test_fma_forward_tf32_mutant_leaves_the_order(emu, seq):
+    """B4's mutant of the card's w8a8-f32 phase (its scores' products taken
+    in TF32) no longer equals the sequential reference."""
+    tmp, _ = emu
+    path, edits, _, _ = kernel_mutants.MUTANTS["f32w8_b4_products_tf32"]
+    assert path.endswith(_SOURCE.name)
+    src = _SOURCE.read_text()
+    for old, new in edits:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    lib = _build(tmp, "f32w8_b4_products_tf32", src)
+    assert not _run_a12(lib, *_A12_SHAPES[0], seq=seq)["seq"]
+
+
+# one warp's 16 x 8 x 32 int8 product through csrc/tf32_frags.cuh's mma_s8
+_MMA_S8_SRC = r"""
+#include "cuda_runtime.h"
+#include "tf32_frags.cuh"
+
+struct SArgs {
+  const int8_t *A, *B;   // A 16 x 32, B 32 x 8 (k x n), row-major
+  int* C;                // 16 x 8, added to
+};
+
+__global__ void mma_s8_kernel(const SArgs& a) {
+  const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+  auto word = [](const int8_t* p, int stride) {
+    uint32_t w = 0;
+    for (int i = 0; i < 4; ++i) w |= static_cast<uint32_t>(static_cast<uint8_t>(p[i * stride])) << (8 * i);
+    return w;
+  };
+  const uint32_t x[4] = {word(a.A + g * 32 + 4 * t, 1), word(a.A + (g + 8) * 32 + 4 * t, 1),
+                         word(a.A + g * 32 + 16 + 4 * t, 1),
+                         word(a.A + (g + 8) * 32 + 16 + 4 * t, 1)};
+  int d[4] = {a.C[g * 8 + 2 * t], a.C[g * 8 + 2 * t + 1], a.C[(g + 8) * 8 + 2 * t],
+              a.C[(g + 8) * 8 + 2 * t + 1]};
+  tf32::mma_s8(d, x, word(a.B + 4 * t * 8 + g, 8), word(a.B + (16 + 4 * t) * 8 + g, 8));
+  a.C[g * 8 + 2 * t] = d[0];
+  a.C[g * 8 + 2 * t + 1] = d[1];
+  a.C[(g + 8) * 8 + 2 * t] = d[2];
+  a.C[(g + 8) * 8 + 2 * t + 1] = d[3];
+}
+
+extern "C" int run_mma_s8(const int8_t* A, const int8_t* B, int* C) {
+  const SArgs a{A, B, C};
+  emu_launch(mma_s8_kernel, dim3(1), 32, 0, a);
+  return 0;
+}
+"""
+
+
+def test_emulated_s8_mma_against_numpy(emu):
+    """The emulation's mma.sync m16n8k32 s8 (csrc/tf32_frags.cuh's mma_s8,
+    B11's score product) against numpy's int32 product, added to an int32
+    accumulator, at random codes and at the extremes +-127 and -128: the
+    fragment layout is the PTX one and the sum exact."""
+    tmp, _ = emu
+    (tmp / "mma_s8.cpp").write_text(_MMA_S8_SRC)
+    so = tmp / "libmma_s8.so"
+    subprocess.run(["g++", "-std=c++20", "-O1", "-pthread", "-shared", "-fPIC",
+                    "-Wno-unknown-pragmas", "-I", str(tmp), "-o", str(so),
+                    str(tmp / "mma_s8.cpp")], check=True, capture_output=True,
+                   timeout=300)
+    lib = ctypes.CDLL(str(so))
+    lib.run_mma_s8.argtypes = [ctypes.c_void_p] * 3
+    rs = np.random.RandomState(6)
+    for A, B in ((rs.randint(-127, 128, (16, 32)),
+                  rs.randint(-127, 128, (8, 32)).T),
+                 (np.full((16, 32), -128), np.full((32, 8), -128)),
+                 (np.full((16, 32), 127), np.full((32, 8), -127))):
+        A, B = np.ascontiguousarray(A, np.int8), np.ascontiguousarray(B, np.int8)
+        C0 = rs.randint(-2 ** 20, 2 ** 20, (16, 8)).astype(np.int32)
+        C = C0.copy()
+        assert lib.run_mma_s8(A.ctypes.data, B.ctypes.data, C.ctypes.data) == 0
+        want = C0 + A.astype(np.int32) @ B.astype(np.int32)
+        assert np.array_equal(C, want)

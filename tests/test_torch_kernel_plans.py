@@ -573,22 +573,28 @@ _BLOCK_RESERVED = 1024          # shared bytes the runtime keeps per block
 def test_attention_f32_layout_is_the_kernel_source_s():
     """The plans' constants are the ones attention_f32_layout reports. The
     FMA tiles: 64-row tiles padded to 68 floats, 256 threads, each kernel's
-    shared bytes as its tiles and row floats add up (the forward's two
-    floats a row are its int8-score form's q and key scales), the forward
-    three blocks to an SM and the dq kernel two. The 3xTF32 forward: 4
-    warps of 16 query rows, two stages of 64-key k and v tiles, three
-    blocks to an SM. The 3xTF32 backward: 8 warps of 16 keys,
-    two key stages, one value tile, two stages of 32-row q and do tiles and
-    ds^T fixed, 74 floats a query row (a 72-float dq row, inv_d, delta),
-    its accumulator in shared memory up to Lq 240; B7's backward takes it
-    in one launch for rows up to one key tile (128), whose accumulator
-    always fits."""
+    shared bytes as its tiles and row floats add up (the streaming
+    forward's four tiles), the forward three blocks to an SM and the dq
+    kernel two. The 3xTF32 forward: 4 warps of 16 query rows, two stages of
+    64-key k and v tiles, three blocks to an SM. The 3xTF32 backward: 8
+    warps of 16 keys, two key stages, one value tile, two stages of 32-row q
+    and do tiles and ds^T fixed, 74 floats a query row (a 72-float dq row,
+    inv_d, delta), its accumulator in shared memory up to Lq 240; B7's
+    backward takes it in one launch for rows up to one key tile (128), whose
+    accumulator always fits. The w8a8 fusion's fp32 forward: warps of 16
+    query rows (rl + 4 i of a 4 x 8 patch, lane 8 rl + cl, and an mma
+    m16n8k32's rows), key tiles of 64 keys (cl + 8 j), its q rows, one key
+    and one value tile padded to 68 floats, each warp's 16 e rows padded to
+    72, the q and key row scales and codes rows of 80 bytes (16-byte
+    aligned, and 20 words apart: a fragment's rows g = 0..7 fall in
+    distinct banks), every region 16-byte aligned; two blocks to an SM."""
     c = _cuda_constants("attention_f32.cu")
     assert tfa._F32_LAYOUT == (
         c["kT"], c["kThreads"], c["kFwdSmemBytes"], c["kDqSmemBytes"],
         c["kDkvSmemBytes"], c["kFwdRows"], c["kFwdThreads"],
         c["kPFwdSmemBytes"], c["kBwdThreads"], c["kBwdFixedBytes"],
-        c["kAccLD"] + 2, c["kMaxSmem"], c["kStreamBwdRows"])
+        c["kAccLD"] + 2, c["kMaxSmem"], c["kStreamBwdRows"],
+        c["kFmaRows"], c["kFmaThreads"], c["kFmaSmemBytes"])
     assert c["kStreamBwdRows"] == c["kBwdKeys"] == 128
     assert c["kBwdFixedBytes"] + c["kStreamBwdRows"] * (c["kAccLD"] + 2) * 4 \
         <= c["kMaxSmem"]
@@ -597,8 +603,7 @@ def test_attention_f32_layout_is_the_kernel_source_s():
     assert c["kLD"] * 4 % 16 == 0 and c["kLDF"] * 4 % 16 == 0   # 16-byte rows
     assert c["kThreads"] == (c["kT"] // 4) ** 2     # a 4 x 4 patch a thread
     assert (c["kFwdSmemBytes"], c["kDqSmemBytes"], c["kDkvSmemBytes"]) == (
-        4 * tile + 2 * c["kT"] * 4, 6 * tile + 2 * c["kT"] * 4,
-        8 * tile + 2 * c["kT"] * 4)
+        4 * tile, 6 * tile + 2 * c["kT"] * 4, 8 * tile + 2 * c["kT"] * 4)
     row = c["kLDF"] * 4
     assert c["kFwdRows"] == 16 * c["kFwdThreads"] // 32
     assert c["kPFwdSmemBytes"] == 2 * 2 * c["kFwdKeys"] * row
@@ -609,9 +614,22 @@ def test_attention_f32_layout_is_the_kernel_source_s():
     assert c["kMaxSmem"] == _H100_SMEM_OPTIN
     assert c["kBwdFixedBytes"] + 240 * (c["kAccLD"] + 2) * 4 <= c["kMaxSmem"]
     assert c["kBwdFixedBytes"] + 256 * (c["kAccLD"] + 2) * 4 > c["kMaxSmem"]
+    rows, keys = c["kFmaRows"], c["kFmaKeys"]
+    assert rows == 16 * c["kFmaWarps"] and c["kFmaThreads"] == 32 * c["kFmaWarps"]
+    assert keys == 8 * 8 and c["kLDE"] == keys + 8 and c["kLDE"] % 32 == 8
+    assert c["kLDC"] % 16 == 0 and (c["kLDC"] // 4) % 32 == 20
+    # rows * 4 and keys * 4 quant threads: whole warps
+    assert rows * 4 % 32 == 0 and keys * 4 % 32 == 0
+    regions = (c["kFmaOffK"], c["kFmaOffV"], c["kFmaOffE"], c["kFmaOffS"],
+               c["kFmaOffC"], c["kFmaSmemBytes"])
+    assert regions == (rows * row, (rows + keys) * row, (rows + 2 * keys) * row,
+                       (rows + 2 * keys) * row + 16 * c["kFmaWarps"] * c["kLDE"] * 4,
+                       c["kFmaOffS"] + (rows + keys) * 4,
+                       c["kFmaOffC"] + (rows + keys) * c["kLDC"])
+    assert all(r % 16 == 0 for r in regions)
     for smem, per_sm in ((c["kFwdSmemBytes"], 3), (c["kDqSmemBytes"], 2),
                          (c["kDkvSmemBytes"], 1), (c["kPFwdSmemBytes"], 3),
-                         (c["kBwdFixedBytes"], 1)):
+                         (c["kBwdFixedBytes"], 1), (c["kFmaSmemBytes"], 2)):
         assert smem <= _H100_SMEM_OPTIN
         assert per_sm * (smem + _BLOCK_RESERVED) <= _SM90_SMEM_PER_SM
 
@@ -638,7 +656,7 @@ def test_attention_f32_plan_covers_every_row_head_and_tile(B, Lq, Lk, H,
     key length (640 included) and fit a block."""
     p = tfa.attention_f32_plan(B, Lq, Lk, H, packed=packed, sm_count=_H100_SMS)
     lay = tfa._F32_LAYOUT
-    bwd_threads, fixed, per_row, max_smem, one_rows = lay[8:]
+    bwd_threads, fixed, per_row, max_smem, one_rows = lay[8:13]
     if not packed:
         rows, threads, fwd, dq, dkdv = lay[:5]
         bwd = p["bwd"]
@@ -685,6 +703,39 @@ def test_attention_f32_plan_covers_every_row_head_and_tile(B, Lq, Lk, H,
     if Lq == 640:
         assert (bwd["lq_pad"], bwd["grid"], bwd["scratch_floats"]) == (
             640, 8, 8 * 640 * 74)
+    fma_rows, fma_threads, fma_smem = lay[13:]
+    blocks, heads, batch = p["fma_fwd"]["grid"]
+    assert blocks * fma_rows >= Lq > (blocks - 1) * fma_rows
+    assert (heads, batch) == (H, B)
+    assert (p["fma_fwd"]["threads"], p["fma_fwd"]["smem_bytes"]) == (
+        fma_threads, fma_smem)
+
+
+@pytest.mark.parametrize("B,Lq,Lk,H", [
+    (128, 197, 214, 12),     # the fp32 w8a8 evaluation (F32_B4_SHAPES)
+    (3, 13, 21, 2), (2, 40, 100, 12), (128, 197, 197 + 17, 12),
+])
+def test_attention_f32_fma_fwd_plan_pads_queries_to_16_and_keys_to_8(
+        B, Lq, Lk, H):
+    """The w8a8 fusion's fp32 forward computes the query rows of its
+    active warps (16 each; a warp past Lq only helps load) and the keys of
+    each tile up to its last eighth with a real key: at the evaluation's
+    (128, 197, 214, 12) 208 x 216 score entries a head, 1.066x the useful
+    work (the FMA tiles' 64 x 64: 256 x 256, 1.555x); two blocks a head,
+    3,072 blocks, about 11.6 waves of two blocks on an H100's 132 SMs."""
+    c = _cuda_constants("attention_f32.cu")
+    p = tfa.attention_f32_plan(B, Lq, Lk, H)["fma_fwd"]
+    rows = p["grid"][0] * tfa._F32_LAYOUT[13]
+    warps = -(-Lq // 16)
+    keys = sum(8 * min(8, -(-(Lk - k0) // 8))
+               for k0 in range(0, Lk, c["kFmaKeys"]))
+    assert rows >= 16 * warps >= Lq > 16 * (warps - 1)
+    assert Lk <= keys < Lk + 8
+    if (B, Lq, Lk, H) == (128, 197, 214, 12):
+        assert (16 * warps, keys) == (208, 216)
+        assert abs(16 * warps * keys / (Lq * Lk) - 1.066) < 1e-3
+        assert p["grid"] == (2, 12, 128)
+        assert 11 < 2 * 12 * 128 / (2 * _H100_SMS) < 12
 
 
 @pytest.mark.parametrize("B,Lq,Lk,H,form", [
