@@ -250,6 +250,7 @@ import argparse
 import itertools
 import json
 import os
+import struct
 import subprocess
 import sys
 import threading
@@ -634,9 +635,30 @@ W8A8_ATTN_SHAPES = ((128, 197, 214, 214, 12), (3, 13, 21, 21, 2),
 # of one row)
 W8A8_2SRC_SHAPES = ((128, 197, 17, 12), (3, 13, 5, 2), (2, 70, 64, 3),
                     (2, 64, 1, 4))
-# (M, K, hidden, N)
+# (M, K, hidden, N[, "fallback": B5_FALLBACK_ROWS take the full first pass])
 W8A8_MLP_SHAPES = ((25216, 768, 3072, 768), (37, 768, 3072, 768),
-                   (20, 64, 200, 33))
+                   (20, 64, 200, 33), (200, 768, 3072, 768, "fallback"))
+# B5's first pass keeps each row's largest pre-activation and takes the
+# absmax from QuickGELU of it where that clears kQStar (csrc/w8a8_mlp.cuh);
+# a block with a row below runs the full pass. These rows, constant at 0.5,
+# have LayerNorm output beta, exactly; with beta at 0 their pre-activations
+# are fc1's bias, here N(0, 0.02) with every 48th hidden column at -0.75,
+# where |QuickGELU| peaks (0.1636). So their largest pre-activation (~0.06)
+# gives QuickGELU ~0.03 and their absmax comes from the negative side:
+# three of the four 64-row blocks of a 200-row shape take the full pass,
+# the third the shortcut, and a kernel that always took the shortcut would
+# quantize those rows' -0.75 columns at ~5x past code 127.
+B5_FALLBACK_ROWS = (0, 70, 199)
+
+
+def _b5_fallback_rows(x, fc1, ln):
+    """Make B5_FALLBACK_ROWS of x take B5's full first pass (x, fc1's bias
+    and the LayerNorm's beta in place)."""
+    x[list(B5_FALLBACK_ROWS)] = 0.5
+    ln[1].zero_()
+    fc1["bias"][::48] = -0.75
+
+
 # B5 with rows longer than the 1,024 values a warp holds in registers (a
 # ragged K, and the longest that 64 rows of codes in shared memory take),
 # over more than one row tile
@@ -870,7 +892,7 @@ def phase_w8a8_kernels(state):
         if i == 0:
             _b4_yardsticks(state, q, k, v, H, op, r, lq)
 
-    def b5_check(M, K, Hd, N, g, first):
+    def b5_check(M, K, Hd, N, g, first, fallback=None):
         x = torch.randn(M, K, generator=g, device="cuda").to(bf)
         r = torch.randn(M, N, generator=g, device="cuda").to(bf)
         ln = _ln_params(g, K)
@@ -878,20 +900,28 @@ def phase_w8a8_kernels(state):
                "bias": torch.randn(Hd, generator=g, device="cuda") * 0.02}
         fc2 = {"kernel": _qleaf(g, Hd, N),
                "bias": torch.randn(N, generator=g, device="cuda") * 0.02}
+        if fallback:
+            _b5_fallback_rows(x, fc1, ln)
         k1 = fc1["kernel"]
         codes, xs = im.quant_rows(im.ln_f32(x.float(), *ln))
         h = im.quick_gelu_f32(im.rescale(im.int_matmul(codes, k1["qa"]), xs,
                                          k1["scale"], fc1["bias"]))
         unit = _flip_unit(im.quant_rows(h)[1], fc2["kernel"]["scale"])
         del codes, h
-        run("w8a8_mlp_res", f"M={M} K={K} H={Hd} N={N}",
+        run("w8a8_mlp_res", f"M={M} K={K} H={Hd} N={N}"
+            + (f" rows {B5_FALLBACK_ROWS} take the full first pass"
+               if fallback else ""),
             lambda: im.w8a8_mlp_res_cuda(x, fc1, fc2, ln, r),
             lambda: im.w8a8_mlp_res_plain(x, fc1, fc2, ln, r), unit, first,
             _bound(2 * M * K + 4 * M * N + K * Hd + Hd * N
                    + 8 * (Hd + N + K), ops_int8=2 * M * Hd * (K + N)))
 
-    for i, shape in enumerate(W8A8_MLP_SHAPES):
-        b5_check(*shape, gen, i == 0)
+    # the fallback shape on a generator of its own: the checks after it
+    # keep their inputs
+    gen_fallback = torch.Generator(device="cuda").manual_seed(23)
+    for i, (M, K, Hd, N, *fallback) in enumerate(W8A8_MLP_SHAPES):
+        b5_check(M, K, Hd, N, gen_fallback if fallback else gen, i == 0,
+                 *fallback)
     # the two-source form last: the checks above keep their random inputs
     for i, (B, L1, L2, H) in enumerate(W8A8_2SRC_SHAPES):
         D = H * 64
@@ -959,6 +989,27 @@ def phase_w8a8_kernels(state):
         f"{'ok' if err == 0 and n_bad == 0 else 'FAIL'}")
     if err or n_bad:
         state.setdefault("w8a8_failures", []).append("w8a8_mlp reciprocal")
+    # its first pass takes a row's absmax from QuickGELU of its largest
+    # pre-activation: qgelu must be non-decreasing over the non-negative
+    # floats and at most kQStar in magnitude over the negative ones
+    out = torch.zeros(3, dtype=torch.int64, device="cuda")
+    err = load_library("w8a8_mlp").w8a8_mlp_qgelu_check(
+        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    falls, above, most = out.tolist()
+    most = struct.unpack("<f", struct.pack("<I", most))[0]
+    # (the least of v * sigma(1.702 v) in real numbers is -0.163610: a
+    # largest |qgelu| below that means the negative floats were not run)
+    ok = err == 0 and falls == 0 and above == 0 and most > 0.1636
+    log(f"[w8a8] w8a8_mlp QuickGELU: {falls} of the 2,139,095,040 "
+        f"non-negative floats with qgelu(next float) < qgelu(u); {above} "
+        f"of the negative floats with |qgelu| above the kernel's kQStar, "
+        f"the largest |qgelu| of them {most!r} (launch {err}) "
+        f"{'ok' if ok else 'FAIL'}")
+    state["b5_qgelu_check"] = {"falls": falls, "above": above,
+                               "largest_negative": most}
+    if not ok:
+        state.setdefault("w8a8_failures", []).append("w8a8_mlp QuickGELU")
     if state.get("w8a8_failures"):
         raise AssertionError(f"w8a8 kernels disagree with their plain "
                              f"versions: {state['w8a8_failures']}")
@@ -2157,11 +2208,14 @@ F32_B3A_SHAPES = ((27392, 768, 768, True), (200, 1100, 77, True),
                   (37, 100, 40, False))
 # (B, Lx, Le, K, N): B3 at the w8a8 evaluation's frame rows, ragged
 F32_B3_SHAPES = ((128, 197, 17, 768, 768), (3, 13, 5, 96, 40))
-# (M, K, hidden, N, residual?, LayerNorm?): B5 and B5a
+# (M, K, hidden, N, residual?, LayerNorm?[, "fallback"]): B5 and B5a, the
+# last two with B5_FALLBACK_ROWS taking the full first pass
 F32_B5_SHAPES = ((25216, 768, 3072, 768, True, True),
                  (25216, 768, 3072, 768, False, True),
                  (37, 768, 3072, 768, True, True),
-                 (20, 64, 200, 33, True, True), (20, 64, 200, 33, False, False))
+                 (20, 64, 200, 33, True, True), (20, 64, 200, 33, False, False),
+                 (200, 768, 3072, 768, True, True, "fallback"),
+                 (200, 768, 3072, 768, False, True, "fallback"))
 # (B, lq, Lq rows of q, Lk, H): B4 at the w8a8 evaluation's shape, ragged
 F32_B4_SHAPES = ((128, 197, 214, 214, 12), (3, 13, 21, 21, 2),
                  (2, 40, 100, 100, 12))
@@ -2347,13 +2401,22 @@ def phase_w8a8_f32(state):
             if i == 0 else None)
 
     first = set()
-    for M, K, Hd, N, res, with_ln in F32_B5_SHAPES:
+    # the fallback shapes on a generator of their own: the checks after
+    # them keep their inputs
+    gen_fallback = torch.Generator(device="cuda").manual_seed(23)
+    for M, K, Hd, N, res, with_ln, *fallback in F32_B5_SHAPES:
         name = "w8a8_mlp_res_f32" if res else "w8a8_mlp_f32"
-        x = randn(M, K)
-        r = randn(M, N) if res else None
-        ln = _ln_params(gen, K) if with_ln else None
-        fc1 = {"kernel": _qleaf(gen, K, Hd), "bias": randn(Hd, gain=0.02)}
-        fc2 = {"kernel": _qleaf(gen, Hd, N), "bias": randn(N, gain=0.02)}
+        g = gen_fallback if fallback else gen
+
+        def draw(*shape, gain=1.0, g=g):
+            return torch.randn(*shape, generator=g, device="cuda") * gain
+        x = draw(M, K)
+        r = draw(M, N) if res else None
+        ln = _ln_params(g, K) if with_ln else None
+        fc1 = {"kernel": _qleaf(g, K, Hd), "bias": draw(Hd, gain=0.02)}
+        fc2 = {"kernel": _qleaf(g, Hd, N), "bias": draw(N, gain=0.02)}
+        if fallback:
+            _b5_fallback_rows(x, fc1, ln)
         k1 = fc1["kernel"]
         codes, xs = im.quant_rows(x if ln is None else im.ln_f32(x, *ln))
         h = im.quick_gelu_f32(im.rescale(im.int_matmul(codes, k1["qa"]), xs,
@@ -2370,7 +2433,9 @@ def phase_w8a8_f32(state):
             calls = (lambda: im.w8a8_mlp_cuda(x, fc1, fc2, ln),
                      lambda: im.w8a8_mlp_plain(x, fc1, fc2, ln),
                      lambda: im.w8a8_mlp_cuda(xb, fc1, fc2, ln))
-        run(name, f"M={M} K={K} H={Hd} N={N} LN {with_ln}", calls[0],
+        run(name, f"M={M} K={K} H={Hd} N={N} LN {with_ln}"
+            + (f" rows {B5_FALLBACK_ROWS} take the full first pass"
+               if fallback else ""), calls[0],
             calls[1], unit,
             (_bound(4 * M * K + (8 if res else 4) * M * N + K * Hd + Hd * N
                     + 8 * (Hd + N + K), ops_int8=2 * M * Hd * (K + N)),

@@ -1,5 +1,6 @@
 // The bf16 entries of the fused w8a8 MLP (w8a8_mlp.cuh: the kernel, its
-// design and what it replaces) and the check of its QuickGELU reciprocal.
+// design and what it replaces) and the checks of its QuickGELU: the
+// reciprocal, and the two properties its first pass rests on.
 
 #include "w8a8_mlp.cuh"
 
@@ -16,6 +17,26 @@ __global__ void rcp_check_kernel(unsigned long long* mismatches) {
     bad += __float_as_uint(rcp_newton(d)) != __float_as_uint(__frcp_rn(d));
   }
   if (bad) atomicAdd(mismatches, bad);
+}
+
+// What B5's first pass rests on, over every float: out[0] += the
+// non-negative floats u (0 .. FLT_MAX) with qgelu(next float) < qgelu(u)
+// (qgelu is non-decreasing there, +inf included), out[1] += the negative
+// floats v (-0 .. -FLT_MAX) with |qgelu(v)| > kQStar, out[2] = the largest
+// |qgelu(v)| among those (float bits; the caller zeroes out).
+__global__ void qgelu_check_kernel(unsigned long long* out) {
+  unsigned long long falls = 0, above = 0;
+  float most = 0.f;
+  for (uint32_t u = blockIdx.x * blockDim.x + threadIdx.x; u < 0x7F800000u;
+       u += gridDim.x * blockDim.x) {
+    falls += qgelu(__uint_as_float(u + 1u)) < qgelu(__uint_as_float(u));
+    const float m = fabsf(qgelu(__uint_as_float(u | 0x80000000u)));
+    above += m > kQStar;
+    most = fmaxf(most, m);
+  }
+  if (falls) atomicAdd(&out[0], falls);
+  if (above) atomicAdd(&out[1], above);
+  atomicMax(&out[2], static_cast<unsigned long long>(__float_as_uint(most)));
 }
 
 }  // namespace
@@ -51,6 +72,14 @@ extern "C" int w8a8_mlp_bf16(const void* x, const void* W1t, const void* s1, con
   return launch<false, false, __nv_bfloat16>(x, W1t, s1, b1, W2t, s2, b2, nullptr, nullptr,
                                              nullptr, y, hq, M, K, H, N, rows, stages2, smem,
                                              stream);
+}
+
+// qgelu_check_kernel on the stream; out: three device uint64, zeroed by
+// the caller
+extern "C" int w8a8_mlp_qgelu_check(void* out, void* stream) {
+  qgelu_check_kernel<<<1024, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned long long*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 // rcp_check_kernel on the stream; *mismatches (a device counter, zeroed by

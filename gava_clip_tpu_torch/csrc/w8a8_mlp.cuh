@@ -39,27 +39,28 @@
 // too narrow for wgmma: the earlier form of this kernel spent 1.63 ms so.
 //
 // Design. fc1 runs TWICE, and the fp32 hidden never needs a home: the first
-// pass keeps only each row's running absmax (in registers, then one
-// shared-memory max per row), the second recomputes the same h bit for bit
-// (the int32 products are exact and the epilogue is the same fp32
-// sequence) and quantizes it with the now known scale. That frees the row
-// tile from the hidden's size, so a block takes BM = 192 rows (64 for short
-// or long rows: the launch plan, ops/int8_matmul.w8a8_mlp_plan), and each
-// weight tile serves 192 rows: 1.5x the products of one pass, but the
-// weights cross L2 12x less often (0.94 GB per call) and every product is a
-// wgmma. The block computes transposed tiles, h^T = W1^T c^T and y^T =
-// W2^T hc^T: A is a 64-row slab of W^T (one per consumer warpgroup), B the
-// block's rows (the wgmma N = BM), both k-major in 128-byte swizzled shared
-// memory as wgmma wants them for s8:
+// pass finds each row's absmax, the second recomputes the same h bit for bit
+// (the int32 products are exact and the epilogue is the same fp32 sequence)
+// and quantizes it with the now known scale. That frees the row tile from
+// the hidden's size, so a block takes BM = 192 rows (64 for short or long
+// rows: the launch plan, ops/int8_matmul.w8a8_mlp_plan), and each weight
+// tile serves 192 rows: 1.5x the products of one pass, but the weights
+// cross L2 12x less often (0.94 GB per call) and every product is a wgmma.
+// The block computes transposed tiles, h^T = W1^T c^T and y^T = W2^T hc^T:
+// A is a 64-row slab of W^T (one per consumer warpgroup), B the block's rows
+// (the wgmma N = BM), both k-major in 128-byte swizzled shared memory as
+// wgmma wants them for s8:
 //   * phase 0: each consumer warp normalises and quantizes its rows into a
 //     swizzled code tile (BM x K) that stays in shared memory;
 //   * fc1, two passes: two producer threads stream the 64 x 128-byte W1^T
 //     slabs of the two consumer warpgroups by TMA, each through its own
 //     3-stage mbarrier ring; each warpgroup runs wgmma m64nBMk32 (s8 x s8
-//     -> s32) over K, then the epilogue (scale, bias, QuickGELU) on its 64
-//     hidden columns x BM rows. The second pass writes the codes of each
-//     slab through a shared staging tile, 16 bytes a thread, to an int8
-//     scratch (Mp, Hp) in device memory (78 MB at the serving shape);
+//     -> s32) over K, then the epilogue on its 64 hidden columns x BM rows.
+//     The first pass keeps only each row's largest pre-activation
+//     v = (acc * xs) * s1 + b1 (an FMNMX a value, no QuickGELU); the second
+//     evaluates QuickGELU, keeps a slab's codes in registers and then
+//     writes them through a shared staging tile, 16 bytes a thread, to an
+//     int8 scratch (Mp, Hp) in device memory (78 MB at the serving shape);
 //   * fc2: the producer streams 256 x 128-byte W2^T tiles and the block's
 //     own hidden codes back by TMA (the code tile's space now holds a ring
 //     of up to 4 stages); each warpgroup runs two 64-row slabs of the tile,
@@ -69,15 +70,43 @@
 // ring barrier that never completes traps after ~2^36 cycles instead of
 // holding the card.
 //
-// Where the time goes (utils/kernel_variants.py, on an H100): QuickGELU's
-// fp32 evaluations, 2 x 77.5 M at the serving shape, each a chain of ~15
-// dependent instructions with two MUFU ops, and only two consumer warps
-// per scheduler to hide them. A branch around a value's chain (the IEEE
-// division's slow path, a bounds check, a warp vote that skips values
-// that cannot move the max) keeps the compiler from interleaving the
-// chains, so the epilogues have none: QuickGELU takes its reciprocal
-// without the division's slow-path branch (qgelu), and columns past H run
-// the same code on zero products and scales.
+// Why the first pass's maximum gives the absmax exactly. qgelu (below) is
+// non-decreasing over the non-negative floats, and |qgelu(v)| <= kQStar =
+// 0.1637 over the negative ones (in real numbers the least of v * sigma(1.702
+// v) is -0.163610, at v = -0.7512). w8a8_mlp_qgelu_check tries every float on
+// the card (chip_smoke.py runs it): no non-negative float u has qgelu(next
+// float) < qgelu(u), and the largest |qgelu| over the negative floats is
+// 0.16361022. So wherever a = qgelu(max(0, vmax)) >= kQStar, a is the row's
+// absmax of |QuickGELU| bit for bit; the second pass's codes and the outputs
+// are then the full pass's. A block with a row of M below (every
+// pre-activation negative or small) runs the full first pass (|QuickGELU|'s
+// max) after the short one: one decision a block, taken once, with no branch
+// inside the value loops; the producer streams the W1^T slabs a third time
+// for it. Rows past M take no part.
+//
+// Where the time goes (utils/kernel_variants.py b5_parent b5_split, on an
+// NVIDIA H100 80GB HBM3 at 700.00 W; CUDA graphs, bf16 / fp32): at the
+// serving shape the form before (QuickGELU in both passes) took 0.572 /
+// 0.563 ms: phase 0 0.053 / 0.061, the first fc1 pass 0.139 (0.063 of it
+// its QuickGELU epilogue), the second 0.199, fc2 0.17-0.18 (its products
+// alone 0.063 at the int8 rate; it streams 56 KB a stage from L2, W2^T and
+// the block's codes, three times a block). This form: 0.483 / 0.481 ms
+// (0.840x / 0.845x in turns): the first pass's epilogue gone (0.89x), the
+// second pass's codes kept in registers to the slab's end (a store among
+// them had the compiler run its chains two values at a time: ~20 dependent
+// steps a pair) and made by an FADD. The second pass's epilogue, ~22
+// instructions a value with two MUFU ops on two consumer warps a
+// scheduler, is still on its warpgroup's critical path: issuing slab
+// ch + 1's products during slab ch's epilogue needs two 96-register
+// accumulator sets (5.8 KB of spills at 192 rows, and ptxas then serializes
+// the wgmma: 1.8x slower); the warpgroups' products taking turns, two rows
+// a warp in phase 0, prefetching x or the residual into L2 and fc2's
+// residual loads issued before its stores were no faster. A branch around
+// a value's chain (the IEEE division's slow path, a bounds check, a warp
+// vote that skips values that cannot move the max) keeps the compiler from
+// interleaving the chains, so the epilogues have none: QuickGELU takes its
+// reciprocal without the division's slow-path branch (qgelu), and columns
+// past H run the same code on zero products and scales.
 //
 // TMA wants the weights 16-byte aligned with rows of a multiple of 16
 // bytes (the Python wrapper zero-pads other weights). K is bounded by the
@@ -152,6 +181,23 @@ __device__ __forceinline__ float qgelu(float h) {
   return __fmul_rn(h, rcp_newton(fminf(__fadd_rn(1.0f, expf(-__fmul_rn(1.702f, h))), 3.0e38f)));
 }
 
+// quant_code's byte without the conversion unit: rint(x * inv), ties to
+// even, is the low byte of the bits of x * inv + 1.5 * 2^23, for |x * inv|
+// < 2^22 (at most ~127 in a row of M, whose codes are of its own absmax); a
+// NaN gives 0, as the conversion does. Bit-equal to quant_code there; an
+// FADD and an FMNMX take the place of an F2I, which shares its unit with
+// QuickGELU's two MUFU ops.
+__device__ __forceinline__ int8_t quant_code_fadd(float x, float inv) {
+  return static_cast<int8_t>(
+      __float_as_uint(__fadd_rn(fmaxf(__fmul_rn(x, inv), -4194304.0f), 12582912.0f)));
+}
+
+// A float at or above |qgelu(v)| for every negative float v: in real numbers
+// the least of v * sigma(1.702 v) is -0.163610 (v = -0.7512).
+// w8a8_mlp_qgelu_check holds the kernel's own qgelu to it on the card, and
+// checks that qgelu is non-decreasing over the non-negative floats.
+constexpr float kQStar = 0.1637f;
+
 template <class T>   // __nv_bfloat16 or float: x, r and y
 struct Params {
   const T* x;
@@ -175,7 +221,8 @@ w8a8_mlp_kernel(const __grid_constant__ CUtensorMap w1map,
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full1[2][kStages1], empty1[2][kStages1];
   __shared__ __align__(8) uint64_t full2[kMaxStages2], empty2[kMaxStages2];
-  __shared__ __align__(8) uint64_t hq_ready;
+  __shared__ __align__(8) uint64_t hq_ready, decided;
+  __shared__ int full_first_pass;   // 1: some row of the block takes the full first pass
   // the swizzled tiles need 1,024-byte alignment
   unsigned char* smem = align1024(smem_raw);
   const int KC = p.Kp / kKC, HC = p.Hp / kKC, NC = (p.N + kW2Rows - 1) / kW2Rows;
@@ -203,19 +250,26 @@ w8a8_mlp_kernel(const __grid_constant__ CUtensorMap w1map,
       mbar_init(&empty2[s], 8);
     }
     mbar_init(&hq_ready, 256);    // every consumer thread, its codes written
+    mbar_init(&decided, 1);       // full_first_pass is final
+    full_first_pass = 0;
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (threadIdx.x < 128) {
     // producer warpgroup: thread 0 feeds consumer warpgroup 0's fc1 ring
-    // and then the fc2 ring, thread 32 warpgroup 1's fc1 ring
+    // and then the fc2 ring, thread 32 warpgroup 1's fc1 ring; the W1^T
+    // slabs twice, or three times where the block takes the full first pass
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x == 0 || threadIdx.x == 32) {
       const int w = threadIdx.x / 32;
       int st = 0;
       uint32_t ph = 0;
-      for (int pass = 0; pass < 2; ++pass)
+      for (int pass = 0; pass < 3; ++pass) {
+        if (pass == 2) {
+          mbar_wait(&decided, 0);
+          if (!*static_cast<volatile int*>(&full_first_pass)) break;
+        }
         for (int ch = 0; ch < HC; ++ch)
           for (int kc = 0; kc < KC; ++kc) {
             mbar_wait(&empty1[w][st], ph ^ 1u);
@@ -227,6 +281,7 @@ w8a8_mlp_kernel(const __grid_constant__ CUtensorMap w1map,
               ph ^= 1u;
             }
           }
+      }
       if (w == 1) return;
       // the hidden codes of every row are in device memory, and fc1 no
       // longer reads the code tile or its ring
@@ -280,8 +335,11 @@ w8a8_mlp_kernel(const __grid_constant__ CUtensorMap w1map,
 
   // acc[4c + 2h + e] is h^T[col0 + 8h][row 8c + 2t + e]
   const int lcol = wg * 64 + wi * 16 + g;   // column of the 128-wide slab, h = 0
-  // fc1, first pass: each row's absmax over its H values
-  {
+  // a first pass of fc1 over the H columns: each row's largest
+  // pre-activation v (FULL false) or largest |QuickGELU(v)| (FULL true),
+  // at least 0, into `into` (float bits, zeroed beforehand)
+  auto first_pass = [&](auto full_c, unsigned* into) {
+    constexpr bool FULL = decltype(full_c)::value;
     float mx[BM / 4];
 #pragma unroll
     for (int i = 0; i < BM / 4; ++i) mx[i] = 0.f;
@@ -301,8 +359,9 @@ w8a8_mlp_kernel(const __grid_constant__ CUtensorMap w1map,
           const float xr = xs[8 * c + 2 * t + e];
 #pragma unroll
           for (int h = 0; h < 2; ++h) {   // no branch: columns past H give 0
-            const float v = qgelu(epilogue(acc[4 * c + 2 * h + e], xr, sa[h], ba[h]));
-            mx[2 * c + e] = fmaxf(mx[2 * c + e], fabsf(v));
+            float v = epilogue(acc[4 * c + 2 * h + e], xr, sa[h], ba[h]);
+            if constexpr (FULL) v = fabsf(qgelu(v));
+            mx[2 * c + e] = fmaxf(mx[2 * c + e], v);
           }
         }
     }
@@ -313,12 +372,32 @@ w8a8_mlp_kernel(const __grid_constant__ CUtensorMap w1map,
       v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
       v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
       v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
-      if (g == 0) atomicMax(&amax[8 * (i >> 1) + 2 * t + (i & 1)], __float_as_uint(v));
+      if (g == 0) atomicMax(&into[8 * (i >> 1) + 2 * t + (i & 1)], __float_as_uint(v));
     }
-  }
+  };
+
+  // fc1, first pass: each row's largest pre-activation vmax. QuickGELU is
+  // non-decreasing over the non-negative floats and below kQStar in
+  // magnitude over the negative ones, so where qgelu(vmax) >= kQStar that
+  // is the row's absmax, bit for bit. A block with a row of M below it
+  // (every pre-activation negative or small) runs the full first pass.
+  first_pass(std::false_type{}, amax);
   consumers_sync();
   for (int rr = ct; rr < BM; rr += 256) {
-    const float scale = quant_scale(__uint_as_float(amax[rr]));
+    const float a = qgelu(__uint_as_float(amax[rr]));
+    hs[rr] = a;
+    amax[rr] = 0u;
+    if (m0 + rr < p.M && !(a >= kQStar)) full_first_pass = 1;
+  }
+  consumers_sync();
+  if (ct == 0) mbar_arrive(&decided);
+  if (*static_cast<volatile int*>(&full_first_pass)) {
+    first_pass(std::true_type{}, amax);
+    consumers_sync();
+    for (int rr = ct; rr < BM; rr += 256) hs[rr] = __uint_as_float(amax[rr]);
+  }
+  for (int rr = ct; rr < BM; rr += 256) {
+    const float scale = quant_scale(hs[rr]);
     hs[rr] = scale;
     hinv[rr] = __fdiv_rn(1.0f, scale);
   }
@@ -335,8 +414,14 @@ w8a8_mlp_kernel(const __grid_constant__ CUtensorMap w1map,
       ba[h] = col < p.H ? p.b1[col] : 0.f;
     }
     fc1();
+    // the slab's codes stay in registers, four to a word, until its last
+    // value: a store to the staging tile among them would order the next
+    // rows' scale loads (shared memory too) after it, and the compiler
+    // would run the chains a pair at a time
+    uint32_t code[BM / 8];
 #pragma unroll
-    for (int c = 0; c < BM / 8; ++c)
+    for (int c = 0; c < BM / 8; ++c) {
+      code[c] = 0u;
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int row = 8 * c + 2 * t + e;
@@ -344,9 +429,19 @@ w8a8_mlp_kernel(const __grid_constant__ CUtensorMap w1map,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {   // no branch: columns past H give 0
           const float v = qgelu(epilogue(acc[4 * c + 2 * h + e], xr, sa[h], ba[h]));
-          stg[row * kStageLD + lcol + 8 * h] = quant_code(v, inv);
+          code[c] |= static_cast<uint32_t>(static_cast<uint8_t>(quant_code_fadd(v, inv)))
+                     << (8 * (2 * h + e));
         }
       }
+    }
+#pragma unroll
+    for (int c = 0; c < BM / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          stg[(8 * c + 2 * t + e) * kStageLD + lcol + 8 * h] =
+              static_cast<int8_t>(code[c] >> (8 * (2 * h + e)));
     // this warpgroup's 64 columns of the slab, 16 bytes a thread
     warpgroup_sync(wg);
     for (int i = ct % 128; i < BM * 4; i += 128) {

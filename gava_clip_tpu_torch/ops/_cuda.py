@@ -188,6 +188,8 @@ _SIGNATURES = {
         "w8a8_mlp_layout": ([ctypes.POINTER(_I)], None),
         # the reciprocal check: a device uint64 counter; stream
         "w8a8_mlp_rcp_check": ([_VP, _VP], _I),
+        # the QuickGELU check: three device uint64; stream
+        "w8a8_mlp_qgelu_check": ([_VP, _VP], _I),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "w8a8_mlp_f32": {

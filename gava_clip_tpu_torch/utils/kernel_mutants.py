@@ -133,21 +133,33 @@ MUTANTS = {
                "\n          l[sl][j] += attn::hi_f(pa[sl][n / 2][(n % 2) * 2 + j]);"
                "\n")],
         "phase_train_kernels", "streaming_attention B="),
-    # B5: the fp32 hidden rounded to bf16 before the requant (its absmax
-    # and its codes)
+    # B5: the fp32 hidden rounded to bf16 before the requant: its absmax
+    # (QuickGELU of the largest pre-activation, and the full first pass)
+    # and its codes
     "b5_hidden_bf16": (
-        _B5, [("mx[2 * c + e] = fmaxf(mx[2 * c + e], fabsf(v));",
-               "mx[2 * c + e] = fmaxf(mx[2 * c + e], fabsf(__bfloat162float("
-               "__float2bfloat16(v))));"),
-              ("stg[row * kStageLD + lcol + 8 * h] = quant_code(v, inv);",
-               "stg[row * kStageLD + lcol + 8 * h] = quant_code("
-               "__bfloat162float(__float2bfloat16(v)), inv);")],
+        _B5, [("const float a = qgelu(__uint_as_float(amax[rr]));",
+               "const float a = " + _ROUND.format(
+                   "qgelu(__uint_as_float(amax[rr]))") + ";"),
+              ("if constexpr (FULL) v = fabsf(qgelu(v));",
+               "if constexpr (FULL) v = fabsf(" + _ROUND.format("qgelu(v)")
+               + ");"),
+              ("static_cast<uint8_t>(quant_code_fadd(v, inv))",
+               "static_cast<uint8_t>(quant_code_fadd(" + _ROUND.format("v")
+               + ", inv))")],
         "phase_w8a8_kernels", "w8a8_mlp_res M="),
-    # B5: each row's absmax over the first 64-column slab of h only
+    # B5: each row's largest pre-activation (and, in the full first pass,
+    # its absmax) over the first 64-column slab of h only
     "b5_absmax_first_slab": (
-        _B5, [("mx[2 * c + e] = fmaxf(mx[2 * c + e], fabsf(v));",
+        _B5, [("mx[2 * c + e] = fmaxf(mx[2 * c + e], v);",
                "if (ch == 0 && wg == 0) mx[2 * c + e] = fmaxf(mx[2 * c + e], "
-               "fabsf(v));")],
+               "v);")],
+        "phase_w8a8_kernels", "w8a8_mlp_res M="),
+    # B5: the absmax always QuickGELU of the largest pre-activation, however
+    # small (no block takes the full first pass): the rows of chip_smoke's
+    # fallback shape, every pre-activation negative, are quantized against
+    # a negative absmax
+    "b5_no_fallback": (
+        _B5, [("if (m0 + rr < p.M && !(a >= kQStar)) full_first_pass = 1;", "")],
         "phase_w8a8_kernels", "w8a8_mlp_res M="),
     # B3: each row's scale from the absmax of its first 64 columns (the
     # shared row quant as B3's phase 0 runs it, in both the forms that read

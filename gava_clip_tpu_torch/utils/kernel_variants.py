@@ -3,6 +3,7 @@ variants of a kernel source (patched copies, as kernel_mutants.py does)
 and time each against the same yardstick, in turns.
 
     python3 -m gava_clip_tpu_torch.utils.kernel_variants [b1 b9 b7 b5 b3 b4 b2 mega b10 b7b f32b9 f32b7b f32b4 f32b11]   # repo root, on a card
+    python3 -m gava_clip_tpu_torch.utils.kernel_variants b5_as_is b5_parent b5_split   # B5, its parent and the parent's split
     python3 -m gava_clip_tpu_torch.utils.kernel_variants e2e   # the parent's tree against this one
 
 B1 / B6a (csrc/packed_attention.cu, the den entry) against
@@ -18,11 +19,21 @@ against SDPA's forward, both captured in CUDA graphs, at the text tower's
 shape and at (4, 1024, 1024, 8): the source as it is (4 warps of one
 16-row slab), 8 warps, two slabs per warp, four stages, key tiles of 128,
 two stages with four blocks per SM, three blocks per SM, the accumulator
-rescaled only when a max moved, exp2f. B5 (csrc/w8a8_mlp.cuh) at the
-serving shape, each in turns with the source as it is and held to its
-bits: the IEEE division in QuickGELU, fc2's epilogue always
-bounds-checked, one W2^T slab per warpgroup in fc2, and one that shows
-where the time goes (no QuickGELU: wrong outputs). B3 (csrc/w8a8_qkv.cu)
+rescaled only when a max moved, exp2f. B5 (csrc/w8a8_mlp.cuh) in bf16
+and fp32 at the serving shape and at chip_smoke's fallback shape (rows
+that take the full first pass), each variant's outputs held to the
+parent commit's kernel (`b5_parent`) bit for bit and timed in CUDA graphs
+in turns with it: the source as it is, the forms tried beside it (the
+second pass's codes stored as each is made, and by the conversion unit;
+slab ch + 1's fc1 products in flight during slab ch's epilogue in the
+second pass; the residual or the x rows prefetched into L2; the
+warpgroups' second-pass products taking turns; phase 0 two rows a warp),
+the IEEE division in QuickGELU, fc2's epilogue always
+bounds-checked, one W2^T slab per warpgroup in fc2, no QuickGELU (wrong
+outputs), and the parent's kernel cut off to show where its time goes
+(`b5_split_*`: stopped after phase 0, after either fc1 pass, the first
+pass's epilogue, the code stores or the residual read left out; wrong
+outputs). B3 (csrc/w8a8_qkv.cu)
 at the serving shape in its launch forms (rows per block x ring stages,
 B3_FORMS), without the LayerNorm (wrong outputs), and B3a at the text
 shape in CUDA graphs by rows and units per block. B4
@@ -127,17 +138,411 @@ _PARENT_SIGNATURES[_W8F32] = {
     # x, W^T tiles, s, y; M, K, N; stream
     "w8_matmul_f32": ([_VP] * 4 + [_I] * 3 + [_VP], _I)}
 # the parent's attention_f32.cu takes this tree's signatures
-# (_cuda._SIGNATURES['attention_f32'])
+# (_cuda._SIGNATURES['attention_f32']), and so do the parent's B5 entries
 PARENT_VARIANTS = {"b10_parent": _B10, "b7b_parent": _B7B,
                    "b2_parent": _B2, "mega_parent": _MEGA,
                    "f32b9_parent": _W8F32, "f32b7b_parent": _F32,
-                   "f32b4_parent": _F32, "f32b11_parent": _F32}
+                   "f32b4_parent": _F32, "f32b11_parent": _F32,
+                   "b5_parent": _B5}
+# B5's parent (the parent commit's w8a8_mlp.cuh, QuickGELU in both fc1
+# passes) cut off, to show where its time goes (wrong outputs): name ->
+# [(old, new)] on the parent's source. The producer streams what the cut
+# kernel still reads.
+_B5P_PASSES = ("      for (int pass = 0; pass < 2; ++pass)\n",
+               "      for (int pass = 0; pass < {}; ++pass)\n")
+_B5P_NO_FC2 = ("      if (w == 1) return;\n", "      return;\n")
+PARENT_CUTS = {
+    # phase 0 alone (LayerNorm and quant of the block's rows)
+    "b5_split_phase0": (_B5, [
+        (_B5P_PASSES[0], _B5P_PASSES[1].format(0)), _B5P_NO_FC2,
+        ("  consumers_sync();\n\n  int acc[kAcc];\n",
+         "  consumers_sync();\n  return;\n\n  int acc[kAcc];\n")]),
+    # phase 0 and the first fc1 pass (the row scales)
+    "b5_split_pass1": (_B5, [
+        (_B5P_PASSES[0], _B5P_PASSES[1].format(1)), _B5P_NO_FC2,
+        ("    hinv[rr] = __fdiv_rn(1.0f, scale);\n  }\n  consumers_sync();\n",
+         "    hinv[rr] = __fdiv_rn(1.0f, scale);\n  }\n  consumers_sync();\n"
+         "  return;\n")]),
+    # both fc1 passes and the hidden codes written, no fc2
+    "b5_split_pass2": (_B5, [
+        _B5P_NO_FC2,
+        ("  mbar_arrive(&hq_ready);\n", "  mbar_arrive(&hq_ready);\n  return;\n")]),
+    # the first pass keeps the accumulators' max (no epilogue, no
+    # QuickGELU)
+    "b5_split_pass1_no_epilogue": (_B5, [(
+        "            const float v = qgelu(epilogue(acc[4 * c + 2 * h + e], xr, sa[h], "
+        "ba[h]));\n            mx[2 * c + e] = fmaxf(mx[2 * c + e], fabsf(v));",
+        "            mx[2 * c + e] = fmaxf(mx[2 * c + e], __int_as_float(acc[4 * c + "
+        "2 * h + e] & 0x7fffffff));")]),
+    # the second pass computes every code but stores none (one byte a
+    # thread and slab, so that none is dropped as unused)
+    "b5_split_pass2_no_code_stores": (_B5, [
+        ("    fc1();\n#pragma unroll\n    for (int c = 0; c < BM / 8; ++c)\n"
+         "#pragma unroll\n      for (int e = 0; e < 2; ++e) {\n"
+         "        const int row = 8 * c + 2 * t + e;\n",
+         "    fc1();\n    int8_t sink = 0;\n#pragma unroll\n"
+         "    for (int c = 0; c < BM / 8; ++c)\n#pragma unroll\n"
+         "      for (int e = 0; e < 2; ++e) {\n"
+         "        const int row = 8 * c + 2 * t + e;\n"),
+        ("          stg[row * kStageLD + lcol + 8 * h] = quant_code(v, inv);\n",
+         "          sink ^= quant_code(v, inv);\n"),
+        ("    // this warpgroup's 64 columns of the slab, 16 bytes a thread\n",
+         "    stg[(ct % 64) * kStageLD + ct / 64] = sink;\n"
+         "    // this warpgroup's 64 columns of the slab, 16 bytes a thread\n")]),
+    # fc2's epilogue adds 0 in place of the residual (no residual read)
+    "b5_split_fc2_no_residual": (_B5, [(
+        "store_as(y + at, kRes ? __fadd_rn(v, to_f32(r[at])) : v);",
+        "store_as(y + at, kRes ? __fadd_rn(v, 0.f) : v);")]),
+}
 # w8_matmul_f32.cu's products of one k8 step and their handling
 _F32B9_STEP = ("      tf32::wgmma_fence();\n"
                "      step3(f, ah, al, bh, bl);\n"
                "      tf32::wgmma_commit();\n"
                "      tf32::wgmma_wait_all();\n"
                "      tf32::pin(f);\n")
+# B5's second fc1 pass with slab ch + 1's products issued during slab ch's
+# epilogue (two accumulator sets, the slab loop unrolled by two so that
+# each set is registers): a k-chunk's wgmma group every kEvery rows of 8
+_B5_PASS2_HEAD = (
+    "  // fc1, second pass: the same h, quantized, through the staging tile to\n"
+    "  // the block's rows of the hidden codes\n"
+    "  for (int ch = 0; ch < HC; ++ch) {\n")
+_B5_PASS2_TAIL = (
+    "    warpgroup_sync(wg);\n  }\n"
+    "  asm volatile(\"fence.proxy.async.global;\\n\" ::: \"memory\");\n")
+_B5_OVERLAP_PASS2 = """  // fc1, second pass, slab ch + 1's products in flight during slab ch's
+  // epilogue
+  constexpr int kEvery = BM / 48 > 0 ? BM / 48 : 1;
+  int hacc[2][kAcc];
+  int prev = -1;
+  auto issue = [&](int (&a)[kAcc], int kc) {
+    mbar_wait(&full1[wg][st], ph);
+    const uint64_t da = tile_desc(ring1 + (wg * kStages1 + st) * kW1Half);
+    const uint64_t db = tile_desc(xc + kc * BM * kKC);
+    fence_regs(a);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wgmma_ss<BM>(a, da + 2 * j, db + 2 * j, kc > 0 || j > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    if (prev >= 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty1[wg][prev]);
+    }
+    prev = st;
+    if (++st == kStages1) {
+      st = 0;
+      ph ^= 1u;
+    }
+  };
+  auto drain = [&](int (&a)[kAcc]) {
+    hopper::wgmma_wait<0>();
+    fence_regs(a);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty1[wg][prev]);
+    prev = -1;
+  };
+  // the epilogue of slab ch in a, slab ch + 1's chunks issued into b
+  auto slab = [&](int (&a)[kAcc], int (&b)[kAcc], int ch) {
+    float sa[2], ba[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = ch * kWRows + lcol + 8 * h;
+      sa[h] = col < p.H ? p.s1[col] : 0.f;
+      ba[h] = col < p.H ? p.b1[col] : 0.f;
+    }
+    const bool more = ch + 1 < HC;
+    int kc = 0;
+#pragma unroll
+    for (int c = 0; c < BM / 8; ++c) {
+      if (c % kEvery == 0 && more && kc < KC) issue(b, kc++);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = 8 * c + 2 * t + e;
+        const float xr = xs[row], inv = hinv[row];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float v = qgelu(epilogue(a[4 * c + 2 * h + e], xr, sa[h], ba[h]));
+          stg[row * kStageLD + lcol + 8 * h] = quant_code_fadd(v, inv);
+        }
+      }
+    }
+    if (more)
+      while (kc < KC) issue(b, kc++);
+    warpgroup_sync(wg);
+    for (int i = ct % 128; i < BM * 4; i += 128) {
+      const int row = i / 4, at = wg * 64 + (i % 4) * 16;
+      *reinterpret_cast<uint4*>(p.hq + static_cast<long long>(m0 + row) * p.Hp + ch * kKC +
+                                at) = *reinterpret_cast<const uint4*>(stg + row * kStageLD + at);
+    }
+    warpgroup_sync(wg);
+    if (more) drain(b);
+  };
+  for (int kc = 0; kc < KC; ++kc) issue(hacc[0], kc);
+  drain(hacc[0]);
+  for (int ch = 0; ch < HC; ch += 2) {
+    slab(hacc[0], hacc[1], ch);
+    if (ch + 1 < HC) slab(hacc[1], hacc[0], ch + 1);
+  }
+  asm volatile("fence.proxy.async.global;\\n" ::: "memory");
+"""
+
+_B5_OVERLAP = (None, _B5_OVERLAP_PASS2)
+# the two consumer warpgroups' second-pass products take turns (named
+# barriers 4 and 5): each waits for the other's slab, so that one's
+# epilogue runs while the other's products do
+_B5_PINGPONG = (
+    "\n    fc1();\n",
+    "\n    if (wg == 1 || ch > 0) named_sync(4 + wg, 256);\n"
+    "    fc1();\n"
+    "    if (wg == 0 || ch + 1 < HC)\n"
+    "      asm volatile(\"bar.arrive %0, %1;\\n\" ::\"r\"(5 - wg), \"r\"(256) : \"memory\");\n")
+_B5_PREFETCH_R = (
+    "    int prev = -1;\n    for (int hc = 0; hc < HC; ++hc) {\n",
+    "    if (kRes) {\n"
+    "      constexpr int kLine = 128 / static_cast<int>(sizeof(T));\n"
+    "      constexpr int kLines = kW2Rows / kLine;\n"
+    "      for (int i = ct; i < BM * kLines; i += 256) {\n"
+    "        const int m = m0 + i / kLines, col = nc * kW2Rows + (i % kLines) * kLine;\n"
+    "        if (m < p.M && col < p.N)\n"
+    "          asm volatile(\"prefetch.global.L2 [%0];\" ::\"l\"(r + static_cast<long long>(m) * p.N + col));\n"
+    "      }\n"
+    "    }\n"
+    "    int prev = -1;\n    for (int hc = 0; hc < HC; ++hc) {\n")
+_B5_PREFETCH_X = (
+    "  // phase 0: LayerNorm + quant of the block's rows into the swizzled code\n",
+    "  {\n"
+    "    constexpr int kLine = 128 / static_cast<int>(sizeof(T));\n"
+    "    const int lines = (p.K + kLine - 1) / kLine;\n"
+    "    for (int i = ct; i < BM * lines; i += 256) {\n"
+    "      const int m = m0 + i / lines;\n"
+    "      if (m < p.M)\n"
+    "        asm volatile(\"prefetch.global.L2 [%0];\" ::\"l\"(p.x + static_cast<long long>(m) * p.K + min((i % lines) * kLine, p.K - 1)));\n"
+    "    }\n"
+    "  }\n"
+    "  // phase 0: LayerNorm + quant of the block's rows into the swizzled code\n")
+
+# phase 0 two rows a warp at a time (quant_tile_pairs, placed before the
+# kernel's parameters)
+_B5_PAIRS_FN = """// phase 0 with two rows a warp at a time, their chains interleaved, where
+// quant_row_to would take its 16-byte path with a LayerNorm (else
+// quant_tile): the same operations on each row in the same order
+template <int BM, class T, class RowPtr>
+__device__ __forceinline__ void quant_tile_pairs(int8_t* xc, float* xs, RowPtr row_ptr, int K,
+                                                 int Kp, const float* gamma, const float* beta,
+                                                 int w0, int nw, int lane) {
+  constexpr int kChunks = kMaxRowPerLane / 8;
+  const T* first = row_ptr(w0);
+  if (Kp > kMaxRowPerLane * 32 || K % kVecK<T> != 0 || gamma == nullptr || !aligned16(gamma) ||
+      !aligned16(beta) || (first != nullptr && !aligned16(first))) {
+    quant_tile<BM>(xc, xs, row_ptr, K, Kp, gamma, beta, w0, nw, lane);
+    return;
+  }
+  for (int r0 = w0; r0 < BM; r0 += 2 * nw) {
+    const int rows[2] = {r0, r0 + nw};
+    const T* src[2];
+    float v[2][kChunks][8];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      src[r] = rows[r] < BM ? row_ptr(rows[r]) : nullptr;
+#pragma unroll
+      for (int i = 0; i < kChunks; ++i) {
+        const int c0 = 8 * (lane + 32 * i);
+        if (src[r] != nullptr && c0 < K) {
+          load8(src[r], c0, K, v[r][i]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[r][i][j] = 0.f;
+        }
+      }
+    }
+    float s[2], mean[2], q[2], rs[2], m[2], scale[2], inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      s[r] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kChunks; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[r] = __fadd_rn(s[r], v[r][i][j]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) mean[r] = __fdiv_rn(warp_sum(s[r]), static_cast<float>(K));
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      q[r] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kChunks; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (kVecK<T> == 8 ? 8 * (lane + 32 * i) < K : 8 * (lane + 32 * i) + j < K) {
+            const float d = __fadd_rn(v[r][i][j], -mean[r]);
+            q[r] = __fadd_rn(q[r], __fmul_rn(d, d));
+          }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      rs[r] = rsqrtf(__fadd_rn(__fdiv_rn(warp_sum(q[r]), static_cast<float>(K)), 1e-5f));
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i) {
+      const int c0 = 8 * (lane + 32 * i);
+      if (c0 < K) {
+        const float4* g4 = reinterpret_cast<const float4*>(gamma + c0);
+        const float4* b4 = reinterpret_cast<const float4*>(beta + c0);
+        const bool two = kVecK<T> == 8 || c0 + 4 < K;
+        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 ga = g4[0], gb = two ? g4[1] : z, ba = b4[0], bb = two ? b4[1] : z;
+        const float gv[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+        const float bv[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            v[r][i][j] = __fadd_rn(
+                __fmul_rn(__fmul_rn(__fadd_rn(v[r][i][j], -mean[r]), rs[r]), gv[j]), bv[j]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[r] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kChunks; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) m[r] = fmaxf(m[r], fabsf(v[r][i][j]));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      scale[r] = quant_scale(warp_max(m[r]));
+      inv[r] = __fdiv_rn(1.0f, scale[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (rows[r] >= BM) continue;
+#pragma unroll
+      for (int i = 0; i < kChunks; ++i) {
+        const int c0 = 8 * (lane + 32 * i);
+        if (c0 < Kp) {
+          uint32_t w[2] = {0u, 0u};   // zero codes past K, and for a row past M
+          if (c0 < K && src[r] != nullptr)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              w[j / 4] |= static_cast<uint32_t>(static_cast<uint8_t>(quant_code(v[r][i][j], inv[r])))
+                          << (8 * (j % 4));
+          *reinterpret_cast<uint2*>(xc + code_at<BM>(rows[r], c0)) = make_uint2(w[0], w[1]);
+        }
+      }
+      if (lane == 0) xs[rows[r]] = src[r] != nullptr ? scale[r] : 0.f;
+    }
+  }
+}
+
+"""
+_B5_PAIRS = [
+    ("template <class T>   // __nv_bfloat16 or float: x, r and y\nstruct Params {",
+     _B5_PAIRS_FN + "template <class T>   // __nv_bfloat16 or float: x, r and y\nstruct Params {"),
+    ("  quant_tile<BM>(\n      xc, xs,", "  quant_tile_pairs<BM, T>(\n      xc, xs,")]
+
+# the second pass's codes stored as each is made (the form before they
+# were kept in registers to the slab's end)
+_B5_DEFERRED = (
+    "    // the slab's codes stay in registers, four to a word, until its last\n"
+    "    // value: a store to the staging tile among them would order the next\n"
+    "    // rows' scale loads (shared memory too) after it, and the compiler\n"
+    "    // would run the chains a pair at a time\n"
+    "    uint32_t code[BM / 8];\n"
+    "#pragma unroll\n    for (int c = 0; c < BM / 8; ++c) {\n      code[c] = 0u;\n#pragma unroll\n"
+    "      for (int e = 0; e < 2; ++e) {\n        const int row = 8 * c + 2 * t + e;\n"
+    "        const float xr = xs[row], inv = hinv[row];\n#pragma unroll\n"
+    "        for (int h = 0; h < 2; ++h) {   // no branch: columns past H give 0\n"
+    "          const float v = qgelu(epilogue(acc[4 * c + 2 * h + e], xr, sa[h], ba[h]));\n"
+    "          code[c] |= static_cast<uint32_t>(static_cast<uint8_t>(quant_code_fadd(v, inv)))\n"
+    "                     << (8 * (2 * h + e));\n"
+    "        }\n      }\n    }\n"
+    "#pragma unroll\n    for (int c = 0; c < BM / 8; ++c)\n#pragma unroll\n"
+    "      for (int e = 0; e < 2; ++e)\n#pragma unroll\n"
+    "        for (int h = 0; h < 2; ++h)\n"
+    "          stg[(8 * c + 2 * t + e) * kStageLD + lcol + 8 * h] =\n"
+    "              static_cast<int8_t>(code[c] >> (8 * (2 * h + e)));\n")
+_B5_STORES_IN_LOOP = (_B5_DEFERRED, (
+    "#pragma unroll\n    for (int c = 0; c < BM / 8; ++c)\n#pragma unroll\n"
+    "      for (int e = 0; e < 2; ++e) {\n        const int row = 8 * c + 2 * t + e;\n"
+    "        const float xr = xs[row], inv = hinv[row];\n#pragma unroll\n"
+    "        for (int h = 0; h < 2; ++h) {   // no branch: columns past H give 0\n"
+    "          const float v = qgelu(epilogue(acc[4 * c + 2 * h + e], xr, sa[h], ba[h]));\n"
+    "          stg[row * kStageLD + lcol + 8 * h] = quant_code_fadd(v, inv);\n"
+    "        }\n      }\n"))
+
+# fc2's epilogue with each row pair's scale and residual loads issued
+# before its stores; and the same in a function whose pointers are
+# __restrict__, so that the next rows' loads may pass the stores to y
+_B5_FC2_LAMBDA = """    auto store = [&](auto full_c) {
+      constexpr bool FULL = decltype(full_c)::value;
+#pragma unroll
+      for (int c = 0; c < BM / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int row = 8 * c + 2 * t + e, m = m0 + row;
+          if (!FULL && m >= p.M) continue;
+          const float hr = hs[row];
+#pragma unroll
+          for (int q = 0; q < kQ; ++q) {
+            if (!FULL && col[q] >= p.N) continue;
+            const long long at = static_cast<long long>(m) * p.N + col[q];
+            const float v = epilogue(acc2[q >> 1][4 * c + 2 * (q & 1) + e], hr, sa[q], ba[q]);
+            store_as(y + at, kRes ? __fadd_rn(v, to_f32(r[at])) : v);
+          }
+        }
+    };
+"""
+_B5_FC2_BODY = """#pragma unroll
+  for (int c = 0; c < BM / 8; ++c) {
+    float hr[2], rv[2][kQ];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + 8 * c + 2 * t + e;
+      hr[e] = hs[8 * c + 2 * t + e];
+#pragma unroll
+      for (int q = 0; q < kQ; ++q)
+        rv[e][q] = kRes && (FULL || (m < M && col[q] < N))
+                       ? to_f32(r[static_cast<long long>(m) * N + col[q]])
+                       : 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + 8 * c + 2 * t + e;
+      if (!FULL && m >= M) continue;
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        if (!FULL && col[q] >= N) continue;
+        const float v = epilogue(acc2[q >> 1][4 * c + 2 * (q & 1) + e], hr[e], sa[q], ba[q]);
+        store_as(y + static_cast<long long>(m) * N + col[q], kRes ? __fadd_rn(v, rv[e][q]) : v);
+      }
+    }
+  }
+"""
+_B5_FC2_LOADS_FIRST = (_B5_FC2_LAMBDA, (
+    "    auto store = [&](auto full_c) {\n"
+    "      constexpr bool FULL = decltype(full_c)::value;\n"
+    "      const int M = p.M, N = p.N;\n"
+    + _B5_FC2_BODY + "    };\n"))
+_B5_FC2_RESTRICT = [
+    ("template <class T>   // __nv_bfloat16 or float: x, r and y\nstruct Params {",
+     "template <int BM, bool kRes, bool FULL, class T>\n"
+     "__device__ __forceinline__ void fc2_store(const int (&acc2)[kW2Slabs][BM / 2],\n"
+     "                                          const float* __restrict__ hs,\n"
+     "                                          const float (&sa)[2 * kW2Slabs],\n"
+     "                                          const float (&ba)[2 * kW2Slabs],\n"
+     "                                          const int (&col)[2 * kW2Slabs],\n"
+     "                                          const T* __restrict__ r, T* __restrict__ y,\n"
+     "                                          int m0, int M, int N, int t) {\n"
+     "  constexpr int kQ = 2 * kW2Slabs;\n"
+     + _B5_FC2_BODY + "}\n\n"
+     "template <class T>   // __nv_bfloat16 or float: x, r and y\nstruct Params {"),
+    (_B5_FC2_LAMBDA, ""),
+    ("      store(std::true_type{});\n    else\n      store(std::false_type{});\n",
+     "      fc2_store<BM, kRes, true>(acc2, hs, sa, ba, col, r, y, m0, p.M, p.N, t);\n"
+     "    else\n"
+     "      fc2_store<BM, kRes, false>(acc2, hs, sa, ba, col, r, y, m0, p.M, p.N, t);\n")]
+
 # name -> (source, [(old, new)])
 VARIANTS = {
     "f32b9_as_is": (_W8F32, []),
@@ -231,8 +636,42 @@ VARIANTS = {
                        ("const float alpha = ex2f(",
                         "const float alpha = exp2f(")]),
     "b5_as_is": (_B5, []),
-    # where B5's time goes (wrong outputs): no QuickGELU in either fc1
-    # pass
+    # pass 2's codes without the conversion unit: rint(h * inv) as the low
+    # byte of h * inv + 1.5 * 2^23 (exact for |h * inv| < 2^22; NaN to 0
+    # as the conversion gives it)
+    # B5's forms tried beside the source (in CUDA graphs at the serving
+    # shape, in turns with the parent's kernel, bf16 / fp32, on an H100 at
+    # 700 W; all bit-equal to it): the codes stored as each is made, the
+    # form before (0.886-0.893 / 0.883-0.889; the source 0.835-0.840 /
+    # 0.841-0.856)
+    "b5_stores_in_loop": (_B5, [_B5_STORES_IN_LOOP]),
+    # ... and before that, by the conversion unit (F2I): 0.891-0.896 /
+    # 0.888-0.896
+    "b5_code_by_cvt": (_B5, [_B5_STORES_IN_LOOP, (
+        "stg[row * kStageLD + lcol + 8 * h] = quant_code_fadd(v, inv);",
+        "stg[row * kStageLD + lcol + 8 * h] = quant_code(v, inv);")]),
+    # the rest measured on those forms: slab ch + 1's fc1 products in
+    # flight during slab ch's epilogue in the second pass: 1.797 / 1.831
+    # (two accumulator sets of 96 registers spill 5.8 KB at 192 rows, and
+    # ptxas serializes the wgmma, C7518)
+    "b5_overlap_pass2": (_B5, [_B5_OVERLAP]),
+    # fc2's residual tile into L2 (prefetch.global.L2) as its products
+    # start: 1.037 / 1.198; the block's x rows into L2 before phase 0:
+    # 0.902 / 0.914; both with the overlap: 1.943 / 2.109
+    "b5_prefetch_residual": (_B5, [_B5_PREFETCH_R]),
+    "b5_prefetch_x": (_B5, [_B5_PREFETCH_X]),
+    "b5_all": (_B5, [_B5_OVERLAP, _B5_PREFETCH_R, _B5_PREFETCH_X]),
+    # phase 0 two rows a warp at a time: 0.908 / 0.916; the warpgroups'
+    # second-pass products taking turns: 0.899 / 0.903 with the codes
+    # stored in the loop, 0.840 / 0.857 with the source's (kept in
+    # registers)
+    "b5_phase0_pairs": (_B5, _B5_PAIRS),
+    "b5_pingpong_pass2": (_B5, [_B5_PINGPONG]),
+    # fc2's residual loads of a row pair before its stores: 0.861 / 0.873;
+    # the same with __restrict__ pointers: 0.863 / 0.873 (the source 0.835 /
+    # 0.856 in the same call)
+    "b5_fc2_loads_first": (_B5, [_B5_FC2_LOADS_FIRST]),
+    "b5_fc2_restrict": (_B5, _B5_FC2_RESTRICT),
     "b5_no_quick_gelu": (_B5, [(
         "  return __fmul_rn(h, rcp_newton(fminf(__fadd_rn(1.0f, expf("
         "-__fmul_rn(1.702f, h))), 3.0e38f)));", "  return h;")]),
@@ -378,6 +817,9 @@ def _parent_mega_split(frames, sms):
 B4_KV_STAGES = {"b4_2_kv_stages": 2, "b4_3_kv_stages": 3}   # the others: 4
 # the fc2 weight tile of each B5 variant, for its launch plan
 B5_TILE2 = {"b5_fc2_one_slab": 16384}   # the others: 32,768
+# (M, K, hidden, N, B5_FALLBACK_ROWS take the full first pass?): the
+# serving shape, timed; chip_smoke's fallback shape
+B5_SHAPES = ((25216, 768, 3072, 768, False), (200, 768, 3072, 768, True))
 # B3's launch forms timed at the serving shape: (rows per block, ring
 # stages); the source variants take the first
 B3_FORMS = ((128, 8), (128, 3), (64, 3))
@@ -393,12 +835,22 @@ def _build(name):
         path, edits, root = PARENT_VARIANTS[name], [], PARENT
         signatures = _PARENT_SIGNATURES.get(path) or \
             _cuda._SIGNATURES[_LIB[path]]
+    elif name in PARENT_CUTS:
+        (path, edits), root = PARENT_CUTS[name], PARENT
+        signatures = _cuda._SIGNATURES[_LIB[path]]
     else:
         (path, edits), root = VARIANTS[name], ROOT
         signatures = _cuda._SIGNATURES[_LIB[path]]
+    if path == _B5:
+        # one library with B5's bf16 and fp32 entries (the functions a
+        # parent's library lacks are left out below)
+        signatures = {**signatures, **_cuda._SIGNATURES["w8a8_mlp_f32"]}
     with open(os.path.join(root, path)) as f:
         src = f.read()
     for old, new in edits:
+        if old is None:   # B5's second pass, head to tail
+            i, j = src.index(_B5_PASS2_HEAD), src.index(_B5_PASS2_TAIL)
+            old = src[i:j + len(_B5_PASS2_TAIL)]
         if src.count(old) != 1:
             raise RuntimeError(f"{name}: {old!r} occurs {src.count(old)} "
                                f"times in {path}")
@@ -411,9 +863,12 @@ def _build(name):
     if path.endswith(".cuh"):
         with open(os.path.join(d, os.path.basename(path)), "w") as f:
             f.write(src)
-        with open(os.path.join(root, os.path.dirname(path),
-                               _LIB[path] + ".cu")) as f:
-            src = f.read()
+        sources = [_LIB[path]] + (["w8a8_mlp_f32"] if path == _B5 else [])
+        src = ""
+        for source in sources:
+            with open(os.path.join(root, os.path.dirname(path),
+                                   source + ".cu")) as f:
+                src += f.read()
     with open(cu, "w") as f:
         f.write(src)
     res = subprocess.run([_cuda.find_nvcc(), *_cuda.NVCC_FLAGS, "-I",
@@ -422,10 +877,32 @@ def _build(name):
     if res.returncode:
         raise RuntimeError(f"nvcc failed for {name}:\n{res.stderr}")
     lib = ctypes.CDLL(so)
+    if path == _B5:
+        lib.ptxas_summary = _ptxas_summary(res.stdout + res.stderr)
     for fn, (argtypes, restype) in signatures.items():
+        if path == _B5 and not hasattr(lib, fn):
+            continue
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
     return name, lib
+
+
+def _ptxas_summary(log):
+    """Registers and spills of each kernel instantiation in an nvcc -Xptxas
+    -v log (in the order compiled), and any line about wgmma."""
+    out, entry, spill = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif "spill stores" in line and entry:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and entry:
+            regs = line.split("Used")[1].split("registers")[0].strip()
+            out.append(f"{entry[:60]}: {regs} registers, {spill}")
+            entry = None
+        elif "wgmma" in line.lower():
+            out.append(line.strip())
+    return "; ".join(out)
 
 
 # the paths that B10 and B7's backward sit on, end to end: chip_smoke's
@@ -468,7 +945,7 @@ def main(argv=None) -> int:
     prefixes = tuple(sys.argv[1:] if argv is None else argv)
     if prefixes == ("e2e",):
         return e2e()
-    names = [n for n in (*VARIANTS, *PARENT_VARIANTS)
+    names = [n for n in (*VARIANTS, *PARENT_VARIANTS, *PARENT_CUTS)
              if not prefixes or n.startswith(prefixes)]
     sys.path.insert(0, ROOT)
     import torch
@@ -537,7 +1014,7 @@ def main(argv=None) -> int:
     if _any(libs, "b7_"):
         _b7_variants(cs, fa, libs, gen, state)
     if _any(libs, "b5"):
-        _b5_variants(cs, im, libs, gen, stream, state)
+        _b5_variants(cs, im, libs, gen, state)
     if _any(libs, "b3"):
         _b3_variants(cs, im, libs, gen, stream, state)
     if _any(libs, "b4"):
@@ -599,61 +1076,86 @@ def _b7_variants(cs, fa, libs, gen, state):
                   f"{r[4]:.3f}) ({state['smi']})", flush=True)
 
 
-def _b5_variants(cs, im, libs, gen, stream, state):
-    """B5 (the residual entry) at the serving shape, each variant in turns
-    with the source as it is."""
+def _b5_variants(cs, im, libs, gen, state):
+    """B5 (the residual entry) in bf16 and in fp32 at B5_SHAPES: each
+    variant's outputs against the parent's kernel (`b5_parent`, else the
+    source as it is) bit for bit, and their share != plain; at the serving
+    shape its time in CUDA graphs and in turns with that kernel there
+    (median of 7 rounds)."""
     import torch
-    M, K, Hd, N = 25216, 768, 3072, 768
-    x = torch.randn(M, K, generator=gen, device="cuda").to(torch.bfloat16)
-    r = torch.randn(M, N, generator=gen, device="cuda").to(torch.bfloat16)
-    ln = [t.contiguous() for t in cs._ln_params(gen, K)]
-    k1, k2 = cs._qleaf(gen, K, Hd), cs._qleaf(gen, Hd, N)
-    b1 = torch.randn(Hd, generator=gen, device="cuda") * 0.02
-    b2 = torch.randn(N, generator=gen, device="cuda") * 0.02
-    s1, s2 = (k["scale"].reshape(-1).float().contiguous() for k in (k1, k2))
-    ref = im.w8a8_mlp_res_plain(x, {"kernel": k1, "bias": b1},
-                                {"kernel": k2, "bias": b2}, ln, r)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    calls, outs = {}, {}
-    # the source as it is first: the others are held to its bits
-    for name, lib in sorted(libs.items(), key=lambda kv: kv[0] != "b5_as_is"):
-        if not name.startswith("b5"):
-            continue
-        layout = im._MLP_LAYOUT[:5] + (B5_TILE2.get(name, 32768),)
-        saved, im._MLP_LAYOUT = im._MLP_LAYOUT, layout
-        try:
-            plan = im.w8a8_mlp_plan(M, K, Hd, N, sms, 232448)
-        finally:
-            im._MLP_LAYOUT = saved
-        hq = torch.empty(plan["scratch"], dtype=torch.int8, device="cuda")
-        y = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
-
-        def call(lib=lib, plan=plan, hq=hq, y=y):
-            err = lib.w8a8_mlp_res_bf16(
-                x.data_ptr(), k1["qa_t"].data_ptr(), s1.data_ptr(),
-                b1.data_ptr(), k2["qa_t"].data_ptr(), s2.data_ptr(),
-                b2.data_ptr(), ln[0].data_ptr(), ln[1].data_ptr(),
-                r.data_ptr(), y.data_ptr(), hq.data_ptr(), M, K, Hd, N,
-                plan["rows"], plan["stages2"], plan["smem_bytes"], stream)
-            if err:
-                raise RuntimeError(f"{name}: launch failed ({err})")
-        call()
-        torch.cuda.synchronize()
-        share = (y != ref).float().mean().item()
-        calls[name] = call
-        outs[name] = y
-        same = torch.equal(y, outs.get("b5_as_is", y))
-        print(f"[variants] {name} M={M} K={K} H={Hd} N={N}: outputs != plain "
-              f"{share:.3e}, bit-equal to b5_as_is: {same}; "
-              f"{cs.cuda_time_ms(call, iters=10):.4f} ms ({state['smi']})",
+    base = "b5_parent" if "b5_parent" in libs else "b5_as_is"
+    names = sorted((n for n in libs if n.startswith("b5")),
+                   key=lambda n: (n != base, n))
+    for name in names:
+        print(f"[variants] {name} ptxas: {libs[name].ptxas_summary}",
               flush=True)
-    for name, call in calls.items():
-        if name != "b5_as_is":
-            t = cs._ratio_turns(call, calls["b5_as_is"])
-            print(f"[variants] {name} vs b5_as_is, median of 7 rounds in "
-                  f"turns: {t[0]:.4f} ms vs {t[1]:.4f} ms, ratio {t[2]:.3f} "
-                  f"(rounds {t[3]:.3f}-{t[4]:.3f}) ({state['smi']})",
-                  flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for M, K, Hd, N, fallback in B5_SHAPES:
+        x32 = torch.randn(M, K, generator=gen, device="cuda")
+        r32 = torch.randn(M, N, generator=gen, device="cuda")
+        ln = [t.contiguous() for t in cs._ln_params(gen, K)]
+        fc1 = {"kernel": cs._qleaf(gen, K, Hd),
+               "bias": torch.randn(Hd, generator=gen, device="cuda") * 0.02}
+        fc2 = {"kernel": cs._qleaf(gen, Hd, N),
+               "bias": torch.randn(N, generator=gen, device="cuda") * 0.02}
+        if fallback:
+            cs._b5_fallback_rows(x32, fc1, ln)
+        k1, k2, b1, b2 = fc1["kernel"], fc2["kernel"], fc1["bias"], fc2["bias"]
+        s1, s2 = (k["scale"].reshape(-1).float().contiguous() for k in (k1, k2))
+        label = f"M={M} K={K} H={Hd} N={N}" + (
+            f" (rows {cs.B5_FALLBACK_ROWS} take the full first pass)"
+            if fallback else "")
+        for dt, entry in ((torch.bfloat16, "w8a8_mlp_res_bf16"),
+                          (torch.float32, "w8a8_mlp_res_f32")):
+            x, r = x32.to(dt), r32.to(dt)
+            ref = im.w8a8_mlp_res_plain(x, fc1, fc2, ln, r)
+            calls, outs = {}, {}
+            for name in names:
+                lib = libs[name]
+                layout = im._MLP_LAYOUT[:5] + (B5_TILE2.get(name, 32768),)
+                saved, im._MLP_LAYOUT = im._MLP_LAYOUT, layout
+                try:
+                    plan = im.w8a8_mlp_plan(M, K, Hd, N, sms, 232448)
+                finally:
+                    im._MLP_LAYOUT = saved
+                hq = torch.empty(plan["scratch"], dtype=torch.int8,
+                                 device="cuda")
+                y = torch.empty(M, N, dtype=dt, device="cuda")
+
+                def call(fn=getattr(lib, entry), plan=plan, hq=hq, y=y,
+                         x=x, r=r, name=name):
+                    err = fn(x.data_ptr(), k1["qa_t"].data_ptr(),
+                             s1.data_ptr(), b1.data_ptr(),
+                             k2["qa_t"].data_ptr(), s2.data_ptr(),
+                             b2.data_ptr(), ln[0].data_ptr(),
+                             ln[1].data_ptr(), r.data_ptr(), y.data_ptr(),
+                             hq.data_ptr(), M, K, Hd, N, plan["rows"],
+                             plan["stages2"], plan["smem_bytes"],
+                             torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"{name}: launch failed ({err})")
+                call()
+                torch.cuda.synchronize()
+                calls[name], outs[name] = call, y
+                share = (y != ref).float().mean().item()
+                same = torch.equal(y, outs[base])
+                print(f"[variants] {name} {entry} {label}: bit-equal to "
+                      f"{base}: {same}; outputs != plain {share:.3e}",
+                      flush=True)
+            if fallback:
+                continue
+            for name, call in calls.items():
+                print(f"[variants] {name} {entry} {label}: "
+                      f"{_graph_ms(cs, call):.5f} ms in CUDA graphs of "
+                      f"{cs.GRAPH_LAUNCHES} ({state['smi']})", flush=True)
+                if name != base:
+                    t = cs._ratio_graphs(call, calls[base])
+                    print(f"[variants] {name} vs {base} {entry}, CUDA "
+                          f"graphs, median of 7 rounds in turns: {t[0]:.5f} "
+                          f"ms vs {t[1]:.5f} ms, ratio {t[2]:.3f} (rounds "
+                          f"{t[3]:.3f}-{t[4]:.3f}) ({state['smi']})",
+                          flush=True)
+            del calls, outs
 
 
 def _turns_vs(cs, calls, base, state):
