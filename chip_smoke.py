@@ -26,10 +26,11 @@ The w8a8 path gets the same three checks:
   w8a8-kernel  the four int8 kernels (w8a8_matmul, w8a8_matmul3_cat,
           attention_out_int8, w8a8_mlp_res) against their plain versions at
           the serving shapes and ragged ones, with CUDA-event times of both
-          (limits in W8A8_LIMITS); w8a8_matmul also at rows longer than the
-          1,024 values a warp holds in registers (the text MLP's fc2, 1,155
-          x 2,048, and a ragged K) and at the text tower's out-projection
-          and fc1 (1,155 x 512), bit for bit; w8a8_matmul3_cat also
+          (limits in W8A8_LIMITS; w8a8_matmul3_cat also at the long
+          clip's 280 frame rows, W8A8_QKV_LONG); w8a8_matmul also at rows
+          longer than the 1,024 values a warp holds in registers (the text
+          MLP's fc2, 1,155 x 2,048, and a ragged K) and at the text tower's
+          out-projection and fc1 (1,155 x 512), bit for bit; w8a8_matmul3_cat also
           against three w8a8_matmul launches on its rows, and
           attention_out_int8 against packed_attention then w8a8_matmul,
           each in turns, and the int8 product of each alone through
@@ -83,8 +84,11 @@ a run without --use_bf16 takes:
           fp32 int8 step and the fp32 w8a8 evaluation and at ragged ones
           (F32_W8A8_LIMITS; B2 bit for bit), one counted `_f32` launch each,
           timed beside their bf16 forms in turns and the int8 products
-          alone through torch._int_mm; mlp_block(residual=None) on fp32
-          rows (B5a's path); fp16 and mixed rows raise TypeError;
+          alone through torch._int_mm (B3 and B3a also beside their bf16
+          forms in CUDA graphs, in turns, with B3's launch plan logged; B3a
+          also at the 4 x 70 step's 59,920 rows, F32_B3A_LONG);
+          mlp_block(residual=None) on fp32 rows (B5a's path); fp16 and
+          mixed rows raise TypeError;
   serving-f32  the fp32 forms of B9 (csrc/w8_matmul_f32.cu) at the w8
           evaluation's four projection shapes and ragged ones within
           W8_F32_REL of sum |x| |w| (timed beside torch.matmul on the
@@ -626,6 +630,9 @@ W8A8_MATMUL_SHAPES = ((25088, 768, 768, "pixels"), (37, 768, 77, "pixels"),
                       (1155, 512, 2048, "text"))
 W8A8_QKV_SHAPES = ((128, 197, 17, 768, 768), (3, 13, 5, 96, 40),
                    (4, 21, 0, 768, 768), (2, 9, 0, 64, 19))
+# B3 at the long clip's 280 frame rows (4 x 70: 469 tiles of 128 rows, four
+# rounds), checked after the others on a generator of its own
+W8A8_QKV_LONG = (280, 197, 17, 768, 768)
 # (B, lq, Lq rows of q, Lk, H)
 W8A8_ATTN_SHAPES = ((128, 197, 214, 214, 12), (3, 13, 21, 21, 2),
                     (2, 77, 77, 150, 4), (2, 40, 100, 100, 12))
@@ -853,11 +860,19 @@ def phase_w8a8_kernels(state):
     for i, shape in enumerate(short):
         b2_check(*shape, gen, i == 0)
 
-    for i, (B, Lx, Le, K, N) in enumerate(W8A8_QKV_SHAPES):
-        x, e = randn(B, Lx, K), (randn(B, Le, K) if Le else None)
-        ln = _ln_params(gen, K)
-        k3 = [_qleaf(gen, K, N) for _ in range(3)]
-        b3 = [torch.randn(N, generator=gen, device="cuda") * 0.02
+    # the long clip's shape draws from a generator of its own: the checks
+    # after it keep their inputs
+    gen_long = torch.Generator(device="cuda").manual_seed(25)
+    for i, (B, Lx, Le, K, N) in enumerate(W8A8_QKV_SHAPES + (W8A8_QKV_LONG,)):
+        g = gen if i < len(W8A8_QKV_SHAPES) else gen_long
+
+        def draw(*shape, g=g):
+            return torch.randn(*shape, generator=g,
+                               device="cuda").to(torch.bfloat16)
+        x, e = draw(B, Lx, K), (draw(B, Le, K) if Le else None)
+        ln = _ln_params(g, K)
+        k3 = [_qleaf(g, K, N) for _ in range(3)]
+        b3 = [torch.randn(N, generator=g, device="cuda") * 0.02
               for _ in range(3)]
         xs = im.quant_rows(im.ln_f32(im._kv_rows(x, e).float(), *ln))[1]
         unit = torch.cat([_flip_unit(xs, k["scale"]) for k in k3], dim=-1)
@@ -2206,6 +2221,9 @@ F32_B2_SHAPES = ((25216, 768, 768), (1155, 512, 512), (1155, 512, 2048),
 # rows held in passes with a LayerNorm (K 1,100), no LayerNorm
 F32_B3A_SHAPES = ((27392, 768, 768, True), (200, 1100, 77, True),
                   (37, 100, 40, False))
+# B3a at the 4 x 70 step's 59,920 kv rows (469 tiles of 128 rows, four
+# rounds), checked after the others on a generator of its own
+F32_B3A_LONG = (59920, 768, 768, True)
 # (B, Lx, Le, K, N): B3 at the w8a8 evaluation's frame rows, ragged
 F32_B3_SHAPES = ((128, 197, 17, 768, 768), (3, 13, 5, 96, 40))
 # (M, K, hidden, N, residual?, LayerNorm?[, "fallback"]): B5 and B5a, the
@@ -2316,7 +2334,9 @@ def phase_w8a8_f32(state):
     def run(name, label, kernel, plain, unit, timing=None, residual=None):
         """`kernel` against `plain` (one launch of `name`); `timing` (the
         first shape): (bound, the bf16 form's call on inputs cast
-        beforehand, [(M, K, W^T)] of the int8 products)."""
+        beforehand, [(M, K, W^T)] of the int8 products[, (M, K, N) of B3's
+        launch plan: the kernel and its bf16 form also in CUDA graphs, in
+        turns, and the plan logged])."""
         if name not in names:
             return
         _reset_launch_counts()
@@ -2333,7 +2353,7 @@ def phase_w8a8_f32(state):
                 f"{name} {label}")
         if timing is None or not timed:
             return
-        bound, bf16_call, products = timing
+        bound, bf16_call, products, *qkv = timing
         ms, plain_ms, t = _time_pair(kernel, plain, iters=5)
         k, b, ratio, lo, hi = _ratio_turns(kernel, bf16_call, turns=5)
         mm = sum(_int_mm_ms(gen_mm, *p) for p in products)
@@ -2349,6 +2369,21 @@ def phase_w8a8_f32(state):
                        "library_ms": None,
                        "yardsticks": {"bf16_ms": b, "kernel_ms_in_turns": k,
                                       "int_mm_ms": mm}}
+        if qkv:
+            plan = im.w8a8_qkv_plan(
+                *qkv[0], torch.cuda.get_device_properties(0)
+                .multi_processor_count,
+                im.smem_limit(_cuda.load_library("w8a8_qkv"),
+                              "w8a8_qkv_layout", im._QKV_LAYOUT,
+                              torch.device("cuda")), esize=4)
+            gk, gb, ratio, lo, hi = _ratio_graphs(kernel, bf16_call)
+            log(f"[w8a8-f32] {name} {label}: CUDA graphs of "
+                f"{GRAPH_LAUNCHES}, median of 7 rounds in turns: fp32 "
+                f"{gk:.5f} ms vs its bf16 form {gb:.5f} ms a launch, ratio "
+                f"{ratio:.3f} (rounds {lo:.3f}-{hi:.3f}); launch plan "
+                f"{plan} ({state['smi']})")
+            stats[name]["yardsticks"].update(
+                {"graph_ms": gk, "bf16_graph_ms": gb})
 
     for i, (M, K, N, *kind) in enumerate(F32_B2_SHAPES):
         x = torch.randint(0, 256, (M, K), generator=gen, device="cuda").float() \
@@ -2365,11 +2400,16 @@ def phase_w8a8_f32(state):
              lambda: im.w8a8_matmul_cuda(xb, kern, b),
              [(M, K, kern["qa_t"])]) if i == 0 else None)
 
-    for i, (M, K, N, with_ln) in enumerate(F32_B3A_SHAPES):
-        x = randn(M, K)
-        ln = _ln_params(gen, K) if with_ln else None
-        k3 = [_qleaf(gen, K, N) for _ in range(3)]
-        b3 = [randn(N, gain=0.02) for _ in range(3)]
+    # the long step's shape draws from a generator of its own: the checks
+    # after it keep their inputs
+    gen_long = torch.Generator(device="cuda").manual_seed(26)
+    for i, (M, K, N, with_ln) in enumerate(F32_B3A_SHAPES + (F32_B3A_LONG,)):
+        g = gen if i < len(F32_B3A_SHAPES) else gen_long
+        x = torch.randn(M, K, generator=g, device="cuda")
+        ln = _ln_params(g, K) if with_ln else None
+        k3 = [_qleaf(g, K, N) for _ in range(3)]
+        b3 = [torch.randn(N, generator=g, device="cuda") * 0.02
+              for _ in range(3)]
         xs = im.quant_rows(x if ln is None else im.ln_f32(x, *ln))[1]
         xb = x.to(bf)
         run("w8a8_matmul3_f32", f"M={M} K={K} N=3x{N} LN {with_ln}",
@@ -2379,7 +2419,7 @@ def phase_w8a8_f32(state):
             (_bound(M * (4 * K + 12 * N) + 3 * K * N + 24 * N + 8 * K,
                     ops_int8=6 * M * K * N),
              lambda: im.w8a8_matmul3_cuda(xb, k3, b3, ln),
-             [(M, K, torch.cat([k["qa_t"] for k in k3]))])
+             [(M, K, torch.cat([k["qa_t"] for k in k3]))], (M, K, N))
             if i == 0 else None)
 
     for i, (B, Lx, Le, K, N) in enumerate(F32_B3_SHAPES):
@@ -2397,7 +2437,7 @@ def phase_w8a8_f32(state):
             (_bound(M * (4 * K + 12 * N) + 3 * K * N + 24 * N + 8 * K,
                     ops_int8=6 * M * K * N),
              lambda: im.w8a8_matmul3_cat_cuda(xb, eb, k3, b3, ln),
-             [(M, K, torch.cat([k["qa_t"] for k in k3]))])
+             [(M, K, torch.cat([k["qa_t"] for k in k3]))], (M, K, N))
             if i == 0 else None)
 
     first = set()

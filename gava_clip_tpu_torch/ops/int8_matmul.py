@@ -413,7 +413,7 @@ def _w8a8_qkv_launch(name, x, e, kernels3, bias3, ln):
             B * (Lx + Le), K, N,
             torch.cuda.get_device_properties(x.device).multi_processor_count,
             smem_limit(load_library("w8a8_qkv"), "w8a8_qkv_layout",
-                       _QKV_LAYOUT, x.device))
+                       _QKV_LAYOUT, x.device), esize=x.element_size())
         ws = [_tma_rows(w) for w in ws]
         _launch("w8a8_qkv", f"w8a8_qkv_cat_{form}", x.device, x.data_ptr(),
                 _ptr(e) if Le else None, *(w.data_ptr() for w in ws),
@@ -447,9 +447,12 @@ _MLP_ROWS = (192, 64)
 # the fused q/k/v kernel's launch plan (csrc/w8a8_qkv.cu): bytes of one
 # consumer warpgroup's ring stage (64 W^T rows x 128 k), most stages per
 # ring, output columns per unit, the kernel's static shared bytes; rows per
-# block (the wgmma N), largest first; the fewest ring stages a plan takes
+# block (the wgmma N) of one block to an SM; rows of two to an SM where the
+# former do not give every SM a block, largest first; the fewest ring
+# stages a plan takes
 _QKV_LAYOUT = (8192, 8, 128, 256)
-_QKV_ROWS = (128, 64, 32)
+_QKV_WIDE_ROWS = (128, 112)
+_QKV_ROWS = (64, 32)
 _QKV_MIN_STAGES = 3
 # the w8a8 GEMM's launch plan (csrc/w8a8_matmul.cu): bytes of one consumer
 # warpgroup's ring stage (64 W^T rows x 128 k), most stages per ring, output
@@ -514,28 +517,45 @@ def w8a8_mlp_plan(M: int, K: int, H: int, N: int, sm_count: int,
 
 
 def w8a8_qkv_plan(M: int, K: int, N: int, sm_count: int,
-                  smem_limit: int) -> Dict:
+                  smem_limit: int, rows: Optional[int] = None,
+                  esize: int = 2) -> Dict:
     """Launch plan of the fused LN + q/k/v kernel on a card of `sm_count`
     SMs whose blocks may have `smem_limit` shared bytes: {'rows' (per block,
     the wgmma N), 'units' (128-column slabs of one output per block),
     'grid' (row tiles, unit groups), 'blocks', 'per_sm' (blocks an SM holds
-    at once), 'stages' (of each weight ring), 'smem_bytes'}. A block keeps
-    its rows' K codes in shared memory; the rest of it goes to the weight
-    rings, as deep as it allows (up to 8 stages), and a tile of at most 64
-    rows keeps two blocks on an SM where two fit with 3 stages each. The
-    rows: 128 where those tiles alone give every SM a block (the serving
-    shape), else 64, else 32 (measured fastest in that order on an H100,
-    utils/kernel_variants.py); the 3 * ceil(N / 128) units are then shared
-    out over the fewest groups that give every SM a block (the text tower's
-    1,155 rows: 37 tiles of 32 x 4 groups). Raises for rows too long for
-    even 32 of them with 3 stages."""
+    at once), 'stages' (of each weight ring), 'staging' (bytes of the
+    epilogue's staging tiles), 'smem_bytes'}. A block keeps its rows' K
+    codes in shared memory and, for tiles of more than 64 rows whose
+    outputs' rows are a multiple of 16 bytes (N * esize; `esize` the bytes
+    of an element of x and the outputs, 2 or 4), a staging tile of BM x 64
+    outputs per consumer warpgroup for its TMA stores; the rest goes to the
+    weight rings, as deep as it allows (up to 8 stages), and a tile of at
+    most 64 rows keeps two blocks on an SM where two fit with 3 stages
+    each. The rows: where tiles of 128 or 112 rows alone give every SM a
+    block, the ones that put the fewest rows on the busiest SM, largest
+    first at a tie (the serving shape's 27,392: 245 tiles of 112, two
+    rounds, 224 rows, where 214 tiles of 128 put 256 there; measured 0.92x
+    in fp32 on an H100 with the same epilogue, utils/kernel_variants.py);
+    else 64 where those tiles give every SM a block, else 32, and the 3 *
+    ceil(N / 128) units shared out over the fewest groups that give every
+    SM a block (the text tower's 1,155 rows: 37 tiles of 32 x 4 groups).
+    `rows` takes a form other than the plan's (utils/kernel_variants.py
+    times them). Raises for rows too long for even 32 of them with 3
+    stages, or for a `rows` that does not fit."""
     if min(M, K, N) <= 0:
         raise ValueError(f"w8a8 q/k/v plan: M={M}, K={K}, N={N}")
+    if esize not in (2, 4):
+        raise ValueError(f"w8a8 q/k/v plan: elements of {esize} bytes")
     slab, max_stages, unit_cols, static = _QKV_LAYOUT
     kp = _round_up(K, 128)
 
+    def staging(rows):
+        return 2 * rows * 64 * esize if rows > 64 and N * esize % 16 == 0 \
+            else 0
+
     def smem(rows, stages):
-        return 1024 + rows * kp + 2 * stages * slab + 4 * rows
+        return (1024 + rows * kp + 2 * stages * slab + staging(rows)
+                + 4 * rows)
 
     def form(rows):
         """(stages, blocks per SM) of a tile of `rows`, or None."""
@@ -548,20 +568,34 @@ def w8a8_qkv_plan(M: int, K: int, N: int, sm_count: int,
                 return stages, per_sm
         return None
 
-    fits = {r: form(r) for r in _QKV_ROWS if form(r)}
-    if not fits:
-        raise ValueError(f"w8a8 q/k/v: rows of K={K} do not fit the "
-                         f"kernel's shared-memory code tile ({smem_limit} "
-                         f"bytes a block)")
-    rows = next((r for r in fits if -(-M // r) >= sm_count), min(fits))
-    stages, per_sm = fits[rows]
+    # tiles of one block to an SM where they alone give every SM a block,
+    # else two smaller ones to an SM
+    wide = [r for r in _QKV_WIDE_ROWS if -(-M // r) >= sm_count and form(r)]
+    small = [r for r in _QKV_ROWS if form(r)]
+    if rows is None:
+        if wide:   # the fewest rows on the busiest SM, largest first at a tie
+            rows = min(wide, key=lambda r: (-(-(-(-M // r)) // sm_count) * r,
+                                            -r))
+        elif small:
+            rows = next((r for r in small if -(-M // r) >= sm_count),
+                        small[-1])
+        else:
+            raise ValueError(f"w8a8 q/k/v: rows of K={K} do not fit the "
+                             f"kernel's shared-memory code tile "
+                             f"({smem_limit} bytes a block)")
+    elif rows not in wide + small:
+        raise ValueError(f"w8a8 q/k/v: {rows} rows of M={M}, K={K} do not "
+                         f"fit")
+    stages, per_sm = form(rows)
     tiles = -(-M // rows)
     total = 3 * -(-N // unit_cols)
-    splits = [d for d in range(1, total + 1) if total % d == 0]
-    split = next((d for d in splits if tiles * d >= sm_count), total)
+    split = 1
+    if rows in _QKV_ROWS:
+        splits = [d for d in range(1, total + 1) if total % d == 0]
+        split = next((d for d in splits if tiles * d >= sm_count), total)
     return {"rows": rows, "units": total // split, "grid": (tiles, split),
             "blocks": tiles * split, "per_sm": per_sm, "stages": stages,
-            "smem_bytes": smem(rows, stages)}
+            "staging": staging(rows), "smem_bytes": smem(rows, stages)}
 
 
 def w8a8_matmul_plan(M: int, K: int, N: int, sm_count: int,

@@ -33,6 +33,16 @@ _WG = "gava_clip_tpu_torch/csrc/w8a8_wgmma.cuh"
 _B7 = "gava_clip_tpu_torch/csrc/streaming_attention.cu"
 _B5 = "gava_clip_tpu_torch/csrc/w8a8_mlp.cuh"
 _B4 = _B12
+_B3 = "gava_clip_tpu_torch/csrc/w8a8_qkv.cu"
+# w8a8_qkv.cu's TMA stores of a unit's staging tile
+_B3_STORES = ("      if (ct % 128 == 0) {\n"
+              "        const CUtensorMap* map = w == 0 ? &yq : (w == 1 ? &yk : &yv);\n"
+              "#pragma unroll\n"
+              "        for (int b = 0; b < kBoxes; ++b)\n"
+              "          tma_store(map, stg + b * BM * 128, (u % NS) * kUnitCols + wg * 64 + "
+              "b * kBoxCols, m0);\n"
+              "        bulk_commit();\n"
+              "      }\n")
 _MEGA = "gava_clip_tpu_torch/csrc/mega_layer.cu"
 _B10 = "gava_clip_tpu_torch/csrc/fused_extras.cu"
 _B7B = "gava_clip_tpu_torch/csrc/attention_bwd.cuh"
@@ -171,6 +181,20 @@ MUTANTS = {
                 ("  for (int i = 0; i < kMaxRowPerLane; ++i) m = fmaxf(m, "
                  "fabsf(v[i]));",
                  "  for (int i = 0; i < 2; ++i) m = fmaxf(m, fabsf(v[i]));")],
+        "phase_w8a8_kernels", "w8a8_matmul3_cat B="),
+    # B3: each unit's staging tile stored one phase early, before the
+    # warpgroup writes it: the output columns get the tile's previous
+    # contents (the unit before, or nothing yet)
+    "b3_tile_stored_before_written": (
+        _B3, [("      if (ct % 128 == 0) bulk_wait_read();\n      named_sync(1 + wg, 128);\n",
+               "      if (ct % 128 == 0) bulk_wait_read();\n      named_sync(1 + wg, 128);\n"
+               + _B3_STORES),
+              (_B3_STORES + "    } else if", "    } else if")],
+        "phase_w8a8_kernels", "w8a8_matmul3_cat B="),
+    # B3: the block's last unit never stored (its TMA stores dropped)
+    "b3_last_unit_dropped": (
+        _B3, [("      if (ct % 128 == 0) {\n        const CUtensorMap* map",
+               "      if (ct % 128 == 0 && u + 1 < u1) {\n        const CUtensorMap* map")],
         "phase_w8a8_kernels", "w8a8_matmul3_cat B="),
     # B4: each row's absmax over the first 4 heads only
     "b4_absmax_first_4_heads": (

@@ -4,6 +4,7 @@ and time each against the same yardstick, in turns.
 
     python3 -m gava_clip_tpu_torch.utils.kernel_variants [b1 b9 b7 b5 b3 b4 b2 mega b10 b7b f32b9 f32b7b f32b4 f32b11]   # repo root, on a card
     python3 -m gava_clip_tpu_torch.utils.kernel_variants b5_as_is b5_parent b5_split   # B5, its parent and the parent's split
+    python3 -m gava_clip_tpu_torch.utils.kernel_variants b3_as_is b3_parent b3_split   # B3 the same way
     python3 -m gava_clip_tpu_torch.utils.kernel_variants e2e   # the parent's tree against this one
 
 B1 / B6a (csrc/packed_attention.cu, the den entry) against
@@ -33,10 +34,16 @@ bounds-checked, one W2^T slab per warpgroup in fc2, no QuickGELU (wrong
 outputs), and the parent's kernel cut off to show where its time goes
 (`b5_split_*`: stopped after phase 0, after either fc1 pass, the first
 pass's epilogue, the code stores or the residual read left out; wrong
-outputs). B3 (csrc/w8a8_qkv.cu)
-at the serving shape in its launch forms (rows per block x ring stages,
-B3_FORMS), without the LayerNorm (wrong outputs), and B3a at the text
-shape in CUDA graphs by rows and units per block. B4
+outputs). B3 (csrc/w8a8_qkv.cu) in bf16 and fp32 at B3_SHAPES (B3's
+frame rows, B3a's 27,392 training rows with LN1, the text tower's 1,155
+rows), each variant's outputs held to the parent commit's kernel
+(`b3_parent`, with the parent's launch plan) bit for bit there and at
+B3_RAGGED_SHAPES, and timed in CUDA graphs in turns with it: the source as
+it is, on 128-row tiles (B3_PLAN_FORMS), the parent's kernel on 112-row
+tiles (`b3_parent_112`: the epilogue's stores from the registers), and the
+parent's kernel cut off to show where its time went (`b3_split_*`: stopped
+after phase 0, without phase 0, without the epilogue, the epilogue without
+its stores; wrong outputs). B4
 (csrc/attention_out_int8.cu) at the serving shape: exp2f, two or three K/V
 stages, and four that drop a part to show where the time goes (score
 products, AV products, the fp32 scratch round trip, the out-projection's
@@ -129,6 +136,11 @@ _PARENT_SIGNATURES = {
 _PARENT_SIGNATURES[_B2] = {
     # x, W^T, s, b, y; M, K, N; stream
     "w8a8_matmul_bf16": ([_VP] * 5 + [_I] * 3 + [_VP], _I)}
+_PARENT_SIGNATURES[_B3] = {
+    # x, e, Wq, Wk, Wv, sq, sk, sv, bq, bk, bv, gamma, beta, oq, ok, ov; B,
+    # Lx, Le, K, N, rows, units, stages, smem; stream
+    "w8a8_qkv_cat_bf16": ([_VP] * 16 + [_I] * 9 + [_VP], _I),
+    "w8a8_qkv_cat_f32": ([_VP] * 16 + [_I] * 9 + [_VP], _I)}
 _PARENT_SIGNATURES[_MEGA] = {
     # the parent's entry points take the same arguments as this tree's
     "mega_layer_bf16": ([_VP] * 26 + [_I] * 7 + [_VP], _I),
@@ -143,7 +155,7 @@ PARENT_VARIANTS = {"b10_parent": _B10, "b7b_parent": _B7B,
                    "b2_parent": _B2, "mega_parent": _MEGA,
                    "f32b9_parent": _W8F32, "f32b7b_parent": _F32,
                    "f32b4_parent": _F32, "f32b11_parent": _F32,
-                   "b5_parent": _B5}
+                   "b5_parent": _B5, "b3_parent": _B3}
 # B5's parent (the parent commit's w8a8_mlp.cuh, QuickGELU in both fc1
 # passes) cut off, to show where its time goes (wrong outputs): name ->
 # [(old, new)] on the parent's source. The producer streams what the cut
@@ -194,6 +206,50 @@ PARENT_CUTS = {
         "store_as(y + at, kRes ? __fadd_rn(v, to_f32(r[at])) : v);",
         "store_as(y + at, kRes ? __fadd_rn(v, 0.f) : v);")]),
 }
+# B3's parent (the parent commit's w8a8_qkv.cu: a block a row tile, phase 0
+# by all its warps, then its units, each unit's epilogue after its
+# products) cut off, to show where its time goes (wrong outputs)
+_B3P_EPILOGUE_HEAD = ("    const int w = u / NS;\n"
+                      "    // acc[4c + 2h + e] is out^T[col0 + 8h][row 8c + 2t + e]\n")
+_B3P_STORES = ("          if (FULL) {\n"
+               "            store_pair(y, v.x, v.y);\n"
+               "          } else if (m < p.M) {\n"
+               "            if (col < p.N) store_as(y, v.x);\n"
+               "            if (col + 1 < p.N) store_as(y + 1, v.y);\n"
+               "          }\n")
+PARENT_CUTS.update({
+    # the parent's kernel on 112-row tiles (its plan with 112 rows: 245
+    # blocks, two rounds at most on an SM, B3_PARENT_ROWS), bit-equal
+    "b3_parent_112": (_B3, [
+        ("  if ((rows != 128 && rows != 64 && rows != 32) || units <= 0 ||",
+         "  if ((rows != 128 && rows != 112 && rows != 64 && rows != 32) || units <= 0 ||"),
+        ("    case 128: return launch_rows<128>(maps, p, grid_y, smem, st);",
+         "    case 128: return launch_rows<128>(maps, p, grid_y, smem, st);\n"
+         "    case 112: return launch_rows<112>(maps, p, grid_y, smem, st);")]),
+    # phase 0 alone (LayerNorm and quant of the block's rows)
+    "b3_split_phase0": (_B3, [(
+        "  __syncthreads();\n\n  if (threadIdx.x < 128) {",
+        "  __syncthreads();\n  return;\n\n  if (threadIdx.x < 128) {")]),
+    # no phase 0: the products and the epilogue on the codes and scales
+    # that shared memory happens to hold
+    "b3_split_no_phase0": (_B3, [("  quant_tile<BM>(\n",
+                                  "  if (false) quant_tile<BM>(\n")]),
+    # phase 0 and the products, no epilogue
+    "b3_split_no_epilogue": (_B3, [(
+        _B3P_EPILOGUE_HEAD,
+        "    const int w = u / NS;\n"
+        "    if (acc[0] == 0x7fffffff) store_as(p.out[w], 0.f);\n"
+        "    continue;\n" + _B3P_EPILOGUE_HEAD[len("    const int w = u / NS;\n"):])]),
+    # the epilogue's values computed (the lane pairs' swaps too), none
+    # stored
+    "b3_split_no_stores": (_B3, [
+        ("    T* out = p.out[w];\n", "    T* out = p.out[w];\n    float sink = 0.f;\n"),
+        (_B3P_STORES, "          sink = __fadd_rn(sink, __fadd_rn(v.x, v.y));\n"
+                      "          (void)y;\n"),
+        ("      store(std::false_type{});\n  }\n}",
+         "      store(std::false_type{});\n"
+         "    if (sink == 1.5f) store_as(out, sink);\n  }\n}")]),
+})
 # w8_matmul_f32.cu's products of one k8 step and their handling
 _F32B9_STEP = ("      tf32::wgmma_fence();\n"
                "      step3(f, ah, al, bh, bl);\n"
@@ -689,10 +745,8 @@ VARIANTS = {
     "b5_fc2_one_slab": (_B5, [("constexpr int kW2Slabs = 2;",
                                "constexpr int kW2Slabs = 1;")]),
     "b3_as_is": (_B3, []),
-    # where the time goes (wrong outputs): no LayerNorm in phase 0
-    "b3_no_layernorm": (_B3, [(
-        "      p.K, p.Kp, p.gamma, p.beta, warp, kWarpsQkv, lane);",
-        "      p.K, p.Kp, nullptr, nullptr, warp, kWarpsQkv, lane);")]),
+    # the same source on 128-row tiles (B3_PLAN_FORMS)
+    "b3_rows_128": (_B3, []),
     "b4_as_is": (_B4, []),
     # exp2f (with its handling of subnormal results) instead of
     # ex2.approx.ftz
@@ -820,9 +874,24 @@ B5_TILE2 = {"b5_fc2_one_slab": 16384}   # the others: 32,768
 # (M, K, hidden, N, B5_FALLBACK_ROWS take the full first pass?): the
 # serving shape, timed; chip_smoke's fallback shape
 B5_SHAPES = ((25216, 768, 3072, 768, False), (200, 768, 3072, 768, True))
-# B3's launch forms timed at the serving shape: (rows per block, ring
-# stages); the source variants take the first
-B3_FORMS = ((128, 8), (128, 3), (64, 3))
+# (B, Lx, Le, K, N, LayerNorm?) of B3: the fp32 w8a8 evaluation's frame
+# rows (B3), the int8 training step's 27,392 kv rows with LN1 (B3a), the
+# text tower's 1,155 rows (B3a, no LayerNorm); each in bf16 and fp32
+B3_SHAPES = ((128, 197, 17, 768, 768, True), (1, 27392, 0, 768, 768, True),
+             (1, 1155, 0, 512, 512, False))
+# the other shapes of chip_smoke's B3 checks (W8A8_QKV_SHAPES,
+# F32_B3_SHAPES, F32_B3A_SHAPES: ragged ones, the long clip's 280 frame
+# rows), held bit for bit and not timed
+B3_RAGGED_SHAPES = ((3, 13, 5, 96, 40, True), (4, 21, 0, 768, 768, True),
+                    (2, 9, 0, 64, 19, True), (1, 200, 0, 1100, 77, True),
+                    (1, 37, 0, 100, 40, False), (280, 197, 17, 768, 768, True))
+# rows per tile of the parent-source variants launched in another form than
+# the parent's plan (the rest of its plan kept, the shared bytes recounted)
+B3_PARENT_ROWS = {"b3_parent_112": 112}
+# the launch plan of a B3 variant other than the plan's own: name ->
+# keyword arguments of ops.int8_matmul.w8a8_qkv_plan (a shape where the
+# form does not fit keeps the plan's)
+B3_PLAN_FORMS = {"b3_rows_128": {"rows": 128}}
 # (B, Lq, heads) of B7's causal forward: the text tower, a longer L
 B7_SHAPES = ((15, 77, 8), (4, 1024, 8))
 ATTN_SHAPES = ((128, 197, 214, 12), (280, 197, 276, 12))
@@ -837,7 +906,8 @@ def _build(name):
             _cuda._SIGNATURES[_LIB[path]]
     elif name in PARENT_CUTS:
         (path, edits), root = PARENT_CUTS[name], PARENT
-        signatures = _cuda._SIGNATURES[_LIB[path]]
+        signatures = _PARENT_SIGNATURES.get(path) or \
+            _cuda._SIGNATURES[_LIB[path]]
     else:
         (path, edits), root = VARIANTS[name], ROOT
         signatures = _cuda._SIGNATURES[_LIB[path]]
@@ -877,7 +947,7 @@ def _build(name):
     if res.returncode:
         raise RuntimeError(f"nvcc failed for {name}:\n{res.stderr}")
     lib = ctypes.CDLL(so)
-    if path == _B5:
+    if path in (_B5, _B3):
         lib.ptxas_summary = _ptxas_summary(res.stdout + res.stderr)
     for fn, (argtypes, restype) in signatures.items():
         if path == _B5 and not hasattr(lib, fn):
@@ -1168,92 +1238,120 @@ def _turns_vs(cs, calls, base, state):
                   flush=True)
 
 
+def _parent_function(relpath, name, names):
+    """Function `name` of the parent tree's module `relpath`, with the
+    module-level constants and helpers `names` it reads (taken from its
+    source; the module itself is not imported)."""
+    import ast
+    import typing
+    with open(os.path.join(PARENT, relpath)) as f:
+        tree = ast.parse(f.read())
+    keep = [n for n in tree.body
+            if (isinstance(n, ast.FunctionDef) and n.name in (name, *names))
+            or (isinstance(n, ast.Assign) and isinstance(n.targets[0], ast.Name)
+                and n.targets[0].id in names)]
+    env = {k: getattr(typing, k) for k in ("Dict", "Optional", "Sequence",
+                                           "Tuple")}
+    exec(compile(ast.Module(body=keep, type_ignores=[]), relpath, "exec"), env)
+    return env[name]
+
+
 def _b3_variants(cs, im, libs, gen, stream, state):
-    """B3 at the serving shape (B 128, Lx 197, Le 17, K = N = 768): the
-    source as it is in each launch form of B3_FORMS (rows per block, ring
-    stages) and each source variant in the first, all held to the bits of
-    the first and timed in turns with it. Then B3a at the text shape
-    (1,155 x 512, no LayerNorm) in CUDA graphs: 64 rows a block and one
-    unit (128 columns of one output) each, against other rows and units
-    per block."""
+    """B3 at B3_SHAPES in bf16 and fp32: each variant's three outputs
+    against those of the parent's kernel (`b3_parent`, launched with the
+    parent's plan; else the source as it is) bit for bit, and their share
+    != plain; its time in CUDA graphs and in turns with that kernel there
+    (median of 7 rounds). The parent's cuts (`b3_split_*`) and `b3_parent`
+    take the parent's entry points and plan, the others this tree's."""
     import torch
-    B, Lx, Le, K, N = 128, 197, 17, 768, 768
-    bf = torch.bfloat16
-    x = torch.randn(B, Lx, K, generator=gen, device="cuda").to(bf)
-    e = torch.randn(B, Le, K, generator=gen, device="cuda").to(bf)
-    ln = [t.contiguous() for t in cs._ln_params(gen, K)]
-    k3 = [cs._qleaf(gen, K, N) for _ in range(3)]
-    b3 = [torch.randn(N, generator=gen, device="cuda") * 0.02
-          for _ in range(3)]
-    s3 = [k["scale"].reshape(-1).float().contiguous() for k in k3]
-    ref = torch.cat(im.w8a8_matmul3_cat_plain(x, e, k3, b3, ln), dim=-1)
+    base = "b3_parent" if "b3_parent" in libs else "b3_as_is"
+    names = sorted((n for n in libs if n.startswith("b3")),
+                   key=lambda n: (n != base, n))
+    for name in names:
+        print(f"[variants] {name} ptxas: {libs[name].ptxas_summary}",
+              flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    parent_plan = None
+    if any(n.startswith(("b3_parent", "b3_split")) for n in names):
+        parent_plan = _parent_function(
+            "gava_clip_tpu_torch/ops/int8_matmul.py", "w8a8_qkv_plan",
+            ("_QKV_LAYOUT", "_QKV_ROWS", "_QKV_MIN_STAGES",
+             "_SM90_SMEM_PER_SM", "_BLOCK_RESERVED_SMEM", "_round_up"))
+    for B, Lx, Le, K, N, with_ln in B3_SHAPES + B3_RAGGED_SHAPES:
+        M = B * (Lx + Le)
+        timed = (B, Lx, Le, K, N, with_ln) in B3_SHAPES
+        x32 = torch.randn(B, Lx, K, generator=gen, device="cuda")
+        e32 = torch.randn(B, Le, K, generator=gen, device="cuda")
+        ln = [t.contiguous() for t in cs._ln_params(gen, K)] if with_ln \
+            else None
+        k3 = [cs._qleaf(gen, K, N) for _ in range(3)]
+        w3 = [im._tma_rows(k["qa_t"]) for k in k3]   # as the wrapper pads them
+        b3 = [torch.randn(N, generator=gen, device="cuda") * 0.02
+              for _ in range(3)]
+        s3 = [k["scale"].reshape(-1).float().contiguous() for k in k3]
+        label = f"B={B} Lx={Lx} Le={Le} K={K} N={N} LN {with_ln}"
+        for dt in (torch.bfloat16, torch.float32):
+            form = "bf16" if dt == torch.bfloat16 else "f32"
+            x, e = x32.to(dt), e32.to(dt)
+            ref = torch.cat(im.w8a8_matmul3_cat_plain(
+                x, e if Le else None, k3, b3, ln), dim=-1)
+            calls, outs = {}, {}
+            for name in names:
+                old = name.startswith(("b3_parent", "b3_split"))
+                if old:
+                    plan = parent_plan(M, K, N, sms, 232448)
+                    rows = B3_PARENT_ROWS.get(name)
+                    if rows and plan["rows"] == 128:
+                        kp = -(-K // 128) * 128
+                        plan = dict(plan, rows=rows,
+                                    smem_bytes=plan["smem_bytes"]
+                                    - (128 - rows) * (kp + 4))
+                else:
+                    pform = B3_PLAN_FORMS.get(name, {})
+                    try:
+                        plan = im.w8a8_qkv_plan(M, K, N, sms, 232448,
+                                                esize=x.element_size(), **pform)
+                    except ValueError:   # a form this shape does not take
+                        plan = im.w8a8_qkv_plan(
+                            M, K, N, sms, 232448, esize=x.element_size(),
+                            **{k: v for k, v in pform.items() if k != "rows"})
+                tail = (plan["rows"], plan["units"], plan["stages"],
+                        plan["smem_bytes"])
+                o3 = [torch.empty(B, Lx + Le, N, dtype=dt, device="cuda")
+                      for _ in range(3)]
 
-    def forms(name, lib):
-        for rows, stages in B3_FORMS if name == "b3_as_is" else B3_FORMS[:1]:
-            yield (f"{name}_{rows}_rows_{stages}_stages", lib, rows, stages,
-                   1024 + rows * K + 2 * stages * 8192 + 4 * rows)
-
-    calls, outs = {}, {}
-    for name, lib in sorted(libs.items(), key=lambda kv: kv[0] != "b3_as_is"):
-        if not name.startswith("b3"):
-            continue
-        for label, lib_, rows, stages, smem in forms(name, lib):
-            o3 = [torch.empty(B, Lx + Le, N, dtype=bf, device="cuda")
-                  for _ in range(3)]
-
-            def call(lib=lib_, rows=rows, stages=stages, smem=smem, o3=o3):
-                err = lib.w8a8_qkv_cat_bf16(
-                    x.data_ptr(), e.data_ptr(),
-                    *(k["qa_t"].data_ptr() for k in k3),
-                    *(t.data_ptr() for t in s3), *(t.data_ptr() for t in b3),
-                    ln[0].data_ptr(), ln[1].data_ptr(),
-                    *(o.data_ptr() for o in o3), B, Lx, Le, K, N, rows, 18,
-                    stages, smem, stream)
-                if err:
-                    raise RuntimeError(f"{label}: launch failed ({err})")
-            call()
-            torch.cuda.synchronize()
-            y = torch.cat(o3, dim=-1)
-            outs[label], calls[label] = y, call
-            share = (y != ref).float().mean().item()
-            base = f"b3_as_is_{B3_FORMS[0][0]}_rows_{B3_FORMS[0][1]}_stages"
-            same = torch.equal(y, outs[base])
-            print(f"[variants] {label} B={B} Lx={Lx} Le={Le} K={K} N={N}: "
-                  f"outputs != plain {share:.3e}, bit-equal to b3_as_is: "
-                  f"{same}; {cs.cuda_time_ms(call, iters=10):.4f} ms "
-                  f"({state['smi']})", flush=True)
-    _turns_vs(cs, calls, f"b3_as_is_{B3_FORMS[0][0]}_rows_{B3_FORMS[0][1]}_stages",
-              state)
-    lib = libs.get("b3_as_is")
-    if lib is None:
-        return
-    M, K = 1155, 512
-    xt = torch.randn(1, M, K, generator=gen, device="cuda").to(bf)
-    t3 = [cs._qleaf(gen, K, K) for _ in range(3)]
-    tb = [torch.randn(K, generator=gen, device="cuda") * 0.02
-          for _ in range(3)]
-    ts = [k["scale"].reshape(-1).float().contiguous() for k in t3]
-    o3 = [torch.empty(1, M, K, dtype=bf, device="cuda") for _ in range(3)]
-    graphs = {}
-    for rows, units in ((64, 1), (64, 2), (64, 3), (32, 1), (32, 3), (128, 1)):
-        def call(rows=rows, units=units):
-            err = lib.w8a8_qkv_cat_bf16(
-                xt.data_ptr(), None, *(k["qa_t"].data_ptr() for k in t3),
-                *(t.data_ptr() for t in ts), *(t.data_ptr() for t in tb),
-                None, None, *(o.data_ptr() for o in o3), 1, M, 0, K, K,
-                rows, units, 4, 1024 + rows * K + 8 * 8192 + 4 * rows,
-                torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"B3a {rows} rows: launch failed ({err})")
-        graphs[f"b3a_{rows}_rows_{units}_units"] = call
-    base = "b3a_64_rows_1_units"
-    for name, call in graphs.items():
-        if name != base:
-            r = cs._ratio_graphs(call, graphs[base])
-            print(f"[variants] {name} vs {base} (the plan's) at M={M} K={K}"
-                  f", CUDA graphs of {cs.GRAPH_LAUNCHES}: {r[0]:.5f} ms vs "
-                  f"{r[1]:.5f} ms a launch, ratio {r[2]:.3f} (rounds "
-                  f"{r[3]:.3f}-{r[4]:.3f}) ({state['smi']})", flush=True)
+                def call(fn=getattr(libs[name], f"w8a8_qkv_cat_{form}"),
+                         tail=tail, o3=o3, x=x, e=e, name=name):
+                    err = fn(x.data_ptr(), e.data_ptr() if Le else None,
+                             *(w.data_ptr() for w in w3),
+                             *(t.data_ptr() for t in s3),
+                             *(t.data_ptr() for t in b3),
+                             ln[0].data_ptr() if ln else None,
+                             ln[1].data_ptr() if ln else None,
+                             *(o.data_ptr() for o in o3), B, Lx, Le, K, N,
+                             *tail, torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"{name}: launch failed ({err})")
+                call()
+                torch.cuda.synchronize()
+                y = torch.cat(o3, dim=-1)
+                calls[name], outs[name] = call, y
+                share = (y != ref).float().mean().item()
+                print(f"[variants] {name} {form} {label}: plan {plan}; "
+                      f"bit-equal to {base}: {torch.equal(y, outs[base])}; "
+                      f"outputs != plain {share:.3e}", flush=True)
+            for name, call in calls.items() if timed else ():
+                print(f"[variants] {name} {form} {label}: "
+                      f"{_graph_ms(cs, call):.5f} ms in CUDA graphs of "
+                      f"{cs.GRAPH_LAUNCHES} ({state['smi']})", flush=True)
+                if name != base:
+                    t = cs._ratio_graphs(call, calls[base])
+                    print(f"[variants] {name} vs {base} {form} {label}, "
+                          f"CUDA graphs, median of 7 rounds in turns: "
+                          f"{t[0]:.5f} ms vs {t[1]:.5f} ms, ratio "
+                          f"{t[2]:.3f} (rounds {t[3]:.3f}-{t[4]:.3f}) "
+                          f"({state['smi']})", flush=True)
+            del calls, outs
 
 
 def _b4_variants(cs, fa, im, libs, gen, stream, state):

@@ -115,6 +115,9 @@ def test_qkv_layout_is_the_kernel_source_s():
     c = _cuda_constants("w8a8_wgmma.cuh", "w8a8_qkv.cu")
     assert tim._QKV_LAYOUT == (c["kSlabBytes"], c["kMaxStages"],
                                c["kUnitCols"], c["kStaticBytes"])
+    # the static barriers (the two rings' full / empty) fit the static
+    # bytes the plan leaves them
+    assert 8 * 4 * c["kMaxStages"] <= c["kStaticBytes"]
 
 
 def test_attention_out_layout_is_the_kernel_source_s():
@@ -153,40 +156,126 @@ def test_layout_check_before_first_launch(fn, want):
         tim.check_layout(_FakeLayoutLib(fn, bad), fn, want)
 
 
-def _qkv_smem(rows, K, stages):
-    """The kernel's count (w8a8_qkv.cu smem_bytes): slack, the code tile,
-    the two rings, the row scales."""
+def _qkv_smem(rows, K, N, stages, esize):
+    """The kernel's count (w8a8_qkv.cu smem_bytes, staging_bytes): slack,
+    the code tile, the two rings, the two staging tiles of BM x 64 outputs
+    where the outputs' rows are a multiple of 16 bytes, the row scales."""
     slab = tim._QKV_LAYOUT[0]
-    return 1024 + rows * (-(-K // 128) * 128) + 2 * stages * slab + 4 * rows
+    staging = 2 * rows * 64 * esize if rows > 64 and N * esize % 16 == 0 \
+        else 0
+    return (1024 + rows * (-(-K // 128) * 128) + 2 * stages * slab + staging
+            + 4 * rows)
 
 
+# (M, K, N): the serving shape (B3 and B3a: 27,392 kv rows), no extras rows
+# (25,216), chip_smoke's ragged shapes, the text tower (1,155 x 512), the
+# longest rows of before, a card's worth of 128-row tiles, the fp32 w8a8
+# evaluation at batch 64 (13,696), the long clip's 4 x 70 x 214 kv rows
+@pytest.mark.parametrize("esize", [2, 4])
 @pytest.mark.parametrize("M,K,N,rows,grid,per_sm,stages", [
-    (128 * 214, 768, 768, 128, (214, 1), 1, 8),   # the serving shape (B3)
-    (128 * 197, 768, 768, 128, (197, 1), 1, 8),   # no extras rows
-    (3 * 18, 96, 40, 32, (2, 3), 2, 6),           # chip_smoke's ragged shapes
-    (4 * 21, 768, 768, 32, (3, 18), 2, 5),
-    (2 * 9, 64, 19, 32, (1, 3), 2, 6),
-    (1155, 512, 512, 32, (37, 4), 2, 5),          # B3a: the text tower
-    (100, 3456, 768, 32, (4, 18), 1, 7),          # the longest rows of before
+    (128 * 214, 768, 768, 112, (245, 1), 1, (7, 5)),
+    (128 * 197, 768, 768, 112, (226, 1), 1, (7, 5)),
+    (3 * 18, 96, 40, 32, (2, 3), 2, (6, 6)),
+    (4 * 21, 768, 768, 32, (3, 18), 2, (5, 5)),
+    (2 * 9, 64, 19, 32, (1, 3), 2, (6, 6)),
+    (1155, 512, 512, 32, (37, 4), 2, (5, 5)),
+    (200, 1100, 77, 32, (7, 3), 2, (4, 4)),
+    (37, 100, 40, 32, (2, 3), 2, (6, 6)),
+    (100, 3456, 768, 32, (4, 18), 1, (7, 7)),
+    (132 * 128, 768, 768, 128, (132, 1), 1, (6, 4)),
+    (64 * 214, 768, 768, 64, (214, 1), 2, (3, 3)),
+    (280 * 214, 768, 768, 128, (469, 1), 1, (6, 4)),
 ])
 def test_w8a8_qkv_plan_at_checked_shapes(M, K, N, rows, grid, per_sm,
-                                         stages):
-    """Every shape chip_smoke checks (W8A8_QKV_SHAPES and B3a's) gets a
-    plan whose shared bytes are the kernel's count and fit a block (and
-    two where two share an SM); the grid covers every row and every unit
-    exactly once."""
-    p = tim.w8a8_qkv_plan(M, K, N, _H100_SMS, _H100_SMEM_OPTIN)
+                                         stages, esize):
+    """Every shape chip_smoke checks (W8A8_QKV_SHAPES, F32_B3_SHAPES,
+    F32_B3A_SHAPES and B3a's), in bf16 and fp32 (`stages`: each's ring
+    depth), gets a plan whose shared bytes are the kernel's count and fit a
+    block (and two where two share an SM); the grid covers every row and
+    every unit exactly once."""
+    p = tim.w8a8_qkv_plan(M, K, N, _H100_SMS, _H100_SMEM_OPTIN, esize=esize)
     assert (p["rows"], p["grid"], p["per_sm"], p["stages"]) == \
-        (rows, grid, per_sm, stages)
+        (rows, grid, per_sm, stages[esize // 4])
     tiles, split = p["grid"]
     assert tiles * p["rows"] >= M > (tiles - 1) * p["rows"]
     assert p["units"] * split == 3 * -(-N // 128)
     assert p["blocks"] == tiles * split
     assert 3 <= p["stages"] <= tim._QKV_LAYOUT[1]
-    assert p["smem_bytes"] == _qkv_smem(p["rows"], K, p["stages"])
+    assert p["smem_bytes"] == _qkv_smem(p["rows"], K, N, p["stages"], esize)
     assert p["smem_bytes"] + tim._QKV_LAYOUT[3] <= _H100_SMEM_OPTIN
     assert p["per_sm"] * (p["smem_bytes"] + tim._QKV_LAYOUT[3] + 1024) \
         <= tim._SM90_SMEM_PER_SM
+
+
+def test_w8a8_qkv_plan_stages_the_tiles_only_where_tma_stores_them():
+    """The staging tiles (one per consumer warpgroup, BM x 64 outputs) are
+    planned for tiles of more than 64 rows whose outputs' rows are a
+    multiple of 16 bytes (TMA's stride rule), where the kernel stages them;
+    elsewhere the epilogue stores from the registers and the rings take the
+    room (two blocks of up to 64 rows to an SM keep theirs)."""
+    p = tim.w8a8_qkv_plan(27392, 768, 768, _H100_SMS, _H100_SMEM_OPTIN,
+                          esize=4)
+    assert p["staging"] == 2 * 112 * 64 * 4
+    for N, esize in ((77, 2), (77, 4), (19, 4), (36, 2)):
+        q = tim.w8a8_qkv_plan(27392, 768, N, _H100_SMS, _H100_SMEM_OPTIN,
+                              esize=esize)
+        assert q["staging"] == 0 and q["stages"] == 8
+    assert tim.w8a8_qkv_plan(27392, 768, 36, _H100_SMS, _H100_SMEM_OPTIN,
+                             esize=4)["staging"] > 0
+    assert tim.w8a8_qkv_plan(1155, 512, 512, _H100_SMS, _H100_SMEM_OPTIN,
+                             esize=4)["staging"] == 0
+    with pytest.raises(ValueError):
+        tim.w8a8_qkv_plan(200, 768, 36, _H100_SMS, _H100_SMEM_OPTIN, esize=8)
+
+
+def _qkv_schedule(p, sms):
+    """A Python mirror of the kernel's blocks (w8a8_qkv.cu: block b takes row
+    tile b // groups and units (b % groups) * units .. + units) placed on
+    the SMs as the card places a grid, each slot (per_sm of them an SM)
+    taking the next block as it frees: {sm: [(tile, unit), ...]}, the
+    rounds of equal blocks in turn."""
+    tiles, groups = p["grid"]
+    out = {sm: [] for sm in range(sms)}
+    for b in range(p["blocks"]):
+        sm = b % (sms * p["per_sm"]) // p["per_sm"]
+        out[sm] += [(b // groups, b % groups * p["units"] + j)
+                    for j in range(p["units"])]
+    return out
+
+
+@pytest.mark.parametrize("M,K,N", [
+    (128 * 214, 768, 768), (128 * 197, 768, 768), (1155, 512, 512),
+    (3 * 18, 96, 40), (4 * 21, 768, 768), (2 * 9, 64, 19), (200, 1100, 77),
+    (100, 3456, 768), (132 * 128, 768, 768), (64 * 214, 768, 768),
+    (27392, 1100, 77), (4000, 768, 768), (1, 768, 768), (280 * 214, 768, 768),
+])
+def test_w8a8_qkv_schedule_covers_every_tile_and_unit_once(M, K, N):
+    """The blocks cover every (row tile, unit) exactly once, and no SM takes
+    more than one round of blocks above another."""
+    p = tim.w8a8_qkv_plan(M, K, N, _H100_SMS, _H100_SMEM_OPTIN)
+    tiles, groups = p["grid"]
+    sched = _qkv_schedule(p, _H100_SMS)
+    seen = [tu for work in sched.values() for tu in work]
+    assert sorted(seen) == [(t, u) for t in range(tiles)
+                            for u in range(3 * -(-N // 128))]
+    rounds = [-(-len(work) // (p["units"] * p["per_sm"]))
+              for work in sched.values()]
+    assert max(rounds) - min(rounds) <= 1
+
+
+def test_w8a8_qkv_plan_spreads_the_serving_rows_evenly():
+    """At the serving shape the busiest SM takes 224 rows (two tiles of
+    112) where 128-row tiles gave it 256: 93% of the SM-rounds busy against
+    81%; the plan picks the rows that put the fewest on the busiest SM."""
+    M = 128 * 214
+    p = tim.w8a8_qkv_plan(M, 768, 768, _H100_SMS, _H100_SMEM_OPTIN)
+    rounds = -(-p["blocks"] // _H100_SMS)
+    assert (p["rows"], rounds * p["rows"]) == (112, 224)
+    assert M / (_H100_SMS * rounds * p["rows"]) > 0.92
+    p128 = tim.w8a8_qkv_plan(M, 768, 768, _H100_SMS, _H100_SMEM_OPTIN,
+                             rows=128)
+    assert -(-p128["blocks"] // _H100_SMS) * 128 == 256
+    assert M / (_H100_SMS * 256) < 0.82
 
 
 def test_w8a8_qkv_plan_fills_the_card_at_the_text_shape():
@@ -200,7 +289,7 @@ def test_w8a8_qkv_plan_fills_the_card_at_the_text_shape():
 def test_w8a8_qkv_plan_fits_every_admitted_row_length(K):
     for M in (1, 64, 1155, 27392, 100000):
         p = tim.w8a8_qkv_plan(M, K, 768, _H100_SMS, _H100_SMEM_OPTIN)
-        assert p["rows"] in tim._QKV_ROWS
+        assert p["rows"] in tim._QKV_WIDE_ROWS + tim._QKV_ROWS
         assert p["smem_bytes"] + tim._QKV_LAYOUT[3] <= _H100_SMEM_OPTIN
 
 
@@ -212,6 +301,17 @@ def test_w8a8_qkv_plan_fits_every_admitted_row_length(K):
 def test_w8a8_qkv_plan_raises_for_shapes_it_cannot_take(args):
     with pytest.raises(ValueError):
         tim.w8a8_qkv_plan(*args)
+
+
+def test_w8a8_qkv_plan_refuses_a_form_that_does_not_fit():
+    """`rows` picks another form where it fits (kernel_variants times
+    them); 128-row tiles of the text shape leave SMs without a block, and
+    are refused."""
+    assert tim.w8a8_qkv_plan(27392, 768, 768, _H100_SMS, _H100_SMEM_OPTIN,
+                             rows=128)["rows"] == 128
+    with pytest.raises(ValueError):
+        tim.w8a8_qkv_plan(1155, 512, 512, _H100_SMS, _H100_SMEM_OPTIN,
+                          rows=128)
 
 
 # ---------------------------------------------------------------------------
