@@ -273,8 +273,7 @@ KERNEL_SYMBOLS = ("packed_attention_kernel", "w8a8_matmul_kernel",
                   "streaming_attention_fwd_kernel",
                   "w8_matmul_kernel", "fused_extras_kernel",
                   "packed_bwd_kernel", "mega_layer_kernel",
-                  "w8_matmul_f32_kernel", "stream_fwd_kernel",
-                  "fma_fwd_kernel",
+                  "w8_matmul_f32_kernel", "fma_fwd_kernel",
                   "packed_fwd_kernel", "stream_bwd_dq_kernel",
                   "stream_bwd_dkdv_kernel")
 KERNEL_SOURCE = "gava_clip_tpu_torch/csrc/packed_attention.cu"
@@ -1905,12 +1904,12 @@ def _check_f32(name, label, out, ref, scale, state):
     return err.max().item()
 
 
-def _f32_timings(state, label, rows):
+def _f32_timings(state, label, rows, record=True):
     """Time each (name, kernel, plain, library, library's graph call,
     (fp32-FMA bound, 3xTF32 bound or None), err) in `rows`: kernel and
     plain version in turns; kernel and the library call (SDPA in fp32) in
     turns and in CUDA graphs of GRAPH_LAUNCHES calls each (median of 7
-    rounds, device time where a call is launch-bound); record the
+    rounds, device time where a call is launch-bound); with `record`, the
     kernels-line stats, whose bound is the 3xTF32 one where the kernel
     takes its products so."""
     stats = state.setdefault("kstats", {})
@@ -1936,10 +1935,58 @@ def _f32_timings(state, label, rows):
             f"{graphs}; bound as fp32 FMA {fma[0]:.4f} ms ({fma[1]})"
             + (f", as 3xTF32 {tf32[0]:.4f} ms ({tf32[1]})" if tf32 else "")
             + f" ({state['smi']})")
-        stats[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": bound[0], "bound_by": bound[1],
-                       "library_ms": r[1], "graph_ms": g[0],
-                       "library_graph_ms": g[1]}
+        if record:
+            stats[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                           "bound_ms": bound[0], "bound_by": bound[1],
+                           "library_ms": r[1], "graph_ms": g[0],
+                           "library_graph_ms": g[1]}
+
+
+def _graph_floor_ms(state):
+    """The floor of a node of a CUDA graph on this card: a stock one-element
+    add in a graph of GRAPH_LAUNCHES, replayed (ms a node; measured once a
+    run). A launch-bound kernel in a graph takes at least this."""
+    import torch
+    if "graph_floor_ms" not in state:
+        x = torch.zeros(1, device="cuda")
+        state["graph_floor_ms"] = cuda_time_ms(
+            _graph_call(lambda: x.add_(1.0)), iters=5) / GRAPH_LAUNCHES
+    return state["graph_floor_ms"]
+
+
+def _host_ms(fn, iters=100):
+    """Host ms of a call: `iters` calls enqueued back to back on the host
+    clock (no synchronise between them), after a warm-up."""
+    import torch
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / iters
+    torch.cuda.synchronize()
+    return t
+
+
+def _b7_host_and_floor(state, label, q, k, v, H, causal):
+    """At the text tower's shape: the host time of a call of B7's fp32
+    forward through its wrapper, and the floor of a CUDA graph node beside
+    the kernels-line graph times of B7's fp32 forward and backward and
+    their bytes bounds."""
+    from gava_clip_tpu_torch.ops import flash_attention as fa
+    host = _host_ms(lambda: fa.streaming_attention_cuda(q, k, v, H, causal))
+    log(f"[f32-kernel] streaming_attention_f32 {label}: host ms a call of "
+        f"the wrapper (100 enqueued back to back, host clock) {host:.5f} "
+        f"({state['smi']})")
+    floor = _graph_floor_ms(state)
+    stats = state["kstats"]
+    for name in ("streaming_attention_f32", "streaming_attention_bwd_f32"):
+        s = stats[name]
+        log(f"[f32-kernel] {name} {label}: {s['graph_ms']:.5f} ms in CUDA "
+            f"graphs beside the floor of a graph node {floor:.5f} ms (a "
+            f"one-element add) and its bound {s['bound_ms']:.5f} ms "
+            f"({s['bound_by']}) ({state['smi']})")
 
 
 def phase_f32_kernels(state):
@@ -1948,8 +1995,10 @@ def phase_f32_kernels(state):
     the packed path's edge (F32_REL); the backwards run twice and must give
     the same bits; B8 equals B6b on the forward kernel's own o and den bit
     for bit; CUDA-event times of kernel, plain version and SDPA in fp32 at
-    the 16 x 8 shape and the text tower's, the kernel against SDPA in turns
-    and in CUDA graphs, beside the fp32-FMA and 3xTF32 bounds. With
+    the 16 x 8 shape and the text tower's (B7's forward also at (4, 1024,
+    1024, 8)), the kernel against SDPA in turns and in CUDA graphs, beside
+    the fp32-FMA and 3xTF32 bounds; B7's forward wrapper's host time, and
+    the floor of a CUDA graph node beside the text tower's rows. With
     state['checks_only'] (the mutants' runs) nothing is timed, and with
     state['only'] naming a packed or a streaming entry only those shapes
     are checked."""
@@ -2093,27 +2142,34 @@ def phase_f32_kernels(state):
             f"gives the same bits: {same} {'ok' if same else 'FAIL'}")
         if not same:
             state.setdefault("f32_failures", []).append(f"bits {label}")
-        del spread, g_ref, again
-        if i == 0 and timed:
+        if i < 2 and timed:
+            # the text tower's shape (the kernels line's) and the long
+            # causal one; the forward and the one-launch backward take their
+            # products as 3xTF32
             bounds = _attention_bounds(B, Lq, Lk, H, causal, esize=4)
-            # the one-launch backward takes its products as 3xTF32
             bounds_tf32 = _attention_bounds(B, Lq, Lk, H, causal, esize=4,
                                             tf32=True)
             sdpa_f = _sdpa_fwd(q, k, v, H, causal)
-            _f32_timings(state, label, (
-                ("streaming_attention_f32",
-                 lambda: fa.streaming_attention_cuda(q, k, v, H, causal),
-                 lambda: fa.streaming_attention_plain(q, k, v, H, causal),
-                 sdpa_f, sdpa_f, (bounds["fwd_stat"], None), err_f),
-                ("streaming_attention_bwd_f32",
-                 lambda: fa.streaming_attention_bwd_cuda(q, k, v, do, ref,
-                                                         lse_ref, H, causal),
-                 lambda: fa.streaming_attention_bwd_plain(q, k, v, do, ref,
-                                                          lse_ref, H, causal),
-                 _sdpa_bwd(q, k, v, do, H, causal),
-                 _sdpa_bwd_op(q, k, v, do, H, causal),
-                 (bounds["bwd"], bounds_tf32["bwd"]
-                  if "one_launch" in forms else None), err_b)))
+            rows = [("streaming_attention_f32",
+                     lambda: fa.streaming_attention_cuda(q, k, v, H, causal),
+                     lambda: fa.streaming_attention_plain(q, k, v, H, causal),
+                     sdpa_f, sdpa_f,
+                     (bounds["fwd_stat"], bounds_tf32["fwd_stat"]), err_f)]
+            if i == 0:
+                rows.append((
+                    "streaming_attention_bwd_f32",
+                    lambda: fa.streaming_attention_bwd_cuda(
+                        q, k, v, do, ref, lse_ref, H, causal),
+                    lambda: fa.streaming_attention_bwd_plain(
+                        q, k, v, do, ref, lse_ref, H, causal),
+                    _sdpa_bwd(q, k, v, do, H, causal),
+                    _sdpa_bwd_op(q, k, v, do, H, causal),
+                    (bounds["bwd"], bounds_tf32["bwd"]
+                     if "one_launch" in forms else None), err_b))
+            _f32_timings(state, label, rows, record=i == 0)
+            if i == 0:
+                _b7_host_and_floor(state, label, q, k, v, H, causal)
+        del spread, g_ref, again
         del q, k, v, do, out, lse, ref, lse_ref, grads
     # fp32 q/k/v into a kernel with a bf16 form only (B4's int8 QK^T form,
     # B11) raises, naming its ROADMAP item; mixed and half inputs raise in
@@ -3428,7 +3484,8 @@ def _w8a8_mlp_checks(state, gen):
         f"plain {t['plain']} ms, bound {bound[0]:.5f} ms ({bound[1]}), no "
         f"library call (order plain, kernel, kernel, plain); "
         f"{GRAPH_LAUNCHES} launches in a CUDA graph {graph_ms:.5f} ms a "
-        f"launch ({state['smi']})")
+        f"launch, the floor of a graph node {_graph_floor_ms(state):.5f} ms "
+        f"(a one-element add) ({state['smi']})")
     _record(state, "w8a8_matmul3", max(errs), ms, plain_ms, bound, None)
     state["kstats"]["w8a8_matmul3"]["graph_ms"] = graph_ms
 

@@ -43,8 +43,9 @@
 //     as the packed backward with inv = 1.
 //
 // Two kinds of kernel. The packed attention of the training step and of
-// the evaluation forward (B1 / B6a, B6b, B8), and B7's backward while its
-// rows fit one key tile (Lq, Lk <= 128: the text tower), run every product
+// the evaluation forward (B1 / B6a, B6b, B8), B7's forward at every length,
+// and B7's backward while its rows fit one key tile (Lq, Lk <= 128: the text
+// tower), run every product
 // on the tensor cores as 3xTF32 (tf32_frags.cuh: mma.sync m16n8k8, each fp32
 // operand split once into hi and lo as it enters registers, the lo x lo
 // product dropped; each step's three products summed in a fresh
@@ -53,8 +54,8 @@
 // matmuls (tests/test_torch_attention_f32.py holds that under an emulation
 // that truncates as the tensor core does), where one TF32 product alone
 // rounds each operand to a 10-bit mantissa (~5e-4 relative), which an fp32
-// run must not see. B7's forward and its backward past 128 rows run as fp32
-// FMA on 64 x 64 shared tiles. The attention of the w8a8 fusion's fp32
+// run must not see. B7's backward past 128 rows runs as fp32 FMA on 64 x 64
+// shared tiles. The attention of the w8a8 fusion's fp32
 // forms (B4, B11, B12) runs as fp32 FMA too, every sum in one fixed order:
 // each score over the head columns and each numerator over the keys one
 // fmaf after another from 0, the denominator a pairwise tree over each key
@@ -90,6 +91,27 @@
 // indices do not line up with an m16n8 accumulator's columns, so V's rows
 // are re-indexed instead: k index t reads key 2t of the chunk and t + 4 key
 // 2t + 1, which lines the accumulator's c0, c2, c1, c3 up with a0..a3.
+//
+// B7's forward (the same kernel, packed_fwd_kernel<true>), at every length:
+// the streaming function, its keys in steps of kStreamChunks chunks (16
+// keys), two blocks to an SM. Per step a warp masks its scores s c to -inf
+// (past Lk and, under the causal mask, past the row), takes each row's max
+// over the step and the quad of lanes that shares the row (two shuffles),
+// rescales the running sum and the o accumulator by exp2(m_old - m_new),
+// then adds p = exp2(s c - m) into the sum and p v into o as above. A step
+// whose chunks all hold a key is compiled without the tests of each chunk,
+// so that its loads and products interleave (on an H100 the tested step
+// takes 1.23x / 1.30x as long at the two shapes below). Under the causal
+// mask a block stops at the key tile of its last row and a warp at the
+// chunk of its own last row's key, and the grid's x runs backwards, so that
+// the blocks with the most key tiles start first. At the text tower's 15
+// prompts x 77 tokens x 8 heads it moves 9.5 MB (0.0028 ms at 3.35 TB/s)
+// for 92 MFLOP of visible scores (0.0006 ms as 3xTF32): bytes, and at 240
+// blocks, one wave on 132 SMs, launch and latency in fact; at (4, 1024,
+// 1024, 8) causal 4.3 GFLOP, 0.026 ms as 3xTF32, against 0.010 ms of
+// bytes. Its first form took 64 x 64 tiles as fp32 FMA, each key and value
+// tile loaded synchronously behind three barriers, and e^T written back to
+// shared memory before its AV product.
 //
 // The 3xTF32 packed backward (B6b; the second launch of B8): one launch,
 // one block of 8 warps per (batch row, head) owning every query row and
@@ -133,24 +155,20 @@
 // last row's key. Rows past 128 keep the two FMA kernels: a block per (b, h)
 // would leave most SMs idle there.
 //
-// The FMA tiles (B7's forward and its backward past 128 rows): every
-// product is a 64 x 64 x 64 product of tiles in shared memory, 256 threads
-// (16 x 16) each holding a 4 x 4 patch of the result, 64 rank-1 steps from
-// two float4 loads. Both operands are stored with the summed index as the
-// row ("x-major"): a tile of q, k, v or do is stored transposed (loader
-// load_t, conflict-free: a warp writes 16 rows x 2 float4 into distinct
-// banks) where its head columns are summed, and as it is (load_n) where
-// its rows are.
-//   forward: one block per (64 query rows, head, batch row); key tiles of
-//     64 stream through shared memory, the accumulator rescaled when a
-//     row's max moves. Under the causal mask a block stops at its last
-//     row's key.
-//   backward past 128 rows (ops/flash_attention.attention_f32_plan
-//     'two_kernels'): a dq kernel, one block per (64 query rows, head,
-//     batch row), walks the key tiles; it first takes each row's delta and
-//     statistic and leaves them in a scratch buffer for the dk / dv kernel,
-//     one block per (64 keys, head, batch row), which walks the query tiles
-//     from the key tile's own. Each owns its output tile: no atomics.
+// The FMA tiles (B7's backward past 128 rows): every product is a 64 x 64
+// x 64 product of tiles in shared memory, 256 threads (16 x 16) each
+// holding a 4 x 4 patch of the result, 64 rank-1 steps from two float4
+// loads. Both operands are stored with the summed index as the row
+// ("x-major"): a tile of q, k, v or do is stored transposed (loader load_t,
+// conflict-free: a warp writes 16 rows x 2 float4 into distinct banks)
+// where its head columns are summed, and as it is (load_n) where its rows
+// are. A dq kernel (ops/flash_attention.attention_f32_plan 'two_kernels'),
+// one block per (64 query rows, head, batch row), walks the key tiles; it
+// first takes each row's delta and statistic and leaves them in a scratch
+// buffer for the dk / dv kernel, one block per (64 keys, head, batch row),
+// which walks the query tiles from the key tile's own. Each owns its output
+// tile: no atomics. Under the causal mask the dq kernel stops at its last
+// row's key.
 //
 // The w8a8 fusion's fp32 attention (fma_fwd_kernel; B4, B11, B12): one
 // block of 7 warps per (112 query rows, head, batch row), 16 rows a warp,
@@ -181,6 +199,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "tf32_frags.cuh"
 
 namespace {
@@ -194,10 +214,9 @@ constexpr int kT = 64;                   // query rows or keys of a tile
 constexpr int kLD = kT + 4;              // padded shared row: 272 bytes, 16-byte aligned
 constexpr int kTileFloats = kHD * kLD;   // one 64 x 64 tile, either orientation
 constexpr int kThreads = 256;            // 16 x 16 threads, a 4 x 4 patch each
-// dynamic shared bytes: the streaming forward's q^T, k^T, v, e^T tiles;
-// the dq kernel's q^T, do^T, k^T, k, v^T, ds^T and two floats a row; the
-// dk / dv kernel's k^T, v^T, q^T, do^T, q, do, p, ds and two floats a row
-constexpr int kFwdSmemBytes = 4 * kTileFloats * 4;
+// dynamic shared bytes: the dq kernel's q^T, do^T, k^T, k, v^T, ds^T and
+// two floats a row; the dk / dv kernel's k^T, v^T, q^T, do^T, q, do, p, ds
+// and two floats a row
 constexpr int kDqSmemBytes = 6 * kTileFloats * 4 + 2 * kT * 4;
 constexpr int kDkvSmemBytes = 8 * kTileFloats * 4 + 2 * kT * 4;
 // the 3xTF32 tiles: rows of 64 floats padded to 68 (272 bytes, 16-byte
@@ -209,6 +228,11 @@ constexpr int kFwdRows = kFwdWarps * 16;   // query rows of a forward block
 constexpr int kFwdKeys = 64;               // keys of a forward key / value tile
 constexpr int kFwdStageFloats = 2 * kFwdKeys * kLDF;
 constexpr int kPFwdSmemBytes = 2 * kFwdStageFloats * 4;
+// chunks of 8 keys per step of B7's forward: its scores masked, its row
+// max taken and the running sums rescaled once for them (a quarter of a
+// key tile: on an H100 faster than half or the whole tile at the text
+// tower's shape and at 1,024 keys)
+constexpr int kStreamChunks = 2;
 constexpr int kBwdWarps = 8;
 constexpr int kBwdThreads = kBwdWarps * 32;
 constexpr int kBwdKeys = kBwdWarps * 16;   // keys of a backward key tile, 16 a warp
@@ -332,20 +356,31 @@ __device__ __forceinline__ void split4(uint32_t (&hi)[4], uint32_t (&lo)[4], flo
   tf32::split(a3, hi[3], lo[3]);
 }
 
-// B1 / B6a in 3xTF32: o (and, with a.stat, den) of one block's 64 query
-// rows of one head
-__global__ void __launch_bounds__(kFwdThreads, 3) packed_fwd_kernel(FwdArgs a) {
+// B1 / B6a in 3xTF32 (STREAM false): o (and, with a.stat, den) of one
+// block's 64 query rows of one head. B7's forward (STREAM true): o and lse,
+// the weights taken against a running max, masked past Lk and, with
+// a.causal, past each row; two blocks to an SM (its registers do not spill,
+// where three blocks' 168 a thread did)
+template <bool STREAM>
+__global__ void __launch_bounds__(kFwdThreads, STREAM ? 2 : 3) packed_fwd_kernel(FwdArgs a) {
+  constexpr int GC = STREAM ? kStreamChunks : 4;   // chunks of 8 keys a step
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.z, h = blockIdx.y;
+  const bool causal = STREAM && a.causal;
+  // (causal) the grid's x backwards: the blocks with the most key tiles first
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int w0 = blockIdx.x * kFwdRows + warp * 16;   // the warp's first query row
+  const int w0 = qt * kFwdRows + warp * 16;            // the warp's first query row
   const int r0 = w0 + g, r1 = r0 + 8;                  // the thread's two rows
+  const int wlast = min(w0 + 15, a.Lq - 1);            // the warp's last real row
   const bool active = w0 < a.Lq;
   const long long hoff = static_cast<long long>(h) * kHD;
   const float* qb = a.q + static_cast<long long>(b) * a.q_sb + hoff;
   const Rows krows = one_source(a.k + static_cast<long long>(b) * a.k_sb + hoff, a.Lk, a.k_sl);
   const Rows vrows = one_source(a.v + static_cast<long long>(b) * a.v_sb + hoff, a.Lk, a.v_sl);
-  const int nkt = (a.Lk + kFwdKeys - 1) / kFwdKeys;
+  // (causal) no row of the block sees a key past its last row
+  const int kend = causal ? min(a.Lk, (qt + 1) * kFwdRows) : a.Lk;
+  const int nkt = (kend + kFwdKeys - 1) / kFwdKeys;
   auto issue = [&](int kt) {
     if (kt < nkt) {
       float* st = smem + (kt & 1) * kFwdStageFloats;
@@ -373,7 +408,8 @@ __global__ void __launch_bounds__(kFwdThreads, 3) packed_fwd_kernel(FwdArgs a) {
   float oacc[kHD / 8][4];
 #pragma unroll
   for (int n = 0; n < kHD / 8; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
-  float den0 = 0.f, den1 = 0.f;
+  // den (streaming: the running sum l) and the running max of rows r0, r1
+  float den0 = 0.f, den1 = 0.f, m0 = -INFINITY, m1 = -INFINITY;
   for (int kt = 0; kt < nkt; ++kt) {
     tf32::cp_wait_all();
     __syncthreads();   // tile kt is in; every warp is done with the other stage
@@ -383,20 +419,25 @@ __global__ void __launch_bounds__(kFwdThreads, 3) packed_fwd_kernel(FwdArgs a) {
     const float* vs = ks + kFwdKeys * kLDF;
     const int k0 = kt * kFwdKeys;
     // chunks of 8 keys with a real key (the last tile's others are skipped)
-    const int nch = (min(kFwdKeys, a.Lk - k0) + 7) / 8;
+    int nch = (min(kFwdKeys, a.Lk - k0) + 7) / 8;
+    // (causal) and with a key at or before the warp's last row
+    if (causal) nch = wlast < k0 ? 0 : min(nch, (wlast - k0) / 8 + 1);
+    // a step of GC chunks from chunk GC * c4 on; FULL (streaming, each of
+    // them has a key to take) compiles without the tests of each chunk, so
+    // that the step's loads and products interleave (the packed form keeps
+    // the tests: without them its registers spill)
+    auto step = [&](auto full, int c4) {
+      constexpr bool FULL = decltype(full)::value;
+      // s = q k^T for GC chunks: B fragment of chunk c from key c * 8 + g
+      float s[GC][4];
 #pragma unroll
-    for (int c4 = 0; c4 < kFwdKeys / 32; ++c4) {
-      if (4 * c4 >= nch) break;
-      // s = q k^T for four chunks: B fragment of chunk c from key c * 8 + g
-      float s[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      for (int j = 0; j < GC; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kHD / 8; ++kk) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (4 * c4 + j < nch) {
-            const float* kr = ks + ((4 * c4 + j) * 8 + g) * kLDF + 8 * kk + t;
+        for (int j = 0; j < GC; ++j) {
+          if (FULL || GC * c4 + j < nch) {
+            const float* kr = ks + ((GC * c4 + j) * 8 + g) * kLDF + 8 * kk + t;
             uint32_t bh0, bl0, bh1, bl1;
             tf32::split(kr[0], bh0, bl0);
             tf32::split(kr[4], bh1, bl1);
@@ -404,15 +445,59 @@ __global__ void __launch_bounds__(kFwdThreads, 3) packed_fwd_kernel(FwdArgs a) {
           }
         }
       }
+      // (streaming) s c masked to -inf; the rows' max over these chunks and
+      // the quad that shares each row; den and o rescaled to it
+      float mu0 = 0.f, mu1 = 0.f;
+      if (STREAM) {
+        float mt0 = -INFINITY, mt1 = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (4 * c4 + j >= nch) break;
+        for (int j = 0; j < GC; ++j) {
+          if (!FULL && GC * c4 + j >= nch) break;
+          const int kc = k0 + (GC * c4 + j) * 8 + 2 * t;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int key = kc + (i & 1), row = i < 2 ? r0 : r1;
+            const bool vis = key < a.Lk && (!a.causal || key <= row);
+            s[j][i] = vis ? s[j][i] * a.c : -INFINITY;
+          }
+          mt0 = fmaxf(mt0, fmaxf(s[j][0], s[j][1]));
+          mt1 = fmaxf(mt1, fmaxf(s[j][2], s[j][3]));
+        }
+        mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, 1));
+        mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, 2));
+        mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, 1));
+        mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, 2));
+        const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);
+        // a row with no visible key yet takes 0 (its weights are 0)
+        mu0 = mn0 == -INFINITY ? 0.f : mn0;
+        mu1 = mn1 == -INFINITY ? 0.f : mn1;
+        const float al0 = ex2f(m0 - mu0), al1 = ex2f(m1 - mu1);   // 0 while m is -inf
+        den0 *= al0;
+        den1 *= al1;
+#pragma unroll
+        for (int n = 0; n < kHD / 8; ++n) {
+          oacc[n][0] *= al0;
+          oacc[n][1] *= al0;
+          oacc[n][2] *= al1;
+          oacc[n][3] *= al1;
+        }
+        m0 = mn0;
+        m1 = mn1;
+      }
+#pragma unroll
+      for (int j = 0; j < GC; ++j) {
+        if (!FULL && GC * c4 + j >= nch) break;
         // the tile's keys of the accumulator's columns 2t (c0, c2) and 2t + 1
-        const int kc = (4 * c4 + j) * 8 + 2 * t;
+        const int kc = (GC * c4 + j) * 8 + 2 * t;
         float e[4];
+        if (STREAM) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          e[i] = k0 + kc + (i & 1) < a.Lk ? ex2f(fminf(s[j][i] * a.c, kClamp)) : 0.f;
+          for (int i = 0; i < 4; ++i) e[i] = ex2f(s[j][i] - (i < 2 ? mu0 : mu1));
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            e[i] = k0 + kc + (i & 1) < a.Lk ? ex2f(fminf(s[j][i] * a.c, kClamp)) : 0.f;
+        }
         den0 += e[0] + e[1];
         den1 += e[2] + e[3];
         // e as the A operand of e v: k index t is key kc, t + 4 key kc + 1
@@ -427,6 +512,14 @@ __global__ void __launch_bounds__(kFwdThreads, 3) packed_fwd_kernel(FwdArgs a) {
           mma3(oacc[n], eh, el, bh0, bh1, bl0, bl1);
         }
       }
+    };
+#pragma unroll
+    for (int c4 = 0; c4 < kFwdKeys / (8 * GC); ++c4) {
+      if (GC * c4 >= nch) break;
+      if (STREAM && GC * (c4 + 1) <= nch)
+        step(std::true_type{}, c4);
+      else
+        step(std::false_type{}, c4);
     }
   }
 
@@ -437,7 +530,9 @@ __global__ void __launch_bounds__(kFwdThreads, 3) packed_fwd_kernel(FwdArgs a) {
   den1 += __shfl_xor_sync(0xffffffffu, den1, 2);
   if (!active) return;
   float* ob = a.o + static_cast<long long>(b) * a.o_sb + hoff;
-  const float d0 = fmaxf(den0, 1e-30f), d1 = fmaxf(den1, 1e-30f);
+  // (streaming) every row sees key 0: l > 0
+  const float d0 = STREAM ? den0 : fmaxf(den0, 1e-30f);
+  const float d1 = STREAM ? den1 : fmaxf(den1, 1e-30f);
 #pragma unroll
   for (int n = 0; n < kHD / 8; ++n) {
     if (r0 < a.Lq)
@@ -448,8 +543,15 @@ __global__ void __launch_bounds__(kFwdThreads, 3) packed_fwd_kernel(FwdArgs a) {
           make_float2(oacc[n][2] / d1, oacc[n][3] / d1);
   }
   if (a.stat != nullptr && t == 0) {
-    if (r0 < a.Lq) a.stat[(static_cast<long long>(b) * a.Lq + r0) * a.H + h] = den0;
-    if (r1 < a.Lq) a.stat[(static_cast<long long>(b) * a.Lq + r1) * a.H + h] = den1;
+    if (STREAM) {
+      // lse (B, H, Lq) = (m + log2 l) ln 2
+      float* lse = a.stat + (static_cast<long long>(b) * a.H + h) * a.Lq;
+      if (r0 < a.Lq) lse[r0] = (m0 + log2f(den0)) * kLn2;
+      if (r1 < a.Lq) lse[r1] = (m1 + log2f(den1)) * kLn2;
+    } else {
+      if (r0 < a.Lq) a.stat[(static_cast<long long>(b) * a.Lq + r0) * a.H + h] = den0;
+      if (r1 < a.Lq) a.stat[(static_cast<long long>(b) * a.Lq + r1) * a.H + h] = den1;
+    }
   }
 }
 
@@ -734,7 +836,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1) packed_bwd_kernel(PBwdArgs a) 
 }
 
 // ---------------------------------------------------------------------------
-// fp32 FMA tiles: the streaming forms (B7)
+// fp32 FMA tiles: B7's backward past 128 rows
 // ---------------------------------------------------------------------------
 
 // Rows [r0, r0 + 64) of one head (64 floats a row) into a tile stored
@@ -803,97 +905,6 @@ __device__ __forceinline__ void store_patch_t(float* dst, const float (&p)[4][4]
   for (int j = 0; j < 4; ++j)
     *reinterpret_cast<float4*>(dst + (4 * tx + j) * kLD + 4 * ty) =
         make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
-}
-
-// the sum (or max) of a row's value over the 16 threads tx that share it
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int off = 1; off < 16; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int off = 1; off < 16; off <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-// B7's forward in fp32: the streaming form (running max, causal mask, lse)
-// on the FMA tiles
-__global__ void __launch_bounds__(kThreads, 2) stream_fwd_kernel(FwdArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;
-  float* kt = qt + kTileFloats;
-  float* vs = kt + kTileFloats;
-  float* et = vs + kTileFloats;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kT;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const long long hoff = static_cast<long long>(h) * kHD;
-  const float* qb = a.q + static_cast<long long>(b) * a.q_sb + hoff;
-  const float* kb = a.k + static_cast<long long>(b) * a.k_sb + hoff;
-  const float* vb = a.v + static_cast<long long>(b) * a.v_sb + hoff;
-  load_t(qt, qb, q0, a.Lq, a.q_sl);
-
-  float acc[4][4], l[4], m[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    l[i] = 0.f;
-    m[i] = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-  // under the causal mask no row of the block sees a key past its last row
-  const int kend = a.causal ? min(a.Lk, q0 + kT) : a.Lk;
-  for (int k0 = 0; k0 < kend; k0 += kT) {
-    __syncthreads();   // the previous tile's k^T, v and e^T are free
-    load_t(kt, kb, k0, a.Lk, a.k_sl);
-    load_n(vs, vb, k0, a.Lk, a.v_sl);
-    __syncthreads();
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    mm64(s, qt, kt, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * ty + i;
-      float mt = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + 4 * tx + j;
-        const bool vis = key < a.Lk && (!a.causal || key <= row);
-        s[i][j] = vis ? s[i][j] * a.c : -INFINITY;
-        mt = fmaxf(mt, s[i][j]);
-      }
-      const float mn = fmaxf(m[i], row_max(mt));
-      const float mu = mn == -INFINITY ? 0.f : mn;   // a row with no visible key yet
-      const float alpha = ex2f(m[i] - mu);            // 0 while m is -inf
-      l[i] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc[i][j] *= alpha;
-        s[i][j] = ex2f(s[i][j] - mu);
-        l[i] += s[i][j];
-      }
-      m[i] = mn;
-    }
-    store_patch_t(et, s, ty, tx);
-    __syncthreads();
-    mm64(acc, et, vs, ty, tx);   // acc += p @ v
-  }
-
-  float* ob = a.o + static_cast<long long>(b) * a.o_sb + hoff;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float sum = row_sum(l[i]);
-    const int row = q0 + 4 * ty + i;
-    if (row >= a.Lq) continue;
-    if (tx == 0)
-      a.stat[(static_cast<long long>(b) * a.H + h) * a.Lq + row] = (m[i] + log2f(sum)) * kLn2;
-    *reinterpret_cast<float4*>(ob + static_cast<long long>(row) * a.o_sl + 4 * tx) =
-        make_float4(acc[i][0] / sum, acc[i][1] / sum, acc[i][2] / sum, acc[i][3] / sum);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1426,23 +1437,17 @@ FwdArgs make_fwd(const void* q, const void* k, const void* v, void* o, void* sta
   return a;
 }
 
+// one launch of packed_fwd_kernel: B1 / B6a, or (STREAM) B7's forward; a
+// block per (kFwdRows query rows, head, batch row), as
+// ops/flash_attention.attention_f32_plan's 'fwd'
+template <bool STREAM = false>
 cudaError_t launch_packed_fwd(const FwdArgs& a, int B, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(packed_fwd_kernel,
+  cudaError_t err = cudaFuncSetAttribute(packed_fwd_kernel<STREAM>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kPFwdSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Lq + kFwdRows - 1) / kFwdRows, a.H, B);
-  packed_fwd_kernel<<<grid, kFwdThreads, kPFwdSmemBytes, stream>>>(a);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_stream_fwd(const FwdArgs& a, int B, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(stream_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kFwdSmemBytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.Lq + kT - 1) / kT, a.H, B);
-  stream_fwd_kernel<<<grid, kThreads, kFwdSmemBytes, stream>>>(a);
+  packed_fwd_kernel<STREAM><<<grid, kFwdThreads, kPFwdSmemBytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1701,7 +1706,7 @@ extern "C" int streaming_attention_f32(const void* q, const void* k, const void*
                                        int v_sb, int v_sl, int o_sb, int o_sl, float scale,
                                        int causal, void* stream) {
   if (bad_args(Dh, lse)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_stream_fwd(
+  return static_cast<int>(launch_packed_fwd<true>(
       make_fwd(q, k, v, o, lse, Lq, Lk, H, q_sb, q_sl, k_sb, k_sl, v_sb, v_sl, o_sb, o_sl,
                scale * kLog2e, causal),
       B, static_cast<cudaStream_t>(stream)));
@@ -1736,31 +1741,30 @@ extern "C" int streaming_attention_bwd_f32(const void* q, const void* k, const v
       static_cast<cudaStream_t>(stream)));
 }
 
-// The layout the launch plans are computed from: the FMA tiles' rows, threads
-// a block and the dynamic shared bytes of their forward, dq kernel and dk /
-// dv kernel; the 3xTF32 forward's query rows a block, threads and shared
-// bytes; the 3xTF32 backward's threads, fixed shared bytes, floats a query
-// row of its accumulator and row statistics, and the most dynamic shared
-// memory a block may take; the most query rows and keys of the streaming
-// backward's one-launch form; the w8a8 fusion's forward's query rows a
-// block, threads and shared bytes.
+// The layout the launch plans are computed from: the FMA tiles' rows,
+// threads a block and the dynamic shared bytes of B7's backward past 128
+// rows, its dq kernel and dk / dv kernel; the 3xTF32 forward's (B1 / B6a and
+// B7's) query rows a block, threads and shared bytes; the 3xTF32 backward's
+// threads, fixed shared bytes, floats a query row of its accumulator and row
+// statistics, and the most dynamic shared memory a block may take; the most
+// query rows and keys of the streaming backward's one-launch form; the w8a8
+// fusion's forward's query rows a block, threads and shared bytes.
 extern "C" void attention_f32_layout(int* out) {
   out[0] = kT;
   out[1] = kThreads;
-  out[2] = kFwdSmemBytes;
-  out[3] = kDqSmemBytes;
-  out[4] = kDkvSmemBytes;
-  out[5] = kFwdRows;
-  out[6] = kFwdThreads;
-  out[7] = kPFwdSmemBytes;
-  out[8] = kBwdThreads;
-  out[9] = kBwdFixedBytes;
-  out[10] = static_cast<int>(acc_floats(1));
-  out[11] = kMaxSmem;
-  out[12] = kStreamBwdRows;
-  out[13] = kFmaRows;
-  out[14] = kFmaThreads;
-  out[15] = kFmaSmemBytes;
+  out[2] = kDqSmemBytes;
+  out[3] = kDkvSmemBytes;
+  out[4] = kFwdRows;
+  out[5] = kFwdThreads;
+  out[6] = kPFwdSmemBytes;
+  out[7] = kBwdThreads;
+  out[8] = kBwdFixedBytes;
+  out[9] = static_cast<int>(acc_floats(1));
+  out[10] = kMaxSmem;
+  out[11] = kStreamBwdRows;
+  out[12] = kFmaRows;
+  out[13] = kFmaThreads;
+  out[14] = kFmaSmemBytes;
 }
 
 extern "C" const char* cuda_error_string(int err) {

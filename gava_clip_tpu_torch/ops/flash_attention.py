@@ -677,27 +677,26 @@ def streaming_attention_bwd_cuda(q, k, v, do, o, lse, num_heads: int,
 
 
 # Launch plans of csrc/attention_f32.cu, the float32 forms. The FMA tiles
-# (B7's forward and its backward past 128 rows): 64-row tiles of fp32 in
-# shared memory (rows padded to 68 floats), 256 threads a block, and the
-# dynamic shared bytes of their three kernels: the forward (q^T, k^T, v and
-# e^T tiles), the backward's dq kernel (q^T, do^T, k^T, k, v^T, ds^T and two
-# floats a row) and its dk / dv kernel (eight tiles and two floats a row).
-# The 3xTF32 forward (B1 / B6a, B8's first launch): 64 query rows and 128
-# threads a block, two stages of key / value tiles. The 3xTF32 backward
-# (B6b, B8's second launch): one block of 256 threads per (batch row, head)
-# holds that head's fp32 dq accumulator and row statistics, 74 floats per
-# query row (Lq rounded up to 16), beside 154 KB of tile stages; past a
-# block's 227 KB (Lq > 240) they move to a block-private region of a global
-# scratch buffer, and a grid of one block per SM walks the (row, head)
-# pairs. B7's backward takes the same kernel in its streaming form while Lq
-# and Lk are at most one key tile (128), its accumulator in shared memory,
-# else the two FMA kernels. The attention of the w8a8 fusion's fp32 forms
-# (B4, B11, B12; 'fma_fwd'): 7 warps of 16 query rows a block (112 rows,
-# 224 threads), its q rows, one key and one value tile of 64 rows, the
+# (B7's backward past 128 rows): 64-row tiles of fp32 in shared memory (rows
+# padded to 68 floats), 256 threads a block, and the dynamic shared bytes of
+# its dq kernel (q^T, do^T, k^T, k, v^T, ds^T and two floats a row) and its
+# dk / dv kernel (eight tiles and two floats a row). The 3xTF32 forward (B1
+# / B6a, B8's first launch, and B7's forward at every length): 64 query rows
+# and 128 threads a block, two stages of key / value tiles. The 3xTF32
+# backward (B6b, B8's second launch): one block of 256 threads per (batch
+# row, head) holds that head's fp32 dq accumulator and row statistics, 74
+# floats per query row (Lq rounded up to 16), beside 154 KB of tile stages;
+# past a block's 227 KB (Lq > 240) they move to a block-private region of a
+# global scratch buffer, and a grid of one block per SM walks the (row,
+# head) pairs. B7's backward takes the same kernel in its streaming form
+# while Lq and Lk are at most one key tile (128), its accumulator in shared
+# memory, else the two FMA kernels. The attention of the w8a8 fusion's fp32
+# forms (B4, B11, B12; 'fma_fwd'): 7 warps of 16 query rows a block (112
+# rows, 224 threads), its q rows, one key and one value tile of 64 rows, the
 # warps' e rows and the int8 form's scales and codes in 112,320 bytes, two
-# blocks to an SM. The launch holds the sixteen numbers against the
+# blocks to an SM. The launch holds the fifteen numbers against the
 # library's `attention_f32_layout` before its first use.
-_F32_LAYOUT = (64, 256, 69632, 104960, 139776,   # FMA tiles
+_F32_LAYOUT = (64, 256, 104960, 139776,          # FMA tiles
                64, 128, 69632,                   # 3xTF32 forward
                256, 157696, 74, 232448,          # 3xTF32 backward
                128,                              # its streaming form's rows
@@ -714,9 +713,9 @@ def attention_f32_plan(B: int, Lq: int, Lk: int, H: int,
     {'lq_pad', 'grid', 'acc_in_smem', 'smem_bytes', 'scratch_floats'},
     'fma_fwd': {'grid': (query blocks, H, B), 'threads', 'smem_bytes'}}, the
     backward's grid one-dimensional, 'fma_fwd' the attention of B4 / B11 /
-    B12 (a block per 112 query rows); streaming: {'fwd': {'grid': (tiles,
-    H, B), 'threads', 'smem_bytes'}, 'bwd'}, the forward a block per 64
-    query rows, and the backward {'form': 'one_launch', 'launches': 1,
+    B12 (a block per 112 query rows); streaming: {'fwd', 'bwd'}, the
+    forward the packed one's kernel (a block per 64 query rows) in its
+    streaming form, and the backward {'form': 'one_launch', 'launches': 1,
     'grid': B * H, 'threads', 'lq_pad', 'smem_bytes', 'scratch_floats': 0}
     (the packed backward's kernel in its streaming form) while Lq and Lk
     are at most its rows, else {'form': 'two_kernels', 'launches': 2, 'dq',
@@ -736,11 +735,14 @@ def attention_f32_plan(B: int, Lq: int, Lk: int, H: int,
     if max(B, H) > _CUDA_MAX_GRID_YZ:
         raise ValueError(f"B={B}, H={H}: a grid's y and z take at most "
                          f"{_CUDA_MAX_GRID_YZ}")
-    bwd_threads, fixed, per_row, max_smem, one_rows = _F32_LAYOUT[8:13]
+    bwd_threads, fixed, per_row, max_smem, one_rows = _F32_LAYOUT[7:12]
+    rows, threads, fwd_smem = _F32_LAYOUT[4:7]
+    fwd = {"grid": (-(-Lq // rows), H, B), "threads": threads,
+           "smem_bytes": fwd_smem}
     lq_pad = -(-Lq // 16) * 16
     if not packed:
-        rows, threads, fwd, dq, dkdv = _F32_LAYOUT[:5]
-        q_tiles, k_tiles = -(-Lq // rows), -(-Lk // rows)
+        tile, tile_threads, dq, dkdv = _F32_LAYOUT[:4]
+        q_tiles, k_tiles = -(-Lq // tile), -(-Lk // tile)
         if Lq <= one_rows and Lk <= one_rows:
             bwd = {"form": "one_launch", "launches": 1, "grid": B * H,
                    "threads": bwd_threads, "lq_pad": lq_pad,
@@ -748,14 +750,12 @@ def attention_f32_plan(B: int, Lq: int, Lk: int, H: int,
                    "scratch_floats": 0}
         else:
             bwd = {"form": "two_kernels", "launches": 2,
-                   "dq": {"grid": (q_tiles, H, B), "threads": threads,
+                   "dq": {"grid": (q_tiles, H, B), "threads": tile_threads,
                           "smem_bytes": dq},
-                   "dkdv": {"grid": (k_tiles, H, B), "threads": threads,
-                            "smem_bytes": dkdv},
+                   "dkdv": {"grid": (k_tiles, H, B),
+                            "threads": tile_threads, "smem_bytes": dkdv},
                    "scratch_floats": 2 * B * H * Lq}
-        return {"fwd": {"grid": (q_tiles, H, B), "threads": threads,
-                        "smem_bytes": fwd}, "bwd": bwd}
-    rows, threads, fwd = _F32_LAYOUT[5:8]
+        return {"fwd": fwd, "bwd": bwd}
     acc = lq_pad * per_row
     if fixed + 4 * acc <= max_smem:
         bwd = {"lq_pad": lq_pad, "grid": B * H, "acc_in_smem": True,
@@ -765,21 +765,23 @@ def attention_f32_plan(B: int, Lq: int, Lk: int, H: int,
         bwd = {"lq_pad": lq_pad, "grid": grid, "acc_in_smem": False,
                "smem_bytes": fixed, "scratch_floats": grid * acc}
     bwd["threads"] = bwd_threads
-    fma_rows, fma_threads, fma_smem = _F32_LAYOUT[13:]
-    return {"fwd": {"grid": (-(-Lq // rows), H, B), "threads": threads,
-                    "smem_bytes": fwd}, "bwd": bwd,
+    fma_rows, fma_threads, fma_smem = _F32_LAYOUT[12:]
+    return {"fwd": fwd, "bwd": bwd,
             "fma_fwd": {"grid": (-(-Lq // fma_rows), H, B),
                         "threads": fma_threads, "smem_bytes": fma_smem}}
 
 
 def _f32_launch(name: str, dev, *args, count: bool = True) -> None:
     """Call entry `name` of csrc/attention_f32.cu on the current stream and
-    count one launch of it (`count` False: the caller counts its own)."""
+    count one launch of it (`count` False: the caller counts its own).
+    Lean, as the bf16 wrapper: the raw stream, no device switch when `dev`
+    is current, the layout checked at the first call."""
     from ._cuda import load_library
     lib = load_library("attention_f32")
     _check_layout("attention_f32", lib, "attention_f32_layout", _F32_LAYOUT)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
+          else torch.cuda.device(dev)):
         err = getattr(lib, name)(*args, stream)
     if err != 0:
         raise _launch_failed(name, lib, err)
@@ -807,19 +809,22 @@ def _packed_fwd_f32(name: str, q, k, v, num_heads: int):
 
 
 def _streaming_fwd_f32(q, k, v, num_heads: int, causal: bool):
-    """B7's forward in float32: (out, lse (B, H, Lq))."""
+    """B7's forward in float32: (out, lse (B, H, Lq)). Launch-bound at the
+    text shape: the plan is computed only where it bounds an argument (B or
+    H past the grid's y / z limit)."""
     B, Lq, D = q.shape
-    out = torch.empty((B, Lq, D), dtype=q.dtype, device=q.device)
-    lse = torch.empty((B, num_heads, Lq), dtype=torch.float32,
-                      device=q.device)
-    if B and Lq:
-        Dh = D // num_heads
-        attention_f32_plan(B, Lq, k.shape[1], num_heads, Dh, packed=False)
-        _f32_launch("streaming_attention_f32", q.device, q.data_ptr(),
-                    k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    lse.data_ptr(), B, Lq, k.shape[1], num_heads, Dh,
-                    *_qkv_strides(q, k, v), out.stride(0), out.stride(1),
-                    Dh ** -0.5, int(causal))
+    dev = q.device
+    out = torch.empty((B, Lq, D), dtype=q.dtype, device=dev)
+    lse = torch.empty((B, num_heads, Lq), dtype=torch.float32, device=dev)
+    if B == 0 or Lq == 0:
+        return out, lse
+    if max(B, num_heads) > _CUDA_MAX_GRID_YZ:
+        attention_f32_plan(B, Lq, k.shape[1], num_heads, packed=False)
+    Dh = D // num_heads
+    _f32_launch("streaming_attention_f32", dev, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), lse.data_ptr(), B, Lq,
+                k.shape[1], num_heads, Dh, *_qkv_strides(q, k, v),
+                out.stride(0), out.stride(1), Dh ** -0.5, int(causal))
     return out, lse
 
 

@@ -280,9 +280,9 @@ MUTANTS = {
     # of 8 (exp2(0) = 1) kept, which sums them into den (their value rows
     # are zeros)
     "f32_b1_den_of_masked_keys": (
-        _F32, [("          e[i] = k0 + kc + (i & 1) < a.Lk ? ex2f(fminf(s[j][i] * "
+        _F32, [("            e[i] = k0 + kc + (i & 1) < a.Lk ? ex2f(fminf(s[j][i] * "
                 "a.c, kClamp)) : 0.f;",
-                "          e[i] = ex2f(fminf(s[j][i] * a.c, kClamp));")],
+                "            e[i] = ex2f(fminf(s[j][i] * a.c, kClamp));")],
         "phase_f32_kernels", "packed_attention_f32 B="),
     # B6b in fp32 (and B8, which shares the kernel): delta from the first 32
     # head columns of do * o only
@@ -295,10 +295,21 @@ MUTANTS = {
         _F32, [("make_fwd(q, k, v, o_scratch, den_scratch, Lq, Lk, H,",
                 "make_fwd(q, k, v, o_scratch, den_scratch, Lq, Lk - 1, H,")],
         "phase_f32_kernels", "packed_attention_bwd_recompute_f32 B="),
-    # B7's forward in fp32: the running sum not rescaled when a row's max
-    # moves
+    # B7's forward in fp32 (the packed forward's kernel in its streaming
+    # form): the running sum not rescaled when a row's max moves
     "f32_b7_sum_not_rescaled": (
-        _F32, [("      l[i] *= alpha;\n", "")],
+        _F32, [("        den0 *= al0;\n        den1 *= al1;\n", "")],
+        "phase_f32_kernels", "streaming_attention_f32 B="),
+    # ... the weights of the keys the causal mask hides kept (inside the key
+    # tile of the block's last row and the chunk of the warp's)
+    "f32_b7_causal_mask_dropped": (
+        _F32, [("const bool vis = key < a.Lk && (!a.causal || key <= row);",
+                "const bool vis = key < a.Lk;")],
+        "phase_f32_kernels", "streaming_attention_f32 B="),
+    # ... every product as one TF32 product (f32_products_tf32's edit of the
+    # 3xTF32 step the fp32 kernels share, held here by B7's forward check)
+    "f32_b7_products_tf32": (
+        _F32, [(_3XTF32, _1XTF32)],
         "phase_f32_kernels", "streaming_attention_f32 B="),
     # B7's backward in fp32, its two FMA kernels (rows past 128): p of the
     # keys the causal mask hides kept

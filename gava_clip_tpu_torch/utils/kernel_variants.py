@@ -2,7 +2,7 @@
 variants of a kernel source (patched copies, as kernel_mutants.py does)
 and time each against the same yardstick, in turns.
 
-    python3 -m gava_clip_tpu_torch.utils.kernel_variants [b1 b9 b7 b5 b3 b4 b2 mega b10 b7b f32b9 f32b7b f32b4 f32b11]   # repo root, on a card
+    python3 -m gava_clip_tpu_torch.utils.kernel_variants [b1 b9 b7 b5 b3 b4 b2 mega b10 b7b f32b9 f32b7b f32b7f f32b4 f32b11]   # repo root, on a card
     python3 -m gava_clip_tpu_torch.utils.kernel_variants b5_as_is b5_parent b5_split   # B5, its parent and the parent's split
     python3 -m gava_clip_tpu_torch.utils.kernel_variants b3_as_is b3_parent b3_split   # B3 the same way
     python3 -m gava_clip_tpu_torch.utils.kernel_variants e2e   # the parent's tree against this one
@@ -72,7 +72,16 @@ of the weights (wrong outputs), the three products of every k8 step
 chained into the running sums with no wait a step (it drifts past the
 limit), one product a step (wrong outputs); B7's fp32 backward
 (csrc/attention_f32.cu) at the text tower's shape beside the parent's
-(`f32b7b_parent`) against SDPA's fp32 backward op, in CUDA graphs. The
+(`f32b7b_parent`) against SDPA's fp32 backward op, in CUDA graphs; B7's
+fp32 forward (`packed_fwd_kernel<true>`) at the text tower's shape and at
+(4, 1024, 1024, 8) causal, held to F32_REL and F32_LSE_ABS, beside the
+parent commit's FMA kernel (`b7f_parent`) and SDPA's fp32 forward in CUDA
+graphs in turns, and at the text tower's shape the host time of this
+tree's wrapper against the parent's launch path: the source as it is,
+steps of 8, 4 or 1 chunks, three blocks an SM, three stages, every step
+with its chunk tests, two product chains, rotated row slabs, the causal
+grid forwards, and three cuts (`f32b7f_*`: `kernel_variants f32b7f
+b7f_parent`). The
 attention of B4 and B11 in fp32 (csrc/attention_f32.cu's first launch of
 each) at the fp32 w8a8 evaluation's shape: this tree's (`f32b4`,
 `f32b11`) and the parent's (`f32b4_parent`, `f32b11_parent`) against each
@@ -155,7 +164,7 @@ PARENT_VARIANTS = {"b10_parent": _B10, "b7b_parent": _B7B,
                    "b2_parent": _B2, "mega_parent": _MEGA,
                    "f32b9_parent": _W8F32, "f32b7b_parent": _F32,
                    "f32b4_parent": _F32, "f32b11_parent": _F32,
-                   "b5_parent": _B5, "b3_parent": _B3}
+                   "b5_parent": _B5, "b3_parent": _B3, "b7f_parent": _F32}
 # B5's parent (the parent commit's w8a8_mlp.cuh, QuickGELU in both fc1
 # passes) cut off, to show where its time goes (wrong outputs): name ->
 # [(old, new)] on the parent's source. The producer streams what the cut
@@ -599,6 +608,13 @@ _B5_FC2_RESTRICT = [
      "    else\n"
      "      fc2_store<BM, kRes, false>(acc2, hs, sa, ba, col, r, y, m0, p.M, p.N, t);\n")]
 
+# B7's fp32 forward: steps of 8, 4 or 1 chunks; three blocks an SM in its
+# launch bounds
+_B7F_CHUNKS8 = ("constexpr int kStreamChunks = 2;", "constexpr int kStreamChunks = 8;")
+_B7F_CHUNKS4 = ("constexpr int kStreamChunks = 2;", "constexpr int kStreamChunks = 4;")
+_B7F_CHUNKS1 = ("constexpr int kStreamChunks = 2;", "constexpr int kStreamChunks = 1;")
+_B7F_3_BLOCKS = ("__launch_bounds__(kFwdThreads, STREAM ? 2 : 3) packed_fwd_kernel",
+                 "__launch_bounds__(kFwdThreads, 3) packed_fwd_kernel")
 # name -> (source, [(old, new)])
 VARIANTS = {
     "f32b9_as_is": (_W8F32, []),
@@ -628,6 +644,86 @@ VARIANTS = {
         "  tf32::wgmma_tf32(f, ah, bh);     // hi_x hi_w\n",
         "  tf32::wgmma_tf32_z(f, ah, bh);\n")]),
     "f32b7b_as_is": (_F32, []),
+    # B7's fp32 forward (packed_fwd_kernel<true>): the source as it is;
+    # every step with the tests of each chunk (no FULL form); the hi x hi
+    # product in a fresh accumulator of its own (two chains of one
+    # and two products where mma3 chains three); three stages of key / value
+    # tiles (a block of two tiles issues both before its first wait); the
+    # warps' row slabs
+    # rotated by the (batch row, head), so that two blocks on one SM give
+    # their heaviest slabs to different quarters of it; its scores masked
+    # and its sums rescaled every 8 chunks of 8 keys (the
+    # whole key tile), every 4 or every chunk; three blocks to an SM in its
+    # launch bounds (168 registers a thread where two leave 255), with 8-chunk
+    # steps too; the causal grid's x forwards (the blocks with the fewest key
+    # tiles first); and cut to show where its time goes (wrong outputs):
+    # without the AV products, without the score products, without any step
+    # (the loads, barriers and epilogue alone)
+    "f32b7f_as_is": (_F32, []),
+    "f32b7f_two_chains": (_F32, [
+        ("// an A fragment (a0..a3 in order) split into hi and lo\n",
+         "__device__ __forceinline__ void mma3p(float (&d)[4], const uint32_t (&ah)[4],\n"
+         "                                      const uint32_t (&al)[4], uint32_t bh0, "
+         "uint32_t bh1,\n"
+         "                                      uint32_t bl0, uint32_t bl1) {\n"
+         "  float p[4], r[4];\n"
+         "  tf32::mma_tf32_z(p, al, bh0, bh1);\n"
+         "  tf32::mma_tf32(p, ah, bl0, bl1);\n"
+         "  tf32::mma_tf32_z(r, ah, bh0, bh1);\n"
+         "#pragma unroll\n"
+         "  for (int i = 0; i < 4; ++i) d[i] += r[i] + p[i];\n"
+         "}\n\n"
+         "// an A fragment (a0..a3 in order) split into hi and lo\n"),
+        ("            mma3(s[j], qh[kk], ql[kk], bh0, bh1, bl0, bl1);",
+         "            mma3p(s[j], qh[kk], ql[kk], bh0, bh1, bl0, bl1);"),
+        ("          mma3(oacc[n], eh, el, bh0, bh1, bl0, bl1);",
+         "          mma3p(oacc[n], eh, el, bh0, bh1, bl0, bl1);")]),
+    "f32b7f_tests_always": (_F32, [
+        ("      if (STREAM && GC * (c4 + 1) <= nch)\n", "      if (false)\n")]),
+    "f32b7f_3_stages": (_F32, [
+        ("constexpr int kPFwdSmemBytes = 2 * kFwdStageFloats * 4;\n",
+         "constexpr int kPFwdSmemBytes = 2 * kFwdStageFloats * 4;\n"
+         "constexpr int kSFwdSmemBytes = 3 * kFwdStageFloats * 4;\n"),
+        ("      float* st = smem + (kt & 1) * kFwdStageFloats;",
+         "      float* st = smem + static_cast<unsigned>(kt) % (STREAM ? 3 : 2) * "
+         "kFwdStageFloats;"),
+        ("  issue(0);\n\n  // the warp's q rows as A fragments",
+         "  issue(0);\n  if (STREAM) issue(1);\n\n  // the warp's q rows as A fragments"),
+        ("    tf32::cp_wait_all();\n    __syncthreads();   // tile kt is in; every warp "
+         "is done with the other stage\n    issue(kt + 1);\n    if (!active) continue;\n"
+         "    const float* ks = smem + (kt & 1) * kFwdStageFloats;",
+         "    if (STREAM)\n      tf32::cp_wait_1();\n    else\n      tf32::cp_wait_all();\n"
+         "    __syncthreads();\n    issue(kt + (STREAM ? 2 : 1));\n"
+         "    if (!active) continue;\n"
+         "    const float* ks = smem + static_cast<unsigned>(kt) % (STREAM ? 3 : 2) * "
+         "kFwdStageFloats;"),
+        ("                                         kPFwdSmemBytes);\n  if (err != cudaSuccess) "
+         "return err;\n  const dim3 grid((a.Lq + kFwdRows - 1) / kFwdRows, a.H, B);\n"
+         "  packed_fwd_kernel<STREAM><<<grid, kFwdThreads, kPFwdSmemBytes, stream>>>(a);",
+         "                                         STREAM ? kSFwdSmemBytes : kPFwdSmemBytes);\n"
+         "  if (err != cudaSuccess) return err;\n"
+         "  const dim3 grid((a.Lq + kFwdRows - 1) / kFwdRows, a.H, B);\n"
+         "  packed_fwd_kernel<STREAM><<<grid, kFwdThreads, STREAM ? kSFwdSmemBytes : "
+         "kPFwdSmemBytes, stream>>>(a);")]),
+    "f32b7f_rotate_warps": (_F32, [
+        ("  const int w0 = qt * kFwdRows + warp * 16;            // the warp's first query row",
+         "  const int w0 = qt * kFwdRows + ((warp + blockIdx.y + blockIdx.z * gridDim.y) & 3) * 16;")]),
+    "f32b7f_chunks8": (_F32, [_B7F_CHUNKS8]),
+    "f32b7f_chunks4": (_F32, [_B7F_CHUNKS4]),
+    "f32b7f_chunks1": (_F32, [_B7F_CHUNKS1]),
+    "f32b7f_3_blocks": (_F32, [_B7F_3_BLOCKS]),
+    "f32b7f_chunks8_3_blocks": (_F32, [_B7F_CHUNKS8, _B7F_3_BLOCKS]),
+    "f32b7f_grid_forwards": (_F32, [
+        ("const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;",
+         "const int qt = blockIdx.x;")]),
+    "f32b7f_cut_av": (_F32, [
+        ("          mma3(oacc[n], eh, el, bh0, bh1, bl0, bl1);\n", "")]),
+    "f32b7f_cut_scores": (_F32, [
+        ("            mma3(s[j], qh[kk], ql[kk], bh0, bh1, bl0, bl1);\n", "")]),
+    "f32b7f_cut_steps": (_F32, [
+        ("      if (STREAM && GC * (c4 + 1) <= nch)\n"
+         "        step(std::true_type{}, c4);\n      else\n"
+         "        step(std::false_type{}, c4);\n", "")]),
     "f32b4": (_F32, []),
     "f32b11": (_F32, []),
     "b1_as_is": (_PA, []),
@@ -894,6 +990,8 @@ B3_PARENT_ROWS = {"b3_parent_112": 112}
 B3_PLAN_FORMS = {"b3_rows_128": {"rows": 128}}
 # (B, Lq, heads) of B7's causal forward: the text tower, a longer L
 B7_SHAPES = ((15, 77, 8), (4, 1024, 8))
+# (B, L, heads) of B7's fp32 causal forward: the text tower, a longer L
+B7F_SHAPES = ((15, 77, 8), (4, 1024, 8))
 ATTN_SHAPES = ((128, 197, 214, 12), (280, 197, 276, 12))
 W8_SHAPES = ((25216, 768, 3072, "fc1"), (25216, 3072, 768, "fc2"))
 
@@ -947,7 +1045,7 @@ def _build(name):
     if res.returncode:
         raise RuntimeError(f"nvcc failed for {name}:\n{res.stderr}")
     lib = ctypes.CDLL(so)
-    if path in (_B5, _B3):
+    if path in (_B5, _B3, _F32):
         lib.ptxas_summary = _ptxas_summary(res.stdout + res.stderr)
     for fn, (argtypes, restype) in signatures.items():
         if path == _B5 and not hasattr(lib, fn):
@@ -968,7 +1066,9 @@ def _ptxas_summary(log):
             spill = line.strip()
         elif "Used" in line and "registers" in line and entry:
             regs = line.split("Used")[1].split("registers")[0].strip()
-            out.append(f"{entry[:60]}: {regs} registers, {spill}")
+            # a mangled name's tail holds the kernel and its template
+            # arguments (its head is the anonymous namespace)
+            out.append(f"{entry[-60:]}: {regs} registers, {spill}")
             entry = None
         elif "wgmma" in line.lower():
             out.append(line.strip())
@@ -1103,6 +1203,8 @@ def main(argv=None) -> int:
         _f32b7b_variants(cs, fa, libs, gen, state)
     if _any(libs, "f32b4") or _any(libs, "f32b11"):
         _f32b4_variants(cs, fa, im, libs, gen, state)
+    if _any(libs, "f32b7f") or "b7f_parent" in libs:
+        _f32b7f_variants(cs, fa, libs, gen, state)
     return 0
 
 
@@ -1898,6 +2000,108 @@ def _f32b7b_variants(cs, fa, libs, gen, state):
               f"median of 7 rounds: {g[0]:.5f} ms vs SDPA's fp32 backward op "
               f"{g[1]:.5f} ms a call, ratio {g[2]:.3f} (rounds {g[3]:.3f}-"
               f"{g[4]:.3f}) ({state['smi']})", flush=True)
+
+
+def _f32b7f_variants(cs, fa, libs, gen, state):
+    """B7's fp32 causal forward at B7F_SHAPES: each library's entry
+    (`f32b7f_*` of this tree, `b7f_parent` of the parent's tree) held to the
+    plain version (max err / the scale sum p |v|, F32_REL; lse within
+    F32_LSE_ABS), then timed by CUDA events and in CUDA graphs, against
+    SDPA's fp32 forward and against the first of them (the parent where it
+    is built) in turns in CUDA graphs (median of 7 rounds)."""
+    import torch
+    for B, L, H in B7F_SHAPES:
+        D = H * 64
+        q, k, v = (torch.randn(B, L, D, generator=gen, device="cuda")
+                   for _ in range(3))
+        ref, lse_ref = fa.streaming_attention_plain(q, k, v, H, True)
+        spread = fa.streaming_attention_plain(q, k, v.abs(), H, True)[0]
+        label = f"B={B} L={L} H={H} causal"
+        calls = {}
+        for name in sorted((n for n in libs if n.startswith(("f32b7f",
+                                                              "b7f_parent"))),
+                           key=lambda n: n != "b7f_parent"):
+            o = torch.empty_like(q)
+            lse = torch.empty(B, H, L, device="cuda")
+
+            def call(lib=libs[name], o=o, lse=lse, name=name):
+                err = lib.streaming_attention_f32(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    lse.data_ptr(), B, L, L, H, 64, *fa._qkv_strides(q, k, v),
+                    o.stride(0), o.stride(1), 64 ** -0.5, 1,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{name}: launch failed ({err})")
+            call()
+            torch.cuda.synchronize()
+            err = ((o - ref).abs() / spread).max().item()
+            lse_err = (lse - lse_ref).abs().max().item()
+            ok = err <= cs.F32_REL and lse_err <= cs.F32_LSE_ABS
+            regs = [s for s in libs[name].ptxas_summary.split("; ")
+                    if "packed_fwd" in s or "stream_fwd" in s]
+            print(f"[variants] {name} {label}: max err / scale {err:.3e}, "
+                  f"max |lse - plain| {lse_err:.3e} "
+                  f"{'ok' if ok else 'FAIL'}; ptxas {regs}", flush=True)
+            calls[name] = call
+        bound = cs._attention_bounds(B, L, L, H, True, esize=4,
+                                     tf32=True)["fwd_stat"]
+        _report_times(cs, label, calls, cs._sdpa_fwd(q, k, v, H, True),
+                      "sdpa_fp32_forward",
+                      lambda: fa.streaming_attention_plain(q, k, v, H, True),
+                      f"{bound[0]:.5f} ms ({bound[1]}, 3xTF32)", state)
+        if "b7f_parent" in libs and L <= 128:
+            _b7f_host_vs_parent(cs, fa, libs["b7f_parent"], q, k, v, H,
+                                label, state)
+
+
+def _b7f_host_vs_parent(cs, fa, lib, q, k, v, H, label, state):
+    """The host time of a call of B7's fp32 forward through this tree's
+    wrapper and through the parent commit's path into its own kernel (the
+    same argument checks, then the plan, the stream object and a device
+    context each call, the library and its layout looked up), on the host
+    clock and by CUDA events, in turns (median of 7 rounds)."""
+    import torch
+    from gava_clip_tpu_torch.ops._cuda import load_library
+    B, Lq, D = q.shape
+    Lk = k.shape[1]
+    counts = {"b7f_parent": 0}
+
+    def parent():
+        fa._check_kernel_args(q, k, v, H)
+        if k.shape[1] == 0 or q.dtype != torch.float32:
+            raise ValueError("not the fp32 streaming path")
+        out = torch.empty((B, Lq, D), dtype=q.dtype, device=q.device)
+        lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+        fa.attention_f32_plan(B, Lq, Lk, H, 64, packed=False)
+        fa._check_layout("attention_f32", load_library("attention_f32"),
+                         "attention_f32_layout", fa._F32_LAYOUT)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        with torch.cuda.device(q.device):
+            err = lib.streaming_attention_f32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), B, Lq, Lk, H, 64, *fa._qkv_strides(q, k, v),
+                out.stride(0), out.stride(1), 64 ** -0.5, 1, stream)
+        if err:
+            raise RuntimeError(f"b7f_parent: launch failed ({err})")
+        counts["b7f_parent"] += 1
+        return out, lse
+
+    def wrapper():
+        return fa.streaming_attention_cuda(q, k, v, H, True)
+    a, b = [], []
+    for _ in range(7):
+        a.append(cs._host_ms(wrapper))
+        b += [cs._host_ms(parent), cs._host_ms(parent)]
+        a.append(cs._host_ms(wrapper))
+    a, b = sorted(a), sorted(b)
+    ev = cs._ratio_turns(wrapper, parent)
+    print(f"[variants] host ms a call {label} (100 enqueued back to back, "
+          f"host clock, median of 7 rounds in turns): the wrapper "
+          f"{a[len(a) // 2]:.5f} ({a[0]:.5f}-{a[-1]:.5f}), the parent's path "
+          f"{b[len(b) // 2]:.5f} ({b[0]:.5f}-{b[-1]:.5f}); by CUDA events, "
+          f"median of 7 rounds in turns: {ev[0]:.5f} ms vs {ev[1]:.5f} ms, "
+          f"ratio {ev[2]:.3f} (rounds {ev[3]:.3f}-{ev[4]:.3f}) "
+          f"({state['smi']})", flush=True)
 
 
 def _f32b4_variants(cs, fa, im, libs, gen, state):

@@ -11,9 +11,12 @@ products over its descriptor's unswizzled core matrices, cp.async a plain
 copy (its waits and the fences no-ops); that product is held against numpy.
 The kernels are held against the plain versions at small ragged shapes
 with chip_smoke's fp32 limit, with their fp32 mutants
-(utils/kernel_mutants.py) rejected by the same limit; B7's backward at rows
-up to 128 takes its one-launch form (the 3xTF32 backward's kernel in its
-streaming form), gives the same bits twice and is also held directly
+(utils/kernel_mutants.py) rejected by the same limit; B7's forward (the
+3xTF32 forward's kernel in its streaming form, at every length) is also held
+directly against JAX's streaming forward and, by its RMS error, at least as
+close to a float64 causal attention as the plain fp32 version; B7's backward
+at rows up to 128 takes its one-launch form (the 3xTF32 backward's kernel in
+its streaming form), gives the same bits twice and is also held directly
 against JAX's gradient. ex2.approx becomes exp2f here, so this checks the
 kernels' indexing, masking, tiling and summation, not the card's
 instructions.
@@ -484,11 +487,15 @@ def _run(lib, B, Lq, Lk, H, causal=None, sliced=False, seed=0):
 # above and below Lk, q/k/v as views of one projection; then query rows
 # that are not a multiple of 16 with keys that are not a multiple of 8 past
 # a backward key tile (128) and inside a forward one (64), and Lq past 240,
-# whose backward keeps its dq accumulator in the global scratch
+# whose backward keeps its dq accumulator in the global scratch; then B7's
+# forward causal over three key tiles with Lq < Lk, neither a multiple of
+# 16 or 8 (its blocks stop at their last row's tile, its warps at their
+# last row's chunk)
 _SHAPES = [(2, 13, 21, 2, None, False), (1, 70, 130, 1, None, False),
            (1, 65, 64, 2, None, True), (1, 77, 77, 2, True, False),
            (1, 130, 70, 1, True, True), (1, 40, 150, 1, False, False),
-           (1, 33, 139, 1, None, False), (1, 250, 20, 1, None, False)]
+           (1, 33, 139, 1, None, False), (1, 250, 20, 1, None, False),
+           (1, 150, 170, 1, True, False)]
 
 
 @pytest.mark.parametrize("shape", _SHAPES)
@@ -555,6 +562,49 @@ def test_f32_stream_bwd_one_launch_against_jax_grad(emu):
                                    err_msg=name)
 
 
+def _stream_fwd(lib, q, k, v, H, causal):
+    """B7's fp32 forward through its entry: (out, lse)."""
+    B, Lq, D = q.shape
+    o, lse = torch.empty(B, Lq, D), torch.empty(B, H, Lq)
+    P = torch.Tensor.data_ptr
+    assert lib.streaming_attention_f32(
+        P(q), P(k), P(v), P(o), P(lse), B, Lq, k.shape[1], H, 64,
+        *tfa._qkv_strides(q, k, v), o.stride(0), o.stride(1), 64 ** -0.5,
+        int(causal), None) == 0
+    return o, lse
+
+
+def test_f32_stream_forward_against_jax(emu):
+    """B7's fp32 forward held directly against JAX's at the text tower's
+    77 tokens, causal: out against _streaming_flash (the stock Pallas TPU
+    kernel in interpret mode), lse against that kernel's own residuals m +
+    log l on the same head-major padded rows (what _streaming_flash's
+    custom VJP saves), both within tests/test_flash_attention.py's
+    tolerance for the causal text shape (atol 1e-4)."""
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas.ops.tpu import flash_attention as stock
+    from gava_clip_tpu.ops import flash_attention as jflash
+    B, L, H, Lp = 1, 77, 2, 128
+    q, k, v, _ = _inputs(13, B, L, L, H, False)
+    o, lse = _stream_fwd(emu[1], q, k, v, H, True)
+    jq, jk, jv = (jnp.asarray(t.numpy()) for t in (q, k, v))
+
+    def head_major(x):
+        x = jnp.pad(x, ((0, 0), (0, Lp - L), (0, 0)))
+        return x.reshape(B, Lp, H, 64).transpose(0, 2, 1, 3)
+    with pltpu.force_tpu_interpret_mode():
+        o_j = jflash._streaming_flash(jq, jk, jv, H, True)
+        _, l_j, m_j = stock._flash_attention(
+            head_major(jq), head_major(jk), head_major(jv), None, None, True,
+            True, 64 ** -0.5, stock.BlockSizes.get_default(B, H, Lp, Lp, 64),
+            False)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_j), atol=1e-4)
+    np.testing.assert_allclose(lse.numpy(),
+                               np.asarray(m_j + jnp.log(l_j))[:, :, :L],
+                               atol=1e-4)
+
+
 def test_f32_packed_bwd_global_accumulator_walks_the_items(emu):
     """The packed backward with its dq accumulator in the global scratch
     and fewer blocks than (batch row, head) items, each block walking them
@@ -569,11 +619,11 @@ def test_f32_packed_bwd_global_accumulator_walks_the_items(emu):
     o, den = tfa.packed_attention_den_plain(q, k, v, H)
     plan = tfa.attention_f32_plan(B, Lq, Lk, H)["bwd"]
     assert plan["acc_in_smem"] and plan["grid"] == B * H
-    per_block = plan["lq_pad"] * tfa._F32_LAYOUT[10]
+    per_block = plan["lq_pad"] * tfa._F32_LAYOUT[9]
     runs = []
     for grid, in_smem in ((plan["grid"], 1), (3, 0), (1, 0)):
         scratch = torch.full((grid * per_block,), float("nan"))
-        smem = plan["smem_bytes"] if in_smem else tfa._F32_LAYOUT[9]
+        smem = plan["smem_bytes"] if in_smem else tfa._F32_LAYOUT[8]
         tail = (B, Lq, Lk, H, Dh, *strides, plan["lq_pad"], grid, in_smem,
                 smem, Dh ** -0.5, None)
         g6 = [torch.empty(B, L, D) for L in (Lq, Lk, Lk)]
@@ -618,6 +668,33 @@ def test_f32_packed_forward_as_close_to_float64_as_torch(emu, shape):
     def dist(x):
         return ((x.double() - exact).abs() / spread).max().item()
     assert dist(o) <= dist(tfa.packed_attention_plain(q, k, v, H))
+
+
+@pytest.mark.parametrize("shape", [(2, 77, 77, 2), (1, 150, 170, 1)])
+def test_f32_stream_forward_as_close_to_float64_as_torch(emu, shape):
+    """B7's 3xTF32 forward (causal), with the emulated tensor core
+    truncating what it accumulates and its sums rescaled as its running max
+    moves, lies at least as close to the float64 causal softmax attention
+    as the plain version's fp32 does: the root mean square of the error
+    over the scale (the largest single error is one rounding either way at
+    these sizes: 0.61-1.11x the plain version's over four seeds, the RMS
+    0.66-0.81x over eight); its lse within F32_LSE_ABS of the float64
+    one."""
+    _, lib = emu
+    B, Lq, Lk, H = shape
+    q, k, v, _ = _inputs(8, B, Lq, Lk, H, False)
+    o, lse = _stream_fwd(lib, q, k, v, H, True)
+    qh, kh, vh = (tfa._heads(x, H).double() for x in (q, k, v))
+    s = (qh @ kh.transpose(-1, -2)) * 64 ** -0.5
+    s = s.masked_fill(~torch.ones(Lq, Lk, dtype=torch.bool).tril(),
+                      float("-inf"))
+    exact = (torch.softmax(s, -1) @ vh).transpose(1, 2).reshape(B, Lq, H * 64)
+    spread = tfa.streaming_attention_plain(q, k, v.abs(), H, True)[0].double()
+
+    def dist(x):
+        return (((x.double() - exact) / spread) ** 2).mean().sqrt().item()
+    assert dist(o) <= dist(tfa.streaming_attention_plain(q, k, v, H, True)[0])
+    assert (lse.double() - torch.logsumexp(s, -1)).abs().max().item() <= 3e-5
 
 
 # one warp's 16 x 8 x 8 product through csrc/tf32_frags.cuh: mode 0 one

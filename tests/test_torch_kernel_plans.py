@@ -672,11 +672,12 @@ _BLOCK_RESERVED = 1024          # shared bytes the runtime keeps per block
 
 def test_attention_f32_layout_is_the_kernel_source_s():
     """The plans' constants are the ones attention_f32_layout reports. The
-    FMA tiles: 64-row tiles padded to 68 floats, 256 threads, each kernel's
-    shared bytes as its tiles and row floats add up (the streaming
-    forward's four tiles), the forward three blocks to an SM and the dq
-    kernel two. The 3xTF32 forward: 4 warps of 16 query rows, two stages of
-    64-key k and v tiles, three blocks to an SM. The 3xTF32 backward: 8
+    FMA tiles (B7's backward past 128 rows): 64-row tiles padded to 68
+    floats, 256 threads, each kernel's shared bytes as its tiles and row
+    floats add up, the dq kernel two blocks to an SM. The 3xTF32 forward
+    (B1 / B6a and B7's): 4 warps of 16 query rows, two stages of 64-key k
+    and v tiles, three blocks to an SM; B7's steps of whole 8-key chunks
+    that tile a key tile. The 3xTF32 backward: 8
     warps of 16 keys, two key stages, one value tile, two stages of 32-row q
     and do tiles and ds^T fixed, 74 floats a query row (a 72-float dq row,
     inv_d, delta), its accumulator in shared memory up to Lq 240; B7's
@@ -689,8 +690,10 @@ def test_attention_f32_layout_is_the_kernel_source_s():
     aligned, and 20 words apart: a fragment's rows g = 0..7 fall in
     distinct banks), every region 16-byte aligned; two blocks to an SM."""
     c = _cuda_constants("attention_f32.cu")
+    assert "kFwdSmemBytes" not in c and "stream_fwd_kernel" not in (
+        _CSRC / "attention_f32.cu").read_text()
     assert tfa._F32_LAYOUT == (
-        c["kT"], c["kThreads"], c["kFwdSmemBytes"], c["kDqSmemBytes"],
+        c["kT"], c["kThreads"], c["kDqSmemBytes"],
         c["kDkvSmemBytes"], c["kFwdRows"], c["kFwdThreads"],
         c["kPFwdSmemBytes"], c["kBwdThreads"], c["kBwdFixedBytes"],
         c["kAccLD"] + 2, c["kMaxSmem"], c["kStreamBwdRows"],
@@ -702,11 +705,12 @@ def test_attention_f32_layout_is_the_kernel_source_s():
     assert c["kHD"] == tfa._KERNEL_HEAD_DIM == c["kT"]
     assert c["kLD"] * 4 % 16 == 0 and c["kLDF"] * 4 % 16 == 0   # 16-byte rows
     assert c["kThreads"] == (c["kT"] // 4) ** 2     # a 4 x 4 patch a thread
-    assert (c["kFwdSmemBytes"], c["kDqSmemBytes"], c["kDkvSmemBytes"]) == (
-        4 * tile, 6 * tile + 2 * c["kT"] * 4, 8 * tile + 2 * c["kT"] * 4)
+    assert (c["kDqSmemBytes"], c["kDkvSmemBytes"]) == (
+        6 * tile + 2 * c["kT"] * 4, 8 * tile + 2 * c["kT"] * 4)
     row = c["kLDF"] * 4
     assert c["kFwdRows"] == 16 * c["kFwdThreads"] // 32
     assert c["kPFwdSmemBytes"] == 2 * 2 * c["kFwdKeys"] * row
+    assert c["kFwdKeys"] % (8 * c["kStreamChunks"]) == 0
     assert c["kBwdKeys"] == 16 * c["kBwdThreads"] // 32
     assert c["kBwdFixedBytes"] == (3 * c["kBwdKeys"] * row
                                    + 4 * c["kBwdRows"] * row
@@ -727,7 +731,7 @@ def test_attention_f32_layout_is_the_kernel_source_s():
                        c["kFmaOffS"] + (rows + keys) * 4,
                        c["kFmaOffC"] + (rows + keys) * c["kLDC"])
     assert all(r % 16 == 0 for r in regions)
-    for smem, per_sm in ((c["kFwdSmemBytes"], 3), (c["kDqSmemBytes"], 2),
+    for smem, per_sm in ((c["kDqSmemBytes"], 2),
                          (c["kDkvSmemBytes"], 1), (c["kPFwdSmemBytes"], 3),
                          (c["kBwdFixedBytes"], 1), (c["kFmaSmemBytes"], 2)):
         assert smem <= _H100_SMEM_OPTIN
@@ -756,11 +760,15 @@ def test_attention_f32_plan_covers_every_row_head_and_tile(B, Lq, Lk, H,
     key length (640 included) and fit a block."""
     p = tfa.attention_f32_plan(B, Lq, Lk, H, packed=packed, sm_count=_H100_SMS)
     lay = tfa._F32_LAYOUT
-    bwd_threads, fixed, per_row, max_smem, one_rows = lay[8:13]
+    bwd_threads, fixed, per_row, max_smem, one_rows = lay[7:12]
+    rows, threads, fwd = lay[4:7]
+    tiles, heads, batch = p["fwd"]["grid"]
+    assert tiles * rows >= Lq > (tiles - 1) * rows and (heads, batch) == (H, B)
+    assert (p["fwd"]["threads"], p["fwd"]["smem_bytes"]) == (threads, fwd)
     if not packed:
-        rows, threads, fwd, dq, dkdv = lay[:5]
+        rows, threads, dq, dkdv = lay[:4]
         bwd = p["bwd"]
-        kernels = [("fwd", p["fwd"], Lq)]
+        kernels = []
         if bwd["form"] == "two_kernels":
             kernels += [("dq", bwd["dq"], Lq), ("dkdv", bwd["dkdv"], Lk)]
             assert (bwd["dq"]["smem_bytes"], bwd["dkdv"]["smem_bytes"]) == (
@@ -779,12 +787,7 @@ def test_attention_f32_plan_covers_every_row_head_and_tile(B, Lq, Lk, H,
             assert tiles * rows >= L > (tiles - 1) * rows
             assert (heads, batch) == (H, B)
             assert plan["threads"] == threads
-        assert p["fwd"]["smem_bytes"] == fwd
         return
-    rows, threads, fwd = lay[5:8]
-    tiles, heads, batch = p["fwd"]["grid"]
-    assert tiles * rows >= Lq > (tiles - 1) * rows and (heads, batch) == (H, B)
-    assert (p["fwd"]["threads"], p["fwd"]["smem_bytes"]) == (threads, fwd)
     bwd = p["bwd"]
     assert bwd["threads"] == bwd_threads
     assert bwd["lq_pad"] % 16 == 0 and 0 <= bwd["lq_pad"] - Lq < 16
@@ -803,7 +806,7 @@ def test_attention_f32_plan_covers_every_row_head_and_tile(B, Lq, Lk, H,
     if Lq == 640:
         assert (bwd["lq_pad"], bwd["grid"], bwd["scratch_floats"]) == (
             640, 8, 8 * 640 * 74)
-    fma_rows, fma_threads, fma_smem = lay[13:]
+    fma_rows, fma_threads, fma_smem = lay[12:]
     blocks, heads, batch = p["fma_fwd"]["grid"]
     assert blocks * fma_rows >= Lq > (blocks - 1) * fma_rows
     assert (heads, batch) == (H, B)
@@ -825,7 +828,7 @@ def test_attention_f32_fma_fwd_plan_pads_queries_to_16_and_keys_to_8(
     3,072 blocks, about 11.6 waves of two blocks on an H100's 132 SMs."""
     c = _cuda_constants("attention_f32.cu")
     p = tfa.attention_f32_plan(B, Lq, Lk, H)["fma_fwd"]
-    rows = p["grid"][0] * tfa._F32_LAYOUT[13]
+    rows = p["grid"][0] * tfa._F32_LAYOUT[12]
     warps = -(-Lq // 16)
     keys = sum(8 * min(8, -(-(Lk - k0) // 8))
                for k0 in range(0, Lk, c["kFmaKeys"]))
@@ -863,6 +866,28 @@ def test_attention_f32_stream_bwd_form(B, Lq, Lk, H, form):
     assert forms == {shape[:4]: "one_launch" if max(shape[1:3]) <= 128
                      else "two_kernels"
                      for shape in chip_smoke.F32_STREAM_SHAPES}
+
+
+@pytest.mark.parametrize("B,Lq,Lk,H,blocks,waves", [
+    (15, 77, 77, 8, 240, 1),       # the text tower (F32_STREAM_SHAPES)
+    (4, 1024, 1024, 8, 512, 2),    # the long causal shape
+])
+def test_attention_f32_stream_fwd_is_the_packed_forward(B, Lq, Lk, H, blocks,
+                                                        waves):
+    """B7's fp32 forward at every length is the 3xTF32 packed forward's
+    kernel in its streaming form: the packed plan's grid of 64-row blocks,
+    threads and shared bytes. Its shared bytes allow three blocks to an SM.
+    At the streaming form's two blocks an SM, the text tower's 240 blocks
+    are one wave of an H100's 132 SMs and the long causal shape's 512
+    two."""
+    c = _cuda_constants("attention_f32.cu")
+    fwd = tfa.attention_f32_plan(B, Lq, Lk, H, packed=False)["fwd"]
+    assert fwd == tfa.attention_f32_plan(B, Lq, min(Lk, 640), H)["fwd"]
+    tiles, heads, batch = fwd["grid"]
+    assert (tiles * heads * batch, fwd["threads"], fwd["smem_bytes"]) == (
+        blocks, c["kFwdThreads"], c["kPFwdSmemBytes"])
+    assert _SM90_SMEM_PER_SM // (c["kPFwdSmemBytes"] + _BLOCK_RESERVED) == 3
+    assert -(-blocks // (2 * _H100_SMS)) == waves
 
 
 @pytest.mark.parametrize("args,kw", [
