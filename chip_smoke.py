@@ -35,12 +35,19 @@ The w8a8 path gets the same three checks:
           attention_out_int8 against packed_attention then w8a8_matmul,
           each in turns, and the int8 product of each alone through
           torch._int_mm (the `yardsticks` of their kernels-line entries);
+          attention_out_int8, its int8 QK^T and two-source forms also past
+          640 keys (LONG_KEY_SHAPES: 16 frame rows of 400^2 and 448^2, 643
+          and 802 keys), timed beside 214 keys (the `long_keys` of their
+          entries; w8a8-f32 the same for the fp32 forms);
   w8a8-slice   VideoClassifier(quantize="w8a8", patch_major=True) on the
           pathology weights at batch 16: launches per forward (1, 12, 12, 12
           and no packed attention), probabilities, the padded bucket, the
           logits against the same forward through the plain versions (on
           these weights and on the plain init), the prob-delta gate against
-          the bf16 classifier, clips/s and batch-1 latency;
+          the bf16 classifier, clips/s and batch-1 latency; then a w8a8
+          classifier of build_zero_shot(input_size=400) at batch 4 (643
+          keys a frame row): launches, probabilities, logits against the
+          plain versions' forward, clips/s;
   w8a8-server  the w8a8 classifier behind the same server.
 The training step:
   train-kernel  the denominator-emitting packed forward, the packed
@@ -167,7 +174,11 @@ The training and evaluation programs:
           switch (24 B11 fp32) and under the fused-extras switch (24 B10 on
           fp32 rows), each within one clip, and cli.zero_shot.main on a
           reference-format .pth written from a model's own weights, in bf16
-          and with --quantize_eval w8 in fp32;
+          and with --quantize_eval w8 in fp32; between the two, cli.train
+          in fp32 with --auto_augment AUG_POLICY (8 steps: sustained
+          ms/step and data_time beside the plain fp32 run's), its
+          --auto_resume continuation (the same losses), the augmentation's
+          ms a batch and the card against the CPU (AUG_CARD_SHARE);
   gait-text  the gait-knowledge programs from 128 synthetic WHAM walks
           drawn from a seed: offline.gait_params (10 parameters, so 210
           combinations), offline.preprocess.data_preprocess on the card
@@ -787,6 +798,96 @@ def _b4_yardsticks(state, q, k, v, H, op, r, lq):
                 _int_mm_ms(gen, B * lq, D, op["kernel"]["qa_t"]))
 
 
+# (B frame rows, Lx patch tokens + the class token, Le prompt extras): the
+# fused attention past the packed path's 640 keys, frames of 400^2 (626 +
+# 17 = 643 keys) and 448^2 (785 + 17 = 802), beside the 224^2 frame's 214
+# keys at the same 16 frame rows (timed only: held at 128 rows above)
+LONG_KEY_SHAPES = ((16, 197, 17), (16, 626, 17), (16, 785, 17))
+
+
+def _long_key_checks(state, dtype):
+    """B4, B11 and B12 (`dtype` bfloat16 or float32: their fp32 forms) at
+    LONG_KEY_SHAPES on 12 heads: q carries all Lx + Le rows of the kv
+    projection, the first Lx are the queries (B12: q the Lx rows, the keys
+    [k1 (Lx); k2 (Le)]). Past 640 keys each is held against its plain
+    version within W8A8_LIMITS / F32_W8A8_LIMITS, as at 214 keys; each is
+    timed by CUDA events at every shape, with its bound as the 214-key
+    checks compute it. Into state['long_keys'][name]: [{Lk, ms, bound_ms,
+    bound_by, max_abs_err}], and the failures into the dtype's list."""
+    import torch
+    from gava_clip_tpu_torch.ops import flash_attention as fa
+    from gava_clip_tpu_torch.ops import int8_matmul as im
+    f32 = dtype == torch.float32
+    tag, H = ("w8a8-f32" if f32 else "w8a8"), 12
+    D, esize = H * 64, (4 if f32 else 2)
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    failures = state.setdefault("w8a8_f32_failures" if f32
+                                else "w8a8_failures", [])
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+    for B, Lx, Le in LONG_KEY_SHAPES:
+        Lk = Lx + Le
+        q, k, v = randn(B, Lk, D), randn(B, Lk, D), randn(B, Lk, D)
+        r = randn(B, Lx, D)
+        op = {"kernel": _qleaf(gen, D, D),
+              "bias": torch.randn(D, generator=gen, device="cuda") * 0.02}
+        k1, v1, k2, v2 = k[:, :Lx], v[:, :Lx], k[:, Lx:], v[:, Lx:]
+        q1 = q[:, :Lx].contiguous()
+        # bytes: the lq query rows, the residual, the output, k, v, the
+        # weight; B4: both attention products on the kernel's units (bf16
+        # tensor cores, or fp32 FMA), B11: the scores in int8
+        n_bytes = 3 * esize * B * Lx * D + 2 * esize * B * Lk * D + D * D \
+            + 8 * D
+        att = 2 * B * Lx * Lk * D
+        out_proj = 2 * B * Lx * D * D
+        checks = (
+            ("attention_out_int8", False,
+             lambda: fa.attention_out_int8_cuda(q, k, v, H, op, r, Lx),
+             lambda: fa.attention_out_int8_plain(q, k, v, H, op, r, Lx),
+             dict(ops_int8=out_proj, **{("flops_fp32" if f32 else
+                                         "flops_bf16"): 2 * att})),
+            ("attention_out_int8_qk8", True,
+             lambda: fa.attention_out_int8_cuda(q, k, v, H, op, r, Lx, True),
+             lambda: fa.attention_out_int8_plain(q, k, v, H, op, r, Lx,
+                                                 True),
+             dict(ops_int8=att + out_proj, **{("flops_fp32" if f32 else
+                                               "flops_bf16"): att})),
+            ("attention_out_int8_2src", False,
+             lambda: fa.attention_out_int8_2src_cuda(q1, k1, v1, k2, v2, H,
+                                                     op, r),
+             lambda: fa.attention_out_int8_2src_plain(q1, k1, v1, k2, v2, H,
+                                                      op, r),
+             dict(ops_int8=out_proj, **{("flops_fp32" if f32 else
+                                         "flops_bf16"): 2 * att})))
+        for base, qk8, kernel, plain, ops in checks:
+            name = base + ("_f32" if f32 else "")
+            label = f"B={B} lq={Lx} Lq={Lk} Lk={Lk} H={H}"
+            out = kernel()
+            text = "timed only (held at 128 frame rows above)"
+            err = None
+            if Lk > 640:
+                ref = plain()
+                xs = im.quant_rows(fa._onepass_attention_den_f32(
+                    q[:, :Lx], k, v, H, int8_qk=qk8)[0])[1]
+                unit = _flip_unit(xs, op["kernel"]["scale"])
+                torch.cuda.synchronize()
+                ok, err, text = _check_w8a8_f32(name, out, ref, unit, r) \
+                    if f32 else _check_w8a8(name, out, ref, unit)
+                text += " " + ("ok" if ok else "FAIL")
+                if not ok:
+                    failures.append(f"{name} {label}")
+                del ref
+            ms = cuda_time_ms(kernel, iters=10)
+            bound = _bound(n_bytes, **ops)
+            state.setdefault("long_keys", {}).setdefault(name, []).append(
+                {"Lk": Lk, "ms": ms, "bound_ms": bound[0],
+                 "bound_by": bound[1], "max_abs_err": err})
+            log(f"[{tag}] {name} {label} (past 640 keys: {Lk > 640}): "
+                f"{ms:.4f} ms by CUDA events, bound {bound[0]:.4f} ms "
+                f"({bound[1]}) ({state['smi']}); {text}")
+
+
 def phase_w8a8_kernels(state):
     """B2-B5 against their plain versions, at the serving shape and ragged
     ones, with CUDA-event times of both at the serving shape."""
@@ -1024,6 +1125,7 @@ def phase_w8a8_kernels(state):
                                "largest_negative": most}
     if not ok:
         state.setdefault("w8a8_failures", []).append("w8a8_mlp QuickGELU")
+    _long_key_checks(state, torch.bfloat16)
     if state.get("w8a8_failures"):
         raise AssertionError(f"w8a8 kernels disagree with their plain "
                              f"versions: {state['w8a8_failures']}")
@@ -1305,6 +1407,62 @@ def phase_w8a8_slice(state):
         f"{state['fwd_ms']:.2f} ms; the forward through the plain versions "
         f"{plain_ms:.2f} ms); batch 1 latency p50 {lat:.2f} ms "
         f"({state['smi']})")
+    _w8a8_slice_400(state, labels)
+
+
+# frames of 400^2: 625 patches + the class token and 17 prompt-extras rows,
+# 643 keys a frame row, past the packed path's 640
+W8A8_400_BATCH = 4
+
+
+def _w8a8_slice_400(state, labels):
+    """VideoClassifier(quantize="w8a8", patch_major=True) on
+    build_zero_shot(input_size=400) (its seeded init) at batch 4: the
+    probabilities, 12 launches of B4 (and of B3, B5) per forward with no
+    packed attention, the logits against the same forward through the
+    plain versions within W8A8_MAX_LOGIT_DIFF_INIT (the slice's limit on
+    the plain init), clips/s."""
+    import torch
+    from gava_clip_tpu_torch.serve import VideoClassifier
+    from gava_clip_tpu_torch.utils.flagship import build_zero_shot
+    t0 = time.perf_counter()
+    model = build_zero_shot(num_frames=8, num_classes=400, input_size=400,
+                            rng_seed=0)
+    clf = VideoClassifier(model, model.param_tree(), labels,
+                          batch_size=W8A8_400_BATCH, device="cuda",
+                          quantize="w8a8", patch_major=True).warmup()
+    clips = np.random.RandomState(4).randint(
+        0, 256, (W8A8_400_BATCH, 8, 400, 400, 3), dtype=np.uint8)
+    log(f"[w8a8-slice] 400^2 classifier built + warmed up in "
+        f"{time.perf_counter() - t0:.1f} s (643 keys a frame row)")
+    _reset_launch_counts()
+    p = clf.classify_clips(clips)
+    torch.cuda.synchronize()
+    n = _launch_counts()
+    x = clf._prepare(clips)
+    lg, lg_plain = (_w8a8_logits(clf, x, i) for i in ("kernel", "plain"))
+    d = (lg - lg_plain).abs().max().item()
+    t1 = time.perf_counter()
+    for _ in range(5):
+        clf.classify_clips(clips)
+    e2e = 5 * W8A8_400_BATCH / (time.perf_counter() - t1)
+    fwd_ms = cuda_time_ms(lambda: clf._forward(x), iters=5)
+    counts = {k: n[k] for k in W8A8_PER_FORWARD}
+    ok = counts == W8A8_PER_FORWARD and bool(torch.isfinite(lg).all()) \
+        and d <= W8A8_MAX_LOGIT_DIFF_INIT
+    log(f"[w8a8-slice] 400^2, batch {W8A8_400_BATCH}: launches {counts} "
+        f"(expect {W8A8_PER_FORWARD}); max |logit diff| kernels vs plain "
+        f"versions {d:.4f} (limit {W8A8_MAX_LOGIT_DIFF_INIT}); "
+        f"{e2e:.2f} clips/s end to end, device forward {fwd_ms:.2f} ms = "
+        f"{W8A8_400_BATCH * 1e3 / fwd_ms:.2f} clips/s ({state['smi']}) "
+        f"{'ok' if ok else 'FAIL'}")
+    state["w8a8_400"] = {"clips_per_s": e2e, "fwd_ms": fwd_ms, "d_logit": d}
+    _check_probs("400^2 clips", p, W8A8_400_BATCH)
+    if not ok:
+        raise AssertionError("the w8a8 classifier at 400^2 failed its "
+                             "checks")
+    del clf, model, x
+    torch.cuda.empty_cache()
 
 
 # (B, Lq, Lk, heads): the two training shapes of the packed kernels first
@@ -2561,6 +2719,8 @@ def phase_w8a8_f32(state):
         if i == 0 and timed and "attention_out_int8_f32" in names:
             _attention_f32_yardsticks(state, "attention_out_int8_f32", q, k,
                                       v, H, lq, False)
+    if not only:
+        _long_key_checks(state, torch.float32)
 
     if only:
         if state.get("w8a8_f32_failures"):
@@ -5473,6 +5633,8 @@ def phase_cli(state):
                                                      run_f] + eval_args[2:],
                                    perf_f[0])
         shutil.rmtree(run_f)
+        _augmented_runs(state, [a for a in data_args if a != "--use_bf16"],
+                        steps_f, sustained_f)
 
         # cli.zero_shot on reference-format files written from a model's
         # own weights
@@ -5536,6 +5698,130 @@ def phase_cli(state):
         shutil.rmtree(root, ignore_errors=True)
         if kdir:
             shutil.rmtree(kdir, ignore_errors=True)
+
+
+# the one RandAugment policy of the repo's recipes (scripts/k400_eval.sh)
+AUG_POLICY = "rand-m7-n4-mstd0.5-inc1"
+AUG_STEPS = 10
+AUG_SAVE_FREQ = 5
+# The augmentation on the card against the same function on the CPU with
+# the same draws (normalized values): the share of values more than
+# AUG_CARD_NEAR apart. The card's cos / sin and the geometric ops'
+# products may each be an ulp off the CPU's, which moves a source
+# coordinate of up to ~450 by a few ulp (3.1e-5 each) and so a bilinear
+# value by that times the image's gradient (at most 1 a pixel, x 4.4 after
+# the normalize): below 5.4e-4, on every pixel of a rotated clip. Where a
+# coordinate crosses an integer at the frame's edge (the gray fill) or a
+# value crosses a later posterize / equalize / solarize threshold, a pixel
+# jumps instead: a few pixels, never most (the CPU tests hold the CPU form
+# to JAX the same way, tests/test_torch_augment.py). (A first limit of 1%
+# beyond 1e-5 missed the continuous part at 224^2: 1.17% of values, max
+# 5.5e-5, on a batch with a rotation.)
+AUG_CARD_NEAR = 1e-3
+AUG_CARD_SHARE = 1e-2
+
+
+def _augment_card_vs_cpu(state):
+    """make_train_augment(AUG_POLICY, mirror, erase_prob 0.25) on 16 uint8
+    clips of 8 x 224^2 on the card: its device ms per batch by CUDA events
+    (the host draws and groups the ops: a host-paced time), then the card
+    against the CPU on 4 clips with the same draws (AUG_CARD_SHARE)."""
+    import torch
+    from gava_clip_tpu_torch.data.device_preprocess import (
+        make_train_augment, step_generator)
+    aug = make_train_augment(AUG_POLICY, True, erase_prob=0.25)
+    frames = torch.randint(0, 256, (16, 8, 224, 224, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(2))
+    card = frames.cuda()
+    steps = iter(range(10 ** 6))
+    ms = cuda_time_ms(lambda: aug(step_generator(0, next(steps)), card),
+                      iters=10, warmup=3)
+    t0 = time.perf_counter()
+    for i in range(10):
+        aug(step_generator(1, i), card)
+    host_ms = (time.perf_counter() - t0) * 1e2
+    torch.cuda.synchronize()
+    worst = 0.0
+    for step in range(3):
+        d = aug.draw(step_generator(0, step), (4,) + tuple(frames.shape[1:]),
+                     "cuda")
+        got = aug(None, card[:4], draws=d)
+        d_cpu = dict(d, erase=dict(d["erase"],
+                                   noise=d["erase"]["noise"].cpu()))
+        want = aug(None, frames[:4], draws=d_cpu)
+        diff = (got.cpu() - want).abs()
+        far = (diff > AUG_CARD_NEAR).float().mean().item()
+        worst = max(worst, far)
+        log(f"[driver] augmentation on the card vs the CPU, 4 clips, step "
+            f"{step}, ops {d['rand_augment']['op'].tolist()}: values more "
+            f"than {AUG_CARD_NEAR:g} apart {far:.3e}, more than 1e-5 apart "
+            f"{(diff > 1e-5).float().mean().item():.3e}, max |diff| "
+            f"{diff.max().item():.3e}")
+    ok = worst <= AUG_CARD_SHARE
+    log(f"[driver] augmentation {AUG_POLICY} + mirror + erasing 0.25 on 16 "
+        f"clips of 8 x 224^2: {ms:.3f} ms a batch by CUDA events, "
+        f"{host_ms:.3f} ms of host time a call; card vs CPU worst share "
+        f"beyond {AUG_CARD_NEAR:g} {worst:.3e} (limit {AUG_CARD_SHARE:g}) "
+        f"({state['smi']}) "
+        f"{'ok' if ok else 'FAIL'}")
+    state["augment"] = {"ms": ms, "host_ms": host_ms, "card_vs_cpu": worst}
+    if not ok:
+        raise AssertionError("the augmentation on the card disagrees with "
+                             "the CPU")
+
+
+def _augmented_runs(state, f32_data_args, steps_f, sustained_f):
+    """cli.train --auto_augment AUG_POLICY (mirror on, the default) at
+    16 x 8 in fp32 (the programs' default), AUG_STEPS steps: finite losses,
+    the run files, sustained ms/step and data_time beside the plain fp32
+    run's; an --auto_resume continuation from checkpoint-AUG_SAVE_FREQ
+    repeats its losses; then the augmentation alone (_augment_card_vs_cpu)."""
+    import shutil
+    args = f32_data_args + [
+        "--batch_size", "16", "--num_steps", str(AUG_STEPS),
+        "--print_freq", str(CLI_PRINT_FREQ), "--lr", "1e-3",
+        "--eval_freq", str(AUG_STEPS), "--auto_augment", AUG_POLICY]
+    run, rec = _train_main(args + ["--save_freq", str(AUG_SAVE_FREQ)],
+                           "run_aug")
+    steps = [r for r in rec if "loss" in r]
+    loss = {r["step"]: r["loss"] for r in steps}
+    sustained = [(b["t"] - a["t"]) / (b["step"] - a["step"]) * 1e3
+                 for a, b in zip(steps[1:], steps[2:])]
+    data_ms = [round(r["data_time_s"] * 1e3, 1) for r in steps[1:]]
+    data_f = [round(r["data_time_s"] * 1e3, 1) for r in steps_f[1:]]
+    fold = set(os.listdir(os.path.join(run, "fold_0")))
+    need = {"metrics.jsonl", "fold-0-best.ckpt",
+            f"checkpoint-{AUG_SAVE_FREQ}.ckpt", f"checkpoint-{AUG_STEPS}.ckpt"}
+    log(f"[driver] run_aug (--auto_augment {AUG_POLICY}, mirror, fp32): "
+        f"{AUG_STEPS} steps of 16 clips x 8 frames: loss at the print steps "
+        f"{ {k: round(v, 4) for k, v in loss.items()} }; sustained "
+        f"{[round(x, 1) for x in sustained]} ms/step (median "
+        f"{np.median(sustained):.2f}; the plain fp32 run "
+        f"{np.median(sustained_f):.2f}), data_time {data_ms} ms (plain fp32 "
+        f"run {data_f} ms) ({state['smi']})")
+    state["aug_run"] = {"sustained_ms": float(np.median(sustained)),
+                        "plain_sustained_ms": float(np.median(sustained_f)),
+                        "data_ms": data_ms, "plain_data_ms": data_f}
+    if not all(np.isfinite(list(loss.values()))) or not need <= fold or \
+            "results.txt" not in os.listdir(run):
+        raise AssertionError(f"the augmented run failed its checks: {loss}, "
+                             f"{sorted(fold)}")
+    os.makedirs("resume_aug")
+    shutil.copy(os.path.join(run, "fold_0",
+                             f"checkpoint-{AUG_SAVE_FREQ}.ckpt"), "resume_aug")
+    run_r, rec_r = _train_main(
+        args + ["--save_freq", "1000", "--auto_resume", "--checkpoint_dir",
+                "resume_aug"], "run_aug_resumed")
+    loss_r = {r["step"]: r["loss"] for r in rec_r if "loss" in r}
+    tail = {k: v for k, v in loss.items() if k >= AUG_SAVE_FREQ}
+    log(f"[driver] run_aug_resumed (--auto_resume from checkpoint-"
+        f"{AUG_SAVE_FREQ}): steps {sorted(loss_r)}, losses equal the "
+        f"uninterrupted augmented run's: {loss_r == tail}")
+    if loss_r != tail:
+        raise AssertionError(f"resumed augmented run {loss_r} vs {tail}")
+    for d in (run, run_r, "resume_aug"):
+        shutil.rmtree(d)
+    _augment_card_vs_cpu(state)
 
 
 # launches of the w8a8 evaluation of the driver phase: 2 batches of 16
@@ -6549,6 +6835,9 @@ def main(argv=None) -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         **stats})
+    for entry in kernels:
+        if entry["name"] in state.get("long_keys", {}):
+            entry["long_keys"] = state["long_keys"][entry["name"]]
     missing = sorted(set(KERNELS) - {e["name"] for e in kernels})
     if missing:
         raise AssertionError(f"kernels without a check and a time: {missing}")

@@ -1452,7 +1452,7 @@ cudaError_t launch_packed_fwd(const FwdArgs& a, int B, cudaStream_t stream) {
 }
 
 // one launch of fma_fwd_kernel: a block per (kFmaRows query rows, head,
-// batch row), as ops/flash_attention.attention_f32_plan's 'fma_fwd'
+// batch row), as ops/flash_attention.attention_fma_plan, at any key length
 template <bool QK8, bool TWO, bool ARGS = false>
 cudaError_t launch_fma_fwd(const FwdArgs& a, int B, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(fma_fwd_kernel<QK8, TWO, ARGS>,

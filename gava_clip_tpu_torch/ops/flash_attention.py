@@ -63,7 +63,8 @@ pair).
 
 `flash_attention_out_int8` is the w8a8 serving fusion (TPU
 `_attention_out_kernel` + `_int8_outproj_epilogue`): the same attention
-over the first `lq` query rows and all keys, kept in fp32, then a per-row
+over the first `lq` query rows and all keys (any number of them: its
+kernels stream key tiles), kept in fp32, then a per-row
 int8 quant over the whole H*Dh-wide row, the int8 out-projection, bias and
 the residual add (csrc/attention_out_int8.cu; plain version
 `attention_out_int8_plain`); `flash_attention_out_int8_2src` is the same
@@ -723,18 +724,10 @@ def attention_f32_plan(B: int, Lq: int, Lk: int, H: int,
     'scratch_floats' (the row statistics and deltas, 2 B H Lq)}, the dq
     kernel a block per 64 query rows, the dk / dv kernel one per 64 keys.
     Keys stream through fixed tiles, so no size depends on Lk."""
-    if Dh != _KERNEL_HEAD_DIM:
-        raise ValueError(f"head dim {Dh}: the kernels are built for "
-                         f"{_KERNEL_HEAD_DIM}")
-    if min(B, Lq, Lk, H) < 1:
-        raise ValueError(f"attention_f32 plan: B={B}, Lq={Lq}, Lk={Lk}, "
-                         f"H={H}")
+    fma_fwd = attention_fma_plan(B, Lq, Lk, H, Dh)
     if packed and Lk > _PACKED_MAX_LK:
         raise ValueError(f"{Lk} keys: the packed path ends at "
                          f"{_PACKED_MAX_LK} (longer keys stream)")
-    if max(B, H) > _CUDA_MAX_GRID_YZ:
-        raise ValueError(f"B={B}, H={H}: a grid's y and z take at most "
-                         f"{_CUDA_MAX_GRID_YZ}")
     bwd_threads, fixed, per_row, max_smem, one_rows = _F32_LAYOUT[7:12]
     rows, threads, fwd_smem = _F32_LAYOUT[4:7]
     fwd = {"grid": (-(-Lq // rows), H, B), "threads": threads,
@@ -765,10 +758,28 @@ def attention_f32_plan(B: int, Lq: int, Lk: int, H: int,
         bwd = {"lq_pad": lq_pad, "grid": grid, "acc_in_smem": False,
                "smem_bytes": fixed, "scratch_floats": grid * acc}
     bwd["threads"] = bwd_threads
+    return {"fwd": fwd, "bwd": bwd, "fma_fwd": fma_fwd}
+
+
+def attention_fma_plan(B: int, Lq: int, Lk: int, H: int,
+                       Dh: int = _KERNEL_HEAD_DIM) -> Dict:
+    """The launch of the w8a8 fusion's fp32 attention (fma_fwd_kernel of
+    csrc/attention_f32.cu: B4, B11, B12) at one shape: {'grid': (query
+    blocks, H, B), 'threads', 'smem_bytes'}, a block per 112 query rows.
+    Its key and value tiles of 64 rows stream whatever Lk, so it takes any
+    key length (JAX's kernel holds whole padded key rows, with no limit)."""
+    if Dh != _KERNEL_HEAD_DIM:
+        raise ValueError(f"head dim {Dh}: the kernels are built for "
+                         f"{_KERNEL_HEAD_DIM}")
+    if min(B, Lq, Lk, H) < 1:
+        raise ValueError(f"attention_f32 plan: B={B}, Lq={Lq}, Lk={Lk}, "
+                         f"H={H}")
+    if max(B, H) > _CUDA_MAX_GRID_YZ:
+        raise ValueError(f"B={B}, H={H}: a grid's y and z take at most "
+                         f"{_CUDA_MAX_GRID_YZ}")
     fma_rows, fma_threads, fma_smem = _F32_LAYOUT[12:]
-    return {"fwd": fwd, "bwd": bwd,
-            "fma_fwd": {"grid": (-(-Lq // fma_rows), H, B),
-                        "threads": fma_threads, "smem_bytes": fma_smem}}
+    return {"grid": (-(-Lq // fma_rows), H, B), "threads": fma_threads,
+            "smem_bytes": fma_smem}
 
 
 def _f32_launch(name: str, dev, *args, count: bool = True) -> None:
@@ -1254,7 +1265,7 @@ def _attention_out_f32(q, k, v, num_heads: int, out_params: Dict,
     # the exp2 constant; the int8-score form folds 1 / 127^2 into it
     c = Dh ** -0.5 * _LOG2E / (127.0 * 127.0 if int8_qk else 1.0)
     L2 = 0 if second is None else second[0].shape[1]
-    attention_f32_plan(B, lq, k.shape[1] + L2, num_heads, Dh)
+    attention_fma_plan(B, lq, k.shape[1] + L2, num_heads, Dh)
     a = torch.empty((B, lq, D), dtype=torch.float32, device=q.device)
     head = (q.device, q.data_ptr(), k.data_ptr(), v.data_ptr())
     if second is not None:
@@ -1296,7 +1307,7 @@ def int8_qk_args_cuda(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty((B, num_heads, Lq, Lk), dtype=torch.float32,
                       device=q.device)
     if B and Lq and Lk:
-        attention_f32_plan(B, Lq, Lk, num_heads, Dh)
+        attention_fma_plan(B, Lq, Lk, num_heads, Dh)
         _f32_launch("attention_f32_qk8_args", q.device, q.data_ptr(),
                     k.data_ptr(), out.data_ptr(), B, Lq, Lk, num_heads, Dh,
                     q.stride(0), q.stride(1), k.stride(0), k.stride(1),
@@ -1313,11 +1324,12 @@ def flash_attention_out_int8(q, k, v, num_heads: int, out_params: Dict,
     projection); the output has lq rows. impl='plain' runs the plain
     version on any device; 'kernel' the plain version on the CPU and the
     CUDA kernel on a card. The int8 QK^T switch (`set_int8_qk`) is read
-    here, at every call."""
-    if k.shape[1] > _PACKED_MAX_LK:
-        raise NotImplementedError(
-            "the fused attention + int8 out-projection holds whole key "
-            "rows; Lk > 640 is outside it (ROADMAP B4)")
+    here, at every call.
+
+    Any key length, as in JAX: the kernels stream key tiles of 64, and
+    with no max subtraction each e is at most 2^110, so a denominator of
+    802 keys (448^2 frames with 17 extras) stays below 2^120, inside
+    fp32's range."""
     if impl == "plain" or q.device.type == "cpu":
         fn = attention_out_int8_plain
     elif impl != "kernel":
@@ -1378,11 +1390,8 @@ def flash_attention_out_int8_2src(q, k1, v1, k2, v2, num_heads: int,
     caller whose second source is projected apart (prompt extras, a
     precomputed memory) never writes the (B, L1 + L2, D) concatenation.
     q, k1, v1, residual are (B, L1, D), k2, v2 (B, L2, D). Inference only.
-    The int8 QK^T switch (`set_int8_qk`) is read here, at every call."""
-    if k1.shape[1] + k2.shape[1] > _PACKED_MAX_LK:
-        raise NotImplementedError(
-            "the fused attention + int8 out-projection holds whole key "
-            "rows; more than 640 keys are outside it (ROADMAP B4)")
+    The int8 QK^T switch (`set_int8_qk`) is read here, at every call. Any
+    key count L1 + L2, as `flash_attention_out_int8`."""
     if impl == "plain" or q.device.type == "cpu":
         fn = attention_out_int8_2src_plain
     elif impl != "kernel":

@@ -205,6 +205,12 @@ MUTANTS = {
                "          if (head < 4) rmax[1] = fmaxf(rmax[1], fmaxf(fabsf(v1.x), "
                "fabsf(v1.y)));\n")],
         "phase_w8a8_kernels", "attention_out_int8 B="),
+    # B4: the key-tile loop cut after ten tiles (640 keys): only a check
+    # past 640 keys (chip_smoke.LONG_KEY_SHAPES) sees it
+    "b4_ten_key_tiles": (
+        _B4, [("  const int NT = (p.Lk + kTileK - 1) / kTileK;\n",
+               "  const int NT = min((p.Lk + kTileK - 1) / kTileK, 10);\n")],
+        "phase_w8a8_kernels", "attention_out_int8 B="),
     # the whole layer: the residual rounded to bf16 after the
     # out-projection, as the serving composition rounds it
     "mega_residual_bf16": (

@@ -16,6 +16,7 @@ evaluation program reads the other's run directory.
 import json
 import os
 import os.path as osp
+import shutil
 import signal
 import subprocess
 import sys
@@ -264,6 +265,27 @@ def test_train_program_eval_only(runs):
                                   "confusion_matrix_fold-0.txt")))
     assert osp.isfile(runs["root"] / "eval_only" / "eval_output"
                       / "updrs_eval.txt")
+
+
+def test_train_program_auto_augment_resumes(runs):
+    """`--auto_augment` with the mirror (RandAugment, mirror, normalize on
+    the device): finite losses, and a run resumed from its step-2
+    checkpoint repeats the uninterrupted run's losses, since each step's
+    draws depend on the step alone."""
+    argv = [a for a in runs["argv"] if a != "--no_mirror"] + CPU + [
+        "--auto_augment", "rand-m7-n4-mstd0.5-inc1", "--save_freq", "2"]
+    _, full = _run_in(runs["root"] / "aug_full", ttrain.main, argv)
+    loss = {r["step"]: r["loss"] for r in _records(full) if "loss" in r}
+    assert sorted(loss) == [0, 1, 2, 3] and np.isfinite(list(loss.values()))\
+        .all()
+    resume = runs["root"] / "aug_resume_from"
+    os.makedirs(resume)
+    shutil.copy(osp.join(full, "fold_0", "checkpoint-2.ckpt"), resume)
+    _, cont = _run_in(runs["root"] / "aug_resumed", ttrain.main,
+                      argv + ["--auto_resume", "--checkpoint_dir",
+                              str(resume)])
+    again = {r["step"]: r["loss"] for r in _records(cont) if "loss" in r}
+    assert again == {k: v for k, v in loss.items() if k >= 2}
 
 
 @pytest.mark.parametrize("frames", ["2", "4"])

@@ -367,10 +367,30 @@ def test_mirror_only_augment_equals_jax():
     c = [aug(tpre.step_generator(0, s), torch.from_numpy(frames))
          for s in range(6, 12)]
     assert torch.equal(a, b) and any(not torch.equal(a, x) for x in c)
-    for kw in (dict(auto_augment="rand-m9"), dict(erase_prob=0.25)):
-        with pytest.raises(NotImplementedError, match="A8"):
-            tpre.make_train_augment(kw.get("auto_augment"), True,
-                                    erase_prob=kw.get("erase_prob", 0.0))
+    # with RandAugment or erasing on (tests/test_torch_augment.py holds them
+    # to JAX) and draws handed in, an Invert on every clip and no box
+    # erased, the batch is JAX's invert, the same flips and the normalize
+    for kw in (dict(auto_augment="rand-m9-n1"), dict(erase_prob=0.25)):
+        full = tpre.make_train_augment(kw.get("auto_augment"), True, mean,
+                                       std, erase_prob=kw.get("erase_prob",
+                                                              0.0))
+        draws = {"flip": torch.from_numpy(flip),
+                 "rand_augment": {"op": torch.full((6, 1), 2),
+                                  "level": torch.full((6, 1), 0.9),
+                                  "sign": torch.ones(6, 1, dtype=bool)},
+                 "erase": {"apply": torch.zeros(6, dtype=bool),
+                           "count": torch.ones(6, dtype=torch.int64),
+                           "boxes": torch.ones(6, 1, 4, dtype=torch.int64),
+                           "noise": None}}
+        got = full(None, torch.from_numpy(frames), draws=draws)
+        x = jnp.asarray(frames, jnp.float32) / 255.0
+        if "auto_augment" in kw:
+            x = 1.0 - x
+        x = jnp.where(jnp.asarray(flip)[:, None, None, None, None],
+                      x[:, :, :, ::-1], x)
+        np.testing.assert_allclose(
+            got.numpy(), np.asarray((x - jnp.asarray(mean)) /
+                                    jnp.asarray(std)), atol=1e-6)
 
 
 def test_prefetch_order_read_ahead_errors_and_close():

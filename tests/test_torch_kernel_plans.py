@@ -817,6 +817,8 @@ def test_attention_f32_plan_covers_every_row_head_and_tile(B, Lq, Lk, H,
 @pytest.mark.parametrize("B,Lq,Lk,H", [
     (128, 197, 214, 12),     # the fp32 w8a8 evaluation (F32_B4_SHAPES)
     (3, 13, 21, 2), (2, 40, 100, 12), (128, 197, 197 + 17, 12),
+    (16, 626, 643, 12),      # 400^2 frames: past the packed path's 640 keys
+    (16, 785, 802, 12),      # 448^2 frames
 ])
 def test_attention_f32_fma_fwd_plan_pads_queries_to_16_and_keys_to_8(
         B, Lq, Lk, H):
@@ -827,7 +829,9 @@ def test_attention_f32_fma_fwd_plan_pads_queries_to_16_and_keys_to_8(
     work (the FMA tiles' 64 x 64: 256 x 256, 1.555x); two blocks a head,
     3,072 blocks, about 11.6 waves of two blocks on an H100's 132 SMs."""
     c = _cuda_constants("attention_f32.cu")
-    p = tfa.attention_f32_plan(B, Lq, Lk, H)["fma_fwd"]
+    p = tfa.attention_fma_plan(B, Lq, Lk, H)
+    if Lk <= 640:
+        assert p == tfa.attention_f32_plan(B, Lq, Lk, H)["fma_fwd"]
     rows = p["grid"][0] * tfa._F32_LAYOUT[12]
     warps = -(-Lq // 16)
     keys = sum(8 * min(8, -(-(Lk - k0) // 8))
@@ -839,6 +843,23 @@ def test_attention_f32_fma_fwd_plan_pads_queries_to_16_and_keys_to_8(
         assert abs(16 * warps * keys / (Lq * Lk) - 1.066) < 1e-3
         assert p["grid"] == (2, 12, 128)
         assert 11 < 2 * 12 * 128 / (2 * _H100_SMS) < 12
+
+
+@pytest.mark.parametrize("Lk", [640, 641, 643, 802, 4096])
+def test_attention_fma_plan_takes_any_key_length_the_packed_plan_640(Lk):
+    """The fence is split: the w8a8 fusion's fp32 attention (B4 / B11 /
+    B12) streams fixed key tiles, so its plan takes any key length with the
+    same grid and shared bytes as at 214 keys, while the packed plan (B1 /
+    B6a / B6b) still ends at 640 keys, where JAX switches to streaming."""
+    p = tfa.attention_fma_plan(16, 626, Lk, 12)
+    assert p == tfa.attention_fma_plan(16, 626, 214, 12)
+    assert p["grid"] == (6, 12, 16)
+    if Lk <= 640:
+        assert tfa.attention_f32_plan(16, 626, Lk, 12)["fma_fwd"] == p
+    else:
+        with pytest.raises(ValueError, match="packed path ends at 640"):
+            tfa.attention_f32_plan(16, 626, Lk, 12)
+        assert tfa.attention_f32_plan(16, 626, Lk, 12, packed=False)["fwd"]
 
 
 @pytest.mark.parametrize("B,Lq,Lk,H,form", [

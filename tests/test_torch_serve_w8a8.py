@@ -112,6 +112,38 @@ def test_w8a8_classifier_matches_jax(models, forced_kernels, patch_major):
     np.testing.assert_allclose(np.log(p_t), np.log(p_j), atol=0.15)
 
 
+def test_w8a8_classifier_past_640_keys_matches_jax(forced_kernels):
+    """Frames of 416^2: 676 patch tokens + the class token + 2 global, 1
+    summary and 2 local prompt rows, 682 keys a frame row, past the packed
+    path's 640 (the port raised there until the fused attention took any
+    key length). 3 clips at batch 2, patch-major. Limits: 0.15 on the
+    log-probabilities, as test_w8a8_classifier_matches_jax, and 1e-2 on
+    the probabilities: with 676 tokens a frame the two frameworks' bf16
+    roundings between the fused ops move the probabilities more than at
+    32^2, measured 4.4e-3 here and 6.3e-3 at 384^2, whose 582 keys never
+    leave the packed path (the key length is not what moves them)."""
+    size = dict(TINY, input_size=(416, 416))
+    tf = np.random.RandomState(4).randn(3, 16).astype(np.float32)
+    jmodel = JVitaClip(JVitaClipConfig(vision=JVisionConfig(**size),
+                                       num_classes=3,
+                                       zeroshot_evaluation=True),
+                       zeroshot_text_features=tf)
+    cfg = VitaClipConfig(vision=VisionConfig(**size), num_classes=3)
+    model = VitaClip(cfg, params_from_jax(jmodel.params, cfg),
+                     torch.from_numpy(tf))
+    clips = np.random.RandomState(5).randint(0, 255, (3, 2, 416, 416, 3),
+                                             np.uint8)
+    p_j = JVideoClassifier.from_model(
+        jmodel, NAMES, batch_size=2, quantize="w8a8", attn_impl="flash",
+        patch_major=True).classify_clips(clips)
+    p_t = VideoClassifier.from_model(
+        model, NAMES, batch_size=2, quantize="w8a8", attn_impl="flash",
+        patch_major=True, device="cpu").classify_clips(clips)
+    assert p_t.shape == (3, 3) and np.isfinite(p_t).all()
+    np.testing.assert_allclose(p_t, p_j, atol=1e-2)
+    np.testing.assert_allclose(np.log(p_t), np.log(p_j), atol=0.15)
+
+
 @pytest.mark.parametrize("fused,int8_qk", [(True, False), (False, True),
                                            (True, True)])
 def test_w8a8_classifier_switches_match_jax(models, forced_kernels, fused,

@@ -532,6 +532,9 @@ def test_attention_out_int8_2src_plain_matches_jax_kernel(forced_kernels, B,
 
 
 def test_attention_out_int8_2src_wrapper_needs_cuda_and_640_keys():
+    """The kernel wrapper takes CUDA tensors only; past 640 keys (8 + 640
+    here) the public entry computes on the CPU, through the plain version,
+    equal bit for bit to the single-source entry on the concatenation."""
     rs = np.random.RandomState(3)
     t = _t(rs.randn(1, 8, 128), torch.bfloat16)
     (_, _), (qt, st) = _qweight(rs, 128, 128)
@@ -539,8 +542,88 @@ def test_attention_out_int8_2src_wrapper_needs_cuda_and_640_keys():
     with pytest.raises(ValueError, match="CUDA"):
         tflash.attention_out_int8_2src_cuda(t, t, t, t, t, 2, top, t)
     long = _t(rs.randn(1, 640, 128), torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="640"):
-        tflash.flash_attention_out_int8_2src(t, t, t, long, long, 2, top, t)
+    out = tflash.flash_attention_out_int8_2src(t, t, t, long, long, 2, top, t)
+    cat = torch.cat([t, long], dim=1)
+    assert out.shape == (1, 8, 128) and torch.isfinite(out.float()).all()
+    assert torch.equal(out, tflash.flash_attention_out_int8(t, cat, cat, 2,
+                                                            top, t))
     with pytest.raises(ValueError, match="impl"):
         tflash.flash_attention_out_int8_2src(
             t.to("meta"), t, t, t, t, 2, top, t, impl="fast")
+
+
+# ---------------------------------------------------------------------------
+# past 640 keys (frames of 400^2 and more): the fused attention computes at
+# any key length, as the JAX kernel does
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("int8_qk", [False, True])
+def test_attention_out_int8_past_640_keys_matches_jax_kernel(forced_kernels,
+                                                             int8_qk):
+    """701 keys (q carries all of them, the first 13 are the queries)
+    against the JAX kernel in interpret mode, in both score forms, within
+    the tolerance of the short-key tests (2 bf16 ulp + one flip unit)."""
+    rs = np.random.RandomState(21)
+    B, lq, Lk, H, Dh = 1, 13, 701, 2, 16
+    D = H * Dh
+    q, k, v = (rs.randn(B, Lk, D) for _ in range(3))
+    (qj, sj), (qt, st) = _qweight(rs, D, D)
+    bias, res = rs.randn(D) * 0.02, rs.randn(B, lq, D)
+    tq, tk, tv = (_t(a, torch.bfloat16) for a in (q, k, v))
+    top = {"kernel": {"qa": qt, "scale": st}, "bias": _t(bias)}
+    tres = _t(res, torch.bfloat16)
+    jflash.set_int8_qk(int8_qk)
+    tflash.set_int8_qk(int8_qk)
+    try:
+        out_j = jflash.flash_attention_out_int8(
+            _j(q, jnp.bfloat16), _j(k, jnp.bfloat16), _j(v, jnp.bfloat16), H,
+            {"kernel": {"qa": qj, "scale": sj}, "bias": _j(bias)},
+            _j(res, jnp.bfloat16), lq=lq)
+        out_t = tflash.flash_attention_out_int8(tq, tk, tv, H, top, tres,
+                                                lq=lq)
+    finally:
+        jflash.set_int8_qk(False)
+        tflash.set_int8_qk(False)
+    assert out_t.shape == (B, lq, D) and out_t.dtype == torch.bfloat16
+    a32 = tflash._onepass_attention_den_f32(tq[:, :lq], tk, tv, H,
+                                            int8_qk=int8_qk)[0]
+    _assert_close(out_t, out_j, _unit(tim.quant_rows(a32)[1], st))
+    torch.testing.assert_close(
+        tflash.attention_out_int8_plain(tq, tk, tv, H, top, tres, lq,
+                                        int8_qk), out_t, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("int8_qk", [False, True])
+def test_attention_out_int8_2src_past_640_keys_matches_jax_kernel(
+        forced_kernels, int8_qk):
+    """The two-source form with L1 + L2 = 626 + 17 = 643 keys (a 400^2
+    frame row and its prompt extras; every row of q a query) against the
+    JAX kernel in interpret mode, both score forms, tolerance as above."""
+    rs = np.random.RandomState(22)
+    B, L1, L2, H, Dh = 1, 626, 17, 2, 16
+    D = H * Dh
+    q, k1, v1, res = (rs.randn(B, L1, D) for _ in range(4))
+    k2, v2 = rs.randn(B, L2, D), rs.randn(B, L2, D)
+    (qj, sj), (qt, st) = _qweight(rs, D, D)
+    bias = rs.randn(D) * 0.02
+    bf = jnp.bfloat16
+    tq, tk1, tv1, tk2, tv2, tres = (_t(a, torch.bfloat16)
+                                    for a in (q, k1, v1, k2, v2, res))
+    top = {"kernel": {"qa": qt, "scale": st}, "bias": _t(bias)}
+    jflash.set_int8_qk(int8_qk)
+    tflash.set_int8_qk(int8_qk)
+    try:
+        out_j = jflash.flash_attention_out_int8_2src(
+            _j(q, bf), _j(k1, bf), _j(v1, bf), _j(k2, bf), _j(v2, bf), H,
+            {"kernel": {"qa": qj, "scale": sj}, "bias": _j(bias)},
+            _j(res, bf))
+        out_t = tflash.flash_attention_out_int8_2src(tq, tk1, tv1, tk2, tv2,
+                                                     H, top, tres)
+    finally:
+        jflash.set_int8_qk(False)
+        tflash.set_int8_qk(False)
+    assert out_t.shape == (B, L1, D) and out_t.dtype == torch.bfloat16
+    kc, vc = torch.cat([tk1, tk2], dim=1), torch.cat([tv1, tv2], dim=1)
+    a32 = tflash._onepass_attention_den_f32(tq, kc, vc, H,
+                                            int8_qk=int8_qk)[0]
+    _assert_close(out_t, out_j, _unit(tim.quant_rows(a32)[1], st))
