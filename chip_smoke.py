@@ -209,6 +209,26 @@ The training and evaluation programs:
   driver-long  cli.train.main at 4 clips x 70 frames (selects
           save_attn_qkv), then the bare step under every remat policy:
           ms/step, peak memory, attention forward launches per step.
+  parallel  the parallel layer (gava_clip_tpu_torch/parallel/): a world of
+          one over NCCL in this process (a FileStore), where the
+          train-slice's 16 x 8 step in fp32 with the gradient all-reduce
+          must give the step without it bit for bit over 6 steps, the
+          last 5 of each timed in turns, and the one bucket's all-reduce
+          alone; two ranks
+          on the one card (torch.distributed.run, gloo: NCCL refuses two
+          ranks on one device) at full width with 2 vision and 2 text
+          layers, NTE and the memory on, a global batch of 8: the
+          data-parallel (2, 1) and tensor-parallel (1, 2) first steps
+          (parallel/selfcheck.py) against the same step in one process
+          within F32_STEP_MAX_LOSS_DIFF / F32_STEP_MAX_GRAD_REL_ERR, then
+          4 steps of cli.train on a synthetic fold, rank 0's checkpoint,
+          and cli.evaluate in one process reproducing its confusion
+          matrix; the bf16 zero-shot forward at batch 16 with its blocks
+          in 4 pipeline stages on cuda:0 and 4 micro-batches (48 B1
+          launches) against the default forward, bit for bit; server
+          --data_parallel 1 answering requests with the plain classifier's
+          probabilities, and the classifier over two devices (cuda:0 twice)
+          against one device's.
 The two-source attention + int8 out-projection (attention_out_int8_2src)
 is held in w8a8-kernel against its plain version and, bit for bit, against
 the single-source kernel on the concatenated keys, and launched once
@@ -6760,6 +6780,403 @@ def phase_server(state, tag: str = ""):
         th.join(timeout=10)
 
 
+# ---------------------------------------------------------------------------
+# the parallel layer: a world of one over NCCL, two ranks on the one card,
+# the pipelined forward and data-parallel serving
+# ---------------------------------------------------------------------------
+
+# the world of one: a first step with and without the all-reduce (NCCL's
+# warm-up, untimed), then PARALLEL_TIMED_STEPS of each in turns
+PARALLEL_TIMED_STEPS = 5
+# the two-rank checks: ViT-B/16 and the text tower at full width, cut to
+# 2 + 2 layers; a global batch of 8 clips (4 a rank) and 16 memory rows
+PARALLEL_LAYERS = 2
+PARALLEL_BATCH = 8
+PARALLEL_MEMORY = 16
+PARALLEL_CLI_STEPS = 4
+# the pipelined zero-shot forward: 12 blocks in 4 stages, 4 micro-batches
+# of the 16 clips, every stage on cuda:0; one B1 launch a block and
+# micro-batch
+PP_STAGES = 4
+PP_MICRO = 4
+PP_LAUNCHES = 12 * PP_MICRO
+PARALLEL_TURNS = 3
+# the data-parallel server against the plain classifier: a batch of 16
+# (pad_buckets off) against the bucket of 4, the slice phase's padding
+# limit; the same limit for the classifier over two devices (two shards of
+# 8 clips, both on cuda:0) against one device's batch of 16
+DP_SERVER_MAX_PROB_DIFF = 1e-3
+
+
+def _child_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT] + [p for p in [env.get("PYTHONPATH")] if p])
+    return env
+
+
+def _two_ranks(args, cwd, timeout=600):
+    """`python -m torch.distributed.run --standalone --nproc_per_node 2
+    <args>`: its output; a nonzero exit raises with its last lines."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", *args]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=cwd, env=_child_env(), capture_output=True,
+                         text=True, timeout=timeout)
+    out = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise AssertionError(f"two ranks exited {res.returncode}:\n"
+                             f"{out[-6000:]}")
+    return out, time.perf_counter() - t0
+
+
+def _nccl_world_one(state):
+    """The 16 x 8 fp32 step with and without the data-parallel all-reduce
+    in a world of one over NCCL: the same bits over every step; the steps
+    after the first timed in turns."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from gava_clip_tpu_torch.models.vita_clip import trainable_mask
+    from gava_clip_tpu_torch.parallel import distributed as pdist
+    from gava_clip_tpu_torch.parallel.mesh import all_reduce_grads, create_mesh
+    from gava_clip_tpu_torch.train.state import (create_train_state,
+                                                 make_optimizer, tree_leaves)
+    from gava_clip_tpu_torch.train.step import LossConfig, make_train_step
+    from gava_clip_tpu_torch.utils.flagship import build_flagship
+    store = tempfile.mkdtemp(prefix="gava_store_")
+    pdist.init_distributed(f"file://{store}/store", num_processes=1,
+                           process_id=0, backend="nccl")
+    try:
+        mesh = create_mesh()
+        model = build_flagship(num_frames=8)
+        mask = trainable_mask(model.params, model.cfg)
+        opt = make_optimizer(lr=1e-3, num_steps=2000, weight_decay=0.2)
+        loss_cfg = LossConfig(num_classes=3, focal_ordinal=True, fo_beta=0.2,
+                              use_support_memory=True, add_nte=True)
+        kw = dict(compute_dtype=torch.float32, attn_impl="flash")
+        runs = {"plain": [create_train_state(model.params, mask, opt),
+                          make_train_step(model, loss_cfg, opt, **kw)],
+                "all-reduce": [create_train_state(model.params, mask, opt),
+                               make_train_step(model, loss_cfg, opt,
+                                               mesh=mesh, **kw)]}
+        batch = _train_batch(16, 8)
+        totals = {k: [] for k in runs}
+        ms = {k: [] for k in runs}
+        for i in range(1 + PARALLEL_TIMED_STEPS):
+            order = list(runs) if i % 2 == 0 else list(runs)[::-1]
+            for name in order:
+                ts, step = runs[name]
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                ts, metrics = step(ts, batch)
+                ev[1].record()
+                totals[name].append(metrics["total"].item())
+                if i > 0:
+                    ms[name].append(ev[0].elapsed_time(ev[1]))
+        a, b = (runs[k][0] for k in runs)
+        leaves = [(x, y) for x, y in zip(tree_leaves(a.trainable),
+                                         tree_leaves(b.trainable))
+                  if x is not None]
+        equal = totals["plain"] == totals["all-reduce"] and all(
+            torch.equal(x, y) for x, y in leaves)
+        n_values = sum(x.numel() for x, _ in leaves)
+        # the bucket alone: flatten, all-reduce, scale, copy back
+        for _ in range(3):
+            all_reduce_grads(b.trainable, mesh)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(10):
+            all_reduce_grads(b.trainable, mesh)
+        ev[1].record()
+        torch.cuda.synchronize()
+        bucket_ms = ev[0].elapsed_time(ev[1]) / 10
+        # of which the collective itself, on a bucket of the same size
+        flat = torch.zeros(n_values, device="cuda")
+        dist.all_reduce(flat)
+        ev[0].record()
+        for _ in range(10):
+            dist.all_reduce(flat)
+        ev[1].record()
+        torch.cuda.synchronize()
+        collective_ms = ev[0].elapsed_time(ev[1]) / 10
+        del flat
+        med = {k: float(np.median(v)) for k, v in ms.items()}
+        log(f"[parallel] world of one over NCCL ({dist.get_backend()}): "
+            f"{1 + PARALLEL_TIMED_STEPS} fp32 steps of 16 x 8 with and "
+            f"without the gradient all-reduce, in turns: totals "
+            f"{totals['all-reduce']} vs {totals['plain']}, {len(leaves)} "
+            f"trainable leaves, equal bit for bit: {equal}; ms/step after "
+            f"the first (NCCL's warm-up) with {ms['all-reduce']}, without "
+            f"{ms['plain']}: medians {med['all-reduce']} vs {med['plain']}, "
+            f"difference {med['all-reduce'] - med['plain']}; the bucket of "
+            f"{n_values / 1e6:.2f} M fp32 values: all_reduce_grads "
+            f"{bucket_ms:.3f} ms, of which the NCCL all-reduce alone "
+            f"{collective_ms:.3f} ms (CUDA events, mean of 10; "
+            f"{state['smi']})")
+        if not equal:
+            raise AssertionError("a world of one changed the step")
+        state["parallel_bucket"] = (n_values, bucket_ms)
+    finally:
+        dist.destroy_process_group()
+        import shutil
+        shutil.rmtree(store, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def _two_rank_model(path: str):
+    """The flagship at full width cut to PARALLEL_LAYERS vision and text
+    layers, saved for parallel/selfcheck.py; its config."""
+    import dataclasses
+    import torch
+    from gava_clip_tpu_torch.utils.flagship import build_flagship
+    model = build_flagship(num_frames=8, device="cpu")
+    L = PARALLEL_LAYERS
+    cfg = dataclasses.replace(
+        model.cfg, vision=dataclasses.replace(model.cfg.vision, layers=L),
+        text=dataclasses.replace(model.cfg.text, layers=L))
+    params = dict(model.params)
+    params["visual"] = dict(params["visual"],
+                            blocks=params["visual"]["blocks"][:L],
+                            global_prompts=params["visual"]
+                            ["global_prompts"][:L].clone())
+    params["textual"] = dict(params["textual"],
+                             blocks=params["textual"]["blocks"][:L])
+    torch.save({"cfg": cfg, "params": params, "buffers": model.buffers},
+               path)
+    return cfg
+
+
+def _two_rank_steps(state, root: str):
+    """The first data- and tensor-parallel steps of two ranks against one
+    process (parallel/selfcheck.py --reference)."""
+    import torch
+    _two_rank_model(os.path.join(root, "model.pt"))
+    rs = np.random.RandomState(1)
+    B, Bm = PARALLEL_BATCH, PARALLEL_MEMORY
+    np.savez(os.path.join(root, "batch.npz"),
+             video=rs.rand(B, 8, 224, 224, 3).astype(np.float32),
+             labels=rs.randint(0, 3, size=B),
+             nte=rs.randn(B, 70, 512).astype(np.float32),
+             memory=rs.randn(Bm, 4, 512).astype(np.float32),
+             mt_labels=rs.randint(0, 3, size=Bm))
+    loss = dict(num_classes=3, focal_ordinal=True, fo_beta=0.2,
+                use_support_memory=True, add_nte=True)
+    out, secs = _two_ranks(
+        ["-m", "gava_clip_tpu_torch.parallel.selfcheck",
+         "--model", os.path.join(root, "model.pt"),
+         "--batch", os.path.join(root, "batch.npz"),
+         "--out", os.path.join(root, "results.pt"), "--backend", "gloo",
+         "--scenarios", "dp,tp", "--steps", "1", "--reference",
+         "--loss", json.dumps(loss)], cwd=ROOT)
+    results = torch.load(os.path.join(root, "results.pt"),
+                         weights_only=False)
+    bad = []
+    for name, what in (("dp", "data-parallel (2, 1)"),
+                       ("tp", "tensor-parallel (1, 2)")):
+        c = results[name]["check"]
+        log(f"[parallel] two ranks on cuda:0 (gloo), {what} first fp32 step "
+            f"at a global batch of {B} (ViT-B/16 and the text tower at full "
+            f"width, {PARALLEL_LAYERS} + {PARALLEL_LAYERS} layers, NTE + "
+            f"memory): total {c['loss']:.7f} vs one process "
+            f"{c['loss_ref']:.7f} (diff {c['loss_diff']:.2e}, limit "
+            f"{F32_STEP_MAX_LOSS_DIFF:g}); gradient leaves {c['leaves']}, max "
+            f"relative L2 error {c['max_grad_rel_err']:.3e}, median "
+            f"{c['median_grad_rel_err']:.3e} (limit "
+            f"{F32_STEP_MAX_GRAD_REL_ERR:g}); the step "
+            f"{results[name]['ms'][0]:.1f} ms on the host's clock, two ranks "
+            f"sharing the card ({state['smi']})")
+        if not c["loss_diff"] <= F32_STEP_MAX_LOSS_DIFF or \
+                not c["max_grad_rel_err"] <= F32_STEP_MAX_GRAD_REL_ERR:
+            bad.append(name)
+    log(f"[parallel] the selfcheck launch took {secs:.1f} s on the host's "
+        f"clock ({state['smi']})")
+    if bad:
+        raise AssertionError(f"two-rank steps {bad} disagree with the step "
+                             f"in one process")
+
+
+def _two_rank_cli(state, root: str):
+    """cli.train over two ranks on a synthetic fold, then cli.evaluate in
+    one process on its run."""
+    from gava_clip_tpu_torch.cli import evaluate as cli_eval
+    from gava_clip_tpu_torch.train import checkpoint as ckpt_lib
+    os.makedirs(root)
+    data_args, kdir = _write_fold(root, T=8, n_train=16, n_val=8)
+    try:
+        data_args = [a for a in data_args if a != "--use_bf16"]
+        data_args[data_args.index("--num_workers") + 1] = "2"
+        argv = data_args + [
+            "--batch_size", str(PARALLEL_BATCH),
+            "--num_steps", str(PARALLEL_CLI_STEPS), "--print_freq", "1",
+            "--eval_freq", str(PARALLEL_CLI_STEPS), "--save_freq", "100",
+            "--lr", "1e-3", "--num_layers", str(PARALLEL_LAYERS),
+            "--text_transformer_layers", str(PARALLEL_LAYERS)]
+        out, secs = _two_ranks(
+            ["-m", "gava_clip_tpu_torch.cli.train", *argv,
+             "--dist_backend", "gloo"], cwd=root)
+        (run,) = os.listdir(os.path.join(root, "logs"))
+        run = os.path.join(root, "logs", run)
+        records = _run_records(run)
+        losses = [r["loss"] for r in records if "loss" in r]
+        conf_run = np.loadtxt(os.path.join(run, "confusion_matrix_fold-0.txt"))
+        best = ckpt_lib.load_checkpoint(
+            os.path.join(run, "fold_0", "fold-0-best.ckpt"))
+        perf, conf = cli_eval.main(
+            ["--checkpoint_dir", run, "--data_root", root,
+             "--val_list_path", os.path.join(root, "val_updrs.csv"),
+             "--text_prompt_classes_path", os.path.join(root, "classes.txt")])
+        log(f"[parallel] cli.train over two ranks (gloo, fp32, "
+            f"{PARALLEL_LAYERS} + {PARALLEL_LAYERS} layers, global batch "
+            f"{PARALLEL_BATCH}): {secs:.1f} s, losses "
+            f"{[round(x, 4) for x in losses]}; rank 0's checkpoint at step {best['next_step']}; cli.evaluate "
+            f"in one process: confusion {conf.tolist()}, the run's "
+            f"{conf_run.astype(int).tolist()} ({state['smi']})")
+        if len(losses) != PARALLEL_CLI_STEPS or \
+                not all(np.isfinite(losses)) or \
+                "data-parallel over 2 ranks (gloo)" not in out or \
+                best["next_step"] != PARALLEL_CLI_STEPS or \
+                conf.sum() != 8 or not np.array_equal(conf, conf_run):
+            raise AssertionError("cli.train over two ranks failed its "
+                                 "checks")
+    finally:
+        import shutil
+        shutil.rmtree(kdir, ignore_errors=True)
+
+
+def _pipelined_forward(state):
+    """The bf16 zero-shot forward with its 12 blocks in PP_STAGES stages on
+    cuda:0 and PP_MICRO micro-batches, against the default forward."""
+    import torch
+    from gava_clip_tpu_torch.data.device_preprocess import normalize_frames
+    from gava_clip_tpu_torch.data.video import parse_classes_file
+    from gava_clip_tpu_torch.utils.flagship import (build_zero_shot,
+                                                    inject_clip_pathologies)
+    _, labels = parse_classes_file(os.path.join(ROOT, "classes",
+                                                "k400_classes.txt"))
+    model = build_zero_shot(num_frames=8, num_classes=400, input_size=224,
+                            rng_seed=0)
+    clf = _classifier(model, inject_clip_pathologies(model.param_tree(),
+                                                     seed=0), labels)
+    clips = np.random.RandomState(0).randint(0, 256, (16, 8, 224, 224, 3),
+                                             dtype=np.uint8)
+    pp = (["cuda:0"] * PP_STAGES, PP_MICRO)
+
+    def forward(pipelined):
+        with torch.inference_mode():
+            xn = normalize_frames(clf._prepare(clips), clf._mean, clf._std)
+            return clf.net(xn, compute_dtype=torch.bfloat16,
+                           attn_impl="flash",
+                           pp=pp if pipelined else None)["logits"]
+
+    lg = forward(False)
+    _reset_launch_counts()
+    lg_pp = forward(True)
+    torch.cuda.synchronize()
+    n = _launch_counts()["packed_attention"]
+    ms = _time_turns(lambda: forward(True), lambda: forward(False),
+                     iters=PARALLEL_TURNS)
+    d = (lg_pp - lg).abs().max().item()
+    # the same kernels on the same rows: a micro-batch is whole clips and
+    # every op of the tower works row by row, so the logits must match bit
+    # for bit (a stage or a micro-batch that is off by any amount shows)
+    same = torch.equal(lg_pp, lg)
+    log(f"[parallel] the bf16 zero-shot forward at batch 16, the blocks in "
+        f"{PP_STAGES} stages on cuda:0 with {PP_MICRO} micro-batches: "
+        f"packed_attention launches {n} (expect {PP_LAUNCHES}); max |logit "
+        f"diff| against the default forward {d!r}, equal bit for bit: "
+        f"{same}; {ms[0]:.2f} ms pipelined vs {ms[1]:.2f} ms default (CUDA "
+        f"events, in turns; {state['smi']})")
+    if n != PP_LAUNCHES or not bool(torch.isfinite(lg_pp).all()) or \
+            not same:
+        raise AssertionError("the pipelined forward failed its checks")
+    del clf, model
+    torch.cuda.empty_cache()
+
+
+def _dp_server(state):
+    """`server --data_parallel 1` against the plain classifier on the same
+    (seeded) weights; the classifier over two devices (both cuda:0: its
+    shard, queue and gather steps) against one device's."""
+    import torch
+    from gava_clip_tpu_torch.data.video import parse_classes_file
+    from gava_clip_tpu_torch.server import make_server
+    from gava_clip_tpu_torch.serve import VideoClassifier
+    from gava_clip_tpu_torch.utils.flagship import build_zero_shot
+    classes = os.path.join(ROOT, "classes", "k400_classes.txt")
+    _, labels = parse_classes_file(classes)
+    httpd = make_server(["--host", "127.0.0.1", "--port", "0",
+                         "--classes", classes, "--batch_size", "16",
+                         "--data_parallel", "1"])
+    clips = np.random.RandomState(5).randint(0, 256, (4, 8, 224, 224, 3),
+                                             dtype=np.uint8)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        def post(i):
+            req = urllib.request.Request(
+                base + "/v1/classify_clip_raw", data=clips[i].tobytes(),
+                method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return r.status, json.loads(r.read())
+
+        with ThreadPoolExecutor(4) as ex:
+            res = list(ex.map(post, range(4)))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        httpd.batcher.stop()
+        th.join(timeout=10)
+    model = build_zero_shot(num_frames=8, num_classes=400)
+    plain = VideoClassifier.from_model(model, labels, batch_size=16,
+                                       device="cuda")
+    want = plain.classify_clips(clips)
+    got = np.array([b["probs"] for _, b in res], np.float32)
+    d = float(np.abs(got - want).max())
+    log(f"[parallel] server --data_parallel 1: 4 concurrent requests, "
+        f"statuses {[st for st, _ in res]}, max |prob diff| against the "
+        f"plain classifier {d:.2e} (limit {DP_SERVER_MAX_PROB_DIFF:g}; "
+        f"{state['smi']})")
+    if any(st != 200 for st, _ in res) or d > DP_SERVER_MAX_PROB_DIFF:
+        raise AssertionError("the data-parallel server disagrees with the "
+                             "plain classifier")
+    del httpd
+    two = VideoClassifier.from_model(model, labels, batch_size=16,
+                                     devices=["cuda:0", "cuda:0"])
+    clips16 = np.random.RandomState(6).randint(
+        0, 256, (16, 8, 224, 224, 3), dtype=np.uint8)
+    want16 = plain.classify_clips(clips16)
+    _reset_launch_counts()
+    got16 = two.classify_clips(clips16)
+    n = _launch_counts()["packed_attention"]
+    d16 = float(np.abs(got16 - want16).max())
+    log(f"[parallel] VideoClassifier over two devices (cuda:0 twice, two "
+        f"shards of 8 clips): packed_attention launches {n} (expect 24: 12 "
+        f"a shard), max |prob diff| against one device's batch of 16 "
+        f"{d16:.2e} (limit {DP_SERVER_MAX_PROB_DIFF:g}; {state['smi']})")
+    if n != 24 or got16.shape != (16, 400) or \
+            d16 > DP_SERVER_MAX_PROB_DIFF:
+        raise AssertionError("the classifier over two devices disagrees "
+                             "with one device's")
+    del plain, two, model
+    torch.cuda.empty_cache()
+
+
+def phase_parallel(state):
+    import shutil
+    import tempfile
+    _nccl_world_one(state)
+    root = tempfile.mkdtemp(prefix="gava_par_")
+    try:
+        _two_rank_steps(state, root)
+        _two_rank_cli(state, os.path.join(root, "fold"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    _pipelined_forward(state)
+    _dp_server(state)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", default="",
@@ -6800,7 +7217,8 @@ def main(argv=None) -> int:
             ("driver", phase_cli),
             ("gait-text", phase_gait_text),
             ("train-long", phase_train_long),
-            ("driver-long", phase_cli_long)):
+            ("driver-long", phase_cli_long),
+            ("parallel", phase_parallel)):
         t0 = time.perf_counter()
         phase(state)
         log(f"[{name}] done in {time.perf_counter() - t0:.1f} s "

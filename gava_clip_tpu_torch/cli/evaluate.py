@@ -13,6 +13,10 @@ parameters, evaluates, and writes the accuracy / F1 / per-class-count
 report and, where matplotlib and seaborn are installed, the
 confusion-matrix heatmap. Reference torch .pth fold checkpoints are
 accepted too (converted on load).
+
+Under `python -m torch.distributed.run --nproc_per_node N` each rank
+evaluates its share of the clips (`--batch_size` split over the ranks),
+the counts are summed once per fold, and rank 0 writes the report.
 """
 
 import argparse
@@ -21,17 +25,20 @@ import os.path as osp
 
 import numpy as np
 
-from ..data.loader import create_val_loader
 from ..data.video import parse_classes_file
 from ..models.factory import build_model_from_args
 from ..ops.int8_matmul import with_kernel_layout
 from ..ops.quant import prepare_inference_params
 from ..train.checkpoint import load_checkpoint
 from ..train.metrics import f1_from_confusion
-from ..utils.config import build_train_parser, load_config_into
+from ..parallel import distributed as _dist
+from ..utils.config import (add_dist_args, build_train_parser,
+                            load_config_into)
 from ..utils.torch_convert import merge_pytrees
 from .train import (_loaded_params, _log, _mean_std, _run_settings,
-                    _save_heatmap, evaluate, loader_config_from_args)
+                    _save_heatmap, check_batch_sizes, evaluate,
+                    loader_config_from_args, sharded_val_loader,
+                    start_ranks)
 
 # the memory-head parameters, which the zero-shot model has no use for
 _DROP = ("tf_project", "sum_proj", "memory_project", "logit_scale_mt",
@@ -46,8 +53,9 @@ def inference_params(params, args, compute_dtype):
 
 
 def main(argv=None):
-    parser = build_train_parser()
+    parser = add_dist_args(build_train_parser())
     args = parser.parse_args(argv)
+    rank, world = start_ranks(args, names=())
 
     classnames, cls_labels = parse_classes_file(args.text_prompt_classes_path)
     num_classes = len(cls_labels)
@@ -62,8 +70,9 @@ def main(argv=None):
         # run's empty quantize_eval, which would switch the option off)
         keep = [k for k in vars(args)
                 if "data_root" in k or "list_path" in k or "checkpoint" in k
-                or k in ("device", "quantize_eval")]
+                or k in ("device", "quantize_eval", "dist_backend")]
         load_config_into(args, config_path, skip=keep)
+    check_batch_sizes(args, world, ("batch_size",))
 
     device, compute_dtype, attn_impl = _run_settings(args)
     mean, std = _mean_std(args)
@@ -102,10 +111,10 @@ def main(argv=None):
         params = inference_params(merge_pytrees(model.params, loaded), args,
                                   compute_dtype)
 
-        loader = create_val_loader(lcfg)
+        loader, batch, mesh = sharded_val_loader(args, lcfg=lcfg)
         acc, conf = evaluate(model, params, loader, num_classes, mean, std,
-                             compute_dtype, args.batch_size,
-                             attn_impl=attn_impl, device=device)
+                             compute_dtype, batch, attn_impl=attn_impl,
+                             device=device, mesh=mesh)
         conf_total += conf
         _log(f"Accuracy on evaluation set fold-{nf}: top1={acc:.2f}%")
         performance.append(acc / 100.0)
@@ -115,6 +124,8 @@ def main(argv=None):
     f1_str = " ".join(f"{x:.4f}" for x in f1)
     _log(f"Per-class F1-score: {f1_str}")
     _log(f"Average F1-score: {f1.mean():.4f}")
+    if rank != 0:
+        return performance, conf_total
 
     tag = args.data_root.split("datasets/")[-1].replace("/", "_")
     output_file = osp.join(args.checkpoint_dir, f"eval_{tag}.txt")
@@ -135,3 +146,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    _dist.shutdown()

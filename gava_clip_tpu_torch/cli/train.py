@@ -17,10 +17,23 @@ uint8 frames are normalized on the device; the host-to-device copy of the
 next batch runs on a side CUDA stream. `--int8_frozen` runs the frozen
 projections of both towers as int8 GEMMs through the w8a8 kernels, whose
 fp32 or bf16 form follows the run's dtype
-(`train.step.make_train_step(frozen_int8=True)`). Data parallelism
-over several cards is not ported yet (ROADMAP A9, second half).
+(`train.step.make_train_step(frozen_int8=True)`).
+
+Data parallelism: one process per card,
+
+    python -m torch.distributed.run --nproc_per_node N \\
+        -m gava_clip_tpu_torch.cli.train <flags>
+
+(`--dist_backend gloo` for a group on the host, or several ranks on one
+card). Each rank loads its rows of every global batch (the step sampler
+sliced by rank), the step computes the JAX step's global-batch loss and
+averages the gradients over the ranks (train/step.py), each rank
+evaluates its share of the clips and the counts are summed once at the
+end, and rank 0 alone writes logs, metrics, checkpoints and reports. A
+batch that the world size does not divide raises.
 """
 
+import dataclasses
 import json
 import os
 import os.path as osp
@@ -41,18 +54,21 @@ from ..data.video import parse_classes_file
 from ..models.factory import build_model_from_args
 from ..models.vita_clip import trainable_mask
 from ..ops import flash_attention as _fa
+from ..parallel import distributed as _dist
+from ..parallel.mesh import all_reduce_sum, create_mesh, replicate
 from ..train import checkpoint as ckpt_lib
 from ..train.metrics import (StepAnomalyDetector, f1_from_confusion,
                              summary_from_confusion)
 from ..train.state import create_train_state, make_optimizer
 from ..train.step import LossConfig, make_eval_step, make_train_step
-from ..utils.config import (build_train_parser, remap_fold_data_root,
-                            save_config)
+from ..utils.config import (add_dist_args, build_train_parser,
+                            remap_fold_data_root, save_config)
 from ..utils.device import resolve_device
 
 
 def _log(msg: str):
-    print(f"[{datetime.now().time()}] {msg}", flush=True)
+    if _dist.is_main_process():
+        print(f"[{datetime.now().time()}] {msg}", flush=True)
 
 
 def loader_config_from_args(args) -> LoaderConfig:
@@ -74,7 +90,8 @@ def loader_config_from_args(args) -> LoaderConfig:
         type=args.type, nfold=args.nfold, embed_dim=args.embed_dim,
         eval_all_views=getattr(args, 'eval_all_views', False),
         allow_seek=getattr(args, 'allow_seek', True),
-        cache_dir=getattr(args, 'decoded_cache_dir', '') or '')
+        cache_dir=getattr(args, 'decoded_cache_dir', '') or '',
+        batch_split=getattr(args, 'batch_split', 1))
 
 
 def _mean_std(args):
@@ -100,7 +117,7 @@ last_eval = {"seconds": 0.0, "clips": 0}
 
 def evaluate(model, params, loader, num_classes: int, mean, std,
              compute_dtype, batch_size: int, attn_impl: str = "xla",
-             device=None) -> tuple:
+             device=None, mesh=None) -> tuple:
     """Evaluation loop through the confusion-matrix step (train/step.py).
 
     Batches are padded to `batch_size` (one shape); pad rows are excluded
@@ -108,7 +125,13 @@ def evaluate(model, params, loader, num_classes: int, mean, std,
     prefetch thread (batch k+1 while the device evaluates batch k), and
     both the hit count and the confusion matrix accumulate ON THE DEVICE: a
     per-batch fetch would drain the queue at every step. One fetch per 50
-    batches reports progress."""
+    batches reports progress.
+
+    mesh: `loader` holds this rank's clips (`eval_sampler(rank, world)`);
+    the hits, the clip count and the confusion matrix are summed over
+    'data' once, after the last batch, so ranks with different numbers of
+    batches meet at one collective (the reference's all_reduce of the
+    confusion matrix, train.py:531-534)."""
     device = torch.device("cpu") if device is None else torch.device(device)
     copier = PinnedBatchCopier(device)
 
@@ -141,7 +164,7 @@ def evaluate(model, params, loader, num_classes: int, mean, std,
             steps[V] = make_eval_step(model, num_classes,
                                       compute_dtype=compute_dtype,
                                       attn_impl=attn_impl, mean=mean, std=std,
-                                      num_views=V)
+                                      num_views=V, mesh=mesh)
         h, c = steps[V](params, dev["video"], dev["labels"], dev["valid"])
         conf_dev = c if conf_dev is None else conf_dev + c
         hit_dev = h if hit_dev is None else hit_dev + h
@@ -150,6 +173,17 @@ def evaluate(model, params, loader, num_classes: int, mean, std,
         if n_batches % 50 == 0:  # rare: each fetch drains the queue
             _log(f"[Evaluation] num_samples: {tot}  "
                  f"cumulative_acc1: {int(hit_dev) / tot * 100.:.2f}%")
+    if mesh is not None:
+        # one collective for every rank, whatever its number of batches
+        counts = torch.zeros(num_classes * num_classes + 2,
+                             dtype=torch.float64, device=device)
+        if conf_dev is not None:
+            counts[:-2] = conf_dev.reshape(-1).double()
+            counts[-2] = hit_dev.double()
+        counts[-1] = tot
+        counts = all_reduce_sum(counts, mesh)
+        conf_dev = counts[:-2].reshape(num_classes, num_classes)
+        hit_dev, tot = counts[-2], int(counts[-1].item())
     conf = (conf_dev.cpu().numpy().astype(np.int64) if conf_dev is not None
             else np.zeros((num_classes, num_classes), np.int64))
     hit1 = int(hit_dev) if hit_dev is not None else 0
@@ -159,9 +193,51 @@ def evaluate(model, params, loader, num_classes: int, mean, std,
     return acc, conf
 
 
+def data_mesh():
+    """The data-parallel mesh over the process group's ranks, or None
+    without a group (one process: the single-card path, unchanged)."""
+    return create_mesh() if torch.distributed.is_initialized() else None
+
+
+def check_batch_sizes(args, world: int,
+                      names=("batch_size", "mem_batch_size")) -> None:
+    """Every rank takes an equal share of each (micro-)batch: raise with
+    the numbers where the world size does not divide them (the JAX
+    program drops its mesh instead; several processes cannot)."""
+    split = getattr(args, "batch_split", 1)
+    for name in names:
+        n = getattr(args, name)
+        if n % (world * split) != 0:
+            raise ValueError(
+                f"--{name} {n} does not split over {world} ranks"
+                + (f" x --batch_split {split}" if split > 1 else "")
+                + f": it must be a multiple of {world * split}")
+
+
+class _StopFlag:
+    """SIGTERM's flag, agreed on by every rank at every step (max over a
+    host-side gloo group): a rank that stopped alone would leave the others
+    waiting in the gradient all-reduce."""
+
+    def __init__(self, preempted):
+        self.preempted = preempted
+        self.group = torch.distributed.new_group(backend="gloo") \
+            if torch.distributed.is_initialized() else None
+
+    def __call__(self) -> bool:
+        if self.group is None:
+            return self.preempted["flag"]
+        flag = torch.tensor([int(self.preempted["flag"])])
+        torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX,
+                                     group=self.group)
+        return bool(flag.item())
+
+
 def train_one_fold(args, fold: int, classnames: List[str], num_classes: int,
                    logdir: Optional[str]) -> tuple:
     device, compute_dtype, attn_impl = _run_settings(args)
+    rank, world = _dist.world()
+    mesh = data_mesh()
     if getattr(args, "debug_attn_clamp", False):
         _fa.enable_clamp_monitor(True)
     # rematerialize the vision blocks for long clips (the 70-frame recipe);
@@ -177,11 +253,20 @@ def train_one_fold(args, fold: int, classnames: List[str], num_classes: int,
     state = create_train_state(model.params, mask, optimizer, device=device)
 
     state, resume_step, _ = ckpt_lib.resume_from_checkpoint(state, mask, args)
+    if mesh is not None:
+        # every rank starts from rank 0's weights (params replicated)
+        replicate((state.trainable, state.frozen), mesh)
+        _log(f"data-parallel over {world} ranks "
+             f"({torch.distributed.get_backend()})")
 
     lcfg = loader_config_from_args(args)
-    val_loader = create_val_loader(lcfg)
-    train_loader = create_train_loader(lcfg, resume_step=resume_step)
-    memory_loader = create_memory_loader(lcfg, resume_step=resume_step)
+    # each rank loads its rows of every global batch and its share of the
+    # evaluation clips, in batches of its share of the batch size
+    val_loader, eval_batch, _ = sharded_val_loader(args, lcfg=lcfg)
+    train_loader = create_train_loader(lcfg, resume_step=resume_step,
+                                       rank=rank, world_size=world)
+    memory_loader = create_memory_loader(lcfg, resume_step=resume_step,
+                                         rank=rank, world_size=world)
 
     loss_cfg = LossConfig(
         num_classes=num_classes,
@@ -197,7 +282,8 @@ def train_one_fold(args, fold: int, classnames: List[str], num_classes: int,
                               batch_split=args.batch_split,
                               compute_dtype=compute_dtype,
                               attn_impl=attn_impl, remat=remat,
-                              frozen_int8=getattr(args, "int8_frozen", False))
+                              frozen_int8=getattr(args, "int8_frozen", False),
+                              mesh=mesh)
 
     def text_features_fn(params):
         with torch.no_grad():
@@ -207,13 +293,15 @@ def train_one_fold(args, fold: int, classnames: List[str], num_classes: int,
 
     writer = None
     metrics_jsonl = None
+    main_rank = rank == 0
     if logdir:
+        args.checkpoint_dir = osp.join(logdir, f"fold_{fold}")
+    if logdir and main_rank:
         try:
             from torch.utils.tensorboard import SummaryWriter
             writer = SummaryWriter(log_dir=osp.join(logdir, f"fold_{fold}"))
         except ImportError:
             pass
-        args.checkpoint_dir = osp.join(logdir, f"fold_{fold}")
         os.makedirs(args.checkpoint_dir, exist_ok=True)
         metrics_jsonl = osp.join(args.checkpoint_dir, "metrics.jsonl")
 
@@ -243,6 +331,13 @@ def train_one_fold(args, fold: int, classnames: List[str], num_classes: int,
         prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
     except ValueError:          # not the main thread (tests run this inline)
         prev_handler = None
+    stop_requested = _StopFlag(preempted)
+
+    def save(*a, **kw):
+        """A checkpoint from rank 0, then every rank at a barrier."""
+        if main_rank:
+            ckpt_lib.save_checkpoint(*a, **kw)
+        _dist.barrier()
 
     # the copy of batch N+1 (uint8 video + labels / nte / memory) runs on
     # the prefetch thread and a side stream while the device executes step
@@ -270,14 +365,16 @@ def train_one_fold(args, fold: int, classnames: List[str], num_classes: int,
 
     profiler = None
     for i, db in enumerate(device_iter, start=resume_step):
-        if preempted["flag"]:
+        if stop_requested():
             _log(f"[preempt] SIGTERM received: checkpointing at step {i} "
                  "and exiting")
             tf = text_features_fn(state.params) \
-                if args.use_text_prompt_learning else None
-            ckpt_lib.save_checkpoint(args.checkpoint_dir, state, i,
-                                     text_features=tf)
-            ckpt_lib.wait_for_saves()
+                if args.use_text_prompt_learning and main_rank else None
+            if main_rank:
+                ckpt_lib.save_checkpoint(args.checkpoint_dir, state, i,
+                                         text_features=tf)
+                ckpt_lib.wait_for_saves()
+            _dist.barrier()
             if prev_handler is not None:
                 signal.signal(signal.SIGTERM, prev_handler)
             close = getattr(device_iter, "close", None)
@@ -328,6 +425,7 @@ def train_one_fold(args, fold: int, classnames: List[str], num_classes: int,
                         # whatever checkpoint did land
                         _log(f"[anomaly] async checkpoint write failed: "
                              f"{e!r}")
+                    _dist.barrier()     # rank 0's writes have landed
                     rollback = ckpt_lib.find_autoresume_path(
                         args.checkpoint_dir)
                     if rollback:
@@ -371,9 +469,9 @@ def train_one_fold(args, fold: int, classnames: List[str], num_classes: int,
             _log(f"Start model evaluation at step {i + 1}")
             params = state.params
             eval_acc, conf = evaluate(model, params, val_loader, num_classes,
-                                      mean, std, compute_dtype,
-                                      args.batch_size, attn_impl=attn_impl,
-                                      device=device)
+                                      mean, std, compute_dtype, eval_batch,
+                                      attn_impl=attn_impl, device=device,
+                                      mesh=mesh)
             eval_perf = float(f1_from_confusion(conf).mean())
             if writer is not None:
                 writer.add_scalar("test/accuracy", eval_acc, i + 1)
@@ -386,23 +484,22 @@ def train_one_fold(args, fold: int, classnames: List[str], num_classes: int,
                 best_perf, best_acc = eval_perf, eval_acc
                 save_conf = conf
                 tf = text_features_fn(params) \
-                    if args.use_text_prompt_learning else None
-                ckpt_lib.save_checkpoint(args.checkpoint_dir, state, i + 1,
-                                         text_features=tf, is_best=True,
-                                         name=f"fold-{fold}",
-                                         async_write=True)
+                    if args.use_text_prompt_learning and main_rank else None
+                save(args.checkpoint_dir, state, i + 1, text_features=tf,
+                     is_best=True, name=f"fold-{fold}", async_write=True)
 
         if (i + 1) % args.save_freq == 0:
             tf = text_features_fn(state.params) \
-                if args.use_text_prompt_learning else None
+                if args.use_text_prompt_learning and main_rank else None
             # the fetch to the host is synchronous (the step updates the
             # state in place); the pickle + disk write overlaps the next
             # steps
-            ckpt_lib.save_checkpoint(args.checkpoint_dir, state, i + 1,
-                                     text_features=tf, async_write=True)
+            save(args.checkpoint_dir, state, i + 1, text_features=tf,
+                 async_write=True)
         batch_st = time.time()
 
     ckpt_lib.wait_for_saves()   # fold end: all checkpoints on disk
+    _dist.barrier()
     if prev_handler is not None:
         signal.signal(signal.SIGTERM, prev_handler)
     if writer is not None:
@@ -455,18 +552,37 @@ def eval_only_fold(args, fold: int, classnames: List[str], num_classes: int):
     params = merge_pytrees(model.params,
                            _loaded_params(ckpt, args, num_classes))
 
-    lcfg = loader_config_from_args(args)
-    val_loader = create_val_loader(lcfg)
+    val_loader, batch, mesh = sharded_val_loader(args)
     acc, conf = evaluate(model, params, val_loader, num_classes, mean, std,
-                         compute_dtype, args.batch_size, attn_impl=attn_impl,
-                         device=device)
+                         compute_dtype, batch, attn_impl=attn_impl,
+                         device=device, mesh=mesh)
     return acc, conf
 
 
-def main(argv=None):
-    parser = build_train_parser()
-    args = parser.parse_args(argv)
+def sharded_val_loader(args, make=create_val_loader, lcfg=None):
+    """(loader of this rank's evaluation clips, its batch size, the data
+    mesh or None): the evaluation of every program split over the ranks."""
+    rank, world = _dist.world()
+    lcfg = lcfg or loader_config_from_args(args)
+    lcfg = dataclasses.replace(lcfg, batch_size=args.batch_size // world)
+    return make(lcfg, rank=rank, world_size=world), lcfg.batch_size, \
+        data_mesh()
+
+
+def start_ranks(args, names=("batch_size", "mem_batch_size")) -> tuple:
+    """`init_distributed` for a program's flags: (rank, world); the batch
+    sizes in `names` checked against the world size."""
+    rank, world = _dist.init_distributed(
+        backend=getattr(args, "dist_backend", None), device=args.device)
     resolve_device(args.device)     # no card and no --device cpu: raise now
+    check_batch_sizes(args, world, names)
+    return rank, world
+
+
+def main(argv=None):
+    parser = add_dist_args(build_train_parser())
+    args = parser.parse_args(argv)
+    rank, world = start_ranks(args)
 
     classnames, cls_labels = parse_classes_file(args.text_prompt_classes_path)
     num_classes = len(cls_labels)
@@ -488,8 +604,14 @@ def main(argv=None):
         logdir = (f"./logs/{args.type.lower()}"
                   f"{'-zs' if args.for_zero_shot else ''}_"
                   f"{time.strftime('%m%d-%H%M')}{postfix}/")
-        os.makedirs(logdir, exist_ok=True)
-        save_config(args, osp.join(logdir, "config.yaml"))
+        if world > 1:
+            # rank 0's name: the ranks' clocks may straddle a minute
+            box = [logdir]
+            torch.distributed.broadcast_object_list(box, src=0)
+            logdir = box[0]
+        if rank == 0:
+            os.makedirs(logdir, exist_ok=True)
+            save_config(args, osp.join(logdir, "config.yaml"))
         result_file = osp.join(logdir, "results.txt")
 
     for n in range(args.nfold):
@@ -501,7 +623,7 @@ def main(argv=None):
                                             logdir)
         performances.append(best_acc)
         all_conf += conf
-        if logdir:
+        if logdir and rank == 0:
             np.savetxt(osp.join(logdir, f"confusion_matrix_fold-{n}.txt"),
                        conf, fmt="%d")
             with open(result_file, "w") as f:
@@ -509,6 +631,8 @@ def main(argv=None):
                                  for i, x in enumerate(performances)))
 
     if args.eval_only:
+        if rank != 0:
+            return performances, all_conf
         # aggregate eval report
         os.makedirs("./eval_output", exist_ok=True)
         tag = f"{args.type.split('_')[0]}_eval"
@@ -523,7 +647,7 @@ def main(argv=None):
                 f.write(" ".join(str(int(x)) for x in row) + "\n")
         return performances, all_conf
 
-    if logdir:
+    if logdir and rank == 0:
         s = summary_from_confusion(all_conf)
         min_max = (max(performances) - min(performances)) \
             if performances else 0.0
@@ -568,3 +692,4 @@ def _save_heatmap(conf, path: str, annot: bool, labels: bool = False):
 
 if __name__ == "__main__":
     main()
+    _dist.shutdown()

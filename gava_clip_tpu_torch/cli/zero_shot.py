@@ -9,7 +9,10 @@ Encode the classnames (optionally prefixed with simQdesc_<kv> knowledge
 descriptions) through the frozen CLIP text tower into a text-feature file;
 build the model with all vision prompts ON and text prompt learning OFF;
 load visual-only weights from the pretrained checkpoint; evaluate; write
-the accuracy / F1 / weighted-F1 report.
+the accuracy / F1 / weighted-F1 report. Under `python -m
+torch.distributed.run --nproc_per_node N` rank 0 writes the text features,
+each rank evaluates its share of the clips, the counts are summed once,
+and rank 0 writes the report.
 """
 
 import argparse
@@ -27,13 +30,14 @@ from ..models.text import TextConfig, encode_text_tokens
 from ..models.vita_clip import _tree_to
 from ..text.tokenizer import tokenize
 from ..train.checkpoint import load_checkpoint
-from ..utils.config import build_train_parser
+from ..parallel import distributed as _dist
+from ..utils.config import add_dist_args, build_train_parser
 from ..utils.torch_convert import (adapt_frame_params, convert_text_tower,
                                    load_torch_state_dict, merge_pytrees,
                                    strip_prefix)
 from .evaluate import inference_params
 from .train import (_loaded_params, _log, _mean_std, _run_settings, evaluate,
-                    loader_config_from_args)
+                    sharded_val_loader, start_ranks)
 
 
 def knowledge_to_text_features(args, cls_names: List[str], device) -> str:
@@ -65,21 +69,24 @@ def knowledge_to_text_features(args, cls_names: List[str], device) -> str:
         feats = encode_text_tokens(params, tokens, cfg).float().cpu().numpy()
 
     out_dir = osp.join(args.info_dir, f"ke_{args.type}")
-    os.makedirs(out_dir, exist_ok=True)
     filename = osp.join(out_dir,
                         f"text_features_{args.knowledge_version_single}.npy")
-    np.save(filename, feats)
+    if _dist.is_main_process():
+        os.makedirs(out_dir, exist_ok=True)
+        np.save(filename, feats)
+    _dist.barrier()             # the file is there for every rank
     return filename
 
 
 def main(argv=None):
-    parser = build_train_parser()
+    parser = add_dist_args(build_train_parser())
     parser.add_argument("--pretrained_vlm", type=str,
                         default="./pretrained/ckpt_k400.pth")
     parser.add_argument("--use_discrete_prompt", action="store_true")
     parser.add_argument("--info_dir", type=str, default="./data")
     parser.add_argument("--knowledge_version_single", type=str, default="v0")
     args = parser.parse_args(argv)
+    rank, _ = start_ranks(args, names=("batch_size",))
     device, compute_dtype, attn_impl = _run_settings(args)
 
     cls_names, cls_labels = parse_classes_file(args.text_prompt_classes_path)
@@ -115,13 +122,14 @@ def main(argv=None):
     mean, std = _mean_std(args)
     params = inference_params(params, args, compute_dtype)
 
-    lcfg = loader_config_from_args(args)
-    loader = create_eval_loader(lcfg)
+    loader, batch, mesh = sharded_val_loader(args, make=create_eval_loader)
     acc, conf = evaluate(model, params, loader, num_classes, mean, std,
-                         compute_dtype, args.batch_size, attn_impl=attn_impl,
-                         device=device)
+                         compute_dtype, batch, attn_impl=attn_impl,
+                         device=device, mesh=mesh)
     performance = acc / 100.0
     _log(f"Evaluation accuracy: top1={performance * 100:.2f}%")
+    if rank != 0:
+        return performance, conf
 
     with np.errstate(divide="ignore", invalid="ignore"):
         f1 = np.zeros(num_classes)
@@ -155,3 +163,4 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    _dist.shutdown()

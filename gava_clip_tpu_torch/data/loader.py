@@ -59,6 +59,7 @@ class LoaderConfig:
     num_workers: int = 4
     dummy_dataset: bool = False
     eval_all_views: bool = False
+    batch_split: int = 1     # micro-batches of a step (sampler.step_sampler)
     add_nte: bool = False
     num_steps: int = 0
     type: str = "updrs"
@@ -183,7 +184,8 @@ def create_train_loader(cfg: LoaderConfig, resume_step: int = 0,
             is_train=True, add_nte=cfg.add_nte, nte_dim=cfg.embed_dim,
             allow_seek=cfg.allow_seek, cache_dir=cfg.cache_dir))
     grid = step_sampler(len(ds), cfg.num_steps, cfg.batch_size,
-                        rank=rank, world_size=world_size, resume_step=resume_step)
+                        rank=rank, world_size=world_size,
+                        resume_step=resume_step, batch_split=cfg.batch_split)
     return _Prefetcher(lambda idxs: _collate_video(ds, idxs), list(grid),
                        num_workers=cfg.num_workers)
 
@@ -239,6 +241,7 @@ def create_memory_loader(cfg: LoaderConfig, resume_step: int = 0,
         ds = DummyMemoDataset(batch_size=cfg.mem_batch_size,
                               embed_size=cfg.embed_dim)
     grid = step_sampler(len(ds), cfg.num_steps, cfg.mem_batch_size,
-                        rank=rank, world_size=world_size, resume_step=resume_step)
+                        rank=rank, world_size=world_size,
+                        resume_step=resume_step, batch_split=cfg.batch_split)
     return _Prefetcher(lambda idxs: _collate_memory(ds, idxs), list(grid),
                        num_workers=min(2, cfg.num_workers))

@@ -20,6 +20,7 @@ from ..ops.activations import quick_gelu
 from ..ops.attention import multi_head_attention
 from ..ops.linear import mlp
 from ..ops.norm import layer_norm
+from ..parallel.mesh import copy_to_group, parallel_attention, parallel_mlp
 from .common import init_attention, init_layer_norm, init_linear, normal
 
 
@@ -68,13 +69,17 @@ def causal_mask(length: int, device=None) -> torch.Tensor:
 def text_transformer(params, x: torch.Tensor, cfg: TextConfig,
                      attn_impl: str = "xla",
                      maple_prompts: Optional[torch.Tensor] = None,
-                     int8_impl: str = "kernel") -> torch.Tensor:
+                     int8_impl: str = "kernel", tp=None) -> torch.Tensor:
     """Run the causal transformer stack over embedded prompts (N, L, W).
 
     maple_prompts: optional (layers-1, P, W) MaPLe-style per-layer prompts:
     from the second block on, tokens [1:1+P] are replaced by that layer's
-    learned prompts before the block."""
+    learned prompts before the block. tp: the 'model' process group where
+    the blocks hold Megatron shards (`parallel.mesh.tower_groups`): they
+    run Megatron's attention and MLP (parallel/mesh.py)."""
     def block_fn(h, p):
+        if tp is not None:
+            return _parallel_block(h, p, tp)
         hn = layer_norm(h, p["ln_1"]["scale"], p["ln_1"]["bias"])
         # causal=True sends the flash impl through the streaming kernel's
         # in-kernel causal mask; the xla impl builds the additive mask
@@ -83,6 +88,15 @@ def text_transformer(params, x: torch.Tensor, cfg: TextConfig,
                                      int8_impl=int8_impl)
         hn = layer_norm(h, p["ln_2"]["scale"], p["ln_2"]["bias"])
         return h + mlp(p["mlp"], hn, quick_gelu, int8_impl)
+
+    def _parallel_block(h, p, group):
+        hn = copy_to_group(layer_norm(h, p["ln_1"]["scale"],
+                                      p["ln_1"]["bias"]), group)
+        h = h + parallel_attention(p["attn"], hn, cfg.heads, group,
+                                   impl=attn_impl, causal=True)
+        hn = copy_to_group(layer_norm(h, p["ln_2"]["scale"],
+                                      p["ln_2"]["bias"]), group)
+        return h + parallel_mlp(p["mlp"], hn, quick_gelu, group)
 
     blocks = list(params["blocks"])
     if maple_prompts is None:
@@ -103,15 +117,15 @@ def encode_text_embeds(params, prompt_embeds: torch.Tensor,
                        eot_idx: torch.Tensor, cfg: TextConfig,
                        compute_dtype=torch.float32,
                        attn_impl: str = "xla",
-                       int8_impl: str = "kernel") -> torch.Tensor:
+                       int8_impl: str = "kernel", tp=None) -> torch.Tensor:
     """Encode pre-embedded prompts (N, L, W) -> pooled features
     (N, embed_dim): + positional embedding, transformer, ln_final, gather
     at the EOT position, project. `eot_idx` (N,) is the EOT column per
-    row."""
+    row. tp: see `text_transformer`."""
     x = prompt_embeds.to(compute_dtype) + \
         params["positional_embedding"].to(compute_dtype)
     x = text_transformer(params, x, cfg, attn_impl=attn_impl,
-                         int8_impl=int8_impl)
+                         int8_impl=int8_impl, tp=tp)
     x = layer_norm(x, params["ln_final"]["scale"], params["ln_final"]["bias"])
     pooled = x[torch.arange(x.shape[0], device=x.device), eot_idx.long()]
     return pooled @ params["text_projection"].to(pooled.dtype)

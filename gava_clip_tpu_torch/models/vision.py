@@ -56,6 +56,8 @@ from ..ops.flash_attention import flash_attention_out_int8
 from ..ops.int8_matmul import int8_qkv3_st, w8a8_matmul, w8a8_matmul3_cat
 from ..ops.linear import linear, mlp_block, quant_kind
 from ..ops.norm import layer_norm
+from ..parallel.mesh import (copy_to_group, local_heads, parallel_attention,
+                             parallel_mlp, row_parallel_linear)
 from .common import (init_attention, init_layer_norm, init_linear, normal,
                      prompt_init_limit, uniform)
 
@@ -198,10 +200,12 @@ def resize_time_embed(time_embed: torch.Tensor, T: int) -> torch.Tensor:
 
 
 def prompt_extras(p, g_prompt: Optional[torch.Tensor], x: torch.Tensor,
-                  cfg: VisionConfig):
+                  cfg: VisionConfig, tp=None):
     """The prompt rows of one block from stock ops, in x's dtype: ([global
     (BT, G, D)], [summary (BT, 1, D)], [local (BT, Tb, D)]) for the prompt
-    kinds that are on, and the summary tokens (Bb, Tb, D) or None."""
+    kinds that are on, and the summary tokens (Bb, Tb, D) or None. tp: the
+    'model' process group where the tower (the summary attention with it)
+    holds shards."""
     BT, _, D = x.shape
     G = cfg.num_global_prompts
     Tb = cfg.num_frames
@@ -215,8 +219,14 @@ def prompt_extras(p, g_prompt: Optional[torch.Tensor], x: torch.Tensor,
     if cfg.use_summary_token:
         s_norm = layer_norm(cls_proj, p["summary_ln"]["scale"],
                             p["summary_ln"]["bias"])
-        summary = cls_proj + multi_head_attention(
-            p["summary_attn"], s_norm, s_norm, s_norm, cfg.heads, impl="xla")
+        a = p["summary_attn"]
+        if tp is None:
+            attn = multi_head_attention(a, s_norm, s_norm, s_norm, cfg.heads,
+                                        impl="xla")
+        else:
+            s_in = copy_to_group(s_norm, tp)
+            attn = parallel_attention(a, s_in, cfg.heads, tp)
+        summary = cls_proj + attn
         extras.append(summary.reshape(BT, 1, D))
     if cfg.use_local_prompts:
         lp = p["local_prompts"].to(x.dtype) + cls_proj          # (Bb, Tb, D)
@@ -226,13 +236,18 @@ def prompt_extras(p, g_prompt: Optional[torch.Tensor], x: torch.Tensor,
 
 
 def _block(p, g_prompt: Optional[torch.Tensor], x: torch.Tensor,
-           cfg: VisionConfig, attn_impl: str, int8_impl: str = "kernel"):
+           cfg: VisionConfig, attn_impl: str, int8_impl: str = "kernel",
+           tp=None):
     """One prompt-aware transformer block over per-frame token rows.
 
     x: (B*T, 1+N, D) = [cls, patches]. Returns (x, summary | None). The
     global prompts, the summary token and the local prompts are appended
     as attention keys only. Like the reference, the summary/local grouping
-    uses the TRAIN-time frame count cfg.num_frames."""
+    uses the TRAIN-time frame count cfg.num_frames. tp: the 'model' process
+    group where the tower holds Megatron shards (`parallel.mesh.
+    tower_groups`): the block runs its heads of the attention and its
+    share of the MLP and sums the out-projection and fc2 over the
+    group."""
     BT, Lx, D = x.shape
     G = cfg.num_global_prompts
     Tb = cfg.num_frames
@@ -253,7 +268,7 @@ def _block(p, g_prompt: Optional[torch.Tensor], x: torch.Tensor,
             le_pad=G + 1 + Tb, impl=int8_impl)
         extras = [fused_e]
     else:
-        extras, summary = prompt_extras(p, g_prompt, x, cfg)
+        extras, summary = prompt_extras(p, g_prompt, x, cfg, tp)
     if w8a8:
         # LN1 + one shared quant + the three int8 projections over the
         # per-clip rows [x; extras], the concatenation never materialised
@@ -277,9 +292,10 @@ def _block(p, g_prompt: Optional[torch.Tensor], x: torch.Tensor,
         x = mlp_block(p["mlp"], p["norm2"], x, quick_gelu, residual=x,
                       int8_impl=int8_impl)
     else:
-        q, k, v = _project_qkv(p, x, extras, int8_impl)
-        x = _post_attention(p, x, attention_core(q, k, v, cfg.heads,
-                                                 impl=attn_impl), int8_impl)
+        q, k, v = _project_qkv(p, x, extras, int8_impl, tp)
+        x = _post_attention(p, x, attention_core(
+            q, k, v, local_heads(cfg.heads, tp), impl=attn_impl), int8_impl,
+            tp)
     return x, summary
 
 
@@ -298,11 +314,13 @@ def _remat_policy(remat) -> Optional[str]:
     raise ValueError(f"unknown remat policy {remat!r}")
 
 
-def _project_qkv(p, x, extras, int8_impl: str):
+def _project_qkv(p, x, extras, int8_impl: str, tp=None):
     """LN1 over the kv rows [x; extras] and the three projections: q of the
     first Lx rows, k and v of all. Float and weight-only leaves take a
     LayerNorm and three `linear` calls; 'qt' leaves one straight-through op
-    (B3a) over the kv rows, whose q of the extras rows is dropped."""
+    (B3a) over the kv rows, whose q of the extras rows is dropped. Column
+    shards (tp) take LN1's output through Megatron's f
+    (`copy_to_group`)."""
     Lx = x.shape[1]
     kv = torch.cat([x] + extras, dim=1) if extras else x
     a = p["attn"]
@@ -316,33 +334,56 @@ def _project_qkv(p, x, extras, int8_impl: str):
         q, k, v = (o.reshape(*kv.shape[:-1], o.shape[-1]) for o in outs)
         return q[:, :Lx], k, v
     kv_n = layer_norm(kv, p["norm1"]["scale"], p["norm1"]["bias"])
+    kv_n = copy_to_group(kv_n, tp)
     return (linear(a["q"], kv_n[:, :Lx], int8_impl),
             linear(a["k"], kv_n, int8_impl), linear(a["v"], kv_n, int8_impl))
 
 
-def _pre_attention(p, g_prompt, x, cfg: VisionConfig, int8_impl: str):
+def _pre_attention(p, g_prompt, x, cfg: VisionConfig, int8_impl: str,
+                   tp=None):
     """Everything of a block in front of the attention call: prompt extras,
     LN1 over [x; extras], the three projections. Returns q (the first Lx
     rows only), k, v and the summary tokens."""
-    extras, summary = prompt_extras(p, g_prompt, x, cfg)
-    return (*_project_qkv(p, x, extras, int8_impl), summary)
+    extras, summary = prompt_extras(p, g_prompt, x, cfg, tp)
+    return (*_project_qkv(p, x, extras, int8_impl, tp), summary)
 
 
-def _mlp_hidden(p, x, attn, int8_impl: str):
+def _out_projection(p, attn, int8_impl: str, tp):
+    """The attention's out-projection; on row shards the partial products
+    summed over the group (Megatron's g), then the bias."""
+    if tp is None:
+        return linear(p["attn"]["out"], attn, int8_impl)
+    return row_parallel_linear(p["attn"]["out"], attn, tp)
+
+
+def _mlp_hidden(p, x, attn, int8_impl: str, tp=None):
     """Out-projection + residual, then LN2 and fc1: (x, pre-activation).
     Float leaves only: on 'qt' leaves fc1 is inside the fused MLP op."""
-    x = x + linear(p["attn"]["out"], attn, int8_impl)
+    x = x + _out_projection(p, attn, int8_impl, tp)
     h = layer_norm(x, p["norm2"]["scale"], p["norm2"]["bias"])
+    h = copy_to_group(h, tp)
     return x, linear(p["mlp"]["fc1"], h, int8_impl)
 
 
-def _post_attention(p, x, attn, int8_impl: str):
+def _fc2(p, x, h, int8_impl: str, tp=None):
+    """Residual + fc2 of the activated hidden (the tail of save_attn_mlp's
+    split block)."""
+    if tp is None:
+        return x + linear(p["mlp"]["fc2"], quick_gelu(h), int8_impl)
+    return x + row_parallel_linear(p["mlp"]["fc2"], quick_gelu(h), tp)
+
+
+def _post_attention(p, x, attn, int8_impl: str, tp=None):
     """Everything of a block behind the attention call: out-projection +
     residual, then LN2 + MLP + residual (`mlp_block`: on 'qt' leaves one
-    straight-through op, B5)."""
-    x = x + linear(p["attn"]["out"], attn, int8_impl)
-    return mlp_block(p["mlp"], p["norm2"], x, quick_gelu, residual=x,
-                     int8_impl=int8_impl)
+    straight-through op, B5; on shards `parallel_mlp`)."""
+    x = x + _out_projection(p, attn, int8_impl, tp)
+    if tp is None:
+        return mlp_block(p["mlp"], p["norm2"], x, quick_gelu, residual=x,
+                         int8_impl=int8_impl)
+    h = copy_to_group(layer_norm(x, p["norm2"]["scale"], p["norm2"]["bias"]),
+                      tp)
+    return x + parallel_mlp(p["mlp"], h, quick_gelu, tp)
 
 
 _GEMM_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -357,7 +398,7 @@ def _save_gemm_outputs(ctx, op, *args, **kwargs):
 
 
 def _block_remat(policy: str, p, g_prompt, x, cfg: VisionConfig,
-                 attn_impl: str, int8_impl: str):
+                 attn_impl: str, int8_impl: str, tp=None):
     """`_block` with part of its activations dropped after the forward and
     rebuilt in the backward (the JAX package's `jax.checkpoint` policies).
     A custom autograd.Function is opaque to torch's op-level selective
@@ -401,41 +442,73 @@ def _block_remat(policy: str, p, g_prompt, x, cfg: VisionConfig,
     if kind == "qt" and policy.startswith("save_attn"):
         policy = "save_attn"
     ck = dict(use_reentrant=False)
+    heads = local_heads(cfg.heads, tp)
     if policy == "full":
         return checkpoint(_block, p, g_prompt, x, cfg, attn_impl, int8_impl,
-                          **ck)
+                          tp, **ck)
     if policy == "dots":
         return checkpoint(
-            _block, p, g_prompt, x, cfg, attn_impl, int8_impl,
+            _block, p, g_prompt, x, cfg, attn_impl, int8_impl, tp,
             context_fn=lambda: create_selective_checkpoint_contexts(
                 _save_gemm_outputs), **ck)
     if policy == "save_attn":
         keep: dict = {}
 
         def attend(x_):
-            q, k, v, summary = _pre_attention(p, g_prompt, x_, cfg, int8_impl)
-            return attention_core(q, k, v, cfg.heads, impl=attn_impl,
+            q, k, v, summary = _pre_attention(p, g_prompt, x_, cfg, int8_impl,
+                                              tp)
+            return attention_core(q, k, v, heads, impl=attn_impl,
                                   keep=keep), summary
 
         attn, summary = checkpoint(attend, x, **ck)
     else:
         q, k, v, summary = checkpoint(_pre_attention, p, g_prompt, x, cfg,
-                                      int8_impl, **ck)
-        attn = attention_core(q, k, v, cfg.heads, impl=attn_impl)
+                                      int8_impl, tp, **ck)
+        attn = attention_core(q, k, v, heads, impl=attn_impl)
     if policy == "save_attn_mlp":
-        x, h = checkpoint(_mlp_hidden, p, x, attn, int8_impl, **ck)
-        x = checkpoint(
-            lambda x_, h_: x_ + linear(p["mlp"]["fc2"], quick_gelu(h_),
-                                       int8_impl), x, h, **ck)
+        x, h = checkpoint(_mlp_hidden, p, x, attn, int8_impl, tp, **ck)
+        x = checkpoint(_fc2, p, x, h, int8_impl, tp, **ck)
     else:
-        x = checkpoint(_post_attention, p, x, attn, int8_impl, **ck)
+        x = checkpoint(_post_attention, p, x, attn, int8_impl, tp, **ck)
     return x, summary
+
+
+def _pipelined_blocks(params, g_prompts, x, cfg: VisionConfig, attn_impl,
+                      int8_impl, tp, pp):
+    """The block stack through `parallel.pipeline.pipeline_scan`: stage s
+    holds layers [s*L/S, (s+1)*L/S) on stages[s]; the carry is (rows,
+    summary tokens), as the JAX scan's, split into micro-batches of whole
+    clips. Returns (x, summary | None) on x's device."""
+    from ..parallel.pipeline import pipeline_scan, stage_params
+    stages, microbatches = pp
+    D, Tb = cfg.feature_dim, cfg.num_frames
+    # a serving module's ParamTree blocks as dicts: staging must not move
+    # the module's own weights
+    layers = [(p.to_dict() if hasattr(p, "to_dict") else p,
+               None if g_prompts is None else g_prompts[i])
+              for i, p in enumerate(params["blocks"])]
+    staged = stage_params(layers, stages)
+
+    def block_fn(carry, layer):
+        h, _ = carry
+        p, g = layer
+        h, summary = _block(p, g, h, cfg, attn_impl, int8_impl, tp)
+        if summary is None:
+            # sized from the micro-batch's own rows
+            summary = h.new_zeros((h.shape[0] // Tb, Tb, D))
+        return h, summary
+
+    init = (x, x.new_zeros((x.shape[0] // Tb, Tb, D)))
+    h, summary = pipeline_scan(block_fn, staged, init, stages,
+                               microbatches=microbatches)
+    h, summary = h.to(x.device), summary.to(x.device)
+    return h, summary if cfg.use_summary_token else None
 
 
 def vision_encoder(params, x: torch.Tensor, cfg: VisionConfig,
                    compute_dtype=torch.float32, attn_impl: str = "xla",
                    input_format: str = "frames", int8_impl: str = "kernel",
-                   remat="none"):
+                   remat="none", tp=None, pp=None):
     """Encode video -> (video_features (B, embed_dim), summary (B, D) | None).
 
     input_format: 'frames' = (B, T, H, W, 3) pixels; 'patches' =
@@ -445,7 +518,12 @@ def vision_encoder(params, x: torch.Tensor, cfg: VisionConfig,
     backward; True / 'full' keeps only each block's input and recomputes
     the block in the backward (lowest memory); 'save_attn',
     'save_attn_qkv', 'save_attn_mlp' and 'dots' keep part of each block
-    (see `_block_remat`)."""
+    (see `_block_remat`). tp: the 'model' process group where the tower
+    holds Megatron shards (`parallel.mesh.tower_groups`; its blocks sum
+    their products over it), else None. pp:
+    (stages, microbatches), the block stack run as a GPipe pipeline over
+    the devices `stages` (parallel/pipeline.py; forward and its autograd,
+    no remat)."""
     policy = _remat_policy(remat)
     D = cfg.feature_dim
     if input_format == "patches":
@@ -467,13 +545,19 @@ def vision_encoder(params, x: torch.Tensor, cfg: VisionConfig,
 
     g_prompts = params.get("global_prompts")
     summary = None
-    for i, p in enumerate(params["blocks"]):
-        g = None if g_prompts is None else g_prompts[i]
-        if policy is not None and torch.is_grad_enabled():
-            x, summary = _block_remat(policy, p, g, x, cfg, attn_impl,
-                                      int8_impl)
-        else:
-            x, summary = _block(p, g, x, cfg, attn_impl, int8_impl)
+    if pp is not None:
+        assert policy is None, \
+            "pipeline parallelism runs without remat (as in the JAX tower)"
+        x, summary = _pipelined_blocks(params, g_prompts, x, cfg, attn_impl,
+                                       int8_impl, tp, pp)
+    else:
+        for i, p in enumerate(params["blocks"]):
+            g = None if g_prompts is None else g_prompts[i]
+            if policy is not None and torch.is_grad_enabled():
+                x, summary = _block_remat(policy, p, g, x, cfg, attn_impl,
+                                          int8_impl, tp)
+            else:
+                x, summary = _block(p, g, x, cfg, attn_impl, int8_impl, tp)
 
     cls_x = layer_norm(x[:, 0], params["ln_post"]["scale"],
                        params["ln_post"]["bias"])

@@ -22,6 +22,8 @@ import torch
 from torch import nn
 
 from ..ops.linear import linear
+from ..parallel.mesh import (copy_to_group, gather_rows, parallel_mlp,
+                             tower_groups)
 from ..utils.device import resolve_device
 from .common import ParamTree, init_linear
 from .prompts import (PromptConfig, assemble_prompts, build_prompt_assets,
@@ -121,7 +123,7 @@ def _tree_to(tree, device):
 
 def _per_kv_text_features(cfg: VitaClipConfig, params, buffers,
                           compute_dtype, attn_impl: str = "xla",
-                          int8_impl: str = "kernel"):
+                          int8_impl: str = "kernel", tp=None):
     """Shared text-branch core (apply and text_features_only must never
     diverge: the kv-masked mean and the EOT-pooling quirk are
     parity-sensitive): assemble prompts, batch-encode, l2-normalize.
@@ -132,7 +134,7 @@ def _per_kv_text_features(cfg: VitaClipConfig, params, buffers,
                             prompt_embeds.reshape(n_cls * max_kv, L, W),
                             buffers["pool_idx"].reshape(n_cls * max_kv),
                             cfg.text, compute_dtype=compute_dtype,
-                            attn_impl=attn_impl, int8_impl=int8_impl)
+                            attn_impl=attn_impl, int8_impl=int8_impl, tp=tp)
     tf = _l2norm(tf.float()).reshape(n_cls, max_kv, -1)
     kv_mask = buffers["kv_mask"]
     kv_count = kv_mask.sum(-1, keepdim=True).clamp_min(1.0)
@@ -144,25 +146,38 @@ def apply(cfg: VitaClipConfig, params: Dict, buffers: Dict, x: torch.Tensor,
           video_nte: Optional[torch.Tensor] = None, desc_wise: bool = False,
           compute_dtype=torch.float32, attn_impl: str = "xla", remat="none",
           input_format: str = "frames",
-          int8_impl: str = "kernel") -> Dict[str, torch.Tensor]:
+          int8_impl: str = "kernel", mesh=None,
+          pp=None) -> Dict[str, torch.Tensor]:
     """Forward pass (JAX `VitaClip.apply`).
 
     x: video (B, T, H, W, 3), or (B, T, N, ph*pw*3) patch-major rows with
     input_format='patches'; memory: (Bm, S, E); video_nte: (B, 70, E).
     Returns a dict with logits (B, n_cls), text_features (n_cls, E), and
     optionally summary (B, D), logits_mt (Bm, n_cls), logits_vm (B, B),
-    desc_logits (B, n_cls, max_kv)."""
+    desc_logits (B, n_cls, max_kv).
+
+    mesh: a `parallel.mesh.Mesh`. Over 'data' each rank passes its rows,
+    and the NTE head, the one term that is not per sample, is built over
+    the global batch (its inputs gathered differentiably): logits_vm is
+    then the global (B, B) matrix on every rank. Over 'model' the params
+    are `shard_params_tensor_parallel`'s, and each part that holds shards
+    (`tower_groups`) sums its products over the group.
+    pp: (stages, microbatches), the vision block stack as a GPipe pipeline
+    (parallel/pipeline.py)."""
     out: Dict[str, torch.Tensor] = {}
+    tp = tower_groups(mesh, cfg)
+    data = mesh.group("data") if mesh is not None else None
     video_features, summary = vision_encoder(
         params["visual"], x, cfg.vision, compute_dtype=compute_dtype,
         attn_impl=attn_impl, input_format=input_format, int8_impl=int8_impl,
-        remat=remat)
+        remat=remat, tp=tp["visual"], pp=pp)
     video_features = _l2norm(video_features.float())
     logit_scale = torch.exp(params["logit_scale"].float())
 
     if cfg.use_text_prompt_learning:
         tf, kv_mask, kv_count = _per_kv_text_features(
-            cfg, params, buffers, compute_dtype, attn_impl, int8_impl)
+            cfg, params, buffers, compute_dtype, attn_impl, int8_impl,
+            tp["textual"])
         sim = logit_scale * torch.einsum("be,cke->bck", video_features, tf)
         if desc_wise:
             out["desc_logits"] = sim                    # (B, n_cls, max_kv)
@@ -183,6 +198,10 @@ def apply(cfg: VitaClipConfig, params: Dict, buffers: Dict, x: torch.Tensor,
     if cfg.add_nte and video_nte is not None:
         sum_proj = _l2norm(linear(params["sum_proj"], summary.float()))
         valid = (video_nte.sum(dim=(-1, -2)) != 0).float()
+        if data is not None:
+            sum_proj = gather_rows(sum_proj, data)
+            valid = gather_rows(valid, data)
+            video_nte = gather_rows(video_nte, data)
         valid_mat = (valid[:, None] * valid[None, :]).detach()
         # safe norm: all-zero NTE rows (a missing .npy) stay zero instead of
         # 0/0 = NaN; they are masked by valid_mat anyway
@@ -202,8 +221,14 @@ def apply(cfg: VitaClipConfig, params: Dict, buffers: Dict, x: torch.Tensor,
                        + mp["b1"][:, None])
         memo = torch.einsum("cmh,chk->cmk", h, mp["w2"]) + mp["b2"][:, None]
         memo = _l2norm(memo)                            # (n_cls, Bm, E/8)
-        tfp = linear(params["tf_project"]["fc2"],
-                     torch.tanh(linear(params["tf_project"]["fc1"], tfm)))
+        tfp_params = params["tf_project"]
+        group = tp["tf_project"]
+        if group is None:
+            tfp = linear(tfp_params["fc2"],
+                         torch.tanh(linear(tfp_params["fc1"], tfm)))
+        else:
+            tfp = parallel_mlp(tfp_params, copy_to_group(tfm, group),
+                               torch.tanh, group)
         tfp = _l2norm(tfp)                              # (n_cls, E/8)
         cols = torch.einsum("cmk,ck->mc", memo, tfp)
         logits_mt = torch.log_softmax(params["logit_scale_mt"] * cols, dim=-1)
@@ -354,16 +379,18 @@ class VitaClip(nn.Module):
 
     def forward(self, x: torch.Tensor, compute_dtype=torch.float32,
                 attn_impl: str = "xla", input_format: str = "frames",
-                int8_impl: str = "kernel") -> Dict[str, torch.Tensor]:
+                int8_impl: str = "kernel",
+                pp=None) -> Dict[str, torch.Tensor]:
         """x: (B, T, H, W, 3), or (B, T, N, ph*pw*3) with
         input_format='patches'. Returns logits (B, n_cls), text_features
         (n_cls, E) and, with the summary token, summary (B, D).
         int8_impl='plain' runs the w8a8 ops' plain versions on any device
-        (held against the kernels on a card)."""
+        (held against the kernels on a card). pp: (stages, microbatches),
+        the vision blocks as a GPipe pipeline (parallel/pipeline.py)."""
         video_features, summary = vision_encoder(
             self.visual, x, self.cfg.vision, compute_dtype=compute_dtype,
             attn_impl=attn_impl, input_format=input_format,
-            int8_impl=int8_impl)
+            int8_impl=int8_impl, pp=pp)
         video_features = _l2norm(video_features.float())
         text_features = _l2norm(self.text_features.float())
         logit_scale = torch.exp(self.logit_scale).float()

@@ -14,6 +14,11 @@ honours the two kernel switches `ops.extras_kernel.set_fused_extras` and
     clf = VideoClassifier.from_model(model, classnames)   # on the card
     probs = clf.classify_clips(clips_u8)        # (N, T, S, S, 3) uint8
     label, probs = clf.classify_video("walk.mp4")
+
+Data-parallel serving (`devices=[...]`, the JAX classifier's 'data' mesh):
+one copy of the weights on each device, each batch cut into equal shards,
+every shard's forward queued before any result is gathered on the first
+device.
 """
 
 from typing import Dict, Optional, Sequence, Tuple
@@ -54,7 +59,7 @@ class VideoClassifier:
                  mean=CLIP_MEAN, std=CLIP_STD, compute_dtype=None,
                  attn_impl: Optional[str] = None, quantize=False,
                  patch_major: bool = False, pad_buckets: bool = True,
-                 device=None):
+                 device=None, devices: Optional[Sequence] = None):
         """model supplies the config and the text features; params (the
         nested dict of `model.param_tree()`, possibly edited) the weights.
 
@@ -67,14 +72,27 @@ class VideoClassifier:
         with patch_major the embed stays a float GEMM) or 'w8a8' (int8
         weights and per-row int8 activations).
         device: None means the card (and raises without one); pass 'cpu'
-        to serve from the host."""
+        to serve from the host.
+        devices: serve data-parallel over these devices (in place of
+        `device`): the batch size must divide by their number, and
+        pad_buckets is off (a bucket would have to divide too), as in the
+        JAX classifier over a mesh."""
         if quantize is True:
             quantize = "w8"
         if quantize not in ("", None, False, "w8", "w8a8"):
             raise ValueError(f"quantize must be '', 'w8' or 'w8a8', got "
                              f"{quantize!r}")
         self.quantize = quantize or ""
-        self.device = resolve_device(device)
+        if devices is not None:
+            self.devices = [resolve_device(d) for d in devices]
+            if not self.devices or batch_size % len(self.devices) != 0:
+                raise ValueError(
+                    f"serving batch {batch_size} must be divisible by the "
+                    f"number of devices ({len(self.devices)})")
+            pad_buckets = False
+        else:
+            self.devices = [resolve_device(device)]
+        self.device = self.devices[0]
         self.classnames = list(classnames)
         self.batch_size = batch_size
         self.num_frames = model.cfg.vision.num_frames
@@ -98,30 +116,41 @@ class VideoClassifier:
         # copy its CUDA kernel reads. The text features keep their dtype
         # (as the JAX classifier keeps its buffers)
         if self.quantize:
-            params = with_kernel_layout(_to_device(
-                quantize_tower_params(
-                    params, act_quant=self.quantize == "w8a8"), self.device))
+            host = quantize_tower_params(params,
+                                         act_quant=self.quantize == "w8a8")
+            place = [with_kernel_layout(_to_device(host, d))
+                     for d in self.devices]
         else:
-            params = _to_bf16(params, self.device)
-        self.net = VitaClip(model.cfg, params,
-                            model.text_features.to(self.device))
+            place = [_to_bf16(params, d) for d in self.devices]
+        self.nets = [VitaClip(model.cfg, p, model.text_features.to(d))
+                     for p, d in zip(place, self.devices)]
+        self.net = self.nets[0]
 
     @classmethod
     def from_model(cls, model: VitaClip, classnames: Sequence[str], **kw):
         return cls(model, model.param_tree(), classnames, **kw)
 
+    def _forward_on(self, net, clips_u8: torch.Tensor) -> torch.Tensor:
+        if self.patch_major:
+            out = net(clips_u8.to(self.compute_dtype),
+                      compute_dtype=self.compute_dtype,
+                      attn_impl=self.attn_impl, input_format="patches")
+        else:
+            x = normalize_frames(clips_u8, self._mean, self._std)
+            out = net(x, compute_dtype=self.compute_dtype,
+                      attn_impl=self.attn_impl)
+        return torch.softmax(out["logits"], dim=-1)
+
     def _forward(self, clips_u8: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            if self.patch_major:
-                out = self.net(clips_u8.to(self.compute_dtype),
-                               compute_dtype=self.compute_dtype,
-                               attn_impl=self.attn_impl,
-                               input_format="patches")
-            else:
-                x = normalize_frames(clips_u8, self._mean, self._std)
-                out = self.net(x, compute_dtype=self.compute_dtype,
-                               attn_impl=self.attn_impl)
-            return torch.softmax(out["logits"], dim=-1)
+            # every shard's forward queued on its device first, then the
+            # gather on the first device (one device: one shard, the batch)
+            shards = clips_u8.chunk(len(self.nets))
+            probs = [self._forward_on(net, x.to(d, non_blocking=True))
+                     for net, x, d in zip(self.nets, shards, self.devices)]
+            if len(probs) == 1:
+                return probs[0]
+            return torch.cat([p.to(self.device) for p in probs])
 
     def _buckets(self):
         if not self.pad_buckets:

@@ -226,6 +226,8 @@ def serve(classifier, host: str = "0.0.0.0", port: int = 8000,
 def make_server(argv=None):
     """Parse the flags, build and warm up the classifier, and return the
     (not yet serving) HTTP server."""
+    import torch
+
     from .serve import VideoClassifier
     from .utils.device import resolve_device
     from .utils.flagship import build_zero_shot
@@ -249,9 +251,24 @@ def make_server(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (the default) fails at start-up without a "
                          "card; 'cpu' serves from the host")
+    ap.add_argument("--data_parallel", type=int, default=0,
+                    help="shard the serving batch over this many devices "
+                         "(cuda:0..N-1; one weight copy each; 0 = one "
+                         "device)")
     args = ap.parse_args(argv)
 
     resolve_device(args.device)         # fail before anything is built
+    devices = None
+    if args.data_parallel:
+        if torch.device(args.device).type == "cuda":
+            have = torch.cuda.device_count()
+            if args.data_parallel > have:
+                raise RuntimeError(f"--data_parallel {args.data_parallel} "
+                                   f"needs {args.data_parallel} cards, "
+                                   f"{have} visible")
+            devices = [f"cuda:{i}" for i in range(args.data_parallel)]
+        else:
+            devices = [args.device] * args.data_parallel
     _, labels = parse_classes_file(args.classes)
     tf = np.load(args.text_features) if args.text_features else None
     # built on the host; the classifier places the weights on the device
@@ -261,7 +278,7 @@ def make_server(argv=None):
     clf = VideoClassifier.from_model(
         model, classnames=labels, batch_size=args.batch_size,
         patch_major=args.patch_major, quantize=args.quantize,
-        device=args.device).warmup()
+        device=args.device, devices=devices).warmup()
     httpd = serve(clf, args.host, args.port, args.max_wait_ms)
     print(f"serving on {args.host}:{httpd.server_address[1]} "
           f"(batch={args.batch_size}, {args.quantize or 'bf16'}, "

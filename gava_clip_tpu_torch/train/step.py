@@ -15,6 +15,16 @@ through the w8a8 kernels, dx alone in the backward. The JAX step
 requantizes the frozen tree inside every step; the loss here quantizes it
 once and again only when a frozen leaf is replaced or written in place
 (the same bits: the frozen leaves do not change).
+
+Under a data axis (`mesh`, parallel/mesh.py; one process per card under
+torch.distributed.run) each rank passes its rows of the global batch, and
+the step computes what the JAX step computes over the whole global batch:
+the NTE head over the gathered batch (models/vita_clip.apply), the
+per-sample terms as means of equal-sized local means, the gradients
+averaged over 'data' in one bucket before AdamW (`all_reduce_grads`, the
+all-reduce XLA inserts), the metrics reduced likewise. With `batch_split`
+each rank's rows must be those of `parallel.mesh.local_rows`, so that the
+gathered micro-batch i is the JAX step's micro-batch i.
 """
 
 from dataclasses import dataclass
@@ -26,6 +36,7 @@ import torch.nn.functional as F
 from ..data.device_preprocess import normalize_frames
 from ..ops.int8_matmul import with_kernel_layout
 from ..ops.quant import quantize_frozen_for_train
+from ..parallel.mesh import all_reduce_grads, reduce_metrics
 from .losses import cross_entropy, focal_ordinal_weight, sigmoid_focal_loss
 from .state import TrainState, combine_params, tree_leaves
 
@@ -107,12 +118,13 @@ class _QuantizedFrozen:
 def make_loss_fn(model, loss_cfg: LossConfig, compute_dtype=torch.float32,
                  attn_impl: str = "xla", remat="none",
                  frozen_int8: bool = False,
-                 int8_impl: str = "kernel") -> Callable:
+                 int8_impl: str = "kernel", mesh=None) -> Callable:
     """(trainable, frozen, batch) -> (loss, metrics): the differentiable
     core of make_train_step, exposed for tests and custom loops. With
     frozen_int8 the frozen tree is quantized at the first call and again
     only after one of its leaves changed (see the module docstring);
-    int8_impl 'plain' runs the int8 ops' plain versions on any device."""
+    int8_impl 'plain' runs the int8 ops' plain versions on any device.
+    mesh: see `make_train_step` (the loss and metrics are this rank's)."""
     frozen_of = _QuantizedFrozen() if frozen_int8 else (lambda f: f)
 
     def loss_fn(trainable, frozen, batch):
@@ -122,7 +134,7 @@ def make_loss_fn(model, loss_cfg: LossConfig, compute_dtype=torch.float32,
                               video_nte=batch.get("nte"),
                               compute_dtype=compute_dtype,
                               attn_impl=attn_impl, remat=remat,
-                              int8_impl=int8_impl)
+                              int8_impl=int8_impl, mesh=mesh)
         return compute_losses(outputs, batch["labels"],
                               batch.get("mt_labels"), loss_cfg)
 
@@ -132,7 +144,7 @@ def make_loss_fn(model, loss_cfg: LossConfig, compute_dtype=torch.float32,
 def make_train_step(model, loss_cfg: LossConfig, optimizer=None,
                     batch_split: int = 1, compute_dtype=torch.float32,
                     attn_impl: str = "xla", remat="none",
-                    frozen_int8: bool = False) -> Callable:
+                    frozen_int8: bool = False, mesh=None) -> Callable:
     """Build the train step: (state, batch) -> (state, metrics).
 
     The optimizer lives in the state (`create_train_state`); the argument
@@ -142,13 +154,17 @@ def make_train_step(model, loss_cfg: LossConfig, optimizer=None,
     (see models/vision.py `_block_remat`). frozen_int8: the frozen
     projections as int8 ('qt') leaves, quantized once (see the module
     docstring); the trainable leaves never pass through the quantizer.
+    mesh: a `parallel.mesh.Mesh`; `batch` then holds this rank's rows (see
+    the module docstring), the gradients and metrics are reduced over
+    'data', and tensor-parallel shards run over 'model'.
 
     batch = {'video': (B,T,H,W,3), 'labels': (B,), 'nte': (B,70,E)?,
              'memory': (Bm,S,E)?, 'mt_labels': (Bm,)?}
     """
     loss_fn = make_loss_fn(model, loss_cfg, compute_dtype=compute_dtype,
                            attn_impl=attn_impl, remat=remat,
-                           frozen_int8=frozen_int8)
+                           frozen_int8=frozen_int8, mesh=mesh)
+    n_data = 1 if mesh is None else mesh.axis_size("data")
 
     def split(x):
         return x.reshape(batch_split, x.shape[0] // batch_split,
@@ -176,10 +192,14 @@ def make_train_step(model, loss_cfg: LossConfig, optimizer=None,
         for p in tree_leaves(state.trainable):
             if p is not None and p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if mesh is not None:
+            all_reduce_grads(state.trainable, mesh)
+            metrics = reduce_metrics(metrics, mesh)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
-        metrics["acc1"] = metrics["hit1"] / batch["labels"].shape[0]
+        metrics["acc1"] = metrics["hit1"] / (batch["labels"].shape[0]
+                                             * n_data)
         return state, metrics
 
     return step
@@ -187,7 +207,7 @@ def make_train_step(model, loss_cfg: LossConfig, optimizer=None,
 
 def make_eval_step(model, num_classes: int, compute_dtype=torch.float32,
                    attn_impl: str = "xla", mean=None, std=None,
-                   num_views: int = 1) -> Callable:
+                   num_views: int = 1, mesh=None) -> Callable:
     """Eval step: (params, video, labels[, valid]) -> (hit1, conf_mat (C,C)).
 
     The confusion matrix (rows = true class, cols = prediction) is built
@@ -195,7 +215,9 @@ def make_eval_step(model, num_classes: int, compute_dtype=torch.float32,
     normalized in the step. num_views > 1: `video` is (B*V, ...)
     view-flattened and the per-view probabilities are averaged before the
     argmax. valid: optional (B,) bool mask excluding batch padding rows
-    from both hit1 and the confusion matrix."""
+    from both hit1 and the confusion matrix. mesh: tensor-parallel shards
+    run over its 'model' axis; the step itself reduces nothing over 'data'
+    (the evaluation loop sums its ranks' counts once, at its end)."""
 
     @torch.no_grad()
     def step(params, video, labels, valid=None):
@@ -204,7 +226,7 @@ def make_eval_step(model, num_classes: int, compute_dtype=torch.float32,
                                      compute_dtype=torch.float32)
         outputs = model.apply(params, model.buffers, video,
                               compute_dtype=compute_dtype,
-                              attn_impl=attn_impl)
+                              attn_impl=attn_impl, mesh=mesh)
         probs = torch.softmax(outputs["logits"], dim=-1)
         if num_views > 1:
             probs = probs.reshape(labels.shape[0], num_views, -1).mean(dim=1)

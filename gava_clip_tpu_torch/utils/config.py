@@ -188,6 +188,18 @@ def build_train_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def add_dist_args(parser: argparse.ArgumentParser):
+    """The port's flag for runs under torch.distributed.run (not in the
+    JAX parser, which has no counterpart)."""
+    parser.add_argument('--dist_backend', type=str, default=None,
+                        choices=['nccl', 'gloo'],
+                        help='process-group backend under '
+                             'torch.distributed.run: NCCL on the card and '
+                             'gloo on the host by default; gloo on the card '
+                             'lets several ranks share one card')
+    return parser
+
+
 def save_config(args: argparse.Namespace, path: str):
     """Dump the namespace to config.yaml."""
     import yaml
