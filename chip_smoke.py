@@ -228,7 +228,18 @@ The training and evaluation programs:
           launches) against the default forward, bit for bit; server
           --data_parallel 1 answering requests with the plain classifier's
           probabilities, and the classifier over two devices (cuda:0 twice)
-          against one device's.
+          against one device's;
+  frame   frame sharding: two gloo ranks on cuda:0, each passing 4 of every
+          clip's 8 frames (mesh (1, 2) over 'data' and 'frame'): the
+          fp32 training step of 16 clips at full width with 2 vision and
+          2 text layers, NTE and the memory on, against the same step in
+          one process within F32_STEP_MAX_*; the zero-shot ViT-B/16
+          forward at batch 16 (12 layers, 400 classes), bf16 and then
+          w8a8 + patch-major with the fused prompt extras, against one
+          process's logits within FRAME_SERVE_MAX_LOGIT_ULPS bf16 ulps of
+          the largest logit (and a wrong temporal embedding outside
+          them), with each rank's kernel launches (FRAME_SERVE_LAUNCHES)
+          and host-clock times against one process.
 The two-source attention + int8 out-projection (attention_out_int8_2src)
 is held in w8a8-kernel against its plain version and, bit for bit, against
 the single-source kernel on the concatenated keys, and launched once
@@ -7177,6 +7188,119 @@ def phase_parallel(state):
     _dp_server(state)
 
 
+# ---------------------------------------------------------------------------
+# frame sharding: two gloo ranks on cuda:0, each with half of every clip's
+# frames
+# ---------------------------------------------------------------------------
+
+# the training step: the two-rank model of the parallel phase (full width,
+# PARALLEL_LAYERS + PARALLEL_LAYERS layers), 16 clips of 8 frames, 4 a rank;
+# each rank's launches in its first step: the fp32 attention kernels once a
+# block (F32_PER_STEP's, PARALLEL_LAYERS blocks a tower), no other kernel
+FRAME_BATCH = 16
+FRAME_STEP_LAUNCHES = {k: PARALLEL_LAYERS for k, n in F32_PER_STEP.items()
+                       if n}
+# the zero-shot forward of 16 clips of 8 frames (parallel/selfcheck.py
+# fp_serve), in bf16 ulps of its largest |logit|: the row-local kernels see
+# each frame row as in one process, and the cross-frame extras run on the
+# same gathered rows, so only the temporal mean's fp32 summation order may
+# differ, and with it at most the rounding of a feature or a logit to
+# bf16. The same forwards with rank 1's frames given the temporal
+# embedding of frames 0..3 (the mutant fp_serve:local_time_embed) must
+# leave it.
+FRAME_SERVE_MAX_LOGIT_ULPS = 2
+# each rank's launches in one frame-sharded forward: one a block, and the
+# patch embed's B2 once
+FRAME_SERVE_LAUNCHES = {
+    "bf16": {"packed_attention": 12},
+    "w8a8": {"w8a8_matmul": 1, "w8a8_matmul3_cat": 12,
+             "attention_out_int8": 12, "w8a8_mlp_res": 12,
+             "fused_extras": 12}}
+
+
+def phase_frame(state):
+    """The frame-sharded training step and zero-shot forward of two ranks
+    against one process (parallel/selfcheck.py fp, fp_serve)."""
+    import shutil
+    import tempfile
+    import torch
+    root = tempfile.mkdtemp(prefix="gava_frame_")
+    try:
+        _two_rank_model(os.path.join(root, "model.pt"))
+        rs = np.random.RandomState(2)
+        B, Bm = FRAME_BATCH, PARALLEL_MEMORY
+        np.savez(os.path.join(root, "batch.npz"),
+                 video=rs.rand(B, 8, 224, 224, 3).astype(np.float32),
+                 labels=rs.randint(0, 3, size=B),
+                 nte=rs.randn(B, 70, 512).astype(np.float32),
+                 memory=rs.randn(Bm, 4, 512).astype(np.float32),
+                 mt_labels=rs.randint(0, 3, size=Bm))
+        loss = dict(num_classes=3, focal_ordinal=True, fo_beta=0.2,
+                    use_support_memory=True, add_nte=True)
+        out, secs = _two_ranks(
+            ["-m", "gava_clip_tpu_torch.parallel.selfcheck",
+             "--model", os.path.join(root, "model.pt"),
+             "--batch", os.path.join(root, "batch.npz"),
+             "--out", os.path.join(root, "results.pt"), "--backend", "gloo",
+             "--scenarios", "fp,fp_serve,fp_serve:local_time_embed",
+             "--steps", "2", "--reference",
+             "--loss", json.dumps(loss)], cwd=ROOT)
+        results = torch.load(os.path.join(root, "results.pt"),
+                             weights_only=False)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    bad = []
+    res = results["fp"]
+    c = res["check"]
+    log(f"[frame] two ranks on cuda:0 (gloo), 4 of the 8 frames of each of "
+        f"{B} clips a rank: the first fp32 step (ViT-B/16 and the text tower "
+        f"at full width, {PARALLEL_LAYERS} + {PARALLEL_LAYERS} layers, NTE + "
+        f"memory): total {c['loss']:.7f} vs one process {c['loss_ref']:.7f} "
+        f"(diff {c['loss_diff']:.2e}, limit {F32_STEP_MAX_LOSS_DIFF:g}); "
+        f"gradient leaves {c['leaves']}, max relative L2 error "
+        f"{c['max_grad_rel_err']:.3e}, median {c['median_grad_rel_err']:.3e} "
+        f"(limit {F32_STEP_MAX_GRAD_REL_ERR:g}); the two ranks' leaves after "
+        f"2 steps differ by {res['rank_spread']!r}; ms a step on the host's "
+        f"clock, two ranks sharing the card {res['ms']}, one process alone "
+        f"{c['ms_reference']} (the first step of each includes its warm-up; "
+        f"{state['smi']}); rank 0's launches in its first step "
+        f"{res['launches']} (expect {FRAME_STEP_LAUNCHES})")
+    if not c["loss_diff"] <= F32_STEP_MAX_LOSS_DIFF or \
+            not c["max_grad_rel_err"] <= F32_STEP_MAX_GRAD_REL_ERR or \
+            res["rank_spread"] != 0.0 or \
+            res["launches"] != FRAME_STEP_LAUNCHES:
+        bad.append("the training step")
+    for mode, want in FRAME_SERVE_LAUNCHES.items():
+        r = results["fp_serve"][mode]
+        mutant = results["fp_serve:local_time_embed"][mode]["max_abs_diff"]
+        limit = FRAME_SERVE_MAX_LOGIT_ULPS * r["logit_ulp"]
+        per_rank = [{k: counts.get(k, 0) for k in want}
+                    for counts in r["launches"]]
+        log(f"[frame] the zero-shot forward ({mode}"
+            f"{' + patch-major, fused extras' if mode == 'w8a8' else ''}) "
+            f"of 16 clips of 8 frames, ViT-B/16 12 layers, 400 classes, 4 "
+            f"frames a rank: max |logit diff| against one process "
+            f"{r['max_abs_diff']!r} (limit {FRAME_SERVE_MAX_LOGIT_ULPS} bf16 "
+            f"ulps of the largest |logit|, {limit!r}; with rank 1's frames "
+            f"embedded as frames 0..3 {mutant!r}, which must exceed it), "
+            f"ranks differ by {r['rank_spread']!r}; launches per rank "
+            f"{per_rank} (expect {want}; all nonzero counts "
+            f"{r['launches']}); ms a forward on the host's clock, two ranks "
+            f"{[round(x, 2) for x in r['ms']]}, one process alone "
+            f"{[round(x, 2) for x in r['ms_one_process']]} ({state['smi']})")
+        if not r["finite"] or r["shape"] != (16, 400) or \
+                r["max_abs_diff"] > limit or not mutant > limit or \
+                r["rank_spread"] != 0.0 or \
+                any(counts != want for counts in per_rank) or \
+                any(set(counts) - set(want) for counts in r["launches"]):
+            bad.append(f"the {mode} forward")
+    log(f"[frame] the selfcheck launch took {secs:.1f} s on the host's clock "
+        f"({state['smi']})")
+    if bad:
+        raise AssertionError(f"frame sharding: {bad} disagree with one "
+                             f"process")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", default="",
@@ -7218,7 +7342,8 @@ def main(argv=None) -> int:
             ("gait-text", phase_gait_text),
             ("train-long", phase_train_long),
             ("driver-long", phase_cli_long),
-            ("parallel", phase_parallel)):
+            ("parallel", phase_parallel),
+            ("frame", phase_frame)):
         t0 = time.perf_counter()
         phase(state)
         log(f"[{name}] done in {time.perf_counter() - t0:.1f} s "

@@ -39,6 +39,17 @@ Frozen-int8 training (`--int8_frozen`: the frozen projection kernels as
 out-projection through `linear` (B2) and LN2 + MLP + residual as one more
 (`int8_mlp_st`, B5); the attention is the float block's. Each saves its
 input rows alone and computes dx alone in the backward.
+
+Frame sharding (`vision_encoder(fp=group)`, the 'frame' axis of
+parallel/mesh.py) splits every clip's frames over the ranks of a group:
+a rank's rows are its frames [r*T/W, (r+1)*T/W) of each clip. Everything
+of a frame row is local except what GSPMD gathers for the JAX tower: the
+temporal embedding takes the rows of the global frame indices; each block
+gathers the cls rows of every frame (`gather_frames`, one all-gather) for
+the summary attention and the local prompts, which run on the whole
+pseudo-videos, and keeps only its own frames' rows of them; the temporal
+means of the frame features and of the summary are one all-reduce each
+(`frame_mean`).
 """
 
 from dataclasses import dataclass
@@ -56,8 +67,10 @@ from ..ops.flash_attention import flash_attention_out_int8
 from ..ops.int8_matmul import int8_qkv3_st, w8a8_matmul, w8a8_matmul3_cat
 from ..ops.linear import linear, mlp_block, quant_kind
 from ..ops.norm import layer_norm
-from ..parallel.mesh import (copy_to_group, local_heads, parallel_attention,
-                             parallel_mlp, row_parallel_linear)
+from ..parallel.mesh import (copy_to_group, frame_mean, frame_shard,
+                             gather_frames, local_frames, local_heads,
+                             parallel_attention, parallel_mlp,
+                             row_parallel_linear)
 from .common import (init_attention, init_layer_norm, init_linear, normal,
                      prompt_init_limit, uniform)
 
@@ -199,21 +212,51 @@ def resize_time_embed(time_embed: torch.Tensor, T: int) -> torch.Tensor:
     return time_embed[idx]
 
 
+def time_embed_rows(time_embed: torch.Tensor, T: int, fs=None) -> torch.Tensor:
+    """The temporal embedding of the T frames a rank holds of each clip:
+    the table resized to the clip's global frame count, then (under frame
+    sharding, `fs` a `parallel.mesh.FrameShard`) cut to the rank's global
+    frame indices."""
+    if fs is None:
+        return resize_time_embed(time_embed, T)
+    return local_frames(resize_time_embed(time_embed, fs.total)[None],
+                        fs.index, fs.count)[0]
+
+
+def _cls_rows(x: torch.Tensor, Tb: int, fs=None) -> torch.Tensor:
+    """The cls rows of whole pseudo-videos of Tb frames, (Bb, Tb, D): under
+    frame sharding gathered from every rank of the 'frame' group."""
+    D = x.shape[-1]
+    cls = x[:, 0]
+    if fs is not None:
+        cls = gather_frames(cls.reshape(-1, fs.frames, D), fs.group)
+    return cls.reshape(-1, Tb, D)
+
+
+def _own_rows(t: torch.Tensor, fs=None) -> torch.Tensor:
+    """Rows (B*T, ...) of whole clips -> the rows of x's frames: the rank's
+    own under frame sharding, else all of them."""
+    return t if fs is None else fs.own_rows(t)
+
+
 def prompt_extras(p, g_prompt: Optional[torch.Tensor], x: torch.Tensor,
-                  cfg: VisionConfig, tp=None):
+                  cfg: VisionConfig, tp=None, fs=None):
     """The prompt rows of one block from stock ops, in x's dtype: ([global
     (BT, G, D)], [summary (BT, 1, D)], [local (BT, Tb, D)]) for the prompt
-    kinds that are on, and the summary tokens (Bb, Tb, D) or None. tp: the
+    kinds that are on, and the summary tokens (BT, D) or None. tp: the
     'model' process group where the tower (the summary attention with it)
-    holds shards."""
+    holds shards. fs: a `parallel.mesh.FrameShard` where x holds a rank's
+    frames; the cross-frame terms then run on the gathered cls rows of
+    whole pseudo-videos, and the extras and the summary tokens returned
+    are the rows of the rank's own frames."""
     BT, _, D = x.shape
     G = cfg.num_global_prompts
     Tb = cfg.num_frames
-    Bb = BT // Tb
     summary = None
     extras = []
     if cfg.use_summary_token or cfg.use_local_prompts:
-        cls_proj = linear(p["cls_proj"], x[:, 0].reshape(Bb, Tb, D))
+        cls_proj = linear(p["cls_proj"], _cls_rows(x, Tb, fs))
+        Bb = cls_proj.shape[0]
     if cfg.use_global_prompts:
         extras.append(g_prompt[None].to(x.dtype).expand(BT, G, D))
     if cfg.use_summary_token:
@@ -226,28 +269,31 @@ def prompt_extras(p, g_prompt: Optional[torch.Tensor], x: torch.Tensor,
         else:
             s_in = copy_to_group(s_norm, tp)
             attn = parallel_attention(a, s_in, cfg.heads, tp)
-        summary = cls_proj + attn
-        extras.append(summary.reshape(BT, 1, D))
+        summary = _own_rows((cls_proj + attn).reshape(Bb * Tb, D), fs)
+        extras.append(summary[:, None])
     if cfg.use_local_prompts:
         lp = p["local_prompts"].to(x.dtype) + cls_proj          # (Bb, Tb, D)
         # every frame row of a pseudo-video attends over the same Tb prompts
-        extras.append(lp[:, None].expand(Bb, Tb, Tb, D).reshape(BT, Tb, D))
+        extras.append(_own_rows(lp[:, None].expand(Bb, Tb, Tb, D)
+                                .reshape(Bb * Tb, Tb, D), fs))
     return extras, summary
 
 
 def _block(p, g_prompt: Optional[torch.Tensor], x: torch.Tensor,
            cfg: VisionConfig, attn_impl: str, int8_impl: str = "kernel",
-           tp=None):
+           tp=None, fs=None):
     """One prompt-aware transformer block over per-frame token rows.
 
-    x: (B*T, 1+N, D) = [cls, patches]. Returns (x, summary | None). The
-    global prompts, the summary token and the local prompts are appended
-    as attention keys only. Like the reference, the summary/local grouping
-    uses the TRAIN-time frame count cfg.num_frames. tp: the 'model' process
-    group where the tower holds Megatron shards (`parallel.mesh.
-    tower_groups`): the block runs its heads of the attention and its
-    share of the MLP and sums the out-projection and fc2 over the
-    group."""
+    x: (B*T, 1+N, D) = [cls, patches]. Returns (x, summary (B*T, D) |
+    None). The global prompts, the summary token and the local prompts are
+    appended as attention keys only. Like the reference, the summary/local
+    grouping uses the TRAIN-time frame count cfg.num_frames. tp: the
+    'model' process group where the tower holds Megatron shards
+    (`parallel.mesh.tower_groups`): the block runs its heads of the
+    attention and its share of the MLP and sums the out-projection and fc2
+    over the group. fs: the rank's `parallel.mesh.FrameShard` under frame sharding
+    (see `prompt_extras`; the fused extras run on the gathered cls rows
+    too, and the rank keeps its rows of both outputs)."""
     BT, Lx, D = x.shape
     G = cfg.num_global_prompts
     Tb = cfg.num_frames
@@ -264,11 +310,12 @@ def _block(p, g_prompt: Optional[torch.Tensor], x: torch.Tensor,
 
     if use_fused_extras:
         fused_e, summary = extras_kernel.fused_extras(
-            x[:, 0], p, g_prompt, Tb=Tb, num_heads=cfg.heads,
-            le_pad=G + 1 + Tb, impl=int8_impl)
-        extras = [fused_e]
+            _cls_rows(x, Tb, fs).reshape(-1, D), p, g_prompt, Tb=Tb,
+            num_heads=cfg.heads, le_pad=G + 1 + Tb, impl=int8_impl)
+        extras = [_own_rows(fused_e, fs)]
+        summary = _own_rows(summary.reshape(-1, D), fs)
     else:
-        extras, summary = prompt_extras(p, g_prompt, x, cfg, tp)
+        extras, summary = prompt_extras(p, g_prompt, x, cfg, tp, fs)
     if w8a8:
         # LN1 + one shared quant + the three int8 projections over the
         # per-clip rows [x; extras], the concatenation never materialised
@@ -340,11 +387,11 @@ def _project_qkv(p, x, extras, int8_impl: str, tp=None):
 
 
 def _pre_attention(p, g_prompt, x, cfg: VisionConfig, int8_impl: str,
-                   tp=None):
+                   tp=None, fs=None):
     """Everything of a block in front of the attention call: prompt extras,
     LN1 over [x; extras], the three projections. Returns q (the first Lx
     rows only), k, v and the summary tokens."""
-    extras, summary = prompt_extras(p, g_prompt, x, cfg, tp)
+    extras, summary = prompt_extras(p, g_prompt, x, cfg, tp, fs)
     return (*_project_qkv(p, x, extras, int8_impl, tp), summary)
 
 
@@ -398,7 +445,7 @@ def _save_gemm_outputs(ctx, op, *args, **kwargs):
 
 
 def _block_remat(policy: str, p, g_prompt, x, cfg: VisionConfig,
-                 attn_impl: str, int8_impl: str, tp=None):
+                 attn_impl: str, int8_impl: str, tp=None, fs=None):
     """`_block` with part of its activations dropped after the forward and
     rebuilt in the backward (the JAX package's `jax.checkpoint` policies).
     A custom autograd.Function is opaque to torch's op-level selective
@@ -433,7 +480,11 @@ def _block_remat(policy: str, p, g_prompt, x, cfg: VisionConfig,
                      those of the prompt extras (and, on the CPU, the plain
                      versions' integer products).
 
-    Float and 'qt' leaves only: 'qa' / 'q' leaves are inference-only."""
+    Float and 'qt' leaves only: 'qa' / 'q' leaves are inference-only.
+
+    Under frame sharding (fs) a recomputed segment in front of the
+    attention gathers the cls rows again: every rank recomputes its blocks
+    in the same order, so the ranks meet at each gather."""
     kind = quant_kind(p["attn"]["q"]["kernel"])
     if kind not in (None, "qt"):
         raise NotImplementedError(
@@ -445,10 +496,10 @@ def _block_remat(policy: str, p, g_prompt, x, cfg: VisionConfig,
     heads = local_heads(cfg.heads, tp)
     if policy == "full":
         return checkpoint(_block, p, g_prompt, x, cfg, attn_impl, int8_impl,
-                          tp, **ck)
+                          tp, fs, **ck)
     if policy == "dots":
         return checkpoint(
-            _block, p, g_prompt, x, cfg, attn_impl, int8_impl, tp,
+            _block, p, g_prompt, x, cfg, attn_impl, int8_impl, tp, fs,
             context_fn=lambda: create_selective_checkpoint_contexts(
                 _save_gemm_outputs), **ck)
     if policy == "save_attn":
@@ -456,14 +507,14 @@ def _block_remat(policy: str, p, g_prompt, x, cfg: VisionConfig,
 
         def attend(x_):
             q, k, v, summary = _pre_attention(p, g_prompt, x_, cfg, int8_impl,
-                                              tp)
+                                              tp, fs)
             return attention_core(q, k, v, heads, impl=attn_impl,
                                   keep=keep), summary
 
         attn, summary = checkpoint(attend, x, **ck)
     else:
         q, k, v, summary = checkpoint(_pre_attention, p, g_prompt, x, cfg,
-                                      int8_impl, tp, **ck)
+                                      int8_impl, tp, fs, **ck)
         attn = attention_core(q, k, v, heads, impl=attn_impl)
     if policy == "save_attn_mlp":
         x, h = checkpoint(_mlp_hidden, p, x, attn, int8_impl, tp, **ck)
@@ -481,7 +532,7 @@ def _pipelined_blocks(params, g_prompts, x, cfg: VisionConfig, attn_impl,
     clips. Returns (x, summary | None) on x's device."""
     from ..parallel.pipeline import pipeline_scan, stage_params
     stages, microbatches = pp
-    D, Tb = cfg.feature_dim, cfg.num_frames
+    D = cfg.feature_dim
     # a serving module's ParamTree blocks as dicts: staging must not move
     # the module's own weights
     layers = [(p.to_dict() if hasattr(p, "to_dict") else p,
@@ -495,10 +546,10 @@ def _pipelined_blocks(params, g_prompts, x, cfg: VisionConfig, attn_impl,
         h, summary = _block(p, g, h, cfg, attn_impl, int8_impl, tp)
         if summary is None:
             # sized from the micro-batch's own rows
-            summary = h.new_zeros((h.shape[0] // Tb, Tb, D))
+            summary = h.new_zeros((h.shape[0], D))
         return h, summary
 
-    init = (x, x.new_zeros((x.shape[0] // Tb, Tb, D)))
+    init = (x, x.new_zeros((x.shape[0], D)))
     h, summary = pipeline_scan(block_fn, staged, init, stages,
                                microbatches=microbatches)
     h, summary = h.to(x.device), summary.to(x.device)
@@ -508,7 +559,7 @@ def _pipelined_blocks(params, g_prompts, x, cfg: VisionConfig, attn_impl,
 def vision_encoder(params, x: torch.Tensor, cfg: VisionConfig,
                    compute_dtype=torch.float32, attn_impl: str = "xla",
                    input_format: str = "frames", int8_impl: str = "kernel",
-                   remat="none", tp=None, pp=None):
+                   remat="none", tp=None, pp=None, fp=None):
     """Encode video -> (video_features (B, embed_dim), summary (B, D) | None).
 
     input_format: 'frames' = (B, T, H, W, 3) pixels; 'patches' =
@@ -523,7 +574,14 @@ def vision_encoder(params, x: torch.Tensor, cfg: VisionConfig,
     their products over it), else None. pp:
     (stages, microbatches), the block stack run as a GPipe pipeline over
     the devices `stages` (parallel/pipeline.py; forward and its autograd,
-    no remat)."""
+    no remat). fp: the 'frame' process group under frame sharding
+    (`parallel.mesh.frame_group`): x holds this rank's frames [r*T/W,
+    (r+1)*T/W) of every clip, and the features and summary returned are
+    the whole clips', the same on every rank of the group (see the module
+    docstring); it does not compose with tp or pp."""
+    if fp is not None and (tp is not None or pp is not None):
+        raise NotImplementedError("frame sharding (fp) with tensor (tp) or "
+                                  "pipeline (pp) parallelism: not supported")
     policy = _remat_policy(remat)
     D = cfg.feature_dim
     if input_format == "patches":
@@ -538,8 +596,11 @@ def vision_encoder(params, x: torch.Tensor, cfg: VisionConfig,
     cls = params["cls_token"].to(x.dtype).expand(B * T, 1, D)
     x = torch.cat([cls, x], dim=1)
     x = x + params["pos_embed"].to(x.dtype)
-    # row b*T + t gets the embedding of frame t
-    te = resize_time_embed(params["time_embed"], T).to(x.dtype)
+    fs = frame_shard(fp, T)
+    T_clip = T if fs is None else fs.total
+    # row b*T + t gets the embedding of the clip's frame t (of its global
+    # frame index under frame sharding)
+    te = time_embed_rows(params["time_embed"], T, fs).to(x.dtype)
     x = x + te.repeat(B, 1)[:, None, :]
     x = layer_norm(x, params["ln_pre"]["scale"], params["ln_pre"]["bias"])
 
@@ -555,14 +616,18 @@ def vision_encoder(params, x: torch.Tensor, cfg: VisionConfig,
             g = None if g_prompts is None else g_prompts[i]
             if policy is not None and torch.is_grad_enabled():
                 x, summary = _block_remat(policy, p, g, x, cfg, attn_impl,
-                                          int8_impl, tp)
+                                          int8_impl, tp, fs)
             else:
-                x, summary = _block(p, g, x, cfg, attn_impl, int8_impl, tp)
+                x, summary = _block(p, g, x, cfg, attn_impl, int8_impl, tp,
+                                    fs)
 
     cls_x = layer_norm(x[:, 0], params["ln_post"]["scale"],
                        params["ln_post"]["bias"])
     cls_x = cls_x @ params["proj"].to(cls_x.dtype)
-    video_features = cls_x.reshape(B, T, cfg.embed_dim).mean(dim=1)
+    video_features = frame_mean(cls_x.reshape(B, T, cfg.embed_dim), fp,
+                                T_clip)
     if cfg.use_summary_token:
-        return video_features, summary.mean(dim=1)
+        # the summary tokens of the rank's frames, meaned per pseudo-video
+        return video_features, frame_mean(summary.reshape(B, -1, D), fp,
+                                          T_clip, cfg.num_frames)
     return video_features, None

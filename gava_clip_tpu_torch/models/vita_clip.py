@@ -22,8 +22,8 @@ import torch
 from torch import nn
 
 from ..ops.linear import linear
-from ..parallel.mesh import (copy_to_group, gather_rows, parallel_mlp,
-                             tower_groups)
+from ..parallel.mesh import (copy_to_group, frame_group, gather_rows,
+                             parallel_mlp, tower_groups)
 from ..utils.device import resolve_device
 from .common import ParamTree, init_linear
 from .prompts import (PromptConfig, assemble_prompts, build_prompt_assets,
@@ -161,16 +161,21 @@ def apply(cfg: VitaClipConfig, params: Dict, buffers: Dict, x: torch.Tensor,
     the global batch (its inputs gathered differentiably): logits_vm is
     then the global (B, B) matrix on every rank. Over 'model' the params
     are `shard_params_tensor_parallel`'s, and each part that holds shards
-    (`tower_groups`) sums its products over the group.
+    (`tower_groups`) sums its products over the group. Over 'frame' each
+    rank passes its frames [r*T/W, (r+1)*T/W) of every clip
+    (`parallel.mesh.shard_batch`); the vision tower gathers what crosses
+    frames, and the text tower, the heads and the NTE /
+    memory terms run on every frame rank, which all get the same outputs.
     pp: (stages, microbatches), the vision block stack as a GPipe pipeline
     (parallel/pipeline.py)."""
     out: Dict[str, torch.Tensor] = {}
+    fp = frame_group(mesh, pp)
     tp = tower_groups(mesh, cfg)
     data = mesh.group("data") if mesh is not None else None
     video_features, summary = vision_encoder(
         params["visual"], x, cfg.vision, compute_dtype=compute_dtype,
         attn_impl=attn_impl, input_format=input_format, int8_impl=int8_impl,
-        remat=remat, tp=tp["visual"], pp=pp)
+        remat=remat, tp=tp["visual"], pp=pp, fp=fp)
     video_features = _l2norm(video_features.float())
     logit_scale = torch.exp(params["logit_scale"].float())
 
@@ -379,18 +384,20 @@ class VitaClip(nn.Module):
 
     def forward(self, x: torch.Tensor, compute_dtype=torch.float32,
                 attn_impl: str = "xla", input_format: str = "frames",
-                int8_impl: str = "kernel",
-                pp=None) -> Dict[str, torch.Tensor]:
+                int8_impl: str = "kernel", pp=None,
+                mesh=None) -> Dict[str, torch.Tensor]:
         """x: (B, T, H, W, 3), or (B, T, N, ph*pw*3) with
         input_format='patches'. Returns logits (B, n_cls), text_features
         (n_cls, E) and, with the summary token, summary (B, D).
         int8_impl='plain' runs the w8a8 ops' plain versions on any device
         (held against the kernels on a card). pp: (stages, microbatches),
-        the vision blocks as a GPipe pipeline (parallel/pipeline.py)."""
+        the vision blocks as a GPipe pipeline (parallel/pipeline.py).
+        mesh: a `parallel.mesh.Mesh` whose 'frame' axis splits the clips'
+        frames: x then holds this rank's frames (see `apply`)."""
         video_features, summary = vision_encoder(
             self.visual, x, self.cfg.vision, compute_dtype=compute_dtype,
             attn_impl=attn_impl, input_format=input_format,
-            int8_impl=int8_impl, pp=pp)
+            int8_impl=int8_impl, pp=pp, fp=frame_group(mesh, pp))
         video_features = _l2norm(video_features.float())
         text_features = _l2norm(self.text_features.float())
         logit_scale = torch.exp(self.logit_scale).float()

@@ -1,5 +1,5 @@
-"""Process mesh, the data axis and tensor parallelism (port of
-gava_clip_tpu/parallel/mesh.py).
+"""Process mesh, the data axis, the frame axis and tensor parallelism (port
+of gava_clip_tpu/parallel/mesh.py).
 
 The JAX package runs one SPMD program over a device mesh: the batch is
 sharded on 'data', the parameters are replicated, and XLA inserts the
@@ -14,6 +14,14 @@ collectives that XLA would insert are explicit:
   * `gather_rows` is the differentiable all-gather of a batch-wide term
     (the NTE head's B x B matrix): forward all-gather, backward all-reduce
     (sum) of the gradient and the rank's slice;
+  * over 'frame' each rank passes its frames of every clip
+    (`local_frames`, `shard_batch`); the vision tower gathers the cls rows
+    of every frame for the cross-frame prompt extras (`gather_frames`) and
+    takes the temporal means with one all-reduce (`frame_mean`), the
+    collectives GSPMD inserts for the JAX tower's frame-sharded video
+    (`P(None, "frame")`); `all_reduce_grads` sums the vision tower's
+    per-frame partial gradients over 'frame'
+    (`frame_partial_mask`);
   * `tensor_parallel_spec` / `shard_params_tensor_parallel` give and cut
     Megatron's column / row shards over 'model', and `copy_to_group` /
     `reduce_from_group` are Megatron's two operators that the towers run
@@ -116,11 +124,18 @@ def shard_batch(batch: Dict, mesh: Mesh, per_host: bool = False,
     """per_host=False: every leaf is the GLOBAL batch; returns this rank's
     rows on 'data' (`local_rows`). per_host=True: the loader already
     sliced it (`data.sampler.step_sampler(rank, world_size)`); returned as
-    it is."""
-    if per_host:
-        return batch
-    i, n = mesh.axis_index("data"), mesh.axis_size("data")
-    return {k: local_rows(v, i, n, batch_split) for k, v in batch.items()}
+    it is. On a mesh whose 'frame' axis has more than one rank the video
+    (the one leaf with a frame axis) is then cut to this rank's frames
+    (`local_frames`); the labels, NTE and memory rows are passed whole."""
+    if not per_host:
+        i, n = mesh.axis_index("data"), mesh.axis_size("data")
+        batch = {k: local_rows(v, i, n, batch_split)
+                 for k, v in batch.items()}
+    if mesh.axis_size("frame") > 1 and "video" in batch:
+        batch = dict(batch, video=local_frames(
+            batch["video"], mesh.axis_index("frame"),
+            mesh.axis_size("frame")))
+    return batch
 
 
 def _leaves(tree):
@@ -149,26 +164,42 @@ def replicate(tree, mesh: Mesh):
     return tree
 
 
+def _all_reduce_buckets(grads, group, n: int) -> None:
+    """Sum `grads` over `group` in one flattened bucket for each dtype and
+    divide by n, in place."""
+    by_dtype: Dict[torch.dtype, list] = {}
+    for g in grads:
+        by_dtype.setdefault(g.dtype, []).append(g)
+    for same in by_dtype.values():
+        bucket = torch.cat([g.reshape(-1) for g in same])
+        dist.all_reduce(bucket, group=group)
+        if n != 1:
+            bucket /= n
+        off = 0
+        for g in same:
+            g.copy_(bucket[off:off + g.numel()].view_as(g))
+            off += g.numel()
+
+
 @torch.no_grad()
 def all_reduce_grads(trainable, mesh: Mesh) -> None:
-    """Average the `.grad` of every trainable leaf over 'data', in one
-    flattened bucket for each dtype, in place."""
+    """The gradient reduction XLA inserts, in place: over a 'frame' axis
+    the leaves of `frame_partial_mask` (per-frame partial sums) summed over
+    'frame'; then the `.grad` of every trainable leaf averaged over 'data'.
+    One flattened bucket for each dtype and collective."""
+    frame = frame_group(mesh)
+    if frame is not None:
+        partial = [p.grad for p, m in zip(_leaves(trainable),
+                                          _leaves(frame_partial_mask(
+                                              trainable)))
+                   if m and p.grad is not None]
+        _all_reduce_buckets(partial, frame, 1)
     group = mesh.group("data")
     if group is None:
         return
-    n = mesh.axis_size("data")
-    by_dtype: Dict[torch.dtype, list] = {}
-    for p in _leaves(trainable):
-        if p.grad is not None:
-            by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
-    for grads in by_dtype.values():
-        bucket = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(bucket, group=group)
-        bucket /= n
-        off = 0
-        for g in grads:
-            g.copy_(bucket[off:off + g.numel()].view_as(g))
-            off += g.numel()
+    _all_reduce_buckets([p.grad for p in _leaves(trainable)
+                         if p.grad is not None], group,
+                        mesh.axis_size("data"))
 
 
 @torch.no_grad()
@@ -223,10 +254,153 @@ def gather_rows(x: torch.Tensor, group) -> torch.Tensor:
     Every rank then computes the same batch-wide term; the backward's sum
     gives each rank W times its rows' share of that term's gradient, and
     the data-axis mean of `all_reduce_grads` divides the W back out: the
-    global batch's gradient."""
+    global batch's gradient. The ranks' tensors are concatenated whole,
+    rank after rank, on dim 0: right for the rows of 'data', but ranks
+    that hold frames [r*T/W, (r+1)*T/W) of each of B > 1 clips would come
+    out clip-interleaved, so the frame axis has `gather_frames`."""
     if group is None:
         return x
     return _GatherRows.apply(x, group)
+
+
+# ----- the frame axis -------------------------------------------------------
+
+def local_frames(x, index: int, count: int):
+    """This rank's frames of a leaf (B, T, ...) (numpy array or tensor):
+    rank r of W holds frames [r*T/W, (r+1)*T/W) of every clip. A slice,
+    so autograd gives its backward (the gradient in the rank's frames,
+    zeros elsewhere). T not divisible by W raises."""
+    if count == 1:
+        return x
+    T = x.shape[1]
+    if T % count != 0:
+        raise ValueError(f"a clip of {T} frames (a leaf of shape "
+                         f"{tuple(x.shape)}) does not split over {count} "
+                         f"frame ranks")
+    n = T // count
+    return x[:, index * n:(index + 1) * n]
+
+
+@dataclass(frozen=True)
+class FrameShard:
+    """A rank's share of the frame axis, as the vision tower threads it:
+    the 'frame' `group`, this rank's `index` in it of `count`, and the
+    `frames` of each clip that the rank holds (T / count)."""
+    group: object
+    index: int
+    count: int
+    frames: int
+
+    @property
+    def total(self) -> int:
+        """The clip's global frame count T."""
+        return self.frames * self.count
+
+    def own_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """(B*T, ...) rows of whole clips in global frame order -> this
+        rank's (B*T/W, ...), clip by clip."""
+        rest = tuple(t.shape[1:])
+        return local_frames(t.reshape(-1, self.total, *rest), self.index,
+                            self.count).reshape(-1, *rest)
+
+
+def frame_shard(group, frames: int) -> Optional[FrameShard]:
+    """The FrameShard of a rank that holds `frames` frames of each clip
+    over the 'frame' `group` (None without one)."""
+    if group is None:
+        return None
+    return FrameShard(group, dist.get_rank(group),
+                      dist.get_world_size(group), frames)
+
+
+def frame_group(mesh: Optional[Mesh], pp=None):
+    """The 'frame' process group where the mesh splits the frame axis over
+    more than one rank, else None. The frame axis does not compose with a
+    'model' axis of more than one rank or with the pipeline (`pp`) yet:
+    either raises."""
+    if mesh is None or mesh.axis_size("frame") == 1:
+        return None
+    if mesh.axis_size("model") > 1:
+        raise NotImplementedError(
+            f"frame sharding over {mesh.axis_size('frame')} ranks with "
+            f"tensor parallelism over {mesh.axis_size('model')}: not "
+            f"supported (shard the frames or the heads, not both)")
+    if pp is not None:
+        raise NotImplementedError("frame sharding with the pipelined "
+                                  "vision tower: not supported")
+    return mesh.group("frame")
+
+
+class _GatherFrames(torch.autograd.Function):
+    """All-gather along the frames (dim 1); the backward sums every rank's
+    gradient of the gathered tensor and returns this rank's frames of
+    it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        n = dist.get_world_size(group)
+        ctx.group, ctx.rank, ctx.frames = group, dist.get_rank(group), \
+            x.shape[1]
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        n = ctx.frames
+        return g[:, ctx.rank * n:(ctx.rank + 1) * n], None
+
+
+def gather_frames(x: torch.Tensor, group) -> torch.Tensor:
+    """(B, T/W, ...) of every rank of the 'frame' `group` -> (B, T, ...) in
+    global frame order, differentiably. Every rank then computes the same
+    cross-frame term; each must use only its own frames' rows of it, so
+    that the backward's sum over the ranks counts each use once."""
+    if group is None:
+        return x
+    return _GatherFrames.apply(x, group)
+
+
+def frame_mean(x: torch.Tensor, group, T: int,
+               span: Optional[int] = None) -> torch.Tensor:
+    """The mean over each run of `span` consecutive frames of a clip (all
+    T of them by default): x (B, T/W, ...) holds this rank's frames of the
+    'frame' `group`; returns (B*T/span, ...), the same on every rank.
+    Without a group x holds all T frames and this is its plain mean.
+    Over a group the rank's frames are summed in fp32 into their runs,
+    summed over the ranks with one all-reduce (Megatron's g: its backward
+    is the identity, so each rank's frames get the whole upstream
+    gradient / span), divided by span and cast back to x's dtype."""
+    span = T if span is None else span
+    B, rest = x.shape[0], tuple(x.shape[2:])
+    if group is None:
+        return x.reshape(B * T // span, span, *rest).mean(dim=1)
+    n, r = x.shape[1], dist.get_rank(group)
+    x32 = x.float()
+    full = torch.cat([x32.new_zeros((B, r * n, *rest)), x32,
+                      x32.new_zeros((B, T - (r + 1) * n, *rest))], dim=1)
+    sums = full.reshape(B * T // span, span, *rest).sum(dim=1)
+    return (reduce_from_group(sums, group) / span).to(x.dtype)
+
+
+def frame_partial_mask(tree) -> Dict:
+    """True on the leaves of `tree` (a parameter or trainable tree, None
+    placeholders kept) whose gradient is a per-frame partial sum under
+    frame sharding: those of the vision tower, every one of which acts
+    before the temporal mean. The leaves behind the mean (text prompts,
+    projector, heads, logit scales) see the same whole-clip features on
+    every frame rank and so hold the whole gradient already."""
+    def walk(t, partial):
+        if isinstance(t, dict):
+            return {k: walk(v, partial) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(v, partial) for v in t]
+        return None if t is None else partial
+
+    return {k: walk(v, k == "visual") for k, v in tree.items()}
 
 
 # ----- tensor parallelism ---------------------------------------------------

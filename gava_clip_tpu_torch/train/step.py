@@ -25,6 +25,14 @@ averaged over 'data' in one bucket before AdamW (`all_reduce_grads`, the
 all-reduce XLA inserts), the metrics reduced likewise. With `batch_split`
 each rank's rows must be those of `parallel.mesh.local_rows`, so that the
 gathered micro-batch i is the JAX step's micro-batch i.
+
+Under a frame axis each rank passes its frames of every clip
+(`parallel.mesh.shard_batch`) and the step computes the JAX step on the
+frame-sharded video: the vision tower's trainable leaves hold
+per-frame partial gradients, which `all_reduce_grads` sums over 'frame'
+before the mean over 'data'; the leaves behind the temporal mean hold the
+whole gradient on every frame rank already. The metrics stay reduced over
+'data' alone.
 """
 
 from dataclasses import dataclass
@@ -154,9 +162,10 @@ def make_train_step(model, loss_cfg: LossConfig, optimizer=None,
     (see models/vision.py `_block_remat`). frozen_int8: the frozen
     projections as int8 ('qt') leaves, quantized once (see the module
     docstring); the trainable leaves never pass through the quantizer.
-    mesh: a `parallel.mesh.Mesh`; `batch` then holds this rank's rows (see
-    the module docstring), the gradients and metrics are reduced over
-    'data', and tensor-parallel shards run over 'model'.
+    mesh: a `parallel.mesh.Mesh`; `batch` then holds this rank's rows (and,
+    over 'frame', its frames; see the module docstring), the gradients and
+    metrics are reduced over 'data', the vision tower's gradients summed
+    over 'frame' first, and tensor-parallel shards run over 'model'.
 
     batch = {'video': (B,T,H,W,3), 'labels': (B,), 'nte': (B,70,E)?,
              'memory': (Bm,S,E)?, 'mt_labels': (Bm,)?}

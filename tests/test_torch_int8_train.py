@@ -419,7 +419,8 @@ def test_qt_vision_block_matches_jax(models, attn_impl):
     gt = torch.from_numpy(np.array(g)).requires_grad_()
     y_t, s_t = tvision._block(tp, gt, xt, cfg, attn_impl)
     y_t.backward(torch.from_numpy(gy))
-    for a, r, tol in ((y_t, y_j, 2e-3), (s_t, s_j, 1e-5),
+    # the port's summary rows (BT, D) are JAX's (Bb, Tb, D)
+    for a, r, tol in ((y_t, y_j, 2e-3), (s_t.reshape(s_j.shape), s_j, 1e-5),
                       (xt.grad, dx_j, 1e-3), (gt.grad, dg_j, 1e-3)):
         a, r = _np(a.detach()), np.asarray(r)
         assert a.shape == r.shape and np.isfinite(a).all()

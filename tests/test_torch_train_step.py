@@ -51,7 +51,12 @@ def _port_cfg(jcfg) -> tvc.VitaClipConfig:
 def models(tmp_path_factory):
     """The JAX tiny model of tests/test_train_step.py and the port's model
     around the same parameters and buffers."""
-    ke = tmp_path_factory.mktemp("ke_updrs")
+    return tiny_models(tmp_path_factory.mktemp("ke_updrs"))
+
+
+def tiny_models(ke, num_frames: int = 2):
+    """The tiny model pair of `models` with `num_frames` training frames,
+    its knowledge files written into the directory `ke`."""
     rs = np.random.RandomState(0)
     for kv in ("v1", "v2"):
         np.save(ke / f"EntityEmb_{kv}.npy",
@@ -61,7 +66,7 @@ def models(tmp_path_factory):
                 f.write(f"desc {kv} class {c}\n")
     jcfg = jvc.VitaClipConfig(
         vision=jvision.VisionConfig(
-            input_size=(32, 32), num_frames=2, feature_dim=32,
+            input_size=(32, 32), num_frames=num_frames, feature_dim=32,
             patch_size=(16, 16), heads=2, layers=2, mlp_factor=2.0,
             embed_dim=32, use_summary_token=True, use_local_prompts=True,
             use_global_prompts=True, num_global_prompts=2),
