@@ -230,16 +230,27 @@ The training and evaluation programs:
           probabilities, and the classifier over two devices (cuda:0 twice)
           against one device's;
   frame   frame sharding: two gloo ranks on cuda:0, each passing 4 of every
-          clip's 8 frames (mesh (1, 2) over 'data' and 'frame'): the
-          fp32 training step of 16 clips at full width with 2 vision and
-          2 text layers, NTE and the memory on, against the same step in
-          one process within F32_STEP_MAX_*; the zero-shot ViT-B/16
-          forward at batch 16 (12 layers, 400 classes), bf16 and then
-          w8a8 + patch-major with the fused prompt extras, against one
-          process's logits within FRAME_SERVE_MAX_LOGIT_ULPS bf16 ulps of
-          the largest logit (and a wrong temporal embedding outside
+          clip's 8 frames (mesh (1, 2, 1) over 'data', 'frame' and
+          'model'): the fp32 training step of 16 clips at full width with
+          2 vision and 2 text layers, NTE and the memory on, against the
+          same step in one process within F32_STEP_MAX_*; the zero-shot
+          ViT-B/16 forward at batch 16 (12 layers, 400 classes), bf16 and
+          then w8a8 + patch-major with the fused prompt extras, against
+          one process's logits within FRAME_SERVE_MAX_LOGIT_ULPS bf16 ulps
+          of the largest logit (and a wrong temporal embedding outside
           them), with each rank's kernel launches (FRAME_SERVE_LAUNCHES)
-          and host-clock times against one process.
+          and host-clock times against one process; the same forward
+          with its blocks in 2 pipeline stages on cuda:0 and 2
+          micro-batches (frame x pp), bf16 within that limit and fp32
+          within F32_REL of the largest logit of one process's forward
+          without the pipeline (stages that pass no FrameShard outside
+          both), FPP_SERVE_LAUNCHES; then four gloo
+          ranks on a (1, 2, 2) mesh, 4 frames and half the heads a rank
+          (frame x model): the same fp32 step within F32_STEP_MAX_* (the
+          frame-partial gradients summed over every rank outside them),
+          and the bf16 forward through vita_clip.apply within
+          FM_SERVE_MAX_F32_DIFFS times one process's bf16-vs-fp32 logit
+          distance, FM_SERVE_LAUNCHES.
 The two-source attention + int8 out-projection (attention_out_int8_2src)
 is held in w8a8-kernel against its plain version and, bit for bit, against
 the single-source kernel on the concatenated keys, and launched once
@@ -6826,17 +6837,18 @@ def _child_env():
     return env
 
 
-def _two_ranks(args, cwd, timeout=600):
-    """`python -m torch.distributed.run --standalone --nproc_per_node 2
-    <args>`: its output; a nonzero exit raises with its last lines."""
+def _two_ranks(args, cwd, timeout=600, nproc=2):
+    """`python -m torch.distributed.run --standalone --nproc_per_node
+    <nproc> <args>`: its output; a nonzero exit raises with its last
+    lines."""
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc_per_node", "2", *args]
+           "--nproc_per_node", str(nproc), *args]
     t0 = time.perf_counter()
     res = subprocess.run(cmd, cwd=cwd, env=_child_env(), capture_output=True,
                          text=True, timeout=timeout)
     out = res.stdout + res.stderr
     if res.returncode != 0:
-        raise AssertionError(f"two ranks exited {res.returncode}:\n"
+        raise AssertionError(f"{nproc} ranks exited {res.returncode}:\n"
                              f"{out[-6000:]}")
     return out, time.perf_counter() - t0
 
@@ -7216,86 +7228,178 @@ FRAME_SERVE_LAUNCHES = {
     "w8a8": {"w8a8_matmul": 1, "w8a8_matmul3_cat": 12,
              "attention_out_int8": 12, "w8a8_mlp_res": 12,
              "fused_extras": 12}}
+# frame x pp (parallel/selfcheck.py fpp_serve): the blocks in 2 stages on
+# cuda:0 and PP_SERVE_MICRO = 2 micro-batches of 8 clips; each rank
+# launches B1 once a block and micro-batch (the counts below are one
+# micro-batch's), in bf16 and then in fp32 (the model's fp32 weights). The pipeline runs each micro-batch's rows through the same
+# kernels as one process, so bf16 takes FRAME_SERVE_MAX_LOGIT_ULPS and
+# fp32, where only the order of fp32 sums may differ (the temporal mean,
+# stock GEMMs over fewer rows), F32_REL of the largest |logit|, the fp32
+# kernels' own limit. Stages that pass no FrameShard (fpp:no_gather) must
+# leave both
+FPP_SERVE_LAUNCHES = {"bf16": {"packed_attention": 12},
+                      "fp32": {"packed_attention_f32": 12}}
+# frame x model (fm_serve): the bf16 forward through vita_clip.apply, each
+# rank 4 frames and 6 of the 12 heads (B1 once a block). The row-parallel
+# out-projection and fc2 sum two bf16 partials over 'model', another
+# rounding order than one GEMM's, so the limit is not in ulps of one
+# process's arithmetic: one process's bf16 logits sit f32_diff from its
+# fp32 forward on the same weights, the sharded forward (the same
+# arithmetic rounded in another order) is taken to sit as far, and by the
+# triangle inequality the two differ by at most twice that
+FM_SERVE_MAX_F32_DIFFS = 2
+FM_SERVE_LAUNCHES = {"packed_attention": 12}
 
 
-def phase_frame(state):
-    """The frame-sharded training step and zero-shot forward of two ranks
-    against one process (parallel/selfcheck.py fp, fp_serve)."""
-    import shutil
-    import tempfile
-    import torch
-    root = tempfile.mkdtemp(prefix="gava_frame_")
-    try:
-        _two_rank_model(os.path.join(root, "model.pt"))
-        rs = np.random.RandomState(2)
-        B, Bm = FRAME_BATCH, PARALLEL_MEMORY
-        np.savez(os.path.join(root, "batch.npz"),
-                 video=rs.rand(B, 8, 224, 224, 3).astype(np.float32),
-                 labels=rs.randint(0, 3, size=B),
-                 nte=rs.randn(B, 70, 512).astype(np.float32),
-                 memory=rs.randn(Bm, 4, 512).astype(np.float32),
-                 mt_labels=rs.randint(0, 3, size=Bm))
-        loss = dict(num_classes=3, focal_ordinal=True, fo_beta=0.2,
-                    use_support_memory=True, add_nte=True)
-        out, secs = _two_ranks(
-            ["-m", "gava_clip_tpu_torch.parallel.selfcheck",
-             "--model", os.path.join(root, "model.pt"),
-             "--batch", os.path.join(root, "batch.npz"),
-             "--out", os.path.join(root, "results.pt"), "--backend", "gloo",
-             "--scenarios", "fp,fp_serve,fp_serve:local_time_embed",
-             "--steps", "2", "--reference",
-             "--loss", json.dumps(loss)], cwd=ROOT)
-        results = torch.load(os.path.join(root, "results.pt"),
-                             weights_only=False)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-    bad = []
-    res = results["fp"]
+def _frame_batch(path: str, seed: int):
+    """The frame phase's global training batch: FRAME_BATCH clips of 8
+    frames, NTE and memory rows."""
+    rs = np.random.RandomState(seed)
+    B, Bm = FRAME_BATCH, PARALLEL_MEMORY
+    np.savez(path,
+             video=rs.rand(B, 8, 224, 224, 3).astype(np.float32),
+             labels=rs.randint(0, 3, size=B),
+             nte=rs.randn(B, 70, 512).astype(np.float32),
+             memory=rs.randn(Bm, 4, 512).astype(np.float32),
+             mt_labels=rs.randint(0, 3, size=Bm))
+
+
+def _frame_step_check(state, res, what: str, mutant=None) -> bool:
+    """Log the first step of a frame scenario against one process (and of
+    its mutant, which must leave the limits); True where it holds."""
     c = res["check"]
-    log(f"[frame] two ranks on cuda:0 (gloo), 4 of the 8 frames of each of "
-        f"{B} clips a rank: the first fp32 step (ViT-B/16 and the text tower "
+    log(f"[frame] {what}: the first fp32 step (ViT-B/16 and the text tower "
         f"at full width, {PARALLEL_LAYERS} + {PARALLEL_LAYERS} layers, NTE + "
-        f"memory): total {c['loss']:.7f} vs one process {c['loss_ref']:.7f} "
-        f"(diff {c['loss_diff']:.2e}, limit {F32_STEP_MAX_LOSS_DIFF:g}); "
-        f"gradient leaves {c['leaves']}, max relative L2 error "
-        f"{c['max_grad_rel_err']:.3e}, median {c['median_grad_rel_err']:.3e} "
-        f"(limit {F32_STEP_MAX_GRAD_REL_ERR:g}); the two ranks' leaves after "
-        f"2 steps differ by {res['rank_spread']!r}; ms a step on the host's "
-        f"clock, two ranks sharing the card {res['ms']}, one process alone "
+        f"memory, {FRAME_BATCH} clips): total {c['loss']:.7f} vs one process "
+        f"{c['loss_ref']:.7f} (diff {c['loss_diff']:.2e}, limit "
+        f"{F32_STEP_MAX_LOSS_DIFF:g}); gradient leaves {c['leaves']}, max "
+        f"relative L2 error {c['max_grad_rel_err']:.3e}, median "
+        f"{c['median_grad_rel_err']:.3e} (limit "
+        f"{F32_STEP_MAX_GRAD_REL_ERR:g}); the ranks' leaves after 2 steps "
+        f"differ by {res['rank_spread']!r}; ms a step on the host's clock, "
+        f"the ranks sharing the card {res['ms']}, one process alone "
         f"{c['ms_reference']} (the first step of each includes its warm-up; "
         f"{state['smi']}); rank 0's launches in its first step "
         f"{res['launches']} (expect {FRAME_STEP_LAUNCHES})")
-    if not c["loss_diff"] <= F32_STEP_MAX_LOSS_DIFF or \
-            not c["max_grad_rel_err"] <= F32_STEP_MAX_GRAD_REL_ERR or \
-            res["rank_spread"] != 0.0 or \
-            res["launches"] != FRAME_STEP_LAUNCHES:
+    ok = c["loss_diff"] <= F32_STEP_MAX_LOSS_DIFF and \
+        c["max_grad_rel_err"] <= F32_STEP_MAX_GRAD_REL_ERR and \
+        res["rank_spread"] == 0.0 and \
+        res["launches"] == FRAME_STEP_LAUNCHES
+    if mutant is not None:
+        m = mutant["check"]
+        log(f"[frame] {what}, with the frame-partial gradients summed over "
+            f"every rank instead of the 'frame' group: loss diff "
+            f"{m['loss_diff']:.2e}, max gradient relative L2 error "
+            f"{m['max_grad_rel_err']:.3e} (must exceed "
+            f"{F32_STEP_MAX_GRAD_REL_ERR:g})")
+        ok = ok and m["max_grad_rel_err"] > F32_STEP_MAX_GRAD_REL_ERR
+    return ok
+
+
+def _frame_serve_check(state, r, what: str, want: dict, shape, limit: float,
+                       limit_text: str, mutant=None) -> bool:
+    """Log a frame-sharded forward against one process (and its mutant,
+    which must leave the limit); True where it holds."""
+    per_rank = [{k: counts.get(k, 0) for k in want}
+                for counts in r["launches"]]
+    log(f"[frame] {what}: max |logit diff| against one process "
+        f"{r['max_abs_diff']!r} (limit {limit_text}, {limit!r}"
+        f"{'' if mutant is None else f'; its mutant {mutant!r}, which must exceed it'}"
+        f"), ranks differ by {r['rank_spread']!r}; launches per rank "
+        f"{per_rank} (expect {want}; all nonzero counts {r['launches']}); "
+        f"ms a forward on the host's clock, the ranks together "
+        f"{[round(x, 2) for x in r['ms']]}, one process alone "
+        f"{[round(x, 2) for x in r['ms_one_process']]} ({state['smi']})")
+    return r["finite"] and r["shape"] == shape and \
+        r["max_abs_diff"] <= limit and \
+        (mutant is None or mutant > limit) and r["rank_spread"] == 0.0 and \
+        all(counts == want for counts in per_rank) and \
+        not any(set(counts) - set(want) for counts in r["launches"])
+
+
+def phase_frame(state):
+    """Frame sharding against one process: the training step and the
+    zero-shot forward of two frame ranks, the forward with its blocks as a
+    pipeline (frame x pp), then the step and the forward of four ranks on
+    a ('data', 'frame', 'model') (1, 2, 2) mesh (frame x model)
+    (parallel/selfcheck.py fp, fp_serve, fpp_serve, fm, fm_serve)."""
+    import shutil
+    import tempfile
+    import torch
+    from gava_clip_tpu_torch.parallel.selfcheck import PP_SERVE_MICRO
+    loss = json.dumps(dict(num_classes=3, focal_ordinal=True, fo_beta=0.2,
+                           use_support_memory=True, add_nte=True))
+    root = tempfile.mkdtemp(prefix="gava_frame_")
+    results = {}
+    try:
+        _two_rank_model(os.path.join(root, "model.pt"))
+        _frame_batch(os.path.join(root, "batch.npz"), 2)
+        for nproc, scenarios in (
+                (2, "fp,fp_serve,fp_serve:local_time_embed,fpp_serve,"
+                    "fpp:no_gather"),
+                (4, "fm,fm:grads_over_world,fm_serve")):
+            out = os.path.join(root, f"results{nproc}.pt")
+            _, secs = _two_ranks(
+                ["-m", "gava_clip_tpu_torch.parallel.selfcheck",
+                 "--model", os.path.join(root, "model.pt"),
+                 "--batch", os.path.join(root, "batch.npz"),
+                 "--out", out, "--backend", "gloo",
+                 "--scenarios", scenarios, "--steps", "2", "--reference",
+                 "--loss", loss], cwd=ROOT, nproc=nproc)
+            results.update(torch.load(out, weights_only=False))
+            log(f"[frame] the selfcheck launch of {nproc} ranks "
+                f"({scenarios}) took {secs:.1f} s on the host's clock "
+                f"({state['smi']})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    bad = []
+    if not _frame_step_check(state, results["fp"], "two ranks on cuda:0 "
+                             "(gloo), 4 of the 8 frames of each clip a "
+                             "rank"):
         bad.append("the training step")
+    ulps = f"{FRAME_SERVE_MAX_LOGIT_ULPS} bf16 ulps of the largest |logit|"
+    shape = (FRAME_BATCH, 400)
     for mode, want in FRAME_SERVE_LAUNCHES.items():
         r = results["fp_serve"][mode]
-        mutant = results["fp_serve:local_time_embed"][mode]["max_abs_diff"]
-        limit = FRAME_SERVE_MAX_LOGIT_ULPS * r["logit_ulp"]
-        per_rank = [{k: counts.get(k, 0) for k in want}
-                    for counts in r["launches"]]
-        log(f"[frame] the zero-shot forward ({mode}"
-            f"{' + patch-major, fused extras' if mode == 'w8a8' else ''}) "
-            f"of 16 clips of 8 frames, ViT-B/16 12 layers, 400 classes, 4 "
-            f"frames a rank: max |logit diff| against one process "
-            f"{r['max_abs_diff']!r} (limit {FRAME_SERVE_MAX_LOGIT_ULPS} bf16 "
-            f"ulps of the largest |logit|, {limit!r}; with rank 1's frames "
-            f"embedded as frames 0..3 {mutant!r}, which must exceed it), "
-            f"ranks differ by {r['rank_spread']!r}; launches per rank "
-            f"{per_rank} (expect {want}; all nonzero counts "
-            f"{r['launches']}); ms a forward on the host's clock, two ranks "
-            f"{[round(x, 2) for x in r['ms']]}, one process alone "
-            f"{[round(x, 2) for x in r['ms_one_process']]} ({state['smi']})")
-        if not r["finite"] or r["shape"] != (16, 400) or \
-                r["max_abs_diff"] > limit or not mutant > limit or \
-                r["rank_spread"] != 0.0 or \
-                any(counts != want for counts in per_rank) or \
-                any(set(counts) - set(want) for counts in r["launches"]):
+        what = (f"the zero-shot forward ({mode}"
+                f"{' + patch-major, fused extras' if mode == 'w8a8' else ''})"
+                f" of 16 clips of 8 frames, ViT-B/16 12 layers, 400 classes, "
+                f"4 frames a rank (the mutant: rank 1's frames embedded as "
+                f"frames 0..3)")
+        if not _frame_serve_check(
+                state, r, what, want, shape,
+                FRAME_SERVE_MAX_LOGIT_ULPS * r["logit_ulp"], ulps,
+                results["fp_serve:local_time_embed"][mode]["max_abs_diff"]):
             bad.append(f"the {mode} forward")
-    log(f"[frame] the selfcheck launch took {secs:.1f} s on the host's clock "
-        f"({state['smi']})")
+    for mode, per_micro in FPP_SERVE_LAUNCHES.items():
+        r = results["fpp_serve"][mode]
+        want = {k: n * PP_SERVE_MICRO for k, n in per_micro.items()}
+        what = (f"frame x pp: the zero-shot forward ({mode}) of 16 clips, 4 "
+                f"frames a rank, its 12 blocks in 2 stages on cuda:0 and "
+                f"{PP_SERVE_MICRO} micro-batches, against one process "
+                f"without the pipeline (the mutant: stages that pass no "
+                f"FrameShard)")
+        limit, text = (FRAME_SERVE_MAX_LOGIT_ULPS * r["logit_ulp"], ulps) \
+            if mode == "bf16" else (F32_REL * r["max_abs_logit"],
+                                    "F32_REL of the largest |logit|")
+        if not _frame_serve_check(
+                state, r, what, want, shape, limit, text,
+                results["fpp:no_gather"][mode]["max_abs_diff"]):
+            bad.append(f"the pipelined {mode} forward")
+    if not _frame_step_check(state, results["fm"], "frame x model: four "
+                             "ranks on cuda:0 (gloo), mesh (1, 2, 2), 4 "
+                             "frames and 6 of the 12 heads a rank",
+                             results["fm:grads_over_world"]):
+        bad.append("the frame x model training step")
+    r = results["fm_serve"]["bf16"]
+    if not _frame_serve_check(
+            state, r, "frame x model: the zero-shot forward (bf16) through "
+            "vita_clip.apply of 16 clips, 4 frames and 6 of the 12 heads a "
+            "rank", FM_SERVE_LAUNCHES, shape,
+            FM_SERVE_MAX_F32_DIFFS * r["f32_diff"],
+            f"{FM_SERVE_MAX_F32_DIFFS} x one process's bf16-vs-fp32 "
+            f"distance {r['f32_diff']!r}"):
+        bad.append("the frame x model forward")
     if bad:
         raise AssertionError(f"frame sharding: {bad} disagree with one "
                              f"process")

@@ -49,7 +49,11 @@ gathers the cls rows of every frame (`gather_frames`, one all-gather) for
 the summary attention and the local prompts, which run on the whole
 pseudo-videos, and keeps only its own frames' rows of them; the temporal
 means of the frame features and of the summary are one all-reduce each
-(`frame_mean`).
+(`frame_mean`). With tp too, the gathered cls rows feed the summary
+attention on the rank's column shards of its heads (summed over 'model'),
+and the blocks' Megatron f / g run on the rank's own frame rows; every
+rank issues the 'frame' gather, then the 'model' reductions, in one
+order. Under pp each stage's blocks gather their micro-batch's cls rows.
 """
 
 from dataclasses import dataclass
@@ -525,14 +529,23 @@ def _block_remat(policy: str, p, g_prompt, x, cfg: VisionConfig,
 
 
 def _pipelined_blocks(params, g_prompts, x, cfg: VisionConfig, attn_impl,
-                      int8_impl, tp, pp):
+                      int8_impl, tp, pp, fs=None):
     """The block stack through `parallel.pipeline.pipeline_scan`: stage s
     holds layers [s*L/S, (s+1)*L/S) on stages[s]; the carry is (rows,
     summary tokens), as the JAX scan's, split into micro-batches of whole
-    clips. Returns (x, summary | None) on x's device."""
+    clips. Under frame sharding (fs) the rows and the summary carry are
+    the rank's frames of each clip, and every block of a stage gathers its
+    micro-batch's cls rows over 'frame' (`_block`): the frame ranks run
+    one schedule, so they meet at each gather in the same order. Returns
+    (x, summary | None) on x's device."""
     from ..parallel.pipeline import pipeline_scan, stage_params
     stages, microbatches = pp
     D = cfg.feature_dim
+    if fs is not None and (x.shape[0] // fs.frames) % microbatches:
+        raise ValueError(
+            f"frame sharding with the pipeline: {x.shape[0] // fs.frames} "
+            f"clips do not split into {microbatches} micro-batches of "
+            f"whole clips")
     # a serving module's ParamTree blocks as dicts: staging must not move
     # the module's own weights
     layers = [(p.to_dict() if hasattr(p, "to_dict") else p,
@@ -543,7 +556,7 @@ def _pipelined_blocks(params, g_prompts, x, cfg: VisionConfig, attn_impl,
     def block_fn(carry, layer):
         h, _ = carry
         p, g = layer
-        h, summary = _block(p, g, h, cfg, attn_impl, int8_impl, tp)
+        h, summary = _block(p, g, h, cfg, attn_impl, int8_impl, tp, fs)
         if summary is None:
             # sized from the micro-batch's own rows
             summary = h.new_zeros((h.shape[0], D))
@@ -578,11 +591,12 @@ def vision_encoder(params, x: torch.Tensor, cfg: VisionConfig,
     (`parallel.mesh.frame_group`): x holds this rank's frames [r*T/W,
     (r+1)*T/W) of every clip, and the features and summary returned are
     the whole clips', the same on every rank of the group (see the module
-    docstring); it does not compose with tp or pp."""
-    if fp is not None and (tp is not None or pp is not None):
-        raise NotImplementedError("frame sharding (fp) with tensor (tp) or "
-                                  "pipeline (pp) parallelism: not supported")
+    docstring); it composes with tp (each rank's frames through its
+    shards) and with pp (each stage gathers its micro-batch's cls rows)."""
     policy = _remat_policy(remat)
+    if pp is not None and policy is not None:
+        raise ValueError(f"pipeline parallelism runs without remat (as in "
+                         f"the JAX tower), not remat={remat!r}")
     D = cfg.feature_dim
     if input_format == "patches":
         B, T, N, P = x.shape
@@ -607,10 +621,8 @@ def vision_encoder(params, x: torch.Tensor, cfg: VisionConfig,
     g_prompts = params.get("global_prompts")
     summary = None
     if pp is not None:
-        assert policy is None, \
-            "pipeline parallelism runs without remat (as in the JAX tower)"
         x, summary = _pipelined_blocks(params, g_prompts, x, cfg, attn_impl,
-                                       int8_impl, tp, pp)
+                                       int8_impl, tp, pp, fs=fs)
     else:
         for i, p in enumerate(params["blocks"]):
             g = None if g_prompts is None else g_prompts[i]

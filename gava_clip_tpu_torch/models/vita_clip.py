@@ -166,10 +166,11 @@ def apply(cfg: VitaClipConfig, params: Dict, buffers: Dict, x: torch.Tensor,
     (`parallel.mesh.shard_batch`); the vision tower gathers what crosses
     frames, and the text tower, the heads and the NTE /
     memory terms run on every frame rank, which all get the same outputs.
-    pp: (stages, microbatches), the vision block stack as a GPipe pipeline
-    (parallel/pipeline.py)."""
+    'frame' composes with 'model' (each rank's frames through its shards)
+    and with pp. pp: (stages, microbatches), the vision block stack as a
+    GPipe pipeline (parallel/pipeline.py)."""
     out: Dict[str, torch.Tensor] = {}
-    fp = frame_group(mesh, pp)
+    fp = frame_group(mesh)
     tp = tower_groups(mesh, cfg)
     data = mesh.group("data") if mesh is not None else None
     video_features, summary = vision_encoder(
@@ -393,11 +394,12 @@ class VitaClip(nn.Module):
         (held against the kernels on a card). pp: (stages, microbatches),
         the vision blocks as a GPipe pipeline (parallel/pipeline.py).
         mesh: a `parallel.mesh.Mesh` whose 'frame' axis splits the clips'
-        frames: x then holds this rank's frames (see `apply`)."""
+        frames: x then holds this rank's frames (see `apply`), also under
+        pp, where each stage gathers its micro-batch's cls rows."""
         video_features, summary = vision_encoder(
             self.visual, x, self.cfg.vision, compute_dtype=compute_dtype,
             attn_impl=attn_impl, input_format=input_format,
-            int8_impl=int8_impl, pp=pp, fp=frame_group(mesh, pp))
+            int8_impl=int8_impl, pp=pp, fp=frame_group(mesh))
         video_features = _l2norm(video_features.float())
         text_features = _l2norm(self.text_features.float())
         logit_scale = torch.exp(self.logit_scale).float()

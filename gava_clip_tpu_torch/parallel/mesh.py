@@ -21,7 +21,9 @@ collectives that XLA would insert are explicit:
     collectives GSPMD inserts for the JAX tower's frame-sharded video
     (`P(None, "frame")`); `all_reduce_grads` sums the vision tower's
     per-frame partial gradients over 'frame'
-    (`frame_partial_mask`);
+    (`frame_partial_mask`). The frame axis composes with 'model' (each
+    frame group's ranks hold one Megatron shard) and with the pipeline
+    (each stage gathers its micro-batch's cls rows);
   * `tensor_parallel_spec` / `shard_params_tensor_parallel` give and cut
     Megatron's column / row shards over 'model', and `copy_to_group` /
     `reduce_from_group` are Megatron's two operators that the towers run
@@ -185,8 +187,10 @@ def _all_reduce_buckets(grads, group, n: int) -> None:
 def all_reduce_grads(trainable, mesh: Mesh) -> None:
     """The gradient reduction XLA inserts, in place: over a 'frame' axis
     the leaves of `frame_partial_mask` (per-frame partial sums) summed over
-    'frame'; then the `.grad` of every trainable leaf averaged over 'data'.
-    One flattened bucket for each dtype and collective."""
+    'frame' (with a 'model' axis too, each shard with the same shard of
+    the other frame ranks: `frame_group`); then the `.grad` of every
+    trainable leaf averaged over 'data'. One flattened bucket for each
+    dtype and collective."""
     frame = frame_group(mesh)
     if frame is not None:
         partial = [p.grad for p, m in zip(_leaves(trainable),
@@ -313,21 +317,14 @@ def frame_shard(group, frames: int) -> Optional[FrameShard]:
                       dist.get_world_size(group), frames)
 
 
-def frame_group(mesh: Optional[Mesh], pp=None):
+def frame_group(mesh: Optional[Mesh]):
     """The 'frame' process group where the mesh splits the frame axis over
-    more than one rank, else None. The frame axis does not compose with a
-    'model' axis of more than one rank or with the pipeline (`pp`) yet:
-    either raises."""
+    more than one rank, else None. On a ('data', 'frame', 'model') mesh it
+    holds the ranks that share this rank's 'data' and 'model' indices,
+    which hold the same Megatron shards: the frame collectives then meet
+    the same shard on every rank of the group, never another."""
     if mesh is None or mesh.axis_size("frame") == 1:
         return None
-    if mesh.axis_size("model") > 1:
-        raise NotImplementedError(
-            f"frame sharding over {mesh.axis_size('frame')} ranks with "
-            f"tensor parallelism over {mesh.axis_size('model')}: not "
-            f"supported (shard the frames or the heads, not both)")
-    if pp is not None:
-        raise NotImplementedError("frame sharding with the pipelined "
-                                  "vision tower: not supported")
     return mesh.group("frame")
 
 

@@ -24,9 +24,9 @@ gathered: full leaves, the port's layout) into R.pt. Scenarios:
                      trick, off by a factor of W);
   eval_dp / eval_tp  `cli.train.evaluate` over the ranks' clips (dp) or
                      every clip under tensor parallelism (tp);
-  fp / fp_remat      mesh (1, W) over ('data', 'frame'): each rank passes
-                     its frames of every clip (`shard_batch`), remat
-                     'none' / 'full'; `rank_spread` is the largest
+  fp / fp_remat      mesh (1, W, 1) over ('data', 'frame', 'model'): each
+                     rank passes its frames of every clip (`shard_batch`),
+                     remat 'none' / 'full'; `rank_spread` is the largest
                      difference of any rank's trainable leaves from rank
                      0's after the steps;
 (every step scenario records rank 0's kernel launches of its first step,
@@ -48,6 +48,32 @@ gathered: full leaves, the port's layout) into R.pt. Scenarios:
                      |logit|, each rank's kernel launches, host-clock ms
                      of each (needs no --model / --batch);
   fp_serve:local_time_embed  the same forwards under that mutant (untimed).
+  fm / fm_remat      mesh (1, W/2, 2) over ('data', 'frame', 'model'): each
+                     rank passes its frames of every clip through its
+                     Megatron shards, remat 'none' / 'full'; the first
+                     step's gradients and the leaves gathered over 'model'
+                     (`gather_tensor_parallel`), `rank_spread` of the
+                     gathered leaves;
+  fm:grads_over_world  a mutant: the frame-partial gradients summed over
+                     every rank, not the 'frame' group, which mixes the
+                     different shards of the two 'model' ranks;
+  fm_eval            fp_eval on that mesh, the parameters sharded;
+  fm_serve           the zero-shot classifier's bf16 weights through
+                     `vita_clip.apply` on that mesh against one process's
+                     bf16 forward, and one process's fp32 forward on the
+                     same weights (`f32_diff`: how far bf16 rounding alone
+                     moves the logits), with launches and times as
+                     fp_serve;
+  fpp_serve          the zero-shot classifier's forward on the (1, W)
+                     frame mesh with its blocks as a pipeline of
+                     PP_SERVE_STAGES stages on this rank's device and
+                     PP_SERVE_MICRO micro-batches (PP_SERVE_SIZES), in bf16
+                     and in fp32 (the model's fp32 weights; the logits
+                     kept for the check against JAX), against the forward
+                     in one process without the pipeline;
+  fpp:no_gather      a mutant: fpp_serve with stages that pass no
+                     FrameShard, so each rank's summary attention and
+                     local prompts see only its own frames (untimed).
 
 --reference also runs the first step on rank 0 without a mesh on the whole
 global batch (with the scenario's batch_split; the other ranks wait) and
@@ -71,6 +97,7 @@ from ..models.vita_clip import VitaClipModel, trainable_mask
 from ..train.state import create_train_state, make_optimizer, tree_leaves
 from ..train.step import LossConfig, make_train_step
 from . import distributed as _dist
+from . import mesh as _mesh
 from .mesh import (create_mesh, frame_mean, gather_tensor_parallel,
                    local_frames, shard_batch, shard_params_tensor_parallel)
 
@@ -114,6 +141,18 @@ def _local_time_embed(time_embed, T, fs=None):
                                     T if fs is None else fs.total)[:T]
 
 
+def _grads_over_world(mesh):
+    return None if mesh is None or mesh.axis_size("frame") == 1 \
+        else dist.group.WORLD
+
+
+_PIPELINED_BLOCKS = vision._pipelined_blocks
+
+
+def _no_gather(*args, fs=None):
+    return _PIPELINED_BLOCKS(*args)
+
+
 # the mutants: (module, the function they replace there, the broken one)
 _MUTANTS = {"local_nte": (vita_clip, "gather_rows", _local_nte),
             "local_grad_nte": (vita_clip, "gather_rows", _local_grad_nte),
@@ -121,7 +160,9 @@ _MUTANTS = {"local_nte": (vita_clip, "gather_rows", _local_nte),
                                   _local_grad_frames),
             "local_T_mean": (vision, "frame_mean", _local_T_mean),
             "local_time_embed": (vision, "time_embed_rows",
-                                 _local_time_embed)}
+                                 _local_time_embed),
+            "grads_over_world": (_mesh, "frame_group", _grads_over_world),
+            "no_gather": (vision, "_pipelined_blocks", _no_gather)}
 
 
 @contextlib.contextmanager
@@ -177,17 +218,28 @@ def _rank_spread(tree) -> float:
     return worst.item()
 
 
-def _frame_mesh():
-    return create_mesh(("data", "frame"), (1, _dist.world()[1]))
+def _frame_mesh(model: int = 1):
+    """(1, W / model, model) over ('data', 'frame', 'model')."""
+    world = _dist.world()[1]
+    if world % model:
+        raise SystemExit(f"selfcheck: a 'model' axis of {model} needs a "
+                         f"multiple of {model} processes, have {world}")
+    return create_mesh(("data", "frame", "model"),
+                       (1, world // model, model))
+
+
+def _model_ranks(kind: str) -> int:
+    """The 'model' axis of a frame scenario: 2 for the fm ones."""
+    return 2 if kind.startswith("fm") else 1
 
 
 def run_step_scenario(name, saved, batch, args, device, reference=None):
     kind, _, mutant = name.partition(":")
     split = _split(name)
     world = _dist.world()[1]
-    frames = kind.startswith("fp")
+    frames = kind.startswith(("fp", "fm"))
     if frames:
-        mesh = _frame_mesh()
+        mesh = _frame_mesh(_model_ranks(kind))
     else:
         shape = (1, world) if kind == "tp" else (world, 1)
         mesh = create_mesh(("data", "model"), shape)
@@ -201,7 +253,8 @@ def run_step_scenario(name, saved, batch, args, device, reference=None):
     loss_cfg = LossConfig(**args.loss)
     step = make_train_step(model, loss_cfg, opt, batch_split=split,
                            mesh=mesh, attn_impl=args.attn_impl,
-                           remat="full" if kind == "fp_remat" else "none")
+                           remat="full" if kind.endswith("_remat")
+                           else "none")
     local = {k: v.to(device) for k, v in
              shard_batch(batch, mesh, batch_split=split).items()}
     out = {"metrics": []}
@@ -219,11 +272,11 @@ def run_step_scenario(name, saved, batch, args, device, reference=None):
                                    if n}
                 out["grads"] = _cpu(gather_tensor_parallel(
                     _grads(state.trainable), mesh, cfg))
-    out["trainable"] = _cpu(gather_tensor_parallel(state.trainable, mesh,
-                                                   cfg))
+    full = gather_tensor_parallel(state.trainable, mesh, cfg)
+    out["trainable"] = _cpu(full)
     out["ms"] = ms
     if frames:
-        out["rank_spread"] = _rank_spread(state.trainable)
+        out["rank_spread"] = _rank_spread(full)
     if reference is not None:
         loss_r, grads_r, ms_r = reference
         rel = _rel_l2(out["grads"], grads_r)
@@ -280,12 +333,14 @@ def run_eval_scenario(name, saved, batch, args, device):
     return {"acc": acc, "conf": conf}
 
 
-def run_frame_eval(saved, batch, args, device):
+def run_frame_eval(saved, batch, args, device, model_ranks=1):
     """The frame-sharded forward of the batch's clips (with the NTE and
-    memory inputs) and of the eval clips: the outputs and their largest
-    difference across the ranks."""
-    mesh = _frame_mesh()
-    model = _model(saved, saved["params"], device)
+    memory inputs) and of the eval clips, with `model_ranks` > 1 on the
+    rank's Megatron shards: the outputs and their largest difference
+    across the ranks."""
+    mesh = _frame_mesh(model_ranks)
+    model = _model(saved, shard_params_tensor_parallel(
+        saved["params"], mesh, saved["cfg"]), device)
     index, count = mesh.axis_index("frame"), mesh.axis_size("frame")
     out = {}
     with torch.no_grad():
@@ -357,6 +412,55 @@ def _host_ms(fn, device, alone: bool = False) -> float:
     return ms
 
 
+def _serve_clips(S: int, B: int) -> np.ndarray:
+    """The seeded uint8 clips of the serving scenarios, (B, 8, S, S, 3)."""
+    return np.random.RandomState(0).randint(0, 256, (B, 8, S, S, 3),
+                                            dtype=np.uint8)
+
+
+def _every_rank(launches: dict, device) -> list:
+    """Every rank's nonzero launch counts, in one all-gather."""
+    names = sorted(launches)
+    mine = torch.tensor([launches[k] for k in names], device=device)
+    every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, mine)
+    return [{k: int(n) for k, n in zip(names, e) if n} for e in every]
+
+
+def _serve_record(sharded, one, launches, device, ms, ms_one) -> dict:
+    top = one.float().abs().max().item()
+    return {
+        "max_abs_diff": (sharded.float() - one.float()).abs().max().item(),
+        "max_abs_logit": top,
+        # the spacing of bf16 values at the largest |logit|
+        "logit_ulp": 2.0 ** (math.floor(math.log2(top)) - 7),
+        "finite": bool(torch.isfinite(sharded).all()),
+        "shape": tuple(sharded.shape),
+        "rank_spread": _rank_spread([sharded]),
+        "launches": _every_rank(launches, device),
+        "ms": ms, "ms_one_process": ms_one}
+
+
+def _sharded_and_one(forward, device, mutant):
+    """forward(True) (the sharded forward, under `mutant`, its launches
+    counted) and forward(False) (one process), then, without a mutant, both
+    timed SERVE_TURNS times in turns: (the `_serve_record`, the sharded
+    logits, one process's)."""
+    one = forward(False)
+    _reset_launches()
+    with _mutant(mutant):
+        sharded = forward(True)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(_launches())
+    ms, ms_one = [], []
+    for _ in range(0 if mutant else SERVE_TURNS):
+        ms.append(_host_ms(lambda: forward(True), device))
+        ms_one.append(_host_ms(lambda: forward(False), device, alone=True))
+    return _serve_record(sharded, one, launches, device, ms, ms_one), \
+        sharded, one
+
+
 def run_frame_serve(device, mutant=""):
     """The zero-shot classifier's forward, frame-sharded (under `mutant`,
     if one is named) against one process's on the same clips, in bf16 and
@@ -369,8 +473,7 @@ def run_frame_serve(device, mutant=""):
     S, B, L = SERVE_SIZES[device.type]
     model = _serve_model(device, S, L)
     classes = [f"class {i}" for i in range(model.text_features.shape[0])]
-    clips = np.random.RandomState(0).randint(0, 256, (B, 8, S, S, 3),
-                                             dtype=np.uint8)
+    clips = _serve_clips(S, B)
     out = {}
     for mode, kw, fused in (
             ("bf16", {}, False),
@@ -394,37 +497,93 @@ def run_frame_serve(device, mutant=""):
 
         extras_kernel.set_fused_extras(fused)
         try:
-            one = forward(False)
-            _reset_launches()
-            with _mutant(mutant):
-                sharded = forward(True)
-            if device.type == "cuda":
-                torch.cuda.synchronize()
-            launches = dict(_launches())
-            ms, ms_one = [], []
-            for _ in range(0 if mutant else SERVE_TURNS):
-                ms.append(_host_ms(lambda: forward(True), device))
-                ms_one.append(_host_ms(lambda: forward(False), device,
-                                       alone=True))
+            out[mode] = _sharded_and_one(forward, device, mutant)[0]
         finally:
             extras_kernel.set_fused_extras(False)
-        # every rank's counts, in one gather
-        names = sorted(launches)
-        mine = torch.tensor([launches[k] for k in names], device=device)
-        every = [torch.empty_like(mine) for _ in range(count)]
-        dist.all_gather(every, mine)
-        top = one.float().abs().max().item()
-        out[mode] = {
-            "max_abs_diff": (sharded.float() - one.float()).abs().max().item(),
-            # the spacing of bf16 values at the largest |logit|
-            "logit_ulp": 2.0 ** (math.floor(math.log2(top)) - 7),
-            "finite": bool(torch.isfinite(sharded).all()),
-            "shape": tuple(sharded.shape),
-            "rank_spread": _rank_spread([sharded]),
-            "launches": [{k: int(n) for k, n in zip(names, e) if n}
-                         for e in every],
-            "ms": ms, "ms_one_process": ms_one}
         del clf
+    return out
+
+
+def run_model_frame_serve(device):
+    """The zero-shot classifier's bf16 weights through `vita_clip.apply`
+    on the (1, W/2, 2) ('data', 'frame', 'model') mesh, each rank its
+    frames and its Megatron shards of the tower, against one process's
+    bf16 forward on the same weights; `f32_diff` is the largest |logit|
+    difference of that forward from one process's fp32 forward on the
+    same weights, the distance bf16 rounding alone puts between two
+    forwards."""
+    from ..data.device_preprocess import normalize_frames
+    from ..serve import VideoClassifier
+    mesh = _frame_mesh(2)
+    index, count = mesh.axis_index("frame"), mesh.axis_size("frame")
+    S, B, L = SERVE_SIZES[device.type]
+    model = _serve_model(device, S, L)
+    classes = [f"class {i}" for i in range(model.text_features.shape[0])]
+    clf = VideoClassifier.from_model(model, classes, batch_size=B,
+                                     device=device)
+    net = clf.net
+    params = net.param_tree()
+    shards = shard_params_tensor_parallel(params, mesh, net.cfg)
+    buffers = {"text_features": net.text_features}
+    x = normalize_frames(clf._prepare(_serve_clips(S, B)), clf._mean,
+                         clf._std)
+
+    def apply(p, x, dtype, mesh=None):
+        with torch.inference_mode():
+            return vita_clip.apply(net.cfg, p, buffers, x,
+                                   compute_dtype=dtype,
+                                   attn_impl=clf.attn_impl,
+                                   mesh=mesh)["logits"]
+
+    f32 = apply(params, x, torch.float32)
+    record, _, one = _sharded_and_one(
+        lambda sharded: apply(shards, local_frames(x, index, count),
+                              torch.bfloat16, mesh) if sharded
+        else apply(params, x, torch.bfloat16), device, "")
+    record["f32_diff"] = (one.float() - f32).abs().max().item()
+    return {"bf16": record}
+
+
+# fpp_serve: the blocks in PP_SERVE_STAGES stages on the rank's device and
+# PP_SERVE_MICRO micro-batches of whole clips; (input size, clips, vision
+# layers), the clips even in number a micro-batch on the CPU, so that the
+# no_gather mutant's pseudo-videos of 8 rows fill
+PP_SERVE_STAGES = 2
+PP_SERVE_MICRO = 2
+PP_SERVE_SIZES = {"cuda": (224, 16, 12), "cpu": (32, 4, 2)}
+
+
+def run_pipelined_frame_serve(device, mutant=""):
+    """The zero-shot classifier's forward frame-sharded with its blocks as
+    a pipeline (under `mutant`, if one is named), against one process's
+    forward without the pipeline: in bf16 (the classifier's weights) and
+    in fp32 (the model's), whose logits are kept."""
+    from ..data.device_preprocess import normalize_frames
+    from ..serve import VideoClassifier
+    mesh = _frame_mesh()
+    index, count = mesh.axis_index("frame"), mesh.axis_size("frame")
+    S, B, L = PP_SERVE_SIZES[device.type]
+    model = _serve_model(device, S, L)
+    classes = [f"class {i}" for i in range(model.text_features.shape[0])]
+    clf = VideoClassifier.from_model(model, classes, batch_size=B,
+                                     device=device)
+    x = normalize_frames(clf._prepare(_serve_clips(S, B)), clf._mean,
+                         clf._std)
+    pp = ([device] * PP_SERVE_STAGES, PP_SERVE_MICRO)
+    out = {}
+    for mode, net, dtype in (("bf16", clf.net, torch.bfloat16),
+                             ("fp32", model, torch.float32)):
+        def forward(sharded, net=net, dtype=dtype):
+            with torch.inference_mode():
+                if sharded:
+                    return net(local_frames(x, index, count),
+                               compute_dtype=dtype, attn_impl=clf.attn_impl,
+                               pp=pp, mesh=mesh)["logits"]
+                return net(x, compute_dtype=dtype,
+                           attn_impl=clf.attn_impl)["logits"]
+
+        out[mode], sharded, _ = _sharded_and_one(forward, device, mutant)
+        out[f"{mode}_logits"] = sharded.float().cpu()
     return out
 
 
@@ -455,10 +614,11 @@ def main(argv=None):
     args.attn_impl = args.attn_impl or (
         "flash" if device.type == "cuda" else "xla")
     scenarios = args.scenarios.split(",")
+    serve = ("fp_serve", "fm_serve", "fpp")
     if not (args.model and args.batch) and any(
-            not s.startswith("fp_serve") for s in scenarios):
+            not s.startswith(serve) for s in scenarios):
         raise SystemExit("selfcheck: --model and --batch are needed for "
-                         "every scenario but fp_serve")
+                         "every scenario but fp_serve, fm_serve and fpp")
     saved = batch = train_batch = None
     if args.model:
         saved = torch.load(args.model, weights_only=False)
@@ -472,8 +632,14 @@ def main(argv=None):
         t0 = time.perf_counter()
         if name.startswith("fp_serve"):
             results[name] = run_frame_serve(device, name.partition(":")[2])
-        elif name == "fp_eval":
-            results[name] = run_frame_eval(saved, batch, args, device)
+        elif name == "fm_serve":
+            results[name] = run_model_frame_serve(device)
+        elif name.startswith("fpp"):
+            results[name] = run_pipelined_frame_serve(
+                device, name.partition(":")[2])
+        elif name in ("fp_eval", "fm_eval"):
+            results[name] = run_frame_eval(saved, batch, args, device,
+                                           _model_ranks(name))
         elif name.startswith("eval_"):
             results[name] = run_eval_scenario(name, saved, batch, args,
                                               device)
@@ -492,7 +658,7 @@ def main(argv=None):
         if rank == 0:
             summary = {k: v for k, v in results[name].items()
                        if k in ("check", "ms", "seconds", "acc",
-                                "rank_spread", "bf16", "w8a8")}
+                                "rank_spread", "bf16", "w8a8", "fp32")}
             print(f"[selfcheck] {name}: {json.dumps(summary)}", flush=True)
     if rank == 0:
         torch.save(results, args.out)

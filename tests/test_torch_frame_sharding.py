@@ -25,13 +25,20 @@ kinds, NTE and the support memory) at a batch of 2 clips of 4 frames:
     the local frame count, every rank's frames embedded as frames 0, 1;
   * the zero-shot classifier (ViT-B/16 widths cut to 2 layers and 32^2
     frames) frame-sharded against one process, in bf16 and in w8a8 +
-    patch-major with the fused prompt extras.
+    patch-major with the fused prompt extras;
+  * the same classifier frame-sharded with its blocks in 2 pipeline stages
+    and 2 micro-batches (4 clips): in fp32 against JAX's
+    `apply(pp=(mesh, 2))` on a ('frame', 'pipe') 2 x 2 mesh with the video
+    at P(None, 'frame'), in bf16 against one process; stages that pass no
+    FrameShard (each rank's summary attention on its own frames) fail
+    both.
 
-In one process: the shapes that do not split and the axes that frame
-sharding does not compose with raise, and the three frame operators
-without a group are the identity.
+In one process: the shapes that do not split, tensor parallelism over
+quantized leaves on a frame x model mesh and the pipeline with remat
+raise, and the three frame operators without a group are the identity.
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -42,13 +49,19 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+from gava_clip_tpu.models import vision as jvision
 from gava_clip_tpu.models import vita_clip as jvc
 from gava_clip_tpu.parallel import mesh as jmesh
 from gava_clip_tpu.train import state as jstate
 from gava_clip_tpu.train import step as jstep
+from gava_clip_tpu_torch.data.device_preprocess import (CLIP_MEAN, CLIP_STD,
+                                                        normalize_frames)
 from gava_clip_tpu_torch.models import vita_clip as tvc
-from gava_clip_tpu_torch.models.vision import vision_encoder
+from gava_clip_tpu_torch.models.vision import _pipelined_blocks, \
+    vision_encoder
 from gava_clip_tpu_torch.parallel import mesh as tmesh
+from gava_clip_tpu_torch.parallel import selfcheck
+from gava_clip_tpu_torch.utils import jax_bridge
 from tests.test_torch_bounds import module_deadline  # noqa: F401
 from tests.test_torch_parallel import (LR, STEPS, _finish, _launch,
                                        _mismatches)
@@ -57,7 +70,7 @@ from tests.test_torch_train_step import LOSS_KW, _batch, tiny_models
 FRAMES = 4
 SCENARIOS = ("fp", "fp_remat", "fp:local_grad_frames", "fp:local_T_mean",
              "fp:local_time_embed", "fp_eval", "fp_serve",
-             "fp_serve:local_time_embed")
+             "fp_serve:local_time_embed", "fpp_serve", "fpp:no_gather")
 # the JAX test's limit for the frame-sharded forward
 FORWARD_TOL = 1e-4
 # the classifier frame-sharded against one process, in bf16 ulps of its
@@ -66,18 +79,32 @@ FORWARD_TOL = 1e-4
 # summation order may differ, and with it at most the rounding of a
 # feature or a logit to bf16
 SERVE_MAX_LOGIT_ULPS = 2
+# the same in fp32, where that order moves a logit by fp32 roundings
+# alone: 2^-14 of the largest |logit|, the fp32 kernels' limit on the card
+SERVE_F32_REL = 2.0 ** -14
 
 
-def _jax_frame_refs(jmodel, batch, eval_video):
-    """JAX on its 2-device 'frame' mesh, the videos at P(None, 'frame') and
-    everything else replicated: the forward of the batch and of the eval
-    clips, the first step's gradients, and STEPS steps."""
-    mesh = jmesh.create_mesh(n_devices=2, axis_names=("frame",))
+def _jax_frame_refs(jmodel, batch, eval_video, model=1):
+    """JAX on its 2-device 'frame' mesh (model=2: a ('frame', 'model') 2 x 2
+    mesh whose parameters `shard_params_tensor_parallel` places), the
+    videos at P(None, 'frame') and everything else replicated: the forward
+    of the batch and of the eval clips, the first step's gradients, and
+    STEPS steps."""
+    if model == 1:
+        mesh = jmesh.create_mesh(n_devices=2, axis_names=("frame",))
+    else:
+        mesh = jmesh.create_mesh(n_devices=2 * model,
+                                 axis_names=("frame", "model"),
+                                 mesh_shape=(2, model))
     rep = NamedSharding(mesh, P())
 
     def place(tree):
         return jax.tree_util.tree_map(
             lambda a: jax.device_put(jnp.asarray(a), rep), tree)
+
+    def place_params(tree):
+        return place(tree) if model == 1 else \
+            jmesh.shard_params_tensor_parallel(tree, mesh)
 
     def frames(v):
         return jax.device_put(jnp.asarray(v), NamedSharding(mesh,
@@ -85,7 +112,7 @@ def _jax_frame_refs(jmodel, batch, eval_video):
 
     jb = dict(place({k: v for k, v in batch.items() if k != "video"}),
               video=frames(batch["video"]))
-    params = place(jmodel.params)
+    params = place_params(jmodel.params)
     forward = jax.jit(lambda p, b: jmodel.apply(
         p, jmodel.buffers, b["video"], memory=b["memory"],
         video_nte=b["nte"]))
@@ -93,8 +120,12 @@ def _jax_frame_refs(jmodel, batch, eval_video):
     out = {"train": forward(params, jb),
            "eval": forward_eval(params, frames(eval_video))}
     opt = jstate.make_optimizer(LR, 50, 0.1)
-    st = place(jstate.create_train_state(
-        jmodel.params, jvc.trainable_mask(jmodel.params, jmodel.cfg), opt))
+    st = jstate.create_train_state(
+        jmodel.params, jvc.trainable_mask(jmodel.params, jmodel.cfg), opt)
+    trainable = place_params(st.trainable)
+    st = jstate.TrainState(step=place(st.step), trainable=trainable,
+                           frozen=place_params(st.frozen),
+                           opt_state=opt.init(trainable))
     loss_cfg = jstep.LossConfig(**LOSS_KW)
     out["grads"] = jax.jit(jax.grad(jstep.make_loss_fn(jmodel, loss_cfg),
                                     has_aux=True))(st.trainable, st.frozen,
@@ -106,6 +137,32 @@ def _jax_frame_refs(jmodel, batch, eval_video):
         metrics.append({k: float(v) for k, v in m.items()})
     out["metrics"], out["trainable"] = metrics, st.trainable
     return out
+
+
+def _jax_pipelined_logits():
+    """fpp_serve's classifier (its seeded weights over the bridge, in fp32)
+    as JAX's zero-shot model: `apply(pp=(mesh, PP_SERVE_MICRO))` on a
+    ('frame', 'pipe') 2 x PP_SERVE_STAGES mesh, the clips at
+    P(None, 'frame')."""
+    S, B, L = selfcheck.PP_SERVE_SIZES["cpu"]
+    model = selfcheck._serve_model(torch.device("cpu"), S, L)
+    jcfg = jvc.VitaClipConfig(
+        vision=jvision.VisionConfig(**dataclasses.asdict(model.cfg.vision)),
+        num_classes=model.cfg.num_classes, zeroshot_evaluation=True)
+    jmodel = jvc.VitaClip(jcfg,
+                          zeroshot_text_features=model.text_features.numpy())
+    jmodel.params = jax_bridge.params_to_jax(model.param_tree())
+    x = normalize_frames(torch.from_numpy(selfcheck._serve_clips(S, B)),
+                         CLIP_MEAN, CLIP_STD).numpy()
+    mesh = jmesh.create_mesh(n_devices=2 * selfcheck.PP_SERVE_STAGES,
+                             axis_names=("frame", "pipe"),
+                             mesh_shape=(2, selfcheck.PP_SERVE_STAGES))
+    video = jax.device_put(jnp.asarray(x), NamedSharding(mesh,
+                                                         P(None, "frame")))
+    params = jax.device_put(jmodel.params, NamedSharding(mesh, P()))
+    return np.asarray(jax.jit(lambda p, v: jmodel.apply(
+        p, jmodel.buffers, v,
+        pp=(mesh, selfcheck.PP_SERVE_MICRO))["logits"])(params, video))
 
 
 @pytest.fixture(scope="module")
@@ -137,6 +194,7 @@ def frame_ranks(pair, tmp_path_factory):
                      "--loss", json.dumps(dict(LOSS_KW))], cwd=d)
     try:
         refs = _jax_frame_refs(jmodel, batch, eval_video)
+        refs["pipelined"] = _jax_pipelined_logits()
     finally:
         log = _finish(child)
     results = torch.load(d / "results.pt", weights_only=False)
@@ -227,6 +285,44 @@ def test_frame_serve_check_rejects_local_time_embed(frame_ranks, mode):
         res
 
 
+def _serve_limit(r, mode):
+    return SERVE_MAX_LOGIT_ULPS * r["logit_ulp"] if mode == "bf16" \
+        else SERVE_F32_REL * r["max_abs_logit"]
+
+
+def test_frame_pipelined_classifier_matches_jax(frame_ranks):
+    """The classifier (8 frames, 4 clips, 400 classes) over two frame ranks
+    with its blocks in 2 stages and 2 micro-batches of whole clips: in
+    fp32 JAX's pipelined forward on its frame-sharded video; in both
+    dtypes one process's forward without the pipeline (bf16 within 2 bf16
+    ulps, fp32 within 2^-14 of the largest |logit|); equal on both ranks;
+    no kernel launched on the CPU."""
+    res = frame_ranks["results"]["fpp_serve"]
+    np.testing.assert_allclose(res["fp32_logits"].numpy(),
+                               frame_ranks["refs"]["pipelined"],
+                               rtol=FORWARD_TOL, atol=FORWARD_TOL)
+    for mode in ("bf16", "fp32"):
+        r = res[mode]
+        assert r["finite"] and r["shape"] == (4, 400)
+        assert r["max_abs_diff"] <= _serve_limit(r, mode), r
+        assert r["rank_spread"] == 0.0
+        assert r["launches"] == [{}, {}]
+
+
+@pytest.mark.parametrize("mode", ["bf16", "fp32"])
+def test_frame_pipelined_check_rejects_no_gather(frame_ranks, mode):
+    """Stages that pass no FrameShard attend each rank's summary over its
+    own frames alone: the logits leave one process's limit in both dtypes
+    and, in fp32, JAX's."""
+    res = frame_ranks["results"]["fpp:no_gather"]
+    r = res[mode]
+    assert r["max_abs_diff"] > _serve_limit(r, mode), r
+    if mode == "fp32":
+        assert not np.allclose(res["fp32_logits"].numpy(),
+                               frame_ranks["refs"]["pipelined"],
+                               rtol=FORWARD_TOL, atol=FORWARD_TOL)
+
+
 # ----- one process ----------------------------------------------------------
 
 def _flat(tree, path=""):
@@ -258,9 +354,11 @@ def test_frame_partial_mask_marks_the_vision_tower(pair):
 
 
 def test_uneven_frames_and_other_axes_raise(pair):
-    """T not divisible by the frame ranks raises, naming the shape; a
-    'frame' axis with a 'model' axis or with the pipeline raises, and so
-    does the tower given a frame group with tp or pp."""
+    """T not divisible by the frame ranks raises, naming the shape; on a
+    frame x model mesh the frame group is the mesh's, and tensor
+    parallelism over quantized leaves still raises there; the pipeline
+    raises with remat, and under frame sharding with micro-batches that
+    do not hold whole clips."""
     with pytest.raises(ValueError, match=r"a clip of 6 frames \(a leaf of "
                                          r"shape \(2, 6, 3\)\) does not "
                                          r"split over 4 frame ranks"):
@@ -274,24 +372,33 @@ def test_uneven_frames_and_other_axes_raise(pair):
                              "labels": np.zeros(2)}, fake)
     np.testing.assert_array_equal(got["video"], [[2, 3], [10, 11]])
     assert got["labels"].shape == (2,)
+    group = object()
     both = tmesh.Mesh(("data", "frame", "model"),
                       {"data": 1, "frame": 2, "model": 2},
-                      {"data": 0, "frame": 0, "model": 0})
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        tmesh.frame_group(both)
-    with pytest.raises(NotImplementedError, match="pipelined"):
-        tmesh.frame_group(fake, pp=(["cpu", "cpu"], 2))
+                      {"data": 0, "frame": 0, "model": 0},
+                      {"frame": group, "model": object()})
+    assert tmesh.frame_group(both) is group
     assert tmesh.frame_group(tmesh.Mesh(("data", "model"),
                                         {"data": 1, "model": 2},
                                         {"data": 0, "model": 0})) is None
     _, model = pair
+    q = {"qa": torch.zeros(32, 32, dtype=torch.int8),
+         "scale": torch.ones(1, 32)}
+    with pytest.raises(NotImplementedError, match="float towers only"):
+        tmesh.shard_params_tensor_parallel(
+            {"visual": {"blocks": [{"attn": {"q": {"kernel": q}}}]}}, both,
+            model.cfg)
     video = torch.zeros(2, FRAMES, 32, 32, 3)
-    with pytest.raises(NotImplementedError, match="frame sharding"):
-        model.apply(model.params, model.buffers, video, mesh=both)
-    for kw in (dict(tp=object()), dict(pp=(["cpu"], 1))):
-        with pytest.raises(NotImplementedError, match=r"\(fp\)"):
-            vision_encoder(model.params["visual"], video,
-                           model.cfg.vision, fp=object(), **kw)
+    with pytest.raises(ValueError, match="without remat"):
+        vision_encoder(model.params["visual"], video, model.cfg.vision,
+                       pp=(["cpu", "cpu"], 2), remat="full")
+    # 2 clips of 2 frames a rank cannot make 3 micro-batches of whole clips
+    fs = tmesh.FrameShard(group, 0, 2, 2)
+    with pytest.raises(ValueError, match="2 clips do not split into 3 "
+                                         "micro-batches"):
+        _pipelined_blocks(model.params["visual"], None,
+                          torch.zeros(4, 5, 32), model.cfg.vision, "xla",
+                          "kernel", None, (["cpu"], 3), fs=fs)
 
 
 def test_frame_operators_without_a_group_are_the_identity():

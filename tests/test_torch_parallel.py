@@ -87,14 +87,15 @@ CHILD_ENV = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
 _LAUNCHES = itertools.count()
 
 
-def _launch(args, cwd) -> ChildOutput:
-    """`python -m torch.distributed.run --standalone --nproc_per_node 2
-    <args>` started in `cwd` (the caller works on while it runs). Its
-    processes carry a marker in their environment for `_kill_launch`."""
+def _launch(args, cwd, nproc: int = 2) -> ChildOutput:
+    """`python -m torch.distributed.run --standalone --nproc_per_node
+    <nproc> <args>` started in `cwd` (the caller works on while it runs).
+    Its processes carry a marker in their environment for
+    `_kill_launch`."""
     tag = f"{os.getpid()}-{next(_LAUNCHES)}"
     child = ChildOutput(subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node", "2", *args], cwd=cwd,
+         "--nproc_per_node", str(nproc), *args], cwd=cwd,
         env=dict(CHILD_ENV, GAVA_TEST_LAUNCH=tag), stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True))
     child.tag = tag
@@ -121,7 +122,7 @@ def _finish(child: ChildOutput, seconds=LAUNCH_S) -> str:
     try:
         out = child.finish(seconds)
         if child.proc.returncode != 0:
-            child.abandon(f"the two-process run exited "
+            child.abandon(f"the multi-process run exited "
                           f"{child.proc.returncode}")
         return out
     finally:
@@ -377,7 +378,7 @@ def test_vision_encoder_pipelined_matches_jax():
                                atol=1e-6)
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-5,
                                atol=1e-6)
-    with pytest.raises(AssertionError, match="without remat"):
+    with pytest.raises(ValueError, match="without remat"):
         vision_encoder(params["visual"], torch.from_numpy(video), cfg,
                        pp=(["cpu", "cpu"], 2), remat="full")
 
