@@ -327,8 +327,7 @@ KERNEL_SYMBOLS = ("packed_attention_kernel", "w8a8_matmul_kernel",
                   "w8_matmul_kernel", "fused_extras_kernel",
                   "packed_bwd_kernel", "mega_layer_kernel",
                   "w8_matmul_f32_kernel", "fma_fwd_kernel",
-                  "packed_fwd_kernel", "stream_bwd_dq_kernel",
-                  "stream_bwd_dkdv_kernel")
+                  "packed_fwd_kernel", "dq_reduce_kernel")
 KERNEL_SOURCE = "gava_clip_tpu_torch/csrc/packed_attention.cu"
 KERNEL_REPLACES = "gava_clip_tpu/ops/flash_attention.py:181"
 # every kernel of the two serving paths and of the training step:
@@ -2064,10 +2063,15 @@ def phase_train_kernels(state):
 F32_PACKED_SHAPES = ((128, 197, 214, 12), (280, 197, 276, 12), (3, 13, 21, 2),
                      (2, 65, 64, 3), (2, 640, 640, 4))
 # (B, Lq, Lk, heads, causal): the text tower (15 prompts x 77 tokens, 8
-# heads, causal), a long causal L, keys past 640, ragged cross shapes
+# heads, causal), a long causal L, a 400^2 frame row of the vision tower at
+# 4 clips x 8 frames (626 query rows, 643 keys: past the packed path's 640),
+# keys past 640, ragged cross shapes; the backward is timed at the first
+# three (F32_STREAM_TIMED), the kernels line's B7 fp32 backward holds the
+# vision shape's numbers
 F32_STREAM_SHAPES = ((15, 77, 77, 8, True), (4, 1024, 1024, 8, True),
-                     (2, 130, 700, 2, False), (2, 100, 60, 2, True),
-                     (3, 13, 21, 2, False))
+                     (32, 626, 643, 12, False), (2, 130, 700, 2, False),
+                     (2, 100, 60, 2, True), (3, 13, 21, 2, False))
+F32_STREAM_TIMED = {0: "text_shape", 1: "long_causal", 2: "vision_400"}
 # Limit of each fp32 kernel against its plain version on the same inputs:
 # err <= F32_REL * scale, where scale is sum p |v| for a forward (exact: the
 # plain version on |v|) and the largest |gradient| of the tensor for a
@@ -2104,28 +2108,30 @@ def _check_f32(name, label, out, ref, scale, state):
     return err.max().item()
 
 
-def _f32_timings(state, label, rows, record=True):
+def _f32_timings(state, label, rows, record=True, launches=GRAPH_LAUNCHES):
     """Time each (name, kernel, plain, library, library's graph call,
     (fp32-FMA bound, 3xTF32 bound or None), err) in `rows`: kernel and
     plain version in turns; kernel and the library call (SDPA in fp32) in
-    turns and in CUDA graphs of GRAPH_LAUNCHES calls each (median of 7
-    rounds, device time where a call is launch-bound); with `record`, the
-    kernels-line stats, whose bound is the 3xTF32 one where the kernel
-    takes its products so."""
+    turns and in CUDA graphs of `launches` calls each (median of 7 rounds,
+    device time where a call is launch-bound). Returns each row's stats,
+    whose bound is the 3xTF32 one where the kernel takes its products so;
+    `record` (True: every row; else the names to record) puts them in the
+    kernels line."""
     stats = state.setdefault("kstats", {})
+    got = {}
     for name, kernel, plain, library, library_graph, bounds, err in rows:
         fma, tf32 = bounds
         ms, plain_ms, t = _time_pair(kernel, plain, iters=5)
         r = _ratio_turns(kernel, library, iters=5)
         if library_graph is not None:
-            g = _ratio_graphs(kernel, library_graph)
-            graphs = (f"in CUDA graphs of {GRAPH_LAUNCHES} calls, median of "
+            g = _ratio_graphs(kernel, library_graph, launches)
+            graphs = (f"in CUDA graphs of {launches} calls, median of "
                       f"7 rounds: {g[0]:.5f} ms vs {g[1]:.5f} ms a call, "
                       f"ratio {g[2]:.3f} (rounds {g[3]:.3f}-{g[4]:.3f})")
         else:
-            g = (cuda_time_ms(_graph_call(kernel), iters=5) / GRAPH_LAUNCHES,
-                 None)
-            graphs = (f"in CUDA graphs of {GRAPH_LAUNCHES} calls: {g[0]:.5f} "
+            g = (cuda_time_ms(_graph_call(kernel, launches), iters=5)
+                 / launches, None)
+            graphs = (f"in CUDA graphs of {launches} calls: {g[0]:.5f} "
                       f"ms a call, SDPA not measured")
         bound = tf32 or fma
         log(f"[f32-kernel] {label}: {name} kernel {t['kernel']} ms, plain "
@@ -2135,11 +2141,13 @@ def _f32_timings(state, label, rows, record=True):
             f"{graphs}; bound as fp32 FMA {fma[0]:.4f} ms ({fma[1]})"
             + (f", as 3xTF32 {tf32[0]:.4f} ms ({tf32[1]})" if tf32 else "")
             + f" ({state['smi']})")
-        if record:
-            stats[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                           "bound_ms": bound[0], "bound_by": bound[1],
-                           "library_ms": r[1], "graph_ms": g[0],
-                           "library_graph_ms": g[1]}
+        got[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "library_ms": r[1], "graph_ms": g[0],
+                     "library_graph_ms": g[1]}
+        if record is True or name in record:
+            stats[name] = got[name]
+    return got
 
 
 def _graph_floor_ms(state):
@@ -2169,24 +2177,49 @@ def _host_ms(fn, iters=100):
     return t
 
 
-def _b7_host_and_floor(state, label, q, k, v, H, causal):
+def _b7_host_and_floor(state, label, q, k, v, H, causal, stats):
     """At the text tower's shape: the host time of a call of B7's fp32
     forward through its wrapper, and the floor of a CUDA graph node beside
-    the kernels-line graph times of B7's fp32 forward and backward and
-    their bytes bounds."""
+    the graph times of B7's fp32 forward and backward (`stats`, the
+    shape's timings) and their bytes bounds."""
     from gava_clip_tpu_torch.ops import flash_attention as fa
     host = _host_ms(lambda: fa.streaming_attention_cuda(q, k, v, H, causal))
     log(f"[f32-kernel] streaming_attention_f32 {label}: host ms a call of "
         f"the wrapper (100 enqueued back to back, host clock) {host:.5f} "
         f"({state['smi']})")
     floor = _graph_floor_ms(state)
-    stats = state["kstats"]
     for name in ("streaming_attention_f32", "streaming_attention_bwd_f32"):
         s = stats[name]
         log(f"[f32-kernel] {name} {label}: {s['graph_ms']:.5f} ms in CUDA "
             f"graphs beside the floor of a graph node {floor:.5f} ms (a "
             f"one-element add) and its bound {s['bound_ms']:.5f} ms "
             f"({s['bound_by']}) ({state['smi']})")
+
+
+def _b7_bf16_record(state, label, q, k, v, do, H, causal):
+    """B7's bf16 backward (csrc/streaming_attention_bwd.cu) at an fp32
+    shape, on the inputs rounded to bf16, beside SDPA's bf16 backward by
+    CUDA events in turns (a record: its largest error over the largest
+    |gradient| of the plain version on the same bf16 inputs)."""
+    import torch
+    from gava_clip_tpu_torch.ops import flash_attention as fa
+    q, k, v, do = (x.bfloat16() for x in (q, k, v, do))
+    o, lse = fa.streaming_attention_cuda(q, k, v, H, causal)
+    grads = fa.streaming_attention_bwd_cuda(q, k, v, do, o, lse, H, causal)
+    want = fa.streaming_attention_bwd_plain(q, k, v, do, o, lse, H, causal)
+    torch.cuda.synchronize()
+    err = max(((g.float() - w.float()).abs() / w.float().abs().max()).max()
+              .item() for g, w in zip(grads, want))
+    r = _ratio_turns(lambda: fa.streaming_attention_bwd_cuda(
+        q, k, v, do, o, lse, H, causal), _sdpa_bwd(q, k, v, do, H, causal),
+        iters=5)
+    bound = _attention_bounds(q.shape[0], q.shape[1], k.shape[1], H,
+                              causal)["bwd"]
+    log(f"[f32-kernel] streaming_attention_bwd (bf16) {label}: max err / "
+        f"scale {err:.3e} against its plain version; vs SDPA's bf16 backward "
+        f"(autograd), median of 7 rounds in turns: {r[0]:.4f} ms vs "
+        f"{r[1]:.4f} ms, ratio {r[2]:.3f} (rounds {r[3]:.3f}-{r[4]:.3f}); "
+        f"bound {bound[0]:.4f} ms ({bound[1]}) ({state['smi']})")
 
 
 def phase_f32_kernels(state):
@@ -2199,9 +2232,10 @@ def phase_f32_kernels(state):
     1024, 8)), the kernel against SDPA in turns and in CUDA graphs, beside
     the fp32-FMA and 3xTF32 bounds; B7's forward wrapper's host time, and
     the floor of a CUDA graph node beside the text tower's rows. With
-    state['checks_only'] (the mutants' runs) nothing is timed, and with
+    state['checks_only'] (the mutants' runs) nothing is timed, with
     state['only'] naming a packed or a streaming entry only those shapes
-    are checked."""
+    are checked, and with state['only_shape'] only the streaming shapes
+    whose label holds it."""
     import torch
     from gava_clip_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -2297,10 +2331,14 @@ def phase_f32_kernels(state):
             del sdpa_f, sdpa_b, sdpa_b_op
         del q, k, v, do, out, out1, den, ref, den_ref, grads, g8
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    b7b_times = {}
     for i, (B, Lq, Lk, H, causal) in enumerate(
             () if only.startswith("packed") else F32_STREAM_SHAPES):
         D = H * 64
         label = f"B={B} Lq={Lq} Lk={Lk} H={H} causal={causal}"
+        if state.get("only_shape", "") not in label:   # a mutant's shape
+            continue
         q, k, v, do = rand(B, Lq, D), rand(B, Lk, D), rand(B, Lk, D), \
             rand(B, Lq, D)
         out, lse = fa.streaming_attention_cuda(q, k, v, H, causal)
@@ -2323,11 +2361,16 @@ def phase_f32_kernels(state):
         g_ref = fa.streaming_attention_bwd_plain(q, k, v, do, ref, lse_ref,
                                                  H, causal)
         torch.cuda.synchronize()
-        # one launch while both lengths fit one key tile (128), else the dq
-        # and dk / dv kernels
-        want = {"one_launch": 1} if max(Lq, Lk) <= 128 else \
-            {"two_kernels": 2}
-        form_ok = forms == want
+        # one launch while both lengths fit one key tile (128), else the
+        # key groups: one launch, or two (the dq reduction) where the plan
+        # cuts the keys into groups
+        plan = fa.attention_f32_plan(B, Lq, Lk, H, packed=False,
+                                     sm_count=sms,
+                                     causal=causal)["bwd"]
+        want = {plan["form"]: plan["launches"]}
+        form_ok = forms == want and plan["form"] == (
+            "one_launch" if max(Lq, Lk) <= 128 else "key_groups")
+        want = f"{want}, {plan['groups']} group(s) of key tiles"
         log(f"[f32-kernel] streaming_attention_bwd_f32 {label}: form and "
             f"kernel launches {forms} (expect {want}) "
             f"{'ok' if form_ok else 'FAIL'}")
@@ -2342,35 +2385,48 @@ def phase_f32_kernels(state):
             f"gives the same bits: {same} {'ok' if same else 'FAIL'}")
         if not same:
             state.setdefault("f32_failures", []).append(f"bits {label}")
-        if i < 2 and timed:
-            # the text tower's shape (the kernels line's) and the long
-            # causal one; the forward and the one-launch backward take their
-            # products as 3xTF32
+        if i in F32_STREAM_TIMED and timed:
+            # the forward at the text tower's shape (the kernels line's) and
+            # the long causal one, the backward also at the 400^2 frame row
+            # (the kernels line's); both take their products as 3xTF32. A
+            # call at the two long shapes takes a millisecond or more:
+            # graphs of 2 calls
             bounds = _attention_bounds(B, Lq, Lk, H, causal, esize=4)
             bounds_tf32 = _attention_bounds(B, Lq, Lk, H, causal, esize=4,
                                             tf32=True)
-            sdpa_f = _sdpa_fwd(q, k, v, H, causal)
-            rows = [("streaming_attention_f32",
-                     lambda: fa.streaming_attention_cuda(q, k, v, H, causal),
-                     lambda: fa.streaming_attention_plain(q, k, v, H, causal),
-                     sdpa_f, sdpa_f,
-                     (bounds["fwd_stat"], bounds_tf32["fwd_stat"]), err_f)]
+            rows = [] if i == 2 else [(
+                "streaming_attention_f32",
+                lambda: fa.streaming_attention_cuda(q, k, v, H, causal),
+                lambda: fa.streaming_attention_plain(q, k, v, H, causal),
+                _sdpa_fwd(q, k, v, H, causal), _sdpa_fwd(q, k, v, H, causal),
+                (bounds["fwd_stat"], bounds_tf32["fwd_stat"]), err_f)]
+            rows.append((
+                "streaming_attention_bwd_f32",
+                lambda: fa.streaming_attention_bwd_cuda(
+                    q, k, v, do, ref, lse_ref, H, causal),
+                lambda: fa.streaming_attention_bwd_plain(
+                    q, k, v, do, ref, lse_ref, H, causal),
+                _sdpa_bwd(q, k, v, do, H, causal),
+                _sdpa_bwd_op(q, k, v, do, H, causal),
+                (bounds["bwd"], bounds_tf32["bwd"]), err_b))
+            got = _f32_timings(
+                state, label, rows,
+                record={0: ("streaming_attention_f32",),
+                        2: ("streaming_attention_bwd_f32",)}.get(i, ()),
+                launches=GRAPH_LAUNCHES if i == 0 else 2)
+            b7b_times[F32_STREAM_TIMED[i]] = got["streaming_attention_bwd_f32"]
             if i == 0:
-                rows.append((
-                    "streaming_attention_bwd_f32",
-                    lambda: fa.streaming_attention_bwd_cuda(
-                        q, k, v, do, ref, lse_ref, H, causal),
-                    lambda: fa.streaming_attention_bwd_plain(
-                        q, k, v, do, ref, lse_ref, H, causal),
-                    _sdpa_bwd(q, k, v, do, H, causal),
-                    _sdpa_bwd_op(q, k, v, do, H, causal),
-                    (bounds["bwd"], bounds_tf32["bwd"]
-                     if "one_launch" in forms else None), err_b))
-            _f32_timings(state, label, rows, record=i == 0)
-            if i == 0:
-                _b7_host_and_floor(state, label, q, k, v, H, causal)
+                _b7_host_and_floor(state, label, q, k, v, H, causal, got)
+            if i == 2:
+                _b7_bf16_record(state, label, q, k, v, do, H, causal)
         del spread, g_ref, again
         del q, k, v, do, out, lse, ref, lse_ref, grads
+    if b7b_times:
+        # the kernels line's B7 fp32 backward: the 400^2 frame row's numbers,
+        # beside the text tower's and the long causal shape's
+        stats = state["kstats"]["streaming_attention_bwd_f32"]
+        stats.update({k: v for k, v in b7b_times.items()
+                      if v is not stats})
     # fp32 q/k/v into a kernel with a bf16 form only (B4's int8 QK^T form,
     # B11) raises, naming its ROADMAP item; mixed and half inputs raise in
     # every kernel (B4, B11 and B12 take fp32 too: phase_w8a8_f32,
@@ -3200,11 +3256,11 @@ TRAIN_MAX_LOSS_DIFF = 2e-2
 TRAIN_MAX_GRAD_REL_ERR = 1e-1
 
 
-def _train_batch(B, T, seed=0):
+def _train_batch(B, T, seed=0, size=224):
     """The JAX bench's batch (bench.py main_train): seeded numpy inputs."""
     import torch
     rs = np.random.RandomState(seed)
-    batch = {"video": rs.rand(B, T, 224, 224, 3).astype(np.float32),
+    batch = {"video": rs.rand(B, T, size, size, 3).astype(np.float32),
              "labels": rs.randint(0, 3, size=B),
              "nte": rs.randn(B, 70, 512).astype(np.float32),
              "memory": rs.randn(64, 4, 512).astype(np.float32),
@@ -4590,6 +4646,177 @@ def phase_train_f32(state):
                  train_f32_peak=peak32)
 
 
+# The fp32 step at 400^2 frames (a frame row of 626 query rows and 643 keys,
+# past the packed path's 640: the vision blocks' attention streams, forward
+# and backward), ViT-B/16 at full width, 4 clips x 8 frames, remat none:
+# B7's fp32 forward in all 24 blocks, its backward in the 12 vision blocks
+# past 128 rows ('key_groups') and the 12 text blocks in one launch; no
+# packed kernel
+F32_400_SIZE = 400
+F32_400_CLIPS, F32_400_FRAMES = 4, 8
+F32_400_PER_STEP = {"streaming_attention_f32": 24,
+                    "streaming_attention_bwd_f32": 24,
+                    "packed_attention_f32": 0, "packed_attention_den_f32": 0,
+                    "packed_attention_bwd_f32": 0,
+                    "packed_attention_den": 0, "packed_attention_bwd": 0,
+                    "streaming_attention": 0, "streaming_attention_bwd": 0}
+F32_400_STEPS = 4
+F32_400_CLI_STEPS = 4
+
+
+def _f32_400_forms(sms):
+    """B7 fp32 backward's kernel launches by form in one 400^2 fp32 step at
+    F32_400_CLIPS x F32_400_FRAMES: the vision blocks' plan past 128 rows
+    (one group of key tiles on an H100: one launch each) and the text
+    tower's one launch, 12 blocks each."""
+    from gava_clip_tpu_torch.ops import flash_attention as fa
+    rows = (F32_400_SIZE // 16) ** 2 + 1
+    vision = fa.attention_f32_plan(F32_400_CLIPS * F32_400_FRAMES, rows,
+                                   rows + 17, 12, packed=False,
+                                   sm_count=sms)["bwd"]
+    text = fa.attention_f32_plan(15, 77, 77, 8, packed=False,
+                                 causal=True)["bwd"]
+    forms = {vision["form"]: 12 * vision["launches"]}
+    forms[text["form"]] = forms.get(text["form"], 0) + 12 * text["launches"]
+    return forms
+
+
+def phase_train_f32_400(state):
+    """The fp32 training step at 400^2 (build_flagship(input_size=400),
+    4 clips x 8 frames, flash, remat none): the first step's loss and
+    gradients against the same step through the plain versions on the card
+    (F32_STEP_MAX_*), B7's fp32 launches a step and its backward's forms,
+    F32_400_STEPS steps timed by CUDA events (ms/step, peak GiB, finite
+    losses); then `cli.train --spatial_size 400` in fp32 on a synthetic
+    fold of 400^2 clips, F32_400_CLI_STEPS steps, finite losses, the same
+    launches a step."""
+    import contextlib
+    import shutil
+    import tempfile
+    import torch
+    from gava_clip_tpu_torch.ops import flash_attention as fa
+    from gava_clip_tpu_torch.models.vita_clip import trainable_mask
+    from gava_clip_tpu_torch.train.state import create_train_state
+    from gava_clip_tpu_torch.train.step import make_loss_fn, make_train_step
+    from gava_clip_tpu_torch.utils.flagship import build_flagship
+    loss_cfg, opt = state["train_cfg"], state["train_opt"]
+    kw = dict(compute_dtype=torch.float32, attn_impl="flash")
+    forms_step = _f32_400_forms(
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    t0 = time.perf_counter()
+    model = build_flagship(num_frames=F32_400_FRAMES,
+                           input_size=F32_400_SIZE)
+    ts = create_train_state(model.params,
+                            trainable_mask(model.params, model.cfg), opt)
+    batch = _train_batch(F32_400_CLIPS, F32_400_FRAMES, size=F32_400_SIZE)
+    loss_fn = make_loss_fn(model, loss_cfg, remat="none", **kw)
+    log(f"[train-f32-400] built in {time.perf_counter() - t0:.1f} s (ViT-B/16 "
+        f"T={F32_400_FRAMES} {F32_400_SIZE}^2: 626 query rows and 643 keys a "
+        f"frame row; text 12 x 512; batch {F32_400_CLIPS} clips, fp32, "
+        f"flash, remat none)")
+
+    def loss_and_grads(plain=False):
+        ts.optimizer.zero_grad(set_to_none=True)
+        _reset_launch_counts()
+        with fa.plain_versions() if plain else contextlib.nullcontext():
+            total, _ = loss_fn(ts.trainable, ts.frozen, batch)
+            total.backward()
+        torch.cuda.synchronize()
+        grads = _grad_list(ts.trainable)
+        ts.optimizer.zero_grad(set_to_none=True)
+        forms = {f: n for f, n in fa.stream_bwd_f32_launches.items() if n}
+        return total.item(), grads, _launch_counts(), forms
+
+    loss_p, g_p, _, _ = loss_and_grads(plain=True)
+    loss_k, g_k, n_k, forms = loss_and_grads()
+    scale = max(g.norm().item() for g in g_p)
+    rel = [((a - b).norm() / b.norm().clamp_min(1e-3 * scale)).item()
+           for a, b in zip(g_k, g_p)]
+    worst = [n for n, _ in _named_leaves(ts.trainable)][int(np.argmax(rel))]
+    log(f"[train-f32-400] first fp32 step, kernels vs plain versions on the "
+        f"card: total {loss_k:.7f} vs {loss_p:.7f} (diff "
+        f"{abs(loss_k - loss_p):.2e}, limit {F32_STEP_MAX_LOSS_DIFF:g}); "
+        f"gradient leaves {len(rel)}, max relative L2 error {max(rel):.3e} "
+        f"({worst}), median {float(np.median(rel)):.3e} (limit "
+        f"{F32_STEP_MAX_GRAD_REL_ERR:g}); launches "
+        f"{ {k: n_k[k] for k in F32_400_PER_STEP} }; B7 fp32 backward's "
+        f"kernel launches by form {forms} (expect {forms_step})")
+    if not all(bool(torch.isfinite(g).all()) for g in g_k) or \
+            abs(loss_k - loss_p) > F32_STEP_MAX_LOSS_DIFF or \
+            max(rel) > F32_STEP_MAX_GRAD_REL_ERR or forms != forms_step or \
+            any(n_k[k] != v for k, v in F32_400_PER_STEP.items()):
+        raise AssertionError("the 400^2 fp32 step through the kernels "
+                             "disagrees with the plain versions")
+    del g_p, g_k
+
+    step = make_train_step(model, loss_cfg, opt, remat="none", **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    totals, ms = [], []
+    for _ in range(F32_400_STEPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        ts, metrics = step(ts, batch)
+        ev[1].record()
+        totals.append(metrics["total"].item())
+        ms.append(ev[0].elapsed_time(ev[1]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts = _launch_counts()
+    forms = {f: n for f, n in fa.stream_bwd_f32_launches.items() if n}
+    log(f"[train-f32-400] {F32_400_STEPS} fp32 steps: "
+        f"{[round(t, 2) for t in ms]} ms by CUDA events (median of the last "
+        f"{F32_400_STEPS - 1}: {np.median(ms[1:]):.2f} ms/step); peak memory "
+        f"{peak:.2f} GiB; total loss {[round(t, 4) for t in totals]}; "
+        f"launches {counts['streaming_attention_f32']} / "
+        f"{counts['streaming_attention_bwd_f32']}, forms {forms} "
+        f"({state['smi']})")
+    if not all(np.isfinite(totals)) or any(
+            counts[k] != v * F32_400_STEPS for k, v in F32_400_PER_STEP.items()):
+        raise AssertionError("the 400^2 fp32 steps failed their checks")
+    state.setdefault("launches_by_kernel", {})[
+        "streaming_attention_bwd_f32"] = n_k["streaming_attention_bwd_f32"]
+    del model, ts, step, loss_fn, batch, metrics
+    torch.cuda.empty_cache()
+
+    root = tempfile.mkdtemp(prefix="gava_fold400_")
+    cwd = os.getcwd()
+    kdir = None
+    try:
+        n_train = F32_400_CLIPS * F32_400_CLI_STEPS
+        data_args, kdir = _write_fold(root, T=F32_400_FRAMES,
+                                      n_train=n_train, n_val=F32_400_CLIPS,
+                                      size=F32_400_SIZE)
+        os.chdir(root)
+        argv = [a for a in data_args if a != "--use_bf16"] + [
+            "--batch_size", str(F32_400_CLIPS),
+            "--num_steps", str(F32_400_CLI_STEPS), "--print_freq", "1",
+            "--lr", "1e-3", "--eval_freq", "1000", "--save_freq", "1000"]
+        _reset_launch_counts()
+        _, rec = _train_main(argv, "run_f32_400")
+        n = _launch_counts()
+        forms = {f: k for f, k in fa.stream_bwd_f32_launches.items() if k}
+        losses = [r["loss"] for r in rec if "loss" in r]
+        want = {k: v * F32_400_CLI_STEPS for k, v in F32_400_PER_STEP.items()}
+        want_forms = {f: k * F32_400_CLI_STEPS for f, k in forms_step.items()}
+        log(f"[train-f32-400] cli.train --spatial_size {F32_400_SIZE} in "
+            f"fp32, {F32_400_CLI_STEPS} steps of {F32_400_CLIPS} clips x "
+            f"{F32_400_FRAMES} frames: losses {[round(x, 4) for x in losses]}; "
+            f"launches { {k: n[k] for k in F32_400_PER_STEP} }, B7 fp32 "
+            f"backward's forms {forms} (expect {want_forms}) "
+            f"({state['smi']})")
+        if len(losses) != F32_400_CLI_STEPS or not all(np.isfinite(losses)) \
+                or forms != want_forms or \
+                any(n[k] != v for k, v in want.items()):
+            raise AssertionError("cli.train --spatial_size 400 failed its "
+                                 "checks")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+        if kdir:
+            shutil.rmtree(kdir, ignore_errors=True)
+
+
 # ---------------------------------------------------------------------------
 # int8-forward training (--int8_frozen): the straight-through ops B3a, B2
 # and B5 at the shapes of the flagship's training step, the step itself at
@@ -5169,13 +5396,14 @@ def _separable_clip(rs, label: int, T: int, S: int = 224) -> np.ndarray:
 
 
 def _write_fold(root: str, T: int, n_train: int, n_val: int, seed: int = 0,
-                videos=None, memory: str = ""):
+                videos=None, memory: str = "", size: int = 224):
     """A synthetic fold under `root`: lists, decoded-view cache files in
     place of videos (no decoder needed), NTE arrays, the memory pickle, the
     knowledge directory and a classes file. Returns the program's data
     arguments. With `videos` (n_train + n_val names) the clips are
     `<name>*0.mp4`, whose NTE files `<name>.npy` the caller wrote under
-    root/nte, and `memory` is the memory pickle: neither is drawn here."""
+    root/nte, and `memory` is the memory pickle: neither is drawn here.
+    `size`: the frames' side (the programs' --spatial_size)."""
     import pickle
     from gava_clip_tpu_torch.data.datasets import (VideoDataset,
                                                    VideoDatasetConfig)
@@ -5198,9 +5426,9 @@ def _write_fold(root: str, T: int, n_train: int, n_val: int, seed: int = 0,
         ds = VideoDataset(VideoDatasetConfig(
             list_path=lst, data_root=root, num_spatial_views=1,
             num_temporal_views=1, num_frames=T, sampling_rate=1,
-            is_train=split == "train", cache_dir=cache))
+            is_train=split == "train", cache_dir=cache, spatial_size=size))
         for path, label in rows:
-            ds._cache_store(path, _separable_clip(rs, label, T)[None])
+            ds._cache_store(path, _separable_clip(rs, label, T, size)[None])
             if videos is None:
                 np.save(os.path.join(root, "nte",
                                      path.split(".")[0] + ".npy"),
@@ -5217,7 +5445,7 @@ def _write_fold(root: str, T: int, n_train: int, n_val: int, seed: int = 0,
     args = ["--nfold", "1", "--type", "updrs", "--data_root", root,
             "--text_prompt_classes_path", classes,
             "--decoded_cache_dir", cache, "--num_temporal_views", "1",
-            "--num_frames", str(T), "--use_bf16",
+            "--num_frames", str(T), "--spatial_size", str(size), "--use_bf16",
             "--use_text_prompt_learning", "--use_text_prompt_CSC",
             "--text_num_prompts", "8",
             "--text_prompt_init", "cntn_split_uni_disc",
@@ -7441,6 +7669,7 @@ def main(argv=None) -> int:
             ("train-slice", phase_train_slice),
             ("train-recompute", phase_train_recompute),
             ("train-f32", phase_train_f32),
+            ("train-f32-400", phase_train_f32_400),
             ("int8-train", phase_int8_train),
             ("driver", phase_cli),
             ("gait-text", phase_gait_text),

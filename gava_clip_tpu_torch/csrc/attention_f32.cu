@@ -43,9 +43,8 @@
 //     as the packed backward with inv = 1.
 //
 // Two kinds of kernel. The packed attention of the training step and of
-// the evaluation forward (B1 / B6a, B6b, B8), B7's forward at every length,
-// and B7's backward while its rows fit one key tile (Lq, Lk <= 128: the text
-// tower), run every product
+// the evaluation forward (B1 / B6a, B6b, B8) and B7's forward and backward
+// at every length run every product
 // on the tensor cores as 3xTF32 (tf32_frags.cuh: mma.sync m16n8k8, each fp32
 // operand split once into hi and lo as it enters registers, the lo x lo
 // product dropped; each step's three products summed in a fresh
@@ -54,8 +53,7 @@
 // matmuls (tests/test_torch_attention_f32.py holds that under an emulation
 // that truncates as the tensor core does), where one TF32 product alone
 // rounds each operand to a 10-bit mantissa (~5e-4 relative), which an fp32
-// run must not see. B7's backward past 128 rows runs as fp32 FMA on 64 x 64
-// shared tiles. The attention of the w8a8 fusion's fp32
+// run must not see. The attention of the w8a8 fusion's fp32
 // forms (B4, B11, B12) runs as fp32 FMA too, every sum in one fixed order:
 // each score over the head columns and each numerator over the keys one
 // fmaf after another from 0, the denominator a pairwise tree over each key
@@ -138,38 +136,44 @@
 // through one, the next key tile's issued as soon as the last step of the
 // current one has taken its scores.
 //
-// B7's backward in one launch (the same kernel, packed_bwd_kernel<true>):
-// at the text tower's 15 prompts x 77 tokens x 8 heads it moves 19 MB
-// (0.0057 ms at 3.35 TB/s) for 0.23 GFLOP of visible scores (0.0014 ms as
-// 3xTF32): bytes, and at 120 blocks, one wave on 132 SMs, launch and
-// latency in fact. Its first form, the two FMA kernels below, rebuilt q k^T
-// and do v^T in both (seven products a score entry) and passed each row's
-// delta and statistic through a scratch. Here one block per (batch row,
-// head) walks the one key tile with the packed backward's steps: the row
-// slot of inv_d holds st = lse log2 e, p = exp2(s c - st), 0 past Lk, past
-// Lq and, under the causal mask, for a key past its row; delta = rowsum(do
-// o) as there; five products a score entry in a fixed order, no scratch and
-// the same bits on every run. Under the causal mask a warp whose 16 keys
-// all lie past the query tile's last row skips the tile (its p and ds are 0
-// and its ds^T is never read), and a slab's dq sum stops at the chunk of its
-// last row's key. Rows past 128 keep the two FMA kernels: a block per (b, h)
-// would leave most SMs idle there.
-//
-// The FMA tiles (B7's backward past 128 rows): every product is a 64 x 64
-// x 64 product of tiles in shared memory, 256 threads (16 x 16) each
-// holding a 4 x 4 patch of the result, 64 rank-1 steps from two float4
-// loads. Both operands are stored with the summed index as the row
-// ("x-major"): a tile of q, k, v or do is stored transposed (loader load_t,
-// conflict-free: a warp writes 16 rows x 2 float4 into distinct banks)
-// where its head columns are summed, and as it is (load_n) where its rows
-// are. A dq kernel (ops/flash_attention.attention_f32_plan 'two_kernels'),
-// one block per (64 query rows, head, batch row), walks the key tiles; it
-// first takes each row's delta and statistic and leaves them in a scratch
-// buffer for the dk / dv kernel, one block per (64 keys, head, batch row),
-// which walks the query tiles from the key tile's own. Each owns its output
-// tile: no atomics. Under the causal mask the dq kernel stops at its last
-// row's key.
-//
+// B7's backward (the same kernel, packed_bwd_kernel<true>), at every
+// length: the row slot of inv_d holds st = lse log2 e, p = exp2(s c - st),
+// 0 past Lk, past Lq and, under the causal mask, for a key past its row;
+// delta = rowsum(do o) as there; five products a score entry in a fixed
+// order, no atomics and the same bits on every run. Under the causal mask a
+// key tile starts at the query tile of its first key (the tiles before see
+// none of its keys), a warp whose 16 keys all lie past the last row of a
+// 32-row half skips the half (its p and ds are 0 and its ds^T is never
+// read), and a slab's dq sum stops at the chunk of its last row's key.
+//   Its grid (ops/flash_attention.attention_f32_plan's 'bwd'): a block per
+// item (batch row, head, group of key tiles), the (b, h) pair cut into the
+// fewest groups whose blocks fill the card's waves to 85% (under the causal
+// mask with fewer pairs than SMs, one a key tile: the first key tile walks
+// every query tile). One group ('one_launch' while Lq, Lk <= 128, the text
+// tower; 'key_groups' past that): the block owns dq too and writes it, its
+// accumulator in shared memory where it fits, else in a block-private
+// region of the global scratch with the blocks walking the items by a grid
+// stride, as B6b. More groups: each item keeps its dq sums in its own
+// region of the scratch and a second launch, dq_reduce_kernel, adds the
+// groups' sums in group order and scales them: no atomics, the same bits on
+// every run, and still five products a score entry (a dq block per query
+// tile walking the key tiles would form q k^T and do v^T again: seven).
+// 'key_groups' takes 64 query rows a step (kGrpRows), two halves of 32
+// between the step's two barriers: a step is one warp's chain of dependent
+// products and splits between barriers, so half the barriers a row took
+// 0.93x the time of 32-row steps on an H100 at the 400^2 frame row below.
+//   What bounds it on an H100 SXM (data-sheet figures, not measured): at the
+// text tower's 15 prompts x 77 tokens x 8 heads it moves 19 MB (0.0057 ms at
+// 3.35 TB/s) for 0.23 GFLOP of visible scores (0.0014 ms as 3xTF32): bytes,
+// and at 120 blocks, one wave on 132 SMs, launch and latency in fact. At a
+// 400^2 frame row of the vision tower, 4 clips x 8 frames, (32, 626, 643,
+// 12): 98.9 GFLOP, 0.600 ms as 3xTF32 against 0.149 ms of bytes, 384 items,
+// one group; at (4, 1024, 1024, 8) causal 10.7 GFLOP, 0.065 ms, 32 pairs cut
+// into 8 groups of one key tile. Its first form past 128 rows, two FMA
+// kernels on 64 x 64 shared tiles (a dq kernel a query tile, a dk / dv
+// kernel a key tile), formed q k^T and do v^T in both: seven products a
+// score entry, as fp32 FMA.
+
 // The w8a8 fusion's fp32 attention (fma_fwd_kernel; B4, B11, B12): one
 // block of 7 warps per (112 query rows, head, batch row), 16 rows a warp,
 // two blocks an SM; a warp whose rows all lie past Lq only helps load, so
@@ -209,16 +213,6 @@ constexpr int kHD = 64;                  // head dim the kernels are built for
 constexpr float kClamp = 110.f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-// the FMA tiles
-constexpr int kT = 64;                   // query rows or keys of a tile
-constexpr int kLD = kT + 4;              // padded shared row: 272 bytes, 16-byte aligned
-constexpr int kTileFloats = kHD * kLD;   // one 64 x 64 tile, either orientation
-constexpr int kThreads = 256;            // 16 x 16 threads, a 4 x 4 patch each
-// dynamic shared bytes: the dq kernel's q^T, do^T, k^T, k, v^T, ds^T and
-// two floats a row; the dk / dv kernel's k^T, v^T, q^T, do^T, q, do, p, ds
-// and two floats a row
-constexpr int kDqSmemBytes = 6 * kTileFloats * 4 + 2 * kT * 4;
-constexpr int kDkvSmemBytes = 8 * kTileFloats * 4 + 2 * kT * 4;
 // the 3xTF32 tiles: rows of 64 floats padded to 68 (272 bytes, 16-byte
 // aligned; a fragment's 32 reads fall in 32 banks)
 constexpr int kLDF = kHD + 4;
@@ -249,6 +243,12 @@ constexpr int kMaxSmem = 232448;
 // the most query rows and keys the streaming backward takes in one launch
 // (one key tile; ops/flash_attention.attention_f32_plan's 'one_launch')
 constexpr int kStreamBwdRows = kBwdKeys;
+// threads a block of dq_reduce_kernel (the key groups' dq sums added)
+constexpr int kRedThreads = 256;
+// query rows a step of the streaming backward past one key tile
+// ('key_groups'): two 32-row halves between the same two barriers
+constexpr int kGrpRows = 64;
+constexpr int kGrpFixedBytes = kBwdFixedBytes + (4 * kLDF + kBwdKeys) * (kGrpRows - kBwdRows) * 4;
 // the w8a8 fusion's fp32 attention (B4, B11, B12): warps of 16 query rows
 // each, key / value tiles of 64 rows, a warp's e rows of 64 floats padded
 // to 72 (a warp's stores of one e value a lane fall in 32 banks), int8
@@ -564,6 +564,10 @@ struct PBwdArgs {
   int q_sb, q_sl, k_sb, k_sl, v_sb, v_sl;   // do and o: (B, Lq, H*64) contiguous
   float scale, c;
   int causal;         // the streaming form only
+  // (streaming) the groups of key tiles a (batch row, head) is cut into:
+  // one block an item (b, h, group); past one group each item's dq sums go
+  // to its own region of the scratch and dq_reduce_kernel adds them
+  int groups;
 };
 
 // STREAM false: B6b (and B8's second launch), p = e * inv_d from den, the
@@ -571,25 +575,50 @@ struct PBwdArgs {
 // saved log-sum-exp, 0 past Lq and, under the causal mask, for a key past
 // its row; a warp whose keys all lie past the query tile's last row skips
 // the tile, and the dq sums stop at a slab's last row's key.
-template <bool STREAM>
+// the shared bytes of the 3xTF32 backward's tiles at QR query rows a step
+__host__ __device__ constexpr int bwd_fixed_bytes(int qr) {
+  return (3 * kBwdKeys * kLDF + 4 * qr * kLDF + kBwdKeys * (qr + 4)) * 4;
+}
+static_assert(bwd_fixed_bytes(kBwdRows) == kBwdFixedBytes, "B6b's layout");
+static_assert(bwd_fixed_bytes(kGrpRows) == kGrpFixedBytes, "the key groups' layout");
+
+// QR: query rows a step (kBwdRows; the streaming form past one key tile
+// kGrpRows), taken as QR / 32 halves of 32 rows between the step's two
+// barriers
+template <bool STREAM, int QR = kBwdRows>
 __global__ void __launch_bounds__(kBwdThreads, 1) packed_bwd_kernel(PBwdArgs a) {
+  constexpr int LDD = QR + 4;                    // floats per ds^T row
+  constexpr int SLABS = QR / 16, WPS = kBwdWarps / SLABS;   // dq: warps a 16-row slab
+  constexpr int CW = kHD / WPS, NT = CW / 8;    // dq: head columns a warp
   extern __shared__ __align__(16) float smem[];
-  float* k_st = smem;               // [stage][kBwdKeys][kLDF]
-  float* v_s = smem + kOffV;        // [kBwdKeys][kLDF]
-  float* qd_st = smem + kOffQD;     // [stage][q, do][kBwdRows][kLDF]
-  float* ds_s = smem + kOffDS;      // ds^T [kBwdKeys][kLDD]
-  float* acc = a.acc_in_smem ? ds_s + kBwdKeys * kLDD
-                             : a.scratch + blockIdx.x * acc_floats(a.lq_pad);
-  float* st_s = acc + static_cast<long long>(a.lq_pad) * kAccLD;   // inv_d, or lse log2 e
-  float* dl_s = st_s + a.lq_pad;
+  float* k_st = smem;                                 // [stage][kBwdKeys][kLDF]
+  float* v_s = smem + kOffV;                          // [kBwdKeys][kLDF]
+  float* qd_st = smem + kOffQD;                       // [stage][q, do][QR][kLDF]
+  float* ds_s = qd_st + 4 * QR * kLDF;                // ds^T [kBwdKeys][LDD]
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const long long D = static_cast<long long>(a.H) * kHD;
   const int KTn = (a.Lk + kBwdKeys - 1) / kBwdKeys;
-  const int QTn = (a.lq_pad + kBwdRows - 1) / kBwdRows;
-  const int nsteps = KTn * QTn;
+  const int QTn = (a.lq_pad + QR - 1) / QR;
+  const bool partial = a.groups > 1;
+  const int per_group = (KTn + a.groups - 1) / a.groups;   // key tiles of a group
+  const int BH = a.B * a.H;
+  // (streaming, causal) the first query tile of key tile j: the one of its
+  // first key (the tiles before see none of its keys; their p, ds and dq
+  // sums are 0), at most the last, so that every key tile writes its dk, dv
+  auto qt_first = [&](int j) {
+    return STREAM && a.causal ? min(j * (kBwdKeys / QR), QTn - 1) : 0;
+  };
 
-  for (int item = blockIdx.x; item < a.B * a.H; item += gridDim.x) {
-    const int b = item / a.H, h = item % a.H;
+  // items group-major: under the causal mask the first groups, whose key
+  // tiles see the most query tiles, start first
+  for (int item = blockIdx.x; item < BH * a.groups; item += gridDim.x) {
+    const int grp = item / BH, b = item % BH / a.H, h = item % a.H;
+    float* slab = a.scratch + static_cast<long long>(partial ? item : blockIdx.x) *
+                                  acc_floats(a.lq_pad);
+    float* acc = a.acc_in_smem ? ds_s + kBwdKeys * LDD : slab;
+    float* st_s = acc + static_cast<long long>(a.lq_pad) * kAccLD;   // inv_d, or lse log2 e
+    float* dl_s = st_s + a.lq_pad;
+    const int j0 = grp * per_group, j1 = min(KTn, j0 + per_group);
     const long long hoff = static_cast<long long>(h) * kHD;
     const float* qb = a.q + static_cast<long long>(b) * a.q_sb + hoff;
     const float* kb = a.k + static_cast<long long>(b) * a.k_sb + hoff;
@@ -603,23 +632,25 @@ __global__ void __launch_bounds__(kBwdThreads, 1) packed_bwd_kernel(PBwdArgs a) 
     const Rows qrows = one_source(qb, a.Lq, a.q_sl), dorows = one_source(dob, a.Lq, D);
     const Rows krows = one_source(kb, a.Lk, a.k_sl), vrows = one_source(vb, a.Lk, a.v_sl);
 
-    // the copies of step s, issued after the barrier that opens step s - 1
-    // (the stages they overwrite are free): its q / do tile, and its key
-    // tile where it starts one (step 0: the first value tile too)
-    auto issue = [&](int s) {
-      if (s < nsteps) {
-        const int j = s / QTn, qt = s % QTn;
-        float* qd = qd_st + (s & 1) * 2 * kBwdRows * kLDF;
-        tile_async<kBwdRows, kBwdThreads>(qd, qrows, qt * kBwdRows);
-        tile_async<kBwdRows, kBwdThreads>(qd + kBwdRows * kLDF, dorows, qt * kBwdRows);
-        if (qt == 0)
+    // the steps: the group's key tiles j in order, each over its query
+    // tiles qt_first(j) .. QTn - 1; the copies of step s (key tile j, query
+    // tile qt), issued after the barrier that opens step s - 1 (the stages
+    // they overwrite are free): its q / do tile, and its key tile where it
+    // starts one (step 0: the first value tile too)
+    auto issue = [&](int s, int j, int qt) {
+      if (j < j1) {
+        float* qd = qd_st + (s & 1) * 2 * QR * kLDF;
+        tile_async<QR, kBwdThreads>(qd, qrows, qt * QR);
+        tile_async<QR, kBwdThreads>(qd + QR * kLDF, dorows, qt * QR);
+        if (qt == qt_first(j))
           tile_async<kBwdKeys, kBwdThreads>(k_st + (j & 1) * kBwdKeys * kLDF, krows,
                                             j * kBwdKeys);
-        if (s == 0) tile_async<kBwdKeys, kBwdThreads>(v_s, vrows, 0);
+        if (s == 0) tile_async<kBwdKeys, kBwdThreads>(v_s, vrows, j * kBwdKeys);
       }
       tf32::cp_commit();
     };
-    issue(0);
+    int j = j0, qt = qt_first(j0);
+    issue(0, j, qt);
 
     // while the first tiles are in flight: zero the dq accumulator, and
     // take each query row's inv_d (streaming: lse log2 e) and delta =
@@ -656,126 +687,148 @@ __global__ void __launch_bounds__(kBwdThreads, 1) packed_bwd_kernel(PBwdArgs a) 
       dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
       dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
     }
-    for (int s = 0; s < nsteps; ++s) {
+    for (int s = 0; j < j1; ++s) {
+      int jn = j, qn = qt + 1;   // the next step's tiles
+      if (qn == QTn) {
+        ++jn;
+        qn = jn < j1 ? qt_first(jn) : 0;
+      }
       tf32::cp_wait_all();
       __syncthreads();
-      issue(s + 1);
-      const int j = s / QTn, qt = s % QTn, k0 = j * kBwdKeys, q0 = qt * kBwdRows;
-      const int nq = min(kBwdRows, a.lq_pad - q0);   // 16 or 32
+      issue(s + 1, jn, qn);
+      const int k0 = j * kBwdKeys, q0 = qt * QR;
+      const int nq = min(QR, a.lq_pad - q0);   // a multiple of 16
       const float* ks = k_st + (j & 1) * kBwdKeys * kLDF;
-      const float* qs = qd_st + (s & 1) * 2 * kBwdRows * kLDF;
-      const float* dos = qs + kBwdRows * kLDF;
+      const float* qs0 = qd_st + (s & 1) * 2 * QR * kLDF;
       const int kw = k0 + warp * 16;   // this warp's first key
-      // (streaming, causal) no row of the query tile sees this warp's keys
-      const bool hidden = STREAM && a.causal && kw > q0 + nq - 1;
-      if (kw < a.Lk && !hidden) {
-        const bool kv0 = kw + g < a.Lk, kv1 = kw + g + 8 < a.Lk;
-        // transposed tiles: rows are this warp's keys kw + g (c0, c1) and
-        // kw + g + 8 (c2, c3), columns the query rows q0 + 8 f + 2 t, + 1
-        float sT[kBwdRows / 8][4], dpT[kBwdRows / 8][4];
+#pragma unroll 1
+      for (int hf = 0; 32 * hf < nq; ++hf) {
+        // the half's 32 query rows (the last may hold 16)
+        const int qh = q0 + 32 * hf, nqh = min(32, nq - 32 * hf);
+        const float* qs = qs0 + 32 * hf * kLDF;
+        const float* dos = qs0 + (QR + 32 * hf) * kLDF;
+        // (streaming, causal) no row of the half sees this warp's keys
+        const bool hidden = STREAM && a.causal && kw > qh + nqh - 1;
+        if (kw < a.Lk && !hidden) {
+          const bool kv0 = kw + g < a.Lk, kv1 = kw + g + 8 < a.Lk;
+          // transposed tiles: rows are this warp's keys kw + g (c0, c1) and
+          // kw + g + 8 (c2, c3), columns the query rows qh + 8 f + 2 t, + 1
+          float sT[4][4], dpT[4][4];
 #pragma unroll
-        for (int f = 0; f < kBwdRows / 8; ++f) {
-          sT[f][0] = sT[f][1] = sT[f][2] = sT[f][3] = 0.f;
-          dpT[f][0] = dpT[f][1] = dpT[f][2] = dpT[f][3] = 0.f;
-        }
-        const float* kr = ks + (warp * 16 + g) * kLDF + t;
-        const float* vr = v_s + (warp * 16 + g) * kLDF + t;
+          for (int f = 0; f < 4; ++f) {
+            sT[f][0] = sT[f][1] = sT[f][2] = sT[f][3] = 0.f;
+            dpT[f][0] = dpT[f][1] = dpT[f][2] = dpT[f][3] = 0.f;
+          }
+          const float* kr = ks + (warp * 16 + g) * kLDF + t;
+          const float* vr = v_s + (warp * 16 + g) * kLDF + t;
 #pragma unroll
-        for (int kk = 0; kk < kHD / 8; ++kk) {
-          uint32_t kh[4], kl[4], vh[4], vl[4];
-          split4(kh, kl, kr[8 * kk], kr[8 * kLDF + 8 * kk], kr[8 * kk + 4],
-                 kr[8 * kLDF + 8 * kk + 4]);
-          split4(vh, vl, vr[8 * kk], vr[8 * kLDF + 8 * kk], vr[8 * kk + 4],
-                 vr[8 * kLDF + 8 * kk + 4]);
+          for (int kk = 0; kk < kHD / 8; ++kk) {
+            uint32_t kh[4], kl[4], vh[4], vl[4];
+            split4(kh, kl, kr[8 * kk], kr[8 * kLDF + 8 * kk], kr[8 * kk + 4],
+                   kr[8 * kLDF + 8 * kk + 4]);
+            split4(vh, vl, vr[8 * kk], vr[8 * kLDF + 8 * kk], vr[8 * kk + 4],
+                   vr[8 * kLDF + 8 * kk + 4]);
 #pragma unroll
-          for (int f = 0; f < kBwdRows / 8; ++f) {
-            if (8 * f < nq) {
-              const float* qr = qs + (8 * f + g) * kLDF + 8 * kk + t;
-              const float* dr = dos + (8 * f + g) * kLDF + 8 * kk + t;
-              uint32_t bh0, bl0, bh1, bl1;
-              tf32::split(qr[0], bh0, bl0);
-              tf32::split(qr[4], bh1, bl1);
-              mma3(sT[f], kh, kl, bh0, bh1, bl0, bl1);   // k q^T
-              tf32::split(dr[0], bh0, bl0);
-              tf32::split(dr[4], bh1, bl1);
-              mma3(dpT[f], vh, vl, bh0, bh1, bl0, bl1);  // v do^T
+            for (int f = 0; f < 4; ++f) {
+              if (8 * f < nqh) {
+                const float* qr = qs + (8 * f + g) * kLDF + 8 * kk + t;
+                const float* dr = dos + (8 * f + g) * kLDF + 8 * kk + t;
+                uint32_t bh0, bl0, bh1, bl1;
+                tf32::split(qr[0], bh0, bl0);
+                tf32::split(qr[4], bh1, bl1);
+                mma3(sT[f], kh, kl, bh0, bh1, bl0, bl1);   // k q^T
+                tf32::split(dr[0], bh0, bl0);
+                tf32::split(dr[4], bh1, bl1);
+                mma3(dpT[f], vh, vl, bh0, bh1, bl0, bl1);  // v do^T
+              }
             }
           }
-        }
-        // per 8 query rows: p and ds, ds^T into shared memory, dv += p^T do
-        // and dk += ds^T q with the query rows as k (k index t: row 2t of
-        // the chunk, c0 / c2; t + 4: row 2t + 1, c1 / c3)
+          // per 8 query rows: p and ds, ds^T into shared memory, dv += p^T do
+          // and dk += ds^T q with the query rows as k (k index t: row 2t of
+          // the chunk, c0 / c2; t + 4: row 2t + 1, c1 / c3)
 #pragma unroll
-        for (int f = 0; f < kBwdRows / 8; ++f) {
-          if (8 * f < nq) {
-            const int qc = q0 + 8 * f + 2 * t;
-            const float st[2] = {st_s[qc], st_s[qc + 1]};
-            const float dl[2] = {dl_s[qc], dl_s[qc + 1]};
-            float p[4], ds[4];
+          for (int f = 0; f < 4; ++f) {
+            if (8 * f < nqh) {
+              const int qc = qh + 8 * f + 2 * t;
+              const float st[2] = {st_s[qc], st_s[qc + 1]};
+              const float dl[2] = {dl_s[qc], dl_s[qc + 1]};
+              float p[4], ds[4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              const bool kv = i < 2 ? kv0 : kv1;
-              if (STREAM) {
-                // key kw + g (+ 8 for c2, c3), query row qc (+ 1 for c1, c3)
-                const int key = kw + g + 8 * (i >> 1), row = qc + (i & 1);
-                const bool vis = kv && row < a.Lq && (!a.causal || key <= row);
-                p[i] = vis ? ex2f(sT[f][i] * a.c - st[i & 1]) : 0.f;
-              } else {
-                p[i] = kv ? ex2f(fminf(sT[f][i] * a.c, kClamp)) * st[i & 1] : 0.f;
+              for (int i = 0; i < 4; ++i) {
+                const bool kv = i < 2 ? kv0 : kv1;
+                if (STREAM) {
+                  // key kw + g (+ 8 for c2, c3), query row qc (+ 1 for c1, c3)
+                  const int key = kw + g + 8 * (i >> 1), row = qc + (i & 1);
+                  const bool vis = kv && row < a.Lq && (!a.causal || key <= row);
+                  p[i] = vis ? ex2f(sT[f][i] * a.c - st[i & 1]) : 0.f;
+                } else {
+                  p[i] = kv ? ex2f(fminf(sT[f][i] * a.c, kClamp)) * st[i & 1] : 0.f;
+                }
+                ds[i] = p[i] * (dpT[f][i] - dl[i & 1]);
               }
-              ds[i] = p[i] * (dpT[f][i] - dl[i & 1]);
-            }
-            *reinterpret_cast<float2*>(ds_s + (warp * 16 + g) * kLDD + 8 * f + 2 * t) =
-                make_float2(ds[0], ds[1]);
-            *reinterpret_cast<float2*>(ds_s + (warp * 16 + g + 8) * kLDD + 8 * f + 2 * t) =
-                make_float2(ds[2], ds[3]);
-            uint32_t ph[4], pl[4], dh[4], dlo[4];
-            split4(ph, pl, p[0], p[2], p[1], p[3]);
-            split4(dh, dlo, ds[0], ds[2], ds[1], ds[3]);
-            const float* dor = dos + (8 * f + 2 * t) * kLDF + g;
-            const float* qor = qs + (8 * f + 2 * t) * kLDF + g;
+              *reinterpret_cast<float2*>(ds_s + (warp * 16 + g) * LDD + 32 * hf + 8 * f + 2 * t) =
+                  make_float2(ds[0], ds[1]);
+              *reinterpret_cast<float2*>(ds_s + (warp * 16 + g + 8) * LDD + 32 * hf + 8 * f +
+                                         2 * t) = make_float2(ds[2], ds[3]);
+              uint32_t ph[4], pl[4], dh[4], dlo[4];
+              split4(ph, pl, p[0], p[2], p[1], p[3]);
+              split4(dh, dlo, ds[0], ds[2], ds[1], ds[3]);
+              const float* dor = dos + (8 * f + 2 * t) * kLDF + g;
+              const float* qor = qs + (8 * f + 2 * t) * kLDF + g;
 #pragma unroll
-            for (int n = 0; n < kHD / 8; ++n) {
-              uint32_t bh0, bl0, bh1, bl1;
-              tf32::split(dor[8 * n], bh0, bl0);
-              tf32::split(dor[kLDF + 8 * n], bh1, bl1);
-              mma3(dv[n], ph, pl, bh0, bh1, bl0, bl1);    // dv += p^T do
-              tf32::split(qor[8 * n], bh0, bl0);
-              tf32::split(qor[kLDF + 8 * n], bh1, bl1);
-              mma3(dk[n], dh, dlo, bh0, bh1, bl0, bl1);   // dk += ds^T q
+              for (int n = 0; n < kHD / 8; ++n) {
+                uint32_t bh0, bl0, bh1, bl1;
+                tf32::split(dor[8 * n], bh0, bl0);
+                tf32::split(dor[kLDF + 8 * n], bh1, bl1);
+                mma3(dv[n], ph, pl, bh0, bh1, bl0, bl1);    // dv += p^T do
+                tf32::split(qor[8 * n], bh0, bl0);
+                tf32::split(qor[kLDF + 8 * n], bh1, bl1);
+                mma3(dk[n], dh, dlo, bh0, bh1, bl0, bl1);   // dk += ds^T q
+              }
             }
           }
         }
       }
       __syncthreads();   // ds^T is whole; no warp reads the value tile again
-      if (qt == QTn - 1 && j + 1 < KTn) {
+      if (qt == QTn - 1 && j + 1 < j1) {
         tile_async<kBwdKeys, kBwdThreads>(v_s, vrows, (j + 1) * kBwdKeys);
         tf32::cp_commit();
       }
 
-      // dq rows of this query tile += ds k: warp w takes 16 rows (w / 4)
-      // and 16 head columns ((w % 4) * 16), the key chunks of 8 with a real
-      // key as k (k index t: key 2t of the chunk, t + 4: key 2t + 1)
+      // dq rows of this query tile += ds k: warp w takes 16 rows (w / WPS)
+      // and CW head columns, the key chunks of 8 with a real key as k (k
+      // index t: key 2t of the chunk, t + 4: key 2t + 1)
       {
-        const int slab = warp >> 2, c0 = (warp & 3) * 16;
+        const int slab = warp / WPS, c0 = warp % WPS * CW;
         if (16 * slab < nq) {
+          // the accumulator's values read first, so that a global one's
+          // latency hides behind the products
+          const int row = q0 + 16 * slab + g;
+          float* p0[NT];
+          float2 x0[NT], x1[NT];
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            p0[n] = acc + static_cast<long long>(row) * kAccLD + c0 + 8 * n + 2 * t;
+            x0[n] = *reinterpret_cast<const float2*>(p0[n]);
+            x1[n] = *reinterpret_cast<const float2*>(p0[n] + 8 * kAccLD);
+          }
           int nkc = (min(kBwdKeys, a.Lk - k0) + 7) / 8;
           // (streaming, causal) the chunks with a key at or before the
           // slab's last row; the others' ds are 0 (or, a hidden warp's, not
           // written)
           if (STREAM && a.causal) nkc = min(nkc, (q0 + 16 * slab + 15 - k0 + 8) / 8);
-          float dq[2][4];
+          float dq[NT][4];
 #pragma unroll
-          for (int n = 0; n < 2; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+          for (int n = 0; n < NT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
 #pragma unroll
           for (int kc = 0; kc < kBwdKeys / 8; ++kc) {
             if (kc < nkc) {
-              const float* dr = ds_s + (8 * kc + 2 * t) * kLDD + 16 * slab + g;
+              const float* dr = ds_s + (8 * kc + 2 * t) * LDD + 16 * slab + g;
               uint32_t ah[4], al[4];
-              split4(ah, al, dr[0], dr[8], dr[kLDD], dr[kLDD + 8]);
+              split4(ah, al, dr[0], dr[8], dr[LDD], dr[LDD + 8]);
               const float* kr2 = ks + (8 * kc + 2 * t) * kLDF + c0 + g;
 #pragma unroll
-              for (int n = 0; n < 2; ++n) {
+              for (int n = 0; n < NT; ++n) {
                 uint32_t bh0, bl0, bh1, bl1;
                 tf32::split(kr2[8 * n], bh0, bl0);
                 tf32::split(kr2[kLDF + 8 * n], bh1, bl1);
@@ -783,18 +836,14 @@ __global__ void __launch_bounds__(kBwdThreads, 1) packed_bwd_kernel(PBwdArgs a) 
               }
             }
           }
-          const int row = q0 + 16 * slab + g;
 #pragma unroll
-          for (int n = 0; n < 2; ++n) {
-            float* p0 = acc + static_cast<long long>(row) * kAccLD + c0 + 8 * n + 2 * t;
-            float* p1 = p0 + 8 * kAccLD;
-            float2 x0 = *reinterpret_cast<float2*>(p0), x1 = *reinterpret_cast<float2*>(p1);
-            x0.x += dq[n][0];
-            x0.y += dq[n][1];
-            x1.x += dq[n][2];
-            x1.y += dq[n][3];
-            *reinterpret_cast<float2*>(p0) = x0;
-            *reinterpret_cast<float2*>(p1) = x1;
+          for (int n = 0; n < NT; ++n) {
+            x0[n].x += dq[n][0];
+            x0[n].y += dq[n][1];
+            x1[n].x += dq[n][2];
+            x1[n].y += dq[n][3];
+            *reinterpret_cast<float2*>(p0[n]) = x0[n];
+            *reinterpret_cast<float2*>(p0[n] + 8 * kAccLD) = x1[n];
           }
         }
       }
@@ -820,91 +869,56 @@ __global__ void __launch_bounds__(kBwdThreads, 1) packed_bwd_kernel(PBwdArgs a) 
           dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
         }
       }
+      j = jn;
+      qt = qn;
     }
     __syncthreads();   // every dq sum is in
 
-    // dq = acc * scale
+    // dq = acc * scale; past one group the item's sums, as they are, in its
+    // region of the scratch (already there unless acc is in shared memory)
     float* dqb = a.dq + static_cast<long long>(b) * a.Lq * D + hoff;
-    for (int idx = threadIdx.x; idx < a.Lq * (kHD / 4); idx += kBwdThreads) {
-      const int r = idx / (kHD / 4), c = (idx % (kHD / 4)) * 4;
-      const float4 x = *reinterpret_cast<const float4*>(acc + static_cast<long long>(r) * kAccLD + c);
-      *reinterpret_cast<float4*>(dqb + r * D + c) =
-          make_float4(x.x * a.scale, x.y * a.scale, x.z * a.scale, x.w * a.scale);
+    if (!partial || a.acc_in_smem) {
+      for (int idx = threadIdx.x; idx < a.Lq * (kHD / 4); idx += kBwdThreads) {
+        const int r = idx / (kHD / 4), c = (idx % (kHD / 4)) * 4;
+        const long long at = static_cast<long long>(r) * kAccLD + c;
+        const float4 x = *reinterpret_cast<const float4*>(acc + at);
+        if (partial)
+          *reinterpret_cast<float4*>(slab + at) = x;
+        else
+          *reinterpret_cast<float4*>(dqb + r * D + c) =
+              make_float4(x.x * a.scale, x.y * a.scale, x.z * a.scale, x.w * a.scale);
+      }
     }
-    __syncthreads();   // the next (b, h) zeroes the accumulator
+    __syncthreads();   // the next item zeroes the accumulator
   }
 }
 
-// ---------------------------------------------------------------------------
-// fp32 FMA tiles: B7's backward past 128 rows
-// ---------------------------------------------------------------------------
-
-// Rows [r0, r0 + 64) of one head (64 floats a row) into a tile stored
-// transposed, dst[d * kLD + r]; rows >= L are zeros and are never read. A
-// warp loads 16 rows x 2 float4 (one 32-byte sector a row) and its stores
-// fall in 32 distinct banks.
-__device__ __forceinline__ void load_t(float* dst, const Rows& src, int r0) {
-#pragma unroll
-  for (int it = 0; it < kT * kHD / 4 / kThreads; ++it) {
-    const int idx = it * kThreads + threadIdx.x;
-    const int w = idx >> 5, l = idx & 31;
-    const int r = (w & 3) * 16 + (l >> 1);
-    const int c = ((w >> 2) * 2 + (l & 1)) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (const float* p = src.row(r0 + r)) x = *reinterpret_cast<const float4*>(p + c);
-    dst[(c + 0) * kLD + r] = x.x;
-    dst[(c + 1) * kLD + r] = x.y;
-    dst[(c + 2) * kLD + r] = x.z;
-    dst[(c + 3) * kLD + r] = x.w;
+// B7's backward past one group of key tiles: dq = scale * the sum of the
+// items' dq sums over the groups, in group order; a thread a float4 of a
+// row (dq is (B, Lq, H*64), rows contiguous)
+__global__ void __launch_bounds__(kRedThreads) dq_reduce_kernel(PBwdArgs a) {
+  const long long BH = static_cast<long long>(a.B) * a.H;
+  const long long n = BH * a.Lq * (kHD / 4);
+  const long long D = static_cast<long long>(a.H) * kHD;
+  for (long long idx = static_cast<long long>(blockIdx.x) * kRedThreads + threadIdx.x; idx < n;
+       idx += static_cast<long long>(gridDim.x) * kRedThreads) {
+    const int c = static_cast<int>(idx % (kHD / 4)) * 4;
+    const int r = static_cast<int>(idx / (kHD / 4) % a.Lq);
+    const long long bh = idx / (kHD / 4) / a.Lq;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int grp = 0; grp < a.groups; ++grp) {
+      const float4 x = *reinterpret_cast<const float4*>(
+          a.scratch + (grp * BH + bh) * acc_floats(a.lq_pad) +
+          static_cast<long long>(r) * kAccLD + c);
+      s.x += x.x;
+      s.y += x.y;
+      s.z += x.z;
+      s.w += x.w;
+    }
+    const long long b = bh / a.H, h = bh % a.H;
+    *reinterpret_cast<float4*>(a.dq + (b * a.Lq + r) * D + h * kHD + c) =
+        make_float4(s.x * a.scale, s.y * a.scale, s.z * a.scale, s.w * a.scale);
   }
-}
-
-__device__ __forceinline__ void load_t(float* dst, const float* src, int r0, int L,
-                                       long long ld) {
-  load_t(dst, one_source(src, L, ld), r0);
-}
-
-// The same rows stored as they are, dst[r * kLD + d].
-__device__ __forceinline__ void load_n(float* dst, const Rows& src, int r0) {
-#pragma unroll
-  for (int it = 0; it < kT * kHD / 4 / kThreads; ++it) {
-    const int idx = it * kThreads + threadIdx.x;
-    const int r = idx >> 4, c = (idx & 15) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (const float* p = src.row(r0 + r)) x = *reinterpret_cast<const float4*>(p + c);
-    *reinterpret_cast<float4*>(dst + r * kLD + c) = x;
-  }
-}
-
-__device__ __forceinline__ void load_n(float* dst, const float* src, int r0, int L,
-                                       long long ld) {
-  load_n(dst, one_source(src, L, ld), r0);
-}
-
-// acc[i][j] += sum over x < 64 of a[x][4 ty + i] * b[x][4 tx + j]: both
-// operands x-major, fp32 FMA.
-__device__ __forceinline__ void mm64(float (&acc)[4][4], const float* a, const float* b,
-                                     int ty, int tx) {
-#pragma unroll 8
-  for (int x = 0; x < kT; ++x) {
-    const float4 av = *reinterpret_cast<const float4*>(a + x * kLD + 4 * ty);
-    const float4 bv = *reinterpret_cast<const float4*>(b + x * kLD + 4 * tx);
-    const float ar[4] = {av.x, av.y, av.z, av.w};
-    const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-  }
-}
-
-// a thread's 4 x 4 patch, transposed, into an x-major tile: dst[4 tx + j][4 ty + i]
-__device__ __forceinline__ void store_patch_t(float* dst, const float (&p)[4][4], int ty,
-                                              int tx) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    *reinterpret_cast<float4*>(dst + (4 * tx + j) * kLD + 4 * ty) =
-        make_float4(p[0][j], p[1][j], p[2][j], p[3][j]);
 }
 
 // ---------------------------------------------------------------------------
@@ -1215,203 +1229,6 @@ __global__ void __launch_bounds__(kFmaThreads, 2) fma_fwd_kernel(FwdArgs a) {
   }
 }
 
-struct BwdArgs {
-  const float *q, *k, *v, *dout, *o;
-  const float* rowstat;   // lse (B, H, Lq)
-  float *dq, *dk, *dv;
-  float* sd;              // scratch (2, B, H, Lq): each row's statistic, then its delta
-  int B, Lq, Lk, H;
-  int q_sb, q_sl, k_sb, k_sl, v_sb, v_sl;   // do and o: (B, Lq, H*64) contiguous
-  float scale, c;
-  int causal;
-};
-
-// p of one score entry: exp2(s2 - lse log2 e) (st = lse * log2 e); 0 for a
-// key past Lk, a row past Lq and a key the causal mask hides
-__device__ __forceinline__ float prob(float s, float st, int key, int row, int Lq, int Lk,
-                                      int causal, float c) {
-  if (key >= Lk || row >= Lq) return 0.f;
-  return causal && key > row ? 0.f : ex2f(s * c - st);
-}
-
-__global__ void __launch_bounds__(kThreads, 2) stream_bwd_dq_kernel(BwdArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  float* qt = smem;
-  float* dot = qt + kTileFloats;
-  float* kt = dot + kTileFloats;
-  float* kn = kt + kTileFloats;
-  float* vt = kn + kTileFloats;
-  float* dst = vt + kTileFloats;
-  float* sst = dst + kTileFloats;
-  float* sdl = sst + kT;
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kT;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const long long D = static_cast<long long>(a.H) * kHD;
-  const long long hoff = static_cast<long long>(h) * kHD;
-  const float* qb = a.q + static_cast<long long>(b) * a.q_sb + hoff;
-  const float* kb = a.k + static_cast<long long>(b) * a.k_sb + hoff;
-  const float* vb = a.v + static_cast<long long>(b) * a.v_sb + hoff;
-  const float* dob = a.dout + static_cast<long long>(b) * a.Lq * D + hoff;
-  const float* obb = a.o + static_cast<long long>(b) * a.Lq * D + hoff;
-
-  // each row's delta = rowsum(do * o) (4 threads a row, 16 columns each)
-  // and its statistic, here and in the scratch for the dk / dv kernel
-  {
-    const int r = threadIdx.x >> 2, part = threadIdx.x & 3, row = q0 + r;
-    float d = 0.f;
-    if (row < a.Lq) {
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        const long long off = row * D + part * 16 + 4 * x;
-        const float4 u = *reinterpret_cast<const float4*>(dob + off);
-        const float4 w = *reinterpret_cast<const float4*>(obb + off);
-        d = fmaf(u.x, w.x, d);
-        d = fmaf(u.y, w.y, d);
-        d = fmaf(u.z, w.z, d);
-        d = fmaf(u.w, w.w, d);
-      }
-    }
-    d += __shfl_xor_sync(0xffffffffu, d, 1);
-    d += __shfl_xor_sync(0xffffffffu, d, 2);
-    if (part == 0) {
-      float st = 0.f;
-      if (row < a.Lq) {
-        const long long bh = static_cast<long long>(b) * a.H + h;
-        st = a.rowstat[bh * a.Lq + row] * kLog2e;
-        a.sd[bh * a.Lq + row] = st;
-        a.sd[static_cast<long long>(a.B) * a.H * a.Lq + bh * a.Lq + row] = d;
-      }
-      sst[r] = st;
-      sdl[r] = row < a.Lq ? d : 0.f;
-    }
-  }
-  load_t(qt, qb, q0, a.Lq, a.q_sl);
-  load_t(dot, dob, q0, a.Lq, D);
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  const int kend = a.causal ? min(a.Lk, q0 + kT) : a.Lk;
-  for (int k0 = 0; k0 < kend; k0 += kT) {
-    __syncthreads();
-    load_t(kt, kb, k0, a.Lk, a.k_sl);
-    load_n(kn, kb, k0, a.Lk, a.k_sl);
-    load_t(vt, vb, k0, a.Lk, a.v_sl);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    mm64(s, qt, kt, ty, tx);    // q k^T
-    mm64(dp, dot, vt, ty, tx);  // do v^T
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        s[i][j] = prob(s[i][j], sst[r], k0 + 4 * tx + j, q0 + r, a.Lq, a.Lk, a.causal, a.c) *
-                  (dp[i][j] - sdl[r]);   // ds
-    }
-    store_patch_t(dst, s, ty, tx);
-    __syncthreads();
-    mm64(acc, dst, kn, ty, tx);   // dq += ds k
-  }
-  float* dqb = a.dq + static_cast<long long>(b) * a.Lq * D + hoff;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row < a.Lq)
-      *reinterpret_cast<float4*>(dqb + row * D + 4 * tx) =
-          make_float4(acc[i][0] * a.scale, acc[i][1] * a.scale, acc[i][2] * a.scale,
-                      acc[i][3] * a.scale);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads, 1) stream_bwd_dkdv_kernel(BwdArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  float* kt = smem;
-  float* vt = kt + kTileFloats;
-  float* qt = vt + kTileFloats;
-  float* dot = qt + kTileFloats;
-  float* qn = dot + kTileFloats;
-  float* don = qn + kTileFloats;
-  float* ps = don + kTileFloats;
-  float* dss = ps + kTileFloats;
-  float* sst = dss + kTileFloats;
-  float* sdl = sst + kT;
-  const int b = blockIdx.z, h = blockIdx.y, k0 = blockIdx.x * kT;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  const long long D = static_cast<long long>(a.H) * kHD;
-  const long long hoff = static_cast<long long>(h) * kHD;
-  const long long bh = static_cast<long long>(b) * a.H + h;
-  const float* qb = a.q + static_cast<long long>(b) * a.q_sb + hoff;
-  const float* kb = a.k + static_cast<long long>(b) * a.k_sb + hoff;
-  const float* vb = a.v + static_cast<long long>(b) * a.v_sb + hoff;
-  const float* dob = a.dout + static_cast<long long>(b) * a.Lq * D + hoff;
-  const float* sdd = a.sd + static_cast<long long>(a.B) * a.H * a.Lq;
-  load_t(kt, kb, k0, a.Lk, a.k_sl);
-  load_t(vt, vb, k0, a.Lk, a.v_sl);
-
-  float dk[4][4], dv[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dk[i][j] = dv[i][j] = 0.f;
-  // under the causal mask the query tiles before this key tile's own see
-  // none of its keys
-  for (int q0 = a.causal ? k0 : 0; q0 < a.Lq; q0 += kT) {
-    __syncthreads();
-    load_t(qt, qb, q0, a.Lq, a.q_sl);
-    load_t(dot, dob, q0, a.Lq, D);
-    load_n(qn, qb, q0, a.Lq, a.q_sl);
-    load_n(don, dob, q0, a.Lq, D);
-    if (threadIdx.x < kT) {
-      const int row = q0 + threadIdx.x;
-      sst[threadIdx.x] = row < a.Lq ? a.sd[bh * a.Lq + row] : 0.f;
-      sdl[threadIdx.x] = row < a.Lq ? sdd[bh * a.Lq + row] : 0.f;
-    }
-    __syncthreads();
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    mm64(s, qt, kt, ty, tx);    // q k^T: rows are queries, columns keys
-    mm64(dp, dot, vt, ty, tx);  // do v^T
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = prob(s[i][j], sst[r], k0 + 4 * tx + j, q0 + r, a.Lq, a.Lk, a.causal, a.c);
-        dp[i][j] = s[i][j] * (dp[i][j] - sdl[r]);
-      }
-      *reinterpret_cast<float4*>(ps + r * kLD + 4 * tx) =
-          make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
-      *reinterpret_cast<float4*>(dss + r * kLD + 4 * tx) =
-          make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]);
-    }
-    __syncthreads();
-    mm64(dv, ps, don, ty, tx);   // dv += p^T do
-    mm64(dk, dss, qn, ty, tx);   // dk += ds^T q
-  }
-  float* dkb = a.dk + static_cast<long long>(b) * a.Lk * D + hoff;
-  float* dvb = a.dv + static_cast<long long>(b) * a.Lk * D + hoff;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + 4 * ty + i;
-    if (key >= a.Lk) continue;
-    *reinterpret_cast<float4*>(dkb + key * D + 4 * tx) =
-        make_float4(dk[i][0] * a.scale, dk[i][1] * a.scale, dk[i][2] * a.scale,
-                    dk[i][3] * a.scale);
-    *reinterpret_cast<float4*>(dvb + key * D + 4 * tx) =
-        make_float4(dv[i][0], dv[i][1], dv[i][2], dv[i][3]);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
@@ -1499,67 +1316,31 @@ PBwdArgs make_pbwd(const void* q, const void* k, const void* v, const void* dout
   a.scale = scale;
   a.c = scale * kLog2e;
   a.causal = 0;
+  a.groups = 1;
   return a;
 }
 
 // One launch of the plan that ops/flash_attention.attention_f32_plan
 // computes from attention_f32_layout: smem_bytes is kBwdFixedBytes, plus
 // acc_floats(lq_pad) * 4 when the accumulator is in shared memory.
-template <bool STREAM>
+template <bool STREAM, int QR = kBwdRows>
 cudaError_t launch_packed_bwd(const PBwdArgs& a, int grid, int smem_bytes,
                               cudaStream_t stream) {
   if (a.lq_pad < a.Lq || a.lq_pad % 16 != 0 || grid < 1 || smem_bytes > kMaxSmem ||
-      smem_bytes < kBwdFixedBytes + (a.acc_in_smem ? 4 * acc_floats(a.lq_pad) : 0) ||
-      (!a.acc_in_smem && a.scratch == nullptr))
+      smem_bytes < bwd_fixed_bytes(QR) + (a.acc_in_smem ? 4 * acc_floats(a.lq_pad) : 0) ||
+      ((!a.acc_in_smem || a.groups > 1) && a.scratch == nullptr) || a.groups < 1 ||
+      (!STREAM && a.groups != 1))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(packed_bwd_kernel<STREAM>,
+  cudaError_t err = cudaFuncSetAttribute(packed_bwd_kernel<STREAM, QR>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
-  packed_bwd_kernel<STREAM><<<grid, kBwdThreads, smem_bytes, stream>>>(a);
-  return cudaGetLastError();
-}
-
-// the dq kernel (which also writes the row statistics), then the dk / dv
-// kernel, on one stream
-cudaError_t launch_stream_bwd(const BwdArgs& a, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(stream_bwd_dq_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         kDqSmemBytes);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(stream_bwd_dkdv_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmemBytes);
-  if (err != cudaSuccess) return err;
-  stream_bwd_dq_kernel<<<dim3((a.Lq + kT - 1) / kT, a.H, a.B), kThreads, kDqSmemBytes,
-                         stream>>>(a);
+  packed_bwd_kernel<STREAM, QR><<<grid, kBwdThreads, smem_bytes, stream>>>(a);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  stream_bwd_dkdv_kernel<<<dim3((a.Lk + kT - 1) / kT, a.H, a.B), kThreads, kDkvSmemBytes,
-                           stream>>>(a);
+  if (err != cudaSuccess || a.groups == 1) return err;
+  const long long n = static_cast<long long>(a.B) * a.H * a.Lq * (kHD / 4);
+  dq_reduce_kernel<<<static_cast<int>((n + kRedThreads - 1) / kRedThreads), kRedThreads, 0,
+                     stream>>>(a);
   return cudaGetLastError();
-}
-
-BwdArgs make_bwd(const void* q, const void* k, const void* v, const void* dout,
-                 const void* o, const void* rowstat, void* dq, void* dk, void* dv,
-                 void* scratch, int B, int Lq, int Lk, int H, int q_sb, int q_sl, int k_sb,
-                 int k_sl, int v_sb, int v_sl, float scale, int causal) {
-  BwdArgs a;
-  a.q = static_cast<const float*>(q);
-  a.k = static_cast<const float*>(k);
-  a.v = static_cast<const float*>(v);
-  a.dout = static_cast<const float*>(dout);
-  a.o = static_cast<const float*>(o);
-  a.rowstat = static_cast<const float*>(rowstat);
-  a.dq = static_cast<float*>(dq);
-  a.dk = static_cast<float*>(dk);
-  a.dv = static_cast<float*>(dv);
-  a.sd = static_cast<float*>(scratch);
-  a.B = B; a.Lq = Lq; a.Lk = Lk; a.H = H;
-  a.q_sb = q_sb; a.q_sl = q_sl; a.k_sb = k_sb; a.k_sl = k_sl;
-  a.v_sb = v_sb; a.v_sl = v_sl;
-  a.scale = scale;
-  a.c = scale * kLog2e;
-  a.causal = causal;
-  return a;
 }
 
 inline int bad_args(int Dh, const void* p) {
@@ -1713,47 +1494,45 @@ extern "C" int streaming_attention_f32(const void* q, const void* k, const void*
 }
 
 // B7 backward: from do and o (B, Lq, H*64) contiguous and lse (B, H, Lq),
-// in the form of ops/flash_attention.attention_f32_plan's 'bwd': one_launch
-// (the 3xTF32 backward's streaming form, a block per (batch row, head), its
-// dq accumulator in shared memory at lq_pad rows, smem_bytes the plan's; no
-// scratch) or the two FMA kernels (scratch holds 2 * B * H * Lq floats;
-// lq_pad and smem_bytes unused)
+// one launch of the 3xTF32 backward's streaming form in the plan of
+// ops/flash_attention.attention_f32_plan's 'bwd' (groups of key tiles a
+// (batch row, head), lq_pad, grid, accumulator in shared memory?, shared
+// bytes), then, past one group, dq_reduce_kernel; scratch holds the plan's
+// scratch_floats (none for one group with the accumulator in shared memory)
 extern "C" int streaming_attention_bwd_f32(const void* q, const void* k, const void* v,
                                            const void* dout, const void* o, const void* lse,
                                            void* dq, void* dk, void* dv, void* scratch, int B,
                                            int Lq, int Lk, int H, int Dh, int q_sb, int q_sl,
                                            int k_sb, int k_sl, int v_sb, int v_sl,
-                                           float scale, int causal, int one_launch, int lq_pad,
-                                           int smem_bytes, void* stream) {
+                                           float scale, int causal, int groups, int lq_pad,
+                                           int grid, int acc_in_smem, int smem_bytes,
+                                           void* stream) {
   if (bad_args(Dh, lse)) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Lq == 0 || Lk == 0) return 0;
-  if (one_launch) {
-    PBwdArgs a = make_pbwd(q, k, v, dout, o, lse, dq, dk, dv, nullptr, B, Lq, Lk, H, q_sb, q_sl,
-                           k_sb, k_sl, v_sb, v_sl, lq_pad, 1, scale);
-    a.causal = causal;
-    return static_cast<int>(
-        launch_packed_bwd<true>(a, B * H, smem_bytes, static_cast<cudaStream_t>(stream)));
-  }
-  if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_stream_bwd(
-      make_bwd(q, k, v, dout, o, lse, dq, dk, dv, scratch, B, Lq, Lk, H, q_sb, q_sl, k_sb,
-               k_sl, v_sb, v_sl, scale, causal),
-      static_cast<cudaStream_t>(stream)));
+  PBwdArgs a = make_pbwd(q, k, v, dout, o, lse, dq, dk, dv, scratch, B, Lq, Lk, H, q_sb, q_sl,
+                         k_sb, k_sl, v_sb, v_sl, lq_pad, acc_in_smem, scale);
+  a.causal = causal;
+  a.groups = groups;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Lq <= kStreamBwdRows && Lk <= kStreamBwdRows)
+    return static_cast<int>(launch_packed_bwd<true>(a, grid, smem_bytes, st));
+  return static_cast<int>(launch_packed_bwd<true, kGrpRows>(a, grid, smem_bytes, st));
 }
 
-// The layout the launch plans are computed from: the FMA tiles' rows,
-// threads a block and the dynamic shared bytes of B7's backward past 128
-// rows, its dq kernel and dk / dv kernel; the 3xTF32 forward's (B1 / B6a and
-// B7's) query rows a block, threads and shared bytes; the 3xTF32 backward's
-// threads, fixed shared bytes, floats a query row of its accumulator and row
-// statistics, and the most dynamic shared memory a block may take; the most
-// query rows and keys of the streaming backward's one-launch form; the w8a8
-// fusion's forward's query rows a block, threads and shared bytes.
+// The layout the launch plans are computed from: the 3xTF32 backward's keys
+// a key tile, the streaming form's query rows a step and fixed shared bytes
+// past one key tile, and the threads a block of its dq reduction; the 3xTF32 forward's (B1 /
+// B6a and B7's) query rows a block, threads and shared bytes; the 3xTF32
+// backward's threads, fixed shared bytes, floats a query row of its
+// accumulator and row statistics, and the most dynamic shared memory a
+// block may take; the most query rows and keys of the streaming backward's
+// one-launch form; the w8a8 fusion's forward's query rows a block, threads
+// and shared bytes.
 extern "C" void attention_f32_layout(int* out) {
-  out[0] = kT;
-  out[1] = kThreads;
-  out[2] = kDqSmemBytes;
-  out[3] = kDkvSmemBytes;
+  out[0] = kBwdKeys;
+  out[1] = kGrpRows;
+  out[2] = kRedThreads;
+  out[3] = kGrpFixedBytes;
   out[4] = kFwdRows;
   out[5] = kFwdThreads;
   out[6] = kPFwdSmemBytes;

@@ -49,10 +49,10 @@ csrc/ or raises. There is no fallback between the two. The gradients are
 Each of these kernels has a bf16 form and a float32 form, picked by the
 dtype of q, k, v (all bfloat16 or all float32): the bf16 kernels above, and
 csrc/attention_f32.cu, where the packed attention of B1 / B6a, B6b and B8
-and B7's backward up to 128 rows (one launch, `stream_bwd_f32_launches`)
-take their products as 3xTF32 on the tensor cores (fp32 accuracy), the rest
-as fp32 FMA, and every cast to v's dtype is a no-op (`attention_f32_plan`;
-launch counts `*_f32`). Nothing is
+and B7's forward and backward (its forms in `stream_bwd_f32_launches`)
+take their products as 3xTF32 on the tensor cores (fp32 accuracy), and
+every cast to v's dtype is a no-op (`attention_f32_plan`; launch counts
+`*_f32`). Nothing is
 cast from one to the other. The w8a8 serving fusion below takes float32
 too, in its every form, in two launches each: the fp32 attention (B1's
 function summed in the plain version's order, its int8-score form B11, or
@@ -106,8 +106,10 @@ launch_counts = {"packed_attention": 0, "attention_out_int8": 0,
                  "streaming_attention_f32": 0,
                  "streaming_attention_bwd_f32": 0}
 # kernel launches of B7's fp32 backward by the form its plan took: one
-# launch a call, or the dq and dk / dv kernels (two)
-stream_bwd_f32_launches = {"one_launch": 0, "two_kernels": 0}
+# launch a call up to 128 rows ('one_launch'); past that 'key_groups', one
+# launch a call, or two (the dq reduction) where its plan cuts the keys into
+# groups
+stream_bwd_f32_launches = {"one_launch": 0, "key_groups": 0}
 
 
 def reset_launch_counts() -> None:
@@ -677,11 +679,10 @@ def streaming_attention_bwd_cuda(q, k, v, do, o, lse, num_heads: int,
     return dq, dk, dv
 
 
-# Launch plans of csrc/attention_f32.cu, the float32 forms. The FMA tiles
-# (B7's backward past 128 rows): 64-row tiles of fp32 in shared memory (rows
-# padded to 68 floats), 256 threads a block, and the dynamic shared bytes of
-# its dq kernel (q^T, do^T, k^T, k, v^T, ds^T and two floats a row) and its
-# dk / dv kernel (eight tiles and two floats a row). The 3xTF32 forward (B1
+# Launch plans of csrc/attention_f32.cu, the float32 forms. B7's backward
+# past one key tile ('key_groups'): key tiles of 128, steps of 64 query rows
+# whose q / do stages and ds^T take the 3xTF32 backward's tiles to 208,896
+# bytes, and the dq reduction's 256 threads a block. The 3xTF32 forward (B1
 # / B6a, B8's first launch, and B7's forward at every length): 64 query rows
 # and 128 threads a block, two stages of key / value tiles. The 3xTF32
 # backward (B6b, B8's second launch): one block of 256 threads per (batch
@@ -689,15 +690,15 @@ def streaming_attention_bwd_cuda(q, k, v, do, o, lse, num_heads: int,
 # floats per query row (Lq rounded up to 16), beside 154 KB of tile stages;
 # past a block's 227 KB (Lq > 240) they move to a block-private region of a
 # global scratch buffer, and a grid of one block per SM walks the (row,
-# head) pairs. B7's backward takes the same kernel in its streaming form
-# while Lq and Lk are at most one key tile (128), its accumulator in shared
-# memory, else the two FMA kernels. The attention of the w8a8 fusion's fp32
-# forms (B4, B11, B12; 'fma_fwd'): 7 warps of 16 query rows a block (112
-# rows, 224 threads), its q rows, one key and one value tile of 64 rows, the
-# warps' e rows and the int8 form's scales and codes in 112,320 bytes, two
-# blocks to an SM. The launch holds the fifteen numbers against the
+# head) pairs. B7's backward takes the same kernel in its streaming form,
+# in one launch while Lq and Lk are at most one key tile (128), its
+# accumulator in shared memory, else in key groups. The attention of the
+# w8a8 fusion's fp32 forms (B4, B11, B12; 'fma_fwd'): 7 warps of 16 query
+# rows a block (112 rows, 224 threads), its q rows, one key and one value
+# tile of 64 rows, the warps' e rows and the int8 form's scales and codes in
+# 112,320 bytes, two blocks to an SM. The launch holds the fifteen numbers against the
 # library's `attention_f32_layout` before its first use.
-_F32_LAYOUT = (64, 256, 104960, 139776,          # FMA tiles
+_F32_LAYOUT = (128, 64, 256, 208896,             # B7 backward's key groups
                64, 128, 69632,                   # 3xTF32 forward
                256, 157696, 74, 232448,          # 3xTF32 backward
                128,                              # its streaming form's rows
@@ -705,9 +706,25 @@ _F32_LAYOUT = (64, 256, 104960, 139776,          # FMA tiles
 _CUDA_MAX_GRID_YZ = 65535
 
 
+def stream_bwd_groups(items: int, key_tiles: int, slots: int,
+                      causal: bool = False) -> int:
+    """The groups of key tiles B7's fp32 backward cuts each of its `items`
+    (batch row, head) pairs into: the fewest (at most one a key tile) whose
+    blocks fill the card's `slots` (blocks it runs at once) to 85% over the
+    waves they take, else the count that fills them best. Under the causal
+    mask, with fewer pairs than slots, one group a key tile: the first key
+    tile walks every query tile, so the item that holds it sets the time."""
+    if causal and items < slots:
+        return key_tiles
+    fill = [(items * g / (-(-items * g // slots) * slots), g)
+            for g in range(1, key_tiles + 1)]
+    return next((g for f, g in fill if f >= 0.85), max(fill)[1])
+
+
 def attention_f32_plan(B: int, Lq: int, Lk: int, H: int,
                        Dh: int = _KERNEL_HEAD_DIM, packed: bool = True,
-                       sm_count: int = 132) -> Dict:
+                       sm_count: int = 132, groups: Optional[int] = None,
+                       causal: bool = False) -> Dict:
     """The launches of the float32 kernels at one shape on a card of
     `sm_count` SMs. packed (the clamp form, whose path ends at 640 keys):
     {'fwd': {'grid': (query tiles, H, B), 'threads', 'smem_bytes'}, 'bwd':
@@ -716,14 +733,17 @@ def attention_f32_plan(B: int, Lq: int, Lk: int, H: int,
     backward's grid one-dimensional, 'fma_fwd' the attention of B4 / B11 /
     B12 (a block per 112 query rows); streaming: {'fwd', 'bwd'}, the
     forward the packed one's kernel (a block per 64 query rows) in its
-    streaming form, and the backward {'form': 'one_launch', 'launches': 1,
-    'grid': B * H, 'threads', 'lq_pad', 'smem_bytes', 'scratch_floats': 0}
-    (the packed backward's kernel in its streaming form) while Lq and Lk
-    are at most its rows, else {'form': 'two_kernels', 'launches': 2, 'dq',
-    'dkdv': {'grid': (tiles, H, B), 'threads', 'smem_bytes'},
-    'scratch_floats' (the row statistics and deltas, 2 B H Lq)}, the dq
-    kernel a block per 64 query rows, the dk / dv kernel one per 64 keys.
-    Keys stream through fixed tiles, so no size depends on Lk."""
+    streaming form, and the backward the packed backward's kernel in its
+    streaming form: {'form', 'launches', 'groups', 'grid', 'threads',
+    'lq_pad', 'acc_in_smem', 'smem_bytes', 'scratch_floats'}, a block per
+    (batch row, head, group of key tiles of 128). 'one_launch' while Lq and
+    Lk are at most one key tile (one group, the accumulator in shared
+    memory), else 'key_groups', `groups` (default `stream_bwd_groups`)
+    cutting each pair's key tiles: one group (one launch; the accumulator in
+    shared memory while it fits, else in a block-private region of the
+    scratch, the grid at most one block an SM, walking the pairs), or more
+    (two launches: the item-private dq sums in the scratch, then the dq
+    reduction); `causal` counts in the default groups alone."""
     fma_fwd = attention_fma_plan(B, Lq, Lk, H, Dh)
     if packed and Lk > _PACKED_MAX_LK:
         raise ValueError(f"{Lk} keys: the packed path ends at "
@@ -733,24 +753,36 @@ def attention_f32_plan(B: int, Lq: int, Lk: int, H: int,
     fwd = {"grid": (-(-Lq // rows), H, B), "threads": threads,
            "smem_bytes": fwd_smem}
     lq_pad = -(-Lq // 16) * 16
-    if not packed:
-        tile, tile_threads, dq, dkdv = _F32_LAYOUT[:4]
-        q_tiles, k_tiles = -(-Lq // tile), -(-Lk // tile)
-        if Lq <= one_rows and Lk <= one_rows:
-            bwd = {"form": "one_launch", "launches": 1, "grid": B * H,
-                   "threads": bwd_threads, "lq_pad": lq_pad,
-                   "smem_bytes": fixed + 4 * lq_pad * per_row,
-                   "scratch_floats": 0}
-        else:
-            bwd = {"form": "two_kernels", "launches": 2,
-                   "dq": {"grid": (q_tiles, H, B), "threads": tile_threads,
-                          "smem_bytes": dq},
-                   "dkdv": {"grid": (k_tiles, H, B),
-                            "threads": tile_threads, "smem_bytes": dkdv},
-                   "scratch_floats": 2 * B * H * Lq}
-        return {"fwd": fwd, "bwd": bwd}
     acc = lq_pad * per_row
-    if fixed + 4 * acc <= max_smem:
+    in_smem = fixed + 4 * acc <= max_smem
+    if not packed:
+        one = Lq <= one_rows and Lk <= one_rows
+        if not one:   # the key groups' 64-row steps
+            fixed = _F32_LAYOUT[3]
+            in_smem = fixed + 4 * acc <= max_smem
+        key_tiles = -(-Lk // _F32_LAYOUT[0])
+        if groups is None:   # a block fits an SM
+            groups = 1 if one else stream_bwd_groups(B * H, key_tiles,
+                                                     sm_count, causal)
+        if not 1 <= groups <= key_tiles:
+            raise ValueError(f"{groups} groups of {key_tiles} key tiles")
+        groups = -(-key_tiles // -(-key_tiles // groups))   # none empty
+        items = B * H * groups
+        if groups > 1:
+            grid, scratch = items, items * acc
+        elif in_smem:
+            grid, scratch = items, 0
+        else:
+            grid = min(items, sm_count)
+            scratch = grid * acc
+        bwd = {"form": "one_launch" if one else "key_groups",
+               "launches": 1 if groups == 1 else 2, "groups": groups,
+               "grid": grid, "threads": bwd_threads, "lq_pad": lq_pad,
+               "acc_in_smem": in_smem,
+               "smem_bytes": fixed + (4 * acc if in_smem else 0),
+               "scratch_floats": scratch}
+        return {"fwd": fwd, "bwd": bwd}
+    if in_smem:
         bwd = {"lq_pad": lq_pad, "grid": B * H, "acc_in_smem": True,
                "smem_bytes": fixed + 4 * acc, "scratch_floats": 0}
     else:
@@ -853,21 +885,14 @@ def _bwd_f32(name: str, q, k, v, do, extra, num_heads: int, causal=None):
     if B == 0 or Lq == 0 or Lk == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     Dh = D // num_heads
-    if causal is None:
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        plan = attention_f32_plan(B, Lq, Lk, num_heads, Dh,
-                                  sm_count=sms)["bwd"]
-        n_scratch = plan["scratch_floats"]
-        tail = (plan["lq_pad"], plan["grid"], int(plan["acc_in_smem"]),
-                plan["smem_bytes"], Dh ** -0.5)
-    else:
-        plan = attention_f32_plan(B, Lq, Lk, num_heads, Dh,
-                                  packed=False)["bwd"]
-        n_scratch = plan["scratch_floats"]
-        one = plan["form"] == "one_launch"
-        tail = (Dh ** -0.5, int(causal), int(one),
-                plan["lq_pad"] if one else 0,
-                plan["smem_bytes"] if one else 0)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = attention_f32_plan(B, Lq, Lk, num_heads, Dh, packed=causal is None,
+                              sm_count=sms, causal=bool(causal))["bwd"]
+    n_scratch = plan["scratch_floats"]
+    launch = (plan["lq_pad"], plan["grid"], int(plan["acc_in_smem"]),
+              plan["smem_bytes"])
+    tail = (*launch, Dh ** -0.5) if causal is None else (
+        Dh ** -0.5, int(causal), plan["groups"], *launch)
     scratch = torch.empty(n_scratch, dtype=torch.float32,
                           device=q.device) if n_scratch else None
     _f32_launch(name, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),

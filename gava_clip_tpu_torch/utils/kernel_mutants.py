@@ -317,15 +317,35 @@ MUTANTS = {
     "f32_b7_products_tf32": (
         _F32, [(_3XTF32, _1XTF32)],
         "phase_f32_kernels", "streaming_attention_f32 B="),
-    # B7's backward in fp32, its two FMA kernels (rows past 128): p of the
-    # keys the causal mask hides kept
+    # B7's backward in fp32 past 128 rows (the 3xTF32 backward's streaming
+    # form in key-tile groups: the same kernel as the one-launch form below,
+    # so these edit lines the two share and are held by the new form's
+    # checks alone: the long causal shape's, whose 32 pairs take 8 groups,
+    # and the 400^2 frame row's, one group): p of the keys the causal mask
+    # hides kept (f32_b7b1_causal_mask_dropped's edit)
     "f32_b7b_causal_mask_dropped": (
-        _F32, [("return causal && key > row ? 0.f : ex2f(s * c - st);",
-                "return ex2f(s * c - st);")],
-        "phase_f32_kernels", "streaming_attention_bwd_f32 B="),
-    # B7's backward in fp32, its one-launch form (the 3xTF32 backward's
-    # streaming form, rows up to 128): p of the keys the causal mask hides
-    # kept
+        _F32, [("const bool vis = kv && row < a.Lq && (!a.causal || key <= row);",
+                "const bool vis = kv && row < a.Lq;")],
+        "phase_f32_kernels", "streaming_attention_bwd_f32 B=4 Lq=1024"),
+    # ... every product one TF32 product a step instead of three
+    # (f32_products_tf32's edit)
+    "f32_b7b_products_tf32": (
+        _F32, [(_3XTF32, _1XTF32)],
+        "phase_f32_kernels", "streaming_attention_bwd_f32 B=32 Lq=626"),
+    # ... p = exp2(s c) with the row's statistic not subtracted
+    # (f32_b7b1_stat_not_subtracted's edit)
+    "f32_b7b_stat_not_subtracted": (
+        _F32, [("p[i] = vis ? ex2f(sT[f][i] * a.c - st[i & 1]) : 0.f;",
+                "p[i] = vis ? ex2f(sT[f][i] * a.c) : 0.f;")],
+        "phase_f32_kernels", "streaming_attention_bwd_f32 B=32 Lq=626"),
+    # ... delta from the first 32 head columns of do * o only
+    # (f32_b6b_delta_half_row's edit)
+    "f32_b7b_delta_half_row": (
+        _F32, [("        for (int half = 0; half < 2; ++half) {",
+                "        for (int half = 0; half < 1; ++half) {")],
+        "phase_f32_kernels", "streaming_attention_bwd_f32 B=32 Lq=626"),
+    # B7's backward in fp32, its one-launch form (rows up to 128): p of the
+    # keys the causal mask hides kept
     "f32_b7b1_causal_mask_dropped": (
         _F32, [("const bool vis = kv && row < a.Lq && (!a.causal || key <= row);",
                 "const bool vis = kv && row < a.Lq;")],
@@ -428,9 +448,12 @@ def _run_mutant(name):
         src = src.replace(old, new)
     with open(os.path.join(d, path), "w") as f:
         f.write(src)
-    # the phase checks the mutant's kernel alone where it can (`only`)
+    # the phase checks the mutant's kernel alone where it can (`only`), and
+    # the f32-kernel phase the shapes the word names (`only_shape`)
+    entry, *shape = word.split()
     code = ("import chip_smoke as cs\ncs.import_port()\n"
-            f"state = {{'checks_only': True, 'only': {word.split()[0]!r}}}\n"
+            f"state = {{'checks_only': True, 'only': {entry!r}, "
+            f"'only_shape': {' '.join(shape)!r}}}\n"
             f"cs.phase_device(state)\ncs.{phase}(state)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=d,
                          capture_output=True, text=True)

@@ -71,8 +71,12 @@ W8_F32_REL of sum |x| |w|: the source as it is, beside the parent's kernel
 of the weights (wrong outputs), the three products of every k8 step
 chained into the running sums with no wait a step (it drifts past the
 limit), one product a step (wrong outputs); B7's fp32 backward
-(csrc/attention_f32.cu) at the text tower's shape beside the parent's
-(`f32b7b_parent`) against SDPA's fp32 backward op, in CUDA graphs; B7's
+(csrc/attention_f32.cu) at the text tower's shape, a 400^2 frame row and
+(4, 1024, 1024, 8) causal (F32B7B_SHAPES) beside the parent's form
+(`f32b7b_parent`) and SDPA's fp32 backward op in CUDA graphs in turns:
+this tree's at every count of key-tile groups worth trying, and cut to show
+where its time goes (`f32b7b_cut_*`, no split, the skeleton, one product a
+step; wrong outputs), and at 640 and 656 keys (the tail tile's cost); B7's
 fp32 forward (`packed_fwd_kernel<true>`) at the text tower's shape and at
 (4, 1024, 1024, 8) causal, held to F32_REL and F32_LSE_ABS, beside the
 parent commit's FMA kernel (`b7f_parent`) and SDPA's fp32 forward in CUDA
@@ -159,7 +163,13 @@ _PARENT_SIGNATURES[_W8F32] = {
     # x, W^T tiles, s, y; M, K, N; stream
     "w8_matmul_f32": ([_VP] * 4 + [_I] * 3 + [_VP], _I)}
 # the parent's attention_f32.cu takes this tree's signatures
-# (_cuda._SIGNATURES['attention_f32']), and so do the parent's B5 entries
+# (_cuda._SIGNATURES['attention_f32']) but for B7's backward, whose plan was
+# (one launch?, lq_pad, shared bytes); the parent's B5 entries take this
+# tree's
+# q, k, v, do, o, lse, dq, dk, dv, scratch; B, Lq, Lk, H, Dh; q/k/v batch
+# and row strides; scale; causal; one launch?, lq_pad, shared bytes; stream
+_PARENT_F32_B7B = ([_VP] * 10 + [_I] * 5 + [_I] * 6
+                   + [ctypes.c_float, _I, _I, _I, _I, _VP], _I)
 PARENT_VARIANTS = {"b10_parent": _B10, "b7b_parent": _B7B,
                    "b2_parent": _B2, "mega_parent": _MEGA,
                    "f32b9_parent": _W8F32, "f32b7b_parent": _F32,
@@ -644,6 +654,60 @@ VARIANTS = {
         "  tf32::wgmma_tf32(f, ah, bh);     // hi_x hi_w\n",
         "  tf32::wgmma_tf32_z(f, ah, bh);\n")]),
     "f32b7b_as_is": (_F32, []),
+    # B7's fp32 backward (packed_bwd_kernel<true>) cut to show where its
+    # time goes (wrong outputs; each part skipped by a test the compiler
+    # cannot fold, groups < 0): without the score products (q k^T, do v^T),
+    # without the dv / dk products, without the dq products (its barrier,
+    # ds^T and the accumulator's read and write kept), without the whole dq
+    # part; and every product one TF32 product instead of three
+    "f32b7b_cut_scores": (_F32, [(
+        "          for (int kk = 0; kk < kHD / 8; ++kk) {\n"
+        "            uint32_t kh[4], kl[4], vh[4], vl[4];",
+        "          for (int kk = 0; kk < (a.groups < 0 ? kHD / 8 : 0); ++kk) {\n"
+        "            uint32_t kh[4], kl[4], vh[4], vl[4];")]),
+    "f32b7b_cut_dkdv": (_F32, [(
+        "              const float* qor = qs + (8 * f + 2 * t) * kLDF + g;\n"
+        "#pragma unroll\n"
+        "              for (int n = 0; n < kHD / 8; ++n) {",
+        "              const float* qor = qs + (8 * f + 2 * t) * kLDF + g;\n"
+        "              for (int n = 0; n < (a.groups < 0 ? kHD / 8 : 0); ++n) {")]),
+    "f32b7b_cut_dq_products": (_F32, [(
+        "            if (kc < nkc) {\n              const float* dr = ds_s",
+        "            if (kc < nkc && a.groups < 0) {\n              const float* dr = ds_s")]),
+    "f32b7b_cut_dq": (_F32, [(
+        "        const int slab = warp / WPS, c0 = warp % WPS * CW;\n"
+        "        if (16 * slab < nq) {",
+        "        const int slab = warp / WPS, c0 = warp % WPS * CW;\n"
+        "        if (16 * slab < nq && a.groups < 0) {")]),
+    # ... every operand's split into hi and lo skipped (hi the raw bits, lo
+    # 0: the ALU work of the splits, an upper bound on pre-split tiles'
+    # gain), and every part cut at once (the loads, barriers, p and ds, the
+    # row statistics: the skeleton)
+    "f32b7b_no_split": (_F32, [(
+        '#include "tf32_frags.cuh"\n',
+        '#include "tf32_frags.cuh"\n'
+        "namespace tf32 {\n__device__ __forceinline__ void nosplit_(float x, "
+        "uint32_t& hi, uint32_t& lo) {\n  hi = __float_as_uint(x);\n  lo = 0u;\n}\n"
+        "}  // namespace tf32\n#define split nosplit_\n")]),
+    "f32b7b_skeleton": (_F32, [(
+        "          for (int kk = 0; kk < kHD / 8; ++kk) {\n"
+        "            uint32_t kh[4], kl[4], vh[4], vl[4];",
+        "          for (int kk = 0; kk < (a.groups < 0 ? kHD / 8 : 0); ++kk) {\n"
+        "            uint32_t kh[4], kl[4], vh[4], vl[4];"), (
+        "              const float* qor = qs + (8 * f + 2 * t) * kLDF + g;\n"
+        "#pragma unroll\n"
+        "              for (int n = 0; n < kHD / 8; ++n) {",
+        "              const float* qor = qs + (8 * f + 2 * t) * kLDF + g;\n"
+        "              for (int n = 0; n < (a.groups < 0 ? kHD / 8 : 0); ++n) {"), (
+        "        const int slab = warp / WPS, c0 = warp % WPS * CW;\n"
+        "        if (16 * slab < nq) {",
+        "        const int slab = warp / WPS, c0 = warp % WPS * CW;\n"
+        "        if (16 * slab < nq && a.groups < 0) {")]),
+    "f32b7b_one_product": (_F32, [(
+        "  tf32::mma_tf32_z(p, al, bh0, bh1);\n"
+        "  tf32::mma_tf32(p, ah, bl0, bl1);\n"
+        "  tf32::mma_tf32(p, ah, bh0, bh1);\n",
+        "  tf32::mma_tf32_z(p, ah, bh0, bh1);\n")]),
     # B7's fp32 forward (packed_fwd_kernel<true>): the source as it is;
     # every step with the tests of each chunk (no FULL form); the hi x hi
     # product in a fresh accumulator of its own (two chains of one
@@ -1009,6 +1073,9 @@ def _build(name):
     else:
         (path, edits), root = VARIANTS[name], ROOT
         signatures = _cuda._SIGNATURES[_LIB[path]]
+    if path == _F32 and root == PARENT:
+        signatures = {**signatures,
+                      "streaming_attention_bwd_f32": _PARENT_F32_B7B}
     if path == _B5:
         # one library with B5's bf16 and fp32 entries (the functions a
         # parent's library lacks are left out below)
@@ -1683,35 +1750,41 @@ def _kernels_per_call(call):
     return f"device kernels of one call: {names or 'none in the trace'}"
 
 
-def _graph_ms(cs, call):
-    """Device ms of one call: GRAPH_LAUNCHES calls in one CUDA graph,
-    replayed 5 times after a warm-up."""
-    return cs.cuda_time_ms(cs._graph_call(call), iters=5) / cs.GRAPH_LAUNCHES
+def _graph_ms(cs, call, launches=None):
+    """Device ms of one call: `launches` (GRAPH_LAUNCHES) calls in one CUDA
+    graph, replayed 5 times after a warm-up."""
+    launches = launches or cs.GRAPH_LAUNCHES
+    return cs.cuda_time_ms(cs._graph_call(call, launches), iters=5) / launches
 
 
-def _report_times(cs, label, calls, yard, yard_name, plain, bound, state):
-    """Each call of `calls` and the yardstick by CUDA events (host-launched,
-    20 calls) and in CUDA graphs; each call against the yardstick and
-    against the first call in turns in CUDA graphs (median of 7 rounds);
-    the plain version by events; the bound."""
+def _report_times(cs, label, calls, yard, yard_name, plain, bound, state,
+                  launches=None):
+    """Each call of `calls` and the yardstick (None: not measured) by CUDA
+    events (host-launched, 20 calls) and in CUDA graphs of `launches`
+    (GRAPH_LAUNCHES) calls; each call against the yardstick and against the
+    first call in turns in CUDA graphs (median of 7 rounds); the plain
+    version by events; the bound."""
+    launches = launches or cs.GRAPH_LAUNCHES
     names = list(calls)
-    for name in names + [yard_name]:
+    for name in names + ([yard_name] if yard is not None else []):
         call = calls.get(name, yard)
         print(f"[variants] {name} {label}: {cs.cuda_time_ms(call):.5f} ms by "
-              f"CUDA events, {_graph_ms(cs, call):.5f} ms in CUDA graphs "
-              f"of {cs.GRAPH_LAUNCHES} ({state['smi']})", flush=True)
+              f"CUDA events, {_graph_ms(cs, call, launches):.5f} ms in CUDA "
+              f"graphs of {launches} ({state['smi']})", flush=True)
     for name in names:
-        r = cs._ratio_graphs(calls[name], yard)
+        if yard is None:
+            break
+        r = cs._ratio_graphs(calls[name], yard, launches)
         print(f"[variants] {name} vs {yard_name} {label}, CUDA graphs, "
               f"median of 7 rounds in turns: {r[0]:.5f} ms vs {r[1]:.5f} ms, "
               f"ratio {r[2]:.3f} (rounds {r[3]:.3f}-{r[4]:.3f}) "
               f"({state['smi']})", flush=True)
-        if name != names[0]:
-            r = cs._ratio_graphs(calls[name], calls[names[0]])
-            print(f"[variants] {name} vs {names[0]} {label}, CUDA graphs, "
-                  f"median of 7 rounds in turns: {r[0]:.5f} ms vs {r[1]:.5f} "
-                  f"ms, ratio {r[2]:.3f} (rounds {r[3]:.3f}-{r[4]:.3f}) "
-                  f"({state['smi']})", flush=True)
+    for name in names[1:]:
+        r = cs._ratio_graphs(calls[name], calls[names[0]], launches)
+        print(f"[variants] {name} vs {names[0]} {label}, CUDA graphs, "
+              f"median of 7 rounds in turns: {r[0]:.5f} ms vs {r[1]:.5f} "
+              f"ms, ratio {r[2]:.3f} (rounds {r[3]:.3f}-{r[4]:.3f}) "
+              f"({state['smi']})", flush=True)
     print(f"[variants] plain version {label}: {cs.cuda_time_ms(plain, iters=5):.5f}"
           f" ms by CUDA events; bound {bound} ({state['smi']})", flush=True)
 
@@ -1953,53 +2026,149 @@ def _f32b9_variants(cs, im, libs, gen, stream, state):
                   f"{r[4]:.3f}) ({state['smi']})", flush=True)
 
 
-def _f32b7b_variants(cs, fa, libs, gen, state):
-    """B7's fp32 backward at the text tower's shape (15, 77, 77, 8),
-    causal: this tree's form and the parent's, each against SDPA's fp32
-    backward op in CUDA graphs (device time), and its largest error
-    against the plain version over the largest |gradient|."""
-    import torch
-    B, L, H = 15, 77, 8
-    D = H * 64
-    q, k, v, do = (torch.randn(B, L, D, generator=gen, device="cuda")
-                   for _ in range(4))
-    o, lse = fa.streaming_attention_plain(q, k, v, H, True)
-    want = fa.streaming_attention_bwd_plain(q, k, v, do, o, lse, H, True)
-    grads = [torch.empty_like(q) for _ in range(3)]
-    plan = fa.attention_f32_plan(B, L, L, H, packed=False)["bwd"]
-    scratch = torch.empty(2 * B * H * L, device="cuda")
-    yard = cs._sdpa_bwd_op(q, k, v, do, H, True)
-    for name, lib in libs.items():
-        if not name.startswith("f32b7b"):
-            continue
-        # this tree's entry and the parent's: the one-launch form
-        tail = (1, plan["lq_pad"], plan["smem_bytes"])
+# B7's fp32 backward: (B, Lq, Lk, H, causal) of the text tower, a 400^2
+# frame row of the vision tower at 4 clips x 8 frames, and a long causal L;
+# CUDA graphs of F32B7B_LAUNCHES[i] calls at each (the two long shapes'
+# calls take milliseconds: no launch cost to hide)
+F32B7B_SHAPES = ((15, 77, 77, 8, True), (32, 626, 643, 12, False),
+                 (4, 1024, 1024, 8, True))
+F32B7B_LAUNCHES = (20, 2, 2)
+# the 400^2 frame row's keys cut to 640 (five whole key tiles of 128) and
+# to 656 (a sixth of one warp's 16): what its sixth tile of 3 keys costs
+F32B7B_TAIL_SHAPES = ((32, 626, 640, 12), (32, 626, 656, 12))
 
-        def call(lib=lib, tail=tail):
-            stream = torch.cuda.current_stream().cuda_stream
+
+def _f32b7b_variants(cs, fa, libs, gen, state):
+    """B7's fp32 backward at F32B7B_SHAPES: the parent commit's form
+    (`f32b7b_parent`: one launch up to 128 rows, else its two FMA kernels)
+    and this tree's (`f32b7b_as_is`) at every count of key-tile groups
+    worth trying (1, 2, 3 or 4, and one a key tile; the plan's own marked),
+    each held to the plain version (max err over the largest |gradient|,
+    F32_REL) and run twice for the same bits, then timed by CUDA events and
+    in CUDA graphs, against SDPA's fp32 backward op and against the first
+    call (the parent where it is built) in turns in CUDA graphs (median of
+    7 rounds)."""
+    import torch
+    print(f"[variants] f32b7b: torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}, "
+          f"torch.backends.cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}",
+          flush=True)
+    for name, lib in libs.items():
+        if name.startswith("f32b7b"):
+            print(f"[variants] {name} ptxas: {lib.ptxas_summary}", flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for (B, Lq, Lk, H, causal), launches in zip(F32B7B_SHAPES,
+                                                F32B7B_LAUNCHES):
+        D = H * 64
+        label = f"B={B} Lq={Lq} Lk={Lk} H={H} causal={causal}"
+        q, do = (torch.randn(B, Lq, D, generator=gen, device="cuda")
+                 for _ in range(2))
+        k, v = (torch.randn(B, Lk, D, generator=gen, device="cuda")
+                for _ in range(2))
+        o, lse = fa.streaming_attention_plain(q, k, v, H, causal)
+        want = fa.streaming_attention_bwd_plain(q, k, v, do, o, lse, H,
+                                                causal)
+        key_tiles = -(-Lk // (fa._F32_LAYOUT[11] if max(Lq, Lk) <= fa._F32_LAYOUT[11]
+                              else fa._F32_LAYOUT[0]))
+        own = fa.attention_f32_plan(B, Lq, Lk, H, packed=False,
+                                    sm_count=sms,
+                                    causal=causal)["bwd"]["groups"]
+        calls = {}
+        for name, lib in sorted(libs.items(),
+                                key=lambda kv: kv[0] != "f32b7b_parent"):
+            if not name.startswith("f32b7b"):
+                continue
+            if name == "f32b7b_parent":
+                one = max(Lq, Lk) <= fa._F32_LAYOUT[11]
+                plan = fa.attention_f32_plan(B, Lq, Lk, H, packed=False,
+                                             groups=1)["bwd"]
+                tails = {name: (1, plan["lq_pad"], plan["smem_bytes"])
+                         if one else (0, 0, 0)}
+                n_scratch = 2 * B * H * Lq
+            else:
+                tails, n_scratch = {}, 1
+                plans = {}
+                for g in ((1, 2, 3, 4, key_tiles, own)
+                          if name == "f32b7b_as_is" else (own,)):
+                    plan = fa.attention_f32_plan(
+                        B, Lq, Lk, H, packed=False, sm_count=sms,
+                        groups=min(g, key_tiles))["bwd"]
+                    plans[plan["groups"]] = plan
+                for g, plan in sorted(plans.items()):
+                    tag = f"{name}_groups{g}" + ("_plan" if g == own else "")
+                    tails[tag] = (g, plan["lq_pad"], plan["grid"],
+                                  int(plan["acc_in_smem"]),
+                                  plan["smem_bytes"])
+                    n_scratch = max(n_scratch, plan["scratch_floats"])
+            scratch = torch.empty(n_scratch, device="cuda")
+            for tag, tail in tails.items():
+                grads = [torch.empty_like(x) for x in (q, k, v)]
+
+                def call(lib=lib, tail=tail, grads=grads, scratch=scratch,
+                         tag=tag):
+                    stream = torch.cuda.current_stream().cuda_stream
+                    err = lib.streaming_attention_bwd_f32(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        do.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                        *(g.data_ptr() for g in grads), scratch.data_ptr(),
+                        B, Lq, Lk, H, 64, *fa._qkv_strides(q, k, v),
+                        64 ** -0.5, int(causal), *tail, stream)
+                    if err:
+                        raise RuntimeError(f"{tag}: launch failed ({err})")
+                call()
+                torch.cuda.synchronize()
+                first = [g.clone() for g in grads]
+                call()
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(first, grads))
+                err = max(((g - r).abs() / r.abs().max()).max().item()
+                          for g, r in zip(grads, want))
+                print(f"[variants] {tag} {label}: max err / scale {err:.3e} "
+                      f"(limit {cs.F32_REL:.3e}), the same bits twice: "
+                      f"{same} {'ok' if err <= cs.F32_REL and same else 'FAIL'}",
+                      flush=True)
+                calls[tag] = call
+        yard = cs._sdpa_bwd_op(q, k, v, do, H, causal)
+        bounds = [cs._attention_bounds(B, Lq, Lk, H, causal, esize=4,
+                                       tf32=t)["bwd"] for t in (True, False)]
+        bound = (f"{bounds[0][0]:.4f} ms as 3xTF32 ({bounds[0][1]}), "
+                 f"{bounds[1][0]:.4f} ms as fp32 FMA ({bounds[1][1]})")
+        plain = lambda: fa.streaming_attention_bwd_plain(  # noqa: E731
+            q, k, v, do, o, lse, H, causal)
+        _report_times(cs, label, calls, yard, "SDPA's fp32 backward op",
+                      plain, bound, state, launches=launches)
+        del q, k, v, do, o, lse, want, calls, yard
+        torch.cuda.empty_cache()
+    lib = libs.get("f32b7b_as_is")
+    for B, Lq, Lk, H in F32B7B_TAIL_SHAPES if lib is not None else ():
+        D = H * 64
+        q, do = (torch.randn(B, Lq, D, generator=gen, device="cuda")
+                 for _ in range(2))
+        k, v = (torch.randn(B, Lk, D, generator=gen, device="cuda")
+                for _ in range(2))
+        o, lse = fa.streaming_attention_plain(q, k, v, H, False)
+        grads = [torch.empty_like(x) for x in (q, k, v)]
+        plan = fa.attention_f32_plan(B, Lq, Lk, H, packed=False,
+                                     sm_count=sms)["bwd"]
+        scratch = torch.empty(max(plan["scratch_floats"], 1), device="cuda")
+
+        def call(Lk=Lk, plan=plan):
             err = lib.streaming_attention_bwd_f32(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 o.data_ptr(), lse.data_ptr(), *(g.data_ptr() for g in grads),
-                scratch.data_ptr(), B, L, L, H, 64, *fa._qkv_strides(q, k, v),
-                64 ** -0.5, 1, *tail, stream)
+                scratch.data_ptr(), B, Lq, Lk, H, 64,
+                *fa._qkv_strides(q, k, v), 64 ** -0.5, 0, plan["groups"],
+                plan["lq_pad"], plan["grid"], int(plan["acc_in_smem"]),
+                plan["smem_bytes"], torch.cuda.current_stream().cuda_stream)
             if err:
-                raise RuntimeError(f"{name}: launch failed ({err})")
-        call()
-        torch.cuda.synchronize()
-        err = max(((g - r).abs() / r.abs().max()).max().item()
-                  for g, r in zip(grads, want))
-        if yard is None:
-            ms = cs.cuda_time_ms(cs._graph_call(call)) / cs.GRAPH_LAUNCHES
-            print(f"[variants] {name} B={B} L={L} H={H} causal: max err / "
-                  f"scale {err:.3e}; {ms:.5f} ms a call in a CUDA graph, "
-                  f"SDPA's op not measured ({state['smi']})", flush=True)
-            continue
-        g = cs._ratio_graphs(call, yard)
-        print(f"[variants] {name} B={B} L={L} H={H} causal: max err / scale "
-              f"{err:.3e}; in CUDA graphs of {cs.GRAPH_LAUNCHES} calls, "
-              f"median of 7 rounds: {g[0]:.5f} ms vs SDPA's fp32 backward op "
-              f"{g[1]:.5f} ms a call, ratio {g[2]:.3f} (rounds {g[3]:.3f}-"
-              f"{g[4]:.3f}) ({state['smi']})", flush=True)
+                raise RuntimeError(f"f32b7b_as_is: launch failed ({err})")
+        print(f"[variants] f32b7b_as_is B={B} Lq={Lq} Lk={Lk} H={H} "
+              f"({-(-Lk // fa._F32_LAYOUT[0])} key tiles of "
+              f"{fa._F32_LAYOUT[0]}, "
+              f"{plan['groups']} group(s)): "
+              f"{_graph_ms(cs, call, 2):.5f} ms in CUDA graphs of 2 "
+              f"({state['smi']})", flush=True)
+        del q, k, v, do, o, lse, grads, scratch
 
 
 def _f32b7f_variants(cs, fa, libs, gen, state):

@@ -384,23 +384,24 @@ def _inputs(seed, B, Lq, Lk, H, sliced):
     return q, k, v, do
 
 
-def _stream_bwd(lib, q, k, v, do, o, lse, H, causal):
-    """B7's fp32 backward through the entry in the form of its plan:
-    (dq, dk, dv), the form."""
+def _stream_bwd(lib, q, k, v, do, o, lse, H, causal, **plan_kw):
+    """B7's fp32 backward through the entry in the form of its plan
+    (`plan_kw`: attention_f32_plan's sm_count or groups): (dq, dk, dv), the
+    plan."""
     B, Lq, D = q.shape
     Lk = k.shape[1]
-    plan = tfa.attention_f32_plan(B, Lq, Lk, H, packed=False)["bwd"]
-    one = plan["form"] == "one_launch"
+    plan = tfa.attention_f32_plan(B, Lq, Lk, H, packed=False,
+                                  causal=causal, **plan_kw)["bwd"]
     scratch = torch.full((max(plan["scratch_floats"], 1),), float("nan"))
     g = [torch.empty(B, L, D) for L in (Lq, Lk, Lk)]
     P = torch.Tensor.data_ptr
     assert lib.streaming_attention_bwd_f32(
         P(q), P(k), P(v), P(do), P(o), P(lse), *map(P, g),
         P(scratch) if plan["scratch_floats"] else None, B, Lq, Lk, H, 64,
-        *tfa._qkv_strides(q, k, v), 64 ** -0.5, int(causal), int(one),
-        plan["lq_pad"] if one else 0, plan["smem_bytes"] if one else 0,
-        None) == 0
-    return g, plan["form"]
+        *tfa._qkv_strides(q, k, v), 64 ** -0.5, int(causal), plan["groups"],
+        plan["lq_pad"], plan["grid"], int(plan["acc_in_smem"]),
+        plan["smem_bytes"], None) == 0
+    return g, plan
 
 
 def _run(lib, B, Lq, Lk, H, causal=None, sliced=False, seed=0):
@@ -472,8 +473,8 @@ def _run(lib, B, Lq, Lk, H, causal=None, sliced=False, seed=0):
         spread = tfa.streaming_attention_plain(q, k, v.abs(), H, causal)[0]
         res["streaming_attention_f32"] = rel(o, ref, spread)
         res["lse"] = (lse - lse_ref).abs().max().item()
-        g, res["form"] = _stream_bwd(lib, q, k, v, do, ref, lse_ref, H,
-                                     causal)
+        g, plan = _stream_bwd(lib, q, k, v, do, ref, lse_ref, H, causal)
+        res["form"] = plan["form"]
         res["streaming_attention_bwd_f32"] = rel_grads(
             g, tfa.streaming_attention_bwd_plain(q, k, v, do, ref, lse_ref, H,
                                                  causal))
@@ -490,12 +491,15 @@ def _run(lib, B, Lq, Lk, H, causal=None, sliced=False, seed=0):
 # whose backward keeps its dq accumulator in the global scratch; then B7's
 # forward causal over three key tiles with Lq < Lk, neither a multiple of
 # 16 or 8 (its blocks stop at their last row's tile, its warps at their
-# last row's chunk)
+# last row's chunk); then B7's backward past 128 rows non-causal over three
+# key tiles (the last of 14 keys), and causal with key tiles past every
+# query row (each still writes its dk, dv: zeros)
 _SHAPES = [(2, 13, 21, 2, None, False), (1, 70, 130, 1, None, False),
            (1, 65, 64, 2, None, True), (1, 77, 77, 2, True, False),
            (1, 130, 70, 1, True, True), (1, 40, 150, 1, False, False),
            (1, 33, 139, 1, None, False), (1, 250, 20, 1, None, False),
-           (1, 150, 170, 1, True, False)]
+           (1, 150, 170, 1, True, False), (1, 140, 270, 1, False, False),
+           (1, 60, 300, 1, True, False)]
 
 
 @pytest.mark.parametrize("shape", _SHAPES)
@@ -509,6 +513,9 @@ def test_f32_kernels_match_plain_versions(emu, shape):
     assert res.get("den", 0.0) <= 2.0 ** -16
     assert res.get("lse", 0.0) <= 3e-5
     assert res["bits"]
+    if causal is not None:   # B7's backward past 128 rows: the new form
+        assert res["form"] == ("one_launch" if max(dims[1:3]) <= 128
+                               else "key_groups")
 
 
 # (B, Lq, Lk, H, causal): B7's backward in its one-launch form (rows up to
@@ -545,8 +552,8 @@ def test_f32_stream_bwd_one_launch_against_jax_grad(emu):
     B, L, H = 1, 40, 2
     q, k, v, do = _inputs(12, B, L, L, H, False)
     o, lse = tfa.streaming_attention_plain(q, k, v, H, True)
-    g, form = _stream_bwd(emu[1], q, k, v, do, o, lse, H, True)
-    assert form == "one_launch"
+    g, plan = _stream_bwd(emu[1], q, k, v, do, o, lse, H, True)
+    assert plan["form"] == "one_launch"
     jq, jk, jv, jdo = (jnp.asarray(t.numpy()) for t in (q, k, v, do))
     with pltpu.force_tpu_interpret_mode():
         _, vjp = jax.vjp(lambda a, b, c: jflash._streaming_flash(
@@ -560,6 +567,71 @@ def test_f32_stream_bwd_one_launch_against_jax_grad(emu):
                                    err_msg=name)
         np.testing.assert_allclose(gt.numpy(), np.asarray(gr), atol=1e-4,
                                    err_msg=name)
+
+
+# (B, Lq, Lk, H, causal): B7's backward past 128 rows in each plan it may
+# take: key tiles in groups of one, two or all (one launch, the block
+# owning dq; or the groups' dq sums added by the second launch), and one
+# group with the dq accumulator past shared memory (Lq 250) walked by fewer
+# blocks than (batch row, head) pairs
+_GROUP_SHAPES = [(1, 140, 270, 1, False), (2, 250, 70, 1, True)]
+
+
+@pytest.mark.parametrize("shape", _GROUP_SHAPES)
+def test_f32_stream_bwd_key_groups_match_plain_version(emu, shape):
+    """B7's fp32 backward past 128 rows takes the key groups' form in every
+    group count and grid its plan allows, each within F32_REL of
+    streaming_attention_bwd_plain and giving the same bits twice."""
+    B, Lq, Lk, H, causal = shape
+    q, k, v, do = _inputs(5, B, Lq, Lk, H, False)
+    o, lse = tfa.streaming_attention_plain(q, k, v, H, causal)
+    want = tfa.streaming_attention_bwd_plain(q, k, v, do, o, lse, H, causal)
+    key_tiles = -(-Lk // tfa._F32_LAYOUT[0])
+    plans = [dict(groups=g) for g in sorted({1, 2, key_tiles})]
+    if Lq > 240:   # one group, the accumulator global, one block
+        plans = [dict(groups=1, sm_count=1)]
+    for kw in plans:
+        g, plan = _stream_bwd(emu[1], q, k, v, do, o, lse, H, causal, **kw)
+        assert plan["form"] == "key_groups"
+        assert plan["launches"] == (1 if plan["groups"] == 1 else 2)
+        if kw.get("sm_count") == 1:
+            assert not plan["acc_in_smem"] and plan["grid"] == 1 < B * H
+        for a, b in zip(g, want):
+            assert ((a - b).abs() / b.abs().max()).max().item() <= F32_REL, kw
+        again = _stream_bwd(emu[1], q, k, v, do, o, lse, H, causal, **kw)[0]
+        assert all(torch.equal(a, b) for a, b in zip(g, again)), kw
+
+
+def test_f32_stream_bwd_key_groups_against_jax_grad(emu):
+    """The new form past 128 rows, in one group and in one a key tile,
+    held directly against JAX's gradient as the one-launch form is: jax.vjp
+    of the JAX streaming path (the stock Pallas TPU kernels in interpret
+    mode) within the JAX package's tolerance for them (atol 2e-3), and of
+    the JAX reference attention within 1e-4."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+    from gava_clip_tpu.ops import flash_attention as jflash
+    B, L, H = 1, 150, 1
+    q, k, v, do = _inputs(13, B, L, L, H, False)
+    o, lse = tfa.streaming_attention_plain(q, k, v, H, False)
+    jq, jk, jv, jdo = (jnp.asarray(t.numpy()) for t in (q, k, v, do))
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda a, b, c: jflash._streaming_flash(
+            a, b, c, H, False), jq, jk, jv)
+        g_j = vjp(jdo)
+    _, vjp_r = jax.vjp(lambda a, b, c: jflash._reference_attention(
+        a, b, c, H, causal=False), jq, jk, jv)
+    g_r = vjp_r(jdo)
+    for groups in (1, 2):
+        g, plan = _stream_bwd(emu[1], q, k, v, do, o, lse, H, False,
+                              groups=groups)
+        assert (plan["form"], plan["groups"]) == ("key_groups", groups)
+        for name, gt, gj, gr in zip("qkv", g, g_j, g_r):
+            np.testing.assert_allclose(gt.numpy(), np.asarray(gj), atol=2e-3,
+                                       err_msg=name)
+            np.testing.assert_allclose(gt.numpy(), np.asarray(gr), atol=1e-4,
+                                       err_msg=name)
 
 
 def _stream_fwd(lib, q, k, v, H, causal):
@@ -798,6 +870,9 @@ def test_f32_mutants_fail_the_limit(emu, name):
     for shape in _SHAPES:
         *dims, causal, sliced = shape
         if (causal is None) != target.startswith("packed"):
+            continue
+        # B7's backward past 128 rows (f32_b7b_*): its own form's shapes
+        if name.startswith("f32_b7b_") and max(dims[1:3]) <= 128:
             continue
         errs.append(_run(lib, *dims, causal=causal, sliced=sliced)[target])
         if errs[-1] > F32_REL:   # rejected: the other shapes add nothing

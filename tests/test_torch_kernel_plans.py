@@ -671,10 +671,12 @@ _BLOCK_RESERVED = 1024          # shared bytes the runtime keeps per block
 
 
 def test_attention_f32_layout_is_the_kernel_source_s():
-    """The plans' constants are the ones attention_f32_layout reports. The
-    FMA tiles (B7's backward past 128 rows): 64-row tiles padded to 68
-    floats, 256 threads, each kernel's shared bytes as its tiles and row
-    floats add up, the dq kernel two blocks to an SM. The 3xTF32 forward
+    """The plans' constants are the ones attention_f32_layout reports. B7's
+    backward past one key tile (the 3xTF32 backward's kernel, 'key_groups'):
+    128-key tiles, steps of 64 query rows (two halves of 32), its shared
+    bytes those of the 3xTF32 backward's tiles with the q / do stages and
+    ds^T of 64 rows; its dq reduction's 256 threads a block. The 3xTF32
+    forward
     (B1 / B6a and B7's): 4 warps of 16 query rows, two stages of 64-key k
     and v tiles, three blocks to an SM; B7's steps of whole 8-key chunks
     that tile a key tile. The 3xTF32 backward: 8
@@ -693,21 +695,22 @@ def test_attention_f32_layout_is_the_kernel_source_s():
     assert "kFwdSmemBytes" not in c and "stream_fwd_kernel" not in (
         _CSRC / "attention_f32.cu").read_text()
     assert tfa._F32_LAYOUT == (
-        c["kT"], c["kThreads"], c["kDqSmemBytes"],
-        c["kDkvSmemBytes"], c["kFwdRows"], c["kFwdThreads"],
+        c["kBwdKeys"], c["kGrpRows"], c["kRedThreads"],
+        c["kGrpFixedBytes"], c["kFwdRows"], c["kFwdThreads"],
         c["kPFwdSmemBytes"], c["kBwdThreads"], c["kBwdFixedBytes"],
         c["kAccLD"] + 2, c["kMaxSmem"], c["kStreamBwdRows"],
         c["kFmaRows"], c["kFmaThreads"], c["kFmaSmemBytes"])
     assert c["kStreamBwdRows"] == c["kBwdKeys"] == 128
     assert c["kBwdFixedBytes"] + c["kStreamBwdRows"] * (c["kAccLD"] + 2) * 4 \
         <= c["kMaxSmem"]
-    tile = c["kHD"] * c["kLD"] * 4
-    assert c["kHD"] == tfa._KERNEL_HEAD_DIM == c["kT"]
-    assert c["kLD"] * 4 % 16 == 0 and c["kLDF"] * 4 % 16 == 0   # 16-byte rows
-    assert c["kThreads"] == (c["kT"] // 4) ** 2     # a 4 x 4 patch a thread
-    assert (c["kDqSmemBytes"], c["kDkvSmemBytes"]) == (
-        6 * tile + 2 * c["kT"] * 4, 8 * tile + 2 * c["kT"] * 4)
+    assert c["kHD"] == tfa._KERNEL_HEAD_DIM
+    assert c["kLDF"] * 4 % 16 == 0                   # 16-byte rows
+    assert "stream_bwd_dq_kernel" not in (_CSRC / "attention_f32.cu").read_text()
     row = c["kLDF"] * 4
+    assert c["kRedThreads"] % 32 == 0 and c["kGrpRows"] == 2 * c["kBwdRows"]
+    assert c["kGrpFixedBytes"] == (3 * c["kBwdKeys"] * row
+                                   + 4 * c["kGrpRows"] * row
+                                   + c["kBwdKeys"] * (c["kGrpRows"] + 4) * 4)
     assert c["kFwdRows"] == 16 * c["kFwdThreads"] // 32
     assert c["kPFwdSmemBytes"] == 2 * 2 * c["kFwdKeys"] * row
     assert c["kFwdKeys"] % (8 * c["kStreamChunks"]) == 0
@@ -731,8 +734,7 @@ def test_attention_f32_layout_is_the_kernel_source_s():
                        c["kFmaOffS"] + (rows + keys) * 4,
                        c["kFmaOffC"] + (rows + keys) * c["kLDC"])
     assert all(r % 16 == 0 for r in regions)
-    for smem, per_sm in ((c["kDqSmemBytes"], 2),
-                         (c["kDkvSmemBytes"], 1), (c["kPFwdSmemBytes"], 3),
+    for smem, per_sm in ((c["kGrpFixedBytes"], 1), (c["kPFwdSmemBytes"], 3),
                          (c["kBwdFixedBytes"], 1), (c["kFmaSmemBytes"], 2)):
         assert smem <= _H100_SMEM_OPTIN
         assert per_sm * (smem + _BLOCK_RESERVED) <= _SM90_SMEM_PER_SM
@@ -749,10 +751,14 @@ def test_attention_f32_layout_is_the_kernel_source_s():
 ])
 def test_attention_f32_plan_covers_every_row_head_and_tile(B, Lq, Lk, H,
                                                           packed):
-    """Every shape chip_smoke checks. Streaming: the forward's and the dq
-    kernel's grid cover every query row of every head and batch row in
-    64-row tiles, the dk / dv kernel's every key; the scratch holds two
-    floats a row. Packed: the forward's grid covers every query row in
+    """Every shape chip_smoke checks. Streaming: the forward's grid covers
+    every query row of every head and batch row in 64-row tiles; the
+    backward's one launch a (batch row, head) up to 128 rows, its dq
+    accumulator in shared memory, else its key groups: a block per (batch
+    row, head, group), the groups no more than the 64-key tiles and none
+    empty, the scratch a region of 74 floats a padded row for each block
+    (one group, global accumulator) or item (more groups). Packed: the
+    forward's grid covers every query row in
     blocks of 64; the backward's one block per (batch row, head) holds the
     dq accumulator of Lq rounded up to 16 rows in shared memory, or (Lq 640)
     a grid of one block per SM walks the pairs with a global scratch of 74
@@ -766,27 +772,29 @@ def test_attention_f32_plan_covers_every_row_head_and_tile(B, Lq, Lk, H,
     assert tiles * rows >= Lq > (tiles - 1) * rows and (heads, batch) == (H, B)
     assert (p["fwd"]["threads"], p["fwd"]["smem_bytes"]) == (threads, fwd)
     if not packed:
-        rows, threads, dq, dkdv = lay[:4]
         bwd = p["bwd"]
-        kernels = []
-        if bwd["form"] == "two_kernels":
-            kernels += [("dq", bwd["dq"], Lq), ("dkdv", bwd["dkdv"], Lk)]
-            assert (bwd["dq"]["smem_bytes"], bwd["dkdv"]["smem_bytes"]) == (
-                dq, dkdv)
-            assert bwd["scratch_floats"] == 2 * B * H * Lq
-            assert bwd["launches"] == 2 and max(Lq, Lk) > one_rows
+        assert bwd["lq_pad"] % 16 == 0 and 0 <= bwd["lq_pad"] - Lq < 16
+        acc = bwd["lq_pad"] * per_row
+        assert bwd["threads"] == bwd_threads
+        if bwd["form"] == "key_groups":
+            assert max(Lq, Lk) > one_rows
+            tiles, g = -(-Lk // lay[0]), bwd["groups"]
+            per = -(-tiles // g)
+            assert 1 <= g <= tiles and (g - 1) * per < tiles
+            assert bwd["launches"] == (1 if g == 1 else 2)
+            assert bwd["smem_bytes"] == lay[3] + (
+                4 * acc if bwd["acc_in_smem"] else 0) <= max_smem
+            if g > 1:
+                assert bwd["grid"] == B * H * g
+                assert bwd["scratch_floats"] == B * H * g * acc
+            elif not bwd["acc_in_smem"]:
+                assert bwd["grid"] == min(B * H, _H100_SMS)
+                assert bwd["scratch_floats"] == bwd["grid"] * acc
         else:
             assert max(Lq, Lk) <= one_rows and bwd["launches"] == 1
-            assert (bwd["grid"], bwd["threads"], bwd["scratch_floats"]) == (
-                B * H, bwd_threads, 0)
-            assert bwd["lq_pad"] % 16 == 0 and 0 <= bwd["lq_pad"] - Lq < 16
-            assert bwd["smem_bytes"] == fixed + 4 * bwd["lq_pad"] * per_row \
-                <= max_smem
-        for kernel, plan, L in kernels:
-            tiles, heads, batch = plan["grid"]
-            assert tiles * rows >= L > (tiles - 1) * rows
-            assert (heads, batch) == (H, B)
-            assert plan["threads"] == threads
+            assert (bwd["grid"], bwd["threads"], bwd["scratch_floats"],
+                    bwd["groups"]) == (B * H, bwd_threads, 0, 1)
+            assert bwd["smem_bytes"] == fixed + 4 * acc <= max_smem
         return
     bwd = p["bwd"]
     assert bwd["threads"] == bwd_threads
@@ -866,27 +874,52 @@ def test_attention_fma_plan_takes_any_key_length_the_packed_plan_640(Lk):
     (15, 77, 77, 8, "one_launch"),     # the text tower
     (2, 100, 60, 2, "one_launch"), (3, 13, 21, 2, "one_launch"),
     (1, 128, 128, 1, "one_launch"),    # one key tile's edge
-    (4, 1024, 1024, 8, "two_kernels"), (2, 130, 700, 2, "two_kernels"),
-    (1, 129, 128, 1, "two_kernels"), (1, 128, 129, 1, "two_kernels"),
+    (4, 1024, 1024, 8, "key_groups"), (2, 130, 700, 2, "key_groups"),
+    (1, 129, 128, 1, "key_groups"), (1, 128, 129, 1, "key_groups"),
+    (32, 626, 643, 12, "key_groups"),  # a 400^2 frame row, 4 x 8 clips
 ])
 def test_attention_f32_stream_bwd_form(B, Lq, Lk, H, form):
     """B7's fp32 backward takes one launch (a block per batch row and head)
-    while both lengths fit one key tile of its kernel, as the bf16 form's
-    `streaming_bwd_plan`, else the dq and dk / dv kernels; chip_smoke's
+    while both lengths fit one key tile of its kernel, where the bf16 form's
+    `streaming_bwd_plan` does too, else its key groups; chip_smoke's
     F32_STREAM_SHAPES take the forms its f32-kernel phase expects. The
     text tower's 120 blocks are one wave of an H100's 132 SMs, its shared
     bytes those of 80 padded rows."""
     bwd = tfa.attention_f32_plan(B, Lq, Lk, H, packed=False)["bwd"]
     assert bwd["form"] == form
-    assert bwd["form"] == tfa.streaming_bwd_plan(B, Lq, Lk, H)["form"]
+    assert (form == "one_launch") == (
+        tfa.streaming_bwd_plan(B, Lq, Lk, H)["form"] == "one_launch")
     if (B, Lq, H) == (15, 77, 8):
         assert bwd["grid"] == 120 <= _H100_SMS
         assert (bwd["lq_pad"], bwd["smem_bytes"]) == (80, 157696 + 80 * 74 * 4)
     forms = {shape[:4]: tfa.attention_f32_plan(*shape[:4], packed=False)[
         "bwd"]["form"] for shape in chip_smoke.F32_STREAM_SHAPES}
     assert forms == {shape[:4]: "one_launch" if max(shape[1:3]) <= 128
-                     else "two_kernels"
+                     else "key_groups"
                      for shape in chip_smoke.F32_STREAM_SHAPES}
+
+
+@pytest.mark.parametrize("B,Lq,Lk,H,causal,groups,grid", [
+    (32, 626, 643, 12, False, 1, 132),   # a 400^2 frame row, 4 x 8 clips
+    (16, 785, 802, 12, False, 2, 384),   # a 448^2 frame row, 2 x 8
+    (2, 130, 700, 2, False, 6, 24),      # 4 pairs: a group a key tile
+    (4, 1024, 1024, 8, True, 8, 256),    # the long causal shape
+    (128, 1024, 1024, 8, True, 1, 132),  # causal with pairs to spare
+])
+def test_attention_f32_stream_bwd_key_groups(B, Lq, Lk, H, causal, groups,
+                                            grid):
+    """The key groups' count: the fewest whose blocks fill an H100's 132
+    SMs (one block an SM) to 85% over their waves, at most one a 128-key
+    tile: at the 400^2 frame row 384 pairs fill 2.9 waves (97%) alone, at
+    448^2 192 pairs 1.45 (73%) and two groups 97%; under the causal mask with
+    fewer pairs than SMs one a key tile (the first key tile's item walks
+    every query tile)."""
+    bwd = tfa.attention_f32_plan(B, Lq, Lk, H, packed=False,
+                                 sm_count=_H100_SMS, causal=causal)["bwd"]
+    assert (bwd["form"], bwd["groups"], bwd["grid"]) == (
+        "key_groups", groups, grid)
+    assert tfa.stream_bwd_groups(B * H, -(-Lk // 128), _H100_SMS,
+                                 causal) == groups
 
 
 @pytest.mark.parametrize("B,Lq,Lk,H,blocks,waves", [
