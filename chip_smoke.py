@@ -54,9 +54,13 @@ The training step:
           backwards (saved-residual and recompute) and the streaming
           (causal / long) forward and backward against their plain versions
           at the training shapes, ragged ones and the packed path's edge
-          (limits in TRAIN_LIMITS); the packed backwards and the streaming
-          backward run twice and must give the same bits (the streaming
-          backward also timed in a CUDA graph); CUDA-event times of
+          (limits in TRAIN_LIMITS; the streaming ones also at a 400^2
+          frame row, 626 query rows and 643 keys, where the backward takes
+          its key groups); the packed backwards and the streaming backward
+          run twice and must give the same bits, the streaming backward in
+          its planned form and launches (also timed in a CUDA graph, and
+          at the text shape, the long causal L and the frame row beside
+          SDPA's backward); CUDA-event times of
           kernel, plain version and
           F.scaled_dot_product_attention (a yardstick only), the packed
           backwards against SDPA's backward and the packed forwards (B6a,
@@ -124,7 +128,13 @@ a run without --use_bf16 takes:
           mode's, fp32 and bf16 steps in turns (ms/step, peak GiB); the
           driver phase also runs cli.train without --use_bf16 (12 steps,
           the fp32 kernels only) and cli.evaluate on that run (24 launches
-          of the fp32 B1, the run's confusion matrix).
+          of the fp32 B1, the run's confusion matrix);
+  train-f32-400  the step at 400^2 (4 clips x 8 frames: B7 in every
+          vision block), in fp32 and in bf16: each first step against the
+          plain versions on the freshly built model (F32_STEP_MAX_*,
+          TRAIN_MAX_*), B7 backward's launches by form, 4 steps each timed
+          (ms/step, peak GiB), then cli.train --spatial_size 400 in fp32
+          and with --use_bf16.
 The training and evaluation programs:
   train-recompute  the same step under set_flash_bwd_mode("recompute"): the
           first step's loss and gradients against the saved mode, 3 steps
@@ -322,7 +332,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SYMBOLS = ("packed_attention_kernel", "w8a8_matmul_kernel",
                   "w8a8_qkv_kernel", "attention_out_int8_kernel",
                   "w8a8_mlp_kernel", "attn_bwd_fused_kernel",
-                  "attn_bwd_dq_kernel", "attn_bwd_dkdv_kernel",
+                  "attn_bwd_stat_kernel", "attn_bwd_wgmma_kernel",
+                  "attn_bwd_dq_sum_kernel",
                   "streaming_attention_fwd_kernel",
                   "w8_matmul_kernel", "fused_extras_kernel",
                   "packed_bwd_kernel", "mega_layer_kernel",
@@ -1515,11 +1526,15 @@ TRAIN_PACKED_SHAPES = ((128, 197, 214, 12), (280, 197, 276, 12),
                        (3, 13, 21, 2), (2, 77, 150, 4), (2, 65, 64, 3),
                        (4, 640, 640, 12), (2, 1030, 200, 3))
 # (B, Lq, Lk, heads, causal): the text tower's shape first (15 prompts x 77
-# tokens, 8 heads), then a longer causal L, non-causal keys beyond the
-# packed kernel's 640, and ragged cross shapes
+# tokens, 8 heads), then a longer causal L, a 400^2 frame row of the vision
+# tower (4 clips x 8 frames: 626 query rows, 643 keys, 12 heads; the bf16
+# step at 400^2 runs B7's backward there), non-causal keys beyond the
+# packed kernel's 640, and ragged cross shapes. The first three are timed.
 TRAIN_STREAM_SHAPES = ((15, 77, 77, 8, True), (4, 1024, 1024, 8, True),
+                       (32, 626, 643, 12, False),
                        (2, 130, 700, 2, False), (3, 13, 21, 2, False),
                        (2, 100, 60, 2, True), (2, 200, 200, 3, True))
+TRAIN_STREAM_TIMED = ("text_shape", "long_causal", "frame_row_400")
 # Limits of the training kernels against their plain versions: (most
 # outputs that may differ at all, most that may differ by more than 2 bf16
 # ulp + the floor, and the ceiling's factor k in err <= 2 ulp + k * 2^-8 *
@@ -1780,10 +1795,14 @@ def phase_train_kernels(state):
     bits; CUDA-event times of kernel, plain version and
     F.scaled_dot_product_attention at the training shapes, B6b's and B8's
     time against SDPA backward's and B6a's and B1's against SDPA forward's,
-    taken in turns (median of 7 rounds)."""
+    taken in turns (median of 7 rounds). With state['checks_only'] (the
+    mutants' runs) nothing is timed, and with state['only'] naming a
+    streaming entry only the streaming shapes are checked."""
     import torch
     from gava_clip_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(2)
+    timed = not state.get("checks_only")
+    packed = not (state.get("only") or "").startswith("streaming")
 
     def rand(*shape):
         return torch.randn(*shape, generator=gen, device="cuda",
@@ -1793,7 +1812,7 @@ def phase_train_kernels(state):
         return [t.float().abs().max() for t in ts]
 
     stats = state.setdefault("kstats", {})
-    for i, (B, Lq, Lk, H) in enumerate(TRAIN_PACKED_SHAPES):
+    for i, (B, Lq, Lk, H) in enumerate(TRAIN_PACKED_SHAPES if packed else ()):
         D = H * 64
         label = f"B={B} Lq={Lq} Lk={Lk} H={H}"
         q, k, v, do = rand(B, Lq, D), rand(B, Lk, D), rand(B, Lk, D), \
@@ -1859,7 +1878,7 @@ def phase_train_kernels(state):
             state.setdefault("train_failures", []).append(
                 f"recompute vs saved {label}")
         del spread, grads, g_ref, g8, g8_ref
-        if i < 2:
+        if i < 2 and timed:
             ms_8, plain_8, t_8 = _time_pair(
                 lambda: fa.packed_attention_bwd_recompute_cuda(q, k, v, do,
                                                                H),
@@ -1929,6 +1948,7 @@ def phase_train_kernels(state):
                 state["b1_bound"] = bounds["fwd"]
                 state["b1_library_ms"] = r1[1]
 
+    bwd_rows = {}
     for i, (B, Lq, Lk, H, causal) in enumerate(TRAIN_STREAM_SHAPES):
         D = H * 64
         label = f"B={B} Lq={Lq} Lk={Lk} H={H} causal={causal}"
@@ -1958,19 +1978,30 @@ def phase_train_kernels(state):
                     for n, g, r, m in zip(("dq", "dk", "dv"), grads, g_ref,
                                           absmax(g_ref)))
         # one deterministic launch plan: the same inputs, the same bits
-        form = fa.streaming_bwd_plan(B, Lq, Lk, H)["form"]
+        plan = fa.streaming_bwd_plan(
+            B, Lq, Lk, H, torch.cuda.get_device_properties(
+                0).multi_processor_count, causal=causal)
+        form = plan["form"]
+        before = dict(fa.stream_bwd_launches)
         again = fa.streaming_attention_bwd_cuda(q, k, v, do, ref, lse_ref, H,
                                                 causal)
         torch.cuda.synchronize()
         same = all(torch.equal(a, b) for a, b in zip(grads, again))
-        log(f"[train-kernel] streaming_attention_bwd {label} ({form}): a "
-            f"second run gives the same bits: {same} "
-            f"{'ok' if same else 'FAIL'}")
+        forms = {f: n - before[f] for f, n in fa.stream_bwd_launches.items()
+                 if n != before[f]}
+        forms_ok = forms == {form: plan["launches"]}
+        log(f"[train-kernel] streaming_attention_bwd {label} ({form}, "
+            f"{plan['groups']} group(s), {plan['launches']} launch(es); "
+            f"launched {forms}): a second run gives the same bits: {same} "
+            f"{'ok' if same and forms_ok else 'FAIL'}")
+        if not forms_ok:
+            state.setdefault("train_failures", []).append(
+                f"backward form {label}")
         if not same:
             state.setdefault("train_failures", []).append(
                 f"determinism streaming {label}")
         del spread, grads, g_ref, again
-        if i < 2:
+        if i < len(TRAIN_STREAM_TIMED) and timed:
             ms_f, plain_f, t_f = _time_pair(
                 lambda: fa.streaming_attention_cuda(q, k, v, H, causal),
                 lambda: fa.streaming_attention_plain(q, k, v, H, causal))
@@ -2015,20 +2046,31 @@ def phase_train_kernels(state):
             log(f"[train-kernel] {label}: B7 backward ({form}) "
                 f"{GRAPH_LAUNCHES} launches in a CUDA graph {graph_b:.5f} ms "
                 f"a launch ({state['smi']})")
+            # the kernels line: B7's forward at the text shape; its
+            # backward at the 400^2 frame row, with the text shape's and
+            # the long causal shape's numbers beside them
+            row = {"max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
+                   "bound_ms": bounds["bwd"][0],
+                   "bound_by": bounds["bwd"][1], "library_ms": lib_b,
+                   "graph_ms": graph_b, "form": form}
             if i == 0:
-                for name, err, ms, plain, lib, key in (
-                        ("streaming_attention", err_f, ms_f, plain_f, lib_f,
-                         "fwd_stat"),
-                        ("streaming_attention_bwd", err_b, ms_b, plain_b,
-                         lib_b, "bwd")):
-                    stats[name] = {
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                        "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
-                        "library_ms": lib}
-                stats["streaming_attention_bwd"]["graph_ms"] = graph_b
+                stats["streaming_attention"] = {
+                    "max_abs_err": err_f, "ms": ms_f, "plain_ms": plain_f,
+                    "bound_ms": bounds["fwd_stat"][0],
+                    "bound_by": bounds["fwd_stat"][1], "library_ms": lib_f}
+            bwd_rows[TRAIN_STREAM_TIMED[i]] = row
+    if bwd_rows.get("frame_row_400"):
+        stats["streaming_attention_bwd"] = dict(
+            bwd_rows.pop("frame_row_400"), **bwd_rows)
     # the clamp regime of the packed backward. There the softmax is nearly
     # one-hot and dq, dk cancel to ~1e-7 of dv's scale: fp32 noise decides
     # their bits, so only the far share and the ceiling are held
+    if not packed:
+        if state.get("train_failures"):
+            raise AssertionError(f"training kernels disagree with their "
+                                 f"plain versions: "
+                                 f"{state['train_failures']}")
+        return
     B, Lq, Lk, H = TRAIN_PACKED_SHAPES[2]
     q, k, v, do = (rand(B, L, H * 64) for L in (Lq, Lk, Lk, Lq))
     q = q * 30
@@ -2194,32 +2236,6 @@ def _b7_host_and_floor(state, label, q, k, v, H, causal, stats):
             f"graphs beside the floor of a graph node {floor:.5f} ms (a "
             f"one-element add) and its bound {s['bound_ms']:.5f} ms "
             f"({s['bound_by']}) ({state['smi']})")
-
-
-def _b7_bf16_record(state, label, q, k, v, do, H, causal):
-    """B7's bf16 backward (csrc/streaming_attention_bwd.cu) at an fp32
-    shape, on the inputs rounded to bf16, beside SDPA's bf16 backward by
-    CUDA events in turns (a record: its largest error over the largest
-    |gradient| of the plain version on the same bf16 inputs)."""
-    import torch
-    from gava_clip_tpu_torch.ops import flash_attention as fa
-    q, k, v, do = (x.bfloat16() for x in (q, k, v, do))
-    o, lse = fa.streaming_attention_cuda(q, k, v, H, causal)
-    grads = fa.streaming_attention_bwd_cuda(q, k, v, do, o, lse, H, causal)
-    want = fa.streaming_attention_bwd_plain(q, k, v, do, o, lse, H, causal)
-    torch.cuda.synchronize()
-    err = max(((g.float() - w.float()).abs() / w.float().abs().max()).max()
-              .item() for g, w in zip(grads, want))
-    r = _ratio_turns(lambda: fa.streaming_attention_bwd_cuda(
-        q, k, v, do, o, lse, H, causal), _sdpa_bwd(q, k, v, do, H, causal),
-        iters=5)
-    bound = _attention_bounds(q.shape[0], q.shape[1], k.shape[1], H,
-                              causal)["bwd"]
-    log(f"[f32-kernel] streaming_attention_bwd (bf16) {label}: max err / "
-        f"scale {err:.3e} against its plain version; vs SDPA's bf16 backward "
-        f"(autograd), median of 7 rounds in turns: {r[0]:.4f} ms vs "
-        f"{r[1]:.4f} ms, ratio {r[2]:.3f} (rounds {r[3]:.3f}-{r[4]:.3f}); "
-        f"bound {bound[0]:.4f} ms ({bound[1]}) ({state['smi']})")
 
 
 def phase_f32_kernels(state):
@@ -2417,8 +2433,6 @@ def phase_f32_kernels(state):
             b7b_times[F32_STREAM_TIMED[i]] = got["streaming_attention_bwd_f32"]
             if i == 0:
                 _b7_host_and_floor(state, label, q, k, v, H, causal, got)
-            if i == 2:
-                _b7_bf16_record(state, label, q, k, v, do, H, causal)
         del spread, g_ref, again
         del q, k, v, do, out, lse, ref, lse_ref, grads
     if b7b_times:
@@ -4662,6 +4676,15 @@ F32_400_PER_STEP = {"streaming_attention_f32": 24,
                     "streaming_attention": 0, "streaming_attention_bwd": 0}
 F32_400_STEPS = 4
 F32_400_CLI_STEPS = 4
+# the same step in bf16 (--use_bf16): B7 in both towers (the vision frame
+# rows' 643 keys are past the packed path's 640), its backward in the key
+# groups (wgmma) in the 12 vision blocks and in one launch in the 12 text
+# blocks; no fp32 attention entry
+BF16_400_PER_STEP = {"streaming_attention": 24, "streaming_attention_bwd": 24,
+                     "packed_attention": 0, "packed_attention_den": 0,
+                     "packed_attention_bwd": 0, "streaming_attention_f32": 0,
+                     "streaming_attention_bwd_f32": 0}
+BF16_400_CLI_STEPS = 2
 
 
 def _f32_400_forms(sms):
@@ -4681,15 +4704,31 @@ def _f32_400_forms(sms):
     return forms
 
 
+def _bf16_400_forms(sms):
+    """B7 bf16 backward's kernel launches by form in one 400^2 bf16 step:
+    the vision blocks' key groups (one group on an H100: the stats and the
+    wgmma kernel, two launches a call) and the text tower's one launch, 12
+    calls each."""
+    from gava_clip_tpu_torch.ops import flash_attention as fa
+    rows = (F32_400_SIZE // 16) ** 2 + 1
+    vision = fa.streaming_bwd_plan(F32_400_CLIPS * F32_400_FRAMES, rows,
+                                   rows + 17, 12, sms)
+    text = fa.streaming_bwd_plan(15, 77, 77, 8, sms, causal=True)
+    forms = {vision["form"]: 12 * vision["launches"]}
+    forms[text["form"]] = forms.get(text["form"], 0) + 12 * text["launches"]
+    return forms
+
+
 def phase_train_f32_400(state):
-    """The fp32 training step at 400^2 (build_flagship(input_size=400),
-    4 clips x 8 frames, flash, remat none): the first step's loss and
-    gradients against the same step through the plain versions on the card
-    (F32_STEP_MAX_*), B7's fp32 launches a step and its backward's forms,
-    F32_400_STEPS steps timed by CUDA events (ms/step, peak GiB, finite
-    losses); then `cli.train --spatial_size 400` in fp32 on a synthetic
-    fold of 400^2 clips, F32_400_CLI_STEPS steps, finite losses, the same
-    launches a step."""
+    """The training step at 400^2 (build_flagship(input_size=400), 4 clips
+    x 8 frames, flash, remat none), in fp32 and then in bf16 on the same
+    model: each first step's loss and gradients against the same step
+    through the plain versions on the card (fp32: F32_STEP_MAX_*; bf16:
+    TRAIN_MAX_*), the attention launches a step and B7 backward's forms,
+    steps timed by CUDA events (ms/step, peak GiB, finite losses); then
+    `cli.train --spatial_size 400` on a synthetic fold of 400^2 clips in
+    fp32 (F32_400_CLI_STEPS) and with --use_bf16 (BF16_400_CLI_STEPS),
+    finite losses, the same launches a step."""
     import contextlib
     import shutil
     import tempfile
@@ -4700,116 +4739,146 @@ def phase_train_f32_400(state):
     from gava_clip_tpu_torch.train.step import make_loss_fn, make_train_step
     from gava_clip_tpu_torch.utils.flagship import build_flagship
     loss_cfg, opt = state["train_cfg"], state["train_opt"]
-    kw = dict(compute_dtype=torch.float32, attn_impl="flash")
-    forms_step = _f32_400_forms(
-        torch.cuda.get_device_properties(0).multi_processor_count)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # per dtype: the step's keyword arguments, the backward's launch counts
+    # by form, the forms a step takes, the launches a step, the first
+    # step's limits
+    runs = {
+        "fp32": (dict(compute_dtype=torch.float32, attn_impl="flash"),
+                 fa.stream_bwd_f32_launches, _f32_400_forms(sms),
+                 F32_400_PER_STEP, F32_STEP_MAX_LOSS_DIFF,
+                 F32_STEP_MAX_GRAD_REL_ERR, F32_400_STEPS),
+        "bf16": (dict(compute_dtype=torch.bfloat16, attn_impl="flash"),
+                 fa.stream_bwd_launches, _bf16_400_forms(sms),
+                 BF16_400_PER_STEP, TRAIN_MAX_LOSS_DIFF,
+                 TRAIN_MAX_GRAD_REL_ERR, F32_400_STEPS)}
     t0 = time.perf_counter()
     model = build_flagship(num_frames=F32_400_FRAMES,
                            input_size=F32_400_SIZE)
     ts = create_train_state(model.params,
                             trainable_mask(model.params, model.cfg), opt)
     batch = _train_batch(F32_400_CLIPS, F32_400_FRAMES, size=F32_400_SIZE)
-    loss_fn = make_loss_fn(model, loss_cfg, remat="none", **kw)
     log(f"[train-f32-400] built in {time.perf_counter() - t0:.1f} s (ViT-B/16 "
         f"T={F32_400_FRAMES} {F32_400_SIZE}^2: 626 query rows and 643 keys a "
-        f"frame row; text 12 x 512; batch {F32_400_CLIPS} clips, fp32, "
-        f"flash, remat none)")
+        f"frame row; text 12 x 512; batch {F32_400_CLIPS} clips, fp32 then "
+        f"bf16, flash, remat none)")
 
-    def loss_and_grads(plain=False):
-        ts.optimizer.zero_grad(set_to_none=True)
-        _reset_launch_counts()
-        with fa.plain_versions() if plain else contextlib.nullcontext():
-            total, _ = loss_fn(ts.trainable, ts.frozen, batch)
-            total.backward()
+    for dtype, (kw, by_form, forms_step, per_step, max_loss, max_grad,
+                _) in runs.items():
+        loss_fn = make_loss_fn(model, loss_cfg, remat="none", **kw)
+
+        def loss_and_grads(plain=False):
+            ts.optimizer.zero_grad(set_to_none=True)
+            _reset_launch_counts()
+            with fa.plain_versions() if plain else contextlib.nullcontext():
+                total, _ = loss_fn(ts.trainable, ts.frozen, batch)
+                total.backward()
+            torch.cuda.synchronize()
+            grads = _grad_list(ts.trainable)
+            ts.optimizer.zero_grad(set_to_none=True)
+            forms = {f: n for f, n in by_form.items() if n}
+            return total.item(), grads, _launch_counts(), forms
+
+        loss_p, g_p, _, _ = loss_and_grads(plain=True)
+        loss_k, g_k, n_k, forms = loss_and_grads()
+        scale = max(g.norm().item() for g in g_p)
+        rel = [((a - b).norm() / b.norm().clamp_min(1e-3 * scale)).item()
+               for a, b in zip(g_k, g_p)]
+        worst = [n for n, _ in _named_leaves(ts.trainable)][
+            int(np.argmax(rel))]
+        log(f"[train-f32-400] first {dtype} step, kernels vs plain versions "
+            f"on the card: total {loss_k:.7f} vs {loss_p:.7f} (diff "
+            f"{abs(loss_k - loss_p):.2e}, limit {max_loss:g}); gradient "
+            f"leaves {len(rel)}, max relative L2 error {max(rel):.3e} "
+            f"({worst}), median {float(np.median(rel)):.3e} (limit "
+            f"{max_grad:g}); launches {({k: n_k[k] for k in per_step})}; "
+            f"B7 {dtype} backward's kernel launches by form {forms} (expect "
+            f"{forms_step})")
+        if not all(bool(torch.isfinite(g).all()) for g in g_k) or \
+                abs(loss_k - loss_p) > max_loss or max(rel) > max_grad or \
+                forms != forms_step or \
+                any(n_k[k] != v for k, v in per_step.items()):
+            raise AssertionError(f"the 400^2 {dtype} step through the kernels "
+                                 f"disagrees with the plain versions")
+        bwd = [k for k in per_step if k.startswith("streaming_attention_bwd")
+               and per_step[k]][0]
+        state.setdefault("launches_by_kernel", {})[bwd] = n_k[bwd]
+        del g_p, g_k, loss_fn
+    # then the steps, fp32 first: both first steps above are taken on the
+    # freshly built model. After four fp32 AdamW steps at lr 1e-3 the bf16
+    # loss there is ill-conditioned: a bf16 rounding anywhere moves it by
+    # ~0.1, the plain versions' against fp32 too (measured on an H100)
+    for dtype, (kw, by_form, forms_step, per_step, _, _,
+                n_steps) in runs.items():
+        t1 = time.perf_counter()
+        step = make_train_step(model, loss_cfg, opt, remat="none", **kw)
         torch.cuda.synchronize()
-        grads = _grad_list(ts.trainable)
-        ts.optimizer.zero_grad(set_to_none=True)
-        forms = {f: n for f, n in fa.stream_bwd_f32_launches.items() if n}
-        return total.item(), grads, _launch_counts(), forms
-
-    loss_p, g_p, _, _ = loss_and_grads(plain=True)
-    loss_k, g_k, n_k, forms = loss_and_grads()
-    scale = max(g.norm().item() for g in g_p)
-    rel = [((a - b).norm() / b.norm().clamp_min(1e-3 * scale)).item()
-           for a, b in zip(g_k, g_p)]
-    worst = [n for n, _ in _named_leaves(ts.trainable)][int(np.argmax(rel))]
-    log(f"[train-f32-400] first fp32 step, kernels vs plain versions on the "
-        f"card: total {loss_k:.7f} vs {loss_p:.7f} (diff "
-        f"{abs(loss_k - loss_p):.2e}, limit {F32_STEP_MAX_LOSS_DIFF:g}); "
-        f"gradient leaves {len(rel)}, max relative L2 error {max(rel):.3e} "
-        f"({worst}), median {float(np.median(rel)):.3e} (limit "
-        f"{F32_STEP_MAX_GRAD_REL_ERR:g}); launches "
-        f"{ {k: n_k[k] for k in F32_400_PER_STEP} }; B7 fp32 backward's "
-        f"kernel launches by form {forms} (expect {forms_step})")
-    if not all(bool(torch.isfinite(g).all()) for g in g_k) or \
-            abs(loss_k - loss_p) > F32_STEP_MAX_LOSS_DIFF or \
-            max(rel) > F32_STEP_MAX_GRAD_REL_ERR or forms != forms_step or \
-            any(n_k[k] != v for k, v in F32_400_PER_STEP.items()):
-        raise AssertionError("the 400^2 fp32 step through the kernels "
-                             "disagrees with the plain versions")
-    del g_p, g_k
-
-    step = make_train_step(model, loss_cfg, opt, remat="none", **kw)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _reset_launch_counts()
-    totals, ms = [], []
-    for _ in range(F32_400_STEPS):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record()
-        ts, metrics = step(ts, batch)
-        ev[1].record()
-        totals.append(metrics["total"].item())
-        ms.append(ev[0].elapsed_time(ev[1]))
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    counts = _launch_counts()
-    forms = {f: n for f, n in fa.stream_bwd_f32_launches.items() if n}
-    log(f"[train-f32-400] {F32_400_STEPS} fp32 steps: "
-        f"{[round(t, 2) for t in ms]} ms by CUDA events (median of the last "
-        f"{F32_400_STEPS - 1}: {np.median(ms[1:]):.2f} ms/step); peak memory "
-        f"{peak:.2f} GiB; total loss {[round(t, 4) for t in totals]}; "
-        f"launches {counts['streaming_attention_f32']} / "
-        f"{counts['streaming_attention_bwd_f32']}, forms {forms} "
-        f"({state['smi']})")
-    if not all(np.isfinite(totals)) or any(
-            counts[k] != v * F32_400_STEPS for k, v in F32_400_PER_STEP.items()):
-        raise AssertionError("the 400^2 fp32 steps failed their checks")
-    state.setdefault("launches_by_kernel", {})[
-        "streaming_attention_bwd_f32"] = n_k["streaming_attention_bwd_f32"]
-    del model, ts, step, loss_fn, batch, metrics
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launch_counts()
+        totals, ms = [], []
+        for _ in range(n_steps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            ts, metrics = step(ts, batch)
+            ev[1].record()
+            totals.append(metrics["total"].item())
+            ms.append(ev[0].elapsed_time(ev[1]))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = _launch_counts()
+        forms = {f: n for f, n in by_form.items() if n}
+        log(f"[train-f32-400] {n_steps} {dtype} steps: "
+            f"{[round(t, 2) for t in ms]} ms by CUDA events (median of the "
+            f"last {n_steps - 1}: {np.median(ms[1:]):.2f} ms/step); peak "
+            f"memory {peak:.2f} GiB; total loss "
+            f"{[round(t, 4) for t in totals]}; launches "
+            f"{ {k: counts[k] for k in per_step if per_step[k]} }, forms "
+            f"{forms}; {time.perf_counter() - t1:.1f} s ({state['smi']})")
+        if not all(np.isfinite(totals)) or any(
+                counts[k] != v * n_steps for k, v in per_step.items()) or \
+                forms != {f: n * n_steps for f, n in forms_step.items()}:
+            raise AssertionError(f"the 400^2 {dtype} steps failed their "
+                                 f"checks")
+        del step, metrics
+    del model, ts, batch
     torch.cuda.empty_cache()
 
     root = tempfile.mkdtemp(prefix="gava_fold400_")
     cwd = os.getcwd()
     kdir = None
     try:
-        n_train = F32_400_CLIPS * F32_400_CLI_STEPS
+        n_train = F32_400_CLIPS * max(F32_400_CLI_STEPS, BF16_400_CLI_STEPS)
         data_args, kdir = _write_fold(root, T=F32_400_FRAMES,
                                       n_train=n_train, n_val=F32_400_CLIPS,
                                       size=F32_400_SIZE)
         os.chdir(root)
-        argv = [a for a in data_args if a != "--use_bf16"] + [
-            "--batch_size", str(F32_400_CLIPS),
-            "--num_steps", str(F32_400_CLI_STEPS), "--print_freq", "1",
-            "--lr", "1e-3", "--eval_freq", "1000", "--save_freq", "1000"]
-        _reset_launch_counts()
-        _, rec = _train_main(argv, "run_f32_400")
-        n = _launch_counts()
-        forms = {f: k for f, k in fa.stream_bwd_f32_launches.items() if k}
-        losses = [r["loss"] for r in rec if "loss" in r]
-        want = {k: v * F32_400_CLI_STEPS for k, v in F32_400_PER_STEP.items()}
-        want_forms = {f: k * F32_400_CLI_STEPS for f, k in forms_step.items()}
-        log(f"[train-f32-400] cli.train --spatial_size {F32_400_SIZE} in "
-            f"fp32, {F32_400_CLI_STEPS} steps of {F32_400_CLIPS} clips x "
-            f"{F32_400_FRAMES} frames: losses {[round(x, 4) for x in losses]}; "
-            f"launches { {k: n[k] for k in F32_400_PER_STEP} }, B7 fp32 "
-            f"backward's forms {forms} (expect {want_forms}) "
-            f"({state['smi']})")
-        if len(losses) != F32_400_CLI_STEPS or not all(np.isfinite(losses)) \
-                or forms != want_forms or \
-                any(n[k] != v for k, v in want.items()):
-            raise AssertionError("cli.train --spatial_size 400 failed its "
-                                 "checks")
+        for dtype, n_steps in (("fp32", F32_400_CLI_STEPS),
+                               ("bf16", BF16_400_CLI_STEPS)):
+            _, by_form, forms_step, per_step = runs[dtype][:4]
+            argv = [a for a in data_args
+                    if dtype == "bf16" or a != "--use_bf16"] + [
+                "--batch_size", str(F32_400_CLIPS),
+                "--num_steps", str(n_steps), "--print_freq", "1",
+                "--lr", "1e-3", "--eval_freq", "1000", "--save_freq", "1000"]
+            _reset_launch_counts()
+            _, rec = _train_main(argv, f"run_{dtype}_400")
+            n = _launch_counts()
+            forms = {f: k for f, k in by_form.items() if k}
+            losses = [r["loss"] for r in rec if "loss" in r]
+            want = {k: v * n_steps for k, v in per_step.items()}
+            want_forms = {f: k * n_steps for f, k in forms_step.items()}
+            log(f"[train-f32-400] cli.train --spatial_size {F32_400_SIZE} "
+                f"{'--use_bf16' if dtype == 'bf16' else 'in fp32'}, "
+                f"{n_steps} steps of {F32_400_CLIPS} clips x "
+                f"{F32_400_FRAMES} frames: losses "
+                f"{[round(x, 4) for x in losses]}; launches "
+                f"{ {k: n[k] for k in per_step if per_step[k]} }, B7 "
+                f"{dtype} backward's forms {forms} (expect {want_forms}) "
+                f"({state['smi']})")
+            if len(losses) != n_steps or not all(np.isfinite(losses)) \
+                    or forms != want_forms or \
+                    any(n[k] != v for k, v in want.items()):
+                raise AssertionError(f"cli.train --spatial_size 400 ({dtype}) "
+                                     f"failed its checks")
     finally:
         os.chdir(cwd)
         shutil.rmtree(root, ignore_errors=True)

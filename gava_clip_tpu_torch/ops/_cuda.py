@@ -68,13 +68,14 @@ _SIGNATURES = {
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },
     "streaming_attention_bwd": {
-        # q, k, v, do, o, lse, dq, dk, dv; B, Lq, Lk, H, Dh; q/k/v batch
-        # and row strides; scale; causal; the launch plan (form, shared
-        # bytes); stream
+        # q, k, v, do, o, lse, dq, dk, dv, scratch; B, Lq, Lk, H, Dh; q/k/v
+        # batch and row strides; scale; causal; the launch plan (form,
+        # groups, key tiles a group, lq_pad, accumulator in shared memory?,
+        # shared bytes); stream
         "streaming_attention_bwd_bf16": (
-            [_VP] * 9 + [_I] * 5 + [_I] * 6 + [ctypes.c_float, _I, _I, _I,
-                                               _VP], _I),
-        # the one-launch form's layout: three ints
+            [_VP] * 10 + [_I] * 5 + [_I] * 6 + [ctypes.c_float] + [_I] * 7
+            + [_VP], _I),
+        # the two forms' layout: nine ints
         "streaming_attention_bwd_layout": ([ctypes.POINTER(_I)], None),
         "cuda_error_string": ([_I], ctypes.c_char_p),
     },

@@ -110,10 +110,15 @@ launch_counts = {"packed_attention": 0, "attention_out_int8": 0,
 # launch a call, or two (the dq reduction) where its plan cuts the keys into
 # groups
 stream_bwd_f32_launches = {"one_launch": 0, "key_groups": 0}
+# the same for B7's bf16 backward: 'one_launch' up to 128 rows, past that
+# 'key_groups', two launches a call (the rows' stats, the wgmma kernel) or
+# three (the dq sum) where its plan cuts the keys into groups
+stream_bwd_launches = {"one_launch": 0, "key_groups": 0}
 
 
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, stream_bwd_f32_launches):
+    for counts in (launch_counts, stream_bwd_f32_launches,
+                   stream_bwd_launches):
         for name in counts:
             counts[name] = 0
 
@@ -617,25 +622,54 @@ def streaming_attention_cuda(q: torch.Tensor, k: torch.Tensor,
 
 # Launch plan of csrc/streaming_attention_bwd.cu: one launch of a block per
 # (batch row, head) while every query row and key of a head fits its shared
-# tiles, else the dq kernel and the dk/dv kernel. The three numbers are the
-# source's layout (`streaming_attention_bwd_layout`): the most query rows
-# and keys of the one-launch form, its dynamic shared bytes (q, do, k, v
-# tiles of 128 x 72 bf16, ds^T of 128 x 136 bf16, two floats a row) and
-# its threads a block.
-_SBWD_LAYOUT = (128, 109568, 256)
+# tiles ('one_launch'), else the key groups ('key_groups', wgmma). The nine
+# numbers are the source's layout (`streaming_attention_bwd_layout`): the
+# most query rows and keys of the one-launch form, its dynamic shared bytes
+# (q, do, k, v tiles of 128 x 72 bf16, ds^T of 128 x 136 bf16, two floats a
+# row) and its threads a block; the key groups' keys a key tile, query rows
+# a step, threads a block, fixed shared bytes (the key tile, ds^T, two
+# stages of q / do rows and their stats, the alignment's slack), bytes a
+# row of the fp32 dq accumulator, and the most shared bytes of a block.
+_SBWD_LAYOUT = (128, 109568, 256, 128, 64, 256, 67584, 256, 232448)
 
 
-def streaming_bwd_plan(B: int, Lq: int, Lk: int, H: int) -> Dict:
-    """The form of one call of the streaming backward: {'form': 'one_launch'
-    (1 launch, grid B * H) or 'two_kernels' (2 launches, grids of 64-row
-    tiles), 'launches', 'smem_bytes'}."""
-    rows, smem, _ = _SBWD_LAYOUT
+def streaming_bwd_plan(B: int, Lq: int, Lk: int, H: int, sm_count: int = 132,
+                       groups: Optional[int] = None,
+                       causal: bool = False) -> Dict:
+    """The form of one call of the bf16 streaming backward on a card of
+    `sm_count` SMs: {'form', 'launches', 'groups', 'grid', 'smem_bytes',
+    'scratch_floats'}. 'one_launch' (1 launch, grid B * H, no scratch) while
+    Lq and Lk fit the one-launch tiles, else 'key_groups': a block per
+    (batch row, head, group of key tiles), one an SM, `groups` (default
+    `stream_bwd_groups`, as B7's fp32 backward) cutting each pair's key
+    tiles, with 'lq_pad' (Lq rounded up to a step), 'tiles' (key tiles a
+    group) and 'acc_in_smem' (the block's fp32 dq accumulator in shared
+    memory, else in its region of the scratch). Its launches: the rows'
+    stats, the wgmma kernel, and with more than one group the dq sum. Its
+    scratch: the stats (two floats a padded query row of each pair), then
+    the blocks' dq sums where more groups or the accumulator's place ask
+    for them."""
+    (rows, smem, _, key_tile, step, threads, fixed, acc_row,
+     max_smem) = _SBWD_LAYOUT
     if Lq <= rows and Lk <= rows:
-        return {"form": "one_launch", "launches": 1, "grid": B * H,
-                "smem_bytes": smem}
-    return {"form": "two_kernels", "launches": 2,
-            "grid": (-(-Lq // 64) * H * B, -(-Lk // 64) * H * B),
-            "smem_bytes": 0}
+        return {"form": "one_launch", "launches": 1, "groups": 1,
+                "grid": B * H, "smem_bytes": smem, "scratch_floats": 0}
+    key_tiles = -(-Lk // key_tile)
+    if groups is None:
+        groups = stream_bwd_groups(B * H, key_tiles, sm_count, causal)
+    if not 1 <= groups <= key_tiles:
+        raise ValueError(f"{groups} groups of {key_tiles} key tiles")
+    tiles = -(-key_tiles // groups)
+    groups = -(-key_tiles // tiles)   # none empty
+    lq_pad = -(-Lq // step) * step
+    in_smem = fixed + lq_pad * acc_row <= max_smem
+    items = B * H * groups
+    sums = items * lq_pad * acc_row // 4 if groups > 1 or not in_smem else 0
+    return {"form": "key_groups", "launches": 2 + (groups > 1),
+            "groups": groups, "tiles": tiles, "grid": items,
+            "threads": threads, "lq_pad": lq_pad, "acc_in_smem": in_smem,
+            "smem_bytes": fixed + (lq_pad * acc_row if in_smem else 0),
+            "scratch_floats": 2 * B * H * lq_pad + sums}
 
 
 def streaming_attention_bwd_cuda(q, k, v, do, o, lse, num_heads: int,
@@ -663,19 +697,32 @@ def streaming_attention_bwd_cuda(q, k, v, do, o, lse, num_heads: int,
         return dq.zero_(), dk.zero_(), dv.zero_()
     _check_layout("streaming_attention_bwd", lib,
                   "streaming_attention_bwd_layout", _SBWD_LAYOUT)
-    plan = streaming_bwd_plan(B, Lq, Lk, num_heads)
+    # the SM count only where the plan reads it (past one key tile)
+    if Lq <= _SBWD_LAYOUT[0] and Lk <= _SBWD_LAYOUT[0]:
+        plan = streaming_bwd_plan(B, Lq, Lk, num_heads)
+    else:
+        plan = streaming_bwd_plan(
+            B, Lq, Lk, num_heads,
+            torch.cuda.get_device_properties(dev).multi_processor_count,
+            causal=bool(causal))
+    scratch = torch.empty(plan["scratch_floats"], dtype=torch.float32,
+                          device=dev) if plan["scratch_floats"] else None
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     with (contextlib.nullcontext() if dev.index == torch.cuda.current_device()
           else torch.cuda.device(dev)):
         err = lib.streaming_attention_bwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             o.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, Lq, Lk, num_heads, D // num_heads,
-            *_qkv_strides(q, k, v), (D // num_heads) ** -0.5, int(causal),
-            int(plan["form"] == "one_launch"), plan["smem_bytes"], stream)
+            dv.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            B, Lq, Lk, num_heads, D // num_heads, *_qkv_strides(q, k, v),
+            (D // num_heads) ** -0.5, int(causal),
+            1 if plan["form"] == "one_launch" else 2, plan["groups"],
+            plan.get("tiles", 1), plan.get("lq_pad", 0),
+            int(plan.get("acc_in_smem", False)), plan["smem_bytes"], stream)
     if err != 0:
         raise _launch_failed("streaming_attention_bwd", lib, err)
     launch_counts["streaming_attention_bwd"] += 1
+    stream_bwd_launches[plan["form"]] += plan["launches"]
     return dq, dk, dv
 
 

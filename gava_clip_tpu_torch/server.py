@@ -236,6 +236,9 @@ def make_server(argv=None):
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--classes", default="./classes/k400_classes.txt")
+    ap.add_argument("--backbone_path", default="",
+                    help="CLIP backbone state dict for the vision tower "
+                         "(random weights from a seed without it)")
     ap.add_argument("--text_features", default="",
                     help=".npy (n_cls, E) precomputed text features")
     ap.add_argument("--num_frames", type=int, default=8)
@@ -274,6 +277,7 @@ def make_server(argv=None):
     # built on the host; the classifier places the weights on the device
     model = build_zero_shot(num_frames=args.num_frames,
                             num_classes=len(labels), text_features=tf,
+                            backbone_path=args.backbone_path or None,
                             device="cpu")
     clf = VideoClassifier.from_model(
         model, classnames=labels, batch_size=args.batch_size,

@@ -3,6 +3,7 @@ or a wrong bound: build deliberately broken copies of a kernel source and
 run the check phase of chip_smoke.py on each.
 
     python3 -m gava_clip_tpu_torch.utils.kernel_mutants [b2 b7 b5 b3 b4 b10 mega f32]   # repo root, on a card
+    python3 -m gava_clip_tpu_torch.utils.kernel_mutants b7bg   # B7's key groups alone
 
 Each mutant is a copy of the package and of chip_smoke.py under
 `_scratch/mut_<name>/` (gitignored) with one source patched; the copy
@@ -46,6 +47,7 @@ _B3_STORES = ("      if (ct % 128 == 0) {\n"
 _MEGA = "gava_clip_tpu_torch/csrc/mega_layer.cu"
 _B10 = "gava_clip_tpu_torch/csrc/fused_extras.cu"
 _B7B = "gava_clip_tpu_torch/csrc/attention_bwd.cuh"
+_B7BG = "gava_clip_tpu_torch/csrc/attention_bwd_wgmma.cuh"
 _F32 = "gava_clip_tpu_torch/csrc/attention_f32.cu"
 _B9F32 = "gava_clip_tpu_torch/csrc/w8_matmul_f32.cu"
 _ROUND = "__bfloat162float(__float2bfloat16({}))"
@@ -275,6 +277,18 @@ MUTANTS = {
                 "lane);   // dk += ds^T q\n"
                 "          afrag::mma_chunk<kHD / 16>(dk, dr[kc], qs, c0 + kc, 0, "
                 "lane);\n")],
+        "phase_train_kernels", "streaming_attention_bwd B="),
+    # B7's key groups (wgmma): each key tile's dq sums stored over the
+    # block's accumulator instead of added to it (dq from a group's last
+    # key tile alone)
+    "b7bg_dq_overwritten": (
+        _B7BG, [("        if (!first) {", "        if (false) {")],
+        "phase_train_kernels", "streaming_attention_bwd B="),
+    # B7's key groups: the dq sum leaves out the last group's sums (a plan
+    # of more than one group: the causal and the cross shapes)
+    "b7bg_last_group_dropped": (
+        _B7BG, [("  for (int grp = 0; grp < ga.groups; ++grp) {",
+                 "  for (int grp = 0; grp < ga.groups - 1; ++grp) {")],
         "phase_train_kernels", "streaming_attention_bwd B="),
     # the fp32 attention kernels: every product of the packed forms as one
     # TF32 product (1xTF32: the two products of a lo part dropped), which

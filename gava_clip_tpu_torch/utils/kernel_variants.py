@@ -56,14 +56,19 @@ The whole-layer kernel (csrc/mega_layer.cu) at the tool's shape and at
 five copies that stop after a stage to show where the time goes (wrong
 outputs), beside the parent's kernel (`mega_parent`) and the composition
 B3a + B4 + B5, in turns. B10 (csrc/fused_extras.cu) at the serving shape and B7's
-causal backward (csrc/streaming_attention_bwd.cu) at the text tower's, each
-beside the parent commit's kernel built from its own source (`b10_parent`,
-`b7b_parent`, from the tree unpacked into `_scratch/parent/`) and the
-yardstick (the stock ops; SDPA's flash backward op), by CUDA events and in
-CUDA graphs: B10 at 8, 4 and 2 blocks a cluster, its stages cut off one by
-one, its attention, copied rows or q/k/v products left out, or two of the
-three TF32 products taken (wrong outputs); B7's backward in its one-launch
-and two-kernel forms, and with ex2.approx. The fp32 forms: B9's
+bf16 backward (csrc/streaming_attention_bwd.cu) at the text tower's causal
+shape, a 400^2 frame row (32, 626, 643, 12) and (4, 1024, 1024, 8) causal,
+each beside the parent commit's kernel built from its own source
+(`b10_parent`, `b7b_parent`, from the tree unpacked into `_scratch/parent/`)
+and the yardstick (the stock ops; SDPA's flash backward op), by CUDA events
+and in CUDA graphs: B10 at 8, 4 and 2 blocks a cluster, its stages cut off
+one by one, its attention, copied rows or q/k/v products left out, or two of
+the three TF32 products taken (wrong outputs); B7's backward in its
+one-launch form and past 128 rows in its key groups at every group count
+worth trying, with exp2f in place of ex2.approx, and cut to show where the
+time goes (the score products, the weights, the dq product, the dv / dk
+products, the accumulator, three at once), then at 640 and 704 keys for the
+cost of the 643-key row's sixth key tile. The fp32 forms: B9's
 (csrc/w8_matmul_f32.cu) at the w8 evaluation's four shapes against
 torch.matmul on the dequantized fp32 weight (TF32 off), held to
 W8_F32_REL of sum |x| |w|: the source as it is, beside the parent's kernel
@@ -122,13 +127,15 @@ _B2 = "gava_clip_tpu_torch/csrc/w8a8_matmul.cu"
 _B10 = "gava_clip_tpu_torch/csrc/fused_extras.cu"
 _B7B = "gava_clip_tpu_torch/csrc/streaming_attention_bwd.cu"
 _B7BH = "gava_clip_tpu_torch/csrc/attention_bwd.cuh"
+_B7BG = "gava_clip_tpu_torch/csrc/attention_bwd_wgmma.cuh"
 _F32 = "gava_clip_tpu_torch/csrc/attention_f32.cu"
 _W8F32 = "gava_clip_tpu_torch/csrc/w8_matmul_f32.cu"
 _LIB = {_PA: "packed_attention", _W8: "w8_matmul", _B7: "streaming_attention",
         _F32: "attention_f32", _W8F32: "w8_matmul_f32",
         _B5: "w8a8_mlp", _B3: "w8a8_qkv", _B4: "attention_out_int8",
         _MEGA: "mega_layer", _B2: "w8a8_matmul", _B10: "fused_extras",
-        _B7B: "streaming_attention_bwd", _B7BH: "streaming_attention_bwd"}
+        _B7B: "streaming_attention_bwd", _B7BH: "streaming_attention_bwd",
+        _B7BG: "streaming_attention_bwd"}
 # The parent commit's tree, for the kernels redesigned since: unpack it with
 # `git archive <parent> | tar -x -C _scratch/parent` before the call. Its
 # B10 and B7-backward sources are built as they are into the variants
@@ -142,9 +149,11 @@ _PARENT_SIGNATURES = {
     _B10: {"fused_extras": ([_VP, ctypes.c_longlong] + [_VP] * 16
                             + [_I] * 8 + [_VP], _I)},
     # q, k, v, do, o, lse, dq, dk, dv; B, Lq, Lk, H, Dh; q/k/v batch and row
-    # strides; scale; causal; stream
+    # strides; scale; causal; form (1 one launch, 0 its two mma.sync
+    # kernels); shared bytes; stream
     _B7B: {"streaming_attention_bwd_bf16": (
-        [_VP] * 9 + [_I] * 5 + [_I] * 6 + [ctypes.c_float, _I, _VP], _I)},
+        [_VP] * 9 + [_I] * 5 + [_I] * 6 + [ctypes.c_float, _I, _I, _I, _VP],
+        _I)},
 }
 _PARENT_SIGNATURES[_B2] = {
     # x, W^T, s, b, y; M, K, N; stream
@@ -625,6 +634,24 @@ _B7F_CHUNKS4 = ("constexpr int kStreamChunks = 2;", "constexpr int kStreamChunks
 _B7F_CHUNKS1 = ("constexpr int kStreamChunks = 2;", "constexpr int kStreamChunks = 1;")
 _B7F_3_BLOCKS = ("__launch_bounds__(kFwdThreads, STREAM ? 2 : 3) packed_fwd_kernel",
                  "__launch_bounds__(kFwdThreads, 3) packed_fwd_kernel")
+# the key groups' parts (csrc/attention_bwd_wgmma.cuh) the b7b cuts skip
+_B7BG_DQ = ("      const int nk = (kmax + 15) / 16;",
+            "      const int nk = a.causal < 0 ? (kmax + 15) / 16 : 0;")
+_B7BG_DKDV = (("        for (int kk = 0; kk < kKD; ++kk)   // dv += bf16(p)^T do",
+               "        for (int kk = 0; kk < (a.causal < 0 ? kKD : 0); ++kk)"),
+              ("        for (int kk = 0; kk < kKD; ++kk)   // dk += ds^T q",
+               "        for (int kk = 0; kk < (a.causal < 0 ? kKD : 0); ++kk)"))
+_B7BG_SCORES = (("        for (int kk = 0; kk < kKD; ++kk)   // s^T = k q^T",
+                  "        for (int kk = 0; kk < (a.causal < 0 ? kKD : 0); ++kk)"),
+                 ("        for (int kk = 0; kk < kKD; ++kk)   // dp^T = v do^T",
+                  "        for (int kk = 0; kk < (a.causal < 0 ? kKD : 0); ++kk)"))
+_B7BG_WEIGHTS = ("        if (!a.causal && wk0 + 64 <= a.Lk)\n"
+                 "          weights(std::true_type{});\n"
+                 "        else\n          weights(std::false_type{});\n",
+                 "        if (a.causal < 0) weights(std::false_type{});\n")
+_B7BG_ACC = ("      for (int j = 0; j < 4; ++j) {\n        const int col = wg * 32",
+             "      for (int j = 0; j < (a.causal < 0 ? 4 : 0); ++j) {\n"
+             "        const int col = wg * 32")
 # name -> (source, [(old, new)])
 VARIANTS = {
     "f32b9_as_is": (_W8F32, []),
@@ -1003,10 +1030,28 @@ VARIANTS = {
         "rl < BT * nl;\n", "rl < 0;\n")]),
     "b7b_as_is": (_B7B, []),
     # exp2 by one MUFU instruction (ex2.approx.ftz, as B1 and B7's forward
-    # take it) in place of exp2f, in both forms
+    # take it) in place of exp2f in the one-launch form
     "b7b_ex2f": (_B7BH, [
         ("const float p = valid ? exp2f(s * c - stat) : 0.f;",
          "const float p = valid ? afrag::ex2f(s * c - stat) : 0.f;")]),
+    # ... and exp2f (IEEE-accurate) in the key groups in place of their
+    # ex2.approx
+    "b7b_exp2f_groups": (_B7BG, [
+        ("afrag::ex2f(s[4 * j + i] * a.c - sv.x)",
+         "exp2f(s[4 * j + i] * a.c - sv.x)")]),
+    # the key groups cut to show where their time goes (wrong outputs; each
+    # part skipped by a test the compiler cannot fold, causal < 0): without
+    # the dq product (the barrier, ds^T and the accumulator kept), without
+    # the dv / dk products, without the accumulator's read and write, and
+    # without all three
+    "b7b_cut_dq": (_B7BG, [_B7BG_DQ]),
+    "b7b_cut_dkdv": (_B7BG, list(_B7BG_DKDV)),
+    "b7b_cut_acc": (_B7BG, [_B7BG_ACC]),
+    "b7b_cut_all": (_B7BG, [_B7BG_DQ, *_B7BG_DKDV, _B7BG_ACC]),
+    # ... without the score products (s^T, dp^T), and without the weights
+    # (p, ds: the exp2 and the masks; the products read the raw scores)
+    "b7b_cut_scores": (_B7BG, list(_B7BG_SCORES)),
+    "b7b_cut_weights": (_B7BG, [_B7BG_WEIGHTS]),
     "b2_as_is": (_B2, []),
     "mega_as_is": (_MEGA, []),
     # where the time goes (wrong outputs): the launch stopped after stage
@@ -1717,8 +1762,15 @@ def _b2_variants(cs, im, libs, gen, state):
 # B10 at the serving path's shape: (Bb, Tb, D, heads, G, le_pad), bf16 cls
 # rows, fp32 weights
 B10_SHAPE = (16, 8, 768, 12, 8, 17)
-# B7's backward at the text tower's shape: (B, L, heads), causal
-B7B_SHAPE = (15, 77, 8)
+# B7's bf16 backward: (B, Lq, Lk, heads, causal) of the text tower, a 400^2
+# frame row of the vision tower at 4 clips x 8 frames, and a long causal L;
+# CUDA graphs of B7B_LAUNCHES[i] calls at each
+B7B_SHAPES = ((15, 77, 77, 8, True), (32, 626, 643, 12, False),
+              (4, 1024, 1024, 8, True))
+B7B_LAUNCHES = (20, 2, 2)
+# the 400^2 frame row's keys cut to 640 (five whole key tiles) and to 704
+# (a sixth of 64): what its sixth tile of 3 keys costs
+B7B_TAIL_SHAPES = ((32, 626, 640, 12), (32, 626, 704, 12))
 
 
 # blocks a cluster B10's source as it is is timed at (the plan's first)
@@ -1928,68 +1980,134 @@ def _sdpa_flash_bwd(q, k, v, do, H, causal):
 
 
 def _b7b_variants(cs, fa, libs, gen, state):
-    """B7's causal backward at the text tower's shape: each variant, through
-    its library's entry point (the parent's own; the others in a form),
-    against the plain version and timed against SDPA's backward, by CUDA
-    events and in CUDA graphs."""
+    """B7's bf16 backward at B7B_SHAPES: the parent commit's form
+    (`b7b_parent`: one launch up to 128 rows, else its dq and dk / dv
+    mma.sync kernels) and this tree's (`b7b_as_is`: one launch, else the
+    key groups on wgmma at every count of groups worth trying, the plan's
+    own marked), the other variants in the plan's form, each held to the
+    plain version (outputs that differ, and > 2 bf16 ulp, worst of dq, dk,
+    dv) and run twice for the same bits, then timed by CUDA events and in
+    CUDA graphs, against SDPA's flash backward op and against the first
+    call (the parent's) in turns in CUDA graphs (median of 7 rounds); then
+    `b7b_as_is` at B7B_TAIL_SHAPES."""
     import torch
-    B, L, H = B7B_SHAPE
-    D = H * 64
-    q, k, v, do = (torch.randn(B, L, D, generator=gen, device="cuda",
-                               dtype=torch.bfloat16) for _ in range(4))
-    o, lse = fa.streaming_attention_plain(q, k, v, H, True)
-    ref = fa.streaming_attention_bwd_plain(q, k, v, do, o, lse, H, True)
-    calls = {}
-    for name, lib in sorted(libs.items(), key=lambda kv: kv[0] != "b7b_parent"):
-        if not name.startswith("b7b"):
-            continue
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = fa._SBWD_LAYOUT[0]
+    for (B, Lq, Lk, H, causal), launches in zip(B7B_SHAPES, B7B_LAUNCHES):
+        D = H * 64
+        label = f"B={B} Lq={Lq} Lk={Lk} H={H} causal={causal}"
+        q, do = (torch.randn(B, Lq, D, generator=gen, device="cuda",
+                             dtype=torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(B, Lk, D, generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+        o, lse = fa.streaming_attention_plain(q, k, v, H, causal)
+        ref = fa.streaming_attention_bwd_plain(q, k, v, do, o, lse, H, causal)
+        one = max(Lq, Lk) <= rows
+        key_tiles = -(-Lk // fa._SBWD_LAYOUT[3])
+        own = fa.streaming_bwd_plan(B, Lq, Lk, H, sms, causal=causal)
+        calls = {}
+        for name, lib in sorted(libs.items(),
+                                key=lambda kv: kv[0] != "b7b_parent"):
+            if not name.startswith("b7b"):
+                continue
+            if name == "b7b_parent":
+                tails = {name: (1, own["smem_bytes"]) if one else (0, 0)}
+                n_scratch = 0
+            elif one:
+                tails = {f"{name}_one_launch": (None, 1, 1, 1, 0, 0,
+                                                own["smem_bytes"])}
+                n_scratch = 0
+            else:
+                plans = {}
+                for g in ((1, 2, 3, key_tiles, own["groups"])
+                          if name == "b7b_as_is" else (own["groups"],)):
+                    plan = fa.streaming_bwd_plan(B, Lq, Lk, H, sms,
+                                                 groups=min(g, key_tiles),
+                                                 causal=causal)
+                    plans[plan["groups"]] = plan
+                tails, n_scratch = {}, 0
+                for g, plan in sorted(plans.items()):
+                    tag = f"{name}_groups{g}" + (
+                        "_plan" if g == own["groups"] else "")
+                    tails[tag] = (None, 2, g, plan["tiles"], plan["lq_pad"],
+                                  int(plan["acc_in_smem"]),
+                                  plan["smem_bytes"])
+                    n_scratch = max(n_scratch, plan["scratch_floats"])
+            scratch = torch.empty(max(n_scratch, 1), device="cuda")
+            for tag, tail in tails.items():
+                grads = [torch.empty_like(x) for x in (q, k, v)]
+                # this tree's entry takes the scratch after dv
+                extra = () if name == "b7b_parent" else (scratch.data_ptr(),)
+                tail = tail if name == "b7b_parent" else tail[1:]
 
-        def launch(lib=lib, form=()):
-            g = [torch.empty_like(t) for t in (q, k, v)]
+                def call(lib=lib, tail=tail, grads=grads, extra=extra,
+                         tag=tag):
+                    err = lib.streaming_attention_bwd_bf16(
+                        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        do.data_ptr(), o.data_ptr(), lse.data_ptr(),
+                        *(g.data_ptr() for g in grads), *extra, B, Lq, Lk, H,
+                        64, *fa._qkv_strides(q, k, v), 64 ** -0.5,
+                        int(causal), *tail,
+                        torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"{tag}: launch failed ({err})")
+                    return grads
+                call()
+                torch.cuda.synchronize()
+                first = [g.clone() for g in grads]
+                call()
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(first, grads))
+                far = max(((g.float() - r.float()).abs()
+                           > 2 * cs.bf16_ulp(r)).float().mean().item()
+                          for g, r in zip(grads, ref))
+                diff = max((g != r).float().mean().item()
+                           for g, r in zip(grads, ref))
+                print(f"[variants] {tag} {label}: outputs != plain "
+                      f"{diff:.3e}, > 2 ulp from plain {far:.3e} (worst of "
+                      f"dq, dk, dv); a second run the same bits: {same}; "
+                      f"{_kernels_per_call(call)} ({state['smi']})",
+                      flush=True)
+                calls[tag] = call
+        bound = cs._attention_bounds(B, Lq, Lk, H, causal)["bwd"]
+        _report_times(cs, label, calls,
+                      _sdpa_flash_bwd(q, k, v, do, H, causal),
+                      "SDPA flash backward (aten op)",
+                      lambda: fa.streaming_attention_bwd_plain(
+                          q, k, v, do, o, lse, H, causal),
+                      f"{bound[0]:.5f} ms ({bound[1]})", state,
+                      launches=launches)
+        del q, k, v, do, o, lse, ref, calls
+        torch.cuda.empty_cache()
+    lib = libs.get("b7b_as_is")
+    for B, Lq, Lk, H in B7B_TAIL_SHAPES if lib is not None else ():
+        D = H * 64
+        q, do = (torch.randn(B, Lq, D, generator=gen, device="cuda",
+                             dtype=torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(B, Lk, D, generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2))
+        o, lse = fa.streaming_attention_plain(q, k, v, H, False)
+        grads = [torch.empty_like(x) for x in (q, k, v)]
+        plan = fa.streaming_bwd_plan(B, Lq, Lk, H, sms)
+        scratch = torch.empty(plan["scratch_floats"], device="cuda")
+
+        def call(Lk=Lk, plan=plan):
             err = lib.streaming_attention_bwd_bf16(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                o.data_ptr(), lse.data_ptr(), *(t.data_ptr() for t in g),
-                B, L, L, H, 64, *fa._qkv_strides(q, k, v), 64 ** -0.5, 1,
-                *form, torch.cuda.current_stream().cuda_stream)
+                o.data_ptr(), lse.data_ptr(), *(g.data_ptr() for g in grads),
+                scratch.data_ptr(), B, Lq, Lk, H, 64,
+                *fa._qkv_strides(q, k, v), 64 ** -0.5, 0, 2, plan["groups"],
+                plan["tiles"], plan["lq_pad"], int(plan["acc_in_smem"]),
+                plan["smem_bytes"], torch.cuda.current_stream().cuda_stream)
             if err:
-                raise RuntimeError(f"streaming_attention_bwd: launch failed "
-                                   f"({err})")
-            return g
-        # the parent's entry point has no form arguments; this tree's takes
-        # the plan's (form, shared bytes): 1 the one-launch form, 0 the two
-        # kernels
-        one = (1, fa.streaming_bwd_plan(B, L, L, H)["smem_bytes"])
-        forms = {name: launch} if name == "b7b_parent" else {
-            f"{name}_{label}": lambda form=form, run=launch: run(form=form)
-            for label, form in ((("one_launch", one), ("two_kernels", (0, 0)))
-                                if name == "b7b_as_is"
-                                else (("one_launch", one),))}
-        for label, call in forms.items():
-            grads = call()
-            torch.cuda.synchronize()
-            far = max(((g.float() - r.float()).abs()
-                       > 2 * cs.bf16_ulp(r)).float().mean().item()
-                      for g, r in zip(grads, ref))
-            diff = max((g != r).float().mean().item()
-                       for g, r in zip(grads, ref))
-            again = call()
-            torch.cuda.synchronize()
-            same = all(torch.equal(a, b) for a, b in zip(grads, again))
-            print(f"[variants] {label} B={B} L={L} H={H} causal: outputs != "
-                  f"plain {diff:.3e}, > 2 ulp from plain {far:.3e} (worst of "
-                  f"dq, dk, dv); a second run the same bits: {same}; "
-                  f"{_kernels_per_call(call)} ({state['smi']})", flush=True)
-            calls[label] = call
-    bound = cs._attention_bounds(B, L, L, H, True)["bwd"]
-    print(f"[variants] SDPA backward through autograd B={B} L={L} H={H} "
-          f"causal: {cs.cuda_time_ms(cs._sdpa_bwd(q, k, v, do, H, True)):.5f}"
-          f" ms by CUDA events ({state['smi']})", flush=True)
-    _report_times(cs, f"B={B} L={L} H={H} causal", calls,
-                  _sdpa_flash_bwd(q, k, v, do, H, True),
-                  "SDPA flash backward (aten op)",
-                  lambda: fa.streaming_attention_bwd_plain(q, k, v, do, o,
-                                                           lse, H, True),
-                  f"{bound[0]:.5f} ms ({bound[1]})", state)
+                raise RuntimeError(f"b7b_as_is: launch failed ({err})")
+        print(f"[variants] b7b_as_is B={B} Lq={Lq} Lk={Lk} H={H} "
+              f"({-(-Lk // fa._SBWD_LAYOUT[3])} key tiles of "
+              f"{fa._SBWD_LAYOUT[3]}, {plan['groups']} group(s)): "
+              f"{_graph_ms(cs, call, 2):.5f} ms in CUDA graphs of 2 "
+              f"({state['smi']})", flush=True)
+        del q, k, v, do, o, lse, grads, scratch
+
 
 def _f32b9_variants(cs, im, libs, gen, stream, state):
     """B9 in fp32 at the w8 evaluation's four shapes, each variant in turns

@@ -276,6 +276,36 @@ def test_streaming_bwd_plain_rounding_points(dtype):
         assert (a.float() - b).abs().max().item() <= tol
 
 
+def test_streaming_bwd_at_400_frame_row():
+    """The port's streaming attention at the lengths of a 400^2 frame row
+    of the vision tower (626 query rows, 643 keys: past the packed path's
+    640), bf16 inputs, one head of 64, non-causal: flash_attention takes
+    _StreamingAttention, and its gradients (the plain backward on the CPU,
+    the rounding points of B7's key groups on the card) stay within
+    flipped bf16 roundings (2^-6 of the largest |gradient|, as
+    test_streaming_bwd_plain_rounding_points) of jax.vjp of the JAX
+    package's _reference_attention on the same bf16-rounded inputs in
+    fp32."""
+    B, Lq, Lk, H, Dh = 1, 626, 643, 1, 64
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _qkvdo(31, B, Lq, Lk, H, Dh,
+                                                  "bfloat16")
+    ts = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    out = tflash.flash_attention(*ts, H)
+    assert type(out.grad_fn).__name__ == "_StreamingAttentionBackward"
+    out.backward(tdo)
+    f32 = [jnp.asarray(x, jnp.float32) for x in (jq, jk, jv)]
+    ref, vjp = jax.vjp(
+        lambda q, k, v: jflash._reference_attention(q, k, v, H, False), *f32)
+    np.testing.assert_allclose(_np(out), _np(ref),
+                               atol=2.0 ** -6 * np.abs(_np(ref)).max())
+    for name, t, r in zip(("dq", "dk", "dv"), ts,
+                          vjp(jnp.asarray(jdo, jnp.float32))):
+        assert t.grad.dtype == torch.bfloat16, name
+        r = _np(r)
+        err = np.abs(_np(t.grad) - r).max()
+        assert err <= 2.0 ** -6 * np.abs(r).max(), (name, err)
+
+
 def test_flash_attention_dispatch_and_counts():
     """Causal and long keys go to the streaming path, everything else to
     the packed one; on the CPU no kernel is launched; attention_core

@@ -539,39 +539,112 @@ def test_profiled_symbols_are_kernels_of_the_sources():
 def test_streaming_bwd_layout_is_the_kernel_source_s():
     """The plan's constants are the ones streaming_attention_bwd_layout
     reports: the most rows of the one-launch form (8 warps of 16 keys), its
-    shared bytes (q, do, k, v tiles, ds^T, two floats a row) and threads."""
-    c = _cuda_constants("attention_common.cuh", "attention_bwd.cuh")
+    shared bytes (q, do, k, v tiles, ds^T, two floats a row) and threads;
+    the key groups' key tile, query rows a step, threads, fixed shared
+    bytes (the key tile, ds^T, two stages of q and do rows and their
+    float2 stats, the 1,024-byte alignment's slack), bytes a dq accumulator
+    row and a block's most shared bytes, within an H100's."""
+    c = _cuda_constants("attention_common.cuh", "attention_bwd.cuh",
+                        "attention_bwd_wgmma.cuh")
     assert tfa._SBWD_LAYOUT == (c["kFRows"], c["kFSmemBytes"],
-                                c["kFThreads"])
+                                c["kFThreads"], c["kGKeys"], c["kGRows"],
+                                c["kGThreads"], c["kGFixedBytes"],
+                                c["kGAccRowBytes"], c["kGMaxSmem"])
     rows = c["kFRows"]
     assert c["kFSmemBytes"] == (4 * rows * c["kLDS"] * 2
                                 + rows * (rows + 8) * 2 + 2 * rows * 4)
     assert c["kFSmemBytes"] <= _H100_SMEM_OPTIN
+    keys, step, row_bytes = c["kGKeys"], c["kGRows"], 64 * 2
+    assert c["kGFixedBytes"] == (2 * keys * row_bytes + 2 * 2 * step * row_bytes
+                                 + 2 * step * 8 + 1024)
+    assert c["kGAccRowBytes"] == 64 * 4
+    assert c["kGMaxSmem"] == _H100_SMEM_OPTIN
+    # two warpgroups of 64 keys; the tiles stay 1,024-byte aligned
+    assert (keys, c["kGThreads"]) == (2 * 64, 2 * 128)
+    assert all(c[n] % 1024 == 0 for n in ("kGOffDs", "kGOffStage",
+                                          "kGStageBytes", "kGOffStat"))
 
 
-@pytest.mark.parametrize("B,Lq,Lk,H,form", [
-    (15, 77, 77, 8, "one_launch"),      # the text tower (TRAIN_STREAM_SHAPES)
-    (4, 1024, 1024, 8, "two_kernels"),
-    (2, 130, 700, 2, "two_kernels"),
-    (3, 13, 21, 2, "one_launch"),
-    (2, 100, 60, 2, "one_launch"),
-    (2, 200, 200, 3, "two_kernels"),
-    (1, 128, 128, 1, "one_launch"),     # the layout's edge
-    (1, 129, 16, 1, "two_kernels"),
-    (1, 16, 129, 1, "two_kernels"),
+@pytest.mark.parametrize("B,Lq,Lk,H,causal,form", [
+    (15, 77, 77, 8, True, "one_launch"),   # the text tower (TRAIN_STREAM_SHAPES)
+    (4, 1024, 1024, 8, True, "key_groups"),
+    (2, 130, 700, 2, False, "key_groups"),
+    (3, 13, 21, 2, False, "one_launch"),
+    (2, 100, 60, 2, True, "one_launch"),
+    (2, 200, 200, 3, True, "key_groups"),
+    (1, 128, 128, 1, False, "one_launch"),     # the layout's edge
+    (1, 129, 16, 1, False, "key_groups"),
+    (1, 16, 129, 1, False, "key_groups"),
+    (32, 626, 643, 12, False, "key_groups"),   # a 400^2 frame row, 4 x 8 clips
+    (8, 300, 300, 4, True, "key_groups"),
 ])
-def test_streaming_bwd_plan_at_checked_shapes(B, Lq, Lk, H, form):
+def test_streaming_bwd_plan_at_checked_shapes(B, Lq, Lk, H, causal, form):
     """Every shape chip_smoke checks: one launch of a block per (row, head)
     with the layout's shared bytes while every query row and key fits the
-    one-launch tiles, else the two kernels (two launches)."""
-    p = tfa.streaming_bwd_plan(B, Lq, Lk, H)
+    one-launch tiles, else the key groups on an H100's 132 SMs: a block
+    per (row, head, group of key tiles of 128), the fp32 form's group
+    counts, the dq accumulator in shared memory while it fits, two
+    launches (the stats, the wgmma kernel) or three (the dq sum), and a
+    scratch of the rows' stats and the blocks' dq sums."""
+    p = tfa.streaming_bwd_plan(B, Lq, Lk, H, 132, causal=causal)
     assert p["form"] == form
     if form == "one_launch":
-        assert (p["launches"], p["grid"]) == (1, B * H)
+        assert (p["launches"], p["grid"], p["groups"]) == (1, B * H, 1)
         assert p["smem_bytes"] == tfa._SBWD_LAYOUT[1]
-    else:
-        assert p["launches"] == 2 and p["smem_bytes"] == 0
-        assert p["grid"] == (-(-Lq // 64) * H * B, -(-Lk // 64) * H * B)
+        assert p["scratch_floats"] == 0
+        return
+    key_tiles = -(-Lk // 128)
+    assert p["groups"] == tfa.stream_bwd_groups(B * H, key_tiles, 132, causal)
+    assert p["tiles"] * (p["groups"] - 1) < key_tiles <= p["tiles"] * p["groups"]
+    assert p["grid"] == B * H * p["groups"]
+    assert p["launches"] == (2 if p["groups"] == 1 else 3)
+    lq_pad = -(-Lq // 64) * 64
+    assert p["lq_pad"] == lq_pad
+    fixed = tfa._SBWD_LAYOUT[6]
+    assert p["acc_in_smem"] == (fixed + lq_pad * 256 <= tfa._SBWD_LAYOUT[8])
+    assert p["smem_bytes"] == fixed + (lq_pad * 256 if p["acc_in_smem"] else 0)
+    assert p["smem_bytes"] <= tfa._SBWD_LAYOUT[8] == _H100_SMEM_OPTIN
+    sums = 0 if p["groups"] == 1 and p["acc_in_smem"] else \
+        p["grid"] * lq_pad * 64
+    assert p["scratch_floats"] == 2 * B * H * lq_pad + sums
+    if (B, Lq, Lk, H) == (32, 626, 643, 12):
+        # 384 blocks, three waves of 132 to 97%: one group, its accumulator
+        # of 640 rows beside the tiles in 231,424 bytes
+        assert (p["groups"], p["grid"], p["smem_bytes"]) == (1, 384, 231424)
+        assert p["scratch_floats"] == 2 * 384 * 640
+    if (B, Lq, Lk, H) == (4, 1024, 1024, 8):
+        # causal, 32 pairs: one group a key tile, the accumulators of 1,024
+        # rows in the scratch
+        assert (p["groups"], p["grid"], p["acc_in_smem"]) == (8, 256, False)
+
+
+def test_streaming_bwd_plan_groups_and_refusals():
+    """Any group count from one to the key tiles is a plan, none of its
+    groups empty; more groups than key tiles raise."""
+    for groups in range(1, 7):
+        p = tfa.streaming_bwd_plan(2, 300, 700, 2, groups=groups)
+        assert -(-6 // p["tiles"]) == p["groups"] <= groups
+    with pytest.raises(ValueError, match="groups"):
+        tfa.streaming_bwd_plan(2, 300, 700, 2, groups=7)
+
+
+@pytest.mark.parametrize("table,name", [
+    *(("variants", n) for n in ("b7b_ex2f", "b7b_exp2f_groups", "b7b_cut_dq",
+                               "b7b_cut_dkdv", "b7b_cut_acc", "b7b_cut_all",
+                               "b7b_cut_scores", "b7b_cut_weights")),
+    ("mutants", "b7bg_dq_overwritten"), ("mutants", "b7bg_last_group_dropped"),
+])
+def test_b7b_variant_and_mutant_edits_apply_once(table, name):
+    """Each edit of B7's backward variants (kernel_variants) and of the
+    key groups' mutants (kernel_mutants) finds its text exactly once in the
+    source it patches, so that the card builds what the name says."""
+    from gava_clip_tpu_torch.utils import kernel_mutants, kernel_variants
+    path, edits = (kernel_variants.VARIANTS[name] if table == "variants"
+                   else kernel_mutants.MUTANTS[name][:2])
+    src = (_CSRC.parent.parent / path).read_text()
+    for old, new in edits:
+        assert src.count(old) == 1, (name, old)
+        src = src.replace(old, new)
 
 
 def test_streaming_bwd_layout_check_before_first_launch():

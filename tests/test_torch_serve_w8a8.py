@@ -293,7 +293,7 @@ def test_server_quantize_w8a8(models, monkeypatch, tmp_path):
     seen = {}
 
     def tiny_zero_shot(num_frames, num_classes, text_features=None,
-                       device=None):
+                       backbone_path=None, device=None):
         seen["args"] = (num_frames, num_classes)
         return models[1]
 
@@ -319,5 +319,35 @@ def test_server_quantize_w8a8(models, monkeypatch, tmp_path):
             models[1], NAMES, batch_size=2, quantize="w8a8",
             patch_major=True, device="cpu").classify_clips(clip[None])[0]
         np.testing.assert_allclose(body["probs"], ref, atol=1e-6)
+    finally:
+        stop_server(httpd, th)
+
+
+@pytest.mark.parametrize("flag,want", [("backbone.pt", "backbone.pt"),
+                                       ("", None)])
+def test_server_backbone_path_reaches_build_zero_shot(models, monkeypatch,
+                                                      tmp_path, flag, want):
+    """`server --backbone_path P` hands P to build_zero_shot, as the JAX
+    server does; the default "" arrives as None (random weights)."""
+    classes = tmp_path / "classes.txt"
+    classes.write_text("\n".join(NAMES) + "\n")
+    seen = {}
+
+    def tiny_zero_shot(num_frames, num_classes, text_features=None,
+                       backbone_path=None, device=None):
+        seen["backbone_path"] = backbone_path
+        return models[1]
+
+    monkeypatch.setattr(tflagship, "build_zero_shot", tiny_zero_shot)
+    argv = ["--host", "127.0.0.1", "--port", "0", "--classes", str(classes),
+            "--num_frames", "2", "--batch_size", "2", "--device", "cpu"]
+    if flag:
+        argv += ["--backbone_path", str(tmp_path / flag)]
+    httpd = tserver.make_server(argv)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        assert seen["backbone_path"] == (
+            None if want is None else str(tmp_path / want))
     finally:
         stop_server(httpd, th)

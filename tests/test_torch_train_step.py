@@ -321,7 +321,12 @@ def _jax_grads(jmodel, batch, attn_impl="xla", **loss_kw):
     loss_fn = jstep.make_loss_fn(jmodel, jstep.LossConfig(**loss_kw),
                                  attn_impl=attn_impl)
     # the stock streaming kernel's backward traces only inside the
-    # interpret context on the CPU (tests/test_flash_attention.py)
+    # interpret context on the CPU (tests/test_flash_attention.py); a trace
+    # of it outside that context, left in JAX's caches by another test of
+    # the process (tests/test_train_step.py traces the flash grad without
+    # running it), would be reused and fail to lower: trace afresh
+    if attn_impl == "flash":
+        jax.clear_caches()
     with pltpu.force_tpu_interpret_mode():
         return jax.grad(loss_fn, has_aux=True)(st.trainable, st.frozen,
                                                _jb(batch))

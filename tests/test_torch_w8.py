@@ -503,7 +503,7 @@ def test_server_quantize_w8(models, monkeypatch, tmp_path):
     classes.write_text("\n".join(NAMES) + "\n")
     monkeypatch.setattr(tflagship, "build_zero_shot",
                         lambda num_frames, num_classes, text_features=None,
-                        device=None: models[1])
+                        backbone_path=None, device=None: models[1])
     httpd = tserver.make_server(
         ["--host", "127.0.0.1", "--port", "0", "--classes", str(classes),
          "--num_frames", "2", "--batch_size", "2", "--quantize", "w8",
